@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (iadr1_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--max-new-tokens N]
+    python3 chip_smoke.py [--max-new-tokens N] [--train-steps N]
 
 Phases, a line each at least, then the kernel JSON line, the card line and the
 result line:
@@ -9,9 +9,13 @@ result line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel built from iadr1_tpu_torch/csrc/ for sm_90a;
 3. kernels: K1 (flash forward) and K4 (ragged decode) held against their
-   plain PyTorch twins on the card at the serving path's shapes (plus
-   partial-tile and T != S cases), with their times, the twin's time and
-   F.scaled_dot_product_attention's time as a yardstick;
+   plain PyTorch twins on the card at the serving path's shapes, and K2
+   (flash dq) and K3 (flash dk/dv) against the plain backward at the
+   training path's shapes (plus partial-tile, T != S and dlse != 0
+   cases; K1's out and lse that feed them are held against the twin
+   there too), with their times, the plain version's time and the matching
+   PyTorch call's time (F.scaled_dot_product_attention, forward or
+   backward) as a yardstick;
 4. main path: Qwen2-VL-2B at full width (28 decoder and 32 tower layers,
    bf16, weights drawn on the card from a seeded generator) serves 4
    already-tokenized image requests through VLMGenerator._collate and
@@ -20,7 +24,15 @@ result line:
    run went through K1 or K4, and the kernel path's prefill logits must
    agree with the twin path's;
 5. profile: a short generate under torch.profiler (device busy share and
-   the kernels that take the device time).
+   the kernels that take the device time);
+6. training: Qwen2-VL-2B at full width (f32 parameters drawn on the card,
+   bf16 compute, AdamW) takes 8 PA-SFT steps through make_chunked_sft_step
+   and run_sft_loop on 4 already-tokenized image examples packed into 2
+   rows of 2048 (remat on, CE chunk 1024); the launch counters must show
+   that every attention call of every step went through K1, K2 and K3,
+   step 1 must agree with a step through the plain versions (loss, grad
+   norm and the attention projections' per-layer grad norms), a control
+   step with dq zeroed must not, and the loss must fall.
 
 Exits non-zero, printing no result, without a CUDA card or when any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -70,6 +82,12 @@ VISION_START, IMAGE_PAD, VISION_END = 151652, 151655, 151653
 IMAGE_HW = [(448, 448), (336, 560), (448, 448), (336, 560)]
 PROMPT_LEN, BATCH, PATCH_BUDGET = 1024, 4, 4096
 DEVICE = "cuda"
+# training: the cli/train_sft.py defaults (cutoff 2048, CE chunk 1024,
+# remat on, AdamW lr 1e-5 cosine with warmup ratio 0.1, clip 1.0)
+CUTOFF_LEN, TRAIN_ROWS, CE_CHUNK, LEARNING_RATE = 2048, 2, 1024, 1e-5
+ANSWER_LEN = (600, 720)
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_sft")
 
 # tolerances, kernel vs twin on identical bf16 inputs.  out: the kernel
 # rounds p to bf16 before p @ v and both round the output to bf16 (2^-8
@@ -81,6 +99,22 @@ LSE_ATOL = 1e-3
 # attention calls rounds at other places (2^-8 relative), and the residual
 # stream carries those differences through the remaining layers
 LOGITS_REL_L2 = 5e-2
+# K2/K3 against the plain backward on identical bf16 inputs: the kernels
+# round p and ds to bf16 before their products (2^-8 relative each) and
+# the gradients to bf16; the gradients' scale depends on the softmax
+# width, so the absolute part is a fraction of the reference's largest
+# magnitude
+BWD_RTOL, BWD_ATOL_FRAC = 2e-2, 1e-2
+# training step 1, kernel path vs plain path from the same parameters and
+# batch: every one of the 92 + 60 attention calls rounds p (and, in the
+# backward, ds) to bf16 where the plain versions keep f32, and those
+# differences ride the residual stream through 28 + 32 layers.  The
+# limits sit a few times above the sound readings on an H100 (PERF.md):
+# the loss, the global grad norm, and the largest relative difference of
+# the per-layer grad norms of the attention's q, k and v projections
+# (decoder and tower), which read the backward's dq, dk and dv directly.
+# A control step through the plain path with dq zeroed must fail them.
+STEP1_LOSS_REL, STEP1_GRAD_NORM_REL, STEP1_QKV_REL = 1e-4, 2e-3, 1.5e-2
 
 
 def log(line: str) -> None:
@@ -161,6 +195,39 @@ def make_requests(seed: int = 0):
     return encoded
 
 
+def make_sft_rows(seed: int = 1):
+    """Four synthetic IAD SFT examples in the qwen2_vl chatml form (a
+    seeded image each, prompt masked, a labeled answer of 600-720 seeded
+    tokens), packed by the port's pack_examples into 2 rows of 2048."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+    from iadr1_tpu_torch.vision.preprocess import patchify_image
+
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    examples = []
+    for i, (h, w) in enumerate(IMAGE_HW):
+        flat, grid = patchify_image(rng.random((h, w, 3), dtype=np.float32))
+        n_img = int(np.prod(grid)) // 4
+        prompt = ([IM_START] + text(3) + [IM_END] + text(1)
+                  + [IM_START] + text(2)
+                  + [VISION_START] + [IMAGE_PAD] * n_img + [VISION_END]
+                  + text(8 + 4 * i) + [IM_END] + text(1)
+                  + [IM_START] + text(2))
+        answer = text(int(rng.integers(ANSWER_LEN[0], ANSWER_LEN[1] + 1)))
+        answer += [IM_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [flat], "grid_thw": [grid]}})
+    rows = pack_examples(examples, CUTOFF_LEN, ENDOFTEXT)
+    if len(rows) != TRAIN_ROWS or any(r["segment_ids"].max() != 2
+                                      for r in rows):
+        raise AssertionError("the examples did not pack into 2 rows of 2")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
@@ -174,6 +241,18 @@ def _pairs(q_seg, kv_seg, causal):
         ok &= (torch.arange(S, device=ok.device)[None, :]
                <= torch.arange(T, device=ok.device)[:, None])
     return ok
+
+
+def check_fwd(shape, out, lse, ref_out, ref_lse, q_seg, kv_seg, causal):
+    """K1's (out, lse) against the twin's on the rows with a valid key;
+    rows with none must come out 0 / +inf."""
+    B, H, T = lse.shape
+    rows = _pairs(q_seg, kv_seg, causal).any(-1)[:, None, :].expand(B, H, T)
+    err = check_close("flash out", out, ref_out, rows=rows, **OUT_TOL)
+    lse_err = check_close("flash lse", lse, ref_lse, LSE_ATOL, 0.0, rows=rows)
+    if not (out[~rows] == 0).all() or not torch.isposinf(lse[~rows]).all():
+        raise AssertionError("flash: a row with no valid key is not 0/+inf")
+    return {"shape": shape, "max_abs_err": err, "lse_max_abs_err": lse_err}
 
 
 def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
@@ -193,17 +272,12 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
     ref_out, ref_lse = flash_attention_ref(q, k, v, q_seg, kv_seg,
                                            causal=causal, scale=scale)
     torch.cuda.synchronize()
-    pairs = _pairs(q_seg, kv_seg, causal)                     # [B, T, S]
-    rows = pairs.any(-1)[:, None, :].expand(B, H, T)
-    err = check_close("flash out", out, ref_out, rows=rows, **OUT_TOL)
-    lse_err = check_close("flash lse", lse, ref_lse, LSE_ATOL, 0.0, rows=rows)
-    if not (out[~rows] == 0).all() or not torch.isposinf(lse[~rows]).all():
-        raise AssertionError("flash: a row with no valid key is not 0/+inf")
-    res = {"shape": f"B={B} H={H} Hkv={Hkv} T={T} S={S} D={D} "
-                    f"causal={causal}",
-           "max_abs_err": err, "lse_max_abs_err": lse_err}
+    res = check_fwd(f"B={B} H={H} Hkv={Hkv} T={T} S={S} D={D} "
+                    f"causal={causal}", out, lse, ref_out, ref_lse, q_seg,
+                    kv_seg, causal)
     if not timed:
         return res
+    pairs = _pairs(q_seg, kv_seg, causal)                     # [B, T, S]
     flops = 4.0 * H * D * float(pairs.sum())
     nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
               + 4 * lse.numel() + 4 * (q_seg.numel() + kv_seg.numel()))
@@ -225,6 +299,93 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
         gflop=flops / 1e9,
     )
     return res
+
+
+def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
+             with_dlse=False):
+    """K2 and K3 against flash_attention_bwd_ref on the same bf16 inputs
+    (out and lse from K1, which is held against its twin there first);
+    returns a result for K2, K3 and K1."""
+    from iadr1_tpu_torch.kernels.flash_attention import (
+        _delta,
+        flash_attention,
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((B, H, T, D), generator=gen, **dev)
+    k = torch.randn((B, Hkv, S, D), generator=gen, **dev)
+    v = torch.randn((B, Hkv, S, D), generator=gen, **dev)
+    do = torch.randn((B, H, T, D), generator=gen, **dev)
+    scale = D ** -0.5
+    shape = (f"B={B} H={H} Hkv={Hkv} T={T} S={S} D={D} causal={causal}"
+             + (" dlse!=0" if with_dlse else ""))
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, segment_ids=q_seg,
+                                   kv_segment_ids=kv_seg, causal=causal)
+        ref_out, ref_lse = flash_attention_ref(q, k, v, q_seg, kv_seg,
+                                               causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    res_fwd = check_fwd(shape + " (K1 feeding K2/K3)", out, lse, ref_out,
+                        ref_lse, q_seg, kv_seg, causal)
+    del ref_out, ref_lse
+    finite = torch.isfinite(lse)
+    dlse = None
+    if with_dlse:
+        dlse = torch.randn(lse.shape, generator=gen, device="cuda") * finite
+    delta = _delta(out, do, dlse).contiguous()
+    kw = dict(causal=causal, scale=scale)
+    args = (q, k, v, q_seg, kv_seg, lse, delta, do)
+    dq = flash_bwd_dq(*args, **kw)
+    dk, dv = flash_bwd_dkv(*args, **kw)
+    ref = flash_attention_bwd_ref(q, k, v, q_seg, kv_seg, out, lse, do, dlse,
+                                  **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        errs.append(check_close(
+            f"flash {name}", got, want,
+            BWD_ATOL_FRAC * float(want.float().abs().max()), BWD_RTOL))
+    if not (dq[~finite] == 0).all():
+        raise AssertionError("flash dq: a row with no valid key is not 0")
+    res_dq = {"shape": shape, "max_abs_err": errs[0]}
+    res_dkv = {"shape": shape, "max_abs_err": max(errs[1:])}
+    if not timed:
+        return res_dq, res_dkv, res_fwd
+    pairs = float(_pairs(q_seg, kv_seg, causal).sum())
+    segs = 4 * (q_seg.numel() + kv_seg.numel())
+    stats = 4 * (lse.numel() + delta.numel())
+    plain_ms = time_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, q_seg, kv_seg, out, lse, do, dlse, **kw))
+    # the yardstick: SDPA's backward (dq, dk, dv together) on a saved
+    # forward, with a boolean mask and K/V repeated for GQA
+    mask = _pairs(q_seg, kv_seg, causal)[:, None]
+    leaves = [t.detach().requires_grad_(True) for t in (
+        q, k.repeat_interleave(H // Hkv, dim=1),
+        v.repeat_interleave(H // Hkv, dim=1))]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=mask)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True))
+    for res, fn, n_products, out_numel in (
+            (res_dq, flash_bwd_dq, 3, dq.numel()),
+            (res_dkv, flash_bwd_dkv, 4, dk.numel() + dv.numel())):
+        flops = 2.0 * n_products * H * D * pairs
+        nbytes = (2 * (q.numel() + k.numel() + v.numel() + do.numel()
+                       + out_numel) + stats + segs)
+        bound_flops = flops / PEAK_BF16_FLOPS
+        bound_bytes = nbytes / PEAK_HBM_BYTES
+        res.update(
+            ms=time_ms(lambda: fn(*args, **kw)), plain_ms=plain_ms,
+            library_ms=library_ms,
+            bound_ms=1e3 * max(bound_flops, bound_bytes),
+            bound_by="operations" if bound_flops >= bound_bytes else "bytes",
+            gflop=flops / 1e9)
+    return res_dq, res_dkv, res_fwd
 
 
 def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
@@ -270,7 +431,7 @@ def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
     return res
 
 
-def phase_kernels(encoded, max_new_tokens):
+def phase_kernels(encoded, max_new_tokens, train_rows):
     from iadr1_tpu_torch.vision.preprocess import vision_segment_ids
 
     cuda = dict(device="cuda", dtype=torch.int32)
@@ -311,6 +472,32 @@ def phase_kernels(encoded, max_new_tokens):
                              dead, 8, timed=False),
                  decode_case(2, 8, 1, 100, 64, 0, dead[:2, :100], 9,
                              timed=False)]
+    # the training path's shapes: the packed rows' segments (two per row
+    # plus padding) and the tower over their four images
+    dec_train = torch.as_tensor(np.stack([r["segment_ids"] for r in train_rows]),
+                                **cuda)
+    train_grids = [g for r in train_rows for e in r["extras"]
+                   for g in e["grid_thw"]]
+    tower_train = torch.as_tensor(
+        vision_segment_ids(train_grids, pad_to=PATCH_BUDGET), **cuda)[None]
+    ones = lambda b, n: torch.ones((b, n), **cuda)
+    part = torch.zeros((1, 200), **cuda)   # two segments, then padding
+    part[0, :90], part[0, 90:181] = 1, 2
+    bwd = [
+        bwd_case(1, 16, 16, PATCH_BUDGET, PATCH_BUDGET, 80, False,
+                 tower_train, tower_train, 11, timed=True),
+        bwd_case(TRAIN_ROWS, 12, 2, CUTOFF_LEN, CUTOFF_LEN, 128, True,
+                 dec_train, dec_train, 12, timed=True),
+        # partial tiles with packed segments and padding, GQA 2, D=80
+        bwd_case(1, 4, 2, 200, 200, 80, True, part, part, 13, timed=False),
+        # T != S, partial tiles, non-causal, GQA 3, D=128
+        bwd_case(2, 6, 2, 300, 130, 128, False, ones(2, 300), ones(2, 130),
+                 14, timed=False),
+        # the lse cotangent (GRPO's merge), top-left causal T < S, GQA 7
+        bwd_case(1, 14, 2, 190, 333, 64, True, ones(1, 190), ones(1, 333),
+                 15, timed=False, with_dlse=True),
+    ]
+    extra += [fwd for _, _, fwd in bwd]     # K1 at the training shapes
     for r in [tower, prefill, *extra]:
         log(f"kernels: flash_fwd {r['shape']}: max_abs_err "
             f"{r['max_abs_err']:.3e}, lse {r['lse_max_abs_err']:.3e}"
@@ -324,7 +511,17 @@ def phase_kernels(encoded, max_new_tokens):
             + (f"; {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
                f"{r['bound_by']})" if "ms" in r else ""))
+    for rdq, rdkv, _ in bwd:
+        for name, r in (("flash_bwd_dq", rdq), ("flash_bwd_dkv", rdkv)):
+            log(f"kernels: {name} {r['shape']}: max_abs_err "
+                f"{r['max_abs_err']:.3e}"
+                + (f"; {r['ms']:.4f} ms (plain bwd {r['plain_ms']:.4f}, "
+                   f"sdpa bwd {r['library_ms']:.4f}, bound "
+                   f"{r['bound_ms']:.4f} {r['bound_by']}, "
+                   f"{r['gflop']:.2f} GFLOP)" if "ms" in r else ""))
     return {"flash_fwd": [tower, prefill] + extra,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
             "decode_attention": [dec] + dec_extra}
 
 
@@ -433,6 +630,8 @@ def phase_main(encoded, max_new_tokens, card):
     if launches["flash_fwd"] != want_flash or steps < 1:
         raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
                              f"times, want {want_flash}")
+    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        raise AssertionError(f"serving launched a backward kernel: {launches}")
     if launches["decode_attention"] != want_decode:
         raise AssertionError(
             f"decode_attention launched {launches['decode_attention']} "
@@ -454,7 +653,6 @@ def phase_profile(gen, batch, steps: int = 8) -> None:
     kernels' own device time on the one stream."""
     import dataclasses
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from iadr1_tpu_torch.train.rollout import RolloutEngine
@@ -471,22 +669,339 @@ def phase_profile(gen, batch, steps: int = 8) -> None:
         engine.generate(gen.params, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"profile: prefill + {steps} decode steps: "
+        + device_time_summary(prof, wall_ms))
+
+
+# device kernels by family, matched on the kernel's name in this order
+KERNEL_FAMILIES = [
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K4 decode", ("decode_kernel",)),
+    ("f32 GEMM", ("f32f32", "sgemm")),
+    ("bf16 GEMM", ("gemm", "nvjet", "cutlass")),
+    ("elementwise", ("elementwise",)),
+    ("reduction", ("reduce",)),
+]
+
+
+def device_time_summary(prof, wall_ms: float, top_n: int = 6,
+                        ranges=()) -> str:
+    """Device busy time (the sum of the kernels' own device time on the
+    one stream), idle share and the top kernels of a profiler window, and
+    the device time of the kernels launched inside each named range."""
+    from torch.autograd import DeviceType
+
     # device-side kernel events only: the CPU ops that launched them carry
-    # the same device time again
-    events = [e for e in prof.key_averages()
+    # the same device time again, and a range's span on the device
+    # timeline is no kernel
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log(f"profile: wall {wall_ms:.1f} ms; the profiler recorded no "
-            f"device time, device busy share not measured")
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"profile: prefill + {steps} decode steps: wall {wall_ms:.1f} ms, "
-        f"device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; top kernels: " + "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
-            f"x{e.count}" for e in top))
+        return (f"wall {wall_ms:.1f} ms; the profiler recorded no device "
+                f"time, device busy share not measured")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
+    shares = {}
+    for e in events:
+        kind = next((label for label, keys in KERNEL_FAMILIES
+                     if any(key in e.key for key in keys)), "other")
+        shares[kind] = shares.get(kind, 0.0) + e.self_device_time_total / 1e3
+    in_ranges = {e.key: e.device_time_total / 1e3 for e in averages
+                 if e.key in ranges and e.device_type == DeviceType.CPU}
+    outside = (f"outside them {busy_ms - sum(in_ranges.values()):.1f} ms; "
+               if ranges else "")
+    return (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+            f"share {1 - busy_ms / wall_ms:.3f}; "
+            + "".join(f"in {name} {in_ranges.get(name, 0.0):.1f} ms, "
+                      for name in ranges) + outside
+            + "by family: " + ", ".join(
+                f"{kind} {ms:.1f} ms" for kind, ms in sorted(
+                    shares.items(), key=lambda kv: -kv[1]))
+            + "; top kernels: " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
+                f"x{e.count}" for e in top))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+
+
+class TwinFlash(torch.autograd.Function):
+    """The flash Function over the plain versions only (forward twin,
+    written-out backward): the reference path of the step-1 check."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal):
+        from iadr1_tpu_torch.kernels.flash_attention import flash_attention_ref
+
+        ctx.scale = q.shape[-1] ** -0.5
+        out, lse = flash_attention_ref(q, k, v, q_seg, kv_seg, causal=causal,
+                                       scale=ctx.scale)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.causal = causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        from iadr1_tpu_torch.kernels.flash_attention import (
+            flash_attention_bwd_ref,
+        )
+
+        dq, dk, dv = flash_attention_bwd_ref(
+            *ctx.saved_tensors, do, dlse, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+class ZeroDqFlash(TwinFlash):
+    """The control of the step-1 check: the plain backward with dq
+    zeroed, a faulty backward its limits must catch."""
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        dq, *rest = TwinFlash.backward(ctx, do, dlse)
+        return (torch.zeros_like(dq), *rest)
+
+
+def train_attn(flash):
+    """The model-level attention signature over a flash Function."""
+    def attn(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
+             causal=True):
+        out, _ = flash.apply(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), q_segments, kv_segments,
+                             causal)
+        return out.transpose(1, 2)
+    return attn
+
+
+class GradProbe:
+    """The optimizer, wrapped: on its first call it keeps the per-layer
+    gradient norms of the attention's q, k and v projections in the
+    decoder and the tower (the step hands its gradients only to the
+    optimizer)."""
+
+    def __init__(self, optimizer, params):
+        from iadr1_tpu_torch.train.state import tree_leaves
+
+        leaves = tree_leaves(params)
+        attn = params["text"]["layers"]["attn"]
+        targets = [attn[n]["kernel"] for n in "qkv"]
+        targets.append(params["vision"]["blocks"]["attn"]["qkv"]["kernel"])
+        self.index = [next(i for i, p in enumerate(leaves) if p is t)
+                      for t in targets]
+        self.optimizer, self.norms = optimizer, None
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def apply(self, params, grads, state, grad_norm=None):
+        if self.norms is None:
+            dq, dk, dv, tower = (grads[i].detach() for i in self.index)
+            parts = dict(zip(("decoder q", "decoder k", "decoder v"),
+                             (dq, dk, dv)))
+            parts.update(zip(("tower q", "tower k", "tower v"),
+                             tower.chunk(3, dim=-1)))
+            self.norms = {n: g.float().flatten(1).norm(dim=1)
+                          for n, g in parts.items()}
+        return self.optimizer.apply(params, grads, state, grad_norm)
+
+
+def step1_diffs(got, ref) -> dict:
+    """Relative differences of step 1's loss, global grad norm and the
+    worst per-layer q/k/v projection grad norm."""
+    (m, norms), (m0, norms0) = got, ref
+    return {
+        "loss": abs(m["loss"] - m0["loss"]) / abs(m0["loss"]),
+        "grad norm": abs(m["grad_norm"] - m0["grad_norm"]) / m0["grad_norm"],
+        "qkv grad norms": max(float(((norms[n] - norms0[n]).abs()
+                                     / norms0[n]).max()) for n in norms0),
+    }
+
+
+STEP1_LIMITS = {"loss": STEP1_LOSS_REL, "grad norm": STEP1_GRAD_NORM_REL,
+                "qkv grad norms": STEP1_QKV_REL}
+
+
+def _within(diffs) -> bool:
+    return all(diffs[k] <= STEP1_LIMITS[k] for k in STEP1_LIMITS)
+
+
+def _diff_text(diffs) -> str:
+    return ", ".join(f"{k} rel {v:.3e} (limit {STEP1_LIMITS[k]})"
+                     for k, v in diffs.items())
+
+
+def phase_train(rows, steps: int, card):
+    """PA-SFT steps of Qwen2-VL-2B through the library's entry points, as
+    cli/train_sft.py assembles them; returns the launch counts."""
+    import gc
+
+    from iadr1_tpu_torch.core.metrics import (
+        ThroughputMeter,
+        transformer_flops_per_token,
+        vit_flops_per_patch,
+    )
+    from iadr1_tpu_torch.data.collator import VLMBatchBuilder
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models import qwen2_vl
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.loop import (
+        LoopConfig,
+        batch_iterator,
+        run_sft_loop,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.sft import STEP_RANGES, make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    bundle = bundle_from_hf_config(QWEN2_VL_2B)
+    cfg = bundle.cfg
+    builder = VLMBatchBuilder(bundle, PATCH_BUDGET)
+    opt_cfg = OptimizerConfig(learning_rate=LEARNING_RATE, schedule="cosine",
+                              warmup_ratio=0.1, total_steps=steps,
+                              max_grad_norm=1.0)
+
+    def fresh(hidden_fn):
+        params = bundle.init_params(seed=0, dtype=torch.float32,
+                                    device=DEVICE)
+        opt, sched = make_optimizer(opt_cfg)
+        probe = GradProbe(opt, params)
+        step = make_chunked_sft_step(hidden_fn, bundle.head_kernel_fn, probe,
+                                     sched, chunk_size=CE_CHUNK)
+        return create_train_state(params, probe), step, probe
+
+    # the plain path and its control first, from the same parameters and
+    # first batch; each state is freed before the next allocates its own
+    first = next(batch_iterator(rows, TRAIN_ROWS, 0, builder))
+
+    def plain_hidden(flash):
+        attn = train_attn(flash)
+
+        def hidden(params, b):
+            h, _ = qwen2_vl.apply(
+                params, cfg, b["input_ids"], b["position_ids"],
+                patches=b["patches"], rot_cos=b["rot_cos"],
+                rot_sin=b["rot_sin"], vision_segments=b["vision_segments"],
+                scatter_rows=b["scatter_rows"],
+                scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+                attention_fn=attn, vision_attention_fn=attn, remat=True)
+            return h
+        return hidden
+
+    def first_step(flash):
+        state, plain_step, probe = fresh(plain_hidden(flash))
+        _, m = plain_step(state, first)
+        res = {k: float(v) for k, v in m.items()}, probe.norms
+        del state, plain_step, probe, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    plain = first_step(TwinFlash)
+    control = step1_diffs(first_step(ZeroDqFlash), plain)
+    log(f"train: step 1 control (plain path with dq zeroed) vs plain path: "
+        f"{_diff_text(control)}")
+    if _within(control):
+        raise AssertionError("the step-1 limits do not catch a zeroed dq")
+
+    state, step, probe = fresh(
+        lambda p, b: bundle.hidden_fn(p, b, remat=True))
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    kernels = [k for k, _ in all_kernels()]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    state, history = run_sft_loop(
+        state, timed_step, batch_iterator(rows, TRAIN_ROWS, 0, builder),
+        LoopConfig(output_dir=TRAIN_DIR, max_steps=steps,
+                   batch_size=TRAIN_ROWS, logging_steps=1))
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # where a step's time goes: one more step under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, first)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("profile: one training step: "
+        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L_dec, L_tower = cfg.text.num_hidden_layers, cfg.vision.depth
+    # per step: K1 once per decoder layer (its residuals survive remat)
+    # and twice per tower block (plain checkpoint: the backward replays
+    # it); K2 and K3 once per attention call
+    want = {"flash_fwd": steps * (L_dec + 2 * L_tower),
+            "flash_bwd_dq": steps * (L_dec + L_tower),
+            "flash_bwd_dkv": steps * (L_dec + L_tower),
+            "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    diffs = step1_diffs(({"loss": losses[0], "grad_norm": norms[0]},
+                         probe.norms), plain)
+    log(f"train: step 1 kernel vs plain path: loss {losses[0]:.6f} vs "
+        f"{plain[0]['loss']:.6f}, grad norm {norms[0]:.6f} vs "
+        f"{plain[0]['grad_norm']:.6f}; {_diff_text(diffs)}")
+    if not _within(diffs):
+        raise AssertionError("step 1 differs between kernel and plain path")
+
+    B, T = TRAIN_ROWS, CUTOFF_LEN
+    step_s = statistics.median(times[3:] if len(times) > 3 else times[1:])
+    n_label = history[0]["n_label_tokens"]
+    patches = [int(np.prod(g)) for r in rows for e in r["extras"]
+               for g in e["grid_thw"]]
+    t = cfg.text
+    dec_flops = B * T * transformer_flops_per_token(
+        hidden=t.hidden_size, intermediate=t.intermediate_size,
+        num_layers=t.num_hidden_layers, vocab=t.vocab_size, seq_len=T,
+        num_heads=t.num_attention_heads, num_kv_heads=t.num_key_value_heads)
+    v = cfg.vision
+    vit_flops = sum(patches) * vit_flops_per_patch(
+        hidden=v.embed_dim, intermediate=v.mlp_dim, num_layers=v.depth,
+        attn_window=sum(n * n for n in patches) / sum(patches))
+    meter = ThroughputMeter(flops_per_token_fwd=(dec_flops + vit_flops)
+                            / (B * T), peak_flops=PEAK_BF16_FLOPS)
+    meter.update(B * T, step_s)
+    log(f"train: Qwen2-VL-2B {n_params / 1e9:.3f}B f32 params, {steps} "
+        f"steps of {B}x{T} tokens ({int(n_label)} label tokens, "
+        f"{sum(patches)} patches), lr {LEARNING_RATE} cosine; losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"train: step {1e3 * step_s:.1f} ms (median of steps "
+        f"{'4-' if len(times) > 3 else '2-'}{steps}; all steps "
+        f"{[round(1e3 * x, 1) for x in times]} ms), "
+        f"{B * T / step_s:.0f} tokens/s, {n_label / step_s:.0f} label "
+        f"tokens/s, MFU {meter.mfu:.4f} (decoder + tower model FLOPs, "
+        f"x3, against {PEAK_BF16_FLOPS:.3g}), peak memory {peak_gib:.2f} "
+        f"GiB, launches {launches} on {card}")
+    return launches
 
 
 def _leaves(tree):
@@ -500,7 +1015,10 @@ def _leaves(tree):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-new-tokens", type=int, default=512)
+    ap.add_argument("--train-steps", type=int, default=8)
     args = ap.parse_args()
+    if args.train_steps < 2:
+        ap.error("--train-steps must be at least 2")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -518,19 +1036,30 @@ def main() -> int:
     log(f"build: {len(kernels)} kernels from iadr1_tpu_torch/csrc for "
         f"sm_90a in {secs:.1f} s")
     encoded = make_requests()
-    measured = phase_kernels(encoded, args.max_new_tokens)
-    launches, gen, batch = phase_main(encoded, args.max_new_tokens, card)
+    train_rows = make_sft_rows()
+    measured = phase_kernels(encoded, args.max_new_tokens, train_rows)
+    serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
     phase_profile(gen, batch)
+    del gen, batch
+    torch.cuda.empty_cache()
+    train = phase_train(train_rows, args.train_steps, card)
 
     line = []
     for k, replaces in kernels:
         main_case, *others = measured[k.name]
         entry = {"name": k.name, "route": "cuda",
                  "source": f"iadr1_tpu_torch/csrc/{k.source}",
-                 "replaces": replaces, "launches": launches[k.name]}
+                 "replaces": replaces,
+                 "launches": serve[k.name] + train[k.name],
+                 "launches_by_path": {"serve": serve[k.name],
+                                      "train": train[k.name]}}
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")})
+        if k.name.startswith("flash_bwd"):
+            entry["plain_and_library_cover"] = (
+                "dq, dk and dv together (K2 + K3): flash_attention_bwd_ref, "
+                "and the backward of F.scaled_dot_product_attention")
         entry["max_abs_err"] = max(c["max_abs_err"] for c in measured[k.name])
         entry["other_shapes"] = others
         line.append(entry)

@@ -1,5 +1,8 @@
 """Mixed-precision policy (counterpart of iadr1_tpu/core/precision.py):
-bf16 matmul inputs and activations, f32 accumulation, f32 logits."""
+f32 parameters and optimizer state, bf16 matmul inputs and activations,
+f32 logits.  The bundles store parameters in ``param_dtype`` unless a
+caller names another dtype.  Matmuls accumulate in f32 always (cuBLAS
+does for bf16 inputs), so the JAX ``accum_dtype`` has no counterpart."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
+    param_dtype: torch.dtype = torch.float32     # stored parameters
     compute_dtype: torch.dtype = torch.bfloat16  # matmul inputs
     logits_dtype: torch.dtype = torch.float32    # final logits / softmax
 

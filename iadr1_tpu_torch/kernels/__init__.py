@@ -8,6 +8,10 @@ def all_kernels():
     return [
         (flash_attention.KERNEL,
          "iadr1_tpu/kernels/flash_attention.py:335 _fwd_kernel"),
+        (flash_attention.DQ_KERNEL,
+         "iadr1_tpu/kernels/flash_attention.py:511 _bwd_dq_kernel"),
+        (flash_attention.DKV_KERNEL,
+         "iadr1_tpu/kernels/flash_attention.py:587 _bwd_dkv_kernel"),
         (decode_attention.KERNEL,
          "iadr1_tpu/kernels/decode_attention.py:54 _decode_kernel"),
     ]

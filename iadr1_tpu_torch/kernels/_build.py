@@ -49,7 +49,7 @@ def build_all(sources) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
-    for source in sources:
+    for source in dict.fromkeys(sources):     # one nvcc per distinct source
         if not _stale(source):
             continue
         lib = _lib_path(source)

@@ -1,11 +1,15 @@
-"""K1: fused attention forward returning (out, lse).
+"""K1 (fused attention forward returning (out, lse)) and its backward K2
+(dq) and K3 (dk, dv), behind one ``torch.autograd.Function``.
 
 Counterpart of iadr1_tpu/kernels/flash_attention.py
-``flash_attention_with_lse`` (forward only; the backward kernels K2/K3
-come with the training slice).  For CUDA tensors ``flash_attention``
-launches the hand-written kernel ``csrc/flash_fwd.cu``; for CPU tensors it
-runs the plain PyTorch twin ``flash_attention_ref``, which computes the
-same function.
+``flash_attention_with_lse`` and its custom VJP (``_flash``).  For CUDA
+tensors ``flash_attention`` launches the hand-written kernels
+``csrc/flash_fwd.cu`` (forward) and ``csrc/flash_bwd.cu`` (backward); for
+CPU tensors it runs the plain PyTorch versions ``flash_attention_ref`` and
+``flash_attention_bwd_ref``, which compute the same functions.  Unlike the
+JAX VJP, the backward takes the cotangent of ``lse`` too, so a caller that
+differentiates through lse (GRPO's ``_merge_attention``) gets the right
+gradients.
 
 Semantics, shared by kernel and twin: a key slot is valid for a query row
 when ``q_seg == kv_seg and kv_seg != 0`` and, when causal, ``col <= row``
@@ -31,6 +35,20 @@ KERNEL = CudaKernel(
     argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
+DQ_KERNEL = CudaKernel(
+    name="flash_bwd_dq",
+    source="flash_bwd.cu",
+    symbol="iadr1_flash_bwd_dq_bf16",
+    argtypes=[ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
+DKV_KERNEL = CudaKernel(
+    name="flash_bwd_dkv",
+    source="flash_bwd.cu",
+    symbol="iadr1_flash_bwd_dkv_bf16",
+    argtypes=[ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
 
 
 def _default_segments(q, k, segment_ids, kv_segment_ids):
@@ -43,22 +61,27 @@ def _default_segments(q, k, segment_ids, kv_segment_ids):
     return segment_ids, kv_segment_ids
 
 
+def _valid_pairs(segment_ids, kv_segment_ids, causal: bool):
+    """[B, 1, T, S] bool: key s is valid for query row t."""
+    T, S = segment_ids.shape[1], kv_segment_ids.shape[1]
+    valid = ((segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+             & (kv_segment_ids[:, None, :] != 0))[:, None]
+    if causal:
+        rows = torch.arange(T, device=segment_ids.device)[:, None]
+        cols = torch.arange(S, device=segment_ids.device)[None, :]
+        valid = valid & (cols <= rows)
+    return valid
+
+
 def flash_attention_ref(q, k, v, segment_ids, kv_segment_ids, *,
                         causal: bool, scale: float):
     """The plain PyTorch twin: q [B,H,T,D], k/v [B,Hkv,S,D] ->
     (out [B,H,T,D] in q's dtype, lse [B,H,T] f32), softmax in f32."""
-    B, H, T, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    group = H // Hkv
+    group = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), kf) * scale
-    valid = ((segment_ids[:, :, None] == kv_segment_ids[:, None, :])
-             & (kv_segment_ids[:, None, :] != 0))[:, None]
-    if causal:
-        rows = torch.arange(T, device=q.device)[:, None]
-        cols = torch.arange(S, device=q.device)[None, :]
-        valid = valid & (cols <= rows)
+    valid = _valid_pairs(segment_ids, kv_segment_ids, causal)
     s = s.masked_fill(~valid, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     empty = torch.isneginf(lse)
@@ -90,25 +113,42 @@ def _check_cuda(q, k, v, q_seg, kv_seg):
         raise ValueError("segment ids must be on q's device")
 
 
-def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
-                    causal: bool = True, scale: float | None = None):
-    """q [B,H,T,D], k/v [B,Hkv,S,D] -> (out [B,H,T,D], lse [B,H,T] f32).
+def _delta(out, do, dlse):
+    """rowsum(out * do) - dlse in f32: the softmax backward's row term,
+    with the lse cotangent folded in."""
+    delta = (out.float() * do.float()).sum(-1)
+    return delta if dlse is None else delta - dlse.float()
 
-    ``segment_ids`` [B,T] / ``kv_segment_ids`` [B,S] (0 = padding) default
-    to all ones; ``kv_segment_ids`` defaults to ``segment_ids`` when S == T.
-    CUDA tensors launch the kernel (bf16, D in 64/80/128) or raise; CPU
-    tensors take the twin."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    q_seg, kv_seg = _default_segments(q, k, segment_ids, kv_segment_ids)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, q_seg, kv_seg, causal=causal,
-                                   scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, k, v, q_seg, kv_seg)
-    q_seg = q_seg.to(torch.int32).contiguous()
-    kv_seg = kv_seg.to(torch.int32).contiguous()
+
+def flash_attention_bwd_ref(q, k, v, segment_ids, kv_segment_ids, out, lse,
+                            do, dlse, *, causal: bool, scale: float):
+    """The plain PyTorch backward, written out (not autograd of the twin):
+    p = exp(s - lse) from the saved lse, ds = p * (do v^T - delta) * scale
+    with delta = rowsum(out * do) - dlse; dq = ds k, dk = ds^T q and
+    dv = p^T do summed over each GQA group.  Masked pairs are selected to
+    0, so a row with lse = +inf gets dq = 0.  Sums in f32; dq, dk, dv come
+    back in the q, k, v dtypes.  ``dlse`` may be None (zero)."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    valid = _valid_pairs(segment_ids, kv_segment_ids, causal)
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale
+    p = torch.where(valid, torch.exp(s - lse.float()[..., None]), 0.0)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
+    delta = _delta(out, do, dlse)
+    ds = torch.where(valid, p * (dp - delta[..., None]) * scale, 0.0)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    dk = dk.reshape(B, Hkv, group, S, D).sum(2)
+    dv = dv.reshape(B, Hkv, group, S, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fwd_cuda(q, k, v, q_seg, kv_seg, causal, scale):
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -118,3 +158,95 @@ def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
                       ptr(out), ptr(lse), B, H, Hkv, T, S, D, float(scale),
                       int(causal), stream_of(q))
     return out, lse
+
+
+def flash_bwd_dq(q, k, v, q_seg, kv_seg, lse, delta, do, *, causal, scale):
+    """K2 on CUDA tensors (as the Function's backward passes them:
+    contiguous bf16, int32 segments, f32 lse and delta) -> dq."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        DQ_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+                         ptr(delta), ptr(q_seg), ptr(kv_seg), ptr(dq), B, H,
+                         Hkv, T, S, D, float(scale), int(causal),
+                         stream_of(q))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, q_seg, kv_seg, lse, delta, do, *, causal, scale):
+    """K3 on CUDA tensors (as ``flash_bwd_dq``) -> (dk, dv)."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        DKV_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+                          ptr(delta), ptr(q_seg), ptr(kv_seg), ptr(dk),
+                          ptr(dv), B, H, Hkv, T, S, D, float(scale),
+                          int(causal), stream_of(q))
+    return dk, dv
+
+
+def _bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, dlse, causal, scale):
+    if do.dtype != q.dtype:
+        raise TypeError(f"flash backward takes a {q.dtype} cotangent; "
+                        f"got {do.dtype}")
+    do = do.contiguous()
+    delta = _delta(out, do, dlse).contiguous()
+    kw = dict(causal=causal, scale=scale)
+    dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, lse, delta, do, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, lse, delta, do, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """(q, k, v, q_seg, kv_seg, causal, scale) -> (out, lse): the role of
+    the JAX ``_flash`` custom VJP.  Saves (q, k, v, segments, out, lse),
+    so a remat that keeps them never re-runs the forward; the backward
+    takes the cotangents of both outputs.  CUDA tensors launch K1 forward
+    and K2 + K3 backward; CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_ref(q, k, v, q_seg, kv_seg,
+                                           causal=causal, scale=scale)
+        else:
+            out, lse = _fwd_cuda(q, k, v, q_seg, kv_seg, causal, scale)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_ref(
+                q, k, v, q_seg, kv_seg, out, lse, do, dlse,
+                causal=ctx.causal, scale=ctx.scale)
+        else:
+            dq, dk, dv = _bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do,
+                                   dlse, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
+                    causal: bool = True, scale: float | None = None):
+    """q [B,H,T,D], k/v [B,Hkv,S,D] -> (out [B,H,T,D], lse [B,H,T] f32),
+    differentiable in q, k, v through both outputs.
+
+    ``segment_ids`` [B,T] / ``kv_segment_ids`` [B,S] (0 = padding) default
+    to all ones; ``kv_segment_ids`` defaults to ``segment_ids`` when S == T.
+    CUDA tensors launch the kernels (bf16, D in 64/80/128) or raise; CPU
+    tensors take the plain versions."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q_seg, kv_seg = _default_segments(q, k, segment_ids, kv_segment_ids)
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v, q_seg, kv_seg)
+        q_seg = q_seg.to(torch.int32).contiguous()
+        kv_seg = kv_seg.to(torch.int32).contiguous()
+    elif q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return FlashAttention.apply(q, k, v, q_seg, kv_seg, causal, float(scale))

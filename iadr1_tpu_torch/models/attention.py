@@ -6,8 +6,10 @@ All implementations share one signature:
 
 with q [B, T, H, D] and k/v [B, S, Hkv, D]; ``mask`` is the boolean
 [B, 1, T, S] mask the oracle path reads, segments + causal feed the kernel.
-The kernel wrappers pick by the tensors' device: the CUDA kernel for CUDA
-tensors, the plain twin for CPU tensors.
+The kernel wrappers pick by the tensors' device: the CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors.  ``flash_attn`` goes through
+the flash autograd Function, so training gradients flow through K1's
+backward (K2, K3) on the card.
 """
 
 from __future__ import annotations

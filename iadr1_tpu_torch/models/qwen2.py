@@ -2,7 +2,7 @@
 
 Parameters are a nested dict of tensors in the JAX package's layout:
 layers stacked on axis 0, dense kernels [in, out].  The forward is a plain
-function over that dict.  LoRA/DoRA, prefix-LM masks, remat, MoE layers and
+function over that dict.  LoRA/DoRA, prefix-LM masks, MoE layers and
 RoPE scaling are not ported yet (ROADMAP).
 """
 
@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common
@@ -93,11 +94,30 @@ def init_params(gen: torch.Generator, cfg: Qwen2Config, dtype, device) -> dict:
     return params
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a layer-stacked parameter tree (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+def unstack_layers(tree, num_layers: int) -> list:
+    """Every layer of a layer-stacked tree, as views from one ``unbind``
+    per leaf: the backward then stacks each leaf's gradient once, where
+    per-layer indexing would add a zero-padded full-size gradient per
+    layer."""
+    def split(t):
+        if isinstance(t, dict):
+            return {k: split(v) for k, v in t.items()}
+        return t.unbind(0)
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return t[i]
+
+    views = split(tree)
+    return [pick(views, i) for i in range(num_layers)]
+
+
+def ckpt(fn, *args):
+    """``torch.utils.checkpoint`` as the remat modes use it: non-reentrant,
+    and no RNG stash (nothing in the model draws random numbers)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def init_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype,
@@ -116,30 +136,67 @@ def init_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype,
     }
 
 
-def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
-           attend_fresh):
-    B, T, _ = h.shape
+def _qkv(cfg, x, a, cos, sin):
+    """Normed hidden -> roped q, k and v [B, T, heads, D]."""
+    B, T, _ = x.shape
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    a = lp["attn"]
-    x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
     q = dense(x, a["q"]["kernel"], a["q"].get("bias")).view(B, T, H, D)
     k = dense(x, a["k"]["kernel"], a["k"].get("bias")).view(B, T, Hkv, D)
     v = dense(x, a["v"]["kernel"], a["v"].get("bias")).view(B, T, Hkv, D)
     q, k = apply_rope(q, k, cos, sin)
+    return q, k, v
+
+
+def _post_attention(cfg, h, out, lp):
+    """Output projection, residual, then the MLP block."""
+    B, T, _ = h.shape
+    h = h + dense(out.reshape(B, T, -1), lp["attn"]["o"]["kernel"])
+    x = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
+    m = lp["mlp"]
+    gate = dense(x, m["gate"]["kernel"])
+    up = dense(x, m["up"]["kernel"])
+    return h + dense(F.silu(gate) * up, m["down"]["kernel"])
+
+
+def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
+           attend_fresh):
+    x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+    q, k, v = _qkv(cfg, x, lp["attn"], cos, sin)
     if layer_cache is not None:
+        T = h.shape[1]
         ck, cv = layer_cache                        # [B, Hkv, S, D] views
         # in place: the new K/V land in the caller's cache tensors
         ck[:, :, write_idx:write_idx + T] = k.transpose(1, 2).to(ck.dtype)
         cv[:, :, write_idx:write_idx + T] = v.transpose(1, 2).to(cv.dtype)
         if not attend_fresh:
             k, v = ck, cv                           # cache layout
+    return _post_attention(cfg, h, attn(q, k, v), lp)
+
+
+def _remat_layer(cfg, h, lp, cos, sin, attn, remat):
+    """One training layer under a remat mode (no cache).
+
+    "full" checkpoints the whole layer, so the backward re-runs the
+    attention forward.  True / "save_flash" and "save_qkv" keep the
+    attention call outside every checkpoint: the flash Function's saved
+    (q, k, v, out, lse) survive and its forward never re-runs, the role of
+    the JAX FLASH_REMAT_POLICY that saves "flash_out" and "flash_lse".
+    The pieces before and after it are checkpointed apart.  "save_qkv"
+    (the JAX FLASH_QKV_REMAT_POLICY, which also saves "act_qkv") keeps the
+    q/k/v projections' outputs too, so the backward recomputes only the
+    norm in front of them, not the three projections."""
+    if remat == "full":
+        return ckpt(lambda h: _layer(cfg, h, lp, cos, sin, None, None, attn,
+                                     False), h)
+    eps = cfg.rms_norm_eps
+    if remat == "save_qkv":
+        x = ckpt(lambda h: rms_norm(h, lp["input_norm"], eps), h)
+        q, k, v = _qkv(cfg, x, lp["attn"], cos, sin)
+    else:
+        q, k, v = ckpt(lambda h: _qkv(cfg, rms_norm(h, lp["input_norm"], eps),
+                                      lp["attn"], cos, sin), h)
     out = attn(q, k, v)
-    h = h + dense(out.reshape(B, T, H * D), a["o"]["kernel"])
-    x = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
-    m = lp["mlp"]
-    gate = dense(x, m["gate"]["kernel"])
-    up = dense(x, m["up"]["kernel"])
-    return h + dense(F.silu(gate) * up, m["down"]["kernel"])
+    return ckpt(lambda h, out: _post_attention(cfg, h, out, lp), h, out)
 
 
 def apply(
@@ -155,6 +212,7 @@ def apply(
     precision: Precision = DEFAULT_PRECISION,
     attention_fn: Callable | None = None,
     decode_attention_fn: Callable | None = None,
+    remat=False,
 ):
     """Run the decoder; returns (hidden [B, T, hid], cache).
 
@@ -166,7 +224,14 @@ def apply(
     ``attention_fn``), "decode" (one token, through ``decode_attention_fn``
     over the valid prefix) or "extend" (dense mask over the whole cache).
     The cache is updated in place and returned.
+
+    ``remat`` (training, no cache): False, True / "save_flash",
+    "save_qkv" or "full", as in the JAX decoder; see ``_remat_layer``.
     """
+    if remat and cache is not None:
+        raise ValueError("remat is for training; it takes no cache")
+    if remat not in (False, True, "save_flash", "save_qkv", "full"):
+        raise ValueError(f"unknown remat mode {remat!r}")
     if inputs_embeds is None:
         inputs_embeds = common.embed_lookup(params["embed"]["weight"], input_ids)
     h = inputs_embeds.to(precision.compute_dtype)
@@ -223,11 +288,15 @@ def apply(
     else:
         attn = fresh_attention()
 
-    for i in range(cfg.num_hidden_layers):
+    layers = unstack_layers(params["layers"], cfg.num_hidden_layers)
+    for i, lp in enumerate(layers):
+        if remat:
+            h = _remat_layer(cfg, h, lp, cos, sin, attn, remat)
+            continue
         layer_cache = ((cache["k"][i], cache["v"][i]) if cache is not None
                        else None)
-        h = _layer(cfg, h, layer_slice(params["layers"], i), cos, sin,
-                   layer_cache, write_idx, attn, attend_fresh)
+        h = _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
+                   attend_fresh)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if cache is not None:
         cache["write_idx"] = write_idx + T

@@ -21,6 +21,7 @@ from iadr1_tpu_torch.core.device import resolve_device
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import dense, rotate_half
+from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.models.params_io import _get, _stack_layers
 
 
@@ -121,6 +122,45 @@ def init_params(gen, cfg: Qwen2VLConfig, dtype, device) -> dict:
     }
 
 
+def _tower_attention(lp, x, cos, sin, attn, H: int, D: int, dtype):
+    """Normed hidden -> qkv projection, rotary in f32, attention
+    -> [P, H*D]."""
+    P = x.shape[0]
+    qkv = dense(x, lp["attn"]["qkv"]["kernel"], lp["attn"]["qkv"]["bias"])
+    q, k, v = (t.reshape(1, P, H, D) for t in qkv.chunk(3, dim=-1))
+    # rotary in f32, then back to the compute dtype
+    qf, kf = q.float(), k.float()
+    q = (qf * cos + rotate_half(qf) * sin).to(dtype)
+    k = (kf * cos + rotate_half(kf) * sin).to(dtype)
+    return attn(q, k, v).reshape(P, H * D)
+
+
+def _tower_block(lp, h, cos, sin, attn, H: int, D: int):
+    x = layer_norm(h, lp["norm1"]["scale"], lp["norm1"]["bias"])
+    out = _tower_attention(lp, x, cos, sin, attn, H, D, h.dtype)
+    h = h + dense(out, lp["attn"]["proj"]["kernel"], lp["attn"]["proj"]["bias"])
+    x = layer_norm(h, lp["norm2"]["scale"], lp["norm2"]["bias"])
+    x = quick_gelu(dense(x, lp["mlp"]["fc1"]["kernel"], lp["mlp"]["fc1"]["bias"]))
+    return h + dense(x, lp["mlp"]["fc2"]["kernel"], lp["mlp"]["fc2"]["bias"])
+
+
+def _tower_block_save_acts(lp, h, cos, sin, attn, H: int, D: int):
+    """The block under remat "save_acts": the flash Function's residuals
+    and the dense layers' inputs (the qkv and fc1 inputs, the attention
+    output, the fc1 output and its gelu) are kept; the backward recomputes
+    only the two layer norms and the gelu, and never the attention
+    forward."""
+    x = ckpt(lambda h: layer_norm(h, lp["norm1"]["scale"],
+                                  lp["norm1"]["bias"]), h)
+    out = _tower_attention(lp, x, cos, sin, attn, H, D, h.dtype)
+    h = h + dense(out, lp["attn"]["proj"]["kernel"], lp["attn"]["proj"]["bias"])
+    x = ckpt(lambda h: layer_norm(h, lp["norm2"]["scale"],
+                                  lp["norm2"]["bias"]), h)
+    f = dense(x, lp["mlp"]["fc1"]["kernel"], lp["mlp"]["fc1"]["bias"])
+    return h + dense(ckpt(quick_gelu, f), lp["mlp"]["fc2"]["kernel"],
+                     lp["mlp"]["fc2"]["bias"])
+
+
 def apply_vision(
     params: dict,
     cfg: Qwen2VLVisionConfig,
@@ -130,10 +170,15 @@ def apply_vision(
     segment_ids: torch.Tensor,    # [P] 1-based per image, 0 = padding
     precision: Precision = DEFAULT_PRECISION,
     attention_fn: Callable | None = None,
+    remat=False,
 ) -> torch.Tensor:
     """Patch stream -> merged image features [P // merge**2, hidden_size];
-    attention stays within each image (segment ids, non-causal)."""
-    P = patches.shape[0]
+    attention stays within each image (segment ids, non-causal).
+
+    ``remat``: False; True (a plain checkpoint of each block, whose
+    backward re-runs the attention forward, as in JAX); or "save_acts"
+    (``_tower_block_save_acts``).  Any other true mode (a decoder mode
+    that the tower follows) is a plain checkpoint, as in JAX."""
     H, D = cfg.num_heads, cfg.head_dim
     h = dense(patches.to(precision.compute_dtype),
               params["patch_embed"]["kernel"])
@@ -148,22 +193,15 @@ def apply_vision(
         attn = functools.partial(attention_fn, mask=seg_mask, q_segments=segs,
                                  kv_segments=segs, causal=False)
 
-    for i in range(cfg.depth):
-        lp = qwen2.layer_slice(params["blocks"], i)
-        x = layer_norm(h, lp["norm1"]["scale"], lp["norm1"]["bias"])
-        qkv = dense(x, lp["attn"]["qkv"]["kernel"], lp["attn"]["qkv"]["bias"])
-        q, k, v = (t.reshape(1, P, H, D) for t in qkv.chunk(3, dim=-1))
-        # rotary in f32, then back to the compute dtype
-        qf, kf = q.float(), k.float()
-        q = (qf * cos + rotate_half(qf) * sin).to(h.dtype)
-        k = (kf * cos + rotate_half(kf) * sin).to(h.dtype)
-        out = attn(q, k, v).reshape(P, H * D)
-        h = h + dense(out, lp["attn"]["proj"]["kernel"],
-                      lp["attn"]["proj"]["bias"])
-        x = layer_norm(h, lp["norm2"]["scale"], lp["norm2"]["bias"])
-        x = quick_gelu(dense(x, lp["mlp"]["fc1"]["kernel"],
-                             lp["mlp"]["fc1"]["bias"]))
-        h = h + dense(x, lp["mlp"]["fc2"]["kernel"], lp["mlp"]["fc2"]["bias"])
+    for lp in qwen2.unstack_layers(params["blocks"], cfg.depth):
+        if remat == "save_acts":
+            h = _tower_block_save_acts(lp, h, cos, sin, attn, H, D)
+        elif remat:
+            # partial binds this layer: the replay runs after the loop
+            h = ckpt(functools.partial(_tower_block, lp, cos=cos, sin=sin,
+                                       attn=attn, H=H, D=D), h)
+        else:
+            h = _tower_block(lp, h, cos, sin, attn, H, D)
 
     m = params["merger"]
     h = layer_norm(h, m["ln_q"]["scale"], m["ln_q"]["bias"])
@@ -204,21 +242,26 @@ def apply(
     attention_fn: Callable | None = None,
     decode_attention_fn: Callable | None = None,
     vision_attention_fn: Callable | None = None,
+    remat=False,
+    tower_remat=None,
 ):
-    """Full VLM forward -> (hidden [B, T, hid], cache)."""
+    """Full VLM forward -> (hidden [B, T, hid], cache).  ``remat`` is the
+    decoder's mode; ``tower_remat`` the tower's, following ``remat`` when
+    None, as in the JAX apply."""
     embeds = common.embed_lookup(params["text"]["embed"]["weight"],
                                  input_ids).to(precision.compute_dtype)
     if patches is not None:
         feats = apply_vision(params["vision"], cfg.vision, patches, rot_cos,
                              rot_sin, vision_segments, precision=precision,
-                             attention_fn=vision_attention_fn)
+                             attention_fn=vision_attention_fn,
+                             remat=remat if tower_remat is None else tower_remat)
         embeds = merge_image_features(embeds, feats, scatter_rows,
                                       scatter_cols)
     return qwen2.apply(
         params["text"], cfg.text, inputs_embeds=embeds,
         position_ids=position_ids, segment_ids=segment_ids, cache=cache,
         cache_mode=cache_mode, precision=precision, attention_fn=attention_fn,
-        decode_attention_fn=decode_attention_fn,
+        decode_attention_fn=decode_attention_fn, remat=remat,
     )
 
 

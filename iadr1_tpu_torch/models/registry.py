@@ -1,9 +1,11 @@
 """Model bundles (counterpart of iadr1_tpu/models/registry.py) for the two
 families of the serving slice: Qwen2 (text) and Qwen2-VL.
 
-A bundle carries the config and the functions the rollout engine and the
-generator call: ``apply(params, batch, cache=None, cache_mode=...)``,
-``logits_fn(params, hidden)``, ``init_params(seed, dtype, device)``,
+A bundle carries the config and the functions the rollout engine, the
+generator and the SFT step call: ``apply(params, batch, cache=None,
+cache_mode=..., remat=False)``, ``hidden_fn(params, batch, remat=True)``,
+``head_kernel_fn(params)``, ``logits_fn(params, hidden)``,
+``init_params(seed, dtype, device)``,
 ``convert_hf(state, dtype, device)`` and, for Qwen2-VL, the host-side
 ``vision_arrays`` and ``preprocess_image``.
 """
@@ -32,14 +34,26 @@ class ModelBundle:
     family: str
     cfg: Any
     multimodal: bool
-    init_params: Callable    # (seed=0, dtype=f32, device=None) -> params
-    convert_hf: Callable     # (state, dtype=f32, device=None) -> params
-    apply: Callable          # (params, batch, cache=None, cache_mode=...)
+    # dtype=None stores the parameters in the bundle's precision.param_dtype
+    init_params: Callable    # (seed=0, dtype=None, device=None) -> params
+    convert_hf: Callable     # (state, dtype=None, device=None) -> params
+    apply: Callable   # (params, batch, cache=None, cache_mode=..., remat=...)
     logits_fn: Callable      # (params, hidden) -> logits
     vision_arrays: Callable | None = None
     # (pil_image, min_pixels=..., max_pixels=...) -> (patches, grid, seqlen)
     preprocess_image: Callable | None = None
     template: str = "chatml"
+
+    # the training path: final hidden states and the LM-head kernel for
+    # the chunked CE loss (train/sft.py); extra kwargs (tower_remat=) pass
+    # through to apply
+    def hidden_fn(self, params, batch, remat=True, **kw):
+        h, _ = self.apply(params, batch, remat=remat, **kw)
+        return h
+
+    def head_kernel_fn(self, params):
+        tcfg = getattr(self.cfg, "text", self.cfg)
+        return qwen2.head_kernel(params.get("text", params), tcfg)
 
 
 def _generator(seed: int, device) -> tuple[torch.Generator, torch.device]:
@@ -110,24 +124,25 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
 
-    def apply(params, batch, cache=None, cache_mode="extend"):
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False):
         return qwen2.apply(
             params, cfg, batch["input_ids"],
             position_ids=batch["position_ids"],
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
-            decode_attention_fn=decode_attn,
+            decode_attention_fn=decode_attn, remat=remat,
         )
 
-    def init_params(seed=0, dtype=torch.float32, device=None):
+    def init_params(seed=0, dtype=None, device=None):
         gen, device = _generator(seed, device)
-        return qwen2.init_params(gen, cfg, dtype, device)
+        return qwen2.init_params(gen, cfg, dtype or precision.param_dtype,
+                                 device)
 
     return ModelBundle(
         family="qwen2", cfg=cfg, multimodal=False,
         init_params=init_params,
-        convert_hf=lambda state, dtype=torch.float32, device=None:
-            convert_qwen2(state, cfg, dtype=dtype, device=device),
+        convert_hf=lambda state, dtype=None, device=None: convert_qwen2(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
         apply=apply,
         logits_fn=lambda params, h: qwen2.logits(params, cfg, h, precision),
         template="chatml",
@@ -160,7 +175,8 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
 
-    def apply(params, batch, cache=None, cache_mode="extend"):
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None):
         return qwen2_vl.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
             patches=batch.get("patches"),
@@ -171,6 +187,7 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, vision_attention_fn=attn,
+            remat=remat, tower_remat=tower_remat,
         )
 
     def vision_arrays(input_ids, patches_list, grids, patch_budget):
@@ -199,15 +216,16 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
             "scatter_rows": srows, "scatter_cols": scols,
         }
 
-    def init_params(seed=0, dtype=torch.float32, device=None):
+    def init_params(seed=0, dtype=None, device=None):
         gen, device = _generator(seed, device)
-        return qwen2_vl.init_params(gen, cfg, dtype, device)
+        return qwen2_vl.init_params(gen, cfg, dtype or precision.param_dtype,
+                                    device)
 
     return ModelBundle(
         family="qwen2_vl", cfg=cfg, multimodal=True,
         init_params=init_params,
-        convert_hf=lambda state, dtype=torch.float32, device=None:
-            qwen2_vl.convert_hf(state, cfg, dtype=dtype, device=device),
+        convert_hf=lambda state, dtype=None, device=None: qwen2_vl.convert_hf(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
         apply=apply,
         logits_fn=lambda params, h: qwen2_vl.logits(params, cfg, h, precision),
         vision_arrays=vision_arrays,
