@@ -9,13 +9,16 @@ result line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel built from iadr1_tpu_torch/csrc/ for sm_90a;
 3. kernels: K1 (flash forward) and K4 (ragged decode) held against their
-   plain PyTorch twins on the card at the serving path's shapes, and K2
-   (flash dq) and K3 (flash dk/dv) against the plain backward at the
-   training path's shapes (plus partial-tile, T != S and dlse != 0
-   cases; K1's out and lse that feed them are held against the twin
-   there too), with their times, the plain version's time and the matching
-   PyTorch call's time (F.scaled_dot_product_attention, forward or
-   backward) as a yardstick;
+   plain PyTorch twins on the card at the serving path's shapes (K4 also
+   at its chunk edges, over dead spans and at GQA groups 1 and 8), and
+   K2 (flash dq) and K3 (flash dk/dv) against the plain backward at the
+   training path's shapes (plus partial-tile, T != S, dlse != 0 and
+   unsorted-segment cases; K1's out and lse that feed them are held
+   against the twin there too, and timed at the decoder's training
+   shape), with their device times (torch.profiler, kernels only; K4 also
+   cold over 28 caches and as one host call), the plain version's and
+   the matching PyTorch call's (F.scaled_dot_product_attention, forward
+   or backward) as a yardstick, and K3's share of live tiles;
 4. main path: Qwen2-VL-2B at full width (28 decoder and 32 tower layers,
    bf16, weights drawn on the card from a seeded generator) serves 4
    already-tokenized image requests through VLMGenerator._collate and
@@ -44,6 +47,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -143,6 +147,48 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_times(fns, iters: int = 10) -> dict:
+    """Device time of one call, by kernel name: the kernels' own time
+    under torch.profiler over ``iters`` passes through ``fns`` (each on
+    inputs of its own, so a pass over more than the 50 MB L2 finds each
+    input cold), per call.  Host time between launches is not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    calls = iters * len(fns)
+    times = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
+            times[e.key] = times.get(e.key, 0.0) + (
+                e.self_device_time_total / 1e3 / calls)
+    if not times:
+        raise AssertionError("the profiler recorded no device time")
+    return times
+
+
+def device_ms(fns, iters: int = 10) -> float:
+    return sum(device_times(fns, iters).values())
+
+
+def split_text(times: dict) -> str:
+    """'name ms, ...' for the kernels of one call, longest first."""
+    def short(key):
+        m = re.search(r"(\w+(<[^>]*>)?)\(", key)
+        return (m.group(1) if m else key)[:40]
+    return ", ".join(f"{short(k)} {v:.4f}"
+                     for k, v in sorted(times.items(), key=lambda kv: -kv[1]))
 
 
 def max_err(a, b, rows=None) -> float:
@@ -286,14 +332,14 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
     kr = k.repeat_interleave(H // Hkv, dim=1)
     vr = v.repeat_interleave(H // Hkv, dim=1)
     res.update(
-        ms=time_ms(lambda: flash_attention(q, k, v, segment_ids=q_seg,
-                                           kv_segment_ids=kv_seg,
-                                           causal=causal)),
-        plain_ms=time_ms(lambda: flash_attention_ref(
-            q, k, v, q_seg, kv_seg, causal=causal, scale=scale)),
-        library_ms=time_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(q, kr, vr,
-                                                         attn_mask=mask)),
+        ms=device_ms([lambda: flash_attention(q, k, v, segment_ids=q_seg,
+                                              kv_segment_ids=kv_seg,
+                                              causal=causal)]),
+        plain_ms=device_ms([lambda: flash_attention_ref(
+            q, k, v, q_seg, kv_seg, causal=causal, scale=scale)], iters=3),
+        library_ms=device_ms([lambda: torch.nn.functional
+                              .scaled_dot_product_attention(q, kr, vr,
+                                                            attn_mask=mask)]),
         bound_ms=1e3 * max(bound_flops, bound_bytes),
         bound_by="operations" if bound_flops >= bound_bytes else "bytes",
         gflop=flops / 1e9,
@@ -313,6 +359,7 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
         flash_attention_ref,
         flash_bwd_dkv,
         flash_bwd_dq,
+        live_tiles,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -353,14 +400,16 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
     if not (dq[~finite] == 0).all():
         raise AssertionError("flash dq: a row with no valid key is not 0")
     res_dq = {"shape": shape, "max_abs_err": errs[0]}
-    res_dkv = {"shape": shape, "max_abs_err": max(errs[1:])}
+    res_dkv = {"shape": shape, "max_abs_err": max(errs[1:]),
+               "live_tile_share": float(live_tiles(q_seg, kv_seg, causal)
+                                        .float().mean())}
     if not timed:
         return res_dq, res_dkv, res_fwd
     pairs = float(_pairs(q_seg, kv_seg, causal).sum())
     segs = 4 * (q_seg.numel() + kv_seg.numel())
     stats = 4 * (lse.numel() + delta.numel())
-    plain_ms = time_ms(lambda: flash_attention_bwd_ref(
-        q, k, v, q_seg, kv_seg, out, lse, do, dlse, **kw))
+    plain_ms = device_ms([lambda: flash_attention_bwd_ref(
+        q, k, v, q_seg, kv_seg, out, lse, do, dlse, **kw)], iters=3)
     # the yardstick: SDPA's backward (dq, dk, dv together) on a saved
     # forward, with a boolean mask and K/V repeated for GQA
     mask = _pairs(q_seg, kv_seg, causal)[:, None]
@@ -369,8 +418,8 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
         v.repeat_interleave(H // Hkv, dim=1))]
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(
         *leaves, attn_mask=mask)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        sdpa_out, leaves, do, retain_graph=True))
+    library_ms = device_ms([lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True)])
     for res, fn, n_products, out_numel in (
             (res_dq, flash_bwd_dq, 3, dq.numel()),
             (res_dkv, flash_bwd_dkv, 4, dk.numel() + dv.numel())):
@@ -379,13 +428,18 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
                        + out_numel) + stats + segs)
         bound_flops = flops / PEAK_BF16_FLOPS
         bound_bytes = nbytes / PEAK_HBM_BYTES
+        times = device_times([lambda: fn(*args, **kw)])
         res.update(
-            ms=time_ms(lambda: fn(*args, **kw)), plain_ms=plain_ms,
-            library_ms=library_ms,
+            ms=sum(times.values()), split=split_text(times),
+            plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=1e3 * max(bound_flops, bound_bytes),
             bound_by="operations" if bound_flops >= bound_bytes else "bytes",
             gflop=flops / 1e9)
     return res_dq, res_dkv, res_fwd
+
+
+# a decode step runs K4 once per decoder layer, each on its own cache
+DECODE_LAYERS = 28
 
 
 def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
@@ -418,16 +472,37 @@ def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
     q4 = q[:, :, None, :]
     kr = k.repeat_interleave(H // Hkv, dim=1)
     vr = v.repeat_interleave(H // Hkv, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k4 = lambda: decode_attention(q, k, v, seg, length)
+    lib = lambda: sdpa(q4, kr, vr, attn_mask=mask)
+    split = device_times([k4])
     res.update(
-        ms=time_ms(lambda: decode_attention(q, k, v, seg, length)),
-        plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, seg, length,
-                                                      scale=scale)),
-        library_ms=time_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(q4, kr, vr,
-                                                         attn_mask=mask)),
+        ms=sum(split.values()), split=split_text(split),
+        plain_ms=device_ms([lambda: decode_attention_ref(
+            q, k, v, seg, length, scale=scale)]),
+        library_ms=device_ms([lib]),
+        # one call as the host sees it (CUDA events around the Python
+        # call, launch overhead included)
+        call_ms=time_ms(k4), library_call_ms=time_ms(lib),
         bound_ms=1e3 * max(bound_flops, bound_bytes),
         bound_by="operations" if bound_flops >= bound_bytes else "bytes",
     )
+    # cold: passes over DECODE_LAYERS distinct caches, as a decode step
+    # makes (more than the 50 MB L2 holds at the serving shape)
+    del kr, vr
+    caches = [(torch.randn((B, Hkv, S, D), generator=gen, **dev),
+               torch.randn((B, Hkv, S, D), generator=gen, **dev))
+              for _ in range(DECODE_LAYERS)]
+    res["ms_cold"] = device_ms(
+        [lambda k=k, v=v: decode_attention(q, k, v, seg, length)
+         for k, v in caches], iters=3)
+    reps = [(k.repeat_interleave(H // Hkv, dim=1),
+             v.repeat_interleave(H // Hkv, dim=1)) for k, v in caches]
+    del caches
+    res["library_ms_cold"] = device_ms(
+        [lambda k=k, v=v: sdpa(q4, k, v, attn_mask=mask) for k, v in reps],
+        iters=3)
+    res["cold_caches_mb"] = DECODE_LAYERS * 2 * k.numel() * 2 / 1e6
     return res
 
 
@@ -468,9 +543,25 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
     dead = dec_seg.clone()                  # dead slots inside the prefix
     dead[1, 1000:1013] = 0
     dead[2, 1030:1036] = 0
+    span = dec_seg.clone()                  # a dead span of 2+ chunks
+    span[:, 150:333] = 0
     dec_extra = [decode_case(BATCH, 12, 2, S_dec, 128, min(1037, S_dec),
                              dead, 8, timed=False),
                  decode_case(2, 8, 1, 100, 64, 0, dead[:2, :100], 9,
+                             timed=False),
+                 decode_case(BATCH, 12, 2, S_dec, 128, S_dec, span, 18,
+                             timed=False),
+                 # length inside the first chunk, and one not a multiple
+                 # of it
+                 decode_case(BATCH, 12, 2, S_dec, 128, 37,
+                             torch.ones((BATCH, S_dec), **cuda), 19,
+                             timed=False),
+                 decode_case(BATCH, 12, 2, S_dec, 128, min(1000, S_dec),
+                             dec_seg, 20, timed=False),
+                 # GQA groups 1 and 8
+                 decode_case(BATCH, 2, 2, S_dec, 128, S_dec, dec_seg, 21,
+                             timed=False),
+                 decode_case(BATCH, 16, 2, S_dec, 128, S_dec, dec_seg, 22,
                              timed=False)]
     # the training path's shapes: the packed rows' segments (two per row
     # plus padding) and the tower over their four images
@@ -483,6 +574,9 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
     ones = lambda b, n: torch.ones((b, n), **cuda)
     part = torch.zeros((1, 200), **cuda)   # two segments, then padding
     part[0, :90], part[0, 90:181] = 1, 2
+    # arbitrary, unsorted ids (0 = padding): the dead-tile test must stay
+    # conservative for any order
+    unsorted = torch.randint(0, 4, (2, 300), generator=g).to(**cuda)
     bwd = [
         bwd_case(1, 16, 16, PATCH_BUDGET, PATCH_BUDGET, 80, False,
                  tower_train, tower_train, 11, timed=True),
@@ -496,8 +590,18 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
         # the lse cotangent (GRPO's merge), top-left causal T < S, GQA 7
         bwd_case(1, 14, 2, 190, 333, 64, True, ones(1, 190), ones(1, 333),
                  15, timed=False, with_dlse=True),
+        # unsorted ids: causal GQA 6 at D=128, non-causal GQA 1 at D=80
+        bwd_case(2, 12, 2, 300, 300, 128, True, unsorted, unsorted, 16,
+                 timed=False),
+        bwd_case(2, 4, 4, 300, 300, 80, False, unsorted, unsorted, 17,
+                 timed=False),
     ]
-    extra += [fwd for _, _, fwd in bwd]     # K1 at the training shapes
+    # K1 at the decoder's training shape, timed; at the others as checked
+    # where they feed K2 and K3
+    train_fwd = flash_case(TRAIN_ROWS, 12, 2, CUTOFF_LEN, CUTOFF_LEN, 128,
+                           True, dec_train, dec_train, 23, timed=True)
+    extra = [train_fwd] + extra + [fwd for i, (_, _, fwd) in enumerate(bwd)
+                                   if i != 1]
     for r in [tower, prefill, *extra]:
         log(f"kernels: flash_fwd {r['shape']}: max_abs_err "
             f"{r['max_abs_err']:.3e}, lse {r['lse_max_abs_err']:.3e}"
@@ -508,17 +612,25 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
     for r in [dec, *dec_extra]:
         log(f"kernels: decode_attention {r['shape']}: max_abs_err "
             f"{r['max_abs_err']:.3e}"
-            + (f"; {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
+            + (f"; warm {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-               f"{r['bound_by']})" if "ms" in r else ""))
+               f"{r['bound_by']}); cold over {DECODE_LAYERS} caches "
+               f"({r['cold_caches_mb']:.0f} MB) {r['ms_cold']:.4f} ms "
+               f"(sdpa {r['library_ms_cold']:.4f}); one call with its "
+               f"launch {r['call_ms']:.4f} ms (sdpa "
+               f"{r['library_call_ms']:.4f}); kernels {r['split']}"
+               if "ms" in r else ""))
     for rdq, rdkv, _ in bwd:
         for name, r in (("flash_bwd_dq", rdq), ("flash_bwd_dkv", rdkv)):
             log(f"kernels: {name} {r['shape']}: max_abs_err "
                 f"{r['max_abs_err']:.3e}"
+                + (f", live tiles {r['live_tile_share']:.3f}"
+                   if "live_tile_share" in r else "")
                 + (f"; {r['ms']:.4f} ms (plain bwd {r['plain_ms']:.4f}, "
                    f"sdpa bwd {r['library_ms']:.4f}, bound "
                    f"{r['bound_ms']:.4f} {r['bound_by']}, "
-                   f"{r['gflop']:.2f} GFLOP)" if "ms" in r else ""))
+                   f"{r['gflop']:.2f} GFLOP; kernels {r['split']})"
+                   if "ms" in r else ""))
     return {"flash_fwd": [tower, prefill] + extra,
             "flash_bwd_dq": [dq for dq, _, _ in bwd],
             "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
@@ -677,8 +789,8 @@ def phase_profile(gen, batch, steps: int = 8) -> None:
 KERNEL_FAMILIES = [
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-    ("K4 decode", ("decode_kernel",)),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "dkv_group_sum_kernel")),
+    ("K4 decode", ("decode_chunk_kernel", "decode_merge_kernel")),
     ("f32 GEMM", ("f32f32", "sgemm")),
     ("bf16 GEMM", ("gemm", "nvjet", "cutlass")),
     ("elementwise", ("elementwise",)),
@@ -1055,7 +1167,9 @@ def main() -> int:
                                       "train": train[k.name]}}
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")})
+            "library_ms", "shape", "ms_cold", "library_ms_cold", "call_ms",
+            "library_call_ms")
+            if key in main_case})
         if k.name.startswith("flash_bwd"):
             entry["plain_and_library_cover"] = (
                 "dq, dk and dv together (K2 + K3): flash_attention_bwd_ref, "

@@ -2,7 +2,8 @@
 
 Counterpart of iadr1_tpu/kernels/decode_attention.py ``decode_attention``.
 For CUDA tensors ``decode_attention`` launches the hand-written kernel
-``csrc/decode_attention.cu``, whose loop stops at ``length``; for CPU
+``csrc/decode_attention.cu`` (split-K over 64-slot chunks of the cache,
+then a merge pass; no slot at or past ``length`` is read); for CPU
 tensors it runs the plain PyTorch twin ``decode_attention_ref``.
 
 A cache slot is valid when its index < ``length`` and its segment id != 0
@@ -20,12 +21,13 @@ from iadr1_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
+CHUNK = 64          # cache slots per block of the kernel's first pass
 
 KERNEL = CudaKernel(
     name="decode_attention",
     source="decode_attention.cu",
     symbol="iadr1_decode_bf16",
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 )
 
@@ -96,7 +98,13 @@ def decode_attention(q, k, v, kv_segment_ids, length: int, *,
     B, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    # the chunks' f32 partials: acc [B, Hkv, chunks, G, D], then (m, l);
+    # sized by the static S, so the launch shape never follows ``length``
+    chunks = -(-S // CHUNK)
+    workspace = torch.empty(B * H * chunks * (D + 2), dtype=torch.float32,
+                            device=q.device)
     with torch.cuda.device(q.device):
-        KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(seg), ptr(out), B, H, Hkv,
-                      S, D, length, float(scale), stream_of(q))
+        KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(seg), ptr(out),
+                      ptr(workspace), B, H, Hkv, S, D, length, float(scale),
+                      stream_of(q))
     return out

@@ -46,7 +46,7 @@ DKV_KERNEL = CudaKernel(
     name="flash_bwd_dkv",
     source="flash_bwd.cu",
     symbol="iadr1_flash_bwd_dkv_bf16",
-    argtypes=[ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    argtypes=[ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
 
@@ -71,6 +71,47 @@ def _valid_pairs(segment_ids, kv_segment_ids, causal: bool):
         cols = torch.arange(S, device=segment_ids.device)[None, :]
         valid = valid & (cols <= rows)
     return valid
+
+
+# K3's tiles (csrc/flash_bwd.cu): keys per block, query rows per tile
+DKV_TILE_K, DKV_TILE_Q = 64, 64
+
+
+def _tile_id_range(seg, tile: int):
+    """[B, n_tiles] (lo, hi) of each tile's non-zero segment ids; lo > hi
+    where a tile has none."""
+    B, n = seg.shape
+    n_tiles = -(-n // tile)
+    pad = torch.zeros((B, n_tiles * tile - n), dtype=seg.dtype,
+                      device=seg.device)
+    tiles = torch.cat([seg, pad], dim=1).reshape(B, n_tiles, tile)
+    big = torch.iinfo(torch.int64).max
+    ids = tiles.long()
+    lo = torch.where(ids != 0, ids, big).amin(-1)
+    hi = torch.where(ids != 0, ids, -big).amax(-1)
+    return lo, hi
+
+
+def live_tiles(q_seg, kv_seg, causal: bool, tile_q: int = DKV_TILE_Q,
+               tile_k: int = DKV_TILE_K):
+    """[B, n_key_blocks, n_query_tiles] bool: the (key block, query tile)
+    pairs K3 computes, by the kernel's own test.  A pair is live when the
+    tile's and the block's ranges of non-zero segment ids overlap and,
+    when causal, the tile's last row reaches the block's first key
+    (top-left alignment).  Every valid pair of ``_valid_pairs`` lies in a
+    live tile, whatever the ids' order."""
+    q_lo, q_hi = _tile_id_range(q_seg, tile_q)           # [B, nq]
+    k_lo, k_hi = _tile_id_range(kv_seg, tile_k)          # [B, nk]
+    live = ((q_lo <= q_hi)[:, None, :] & (k_lo <= k_hi)[:, :, None]
+            & (q_lo[:, None, :] <= k_hi[:, :, None])
+            & (k_lo[:, :, None] <= q_hi[:, None, :]))
+    if causal:
+        last_row = torch.clamp(
+            torch.arange(1, q_lo.shape[1] + 1, device=q_seg.device) * tile_q,
+            max=q_seg.shape[1]) - 1
+        first_key = torch.arange(k_lo.shape[1], device=q_seg.device) * tile_k
+        live = live & (last_row[None, None, :] >= first_key[None, :, None])
+    return live
 
 
 def flash_attention_ref(q, k, v, segment_ids, kv_segment_ids, *,
@@ -179,11 +220,16 @@ def flash_bwd_dkv(q, k, v, q_seg, kv_seg, lse, delta, do, *, causal, scale):
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # one block per (key block, query head): a GQA group's heads write f32
+    # parts that the kernel's second pass sums in head order
+    part = (torch.empty((2, B, H, S, D), dtype=torch.float32, device=q.device)
+            if H > Hkv else None)
     with torch.cuda.device(q.device):
         DKV_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
                           ptr(delta), ptr(q_seg), ptr(kv_seg), ptr(dk),
-                          ptr(dv), B, H, Hkv, T, S, D, float(scale),
-                          int(causal), stream_of(q))
+                          ptr(dv), None if part is None else ptr(part), B,
+                          H, Hkv, T, S, D, float(scale), int(causal),
+                          stream_of(q))
     return dk, dv
 
 

@@ -152,6 +152,77 @@ def test_flash_function_refuses_what_the_kernels_do_not_take(card):
         k1.flash_attention(f, f, f)
 
 
+def _bwd_grads(q, k, v, do, q_seg, kv_seg, causal):
+    """dq, dk, dv through the kernels (K2 and K3 directly), and the plain
+    backward, on K1's out and lse."""
+    D = q.shape[-1]
+    with torch.no_grad():
+        out, lse = k1.flash_attention(q, k, v, segment_ids=q_seg,
+                                      kv_segment_ids=kv_seg, causal=causal)
+    delta = k1._delta(out, do, None).contiguous()
+    args = (q, k, v, q_seg, kv_seg, lse, delta, do)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    dq = k1.flash_bwd_dq(*args, **kw)
+    dk, dv = k1.flash_bwd_dkv(*args, **kw)
+    want = k1.flash_attention_bwd_ref(q, k, v, q_seg, kv_seg, out, lse, do,
+                                      None, **kw)
+    return (dq, dk, dv), want, args, kw
+
+
+SKIP_CASES = [
+    # B, H, Hkv, T, S, D, causal, segments
+    (2, 12, 2, 256, 256, 128, True, "unsorted"),
+    (2, 4, 4, 300, 300, 80, False, "unsorted"),
+    (1, 6, 1, 190, 333, 64, True, "unsorted"),      # T < S
+    (1, 16, 16, 1024, 1024, 80, False, "tower"),    # 4 images + padding
+    (1, 12, 2, 1024, 1024, 128, True, "tower"),
+]
+
+
+def _skip_segments(kind, B, n, gen, card):
+    if kind == "unsorted":
+        return torch.randint(0, 4, (B, n), generator=gen, device=card,
+                             dtype=torch.int32)
+    seg = torch.zeros((B, n), dtype=torch.int32, device=card)
+    for i, (a, b) in enumerate([(0, 256), (256, 496), (496, 752),
+                                (752, 992)]):
+        seg[:, a:b] = i + 1
+    return seg
+
+
+@pytest.mark.parametrize("case", SKIP_CASES,
+                         ids=["-".join(map(str, c)) for c in SKIP_CASES])
+def test_flash_dkv_skips_only_dead_tiles(card, case):
+    B, H, Hkv, T, S, D, causal, kind = case
+    gen = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (_rand(gen, (B, H, T, D), card), _rand(gen, (B, Hkv, S, D), card),
+               _rand(gen, (B, Hkv, S, D), card))
+    do = _rand(gen, (B, H, T, D), card)
+    q_seg = _skip_segments(kind, B, T, gen, card)
+    kv_seg = q_seg if S == T else _skip_segments(kind, B, S, gen, card)
+    got, want, _, _ = _bwd_grads(q, k, v, do, q_seg, kv_seg, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+
+
+@pytest.mark.parametrize("group", [1, 6])
+def test_flash_dkv_is_deterministic(card, group):
+    B, Hkv, T, D = 2, 2, 512, 128
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = _rand(gen, (B, Hkv * group, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    do = _rand(gen, (B, Hkv * group, T, D), card)
+    seg = _bwd_segments("packed", B, T, gen, card)
+    (_, dk, dv), _, args, kw = _bwd_grads(q, k, v, do, seg, seg, True)
+    dk2, dv2 = k1.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
 @pytest.mark.parametrize("length", [0, 1, 7, 64, 65, 300, 513])
 def test_decode_kernel_matches_twin(card, length):
     B, Hkv, G, S, D = 3, 2, 6, 513, 128
@@ -165,6 +236,49 @@ def test_decode_kernel_matches_twin(card, length):
     before = k4.KERNEL.launches
     out = k4.decode_attention(q, k, v, seg, length)
     assert k4.KERNEL.launches == before + 1
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("G", [1, 6, 8])
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 200, 520])
+def test_decode_kernel_split_edges(card, length, G, D):
+    """The chunk edges of the split (64 slots), an all-dead chunk, and
+    slots past ``length`` filled with NaN (never read)."""
+    B, Hkv, S = 3, 2, 520
+    gen = torch.Generator(device=card).manual_seed(length + 10 * G + D)
+    q = _rand(gen, (B, Hkv * G, D), card)
+    k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    seg[0, :130] = 0              # chunks 0 and 1 all dead, 2 partly
+    seg[1, 64:128] = 0            # one whole dead chunk mid-cache
+    seg[2, 3:5] = 0
+    k[:, :, length:] = float("nan")
+    v[:, :, length:] = float("nan")
+    out = k4.decode_attention(q, k, v, seg, length)
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("D,aligned", [(36, True), (128, False)])
+def test_decode_kernel_takes_rows_it_cannot_copy_by_16_bytes(card, D,
+                                                             aligned):
+    """Head dims that are no multiple of 8, and a cache that starts off a
+    16-byte boundary, go through the kernel's plain-load path."""
+    B, Hkv, G, S, length = 2, 2, 6, 200, 170
+    gen = torch.Generator(device=card).manual_seed(D)
+    q = _rand(gen, (B, Hkv * G, D), card)
+    n = B * Hkv * S * D
+    k, v = (_rand(gen, (n + 1,), card)[(0 if aligned else 1):][:n]
+            .view(B, Hkv, S, D) for _ in range(2))
+    assert k.is_contiguous() and (k.data_ptr() % 16 == 0) == aligned
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    seg[0, :70] = 0
+    out = k4.decode_attention(q, k, v, seg, length)
     ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
