@@ -18,7 +18,10 @@ result line:
    shape), with their device times (torch.profiler, kernels only; K4 also
    cold over 28 caches and as one host call), the plain version's and
    the matching PyTorch call's (F.scaled_dot_product_attention, forward
-   or backward) as a yardstick, and K3's share of live tiles;
+   or backward) as a yardstick, and the kernels' shares of live tiles;
+   K1 and K2 also on the edges of their dead-tile skipping (unsorted ids,
+   all-padding rows, left padding, stacked query rows that run from one
+   head into the next at GQA 6);
 4. main path: Qwen2-VL-2B at full width (28 decoder and 32 tower layers,
    bf16, weights drawn on the card from a seeded generator) serves 4
    already-tokenized image requests through VLMGenerator._collate and
@@ -301,6 +304,16 @@ def check_fwd(shape, out, lse, ref_out, ref_lse, q_seg, kv_seg, causal):
     return {"shape": shape, "max_abs_err": err, "lse_max_abs_err": lse_err}
 
 
+def key_tile_shares(q_seg, kv_seg, causal, group) -> dict:
+    """K1's and K2's shares of (row block, key tile) pairs computed, and of
+    those computed without the mask."""
+    from iadr1_tpu_torch.kernels.flash_attention import live_key_tiles
+
+    live, full = live_key_tiles(q_seg, kv_seg, causal, group)
+    return {"live_tile_share": float(live.float().mean()),
+            "full_tile_share": float(full.float().mean())}
+
+
 def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
     from iadr1_tpu_torch.kernels.flash_attention import (
         flash_attention,
@@ -323,6 +336,7 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
                     kv_seg, causal)
     if not timed:
         return res
+    res.update(key_tile_shares(q_seg, kv_seg, causal, H // Hkv))
     pairs = _pairs(q_seg, kv_seg, causal)                     # [B, T, S]
     flops = 4.0 * H * D * float(pairs.sum())
     nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
@@ -399,7 +413,8 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
             BWD_ATOL_FRAC * float(want.float().abs().max()), BWD_RTOL))
     if not (dq[~finite] == 0).all():
         raise AssertionError("flash dq: a row with no valid key is not 0")
-    res_dq = {"shape": shape, "max_abs_err": errs[0]}
+    res_dq = {"shape": shape, "max_abs_err": errs[0],
+              **key_tile_shares(q_seg, kv_seg, causal, H // Hkv)}
     res_dkv = {"shape": shape, "max_abs_err": max(errs[1:]),
                "live_tile_share": float(live_tiles(q_seg, kv_seg, causal)
                                         .float().mean())}
@@ -577,6 +592,9 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
     # arbitrary, unsorted ids (0 = padding): the dead-tile test must stay
     # conservative for any order
     unsorted = torch.randint(0, 4, (2, 300), generator=g).to(**cuda)
+    unsorted200 = torch.randint(0, 4, (2, 200), generator=g).to(**cuda)
+    allpad = torch.zeros((2, 256), **cuda)  # row 0 all padding
+    allpad[1, 150:] = 2
     bwd = [
         bwd_case(1, 16, 16, PATCH_BUDGET, PATCH_BUDGET, 80, False,
                  tower_train, tower_train, 11, timed=True),
@@ -595,6 +613,18 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
                  timed=False),
         bwd_case(2, 4, 4, 300, 300, 80, False, unsorted, unsorted, 17,
                  timed=False),
+        # K1's and K2's dead-tile edges (K3 runs them too): the prefill's
+        # left padding, all-padding rows and blocks, and stacked query
+        # rows that run from the end of one head into the next (GQA 6,
+        # T = 200), with ones and with unsorted ids
+        bwd_case(BATCH, 12, 2, PROMPT_LEN, PROMPT_LEN, 128, True, left,
+                 left, 24, timed=False),
+        bwd_case(2, 6, 1, 256, 256, 64, False, allpad, allpad, 25,
+                 timed=False),
+        bwd_case(2, 12, 2, 200, 200, 128, True, ones(2, 200), ones(2, 200),
+                 26, timed=False),
+        bwd_case(2, 12, 2, 200, 200, 80, True, unsorted200, unsorted200, 27,
+                 timed=False),
     ]
     # K1 at the decoder's training shape, timed; at the others as checked
     # where they feed K2 and K3
@@ -605,6 +635,9 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
     for r in [tower, prefill, *extra]:
         log(f"kernels: flash_fwd {r['shape']}: max_abs_err "
             f"{r['max_abs_err']:.3e}, lse {r['lse_max_abs_err']:.3e}"
+            + (f", live tiles {r['live_tile_share']:.3f} (unmasked "
+               f"{r['full_tile_share']:.3f})" if "live_tile_share" in r
+               else "")
             + (f"; {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
                f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
                f"{r['bound_by']}, {r['gflop']:.2f} GFLOP)" if "ms" in r
@@ -626,6 +659,8 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
                 f"{r['max_abs_err']:.3e}"
                 + (f", live tiles {r['live_tile_share']:.3f}"
                    if "live_tile_share" in r else "")
+                + (f" (unmasked {r['full_tile_share']:.3f})"
+                   if "full_tile_share" in r else "")
                 + (f"; {r['ms']:.4f} ms (plain bwd {r['plain_ms']:.4f}, "
                    f"sdpa bwd {r['library_ms']:.4f}, bound "
                    f"{r['bound_ms']:.4f} {r['bound_by']}, "
@@ -1167,8 +1202,8 @@ def main() -> int:
                                       "train": train[k.name]}}
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "ms_cold", "library_ms_cold", "call_ms",
-            "library_call_ms")
+            "library_ms", "shape", "live_tile_share", "ms_cold",
+            "library_ms_cold", "call_ms", "library_call_ms")
             if key in main_case})
         if k.name.startswith("flash_bwd"):
             entry["plain_and_library_cover"] = (

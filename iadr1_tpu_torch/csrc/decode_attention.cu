@@ -40,10 +40,9 @@
 // takes one chunk, so its K and V land in one stage with nothing to
 // overlap them with; the p @ V loop reads V from shared memory once per
 // query head.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -51,7 +50,6 @@ constexpr int kChunk = 64;     // cache slots per pass-1 block
 constexpr int kThreads = 128;
 constexpr int kMaxGroup = 8;
 constexpr int kMaxDim = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int round8(int d) { return (d + 7) / 8 * 8; }
 // shared K/V row stride: 16 bytes of padding spread one slot's rows over
@@ -65,18 +63,10 @@ __host__ __device__ constexpr size_t smem_bytes(int d, int g) {
          (size_t)kChunk * sizeof(int);             // segment ids
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::kLog2e;
 
 // rows [0, kChunk) of one chunk of a [S, D] cache into a padded tile:
 // live rows copied, dead rows and rows past the chunk's end zero-filled

@@ -21,15 +21,30 @@
 // deterministic.  Both are bound by tensor-core FLOPs: K2 does 3 and K3 4
 // products of 2*D flops per valid (query, key) pair and head (at 989
 // TFLOP/s dense bf16); bytes are small next to that at training lengths.
+// K2 stays its own kernel: fusing dq into K3 would need a sum across key
+// blocks, by atomics (not deterministic) or an f32 workspace per key block
+// (about 1.3 GB at the tower's shape).
 //
-// K2 (a simple first design): one block of 4 warps per (b, kv head, 64
-// stacked query rows), the GQA group's rows stacked as in K1 (row r =
-// g*T + t).  Each warp keeps its Q and dO fragments and a [16, D] f32 dq
-// accumulator in registers and walks 32-key tiles of K and V (row-major
-// in shared memory, rows padded by 8 elements for the banks) with
-// mma.sync m16n8k16; K, needed transposed in ds @ K, is read as column
-// pairs.  It leaves on the table: wgmma, a cp.async pipeline, skipping
-// dead tiles, and fusing K2 into K3 (which recomputes s and dp).
+// Both kernels share hopper_common.cuh: the live-tile prologue, cp.async
+// staging into wgmma's no-swizzle core-matrix layout, and the wgmma
+// products (SS for two operands in shared memory, RS for A from
+// registers with B read N-major, i.e. transposed, through the descriptor).
+//
+// K2: one warpgroup (128 threads) per (64 stacked query rows, kv head, b),
+// the GQA group's rows stacked as in K1 (row r = g*T + t; a block whose
+// rows run from one head into the next is covered by the prologue, which
+// reads each row's own t).  Each block
+// * marks the 64-key tiles that can hold a valid pair with its rows, and
+//   those whose every pair is valid (K1's `mark_key_tiles`); a block with
+//   no live tile loads nothing and writes dq = 0;
+// * stages Q and dO once and walks the live key tiles with K, V and their
+//   segment ids double-buffered by cp.async, the next live tile's copies
+//   issued right after the first product batch;
+// * forms s = Q K^T and dp = dO V^T with wgmma m64n64k16, selects ds in
+//   the accumulators (branch-free; skipped where every pair is valid) and
+//   accumulates dq += ds K with wgmma m64nDk16, ds from registers and K
+//   read N-major, so K needs no column loads;
+// * writes bf16 dq through a padded shared tile with 16-byte stores.
 //
 // K3, built for Hopper: one warpgroup (128 threads) per (64-key block,
 // query head, b), so the card gets H/Hkv times the blocks a kv-head grid
@@ -49,435 +64,195 @@
 //   in the accumulators, and accumulates dv += p^T dO and dk += ds^T Q
 //   with wgmma m64nDk16, A from registers (the accumulators repacked to
 //   bf16, the FA2 trick) and B the same Q / dO tiles read transposed
-//   through the descriptor.  Tiles sit in the no-swizzle core-matrix
-//   layout, which serves both the K-major and the transposed read;
+//   through the descriptor;
 // * writes bf16 dk/dv when the group is one head, else this head's f32
 //   part to a workspace that a second pass sums over the group in head
 //   order.
-// What K3 leaves on the table: the products of one tile run in two
-// serial wgmma batches with the mask arithmetic between them (no second
+// What both leave on the table: the products of one tile run in serial
+// wgmma batches with the mask arithmetic between them (no second
 // warpgroup to overlap them, no producer warp, no TMA); the no-swizzle
 // layout costs shared-memory bandwidth that a 128-byte swizzle would
-// save; the group sum round-trips f32 parts through device memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
+// save; K3's group sum round-trips f32 parts through device memory.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kDqRows = 64;   // K2: stacked query rows per block (4 x 16)
-constexpr int kDqKeys = 32;   // K2: keys per tile
-constexpr int kKvRows = 64;   // K3: keys per block (4 warps x 16)
-constexpr int kQRows = 64;    // K3: query rows per tile (wgmma N)
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kKvRows = kTileRows;   // K3: keys per block (4 warps x 16)
+constexpr int kQRows = kTileRows;    // K3: query rows per tile (wgmma N)
 
-// two floats -> bf16x2 with `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// p[0] (low half) and p[stride] (high half): two rows of one column
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p,
-                                            int stride) {
-  __nv_bfloat162 v;
-  v.x = p[0];
-  v.y = p[stride];
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// accumulator fragments of two n-tiles -> the A fragment of a k-step
-__device__ __forceinline__ void to_a_frag(uint32_t a[4], const float lo[4],
-                                          const float hi[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// rows [row0, row0 + rows) of a [n, D] bf16 matrix into a padded tile,
-// zero past n
+// K2 shared memory: Q, dO, two stages of K and V, two stages of key
+// segment ids, the block's id info; the live-tile flags (one byte per key
+// tile) follow
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows, int n) {
-  constexpr int kChunks = D / 8;
-  constexpr int kStride = D + 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c8 = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D)[c8];
-    *reinterpret_cast<uint4*>(dst + r * kStride + c8 * 8) = val;
-  }
+constexpr size_t dq_smem_bytes() {
+  return (size_t)6 * kTileRows * D * sizeof(bf16) +
+         (size_t)2 * kTileRows * sizeof(int) + 8 * sizeof(int);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int* __restrict__ q_seg,
-                    const int* __restrict__ kv_seg,
-                    __nv_bfloat16* __restrict__ dq, int H, int Hkv, int T,
-                    int S, float scale, int causal) {
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kDqKeys / 8;
-  constexpr int kStride = D + 8;
+                    const int* __restrict__ kv_seg, bf16* __restrict__ dq,
+                    int H, int Hkv, int T, int S, float scale, int causal) {
+  constexpr int kSteps = D / 16;          // k-steps of s and dp
+  constexpr int kTile = kTileRows * D;    // elements of one tile
+  constexpr uint32_t kGroup = kGroupBytes<D>;
 
-  __shared__ __align__(16) __nv_bfloat16 k_s[kDqKeys * kStride];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kDqKeys * kStride];
-  __shared__ int seg_s[kDqKeys];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + kTile;
+  bf16* k_st = do_s + kTile;                              // [2][kTile]
+  bf16* v_st = k_st + 2 * kTile;                          // [2][kTile]
+  int* seg_st = reinterpret_cast<int*>(v_st + 2 * kTile); // [2][64]
+  int* info = seg_st + 2 * kTileRows;                     // [8]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(info + 8);
 
   const float scale_log2 = scale * kLog2e;
   const int group = H / Hkv;
   const int rows_total = group * T;
   const int b = blockIdx.z, hk = blockIdx.y;
-  const int row0 = blockIdx.x * kDqRows;
+  const int row0 = blockIdx.x * kTileRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, tq = lane % 4;
+  const int n_tiles = (S + kTileRows - 1) / kTileRows;
+  const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * D;
+  const int* kv_seg_b = kv_seg + (size_t)b * S;
 
-  // this thread's two rows: quad and quad + 8 of the warp's 16
-  bool row_ok[2];
+  mark_key_tiles(flags, info, q_seg + (size_t)b * T, kv_seg_b, row0,
+                 rows_total, T, S, causal);
+
+  // element offset of stacked row r of this block in q / dout / dq, or -1
+  // past the last row
+  auto row_off = [=](int r) -> long long {
+    const int rr = row0 + r;
+    if (rr >= rows_total) return -1;
+    return (((long long)b * H + hk * group + rr / T) * T + rr % T) * D;
+  };
+  auto fetch = [&](int stage, int tile) {
+    stage_tile<D>(k_st + stage * kTile, k + kv_base, tile * kTileRows, S);
+    stage_tile<D>(v_st + stage * kTile, v + kv_base, tile * kTileRows, S);
+    stage_ids(seg_st + stage * kTileRows, kv_seg_b, tile * kTileRows, S);
+  };
+
+  int cur = next_live(flags, -1, n_tiles), stage = 0;
+  if (cur < n_tiles) {   // Q and dO ride in the first tile's group
+    stage_rows<D>(q_s, q, row_off);
+    stage_rows<D>(do_s, dout, row_off);
+    fetch(0, cur);
+  }
+  cp_async_commit();
+
+  // this thread's two rows: quad and quad + 8 of its warp's 16
   int row_t[2], row_seg[2];
-  size_t row_off[2];
   float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = row0 + warp * 16 + quad + 8 * i;
-    row_ok[i] = r < rows_total;
-    const int rr = row_ok[i] ? r : 0;
-    const int t = rr % T;
-    const size_t stat = ((size_t)b * H + hk * group + rr / T) * T + t;
-    row_t[i] = t;
-    row_seg[i] = row_ok[i] ? q_seg[(size_t)b * T + t] : 0;
-    row_off[i] = stat * D;
-    lse2[i] = row_ok[i] ? lse[stat] * kLog2e : INFINITY;
-    dlt[i] = row_ok[i] ? delta[stat] : 0.f;
+    const int r = warp * 16 + quad + 8 * i;
+    const long long off = row_off(r);
+    row_t[i] = (row0 + r) % T;
+    row_seg[i] = off >= 0 ? q_seg[(size_t)b * T + row_t[i]] : 0;
+    lse2[i] = off >= 0 ? lse[off / D] * kLog2e : INFINITY;
+    dlt[i] = off >= 0 ? delta[off / D] : 0.f;
   }
 
-  uint32_t qa[kSteps][4], da[kSteps][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + tq * 2;
-    qa[ks][0] = row_ok[0] ? ld32(q + row_off[0] + c) : 0u;
-    qa[ks][1] = row_ok[1] ? ld32(q + row_off[1] + c) : 0u;
-    qa[ks][2] = row_ok[0] ? ld32(q + row_off[0] + c + 8) : 0u;
-    qa[ks][3] = row_ok[1] ? ld32(q + row_off[1] + c + 8) : 0u;
-    da[ks][0] = row_ok[0] ? ld32(dout + row_off[0] + c) : 0u;
-    da[ks][1] = row_ok[1] ? ld32(dout + row_off[1] + c) : 0u;
-    da[ks][2] = row_ok[0] ? ld32(dout + row_off[0] + c + 8) : 0u;
-    da[ks][3] = row_ok[1] ? ld32(dout + row_off[1] + c + 8) : 0u;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint64_t q_desc = smem_desc(q_s, kCore, kGroup);
+  const uint64_t do_desc = smem_desc(do_s, kCore, kGroup);
 
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  // causal: no key past the block's last query position is ever valid
-  const int r_end = min(row0 + kDqRows, rows_total);
-  int kv_end = S;
-  if (causal) {
-    const bool one_head = (row0 / T) == ((r_end - 1) / T);
-    const int t_hi = one_head ? (r_end - 1) % T : T - 1;
-    kv_end = min(S, t_hi + 1);
-  }
-  const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * D;
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kDqKeys) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(k_s, k + kv_base, kv0, kDqKeys, S);
-    load_tile<D>(v_s, v + kv_base, kv0, kDqKeys, S);
-    for (int idx = threadIdx.x; idx < kDqKeys; idx += kThreads) {
-      const int kv = kv0 + idx;
-      seg_s[idx] = kv < S ? kv_seg[(size_t)b * S + kv] : 0;
-    }
+  // the flags are block-uniform, so is the walk
+  while (cur < n_tiles) {
+    cp_async_wait<0>();   // this tile (and, first time round, Q and dO)
+    fence_proxy_async();
     __syncthreads();
+    const bf16* k_s = k_st + stage * kTile;
+    const bf16* v_s = v_st + stage * kTile;
+    const int* seg_s = seg_st + stage * kTileRows;
+    const int kv0 = cur * kTileRows;
 
-    // s = q k^T and dp = dout v^T, [16, 32] per warp
-    float s[kNTiles][4], dp[kNTiles][4];
+    // s = Q K^T and dp = dO V^T, [64 rows, 64 keys], both K-major
+    float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      const __nv_bfloat16* krow = k_s + (nt * 8 + quad) * kStride + tq * 2;
-      const __nv_bfloat16* vrow = v_s + (nt * 8 + quad) * kStride + tq * 2;
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    const uint64_t k_desc = smem_desc(k_s, kCore, kGroup);
+    const uint64_t v_desc = smem_desc(v_s, kCore, kGroup);
+    wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        mma_16816(s[nt], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-        mma_16816(dp[nt], da[ks], ld32(vrow + ks * 16), ld32(vrow + ks * 16 + 8));
-      }
-    }
+    for (int ks = 0; ks < kSteps; ++ks)
+      wgmma_ss_n64(s, q_desc + ks * 16, k_desc + ks * 16, ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+      wgmma_ss_n64(dp, do_desc + ks * 16, v_desc + ks * 16, ks > 0);
+    wgmma_commit();
+    // the other stage was consumed by the previous tile, whose products
+    // every thread waited for before the barrier above
+    const int nxt = next_live(flags, cur, n_tiles);
+    if (nxt < n_tiles) fetch(stage ^ 1, nxt);
+    cp_async_commit();
+    wgmma_wait_all();
 
     // ds = p * (dp - delta) * scale, masked pairs selected to 0
+    if (flags[cur] & 2) {   // every pair valid
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        s[e] = exp2f(s[e] * scale_log2 - lse2[i]) * (dp[e] - dlt[i]) * scale;
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const int local = nt * 8 + tq * 2 + (e & 1);
-        const int col = kv0 + local;
-        const int seg = seg_s[local];
-        const bool ok = row_ok[i] && col < S && seg != 0 &&
-                        seg == row_seg[i] && (!causal || col <= row_t[i]);
-        const float p = ok ? exp2f(s[nt][e] * scale_log2 - lse2[i]) : 0.f;
-        s[nt][e] = ok ? p * (dp[nt][e] - dlt[i]) * scale : 0.f;
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int local = nt * 8 + tq * 2 + c, key = kv0 + local;
+          const int ks = seg_s[local];   // 0 past S
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * nt + 2 * i + c;
+            const bool ok = (ks == row_seg[i]) & (ks != 0) &
+                            (!causal | (key <= row_t[i]));
+            const float p = exp2f(s[e] * scale_log2 - lse2[i]);
+            s[e] = ok ? p * (dp[e] - dlt[i]) * scale : 0.f;
+          }
+        }
       }
     }
 
-    // dq += ds @ k: k's rows are the contraction, read as column pairs
+    // dq += ds K: ds from the accumulators, K's rows are the contraction
+    // (N-major); every fragment is written before the fence
+    uint32_t sa[4][4];
+    acc_to_a_frags(sa, s);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-      uint32_t sa[4];
-      to_a_frag(sa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const __nv_bfloat16* kc =
-            k_s + (kk * 16 + tq * 2) * kStride + dt * 8 + quad;
-        mma_16816(acc[dt], sa, ld_col2(kc, kStride),
-                  ld_col2(kc + 8 * kStride, kStride));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, sa[kk], smem_desc(k_s + kk * 16 * D, kGroup, kCore));
+    wgmma_commit();
+    wgmma_wait_all();
+    cur = nxt;
+    stage ^= 1;
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    __nv_bfloat16* orow = dq + row_off[i];
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + tq * 2) =
-          pack_bf16(acc[dt][2 * i], acc[dt][2 * i + 1]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3 (wgmma)
-// ---------------------------------------------------------------------------
-
-// K3 tiles live in shared memory in wgmma's no-swizzle "core matrix"
-// layout: 8 rows x 16 bytes (8 bf16) stored as 128 contiguous bytes, the
-// core matrices of an 8-row group side by side along D, the groups one
-// after another.  Element (r, c) of a [rows, D] tile sits at
-//   (r / 8) * 8 * D + (c / 8) * 64 + (r % 8) * 8 + c % 8     (elements)
-// One tile serves two descriptors: read K-major (contraction over D, for
-// s^T = K Q^T) and N-major (contraction over rows, for dk += ds^T Q).
-template <int D>
-__device__ __forceinline__ int cm_offset(int r, int c8) {
-  return (r / 8) * 8 * D + c8 * 64 + (r % 8) * 8;
-}
-
-// wgmma shared-memory matrix descriptor, no swizzle: start address,
-// leading byte offset (between core matrices along the contraction) and
-// stride byte offset (between core matrices along M or N), all >> 4
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// generic-proxy shared-memory writes (cp.async, st.shared) made visible
-// to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d[32] (+)= A[64, 16] (shared, K-major) * B[16, 64] (shared,
-// K-major): wgmma m64n64k16, f32 accumulate
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d[32] += A[64, 16] (registers) * B[16, 64] (shared, N-major:
-// transposed): wgmma m64n64k16, f32 accumulate
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[40] += A[64, 16] (registers) * B[16, 80] (shared, N-major:
-// transposed): wgmma m64n80k16, f32 accumulate
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64] += A[64, 16] (registers) * B[16, 128] (shared, N-major:
-// transposed): wgmma m64n128k16, f32 accumulate
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (D == 80) wgmma_rs_n80(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  __syncthreads();   // every product is done: the K stages are free
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(acc, one, k_st, dq, row_off);
 }
 
 // K3 shared memory: K and V tiles, then two stages of (Q, dO, lse, delta,
-// q segment ids), the key block's id range; the live-tile flags (one
-// byte per query tile) follow
+// q segment ids), the key block's id info; the live-tile flags (one byte
+// per query tile) follow
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * kKvRows + 4 * kQRows) * D * sizeof(__nv_bfloat16) +
-         (size_t)2 * 3 * kQRows * sizeof(float) + 2 * sizeof(int);
-}
-constexpr int kMaxFlags = 16 * 1024;   // query tiles: T up to kQRows * this
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + rows) of a [n, D] bf16 matrix into a core-matrix
-// tile by 16-byte cp.async copies, zero-filled past n.  Eight neighbouring
-// threads take eight rows of one 16-byte column, so a warp reads four
-// full 32-byte sectors per row group and writes 512 contiguous bytes.
-template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int row0,
-                                           int rows, int n) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r8 = idx % 8, rest = idx / 8;
-    const int c8 = rest % kChunks, r = (rest / kChunks) * 8 + r8;
-    __nv_bfloat16* d = dst + cm_offset<D>(r, c8);
-    if (row0 + r < n)
-      cp_async16(d, src + (size_t)(row0 + r) * D + c8 * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
+  return (size_t)(2 * kKvRows + 4 * kQRows) * D * sizeof(bf16) +
+         (size_t)2 * 3 * kQRows * sizeof(float) + 8 * sizeof(int);
 }
 
 template <int D>
@@ -498,9 +273,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kDTiles = D / 8;
   constexpr int kNTiles = kQRows / 8;
   constexpr int kTile = kQRows * D;     // elements of one Q or dO tile
-  // descriptor offsets, bytes: core matrices are 128 B; an 8-row group
-  // of a tile is 16 * D B
-  constexpr uint32_t kCore = 128, kGroup = 16 * D;
+  constexpr uint32_t kGroup = kGroupBytes<D>;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -510,8 +283,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   float* lse_st = reinterpret_cast<float*>(do_st + 2 * kTile);
   float* dlt_st = lse_st + 2 * kQRows;                  // [2][kQRows]
   int* qseg_st = reinterpret_cast<int*>(dlt_st + 2 * kQRows);
-  int* krange = qseg_st + 2 * kQRows;                   // [2]
-  unsigned char* live_s = reinterpret_cast<unsigned char*>(krange + 2);
+  int* info = qseg_st + 2 * kQRows;                     // [8]
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(info + 8);
 
   const float scale_log2 = scale * kLog2e;
   const int group = H / Hkv;
@@ -522,57 +295,26 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * D;
   const size_t head_row = ((size_t)b * H + h) * T;
 
-  // Which query tiles can hold a valid pair with this key block: the
-  // tile's and the block's ranges of non-zero segment ids must overlap
-  // and, when causal, the tile's last row must reach kv0 (this also ends
-  // the walk when T < S).  Conservative for any ids, sorted or not.
-  if (threadIdx.x == 0) {
-    krange[0] = INT_MAX;
-    krange[1] = INT_MIN;
-  }
-  __syncthreads();
-  if (threadIdx.x < kKvRows && kv0 + threadIdx.x < S) {
-    const int id = kv_seg[(size_t)b * S + kv0 + threadIdx.x];
-    if (id != 0) {
-      atomicMin(&krange[0], id);
-      atomicMax(&krange[1], id);
-    }
-  }
-  __syncthreads();
-  // Four neighbouring threads cover one tile, 16 rows each, with their
-  // 16 loads in flight together.
-  constexpr int kPart = kQRows / 4;
+  // Which query tiles can hold a valid pair with this key block
+  // (`mark_tiles`): the tile's and the block's ranges of non-zero segment
+  // ids must overlap and, when causal, the tile's last row must reach kv0
+  // (this also ends the walk when T < S).
   const int n_tiles = (T + kQRows - 1) / kQRows;
-  for (int base = 0; base < n_tiles * 4; base += kThreads) {
-    const int part = base + threadIdx.x, t0 = part * kPart;
-    int lo = INT_MAX, hi = INT_MIN;
-#pragma unroll
-    for (int j = 0; j < kPart; ++j) {
-      const int id = t0 + j < T ? q_seg[(size_t)b * T + t0 + j] : 0;
-      if (id != 0) {
-        lo = min(lo, id);
-        hi = max(hi, id);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    const int i = part / 4;
-    if (part % 4 == 0 && i < n_tiles) {
-      const int t1 = min((i + 1) * kQRows, T);
-      live_s[i] = lo <= hi && krange[0] <= krange[1] && lo <= krange[1] &&
-                  krange[0] <= hi && (!causal || t1 - 1 >= kv0);
-    }
+  reset_block_info(info);
+  if (threadIdx.x < kKvRows) {
+    const int s = kv0 + threadIdx.x;
+    add_block_entry(info, s < S, s < S ? kv_seg[(size_t)b * S + s] : 0, s);
   }
-  __syncthreads();  // the flags are read by every thread below
+  __syncthreads();
+  const TileTest test = {info[0], info[1], INT_MAX, causal ? kv0 : INT_MIN,
+                         0, INT_MAX};
+  mark_tiles(live_s, q_seg + (size_t)b * T, T, test);
 
   // one query tile's Q, dO, lse, delta and segment ids into a stage
   auto fetch = [&](int stage, int tile) {
     const int t0 = tile * kQRows;
-    stage_tile<D>(q_st + stage * kTile, q + head_row * D, t0, kQRows, T);
-    stage_tile<D>(do_st + stage * kTile, dout + head_row * D, t0, kQRows, T);
+    stage_tile<D>(q_st + stage * kTile, q + head_row * D, t0, T);
+    stage_tile<D>(do_st + stage * kTile, dout + head_row * D, t0, T);
     for (int idx = threadIdx.x; idx < kQRows; idx += kThreads) {
       const int t = t0 + idx, o = stage * kQRows + idx;
       if (t < T) {
@@ -586,15 +328,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   };
-  auto next_live = [&](int tile) {
-    do ++tile; while (tile < n_tiles && !live_s[tile]);
-    return tile;
-  };
-
   // K and V ride in the first tile's group
-  stage_tile<D>(k_s, k + kv_base, kv0, kKvRows, S);
-  stage_tile<D>(v_s, v + kv_base, kv0, kKvRows, S);
-  int cur = next_live(-1), stage = 0;
+  stage_tile<D>(k_s, k + kv_base, kv0, S);
+  stage_tile<D>(v_s, v + kv_base, kv0, S);
+  int cur = next_live(live_s, -1, n_tiles), stage = 0;
   if (cur < n_tiles) fetch(0, cur);
   cp_async_commit();
 
@@ -647,7 +384,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_commit();
     // the other stage was consumed by the previous tile, whose products
     // every thread waited for before the barrier above
-    const int nxt = next_live(cur);
+    const int nxt = next_live(live_s, cur, n_tiles);
     if (nxt < n_tiles) fetch(stage ^ 1, nxt);
     cp_async_commit();
     wgmma_wait_all();
@@ -677,15 +414,9 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     // in registers, B the same tiles read N-major (transposed); one
     // k-step is 16 query rows, two 8-row groups.  Every A fragment is
     // written before the fence that orders it for wgmma.
-    uint32_t pa[kQRows / 16][4], sa[kQRows / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kQRows / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pa[kk][j] = pack_bf16(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1]);
-        sa[kk][j] = pack_bf16(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1]);
-      }
-    }
+    uint32_t pa[4][4], sa[4][4];
+    acc_to_a_frags(pa, st);
+    acc_to_a_frags(sa, dpt);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk)
@@ -731,8 +462,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 // dk, dv [B, Hkv, S, D] bf16 = the f32 parts [2, B, H, S, D] summed over
 // each GQA group, in head order (deterministic); 4 elements a thread
 __global__ void dkv_group_sum_kernel(const float* __restrict__ part,
-                                     __nv_bfloat16* __restrict__ dk,
-                                     __nv_bfloat16* __restrict__ dv, int B,
+                                     bf16* __restrict__ dk,
+                                     bf16* __restrict__ dv, int B,
                                      int H, int Hkv, int S, int D) {
   const int group = H / Hkv;
   const size_t per_head = (size_t)S * D;
@@ -761,16 +492,22 @@ __global__ void dkv_group_sum_kernel(const float* __restrict__ part,
   }
 }
 
-using bf16 = __nv_bfloat16;
-
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const int* q_seg,
               const int* kv_seg, void* dq, int B, int H, int Hkv, int T, int S,
               float scale, int causal, cudaStream_t stream) {
+  const int n_tiles = (S + kTileRows - 1) / kTileRows;
+  if (n_tiles > kMaxFlags) return static_cast<int>(cudaErrorInvalidValue);
+  // once per instantiation (a thread-safe static), not on every launch
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dq_smem_bytes<D>() + kMaxFlags));
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
   const int rows = (H / Hkv) * T;
-  dim3 grid((rows + kDqRows - 1) / kDqRows, Hkv, B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, stream>>>(
+  dim3 grid((rows + kTileRows - 1) / kTileRows, Hkv, B);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem_bytes<D>() + n_tiles,
+                           stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       q_seg, kv_seg, static_cast<bf16*>(dq), H, Hkv, T, S, scale, causal);

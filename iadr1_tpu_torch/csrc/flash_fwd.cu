@@ -11,173 +11,176 @@
 // selected out (-inf, never added to) and K/V rows past S are zero-filled in
 // shared memory, so no garbage reaches the products.
 //
-// Design (simple first): one block of 4 warps per (b, kv head, 64 stacked
-// query rows).  The GQA group's query rows are stacked, row r = g*T + t, so
-// every row of a block reads the same K/V head and each K/V tile is loaded
-// once for the whole group.  Each warp owns 16 rows and keeps its Q
-// fragments and the [16, D] f32 output accumulator in registers; the block
-// walks 64-key tiles of K (row-major) and V (stored transposed) through
-// shared memory and runs QK^T and PV with mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  The causal walk stops at the block's last query position.
+// Bound on this card: tensor-core FLOPs (4 * D per valid (query, key) pair
+// and head, at 989 TFLOP/s dense bf16); bytes are small next to that at
+// the main path's lengths.
 //
-// Bound on this card: tensor-core FLOPs (4*B*H*T*S*D, halved when causal,
-// at 989 TFLOP/s dense bf16); bytes are small next to that.  What this
-// design leaves on the table: wgmma (the only path to the full tensor-core
-// rate), TMA and a multi-stage cp.async pipeline (the tile loads here are
-// synchronous and not overlapped with the products), ldmatrix fragment
-// loads, and a persistent schedule that balances causal blocks.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design: one warpgroup (128 threads) per (64 stacked query rows, kv head,
+// b).  The GQA group's query rows are stacked, row r = g*T + t, so every
+// row of a block reads the same K/V head and each K/V tile is loaded once
+// for the whole group.  When T is not a multiple of 64 a block's rows run
+// from the end of one head into the start of the next; the prologue reads
+// each row's own t, so its tests cover both runs.  Each block
+// * first marks the 64-key tiles that can hold a valid pair with its rows
+//   (hopper_common.cuh `mark_key_tiles`: the id ranges overlap and, when
+//   causal, the tile's first key is at most the block's last t), and the
+//   live tiles whose every pair is valid (one segment on both sides and,
+//   when causal, wholly below the diagonal), which skip the mask.  A
+//   block with no live tile loads nothing and writes out = 0, lse = +inf;
+// * stages its Q rows once and walks the live tiles with K, V and their
+//   segment ids double-buffered by cp.async in the core-matrix layout; the
+//   next live tile's copies are issued right after the first product;
+// * forms S = Q K^T with wgmma m64n64k16 (both operands in shared memory,
+//   K-major), masks it branch-free in the accumulators (selects, with the
+//   tile's ids read once from shared memory), runs the online softmax, and
+//   accumulates O += P V with wgmma m64nDk16, A from registers (the S
+//   accumulators repacked to bf16) and V read N-major through the
+//   descriptor, so V needs no transpose;
+// * writes bf16 out through a padded shared tile with 16-byte stores.
+// What it leaves on the table: the softmax of tile n does not overlap the
+// product of tile n+1 inside the block (one warpgroup, no producer warp, no
+// TMA; the blocks resident on an SM overlap each other instead: issuing
+// the next tile's S before the softmax cost a resident block's registers
+// and ran slower on the card); the no-swizzle layout costs shared-memory
+// bandwidth a 128-byte swizzle would save; blocks of a causal grid do
+// unequal work and are not rebalanced.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // stacked query rows per block (4 warps x 16)
-constexpr int kBlockN = 64;   // keys per tile
-constexpr int kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2 with `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  // Q, two stages of K and V, two stages of key segment ids, the block's
+  // id info; the live-tile flags (one byte per key tile) follow
+  return (size_t)5 * kTileRows * D * sizeof(bf16) +
+         (size_t)2 * kTileRows * sizeof(int) + 8 * sizeof(int);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ q_seg,
-                 const int* __restrict__ kv_seg,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 int H, int Hkv, int T, int S, float scale_log2, int causal) {
-  constexpr int kSteps = D / 16;        // k-steps of QK^T
-  constexpr int kDTiles = D / 8;        // n-tiles of the output
-  constexpr int kNTiles = kBlockN / 8;  // n-tiles of the logits
-  constexpr int kKStride = D + 8;       // padded smem rows: no bank conflicts
-  constexpr int kVStride = kBlockN + 8;
-  constexpr int kChunks = D / 8;        // 16-byte chunks per K/V row
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg, bf16* __restrict__ out,
+                 float* __restrict__ lse, int H, int Hkv, int T, int S,
+                 float scale_log2, int causal) {
+  constexpr int kSteps = D / 16;          // k-steps of S = Q K^T
+  constexpr int kTile = kTileRows * D;    // elements of one Q, K or V tile
+  constexpr uint32_t kGroup = kGroupBytes<D>;
 
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * kVStride];
-  __shared__ int seg_s[kBlockN];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_st = q_s + kTile;                               // [2][kTile]
+  bf16* v_st = k_st + 2 * kTile;                          // [2][kTile]
+  int* seg_st = reinterpret_cast<int*>(v_st + 2 * kTile); // [2][64]
+  int* info = seg_st + 2 * kTileRows;                     // [8]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(info + 8);
 
   const int group = H / Hkv;
   const int rows_total = group * T;
   const int b = blockIdx.z, hk = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockM;
+  const int row0 = blockIdx.x * kTileRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, tq = lane % 4;
+  const int n_tiles = (S + kTileRows - 1) / kTileRows;
+  const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * D;
+  const int* kv_seg_b = kv_seg + (size_t)b * S;
 
-  // this thread's two rows: quad and quad + 8 of the warp's 16
-  bool row_ok[2];
+  mark_key_tiles(flags, info, q_seg + (size_t)b * T, kv_seg_b, row0,
+                 rows_total, T, S, causal);
+
+  // (b, head, t) row index of stacked row r of this block, or -1 past the
+  // last row
+  auto stat_index = [=](int r) -> long long {
+    const int rr = row0 + r;
+    if (rr >= rows_total) return -1;
+    return ((long long)b * H + hk * group + rr / T) * T + rr % T;
+  };
+  auto fetch = [&](int stage, int tile) {
+    stage_tile<D>(k_st + stage * kTile, k + kv_base, tile * kTileRows, S);
+    stage_tile<D>(v_st + stage * kTile, v + kv_base, tile * kTileRows, S);
+    stage_ids(seg_st + stage * kTileRows, kv_seg_b, tile * kTileRows, S);
+  };
+
+  int cur = next_live(flags, -1, n_tiles), stage = 0;
+  if (cur < n_tiles) {   // Q rides in the first tile's group
+    stage_rows<D>(q_s, q, [&](int r) {
+      const long long i = stat_index(r);
+      return i < 0 ? i : i * D;
+    });
+    fetch(0, cur);
+  }
+  cp_async_commit();
+
+  // this thread's two rows: quad and quad + 8 of its warp's 16
   int row_t[2], row_seg[2];
-  size_t row_off[2];  // element offset of the row in q / out
-  size_t lse_off[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + warp * 16 + quad + 8 * i;
-    row_ok[i] = r < rows_total;
-    const int rr = row_ok[i] ? r : 0;
-    const int g = rr / T, t = rr % T;
-    const int head = hk * group + g;
-    row_t[i] = t;
-    row_seg[i] = row_ok[i] ? q_seg[(size_t)b * T + t] : 0;
-    lse_off[i] = ((size_t)b * H + head) * T + t;
-    row_off[i] = lse_off[i] * D;
+    row_t[i] = r % T;
+    row_seg[i] = r < rows_total ? q_seg[(size_t)b * T + r % T] : 0;
   }
 
-  // Q fragments for the whole head dim (rows past the end are zero)
-  uint32_t qa[kSteps][4];
+  float o[D / 2];
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + tq * 2;
-    qa[ks][0] = row_ok[0] ? ld32(q + row_off[0] + c) : 0u;
-    qa[ks][1] = row_ok[1] ? ld32(q + row_off[1] + c) : 0u;
-    qa[ks][2] = row_ok[0] ? ld32(q + row_off[0] + c + 8) : 0u;
-    qa[ks][3] = row_ok[1] ? ld32(q + row_off[1] + c + 8) : 0u;
-  }
-
-  float o[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt)
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
+  float l[2] = {0.f, 0.f};   // this thread's part of each row's sum
+  const uint64_t q_desc = smem_desc(q_s, kCore, kGroup);
 
-  // causal: no key past the block's last query position is ever valid
-  const int r_end = min(row0 + kBlockM, rows_total);
-  int kv_end = S;
-  if (causal) {
-    const bool one_head = (row0 / T) == ((r_end - 1) / T);
-    const int t_hi = one_head ? (r_end - 1) % T : T - 1;
-    kv_end = min(S, t_hi + 1);
-  }
-
-  const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * D;
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockN) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBlockN * kChunks; idx += kThreads) {
-      const int rrow = idx / kChunks, c8 = idx % kChunks;
-      const int kv = kv0 + rrow;
-      uint4 kval = zero4, vval = zero4;
-      if (kv < S) {
-        kval = reinterpret_cast<const uint4*>(k + kv_base + (size_t)kv * D)[c8];
-        vval = reinterpret_cast<const uint4*>(v + kv_base + (size_t)kv * D)[c8];
-      }
-      *reinterpret_cast<uint4*>(k_s + rrow * kKStride + c8 * 8) = kval;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vval);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(c8 * 8 + e) * kVStride + rrow] = ve[e];
-    }
-    for (int idx = threadIdx.x; idx < kBlockN; idx += kThreads) {
-      const int kv = kv0 + idx;
-      seg_s[idx] = kv < S ? kv_seg[(size_t)b * S + kv] : 0;
-    }
+  // the flags are block-uniform, so is the walk
+  while (cur < n_tiles) {
+    cp_async_wait<0>();   // this tile (and, first time round, Q)
+    fence_proxy_async();
     __syncthreads();
+    const bf16* k_s = k_st + stage * kTile;
+    const bf16* v_s = v_st + stage * kTile;
+    const int* seg_s = seg_st + stage * kTileRows;
+    const int kv0 = cur * kTileRows;
 
-    // logits tile [16, 64] per warp
-    float s[kNTiles][4];
+    float s[32];
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = k_s + (nt * 8 + quad) * kKStride + tq * 2;
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const uint64_t k_desc = smem_desc(k_s, kCore, kGroup);
+    wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks)
-        mma_16816(s[nt], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-    }
+    for (int ks = 0; ks < kSteps; ++ks)
+      wgmma_ss_n64(s, q_desc + ks * 16, k_desc + ks * 16, ks > 0);
+    wgmma_commit();
+    // the other stage was consumed by the previous tile, whose products
+    // every thread waited for before the barrier above
+    const int nxt = next_live(flags, cur, n_tiles);
+    if (nxt < n_tiles) fetch(stage ^ 1, nxt);
+    cp_async_commit();
+    wgmma_wait_all();
 
-    // mask (select, never add), scale to base-2 units, running max
+    // mask (select, never add) in base-2 units, running max
     float mx[2] = {-INFINITY, -INFINITY};
+    if (flags[cur] & 2) {   // every pair valid
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+      for (int e = 0; e < 32; ++e) {
+        s[e] *= scale_log2;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const int local = nt * 8 + tq * 2 + (e & 1);
-        const int col = kv0 + local;
-        const int seg = seg_s[local];
-        const bool ok = row_ok[i] && col < S && seg != 0 &&
-                        seg == row_seg[i] && (!causal || col <= row_t[i]);
-        s[nt][e] = ok ? s[nt][e] * scale_log2 : -INFINITY;
-        mx[i] = fmaxf(mx[i], s[nt][e]);
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int local = nt * 8 + tq * 2 + c, key = kv0 + local;
+          const int ks = seg_s[local];   // 0 past S
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * nt + 2 * i + c;
+            const bool ok = (ks == row_seg[i]) & (ks != 0) &
+                            (!causal | (key <= row_t[i]));
+            s[e] = ok ? s[e] * scale_log2 : -INFINITY;
+            mx[i] = fmaxf(mx[i], s[e]);
+          }
+        }
       }
     }
     float alpha[2];
@@ -193,73 +196,69 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       m[i] = m_new;
       mx[i] = m_use;
     }
-    float rowsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        s[nt][e] = exp2f(s[nt][e] - mx[i]);
-        rowsum[i] += s[nt][e];
-      }
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      s[e] = exp2f(s[e] - mx[i]);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], 1);
-      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], 2);
-      l[i] = alpha[i] * l[i] + rowsum[i];
-    }
+    for (int i = 0; i < 2; ++i) l[i] *= alpha[i];
 #pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
+    for (int e = 0; e < 32; ++e) l[(e >> 1) & 1] += s[e];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
-    // o += p @ v: the logits' accumulator layout is the A-fragment layout
+    // O += P V: P from the accumulators, V's rows are the contraction
+    // (N-major); every register written above is ordered by the fence
+    uint32_t pa[4][4];
+    acc_to_a_frags(pa, s);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const __nv_bfloat16* vrow =
-            vt_s + (dt * 8 + quad) * kVStride + kk * 16 + tq * 2;
-        mma_16816(o[dt], pa, ld32(vrow), ld32(vrow + 8));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(o, pa[kk], smem_desc(v_s + kk * 16 * D, kGroup, kCore));
+    wgmma_commit();
+    wgmma_wait_all();
+    cur = nxt;
+    stage ^= 1;
   }
 
+  float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const bool empty = l[i] == 0.f;
-    const float inv = empty ? 0.f : 1.f / l[i];
-    __nv_bfloat16* orow = out + row_off[i];
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + tq * 2) =
-          pack_bf16(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-    }
-    if (tq == 0)
-      lse[lse_off[i]] = empty ? INFINITY : m[i] / kLog2e + logf(l[i]);
+    inv[i] = empty ? 0.f : 1.f / l[i];
+    const long long stat = stat_index(warp * 16 + quad + 8 * i);
+    if (tq == 0 && stat >= 0)
+      lse[stat] = empty ? INFINITY : m[i] / kLog2e + logf(l[i]);
   }
+  __syncthreads();   // every product is done: the K stages are free
+  store_rows<D>(o, inv, k_st, out, [&](int r) {
+    const long long i = stat_index(r);
+    return i < 0 ? i : i * D;
+  });
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, const int* q_seg,
-            const int* kv_seg, void* out, float* lse, int B, int H, int Hkv,
-            int T, int S, float scale_log2, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const int* q_seg,
+           const int* kv_seg, void* out, float* lse, int B, int H, int Hkv,
+           int T, int S, float scale_log2, int causal, cudaStream_t stream) {
+  const int n_tiles = (S + kTileRows - 1) / kTileRows;
+  if (n_tiles > kMaxFlags) return static_cast<int>(cudaErrorInvalidValue);
+  // once per instantiation (a thread-safe static), not on every launch
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(fwd_smem_bytes<D>() + kMaxFlags));
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
   const int rows = (H / Hkv) * T;
-  dim3 grid((rows + kBlockM - 1) / kBlockM, Hkv, B);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), q_seg, kv_seg,
-      static_cast<__nv_bfloat16*>(out), lse, H, Hkv, T, S, scale_log2, causal);
+  dim3 grid((rows + kTileRows - 1) / kTileRows, Hkv, B);
+  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem_bytes<D>() + n_tiles,
+                        stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), q_seg, kv_seg, static_cast<bf16*>(out),
+      lse, H, Hkv, T, S, scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -275,16 +274,12 @@ extern "C" int iadr1_flash_fwd_bf16(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      launch<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
-      break;
+      return launch<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
     case 80:
-      launch<80>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
-      break;
+      return launch<80>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
     case 128:
-      launch<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
-      break;
+      return launch<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 Each source under ``iadr1_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and loaded
 with ``ctypes``.  Libraries go to ``build/kernels/`` at the repository root
-(listed in ``.gitignore``) and are rebuilt when their source is newer.
+(listed in ``.gitignore``) and are rebuilt when their source, or any shared
+header ``csrc/*.cuh``, is newer.
 ``build_all`` starts one ``nvcc`` per source, all at once.  Nothing is
 built or loaded when this module is imported.
 """
@@ -38,8 +39,10 @@ def _lib_path(source: str) -> Path:
 
 def _stale(source: str) -> bool:
     lib = _lib_path(source)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / source).stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / source, *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build_all(sources) -> float:

@@ -114,6 +114,66 @@ def live_tiles(q_seg, kv_seg, causal: bool, tile_q: int = DKV_TILE_Q,
     return live
 
 
+# K1's and K2's tiles (csrc/flash_fwd.cu, csrc/flash_bwd.cu): stacked query
+# rows per block, keys per tile
+ROW_BLOCK, KEY_TILE = 64, 64
+
+
+def live_key_tiles(q_seg, kv_seg, causal: bool, group: int):
+    """(live, full), each [B, n_row_blocks, n_key_tiles] bool: the (row
+    block, key tile) pairs K1 and K2 compute, and those whose every pair is
+    valid (they skip the mask), by the kernels' own test.  A block holds
+    64 stacked query rows, row r = g*T + t for the GQA group's ``group``
+    heads, and every kv head's block of the same index has the same flags,
+    so the kernels' grid is this times Hkv.  A block's rows may run from
+    the end of one head into the start of the next when T is not a
+    multiple of 64; the test reads each row's own t.
+
+    A pair is live when the block's and the tile's ranges of non-zero
+    segment ids overlap and, when causal, the tile's first key is at most
+    the block's last t.  It is full when, besides, every row of the block
+    and every key of the tile (64 of each, none past the end) hold one
+    non-zero id and, when causal, the tile's last key is at most the
+    block's first t."""
+    B, T = q_seg.shape
+    S = kv_seg.shape[1]
+    rows_total = group * T
+    n_blocks = -(-rows_total // ROW_BLOCK)
+    rows = torch.arange(n_blocks * ROW_BLOCK, device=q_seg.device)
+    present = rows < rows_total
+    t = rows % T
+    ids = torch.where(present, q_seg.long()[:, t], 0).reshape(
+        B, n_blocks, ROW_BLOCK)
+    big = torch.iinfo(torch.int64).max
+    q_lo = torch.where(ids != 0, ids, big).amin(-1)              # [B, nb]
+    q_hi = torch.where(ids != 0, ids, -big).amax(-1)
+    q_gap = (ids == 0).any(-1)          # a missing row holds id 0 here
+    t_blk = t.reshape(n_blocks, ROW_BLOCK)
+    p_blk = present.reshape(n_blocks, ROW_BLOCK)
+    t_hi = torch.where(p_blk, t_blk, -1).amax(-1)                # [nb]
+    t_lo = torch.where(p_blk, t_blk, big).amin(-1)
+
+    k_lo, k_hi = _tile_id_range(kv_seg, KEY_TILE)                # [B, nk]
+    n_tiles = k_lo.shape[1]
+    pad = torch.zeros((B, n_tiles * KEY_TILE - S), dtype=kv_seg.dtype,
+                      device=kv_seg.device)
+    k_gap = (torch.cat([kv_seg, pad], 1).reshape(B, n_tiles, KEY_TILE)
+             == 0).any(-1)
+    first = torch.arange(n_tiles, device=q_seg.device) * KEY_TILE
+    last = torch.clamp(first + KEY_TILE, max=S) - 1
+
+    live = ((q_lo <= q_hi)[:, :, None] & (k_lo <= k_hi)[:, None, :]
+            & (q_lo[:, :, None] <= k_hi[:, None, :])
+            & (k_lo[:, None, :] <= q_hi[:, :, None]))
+    full = (live & ~q_gap[:, :, None] & ~k_gap[:, None, :]
+            & (q_lo == q_hi)[:, :, None] & (k_lo == k_hi)[:, None, :]
+            & (q_lo[:, :, None] == k_lo[:, None, :]))
+    if causal:
+        live = live & (first[None, None, :] <= t_hi[None, :, None])
+        full = full & live & (last[None, None, :] <= t_lo[None, :, None])
+    return live, full
+
+
 def flash_attention_ref(q, k, v, segment_ids, kv_segment_ids, *,
                         causal: bool, scale: float):
     """The plain PyTorch twin: q [B,H,T,D], k/v [B,Hkv,S,D] ->

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (K1 flash forward, K2 and K3 flash
 backward, K4 ragged decode) against their plain PyTorch twins, on a CUDA
-card.
+card: the main path's layouts, and the edges of the flash kernels' dead-tile
+skipping (unsorted ids, all-padding blocks, left padding, stacked query rows
+that run from one head into the next, tiles that skip the mask).
 
 Marked ``cuda``: the kernels have no CPU or interpret mode, so these tests
 skip without a card.  Run on the card (which has no JAX, hence no
@@ -176,6 +178,12 @@ SKIP_CASES = [
     (1, 6, 1, 190, 333, 64, True, "unsorted"),      # T < S
     (1, 16, 16, 1024, 1024, 80, False, "tower"),    # 4 images + padding
     (1, 12, 2, 1024, 1024, 128, True, "tower"),
+    # K1/K2's stacked rows wrap from one head into the next (GQA 6, T=200)
+    (2, 12, 2, 200, 200, 128, True, "ones"),
+    (2, 12, 2, 200, 333, 64, True, "unsorted"),     # wrap, T < S
+    (4, 12, 2, 1024, 1024, 128, True, "leftpad"),   # prefill's layout
+    (2, 6, 1, 256, 256, 64, False, "allpad"),       # all-padding blocks
+    (1, 4, 4, 256, 256, 80, True, "ones"),          # unmasked full tiles
 ]
 
 
@@ -184,10 +192,39 @@ def _skip_segments(kind, B, n, gen, card):
         return torch.randint(0, 4, (B, n), generator=gen, device=card,
                              dtype=torch.int32)
     seg = torch.zeros((B, n), dtype=torch.int32, device=card)
-    for i, (a, b) in enumerate([(0, 256), (256, 496), (496, 752),
-                                (752, 992)]):
-        seg[:, a:b] = i + 1
+    if kind == "ones":
+        seg[:] = 1
+    elif kind == "leftpad":       # prompts of 292, 283, 306, 297 tokens
+        for b in range(B):
+            seg[b, n - (292, 283, 306, 297)[b % 4]:] = 1
+    elif kind == "allpad":        # row 0 all padding, row 1 from 150 on
+        seg[1:, 150:] = 2
+    else:
+        for i, (a, b) in enumerate([(0, 256), (256, 496), (496, 752),
+                                    (752, 992)]):
+            seg[:, a:b] = i + 1
     return seg
+
+
+@pytest.mark.parametrize("case", SKIP_CASES,
+                         ids=["-".join(map(str, c)) for c in SKIP_CASES])
+def test_flash_forward_skips_only_dead_tiles(card, case):
+    B, H, Hkv, T, S, D, causal, kind = case
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (_rand(gen, (B, H, T, D), card), _rand(gen, (B, Hkv, S, D), card),
+               _rand(gen, (B, Hkv, S, D), card))
+    q_seg = _skip_segments(kind, B, T, gen, card)
+    kv_seg = q_seg if S == T else _skip_segments(kind, B, S, gen, card)
+    out, lse = k1.flash_attention(q, k, v, segment_ids=q_seg,
+                                  kv_segment_ids=kv_seg, causal=causal)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, q_seg, kv_seg,
+                                              causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    valid = torch.isfinite(ref_lse)
+    torch.testing.assert_close(out[valid].float(), ref_out[valid].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[valid], ref_lse[valid], atol=1e-3, rtol=0)
+    assert (out[~valid] == 0).all() and torch.isposinf(lse[~valid]).all()
 
 
 @pytest.mark.parametrize("case", SKIP_CASES,
@@ -221,6 +258,20 @@ def test_flash_dkv_is_deterministic(card, group):
     dk2, dv2 = k1.flash_bwd_dkv(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("group", [1, 6])
+def test_flash_dq_is_deterministic(card, group):
+    B, Hkv, T, D = 2, 2, 500, 128
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = _rand(gen, (B, Hkv * group, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    do = _rand(gen, (B, Hkv * group, T, D), card)
+    seg = _bwd_segments("packed", B, T, gen, card)
+    (dq, _, _), _, args, kw = _bwd_grads(q, k, v, do, seg, seg, True)
+    dq2 = k1.flash_bwd_dq(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2)
 
 
 @pytest.mark.parametrize("length", [0, 1, 7, 64, 65, 300, 513])

@@ -103,3 +103,34 @@ def test_other_families_name_their_roadmap_item():
 
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         bundle_from_hf_config({"model_type": "qwen2_5_vl"})
+
+
+def test_a_library_is_rebuilt_when_its_source_or_a_shared_header_is_newer(
+        tmp_path, monkeypatch):
+    import os
+
+    from iadr1_tpu_torch.kernels import _build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, header, lib = csrc / "k.cu", csrc / "common.cuh", build / "k.so"
+    src.write_text("")
+    header.write_text("")
+    assert _build._stale("k.cu")                  # never built
+    lib.write_text("")
+
+    def age(path, t):
+        os.utime(path, (t, t))
+
+    age(src, 100)
+    age(header, 100)
+    age(lib, 200)
+    assert not _build._stale("k.cu")
+    age(header, 300)                              # a shared header changed
+    assert _build._stale("k.cu")
+    age(header, 100)
+    age(src, 300)                                 # the source changed
+    assert _build._stale("k.cu")
