@@ -2,6 +2,7 @@
 """Drive the PyTorch/H100 port (iadr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--max-new-tokens N] [--train-steps N]
+                          [--grpo-steps N]
 
 Phases, a line each at least, then the kernel JSON line, the card line and the
 result line:
@@ -21,24 +22,41 @@ result line:
    or backward) as a yardstick, and the kernels' shares of live tiles;
    K1 and K2 also on the edges of their dead-tile skipping (unsorted ids,
    all-padding rows, left padding, stacked query rows that run from one
-   head into the next at GQA 6);
+   head into the next at GQA 6); and all four at the SC-GRPO step's shapes
+   (the completions' cross attention to the shared prompt, T != S and
+   non-causal, and their causal self attention, both with rows that end
+   early and dlse != 0; the unique prompts; the two-image tower; K4 over
+   the fanned-out cache of 8 rows);
 4. main path: Qwen2-VL-2B at full width (28 decoder and 32 tower layers,
    bf16, weights drawn on the card from a seeded generator) serves 4
    already-tokenized image requests through VLMGenerator._collate and
    RolloutEngine.generate (eval defaults: P=1024, greedy, patch budget
-   4096); the launch counters must show that every attention call of the
+   4096; 128 new tokens unless asked otherwise); the launch counters must show that every attention call of the
    run went through K1 or K4, and the kernel path's prefill logits must
    agree with the twin path's;
 5. profile: a short generate under torch.profiler (device busy share and
    the kernels that take the device time);
 6. training: Qwen2-VL-2B at full width (f32 parameters drawn on the card,
-   bf16 compute, AdamW) takes 8 PA-SFT steps through make_chunked_sft_step
+   bf16 compute, AdamW) takes 4 PA-SFT steps through make_chunked_sft_step
    and run_sft_loop on 4 already-tokenized image examples packed into 2
    rows of 2048 (remat on, CE chunk 1024); the launch counters must show
    that every attention call of every step went through K1, K2 and K3,
    step 1 must agree with a step through the plain versions (loss, grad
    norm and the attention projections' per-layer grad norms), a control
-   step with dq zeroed must not, and the loss must fall.
+   step with dq zeroed must not, and the loss must fall;
+7. SC-GRPO: Qwen2-VL-2B at full width (f32 policy drawn on the card, a
+   bf16 reference copy, bf16 compute, AdamW lr 1e-6) takes 3 steps of
+   GRPOTrainer.step with cli/train_grpo.py's defaults (G=4, P=1024, N=512,
+   temperature 0.9, top-p 0.9, top-k 50, beta 0.04, rewards accuracy +
+   format, remat save_flash, shared-prompt scoring, logp chunk 1024) on 2
+   already-tokenized image prompts through make_vlm_prompt_collator; the
+   launch counters of each step must equal the counts the path implies
+   (K4 per decode step and layer; K1 for the rollout prefill, the
+   reference forward and the policy forward; K2 and K3 once per attention
+   call of the policy), step 1 must agree with a step through the plain
+   versions on the same recorded rollout, a control whose backward drops
+   the lse cotangent must not, every group must carry a non-zero
+   advantage, and every metric must be finite.
 
 Exits non-zero, printing no result, without a CUDA card or when any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -122,6 +140,30 @@ BWD_RTOL, BWD_ATOL_FRAC = 2e-2, 1e-2
 # (decoder and tower), which read the backward's dq, dk and dv directly.
 # A control step through the plain path with dq zeroed must fail them.
 STEP1_LOSS_REL, STEP1_GRAD_NORM_REL, STEP1_QKV_REL = 1e-4, 2e-3, 1.5e-2
+
+# SC-GRPO: cli/train_grpo.py's defaults (GRPOConfig's own), two prompts of
+# one image each; data.patch_budget 8192 sizes the G-repeated collation, so
+# the G = 1 collation the shared-prompt path uses holds 8192 / 4 = 2048
+# patches: the two images' 1024 + 960
+GRPO_PROMPTS, GRPO_PATCH_BUDGET, GRPO_LEARNING_RATE = 2, 8192, 1e-6
+GRPO_REWARDS = ["accuracy", "format"]
+# rollouts the smoke ends early (row, tokens kept): random weights hardly
+# ever draw EOS, trained ones nearly always do, and every token after an
+# EOS is a row with no valid key on both sides of the update's merge
+GRPO_EARLY_EOS = ((1, 37), (3, 300), (6, 1))
+# GRPO step 1, kernel path vs plain path on the same recorded rollout.
+# On-policy the loss is -mean(advantage) + beta * kl: the advantages of a
+# group sum to 0 and the policy starts as its reference (kl = 0), so loss
+# and kl are held absolutely.  The gradient (the advantages' policy
+# gradient) is held like the SFT step's, and besides by the distance
+# between the q and k projections' gradient vectors: a backward that drops
+# the lse cotangent turns them (0.17 on an H100) more than it changes
+# their length (0.03).  The limits sit 2-3 times above the sound readings
+# on an H100 (PERF.md: 5.9e-4, 7.8e-3, 3.1e-2); that control must fail
+# them.
+GRPO_STEP1_LIMITS = {"loss": 1e-5, "kl": 1e-5, "grad norm": 2e-3,
+                     "qkv grad norms": 2e-2, "q/k grad vectors": 7e-2}
+GRPO_KL_STEP1_MAX = 1e-3
 
 
 def log(line: str) -> None:
@@ -275,6 +317,71 @@ def make_sft_rows(seed: int = 1):
                                       for r in rows):
         raise AssertionError("the examples did not pack into 2 rows of 2")
     return rows
+
+
+GRPO_SOLUTIONS = [
+    "<think>The weave is even.</think><answer>No</answer>",
+    "<think>A thin bright line crosses the corner.</think>"
+    "<location>top left</location><type>scratch</type><answer>Yes</answer>",
+]
+_THINK = "<think>The texture is regular except near one corner.</think>"
+# eight responses in the reward grammar, which the accuracy and format
+# rewards score differently.  Their order matters: any four consecutive
+# ones (cyclically) differ in their summed reward against either solution
+CANNED_RESPONSES = [
+    _THINK + "<answer>No</answer>",                     # well-formed normal
+    _THINK + "<location>top left</location><type>scratch</type>"
+    "<answer>Yes</answer>",             # anomalous, right type and location
+    _THINK + "<answer>Yes</answer>",                    # missing tags
+    _THINK + "<location>top left</location><type>hole</type>"
+    "<answer>Yes</answer>",                             # wrong type
+    _THINK + "<location>top left</location><type>scratch</type>"
+    "<answer>No</answer>",              # the answer contradicts the tags
+    "The image shows a metal surface; I cannot tell.",  # free text
+    _THINK + "<location>bottom right</location><type>crack</type>"
+    "<answer>Yes</answer>",                     # wrong type and location
+    "<answer>No</answer>",                              # no reasoning
+]
+
+
+class CannedTokenizer:
+    """What GRPOTrainer needs of a tokenizer (no vocabulary is in the
+    repository).  ``batch_decode`` picks each row's text from
+    ``CANNED_RESPONSES`` by the token ids: row i of a call reads entry
+    (sum of the call's ids + i) mod 8, so the rows of a group read four
+    consecutive entries and never score alike."""
+
+    eos_token_id, pad_token_id = IM_END, ENDOFTEXT
+
+    def batch_decode(self, seqs, skip_special_tokens=True):
+        base = sum(int(np.sum(s)) for s in seqs)
+        return [CANNED_RESPONSES[(base + i) % len(CANNED_RESPONSES)]
+                for i in range(len(seqs))]
+
+
+def make_grpo_examples(seed: int = 2):
+    """Two already-tokenized chatml image prompts (a seeded image each, the
+    serving phase's two sizes) with a ``solution`` in the reward grammar:
+    one normal, one anomalous."""
+    from iadr1_tpu_torch.vision.preprocess import patchify_image
+
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    examples = []
+    for i, (h, w) in enumerate(IMAGE_HW[:GRPO_PROMPTS]):
+        flat, grid = patchify_image(rng.random((h, w, 3), dtype=np.float32))
+        n_img = int(np.prod(grid)) // 4
+        ids = ([IM_START] + text(3) + [IM_END] + text(1)
+               + [IM_START] + text(2)
+               + [VISION_START] + [IMAGE_PAD] * n_img + [VISION_END]
+               + text(40 + 25 * i) + [IM_END] + text(1)
+               + [IM_START] + text(2))
+        examples.append({"prompt_ids": ids, "patches": [flat],
+                         "grid_thw": [grid], "solution": GRPO_SOLUTIONS[i]})
+    return examples
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +628,8 @@ def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
     return res
 
 
-def phase_kernels(encoded, max_new_tokens, train_rows):
+def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
+    from iadr1_tpu_torch.train.grpo import GRPOConfig
     from iadr1_tpu_torch.vision.preprocess import vision_segment_ids
 
     cuda = dict(device="cuda", dtype=torch.int32)
@@ -632,6 +740,54 @@ def phase_kernels(encoded, max_new_tokens, train_rows):
                            True, dec_train, dec_train, 23, timed=True)
     extra = [train_fwd] + extra + [fwd for i, (_, _, fwd) in enumerate(bwd)
                                    if i != 1]
+
+    # the SC-GRPO step's shapes (GRPOConfig's defaults): n unique prompts,
+    # left-padded, their ids repeated over the group for the completions'
+    # cross attention; completion ids with seeded trailing zeros (rollouts
+    # that ended early: rows with no valid key on either side), one rollout
+    # of a single token and one of full length among them
+    gcfg = GRPOConfig()
+    G, P, N = (gcfg.num_generations, gcfg.max_prompt_length,
+               gcfg.max_completion_length)
+    n = len(grpo_examples)
+    p_seg = torch.zeros((n, P), **cuda)
+    for b, ex in enumerate(grpo_examples):
+        p_seg[b, P - len(ex["prompt_ids"]):] = 1
+    p_rep = p_seg.repeat_interleave(G, dim=0)
+    stops = torch.randint(2, N, (n * G,), generator=g)
+    stops[0], stops[1] = N, 1
+    c_seg = (torch.arange(N)[None, :] < stops[:, None]).to(**cuda)
+    tower_grpo = torch.as_tensor(vision_segment_ids(
+        [gr for ex in grpo_examples for gr in ex["grid_thw"]],
+        pad_to=GRPO_PATCH_BUDGET // G), **cuda)[None]
+    T_tower = tower_grpo.shape[1]
+    grpo_shapes = [
+        ("grpo cross", (n * G, 12, 2, N, P, 128, False, c_seg, p_rep), True),
+        ("grpo self", (n * G, 12, 2, N, N, 128, True, c_seg, c_seg), True),
+        ("grpo prompt", (n, 12, 2, P, P, 128, True, p_seg, p_seg), False),
+        ("grpo tower", (1, 16, 16, T_tower, T_tower, 80, False, tower_grpo,
+                        tower_grpo), False),
+    ]
+    grpo_bwd, grpo_fwd = [], []
+    for i, (label, shape, dlse) in enumerate(grpo_shapes):
+        results = (*bwd_case(*shape, 31 + i, timed=True, with_dlse=dlse),
+                   flash_case(*shape, 41 + i, timed=True))
+        for r in results:
+            r["shape"] = f"{label}: {r['shape']}"
+        grpo_bwd.append(results[:3])
+        grpo_fwd.append(results[3])
+    # K4 over the fanned-out cache: the group's rows share their prompt's
+    # ids, then each has its own, frozen at 0 after its EOS; at the length
+    # of the first, a middle and the last decode step
+    fan_seg = torch.cat([p_rep, c_seg], dim=1)
+    grpo_dec = [decode_case(n * G, 12, 2, P + N, 128, length, fan_seg, 51 + i,
+                            timed=(length == P + N))
+                for i, length in enumerate((P + 1, P + N // 2, P + N))]
+    for r in grpo_dec:
+        r["shape"] = f"grpo fan-out: {r['shape']}"
+    bwd += grpo_bwd
+    extra += grpo_fwd + [fwd for _, _, fwd in grpo_bwd]
+    dec_extra += grpo_dec[::-1]             # the timed one first
     for r in [tower, prefill, *extra]:
         log(f"kernels: flash_fwd {r['shape']}: max_abs_err "
             f"{r['max_abs_err']:.3e}, lse {r['lse_max_abs_err']:.3e}"
@@ -930,9 +1086,9 @@ class GradProbe:
     """The optimizer, wrapped: on its first call it keeps the per-layer
     gradient norms of the attention's q, k and v projections in the
     decoder and the tower (the step hands its gradients only to the
-    optimizer)."""
+    optimizer) and, with ``keep_grads``, those gradients themselves."""
 
-    def __init__(self, optimizer, params):
+    def __init__(self, optimizer, params, keep_grads=False):
         from iadr1_tpu_torch.train.state import tree_leaves
 
         leaves = tree_leaves(params)
@@ -942,6 +1098,7 @@ class GradProbe:
         self.index = [next(i for i, p in enumerate(leaves) if p is t)
                       for t in targets]
         self.optimizer, self.norms = optimizer, None
+        self.keep_grads, self.grads = keep_grads, None
 
     def init(self, params):
         return self.optimizer.init(params)
@@ -955,15 +1112,22 @@ class GradProbe:
                              tower.chunk(3, dim=-1)))
             self.norms = {n: g.float().flatten(1).norm(dim=1)
                           for n, g in parts.items()}
+            if self.keep_grads:
+                self.grads = {n: g.float().clone() for n, g in parts.items()}
         return self.optimizer.apply(params, grads, state, grad_norm)
 
 
 def step1_diffs(got, ref) -> dict:
     """Relative differences of step 1's loss, global grad norm and the
     worst per-layer q/k/v projection grad norm."""
+    (m, _), (m0, _) = got, ref
+    return {"loss": abs(m["loss"] - m0["loss"]) / abs(m0["loss"]),
+            **_grad_diffs(got, ref)}
+
+
+def _grad_diffs(got, ref) -> dict:
     (m, norms), (m0, norms0) = got, ref
     return {
-        "loss": abs(m["loss"] - m0["loss"]) / abs(m0["loss"]),
         "grad norm": abs(m["grad_norm"] - m0["grad_norm"]) / m0["grad_norm"],
         "qkv grad norms": max(float(((norms[n] - norms0[n]).abs()
                                      / norms0[n]).max()) for n in norms0),
@@ -974,12 +1138,12 @@ STEP1_LIMITS = {"loss": STEP1_LOSS_REL, "grad norm": STEP1_GRAD_NORM_REL,
                 "qkv grad norms": STEP1_QKV_REL}
 
 
-def _within(diffs) -> bool:
-    return all(diffs[k] <= STEP1_LIMITS[k] for k in STEP1_LIMITS)
+def _within(diffs, limits=STEP1_LIMITS) -> bool:
+    return all(diffs[k] <= limits[k] for k in limits)
 
 
-def _diff_text(diffs) -> str:
-    return ", ".join(f"{k} rel {v:.3e} (limit {STEP1_LIMITS[k]})"
+def _diff_text(diffs, limits=STEP1_LIMITS, kind="rel") -> str:
+    return ", ".join(f"{k} {kind} {v:.3e} (limit {limits[k]})"
                      for k, v in diffs.items())
 
 
@@ -1120,7 +1284,8 @@ def phase_train(rows, steps: int, card):
         raise AssertionError("step 1 differs between kernel and plain path")
 
     B, T = TRAIN_ROWS, CUTOFF_LEN
-    step_s = statistics.median(times[3:] if len(times) > 3 else times[1:])
+    late = len(times) > 4           # the first three steps still warm up
+    step_s = statistics.median(times[3:] if late else times[1:])
     n_label = history[0]["n_label_tokens"]
     patches = [int(np.prod(g)) for r in rows for e in r["extras"]
                for g in e["grid_thw"]]
@@ -1142,13 +1307,350 @@ def phase_train(rows, steps: int, card):
         f"{[round(x, 4) for x in losses]}; grad norms "
         f"{[round(x, 4) for x in norms]}")
     log(f"train: step {1e3 * step_s:.1f} ms (median of steps "
-        f"{'4-' if len(times) > 3 else '2-'}{steps}; all steps "
+        f"{'4-' if late else '2-'}{steps}; all steps "
         f"{[round(1e3 * x, 1) for x in times]} ms), "
         f"{B * T / step_s:.0f} tokens/s, {n_label / step_s:.0f} label "
         f"tokens/s, MFU {meter.mfu:.4f} (decoder + tower model FLOPs, "
         f"x3, against {PEAK_BF16_FLOPS:.3g}), peak memory {peak_gib:.2f} "
         f"GiB, launches {launches} on {card}")
     return launches
+
+
+
+# ---------------------------------------------------------------------------
+# phase 7: SC-GRPO
+# ---------------------------------------------------------------------------
+
+
+class DropDlseFlash(TwinFlash):
+    """The control of the GRPO step-1 check: the plain backward without
+    the lse cotangent (delta = rowsum(out * dO) alone, what a backward
+    that ignores lse computes).  The shared-prompt merge weighs its two
+    attentions by their lses, so its limits must catch this."""
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return TwinFlash.backward(ctx, do, None)
+
+
+def lse_attn(flash):
+    """The (out, lse) attention signature (kernel layout) over a flash
+    Function."""
+    def attn(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
+             causal=True):
+        return flash.apply(q, k, v, q_segments, kv_segments, causal)
+    return attn
+
+
+class RolloutTap:
+    """Around the trainer's engine: times each ``generate``, keeps the
+    first rollout, and ends the rollouts of ``GRPO_EARLY_EOS`` early (an
+    EOS, then padding).  Given ``replay``, it returns that rollout instead
+    of generating."""
+
+    def __init__(self, engine, replay=None):
+        self.engine, self.replay = engine, replay
+        self.seconds, self.steps, self.tokens = [], [], []
+
+    def generate(self, params, batch, generator=None, group_size=1):
+        if self.replay is not None:
+            return dict(self.replay)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.engine.generate(params, batch, generator,
+                                   group_size=group_size)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.steps.append(out["num_decode_steps"])
+        ids, mask = out["completion_ids"], out["completion_mask"]
+        self.tokens.append(int(mask.sum()))
+        sampling = self.engine.sampling
+        for row, keep in GRPO_EARLY_EOS:
+            if int(mask[row].sum()) > keep:
+                ids[row, keep - 1] = sampling.eos_token_id
+                ids[row, keep:] = sampling.pad_token_id
+                mask[row, keep:] = 0
+        if len(self.seconds) == 1:
+            self.replay_of_first = {k: v.clone() if torch.is_tensor(v) else v
+                                    for k, v in out.items()}
+        return out
+
+
+def grpo_step1_diffs(got, ref) -> dict:
+    """Step 1 against the plain path: loss and kl absolutely (both start
+    at 0); the global grad norm and the worst per-layer q/k/v projection
+    grad norm relatively; and the worst per-layer relative distance
+    |g - g0| / |g0| between the q and k projections' gradients, which
+    reads a backward that turns them without changing their length (the
+    v projection's never reads delta)."""
+    (m, norms, grads), (m0, norms0, grads0) = got, ref
+    return {"loss": abs(m["loss"] - m0["loss"]),
+            "kl": abs(m["kl"] - m0["kl"]),
+            **_grad_diffs((m, norms), (m0, norms0)),
+            "q/k grad vectors": max(
+                float(((grads[n] - grads0[n]).flatten(1).norm(dim=1)
+                       / grads0[n].flatten(1).norm(dim=1)).max())
+                for n in grads0 if n[-1] in "qk")}
+
+
+def phase_grpo(examples, steps: int, card):
+    """SC-GRPO steps of Qwen2-VL-2B through GRPOTrainer.step, assembled as
+    cli/train_grpo.py assembles them; returns the launch counts."""
+    import dataclasses
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from iadr1_tpu_torch.cli.train_grpo import (
+        GRPODataSection,
+        GRPOSection,
+        make_vlm_prompt_collator,
+    )
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models import qwen2, qwen2_vl
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.models.shared_prompt import shared_prompt_pred_hidden
+    from iadr1_tpu_torch.rewards import get_reward_funcs
+    from iadr1_tpu_torch.train.grpo import (
+        UPDATE_RANGES,
+        GRPOConfig,
+        GRPOTrainer,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.rollout import cast_dense_params
+    from iadr1_tpu_torch.train.sft import batch_to_device
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    bundle = bundle_from_hf_config(QWEN2_VL_2B)
+    cfg = bundle.cfg
+    section = GRPOSection()                       # the launcher's defaults
+    gcfg = GRPOConfig(
+        num_generations=section.num_generations, beta=section.beta,
+        temperature=section.temperature, top_p=section.top_p,
+        top_k=section.top_k, max_prompt_length=section.max_prompt_length,
+        max_completion_length=section.max_completion_length)
+    G, P, N = (gcfg.num_generations, gcfg.max_prompt_length,
+               gcfg.max_completion_length)
+    n = len(examples)
+    tokenizer = CannedTokenizer()
+    collator = make_vlm_prompt_collator(
+        bundle, tokenizer, None, GRPODataSection(
+            patch_budget=GRPO_PATCH_BUDGET), P, num_generations=G)
+    reward_s = []
+
+    def timed(fn):
+        def reward(**kw):
+            t0 = time.perf_counter()
+            out = fn(**kw)
+            reward_s.append(time.perf_counter() - t0)
+            return out
+        reward.__name__ = fn.__name__
+        return reward
+
+    rewards = [timed(fn) for fn in get_reward_funcs(section.reward_funcs)]
+
+    def plain_bundle(flash):
+        """The bundle with its shared-prompt scoring over a flash Function
+        of the plain versions (the tower and the three decoder calls)."""
+        tower_attn, attn_lse = train_attn(flash), lse_attn(flash)
+
+        def shared_pred(params, batch, group_size, remat=True):
+            embeds = params["text"]["embed"]["weight"][
+                batch["prompt_ids"]].to(torch.bfloat16)
+            feats = qwen2_vl.apply_vision(
+                params["vision"], cfg.vision, batch["patches"],
+                batch["rot_cos"], batch["rot_sin"], batch["vision_segments"],
+                attention_fn=tower_attn, remat=bool(remat))
+            embeds = qwen2_vl.merge_image_features(
+                embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
+            return shared_prompt_pred_hidden(
+                params["text"], cfg.text, batch, group_size,
+                attention_fn=attn_lse, remat=remat, prompt_embeds=embeds)
+
+        return dataclasses.replace(bundle, shared_pred_fn=shared_pred)
+
+    def fresh(used_bundle, replay=None):
+        params = bundle.init_params(seed=0, dtype=torch.float32,
+                                    device=DEVICE)
+        ref = _tree_map(lambda p: p.detach().to(torch.bfloat16), params)
+        opt, sched = make_optimizer(OptimizerConfig(
+            learning_rate=GRPO_LEARNING_RATE, total_steps=100))
+        probe = GradProbe(opt, params, keep_grads=True)
+        trainer = GRPOTrainer(
+            used_bundle, tokenizer, probe, gcfg, rewards,
+            create_train_state(params, probe), ref, schedule=sched,
+            prompt_collator=collator, device=DEVICE, seed=0)
+        trainer.engine = RolloutTap(trainer.engine, replay)
+        return trainer, probe
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # --- the kernel path: the steps, their counts and their times ----------
+    trainer, probe = fresh(bundle)
+    tap = trainer.engine
+    n_params = sum(p.numel() for p in _leaves(trainer.state.params))
+    update_s, update_batches = [], []
+    inner_update = trainer.update_step
+
+    def timed_update(state, ref_params, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_update(state, ref_params, batch)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+        update_batches.append(batch)
+        return out
+
+    trainer.update_step = timed_update
+
+    # the rollout's prefill alone (tower + decoder over the n prompts),
+    # from the bf16 copy of the policy the trainer rolls out from
+    prefill_batch = batch_to_device(collator(examples, 1), DEVICE)
+    prefill_batch["segment_ids"] = prefill_batch["attention_mask"].to(
+        torch.int32)
+    policy = cast_dense_params(trainer.state.params, torch.bfloat16)
+    for _ in range(2):                       # the second one is warm
+        cache = qwen2.init_cache(cfg.text, n, P, torch.bfloat16, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            bundle.apply(policy, prefill_batch, cache=cache,
+                         cache_mode="prefill")
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+    del policy, cache
+    release()
+
+    L, Lt = cfg.text.num_hidden_layers, cfg.vision.depth
+    kernels = [k for k, _ in all_kernels()]
+    step_s, per_step, total = [], [], {k.name: 0 for k in kernels}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(examples)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in kernels}
+        # K1: the rollout's prefill, the reference forward, and the policy
+        # forward, whose tower blocks run again in the backward (a plain
+        # checkpoint); the three decoder calls of a layer keep their
+        # residuals.  K2 and K3: once per attention call of the policy.
+        want = {"flash_fwd": (L + Lt) + (3 * L + Lt) + (3 * L + 2 * Lt),
+                "flash_bwd_dq": 3 * L + Lt, "flash_bwd_dkv": 3 * L + Lt,
+                "decode_attention": L * tap.steps[i]}
+        if launches != want or tap.steps[i] < 1:
+            raise AssertionError(f"grpo step {i + 1} launches {launches}, "
+                                 f"want {want}")
+        per_step.append(launches)
+        for name, count in launches.items():
+            total[name] += count
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = trainer.metrics_history
+    first = (history[0], probe.norms, probe.grads)
+    roll_s, roll_steps, roll_tokens = tap.seconds, tap.steps, tap.tokens
+
+    adv = np.asarray(update_batches[0]["advantages"]).reshape(n, G)
+    log(f"grpo: step 1 rewards mean {history[0]['reward']:.4f}, group std "
+        f"{history[0]['reward_std']:.4f}, advantages "
+        f"{[[round(float(a), 3) for a in row] for row in adv]}, completion "
+        f"length {history[0]['completion_length']:.1f} (rollouts "
+        f"{[r for r, _ in GRPO_EARLY_EOS]} ended early at "
+        f"{[k for _, k in GRPO_EARLY_EOS]} tokens)")
+    if not history[0]["reward_std"] > 0 or not (adv != 0).any(axis=1).all():
+        raise AssertionError("a group of step 1 has no advantage")
+    for i, m in enumerate(history):
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"grpo step {i + 1}: non-finite {bad}")
+    if not abs(history[0]["kl"]) < GRPO_KL_STEP1_MAX:
+        raise AssertionError(f"kl at step 1 is {history[0]['kl']}")
+
+    # where an update's time goes: one more update under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, _ = inner_update(trainer.state, trainer.ref_params,
+                                        update_batches[-1])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("profile: one GRPO update (reference forward, policy forward and "
+        "backward, AdamW): "
+        + device_time_summary(prof, wall_ms, top_n=10, ranges=UPDATE_RANGES))
+    recorded = tap.replay_of_first
+    del trainer, probe, tap, inner_update, prof, update_batches
+    release()
+
+    # --- step 1 on the same rollout through the plain versions, and the
+    # control that drops the lse cotangent --------------------------------
+    def replayed_step(flash):
+        trainer, probe = fresh(plain_bundle(flash), recorded)
+        res = trainer.step(examples), probe.norms, probe.grads
+        del trainer, probe
+        release()
+        return res
+
+    plain = replayed_step(TwinFlash)
+    control = grpo_step1_diffs(replayed_step(DropDlseFlash), plain)
+    log("grpo: step 1 control (plain path without the lse cotangent) vs "
+        "plain path: " + _diff_text(control, GRPO_STEP1_LIMITS, "diff"))
+    diffs = grpo_step1_diffs(first, plain)
+    log(f"grpo: step 1 kernel vs plain path on the recorded rollout: loss "
+        f"{first[0]['loss']:.3e} vs {plain[0]['loss']:.3e}, kl "
+        f"{first[0]['kl']:.3e} vs {plain[0]['kl']:.3e}, grad norm "
+        f"{first[0]['grad_norm']:.6f} vs {plain[0]['grad_norm']:.6f}; "
+        + _diff_text(diffs, GRPO_STEP1_LIMITS, "diff"))
+    if _within(control, GRPO_STEP1_LIMITS):
+        raise AssertionError(
+            "the step-1 limits do not catch a dropped lse cotangent")
+    if not _within(diffs, GRPO_STEP1_LIMITS):
+        raise AssertionError("GRPO step 1 differs between kernel and plain "
+                             "path")
+
+    # --- the report -------------------------------------------------------
+    late = slice(1, None) if steps > 1 else slice(None)
+
+    def med(xs):
+        return statistics.median(list(xs)[late])
+
+    R = len(rewards)
+    rollout_ms = med(1e3 * s for s in roll_s)
+    decode_ms = med((1e3 * s - prefill_ms) / k
+                    for s, k in zip(roll_s, roll_steps))
+    tokens_s = med(t / s for t, s in zip(roll_tokens, roll_s))
+    reward_ms = med(1e3 * sum(reward_s[i * R:(i + 1) * R])
+                    for i in range(steps))
+    update_ms, step_ms = med(1e3 * s for s in update_s), med(
+        1e3 * s for s in step_s)
+    log(f"grpo: Qwen2-VL-2B {n_params / 1e9:.3f}B f32 policy + bf16 "
+        f"reference, {steps} steps of {n} prompts x G={G} (P={P}, N={N}, "
+        f"{sum(int(np.prod(g)) for ex in examples for g in ex['grid_thw'])} "
+        f"patches), lr {GRPO_LEARNING_RATE} cosine; loss "
+        f"{[float(format(m['loss'], '.3e')) for m in history]}, kl "
+        f"{[float(format(m['kl'], '.3e')) for m in history]}, grad norm "
+        f"{[round(m['grad_norm'], 5) for m in history]}, reward "
+        f"{[round(m['reward'], 4) for m in history]}, decode steps "
+        f"{roll_steps}")
+    log(f"grpo: step {step_ms:.1f} ms (median of steps "
+        f"{'2-' + str(steps) if steps > 2 else min(steps, 2)}; all steps "
+        f"{[round(1e3 * x, 1) for x in step_s]} ms), "
+        f"{1e3 * n * G / step_ms:.3f} rollouts/s; rollout {rollout_ms:.1f} "
+        f"ms (prefill {prefill_ms:.2f} ms measured apart, decode "
+        f"{decode_ms:.3f} ms/step at B={n * G}, {tokens_s:.1f} generated "
+        f"tokens/s), rewards {reward_ms:.2f} ms on the host, update "
+        f"{update_ms:.1f} ms, peak memory {peak_gib:.2f} GiB, launches per "
+        f"step {per_step[-1]} on {card}")
+    return total
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _leaves(tree):
@@ -1161,11 +1663,18 @@ def _leaves(tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--max-new-tokens", type=int, default=512)
-    ap.add_argument("--train-steps", type=int, default=8)
+    ap.add_argument("--max-new-tokens", type=int, default=128,
+                    help="new tokens of the serving phase's generate")
+    ap.add_argument("--train-steps", type=int, default=4,
+                    help="PA-SFT steps (at least 2)")
+    ap.add_argument("--grpo-steps", type=int, default=3,
+                    help="SC-GRPO steps (at least 1), each a rollout of "
+                         "the recipe's 512 tokens")
     args = ap.parse_args()
     if args.train_steps < 2:
         ap.error("--train-steps must be at least 2")
+    if args.grpo_steps < 1:
+        ap.error("--grpo-steps must be at least 1")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1184,12 +1693,15 @@ def main() -> int:
         f"sm_90a in {secs:.1f} s")
     encoded = make_requests()
     train_rows = make_sft_rows()
-    measured = phase_kernels(encoded, args.max_new_tokens, train_rows)
+    grpo_examples = make_grpo_examples()
+    measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
+                             grpo_examples)
     serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
     phase_profile(gen, batch)
     del gen, batch
     torch.cuda.empty_cache()
     train = phase_train(train_rows, args.train_steps, card)
+    grpo = phase_grpo(grpo_examples, args.grpo_steps, card)
 
     line = []
     for k, replaces in kernels:
@@ -1197,9 +1709,10 @@ def main() -> int:
         entry = {"name": k.name, "route": "cuda",
                  "source": f"iadr1_tpu_torch/csrc/{k.source}",
                  "replaces": replaces,
-                 "launches": serve[k.name] + train[k.name],
+                 "launches": serve[k.name] + train[k.name] + grpo[k.name],
                  "launches_by_path": {"serve": serve[k.name],
-                                      "train": train[k.name]}}
+                                      "train": train[k.name],
+                                      "grpo": grpo[k.name]}}
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "live_tile_share", "ms_cold",

@@ -10,6 +10,14 @@ The kernel wrappers pick by the tensors' device: the CUDA kernels for CUDA
 tensors, the plain versions for CPU tensors.  ``flash_attn`` goes through
 the flash autograd Function, so training gradients flow through K1's
 backward (K2, K3) on the card.
+
+A second dispatch returns the logsumexp too, for callers that compose
+partial attentions (GRPO's shared-prompt update):
+
+    attn(q, k, v, *, mask, q_segments, kv_segments, causal) -> (out, lse)
+
+in the kernel layout, q/out [B, H, T, D], k/v [B, Hkv, S, D], lse
+[B, H, T] f32, differentiable through both outputs.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 from iadr1_tpu_torch.kernels.decode_attention import decode_attention
 from iadr1_tpu_torch.kernels.flash_attention import flash_attention
 from iadr1_tpu_torch.models.common import xla_attention
+from iadr1_tpu_torch.models.shared_prompt import attention_with_lse_xla
 
 
 def xla_attn(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
@@ -45,6 +54,29 @@ def default_attention(kind: str = "auto"):
     if kind.startswith("longlora"):
         raise NotImplementedError(
             "LongLoRA attention is not ported yet (ROADMAP A.13)")
+    raise ValueError(f"unknown attention kind {kind!r}")
+
+
+def xla_attn_lse(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
+                 causal=True):
+    return attention_with_lse_xla(q, k, v, mask)
+
+
+def flash_attn_lse(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
+                   causal=True):
+    """K1 with its lse (a row with no valid key: out = 0, lse = +inf)."""
+    return flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        segment_ids=q_segments, kv_segment_ids=kv_segments, causal=causal)
+
+
+def default_attention_with_lse(kind: str = "auto"):
+    """The (out, lse) dispatch: 'flash' | 'auto' (the K1 wrapper: kernel on
+    CUDA, twin on CPU) or 'xla' (the dense oracle with an lse output)."""
+    if kind in ("auto", "flash"):
+        return flash_attn_lse
+    if kind == "xla":
+        return xla_attn_lse
     raise ValueError(f"unknown attention kind {kind!r}")
 
 

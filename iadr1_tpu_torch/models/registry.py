@@ -5,7 +5,8 @@ A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
 cache_mode=..., remat=False)``, ``hidden_fn(params, batch, remat=True)``,
 ``head_kernel_fn(params)``, ``logits_fn(params, hidden)``,
-``init_params(seed, dtype, device)``,
+``shared_pred_fn(params, batch, group_size, remat=True)`` (GRPO's
+shared-prompt scoring), ``init_params(seed, dtype, device)``,
 ``convert_hf(state, dtype, device)`` and, for Qwen2-VL, the host-side
 ``vision_arrays`` and ``preprocess_image``.
 """
@@ -22,11 +23,13 @@ import torch
 
 from iadr1_tpu_torch.core.device import resolve_device
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
-from iadr1_tpu_torch.models import qwen2, qwen2_vl
+from iadr1_tpu_torch.models import common, qwen2, qwen2_vl
 from iadr1_tpu_torch.models.attention import (
     default_attention,
+    default_attention_with_lse,
     default_decode_attention,
 )
+from iadr1_tpu_torch.models.shared_prompt import shared_prompt_pred_hidden
 
 
 @dataclasses.dataclass
@@ -43,6 +46,11 @@ class ModelBundle:
     # (pil_image, min_pixels=..., max_pixels=...) -> (patches, grid, seqlen)
     preprocess_image: Callable | None = None
     template: str = "chatml"
+    precision: Precision = DEFAULT_PRECISION
+    # shared-prompt GRPO scoring (models/shared_prompt.py): (params, batch,
+    # group_size, remat=True) -> the hidden states [n*G, N, hid] that
+    # predict the completion tokens; None for a family with no such path
+    shared_pred_fn: Callable | None = None
 
     # the training path: final hidden states and the LM-head kernel for
     # the chunked CE loss (train/sft.py); extra kwargs (tower_remat=) pass
@@ -138,6 +146,13 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
         return qwen2.init_params(gen, cfg, dtype or precision.param_dtype,
                                  device)
 
+    attn_lse = default_attention_with_lse(attention)
+
+    def shared_pred(params, batch, group_size, remat=True):
+        return shared_prompt_pred_hidden(
+            params, cfg, batch, group_size, attention_fn=attn_lse,
+            precision=precision, remat=remat)
+
     return ModelBundle(
         family="qwen2", cfg=cfg, multimodal=False,
         init_params=init_params,
@@ -146,6 +161,7 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
         apply=apply,
         logits_fn=lambda params, h: qwen2.logits(params, cfg, h, precision),
         template="chatml",
+        shared_pred_fn=shared_pred, precision=precision,
     )
 
 
@@ -221,6 +237,26 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
         return qwen2_vl.init_params(gen, cfg, dtype or precision.param_dtype,
                                     device)
 
+    attn_lse = default_attention_with_lse(attention)
+
+    def shared_pred(params, batch, group_size, remat=True):
+        """The tower and the feature scatter run once per UNIQUE prompt;
+        the completions attend the shared prompt K/V.  The tower follows
+        ``remat`` as a plain checkpoint of each block, as in JAX."""
+        embeds = common.embed_lookup(
+            params["text"]["embed"]["weight"], batch["prompt_ids"]
+        ).to(precision.compute_dtype)
+        if batch.get("patches") is not None:
+            feats = qwen2_vl.apply_vision(
+                params["vision"], cfg.vision, batch["patches"],
+                batch["rot_cos"], batch["rot_sin"], batch["vision_segments"],
+                precision=precision, attention_fn=attn, remat=bool(remat))
+            embeds = qwen2_vl.merge_image_features(
+                embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
+        return shared_prompt_pred_hidden(
+            params["text"], tcfg, batch, group_size, attention_fn=attn_lse,
+            precision=precision, remat=remat, prompt_embeds=embeds)
+
     return ModelBundle(
         family="qwen2_vl", cfg=cfg, multimodal=True,
         init_params=init_params,
@@ -231,6 +267,7 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
         vision_arrays=vision_arrays,
         preprocess_image=_qwen_preprocess_image(vcfg),
         template="qwen2_vl",
+        shared_pred_fn=shared_pred, precision=precision,
     )
 
 

@@ -57,6 +57,25 @@ def sample_token(logits: torch.Tensor, cfg: SamplingConfig,
     return top_idx.gather(-1, choice)[:, 0]
 
 
+def cast_dense_params(params: dict, dtype) -> dict:
+    """A copy of ``params`` (detached) whose dense layers' kernels and
+    biases are stored in ``dtype``, for a rollout from f32 training
+    parameters: ``dense`` casts just those to the activations' dtype at
+    every call, so the generated tokens are the same, and a decode step
+    reads 2-byte weights instead of casting every 4-byte one.  Everything
+    the model reads in f32 (norm scales, the embedding table, which a tied
+    LM head reads in the logits dtype, and an untied ``lm_head``) keeps its
+    dtype."""
+    def walk(node, name):
+        if not isinstance(node, dict):
+            return node.detach()
+        if "kernel" in node and name != "lm_head":      # a dense layer
+            return {k: v.detach().to(dtype) for k, v in node.items()}
+        return {k: walk(v, k) for k, v in node.items()}
+
+    return walk(params, "")
+
+
 class RolloutEngine:
     """Batched ``generate`` over a model bundle with a KV cache."""
 

@@ -43,12 +43,19 @@ def sft_loss(logits: torch.Tensor, labels: torch.Tensor):
     return loss, {"loss": loss, "accuracy": acc, "n_label_tokens": mask.sum()}
 
 
+def chunk_logits(hc, kernel, logits_dtype):
+    """One chunk's LM-head product [chunk, V] in ``logits_dtype``.  The
+    kernel is cast to the hidden dtype first (the JAX einsum's operand
+    cast), inside the chunk, so its gradient accumulates across chunks in
+    f32.  The CE loss and GRPO's token log-probabilities share it, so both
+    heads round alike."""
+    return torch.matmul(hc.to(logits_dtype),
+                        kernel.to(hc.dtype).to(logits_dtype))
+
+
 def _chunk_ce(hc, kernel, tc, mc, logits_dtype):
-    """One chunk: (sum of token losses, correct count).  The kernel is
-    cast to the hidden dtype first (the JAX einsum's operand cast), inside
-    the chunk, so its gradient accumulates across chunks in f32."""
-    logits = torch.matmul(hc.to(logits_dtype),
-                          kernel.to(hc.dtype).to(logits_dtype))
+    """One chunk: (sum of token losses, correct count)."""
+    logits = chunk_logits(hc, kernel, logits_dtype)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(1, tc[:, None])[:, 0]
     # per-token losses and their sum in f32 whatever the logits dtype

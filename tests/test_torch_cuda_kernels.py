@@ -333,3 +333,100 @@ def test_decode_kernel_takes_rows_it_cannot_copy_by_16_bytes(card, D,
     ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+# the SC-GRPO update's calls at small size, GQA 6: the completions' cross
+# attention to the prompt (T != S, non-causal, kv ids left-padded per
+# prompt and repeated over the group, q ids with trailing zeros after an
+# early EOS) and their causal self attention, both feeding a merge that
+# sends dlse != 0 back
+GRPO_CASES = [
+    # name, T, S, D, causal
+    ("cross", 150, 333, 128, False),
+    ("cross", 64, 200, 64, False),
+    ("self", 150, 150, 128, True),
+]
+
+
+@pytest.mark.parametrize("case", GRPO_CASES,
+                         ids=["-".join(map(str, c)) for c in GRPO_CASES])
+def test_flash_kernels_at_the_grpo_update_shapes(card, case):
+    name, T, S, D, causal = case
+    n, G, H, Hkv = 2, 3, 12, 2
+    B = n * G
+    gen = torch.Generator(device=card).manual_seed(T + S)
+    q, do = _rand(gen, (B, H, T, D), card), _rand(gen, (B, H, T, D), card)
+    q_seg = torch.ones((B, T), dtype=torch.int32, device=card)
+    for b, stop in enumerate((T, 1, 70, T - 1, 0, 33)):   # 0: an empty row
+        q_seg[b, stop:] = 0
+    if name == "cross":
+        kv_seg = torch.ones((n, S), dtype=torch.int32, device=card)
+        kv_seg[0, :130], kv_seg[1, :1] = 0, 0
+        kv_seg = kv_seg.repeat_interleave(G, dim=0)
+        k, v = (_rand(gen, (n, Hkv, S, D), card).repeat_interleave(G, dim=0)
+                for _ in range(2))
+    else:
+        kv_seg = q_seg
+        k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = k1.flash_attention(*leaves, segment_ids=q_seg,
+                                  kv_segment_ids=kv_seg, causal=causal)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, q_seg, kv_seg,
+                                              causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    live = (q_seg != 0)[:, None, :].expand(B, H, T)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(out[live].float(), ref_out[live].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+    # a row whose q id is 0: out = 0, lse = +inf, and dq = 0 below
+    assert (out[~live] == 0).all() and torch.isposinf(lse[~live]).all()
+
+    dlse = torch.randn(lse.shape, generator=gen, device=card) * live
+    got = torch.autograd.grad(
+        (out.float() * do.float()).sum()
+        + torch.where(live, lse * dlse, 0.0).sum(), leaves)
+    want = k1.flash_attention_bwd_ref(q, k, v, q_seg, kv_seg, out.detach(),
+                                      lse.detach(), do, dlse, causal=causal,
+                                      scale=D ** -0.5)
+    no_dlse = k1.flash_attention_bwd_ref(q, k, v, q_seg, kv_seg, out.detach(),
+                                         lse.detach(), do, None,
+                                         causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    for label, g, w, w0 in zip(("dq", "dk", "dv"), got, want, no_dlse):
+        assert torch.isfinite(g).all(), label
+        atol = 1e-2 * float(w.float().abs().max()) + 1e-6
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=atol,
+                                   msg=label)
+        if label != "dv":        # dv does not read delta; dq and dk do
+            assert float((w.float() - w0.float()).abs().max()) > 4 * atol
+    assert (got[0][~live] == 0).all()
+
+
+def test_decode_kernel_over_a_fanned_out_cache(card):
+    """The grouped rollout's cache: each prompt prefilled once (left
+    padding), its K/V rows and segment ids repeated G ways, then each
+    rollout's own decode slots after the shared prefix, some already
+    frozen at EOS (segment 0)."""
+    n, G, Hkv, group, P, D = 2, 4, 2, 6, 200, 128
+    S, length = P + 64, P + 37
+    B = n * G
+    gen = torch.Generator(device=card).manual_seed(5)
+    k, v = (_rand(gen, (n, Hkv, S, D), card).repeat_interleave(G, dim=0)
+            for _ in range(2))
+    seg = torch.ones((n, S), dtype=torch.int32, device=card)
+    seg[1, :90] = 0
+    seg = seg.repeat_interleave(G, dim=0)
+    k[:, :, P:] = _rand(gen, (B, Hkv, S - P, D), card)    # own suffixes
+    v[:, :, P:] = _rand(gen, (B, Hkv, S - P, D), card)
+    seg[2, P + 5:] = 0
+    seg[7, P:] = 0
+    assert torch.equal(k[0, :, :P], k[3, :, :P]) and k.is_contiguous()
+    q = _rand(gen, (B, Hkv * group, D), card)
+    before = k4.KERNEL.launches
+    out = k4.decode_attention(q, k, v, seg, length)
+    assert k4.KERNEL.launches == before + 1
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert not torch.equal(out[0], out[1])       # a group's rows differ

@@ -35,15 +35,26 @@ IMPORT_ALL_BLOCKED = textwrap.dedent("""
         importlib.import_module(name)
     loaded = [m for m in sys.modules if blocked(m)]
     assert not loaded, loaded
-    print(len(names))
+    print(" ".join(names))
 """)
+
+# the SC-GRPO slice's modules: each must be among those imported
+GRPO_MODULES = [
+    "cli.train_grpo", "models.shared_prompt", "train.grpo", "train.prompts",
+    "rewards.structure", "rewards.consistency", "rewards.location",
+    "rewards.type_taxonomy", "rewards.description", "rewards.accuracy",
+    "rewards.ablations",
+]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL_BLOCKED],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20      # every module was reached
+    names = proc.stdout.split()
+    assert len(names) >= 40                        # every module was reached
+    missing = [m for m in GRPO_MODULES if f"iadr1_tpu_torch.{m}" not in names]
+    assert not missing, missing
 
 
 def _tiny_hf():
@@ -64,6 +75,7 @@ def test_entry_points_without_a_card_or_a_device_raise(monkeypatch):
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.models.params_io import params_from_jax
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.grpo import GRPOConfig, GRPOTrainer
     from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,6 +89,7 @@ def test_entry_points_without_a_card_or_a_device_raise(monkeypatch):
         lambda: RolloutEngine(bundle, SamplingConfig(), max_len=8),
         lambda: VLMGenerator(bundle, params, tok, get_template("qwen2_vl"),
                              GeneratorConfig()),
+        lambda: GRPOTrainer(bundle, tok, None, GRPOConfig(), [], None, params),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
