@@ -56,7 +56,25 @@ result line:
    call of the policy), step 1 must agree with a step through the plain
    versions on the same recorded rollout, a control whose backward drops
    the lse cotangent must not, every group must carry a non-zero
-   advantage, and every metric must be finite.
+   advantage, and every metric must be finite;
+8. eval (right after phase 5, on phase 4's bf16 weights): the port's
+   benchmark harness runs 8 synthetic Yes/No items (4 normal, 4 defective)
+   through run_benchmark with the serving generator (P=1024, patch budget
+   4096, B=4, the serving phase's new tokens), fed already-encoded image
+   requests through VLMGenerator._generate_encoded, and a stand-in
+   tokenizer whose canned answers fix the letters and the balanced
+   accuracy in advance; the answers JSON, the accuracy CSV and each
+   batch's launches (K1 once per tower and decoder layer, K4 once per
+   decoder layer and decode step) must be as predicted, and a second call
+   on the same file must launch nothing and change nothing;
+9. chat (after 8): the port's ChatServer on 127.0.0.1 over a generator of
+   batch 4 and 32 new tokens answers /v1/models, a text request with a
+   system message (which must become the prompt's system block) and 4
+   concurrent text requests, which must be coalesced into one generate
+   with one batch's launches.
+
+Before the phases, one line says which of the host libraries the port's
+CLIs use import on this machine; no phase depends on it.
 
 Exits non-zero, printing no result, without a CUDA card or when any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -177,6 +195,25 @@ def gpu_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+IMPORT_PROBE = """
+import importlib, sys
+for name in sys.argv[1:]:
+    try:
+        importlib.import_module(name)
+        print(name, "yes")
+    except Exception as e:      # a report line: any failure means "no"
+        print(name, f"no ({type(e).__name__})")
+"""
+
+
+def importable(names) -> str:
+    """Which of ``names`` import on this machine, tried in a child process
+    so that what they load stays out of this one."""
+    out = subprocess.run([sys.executable, "-c", IMPORT_PROBE, *names],
+                         capture_output=True, text=True, timeout=300)
+    return ", ".join(out.stdout.split("\n")[:-1]) or out.stderr[-200:]
+
+
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     """Median CUDA-event time of one call, after warm-up."""
     for _ in range(warmup):
@@ -205,22 +242,26 @@ def device_times(fns, iters: int = 10) -> dict:
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
     calls = iters * len(fns)
-    times = {}
-    for e in prof.key_averages():
-        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and not getattr(e, "is_user_annotation", False)):
-            times[e.key] = times.get(e.key, 0.0) + (
-                e.self_device_time_total / 1e3 / calls)
-    if not times:
-        raise AssertionError("the profiler recorded no device time")
-    return times
+    # a window that recorded no device time is taken again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and not getattr(e, "is_user_annotation", False)):
+                times[e.key] = times.get(e.key, 0.0) + (
+                    e.self_device_time_total / 1e3 / calls)
+        if times:
+            return times
+        log("profile: a window recorded no device time; taken again")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def device_ms(fns, iters: int = 10) -> float:
@@ -357,6 +398,81 @@ class CannedTokenizer:
         base = sum(int(np.sum(s)) for s in seqs)
         return [CANNED_RESPONSES[(base + i) % len(CANNED_RESPONSES)]
                 for i in range(len(seqs))]
+
+
+class StandInTokenizer:
+    """What VLMGenerator needs of a tokenizer, with no vocabulary in the
+    repository: ``encode`` maps the chatml specials to their ids and every
+    other character to its code point (all below the specials) and keeps
+    the texts it encoded; ``batch_decode`` hands out ``responses`` in turn,
+    one per row decoded, so what a run answers is known in advance."""
+
+    eos_token_id, pad_token_id = IM_END, ENDOFTEXT
+    SPECIALS = {"<|im_start|>": IM_START, "<|im_end|>": IM_END,
+                "<|endoftext|>": ENDOFTEXT, "<|vision_start|>": VISION_START,
+                "<|image_pad|>": IMAGE_PAD, "<|vision_end|>": VISION_END}
+
+    def __init__(self, responses):
+        self.responses = responses
+        self.decoded = 0
+        self.encoded = []
+        self._split = re.compile(
+            "(" + "|".join(map(re.escape, self.SPECIALS)) + ")")
+
+    def encode(self, text, add_special_tokens=False):
+        self.encoded.append(text)
+        ids = []
+        for piece in self._split.split(text):
+            if piece in self.SPECIALS:
+                ids.append(self.SPECIALS[piece])
+            else:
+                ids.extend(ord(c) for c in piece)
+        return ids
+
+    def batch_decode(self, seqs, skip_special_tokens=True):
+        out = [self.responses[(self.decoded + i) % len(self.responses)]
+               for i in range(len(seqs))]
+        self.decoded += len(seqs)
+        return out
+
+
+# phase 8: one answer per item, in the benchmark's order (normal items are
+# the even ones, whose right letter is B = "No."), and the letters
+# extract_option_answer gives them.  Normal 3 of 4 right, defective 2 of
+# 4: balanced accuracy (75 + 50) / 2 = 62.5
+EVAL_RESPONSES = [
+    "<answer>No</answer>",                               # B, right
+    "<answer>Yes</answer>",                              # A, right
+    "<answer>Yes</answer>",                              # A, overkill
+    "The surface looks uneven; I cannot tell.",          # E, no tag
+    _THINK + "<answer>No</answer>",                      # B, right
+    "<answer>No</answer>",                               # B, miss
+    "<answer>no</answer>",                               # B, right
+    _THINK + "<answer>Yes.</answer>",                    # A, right
+]
+EVAL_LETTERS = "BAAEBBBA"
+EVAL_CSV = (",Anomaly Detection,Average\nSynthAD,62.5,62.5\n"
+            "Average,62.5,62.5\n")
+CHAT_SYSTEM = "Answer in one word."
+CHAT_RESPONSES = ["<answer>No</answer>", "<answer>Yes</answer>",
+                  "There is a scratch near the top left corner.",
+                  _THINK + "<answer>No</answer>", "A hole."]
+
+
+def make_eval_benchmark(path: str) -> None:
+    """A benchmark JSON in the test_*_format.json layout: 8 images of one
+    dataset, every other one normal, one Yes/No question each."""
+    data = {}
+    for i in range(8):
+        rel = f"SynthAD/cls/{'good' if i % 2 == 0 else 'defect'}/{i}.png"
+        data[rel] = {"image_path": rel, "conversation": [{
+            "Question": "Are there any defects in the query image?",
+            "Answer": "B" if i % 2 == 0 else "A",
+            "Options": {"A": "Yes.", "B": "No."},
+            "type": "Anomaly Detection"}],
+            "similar_templates": [], "random_templates": []}
+    with open(path, "w") as f:
+        json.dump(data, f)
 
 
 def make_grpo_examples(seed: int = 2):
@@ -905,12 +1021,7 @@ def phase_main(encoded, max_new_tokens, card):
     if not rel <= LOGITS_REL_L2:
         raise AssertionError(f"prefill logits differ: rel L2 {rel:.3e}")
 
-    for _ in range(2):                       # the second one is warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_ms = time_prefill(gen, batch)
 
     kernels = [k for k, _ in all_kernels()]
     for k in kernels:
@@ -974,6 +1085,276 @@ def phase_profile(gen, batch, steps: int = 8) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     log(f"profile: prefill + {steps} decode steps: "
         + device_time_summary(prof, wall_ms))
+
+
+def time_prefill(gen, batch) -> float:
+    """Host ms of one synchronised prefill (tower + decoder and the last
+    position's logits) of a collated batch, warm (the second of two)."""
+    from iadr1_tpu_torch.models import qwen2
+
+    B, P = batch["input_ids"].shape
+    b = {**batch, "segment_ids": batch["attention_mask"].to(torch.int32)}
+    for _ in range(2):
+        cache = qwen2.init_cache(gen.bundle.cfg.text, B, P, torch.bfloat16,
+                                 DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            h, _ = gen.bundle.apply(gen.params, b, cache=cache,
+                                    cache_mode="prefill")
+            gen.bundle.logits_fn(gen.params, h[:, -1:])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return ms
+
+
+class GenerateTap:
+    """Stands in for ``engine.generate`` and records, for each call, its
+    synchronised wall time, its decode steps and the kernels' launches
+    during it."""
+
+    def __init__(self, engine, kernels):
+        self.kernels, self.calls = kernels, []
+        self._generate = engine.generate
+        engine.generate = self
+
+    def __call__(self, *args, **kw):
+        before = {k.name: k.launches for k in self.kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = self._generate(*args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append({
+            "s": time.perf_counter() - t0,
+            "steps": result["num_decode_steps"],
+            "launches": {k.name: k.launches - before[k.name]
+                         for k in self.kernels}})
+        return result
+
+
+def host_timed(fn, times: list):
+    """``fn`` with each call's host time appended to ``times`` (s)."""
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+
+def check_batch_launches(label, call, cfg) -> None:
+    """One generate of one batch: K1 once per tower and decoder layer (the
+    tower runs over the patch budget whether or not a request holds an
+    image), K4 once per decoder layer and decode step, no backward."""
+    want = {"flash_fwd": cfg.vision.depth + cfg.text.num_hidden_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attention": cfg.text.num_hidden_layers * call["steps"]}
+    if call["launches"] != want or call["steps"] < 1:
+        raise AssertionError(f"{label}: launches {call['launches']} over "
+                             f"{call['steps']} decode steps, want {want}")
+
+
+def phase_eval(gen, card) -> dict:
+    """Phase 8: the benchmark harness on the serving generator."""
+    import tempfile
+
+    from iadr1_tpu_torch.eval.generator import VLMGenerator
+    from iadr1_tpu_torch.eval.harness import (
+        load_benchmark,
+        run_benchmark,
+        summarize,
+    )
+    from iadr1_tpu_torch.kernels import all_kernels
+
+    cfg = gen.bundle.cfg
+    tokenizer = StandInTokenizer(EVAL_RESPONSES)
+    gen = VLMGenerator(gen.bundle, gen.params, tokenizer, gen.template,
+                       gen.cfg, device=DEVICE)
+    kernels = [k for k, _ in all_kernels()]
+    tap = GenerateTap(gen.engine, kernels)
+    collate_s, batch_s = [], []
+    gen._collate = host_timed(gen._collate, collate_s)
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = os.path.join(tmp, "test_SynthAD_format.json")
+        make_eval_benchmark(bench)
+        items = load_benchmark(bench)
+        # already-encoded image requests in place of the images
+        encoded = dict(zip([it.image for it in items],
+                           make_requests(3) + make_requests(4)))
+
+        def generate_fn(batch_items):
+            t0 = time.perf_counter()
+            texts = gen._generate_encoded([encoded[it.image]
+                                           for it in batch_items])
+            batch_s.append(time.perf_counter() - t0)
+            return texts
+
+        answers_path = os.path.join(tmp, "answers_0_shot.json")
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        answers = run_benchmark(items, generate_fn, answers_path,
+                                batch_size=gen.cfg.batch_size)
+        total_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        table = summarize(answers_path)
+        with open(answers_path.replace(".json", "_accuracy.csv")) as f:
+            csv_text = f.read()
+        with open(answers_path, "rb") as f:
+            written = f.read()
+
+        letters = "".join(a["gpt_answer"] for a in answers)
+        if (len(answers) != len(items) or letters != EVAL_LETTERS
+                or [a["response"] for a in answers] != EVAL_RESPONSES):
+            raise AssertionError(f"eval: answers {letters!r}, want "
+                                 f"{EVAL_LETTERS!r}: {answers}")
+        if csv_text != EVAL_CSV:
+            raise AssertionError(f"eval: accuracy CSV {csv_text!r}, want "
+                                 f"{EVAL_CSV!r}")
+        if len(tap.calls) != len(items) // gen.cfg.batch_size:
+            raise AssertionError(f"eval: {len(tap.calls)} generates")
+        for i, call in enumerate(tap.calls):
+            check_batch_launches(f"eval batch {i}", call, cfg)
+
+        # a second call over the same file resumes: nothing to generate
+        again = run_benchmark(items, generate_fn, answers_path,
+                              batch_size=gen.cfg.batch_size)
+        with open(answers_path, "rb") as f:
+            unchanged = f.read() == written
+        resumed = {k.name: k.launches for k in kernels}
+        if resumed != launches or len(tap.calls) != 2 or not unchanged or (
+                again != answers):
+            raise AssertionError(
+                f"eval: the resumed call launched {resumed} against "
+                f"{launches}, file unchanged {unchanged}")
+        collate_ms = 1e3 * statistics.median(collate_s)
+        prefill_ms = time_prefill(gen, gen._collate(list(encoded.values())[:4]))
+
+    steps = [c["steps"] for c in tap.calls]
+    engine_ms = [1e3 * c["s"] for c in tap.calls]
+    decode_ms = statistics.median((ms - prefill_ms) / n
+                                  for ms, n in zip(engine_ms, steps))
+    log(f"eval: {len(items)} items (balanced accuracy "
+        f"{table.at('SynthAD', 'Anomaly Detection')}, letters {letters}) in "
+        f"{len(tap.calls)} batches of {gen.cfg.batch_size}, decode steps "
+        f"{steps}; launches {launches}; the resumed call launched nothing "
+        f"and left the answers file unchanged")
+    log(f"eval: {len(items) / total_s:.3f} items/s, "
+        f"{1e3 * statistics.median(batch_s):.1f} ms per batch (median; "
+        f"{[round(1e3 * x, 1) for x in batch_s]}), of which collation "
+        f"{collate_ms:.2f} ms on the host; prefill "
+        f"{prefill_ms:.2f} ms measured apart, decode {decode_ms:.3f} ms/step "
+        f"on {card}")
+    return launches
+
+
+def phase_chat(gen, card, max_new_tokens: int = 32) -> dict:
+    """Phase 9: the OpenAI-compatible server over the serving weights."""
+    import dataclasses
+    import threading
+    import urllib.request
+
+    from iadr1_tpu_torch.eval.generator import VLMGenerator
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.serve.api import ChatServer
+
+    cfg = gen.bundle.cfg
+    tokenizer = StandInTokenizer(CHAT_RESPONSES)
+    gen = VLMGenerator(gen.bundle, gen.params, tokenizer, gen.template,
+                       dataclasses.replace(gen.cfg,
+                                           max_new_tokens=max_new_tokens),
+                       device=DEVICE)
+    kernels = [k for k, _ in all_kernels()]
+    tap = GenerateTap(gen.engine, kernels)
+    generates, encode_s = [], []
+    gen._encode_request = host_timed(gen._encode_request, encode_s)
+    generate = gen.generate
+
+    def counted_generate(requests):
+        generates.append(len(requests))
+        return generate(requests)
+
+    gen.generate = counted_generate
+    # a wait window far longer than 4 threads take to send their requests
+    server = ChatServer(gen, host="127.0.0.1", port=0,
+                        max_batch=gen.cfg.batch_size, batch_wait_ms=2000)
+    server.start_background()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def post(messages):
+        req = urllib.request.Request(
+            base + "/v1/chat/completions",
+            data=json.dumps({"model": "qwen2-vl-2b",
+                             "messages": messages}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            body = json.loads(resp.read())
+        body["_s"] = time.perf_counter() - t0
+        choice = body["choices"][0]
+        if (resp.status != 200 or body["object"] != "chat.completion"
+                or not body["id"].startswith("chatcmpl-")
+                or body["model"] != "qwen2-vl-2b"
+                or choice["message"]["role"] != "assistant"
+                or choice["finish_reason"] != "stop"
+                or choice["message"]["content"] not in CHAT_RESPONSES):
+            raise AssertionError(f"chat: response {body}")
+        return body
+
+    try:
+        with urllib.request.urlopen(base + "/v1/models", timeout=30) as resp:
+            models = json.loads(resp.read())
+        if models["object"] != "list" or models["data"][0]["object"] != "model":
+            raise AssertionError(f"chat: /v1/models answered {models}")
+
+        one = post([{"role": "system", "content": CHAT_SYSTEM},
+                    {"role": "user", "content": "Are there any defects?"}])
+        prompt = tokenizer.encoded[-1]
+        if (f"<|im_start|>system\n{CHAT_SYSTEM}<|im_end|>" not in prompt
+                or "helpful assistant" in prompt):
+            raise AssertionError(f"chat: the system message did not become "
+                                 f"the system block: {prompt!r}")
+
+        for k in kernels:
+            k.launches = 0
+        n_calls = len(tap.calls)
+        replies = [None] * gen.cfg.batch_size
+
+        def ask(i):
+            replies[i] = post([{"role": "user",
+                                "content": f"Request {i}: any defects?"}])
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(len(replies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        server.shutdown()
+    if any(t.is_alive() for t in threads) or None in replies:
+        raise AssertionError("chat: a concurrent request did not finish")
+    if generates != [1, len(replies)] or len(tap.calls) != n_calls + 1:
+        raise AssertionError(f"chat: generate calls of sizes {generates}, "
+                             f"want [1, {len(replies)}]")
+    check_batch_launches("chat batch", tap.calls[-1], cfg)
+    if sorted(r["choices"][0]["message"]["content"] for r in replies) != (
+            sorted(CHAT_RESPONSES[(1 + i) % len(CHAT_RESPONSES)]
+                   for i in range(len(replies)))):
+        raise AssertionError("chat: the batch's rows reached the wrong "
+                             "requests")
+    log(f"chat: /v1/models, a request with a system message (its system "
+        f"block in the prompt; {1e3 * one['_s']:.1f} ms, {tap.calls[0]['steps']} "
+        f"decode steps) and {len(replies)} concurrent requests coalesced into "
+        f"one generate of {tap.calls[-1]['steps']} decode steps "
+        f"({1e3 * tap.calls[-1]['s']:.1f} ms), all answered in "
+        f"{1e3 * wall_s:.1f} ms (requests {[round(1e3 * r['_s'], 1) for r in replies]} "
+        f"ms); request encoding {1e3 * statistics.median(encode_s):.3f} ms "
+        f"each on the host; launches {launches} on {card}")
+    return launches
 
 
 # device kernels by family, matched on the kernel's name in this order
@@ -1687,6 +2068,8 @@ def main() -> int:
     card = gpu_line()
     log(f"device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.device_count()} visible")
+    log("imports: " + importable(("tokenizers", "safetensors", "PIL",
+                                  "pandas", "yaml", "transformers")))
     kernels = all_kernels()
     secs = build_all([k.source for k, _ in kernels])
     log(f"build: {len(kernels)} kernels from iadr1_tpu_torch/csrc for "
@@ -1698,6 +2081,8 @@ def main() -> int:
                              grpo_examples)
     serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
     phase_profile(gen, batch)
+    evaluated = phase_eval(gen, card)
+    chat = phase_chat(gen, card)
     del gen, batch
     torch.cuda.empty_cache()
     train = phase_train(train_rows, args.train_steps, card)
@@ -1709,10 +2094,12 @@ def main() -> int:
         entry = {"name": k.name, "route": "cuda",
                  "source": f"iadr1_tpu_torch/csrc/{k.source}",
                  "replaces": replaces,
-                 "launches": serve[k.name] + train[k.name] + grpo[k.name],
                  "launches_by_path": {"serve": serve[k.name],
+                                      "eval": evaluated[k.name],
+                                      "chat": chat[k.name],
                                       "train": train[k.name],
                                       "grpo": grpo[k.name]}}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "live_tile_share", "ms_cold",

@@ -2,7 +2,9 @@
 the job's config sections and the VLM prompt collator.
 
 The ``main`` entry point (config file, tokenizer, dataset, checkpoints) is not
-ported yet (ROADMAP A.4); ``GRPOTrainer`` is driven from Python.
+ported yet (ROADMAP A.4); ``GRPOTrainer`` is driven from Python.  The sections
+load every GRPO file of ``configs/``; ``require_ported`` names the item each
+option the port cannot run yet waits for.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from iadr1_tpu_torch.cli.train_sft import mesh_devices
 from iadr1_tpu_torch.vision.mrope import get_mrope_positions
 
 
@@ -22,6 +25,9 @@ class GRPOModelSection:
     dtype: str = "float32"
     ref_dtype: str = "bfloat16"       # the frozen reference copy's precision
     seed: int = 0
+    # a quantized base under LoRA (ROADMAP A.12)
+    quant: str = "none"               # none | int8 | int4 | nf4
+    quant_block: int = 64             # blockwise scale granularity (int4/nf4)
 
 
 @dataclasses.dataclass
@@ -46,6 +52,8 @@ class GRPOSection:
     top_k: int = 50
     max_prompt_length: int = 1024
     max_completion_length: int = 512
+    # approximate top-k: a TPU speed knob; the port samples exactly
+    approx_top_k: bool = False
     # periodic reference refresh
     sync_ref_model: bool = False
     ref_model_mixup_alpha: float = 0.6
@@ -55,12 +63,38 @@ class GRPOSection:
 
 
 @dataclasses.dataclass
+class GRPOTuningSection:
+    # "lora": factored adapters over a frozen bf16 base that is also the KL
+    # reference (ROADMAP A.12)
+    finetuning_type: str = "full"     # full | lora
+    lora_rank: int = 8
+    lora_alpha: float = 16.0
+    use_dora: bool = False
+    use_rslora: bool = False
+    pissa_init: bool = False
+
+
+@dataclasses.dataclass
 class GRPOJobConfig:
     model: GRPOModelSection = dataclasses.field(default_factory=GRPOModelSection)
     data: GRPODataSection = dataclasses.field(default_factory=GRPODataSection)
     grpo: GRPOSection = dataclasses.field(default_factory=GRPOSection)
+    finetuning: GRPOTuningSection = dataclasses.field(
+        default_factory=GRPOTuningSection)
+    mesh: dict = dataclasses.field(default_factory=dict)
     optim: dict = dataclasses.field(default_factory=dict)
     train: dict = dataclasses.field(default_factory=dict)
+
+
+def require_ported(job: GRPOJobConfig) -> None:
+    """Raise for an option the port cannot run yet, naming its item."""
+    if mesh_devices(job.mesh) > 1:
+        raise NotImplementedError(
+            f"a mesh of more than one device ({job.mesh}) is not ported yet "
+            "(ROADMAP A.11)")
+    if job.finetuning.finetuning_type != "full" or job.model.quant != "none":
+        raise NotImplementedError(
+            "LoRA and quantized bases are not ported yet (ROADMAP A.12)")
 
 
 def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,

@@ -4,6 +4,13 @@
 Fixed prompt length, patch budget and batch: requests are encoded on the
 host (template, image preprocessing, M-RoPE grids), collated into one
 left-padded batch on the device and handed to the RolloutEngine.
+
+Two departures from the JAX generator, both where it goes wrong: a leading
+``system`` message becomes the template's system block (the JAX template
+rejects the role), and a prompt that holds image tokens and exceeds
+``max_prompt_length`` raises instead of losing its left end (a cut inside
+or before an image run scatters the image features onto the wrong
+tokens).  A text-only prompt is still cut from the left.
 """
 
 from __future__ import annotations
@@ -59,8 +66,15 @@ class VLMGenerator:
             max_len=cfg.max_prompt_length + cfg.max_new_tokens,
             device=self.device)
 
+    def update_params(self, params) -> None:
+        """Swap the weights (e.g. the newest GRPO policy); no copy."""
+        self.params = params
+
     def _encode_request(self, messages, images):
         """-> (prompt_ids, patches list, grids list)."""
+        system = None
+        if messages and messages[0]["role"] == "system":
+            system, messages = messages[0]["content"], messages[1:]
         patches, grids, seqlens = [], [], []
         for img in images or []:
             from PIL import Image
@@ -79,8 +93,15 @@ class VLMGenerator:
         else:
             messages = [{**m, "content": m["content"].replace("<image>", "")}
                         for m in messages]
-        ids = self.template.encode_prompt(self.tokenizer, messages)
-        return ids[-self.cfg.max_prompt_length:], patches, grids
+        ids = self.template.encode_prompt(self.tokenizer, messages, system)
+        P = self.cfg.max_prompt_length
+        if len(ids) > P and getattr(self.bundle.cfg, "image_token_id",
+                                    None) in ids:
+            raise ValueError(
+                f"VLM prompt ({len(ids)} tokens) exceeds "
+                f"max_prompt_length={P}; raise max_prompt_length or lower "
+                "max_pixels")
+        return ids[-P:], patches, grids
 
     def _collate(self, encoded) -> dict:
         """Encoded requests -> one left-padded batch of device tensors."""
@@ -109,20 +130,27 @@ class VLMGenerator:
 
     def generate(self, requests: list[dict]) -> list[str]:
         """requests: [{"messages": [...], "images": [paths or PIL]}] ->
-        texts.  Short final batches are padded with dummy rows."""
+        texts."""
+        return self._generate_encoded(
+            [self._encode_request(r["messages"], r.get("images"))
+             for r in requests])
+
+    def _generate_encoded(self, encoded: list) -> list[str]:
+        """Encoded requests (``_encode_request``'s triples) -> texts, in
+        batches of ``batch_size``; a short final batch is padded with dummy
+        rows."""
         out: list[str] = []
         B = self.cfg.batch_size
-        for i in range(0, len(requests), B):
-            chunk = requests[i:i + B]
-            encoded = [self._encode_request(r["messages"], r.get("images"))
-                       for r in chunk]
-            while len(encoded) < B:
-                encoded.append((encoded[0][0][:4], [], []))
-            result = self.engine.generate(self.params, self._collate(encoded),
+        for i in range(0, len(encoded), B):
+            chunk = list(encoded[i:i + B])
+            n = len(chunk)
+            while len(chunk) < B:
+                chunk.append((chunk[0][0][:4], [], []))
+            result = self.engine.generate(self.params, self._collate(chunk),
                                           self.generator)
             ids = result["completion_ids"].cpu().numpy()
             mask = result["completion_mask"].cpu().numpy().astype(bool)
             out.extend(self.tokenizer.batch_decode(
-                [ids[b][mask[b]] for b in range(len(chunk))],
+                [ids[b][mask[b]] for b in range(n)],
                 skip_special_tokens=True))
         return out

@@ -1,8 +1,9 @@
 """SFT training loop: data -> step -> logging (the port's own copy of
 iadr1_tpu/train/loop.py).
 
-Checkpointing (ROADMAP A.4), the wandb/tensorboard reporters and the loss
-plot (A.15) are not ported yet: asking for them raises.
+Checkpointing and resuming (ROADMAP A.4), the wandb/tensorboard reporters
+and the loss plot (A.15) are not ported yet: the config takes their keys,
+and a run that asks for them raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ class LoopConfig:
     max_steps: int = 100
     batch_size: int = 8               # global batch (rows per step)
     logging_steps: int = 10
+    save_steps: int = 0               # 0 = only final
     seed: int = 0
+    keep_checkpoints: int = 3
+    resume: bool = False              # resume from the latest checkpoint
     plot_loss: bool = False
     report_to: list = dataclasses.field(default_factory=list)
     # background host-collation prefetch depth (0 = synchronous)
@@ -113,9 +117,9 @@ def run_sft_loop(state, step_fn, batches: Iterable[dict], cfg: LoopConfig,
 
     ``meter`` (core/metrics.ThroughputMeter) is fed the tokens and the
     wall time of every step; reading the loss synchronises the device."""
-    if checkpoint_manager is not None:
+    if checkpoint_manager is not None or cfg.save_steps or cfg.resume:
         raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP A.4)")
+            "checkpointing and resuming are not ported yet (ROADMAP A.4)")
     if cfg.report_to or cfg.plot_loss:
         raise NotImplementedError(
             "reporters and the loss plot are not ported yet (ROADMAP A.15)")
@@ -139,7 +143,7 @@ def run_sft_loop(state, step_fn, batches: Iterable[dict], cfg: LoopConfig,
         if log_now:
             out = {k: float(v) for k, v in metrics.items()}
             if meter is not None:
-                out["tokens_per_sec"] = meter.tokens_per_sec
+                out["tokens_per_sec_per_chip"] = meter.tokens_per_sec
                 out["mfu"] = meter.mfu
             logger.log(step, out)
             history.append(out)

@@ -12,6 +12,7 @@ Mixture sampling and LoRA serving are not ported yet (ROADMAP A.14, A.12).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -28,12 +29,13 @@ class SamplingConfig:
     eos_token_id: int = 0
     pad_token_id: int = 0
     # a TPU speed knob (approximate top-k) in the JAX package; the port
-    # samples exactly and rejects it
+    # accepts it and samples exactly
     approx_top_k: bool = False
 
     def __post_init__(self):
         if self.approx_top_k:
-            raise ValueError("approx_top_k is not supported: sampling is exact")
+            warnings.warn("approx_top_k is a TPU speed knob: the port samples "
+                          "top-k exactly", stacklevel=3)
 
 
 def sample_token(logits: torch.Tensor, cfg: SamplingConfig,

@@ -137,5 +137,18 @@ def test_sampling_stays_inside_top_k_top_p_support():
 
 
 def test_approx_top_k_is_rejected():
-    with pytest.raises(ValueError):
-        SamplingConfig(approx_top_k=True)
+    """approx_top_k, a TPU speed knob, is accepted with one warning per
+    config, and the port samples exactly: the same tokens as without it."""
+    with pytest.warns(UserWarning, match="approx_top_k") as caught:
+        approx = SamplingConfig(temperature=0.7, top_k=20, top_p=0.8,
+                                approx_top_k=True)
+    assert len(caught) == 1
+    exact = SamplingConfig(temperature=0.7, top_k=20, top_p=0.8)
+    logits = torch.as_tensor(
+        np.random.default_rng(1).standard_normal((4, 300)).astype(np.float32))
+    draws = []
+    for cfg in (approx, exact):
+        gen = torch.Generator().manual_seed(0)
+        draws.append(torch.stack([sample_token(logits, cfg, gen)
+                                  for _ in range(50)]))
+    torch.testing.assert_close(draws[0], draws[1], atol=0, rtol=0)

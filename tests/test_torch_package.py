@@ -1,6 +1,6 @@
-"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points refuse to fall back to the CPU silently, and its
-kernel wrappers take the twin only for CPU tensors."""
+"""Package rules of the PyTorch port: it imports neither JAX, nor the JAX
+package, nor pandas; its entry points refuse to fall back to the CPU
+silently, and its kernel wrappers take the twin only for CPU tensors."""
 
 import subprocess
 import sys
@@ -13,7 +13,7 @@ import torch
 IMPORT_ALL_BLOCKED = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "iadr1_tpu")
+    BLOCKED = ("jax", "jaxlib", "iadr1_tpu", "pandas")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -45,15 +45,23 @@ GRPO_MODULES = [
     "rewards.type_taxonomy", "rewards.description", "rewards.accuracy",
     "rewards.ablations",
 ]
+# the eval and serving front ends and the config loading
+FRONT_END_MODULES = [
+    "core.config", "cli.train_sft", "cli.infer", "cli.summarize",
+    "cli.serve", "eval.mcq", "eval.summary", "eval.harness", "serve.api",
+    "serve.batcher",
+]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
+    """... nor pandas (the card's machine has none)."""
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL_BLOCKED],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
     assert len(names) >= 40                        # every module was reached
-    missing = [m for m in GRPO_MODULES if f"iadr1_tpu_torch.{m}" not in names]
+    missing = [m for m in GRPO_MODULES + FRONT_END_MODULES
+               if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
 
@@ -70,7 +78,8 @@ def _tiny_hf():
     )
 
 
-def test_entry_points_without_a_card_or_a_device_raise(monkeypatch):
+def test_entry_points_without_a_card_or_a_device_raise(monkeypatch, tmp_path):
+    from iadr1_tpu_torch.cli import infer, serve
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.models.params_io import params_from_jax
@@ -90,6 +99,9 @@ def test_entry_points_without_a_card_or_a_device_raise(monkeypatch):
         lambda: VLMGenerator(bundle, params, tok, get_template("qwen2_vl"),
                              GeneratorConfig()),
         lambda: GRPOTrainer(bundle, tok, None, GRPOConfig(), [], None, params),
+        lambda: infer.main(["--model-path", str(tmp_path), "--test-data",
+                            "t.json", "--output-dir", str(tmp_path)]),
+        lambda: serve.main(["--model-path", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
