@@ -71,7 +71,26 @@ result line:
    batch 4 and 32 new tokens answers /v1/models, a text request with a
    system message (which must become the prompt's system block) and 4
    concurrent text requests, which must be coalesced into one generate
-   with one batch's launches.
+   with one batch's launches;
+10. chain (after 7): the IAD-R1 recipe through one call of the port's
+   run_pipeline at full Qwen2-VL-2B width, its entry points as a user
+   calls them: a base checkpoint (the published config cut to 12 decoder
+   layers and 12 tower blocks, so that the run writes 36 GB to disk and
+   not 75, seeded bf16 weights written by save_pretrained, a WordLevel
+   tokenizer over the
+   head's 151936 ids with Qwen's specials at their published ids), seeded
+   448x448 images, 8 IAD SFT rows, 4 RL rows and phase 8's benchmark;
+   PA-SFT (2 steps of 2 x 2048, remat on, CE chunk 1024) -> HF export ->
+   SC-GRPO warm-started from that export (2 steps of 2 prompts, G=4,
+   P=1024, N=64, accuracy + format, a bf16 reference) -> export -> eval
+   (B=4, P=1024, patch budget 4096, 32 new tokens) -> summary CSV.  Each
+   stage's launches must be those its path implies, no plain twin may be
+   called, nothing of a stage may stay allocated (1 GiB) after it returns,
+   the SFT export must equal the SFT checkpoint bit for bit, and the
+   answers, CSV, logs and manifest must be whole; the disk must hold the
+   chain (checked first).  Prints each stage's wall time, peak and
+   residual memory and launches, each checkpoint save, restore and HF
+   export with its GB/s, and the SFT export's read back onto the card.
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -2028,6 +2047,450 @@ def phase_grpo(examples, steps: int, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the IAD-R1 chain through run_pipeline
+# ---------------------------------------------------------------------------
+
+# Qwen's special tokens at their published ids (the config's token ids)
+QWEN_SPECIALS = {"<|endoftext|>": ENDOFTEXT, "<|im_start|>": IM_START,
+                 "<|im_end|>": IM_END, "<|vision_start|>": VISION_START,
+                 "<|vision_end|>": VISION_END, "<|image_pad|>": IMAGE_PAD,
+                 "<|video_pad|>": 151656}
+CHAIN_IMAGE_HW = (448, 448)           # 1024 patches, 256 image tokens
+CHAIN_SFT_ROWS, CHAIN_RL_ROWS = 8, 4
+# the stages of one run_pipeline call: SFT (cli/train_sft.py's cutoff and
+# CE chunk, remat on), GRPO warm-started from the SFT export (the
+# launcher's G and P, N cut to 64: phase 7 covers N=512), and the eval
+# (the infer CLI's P and patch budget, batch 4, 32 new tokens)
+CHAIN_SFT_STEPS, CHAIN_GRPO_STEPS, CHAIN_NEW_TOKENS = 2, 2, 32
+CHAIN_G, CHAIN_P, CHAIN_N = 4, 1024, 64
+# the chain's model: the published widths, its depth cut to 12 of the 28
+# decoder layers and 12 of the 32 tower blocks.  A run writes, per
+# parameter, the bf16 base, two f32 TrainStates (parameters + two AdamW
+# moments) and two f32 exports, 34 bytes: 75 GB at full depth, 36 GB at
+# this one, so the whole smoke writes under CHAIN_WRITE_LIMIT to its disk
+CHAIN_TEXT_LAYERS, CHAIN_TOWER_DEPTH = 12, 12
+CHAIN_WRITE_BYTES_PER_PARAM = 2 + 2 * (12 + 4)
+GIB = 2 ** 30
+CHAIN_WRITE_LIMIT = 40 * GIB
+
+
+def write_chain_tokenizer(path: str, vocab_size: int) -> None:
+    """A tokenizer AutoTokenizer loads, with no vocabulary in the
+    repository: one WordLevel entry per id of the head ("w<id>"), Qwen's
+    specials at their published ids, so every id the head can draw
+    decodes and the config's token ids stay the published ones."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {f"w{i}": i for i in range(vocab_size)}
+    for token, i in QWEN_SPECIALS.items():
+        del vocab[f"w{i}"]
+        vocab[token] = i
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="w0"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens(list(QWEN_SPECIALS))
+    PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="w0", eos_token="<|im_end|>",
+        pad_token="<|endoftext|>",
+        additional_special_tokens=[t for t in QWEN_SPECIALS
+                                   if t not in ("<|im_end|>",
+                                                "<|endoftext|>")],
+    ).save_pretrained(path)
+
+
+def make_chain_data(root: str, seed: int = 5) -> dict:
+    """Seeded 448x448 PNG images and the three datasets of the chain, in
+    tests/helpers.py's formats: 8 IAD SFT rows in sharegpt form (answers
+    of 600-720 seeded words, so the 8 pack two to a row of 2048 tokens,
+    as phase 6's), 4 RL rows, and phase 8's MCQ benchmark of 8 items."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def image(rel):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (*CHAIN_IMAGE_HW, 3),
+                                     np.uint8)).save(path)
+        return rel
+
+    def words(n):
+        return " ".join(f"w{i}" for i in rng.integers(1, ENDOFTEXT, n))
+
+    sft = []
+    for i in range(CHAIN_SFT_ROWS):
+        n = int(rng.integers(ANSWER_LEN[0], ANSWER_LEN[1] + 1))
+        sft.append({"messages": [
+            {"role": "user",
+             "content": "<image>Are there any defects in the image?"},
+            {"role": "assistant",
+             "content": f"<think>{words(n)}</think>"
+                        + GRPO_SOLUTIONS[i % 2].split("</think>")[-1]}],
+            "images": [image(f"sft/img_{i}.png")]})
+    rl = [{"image": image(f"rl/rl_{i}.png"),
+           "problem": "Are there any defects in the image?",
+           "solution": GRPO_SOLUTIONS[i % 2]} for i in range(CHAIN_RL_ROWS)]
+    paths = {"sft": os.path.join(root, "sft.json"),
+             "rl": os.path.join(root, "rl.json"),
+             "bench": os.path.join(root, "test_SynthAD_format.json")}
+    for key, rows in (("sft", sft), ("rl", rl)):
+        with open(paths[key], "w") as f:
+            json.dump(rows, f)
+    make_eval_benchmark(paths["bench"])
+    with open(paths["bench"]) as f:
+        for rel in json.load(f):
+            image(os.path.join("bench", rel))
+    return paths
+
+
+def _file_gb(path: str) -> float:
+    return os.path.getsize(path) / 1e9
+
+
+class ChainTap:
+    """Wraps the chain's entry points for the length of phase 10: each
+    stage (the CLIs' mains and the exports) with its wall time, peak
+    memory, the memory still allocated when it returns and the kernels'
+    launches during it; each checkpoint save, restore and export with its
+    seconds and GB; each rollout or eval generate with its decode
+    steps; and every call of a plain twin."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.stages, self.io, self.generates = [], [], []
+        self.twin_calls = {}
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        old = getattr(owner, name)
+        setattr(owner, name, make(old))
+        self._undo.append((owner, name, old))
+
+    def _launches(self):
+        return {k.name: k.launches for k in self.kernels}
+
+    def stage(self, owner, name, label):
+        """``label``: the stage's name, or a function of the call's
+        arguments that gives it."""
+        def make(fn):
+            def run(*args, **kw):
+                before, calls = self._launches(), len(self.generates)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.stages.append({
+                    "stage": label(args, kw) if callable(label) else label,
+                    "s": time.perf_counter() - t0,
+                    "peak_gib": torch.cuda.max_memory_allocated() / GIB,
+                    "after_gib": torch.cuda.memory_allocated() / GIB,
+                    "launches": {k: v - before[k]
+                                 for k, v in self._launches().items()},
+                    "generates": self.generates[calls:]})
+                return out
+            return run
+        self._patch(owner, name, make)
+
+    def timed_io(self, owner, name, label, path_of, gb_of=None):
+        """``path_of``: the file the call wrote or read; ``gb_of``: the
+        GB it moved, where that is not the whole file."""
+        def make(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                path = path_of(args, kw, out)
+                if path is not None:
+                    gb = gb_of(out) if gb_of else _file_gb(path)
+                    self.io.append({"what": label, "s": seconds, "gb": gb,
+                                    "file": "/".join(path.split(os.sep)[-3:])})
+                return out
+            return run
+        self._patch(owner, name, make)
+
+    def generate(self, engine_cls):
+        def make(fn):
+            def run(engine, *args, **kw):
+                out = fn(engine, *args, **kw)
+                self.generates.append(int(out["num_decode_steps"]))
+                return out
+            return run
+        self._patch(engine_cls, "generate", make)
+
+    def twin(self, module, name):
+        self.twin_calls[name] = 0
+
+        def make(fn):
+            def run(*args, **kw):
+                self.twin_calls[name] += 1
+                return fn(*args, **kw)
+            return run
+        self._patch(module, name, make)
+
+    def close(self):
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+        self._undo.clear()
+
+
+def chain_stage_launches(stage, cfg) -> dict:
+    """The launches a stage's path implies, as phases 6-8 count them."""
+    L, Lt = cfg.text.num_hidden_layers, cfg.vision.depth
+    steps, n = stage["generates"], len(stage["generates"])
+    zero = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attention": 0}
+    if stage["stage"] == "sft":
+        # K1 once per decoder layer and twice per tower block (the tower's
+        # plain checkpoint replays it); K2 and K3 once per attention call
+        return {**zero, "flash_fwd": CHAIN_SFT_STEPS * (L + 2 * Lt),
+                "flash_bwd_dq": CHAIN_SFT_STEPS * (L + Lt),
+                "flash_bwd_dkv": CHAIN_SFT_STEPS * (L + Lt)}
+    if stage["stage"] == "grpo":
+        # per step: the rollout's prefill, the reference forward and the
+        # policy forward (tower replayed); K2, K3 per policy attention
+        # call; K4 per decode step and layer
+        return {"flash_fwd": n * ((L + Lt) + (3 * L + Lt) + (3 * L + 2 * Lt)),
+                "flash_bwd_dq": n * (3 * L + Lt),
+                "flash_bwd_dkv": n * (3 * L + Lt),
+                "decode_attention": L * sum(steps)}
+    if stage["stage"] == "eval":
+        # per batch: K1 per tower and decoder layer, K4 per decode step
+        return {**zero, "flash_fwd": n * (L + Lt),
+                "decode_attention": L * sum(steps)}
+    return zero                                          # the exports
+
+
+def phase_chain(card) -> dict:
+    """Phase 10: the IAD-R1 chain at full Qwen2-VL-2B width through one
+    call of the port's run_pipeline; returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from iadr1_tpu_torch.cli import infer, pipeline, train_grpo, train_sft
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.kernels import decode_attention as decode_mod
+    from iadr1_tpu_torch.kernels import flash_attention as flash_mod
+    from iadr1_tpu_torch.models import params_export, params_io
+    from iadr1_tpu_torch.models.registry import (
+        bundle_from_hf_config,
+        bundle_from_pretrained,
+    )
+    from iadr1_tpu_torch.train import checkpoint, rollout
+    from iadr1_tpu_torch.train.state import TrainState
+
+    kernels = [k for k, _ in all_kernels()]
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_chain_", dir=build)
+    tap = ChainTap(kernels)
+    hf_config = dict(
+        QWEN2_VL_2B,
+        text_config=dict(QWEN2_VL_2B["text_config"],
+                         num_hidden_layers=CHAIN_TEXT_LAYERS),
+        vision_config=dict(QWEN2_VL_2B["vision_config"],
+                           depth=CHAIN_TOWER_DEPTH))
+    try:
+        bundle = bundle_from_hf_config(hf_config)
+        cfg = bundle.cfg
+        # --- the base checkpoint: published widths, seeded bf16 weights,
+        # a tokenizer that covers the head --------------------------------
+        params = bundle.init_params(seed=0, dtype=torch.bfloat16,
+                                    device=DEVICE)
+        n_params = sum(p.numel() for p in _leaves(params))
+        need = n_params * CHAIN_WRITE_BYTES_PER_PARAM * 1.02 + 1e9
+        free = shutil.disk_usage(root).free
+        log(f"chain: {n_params / 1e9:.3f}B parameters ({CHAIN_TEXT_LAYERS} "
+            f"decoder layers, {CHAIN_TOWER_DEPTH} tower blocks); the chain "
+            f"writes {need / 1e9:.1f} GB to disk, {free / 1e9:.1f} GB free "
+            f"under {root}")
+        if need > CHAIN_WRITE_LIMIT:
+            raise AssertionError(
+                f"phase 10 would write {need / 1e9:.1f} GB, over its limit "
+                f"of {CHAIN_WRITE_LIMIT / 1e9:.1f} GB")
+        if free < need:
+            raise AssertionError(
+                f"phase 10 needs {need / 1e9:.1f} GB on disk under {root} "
+                f"and has {free / 1e9:.1f} GB: {(need - free) / 1e9:.1f} "
+                "GB short")
+        base = os.path.join(root, "base")
+        os.makedirs(base)
+        with open(os.path.join(base, "config.json"), "w") as f:
+            json.dump(hf_config, f)
+        write_chain_tokenizer(base, cfg.text.vocab_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_export.save_pretrained(bundle, params, base)
+        base_s = time.perf_counter() - t0
+        del params
+        data = make_chain_data(os.path.join(root, "data"))
+        out = os.path.join(root, "run")
+        image_kw = dict(min_pixels=3136, max_pixels=480000)
+        pipe_cfg = pipeline.PipelineConfig(
+            model_name_or_path=base, output_dir=out,
+            sft={"data": {"dataset": data["sft"],
+                          "image_dir": os.path.dirname(data["sft"]),
+                          "template": "qwen2_vl", "cutoff_len": CUTOFF_LEN,
+                          "patch_budget": PATCH_BUDGET, "ce_chunk": CE_CHUNK,
+                          **image_kw},
+                 "model": {"remat": "true"},
+                 "train": {"max_steps": CHAIN_SFT_STEPS,
+                           "batch_size": TRAIN_ROWS, "logging_steps": 1,
+                           "keep_checkpoints": 1}},
+            grpo={"model": {"ref_dtype": "bfloat16"},
+                  "data": {"dataset_name": data["rl"],
+                           "image_path": os.path.dirname(data["rl"]),
+                           "template": "qwen2_vl",
+                           "patch_budget": GRPO_PATCH_BUDGET, **image_kw},
+                  "grpo": {"num_generations": CHAIN_G,
+                           "max_prompt_length": CHAIN_P,
+                           "max_completion_length": CHAIN_N,
+                           "reward_funcs": GRPO_REWARDS},
+                  "train": {"max_steps": CHAIN_GRPO_STEPS,
+                            "batch_size": GRPO_PROMPTS, "logging_steps": 1,
+                            "keep_checkpoints": 1}},
+            eval=pipeline.PipelineEvalSection(
+                benchmarks=[{"test_data": data["bench"],
+                             "image_dir": os.path.join(
+                                 os.path.dirname(data["bench"]), "bench")}],
+                batch_size=BATCH, max_prompt_length=PROMPT_LEN,
+                max_new_tokens=CHAIN_NEW_TOKENS, patch_budget=PATCH_BUDGET))
+
+        # --- one call of run_pipeline, every entry point tapped -----------
+        tap.stage(train_sft, "main", "sft")
+        tap.stage(train_grpo, "main", "grpo")
+        tap.stage(infer, "main", "eval")
+        tap.stage(pipeline, "export_run",
+                  lambda a, kw: os.path.basename(a[2]).replace("_", " "))
+        tap.timed_io(checkpoint.CheckpointManager, "save", "checkpoint save",
+                     lambda a, kw, ok: a[0].path(a[1]) if ok else None)
+        tap.timed_io(checkpoint.CheckpointManager, "restore_params",
+                     "checkpoint restore (parameters)",
+                     lambda a, kw, o: a[0]._step_path(
+                         a[1] if len(a) > 1 else kw.get("step")),
+                     lambda params: sum(p.numel() * p.element_size()
+                                        for p in _leaves(params)) / 1e9)
+        tap.timed_io(params_export, "save_pretrained", "HF export",
+                     lambda a, kw, o: os.path.join(a[2], "model.safetensors"))
+        tap.generate(rollout.RolloutEngine)
+        tap.twin(flash_mod, "flash_attention_ref")
+        tap.twin(flash_mod, "flash_attention_bwd_ref")
+        tap.twin(decode_mod, "decode_attention_ref")
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        artifacts = pipeline.run_pipeline(pipe_cfg, device=DEVICE)
+        chain_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        tap.close()
+        log(f"chain: run_pipeline {chain_s:.1f} s (SFT {CHAIN_SFT_STEPS} "
+            f"steps of {TRAIN_ROWS}x{CUTOFF_LEN} -> export -> GRPO "
+            f"{CHAIN_GRPO_STEPS} steps of {GRPO_PROMPTS} prompts x "
+            f"G={CHAIN_G}, P={CHAIN_P}, N={CHAIN_N} -> export -> eval of 8 "
+            f"items, B={BATCH}, {CHAIN_NEW_TOKENS} new tokens); the bf16 "
+            f"base written in {base_s:.2f} s; launches {launches} on {card}")
+        for st in tap.stages:
+            log(f"chain: stage {st['stage']}: {st['s']:.2f} s, peak "
+                f"{st['peak_gib']:.2f} GiB, {st['after_gib']:.3f} GiB still "
+                f"allocated after it returned, decode steps "
+                f"{st['generates']}, launches {st['launches']}")
+        for io in tap.io:
+            log(f"chain: {io['what']} ({io['file']}): {io['gb']:.2f} GB in "
+                f"{io['s']:.2f} s, {io['gb'] / io['s']:.2f} GB/s")
+
+        # --- checks -------------------------------------------------------
+        names = [s["stage"] for s in tap.stages]
+        if names != ["sft", "sft export", "grpo", "grpo export", "eval"]:
+            raise AssertionError(f"chain: stages ran {names}")
+        for stage in tap.stages:
+            want = chain_stage_launches(stage, cfg)
+            if stage["launches"] != want:
+                raise AssertionError(
+                    f"chain {stage['stage']}: launches {stage['launches']} "
+                    f"over decode steps {stage['generates']}, want {want}")
+            if stage["after_gib"] >= 1.0:
+                raise AssertionError(
+                    f"chain {stage['stage']}: {stage['after_gib']:.2f} GiB "
+                    "still allocated after it returned")
+        if [len(s["generates"]) for s in tap.stages] != [
+                0, 0, CHAIN_GRPO_STEPS, 0, 8 // BATCH]:
+            raise AssertionError(f"chain: generates {tap.stages}")
+        if any(tap.twin_calls.values()):
+            raise AssertionError(f"chain: plain twins called on the card: "
+                                 f"{tap.twin_calls}")
+        total = {k: sum(s["launches"][k] for s in tap.stages)
+                 for k in launches}
+        if total != launches:
+            raise AssertionError(f"chain: launches {launches} outside the "
+                                 f"stages' {total}")
+        for stage, steps in (("sft", CHAIN_SFT_STEPS),
+                             ("grpo", CHAIN_GRPO_STEPS)):
+            with open(os.path.join(out, stage, "trainer_log.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            values = [v for r in records for v in r.values()
+                      if isinstance(v, float)]
+            if len(records) != steps or not all(map(math.isfinite, values)):
+                raise AssertionError(f"chain {stage}: trainer log {records}")
+        sft_export = os.path.join(out, "sft_export")
+        with open(os.path.join(out, "grpo_config.json")) as f:
+            grpo_base = json.load(f)["model"]["model_name_or_path"]
+        if grpo_base != sft_export:
+            raise AssertionError(f"chain: GRPO started from {grpo_base}")
+        with open(artifacts["results"]["SynthAD"]) as f:
+            answers = json.load(f)
+        letters = "".join(a["gpt_answer"] for a in answers)
+        if len(answers) != 8 or not set(letters) <= set("ABE"):
+            raise AssertionError(f"chain eval: answers {letters!r}")
+        with open(artifacts["summary_csv"]) as f:
+            rows = [line.split(",")[0] for line in f.read().splitlines()[1:]]
+        if rows != ["SynthAD", "Average"]:
+            raise AssertionError(f"chain: summary rows {rows}")
+        with open(artifacts["manifest"]) as f:
+            keys = set(json.load(f))
+        want_keys = {"output_dir", "sft", "sft_export", "grpo",
+                     "grpo_export", "results", "summary_csv"}
+        if keys != want_keys:
+            raise AssertionError(f"chain: manifest keys {sorted(keys)}")
+
+        # the SFT export, read back as the next stage reads it, against the
+        # SFT run's last checkpoint restored into a state of its shape
+        t0 = time.perf_counter()
+        exported = bundle_from_pretrained(sft_export).convert_hf(
+            params_io.load_safetensors_path(sft_export), dtype=torch.float32,
+            device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mgr = checkpoint.CheckpointManager(os.path.join(out, "sft",
+                                                        "checkpoints"))
+        t0 = time.perf_counter()
+        restored = mgr.restore(TrainState(
+            step=0, params=_tree_map(torch.empty_like, exported),
+            opt_state=None))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(_leaves(exported), _leaves(restored.params)))
+        same = sum(bool(torch.equal(a, b)) for a, b in pairs)
+        params_gb = sum(a.numel() * a.element_size() for a, _ in pairs) / 1e9
+        if restored.step != CHAIN_SFT_STEPS or same != len(pairs):
+            raise AssertionError(
+                f"chain: the SFT export differs from the checkpoint of step "
+                f"{restored.step} in {len(pairs) - same} of {len(pairs)} "
+                "tensors")
+        del exported, restored, pairs
+        log(f"chain: all {same} parameter tensors of the SFT export equal "
+            f"the SFT checkpoint's (step {CHAIN_SFT_STEPS}) bit for bit; "
+            f"the export read back onto the card in {load_s:.2f} s, the "
+            f"checkpoint's parameters restored in {restore_s:.2f} s "
+            f"({params_gb:.2f} GB each)")
+    finally:
+        tap.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2087,6 +2550,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(train_rows, args.train_steps, card)
     grpo = phase_grpo(grpo_examples, args.grpo_steps, card)
+    chain = phase_chain(card)
 
     line = []
     for k, replaces in kernels:
@@ -2098,7 +2562,8 @@ def main() -> int:
                                       "eval": evaluated[k.name],
                                       "chat": chat[k.name],
                                       "train": train[k.name],
-                                      "grpo": grpo[k.name]}}
+                                      "grpo": grpo[k.name],
+                                      "chain": chain[k.name]}}
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

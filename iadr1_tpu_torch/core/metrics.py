@@ -74,3 +74,7 @@ class ThroughputMeter:
         mult = 3.0 if self.backward else 1.0
         return (self.tokens_per_sec * self.flops_per_token_fwd * mult
                 / self.peak_flops)
+
+
+# one H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+H100_PEAK_BF16_FLOPS = 989e12

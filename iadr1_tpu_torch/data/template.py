@@ -1,6 +1,7 @@
-"""Chat templates for prompt encoding (the port's own copy of the pieces of
-iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` that the
-``qwen2_vl`` chatml template needs)."""
+"""Chat templates for prompt and training encoding (the port's own copy of
+the pieces of iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` and
+``encode_multiturn`` that the ``qwen2_vl`` chatml template needs; the other
+templates wait for ROADMAP A.13)."""
 
 from __future__ import annotations
 
@@ -46,6 +47,40 @@ class ChatTemplate:
         """Token ids of the conversation with the generation preamble."""
         text = self.render_conversation(messages, system)
         return tokenizer.encode(text, add_special_tokens=False)
+
+    def _message_chunks(self, role: str, content: str, first: bool,
+                        system: str | None) -> list[str]:
+        """One message as the strings the JAX package encodes one by one:
+        the system block (first message only) and the role's slot."""
+        chunks = []
+        sys = system if system is not None else self.default_system
+        if first and sys:
+            chunks.append(self.system.replace("{content}", sys))
+        if role not in ("user", "assistant"):
+            raise ValueError(f"unsupported role {role!r}")
+        slot = self.user if role == "user" else self.assistant
+        chunks.append(slot.replace("{content}", content))
+        return chunks
+
+    def encode_multiturn(self, tokenizer, messages: Sequence[dict],
+                         system: str | None = None
+                         ) -> list[tuple[list[int], list[int]]]:
+        """[(prompt_ids, response_ids)] per user/assistant turn pair.  Each
+        chunk is tokenized on its own, so no merge spans the system block
+        and the first user turn (as in JAX)."""
+        encoded = []
+        for i, m in enumerate(messages):
+            ids: list[int] = []
+            for chunk in self._message_chunks(m["role"], m["content"],
+                                              i == 0, system):
+                if chunk:
+                    ids.extend(tokenizer.encode(chunk,
+                                                add_special_tokens=False))
+            encoded.append(ids)
+        if len(encoded) % 2:
+            raise ValueError("conversation must alternate user/assistant")
+        return [(encoded[i], encoded[i + 1])
+                for i in range(0, len(encoded), 2)]
 
 
 TEMPLATES = {

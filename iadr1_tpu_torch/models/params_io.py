@@ -19,10 +19,11 @@ import torch
 from iadr1_tpu_torch.core.device import resolve_device
 
 
-def load_safetensors_path(path: str) -> dict[str, np.ndarray]:
+def load_safetensors_path(path: str) -> dict[str, torch.Tensor]:
     """One .safetensors file, or a (sharded) checkpoint directory, as a
-    flat name -> numpy array dict."""
-    from safetensors.numpy import load_file
+    flat name -> CPU tensor dict (bf16 included, which numpy cannot
+    hold)."""
+    from safetensors.torch import load_file
 
     if os.path.isfile(path):
         return load_file(path)
@@ -34,18 +35,51 @@ def load_safetensors_path(path: str) -> dict[str, np.ndarray]:
         files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
     if not files:
         raise FileNotFoundError(f"no safetensors found under {path}")
-    state: dict[str, np.ndarray] = {}
+    state: dict[str, torch.Tensor] = {}
     for f in files:
         state.update(load_file(os.path.join(path, f)))
     return state
 
 
+# safetensors' names of the dtypes the port writes
+_ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16",
+              torch.float16: "F16", torch.int64: "I64", torch.int32: "I32"}
+
+
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
+                     metadata: Mapping[str, str] | None = None) -> None:
+    """Write ``tensors`` (views on any device) as one .safetensors file,
+    one tensor at a time: each is made contiguous where it lies, copied
+    to the host once and written, so host memory holds one tensor, not
+    the file.  Tensors that share storage are written apart.  The file
+    appears whole or not at all (written aside, then renamed)."""
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu()
+            f.write(host.reshape(-1).view(torch.uint8).numpy().data)
+    os.replace(tmp, path)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.ascontiguousarray(a))
+
+
 def _tensor(a, transpose: bool, dtype, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if transpose:
-        a = a.T
-    return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
-                                                       dtype=dtype)
+    t = _as_tensor(a).to(device=device, dtype=dtype)
+    return (t.T if transpose else t).contiguous()
 
 
 def _stack_layers(state: Mapping, template: str, num_layers: int,

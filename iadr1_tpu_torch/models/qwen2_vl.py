@@ -13,7 +13,6 @@ import dataclasses
 import functools
 from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,7 +21,7 @@ from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import dense, rotate_half
 from iadr1_tpu_torch.models.qwen2 import ckpt
-from iadr1_tpu_torch.models.params_io import _get, _stack_layers
+from iadr1_tpu_torch.models.params_io import _as_tensor, _get, _stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,10 +282,10 @@ def convert_vision(state, cfg: Qwen2VLVisionConfig, prefix="visual.",
     def single(name, transpose=False):
         return _get(state, prefix + name, transpose, **kw)
 
-    pe_w = np.asarray(state[prefix + "patch_embed.proj.weight"])  # [E,C,t,p,p]
+    pe_w = _as_tensor(state[prefix + "patch_embed.proj.weight"])  # [E,C,t,p,p]
     return {
-        "patch_embed": {"kernel": torch.as_tensor(
-            np.ascontiguousarray(pe_w.reshape(pe_w.shape[0], -1).T)).to(**kw)},
+        "patch_embed": {"kernel": pe_w.to(**kw).reshape(
+            pe_w.shape[0], -1).T.contiguous()},
         "blocks": {
             "norm1": {"scale": stacked("norm1.weight"),
                       "bias": stacked("norm1.bias")},

@@ -1,9 +1,9 @@
-"""SFT training loop: data -> step -> logging (the port's own copy of
-iadr1_tpu/train/loop.py).
+"""SFT training loop: data -> step -> logging -> checkpoints (the port's
+own copy of iadr1_tpu/train/loop.py).
 
-Checkpointing and resuming (ROADMAP A.4), the wandb/tensorboard reporters
-and the loss plot (A.15) are not ported yet: the config takes their keys,
-and a run that asks for them raises.
+The wandb/tensorboard reporters and the loss plot (ROADMAP A.15) are not
+ported yet: the config takes their keys, and a run that asks for them
+raises.
 """
 
 from __future__ import annotations
@@ -88,64 +88,96 @@ def batch_iterator(rows: Sequence[dict], batch_size: int, seed: int,
 def prefetch_iterator(batches: Iterable[dict], depth: int = 2):
     """Background-thread prefetch over a batch iterable: host collation
     overlaps the device step.  Order-preserving; exceptions propagate to
-    the consumer; the thread is a daemon."""
+    the consumer.  Closing the generator stops and joins the thread, so
+    nothing of a finished run (rows, collator, queued batches) outlives
+    it."""
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def worker():
         try:
             for item in batches:
-                q.put(item)
+                if not put(item):
+                    return
         except BaseException as e:  # noqa: BLE001 -- re-raised below
-            q.put((end, e))
+            put((end, e))
             return
-        q.put((end, None))
+        put((end, None))
 
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
-        if isinstance(item, tuple) and len(item) == 2 and item[0] is end:
-            if item[1] is not None:
-                raise item[1]
-            return
-        yield item
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is end:
+                if item[1] is not None:
+                    raise item[1]
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join()
 
 
 def run_sft_loop(state, step_fn, batches: Iterable[dict], cfg: LoopConfig,
                  checkpoint_manager=None, meter=None, start_step: int = 0):
     """Drive training for cfg.max_steps; returns (final_state, history).
 
+    ``start_step``: the resume point -- steps start at start_step + 1 and
+    the caller restores ``state`` and fast-forwards ``batches``
+    (``batch_iterator(skip=start_step)``).  ``checkpoint_manager``
+    (train/checkpoint.py) saves every ``save_steps`` steps and at the end.
     ``meter`` (core/metrics.ThroughputMeter) is fed the tokens and the
     wall time of every step; reading the loss synchronises the device."""
-    if checkpoint_manager is not None or cfg.save_steps or cfg.resume:
-        raise NotImplementedError(
-            "checkpointing and resuming are not ported yet (ROADMAP A.4)")
+    if checkpoint_manager is None and (cfg.save_steps or cfg.resume):
+        raise ValueError(
+            "the loop config asks for checkpoints (save_steps or resume) "
+            "but no checkpoint manager was given")
     if cfg.report_to or cfg.plot_loss:
         raise NotImplementedError(
             "reporters and the loss plot are not ported yet (ROADMAP A.15)")
     logger = JsonlLogger(cfg.output_dir, cfg.max_steps)
     history = []
-    if cfg.prefetch:
-        batches = prefetch_iterator(batches, cfg.prefetch)
-    it = iter(batches)
+    prefetch = prefetch_iterator(batches, cfg.prefetch) if cfg.prefetch else None
+    it = prefetch or iter(batches)
     t_last = time.perf_counter()
-    for step in range(start_step + 1, cfg.max_steps + 1):
-        batch = next(it)
-        state, metrics = step_fn(state, batch)
-        log_now = step % max(cfg.logging_steps, 1) == 0
-        if meter is not None or log_now:
-            float(metrics["loss"])                 # waits for the device
-            now = time.perf_counter()
-            if meter is not None:
-                meter.update(int(np.prod(np.shape(batch["input_ids"]))),
-                             now - t_last)
-            t_last = now
-        if log_now:
-            out = {k: float(v) for k, v in metrics.items()}
-            if meter is not None:
-                out["tokens_per_sec_per_chip"] = meter.tokens_per_sec
-                out["mfu"] = meter.mfu
-            logger.log(step, out)
-            history.append(out)
-    logger.close()
+    try:
+        for step in range(start_step + 1, cfg.max_steps + 1):
+            batch = next(it)
+            state, metrics = step_fn(state, batch)
+            log_now = step % max(cfg.logging_steps, 1) == 0
+            if meter is not None or log_now:
+                float(metrics["loss"])                 # waits for the device
+                now = time.perf_counter()
+                if meter is not None:
+                    meter.update(int(np.prod(np.shape(batch["input_ids"]))),
+                                 now - t_last)
+                t_last = now
+            if log_now:
+                out = {k: float(v) for k, v in metrics.items()}
+                if meter is not None:
+                    out["tokens_per_sec_per_chip"] = meter.tokens_per_sec
+                    out["mfu"] = meter.mfu
+                logger.log(step, out)
+                history.append(out)
+            if (checkpoint_manager is not None and cfg.save_steps
+                    and step % cfg.save_steps == 0):
+                checkpoint_manager.save(step, state)
+        if checkpoint_manager is not None:
+            checkpoint_manager.save(cfg.max_steps, state)
+            checkpoint_manager.wait()
+    finally:
+        if prefetch is not None:
+            prefetch.close()
+        logger.close()
     return state, history

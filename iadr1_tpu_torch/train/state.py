@@ -22,6 +22,26 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def named_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(dotted path, tensor) of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in named_leaves(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def unflatten(named: dict) -> dict:
+    """{dotted path: tensor} -> the nested dict ``named_leaves`` read."""
+    tree: dict = {}
+    for path, leaf in named.items():
+        *parents, last = path.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
 class TrainState(NamedTuple):
     step: int
     params: dict

@@ -196,7 +196,9 @@ def test_trainer_log_keys_match_jax(tmp_path):
 
 @pytest.mark.parametrize("field", ["save_steps", "resume"])
 def test_checkpointing_asked_for_in_the_loop_config_raises(field, tmp_path):
+    """... when no checkpoint manager is given, instead of saving nothing
+    (the CLIs always give one)."""
     cfg = loop.LoopConfig(output_dir=str(tmp_path), max_steps=2, prefetch=0,
                           **{field: {"save_steps": 1, "resume": True}[field]})
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(ValueError, match="no checkpoint manager"):
         loop.run_sft_loop(0, _fake_step, _batches(), cfg)

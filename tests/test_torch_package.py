@@ -51,6 +51,12 @@ FRONT_END_MODULES = [
     "cli.serve", "eval.mcq", "eval.summary", "eval.harness", "serve.api",
     "serve.batcher",
 ]
+# the training CLIs, checkpoints, export and the pipeline
+CHAIN_MODULES = [
+    "data.registry", "data.aligner", "data.tokenize", "data.cache",
+    "data.template", "train.checkpoint", "train.loop",
+    "models.params_export", "cli.export", "cli.pipeline",
+]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -60,7 +66,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
     assert len(names) >= 40                        # every module was reached
-    missing = [m for m in GRPO_MODULES + FRONT_END_MODULES
+    missing = [m for m in GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
@@ -106,6 +112,35 @@ def test_entry_points_without_a_card_or_a_device_raise(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_training_export_and_pipeline_clis_need_a_card_or_cpu(monkeypatch,
+                                                              tmp_path):
+    """Each raises the no-card error before it reads a checkpoint, a
+    tokenizer or a dataset; with --device cpu it gets past that check
+    (and fails on the empty paths instead)."""
+    import json
+
+    from iadr1_tpu_torch.cli import export, pipeline, train_grpo, train_sft
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "job.json"
+    cfg.write_text(json.dumps({"model": {"model_name_or_path": str(
+        tmp_path / "absent")}}))
+    pipe = tmp_path / "pipeline.json"
+    pipe.write_text(json.dumps({"output_dir": str(tmp_path / "run")}))
+    export_args = ["--model-path", str(tmp_path / "absent"),
+                   "--checkpoint-dir", str(tmp_path), "--output-dir",
+                   str(tmp_path / "out")]
+    for main, args in ((train_sft.main, ["--config", str(cfg)]),
+                       (train_grpo.main, ["--config", str(cfg)]),
+                       (export.main, export_args),
+                       (pipeline.main, ["--config", str(pipe)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args)
+        if main is not pipeline.main:
+            with pytest.raises((OSError, KeyError)):
+                main(args + ["--device", "cpu"])
 
 
 def test_kernel_wrappers_never_fall_back_off_the_cpu():
