@@ -26,7 +26,12 @@ result line:
    (the completions' cross attention to the shared prompt, T != S and
    non-causal, and their causal self attention, both with rows that end
    early and dlse != 0; the unique prompts; the two-image tower; K4 over
-   the fanned-out cache of 8 rows);
+   the fanned-out cache of 8 rows); and at LLaVA-OneVision-0.5B's shapes:
+   K1-K3 at the SigLIP tower's head dim 72 (22 tiles of 729 patches,
+   non-causal; with --pad-compare also with q, k, v and dO padded to 80
+   in the wrapper, the design the in-kernel padding was timed against),
+   K1 at the prefill (P=4096, GQA 7), K1-K3 at the SFT decoder (4 rows of
+   8192) and K4 at GQA 7;
 4. main path: Qwen2-VL-2B at full width (28 decoder and 32 tower layers,
    bf16, weights drawn on the card from a seeded generator) serves 4
    already-tokenized image requests through VLMGenerator._collate and
@@ -92,6 +97,30 @@ result line:
    residual memory and launches, each checkpoint save, restore and HF
    export with its GB/s, and the SFT export's read back onto the card.
 
+11. LLaVA-OneVision serving (after 10): LLaVA-OneVision-0.5B at full
+   width (llava-hf/llava-onevision-qwen2-0.5b-si-hf's config: 24 decoder
+   and 26 SigLIP layers, bf16 weights drawn on the card from a seed)
+   serves 4 already-tokenized llava_next_qwen requests, images of 448x448
+   and 336x560 pixels in turn (anyres: 16 tiles), through
+   VLMGenerator._collate and RolloutEngine.generate (P=4096, patch budget
+   16384 = 22 tiles, greedy, the serving phase's new tokens); K1 must run
+   26 + 24 times a generate and K4 24 times a decode step, no plain twin
+   may be called, and the kernel path's prefill logits must agree with
+   the twin path's;
+12. LLaVA-OneVision PA-SFT (after 11): the same model, f32 parameters
+   drawn on the card, takes the training steps through
+   make_chunked_sft_step and run_sft_loop on
+   configs/sft_llava_onevision_0_5b.yaml's settings, read by the port's
+   config loader (4 rows of 8192, remat save_qkv, tower remat save_acts,
+   CE chunk 4096 in bf16, AdamW lr 1e-5 cosine with a bf16 first moment),
+   on 8 already-tokenized IAD examples, 4 with a 448x448 image; K1, K2
+   and K3 must run 26 + 24 times each a step, step 1 must agree with a
+   step through the plain versions, a control with dq zeroed must not,
+   and the loss must fall.
+
+The kernels JSON line counts each kernel's launches by path (serve,
+eval, chat, train, grpo, chain, llava_serve, llava_sft).
+
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
 
@@ -137,6 +166,28 @@ QWEN2_VL_2B = dict(
     image_token_id=151655, video_token_id=151656,
     vision_start_token_id=151652, vision_end_token_id=151653,
 )
+# llava-hf/llava-onevision-qwen2-0.5b-si-hf's published config, at full
+# width and depth: the Qwen2-0.5B decoder (14 heads over 2 KV heads, D =
+# 64; the vocabulary of bench.py:141, since llava-hf's own could not be
+# read offline), the SigLIP so400m tower of transformers'
+# LlavaOnevisionConfig (26 layers, 16 heads, D = 72), anyres_max_9 over
+# its 36 grid pinpoints, 384 to 2304 pixels a side
+LLAVA_OV_05B = dict(
+    architectures=["LlavaOnevisionForConditionalGeneration"],
+    text_config=dict(
+        vocab_size=151936, hidden_size=896, intermediate_size=4864,
+        num_hidden_layers=24, num_attention_heads=14, num_key_value_heads=2,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, tie_word_embeddings=True,
+        max_position_embeddings=32768),
+    vision_config=dict(
+        hidden_size=1152, intermediate_size=4304, num_hidden_layers=26,
+        num_attention_heads=16, image_size=384, patch_size=14,
+        layer_norm_eps=1e-6),
+    image_token_index=151646, vision_aspect_ratio="anyres_max_9",
+    vision_feature_layer=-1, vision_feature_select_strategy="full",
+    image_grid_pinpoints=[[384 * i, 384 * j] for i in range(1, 7)
+                          for j in range(1, 7)],
+)
 IM_START, IM_END, ENDOFTEXT = 151644, 151645, 151643
 VISION_START, IMAGE_PAD, VISION_END = 151652, 151655, 151653
 # one image per request, two sizes (pixels, multiples of 28): 1024 + 960
@@ -150,6 +201,26 @@ CUTOFF_LEN, TRAIN_ROWS, CE_CHUNK, LEARNING_RATE = 2048, 2, 1024, 1e-5
 ANSWER_LEN = (600, 720)
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke_sft")
+
+# LLaVA-OneVision serving (phase 11): the eval batch of 4 requests with
+# IMAGE_HW's images, which anyres tiles as 5 + 3 + 5 + 3 = 16 tiles and
+# 3699 or 1998 image tokens each, so the prompt is 4096 long; the recipe's
+# patch budget, 16384 patches = 22 tiles of 729
+LLAVA_PROMPT_LEN, LLAVA_PATCH_BUDGET, LLAVA_IMAGE = 4096, 16384, 151646
+# LLaVA-OneVision PA-SFT (phase 12): configs/sft_llava_onevision_0_5b.yaml
+# (B = 4 rows of 8192, remat save_qkv, tower remat save_acts, CE chunk
+# 4096 in bf16, AdamW lr 1e-5 cosine with a bf16 first moment) on 8
+# examples, 4 of them with one 448 x 448 image (5 tiles each)
+LLAVA_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "sft_llava_onevision_0_5b.yaml")
+LLAVA_SFT_EXAMPLES, LLAVA_SFT_IMAGE_HW = 8, (448, 448)
+LLAVA_SFT_CUTOFF = 8192              # the recipe's data.cutoff_len
+LLAVA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "chip_smoke_llava_sft")
+# the plain versions run one batch row at a time where the [B, H, T, S] f32
+# scores would pass this (the LLaVA-OneVision decoder's 4 x 14 x 8192^2
+# would hold 15 GB a tensor, and the plain backward holds several)
+PLAIN_WHOLE_BYTES = 4 * 2 ** 30
 
 # tolerances, kernel vs twin on identical bf16 inputs.  out: the kernel
 # rounds p to bf16 before p @ v and both round the output to bf16 (2^-8
@@ -315,6 +386,19 @@ def check_close(name, a, b, atol, rtol, rows=None) -> float:
             f"{name}: {int(bad.sum())} elements off, max err "
             f"{max_err(a, b):.3e} (atol {atol}, rtol {rtol})")
     return max_err(a, b)
+
+
+def plain(fn, q, k, *rest, **kw):
+    """``fn`` (flash_attention_ref or flash_attention_bwd_ref, whose
+    arguments all lead with the batch) on the whole batch, or one batch row
+    at a time where its f32 scores would pass PLAIN_WHOLE_BYTES; the
+    outputs concatenated along the batch."""
+    B, H, T = q.shape[:3]
+    if 4 * B * H * T * k.shape[2] <= PLAIN_WHOLE_BYTES:
+        return fn(q, k, *rest, **kw)
+    rows = [fn(*(a if a is None else a[b:b + 1] for a in (q, k, *rest)),
+               **kw) for b in range(B)]
+    return tuple(torch.cat(parts) for parts in zip(*rows))
 
 
 # ---------------------------------------------------------------------------
@@ -519,6 +603,71 @@ def make_grpo_examples(seed: int = 2):
     return examples
 
 
+def _seeded_image(rng, h, w):
+    from PIL import Image
+
+    return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def make_llava_requests(bundle, seed: int = 10):
+    """Four llava_next_qwen requests as token ids (the chatml of
+    make_requests with each image a run of <image> tokens, as the port's
+    VLMGenerator._encode_request writes it), a seeded image of IMAGE_HW
+    each through the bundle's anyres preprocessing (PIL resizes)."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    encoded = []
+    for i, (h, w) in enumerate(IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        ids = ([IM_START] + text(3) + [IM_END] + text(1)
+               + [IM_START] + text(2) + [LLAVA_IMAGE] * n_img
+               + text(20 + 7 * i) + [IM_END] + text(1)
+               + [IM_START] + text(2))
+        encoded.append((ids, [patches], [grid]))
+    if sum(p[0].shape[0] for _, p, _ in encoded) != 16:
+        raise AssertionError("the requests' images are not 16 tiles")
+    return encoded
+
+
+def make_llava_sft_rows(bundle, cutoff: int, seed: int = 11):
+    """Eight synthetic IAD SFT examples in the llava_next_qwen chatml form
+    (prompt masked, a labeled answer of 600-720 seeded tokens), the even
+    ones with a seeded 448 x 448 image (5 tiles, 3699 image tokens),
+    packed by pack_examples into rows of ``cutoff``: 4 rows, one image
+    each."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    examples = []
+    for i in range(LLAVA_SFT_EXAMPLES):
+        image, extras = [], {}
+        if i % 2 == 0:
+            patches, grid, n_img = bundle.preprocess_image(
+                _seeded_image(rng, *LLAVA_SFT_IMAGE_HW))
+            image = [LLAVA_IMAGE] * n_img
+            extras = {"extras": {"patches": [patches], "grid_thw": [grid]}}
+        prompt = ([IM_START] + text(3) + [IM_END] + text(1)
+                  + [IM_START] + text(2) + image + text(8 + 4 * i)
+                  + [IM_END] + text(1) + [IM_START] + text(2))
+        answer = text(int(rng.integers(ANSWER_LEN[0], ANSWER_LEN[1] + 1)))
+        answer += [IM_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer, **extras})
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)
+    if len(rows) != 4 or any(len(r["extras"]) != 1 for r in rows):
+        raise AssertionError("the examples did not pack into 4 rows of one "
+                             "image each")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
@@ -570,8 +719,8 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
     scale = D ** -0.5
     out, lse = flash_attention(q, k, v, segment_ids=q_seg,
                                kv_segment_ids=kv_seg, causal=causal)
-    ref_out, ref_lse = flash_attention_ref(q, k, v, q_seg, kv_seg,
-                                           causal=causal, scale=scale)
+    ref_out, ref_lse = plain(flash_attention_ref, q, k, v, q_seg, kv_seg,
+                             causal=causal, scale=scale)
     torch.cuda.synchronize()
     res = check_fwd(f"B={B} H={H} Hkv={Hkv} T={T} S={S} D={D} "
                     f"causal={causal}", out, lse, ref_out, ref_lse, q_seg,
@@ -591,8 +740,9 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
         ms=device_ms([lambda: flash_attention(q, k, v, segment_ids=q_seg,
                                               kv_segment_ids=kv_seg,
                                               causal=causal)]),
-        plain_ms=device_ms([lambda: flash_attention_ref(
-            q, k, v, q_seg, kv_seg, causal=causal, scale=scale)], iters=3),
+        plain_ms=device_ms([lambda: plain(
+            flash_attention_ref, q, k, v, q_seg, kv_seg, causal=causal,
+            scale=scale)], iters=3),
         library_ms=device_ms([lambda: torch.nn.functional
                               .scaled_dot_product_attention(q, kr, vr,
                                                             attn_mask=mask)]),
@@ -630,8 +780,8 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
     with torch.no_grad():
         out, lse = flash_attention(q, k, v, segment_ids=q_seg,
                                    kv_segment_ids=kv_seg, causal=causal)
-        ref_out, ref_lse = flash_attention_ref(q, k, v, q_seg, kv_seg,
-                                               causal=causal, scale=scale)
+        ref_out, ref_lse = plain(flash_attention_ref, q, k, v, q_seg,
+                                 kv_seg, causal=causal, scale=scale)
     torch.cuda.synchronize()
     res_fwd = check_fwd(shape + " (K1 feeding K2/K3)", out, lse, ref_out,
                         ref_lse, q_seg, kv_seg, causal)
@@ -645,8 +795,8 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
     args = (q, k, v, q_seg, kv_seg, lse, delta, do)
     dq = flash_bwd_dq(*args, **kw)
     dk, dv = flash_bwd_dkv(*args, **kw)
-    ref = flash_attention_bwd_ref(q, k, v, q_seg, kv_seg, out, lse, do, dlse,
-                                  **kw)
+    ref = plain(flash_attention_bwd_ref, q, k, v, q_seg, kv_seg, out, lse,
+                do, dlse, **kw)
     torch.cuda.synchronize()
     errs = []
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
@@ -665,8 +815,9 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
     pairs = float(_pairs(q_seg, kv_seg, causal).sum())
     segs = 4 * (q_seg.numel() + kv_seg.numel())
     stats = 4 * (lse.numel() + delta.numel())
-    plain_ms = device_ms([lambda: flash_attention_bwd_ref(
-        q, k, v, q_seg, kv_seg, out, lse, do, dlse, **kw)], iters=3)
+    plain_ms = device_ms([lambda: plain(
+        flash_attention_bwd_ref, q, k, v, q_seg, kv_seg, out, lse, do, dlse,
+        **kw)], iters=3)
     # the yardstick: SDPA's backward (dq, dk, dv together) on a saved
     # forward, with a boolean mask and K/V repeated for GQA
     mask = _pairs(q_seg, kv_seg, causal)[:, None]
@@ -761,6 +912,51 @@ def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
         iters=3)
     res["cold_caches_mb"] = DECODE_LAYERS * 2 * k.numel() * 2 / 1e6
     return res
+
+
+def log_kernel_results(fwd, dec, bwd) -> None:
+    """A line for each case of phase 3: K1's results ``fwd``, K4's ``dec``
+    and (K2, K3, K1) triples ``bwd``."""
+    for r in fwd:
+        log(f"kernels: flash_fwd {r['shape']}: max_abs_err "
+            f"{r['max_abs_err']:.3e}, lse {r['lse_max_abs_err']:.3e}"
+            + (f", live tiles {r['live_tile_share']:.3f} (unmasked "
+               f"{r['full_tile_share']:.3f})" if "live_tile_share" in r
+               else "")
+            + (f"; {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
+               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+               f"{r['bound_by']}, {r['gflop']:.2f} GFLOP)" if "ms" in r
+               else "")
+            + (f"; padded to 80 in the wrapper {r['wrapper_pad_ms']:.4f} "
+               f"ms, max_abs_err {r['wrapper_pad_err']:.3e}"
+               if "wrapper_pad_ms" in r else ""))
+    for r in dec:
+        log(f"kernels: decode_attention {r['shape']}: max_abs_err "
+            f"{r['max_abs_err']:.3e}"
+            + (f"; warm {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
+               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+               f"{r['bound_by']}); cold over {DECODE_LAYERS} caches "
+               f"({r['cold_caches_mb']:.0f} MB) {r['ms_cold']:.4f} ms "
+               f"(sdpa {r['library_ms_cold']:.4f}); one call with its "
+               f"launch {r['call_ms']:.4f} ms (sdpa "
+               f"{r['library_call_ms']:.4f}); kernels {r['split']}"
+               if "ms" in r else ""))
+    for rdq, rdkv, _ in bwd:
+        for name, r in (("flash_bwd_dq", rdq), ("flash_bwd_dkv", rdkv)):
+            log(f"kernels: {name} {r['shape']}: max_abs_err "
+                f"{r['max_abs_err']:.3e}"
+                + (f", live tiles {r['live_tile_share']:.3f}"
+                   if "live_tile_share" in r else "")
+                + (f" (unmasked {r['full_tile_share']:.3f})"
+                   if "full_tile_share" in r else "")
+                + (f"; {r['ms']:.4f} ms (plain bwd {r['plain_ms']:.4f}, "
+                   f"sdpa bwd {r['library_ms']:.4f}, bound "
+                   f"{r['bound_ms']:.4f} {r['bound_by']}, "
+                   f"{r['gflop']:.2f} GFLOP; kernels {r['split']})"
+                   if "ms" in r else "")
+                + (f"; padded to 80 in the wrapper {r['wrapper_pad_ms']:.4f}"
+                   f" ms, max_abs_err {r['wrapper_pad_err']:.3e}"
+                   if "wrapper_pad_ms" in r else ""))
 
 
 def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
@@ -923,44 +1119,125 @@ def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
     bwd += grpo_bwd
     extra += grpo_fwd + [fwd for _, _, fwd in grpo_bwd]
     dec_extra += grpo_dec[::-1]             # the timed one first
-    for r in [tower, prefill, *extra]:
-        log(f"kernels: flash_fwd {r['shape']}: max_abs_err "
-            f"{r['max_abs_err']:.3e}, lse {r['lse_max_abs_err']:.3e}"
-            + (f", live tiles {r['live_tile_share']:.3f} (unmasked "
-               f"{r['full_tile_share']:.3f})" if "live_tile_share" in r
-               else "")
-            + (f"; {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
-               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-               f"{r['bound_by']}, {r['gflop']:.2f} GFLOP)" if "ms" in r
-               else ""))
-    for r in [dec, *dec_extra]:
-        log(f"kernels: decode_attention {r['shape']}: max_abs_err "
-            f"{r['max_abs_err']:.3e}"
-            + (f"; warm {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
-               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-               f"{r['bound_by']}); cold over {DECODE_LAYERS} caches "
-               f"({r['cold_caches_mb']:.0f} MB) {r['ms_cold']:.4f} ms "
-               f"(sdpa {r['library_ms_cold']:.4f}); one call with its "
-               f"launch {r['call_ms']:.4f} ms (sdpa "
-               f"{r['library_call_ms']:.4f}); kernels {r['split']}"
-               if "ms" in r else ""))
-    for rdq, rdkv, _ in bwd:
-        for name, r in (("flash_bwd_dq", rdq), ("flash_bwd_dkv", rdkv)):
-            log(f"kernels: {name} {r['shape']}: max_abs_err "
-                f"{r['max_abs_err']:.3e}"
-                + (f", live tiles {r['live_tile_share']:.3f}"
-                   if "live_tile_share" in r else "")
-                + (f" (unmasked {r['full_tile_share']:.3f})"
-                   if "full_tile_share" in r else "")
-                + (f"; {r['ms']:.4f} ms (plain bwd {r['plain_ms']:.4f}, "
-                   f"sdpa bwd {r['library_ms']:.4f}, bound "
-                   f"{r['bound_ms']:.4f} {r['bound_by']}, "
-                   f"{r['gflop']:.2f} GFLOP; kernels {r['split']})"
-                   if "ms" in r else ""))
+    log_kernel_results([tower, prefill, *extra], [dec, *dec_extra], bwd)
     return {"flash_fwd": [tower, prefill] + extra,
             "flash_bwd_dq": [dq for dq, _, _ in bwd],
             "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
             "decode_attention": [dec] + dec_extra}
+
+
+def wrapper_pad_case(tower_results, B, H, T, seed):
+    """K1-K3 at D = 72 the other way: q, k, v and dO zero-padded to 80
+    columns in the wrapper, the D = 80 kernels at 72's scale, the outputs
+    cut back to 72.  Held to the plain versions with the limits the
+    in-kernel padding meets, and timed by device time, pads and cuts
+    included; the times and errors go into the tower's results
+    ``tower_results`` (K1, K2, K3)."""
+    import torch.nn.functional as F
+
+    from iadr1_tpu_torch.kernels.flash_attention import (
+        _delta,
+        flash_attention,
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", dtype=torch.bfloat16)
+    q, do = (torch.randn((B, H, T, 72), generator=gen, **dev)
+             for _ in range(2))
+    k, v = (torch.randn((B, H, T, 72), generator=gen, **dev)
+            for _ in range(2))
+    ones = torch.ones((B, T), device="cuda", dtype=torch.int32)
+    scale = 72 ** -0.5
+    kw = dict(causal=False, scale=scale)
+
+    def widen(t):
+        return F.pad(t, (0, 8))
+
+    def fwd():
+        out, lse = flash_attention(widen(q), widen(k), widen(v), **kw)
+        return out[..., :72].contiguous(), lse
+
+    with torch.no_grad():
+        out, lse = fwd()
+    ref_out, ref_lse = plain(flash_attention_ref, q, k, v, ones, ones, **kw)
+    torch.cuda.synchronize()
+    fwd_res = check_fwd("wrapper pad", out, lse, ref_out, ref_lse, ones,
+                        ones, False)
+    del ref_out, ref_lse
+    # the backward's inputs: the forward's padded q, k, v; dO padded once,
+    # in K2's time
+    delta = _delta(out, do, None).contiguous()
+    qkv80 = (widen(q), widen(k), widen(v))
+    do80 = widen(do)
+
+    def dq():
+        return flash_bwd_dq(*qkv80, ones, ones, lse, delta, widen(do),
+                            **kw)[..., :72].contiguous()
+
+    def dkv():
+        dk, dv = flash_bwd_dkv(*qkv80, ones, ones, lse, delta, do80, **kw)
+        return dk[..., :72].contiguous(), dv[..., :72].contiguous()
+
+    got = (dq(), *dkv())
+    ref = plain(flash_attention_bwd_ref, q, k, v, ones, ones, out, lse, do,
+                None, **kw)
+    torch.cuda.synchronize()
+    errs = [check_close(f"wrapper pad {name}", g, w,
+                        BWD_ATOL_FRAC * float(w.float().abs().max()),
+                        BWD_RTOL)
+            for name, g, w in zip(("dq", "dk", "dv"), got, ref)]
+    del got, ref
+    for res, fn, err in ((tower_results[0], fwd, fwd_res["max_abs_err"]),
+                         (tower_results[1], dq, errs[0]),
+                         (tower_results[2], dkv, max(errs[1:]))):
+        res["wrapper_pad_ms"] = device_ms([fn])
+        res["wrapper_pad_err"] = err
+
+
+def phase_kernels_llava(encoded, rows, max_new_tokens, pad_compare=False):
+    """Phase 3 at LLaVA-OneVision-0.5B's shapes: K1-K3 at the SigLIP
+    tower's D = 72 (22 tiles of 729, 16 heads, non-causal, all-ones ids
+    per tile), with the wrapper-padding design beside them when
+    ``pad_compare``; K1 at the prefill (P = 4096, GQA 7, left padding)
+    and at the SFT decoder (4 rows of 8192, packed segments), K2 and K3
+    there too; K4 at GQA 7 over the serving cache.  Returns the results by kernel, the tower's first."""
+    cuda = dict(device="cuda", dtype=torch.int32)
+    tiles = LLAVA_PATCH_BUDGET // 729
+    P, B = LLAVA_PROMPT_LEN, BATCH
+    left = torch.zeros((B, P), **cuda)
+    for b, (ids, _, _) in enumerate(encoded):
+        left[b, P - len(ids):] = 1
+    S_dec = P + max_new_tokens
+    dec_seg = torch.ones((B, S_dec), **cuda)
+    dec_seg[:, :P] = left
+    train_seg = torch.as_tensor(np.stack([r["segment_ids"] for r in rows]),
+                                **cuda)
+    T = train_seg.shape[1]
+    ones = torch.ones((tiles, 729), **cuda)
+    tower = (22, 16, 16, 729, 729, 72, False, ones, ones)
+    assert tiles == tower[0]
+    tower_bwd = bwd_case(*tower, 61, timed=True)
+    tower_fwd = flash_case(*tower, 62, timed=True)
+    if pad_compare:
+        wrapper_pad_case((tower_fwd, *tower_bwd[:2]), tiles, 16, 729, 63)
+    prefill = flash_case(B, 14, 2, P, P, 64, True, left, left, 64,
+                         timed=True)
+    train_bwd = bwd_case(B, 14, 2, T, T, 64, True, train_seg, train_seg, 65,
+                         timed=True)
+    train_fwd = flash_case(B, 14, 2, T, T, 64, True, train_seg, train_seg,
+                           66, timed=True)
+    dec = decode_case(B, 14, 2, S_dec, 64, S_dec, dec_seg, 67, timed=True)
+    for r in (tower_fwd, *tower_bwd, prefill, *train_bwd, train_fwd, dec):
+        r["shape"] = "llava-ov: " + r["shape"]
+    fwd = [tower_fwd, prefill, train_fwd, tower_bwd[2], train_bwd[2]]
+    log_kernel_results(fwd, [dec], [tower_bwd, train_bwd])
+    return {"flash_fwd": fwd, "flash_bwd_dq": [tower_bwd[0], train_bwd[0]],
+            "flash_bwd_dkv": [tower_bwd[1], train_bwd[1]],
+            "decode_attention": [dec]}
 
 
 # ---------------------------------------------------------------------------
@@ -970,9 +1247,13 @@ def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
 
 def twin_attn(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
               causal=True):
-    """The model-level attention signature over the K1 twin (no kernel)."""
+    """The model-level attention signature over the K1 twin (no kernel);
+    no segment ids (the SigLIP tower's tiles) are all ones."""
     from iadr1_tpu_torch.kernels.flash_attention import flash_attention_ref
 
+    if q_segments is None:
+        q_segments = kv_segments = torch.ones(
+            q.shape[:2], dtype=torch.int32, device=q.device)
     out, _ = flash_attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         q_segments, kv_segments, causal=causal, scale=q.shape[-1] ** -0.5)
@@ -1113,6 +1394,8 @@ def time_prefill(gen, batch) -> float:
 
     B, P = batch["input_ids"].shape
     b = {**batch, "segment_ids": batch["attention_mask"].to(torch.int32)}
+    if "position_ids" not in b:          # 1-D positions, as the engine's
+        b["position_ids"] = (b["attention_mask"].cumsum(1) - 1).clamp(min=0)
     for _ in range(2):
         cache = qwen2.init_cache(gen.bundle.cfg.text, B, P, torch.bfloat16,
                                  DEVICE)
@@ -1444,8 +1727,8 @@ class TwinFlash(torch.autograd.Function):
         from iadr1_tpu_torch.kernels.flash_attention import flash_attention_ref
 
         ctx.scale = q.shape[-1] ** -0.5
-        out, lse = flash_attention_ref(q, k, v, q_seg, kv_seg, causal=causal,
-                                       scale=ctx.scale)
+        out, lse = plain(flash_attention_ref, q, k, v, q_seg, kv_seg,
+                         causal=causal, scale=ctx.scale)
         ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
         ctx.causal = causal
         return out, lse
@@ -1456,8 +1739,8 @@ class TwinFlash(torch.autograd.Function):
             flash_attention_bwd_ref,
         )
 
-        dq, dk, dv = flash_attention_bwd_ref(
-            *ctx.saved_tensors, do, dlse, causal=ctx.causal, scale=ctx.scale)
+        dq, dk, dv = plain(flash_attention_bwd_ref, *ctx.saved_tensors, do,
+                           dlse, causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None, None
 
 
@@ -1472,9 +1755,14 @@ class ZeroDqFlash(TwinFlash):
 
 
 def train_attn(flash):
-    """The model-level attention signature over a flash Function."""
+    """The model-level attention signature over a flash Function; no
+    segment ids (the SigLIP tower's tiles) are all ones, as the K1 wrapper
+    takes them."""
     def attn(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
              causal=True):
+        if q_segments is None:
+            q_segments = kv_segments = torch.ones(
+                q.shape[:2], dtype=torch.int32, device=q.device)
         out, _ = flash.apply(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), q_segments, kv_segments,
                              causal)
@@ -1494,7 +1782,11 @@ class GradProbe:
         leaves = tree_leaves(params)
         attn = params["text"]["layers"]["attn"]
         targets = [attn[n]["kernel"] for n in "qkv"]
-        targets.append(params["vision"]["blocks"]["attn"]["qkv"]["kernel"])
+        if "blocks" in params["vision"]:       # Qwen2-VL: one qkv kernel
+            targets.append(params["vision"]["blocks"]["attn"]["qkv"]["kernel"])
+        else:                                  # SigLIP: q, k, v apart
+            tower = params["vision"]["layers"]["attn"]
+            targets += [tower[n]["kernel"] for n in "qkv"]
         self.index = [next(i for i, p in enumerate(leaves) if p is t)
                       for t in targets]
         self.optimizer, self.norms = optimizer, None
@@ -1505,11 +1797,12 @@ class GradProbe:
 
     def apply(self, params, grads, state, grad_norm=None):
         if self.norms is None:
-            dq, dk, dv, tower = (grads[i].detach() for i in self.index)
+            dq, dk, dv, *tower = (grads[i].detach() for i in self.index)
             parts = dict(zip(("decoder q", "decoder k", "decoder v"),
                              (dq, dk, dv)))
             parts.update(zip(("tower q", "tower k", "tower v"),
-                             tower.chunk(3, dim=-1)))
+                             tower if len(tower) == 3
+                             else tower[0].chunk(3, dim=-1)))
             self.norms = {n: g.float().flatten(1).norm(dim=1)
                           for n, g in parts.items()}
             if self.keep_grads:
@@ -2491,6 +2784,329 @@ def phase_chain(card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: LLaVA-OneVision-0.5B
+# ---------------------------------------------------------------------------
+
+
+def llava_positions(mask):
+    """The rollout engine's 1-D positions of a left-padded batch."""
+    return (mask.cumsum(dim=1) - 1).clamp(min=0)
+
+
+def phase_llava_serve(encoded, max_new_tokens, card):
+    """Phase 11: LLaVA-OneVision-0.5B at full width serves 4 image requests
+    through VLMGenerator._collate and RolloutEngine.generate; returns the
+    launch counts."""
+    from iadr1_tpu_torch.data.template import get_template
+    from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.kernels import decode_attention as decode_mod
+    from iadr1_tpu_torch.kernels import flash_attention as flash_mod
+    from iadr1_tpu_torch.models import llava_onevision, qwen2
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    bundle = bundle_from_hf_config(LLAVA_OV_05B)
+    cfg = bundle.cfg
+    t0 = time.perf_counter()
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"llava serve: LLaVA-OneVision-0.5B {n_params / 1e9:.3f}B params "
+        f"(bf16, seeded) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokenizer = types.SimpleNamespace(eos_token_id=IM_END,
+                                      pad_token_id=ENDOFTEXT)
+    gcfg = GeneratorConfig(max_prompt_length=LLAVA_PROMPT_LEN,
+                           max_new_tokens=max_new_tokens, batch_size=BATCH,
+                           patch_budget=LLAVA_PATCH_BUDGET)
+    gen = VLMGenerator(bundle, params, tokenizer,
+                       get_template(bundle.template), gcfg, device=DEVICE)
+    t0 = time.perf_counter()
+    batch = gen._collate(encoded)
+    collate_ms = 1e3 * (time.perf_counter() - t0)
+    n_tiles = int((batch["tiles"].flatten(1) != 0).any(1).sum())
+    if batch["tiles"].shape[0] != 22 or n_tiles != 16:
+        raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
+                             f"{n_tiles} of them images'")
+
+    def prefill(attn=None):
+        cache = qwen2.init_cache(cfg.text, BATCH, LLAVA_PROMPT_LEN,
+                                 torch.bfloat16, DEVICE)
+        b = {**batch, "segment_ids": batch["attention_mask"].to(torch.int32),
+             "position_ids": llava_positions(batch["attention_mask"])}
+        with torch.no_grad():
+            if attn is None:
+                h, _ = bundle.apply(params, b, cache=cache,
+                                    cache_mode="prefill")
+            else:
+                h, _ = llava_onevision.apply(
+                    params, cfg, b["input_ids"], b["position_ids"],
+                    tiles=b["tiles"], pack_src=b["pack_src"],
+                    pack_weights=b["pack_weights"],
+                    newline_mask=b["newline_mask"],
+                    scatter_rows=b["scatter_rows"],
+                    scatter_cols=b["scatter_cols"],
+                    segment_ids=b["segment_ids"], cache=cache,
+                    cache_mode="prefill", attention_fn=attn,
+                    tower_attention_fn=attn)
+            return bundle.logits_fn(params, h[:, -1:])[:, 0]
+
+    kernel_logits = prefill()
+    twin_logits = prefill(twin_attn)
+    torch.cuda.synchronize()
+    if kernel_logits.shape != (BATCH, cfg.text.vocab_size):
+        raise AssertionError(f"logits shape {tuple(kernel_logits.shape)}")
+    if not torch.isfinite(kernel_logits).all():
+        raise AssertionError("prefill logits are not finite")
+    rel = float((kernel_logits - twin_logits).norm() / twin_logits.norm())
+    agree = int((kernel_logits.argmax(-1) == twin_logits.argmax(-1)).sum())
+    log(f"llava serve: prefill logits kernel vs twin path: rel L2 "
+        f"{rel:.3e} (limit {LOGITS_REL_L2}), argmax agree {agree}/{BATCH}")
+    if not rel <= LOGITS_REL_L2:
+        raise AssertionError(f"prefill logits differ: rel L2 {rel:.3e}")
+    del kernel_logits, twin_logits
+    prefill_ms = time_prefill(gen, batch)
+
+    kernels = [k for k, _ in all_kernels()]
+    tap = ChainTap(kernels)
+    for module, name in ((flash_mod, "flash_attention_ref"),
+                         (flash_mod, "flash_attention_bwd_ref"),
+                         (decode_mod, "decode_attention_ref")):
+        tap.twin(module, name)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = gen.engine.generate(params, batch, gen.generator)
+        torch.cuda.synchronize()
+    finally:
+        tap.close()
+    total_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k.name: k.launches for k in kernels}
+    steps = result["num_decode_steps"]
+    ids = result["completion_ids"]
+    if ids.shape != (BATCH, max_new_tokens):
+        raise AssertionError(f"completion shape {tuple(ids.shape)}")
+    if not ((ids >= 0) & (ids < cfg.text.vocab_size)).all():
+        raise AssertionError("completion ids out of the vocabulary")
+    L, Lt = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
+    want = {"flash_fwd": Lt + L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attention": L * steps}
+    if launches != want or steps < 1:
+        raise AssertionError(f"llava serve: launches {launches} over {steps}"
+                             f" decode steps, want {want}")
+    if any(tap.twin_calls.values()):
+        raise AssertionError(f"llava serve: plain twins called on the card: "
+                             f"{tap.twin_calls}")
+    n_tokens = int(result["completion_mask"].sum())
+    decode_ms = (1e3 * total_s - prefill_ms) / steps
+    log(f"llava serve: generate {BATCH} requests (16 tiles, prompt "
+        f"{LLAVA_PROMPT_LEN}, patch budget {LLAVA_PATCH_BUDGET}), {steps} "
+        f"decode steps, {n_tokens} tokens in {total_s:.3f} s; launches "
+        f"{launches}; twin calls {tap.twin_calls}")
+    log(f"llava serve: collation {collate_ms:.2f} ms (host), prefill "
+        f"{prefill_ms:.2f} ms (tower + decoder), decode {decode_ms:.3f} "
+        f"ms/step, {n_tokens / total_s:.1f} generated tokens/s, "
+        f"{BATCH / total_s:.3f} items/s, peak memory {peak_gib:.2f} GiB on "
+        f"{card}")
+    phase_profile(gen, batch)
+    del gen, batch, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_llava_sft(rows, steps: int, card):
+    """Phase 12: PA-SFT steps of LLaVA-OneVision-0.5B at full width on the
+    recipe's settings (configs/sft_llava_onevision_0_5b.yaml through the
+    port's config loader), assembled as cli/train_sft.py assembles them;
+    returns the launch counts."""
+    import dataclasses
+    import gc
+
+    from iadr1_tpu_torch.cli.train_sft import SFTJobConfig, _remat
+    from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
+    from iadr1_tpu_torch.core.metrics import (
+        ThroughputMeter,
+        transformer_flops_per_token,
+        vit_flops_per_patch,
+    )
+    from iadr1_tpu_torch.data.collator import VLMBatchBuilder
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models import llava_onevision
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.loop import (
+        LoopConfig,
+        batch_iterator,
+        run_sft_loop,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.sft import STEP_RANGES, make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    job = load_config(SFTJobConfig, LLAVA_RECIPE)
+    bundle = bundle_from_hf_config(LLAVA_OV_05B, attention=job.model.attention)
+    cfg = bundle.cfg
+    B, T = int(job.train["batch_size"]), job.data.cutoff_len
+    remat, tower_remat = _remat(job.model.remat), _remat(job.model.tower_remat)
+    # the recipe's schedule over this run: cosine to 0 over its steps, its
+    # warmup (100 of 1000 steps) a tenth of them, none of 4
+    opt_cfg = dataclasses.replace(
+        dataclass_from_dict(OptimizerConfig, job.optim), total_steps=steps,
+        warmup_steps=steps // 10)
+    logits_dtype = getattr(torch, job.data.ce_logits_dtype)
+    builder = VLMBatchBuilder(bundle, job.data.patch_budget)
+    if len(rows) != B or any(len(r["input_ids"]) != T for r in rows):
+        raise AssertionError(f"the rows are not the recipe's {B} x {T}")
+    log(f"llava sft: the recipe: B={B} T={T}, remat {remat}, tower remat "
+        f"{tower_remat}, CE chunk {job.data.ce_chunk} in "
+        f"{job.data.ce_logits_dtype}, patch budget {job.data.patch_budget}, "
+        f"AdamW lr {opt_cfg.learning_rate} {opt_cfg.schedule} (first moment "
+        f"{opt_cfg.mu_dtype}); f32 parameters (the recipe's own dtype is "
+        f"{job.model.dtype})")
+
+    def fresh(hidden_fn):
+        params = bundle.init_params(seed=0, dtype=torch.float32,
+                                    device=DEVICE)
+        opt, sched = make_optimizer(opt_cfg)
+        probe = GradProbe(opt, params)
+        step = make_chunked_sft_step(hidden_fn, bundle.head_kernel_fn, probe,
+                                     sched, chunk_size=job.data.ce_chunk,
+                                     logits_dtype=logits_dtype)
+        return create_train_state(params, probe), step, probe
+
+    first = next(batch_iterator(rows, B, 0, builder))
+
+    def plain_hidden(flash):
+        attn = train_attn(flash)
+
+        def hidden(params, b):
+            h, _ = llava_onevision.apply(
+                params, cfg, b["input_ids"], b["position_ids"],
+                tiles=b["tiles"], pack_src=b["pack_src"],
+                pack_weights=b["pack_weights"],
+                newline_mask=b["newline_mask"],
+                scatter_rows=b["scatter_rows"],
+                scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+                attention_fn=attn, tower_attention_fn=attn, remat=remat,
+                tower_remat=tower_remat)
+            return h
+        return hidden
+
+    def first_step(flash):
+        state, plain_step, probe = fresh(plain_hidden(flash))
+        _, m = plain_step(state, first)
+        res = {k: float(v) for k, v in m.items()}, probe.norms
+        del state, plain_step, probe, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    plain_ref = first_step(TwinFlash)
+    control = step1_diffs(first_step(ZeroDqFlash), plain_ref)
+    log(f"llava sft: step 1 control (plain path with dq zeroed) vs plain "
+        f"path: {_diff_text(control)}")
+    if _within(control):
+        raise AssertionError("the step-1 limits do not catch a zeroed dq")
+
+    state, step, probe = fresh(lambda p, b: bundle.hidden_fn(
+        p, b, remat=remat, tower_remat=tower_remat))
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    kernels = [k for k, _ in all_kernels()]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    state, history = run_sft_loop(
+        state, timed_step, batch_iterator(rows, B, 0, builder),
+        LoopConfig(output_dir=LLAVA_TRAIN_DIR, max_steps=steps,
+                   batch_size=B, logging_steps=1))
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, first)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("profile: one LLaVA-OneVision training step: "
+        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L, Lt = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
+    # per step: each of K1, K2 and K3 once per decoder layer and tower
+    # layer (save_qkv and save_acts keep every attention call outside the
+    # checkpoints)
+    want = {"flash_fwd": steps * (L + Lt), "flash_bwd_dq": steps * (L + Lt),
+            "flash_bwd_dkv": steps * (L + Lt), "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"llava training launches {launches}, want "
+                             f"{want}")
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    diffs = step1_diffs(({"loss": losses[0], "grad_norm": norms[0]},
+                         probe.norms), plain_ref)
+    log(f"llava sft: step 1 kernel vs plain path: loss {losses[0]:.6f} vs "
+        f"{plain_ref[0]['loss']:.6f}, grad norm {norms[0]:.6f} vs "
+        f"{plain_ref[0]['grad_norm']:.6f}; {_diff_text(diffs)}")
+    if not _within(diffs):
+        raise AssertionError("step 1 differs between kernel and plain path")
+
+    late = len(times) > 4
+    step_s = statistics.median(times[3:] if late else times[1:])
+    n_label = history[0]["n_label_tokens"]
+    n_tiles = first["tiles"].shape[0]            # the tower runs the budget
+    n_images = int((first["tiles"].reshape(n_tiles, -1) != 0).any(1).sum())
+    # model FLOPs count the tiles that hold images, not the zero padding
+    # that fills the budget
+    t = cfg.text
+    dec_flops = B * T * transformer_flops_per_token(
+        hidden=t.hidden_size, intermediate=t.intermediate_size,
+        num_layers=t.num_hidden_layers, vocab=t.vocab_size, seq_len=T,
+        num_heads=t.num_attention_heads, num_kv_heads=t.num_key_value_heads)
+    v = cfg.vision
+    vit_flops = n_images * 729 * vit_flops_per_patch(
+        hidden=v.hidden_size, intermediate=v.intermediate_size,
+        num_layers=v.num_hidden_layers, attn_window=729)
+    meter = ThroughputMeter(flops_per_token_fwd=(dec_flops + vit_flops)
+                            / (B * T), peak_flops=PEAK_BF16_FLOPS)
+    meter.update(B * T, step_s)
+    log(f"llava sft: LLaVA-OneVision-0.5B {n_params / 1e9:.3f}B f32 params, "
+        f"{steps} steps of {B}x{T} tokens ({int(n_label)} label tokens, 4 "
+        f"images in {n_images} of the {n_tiles} tiles); losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"llava sft: step {1e3 * step_s:.1f} ms (median of steps "
+        f"{'4-' if late else '2-'}{steps}; all steps "
+        f"{[round(1e3 * x, 1) for x in times]} ms), "
+        f"{B * T / step_s:.0f} tokens/s, {n_label / step_s:.0f} label "
+        f"tokens/s, MFU {meter.mfu:.4f} (decoder + tower model FLOPs, x3, "
+        f"against {PEAK_BF16_FLOPS:.3g}), peak memory {peak_gib:.2f} GiB, "
+        f"launches {launches} on {card}")
+    return launches
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2510,10 +3126,14 @@ def main() -> int:
     ap.add_argument("--max-new-tokens", type=int, default=128,
                     help="new tokens of the serving phase's generate")
     ap.add_argument("--train-steps", type=int, default=4,
-                    help="PA-SFT steps (at least 2)")
+                    help="PA-SFT steps of phases 6 and 12 (at least 2)")
     ap.add_argument("--grpo-steps", type=int, default=3,
                     help="SC-GRPO steps (at least 1), each a rollout of "
                          "the recipe's 512 tokens")
+    ap.add_argument("--pad-compare", action="store_true",
+                    help="also time K1-K3 at the SigLIP tower with q, k, v "
+                         "and dO padded to 80 in the wrapper, beside the "
+                         "in-kernel padding")
     args = ap.parse_args()
     if args.train_steps < 2:
         ap.error("--train-steps must be at least 2")
@@ -2540,8 +3160,17 @@ def main() -> int:
     encoded = make_requests()
     train_rows = make_sft_rows()
     grpo_examples = make_grpo_examples()
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    llava = bundle_from_hf_config(LLAVA_OV_05B)       # host side only
+    llava_encoded = make_llava_requests(llava)
+    llava_rows = make_llava_sft_rows(llava, LLAVA_SFT_CUTOFF)
     measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
                              grpo_examples)
+    for name, results in phase_kernels_llava(
+            llava_encoded, llava_rows, args.max_new_tokens,
+            args.pad_compare).items():
+        measured[name] += results
     serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
     phase_profile(gen, batch)
     evaluated = phase_eval(gen, card)
@@ -2551,6 +3180,8 @@ def main() -> int:
     train = phase_train(train_rows, args.train_steps, card)
     grpo = phase_grpo(grpo_examples, args.grpo_steps, card)
     chain = phase_chain(card)
+    llava_serve = phase_llava_serve(llava_encoded, args.max_new_tokens, card)
+    llava_sft = phase_llava_sft(llava_rows, args.train_steps, card)
 
     line = []
     for k, replaces in kernels:
@@ -2563,7 +3194,9 @@ def main() -> int:
                                       "chat": chat[k.name],
                                       "train": train[k.name],
                                       "grpo": grpo[k.name],
-                                      "chain": chain[k.name]}}
+                                      "chain": chain[k.name],
+                                      "llava_serve": llava_serve[k.name],
+                                      "llava_sft": llava_sft[k.name]}}
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -29,6 +29,9 @@
 // staging into wgmma's no-swizzle core-matrix layout, and the wgmma
 // products (SS for two operands in shared memory, RS for A from
 // registers with B read N-major, i.e. transposed, through the descriptor).
+// Head dims 64, 72, 80 and 128; at 72 (SigLIP) the tiles are staged at a
+// width of 80 with zeroed padding columns, so s and dp run five k-steps,
+// and dq, dk and dv are wgmma m64n72k16 products (as K1, flash_fwd.cu).
 //
 // K2: one warpgroup (128 threads) per (64 stacked query rows, kv head, b),
 // the GQA group's rows stacked as in K1 (row r = g*T + t; a block whose
@@ -89,7 +92,7 @@ constexpr int kQRows = kTileRows;    // K3: query rows per tile (wgmma N)
 // tile) follow
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)6 * kTileRows * D * sizeof(bf16) +
+  return (size_t)6 * kTileRows * kPadD<D> * sizeof(bf16) +
          (size_t)2 * kTileRows * sizeof(int) + 8 * sizeof(int);
 }
 
@@ -103,9 +106,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const int* __restrict__ q_seg,
                     const int* __restrict__ kv_seg, bf16* __restrict__ dq,
                     int H, int Hkv, int T, int S, float scale, int causal) {
-  constexpr int kSteps = D / 16;          // k-steps of s and dp
-  constexpr int kTile = kTileRows * D;    // elements of one tile
-  constexpr uint32_t kGroup = kGroupBytes<D>;
+  constexpr int W = kPadD<D>;             // staged width (72 -> 80)
+  constexpr int kSteps = W / 16;          // k-steps of s and dp
+  constexpr int kTile = kTileRows * W;    // elements of one tile
+  constexpr uint32_t kGroup = kGroupBytes<W>;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -115,6 +119,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int* seg_st = reinterpret_cast<int*>(v_st + 2 * kTile); // [2][64]
   int* info = seg_st + 2 * kTileRows;                     // [8]
   unsigned char* flags = reinterpret_cast<unsigned char*>(info + 8);
+  zero_pad_cols<D>(q_s, 6);   // Q, dO and both stages of K and V
 
   const float scale_log2 = scale * kLog2e;
   const int group = H / Hkv;
@@ -234,7 +239,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(acc, sa[kk], smem_desc(k_s + kk * 16 * D, kGroup, kCore));
+      wgmma_rs<D>(acc, sa[kk], smem_desc(k_s + kk * 16 * W, kGroup, kCore));
     wgmma_commit();
     wgmma_wait_all();
     cur = nxt;
@@ -251,7 +256,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // per query tile) follow
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * kKvRows + 4 * kQRows) * D * sizeof(bf16) +
+  return (size_t)(2 * kKvRows + 4 * kQRows) * kPadD<D> * sizeof(bf16) +
          (size_t)2 * 3 * kQRows * sizeof(float) + 8 * sizeof(int);
 }
 
@@ -269,22 +274,24 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ dv,
                      float* __restrict__ dkv_part, int H, int Hkv, int T,
                      int S, float scale, int causal) {
-  constexpr int kSteps = D / 16;        // k-steps of s^T and dp^T
+  constexpr int W = kPadD<D>;           // staged width (72 -> 80)
+  constexpr int kSteps = W / 16;        // k-steps of s^T and dp^T
   constexpr int kDTiles = D / 8;
   constexpr int kNTiles = kQRows / 8;
-  constexpr int kTile = kQRows * D;     // elements of one Q or dO tile
-  constexpr uint32_t kGroup = kGroupBytes<D>;
+  constexpr int kTile = kQRows * W;     // elements of one Q or dO tile
+  constexpr uint32_t kGroup = kGroupBytes<W>;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kKvRows * D;
-  __nv_bfloat16* q_st = v_s + kKvRows * D;              // [2][kTile]
+  __nv_bfloat16* v_s = k_s + kKvRows * W;
+  __nv_bfloat16* q_st = v_s + kKvRows * W;              // [2][kTile]
   __nv_bfloat16* do_st = q_st + 2 * kTile;              // [2][kTile]
   float* lse_st = reinterpret_cast<float*>(do_st + 2 * kTile);
   float* dlt_st = lse_st + 2 * kQRows;                  // [2][kQRows]
   int* qseg_st = reinterpret_cast<int*>(dlt_st + 2 * kQRows);
   int* info = qseg_st + 2 * kQRows;                     // [8]
   unsigned char* live_s = reinterpret_cast<unsigned char*>(info + 8);
+  zero_pad_cols<D>(k_s, 6);   // K, V and both stages of Q and dO
 
   const float scale_log2 = scale * kLog2e;
   const int group = H / Hkv;
@@ -420,10 +427,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk)
-      wgmma_rs<D>(dva, pa[kk], smem_desc(do_s + kk * 16 * D, kGroup, kCore));
+      wgmma_rs<D>(dva, pa[kk], smem_desc(do_s + kk * 16 * W, kGroup, kCore));
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk)
-      wgmma_rs<D>(dka, sa[kk], smem_desc(q_s + kk * 16 * D, kGroup, kCore));
+      wgmma_rs<D>(dka, sa[kk], smem_desc(q_s + kk * 16 * W, kGroup, kCore));
     wgmma_commit();
     wgmma_wait_all();
     cur = nxt;
@@ -564,6 +571,8 @@ extern "C" int iadr1_flash_bwd_dq_bf16(const void* q, const void* k,
   switch (D) {
     case 64:
       return launch_dq<64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, T, S, scale, causal, st);
+    case 72:
+      return launch_dq<72>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, T, S, scale, causal, st);
     case 80:
       return launch_dq<80>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, T, S, scale, causal, st);
     case 128:
@@ -589,6 +598,8 @@ extern "C" int iadr1_flash_bwd_dkv_bf16(const void* q, const void* k,
   switch (D) {
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dk, dv, dkv_part, B, H, Hkv, T, S, scale, causal, st);
+    case 72:
+      return launch_dkv<72>(q, k, v, dout, lse, delta, q_seg, kv_seg, dk, dv, dkv_part, B, H, Hkv, T, S, scale, causal, st);
     case 80:
       return launch_dkv<80>(q, k, v, dout, lse, delta, q_seg, kv_seg, dk, dv, dkv_part, B, H, Hkv, T, S, scale, causal, st);
     case 128:

@@ -37,6 +37,11 @@
 //   accumulators repacked to bf16) and V read N-major through the
 //   descriptor, so V needs no transpose;
 // * writes bf16 out through a padded shared tile with 16-byte stores.
+// Head dims 64, 72, 80 and 128.  SigLIP's 72 is not a multiple of a
+// k-step's 16 columns: its rows are staged at a width of 80 whose last 8
+// columns are zeroed once per buffer (hopper_common.cuh `kPadD`,
+// `zero_pad_cols`), S = Q K^T runs five k-steps over them, and O += P V is
+// a wgmma m64n72k16 that reads and writes only the 72 columns.
 // What it leaves on the table: the softmax of tile n does not overlap the
 // product of tile n+1 inside the block (one warpgroup, no producer warp, no
 // TMA; the blocks resident on an SM overlap each other instead: issuing
@@ -54,9 +59,10 @@ using namespace hopper;
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {
-  // Q, two stages of K and V, two stages of key segment ids, the block's
-  // id info; the live-tile flags (one byte per key tile) follow
-  return (size_t)5 * kTileRows * D * sizeof(bf16) +
+  // Q, two stages of K and V (each at the staged width kPadD<D>), two
+  // stages of key segment ids, the block's id info; the live-tile flags
+  // (one byte per key tile) follow
+  return (size_t)5 * kTileRows * kPadD<D> * sizeof(bf16) +
          (size_t)2 * kTileRows * sizeof(int) + 8 * sizeof(int);
 }
 
@@ -67,9 +73,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const int* __restrict__ kv_seg, bf16* __restrict__ out,
                  float* __restrict__ lse, int H, int Hkv, int T, int S,
                  float scale_log2, int causal) {
-  constexpr int kSteps = D / 16;          // k-steps of S = Q K^T
-  constexpr int kTile = kTileRows * D;    // elements of one Q, K or V tile
-  constexpr uint32_t kGroup = kGroupBytes<D>;
+  constexpr int W = kPadD<D>;             // staged width (72 -> 80)
+  constexpr int kSteps = W / 16;          // k-steps of S = Q K^T
+  constexpr int kTile = kTileRows * W;    // elements of one Q, K or V tile
+  constexpr uint32_t kGroup = kGroupBytes<W>;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -78,6 +85,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int* seg_st = reinterpret_cast<int*>(v_st + 2 * kTile); // [2][64]
   int* info = seg_st + 2 * kTileRows;                     // [8]
   unsigned char* flags = reinterpret_cast<unsigned char*>(info + 8);
+  zero_pad_cols<D>(q_s, 5);   // Q and both stages of K and V
 
   const int group = H / Hkv;
   const int rows_total = group * T;
@@ -215,7 +223,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(o, pa[kk], smem_desc(v_s + kk * 16 * D, kGroup, kCore));
+      wgmma_rs<D>(o, pa[kk], smem_desc(v_s + kk * 16 * W, kGroup, kCore));
     wgmma_commit();
     wgmma_wait_all();
     cur = nxt;
@@ -275,6 +283,8 @@ extern "C" int iadr1_flash_fwd_bf16(const void* q, const void* k,
   switch (D) {
     case 64:
       return launch<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
+    case 72:
+      return launch<72>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
     case 80:
       return launch<80>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, T, S, scale_log2, causal, st);
     case 128:

@@ -53,22 +53,30 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Flash tiles live in shared memory in wgmma's no-swizzle "core matrix"
 // layout: 8 rows x 16 bytes (8 bf16) stored as 128 contiguous bytes, the
-// core matrices of an 8-row group side by side along D, the groups one
-// after another.  Element (r, c) of a [rows, D] tile sits at
-//   (r / 8) * 8 * D + (c / 8) * 64 + (r % 8) * 8 + c % 8     (elements)
+// core matrices of an 8-row group side by side along the row, the groups
+// one after another.  Element (r, c) of a [rows, W] tile sits at
+//   (r / 8) * 8 * W + (c / 8) * 64 + (r % 8) * 8 + c % 8     (elements)
 // One tile serves two descriptors: read K-major (contraction over D, as
 // in s = Q K^T) and N-major (contraction over rows, as in o += p V).
-template <int D>
+template <int W>
 __device__ __forceinline__ int cm_offset(int r, int c8) {
-  return (r / 8) * 8 * D + c8 * 64 + (r % 8) * 8;
+  return (r / 8) * 8 * W + c8 * 64 + (r % 8) * 8;
 }
 
+// The width W at which rows of head dim D are staged: D rounded up to the
+// 16 columns of one wgmma k-step.  For D = 72 (SigLIP) it is 80: the
+// products that reduce over D run five k-steps, and columns 72-79 hold
+// zeros (`zero_pad_cols`), so they add nothing; the products whose N is D
+// read only the first D columns.
+template <int D>
+constexpr int kPadD = (D + 15) / 16 * 16;
+
 // descriptor offsets, bytes: a core matrix is 128 B; an 8-row group of a
-// [rows, D] tile is 16 * D B.  K-major: (kCore, group); N-major: (group,
+// [rows, W] tile is 16 * W B.  K-major: (kCore, group); N-major: (group,
 // kCore).
 constexpr uint32_t kCore = 128;
-template <int D>
-constexpr uint32_t kGroupBytes = 16 * D;
+template <int W>
+constexpr uint32_t kGroupBytes = 16 * W;
 
 // wgmma shared-memory matrix descriptor, no swizzle: start address,
 // leading byte offset (between core matrices along the contraction) and
@@ -150,6 +158,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[36] += A[64, 16] (registers) * B[16, 72] (shared, N-major:
+// transposed): wgmma m64n72k16, f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[40] += A[64, 16] (registers) * B[16, 80] (shared, N-major:
 // transposed): wgmma m64n80k16, f32 accumulate
 __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
@@ -213,11 +247,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d[D/2] += A[64, 16] (registers) * B[16, D] (shared, N-major)
+// d[D/2] += A[64, 16] (registers) * B[16, D] (shared, N-major): the
+// first D columns of the tile, whatever its staged width
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
+  static_assert(D == 64 || D == 72 || D == 80 || D == 128,
+                "no wgmma product for this head dim");
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 72) wgmma_rs_n72(d, a, db);
   else if constexpr (D == 80) wgmma_rs_n80(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
@@ -237,10 +275,31 @@ __device__ __forceinline__ void acc_to_a_frags(uint32_t (&a)[4][4],
 // staging tiles
 // ---------------------------------------------------------------------------
 
-// 64 rows of D bf16 into a core-matrix tile by 16-byte cp.async copies:
-// row r comes from src + row_off(r) (elements), or is zero-filled when
-// row_off(r) < 0.  Eight neighbouring threads take eight rows of one
-// 16-byte column, so a warp writes 512 contiguous bytes.
+// Columns D..kPadD<D> of `n_tiles` consecutive 64-row tiles staged at
+// width kPadD<D>, set to zero (nothing when D is a multiple of 16).  Once
+// per buffer, at kernel start: staging copies only the D columns of a
+// row, so the zeros stay, and a later product reads them only through the
+// fence and barrier that open each tile's walk.
+template <int D>
+__device__ __forceinline__ void zero_pad_cols(bf16* base, int n_tiles) {
+  constexpr int W = kPadD<D>, kPadChunks = (W - D) / 8;
+  if constexpr (kPadChunks > 0) {
+    for (int idx = threadIdx.x; idx < n_tiles * kTileRows * kPadChunks;
+         idx += kThreads) {
+      const int c = idx % kPadChunks, rest = idx / kPadChunks;
+      const int r = rest % kTileRows, tile = rest / kTileRows;
+      *reinterpret_cast<uint4*>(base + tile * kTileRows * W +
+                                cm_offset<W>(r, D / 8 + c)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// 64 rows of D bf16 into a core-matrix tile of width kPadD<D> by 16-byte
+// cp.async copies: row r comes from src + row_off(r) (elements), or is
+// zero-filled when row_off(r) < 0; the padding columns are not touched.
+// Eight neighbouring threads take eight rows of one 16-byte column, so a
+// warp writes 512 contiguous bytes.
 template <int D, class RowOff>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            RowOff row_off) {
@@ -248,7 +307,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
   for (int idx = threadIdx.x; idx < kTileRows * kChunks; idx += kThreads) {
     const int r8 = idx % 8, rest = idx / 8;
     const int c8 = rest % kChunks, r = (rest / kChunks) * 8 + r8;
-    bf16* d = dst + cm_offset<D>(r, c8);
+    bf16* d = dst + cm_offset<kPadD<D>>(r, c8);
     const long long off = row_off(r);
     if (off >= 0)
       cp_async16(d, src + off + c8 * 8);
@@ -277,17 +336,23 @@ __device__ __forceinline__ void stage_ids(int* dst, const int* src, int i0,
   }
 }
 
+// The row stride, in elements, of store_rows' shared tile: D padded so
+// that the stride is 4 words past a multiple of 8 (D + 8 for D = 64, 80,
+// 128; D + 16 for 72), so the accumulator's 4-byte writes from 8 rows and
+// 4 column pairs hit 32 distinct banks.
+template <int D>
+constexpr int kStoreStride = ((D + 8) / 2) % 8 == 4 ? D + 8 : D + 16;
+
 // A [64, D] f32 accumulator (the wgmma layout above), each row times
 // mul[i], to bf16 rows in device memory: through a row-major shared tile
-// padded by 8 elements (the accumulator's 4-byte writes hit 32 distinct
-// banks), then 16-byte stores along each row.  Row r goes to dst +
-// row_off(r), or nowhere when row_off(r) < 0.  `tile` holds 64 * (D + 8)
-// elements and no wgmma may still read it.
+// of stride kStoreStride<D>, then 16-byte stores along each row.  Row r
+// goes to dst + row_off(r), or nowhere when row_off(r) < 0.  `tile` holds
+// 64 * kStoreStride<D> elements and no wgmma may still read it.
 template <int D, class RowOff>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            const float (&mul)[2], bf16* tile,
                                            bf16* dst, RowOff row_off) {
-  constexpr int kStride = D + 8, kChunks = D / 8;
+  constexpr int kStride = kStoreStride<D>, kChunks = D / 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

@@ -1,9 +1,10 @@
 """Batch assembly: packed rows + host vision precompute -> numpy batches
-(the port's own copy of iadr1_tpu/data/collator.py, Qwen2-VL images).
+(the port's own copy of iadr1_tpu/data/collator.py, for images).
 
 Every batch is a set of static-shape arrays: packed token rows with
-segment ids, a padded patch stream with per-image segments, scatter
-indices and [3, B, T] M-RoPE grids computed per packed segment.  The
+segment ids, the family's padded vision stream and scatter indices, and
+positions: [3, B, T] M-RoPE grids computed per packed segment for
+Qwen2-VL, the rows' own 1-D positions otherwise.  The
 collator returns numpy; the train step moves a batch to its device.
 Videos are not ported.
 """
@@ -84,8 +85,15 @@ class VLMBatchBuilder:
         return batch
 
     def _positions(self, rows, input_ids, grids) -> np.ndarray:
-        """[3, B, T] M-RoPE grids per packed segment; each segment consumes
-        as many image grids as it has vision-start markers."""
+        """[3, B, T] M-RoPE grids per packed segment, each segment consuming
+        as many image grids as it has vision-start markers; for a family
+        without M-RoPE the rows' own restarting positions [B, T].  Grid
+        tuples are the family's ((t, h, w) here, (n_h, n_w, height, width)
+        for LLaVA-OneVision); only this path reads them as (t, h, w)."""
+        tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
+        if tcfg.mrope_section is None:
+            return np.stack([r["position_ids"] for r in rows]).astype(
+                np.int32)
         B, T = input_ids.shape
         grid_thw = np.asarray(grids, np.int64).reshape(-1, 3)
         position_ids = np.zeros((3, B, T), np.int64)

@@ -1,7 +1,7 @@
 """Chat templates for prompt and training encoding (the port's own copy of
 the pieces of iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` and
-``encode_multiturn`` that the ``qwen2_vl`` chatml template needs; the other
-templates wait for ROADMAP A.13)."""
+``encode_multiturn`` that the chatml templates ``qwen2_vl`` and
+``llava_next_qwen`` need; the other templates wait for ROADMAP A.13)."""
 
 from __future__ import annotations
 
@@ -83,17 +83,21 @@ class ChatTemplate:
                 for i in range(0, len(encoded), 2)]
 
 
+_CHATML = dict(
+    user="<|im_start|>user\n{content}<|im_end|>\n<|im_start|>assistant\n",
+    assistant="{content}<|im_end|>\n",
+    system="<|im_start|>system\n{content}<|im_end|>\n",
+    default_system="You are a helpful assistant.",
+    stop_words=("<|im_end|>",),
+)
+
 TEMPLATES = {
-    "qwen2_vl": ChatTemplate(
-        name="qwen2_vl",
-        user="<|im_start|>user\n{content}<|im_end|>\n<|im_start|>assistant\n",
-        assistant="{content}<|im_end|>\n",
-        system="<|im_start|>system\n{content}<|im_end|>\n",
-        default_system="You are a helpful assistant.",
-        stop_words=("<|im_end|>",),
-        image_token="<|image_pad|>",
-        mm_style="qwen2_vl",
-    ),
+    "qwen2_vl": ChatTemplate(name="qwen2_vl", image_token="<|image_pad|>",
+                             mm_style="qwen2_vl", **_CHATML),
+    # LLaVA-OneVision: chatml, each image a run of <image> tokens
+    "llava_next_qwen": ChatTemplate(name="llava_next_qwen",
+                                    image_token="<image>", mm_style="llava",
+                                    **_CHATML),
 }
 
 

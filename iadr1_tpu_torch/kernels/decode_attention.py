@@ -60,7 +60,9 @@ def _check_cuda(q, k, v, seg, length):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"decode kernel takes bf16; {name} is {t.dtype}")
+            raise TypeError(
+                f"decode kernel takes bf16; {name} is {t.dtype} (for an f32 "
+                f"model on the card, build its bundle with attention=\"xla\")")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:

@@ -26,7 +26,8 @@ import torch
 
 from iadr1_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 
-SUPPORTED_HEAD_DIMS = (64, 80, 128)
+# 72 (SigLIP) is staged at a width of 80 inside the kernels
+SUPPORTED_HEAD_DIMS = (64, 72, 80, 128)
 
 KERNEL = CudaKernel(
     name="flash_fwd",
@@ -196,7 +197,9 @@ def _check_cuda(q, k, v, q_seg, kv_seg):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bf16; {name} is {t.dtype}")
+            raise TypeError(
+                f"flash kernel takes bf16; {name} is {t.dtype} (for an f32 "
+                f"model on the card, build its bundle with attention=\"xla\")")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D tensor")
     B, H, T, D = q.shape
@@ -344,7 +347,7 @@ def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
 
     ``segment_ids`` [B,T] / ``kv_segment_ids`` [B,S] (0 = padding) default
     to all ones; ``kv_segment_ids`` defaults to ``segment_ids`` when S == T.
-    CUDA tensors launch the kernels (bf16, D in 64/80/128) or raise; CPU
+    CUDA tensors launch the kernels (bf16, D in 64/72/80/128) or raise; CPU
     tensors take the plain versions."""
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -1,0 +1,242 @@
+"""SigLIP vision tower (so400m class), the tower of LLaVA-OneVision
+(counterpart of iadr1_tpu/models/siglip.py).
+
+HF ``SiglipVisionModel`` semantics: a patch embedding (a strided
+convolution, here a dense layer over patchified tiles) plus learned
+position embeddings, no CLS token; pre-norm encoder layers with biased
+q/k/v/o projections and tanh-gelu MLPs; a final post-layernorm.  Square
+tiles of a fixed size (384 px: 27 x 27 = 729 patches) are batched over
+the anyres tiles, and every tile attends only to itself, non-causal.  At
+so400m's width the head dim is 1152 / 16 = 72, which K1-K3 stage at 80.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
+from iadr1_tpu_torch.models import common
+from iadr1_tpu_torch.models.common import dense
+from iadr1_tpu_torch.models.params_io import _get, _stack_layers
+from iadr1_tpu_torch.models.qwen2 import ckpt, unstack_layers
+from iadr1_tpu_torch.models.qwen2_vl import layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipVisionConfig:
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    image_size: int = 384
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid ** 2
+
+    @property
+    def patch_dim(self) -> int:
+        return 3 * self.patch_size ** 2
+
+
+def init_params(gen, cfg: SiglipVisionConfig, dtype, device) -> dict:
+    L, E, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+
+    def stack(i, o):
+        return torch.stack([common.dense_init(gen, i, o, dtype, device)
+                            for _ in range(L)])
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    def norm(shape):
+        return {"scale": full(shape, 1.0), "bias": full(shape, 0.0)}
+
+    def proj(i, o):
+        return {"kernel": stack(i, o), "bias": full((L, o), 0.0)}
+
+    return {
+        "patch_embed": {"kernel": common.dense_init(gen, cfg.patch_dim, E,
+                                                    dtype, device),
+                        "bias": full((E,), 0.0)},
+        "pos_embed": common.embed_init(gen, cfg.num_patches, E, dtype,
+                                       device),
+        "layers": {
+            "norm1": norm((L, E)),
+            "norm2": norm((L, E)),
+            "attn": {name: proj(E, E) for name in "qkvo"},
+            "mlp": {"fc1": proj(E, I), "fc2": proj(I, E)},
+        },
+        "post_norm": norm((E,)),
+    }
+
+
+def convert_hf(state, cfg: SiglipVisionConfig,
+               prefix: str = "vision_tower.vision_model.",
+               dtype=torch.float32, device=None) -> dict:
+    """HF SigLIP vision tensors (name -> array) under ``prefix`` -> the
+    tower's parameter dict."""
+    device = resolve_device(device)
+    kw = dict(dtype=dtype, device=device)
+    lt = prefix + "encoder.layers.{i}."
+
+    def stacked(name, transpose=False):
+        return _stack_layers(state, lt + name, cfg.num_hidden_layers,
+                             transpose, **kw)
+
+    def linear(name):
+        return {"kernel": stacked(name + ".weight", True),
+                "bias": stacked(name + ".bias")}
+
+    def norm(name):
+        return {"scale": stacked(name + ".weight"),
+                "bias": stacked(name + ".bias")}
+
+    pe = _get(state, prefix + "embeddings.patch_embedding.weight", **kw)
+    return {
+        # the convolution [E, C, ps, ps] with stride = kernel is a dense
+        # layer over patches laid out channel first (anyres.patchify_tiles)
+        "patch_embed": {
+            "kernel": pe.reshape(pe.shape[0], -1).T.contiguous(),
+            "bias": _get(state, prefix + "embeddings.patch_embedding.bias",
+                         **kw)},
+        "pos_embed": _get(state,
+                          prefix + "embeddings.position_embedding.weight",
+                          **kw),
+        "layers": {
+            "norm1": norm("layer_norm1"),
+            "norm2": norm("layer_norm2"),
+            "attn": {"q": linear("self_attn.q_proj"),
+                     "k": linear("self_attn.k_proj"),
+                     "v": linear("self_attn.v_proj"),
+                     "o": linear("self_attn.out_proj")},
+            "mlp": {"fc1": linear("mlp.fc1"), "fc2": linear("mlp.fc2")},
+        },
+        "post_norm": {"scale": _get(state, prefix + "post_layernorm.weight",
+                                    **kw),
+                      "bias": _get(state, prefix + "post_layernorm.bias",
+                                   **kw)},
+    }
+
+
+def gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _qkv(lp, x, H: int, D: int):
+    a = lp["attn"]
+    N, T, _ = x.shape
+    return tuple(dense(x, a[n]["kernel"], a[n]["bias"]).reshape(N, T, H, D)
+                 for n in "qkv")
+
+
+def _attend(lp, h, q, k, v, attn):
+    """The attention output through the o-projection, added to ``h``."""
+    N, T = h.shape[:2]
+    o = lp["attn"]["o"]
+    return h + dense(attn(q, k, v).reshape(N, T, -1), o["kernel"], o["bias"])
+
+
+def _mlp(lp, x):
+    m = lp["mlp"]
+    x = gelu_tanh(dense(x, m["fc1"]["kernel"], m["fc1"]["bias"]))
+    return dense(x, m["fc2"]["kernel"], m["fc2"]["bias"])
+
+
+def _post_attention(lp, h, eps: float):
+    x = layer_norm(h, lp["norm2"]["scale"], lp["norm2"]["bias"], eps)
+    return h + _mlp(lp, x)
+
+
+def _block(lp, h, attn, H: int, D: int, eps: float):
+    x = layer_norm(h, lp["norm1"]["scale"], lp["norm1"]["bias"], eps)
+    return _post_attention(lp, _attend(lp, h, *_qkv(lp, x, H, D), attn), eps)
+
+
+def _block_save_flash(lp, h, attn, H: int, D: int, eps: float):
+    """The block under remat True (and the decoder's modes the tower
+    follows): the attention call stays outside every checkpoint, so the
+    flash Function's residuals survive and its forward runs once (the
+    role of the JAX FLASH_REMAT_POLICY); the norm and projections before
+    it and the o-projection and MLP after it are checkpointed apart."""
+    q, k, v = ckpt(lambda h: _qkv(lp, layer_norm(
+        h, lp["norm1"]["scale"], lp["norm1"]["bias"], eps), H, D), h)
+    out = attn(q, k, v)
+    o = lp["attn"]["o"]
+    return ckpt(lambda h, out: _post_attention(
+        lp, h + dense(out.reshape(*h.shape[:2], -1), o["kernel"], o["bias"]),
+        eps), h, out)
+
+
+def _block_save_acts(lp, h, attn, H: int, D: int, eps: float):
+    """The block under remat "save_acts" (the JAX policy that saves
+    "act_qkv", "act_attn" and "act_fc1" besides the flash residuals): the
+    q/k/v projections, the attention output and the pre-gelu fc1 output
+    are kept; the backward recomputes only the two layer norms and the
+    gelu, and never the attention forward."""
+    x = ckpt(lambda h: layer_norm(h, lp["norm1"]["scale"],
+                                  lp["norm1"]["bias"], eps), h)
+    h = _attend(lp, h, *_qkv(lp, x, H, D), attn)
+    x = ckpt(lambda h: layer_norm(h, lp["norm2"]["scale"],
+                                  lp["norm2"]["bias"], eps), h)
+    m = lp["mlp"]
+    f = dense(x, m["fc1"]["kernel"], m["fc1"]["bias"])
+    return h + dense(ckpt(gelu_tanh, f), m["fc2"]["kernel"], m["fc2"]["bias"])
+
+
+def apply(params: dict, cfg: SiglipVisionConfig,
+          tiles: torch.Tensor,              # [N, num_patches, patch_dim]
+          precision: Precision = DEFAULT_PRECISION,
+          remat=False, post_layernorm: bool = True,
+          attention_fn: Callable | None = None) -> torch.Tensor:
+    """Tile batch -> features [N, num_patches, hidden].
+
+    ``attention_fn`` has the model-level signature (q, k, v, *, mask,
+    q_segments, kv_segments, causal), q [N, T, H, D]; it is called once per
+    layer over all tiles, each tile its own sequence (no segment ids, no
+    mask), non-causal.  None: the dense oracle.
+
+    ``remat``: False; "full" (a plain checkpoint of each block, whose
+    backward re-runs the attention forward); "save_acts"
+    (``_block_save_acts``); any other true mode keeps the attention
+    outside the checkpoints (``_block_save_flash``)."""
+    H, D, eps = cfg.num_attention_heads, cfg.head_dim, cfg.layer_norm_eps
+    pe = params["patch_embed"]
+    h = dense(tiles.to(precision.compute_dtype), pe["kernel"], pe["bias"])
+    h = h + params["pos_embed"][None].to(h.dtype)
+    if attention_fn is None:
+        attn = lambda q, k, v: common.xla_attention(q, k, v, None)
+    else:
+        attn = functools.partial(attention_fn, mask=None, q_segments=None,
+                                 kv_segments=None, causal=False)
+    for lp in unstack_layers(params["layers"], cfg.num_hidden_layers):
+        if remat == "full":
+            # partial binds this layer: the replay runs after the loop
+            h = ckpt(functools.partial(_block, lp, attn=attn, H=H, D=D,
+                                       eps=eps), h)
+        elif remat == "save_acts":
+            h = _block_save_acts(lp, h, attn, H, D, eps)
+        elif remat:
+            h = _block_save_flash(lp, h, attn, H, D, eps)
+        else:
+            h = _block(lp, h, attn, H, D, eps)
+    if post_layernorm:
+        n = params["post_norm"]
+        h = layer_norm(h, n["scale"], n["bias"], eps)
+    return h

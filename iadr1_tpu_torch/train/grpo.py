@@ -28,6 +28,7 @@ from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.device import resolve_device
 from iadr1_tpu_torch.models.qwen2 import ckpt
+from iadr1_tpu_torch.models.registry import GRPO_NOT_YET_PORTED
 from iadr1_tpu_torch.train.optimizers import global_norm
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
@@ -287,6 +288,10 @@ class GRPOTrainer:
             raise NotImplementedError(
                 "LoRA mode with reference elision is not ported yet "
                 "(ROADMAP A.12); pass full parameters and ref_params")
+        if bundle.family in GRPO_NOT_YET_PORTED:
+            raise NotImplementedError(
+                f"SC-GRPO for the {bundle.family} family is not ported yet "
+                f"({GRPO_NOT_YET_PORTED[bundle.family]})")
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.cfg = cfg

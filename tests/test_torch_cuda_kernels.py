@@ -293,7 +293,7 @@ def test_decode_kernel_matches_twin(card, length):
 
 
 @pytest.mark.parametrize("D", [64, 80, 128])
-@pytest.mark.parametrize("G", [1, 6, 8])
+@pytest.mark.parametrize("G", [1, 6, 7, 8])
 @pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 200, 520])
 def test_decode_kernel_split_edges(card, length, G, D):
     """The chunk edges of the split (64 slots), an all-dead chunk, and
@@ -430,3 +430,165 @@ def test_decode_kernel_over_a_fanned_out_cache(card):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
     assert not torch.equal(out[0], out[1])       # a group's rows differ
+
+
+# head dim 72 (SigLIP's tower): the kernels stage rows at a width of 80
+# with zeroed padding columns.  The tower's own shape is T = S = 729
+# (11 whole 64-row tiles and one of 25), one segment per tile, non-causal;
+# the causal and GQA cases hold the same code under the decoder's masks.
+D72_CASES = [
+    # B, H, Hkv, T, causal
+    (3, 4, 4, 729, False),
+    (2, 4, 2, 729, False),
+    (2, 4, 4, 729, True),
+    (1, 4, 2, 729, True),
+]
+
+
+def _d72_inputs(B, H, Hkv, T, seed, card, cols=None):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, do = _rand(gen, (B, H, T, 72), card), _rand(gen, (B, H, T, 72), card)
+    k, v = _rand(gen, (B, Hkv, T, 72), card), _rand(gen, (B, Hkv, T, 72), card)
+    if cols is not None:          # data only in these columns
+        for t in (q, k, v, do):
+            keep = torch.zeros(72, dtype=torch.bool, device=card)
+            keep[cols] = True
+            t.masked_fill_(~keep, 0.0)
+    return q, k, v, do
+
+
+def _flash_grads(q, k, v, do, causal):
+    """(out, lse, dq, dk, dv) of the flash Function: K1, then K2 and K3."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = k1.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad((out.float() * do.float()).sum(), leaves)
+    return (out.detach(), lse.detach(), *grads)
+
+
+def _pad_to_80(q, k, v, do, causal):
+    """The wrapper-padding design: q, k, v and dO zero-padded to 80
+    columns, the D = 80 kernels at 72's scale, the outputs cut to 72."""
+    pad = [torch.nn.functional.pad(t, (0, 8)) for t in (q, k, v, do)]
+    leaves = [t.clone().requires_grad_(True) for t in pad[:3]]
+    out, lse = k1.flash_attention(*leaves, causal=causal, scale=72 ** -0.5)
+    grads = torch.autograd.grad((out.float() * pad[3].float()).sum(), leaves)
+    return (out.detach()[..., :72], lse.detach(),
+            *(g[..., :72] for g in grads))
+
+
+def _check_against_plain(got, q, k, v, do, causal):
+    out, lse, *grads = got
+    seg = torch.ones(q.shape[:1] + q.shape[2:3], dtype=torch.int32,
+                     device=q.device)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, seg, seg,
+                                              causal=causal, scale=72 ** -0.5)
+    want = k1.flash_attention_bwd_ref(q, k, v, seg, seg, out, lse, do, None,
+                                      causal=causal, scale=72 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+
+
+@pytest.mark.parametrize("pad", ["in-kernel", "wrapper"])
+@pytest.mark.parametrize("case", D72_CASES,
+                         ids=["-".join(map(str, c)) for c in D72_CASES])
+def test_flash_kernels_at_head_dim_72(card, case, pad):
+    """K1, K2 and K3 at D = 72 against the plain versions; the in-kernel
+    padding (the port's design) and the wrapper padding to 80 (the
+    design it was timed against) are held to the same limits."""
+    B, H, Hkv, T, causal = case
+    q, k, v, do = _d72_inputs(B, H, Hkv, T, 72 + T + H, card)
+    before = (k1.KERNEL.launches, k1.DQ_KERNEL.launches,
+              k1.DKV_KERNEL.launches)
+    run = _flash_grads if pad == "in-kernel" else _pad_to_80
+    got = run(q, k, v, do, causal)
+    assert (k1.KERNEL.launches, k1.DQ_KERNEL.launches,
+            k1.DKV_KERNEL.launches) == tuple(n + 1 for n in before)
+    _check_against_plain(got, q, k, v, do, causal)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_flash_kernels_reduce_over_columns_64_to_71(card, group):
+    """Data only in columns 64-71 of q, k, v and dO: a kernel that reduced
+    over the first 64 columns only would give uniform softmax rows, zero
+    dq and dk, and out, dv without those columns' values."""
+    q, k, v, do = _d72_inputs(2, 4, 4 // group, 300, 7 + group, card,
+                              cols=slice(64, 72))
+    got = _flash_grads(q * 4, k * 4, v, do, causal=False)
+    assert float(got[2].float().abs().max()) > 0          # dq
+    _check_against_plain(got, q * 4, k * 4, v, do, causal=False)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_at_gqa_group_7(card, D):
+    """The decoder of LLaVA-OneVision-0.5B (14 heads over 2 KV heads):
+    stacked query rows of a 64-row block cross a head boundary at every
+    T that is not a multiple of 64; packed segments with padding."""
+    B, H, Hkv, T = 2, 14, 2, 300
+    gen = torch.Generator(device=card).manual_seed(70 + D)
+    q, do = _rand(gen, (B, H, T, D), card), _rand(gen, (B, H, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    seg = torch.randint(0, 3, (B, T), generator=gen, device=card,
+                        dtype=torch.int32).sort(dim=1).values
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = k1.flash_attention(*leaves, segment_ids=seg, causal=True)
+    got = torch.autograd.grad((out.float() * do.float()).sum(), leaves)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, seg, seg, causal=True,
+                                              scale=D ** -0.5)
+    want = k1.flash_attention_bwd_ref(q, k, v, seg, seg, out.detach(),
+                                      lse.detach(), do, None, causal=True,
+                                      scale=D ** -0.5)
+    torch.cuda.synchronize()
+    valid = torch.isfinite(ref_lse)
+    torch.testing.assert_close(out[valid].float(), ref_out[valid].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[valid], ref_lse[valid], atol=1e-3, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+
+
+def test_full_precision_forward_raises_under_auto_and_runs_under_xla(card):
+    """The kernels take bf16 only: a FULL_PRECISION bundle under 'auto'
+    raises on the card (naming attention="xla") instead of giving way to
+    the dense path, and the same bundle built with attention="xla" runs
+    its prefill and a decode step in f32 and launches no kernel."""
+    from iadr1_tpu_torch.core.precision import FULL_PRECISION
+    from iadr1_tpu_torch.models import qwen2
+    from iadr1_tpu_torch.models.registry import make_qwen2_bundle
+
+    hf = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
+              num_hidden_layers=2, num_attention_heads=2,
+              num_key_value_heads=1, tie_word_embeddings=True)
+    ids = torch.randint(0, 256, (2, 40), device=card)
+    batch = {"input_ids": ids,
+             "position_ids": torch.arange(40, device=card).expand(2, 40),
+             "segment_ids": torch.ones_like(ids, dtype=torch.int32)}
+    auto = make_qwen2_bundle(hf, precision=FULL_PRECISION)
+    params = auto.init_params(seed=0, device=card)
+    with torch.no_grad(), pytest.raises(TypeError, match='attention="xla"'):
+        auto.apply(params, batch)
+
+    bundle = make_qwen2_bundle(hf, attention="xla", precision=FULL_PRECISION)
+    before = (k1.KERNEL.launches, k4.KERNEL.launches)
+    cache = qwen2.init_cache(bundle.cfg, 2, 41, torch.float32, card)
+    with torch.no_grad():
+        h, cache = bundle.apply(params, batch, cache=cache,
+                                cache_mode="prefill")
+        h1, _ = bundle.apply(
+            params, {"input_ids": ids[:, :1],
+                     "position_ids": torch.full((2, 1), 40, device=card),
+                     "segment_ids": torch.ones((2, 1), dtype=torch.int32,
+                                               device=card)},
+            cache=cache, cache_mode="decode")
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float32 and torch.isfinite(h).all()
+    assert torch.isfinite(h1).all()
+    assert (k1.KERNEL.launches, k4.KERNEL.launches) == before

@@ -67,6 +67,11 @@ CASES = [
     (1, 4, 2, 72, 136, 64, False, "ones", "packed"),
     (1, 4, 2, 136, 72, 80, True, "ones", "ones"),
     (1, 2, 2, 150, 150, 80, False, "images", None),
+    # D = 72 (SigLIP): partial tiles, the tower's 729 (one segment a tile,
+    # non-causal), and causal with packed segments
+    (1, 4, 2, 100, 100, 72, False, "ones", None),
+    (2, 2, 2, 729, 729, 72, False, "ones", None),
+    (1, 4, 2, 100, 100, 72, True, "packed", None),
 ]
 
 

@@ -36,6 +36,10 @@ CASES = [
     (1, 4, 2, 72, 136, 64, False, "ones", "packed"),    # T < S
     (1, 4, 2, 136, 72, 80, True, "ones", "ones"),       # T > S, top-left
     (1, 2, 1, 150, 150, 128, False, "images", None),    # tower-like
+    # D = 72 (SigLIP): partial tiles, the tower's 729, causal with segments
+    (1, 4, 2, 100, 100, 72, False, "ones", None),
+    (1, 2, 2, 729, 729, 72, False, "ones", None),
+    (1, 4, 2, 100, 100, 72, True, "packed", None),
 ]
 
 

@@ -57,6 +57,8 @@ CHAIN_MODULES = [
     "data.template", "train.checkpoint", "train.loop",
     "models.params_export", "cli.export", "cli.pipeline",
 ]
+# LLaVA-OneVision
+LLAVA_MODULES = ["vision.anyres", "models.siglip", "models.llava_onevision"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -66,7 +68,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
     assert len(names) >= 40                        # every module was reached
-    missing = [m for m in GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
+    missing = [m for m in (GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
+                           + LLAVA_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
@@ -110,6 +113,25 @@ def test_entry_points_without_a_card_or_a_device_raise(monkeypatch, tmp_path):
         lambda: serve.main(["--model-path", str(tmp_path)]),
     ]
     for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_llava_onevision_entry_points_without_a_card_raise(monkeypatch):
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bundle = bundle_from_hf_config(dict(
+        architectures=["LlavaOnevisionForConditionalGeneration"],
+        text_config=dict(vocab_size=64, hidden_size=32, intermediate_size=64,
+                         num_hidden_layers=1, num_attention_heads=2,
+                         num_key_value_heads=1),
+        vision_config=dict(hidden_size=16, intermediate_size=32,
+                           num_hidden_layers=1, num_attention_heads=2,
+                           image_size=28, patch_size=14)))
+    bundle.init_params(seed=0, device="cpu")             # asked for: works
+    for call in (lambda: bundle.init_params(seed=0),
+                 lambda: bundle.convert_hf({})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
