@@ -31,7 +31,12 @@ result line:
    non-causal; with --pad-compare also with q, k, v and dO padded to 80
    in the wrapper, the design the in-kernel padding was timed against),
    K1 at the prefill (P=4096, GQA 7), K1-K3 at the SFT decoder (4 rows of
-   8192) and K4 at GQA 7;
+   8192) and K4 at GQA 7; and at Qwen2.5-VL's shapes: K1-K3 over the
+   window-ordered tower stream at D = 80 with window segments (windows on
+   the 64-row blocks, and windows cut at an image's edge) and with image
+   segments, K1 at the 7B prefill (GQA 7, D = 128), K1-K3 at the 3B SFT
+   decoder (2 rows of 4096, GQA 8), K4 at GQA 7 and over the 3B SC-GRPO
+   fan-out (GQA 8, 8 rows of 4608);
 4. main path: Qwen2-VL-2B at full width (28 decoder and 32 tower layers,
    bf16, weights drawn on the card from a seeded generator) serves 4
    already-tokenized image requests through VLMGenerator._collate and
@@ -50,7 +55,7 @@ result line:
    norm and the attention projections' per-layer grad norms), a control
    step with dq zeroed must not, and the loss must fall;
 7. SC-GRPO: Qwen2-VL-2B at full width (f32 policy drawn on the card, a
-   bf16 reference copy, bf16 compute, AdamW lr 1e-6) takes 3 steps of
+   bf16 reference copy, bf16 compute, AdamW lr 1e-6) takes 2 steps of
    GRPOTrainer.step with cli/train_grpo.py's defaults (G=4, P=1024, N=512,
    temperature 0.9, top-p 0.9, top-k 50, beta 0.04, rewards accuracy +
    format, remat save_flash, shared-prompt scoring, logp chunk 1024) on 2
@@ -117,9 +122,35 @@ result line:
    and K3 must run 26 + 24 times each a step, step 1 must agree with a
    step through the plain versions, a control with dq zeroed must not,
    and the loss must fall.
+13. Qwen2.5-VL serving (after 12): Qwen2.5-VL-7B at full width and depth
+   (Qwen/Qwen2.5-VL-7B-Instruct's config: 28 decoder layers, GQA 7, and
+   the windowed tower of 32 blocks, bf16 weights drawn on the card from a
+   seed) serves 4 already-tokenized qwen2_vl requests, images of 448x448
+   and 336x504 pixels in turn (the latter's last window column cut),
+   through VLMGenerator._collate and RolloutEngine.generate (P=1024,
+   patch budget 4096, greedy, the serving phase's new tokens); K1 must run
+   32 + 28 times a generate and K4 28 times a decode step, no plain twin
+   may be called, and the kernel path's prefill logits must agree with
+   the twin path's;
+14. Qwen2.5-VL PA-SFT (after 13): Qwen2.5-VL-3B at full width and depth
+   (36 decoder layers, GQA 8, tied head; f32 parameters drawn on the card)
+   takes the training steps on configs/sft_qwen2_5_vl_7b.yaml's settings
+   through the port's config loader (rows of 4096, patch budget 8192,
+   remat save_qkv, CE chunk 4096 in bf16, AdamW lr 1e-5 cosine, weight
+   decay 0.1, clip 1.0), its batch cut from 8 rows to 2, on 6 examples of
+   one image each; K1, K2 and K3 must run 32 + 36 times each a step, step
+   1 must agree with a step through the plain versions, a control with dq
+   zeroed must not, and the loss must fall;
+15. Qwen2.5-VL SC-GRPO (after 14): the same model takes 2 steps of
+   GRPOTrainer.step on configs/grpo_qwen2_5_vl_7b.yaml's settings (G=4,
+   P=4096, N=512, patch budget 8192, beta 0.04, temperature 0.9, top-p
+   0.9, top-k 50, accuracy + format, a bf16 reference, lr 2e-7) on two
+   one-image prompts, as phase 7 checks its steps; the update batch must
+   hold full_segs and window_segs.
 
 The kernels JSON line counts each kernel's launches by path (serve,
-eval, chat, train, grpo, chain, llava_serve, llava_sft).
+eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
+q25_sft, q25_grpo).
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -131,6 +162,7 @@ fails.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -188,6 +220,35 @@ LLAVA_OV_05B = dict(
     image_grid_pinpoints=[[384 * i, 384 * j] for i in range(1, 7)
                           for j in range(1, 7)],
 )
+# Qwen/Qwen2.5-VL-7B-Instruct's published config.json, at full width and
+# depth: 28 decoder layers, 28 heads over 4 KV heads (GQA 7, D = 128), an
+# untied head over 152064 ids; the windowed tower of 32 blocks (16 heads,
+# D = 80), windows of 112 pixels, blocks 7, 15, 23 and 31 over whole images
+QWEN2_5_VL_7B = dict(
+    architectures=["Qwen2_5_VLForConditionalGeneration"],
+    model_type="qwen2_5_vl",
+    vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    rms_norm_eps=1e-6, rope_theta=1000000.0, tie_word_embeddings=False,
+    max_position_embeddings=128000,
+    rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+    vision_config=dict(
+        depth=32, hidden_size=1280, intermediate_size=3420, num_heads=16,
+        in_chans=3, out_hidden_size=3584, patch_size=14,
+        spatial_merge_size=2, temporal_patch_size=2, window_size=112,
+        fullatt_block_indexes=[7, 15, 23, 31], tokens_per_second=2),
+    image_token_id=151655, video_token_id=151656,
+    vision_start_token_id=151652, vision_end_token_id=151653,
+)
+# Qwen/Qwen2.5-VL-3B-Instruct's published config.json: 36 decoder layers,
+# 16 heads over 2 KV heads (GQA 8, D = 128), the head tied to the
+# embedding over 151936 ids; the 7B's tower, its merger out to 2048
+QWEN2_5_VL_3B = dict(
+    QWEN2_5_VL_7B, vocab_size=151936, hidden_size=2048,
+    intermediate_size=11008, num_hidden_layers=36, num_attention_heads=16,
+    num_key_value_heads=2, tie_word_embeddings=True,
+    vision_config=dict(QWEN2_5_VL_7B["vision_config"], out_hidden_size=2048),
+)
 IM_START, IM_END, ENDOFTEXT = 151644, 151645, 151643
 VISION_START, IMAGE_PAD, VISION_END = 151652, 151655, 151653
 # one image per request, two sizes (pixels, multiples of 28): 1024 + 960
@@ -217,10 +278,31 @@ LLAVA_SFT_EXAMPLES, LLAVA_SFT_IMAGE_HW = 8, (448, 448)
 LLAVA_SFT_CUTOFF = 8192              # the recipe's data.cutoff_len
 LLAVA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "chip_smoke_llava_sft")
-# the plain versions run one batch row at a time where the [B, H, T, S] f32
-# scores would pass this (the LLaVA-OneVision decoder's 4 x 14 x 8192^2
-# would hold 15 GB a tensor, and the plain backward holds several)
-PLAIN_WHOLE_BYTES = 4 * 2 ** 30
+# Qwen2.5-VL (phases 13-15): two 448 x 448 images (1024 patches, whole
+# windows of 8 x 8) and two of 336 x 504 (864 patches, the last window
+# column cut to 8 x 4), 3776 of the 4096 patch budget
+Q25_IMAGE_HW = [(448, 448), (336, 504), (448, 448), (336, 504)]
+# PA-SFT (phase 14): configs/sft_qwen2_5_vl_7b.yaml (rows of 4096, packing,
+# patch budget 8192, remat save_qkv, CE chunk 4096 in bf16, AdamW lr 1e-5
+# cosine, weight decay 0.1, clip 1.0), its batch of 8 rows cut to 2: six
+# examples of one image each, three to a row
+Q25_SFT_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "sft_qwen2_5_vl_7b.yaml")
+Q25_SFT_ROWS, Q25_SFT_EXAMPLES, Q25_ANSWER_LEN = 2, 6, (900, 1100)
+Q25_SFT_CUTOFF = 4096                 # the recipe's data.cutoff_len
+Q25_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_q25_sft")
+# SC-GRPO (phase 15): configs/grpo_qwen2_5_vl_7b.yaml (G=4, P=4096, N=512,
+# patch budget 8192, a bf16 reference, lr 2e-7) on two one-image prompts
+Q25_GRPO_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "grpo_qwen2_5_vl_7b.yaml")
+Q25_GRPO_STEPS = 2
+# the plain versions run one batch row, and within a row one slice of KV
+# heads (with their query heads), at a time where the [B, H, T, S] f32
+# scores would pass this: the LLaVA-OneVision decoder's 4 x 14 x 8192^2
+# would hold 15 GB a tensor and Qwen2.5-VL-3B's SFT tower 16 x 8192^2 4 GB,
+# the plain backward holds several, and the 3B's SFT state is 60 GB
+PLAIN_WHOLE_BYTES = 2 ** 30
 
 # tolerances, kernel vs twin on identical bf16 inputs.  out: the kernel
 # rounds p to bf16 before p @ v and both round the output to bf16 (2^-8
@@ -390,14 +472,30 @@ def check_close(name, a, b, atol, rtol, rows=None) -> float:
 
 def plain(fn, q, k, *rest, **kw):
     """``fn`` (flash_attention_ref or flash_attention_bwd_ref, whose
-    arguments all lead with the batch) on the whole batch, or one batch row
-    at a time where its f32 scores would pass PLAIN_WHOLE_BYTES; the
-    outputs concatenated along the batch."""
+    arguments all lead with the batch and, but for the segment ids, the
+    heads) on the whole batch, or in pieces (a batch row, a slice of its
+    KV heads with their query heads) whose f32 scores stay within
+    PLAIN_WHOLE_BYTES; the outputs concatenated along heads and batch."""
     B, H, T = q.shape[:3]
-    if 4 * B * H * T * k.shape[2] <= PLAIN_WHOLE_BYTES:
+    Hkv, S = k.shape[1], k.shape[2]
+    if 4 * B * H * T * S <= PLAIN_WHOLE_BYTES:
         return fn(q, k, *rest, **kw)
-    rows = [fn(*(a if a is None else a[b:b + 1] for a in (q, k, *rest)),
-               **kw) for b in range(B)]
+    step = max(1, min(Hkv, PLAIN_WHOLE_BYTES // (4 * (H // Hkv) * T * S)))
+
+    def piece(a, b, h0):
+        if a is None:
+            return None
+        a = a[b:b + 1]
+        if a.dim() < 3:                          # segment ids [B, T]
+            return a
+        per_kv = a.shape[1] // Hkv
+        return a[:, h0 * per_kv:(h0 + step) * per_kv]
+
+    rows = []
+    for b in range(B):
+        parts = [fn(*(piece(a, b, h0) for a in (q, k, *rest)), **kw)
+                 for h0 in range(0, Hkv, step)]
+        rows.append(tuple(torch.cat(p, dim=1) for p in zip(*parts)))
     return tuple(torch.cat(parts) for parts in zip(*rows))
 
 
@@ -666,6 +764,68 @@ def make_llava_sft_rows(bundle, cutoff: int, seed: int = 11):
         raise AssertionError("the examples did not pack into 4 rows of one "
                              "image each")
     return rows
+
+
+def _q25_prompt(rng, h, w, extra):
+    """A chatml prompt around one seeded h x w image, patchified by the
+    port's numpy patchify: (ids, patches, grid)."""
+    from iadr1_tpu_torch.vision.preprocess import patchify_image
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    flat, grid = patchify_image(rng.random((h, w, 3), dtype=np.float32))
+    n_img = int(np.prod(grid)) // 4
+    ids = ([IM_START] + text(3) + [IM_END] + text(1)
+           + [IM_START] + text(2)
+           + [VISION_START] + [IMAGE_PAD] * n_img + [VISION_END]
+           + text(extra) + [IM_END] + text(1) + [IM_START] + text(2))
+    return ids, flat, grid
+
+
+def make_q25_requests(seed: int = 12):
+    """Four chatml image requests for Qwen2.5-VL as token ids, images of
+    Q25_IMAGE_HW (1024 and 864 patches)."""
+    rng = np.random.default_rng(seed)
+    encoded = []
+    for i, (h, w) in enumerate(Q25_IMAGE_HW):
+        ids, flat, grid = _q25_prompt(rng, h, w, 20 + 7 * i)
+        encoded.append((ids, [flat], [grid]))
+    return encoded
+
+
+def make_q25_sft_rows(cutoff: int, seed: int = 13):
+    """Six synthetic IAD SFT examples (an image of Q25_IMAGE_HW each, the
+    prompt masked, a labeled answer of 900-1100 seeded tokens) packed by
+    pack_examples into 2 rows of ``cutoff``, three images a row."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i in range(Q25_SFT_EXAMPLES):
+        prompt, flat, grid = _q25_prompt(rng, *Q25_IMAGE_HW[i % 4], 8 + 4 * i)
+        answer = rng.integers(0, ENDOFTEXT, int(rng.integers(
+            Q25_ANSWER_LEN[0], Q25_ANSWER_LEN[1] + 1))).tolist() + [IM_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [flat], "grid_thw": [grid]}})
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)
+    if len(rows) != Q25_SFT_ROWS or any(len(r["extras"]) != 3 for r in rows):
+        raise AssertionError("the examples did not pack into 2 rows of 3")
+    return rows
+
+
+def make_q25_grpo_examples(seed: int = 14):
+    """Two one-image prompts for Qwen2.5-VL (336 x 504, whose last window
+    column is cut, and 448 x 448) with a ``solution`` in the reward
+    grammar: one normal, one anomalous."""
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i, (h, w) in enumerate((Q25_IMAGE_HW[1], Q25_IMAGE_HW[0])):
+        ids, flat, grid = _q25_prompt(rng, h, w, 40 + 25 * i)
+        examples.append({"prompt_ids": ids, "patches": [flat],
+                         "grid_thw": [grid], "solution": GRPO_SOLUTIONS[i]})
+    return examples
 
 
 # ---------------------------------------------------------------------------
@@ -1240,6 +1400,85 @@ def phase_kernels_llava(encoded, rows, max_new_tokens, pad_compare=False):
             "decode_attention": [dec]}
 
 
+def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens):
+    """Phase 3 at Qwen2.5-VL's shapes: K1-K3 over the window-ordered tower
+    stream (16 heads, D = 80, non-causal) of the 7B serving batch (two
+    448 x 448 and two 336 x 504 images in 4096 patches) with its window
+    segments, whose cut windows put two windows in one 64-row block, and
+    its image segments, and of four 448 x 448 images, whose windows of 64
+    patches line up with the blocks; K1 at the 7B prefill (P = 1024, GQA
+    7, D = 128, left padding); K1-K3 at the 3B SFT decoder (2 rows of
+    4096, GQA 8, packed); K4 at GQA 7 over the 7B serving cache and at
+    GQA 8 over the 3B SC-GRPO fan-out (8 rows, P + N = 4608).  Returns the
+    results by kernel, the aligned tower's first."""
+    from iadr1_tpu_torch.models.qwen25_vl import (
+        Qwen25VLVisionConfig,
+        qwen25vl_vision_arrays,
+    )
+
+    cuda = dict(device="cuda", dtype=torch.int32)
+
+    def tower_segs(grids, key):
+        arrs = qwen25vl_vision_arrays(np.asarray(grids),
+                                      Qwen25VLVisionConfig(),
+                                      pad_to=PATCH_BUDGET)
+        return torch.as_tensor(arrs[key], **cuda)[None]
+
+    serve_grids = [g for _, _, gs in encoded for g in gs]
+    aligned = [(1, 32, 32)] * 4
+    towers = [("q25 tower windows aligned", tower_segs(aligned,
+                                                       "window_segs")),
+              ("q25 tower windows cut", tower_segs(serve_grids,
+                                                   "window_segs")),
+              ("q25 tower full images", tower_segs(serve_grids, "full_segs"))]
+    fwd, bwd = [], []
+    for i, (label, seg) in enumerate(towers):
+        shape = (1, 16, 16, PATCH_BUDGET, PATCH_BUDGET, 80, False, seg, seg)
+        results = (*bwd_case(*shape, 71 + i, timed=True),
+                   flash_case(*shape, 74 + i, timed=True))
+        for r in results:
+            r["shape"] = f"{label}: {r['shape']}"
+        bwd.append(results[:3])
+        fwd.append(results[3])
+    left = torch.zeros((BATCH, PROMPT_LEN), **cuda)
+    for b, (ids, _, _) in enumerate(encoded):
+        left[b, PROMPT_LEN - len(ids):] = 1
+    prefill = flash_case(BATCH, 28, 4, PROMPT_LEN, PROMPT_LEN, 128, True,
+                         left, left, 77, timed=True)
+    train_seg = torch.as_tensor(np.stack([r["segment_ids"] for r in rows]),
+                                **cuda)
+    T = train_seg.shape[1]
+    train = (Q25_SFT_ROWS, 16, 2, T, T, 128, True, train_seg, train_seg)
+    train_bwd = bwd_case(*train, 78, timed=True)
+    train_fwd = flash_case(*train, 79, timed=True)
+    S_dec = PROMPT_LEN + max_new_tokens
+    dec_seg = torch.ones((BATCH, S_dec), **cuda)
+    dec_seg[:, :PROMPT_LEN] = left
+    dec = decode_case(BATCH, 28, 4, S_dec, 128, S_dec, dec_seg, 80,
+                      timed=True)
+    # the fan-out: each prompt's rows share its left padding, then G
+    # completions of N = 512 each
+    P, G, N = 4096, 4, 512
+    fan = torch.ones((len(grpo_examples) * G, P + N), **cuda)
+    for b, ex in enumerate(grpo_examples):
+        fan[b * G:(b + 1) * G, :P - len(ex["prompt_ids"])] = 0
+    fan_dec = decode_case(len(grpo_examples) * G, 16, 2, P + N, 128, P + N,
+                          fan, 81, timed=True)
+    for r, label in ((prefill, "q25 7B prefill"), (train_fwd, "q25 3B sft"),
+                     (train_bwd[0], "q25 3B sft"),
+                     (train_bwd[1], "q25 3B sft"),
+                     (train_bwd[2], "q25 3B sft"), (dec, "q25 7B decode"),
+                     (fan_dec, "q25 3B grpo fan-out")):
+        r["shape"] = f"{label}: {r['shape']}"
+    fwd += [prefill, train_fwd, train_bwd[2]] + [f for _, _, f in bwd]
+    bwd.append(train_bwd)
+    log_kernel_results(fwd, [dec, fan_dec], bwd)
+    return {"flash_fwd": fwd,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
+            "decode_attention": [dec, fan_dec]}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1365,8 +1604,6 @@ def phase_profile(gen, batch, steps: int = 8) -> None:
     """Where a generate's time goes: a short generate (prefill + ``steps``
     decode steps) under torch.profiler; device busy time is the sum of the
     kernels' own device time on the one stream."""
-    import dataclasses
-
     from torch.profiler import ProfilerActivity, profile
 
     from iadr1_tpu_torch.train.rollout import RolloutEngine
@@ -1552,7 +1789,6 @@ def phase_eval(gen, card) -> dict:
 
 def phase_chat(gen, card, max_new_tokens: int = 32) -> dict:
     """Phase 9: the OpenAI-compatible server over the serving weights."""
-    import dataclasses
     import threading
     import urllib.request
 
@@ -2086,49 +2322,97 @@ def grpo_step1_diffs(got, ref) -> dict:
                 for n in grads0 if n[-1] in "qk")}
 
 
-def phase_grpo(examples, steps: int, card):
-    """SC-GRPO steps of Qwen2-VL-2B through GRPOTrainer.step, assembled as
-    cli/train_grpo.py assembles them; returns the launch counts."""
-    import dataclasses
+def grpo_case_qwen2_vl() -> types.SimpleNamespace:
+    """Phase 7's setting: Qwen2-VL-2B on cli/train_grpo.py's defaults
+    (GRPOConfig's own), lr GRPO_LEARNING_RATE cosine."""
+    from iadr1_tpu_torch.cli.train_grpo import GRPODataSection, GRPOSection
+    from iadr1_tpu_torch.models import qwen2_vl
+    from iadr1_tpu_torch.train.grpo import GRPOConfig
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig
+
+    section = GRPOSection()                       # the launcher's defaults
+
+    def tower(params, cfg, batch, attn, remat):
+        return qwen2_vl.apply_vision(
+            params["vision"], cfg.vision, batch["patches"], batch["rot_cos"],
+            batch["rot_sin"], batch["vision_segments"], attention_fn=attn,
+            remat=remat)
+
+    return types.SimpleNamespace(
+        label="grpo", name="Qwen2-VL-2B", hf=QWEN2_VL_2B,
+        gcfg=GRPOConfig(
+            num_generations=section.num_generations, beta=section.beta,
+            temperature=section.temperature, top_p=section.top_p,
+            top_k=section.top_k, max_prompt_length=section.max_prompt_length,
+            max_completion_length=section.max_completion_length),
+        sampling_overrides=None, reward_funcs=section.reward_funcs,
+        data=GRPODataSection(patch_budget=GRPO_PATCH_BUDGET),
+        opt_cfg=OptimizerConfig(learning_rate=GRPO_LEARNING_RATE,
+                                total_steps=100),
+        ref_dtype=torch.bfloat16, tower=tower,
+        # the tower blocks are plain checkpoints: the policy's backward
+        # replays each one's attention forward
+        tower_replays=1, vision_keys=("vision_segments",))
+
+
+def grpo_case_q25(steps: int) -> types.SimpleNamespace:
+    """Phase 15's setting: Qwen2.5-VL-3B on configs/grpo_qwen2_5_vl_7b.yaml
+    through the port's config loader, assembled as cli/train_grpo.py
+    assembles it (approx_top_k becomes a sampling override, which warns
+    and samples exactly)."""
+    from iadr1_tpu_torch.cli.train_grpo import GRPOJobConfig
+    from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
+    from iadr1_tpu_torch.train.grpo import GRPOConfig
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig
+
+    job = load_config(GRPOJobConfig, Q25_GRPO_RECIPE)
+    g = job.grpo
+    return types.SimpleNamespace(
+        label="q25 grpo", name="Qwen2.5-VL-3B", hf=QWEN2_5_VL_3B,
+        gcfg=GRPOConfig(
+            num_generations=g.num_generations, beta=g.beta,
+            temperature=g.temperature, top_p=g.top_p, top_k=g.top_k,
+            max_prompt_length=g.max_prompt_length,
+            max_completion_length=g.max_completion_length),
+        sampling_overrides={"approx_top_k": True} if g.approx_top_k else None,
+        reward_funcs=g.reward_funcs, data=job.data,
+        opt_cfg=dataclasses.replace(
+            dataclass_from_dict(OptimizerConfig, job.optim),
+            total_steps=steps),
+        ref_dtype=getattr(torch, job.model.ref_dtype), tower=q25_twin_tower,
+        # every tower block keeps its attention outside the checkpoints;
+        # the update batch must carry both segment arrays (C.R7)
+        tower_replays=0, vision_keys=("full_segs", "window_segs"))
+
+
+def phase_grpo(examples, steps: int, card, case):
+    """SC-GRPO steps through GRPOTrainer.step in the setting ``case``
+    (``grpo_case_*``), assembled as cli/train_grpo.py assembles them;
+    returns the launch counts."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
 
-    from iadr1_tpu_torch.cli.train_grpo import (
-        GRPODataSection,
-        GRPOSection,
-        make_vlm_prompt_collator,
-    )
+    from iadr1_tpu_torch.cli.train_grpo import make_vlm_prompt_collator
     from iadr1_tpu_torch.kernels import all_kernels
     from iadr1_tpu_torch.models import qwen2, qwen2_vl
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
     from iadr1_tpu_torch.models.shared_prompt import shared_prompt_pred_hidden
     from iadr1_tpu_torch.rewards import get_reward_funcs
-    from iadr1_tpu_torch.train.grpo import (
-        UPDATE_RANGES,
-        GRPOConfig,
-        GRPOTrainer,
-    )
-    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.grpo import UPDATE_RANGES, GRPOTrainer
+    from iadr1_tpu_torch.train.optimizers import make_optimizer
     from iadr1_tpu_torch.train.rollout import cast_dense_params
     from iadr1_tpu_torch.train.sft import batch_to_device
     from iadr1_tpu_torch.train.state import create_train_state
 
-    bundle = bundle_from_hf_config(QWEN2_VL_2B)
-    cfg = bundle.cfg
-    section = GRPOSection()                       # the launcher's defaults
-    gcfg = GRPOConfig(
-        num_generations=section.num_generations, beta=section.beta,
-        temperature=section.temperature, top_p=section.top_p,
-        top_k=section.top_k, max_prompt_length=section.max_prompt_length,
-        max_completion_length=section.max_completion_length)
+    bundle = bundle_from_hf_config(case.hf)
+    cfg, gcfg, label = bundle.cfg, case.gcfg, case.label
     G, P, N = (gcfg.num_generations, gcfg.max_prompt_length,
                gcfg.max_completion_length)
     n = len(examples)
     tokenizer = CannedTokenizer()
-    collator = make_vlm_prompt_collator(
-        bundle, tokenizer, None, GRPODataSection(
-            patch_budget=GRPO_PATCH_BUDGET), P, num_generations=G)
+    collator = make_vlm_prompt_collator(bundle, tokenizer, None, case.data,
+                                        P, num_generations=G)
     reward_s = []
 
     def timed(fn):
@@ -2140,7 +2424,7 @@ def phase_grpo(examples, steps: int, card):
         reward.__name__ = fn.__name__
         return reward
 
-    rewards = [timed(fn) for fn in get_reward_funcs(section.reward_funcs)]
+    rewards = [timed(fn) for fn in get_reward_funcs(case.reward_funcs)]
 
     def plain_bundle(flash):
         """The bundle with its shared-prompt scoring over a flash Function
@@ -2150,10 +2434,7 @@ def phase_grpo(examples, steps: int, card):
         def shared_pred(params, batch, group_size, remat=True):
             embeds = params["text"]["embed"]["weight"][
                 batch["prompt_ids"]].to(torch.bfloat16)
-            feats = qwen2_vl.apply_vision(
-                params["vision"], cfg.vision, batch["patches"],
-                batch["rot_cos"], batch["rot_sin"], batch["vision_segments"],
-                attention_fn=tower_attn, remat=bool(remat))
+            feats = case.tower(params, cfg, batch, tower_attn, bool(remat))
             embeds = qwen2_vl.merge_image_features(
                 embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
             return shared_prompt_pred_hidden(
@@ -2165,13 +2446,13 @@ def phase_grpo(examples, steps: int, card):
     def fresh(used_bundle, replay=None):
         params = bundle.init_params(seed=0, dtype=torch.float32,
                                     device=DEVICE)
-        ref = _tree_map(lambda p: p.detach().to(torch.bfloat16), params)
-        opt, sched = make_optimizer(OptimizerConfig(
-            learning_rate=GRPO_LEARNING_RATE, total_steps=100))
+        ref = _tree_map(lambda p: p.detach().to(case.ref_dtype), params)
+        opt, sched = make_optimizer(case.opt_cfg)
         probe = GradProbe(opt, params, keep_grads=True)
         trainer = GRPOTrainer(
             used_bundle, tokenizer, probe, gcfg, rewards,
-            create_train_state(params, probe), ref, schedule=sched,
+            create_train_state(params, probe), ref,
+            sampling_overrides=case.sampling_overrides, schedule=sched,
             prompt_collator=collator, device=DEVICE, seed=0)
         trainer.engine = RolloutTap(trainer.engine, replay)
         return trainer, probe
@@ -2217,6 +2498,7 @@ def phase_grpo(examples, steps: int, card):
     release()
 
     L, Lt = cfg.text.num_hidden_layers, cfg.vision.depth
+    replays = case.tower_replays
     kernels = [k for k, _ in all_kernels()]
     step_s, per_step, total = [], [], {k.name: 0 for k in kernels}
     torch.cuda.reset_peak_memory_stats()
@@ -2230,15 +2512,17 @@ def phase_grpo(examples, steps: int, card):
         step_s.append(time.perf_counter() - t0)
         launches = {k.name: k.launches for k in kernels}
         # K1: the rollout's prefill, the reference forward, and the policy
-        # forward, whose tower blocks run again in the backward (a plain
-        # checkpoint); the three decoder calls of a layer keep their
-        # residuals.  K2 and K3: once per attention call of the policy.
-        want = {"flash_fwd": (L + Lt) + (3 * L + Lt) + (3 * L + 2 * Lt),
+        # forward, whose tower blocks run again in the backward where they
+        # are plain checkpoints; the three decoder calls of a layer keep
+        # their residuals.  K2 and K3: once per attention call of the
+        # policy.
+        want = {"flash_fwd": ((L + Lt) + (3 * L + Lt)
+                              + (3 * L + (1 + replays) * Lt)),
                 "flash_bwd_dq": 3 * L + Lt, "flash_bwd_dkv": 3 * L + Lt,
                 "decode_attention": L * tap.steps[i]}
         if launches != want or tap.steps[i] < 1:
-            raise AssertionError(f"grpo step {i + 1} launches {launches}, "
-                                 f"want {want}")
+            raise AssertionError(f"{label} step {i + 1} launches "
+                                 f"{launches}, want {want}")
         per_step.append(launches)
         for name, count in launches.items():
             total[name] += count
@@ -2247,8 +2531,11 @@ def phase_grpo(examples, steps: int, card):
     first = (history[0], probe.norms, probe.grads)
     roll_s, roll_steps, roll_tokens = tap.seconds, tap.steps, tap.tokens
 
+    missing = set(case.vision_keys) - set(update_batches[0])
+    if missing:
+        raise AssertionError(f"the update batch lacks {sorted(missing)}")
     adv = np.asarray(update_batches[0]["advantages"]).reshape(n, G)
-    log(f"grpo: step 1 rewards mean {history[0]['reward']:.4f}, group std "
+    log(f"{label}: step 1 rewards mean {history[0]['reward']:.4f}, group std "
         f"{history[0]['reward_std']:.4f}, advantages "
         f"{[[round(float(a), 3) for a in row] for row in adv]}, completion "
         f"length {history[0]['completion_length']:.1f} (rollouts "
@@ -2259,7 +2546,7 @@ def phase_grpo(examples, steps: int, card):
     for i, m in enumerate(history):
         bad = {k: v for k, v in m.items() if not math.isfinite(v)}
         if bad:
-            raise AssertionError(f"grpo step {i + 1}: non-finite {bad}")
+            raise AssertionError(f"{label} step {i + 1}: non-finite {bad}")
     if not abs(history[0]["kl"]) < GRPO_KL_STEP1_MAX:
         raise AssertionError(f"kl at step 1 is {history[0]['kl']}")
 
@@ -2271,8 +2558,8 @@ def phase_grpo(examples, steps: int, card):
                                         update_batches[-1])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log("profile: one GRPO update (reference forward, policy forward and "
-        "backward, AdamW): "
+    log(f"profile: one {case.name} GRPO update (reference forward, policy "
+        "forward and backward, AdamW): "
         + device_time_summary(prof, wall_ms, top_n=10, ranges=UPDATE_RANGES))
     recorded = tap.replay_of_first
     del trainer, probe, tap, inner_update, prof, update_batches
@@ -2289,10 +2576,11 @@ def phase_grpo(examples, steps: int, card):
 
     plain = replayed_step(TwinFlash)
     control = grpo_step1_diffs(replayed_step(DropDlseFlash), plain)
-    log("grpo: step 1 control (plain path without the lse cotangent) vs "
-        "plain path: " + _diff_text(control, GRPO_STEP1_LIMITS, "diff"))
+    log(f"{label}: step 1 control (plain path without the lse cotangent) "
+        "vs plain path: " + _diff_text(control, GRPO_STEP1_LIMITS, "diff"))
     diffs = grpo_step1_diffs(first, plain)
-    log(f"grpo: step 1 kernel vs plain path on the recorded rollout: loss "
+    log(f"{label}: step 1 kernel vs plain path on the recorded rollout: "
+        f"update batch holds {', '.join(case.vision_keys)}; loss "
         f"{first[0]['loss']:.3e} vs {plain[0]['loss']:.3e}, kl "
         f"{first[0]['kl']:.3e} vs {plain[0]['kl']:.3e}, grad norm "
         f"{first[0]['grad_norm']:.6f} vs {plain[0]['grad_norm']:.6f}; "
@@ -2319,16 +2607,18 @@ def phase_grpo(examples, steps: int, card):
                     for i in range(steps))
     update_ms, step_ms = med(1e3 * s for s in update_s), med(
         1e3 * s for s in step_s)
-    log(f"grpo: Qwen2-VL-2B {n_params / 1e9:.3f}B f32 policy + bf16 "
-        f"reference, {steps} steps of {n} prompts x G={G} (P={P}, N={N}, "
+    log(f"{label}: {case.name} {n_params / 1e9:.3f}B f32 policy + "
+        f"{str(case.ref_dtype)[6:]} reference, {steps} steps of {n} prompts "
+        f"x G={G} (P={P}, N={N}, "
         f"{sum(int(np.prod(g)) for ex in examples for g in ex['grid_thw'])} "
-        f"patches), lr {GRPO_LEARNING_RATE} cosine; loss "
+        f"patches), lr {case.opt_cfg.learning_rate} "
+        f"{case.opt_cfg.schedule}; loss "
         f"{[float(format(m['loss'], '.3e')) for m in history]}, kl "
         f"{[float(format(m['kl'], '.3e')) for m in history]}, grad norm "
         f"{[round(m['grad_norm'], 5) for m in history]}, reward "
         f"{[round(m['reward'], 4) for m in history]}, decode steps "
         f"{roll_steps}")
-    log(f"grpo: step {step_ms:.1f} ms (median of steps "
+    log(f"{label}: step {step_ms:.1f} ms (median of steps "
         f"{'2-' + str(steps) if steps > 2 else min(steps, 2)}; all steps "
         f"{[round(1e3 * x, 1) for x in step_s]} ms), "
         f"{1e3 * n * G / step_ms:.3f} rollouts/s; rollout {rollout_ms:.1f} "
@@ -2794,62 +3084,62 @@ def llava_positions(mask):
     return (mask.cumsum(dim=1) - 1).clamp(min=0)
 
 
-def phase_llava_serve(encoded, max_new_tokens, card):
-    """Phase 11: LLaVA-OneVision-0.5B at full width serves 4 image requests
-    through VLMGenerator._collate and RolloutEngine.generate; returns the
-    launch counts."""
+def tower_depth(cfg) -> int:
+    v = cfg.vision
+    return getattr(v, "depth", None) or v.num_hidden_layers
+
+
+def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
+                    max_new_tokens, card, twin_apply, describe):
+    """Phases 11 and 13: a VLM at full width (bf16 weights drawn on the
+    card from a seed) serves 4 already-tokenized image requests through
+    VLMGenerator._collate and RolloutEngine.generate, greedy.  K1 must run
+    once per tower and decoder layer a generate and K4 once per decoder
+    layer a decode step, no plain twin may be called, and the kernel
+    path's prefill logits must agree with the twin path's
+    (``twin_apply(params, cfg, batch, cache, attn)`` -> hidden).
+    ``describe(batch)`` checks the collated vision arrays and says what
+    they hold.  Returns the launch counts."""
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.kernels import all_kernels
     from iadr1_tpu_torch.kernels import decode_attention as decode_mod
     from iadr1_tpu_torch.kernels import flash_attention as flash_mod
-    from iadr1_tpu_torch.models import llava_onevision, qwen2
+    from iadr1_tpu_torch.models import qwen2
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
 
-    bundle = bundle_from_hf_config(LLAVA_OV_05B)
+    bundle = bundle_from_hf_config(hf)
     cfg = bundle.cfg
     t0 = time.perf_counter()
     params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"llava serve: LLaVA-OneVision-0.5B {n_params / 1e9:.3f}B params "
-        f"(bf16, seeded) drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"{label}: {name} {n_params / 1e9:.3f}B params (bf16, seeded) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
     tokenizer = types.SimpleNamespace(eos_token_id=IM_END,
                                       pad_token_id=ENDOFTEXT)
-    gcfg = GeneratorConfig(max_prompt_length=LLAVA_PROMPT_LEN,
+    gcfg = GeneratorConfig(max_prompt_length=prompt_len,
                            max_new_tokens=max_new_tokens, batch_size=BATCH,
-                           patch_budget=LLAVA_PATCH_BUDGET)
+                           patch_budget=patch_budget)
     gen = VLMGenerator(bundle, params, tokenizer,
                        get_template(bundle.template), gcfg, device=DEVICE)
     t0 = time.perf_counter()
     batch = gen._collate(encoded)
     collate_ms = 1e3 * (time.perf_counter() - t0)
-    n_tiles = int((batch["tiles"].flatten(1) != 0).any(1).sum())
-    if batch["tiles"].shape[0] != 22 or n_tiles != 16:
-        raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
-                             f"{n_tiles} of them images'")
+    holds = describe(batch)
 
     def prefill(attn=None):
-        cache = qwen2.init_cache(cfg.text, BATCH, LLAVA_PROMPT_LEN,
-                                 torch.bfloat16, DEVICE)
-        b = {**batch, "segment_ids": batch["attention_mask"].to(torch.int32),
-             "position_ids": llava_positions(batch["attention_mask"])}
+        cache = qwen2.init_cache(cfg.text, BATCH, prompt_len, torch.bfloat16,
+                                 DEVICE)
+        b = {**batch, "segment_ids": batch["attention_mask"].to(torch.int32)}
+        if "position_ids" not in b:          # 1-D positions, as the engine's
+            b["position_ids"] = llava_positions(batch["attention_mask"])
         with torch.no_grad():
             if attn is None:
                 h, _ = bundle.apply(params, b, cache=cache,
                                     cache_mode="prefill")
             else:
-                h, _ = llava_onevision.apply(
-                    params, cfg, b["input_ids"], b["position_ids"],
-                    tiles=b["tiles"], pack_src=b["pack_src"],
-                    pack_weights=b["pack_weights"],
-                    newline_mask=b["newline_mask"],
-                    scatter_rows=b["scatter_rows"],
-                    scatter_cols=b["scatter_cols"],
-                    segment_ids=b["segment_ids"], cache=cache,
-                    cache_mode="prefill", attention_fn=attn,
-                    tower_attention_fn=attn)
+                h = twin_apply(params, cfg, b, cache, attn)
             return bundle.logits_fn(params, h[:, -1:])[:, 0]
 
     kernel_logits = prefill()
@@ -2861,8 +3151,8 @@ def phase_llava_serve(encoded, max_new_tokens, card):
         raise AssertionError("prefill logits are not finite")
     rel = float((kernel_logits - twin_logits).norm() / twin_logits.norm())
     agree = int((kernel_logits.argmax(-1) == twin_logits.argmax(-1)).sum())
-    log(f"llava serve: prefill logits kernel vs twin path: rel L2 "
-        f"{rel:.3e} (limit {LOGITS_REL_L2}), argmax agree {agree}/{BATCH}")
+    log(f"{label}: prefill logits kernel vs twin path: rel L2 {rel:.3e} "
+        f"(limit {LOGITS_REL_L2}), argmax agree {agree}/{BATCH}")
     if not rel <= LOGITS_REL_L2:
         raise AssertionError(f"prefill logits differ: rel L2 {rel:.3e}")
     del kernel_logits, twin_logits
@@ -2870,10 +3160,10 @@ def phase_llava_serve(encoded, max_new_tokens, card):
 
     kernels = [k for k, _ in all_kernels()]
     tap = ChainTap(kernels)
-    for module, name in ((flash_mod, "flash_attention_ref"),
-                         (flash_mod, "flash_attention_bwd_ref"),
-                         (decode_mod, "decode_attention_ref")):
-        tap.twin(module, name)
+    for module, fn_name in ((flash_mod, "flash_attention_ref"),
+                            (flash_mod, "flash_attention_bwd_ref"),
+                            (decode_mod, "decode_attention_ref")):
+        tap.twin(module, fn_name)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2893,22 +3183,22 @@ def phase_llava_serve(encoded, max_new_tokens, card):
         raise AssertionError(f"completion shape {tuple(ids.shape)}")
     if not ((ids >= 0) & (ids < cfg.text.vocab_size)).all():
         raise AssertionError("completion ids out of the vocabulary")
-    L, Lt = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
+    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
     want = {"flash_fwd": Lt + L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "decode_attention": L * steps}
     if launches != want or steps < 1:
-        raise AssertionError(f"llava serve: launches {launches} over {steps}"
-                             f" decode steps, want {want}")
+        raise AssertionError(f"{label}: launches {launches} over {steps} "
+                             f"decode steps, want {want}")
     if any(tap.twin_calls.values()):
-        raise AssertionError(f"llava serve: plain twins called on the card: "
+        raise AssertionError(f"{label}: plain twins called on the card: "
                              f"{tap.twin_calls}")
     n_tokens = int(result["completion_mask"].sum())
     decode_ms = (1e3 * total_s - prefill_ms) / steps
-    log(f"llava serve: generate {BATCH} requests (16 tiles, prompt "
-        f"{LLAVA_PROMPT_LEN}, patch budget {LLAVA_PATCH_BUDGET}), {steps} "
-        f"decode steps, {n_tokens} tokens in {total_s:.3f} s; launches "
-        f"{launches}; twin calls {tap.twin_calls}")
-    log(f"llava serve: collation {collate_ms:.2f} ms (host), prefill "
+    log(f"{label}: generate {BATCH} requests ({holds}, prompt {prompt_len}, "
+        f"patch budget {patch_budget}), {steps} decode steps, {n_tokens} "
+        f"tokens in {total_s:.3f} s; launches {launches}; twin calls "
+        f"{tap.twin_calls}")
+    log(f"{label}: collation {collate_ms:.2f} ms (host), prefill "
         f"{prefill_ms:.2f} ms (tower + decoder), decode {decode_ms:.3f} "
         f"ms/step, {n_tokens / total_s:.1f} generated tokens/s, "
         f"{BATCH / total_s:.3f} items/s, peak memory {peak_gib:.2f} GiB on "
@@ -2919,12 +3209,83 @@ def phase_llava_serve(encoded, max_new_tokens, card):
     return launches
 
 
-def phase_llava_sft(rows, steps: int, card):
-    """Phase 12: PA-SFT steps of LLaVA-OneVision-0.5B at full width on the
-    recipe's settings (configs/sft_llava_onevision_0_5b.yaml through the
-    port's config loader), assembled as cli/train_sft.py assembles them;
-    returns the launch counts."""
-    import dataclasses
+def phase_llava_serve(encoded, max_new_tokens, card):
+    """Phase 11: LLaVA-OneVision-0.5B at full width serves 4 image requests
+    (16 anyres tiles in a budget of 22); returns the launch counts."""
+    from iadr1_tpu_torch.models import llava_onevision
+
+    def twin_apply(params, cfg, b, cache, attn):
+        h, _ = llava_onevision.apply(
+            params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+            pack_src=b["pack_src"], pack_weights=b["pack_weights"],
+            newline_mask=b["newline_mask"], scatter_rows=b["scatter_rows"],
+            scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+            cache=cache, cache_mode="prefill", attention_fn=attn,
+            tower_attention_fn=attn)
+        return h
+
+    def describe(batch):
+        n_tiles = int((batch["tiles"].flatten(1) != 0).any(1).sum())
+        if batch["tiles"].shape[0] != 22 or n_tiles != 16:
+            raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
+                                 f"{n_tiles} of them images'")
+        return "16 tiles"
+
+    return phase_vlm_serve("llava serve", "LLaVA-OneVision-0.5B",
+                           LLAVA_OV_05B, encoded, LLAVA_PROMPT_LEN,
+                           LLAVA_PATCH_BUDGET, max_new_tokens, card,
+                           twin_apply, describe)
+
+
+def q25_twin_tower(params, cfg, b, attn, remat=False):
+    """The Qwen2.5-VL tower of a batch over ``attn``."""
+    from iadr1_tpu_torch.models import qwen25_vl
+
+    return qwen25_vl.apply_vision(
+        params["vision"], cfg.vision, b["patches"], b["rot_cos"],
+        b["rot_sin"], b["full_segs"], b["window_segs"], attention_fn=attn,
+        remat=remat)
+
+
+def phase_q25_serve(encoded, max_new_tokens, card):
+    """Phase 13: Qwen2.5-VL-7B at full width and depth serves 4 image
+    requests (window-ordered tower stream); returns the launch counts."""
+    from iadr1_tpu_torch.models import qwen25_vl
+
+    def twin_apply(params, cfg, b, cache, attn):
+        h, _ = qwen25_vl.apply(
+            params, cfg, b["input_ids"], b["position_ids"],
+            patches=b["patches"], rot_cos=b["rot_cos"], rot_sin=b["rot_sin"],
+            full_segs=b["full_segs"], window_segs=b["window_segs"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], cache=cache, cache_mode="prefill",
+            attention_fn=attn, vision_attention_fn=attn)
+        return h
+
+    def describe(batch):
+        n = int((batch["full_segs"] != 0).sum())
+        windows = int(batch["window_segs"].max())
+        want = sum(h * w // 196 for h, w in Q25_IMAGE_HW)
+        if n != want or batch["patches"].shape[0] != PATCH_BUDGET:
+            raise AssertionError(f"{n} image patches, want {want}")
+        return f"{n} patches in {windows} windows"
+
+    return phase_vlm_serve("q25 serve", "Qwen2.5-VL-7B", QWEN2_5_VL_7B,
+                           encoded, PROMPT_LEN, PATCH_BUDGET, max_new_tokens,
+                           card, twin_apply, describe)
+
+
+def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
+                  plain_apply, tower_flops, batch_rows=None):
+    """Phases 12 and 14: PA-SFT steps of a VLM at full width on a recipe's
+    settings (``recipe`` through the port's config loader), assembled as
+    cli/train_sft.py assembles them, f32 parameters drawn on the card;
+    ``batch_rows`` cuts the recipe's batch.  K1, K2 and K3 must run once
+    per decoder and tower layer a step, step 1 must agree with a step
+    through the plain versions (``plain_apply(params, cfg, batch, attn,
+    remat, tower_remat)`` -> hidden), a control with dq zeroed must not,
+    and the loss must fall.  ``tower_flops(batch)`` -> (the tower's
+    forward FLOPs, what it ran over).  Returns the launch counts."""
     import gc
 
     from iadr1_tpu_torch.cli.train_sft import SFTJobConfig, _remat
@@ -2932,11 +3293,9 @@ def phase_llava_sft(rows, steps: int, card):
     from iadr1_tpu_torch.core.metrics import (
         ThroughputMeter,
         transformer_flops_per_token,
-        vit_flops_per_patch,
     )
     from iadr1_tpu_torch.data.collator import VLMBatchBuilder
     from iadr1_tpu_torch.kernels import all_kernels
-    from iadr1_tpu_torch.models import llava_onevision
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
     from iadr1_tpu_torch.train.loop import (
         LoopConfig,
@@ -2947,11 +3306,14 @@ def phase_llava_sft(rows, steps: int, card):
     from iadr1_tpu_torch.train.sft import STEP_RANGES, make_chunked_sft_step
     from iadr1_tpu_torch.train.state import create_train_state
 
-    job = load_config(SFTJobConfig, LLAVA_RECIPE)
-    bundle = bundle_from_hf_config(LLAVA_OV_05B, attention=job.model.attention)
+    job = load_config(SFTJobConfig, recipe)
+    bundle = bundle_from_hf_config(hf, attention=job.model.attention)
     cfg = bundle.cfg
-    B, T = int(job.train["batch_size"]), job.data.cutoff_len
+    recipe_rows = int(job.train["batch_size"])
+    B, T = batch_rows or recipe_rows, job.data.cutoff_len
     remat, tower_remat = _remat(job.model.remat), _remat(job.model.tower_remat)
+    tower_kw = ({} if tower_remat == "default"
+                else {"tower_remat": tower_remat})
     # the recipe's schedule over this run: cosine to 0 over its steps, its
     # warmup (100 of 1000 steps) a tenth of them, none of 4
     opt_cfg = dataclasses.replace(
@@ -2960,13 +3322,16 @@ def phase_llava_sft(rows, steps: int, card):
     logits_dtype = getattr(torch, job.data.ce_logits_dtype)
     builder = VLMBatchBuilder(bundle, job.data.patch_budget)
     if len(rows) != B or any(len(r["input_ids"]) != T for r in rows):
-        raise AssertionError(f"the rows are not the recipe's {B} x {T}")
-    log(f"llava sft: the recipe: B={B} T={T}, remat {remat}, tower remat "
-        f"{tower_remat}, CE chunk {job.data.ce_chunk} in "
-        f"{job.data.ce_logits_dtype}, patch budget {job.data.patch_budget}, "
-        f"AdamW lr {opt_cfg.learning_rate} {opt_cfg.schedule} (first moment "
-        f"{opt_cfg.mu_dtype}); f32 parameters (the recipe's own dtype is "
-        f"{job.model.dtype})")
+        raise AssertionError(f"the rows are not {B} x {T}")
+    log(f"{label}: the recipe: B={B}"
+        + (f" (the recipe's {recipe_rows} rows cut to {B})"
+           if B != recipe_rows else "")
+        + f" T={T}, remat {remat}, tower remat {tower_remat}, CE chunk "
+        f"{job.data.ce_chunk} in {job.data.ce_logits_dtype}, patch budget "
+        f"{job.data.patch_budget}, AdamW lr {opt_cfg.learning_rate} "
+        f"{opt_cfg.schedule} (weight decay {opt_cfg.weight_decay}, clip "
+        f"{opt_cfg.max_grad_norm}, first moment {opt_cfg.mu_dtype}); f32 "
+        f"parameters (the recipe's own dtype is {job.model.dtype})")
 
     def fresh(hidden_fn):
         params = bundle.init_params(seed=0, dtype=torch.float32,
@@ -2980,24 +3345,10 @@ def phase_llava_sft(rows, steps: int, card):
 
     first = next(batch_iterator(rows, B, 0, builder))
 
-    def plain_hidden(flash):
-        attn = train_attn(flash)
-
-        def hidden(params, b):
-            h, _ = llava_onevision.apply(
-                params, cfg, b["input_ids"], b["position_ids"],
-                tiles=b["tiles"], pack_src=b["pack_src"],
-                pack_weights=b["pack_weights"],
-                newline_mask=b["newline_mask"],
-                scatter_rows=b["scatter_rows"],
-                scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
-                attention_fn=attn, tower_attention_fn=attn, remat=remat,
-                tower_remat=tower_remat)
-            return h
-        return hidden
-
     def first_step(flash):
-        state, plain_step, probe = fresh(plain_hidden(flash))
+        attn = train_attn(flash)
+        state, plain_step, probe = fresh(lambda p, b: plain_apply(
+            p, cfg, b, attn, remat, tower_kw.get("tower_remat")))
         _, m = plain_step(state, first)
         res = {k: float(v) for k, v in m.items()}, probe.norms
         del state, plain_step, probe, m
@@ -3007,13 +3358,13 @@ def phase_llava_sft(rows, steps: int, card):
 
     plain_ref = first_step(TwinFlash)
     control = step1_diffs(first_step(ZeroDqFlash), plain_ref)
-    log(f"llava sft: step 1 control (plain path with dq zeroed) vs plain "
+    log(f"{label}: step 1 control (plain path with dq zeroed) vs plain "
         f"path: {_diff_text(control)}")
     if _within(control):
         raise AssertionError("the step-1 limits do not catch a zeroed dq")
 
     state, step, probe = fresh(lambda p, b: bundle.hidden_fn(
-        p, b, remat=remat, tower_remat=tower_remat))
+        p, b, remat=remat, **tower_kw))
     n_params = sum(p.numel() for p in _leaves(state.params))
     times = []
 
@@ -3031,8 +3382,8 @@ def phase_llava_sft(rows, steps: int, card):
         k.launches = 0
     state, history = run_sft_loop(
         state, timed_step, batch_iterator(rows, B, 0, builder),
-        LoopConfig(output_dir=LLAVA_TRAIN_DIR, max_steps=steps,
-                   batch_size=B, logging_steps=1))
+        LoopConfig(output_dir=train_dir, max_steps=steps, batch_size=B,
+                   logging_steps=1))
     launches = {k.name: k.launches for k in kernels}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -3044,21 +3395,20 @@ def phase_llava_sft(rows, steps: int, card):
         state, _ = step(state, first)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log("profile: one LLaVA-OneVision training step: "
+    log(f"profile: one {name} training step: "
         + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
     del state
     gc.collect()
     torch.cuda.empty_cache()
 
-    L, Lt = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
+    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
     # per step: each of K1, K2 and K3 once per decoder layer and tower
-    # layer (save_qkv and save_acts keep every attention call outside the
-    # checkpoints)
+    # layer (the recipes' remat modes keep every attention call outside
+    # the checkpoints)
     want = {"flash_fwd": steps * (L + Lt), "flash_bwd_dq": steps * (L + Lt),
             "flash_bwd_dkv": steps * (L + Lt), "decode_attention": 0}
     if launches != want:
-        raise AssertionError(f"llava training launches {launches}, want "
-                             f"{want}")
+        raise AssertionError(f"{label} launches {launches}, want {want}")
     losses = [h["loss"] for h in history]
     norms = [h["grad_norm"] for h in history]
     if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
@@ -3067,7 +3417,7 @@ def phase_llava_sft(rows, steps: int, card):
         raise AssertionError(f"loss did not fall: {losses}")
     diffs = step1_diffs(({"loss": losses[0], "grad_norm": norms[0]},
                          probe.norms), plain_ref)
-    log(f"llava sft: step 1 kernel vs plain path: loss {losses[0]:.6f} vs "
+    log(f"{label}: step 1 kernel vs plain path: loss {losses[0]:.6f} vs "
         f"{plain_ref[0]['loss']:.6f}, grad norm {norms[0]:.6f} vs "
         f"{plain_ref[0]['grad_norm']:.6f}; {_diff_text(diffs)}")
     if not _within(diffs):
@@ -3076,28 +3426,20 @@ def phase_llava_sft(rows, steps: int, card):
     late = len(times) > 4
     step_s = statistics.median(times[3:] if late else times[1:])
     n_label = history[0]["n_label_tokens"]
-    n_tiles = first["tiles"].shape[0]            # the tower runs the budget
-    n_images = int((first["tiles"].reshape(n_tiles, -1) != 0).any(1).sum())
-    # model FLOPs count the tiles that hold images, not the zero padding
-    # that fills the budget
     t = cfg.text
     dec_flops = B * T * transformer_flops_per_token(
         hidden=t.hidden_size, intermediate=t.intermediate_size,
         num_layers=t.num_hidden_layers, vocab=t.vocab_size, seq_len=T,
         num_heads=t.num_attention_heads, num_kv_heads=t.num_key_value_heads)
-    v = cfg.vision
-    vit_flops = n_images * 729 * vit_flops_per_patch(
-        hidden=v.hidden_size, intermediate=v.intermediate_size,
-        num_layers=v.num_hidden_layers, attn_window=729)
+    vit_flops, ran_over = tower_flops(first)
     meter = ThroughputMeter(flops_per_token_fwd=(dec_flops + vit_flops)
                             / (B * T), peak_flops=PEAK_BF16_FLOPS)
     meter.update(B * T, step_s)
-    log(f"llava sft: LLaVA-OneVision-0.5B {n_params / 1e9:.3f}B f32 params, "
-        f"{steps} steps of {B}x{T} tokens ({int(n_label)} label tokens, 4 "
-        f"images in {n_images} of the {n_tiles} tiles); losses "
-        f"{[round(x, 4) for x in losses]}; grad norms "
+    log(f"{label}: {name} {n_params / 1e9:.3f}B f32 params, {steps} steps "
+        f"of {B}x{T} tokens ({int(n_label)} label tokens, {ran_over}); "
+        f"losses {[round(x, 4) for x in losses]}; grad norms "
         f"{[round(x, 4) for x in norms]}")
-    log(f"llava sft: step {1e3 * step_s:.1f} ms (median of steps "
+    log(f"{label}: step {1e3 * step_s:.1f} ms (median of steps "
         f"{'4-' if late else '2-'}{steps}; all steps "
         f"{[round(1e3 * x, 1) for x in times]} ms), "
         f"{B * T / step_s:.0f} tokens/s, {n_label / step_s:.0f} label "
@@ -3105,6 +3447,88 @@ def phase_llava_sft(rows, steps: int, card):
         f"against {PEAK_BF16_FLOPS:.3g}), peak memory {peak_gib:.2f} GiB, "
         f"launches {launches} on {card}")
     return launches
+
+
+def phase_llava_sft(rows, steps: int, card):
+    """Phase 12: LLaVA-OneVision-0.5B PA-SFT on
+    configs/sft_llava_onevision_0_5b.yaml; returns the launch counts."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+    from iadr1_tpu_torch.models import llava_onevision
+
+    def plain_apply(params, cfg, b, attn, remat, tower_remat):
+        h, _ = llava_onevision.apply(
+            params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+            pack_src=b["pack_src"], pack_weights=b["pack_weights"],
+            newline_mask=b["newline_mask"], scatter_rows=b["scatter_rows"],
+            scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+            attention_fn=attn, tower_attention_fn=attn, remat=remat,
+            tower_remat=tower_remat)
+        return h
+
+    def tower_flops(first):
+        # model FLOPs count the tiles that hold images, not the zero
+        # padding that fills the budget
+        n_tiles = first["tiles"].shape[0]        # the tower runs the budget
+        n_images = int((first["tiles"].reshape(n_tiles, -1) != 0)
+                       .any(1).sum())
+        v = LLAVA_OV_05B["vision_config"]
+        flops = n_images * 729 * vit_flops_per_patch(
+            hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+            num_layers=v["num_hidden_layers"], attn_window=729)
+        return flops, f"4 images in {n_images} of the {n_tiles} tiles"
+
+    return phase_vlm_sft("llava sft", "LLaVA-OneVision-0.5B", LLAVA_OV_05B,
+                         LLAVA_RECIPE, rows, steps, card, LLAVA_TRAIN_DIR,
+                         plain_apply, tower_flops)
+
+
+def q25_tower_flops(grids):
+    """The Qwen2.5-VL tower's forward FLOPs over the patches of ``grids``
+    (SwiGLU's three matmuls; the window blocks attend within their
+    windows, the full blocks within their images), and what it ran
+    over."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+    from iadr1_tpu_torch.models.qwen25_vl import (
+        Qwen25VLVisionConfig,
+        window_partition,
+    )
+
+    v = QWEN2_5_VL_3B["vision_config"]
+    vcfg = Qwen25VLVisionConfig()
+    n = [int(np.prod(g)) for g in grids]
+    _, wsegs, _ = window_partition(np.asarray(grids), vcfg)
+    w = np.bincount(wsegs)[1:]
+    full = len(v["fullatt_block_indexes"])
+    window_keys = (v["depth"] - full) * float((w ** 2).sum()) / sum(n)
+    image_keys = full * sum(x * x for x in n) / sum(n)
+    flops = sum(n) * vit_flops_per_patch(
+        hidden=v["hidden_size"], intermediate=3 * v["intermediate_size"] // 2,
+        num_layers=v["depth"],
+        attn_window=(window_keys + image_keys) / v["depth"])
+    return flops, f"{len(n)} images, {sum(n)} patches in {len(w)} windows"
+
+
+def phase_q25_sft(rows, steps: int, card):
+    """Phase 14: Qwen2.5-VL-3B PA-SFT at full width and depth on
+    configs/sft_qwen2_5_vl_7b.yaml, the batch cut to Q25_SFT_ROWS rows;
+    returns the launch counts."""
+    from iadr1_tpu_torch.models import qwen25_vl
+
+    def plain_apply(params, cfg, b, attn, remat, tower_remat):
+        h, _ = qwen25_vl.apply(
+            params, cfg, b["input_ids"], b["position_ids"],
+            patches=b["patches"], rot_cos=b["rot_cos"], rot_sin=b["rot_sin"],
+            full_segs=b["full_segs"], window_segs=b["window_segs"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], attention_fn=attn,
+            vision_attention_fn=attn, remat=remat, tower_remat=tower_remat)
+        return h
+
+    grids = [g for r in rows for e in r["extras"] for g in e["grid_thw"]]
+    return phase_vlm_sft("q25 sft", "Qwen2.5-VL-3B", QWEN2_5_VL_3B,
+                         Q25_SFT_RECIPE, rows, steps, card, Q25_TRAIN_DIR,
+                         plain_apply, lambda first: q25_tower_flops(grids),
+                         batch_rows=Q25_SFT_ROWS)
 
 
 def _tree_map(fn, tree):
@@ -3126,9 +3550,10 @@ def main() -> int:
     ap.add_argument("--max-new-tokens", type=int, default=128,
                     help="new tokens of the serving phase's generate")
     ap.add_argument("--train-steps", type=int, default=4,
-                    help="PA-SFT steps of phases 6 and 12 (at least 2)")
-    ap.add_argument("--grpo-steps", type=int, default=3,
-                    help="SC-GRPO steps (at least 1), each a rollout of "
+                    help="PA-SFT steps of phases 6, 12 and 14 (at least 2)")
+    ap.add_argument("--grpo-steps", type=int, default=2,
+                    help="SC-GRPO steps of phase 7 (at least 1; phase 15 "
+                         "takes at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--pad-compare", action="store_true",
                     help="also time K1-K3 at the SigLIP tower with q, k, v "
@@ -3165,11 +3590,18 @@ def main() -> int:
     llava = bundle_from_hf_config(LLAVA_OV_05B)       # host side only
     llava_encoded = make_llava_requests(llava)
     llava_rows = make_llava_sft_rows(llava, LLAVA_SFT_CUTOFF)
+    q25_encoded = make_q25_requests()
+    q25_rows = make_q25_sft_rows(Q25_SFT_CUTOFF)
+    q25_grpo_examples = make_q25_grpo_examples()
     measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
                              grpo_examples)
     for name, results in phase_kernels_llava(
             llava_encoded, llava_rows, args.max_new_tokens,
             args.pad_compare).items():
+        measured[name] += results
+    for name, results in phase_kernels_q25(
+            q25_encoded, q25_rows, q25_grpo_examples,
+            args.max_new_tokens).items():
         measured[name] += results
     serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
     phase_profile(gen, batch)
@@ -3178,10 +3610,16 @@ def main() -> int:
     del gen, batch
     torch.cuda.empty_cache()
     train = phase_train(train_rows, args.train_steps, card)
-    grpo = phase_grpo(grpo_examples, args.grpo_steps, card)
+    grpo = phase_grpo(grpo_examples, args.grpo_steps, card,
+                      grpo_case_qwen2_vl())
     chain = phase_chain(card)
     llava_serve = phase_llava_serve(llava_encoded, args.max_new_tokens, card)
     llava_sft = phase_llava_sft(llava_rows, args.train_steps, card)
+    q25_serve = phase_q25_serve(q25_encoded, args.max_new_tokens, card)
+    q25_sft = phase_q25_sft(q25_rows, args.train_steps, card)
+    q25_steps = min(args.grpo_steps, Q25_GRPO_STEPS)
+    q25_grpo = phase_grpo(q25_grpo_examples, q25_steps, card,
+                          grpo_case_q25(q25_steps))
 
     line = []
     for k, replaces in kernels:
@@ -3196,7 +3634,10 @@ def main() -> int:
                                       "grpo": grpo[k.name],
                                       "chain": chain[k.name],
                                       "llava_serve": llava_serve[k.name],
-                                      "llava_sft": llava_sft[k.name]}}
+                                      "llava_sft": llava_sft[k.name],
+                                      "q25_serve": q25_serve[k.name],
+                                      "q25_sft": q25_sft[k.name],
+                                      "q25_grpo": q25_grpo[k.name]}}
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,7 +1,8 @@
 """Chat templates for prompt and training encoding (the port's own copy of
 the pieces of iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` and
-``encode_multiturn`` that the chatml templates ``qwen2_vl`` and
-``llava_next_qwen`` need; the other templates wait for ROADMAP A.13)."""
+``encode_multiturn`` that the chatml templates ``qwen2_vl``,
+``qwen2_5_vl`` and ``llava_next_qwen`` need; the other templates wait for
+ROADMAP A.13)."""
 
 from __future__ import annotations
 
@@ -94,6 +95,9 @@ _CHATML = dict(
 TEMPLATES = {
     "qwen2_vl": ChatTemplate(name="qwen2_vl", image_token="<|image_pad|>",
                              mm_style="qwen2_vl", **_CHATML),
+    "qwen2_5_vl": ChatTemplate(name="qwen2_5_vl",
+                               image_token="<|image_pad|>",
+                               mm_style="qwen2_vl", **_CHATML),
     # LLaVA-OneVision: chatml, each image a run of <image> tokens
     "llava_next_qwen": ChatTemplate(name="llava_next_qwen",
                                     image_token="<image>", mm_style="llava",

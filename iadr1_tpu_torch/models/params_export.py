@@ -1,5 +1,5 @@
 """Parameter dict -> HF safetensors export (the port's own copy of
-iadr1_tpu/models/params_export.py, Qwen2 and Qwen2-VL).
+iadr1_tpu/models/params_export.py: Qwen2, Qwen2-VL and Qwen2.5-VL).
 
 The reverse of ``params_io.convert_*``: after PA-SFT or SC-GRPO, write an
 HF-layout checkpoint the next stage, the eval harness, the JAX package or
@@ -57,7 +57,10 @@ def export_qwen2(params: dict, cfg, prefix: str = "model.") -> dict:
 
 
 def export_qwen2_vl_vision(params: dict, vcfg, prefix: str = "visual.") -> dict:
-    """Qwen2-VL vision tower parameters -> HF state dict (tensor views)."""
+    """Qwen2-VL or Qwen2.5-VL vision tower parameters -> HF state dict
+    (tensor views).  Qwen2-VL's blocks hold LayerNorms (scale and bias)
+    and fc1/fc2 MLPs; Qwen2.5-VL's hold RMSNorms (a scale alone), SwiGLU
+    MLPs and a scale-only merger norm."""
     state: dict = {}
     bt = prefix + "blocks.{i}."
     pk = params["patch_embed"]["kernel"].detach().T
@@ -66,17 +69,25 @@ def export_qwen2_vl_vision(params: dict, vcfg, prefix: str = "visual.") -> dict:
         vcfg.patch_size, vcfg.patch_size)
     blocks = params["blocks"]
     for norm in ("norm1", "norm2"):
-        _unstack(state, bt + f"{norm}.weight", blocks[norm]["scale"])
-        _unstack(state, bt + f"{norm}.bias", blocks[norm]["bias"])
-    for name, group in (("qkv", "attn"), ("proj", "attn"), ("fc1", "mlp"),
-                        ("fc2", "mlp")):
-        _unstack(state, bt + f"{group}.{name}.weight",
+        if isinstance(blocks[norm], dict):          # Qwen2-VL LayerNorm
+            _unstack(state, bt + f"{norm}.weight", blocks[norm]["scale"])
+            _unstack(state, bt + f"{norm}.bias", blocks[norm]["bias"])
+        else:                                       # Qwen2.5-VL RMSNorm
+            _unstack(state, bt + f"{norm}.weight", blocks[norm])
+    mlp = (("fc1", "fc1"), ("fc2", "fc2")) if "fc1" in blocks["mlp"] else (
+        ("gate_proj", "gate"), ("up_proj", "up"), ("down_proj", "down"))
+    for hf, name, group in (("qkv", "qkv", "attn"), ("proj", "proj", "attn"),
+                            *((hf, name, "mlp") for hf, name in mlp)):
+        _unstack(state, bt + f"{group}.{hf}.weight",
                  blocks[group][name]["kernel"], True)
-        _unstack(state, bt + f"{group}.{name}.bias",
+        _unstack(state, bt + f"{group}.{hf}.bias",
                  blocks[group][name]["bias"])
     merger = params["merger"]
-    state[prefix + "merger.ln_q.weight"] = merger["ln_q"]["scale"].detach()
-    state[prefix + "merger.ln_q.bias"] = merger["ln_q"]["bias"].detach()
+    if isinstance(merger["ln_q"], dict):
+        state[prefix + "merger.ln_q.weight"] = merger["ln_q"]["scale"].detach()
+        state[prefix + "merger.ln_q.bias"] = merger["ln_q"]["bias"].detach()
+    else:
+        state[prefix + "merger.ln_q.weight"] = merger["ln_q"].detach()
     for hf, name in (("0", "fc1"), ("2", "fc2")):
         state[prefix + f"merger.mlp.{hf}.weight"] = (
             merger[name]["kernel"].detach().T)
@@ -88,7 +99,7 @@ def export_params(bundle, params: dict) -> dict:
     """Family dispatch -> HF state dict."""
     if bundle.family == "qwen2":
         return export_qwen2(params, bundle.cfg)
-    if bundle.family == "qwen2_vl":
+    if bundle.family in ("qwen2_vl", "qwen2_5_vl"):
         state = export_qwen2(params["text"], bundle.cfg.text,
                              prefix="model.language_model.")
         state.update(export_qwen2_vl_vision(

@@ -1,5 +1,6 @@
 """Model bundles (counterpart of iadr1_tpu/models/registry.py) for the
-families ported so far: Qwen2 (text), Qwen2-VL and LLaVA-OneVision.
+families ported so far: Qwen2 (text), Qwen2-VL, Qwen2.5-VL and
+LLaVA-OneVision.
 
 A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
@@ -28,6 +29,7 @@ from iadr1_tpu_torch.models import (
     llava_onevision,
     qwen2,
     qwen2_vl,
+    qwen25_vl,
     siglip,
 )
 from iadr1_tpu_torch.models.attention import (
@@ -114,15 +116,28 @@ def _qwen_preprocess_image(vcfg):
 
 
 def _scatter_indices(input_ids: np.ndarray, image_token_id: int,
-                     n_feat_budget: int):
-    """Feature -> (row, col) scatter indices in reading order; padded
-    features target the sentinel row B (dropped by merge_image_features)."""
+                     n_feat_budget: int, feature_order=None,
+                     video_token_id: int | None = None,
+                     n_expected: int | None = None):
+    """Feature -> (row, col) scatter indices; padded features target the
+    sentinel row B (dropped by merge_image_features).  Features come in
+    reading order, or in the order ``feature_order`` gives (the reading-
+    order index of each feature, Qwen2.5-VL's window order).  Video tokens
+    are matched too only when the image tokens alone fall short of
+    ``n_expected`` features (some checkpoints reuse ordinary token ids as
+    the video token); videos themselves wait for ROADMAP A.13."""
     B = input_ids.shape[0]
-    rows_idx, cols_idx = np.nonzero(input_ids == image_token_id)
+    match = input_ids == image_token_id
+    if (video_token_id is not None and video_token_id != image_token_id
+            and n_expected is not None and int(match.sum()) < n_expected):
+        match = match | (input_ids == video_token_id)
+    rows_idx, cols_idx = np.nonzero(match)
     if len(rows_idx) > n_feat_budget:
         raise ValueError(
             f"{len(rows_idx)} image tokens exceed the feature budget "
             f"{n_feat_budget}")
+    if feature_order is not None:
+        rows_idx, cols_idx = rows_idx[feature_order], cols_idx[feature_order]
     srows = np.full(n_feat_budget, B, np.int64)
     scols = np.zeros(n_feat_budget, np.int64)
     srows[: len(rows_idx)] = rows_idx
@@ -277,6 +292,135 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
     )
 
 
+def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
+                          precision: Precision = DEFAULT_PRECISION
+                          ) -> ModelBundle:
+    """Qwen2.5-VL: the windowed tower over a window-ordered patch stream,
+    the merger, the Qwen2 decoder with M-RoPE.  Both the window blocks and
+    the full-attention blocks of the tower are segment-masked, non-causal
+    calls of the decoder's dispatch (K1 on the card, D = 80)."""
+    text_hf = hf_config.get("text_config", hf_config)
+    vis_hf = hf_config["vision_config"]
+    tcfg = _qwen2_text_cfg(text_hf)
+    vcfg = qwen25_vl.Qwen25VLVisionConfig(
+        depth=vis_hf.get("depth", 32),
+        hidden_size=vis_hf.get("hidden_size", 1280),
+        intermediate_size=vis_hf.get("intermediate_size", 3420),
+        out_hidden_size=vis_hf.get("out_hidden_size", tcfg.hidden_size),
+        num_heads=vis_hf.get("num_heads", 16),
+        patch_size=vis_hf.get("patch_size", 14),
+        spatial_merge_size=vis_hf.get("spatial_merge_size", 2),
+        temporal_patch_size=vis_hf.get("temporal_patch_size", 2),
+        window_size=vis_hf.get("window_size", 112),
+        fullatt_block_indexes=tuple(
+            vis_hf.get("fullatt_block_indexes", (7, 15, 23, 31))),
+    )
+    cfg = qwen25_vl.Qwen25VLConfig(
+        text=tcfg, vision=vcfg,
+        image_token_id=hf_config.get("image_token_id", 151655),
+        video_token_id=hf_config.get("video_token_id", 151656),
+        vision_start_token_id=hf_config.get("vision_start_token_id", 151652),
+        vision_end_token_id=hf_config.get("vision_end_token_id", 151653),
+    )
+    attn = default_attention(attention)
+    decode_attn = default_decode_attention(attention)
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None):
+        return qwen25_vl.apply(
+            params, cfg, batch["input_ids"], batch["position_ids"],
+            patches=batch.get("patches"),
+            rot_cos=batch.get("rot_cos"), rot_sin=batch.get("rot_sin"),
+            full_segs=batch.get("full_segs"),
+            window_segs=batch.get("window_segs"),
+            scatter_rows=batch.get("scatter_rows"),
+            scatter_cols=batch.get("scatter_cols"),
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=precision, attention_fn=attn,
+            decode_attention_fn=decode_attn, vision_attention_fn=attn,
+            remat=remat, tower_remat=tower_remat,
+        )
+
+    def vision_arrays(input_ids, patches_list, grids, patch_budget):
+        """Host precompute for one batch (numpy): the patch stream permuted
+        into window order and padded to the budget, its rotary tables, the
+        per-image and per-window segment ids, and scatter indices that
+        send each window-ordered feature to its image token."""
+        grid_thw = np.asarray(grids, np.int64).reshape(-1, 3)
+        flat = (np.concatenate(patches_list, axis=0) if patches_list
+                else np.zeros((0, vcfg.patch_dim), np.float32))
+        n = flat.shape[0]
+        if n > patch_budget:
+            raise ValueError(f"patch stream {n} exceeds budget {patch_budget}")
+        merge_unit = vcfg.spatial_merge_size ** 2
+        if not n:                        # no image: every feature dropped
+            head, n_feat = vcfg.head_dim, patch_budget // merge_unit
+            return {
+                "patches": np.zeros((patch_budget, vcfg.patch_dim),
+                                    np.float32),
+                "rot_cos": np.ones((patch_budget, head), np.float32),
+                "rot_sin": np.zeros((patch_budget, head), np.float32),
+                "full_segs": np.zeros(patch_budget, np.int32),
+                "window_segs": np.zeros(patch_budget, np.int32),
+                "scatter_rows": np.full(n_feat, input_ids.shape[0],
+                                        np.int64),
+                "scatter_cols": np.zeros(n_feat, np.int64),
+            }
+        arrs = qwen25_vl.qwen25vl_vision_arrays(grid_thw, vcfg,
+                                                pad_to=patch_budget)
+        flat = np.concatenate([flat[arrs["patch_perm"]], np.zeros(
+            (patch_budget - n, vcfg.patch_dim), np.float32)])
+        srows, scols = _scatter_indices(
+            input_ids, cfg.image_token_id, patch_budget // merge_unit,
+            feature_order=arrs["feature_order"],
+            video_token_id=cfg.video_token_id, n_expected=n // merge_unit)
+        return {
+            "patches": flat.astype(np.float32),
+            "rot_cos": arrs["rot_cos"], "rot_sin": arrs["rot_sin"],
+            "full_segs": arrs["full_segs"],
+            "window_segs": arrs["window_segs"],
+            "scatter_rows": srows, "scatter_cols": scols,
+        }
+
+    def init_params(seed=0, dtype=None, device=None):
+        gen, device = _generator(seed, device)
+        return qwen25_vl.init_params(gen, cfg, dtype or precision.param_dtype,
+                                     device)
+
+    attn_lse = default_attention_with_lse(attention)
+
+    def shared_pred(params, batch, group_size, remat=True):
+        """The tower and the feature scatter run once per UNIQUE prompt;
+        the completions attend the shared prompt K/V."""
+        embeds = common.embed_lookup(
+            params["text"]["embed"]["weight"], batch["prompt_ids"]
+        ).to(precision.compute_dtype)
+        if batch.get("patches") is not None:
+            feats = qwen25_vl.apply_vision(
+                params["vision"], vcfg, batch["patches"], batch["rot_cos"],
+                batch["rot_sin"], batch["full_segs"], batch["window_segs"],
+                precision=precision, attention_fn=attn, remat=bool(remat))
+            embeds = qwen2_vl.merge_image_features(
+                embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
+        return shared_prompt_pred_hidden(
+            params["text"], tcfg, batch, group_size, attention_fn=attn_lse,
+            precision=precision, remat=remat, prompt_embeds=embeds)
+
+    return ModelBundle(
+        family="qwen2_5_vl", cfg=cfg, multimodal=True,
+        init_params=init_params,
+        convert_hf=lambda state, dtype=None, device=None: qwen25_vl.convert_hf(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
+        apply=apply,
+        logits_fn=lambda params, h: qwen25_vl.logits(params, cfg, h,
+                                                     precision),
+        vision_arrays=vision_arrays,
+        preprocess_image=_qwen_preprocess_image(vcfg),
+        template="qwen2_vl",
+        shared_pred_fn=shared_pred, precision=precision,
+    )
+
+
 # the JAX bundle's fallback grid pinpoints, used when a config names none
 # (six entries up to 1152; not HF LlavaOnevisionConfig's 36-entry default,
 # which a config carries in image_grid_pinpoints)
@@ -424,6 +568,8 @@ FAMILY_BUILDERS = {
     "qwen2": make_qwen2_bundle,
     "Qwen2VLForConditionalGeneration": make_qwen2_vl_bundle,
     "qwen2_vl": make_qwen2_vl_bundle,
+    "Qwen2_5_VLForConditionalGeneration": make_qwen25_vl_bundle,
+    "qwen2_5_vl": make_qwen25_vl_bundle,
     "LlavaOnevisionForConditionalGeneration": make_llava_onevision_bundle,
     "llava_onevision": make_llava_onevision_bundle,
 }
@@ -433,8 +579,6 @@ GRPO_NOT_YET_PORTED = {"llava_onevision": "ROADMAP A.16"}
 
 # families of the JAX package that wait for a later slice
 NOT_YET_PORTED = {
-    "Qwen2_5_VLForConditionalGeneration": "ROADMAP A.10",
-    "qwen2_5_vl": "ROADMAP A.10",
     "Qwen2MoeForCausalLM": "ROADMAP A.13",
     "qwen2_moe": "ROADMAP A.13",
     "LlavaForConditionalGeneration": "ROADMAP A.13",

@@ -42,8 +42,9 @@ from iadr1_tpu_torch.train.state import tree_leaves
 # launched from autograd's device thread, outside any range of this one)
 UPDATE_RANGES = ("grpo_reference", "grpo_forward", "grpo_optimizer")
 
-_VISION_KEYS = ("patches", "rot_cos", "rot_sin", "vision_segments",
-                "scatter_rows", "scatter_cols")
+# the collated prompt batch's own keys; every other key is one of the
+# arrays the family's ``vision_arrays`` returned, which the update carries
+PROMPT_KEYS = ("input_ids", "attention_mask", "position_ids", "mrope_deltas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -516,7 +517,8 @@ class GRPOTrainer:
         common = {"completion_ids": completion_ids,
                   "completion_mask": completion_mask,
                   "advantages": advantages}
-        common.update({k: batch[k] for k in _VISION_KEYS if k in batch})
+        common.update({k: v for k, v in batch.items()
+                       if k not in PROMPT_KEYS})
         if self._shared:
             pu_mask = prompt_mask[::G]
             if "position_ids" in batch:         # M-RoPE (VLM collator batch)

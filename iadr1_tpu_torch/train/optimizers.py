@@ -76,6 +76,13 @@ def _linear(init: float, end: float, steps: int, count) -> float:
     return (init - end) * (1 - count / steps) + end
 
 
+# elements of one leaf AdamW updates at a time (256 MB in f32): a 3B
+# model's stacked MLP kernels are 3 GB a leaf, and a whole-leaf update's
+# temporaries would take several times that beside 60 GB of parameters,
+# gradients and moments
+UPDATE_SLICE = 1 << 26
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...)),
     in place.  ``init(params)`` -> state; ``apply(params, grads, state)``
@@ -109,19 +116,25 @@ class AdamW:
         bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** count)
         bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** count)
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            g = g.float()
-            if clip:
-                g = g / grad_norm * self.max_grad_norm
             # as in optax, b1 * mu is taken in mu's dtype (b1 rounded to
             # it too) before the f32 sum
             b1_mu = float(torch.tensor(self.b1, dtype=mu.dtype))
-            m = (1 - self.b1) * g + b1_mu * mu
-            nu.copy_((1 - self.b2) * g.square() + self.b2 * nu)
-            update = (m / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            mu.copy_(m)                                 # cast to mu_dtype
-            if self.weight_decay:
-                update = update + self.weight_decay * p
-            p.copy_(p + (-lr) * update)
+            # views: the slices' copies land in the leaves themselves
+            flat = [p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1)]
+            # a slice of the leaf at a time: the update's f32 temporaries
+            # stay within a few slices, however large the leaf
+            for i in range(0, p.numel(), UPDATE_SLICE):
+                p_, g_, mu_, nu_ = (t[i:i + UPDATE_SLICE] for t in flat)
+                g_ = g_.float()
+                if clip:
+                    g_ = g_ / grad_norm * self.max_grad_norm
+                m = (1 - self.b1) * g_ + b1_mu * mu_
+                nu_.copy_((1 - self.b2) * g_.square() + self.b2 * nu_)
+                update = (m / bc1) / (torch.sqrt(nu_ / bc2) + self.eps)
+                mu_.copy_(m)                            # cast to mu_dtype
+                if self.weight_decay:
+                    update = update + self.weight_decay * p_
+                p_.copy_(p_ + (-lr) * update)
         state["count"] = count
 
 

@@ -555,6 +555,103 @@ def test_flash_kernels_at_gqa_group_7(card, D):
             atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
 
 
+def _qwen25_tower_segments(kind, card):
+    """Qwen2.5-VL's window-ordered tower stream at its published window
+    (112 pixels: 8 x 8 patches): a 448 x 448 image (every window whole,
+    each 64-row block one window) and a 336 x 504 one (its last window
+    column cut to 32 patches, so blocks span two windows), padded to 2048;
+    the per-window or the per-image segment ids."""
+    import numpy as np
+
+    from iadr1_tpu_torch.models.qwen25_vl import (
+        Qwen25VLVisionConfig,
+        qwen25vl_vision_arrays,
+    )
+
+    grids = {"aligned": [(1, 32, 32), (1, 32, 32)],
+             "partial": [(1, 24, 36), (1, 32, 32)]}
+    arrs = qwen25vl_vision_arrays(np.asarray(grids[kind[0]]),
+                                  Qwen25VLVisionConfig(), pad_to=2048)
+    seg = arrs["window_segs" if kind[1] == "window" else "full_segs"]
+    return torch.as_tensor(seg, dtype=torch.int32, device=card)[None]
+
+
+@pytest.mark.parametrize("kind", [("aligned", "window"),
+                                  ("partial", "window"),
+                                  ("partial", "full")],
+                         ids=["-".join(k) for k in (("aligned", "window"),
+                                                    ("partial", "window"),
+                                                    ("partial", "full"))])
+def test_flash_kernels_at_the_qwen25_vl_tower(card, kind):
+    """K1-K3 over Qwen2.5-VL's tower stream (16 heads, D = 80,
+    non-causal): window segments whose edges fall on the 64-row blocks and
+    key tiles, windows cut at an image's edge, and whole images."""
+    seg = _qwen25_tower_segments(kind, card)
+    T, D = seg.shape[1], 80
+    gen = torch.Generator(device=card).manual_seed(90)
+    q, k, v, do = (_rand(gen, (1, 16, T, D), card) for _ in range(4))
+    out, lse = k1.flash_attention(q, k, v, segment_ids=seg, causal=False)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, seg, seg,
+                                              causal=False, scale=D ** -0.5)
+    (dq, dk, dv), want, _, _ = _bwd_grads(q, k, v, do, seg, seg, False)
+    torch.cuda.synchronize()
+    valid = torch.isfinite(ref_lse)
+    assert valid.sum() == 16 * int((seg != 0).sum())
+    torch.testing.assert_close(out[valid].float(), ref_out[valid].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[valid], ref_lse[valid], atol=1e-3, rtol=0)
+    assert (out[~valid] == 0).all()
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+
+
+@pytest.mark.parametrize("H,Hkv", [(28, 4), (16, 2)], ids=["gqa7", "gqa8"])
+def test_flash_kernels_at_the_qwen25_vl_decoders(card, H, Hkv):
+    """K1-K3 at Qwen2.5-VL-7B's (28 heads over 4) and -3B's (16 over 2)
+    decoder attention, D = 128: left-padded rows, causal, T = 300 (stacked
+    query rows cross a head boundary inside a 64-row block)."""
+    B, T, D = 2, 300, 128
+    gen = torch.Generator(device=card).manual_seed(H)
+    q, do = _rand(gen, (B, H, T, D), card), _rand(gen, (B, H, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    seg = _bwd_segments("leftpad", B, T, gen, card)
+    out, lse = k1.flash_attention(q, k, v, segment_ids=seg, causal=True)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, seg, seg, causal=True,
+                                              scale=D ** -0.5)
+    (dq, dk, dv), want, _, _ = _bwd_grads(q, k, v, do, seg, seg, True)
+    torch.cuda.synchronize()
+    valid = torch.isfinite(ref_lse)
+    torch.testing.assert_close(out[valid].float(), ref_out[valid].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[valid], ref_lse[valid], atol=1e-3, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S", [(4, 28, 4, 1152), (8, 16, 2, 4608)],
+                         ids=["7b-serve", "3b-grpo-fan-out"])
+def test_decode_kernel_at_the_qwen25_vl_decoders(card, B, H, Hkv, S):
+    """K4 at GQA 7 (the 7B serving cache) and GQA 8 (the 3B SC-GRPO cache,
+    P + N = 4096 + 512), D = 128, at a length inside the last chunk, left
+    padding and a dead span."""
+    D, length = 128, S - 37
+    gen = torch.Generator(device=card).manual_seed(S)
+    q = _rand(gen, (B, H, D), card)
+    k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    seg[:, :100] = 0
+    seg[1, 500:700] = 0
+    v[:, :, length:] = float("nan")             # never read past length
+    out = k4.decode_attention(q, k, v, seg, length)
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
 def test_full_precision_forward_raises_under_auto_and_runs_under_xla(card):
     """The kernels take bf16 only: a FULL_PRECISION bundle under 'auto'
     raises on the card (naming attention="xla") instead of giving way to

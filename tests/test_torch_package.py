@@ -57,8 +57,9 @@ CHAIN_MODULES = [
     "data.template", "train.checkpoint", "train.loop",
     "models.params_export", "cli.export", "cli.pipeline",
 ]
-# LLaVA-OneVision
-LLAVA_MODULES = ["vision.anyres", "models.siglip", "models.llava_onevision"]
+# LLaVA-OneVision and Qwen2.5-VL
+FAMILY_MODULES = ["vision.anyres", "models.siglip", "models.llava_onevision",
+                  "models.qwen25_vl"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -69,7 +70,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     names = proc.stdout.split()
     assert len(names) >= 40                        # every module was reached
     missing = [m for m in (GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
-                           + LLAVA_MODULES)
+                           + FAMILY_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
@@ -183,8 +184,8 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
 def test_other_families_name_their_roadmap_item():
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        bundle_from_hf_config({"model_type": "qwen2_5_vl"})
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        bundle_from_hf_config({"model_type": "qwen2_moe"})
 
 
 def test_a_library_is_rebuilt_when_its_source_or_a_shared_header_is_newer(

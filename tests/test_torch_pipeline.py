@@ -33,9 +33,10 @@ def _distinct_chars(completions, **kw):
     return [len(set(c[0]["content"])) / 10.0 for c in completions]
 
 
-def _pipeline(tmp, sft_steps, grpo_steps, new_tokens, rewards):
+def _pipeline(tmp, sft_steps, grpo_steps, new_tokens, rewards,
+              build=build_tiny_vlm_checkpoint, template="qwen2_vl"):
     tmp.mkdir(parents=True, exist_ok=True)
-    checkpoint = build_tiny_vlm_checkpoint(str(tmp / "ckpt"))
+    checkpoint = build(str(tmp / "ckpt"))
     sft_json, sft_imgs = build_iad_sft_dataset(tmp / "sft_data")
     rl_json, rl_imgs = build_iad_rl_dataset(tmp / "rl_data")
     benches = []
@@ -59,7 +60,7 @@ def _pipeline(tmp, sft_steps, grpo_steps, new_tokens, rewards):
         "output_dir": out,
         "sft": {
             "data": {"dataset": sft_json, "image_dir": sft_imgs,
-                     "template": "qwen2_vl", "cutoff_len": 128,
+                     "template": template, "cutoff_len": 128,
                      "patch_budget": 64, "min_pixels": 56 * 56,
                      "max_pixels": 56 * 56 * 4, "ce_chunk": 64},
             "optim": {"learning_rate": 2e-3, "warmup_ratio": 0.0},
@@ -69,7 +70,7 @@ def _pipeline(tmp, sft_steps, grpo_steps, new_tokens, rewards):
         "grpo": {
             "model": {"ref_dtype": "float32"},
             "data": {"dataset_name": rl_json, "image_path": rl_imgs,
-                     "template": "qwen2_vl", "patch_budget": 128,
+                     "template": template, "patch_budget": 128,
                      "min_pixels": 56 * 56, "max_pixels": 56 * 56 * 4},
             "grpo": {"num_generations": 4, "max_prompt_length": 128,
                      "max_completion_length": new_tokens, "beta": 0.02,
@@ -143,6 +144,26 @@ def test_the_recipe_at_the_jax_e2e_length_learns(tmp_path):
     rewards = [r["reward"] for r in grpo_log]
     assert np.mean(rewards) > 0.0, f"warm start produced no reward: {rewards}"
     _check_eval(out)
+
+
+def test_the_chain_runs_on_qwen2_5_vl(tmp_path, monkeypatch):
+    """The same chain on a tiny Qwen2.5-VL checkpoint (windowed tower,
+    the qwen2_5_vl template): SFT -> export -> GRPO warm-started from it
+    (the update batch carries the window segments) -> export -> eval ->
+    the summary CSV."""
+    from test_torch_qwen25_vl import build_tiny_qwen25_vl_checkpoint
+
+    from iadr1_tpu_torch.rewards import REWARD_REGISTRY
+
+    monkeypatch.setitem(REWARD_REGISTRY, "distinct_chars", _distinct_chars)
+    out, _ = _pipeline(tmp_path, 2, 1, 8,
+                       ["accuracy", "format", "distinct_chars"],
+                       build=build_tiny_qwen25_vl_checkpoint,
+                       template="qwen2_5_vl")
+    _check_stages(out, 2, 1)
+    _check_eval(out)
+    with open(os.path.join(out, "grpo_export", "config.json")) as f:
+        assert json.load(f)["model_type"] == "qwen2_5_vl"
 
 
 def _check_eval(out):

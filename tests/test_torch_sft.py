@@ -303,6 +303,32 @@ def test_adamw_matches_optax(mu_dtype, max_norm):
     assert all(m.dtype == want_mu for m in tst["mu"]) and tst["count"] == 3
 
 
+@pytest.mark.parametrize("mu_dtype", [None, "bfloat16"])
+def test_adamw_updates_a_leaf_a_slice_at_a_time(monkeypatch, mu_dtype):
+    """Slices of 13 elements (the last one short) give the whole-leaf
+    update bit for bit: parameters and both moments, clipped, with weight
+    decay, over two steps."""
+    rng = np.random.default_rng(6)
+    kw = dict(learning_rate=1e-2, total_steps=5, weight_decay=0.1,
+              mu_dtype=mu_dtype, max_grad_norm=0.5)
+    params = [rng.standard_normal(s).astype(np.float32)
+              for s in ((9, 7), (3,))]
+    grads = [torch.from_numpy(rng.standard_normal(p.shape)
+                              .astype(np.float32)) for p in params]
+
+    def run(slice_):
+        monkeypatch.setattr(topt, "UPDATE_SLICE", slice_)
+        opt, _ = topt.make_optimizer(topt.OptimizerConfig(**kw))
+        leaves = [torch.from_numpy(p.copy()) for p in params]
+        state = opt.init(leaves)
+        for _ in range(2):
+            opt.apply(leaves, grads, state)
+        return leaves + state["mu"] + state["nu"]
+
+    for got, want in zip(run(13), run(1 << 26), strict=True):
+        assert torch.equal(got, want)
+
+
 def test_other_optimizers_wait_for_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A.14"):
         topt.make_optimizer(topt.OptimizerConfig(optimizer="lion"))
