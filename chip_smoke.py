@@ -148,9 +148,44 @@ result line:
    one-image prompts, as phase 7 checks its steps; the update batch must
    hold full_segs and window_segs.
 
+16. LLaVA-OneVision SC-GRPO (after 15): LLaVA-OneVision-0.5B at full
+   width and depth takes 2 steps of GRPOTrainer.step on the grpo section
+   of configs/grpo_qwen2_5_vl_7b.yaml (the patch budget sized for tiles
+   of 729) on a 448x448 and a 336x560 one-image prompt, 1-D positions,
+   as phase 7 checks its steps; the update batch must hold tiles,
+   tile_segments, pack_src, pack_weights and newline_mask.  Step 1 is
+   also held by the lse cotangent's part of dq and dk at each merged
+   attention call, K2 and K3 against the plain versions on the call's
+   own inputs, and a control given half the cotangent must fail that
+   limit; the step's readings against the plain path with p and ds
+   unrounded are printed beside;
+17. LLaVA-NeXT serving (after 16): LLaVA-NeXT-8B at full width and depth
+   (llava-hf/llama3-llava-next-8b-hf's config: the LLaMA-3-8B decoder at
+   GQA 4, the CLIP-L/336 tower of which 23 layers run, bf16 weights drawn
+   on the card) serves 4 llava_next_llama3 requests (two 448x448 images
+   of 5 tiles, two 336x560 of 3; P=4096, a patch budget of 16 tiles), as
+   phase 11 checks its generate (K1 23 + 32 times, K4 32 times a step);
+18. LLaVA-1.5 serving (after 17): LLaVA-1.5-7B at full width and depth
+   (llava-hf/llava-1.5-7b-hf's config, whose sparse text_config is read
+   with LlamaConfig's defaults: Vicuna-7B, GQA 1) serves 4 vicuna-form
+   requests of one center-cropped tile each (P=1024), likewise;
+19. LLaVA-NeXT PA-SFT (after 18): the same published config with the
+   decoder cut to 8 of 32 layers, f32 parameters drawn on the card, takes
+   the training steps on configs/sft_llava_onevision_0_5b.yaml's settings
+   with rows cut to 2 x 4096 and the llava_next_llama3 template (4
+   examples of one 336x560 image each; 12 image tiles in the recipe's
+   28-tile budget, the rest at segment 0), as phase 12 checks its steps.
+
+Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
+tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
+(GQA 4) and Vicuna-7B (GQA 1) prefills, K1-K3 at the 8B-cut SFT decoder
+and at LLaVA-OneVision's SC-GRPO update, and K4 at GQA 4, GQA 1 and over
+OneVision's fan-out.
+
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
-q25_sft, q25_grpo).
+q25_sft, q25_grpo, llava_grpo, llava16_serve, llava15_serve,
+llava16_sft).
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -249,6 +284,49 @@ QWEN2_5_VL_3B = dict(
     num_key_value_heads=2, tie_word_embeddings=True,
     vision_config=dict(QWEN2_5_VL_7B["vision_config"], out_hidden_size=2048),
 )
+# llava-hf/llama3-llava-next-8b-hf's published config: the LLaMA-3-8B
+# decoder (32 layers, 32 heads over 8 KV heads: GQA 4, D = 128; rope_theta
+# 5e5, an untied head over 128320 ids), the CLIP ViT-L/14-336 tower (24
+# layers, 16 heads, D = 64, 23 of them run: vision_feature_layer -2), the
+# projector, anyres over 5 grid pinpoints at 336 a tile
+LLAVA_NEXT_8B = dict(
+    architectures=["LlavaNextForConditionalGeneration"],
+    model_type="llava_next",
+    text_config=dict(
+        model_type="llama", vocab_size=128320, hidden_size=4096,
+        intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        rope_theta=500000.0, tie_word_embeddings=False,
+        max_position_embeddings=8192),
+    vision_config=dict(
+        model_type="clip_vision_model", hidden_size=1024,
+        intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+        image_size=336, patch_size=14, projection_dim=768,
+        layer_norm_eps=1e-5),
+    image_token_index=128256, vision_feature_layer=-2,
+    vision_feature_select_strategy="default",
+    image_grid_pinpoints=[[336, 672], [672, 336], [672, 672], [1008, 336],
+                          [336, 1008]],
+)
+# llava-hf/llava-1.5-7b-hf's published config: its text_config names only
+# the fields that differ from transformers.LlamaConfig (Vicuna-7B: 32
+# layers, 32 heads over 32 KV heads, D = 128, rope_theta 1e4, an untied
+# head), which the port's reader fills from LlamaConfig's defaults (ROADMAP
+# C.R10); its vision_config is CLIP-L/336's
+LLAVA_15_7B = dict(
+    architectures=["LlavaForConditionalGeneration"], model_type="llava",
+    text_config=dict(
+        architectures=["LlamaForCausalLM"], model_type="llama",
+        max_position_embeddings=4096, rms_norm_eps=1e-5,
+        torch_dtype="float16", vocab_size=32064),
+    vision_config=dict(
+        model_type="clip_vision_model", hidden_size=1024, image_size=336,
+        intermediate_size=4096, num_attention_heads=16,
+        num_hidden_layers=24, patch_size=14, projection_dim=768,
+        vocab_size=32000),
+    image_token_index=32000, pad_token_id=32001, projector_hidden_act="gelu",
+    vision_feature_layer=-2, vision_feature_select_strategy="default",
+)
 IM_START, IM_END, ENDOFTEXT = 151644, 151645, 151643
 VISION_START, IMAGE_PAD, VISION_END = 151652, 151655, 151653
 # one image per request, two sizes (pixels, multiples of 28): 1024 + 960
@@ -297,6 +375,38 @@ Q25_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 Q25_GRPO_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "configs", "grpo_qwen2_5_vl_7b.yaml")
 Q25_GRPO_STEPS = 2
+# LLaVA-OneVision SC-GRPO (phase 16): configs/grpo_qwen2_5_vl_7b.yaml's
+# grpo section (the repo has no OneVision GRPO recipe: G=4, P=4096, N=512,
+# beta 0.04, temperature 0.9, top-p 0.9, top-k 50, accuracy + format, a
+# bf16 reference) on a 448 x 448 and a 336 x 560 prompt (5 + 3 tiles); the
+# patch budget sizes the G-repeated collation, so the G = 1 collation the
+# rollout and the shared-prompt update use holds 8 tiles of 729
+OV_GRPO_PATCH_BUDGET = 4 * 8 * 729
+OV_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
+OV_GRPO_STEPS = 2
+# LLaVA-NeXT-8B serving (phase 17): the llava_next_llama3 form, two 448 x
+# 448 images (5 tiles, 2928 features) and two 336 x 560 (3 tiles, 1560
+# features), P=4096, a patch budget of 16 tiles
+NEXT_PROMPT_LEN, NEXT_PATCH_BUDGET = 4096, 16 * 576
+LLAMA3_BOS, LLAMA3_END, LLAMA3_EOT = 128000, 128001, 128009
+LLAMA3_HEADER_START, LLAMA3_HEADER_END = 128006, 128007
+NEXT_IMAGE = 128256
+# LLaVA-1.5-7B serving (phase 18): the vicuna form, one center-cropped
+# tile of 576 features a request, P=1024, a patch budget of 4 tiles
+V15_PROMPT_LEN, V15_PATCH_BUDGET = 1024, 4 * 576
+VICUNA_BOS, VICUNA_EOS, VICUNA_PAD, V15_IMAGE = 1, 2, 32001, 32000
+# LLaVA-NeXT PA-SFT (phase 19): the published config with the decoder cut
+# to 8 of its 32 layers (the whole 8B would need ~134 GB of f32
+# parameters, gradients and moments), on
+# configs/sft_llava_onevision_0_5b.yaml's settings (the family's mm style:
+# save_qkv, tower save_acts, bf16 CE chunks of 4096, AdamW with a bf16
+# first moment) with the rows cut to 2 x 4096 and the llava_next_llama3
+# template; 4 examples of one 336 x 560 image (3 tiles) each, two a row;
+# the recipe's patch budget, 16384 patches = 28 tiles of 576
+NEXT_SFT_LAYERS, NEXT_SFT_ROWS, NEXT_SFT_CUTOFF = 8, 2, 4096
+NEXT_SFT_IMAGE_HW, NEXT_SFT_ANSWER_LEN = (336, 560), (300, 400)
+NEXT_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "chip_smoke_next_sft")
 # the plain versions run one batch row, and within a row one slice of KV
 # heads (with their query heads), at a time where the [B, H, T, S] f32
 # scores would pass this: the LLaVA-OneVision decoder's 4 x 14 x 8192^2
@@ -354,6 +464,13 @@ GRPO_EARLY_EOS = ((1, 37), (3, 300), (6, 1))
 GRPO_STEP1_LIMITS = {"loss": 1e-5, "kl": 1e-5, "grad norm": 2e-3,
                      "qkv grad norms": 2e-2, "q/k grad vectors": 7e-2}
 GRPO_KL_STEP1_MAX = 1e-3
+# phase 16 besides: at each of step 1's merged attention calls, the lse
+# cotangent's part of dq and dk (given it, less without it) from K2 and K3
+# against the plain versions' on the same inputs (LseProbeFlash), as a
+# relative L2 distance over all the calls.  The limit sits between the
+# rounding (a few percent predicted, PERF.md) and a cotangent at half
+# weight (0.5); a backward that ignores it reads 1
+GRPO_LSE_COTANGENT_LIMIT = 0.25
 
 
 def log(line: str) -> None:
@@ -828,6 +945,111 @@ def make_q25_grpo_examples(seed: int = 14):
     return examples
 
 
+def make_ov_grpo_examples(bundle, seed: int = 15):
+    """Two llava_next_qwen prompts for LLaVA-OneVision (the chatml of
+    make_llava_requests), one image each of OV_GRPO_IMAGE_HW through the
+    bundle's anyres preprocessing, with a ``solution`` in the reward
+    grammar: one anomalous, one normal."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    examples = []
+    for i, (h, w) in enumerate(OV_GRPO_IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        ids = ([IM_START] + text(3) + [IM_END] + text(1)
+               + [IM_START] + text(2) + [LLAVA_IMAGE] * n_img
+               + text(40 + 25 * i) + [IM_END] + text(1)
+               + [IM_START] + text(2))
+        examples.append({"prompt_ids": ids, "patches": [patches],
+                         "grid_thw": [grid], "solution": GRPO_SOLUTIONS[i]})
+    return examples
+
+
+def _llama3_prompt(rng, image_ids, extra):
+    """A llava_next_llama3 user turn as token ids: BOS, the user header,
+    the image run and seeded text, EOT, the assistant header."""
+    def text(n):
+        return rng.integers(0, LLAMA3_BOS, n).tolist()
+
+    return ([LLAMA3_BOS, LLAMA3_HEADER_START] + text(1)
+            + [LLAMA3_HEADER_END] + text(1) + image_ids + text(extra)
+            + [LLAMA3_EOT, LLAMA3_HEADER_START] + text(1)
+            + [LLAMA3_HEADER_END] + text(1))
+
+
+def make_next_requests(bundle, seed: int = 16):
+    """Four llava_next_llama3 requests for LLaVA-NeXT-8B as token ids, a
+    seeded image of IMAGE_HW each through the bundle's anyres
+    preprocessing (5 + 3 + 5 + 3 = 16 tiles)."""
+    from iadr1_tpu_torch.vision.anyres import onevision_feature_len
+
+    rng = np.random.default_rng(seed)
+    encoded, lens = [], []
+    for i, (h, w) in enumerate(IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        if n_img != onevision_feature_len((h, w), grid[:2], 24, None):
+            raise AssertionError("the feature count is not onevision's")
+        lens.append(n_img)
+        encoded.append((_llama3_prompt(rng, [NEXT_IMAGE] * n_img,
+                                       20 + 7 * i), [patches], [grid]))
+    if sum(p[0].shape[0] for _, p, _ in encoded) != 16:
+        raise AssertionError("the requests' images are not 16 tiles")
+    return encoded, lens
+
+
+def make_v15_requests(bundle, seed: int = 17):
+    """Four vicuna-form requests for LLaVA-1.5-7B as token ids (BOS, the
+    system text, "USER:", 576 image tokens, seeded text, "ASSISTANT:"), a
+    seeded image of IMAGE_HW each, resized and center-cropped to one
+    tile."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(3, V15_IMAGE, n).tolist()
+
+    encoded = []
+    for i, (h, w) in enumerate(IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        if patches.shape != (1, 576, 588) or n_img != 576:
+            raise AssertionError(f"a 1.5 image is {patches.shape}")
+        encoded.append(([VICUNA_BOS] + text(40) + [V15_IMAGE] * n_img
+                        + text(20 + 7 * i) + text(5), [patches], [grid]))
+    return encoded
+
+
+def make_next_sft_rows(bundle, cutoff: int, seed: int = 18):
+    """NEXT_SFT_ROWS * 2 synthetic IAD SFT examples in the
+    llava_next_llama3 form, a seeded 336 x 560 image each (3 tiles, 1560
+    features), the prompt masked and a labeled answer of 300-400 seeded
+    tokens ending in EOT, packed by pack_examples into rows of ``cutoff``:
+    two examples a row."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i in range(2 * NEXT_SFT_ROWS):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, *NEXT_SFT_IMAGE_HW))
+        prompt = _llama3_prompt(rng, [NEXT_IMAGE] * n_img, 8 + 4 * i)
+        answer = rng.integers(0, LLAMA3_BOS, int(rng.integers(
+            NEXT_SFT_ANSWER_LEN[0], NEXT_SFT_ANSWER_LEN[1] + 1))).tolist()
+        answer += [LLAMA3_EOT]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [patches],
+                                    "grid_thw": [grid]}})
+    rows = pack_examples(examples, cutoff, LLAMA3_END)
+    if len(rows) != NEXT_SFT_ROWS or any(len(r["extras"]) != 2
+                                         for r in rows):
+        raise AssertionError("the examples did not pack into 2 rows of 2")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
@@ -841,6 +1063,14 @@ def _pairs(q_seg, kv_seg, causal):
         ok &= (torch.arange(S, device=ok.device)[None, :]
                <= torch.arange(T, device=ok.device)[:, None])
     return ok
+
+
+def _live_rows(pairs) -> tuple[float, float]:
+    """The query rows and the key rows, over the batch, that take part in
+    a valid pair: the rows of q (and of dO, lse and delta) and of k and v
+    a kernel must read.  A row with none is only written (0, or +inf in
+    the lse)."""
+    return float(pairs.any(-1).sum()), float(pairs.any(1).sum())
 
 
 def check_fwd(shape, out, lse, ref_out, ref_lse, q_seg, kv_seg, causal):
@@ -890,7 +1120,8 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
     res.update(key_tile_shares(q_seg, kv_seg, causal, H // Hkv))
     pairs = _pairs(q_seg, kv_seg, causal)                     # [B, T, S]
     flops = 4.0 * H * D * float(pairs.sum())
-    nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    q_rows, k_rows = _live_rows(pairs)
+    nbytes = (2 * D * (H * q_rows + 2 * Hkv * k_rows) + 2 * out.numel()
               + 4 * lse.numel() + 4 * (q_seg.numel() + kv_seg.numel()))
     bound_flops, bound_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     mask = pairs[:, None]
@@ -972,15 +1203,19 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
                                         .float().mean())}
     if not timed:
         return res_dq, res_dkv, res_fwd
-    pairs = float(_pairs(q_seg, kv_seg, causal).sum())
-    segs = 4 * (q_seg.numel() + kv_seg.numel())
-    stats = 4 * (lse.numel() + delta.numel())
+    live = _pairs(q_seg, kv_seg, causal)
+    pairs = float(live.sum())
+    q_rows, k_rows = _live_rows(live)
+    # q, dO, lse and delta over the live query rows, k and v over the
+    # live key rows, the segment ids whole
+    reads = (2 * D * (2 * H * q_rows + 2 * Hkv * k_rows) + 4 * 2 * H * q_rows
+             + 4 * (q_seg.numel() + kv_seg.numel()))
     plain_ms = device_ms([lambda: plain(
         flash_attention_bwd_ref, q, k, v, q_seg, kv_seg, out, lse, do, dlse,
         **kw)], iters=3)
     # the yardstick: SDPA's backward (dq, dk, dv together) on a saved
     # forward, with a boolean mask and K/V repeated for GQA
-    mask = _pairs(q_seg, kv_seg, causal)[:, None]
+    mask = live[:, None]
     leaves = [t.detach().requires_grad_(True) for t in (
         q, k.repeat_interleave(H // Hkv, dim=1),
         v.repeat_interleave(H // Hkv, dim=1))]
@@ -992,8 +1227,7 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
             (res_dq, flash_bwd_dq, 3, dq.numel()),
             (res_dkv, flash_bwd_dkv, 4, dk.numel() + dv.numel())):
         flops = 2.0 * n_products * H * D * pairs
-        nbytes = (2 * (q.numel() + k.numel() + v.numel() + do.numel()
-                       + out_numel) + stats + segs)
+        nbytes = reads + 2 * out_numel          # every row written
         bound_flops = flops / PEAK_BF16_FLOPS
         bound_bytes = nbytes / PEAK_HBM_BYTES
         times = device_times([lambda: fn(*args, **kw)])
@@ -1479,6 +1713,112 @@ def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens):
             "decode_attention": [dec, fan_dec]}
 
 
+def _left_segments(encoded, P):
+    """[B, P] segment ids of left-padded prompts."""
+    seg = torch.zeros((len(encoded), P), device="cuda", dtype=torch.int32)
+    for b, (ids, _, _) in enumerate(encoded):
+        seg[b, P - len(ids):] = 1
+    return seg
+
+
+def phase_kernels_llava_families(next_encoded, v15_encoded, next_rows,
+                                 ov_examples, max_new_tokens):
+    """Phase 3 at the shapes of phases 16-19: K1-K3 at the CLIP-L tower
+    (16 heads, D = 64, non-causal, each tile its own 577 tokens) over
+    LLaVA-NeXT serving's 16 tiles and over the SFT batch's budget of 28
+    tiles, 16 of them padding at segment 0; K1 at the LLaMA-3-8B prefill
+    (P = 4096, GQA 4) and the Vicuna-7B prefill (P = 1024, GQA 1); K1-K3 at
+    the 8B-cut SFT decoder (2 rows of 4096, GQA 4, packed); K1-K3 at
+    LLaVA-OneVision's SC-GRPO update (H = 14 over 2, D = 64: the
+    completions' cross attention to the shared prompt and their self
+    attention, both with dlse != 0, and the unique prompts) and K4 over
+    its fanned-out cache; K4 at GQA 4 and GQA 1 over the serving caches.
+    Returns the results by kernel."""
+    cuda = dict(device="cuda", dtype=torch.int32)
+    n_serve = sum(p[0].shape[0] for _, p, _ in next_encoded)
+    serve_seg = torch.ones((n_serve, 577), **cuda)
+    sft_tiles = 16384 // 576
+    n_sft = sum(e["patches"][0].shape[0] for r in next_rows
+                for e in r["extras"])
+    sft_seg = torch.zeros((sft_tiles, 577), **cuda)
+    sft_seg[:n_sft] = 1
+    towers = [("clip tower serve", serve_seg), ("clip tower sft", sft_seg)]
+    fwd, bwd, dec = [], [], []
+    for i, (label, seg) in enumerate(towers):
+        shape = (seg.shape[0], 16, 16, 577, 577, 64, False, seg, seg)
+        results = (*bwd_case(*shape, 101 + i, timed=True),
+                   flash_case(*shape, 103 + i, timed=True))
+        for r in results:
+            r["shape"] = f"{label}: {r['shape']}"
+        bwd.append(results[:3])
+        fwd.append(results[3])
+    l3 = _left_segments(next_encoded, NEXT_PROMPT_LEN)
+    v15 = _left_segments(v15_encoded, V15_PROMPT_LEN)
+    fwd.append(flash_case(BATCH, 32, 8, NEXT_PROMPT_LEN, NEXT_PROMPT_LEN,
+                          128, True, l3, l3, 105, timed=True))
+    fwd.append(flash_case(BATCH, 32, 32, V15_PROMPT_LEN, V15_PROMPT_LEN,
+                          128, True, v15, v15, 106, timed=True))
+    fwd[-2]["shape"] = "llava-next-8b prefill: " + fwd[-2]["shape"]
+    fwd[-1]["shape"] = "llava-1.5-7b prefill: " + fwd[-1]["shape"]
+    train_seg = torch.as_tensor(
+        np.stack([r["segment_ids"] for r in next_rows]), **cuda)
+    T = train_seg.shape[1]
+    train = (NEXT_SFT_ROWS, 32, 8, T, T, 128, True, train_seg, train_seg)
+    results = (*bwd_case(*train, 107, timed=True),
+               flash_case(*train, 108, timed=True))
+    for r in results:
+        r["shape"] = f"llava-next sft: {r['shape']}"
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    # LLaVA-OneVision's SC-GRPO update: the unique prompts, left-padded,
+    # repeated over the group for the cross attention; completions with
+    # seeded ends (rollouts that ended early), one of one token, one whole
+    G, P, N = 4, 4096, 512
+    n = len(ov_examples)
+    p_seg = torch.zeros((n, P), **cuda)
+    for b, ex in enumerate(ov_examples):
+        p_seg[b, P - len(ex["prompt_ids"]):] = 1
+    p_rep = p_seg.repeat_interleave(G, dim=0)
+    g = torch.Generator().manual_seed(109)
+    stops = torch.randint(2, N, (n * G,), generator=g)
+    stops[0], stops[1] = N, 1
+    c_seg = (torch.arange(N)[None, :] < stops[:, None]).to(**cuda)
+    for i, (label, shape, dlse) in enumerate((
+            ("ov grpo cross", (n * G, 14, 2, N, P, 64, False, c_seg, p_rep),
+             True),
+            ("ov grpo self", (n * G, 14, 2, N, N, 64, True, c_seg, c_seg),
+             True),
+            ("ov grpo prompt", (n, 14, 2, P, P, 64, True, p_seg, p_seg),
+             False))):
+        results = (*bwd_case(*shape, 110 + i, timed=True, with_dlse=dlse),
+                   flash_case(*shape, 113 + i, timed=True))
+        for r in results:
+            r["shape"] = f"{label}: {r['shape']}"
+        bwd.append(results[:3])
+        fwd.append(results[3])
+    fan = torch.cat([p_rep, c_seg], dim=1)
+    S_l3 = NEXT_PROMPT_LEN + max_new_tokens
+    S_v15 = V15_PROMPT_LEN + max_new_tokens
+    l3_dec = torch.ones((BATCH, S_l3), **cuda)
+    l3_dec[:, :NEXT_PROMPT_LEN] = l3
+    v15_dec = torch.ones((BATCH, S_v15), **cuda)
+    v15_dec[:, :V15_PROMPT_LEN] = v15
+    for label, args in (
+            ("llava-next-8b decode", (BATCH, 32, 8, S_l3, 128, S_l3, l3_dec,
+                                      116)),
+            ("llava-1.5-7b decode", (BATCH, 32, 32, S_v15, 128, S_v15,
+                                     v15_dec, 117)),
+            ("ov grpo fan-out", (n * G, 14, 2, P + N, 64, P + N, fan, 118))):
+        dec.append(decode_case(*args, timed=True))
+        dec[-1]["shape"] = f"{label}: {dec[-1]['shape']}"
+    fwd += [f for _, _, f in bwd]
+    log_kernel_results(fwd, dec, bwd)
+    return {"flash_fwd": fwd,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
+            "decode_attention": dec}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1493,9 +1833,10 @@ def twin_attn(q, k, v, *, mask=None, q_segments=None, kv_segments=None,
     if q_segments is None:
         q_segments = kv_segments = torch.ones(
             q.shape[:2], dtype=torch.int32, device=q.device)
-    out, _ = flash_attention_ref(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        q_segments, kv_segments, causal=causal, scale=q.shape[-1] ** -0.5)
+    out, _ = plain(
+        flash_attention_ref, q.transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), q_segments, kv_segments, causal=causal,
+        scale=q.shape[-1] ** -0.5)
     return out.transpose(1, 2)
 
 
@@ -2056,10 +2397,16 @@ def step1_diffs(got, ref) -> dict:
 
 def _grad_diffs(got, ref) -> dict:
     (m, norms), (m0, norms0) = got, ref
+
+    def rel(a, b):
+        # a layer no gradient reaches (CLIP's last, which LLaVA does not
+        # run) must stay at 0: its difference is taken absolutely
+        d = (a - b).abs()
+        return float(torch.where(b > 0, d / b.clamp(min=1e-30), d).max())
+
     return {
         "grad norm": abs(m["grad_norm"] - m0["grad_norm"]) / m0["grad_norm"],
-        "qkv grad norms": max(float(((norms[n] - norms0[n]).abs()
-                                     / norms0[n]).max()) for n in norms0),
+        "qkv grad norms": max(rel(norms[n], norms0[n]) for n in norms0),
     }
 
 
@@ -2262,6 +2609,109 @@ class DropDlseFlash(TwinFlash):
         return TwinFlash.backward(ctx, do, None)
 
 
+class F32TwinFlash(torch.autograd.Function):
+    """The plain path with p and ds unrounded: the plain versions on f32
+    copies of q, k and v (out and the gradients back in their dtype), the
+    function they computed before they took p and ds into their products
+    in bf16, as the kernels do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal):
+        from iadr1_tpu_torch.kernels.flash_attention import flash_attention_ref
+
+        ctx.scale = q.shape[-1] ** -0.5
+        out, lse = plain(flash_attention_ref, q.float(), k.float(),
+                         v.float(), q_seg, kv_seg, causal=causal,
+                         scale=ctx.scale)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.causal = causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        from iadr1_tpu_torch.kernels.flash_attention import (
+            flash_attention_bwd_ref,
+        )
+
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        grads = plain(flash_attention_bwd_ref, q.float(), k.float(),
+                      v.float(), q_seg, kv_seg, out, lse, do.float(), dlse,
+                      causal=ctx.causal, scale=ctx.scale)
+        return (*(g.to(q.dtype) for g in grads), None, None, None)
+
+
+class F32DropDlseFlash(F32TwinFlash):
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return F32TwinFlash.backward(ctx, do, None)
+
+
+class KernelFlash(torch.autograd.Function):
+    """The port's flash Function (K1 forward, K2 + K3 backward on the
+    card) in TwinFlash's signature, so that a subclass can hand the
+    kernels' backward another lse cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal):
+        from iadr1_tpu_torch.kernels.flash_attention import FlashAttention
+
+        segs = (s.to(torch.int32).contiguous() for s in (q_seg, kv_seg))
+        return FlashAttention.forward(ctx, q.contiguous(), k.contiguous(),
+                                      v.contiguous(), *segs, causal,
+                                      q.shape[-1] ** -0.5)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        from iadr1_tpu_torch.kernels.flash_attention import FlashAttention
+
+        return FlashAttention.backward(ctx, do, dlse)[:6]
+
+
+class LseProbeFlash(KernelFlash):
+    """The kernels' Function, whose backward also measures, at each call
+    that receives a non-zero lse cotangent (the decoder's merged
+    attentions), that cotangent's part of dq and dk on the call's own
+    inputs: the kernels' (K2 and K3 given it, less K2 and K3 without it)
+    against the plain versions', and as the control a plain backward given
+    half of it.  ``sums`` gathers the squared norms over the calls; the
+    step's gradients are the kernels'."""
+
+    sums: dict = {}
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        from iadr1_tpu_torch.kernels.flash_attention import (
+            flash_attention_bwd_ref,
+        )
+
+        grads = KernelFlash.backward(ctx, do, dlse)
+        if dlse is None or not bool((dlse != 0).any()):
+            return grads
+        without = KernelFlash.backward(ctx, do, None)
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+
+        def ref(d):
+            return plain(flash_attention_bwd_ref, q, k, v, q_seg, kv_seg,
+                         out, lse, do, d, causal=ctx.causal, scale=ctx.scale)
+
+        ref_with, ref_without, ref_half = ref(dlse), ref(None), ref(0.5 * dlse)
+        sums = LseProbeFlash.sums
+        for i in (0, 1):                                     # dq, dk
+            part = ref_with[i].float() - ref_without[i].float()
+            for key, got in (("kernels", grads[i].float()
+                              - without[i].float()),
+                             ("half", ref_half[i].float()
+                              - ref_without[i].float())):
+                sums[key] = sums.get(key, 0.0) + float(
+                    (got - part).norm()) ** 2
+            sums["part"] = sums.get("part", 0.0) + float(part.norm()) ** 2
+            sums["whole"] = sums.get("whole", 0.0) + float(
+                ref_with[i].float().norm()) ** 2
+        sums["calls"] = sums.get("calls", 0) + 1
+        return grads
+
+
 def lse_attn(flash):
     """The (out, lse) attention signature (kernel layout) over a flash
     Function."""
@@ -2305,6 +2755,12 @@ class RolloutTap:
         return out
 
 
+# the step-1 check's controls: the plain path with a faulty backward,
+# which the limits must catch (phases 7 and 15 take the first)
+GRPO_CONTROLS = (("without the lse cotangent", DropDlseFlash),
+                 ("with dq zeroed", ZeroDqFlash))
+
+
 def grpo_step1_diffs(got, ref) -> dict:
     """Step 1 against the plain path: loss and kl absolutely (both start
     at 0); the global grad norm and the worst per-layer q/k/v projection
@@ -2320,6 +2776,20 @@ def grpo_step1_diffs(got, ref) -> dict:
                 float(((grads[n] - grads0[n]).flatten(1).norm(dim=1)
                        / grads0[n].flatten(1).norm(dim=1)).max())
                 for n in grads0 if n[-1] in "qk")}
+
+
+def qwen_embeds(tower):
+    """The prompts' input embeddings of a Qwen VLM: ``tower(params, cfg,
+    batch, attn, remat)`` -> features, scattered onto the image tokens."""
+    def embeds(params, cfg, batch, attn, remat):
+        from iadr1_tpu_torch.models import qwen2_vl
+
+        e = params["text"]["embed"]["weight"][batch["prompt_ids"]].to(
+            torch.bfloat16)
+        feats = tower(params, cfg, batch, attn, remat)
+        return qwen2_vl.merge_image_features(
+            e, feats, batch["scatter_rows"], batch["scatter_cols"])
+    return embeds
 
 
 def grpo_case_qwen2_vl() -> types.SimpleNamespace:
@@ -2349,13 +2819,15 @@ def grpo_case_qwen2_vl() -> types.SimpleNamespace:
         data=GRPODataSection(patch_budget=GRPO_PATCH_BUDGET),
         opt_cfg=OptimizerConfig(learning_rate=GRPO_LEARNING_RATE,
                                 total_steps=100),
-        ref_dtype=torch.bfloat16, tower=tower,
+        ref_dtype=torch.bfloat16, embeds=qwen_embeds(tower),
         # the tower blocks are plain checkpoints: the policy's backward
         # replays each one's attention forward
-        tower_replays=1, vision_keys=("vision_segments",))
+        tower_replays=1, vision_keys=("vision_segments",),
+        controls=GRPO_CONTROLS[:1], lse_check=False)
 
 
-def grpo_case_q25(steps: int) -> types.SimpleNamespace:
+def grpo_case_q25(steps: int, label="q25 grpo", name="Qwen2.5-VL-3B",
+                  hf=QWEN2_5_VL_3B) -> types.SimpleNamespace:
     """Phase 15's setting: Qwen2.5-VL-3B on configs/grpo_qwen2_5_vl_7b.yaml
     through the port's config loader, assembled as cli/train_grpo.py
     assembles it (approx_top_k becomes a sampling override, which warns
@@ -2368,7 +2840,7 @@ def grpo_case_q25(steps: int) -> types.SimpleNamespace:
     job = load_config(GRPOJobConfig, Q25_GRPO_RECIPE)
     g = job.grpo
     return types.SimpleNamespace(
-        label="q25 grpo", name="Qwen2.5-VL-3B", hf=QWEN2_5_VL_3B,
+        label=label, name=name, hf=hf,
         gcfg=GRPOConfig(
             num_generations=g.num_generations, beta=g.beta,
             temperature=g.temperature, top_p=g.top_p, top_k=g.top_k,
@@ -2379,10 +2851,40 @@ def grpo_case_q25(steps: int) -> types.SimpleNamespace:
         opt_cfg=dataclasses.replace(
             dataclass_from_dict(OptimizerConfig, job.optim),
             total_steps=steps),
-        ref_dtype=getattr(torch, job.model.ref_dtype), tower=q25_twin_tower,
+        ref_dtype=getattr(torch, job.model.ref_dtype),
+        embeds=qwen_embeds(q25_twin_tower),
         # every tower block keeps its attention outside the checkpoints;
         # the update batch must carry both segment arrays (C.R7)
-        tower_replays=0, vision_keys=("full_segs", "window_segs"))
+        tower_replays=0, vision_keys=("full_segs", "window_segs"),
+        controls=GRPO_CONTROLS[:1], lse_check=False)
+
+
+def grpo_case_ov(steps: int) -> types.SimpleNamespace:
+    """Phase 16's setting: LLaVA-OneVision-0.5B on the grpo section of
+    configs/grpo_qwen2_5_vl_7b.yaml (phase 15's), the patch budget sized
+    for OneVision's tiles of 729 (OV_GRPO_PATCH_BUDGET); the update batch
+    must carry the anyres arrays (C.R9)."""
+    from iadr1_tpu_torch.models import llava_onevision
+
+    def embeds(params, cfg, batch, attn, remat):
+        return llava_onevision.compute_embeds(
+            params, cfg, batch["prompt_ids"], tiles=batch["tiles"],
+            pack_src=batch["pack_src"], pack_weights=batch["pack_weights"],
+            newline_mask=batch["newline_mask"],
+            scatter_rows=batch["scatter_rows"],
+            scatter_cols=batch["scatter_cols"],
+            tile_segments=batch["tile_segments"], tower_attention_fn=attn,
+            tower_remat=remat)
+
+    case = grpo_case_q25(steps, "ov grpo", "LLaVA-OneVision-0.5B",
+                         LLAVA_OV_05B)
+    case.data = dataclasses.replace(case.data,
+                                    patch_budget=OV_GRPO_PATCH_BUDGET)
+    case.embeds = embeds
+    case.vision_keys = ("tiles", "tile_segments", "pack_src", "pack_weights",
+                        "newline_mask")
+    case.controls, case.lse_check = GRPO_CONTROLS, True
+    return case
 
 
 def phase_grpo(examples, steps: int, card, case):
@@ -2395,7 +2897,7 @@ def phase_grpo(examples, steps: int, card, case):
 
     from iadr1_tpu_torch.cli.train_grpo import make_vlm_prompt_collator
     from iadr1_tpu_torch.kernels import all_kernels
-    from iadr1_tpu_torch.models import qwen2, qwen2_vl
+    from iadr1_tpu_torch.models import qwen2
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
     from iadr1_tpu_torch.models.shared_prompt import shared_prompt_pred_hidden
     from iadr1_tpu_torch.rewards import get_reward_funcs
@@ -2432,11 +2934,7 @@ def phase_grpo(examples, steps: int, card, case):
         tower_attn, attn_lse = train_attn(flash), lse_attn(flash)
 
         def shared_pred(params, batch, group_size, remat=True):
-            embeds = params["text"]["embed"]["weight"][
-                batch["prompt_ids"]].to(torch.bfloat16)
-            feats = case.tower(params, cfg, batch, tower_attn, bool(remat))
-            embeds = qwen2_vl.merge_image_features(
-                embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
+            embeds = case.embeds(params, cfg, batch, tower_attn, bool(remat))
             return shared_prompt_pred_hidden(
                 params["text"], cfg.text, batch, group_size,
                 attention_fn=attn_lse, remat=remat, prompt_embeds=embeds)
@@ -2484,6 +2982,9 @@ def phase_grpo(examples, steps: int, card, case):
     prefill_batch = batch_to_device(collator(examples, 1), DEVICE)
     prefill_batch["segment_ids"] = prefill_batch["attention_mask"].to(
         torch.int32)
+    if "position_ids" not in prefill_batch:     # 1-D, as the engine's
+        prefill_batch["position_ids"] = llava_positions(
+            prefill_batch["attention_mask"])
     policy = cast_dense_params(trainer.state.params, torch.bfloat16)
     for _ in range(2):                       # the second one is warm
         cache = qwen2.init_cache(cfg.text, n, P, torch.bfloat16, DEVICE)
@@ -2497,7 +2998,7 @@ def phase_grpo(examples, steps: int, card, case):
     del policy, cache
     release()
 
-    L, Lt = cfg.text.num_hidden_layers, cfg.vision.depth
+    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
     replays = case.tower_replays
     kernels = [k for k, _ in all_kernels()]
     step_s, per_step, total = [], [], {k.name: 0 for k in kernels}
@@ -2575,9 +3076,41 @@ def phase_grpo(examples, steps: int, card, case):
         return res
 
     plain = replayed_step(TwinFlash)
-    control = grpo_step1_diffs(replayed_step(DropDlseFlash), plain)
-    log(f"{label}: step 1 control (plain path without the lse cotangent) "
-        "vs plain path: " + _diff_text(control, GRPO_STEP1_LIMITS, "diff"))
+    runs, controls = {}, []
+    for what, flash in case.controls:
+        runs[flash] = replayed_step(flash)
+        controls.append(grpo_step1_diffs(runs[flash], plain))
+        log(f"{label}: step 1 control (plain path {what}) vs plain path: "
+            + _diff_text(controls[-1], GRPO_STEP1_LIMITS, "diff"))
+    lse = None
+    if case.lse_check:
+        # the lse cotangent's part of dq and dk at each merged attention,
+        # on the kernels against the plain versions, from the calls' own
+        # inputs
+        LseProbeFlash.sums = {}
+        probed = grpo_step1_diffs(replayed_step(LseProbeFlash), plain)
+        sums = LseProbeFlash.sums
+        lse = {k: math.sqrt(sums[k] / sums["part"])
+               for k in ("kernels", "half")}
+        log(f"{label}: step 1 lse cotangent over {sums['calls']} merged "
+            f"attention calls: its part of their dq and dk "
+            f"{math.sqrt(sums['part'] / sums['whole']):.3e} of the whole; "
+            f"kernels vs plain versions {lse['kernels']:.3e}, control (the "
+            f"plain backward given half of it) {lse['half']:.3e} (limit "
+            f"{GRPO_LSE_COTANGENT_LIMIT}; a backward without it reads 1); "
+            f"the probed step vs plain path "
+            + _diff_text(probed, GRPO_STEP1_LIMITS, "diff"))
+        # the step against the plain versions with p and ds unrounded
+        f32 = replayed_step(F32TwinFlash)
+        log(f"{label}: step 1 against the plain path with p and ds "
+            f"unrounded: kernels "
+            + _diff_text(grpo_step1_diffs(first, f32), GRPO_STEP1_LIMITS,
+                         "diff")
+            + "; control (without the lse cotangent) "
+            + _diff_text(grpo_step1_diffs(replayed_step(F32DropDlseFlash),
+                                          f32), GRPO_STEP1_LIMITS, "diff"))
+        del f32
+    del runs
     diffs = grpo_step1_diffs(first, plain)
     log(f"{label}: step 1 kernel vs plain path on the recorded rollout: "
         f"update batch holds {', '.join(case.vision_keys)}; loss "
@@ -2585,9 +3118,16 @@ def phase_grpo(examples, steps: int, card, case):
         f"{first[0]['kl']:.3e} vs {plain[0]['kl']:.3e}, grad norm "
         f"{first[0]['grad_norm']:.6f} vs {plain[0]['grad_norm']:.6f}; "
         + _diff_text(diffs, GRPO_STEP1_LIMITS, "diff"))
-    if _within(control, GRPO_STEP1_LIMITS):
-        raise AssertionError(
-            "the step-1 limits do not catch a dropped lse cotangent")
+    if lse is not None and lse["kernels"] > GRPO_LSE_COTANGENT_LIMIT:
+        raise AssertionError("the kernels' lse cotangent part differs from "
+                             "the plain versions'")
+    if lse is not None and lse["half"] <= GRPO_LSE_COTANGENT_LIMIT:
+        raise AssertionError("the lse-cotangent limit does not catch a "
+                             "halved lse cotangent")
+    for (what, _), control in zip(case.controls, controls):
+        if _within(control, GRPO_STEP1_LIMITS):
+            raise AssertionError(f"the step-1 limits do not catch the "
+                                 f"plain path {what}")
     if not _within(diffs, GRPO_STEP1_LIMITS):
         raise AssertionError("GRPO step 1 differs between kernel and plain "
                              "path")
@@ -2599,6 +3139,9 @@ def phase_grpo(examples, steps: int, card, case):
         return statistics.median(list(xs)[late])
 
     R = len(rewards)
+    # patches: [n, patch_dim] (Qwen) or tiles [n, g*g, patch_dim] (LLaVA)
+    n_patches = sum(p.shape[0] * (p.shape[1] if p.ndim == 3 else 1)
+                    for ex in examples for p in ex["patches"])
     rollout_ms = med(1e3 * s for s in roll_s)
     decode_ms = med((1e3 * s - prefill_ms) / k
                     for s, k in zip(roll_s, roll_steps))
@@ -2610,8 +3153,7 @@ def phase_grpo(examples, steps: int, card, case):
     log(f"{label}: {case.name} {n_params / 1e9:.3f}B f32 policy + "
         f"{str(case.ref_dtype)[6:]} reference, {steps} steps of {n} prompts "
         f"x G={G} (P={P}, N={N}, "
-        f"{sum(int(np.prod(g)) for ex in examples for g in ex['grid_thw'])} "
-        f"patches), lr {case.opt_cfg.learning_rate} "
+        f"{n_patches} patches), lr {case.opt_cfg.learning_rate} "
         f"{case.opt_cfg.schedule}; loss "
         f"{[float(format(m['loss'], '.3e')) for m in history]}, kl "
         f"{[float(format(m['kl'], '.3e')) for m in history]}, grad norm "
@@ -3085,12 +3627,16 @@ def llava_positions(mask):
 
 
 def tower_depth(cfg) -> int:
+    """The tower layers that run (one K1 call each): LLaVA-1.5/NeXT run
+    the first ``tower_layers`` of CLIP's."""
     v = cfg.vision
-    return getattr(v, "depth", None) or v.num_hidden_layers
+    return (getattr(cfg, "tower_layers", None) or getattr(v, "depth", None)
+            or v.num_hidden_layers)
 
 
 def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
-                    max_new_tokens, card, twin_apply, describe):
+                    max_new_tokens, card, twin_apply, describe,
+                    eos_pad=(IM_END, ENDOFTEXT)):
     """Phases 11 and 13: a VLM at full width (bf16 weights drawn on the
     card from a seed) serves 4 already-tokenized image requests through
     VLMGenerator._collate and RolloutEngine.generate, greedy.  K1 must run
@@ -3099,7 +3645,8 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     path's prefill logits must agree with the twin path's
     (``twin_apply(params, cfg, batch, cache, attn)`` -> hidden).
     ``describe(batch)`` checks the collated vision arrays and says what
-    they hold.  Returns the launch counts."""
+    they hold; ``eos_pad`` the tokenizer's end and padding ids.  Returns
+    the launch counts."""
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.kernels import all_kernels
@@ -3116,8 +3663,8 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{label}: {name} {n_params / 1e9:.3f}B params (bf16, seeded) "
         f"drawn on the card in {time.perf_counter() - t0:.1f} s")
-    tokenizer = types.SimpleNamespace(eos_token_id=IM_END,
-                                      pad_token_id=ENDOFTEXT)
+    tokenizer = types.SimpleNamespace(eos_token_id=eos_pad[0],
+                                      pad_token_id=eos_pad[1])
     gcfg = GeneratorConfig(max_prompt_length=prompt_len,
                            max_new_tokens=max_new_tokens, batch_size=BATCH,
                            patch_budget=patch_budget)
@@ -3217,15 +3764,15 @@ def phase_llava_serve(encoded, max_new_tokens, card):
     def twin_apply(params, cfg, b, cache, attn):
         h, _ = llava_onevision.apply(
             params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
-            pack_src=b["pack_src"], pack_weights=b["pack_weights"],
-            newline_mask=b["newline_mask"], scatter_rows=b["scatter_rows"],
-            scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
-            cache=cache, cache_mode="prefill", attention_fn=attn,
-            tower_attention_fn=attn)
+            tile_segments=b["tile_segments"], pack_src=b["pack_src"],
+            pack_weights=b["pack_weights"], newline_mask=b["newline_mask"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], cache=cache, cache_mode="prefill",
+            attention_fn=attn, tower_attention_fn=attn)
         return h
 
     def describe(batch):
-        n_tiles = int((batch["tiles"].flatten(1) != 0).any(1).sum())
+        n_tiles = int(batch["tile_segments"].sum())
         if batch["tiles"].shape[0] != 22 or n_tiles != 16:
             raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
                                  f"{n_tiles} of them images'")
@@ -3276,7 +3823,7 @@ def phase_q25_serve(encoded, max_new_tokens, card):
 
 
 def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
-                  plain_apply, tower_flops, batch_rows=None):
+                  plain_apply, tower_flops, batch_rows=None, overrides=()):
     """Phases 12 and 14: PA-SFT steps of a VLM at full width on a recipe's
     settings (``recipe`` through the port's config loader), assembled as
     cli/train_sft.py assembles them, f32 parameters drawn on the card;
@@ -3285,7 +3832,8 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     through the plain versions (``plain_apply(params, cfg, batch, attn,
     remat, tower_remat)`` -> hidden), a control with dq zeroed must not,
     and the loss must fall.  ``tower_flops(batch)`` -> (the tower's
-    forward FLOPs, what it ran over).  Returns the launch counts."""
+    forward FLOPs, what it ran over); ``overrides`` change the recipe's
+    keys as a command line would.  Returns the launch counts."""
     import gc
 
     from iadr1_tpu_torch.cli.train_sft import SFTJobConfig, _remat
@@ -3306,7 +3854,7 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     from iadr1_tpu_torch.train.sft import STEP_RANGES, make_chunked_sft_step
     from iadr1_tpu_torch.train.state import create_train_state
 
-    job = load_config(SFTJobConfig, recipe)
+    job = load_config(SFTJobConfig, recipe, list(overrides))
     bundle = bundle_from_hf_config(hf, attention=job.model.attention)
     cfg = bundle.cfg
     recipe_rows = int(job.train["batch_size"])
@@ -3326,7 +3874,8 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     log(f"{label}: the recipe: B={B}"
         + (f" (the recipe's {recipe_rows} rows cut to {B})"
            if B != recipe_rows else "")
-        + f" T={T}, remat {remat}, tower remat {tower_remat}, CE chunk "
+        + f" T={T}" + (f" ({', '.join(overrides)})" if overrides else "")
+        + f", remat {remat}, tower remat {tower_remat}, CE chunk "
         f"{job.data.ce_chunk} in {job.data.ce_logits_dtype}, patch budget "
         f"{job.data.patch_budget}, AdamW lr {opt_cfg.learning_rate} "
         f"{opt_cfg.schedule} (weight decay {opt_cfg.weight_decay}, clip "
@@ -3458,19 +4007,18 @@ def phase_llava_sft(rows, steps: int, card):
     def plain_apply(params, cfg, b, attn, remat, tower_remat):
         h, _ = llava_onevision.apply(
             params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
-            pack_src=b["pack_src"], pack_weights=b["pack_weights"],
-            newline_mask=b["newline_mask"], scatter_rows=b["scatter_rows"],
-            scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
-            attention_fn=attn, tower_attention_fn=attn, remat=remat,
-            tower_remat=tower_remat)
+            tile_segments=b["tile_segments"], pack_src=b["pack_src"],
+            pack_weights=b["pack_weights"], newline_mask=b["newline_mask"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], attention_fn=attn,
+            tower_attention_fn=attn, remat=remat, tower_remat=tower_remat)
         return h
 
     def tower_flops(first):
         # model FLOPs count the tiles that hold images, not the zero
         # padding that fills the budget
         n_tiles = first["tiles"].shape[0]        # the tower runs the budget
-        n_images = int((first["tiles"].reshape(n_tiles, -1) != 0)
-                       .any(1).sum())
+        n_images = int(first["tile_segments"].sum())
         v = LLAVA_OV_05B["vision_config"]
         flops = n_images * 729 * vit_flops_per_patch(
             hidden=v["hidden_size"], intermediate=v["intermediate_size"],
@@ -3531,6 +4079,94 @@ def phase_q25_sft(rows, steps: int, card):
                          batch_rows=Q25_SFT_ROWS)
 
 
+def llava_twin_apply(params, cfg, b, cache, attn):
+    """A LLaVA-1.5/NeXT prefill over ``attn`` (tower and decoder)."""
+    from iadr1_tpu_torch.models import llava
+
+    h, _ = llava.apply(
+        params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+        tile_segments=b["tile_segments"], pack_src=b.get("pack_src"),
+        pack_weights=b.get("pack_weights"),
+        newline_mask=b.get("newline_mask"), scatter_rows=b["scatter_rows"],
+        scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+        cache=cache, cache_mode="prefill", attention_fn=attn,
+        tower_attention_fn=attn)
+    return h
+
+
+def phase_next_serve(encoded, feature_lens, max_new_tokens, card):
+    """Phase 17: LLaVA-NeXT-8B at full width and depth serves 4 image
+    requests (16 anyres tiles, the patch budget's 16); returns the launch
+    counts."""
+    def describe(batch):
+        n_tiles = int(batch["tile_segments"].sum())
+        if batch["tiles"].shape[0] != 16 or n_tiles != 16:
+            raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
+                                 f"{n_tiles} of them images'")
+        return f"16 tiles, image features {feature_lens}"
+
+    return phase_vlm_serve("llava16 serve", "LLaVA-NeXT-8B", LLAVA_NEXT_8B,
+                           encoded, NEXT_PROMPT_LEN, NEXT_PATCH_BUDGET,
+                           max_new_tokens, card, llava_twin_apply, describe,
+                           eos_pad=(LLAMA3_EOT, LLAMA3_END))
+
+
+def phase_v15_serve(encoded, max_new_tokens, card):
+    """Phase 18: LLaVA-1.5-7B at full width and depth serves 4 image
+    requests (one center-cropped tile each); returns the launch counts."""
+    def describe(batch):
+        n_tiles = int(batch["tile_segments"].sum())
+        if batch["tiles"].shape[0] != 4 or n_tiles != 4:
+            raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}")
+        return "4 tiles of 576 features"
+
+    return phase_vlm_serve("llava15 serve", "LLaVA-1.5-7B", LLAVA_15_7B,
+                           encoded, V15_PROMPT_LEN, V15_PATCH_BUDGET,
+                           max_new_tokens, card, llava_twin_apply, describe,
+                           eos_pad=(VICUNA_EOS, VICUNA_PAD))
+
+
+def phase_next_sft(rows, steps: int, card):
+    """Phase 19: LLaVA-NeXT PA-SFT at full width, the decoder cut to
+    NEXT_SFT_LAYERS layers, on configs/sft_llava_onevision_0_5b.yaml's
+    settings with rows of NEXT_SFT_CUTOFF; returns the launch counts."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+    from iadr1_tpu_torch.models import llava
+
+    hf = dict(LLAVA_NEXT_8B, text_config=dict(
+        LLAVA_NEXT_8B["text_config"], num_hidden_layers=NEXT_SFT_LAYERS))
+
+    def plain_apply(params, cfg, b, attn, remat, tower_remat):
+        h, _ = llava.apply(
+            params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+            tile_segments=b["tile_segments"], pack_src=b["pack_src"],
+            pack_weights=b["pack_weights"], newline_mask=b["newline_mask"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], attention_fn=attn,
+            tower_attention_fn=attn, remat=remat, tower_remat=tower_remat)
+        return h
+
+    def tower_flops(first):
+        # model FLOPs count the tiles that hold images, over the 23
+        # layers that run; the padding tiles' attention is skipped, their
+        # projections and MLPs are not
+        n_tiles = first["tiles"].shape[0]
+        n_images = int(first["tile_segments"].sum())
+        v = LLAVA_NEXT_8B["vision_config"]
+        flops = n_images * 577 * vit_flops_per_patch(
+            hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+            num_layers=v["num_hidden_layers"] - 1, attn_window=577)
+        return flops, (f"4 images in {n_images} of the {n_tiles} tiles, "
+                       "the rest at segment 0")
+
+    return phase_vlm_sft(
+        "llava16 sft", f"LLaVA-NeXT-8B cut to {NEXT_SFT_LAYERS} decoder "
+        "layers", hf, LLAVA_RECIPE, rows, steps, card, NEXT_TRAIN_DIR,
+        plain_apply, tower_flops, batch_rows=NEXT_SFT_ROWS,
+        overrides=[f"data.cutoff_len={NEXT_SFT_CUTOFF}",
+                   "data.template=llava_next_llama3"])
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -3550,10 +4186,11 @@ def main() -> int:
     ap.add_argument("--max-new-tokens", type=int, default=128,
                     help="new tokens of the serving phase's generate")
     ap.add_argument("--train-steps", type=int, default=4,
-                    help="PA-SFT steps of phases 6, 12 and 14 (at least 2)")
+                    help="PA-SFT steps of phases 6, 12, 14 and 19 (at "
+                         "least 2)")
     ap.add_argument("--grpo-steps", type=int, default=2,
-                    help="SC-GRPO steps of phase 7 (at least 1; phase 15 "
-                         "takes at most 2), each a rollout of "
+                    help="SC-GRPO steps of phase 7 (at least 1; phases 15 "
+                         "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--pad-compare", action="store_true",
                     help="also time K1-K3 at the SigLIP tower with q, k, v "
@@ -3593,6 +4230,11 @@ def main() -> int:
     q25_encoded = make_q25_requests()
     q25_rows = make_q25_sft_rows(Q25_SFT_CUTOFF)
     q25_grpo_examples = make_q25_grpo_examples()
+    ov_grpo_examples = make_ov_grpo_examples(llava)
+    next_bundle = bundle_from_hf_config(LLAVA_NEXT_8B)   # host side only
+    next_encoded, next_feature_lens = make_next_requests(next_bundle)
+    next_rows = make_next_sft_rows(next_bundle, NEXT_SFT_CUTOFF)
+    v15_encoded = make_v15_requests(bundle_from_hf_config(LLAVA_15_7B))
     measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
                              grpo_examples)
     for name, results in phase_kernels_llava(
@@ -3601,6 +4243,10 @@ def main() -> int:
         measured[name] += results
     for name, results in phase_kernels_q25(
             q25_encoded, q25_rows, q25_grpo_examples,
+            args.max_new_tokens).items():
+        measured[name] += results
+    for name, results in phase_kernels_llava_families(
+            next_encoded, v15_encoded, next_rows, ov_grpo_examples,
             args.max_new_tokens).items():
         measured[name] += results
     serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
@@ -3620,6 +4266,13 @@ def main() -> int:
     q25_steps = min(args.grpo_steps, Q25_GRPO_STEPS)
     q25_grpo = phase_grpo(q25_grpo_examples, q25_steps, card,
                           grpo_case_q25(q25_steps))
+    ov_steps = min(args.grpo_steps, OV_GRPO_STEPS)
+    llava_grpo = phase_grpo(ov_grpo_examples, ov_steps, card,
+                            grpo_case_ov(ov_steps))
+    llava16_serve = phase_next_serve(next_encoded, next_feature_lens,
+                                     args.max_new_tokens, card)
+    llava15_serve = phase_v15_serve(v15_encoded, args.max_new_tokens, card)
+    llava16_sft = phase_next_sft(next_rows, args.train_steps, card)
 
     line = []
     for k, replaces in kernels:
@@ -3637,7 +4290,11 @@ def main() -> int:
                                       "llava_sft": llava_sft[k.name],
                                       "q25_serve": q25_serve[k.name],
                                       "q25_sft": q25_sft[k.name],
-                                      "q25_grpo": q25_grpo[k.name]}}
+                                      "q25_grpo": q25_grpo[k.name],
+                                      "llava_grpo": llava_grpo[k.name],
+                                      "llava16_serve": llava16_serve[k.name],
+                                      "llava15_serve": llava15_serve[k.name],
+                                      "llava16_sft": llava16_sft[k.name]}}
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

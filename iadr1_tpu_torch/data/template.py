@@ -1,80 +1,105 @@
 """Chat templates for prompt and training encoding (the port's own copy of
 the pieces of iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` and
-``encode_multiturn`` that the chatml templates ``qwen2_vl``,
-``qwen2_5_vl`` and ``llava_next_qwen`` need; the other templates wait for
-ROADMAP A.13)."""
+``encode_multiturn`` that the ported families' templates need: the chatml
+``qwen2_vl``, ``qwen2_5_vl``, ``llava_next_qwen`` and ``llava_next_yi``,
+the vicuna-style ``llava`` and ``llava_next``, and ``llava_next_llama3``;
+the other templates wait for ROADMAP A.13).
+
+A template is a few slots, each a tuple of chunks: strings with a
+``{content}`` placeholder, and the sentinels ``EOS`` and ``BOS`` for the
+tokenizer's own special tokens.  ``prefix`` leads the first message."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+# the tokenizer's special tokens inside a slot
+EOS = object()
+BOS = object()
+
 
 @dataclasses.dataclass(frozen=True)
 class ChatTemplate:
     name: str
-    user: str = "{content}"
-    assistant: str = "{content}"
-    system: str = "{content}"
+    user: tuple = ("{content}",)
+    assistant: tuple = ("{content}", EOS)
+    system: tuple = ("{content}",)
+    prefix: tuple = ()
     default_system: str = ""
     stop_words: tuple = ()
     image_token: str = "<image>"
     mm_style: str = "plain"
 
+    def _message_chunks(self, role: str, content: str, first: bool,
+                        system: str | None) -> list:
+        """One message as the chunks the JAX package encodes one by one:
+        the prefix and the system block (first message only), then the
+        role's slot."""
+        chunks: list = []
+        if first:
+            chunks += list(self.prefix)
+            sys = system if system is not None else self.default_system
+            if sys:
+                chunks += [c.replace("{content}", sys) if isinstance(c, str)
+                           else c for c in self.system]
+        if role not in ("user", "assistant"):
+            raise ValueError(f"unsupported role {role!r}")
+        slot = self.user if role == "user" else self.assistant
+        chunks += [c.replace("{content}", content) if isinstance(c, str)
+                   else c for c in slot]
+        return chunks
+
     def render_conversation(self, messages: Sequence[dict],
-                            system: str | None = None) -> str:
+                            system: str | None = None, eos_text: str = "",
+                            bos_text: str = "") -> str:
         """The conversation as one string, ending in the assistant
-        preamble when the last message is the user's (the user slot
-        carries it)."""
-        parts = []
-        for i, msg in enumerate(messages):
-            if i == 0:
-                sys = system if system is not None else self.default_system
-                if sys:
-                    parts.append(self.system.replace("{content}", sys))
-            if msg["role"] == "user":
-                parts.append(self.user.replace("{content}", msg["content"]))
-            elif msg["role"] == "assistant":
-                parts.append(self.assistant.replace("{content}",
-                                                    msg["content"]))
-            else:
-                raise ValueError(f"unsupported role {msg['role']!r}")
+        preamble (the user slot carries it; after a last message of the
+        assistant's, the user slot's text after ``{content}`` follows)."""
+        special = {id(EOS): eos_text, id(BOS): bos_text}
+        parts = [special.get(id(c), c)
+                 for i, m in enumerate(messages)
+                 for c in self._message_chunks(m["role"], m["content"],
+                                               i == 0, system)]
         if messages and messages[-1]["role"] != "user":
-            parts.append(self.user.rsplit("{content}", 1)[1])
+            seen = False
+            for c in self.user:
+                if isinstance(c, str) and "{content}" in c:
+                    parts.append(c.rsplit("{content}", 1)[1])
+                    seen = True
+                elif seen and isinstance(c, str):
+                    parts.append(c)
         return "".join(parts)
 
     def encode_prompt(self, tokenizer, messages: Sequence[dict],
                       system: str | None = None) -> list[int]:
-        """Token ids of the conversation with the generation preamble."""
-        text = self.render_conversation(messages, system)
+        """Token ids of the conversation with the generation preamble.
+        EOS and BOS render as the tokenizer's token strings, where it has
+        them (a stand-in that only encodes serves the chatml templates)."""
+        text = self.render_conversation(
+            messages, system,
+            eos_text=getattr(tokenizer, "eos_token", None) or "",
+            bos_text=getattr(tokenizer, "bos_token", None) or "")
         return tokenizer.encode(text, add_special_tokens=False)
-
-    def _message_chunks(self, role: str, content: str, first: bool,
-                        system: str | None) -> list[str]:
-        """One message as the strings the JAX package encodes one by one:
-        the system block (first message only) and the role's slot."""
-        chunks = []
-        sys = system if system is not None else self.default_system
-        if first and sys:
-            chunks.append(self.system.replace("{content}", sys))
-        if role not in ("user", "assistant"):
-            raise ValueError(f"unsupported role {role!r}")
-        slot = self.user if role == "user" else self.assistant
-        chunks.append(slot.replace("{content}", content))
-        return chunks
 
     def encode_multiturn(self, tokenizer, messages: Sequence[dict],
                          system: str | None = None
                          ) -> list[tuple[list[int], list[int]]]:
         """[(prompt_ids, response_ids)] per user/assistant turn pair.  Each
         chunk is tokenized on its own, so no merge spans the system block
-        and the first user turn (as in JAX)."""
+        and the first user turn (as in JAX); EOS and BOS become the
+        tokenizer's ids, or nothing where it has none."""
         encoded = []
         for i, m in enumerate(messages):
             ids: list[int] = []
             for chunk in self._message_chunks(m["role"], m["content"],
                                               i == 0, system):
-                if chunk:
+                if chunk is EOS or chunk is BOS:
+                    tid = (tokenizer.eos_token_id if chunk is EOS
+                           else tokenizer.bos_token_id)
+                    if tid is not None:
+                        ids.append(tid)
+                elif chunk:
                     ids.extend(tokenizer.encode(chunk,
                                                 add_special_tokens=False))
             encoded.append(ids)
@@ -85,23 +110,51 @@ class ChatTemplate:
 
 
 _CHATML = dict(
-    user="<|im_start|>user\n{content}<|im_end|>\n<|im_start|>assistant\n",
-    assistant="{content}<|im_end|>\n",
-    system="<|im_start|>system\n{content}<|im_end|>\n",
-    default_system="You are a helpful assistant.",
+    user=("<|im_start|>user\n{content}<|im_end|>\n<|im_start|>assistant\n",),
+    assistant=("{content}<|im_end|>\n",),
+    system=("<|im_start|>system\n{content}<|im_end|>\n",),
     stop_words=("<|im_end|>",),
 )
+_QWEN_SYSTEM = "You are a helpful assistant."
+# vicuna v1 (LLaVA-1.5 and LLaVA-1.6-Vicuna)
+_VICUNA = dict(
+    user=("USER: {content} ASSISTANT:",),
+    default_system=(
+        "A chat between a curious user and an artificial intelligence "
+        "assistant. The assistant gives helpful, detailed, and polite "
+        "answers to the user's questions."),
+)
+# LLaMA-3 instruct (LLaVA-NeXT-8B)
+_LLAMA3 = dict(
+    user=("<|start_header_id|>user<|end_header_id|>\n\n{content}<|eot_id|>"
+          "<|start_header_id|>assistant<|end_header_id|>\n\n",),
+    assistant=("{content}<|eot_id|>",),
+    system=("<|start_header_id|>system<|end_header_id|>\n\n{content}"
+            "<|eot_id|>",),
+    prefix=(BOS,),
+    stop_words=("<|eot_id|>", "<|eom_id|>"),
+)
+# the LLaVA families: each image a run of <image> tokens
+_LLAVA = dict(image_token="<image>", mm_style="llava")
 
 TEMPLATES = {
     "qwen2_vl": ChatTemplate(name="qwen2_vl", image_token="<|image_pad|>",
-                             mm_style="qwen2_vl", **_CHATML),
+                             mm_style="qwen2_vl",
+                             default_system=_QWEN_SYSTEM, **_CHATML),
     "qwen2_5_vl": ChatTemplate(name="qwen2_5_vl",
                                image_token="<|image_pad|>",
-                               mm_style="qwen2_vl", **_CHATML),
-    # LLaVA-OneVision: chatml, each image a run of <image> tokens
+                               mm_style="qwen2_vl",
+                               default_system=_QWEN_SYSTEM, **_CHATML),
+    # LLaVA-OneVision
     "llava_next_qwen": ChatTemplate(name="llava_next_qwen",
-                                    image_token="<image>", mm_style="llava",
-                                    **_CHATML),
+                                    default_system=_QWEN_SYSTEM,
+                                    **_CHATML, **_LLAVA),
+    # LLaVA-1.5, LLaVA-1.6-Vicuna, LLaVA-NeXT-8B and LLaVA-1.6-34B
+    "llava": ChatTemplate(name="llava", **_VICUNA, **_LLAVA),
+    "llava_next": ChatTemplate(name="llava_next", **_VICUNA, **_LLAVA),
+    "llava_next_llama3": ChatTemplate(name="llava_next_llama3", **_LLAMA3,
+                                      **_LLAVA),
+    "llava_next_yi": ChatTemplate(name="llava_next_yi", **_CHATML, **_LLAVA),
 }
 
 

@@ -178,7 +178,10 @@ def live_key_tiles(q_seg, kv_seg, causal: bool, group: int):
 def flash_attention_ref(q, k, v, segment_ids, kv_segment_ids, *,
                         causal: bool, scale: float):
     """The plain PyTorch twin: q [B,H,T,D], k/v [B,Hkv,S,D] ->
-    (out [B,H,T,D] in q's dtype, lse [B,H,T] f32), softmax in f32."""
+    (out [B,H,T,D] in q's dtype, lse [B,H,T] f32), softmax in f32.  The
+    probabilities enter P @ V in v's dtype, as the kernel (and the Pallas
+    ``_fwd_kernel``, ``p.astype(v.dtype)``) takes them: a no-op for f32
+    inputs, a rounding to bf16 for bf16 ones."""
     group = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
@@ -188,7 +191,7 @@ def flash_attention_ref(q, k, v, segment_ids, kv_segment_ids, *,
     lse = torch.logsumexp(s, dim=-1)
     empty = torch.isneginf(lse)
     p = torch.exp(s - lse.masked_fill(empty, 0.0)[..., None])
-    out = torch.einsum("bhts,bhsd->bhtd", p, vf)
+    out = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), vf)
     return out.to(q.dtype), lse.masked_fill(empty, float("inf"))
 
 
@@ -230,8 +233,11 @@ def flash_attention_bwd_ref(q, k, v, segment_ids, kv_segment_ids, out, lse,
     p = exp(s - lse) from the saved lse, ds = p * (do v^T - delta) * scale
     with delta = rowsum(out * do) - dlse; dq = ds k, dk = ds^T q and
     dv = p^T do summed over each GQA group.  Masked pairs are selected to
-    0, so a row with lse = +inf gets dq = 0.  Sums in f32; dq, dk, dv come
-    back in the q, k, v dtypes.  ``dlse`` may be None (zero)."""
+    0, so a row with lse = +inf gets dq = 0.  Sums in f32, with p and ds
+    entering the products in the operands' dtype, as the kernels (and the
+    Pallas ``_bwd`` kernels, ``p.astype(do.dtype)``, ``ds.astype(q.dtype)``)
+    take them; dq, dk, dv come back in the q, k, v dtypes.  ``dlse`` may
+    be None (zero)."""
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -244,9 +250,10 @@ def flash_attention_bwd_ref(q, k, v, segment_ids, kv_segment_ids, out, lse,
     dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
     delta = _delta(out, do, dlse)
     ds = torch.where(valid, p * (dp - delta[..., None]) * scale, 0.0)
+    ds = ds.to(k.dtype).float()
     dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
     dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
-    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    dv = torch.einsum("bhts,bhtd->bhsd", p.to(do.dtype).float(), dof)
     dk = dk.reshape(B, Hkv, group, S, D).sum(2)
     dv = dv.reshape(B, Hkv, group, S, D).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

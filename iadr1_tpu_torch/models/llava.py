@@ -1,0 +1,171 @@
+"""LLaVA-1.5 and LLaVA-NeXT (1.6), image inputs: the CLIP tower, a
+two-layer projector and a llama-style decoder (the Qwen2 module with
+``attention_bias=False``), counterpart of iadr1_tpu/models/llava.py.
+
+HF ``LlavaForConditionalGeneration`` semantics (one 336 x 336 tile per
+image, 576 features: ``vision_feature_layer`` -2, strategy "default" drops
+CLS) and ``LlavaNextForConditionalGeneration`` (anyres tiles, the unpadded
+spatial grid and a newline vector after each row, packed as LLaVA-OneVision
+packs them but never downscaled).  These are the reference's LLaVA-1.5-7B/13B
+and LLaVA-1.6-8B/34B families.  Positions are 1-D (no M-RoPE).
+
+The video families (LLaVA-NeXT-Video, Video-LLaVA: ``video_tiles``,
+frame pooling, a second tower) wait for ROADMAP A.13.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
+from iadr1_tpu_torch.models import clip_vit, common, qwen2
+from iadr1_tpu_torch.models.common import dense
+from iadr1_tpu_torch.models.params_io import _get
+from iadr1_tpu_torch.models.qwen2_vl import merge_image_features
+
+VIDEO_NOT_PORTED = "LLaVA video inputs are not ported yet (ROADMAP A.13)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LlavaConfig:
+    text: qwen2.Qwen2Config
+    vision: clip_vit.ClipVisionConfig
+    image_token_id: int = 32000
+    vision_feature_layer: int = -2
+    vision_feature_select_strategy: str = "default"
+    # LLaVA-NeXT only
+    anyres: bool = False
+    image_grid_pinpoints: tuple = ()
+
+    @property
+    def tower_layers(self) -> int:
+        """The tower layers that run: ``vision_feature_layer`` -2 reads
+        the output of layer L - 1."""
+        return self.vision.num_hidden_layers + 1 + self.vision_feature_layer
+
+
+def init_params(gen, cfg: LlavaConfig, dtype, device) -> dict:
+    hid, E = cfg.text.hidden_size, cfg.vision.hidden_size
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=device)
+    params = {
+        "text": qwen2.init_params(gen, cfg.text, dtype, device),
+        "vision": clip_vit.init_params(gen, cfg.vision, dtype, device),
+        "projector": {
+            "fc1": {"kernel": common.dense_init(gen, E, hid, dtype, device),
+                    "bias": zeros(hid)},
+            "fc2": {"kernel": common.dense_init(gen, hid, hid, dtype,
+                                                device),
+                    "bias": zeros(hid)},
+        },
+    }
+    if cfg.anyres:
+        params["image_newline"] = zeros(hid)
+    return params
+
+
+def convert_hf(state, cfg: LlavaConfig, dtype=torch.float32,
+               device=None) -> dict:
+    """HF LLaVA / LLaVA-NeXT state dict (name -> array), in either key
+    layout (``model.language_model.*`` of newer transformers, or
+    ``language_model.model.*``) -> parameter dict."""
+    from iadr1_tpu_torch.models.params_io import convert_qwen2
+
+    device = resolve_device(device)
+    if any(k.startswith("model.language_model.") for k in state):
+        lm, vt = "model.language_model.", "model.vision_tower.vision_model."
+        proj, newline = "model.multi_modal_projector.", "model.image_newline"
+    else:
+        lm, vt = "language_model.model.", "vision_tower.vision_model."
+        proj, newline = "multi_modal_projector.", "image_newline"
+    kw = dict(dtype=dtype, device=device)
+
+    def linear(name):
+        return {"kernel": _get(state, proj + name + ".weight", True, **kw),
+                "bias": _get(state, proj + name + ".bias", **kw)}
+
+    params = {
+        "text": convert_qwen2(state, cfg.text, prefix=lm, **kw),
+        "vision": clip_vit.convert_hf(state, cfg.vision, prefix=vt, **kw),
+        "projector": {"fc1": linear("linear_1"), "fc2": linear("linear_2")},
+    }
+    if cfg.anyres:
+        params["image_newline"] = _get(state, newline, **kw)
+    return params
+
+
+def project(params, feats):
+    """The projector: exact (erf) GELU between its two layers."""
+    p = params["projector"]
+    h = dense(feats, p["fc1"]["kernel"], p["fc1"]["bias"])
+    return dense(F.gelu(h), p["fc2"]["kernel"], p["fc2"]["bias"])
+
+
+def compute_embeds(params, cfg: LlavaConfig, input_ids, *, tiles=None,
+                   tile_segments=None, pack_src=None, pack_weights=None,
+                   newline_mask=None, scatter_rows=None, scatter_cols=None,
+                   precision: Precision = DEFAULT_PRECISION,
+                   tower_attention_fn: Callable | None = None,
+                   tower_remat=False, **video):
+    """Token embeddings with the image features scattered onto the image
+    tokens (features of padding target the dropped row B): one tile per
+    image (1.5), or the anyres plan's weighted gather with the newline
+    rows (NeXT)."""
+    if any(v is not None for v in video.values()):
+        raise NotImplementedError(VIDEO_NOT_PORTED)
+    embeds = common.embed_lookup(params["text"]["embed"]["weight"],
+                                 input_ids).to(precision.compute_dtype)
+    if tiles is None:
+        return embeds
+    feats = clip_vit.apply(
+        params["vision"], cfg.vision, tiles, precision=precision,
+        remat=tower_remat, num_layers=cfg.tower_layers,
+        keep_cls=cfg.vision_feature_select_strategy == "full",
+        attention_fn=tower_attention_fn, tile_segments=tile_segments)
+    feats = project(params, feats)
+    flat = feats.reshape(-1, feats.shape[-1])
+    if cfg.anyres:
+        gathered = (flat[pack_src.long()]
+                    * pack_weights[..., None].to(flat.dtype)).sum(1)
+        newline = params["image_newline"].to(gathered.dtype)
+        flat = torch.where(newline_mask.bool()[:, None], newline[None, :],
+                           gathered)
+    return merge_image_features(embeds, flat, scatter_rows, scatter_cols)
+
+
+def apply(params: dict, cfg: LlavaConfig,
+          input_ids: torch.Tensor,             # [B, T]
+          position_ids: torch.Tensor,          # [B, T]
+          *, tiles=None, tile_segments=None, pack_src=None,
+          pack_weights=None, newline_mask=None, scatter_rows=None,
+          scatter_cols=None, segment_ids=None, cache: dict | None = None,
+          cache_mode: str = "extend",
+          precision: Precision = DEFAULT_PRECISION,
+          attention_fn: Callable | None = None,
+          decode_attention_fn: Callable | None = None,
+          tower_attention_fn: Callable | None = None,
+          remat=False, tower_remat=None, **video):
+    """Full forward -> (hidden [B, T, hid], cache).  ``remat`` is the
+    decoder's mode; ``tower_remat`` the tower's, following ``remat`` when
+    None, as in the JAX apply."""
+    embeds = compute_embeds(
+        params, cfg, input_ids, tiles=tiles, tile_segments=tile_segments,
+        pack_src=pack_src, pack_weights=pack_weights,
+        newline_mask=newline_mask, scatter_rows=scatter_rows,
+        scatter_cols=scatter_cols, precision=precision,
+        tower_attention_fn=tower_attention_fn,
+        tower_remat=remat if tower_remat is None else tower_remat, **video)
+    return qwen2.apply(
+        params["text"], cfg.text, inputs_embeds=embeds,
+        position_ids=position_ids, segment_ids=segment_ids, cache=cache,
+        cache_mode=cache_mode, precision=precision, attention_fn=attention_fn,
+        decode_attention_fn=decode_attention_fn, remat=remat)
+
+
+def logits(params, cfg: LlavaConfig, hidden,
+           precision: Precision = DEFAULT_PRECISION):
+    return qwen2.logits(params["text"], cfg.text, hidden, precision)

@@ -105,20 +105,23 @@ def project_and_pack(params: dict, tile_features: torch.Tensor,
 
 
 def compute_embeds(params, cfg: LlavaOnevisionConfig, input_ids, *,
-                   tiles=None, pack_src=None, pack_weights=None,
-                   newline_mask=None, scatter_rows=None, scatter_cols=None,
+                   tiles=None, tile_segments=None, pack_src=None,
+                   pack_weights=None, newline_mask=None, scatter_rows=None,
+                   scatter_cols=None,
                    precision: Precision = DEFAULT_PRECISION,
                    tower_attention_fn: Callable | None = None,
                    tower_remat=False):
     """Token embeddings with the packed image features scattered onto the
-    image tokens (features for padding target the dropped row B)."""
+    image tokens (features for padding target the dropped row B); the
+    tower skips the padding tiles (``tile_segments`` 0)."""
     embeds = common.embed_lookup(params["text"]["embed"]["weight"],
                                  input_ids).to(precision.compute_dtype)
     if tiles is not None:
         feats = siglip.apply(params["vision"], cfg.vision, tiles,
                              precision=precision, remat=tower_remat,
                              post_layernorm=False,
-                             attention_fn=tower_attention_fn)
+                             attention_fn=tower_attention_fn,
+                             tile_segments=tile_segments)
         packed = project_and_pack(params, feats, pack_src, pack_weights,
                                   newline_mask)
         embeds = merge_image_features(embeds, packed, scatter_rows,
@@ -129,9 +132,9 @@ def compute_embeds(params, cfg: LlavaOnevisionConfig, input_ids, *,
 def apply(params: dict, cfg: LlavaOnevisionConfig,
           input_ids: torch.Tensor,             # [B, T]
           position_ids: torch.Tensor,          # [B, T]
-          *, tiles=None, pack_src=None, pack_weights=None,
-          newline_mask=None, scatter_rows=None, scatter_cols=None,
-          segment_ids=None, cache: dict | None = None,
+          *, tiles=None, tile_segments=None, pack_src=None,
+          pack_weights=None, newline_mask=None, scatter_rows=None,
+          scatter_cols=None, segment_ids=None, cache: dict | None = None,
           cache_mode: str = "extend",
           precision: Precision = DEFAULT_PRECISION,
           attention_fn: Callable | None = None,
@@ -142,10 +145,10 @@ def apply(params: dict, cfg: LlavaOnevisionConfig,
     decoder's mode; ``tower_remat`` the tower's, following ``remat`` when
     None, as in the JAX apply."""
     embeds = compute_embeds(
-        params, cfg, input_ids, tiles=tiles, pack_src=pack_src,
-        pack_weights=pack_weights, newline_mask=newline_mask,
-        scatter_rows=scatter_rows, scatter_cols=scatter_cols,
-        precision=precision, tower_attention_fn=tower_attention_fn,
+        params, cfg, input_ids, tiles=tiles, tile_segments=tile_segments,
+        pack_src=pack_src, pack_weights=pack_weights,
+        newline_mask=newline_mask, scatter_rows=scatter_rows,
+        scatter_cols=scatter_cols, precision=precision, tower_attention_fn=tower_attention_fn,
         tower_remat=remat if tower_remat is None else tower_remat)
     return qwen2.apply(
         params["text"], cfg.text, inputs_embeds=embeds,

@@ -1,6 +1,6 @@
 """Model bundles (counterpart of iadr1_tpu/models/registry.py) for the
-families ported so far: Qwen2 (text), Qwen2-VL, Qwen2.5-VL and
-LLaVA-OneVision.
+families ported so far: Qwen2 (text), Qwen2-VL, Qwen2.5-VL,
+LLaVA-OneVision, and LLaVA-1.5 / LLaVA-NeXT (images).
 
 A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
@@ -25,7 +25,9 @@ import torch
 from iadr1_tpu_torch.core.device import resolve_device
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import (
+    clip_vit,
     common,
+    llava,
     llava_onevision,
     qwen2,
     qwen2_vl,
@@ -77,7 +79,21 @@ def _generator(seed: int, device) -> tuple[torch.Generator, torch.device]:
     return torch.Generator(device=device).manual_seed(seed), device
 
 
-def _qwen2_text_cfg(hf: dict) -> qwen2.Qwen2Config:
+# transformers.LlamaConfig's defaults: what a published LLaMA text config
+# means by a field it leaves out (older transformers wrote a nested
+# text_config with only the fields that differ from these).  The JAX
+# package fills a missing rope_theta with Qwen2's 1e6 instead (ROADMAP
+# C.R10), and every position of such a decoder rotates wrongly there.
+LLAMA_TEXT_DEFAULTS = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+    num_hidden_layers=32, num_attention_heads=32, rms_norm_eps=1e-6,
+    rope_theta=10000.0, tie_word_embeddings=False)
+
+
+def _qwen2_text_cfg(hf: dict, attention_bias: bool = True
+                    ) -> qwen2.Qwen2Config:
+    if hf.get("model_type") == "llama":
+        hf = {**LLAMA_TEXT_DEFAULTS, **hf}
     rs = hf.get("rope_scaling") or {}
     if rs.get("rope_type", rs.get("type")) not in (None, "mrope", "default"):
         raise NotImplementedError(
@@ -94,6 +110,7 @@ def _qwen2_text_cfg(hf: dict) -> qwen2.Qwen2Config:
         rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
         rope_theta=hf.get("rope_theta", 1000000.0),
         tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        attention_bias=attention_bias,
         mrope_section=(tuple(rs["mrope_section"]) if "mrope_section" in rs
                        else None),
     )
@@ -143,6 +160,95 @@ def _scatter_indices(input_ids: np.ndarray, image_token_id: int,
     srows[: len(rows_idx)] = rows_idx
     scols[: len(cols_idx)] = cols_idx
     return srows, scols
+
+
+def _vlm_shared_pred(module, cfg, precision: Precision, attention: str,
+                     batch_keys: tuple):
+    """Shared-prompt GRPO scoring of a decoder VLM whose apply builds its
+    input embeddings with ``module.compute_embeds`` (LLaVA-OneVision,
+    LLaVA-1.5/NeXT): the tower, the packing and the scatter run once per
+    unique prompt, over the batch's ``batch_keys``; the completions attend
+    the shared prompt K/V.  The tower follows ``remat`` (True keeps its
+    attention outside the checkpoints); its attention and the decoder's
+    are the port's dispatch, K1 on the card."""
+    tower_attn = default_attention(attention)
+    attn_lse = default_attention_with_lse(attention)
+
+    def shared_pred(params, batch, group_size, remat=True):
+        embeds = module.compute_embeds(
+            params, cfg, batch["prompt_ids"],
+            **{k: batch[k] for k in batch_keys if k in batch},
+            precision=precision, tower_attention_fn=tower_attn,
+            tower_remat=bool(remat))
+        return shared_prompt_pred_hidden(
+            params["text"], cfg.text, batch, group_size,
+            attention_fn=attn_lse, precision=precision, remat=remat,
+            prompt_embeds=embeds)
+
+    return shared_pred
+
+
+def _anyres_arrays(input_ids: np.ndarray, patches_list, grids,
+                   patch_budget: int, g: int, patch_dim: int,
+                   image_token_id: int, max_tiles: int | None) -> dict:
+    """The anyres families' host precompute for one batch (numpy): the
+    tile stream padded with zero tiles to the static budget
+    ``patch_budget // g**2`` tiles, each tile's segment id (``_tile_segments``),
+    the anyres pack plans offset into the stream, and the scatter indices
+    of the image tokens in reading order (features past the last image
+    target the dropped row B).  ``patches_list``:
+    [n_tiles_i, g*g, patch_dim] per image; ``grids``: (n_h, n_w, height,
+    width) per image; ``max_tiles`` None: no anyres_max downscale."""
+    from iadr1_tpu_torch.vision import anyres
+
+    B = input_ids.shape[0]
+    tile_budget = patch_budget // (g * g)
+    feat_budget = tile_budget * (g * g + g)          # + newline headroom
+    tiles = np.zeros((tile_budget, g * g, patch_dim), np.float32)
+    src = np.zeros((feat_budget, 4), np.int64)
+    wts = np.zeros((feat_budget, 4), np.float32)
+    newline = np.zeros(feat_budget, bool)
+    srows = np.full(feat_budget, B, np.int64)
+    scols = np.zeros(feat_budget, np.int64)
+    rows_idx, cols_idx = np.nonzero(input_ids == image_token_id)
+    tile_off = feat_off = 0
+    for p, (n_h, n_w, oh, ow) in zip(patches_list, grids):
+        n = p.shape[0]
+        if tile_off + n > tile_budget:
+            raise ValueError(f"tile stream exceeds the budget of "
+                             f"{tile_budget} tiles")
+        tiles[tile_off:tile_off + n] = p
+        plan = anyres.onevision_pack_plan((oh, ow), (n_h, n_w), g, max_tiles)
+        F = plan["length"]
+        if feat_off + F > feat_budget:
+            raise ValueError("feature stream exceeds the budget")
+        at = slice(feat_off, feat_off + F)
+        src[at] = plan["src"] + tile_off * g * g
+        wts[at] = plan["weights"]
+        newline[at] = plan["newline"]
+        tile_off += n
+        feat_off += F
+    # every image token takes one feature, in reading order: a cut image
+    # run (or a stray image token) would scatter features onto the wrong
+    # tokens
+    if len(rows_idx) != feat_off:
+        raise ValueError(f"{len(rows_idx)} image tokens for "
+                         f"{feat_off} image features")
+    srows[:feat_off], scols[:feat_off] = rows_idx, cols_idx
+    return {"tiles": tiles, "tile_segments": _tile_segments(tile_budget,
+                                                            tile_off),
+            "pack_src": src, "pack_weights": wts, "newline_mask": newline,
+            "scatter_rows": srows, "scatter_cols": scols}
+
+
+def _tile_segments(tile_budget: int, n_real: int) -> np.ndarray:
+    """Each tile's segment id in a stream of ``tile_budget`` tiles whose
+    first ``n_real`` hold images: 1, and 0 for the zero tiles that pad it,
+    which the towers' kernels skip (their features are dropped by the
+    scatter)."""
+    segs = np.zeros(tile_budget, np.int32)
+    segs[:n_real] = 1
+    return segs
 
 
 def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
@@ -421,6 +527,11 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
     )
 
 
+# the collated arrays the LLaVA families' compute_embeds read (the pack
+# plans are the anyres modes')
+LLAVA_BATCH_KEYS = ("tiles", "tile_segments", "pack_src", "pack_weights",
+                    "newline_mask", "scatter_rows", "scatter_cols")
+
 # the JAX bundle's fallback grid pinpoints, used when a config names none
 # (six entries up to 1152; not HF LlavaOnevisionConfig's 36-entry default,
 # which a config carries in image_grid_pinpoints)
@@ -439,8 +550,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
     under 'xla' the dense oracle.  The JAX bundle defaults its tower to the
     dense path, after a v5e measurement that does not carry over to this
     card; its ``tower_attention_fn=flash_attn`` override is the
-    counterpart the tests hold this path to.  SC-GRPO is not ported for
-    this family (``GRPO_NOT_YET_PORTED``)."""
+    counterpart the tests hold this path to."""
     from iadr1_tpu_torch.vision import anyres
 
     tcfg = _qwen2_text_cfg(hf_config["text_config"])
@@ -472,11 +582,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
               tower_remat=None):
         return llava_onevision.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
-            tiles=batch.get("tiles"), pack_src=batch.get("pack_src"),
-            pack_weights=batch.get("pack_weights"),
-            newline_mask=batch.get("newline_mask"),
-            scatter_rows=batch.get("scatter_rows"),
-            scatter_cols=batch.get("scatter_cols"),
+            **{k: batch.get(k) for k in LLAVA_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, tower_attention_fn=attn,
@@ -495,51 +601,12 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
         return patches, (grid[0], grid[1], pil.height, pil.width), seqlen
 
     def vision_arrays(input_ids, patches_list, grids, patch_budget):
-        """Host precompute for one batch (numpy): the tile stream padded
-        with zero tiles to the static budget ``patch_budget // g**2``
-        tiles, the anyres pack plans offset into it, and the scatter
-        indices of the image tokens in reading order (features past the
-        last image target the dropped row B).  ``patches_list``:
-        [n_tiles_i, g*g, patch_dim] per image; ``grids``: (n_h, n_w,
-        height, width) per image."""
-        B = input_ids.shape[0]
-        tile_budget = patch_budget // (g * g)
-        feat_budget = tile_budget * (g * g + g)      # + newline headroom
-        tiles = np.zeros((tile_budget, g * g, vcfg.patch_dim), np.float32)
-        src = np.zeros((feat_budget, 4), np.int64)
-        wts = np.zeros((feat_budget, 4), np.float32)
-        newline = np.zeros(feat_budget, bool)
-        srows = np.full(feat_budget, B, np.int64)
-        scols = np.zeros(feat_budget, np.int64)
-        rows_idx, cols_idx = np.nonzero(input_ids == cfg.image_token_id)
-        tile_off = feat_off = 0
-        for p, (n_h, n_w, oh, ow) in zip(patches_list, grids):
-            n = p.shape[0]
-            if tile_off + n > tile_budget:
-                raise ValueError(f"tile stream exceeds the budget of "
-                                 f"{tile_budget} tiles")
-            tiles[tile_off:tile_off + n] = p
-            plan = anyres.onevision_pack_plan((oh, ow), (n_h, n_w), g,
-                                              cfg.max_tiles)
-            F = plan["length"]
-            if feat_off + F > feat_budget:
-                raise ValueError("feature stream exceeds the budget")
-            at = slice(feat_off, feat_off + F)
-            src[at] = plan["src"] + tile_off * g * g
-            wts[at] = plan["weights"]
-            newline[at] = plan["newline"]
-            tile_off += n
-            feat_off += F
-        # every image token takes one feature, in reading order: a cut
-        # image run (or a stray image token) would scatter features onto
-        # the wrong tokens
-        if len(rows_idx) != feat_off:
-            raise ValueError(f"{len(rows_idx)} image tokens for "
-                             f"{feat_off} image features")
-        srows[:feat_off], scols[:feat_off] = rows_idx, cols_idx
-        return {"tiles": tiles, "pack_src": src, "pack_weights": wts,
-                "newline_mask": newline, "scatter_rows": srows,
-                "scatter_cols": scols}
+        """Host precompute for one batch (numpy, ``_anyres_arrays``):
+        ``patches_list`` [n_tiles_i, g*g, patch_dim] and ``grids`` (n_h,
+        n_w, height, width) per image."""
+        return _anyres_arrays(input_ids, patches_list, grids, patch_budget,
+                              g, vcfg.patch_dim, cfg.image_token_id,
+                              cfg.max_tiles)
 
     def init_params(seed=0, dtype=None, device=None):
         gen, device = _generator(seed, device)
@@ -559,6 +626,144 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
         vision_arrays=vision_arrays,
         preprocess_image=preprocess_image,
         template="llava_next_qwen",
+        shared_pred_fn=_vlm_shared_pred(llava_onevision, cfg, precision,
+                                        attention, LLAVA_BATCH_KEYS),
+        precision=precision,
+    )
+
+
+# the JAX bundle's fallback LLaVA-NeXT pinpoints (those of
+# llava-v1.6-vicuna-7b, at 336 a tile)
+LLAVA_NEXT_DEFAULT_PINPOINTS = ((336, 672), (672, 336), (672, 672),
+                                (1008, 336), (336, 1008))
+
+
+def make_llava_bundle(hf_config: dict, attention: str = "auto",
+                      precision: Precision = DEFAULT_PRECISION
+                      ) -> ModelBundle:
+    """LLaVA-1.5 and LLaVA-NeXT (image inputs): the CLIP tower (its first
+    ``tower_layers`` layers) over one center-cropped tile per image (1.5)
+    or anyres tiles packed as LLaVA-OneVision packs them without the
+    anyres_max downscale (NeXT), the projector, a llama-style decoder
+    with 1-D positions.  The tower's attention is the decoder's dispatch,
+    K1 on the card (D = 64 at CLIP-L's width), each tile its own sequence
+    and the zero tiles that pad the stream masked out (``tile_segments``).
+    The video families and Pixtral wait for ROADMAP A.13."""
+    from iadr1_tpu_torch.vision import anyres
+
+    archs = list(hf_config.get("architectures") or [])
+    vis_hf = hf_config.get("vision_config") or {}
+    # HF ships Pixtral as LlavaForConditionalGeneration with a pixtral
+    # vision_config: another tower and decoder
+    if vis_hf.get("model_type") == "pixtral":
+        raise NotImplementedError(
+            "Pixtral is not ported yet (ROADMAP A.13)")
+    anyres_mode = ("LlavaNextForConditionalGeneration" in archs
+                   or hf_config.get("model_type") == "llava_next")
+    text_hf = hf_config.get("text_config") or {"model_type": "llama"}
+    tcfg = _qwen2_text_cfg(text_hf, attention_bias=False)
+    vcfg = clip_vit.ClipVisionConfig(
+        hidden_size=vis_hf.get("hidden_size", 1024),
+        intermediate_size=vis_hf.get("intermediate_size", 4096),
+        num_hidden_layers=vis_hf.get("num_hidden_layers", 24),
+        num_attention_heads=vis_hf.get("num_attention_heads", 16),
+        image_size=vis_hf.get("image_size", 336),
+        patch_size=vis_hf.get("patch_size", 14),
+        layer_norm_eps=vis_hf.get("layer_norm_eps", 1e-5),
+    )
+    cfg = llava.LlavaConfig(
+        text=tcfg, vision=vcfg,
+        image_token_id=hf_config.get("image_token_index",
+                                     hf_config.get("image_token_id", 32000)),
+        vision_feature_layer=hf_config.get("vision_feature_layer", -2),
+        vision_feature_select_strategy=hf_config.get(
+            "vision_feature_select_strategy", "default"),
+        anyres=anyres_mode,
+        image_grid_pinpoints=tuple(
+            tuple(p) for p in hf_config.get("image_grid_pinpoints") or ()
+        ) or LLAVA_NEXT_DEFAULT_PINPOINTS,
+    )
+    attn = default_attention(attention)
+    decode_attn = default_decode_attention(attention)
+    g = vcfg.grid
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None):
+        return llava.apply(
+            params, cfg, batch["input_ids"], batch["position_ids"],
+            **{k: batch.get(k) for k in LLAVA_BATCH_KEYS},
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=precision, attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            remat=remat, tower_remat=tower_remat,
+        )
+
+    def preprocess_image(pil, min_pixels=None, max_pixels=None):
+        """PIL image -> (patches [n_tiles, g*g, patch_dim], (n_h, n_w,
+        height, width), feature count): anyres tiles (NeXT), or one
+        center-cropped tile of g*g features (1.5).  The pixel bounds are
+        the Qwen2-VL family's and are not read."""
+        if anyres_mode:
+            tiles, grid = anyres.llava_next_tiles(
+                pil, cfg.image_grid_pinpoints, vcfg.image_size)
+            seqlen = anyres.onevision_feature_len(
+                (pil.height, pil.width), grid, g, max_tiles=None)
+        else:
+            tiles = anyres.clip_resize_center_crop(pil, vcfg.image_size)[None]
+            grid, seqlen = (1, 1), g * g
+        patches = anyres.patchify_tiles(tiles, vcfg.patch_size)
+        return patches, (grid[0], grid[1], pil.height, pil.width), seqlen
+
+    def vision_arrays(input_ids, patches_list, grids, patch_budget):
+        """Host precompute for one batch (numpy): the tile stream padded
+        with zero tiles to ``patch_budget // g**2`` tiles, each tile's
+        segment id (``_tile_segments``), and the scatter indices of the
+        image tokens in reading order; NeXT's are ``_anyres_arrays``, with
+        the anyres pack plans.  For 1.5 the tile stream's features map one
+        to one onto the image tokens."""
+        if anyres_mode:
+            return _anyres_arrays(input_ids, patches_list, grids,
+                                  patch_budget, g, vcfg.patch_dim,
+                                  cfg.image_token_id, None)
+        B = input_ids.shape[0]
+        tile_budget = patch_budget // (g * g)
+        n_tiles = len(patches_list)
+        if n_tiles > tile_budget:
+            raise ValueError(f"{n_tiles} images exceed the budget of "
+                             f"{tile_budget} tiles")
+        tiles = np.zeros((tile_budget, g * g, vcfg.patch_dim),
+                         np.float32)
+        for i, p in enumerate(patches_list):
+            tiles[i] = p[0]
+        rows_idx, cols_idx = np.nonzero(input_ids == cfg.image_token_id)
+        if len(rows_idx) != n_tiles * g * g:
+            raise ValueError(f"{len(rows_idx)} image tokens for "
+                             f"{n_tiles * g * g} image features")
+        srows = np.full(tile_budget * g * g, B, np.int64)
+        scols = np.zeros(tile_budget * g * g, np.int64)
+        srows[:len(rows_idx)], scols[:len(cols_idx)] = rows_idx, cols_idx
+        return {"tiles": tiles,
+                "tile_segments": _tile_segments(tile_budget, n_tiles),
+                "scatter_rows": srows, "scatter_cols": scols}
+
+    def init_params(seed=0, dtype=None, device=None):
+        gen, device = _generator(seed, device)
+        return llava.init_params(gen, cfg, dtype or precision.param_dtype,
+                                 device)
+
+    family = "llava_next" if anyres_mode else "llava"
+    return ModelBundle(
+        family=family, cfg=cfg, multimodal=True,
+        init_params=init_params,
+        convert_hf=lambda state, dtype=None, device=None: llava.convert_hf(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
+        apply=apply,
+        logits_fn=lambda params, h: llava.logits(params, cfg, h, precision),
+        vision_arrays=vision_arrays,
+        preprocess_image=preprocess_image,
+        template=family,
+        shared_pred_fn=_vlm_shared_pred(llava, cfg, precision, attention,
+                                        LLAVA_BATCH_KEYS),
         precision=precision,
     )
 
@@ -572,21 +777,21 @@ FAMILY_BUILDERS = {
     "qwen2_5_vl": make_qwen25_vl_bundle,
     "LlavaOnevisionForConditionalGeneration": make_llava_onevision_bundle,
     "llava_onevision": make_llava_onevision_bundle,
+    "LlavaForConditionalGeneration": make_llava_bundle,
+    "LlavaNextForConditionalGeneration": make_llava_bundle,
+    "llava": make_llava_bundle,
+    "llava_next": make_llava_bundle,
 }
 
-# ported families whose SC-GRPO path waits for a later slice
-GRPO_NOT_YET_PORTED = {"llava_onevision": "ROADMAP A.16"}
+# ported families whose SC-GRPO path waits for a later slice (none now)
+GRPO_NOT_YET_PORTED: dict[str, str] = {}
 
 # families of the JAX package that wait for a later slice
 NOT_YET_PORTED = {
     "Qwen2MoeForCausalLM": "ROADMAP A.13",
     "qwen2_moe": "ROADMAP A.13",
-    "LlavaForConditionalGeneration": "ROADMAP A.13",
-    "LlavaNextForConditionalGeneration": "ROADMAP A.13",
     "LlavaNextVideoForConditionalGeneration": "ROADMAP A.13",
     "VideoLlavaForConditionalGeneration": "ROADMAP A.13",
-    "llava": "ROADMAP A.13",
-    "llava_next": "ROADMAP A.13",
     "llava_next_video": "ROADMAP A.13",
     "video_llava": "ROADMAP A.13",
     "InternVLForConditionalGeneration": "ROADMAP A.13",

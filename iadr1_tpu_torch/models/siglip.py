@@ -153,23 +153,24 @@ def _attend(lp, h, q, k, v, attn):
     return h + dense(attn(q, k, v).reshape(N, T, -1), o["kernel"], o["bias"])
 
 
-def _mlp(lp, x):
+def _mlp(lp, x, act):
     m = lp["mlp"]
-    x = gelu_tanh(dense(x, m["fc1"]["kernel"], m["fc1"]["bias"]))
+    x = act(dense(x, m["fc1"]["kernel"], m["fc1"]["bias"]))
     return dense(x, m["fc2"]["kernel"], m["fc2"]["bias"])
 
 
-def _post_attention(lp, h, eps: float):
+def _post_attention(lp, h, eps: float, act):
     x = layer_norm(h, lp["norm2"]["scale"], lp["norm2"]["bias"], eps)
-    return h + _mlp(lp, x)
+    return h + _mlp(lp, x, act)
 
 
-def _block(lp, h, attn, H: int, D: int, eps: float):
+def _block(lp, h, attn, H: int, D: int, eps: float, act):
     x = layer_norm(h, lp["norm1"]["scale"], lp["norm1"]["bias"], eps)
-    return _post_attention(lp, _attend(lp, h, *_qkv(lp, x, H, D), attn), eps)
+    return _post_attention(lp, _attend(lp, h, *_qkv(lp, x, H, D), attn), eps,
+                           act)
 
 
-def _block_save_flash(lp, h, attn, H: int, D: int, eps: float):
+def _block_save_flash(lp, h, attn, H: int, D: int, eps: float, act):
     """The block under remat True (and the decoder's modes the tower
     follows): the attention call stays outside every checkpoint, so the
     flash Function's residuals survive and its forward runs once (the
@@ -181,15 +182,15 @@ def _block_save_flash(lp, h, attn, H: int, D: int, eps: float):
     o = lp["attn"]["o"]
     return ckpt(lambda h, out: _post_attention(
         lp, h + dense(out.reshape(*h.shape[:2], -1), o["kernel"], o["bias"]),
-        eps), h, out)
+        eps, act), h, out)
 
 
-def _block_save_acts(lp, h, attn, H: int, D: int, eps: float):
+def _block_save_acts(lp, h, attn, H: int, D: int, eps: float, act):
     """The block under remat "save_acts" (the JAX policy that saves
     "act_qkv", "act_attn" and "act_fc1" besides the flash residuals): the
     q/k/v projections, the attention output and the pre-gelu fc1 output
     are kept; the backward recomputes only the two layer norms and the
-    gelu, and never the attention forward."""
+    activation, and never the attention forward."""
     x = ckpt(lambda h: layer_norm(h, lp["norm1"]["scale"],
                                   lp["norm1"]["bias"], eps), h)
     h = _attend(lp, h, *_qkv(lp, x, H, D), attn)
@@ -197,20 +198,57 @@ def _block_save_acts(lp, h, attn, H: int, D: int, eps: float):
                                   lp["norm2"]["bias"], eps), h)
     m = lp["mlp"]
     f = dense(x, m["fc1"]["kernel"], m["fc1"]["bias"])
-    return h + dense(ckpt(gelu_tanh, f), m["fc2"]["kernel"], m["fc2"]["bias"])
+    return h + dense(ckpt(act, f), m["fc2"]["kernel"], m["fc2"]["bias"])
+
+
+def run_layers(layers: list, h, attn, H: int, D: int, eps: float, remat,
+               act=gelu_tanh):
+    """Pre-norm encoder layers (the per-layer views of ``unstack_layers``)
+    over ``h`` under a remat mode (see ``apply``), the MLP's activation
+    ``act``; the CLIP tower shares them with QuickGELU."""
+    for lp in layers:
+        if remat == "full":
+            # partial binds this layer: the replay runs after the loop
+            h = ckpt(functools.partial(_block, lp, attn=attn, H=H, D=D,
+                                       eps=eps, act=act), h)
+        elif remat == "save_acts":
+            h = _block_save_acts(lp, h, attn, H, D, eps, act)
+        elif remat:
+            h = _block_save_flash(lp, h, attn, H, D, eps, act)
+        else:
+            h = _block(lp, h, attn, H, D, eps, act)
+    return h
+
+
+def tile_attention(attention_fn: Callable | None, tile_segments, N: int,
+                   T: int):
+    """The towers' attention over N tiles of T tokens, each tile its own
+    sequence, non-causal: ``attention_fn`` (the model-level signature)
+    with ``tile_segments`` [N] (0: a zero tile that pads the stream to its
+    budget, which the kernels skip) spread over each tile's tokens, or
+    none; ``attention_fn`` None: the dense oracle over every tile."""
+    if attention_fn is None:
+        return lambda q, k, v: common.xla_attention(q, k, v, None)
+    segs = None
+    if tile_segments is not None:
+        segs = tile_segments.to(torch.int32)[:, None].expand(N, T)
+        segs = segs.contiguous()
+    return functools.partial(attention_fn, mask=None, q_segments=segs,
+                             kv_segments=segs, causal=False)
 
 
 def apply(params: dict, cfg: SiglipVisionConfig,
           tiles: torch.Tensor,              # [N, num_patches, patch_dim]
           precision: Precision = DEFAULT_PRECISION,
           remat=False, post_layernorm: bool = True,
-          attention_fn: Callable | None = None) -> torch.Tensor:
+          attention_fn: Callable | None = None,
+          tile_segments: torch.Tensor | None = None) -> torch.Tensor:
     """Tile batch -> features [N, num_patches, hidden].
 
     ``attention_fn`` has the model-level signature (q, k, v, *, mask,
     q_segments, kv_segments, causal), q [N, T, H, D]; it is called once per
-    layer over all tiles, each tile its own sequence (no segment ids, no
-    mask), non-causal.  None: the dense oracle.
+    layer over all tiles, each tile its own sequence, non-causal, with
+    ``tile_segments`` (``tile_attention``).  None: the dense oracle.
 
     ``remat``: False; "full" (a plain checkpoint of each block, whose
     backward re-runs the attention forward); "save_acts"
@@ -220,22 +258,9 @@ def apply(params: dict, cfg: SiglipVisionConfig,
     pe = params["patch_embed"]
     h = dense(tiles.to(precision.compute_dtype), pe["kernel"], pe["bias"])
     h = h + params["pos_embed"][None].to(h.dtype)
-    if attention_fn is None:
-        attn = lambda q, k, v: common.xla_attention(q, k, v, None)
-    else:
-        attn = functools.partial(attention_fn, mask=None, q_segments=None,
-                                 kv_segments=None, causal=False)
-    for lp in unstack_layers(params["layers"], cfg.num_hidden_layers):
-        if remat == "full":
-            # partial binds this layer: the replay runs after the loop
-            h = ckpt(functools.partial(_block, lp, attn=attn, H=H, D=D,
-                                       eps=eps), h)
-        elif remat == "save_acts":
-            h = _block_save_acts(lp, h, attn, H, D, eps)
-        elif remat:
-            h = _block_save_flash(lp, h, attn, H, D, eps)
-        else:
-            h = _block(lp, h, attn, H, D, eps)
+    attn = tile_attention(attention_fn, tile_segments, *h.shape[:2])
+    h = run_layers(unstack_layers(params["layers"], cfg.num_hidden_layers),
+                   h, attn, H, D, eps, remat)
     if post_layernorm:
         n = params["post_norm"]
         h = layer_norm(h, n["scale"], n["bias"], eps)

@@ -1,7 +1,6 @@
-"""AnyRes tiling and feature packing for LLaVA-OneVision, as numpy
-functions (the port's own copy of the OneVision pieces of
-iadr1_tpu/vision/anyres.py; the LLaVA-NeXT/CLIP pieces wait for ROADMAP
-A.13).
+"""AnyRes tiling and feature packing for LLaVA-OneVision and LLaVA-NeXT,
+and LLaVA-1.5's center crop, as numpy functions (the port's own copy of
+iadr1_tpu/vision/anyres.py).
 
 On the host, per image:
 * ``onevision_tiles``: the grid pinpoint that keeps the most of the image
@@ -86,6 +85,37 @@ def onevision_tiles(image, grid_pinpoints, tile_size: int = 384,
     arr = (np.stack(tiles) - np.asarray(mean, np.float32)) / np.asarray(
         std, np.float32)
     return arr.transpose(0, 3, 1, 2), (n_h, n_w)
+
+
+def llava_next_tiles(image, grid_pinpoints, tile_size: int = 336,
+                     mean=DEFAULT_MEAN, std=DEFAULT_STD):
+    """LLaVA-NeXT's anyres tiles: OneVision's tiling at CLIP's 336 (the
+    base tile is the whole image squashed, not center-cropped)."""
+    return onevision_tiles(image, grid_pinpoints, tile_size, mean, std)
+
+
+def clip_resize_center_crop(image, size: int = 336, mean=DEFAULT_MEAN,
+                            std=DEFAULT_STD) -> np.ndarray:
+    """HF CLIPImageProcessor's path, LLaVA-1.5's one tile: a bicubic
+    resize of the shortest edge to ``size``, a center crop, normalisation
+    -> [3, size, size] f32.  The long side is truncated (``int()``, as HF
+    ``get_resize_output_image_size``), not rounded: one pixel more shifts
+    the crop window and every feature."""
+    from PIL import Image
+
+    if image.mode != "RGB":
+        image = image.convert("RGB")
+    w, h = image.width, image.height
+    if w < h:
+        nw, nh = size, int(h * size / w)
+    else:
+        nh, nw = size, int(w * size / h)
+    image = image.resize((nw, nh), resample=Image.Resampling.BICUBIC)
+    left, top = (nw - size) // 2, (nh - size) // 2
+    image = image.crop((left, top, left + size, top + size))
+    arr = np.asarray(image, np.float32) / 255.0
+    arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return arr.transpose(2, 0, 1)
 
 
 def patchify_tiles(tiles: np.ndarray, patch_size: int) -> np.ndarray:

@@ -652,6 +652,80 @@ def test_decode_kernel_at_the_qwen25_vl_decoders(card, B, H, Hkv, S):
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
+def _check_flash(q, k, v, do, seg, causal):
+    """K1-K3 through the flash Function against the plain versions; rows
+    with no valid key come out 0."""
+    D = q.shape[-1]
+    out, lse = k1.flash_attention(q, k, v, segment_ids=seg, causal=causal)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, seg, seg,
+                                              causal=causal, scale=D ** -0.5)
+    (dq, dk, dv), want, _, _ = _bwd_grads(q, k, v, do, seg, seg, causal)
+    torch.cuda.synchronize()
+    valid = torch.isfinite(ref_lse)
+    torch.testing.assert_close(out[valid].float(), ref_out[valid].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[valid], ref_lse[valid], atol=1e-3, rtol=0)
+    assert (out[~valid] == 0).all() and torch.isposinf(lse[~valid]).all()
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+    return valid
+
+
+def test_flash_kernels_at_the_clip_tower(card):
+    """K1-K3 at LLaVA-1.5/NeXT's CLIP-L tower: each tile its own sequence
+    of 577 tokens (576 patches + CLS: nine 64-row blocks and one row), 16
+    heads, D = 64, non-causal; three image tiles and two padding tiles,
+    the latter at segment 0 (out 0, no gradient)."""
+    B, H, T, D = 5, 16, 577, 64
+    gen = torch.Generator(device=card).manual_seed(577)
+    q, k, v, do = (_rand(gen, (B, H, T, D), card) for _ in range(4))
+    seg = torch.zeros((B, T), dtype=torch.int32, device=card)
+    seg[:3] = 1
+    valid = _check_flash(q, k, v, do, seg, causal=False)
+    assert valid[:3].all() and not valid[3:].any()
+
+
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (32, 32)],
+                         ids=["gqa4-llama3", "gqa1-vicuna"])
+def test_flash_kernels_at_the_llava_decoders(card, H, Hkv):
+    """K1-K3 at LLaMA-3-8B's (32 heads over 8: GQA 4) and Vicuna-7B's (32
+    over 32) decoder attention, D = 128: left-padded rows, causal, T =
+    300 (stacked query rows cross a head boundary inside a block)."""
+    B, T, D = 2, 300, 128
+    gen = torch.Generator(device=card).manual_seed(H + Hkv)
+    q, do = _rand(gen, (B, H, T, D), card), _rand(gen, (B, H, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    _check_flash(q, k, v, do, _bwd_segments("leftpad", B, T, gen, card),
+                 causal=True)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [(4, 32, 8, 4224, 128),
+                                         (4, 32, 32, 1152, 128),
+                                         (8, 14, 2, 4608, 64)],
+                         ids=["llama3-serve", "vicuna-serve",
+                              "onevision-grpo-fan-out"])
+def test_decode_kernel_at_the_llava_decoders(card, B, H, Hkv, S, D):
+    """K4 at GQA 4 (LLaVA-NeXT-8B's serving cache), GQA 1 (LLaVA-1.5-7B's)
+    and over LLaVA-OneVision-0.5B's SC-GRPO fan-out (GQA 7, D = 64, P + N
+    = 4096 + 512), at a length inside the last chunk, left padding and a
+    dead span."""
+    length = S - 37
+    gen = torch.Generator(device=card).manual_seed(S + H)
+    q = _rand(gen, (B, H, D), card)
+    k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    seg[:, :100] = 0
+    seg[1, 500:700] = 0
+    v[:, :, length:] = float("nan")             # never read past length
+    out = k4.decode_attention(q, k, v, seg, length)
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
 def test_full_precision_forward_raises_under_auto_and_runs_under_xla(card):
     """The kernels take bf16 only: a FULL_PRECISION bundle under 'auto'
     raises on the card (naming attention="xla") instead of giving way to

@@ -20,6 +20,8 @@ no remat: atol 1e-7, rtol 1e-6 (the same arithmetic replayed).
 The JAX package cannot encode a LLaVA-OneVision request with an image
 (ROADMAP C.R6: its ``expand_image_tokens`` reads its own ``<image>`` run as
 further placeholders), so the JAX side is fed the port's encoded rows.
+The SC-GRPO cases at the end run the helpers of tests/test_torch_llava.py
+(its tolerances; C.R9 pinned for this family too).
 """
 
 import functools
@@ -33,6 +35,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import test_torch_llava as llava_cases
 from helpers import tiny_qwen_tokenizer
 from iadr1_tpu.core.precision import FULL_PRECISION as JAX_FULL
 from iadr1_tpu.data.mm import expand_image_tokens as jax_expand
@@ -251,7 +254,12 @@ def test_preprocess_and_vision_arrays_equal_jax(tiny):
     budget = 12 * 16                           # 12 tiles, 8 of them used
     want = jb.vision_arrays(ids, patches, grids, budget)
     got = tb.vision_arrays(ids, patches, grids, budget)
-    assert got.keys() == want.keys()
+    # the port adds each tile's segment id: 0 for the budget's padding
+    # tiles, which its tower skips
+    assert set(got) == set(want) | {"tile_segments"}
+    n_real = sum(p.shape[0] for p in patches)
+    np.testing.assert_array_equal(got["tile_segments"],
+                                  (np.arange(12) < n_real).astype(np.int32))
     for key in want:
         np.testing.assert_array_equal(got[key], np.asarray(want[key]),
                                       err_msg=key)
@@ -619,16 +627,63 @@ def test_sft_cli_runs_the_recipe_config(tiny, tmp_path, monkeypatch):
 
 
 def test_grpo_and_export_are_refused(tiny):
+    """Since ROADMAP A.16 only the export is refused (as JAX's, which has
+    no LLaVA branch); SC-GRPO takes the family, with its shared-prompt
+    scoring."""
     from iadr1_tpu_torch.models.params_export import export_params
+    from iadr1_tpu_torch.models.registry import GRPO_NOT_YET_PORTED
     from iadr1_tpu_torch.train.grpo import GRPOConfig, GRPOTrainer
 
     tb, tp = tiny["tb"], tiny["tparams"]
-    assert tb.shared_pred_fn is None
-    with pytest.raises(NotImplementedError, match="A.16"):
-        GRPOTrainer(tb, tiny_qwen_tokenizer(), None, GRPOConfig(), [], None,
-                    tp, device="cpu")
+    assert tb.shared_pred_fn is not None
+    assert "llava_onevision" not in GRPO_NOT_YET_PORTED
+    trainer = GRPOTrainer(tb, tiny_qwen_tokenizer(), None, GRPOConfig(), [],
+                          None, tp, device="cpu")
+    assert trainer._shared
     with pytest.raises(ValueError, match="llava_onevision"):
         export_params(tb, tp)
+
+
+# ---------------------------------------------------------------------------
+# SC-GRPO (ROADMAP A.16; the cases of tests/test_torch_llava.py)
+# ---------------------------------------------------------------------------
+
+GRPO_PROMPT_LEN, GRPO_BUDGET = 224, 2 * 8 * 16
+
+
+@pytest.fixture(scope="module")
+def grpo_case(tiny):
+    """Two one-image prompts through the JAX trainer's shared-prompt step:
+    its recorded rollout and its update batch's keys."""
+    return llava_cases.record_grpo_case(
+        tiny["jb"], tiny["tb"], tiny["jparams"],
+        llava_cases.grpo_examples(tiny["tb"], IMAGES[1:3]), GRPO_PROMPT_LEN,
+        GRPO_BUDGET)
+
+
+def test_jax_update_batch_drops_the_image_arrays(grpo_case):
+    """C.R9: JAX's update scores these completions without the image."""
+    keys = grpo_case["jax_update_keys"]
+    assert not set(llava_cases.LLAVA_VISION_KEYS) & keys
+    assert {"scatter_rows", "scatter_cols", "prompt_ids"} <= keys
+
+
+def test_shared_pred_matches_jax(tiny, grpo_case):
+    llava_cases.check_shared_pred(tiny["jb"], tiny["tb"], grpo_case)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "dense"])
+def test_update_matches_jax_fed_the_port_batch(tiny, grpo_case, shared):
+    """The 1-D-position branches of the update batch (positions from the
+    masks), with the anyres arrays, against JAX's update step."""
+    llava_cases.check_update(tiny["jb"], tiny["tb"], grpo_case, shared)
+
+
+def test_trainer_step_with_its_own_engine(tiny):
+    tb = tiny["tb"]
+    llava_cases.check_trainer_step(
+        tb, llava_cases.grpo_examples(tb, IMAGES[1:3], seed=1),
+        GRPO_PROMPT_LEN, GRPO_BUDGET)
 
 
 def test_infer_cli_answers_a_benchmark(tiny, tmp_path):

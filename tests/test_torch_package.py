@@ -59,7 +59,7 @@ CHAIN_MODULES = [
 ]
 # LLaVA-OneVision and Qwen2.5-VL
 FAMILY_MODULES = ["vision.anyres", "models.siglip", "models.llava_onevision",
-                  "models.qwen25_vl"]
+                  "models.qwen25_vl", "models.clip_vit", "models.llava"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
