@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (iadr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--max-new-tokens N] [--train-steps N]
-                          [--grpo-steps N]
+                          [--grpo-steps N] [--phases 20,21,22]
 
 Phases, a line each at least, then the kernel JSON line, the card line and the
 result line:
@@ -147,18 +147,19 @@ result line:
    0.9, top-k 50, accuracy + format, a bf16 reference, lr 2e-7) on two
    one-image prompts, as phase 7 checks its steps; the update batch must
    hold full_segs and window_segs.
-
+   Phases 7, 15 and 16 also hold step 1 by the lse cotangent's part of dq
+   and dk at each merged attention call (K2 and K3 against the plain
+   versions on the call's own inputs; a control given half the cotangent
+   must fail that limit), and print each step-level control's margin to
+   its limits.
 16. LLaVA-OneVision SC-GRPO (after 15): LLaVA-OneVision-0.5B at full
    width and depth takes 2 steps of GRPOTrainer.step on the grpo section
    of configs/grpo_qwen2_5_vl_7b.yaml (the patch budget sized for tiles
    of 729) on a 448x448 and a 336x560 one-image prompt, 1-D positions,
    as phase 7 checks its steps; the update batch must hold tiles,
-   tile_segments, pack_src, pack_weights and newline_mask.  Step 1 is
-   also held by the lse cotangent's part of dq and dk at each merged
-   attention call, K2 and K3 against the plain versions on the call's
-   own inputs, and a control given half the cotangent must fail that
-   limit; the step's readings against the plain path with p and ds
-   unrounded are printed beside;
+   tile_segments, pack_src, pack_weights and newline_mask; the step's
+   readings against the plain path with p and ds unrounded are printed
+   beside;
 17. LLaVA-NeXT serving (after 16): LLaVA-NeXT-8B at full width and depth
    (llava-hf/llama3-llava-next-8b-hf's config: the LLaMA-3-8B decoder at
    GQA 4, the CLIP-L/336 tower of which 23 layers run, bf16 weights drawn
@@ -174,7 +175,30 @@ result line:
    the training steps on configs/sft_llava_onevision_0_5b.yaml's settings
    with rows cut to 2 x 4096 and the llava_next_llama3 template (4
    examples of one 336x560 image each; 12 image tiles in the recipe's
-   28-tile budget, the rest at segment 0), as phase 12 checks its steps.
+   28-tile budget, the rest at segment 0), as phase 12 checks its steps;
+20. LoRA PA-SFT (after 19): Qwen2.5-VL-7B at full width and depth, a
+   frozen bf16 base drawn on the card, TuningConfig's defaults (rank 8,
+   alpha 16, q k v o gate up down), trained through the factored
+   hidden_fn(base, batch, lora=...) on configs/sft_qwen2_5_vl_7b.yaml at
+   its batch of 8 rows of 4096 (one image and one text example a row);
+   K1 once per tower and decoder layer a step and K2 and K3 once per
+   decoder layer (the frozen tower takes no gradient), step 1's loss and
+   adapter gradients against the plain versions and a dq-zeroed control,
+   a falling loss and a base unchanged bit for bit;
+21. LoRA SC-GRPO with reference elision (after 20): the same model
+   through cli/train_grpo.py's main (a seeded bf16 base written with a
+   WordLevel tokenizer, the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
+   and the finetuning section of configs/grpo_llava_next_34b.yaml: rank
+   16, alpha 32), 2 steps: one base copy resident (the reference is the
+   base), each step's launches, the lse-cotangent probe on the last
+   update's batch; then export_run merges the adapters and the export,
+   read back, must equal base + scale * A @ B within bf16 rounding;
+22. quantized bases (after 21): (a) QLoRA PA-SFT of LLaVA-NeXT-8B at full
+   depth (32 decoder layers) over an nf4 base quantized on the card layer
+   by layer, on phase 19's rows and settings, checked as phase 20; (b)
+   Qwen2.5-VL-7B serving phase 13's requests over int8 weights (the infer
+   CLI's --quant int8), checked as phase 13, with its quantized_bytes
+   ratio; (c) one nf4 generate of the same model.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -185,7 +209,9 @@ OneVision's fan-out.
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
 q25_sft, q25_grpo, llava_grpo, llava16_serve, llava15_serve,
-llava16_sft).
+llava16_sft, q25_lora_sft, q25_lora_grpo, llava16_qlora_sft,
+q25_int8_serve, q25_nf4_serve).  ``--phases 20,21,22`` runs a subset and
+prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -407,6 +433,35 @@ NEXT_SFT_LAYERS, NEXT_SFT_ROWS, NEXT_SFT_CUTOFF = 8, 2, 4096
 NEXT_SFT_IMAGE_HW, NEXT_SFT_ANSWER_LEN = (336, 560), (300, 400)
 NEXT_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "build", "chip_smoke_next_sft")
+# LoRA PA-SFT of Qwen2.5-VL-7B (phase 20): configs/sft_qwen2_5_vl_7b.yaml
+# at its own batch of 8 rows of 4096, one image (Q25_IMAGE_HW's sizes in
+# turn: 7552 of the 8192 patch budget) and one text-only example a row,
+# answers of seeded tokens that fill the rows to ~4000
+LORA_SFT_ROWS, LORA_SFT_STEPS = 8, 3
+LORA_IMAGE_ANSWER_LEN, LORA_TEXT_ANSWER_LEN = (1900, 1950), (1600, 1750)
+LORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "chip_smoke_lora_sft")
+# LoRA SC-GRPO (phase 21): configs/grpo_qwen2_5_vl_7b.yaml's sections with
+# configs/grpo_llava_next_34b.yaml's finetuning section, through the CLI
+LLAVA_GRPO_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "grpo_llava_next_34b.yaml")
+LORA_GRPO_STEPS = 2
+LORA_GRPO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_lora_grpo")
+# the export's check: two steps at the recipe's lr of 2e-7 leave B near
+# 4e-7, a delta near 3e-8 that f32 barely and bf16 never resolves beside
+# the base, so the checkpoint's B factors are redrawn from the seed at this
+# scale (a delta of ~8e-4) before the export; a merged leaf must then hold
+# its delta within bf16's rounding of the adapters' product, which an
+# export that skipped the merge misses by the whole delta (reads 1)
+LORA_EXPORT_B_STD = 1e-2
+LORA_EXPORT_DELTA_LIMIT = 2 ** -7
+# QLoRA PA-SFT of LLaVA-NeXT-8B at full depth over an nf4 base (phase 22a),
+# on phase 19's rows and settings
+QLORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "chip_smoke_qlora_sft")
+# the nf4 generate of phase 22c: new tokens
+NF4_NEW_TOKENS = 16
 # the plain versions run one batch row, and within a row one slice of KV
 # heads (with their query heads), at a time where the [B, H, T, S] f32
 # scores would pass this: the LLaVA-OneVision decoder's 4 x 14 x 8192^2
@@ -1634,7 +1689,8 @@ def phase_kernels_llava(encoded, rows, max_new_tokens, pad_compare=False):
             "decode_attention": [dec]}
 
 
-def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens):
+def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens,
+                      lora_rows):
     """Phase 3 at Qwen2.5-VL's shapes: K1-K3 over the window-ordered tower
     stream (16 heads, D = 80, non-causal) of the 7B serving batch (two
     448 x 448 and two 336 x 504 images in 4096 patches) with its window
@@ -1642,9 +1698,11 @@ def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens):
     its image segments, and of four 448 x 448 images, whose windows of 64
     patches line up with the blocks; K1 at the 7B prefill (P = 1024, GQA
     7, D = 128, left padding); K1-K3 at the 3B SFT decoder (2 rows of
-    4096, GQA 8, packed); K4 at GQA 7 over the 7B serving cache and at
-    GQA 8 over the 3B SC-GRPO fan-out (8 rows, P + N = 4608).  Returns the
-    results by kernel, the aligned tower's first."""
+    4096, GQA 8, packed) and at phase 20's 7B LoRA SFT decoder (8 rows of
+    4096, GQA 7, one image and one text example a row); K4 at GQA 7 over
+    the 7B serving cache and at GQA 8 over the 3B SC-GRPO fan-out (8
+    rows, P + N = 4608).  Returns the results by kernel, the aligned
+    tower's first."""
     from iadr1_tpu_torch.models.qwen25_vl import (
         Qwen25VLVisionConfig,
         qwen25vl_vision_arrays,
@@ -1685,6 +1743,11 @@ def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens):
     train = (Q25_SFT_ROWS, 16, 2, T, T, 128, True, train_seg, train_seg)
     train_bwd = bwd_case(*train, 78, timed=True)
     train_fwd = flash_case(*train, 79, timed=True)
+    lora_seg = torch.as_tensor(
+        np.stack([r["segment_ids"] for r in lora_rows]), **cuda)
+    lora = (LORA_SFT_ROWS, 28, 4, T, T, 128, True, lora_seg, lora_seg)
+    lora_bwd = bwd_case(*lora, 82, timed=True)
+    lora_fwd = flash_case(*lora, 83, timed=True)
     S_dec = PROMPT_LEN + max_new_tokens
     dec_seg = torch.ones((BATCH, S_dec), **cuda)
     dec_seg[:, :PROMPT_LEN] = left
@@ -1702,10 +1765,13 @@ def phase_kernels_q25(encoded, rows, grpo_examples, max_new_tokens):
                      (train_bwd[0], "q25 3B sft"),
                      (train_bwd[1], "q25 3B sft"),
                      (train_bwd[2], "q25 3B sft"), (dec, "q25 7B decode"),
-                     (fan_dec, "q25 3B grpo fan-out")):
+                     (fan_dec, "q25 3B grpo fan-out"),
+                     (lora_fwd, "q25 7B lora sft"),
+                     *((r, "q25 7B lora sft") for r in lora_bwd)):
         r["shape"] = f"{label}: {r['shape']}"
-    fwd += [prefill, train_fwd, train_bwd[2]] + [f for _, _, f in bwd]
-    bwd.append(train_bwd)
+    fwd += ([prefill, train_fwd, train_bwd[2], lora_fwd, lora_bwd[2]]
+            + [f for _, _, f in bwd])
+    bwd += [train_bwd, lora_bwd]
     log_kernel_results(fwd, [dec, fan_dec], bwd)
     return {"flash_fwd": fwd,
             "flash_bwd_dq": [dq for dq, _, _ in bwd],
@@ -2712,6 +2778,33 @@ class LseProbeFlash(KernelFlash):
         return grads
 
 
+def lse_probe_summary(label, what) -> dict:
+    """Logs what ``LseProbeFlash`` gathered over a step's merged attention
+    calls; returns the kernels' and the half-weight control's relative
+    distances from the plain versions' lse-cotangent part."""
+    sums = LseProbeFlash.sums
+    if not sums.get("calls"):
+        raise AssertionError(f"{label}: no attention call received an lse "
+                             "cotangent")
+    lse = {k: math.sqrt(sums[k] / sums["part"]) for k in ("kernels", "half")}
+    log(f"{label}: {what} lse cotangent over {sums['calls']} merged "
+        f"attention calls: its part of their dq and dk "
+        f"{math.sqrt(sums['part'] / sums['whole']):.3e} of the whole; "
+        f"kernels vs plain versions {lse['kernels']:.3e}, control (the "
+        f"plain backward given half of it) {lse['half']:.3e} (limit "
+        f"{GRPO_LSE_COTANGENT_LIMIT}; a backward without it reads 1)")
+    return lse
+
+
+def check_lse_probe(lse) -> None:
+    if lse["kernels"] > GRPO_LSE_COTANGENT_LIMIT:
+        raise AssertionError("the kernels' lse cotangent part differs from "
+                             "the plain versions'")
+    if lse["half"] <= GRPO_LSE_COTANGENT_LIMIT:
+        raise AssertionError("the lse-cotangent limit does not catch a "
+                             "halved lse cotangent")
+
+
 def lse_attn(flash):
     """The (out, lse) attention signature (kernel layout) over a flash
     Function."""
@@ -2823,7 +2916,7 @@ def grpo_case_qwen2_vl() -> types.SimpleNamespace:
         # the tower blocks are plain checkpoints: the policy's backward
         # replays each one's attention forward
         tower_replays=1, vision_keys=("vision_segments",),
-        controls=GRPO_CONTROLS[:1], lse_check=False)
+        controls=GRPO_CONTROLS[:1], lse_check=True, f32_check=False)
 
 
 def grpo_case_q25(steps: int, label="q25 grpo", name="Qwen2.5-VL-3B",
@@ -2856,7 +2949,7 @@ def grpo_case_q25(steps: int, label="q25 grpo", name="Qwen2.5-VL-3B",
         # every tower block keeps its attention outside the checkpoints;
         # the update batch must carry both segment arrays (C.R7)
         tower_replays=0, vision_keys=("full_segs", "window_segs"),
-        controls=GRPO_CONTROLS[:1], lse_check=False)
+        controls=GRPO_CONTROLS[:1], lse_check=True, f32_check=False)
 
 
 def grpo_case_ov(steps: int) -> types.SimpleNamespace:
@@ -2883,7 +2976,7 @@ def grpo_case_ov(steps: int) -> types.SimpleNamespace:
     case.embeds = embeds
     case.vision_keys = ("tiles", "tile_segments", "pack_src", "pack_weights",
                         "newline_mask")
-    case.controls, case.lse_check = GRPO_CONTROLS, True
+    case.controls, case.f32_check = GRPO_CONTROLS, True
     return case
 
 
@@ -3089,17 +3182,10 @@ def phase_grpo(examples, steps: int, card, case):
         # inputs
         LseProbeFlash.sums = {}
         probed = grpo_step1_diffs(replayed_step(LseProbeFlash), plain)
-        sums = LseProbeFlash.sums
-        lse = {k: math.sqrt(sums[k] / sums["part"])
-               for k in ("kernels", "half")}
-        log(f"{label}: step 1 lse cotangent over {sums['calls']} merged "
-            f"attention calls: its part of their dq and dk "
-            f"{math.sqrt(sums['part'] / sums['whole']):.3e} of the whole; "
-            f"kernels vs plain versions {lse['kernels']:.3e}, control (the "
-            f"plain backward given half of it) {lse['half']:.3e} (limit "
-            f"{GRPO_LSE_COTANGENT_LIMIT}; a backward without it reads 1); "
-            f"the probed step vs plain path "
+        lse = lse_probe_summary(label, "step 1")
+        log(f"{label}: the probed step vs plain path "
             + _diff_text(probed, GRPO_STEP1_LIMITS, "diff"))
+    if case.f32_check:
         # the step against the plain versions with p and ds unrounded
         f32 = replayed_step(F32TwinFlash)
         log(f"{label}: step 1 against the plain path with p and ds "
@@ -3118,13 +3204,13 @@ def phase_grpo(examples, steps: int, card, case):
         f"{first[0]['kl']:.3e} vs {plain[0]['kl']:.3e}, grad norm "
         f"{first[0]['grad_norm']:.6f} vs {plain[0]['grad_norm']:.6f}; "
         + _diff_text(diffs, GRPO_STEP1_LIMITS, "diff"))
-    if lse is not None and lse["kernels"] > GRPO_LSE_COTANGENT_LIMIT:
-        raise AssertionError("the kernels' lse cotangent part differs from "
-                             "the plain versions'")
-    if lse is not None and lse["half"] <= GRPO_LSE_COTANGENT_LIMIT:
-        raise AssertionError("the lse-cotangent limit does not catch a "
-                             "halved lse cotangent")
+    if lse is not None:
+        check_lse_probe(lse)
     for (what, _), control in zip(case.controls, controls):
+        log(f"{label}: step 1 control (plain path {what}) margins to the "
+            "limits (reading / limit, above 1 fails): " + ", ".join(
+                f"{k} {control[k] / GRPO_STEP1_LIMITS[k]:.3f}"
+                for k in GRPO_STEP1_LIMITS))
         if _within(control, GRPO_STEP1_LIMITS):
             raise AssertionError(f"the step-1 limits do not catch the "
                                  f"plain path {what}")
@@ -3636,7 +3722,7 @@ def tower_depth(cfg) -> int:
 
 def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
                     max_new_tokens, card, twin_apply, describe,
-                    eos_pad=(IM_END, ENDOFTEXT)):
+                    eos_pad=(IM_END, ENDOFTEXT), quant=None):
     """Phases 11 and 13: a VLM at full width (bf16 weights drawn on the
     card from a seed) serves 4 already-tokenized image requests through
     VLMGenerator._collate and RolloutEngine.generate, greedy.  K1 must run
@@ -3645,8 +3731,10 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     path's prefill logits must agree with the twin path's
     (``twin_apply(params, cfg, batch, cache, attn)`` -> hidden).
     ``describe(batch)`` checks the collated vision arrays and says what
-    they hold; ``eos_pad`` the tokenizer's end and padding ids.  Returns
-    the launch counts."""
+    they hold; ``eos_pad`` the tokenizer's end and padding ids; ``quant``
+    a weight-only format the bf16 weights are quantized to on the card
+    first, as the infer CLI's ``--quant`` does.  Returns the launch
+    counts."""
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.kernels import all_kernels
@@ -3663,6 +3751,21 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{label}: {name} {n_params / 1e9:.3f}B params (bf16, seeded) "
         f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    if quant is not None:
+        from iadr1_tpu_torch.models.quant import (
+            quantize_tree,
+            quantized_bytes,
+        )
+
+        t0 = time.perf_counter()
+        params = quantize_tree(params, fmt=quant)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        now, bf16 = quantized_bytes(params)
+        log(f"{label}: quantized to {quant} on the card in "
+            f"{time.perf_counter() - t0:.1f} s: {now / 2 ** 30:.2f} GiB, "
+            f"{now / bf16:.4f} of bf16's {bf16 / 2 ** 30:.2f} GiB "
+            f"(quantized_bytes)")
     tokenizer = types.SimpleNamespace(eos_token_id=eos_pad[0],
                                       pad_token_id=eos_pad[1])
     gcfg = GeneratorConfig(max_prompt_length=prompt_len,
@@ -3820,6 +3923,33 @@ def phase_q25_serve(encoded, max_new_tokens, card):
     return phase_vlm_serve("q25 serve", "Qwen2.5-VL-7B", QWEN2_5_VL_7B,
                            encoded, PROMPT_LEN, PATCH_BUDGET, max_new_tokens,
                            card, twin_apply, describe)
+
+
+def phase_quant_serve(encoded, max_new_tokens, card, quant):
+    """Phase 22b and 22c: Qwen2.5-VL-7B at full width and depth serves
+    phase 13's 4 requests over weights quantized to ``quant`` (int8: the
+    infer and serve CLIs' ``--quant int8``; nf4: a generate to show it
+    runs); returns the launch counts."""
+    from iadr1_tpu_torch.models import qwen25_vl
+
+    def twin_apply(params, cfg, b, cache, attn):
+        h, _ = qwen25_vl.apply(
+            params, cfg, b["input_ids"], b["position_ids"],
+            patches=b["patches"], rot_cos=b["rot_cos"], rot_sin=b["rot_sin"],
+            full_segs=b["full_segs"], window_segs=b["window_segs"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], cache=cache, cache_mode="prefill",
+            attention_fn=attn, vision_attention_fn=attn)
+        return h
+
+    def describe(batch):
+        n = int((batch["full_segs"] != 0).sum())
+        return f"{n} patches in {int(batch['window_segs'].max())} windows"
+
+    return phase_vlm_serve(f"q25 {quant} serve", "Qwen2.5-VL-7B",
+                           QWEN2_5_VL_7B, encoded, PROMPT_LEN, PATCH_BUDGET,
+                           max_new_tokens, card, twin_apply, describe,
+                           quant=quant)
 
 
 def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
@@ -4167,6 +4297,739 @@ def phase_next_sft(rows, steps: int, card):
                    "data.template=llava_next_llama3"])
 
 
+# ---------------------------------------------------------------------------
+# phases 20-22: adapters and quantized bases
+# ---------------------------------------------------------------------------
+
+
+def base_fingerprint(tree) -> list:
+    """Per-leaf exact fingerprints of a frozen base (quant dicts too): the
+    sums of each leaf's raw bits and of their squares, in int64, a slice
+    at a time.  A changed element changes them."""
+    out = []
+    for leaf in _leaves(tree):
+        if leaf is None:
+            continue
+        bits = leaf.detach().reshape(-1)
+        bits = bits.view(torch.int16) if bits.element_size() == 2 else (
+            bits.view(torch.int32) if bits.element_size() == 4 else bits)
+        total = torch.zeros(2, dtype=torch.int64, device=bits.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            x = bits[i:i + (1 << 26)].to(torch.int64)
+            total += torch.stack([x.sum(), (x * x).sum()])
+        out.append(total.cpu())
+    return out
+
+
+class LoraGradProbe(GradProbe):
+    """GradProbe over an adapter tree: on the optimizer's first call it
+    keeps the per-layer gradient norms of the decoder's q, k and v
+    adapters, A and B apart (A's are 0 at step 1, where B = 0)."""
+
+    def __init__(self, optimizer, lora, keep_grads=False):
+        from iadr1_tpu_torch.train.state import tree_leaves
+
+        leaves = tree_leaves(lora)
+        attn = lora["text"]["layers"]["attn"]
+        self.names = [f"decoder {n}.{f}" for n in "qkv" for f in "ab"]
+        targets = [attn[n]["kernel"][f] for n in "qkv" for f in "ab"]
+        self.index = [next(i for i, p in enumerate(leaves) if p is t)
+                      for t in targets]
+        self.optimizer, self.norms = optimizer, None
+        self.keep_grads, self.grads = keep_grads, None
+
+    def apply(self, params, grads, state, grad_norm=None):
+        if self.norms is None:
+            parts = {n: grads[i].detach() for n, i in zip(self.names,
+                                                          self.index)}
+            self.norms = {n: g.float().flatten(1).norm(dim=1)
+                          for n, g in parts.items()}
+            if self.keep_grads:
+                self.grads = {n: g.float().clone() for n, g in parts.items()}
+        return self.optimizer.apply(params, grads, state, grad_norm)
+
+
+def lora_train_flops(t, B, T, vit_flops):
+    """Model FLOPs of one LoRA step: the decoder's forward, its backward
+    to the activations alone (the frozen base's weight-gradient GEMMs are
+    not run, the adapters' are a rounding error), the attention's
+    backward (twice its forward) and the tower's forward (no gradient
+    reaches the frozen tower)."""
+    from iadr1_tpu_torch.core.metrics import transformer_flops_per_token
+
+    fwd = transformer_flops_per_token(
+        hidden=t.hidden_size, intermediate=t.intermediate_size,
+        num_layers=t.num_hidden_layers, vocab=t.vocab_size, seq_len=T,
+        num_heads=t.num_attention_heads, num_kv_heads=t.num_key_value_heads)
+    attn = t.num_hidden_layers * 2 * 2 * t.num_attention_heads * t.head_dim_ \
+        * (T / 2)
+    return B * T * (2 * fwd + attn) + vit_flops
+
+
+def phase_lora_sft(label, name, hf, recipe, rows, steps, card, train_dir,
+                   plain_apply, tower_flops, batch_rows=None, overrides=(),
+                   quant=None):
+    """Phases 20 and 22a: LoRA (TuningConfig's defaults: rank 8, alpha 16,
+    the seven targets) PA-SFT of a VLM at full width and depth over a
+    frozen bf16 base drawn on the card from a seed, quantized on the card
+    layer by layer when ``quant`` names a format (QLoRA), trained through
+    the factored ``hidden_fn(base, batch, lora=...)`` on a recipe's
+    settings, as phase_vlm_sft.  K1 must run once per decoder and tower
+    layer a step and K2 and K3 once per decoder layer (no gradient
+    reaches the frozen tower); step 1's loss, grad norm and the decoder's
+    per-layer q/k/v adapter grad norms must agree with a step through the
+    plain versions and a dq-zeroed control must not; the loss must fall
+    and the base must be unchanged bit for bit.  Returns the launch
+    counts."""
+    import gc
+
+    from iadr1_tpu_torch.cli.train_sft import SFTJobConfig, _remat
+    from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
+    from iadr1_tpu_torch.data.collator import VLMBatchBuilder
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models.quant import quantize_tree, quantized_bytes
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.adapters import (
+        TuningConfig,
+        count_params,
+        init_lora_params,
+    )
+    from iadr1_tpu_torch.train.loop import (
+        LoopConfig,
+        batch_iterator,
+        run_sft_loop,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.sft import STEP_RANGES, make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    job = load_config(SFTJobConfig, recipe, list(overrides))
+    bundle = bundle_from_hf_config(hf, attention=job.model.attention)
+    cfg = bundle.cfg
+    recipe_rows = int(job.train["batch_size"])
+    B, T = batch_rows or recipe_rows, job.data.cutoff_len
+    remat, tower_remat = _remat(job.model.remat), _remat(job.model.tower_remat)
+    tower_kw = ({} if tower_remat == "default"
+                else {"tower_remat": tower_remat})
+    opt_cfg = dataclasses.replace(
+        dataclass_from_dict(OptimizerConfig, job.optim), total_steps=steps,
+        warmup_steps=steps // 10)
+    logits_dtype = getattr(torch, job.data.ce_logits_dtype)
+    builder = VLMBatchBuilder(bundle, job.data.patch_budget)
+    if len(rows) != B or any(len(r["input_ids"]) != T for r in rows):
+        raise AssertionError(f"the rows are not {B} x {T}")
+    tuning = TuningConfig(finetuning_type="lora")
+    scale = tuning.lora_scale
+
+    t0 = time.perf_counter()
+    base = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    n_base = count_params(base)
+    if quant is not None:
+        base = quantize_tree(base, fmt=quant)
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    now_bytes, bf16_bytes = quantized_bytes(base)
+    fingerprint = base_fingerprint(base)
+    log(f"{label}: {name} {n_base / 1e9:.3f}B bf16 base drawn on the card"
+        + (f", quantized to {quant} layer by layer" if quant else "")
+        + f" in {time.perf_counter() - t0:.1f} s: {now_bytes / 2 ** 30:.2f} "
+        f"GiB resident ({now_bytes / bf16_bytes:.4f} of bf16's "
+        f"{bf16_bytes / 2 ** 30:.2f} GiB); the recipe: B={B}"
+        + (f" (the recipe's {recipe_rows} rows cut to {B})"
+           if B != recipe_rows else "")
+        + f" T={T}" + (f" ({', '.join(overrides)})" if overrides else "")
+        + f", remat {remat}, tower remat {tower_remat}, CE chunk "
+        f"{job.data.ce_chunk} in {job.data.ce_logits_dtype}, patch budget "
+        f"{job.data.patch_budget}, AdamW lr {opt_cfg.learning_rate} "
+        f"{opt_cfg.schedule}; LoRA rank {tuning.lora_rank} alpha "
+        f"{tuning.lora_alpha} on {', '.join(tuning.lora_target)}")
+
+    def fresh(hidden_fn):
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        lora = init_lora_params(gen, base, tuning)
+        opt, sched = make_optimizer(opt_cfg)
+        probe = LoraGradProbe(opt, lora)
+        step = make_chunked_sft_step(
+            hidden_fn, lambda _: bundle.head_kernel_fn(base), probe, sched,
+            chunk_size=job.data.ce_chunk, logits_dtype=logits_dtype)
+        return create_train_state(lora, probe), step, probe
+
+    first = next(batch_iterator(rows, B, 0, builder))
+
+    def first_step(flash):
+        attn = train_attn(flash)
+        state, plain_step, probe = fresh(lambda lo, b: plain_apply(
+            base, cfg, b, attn, remat, tower_kw.get("tower_remat"),
+            lora=lo, lora_scale=scale))
+        _, m = plain_step(state, first)
+        res = {k: float(v) for k, v in m.items()}, probe.norms
+        del state, plain_step, probe, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    plain_ref = first_step(TwinFlash)
+    control = step1_diffs(first_step(ZeroDqFlash), plain_ref)
+    log(f"{label}: step 1 control (plain path with dq zeroed) vs plain "
+        f"path: {_diff_text(control)}")
+    if _within(control):
+        raise AssertionError("the step-1 limits do not catch a zeroed dq")
+
+    state, step, probe = fresh(lambda lo, b: bundle.hidden_fn(
+        base, b, remat=remat, lora=lo, lora_scale=scale, **tower_kw))
+    n_lora = count_params(state.params)
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    kernels = [k for k, _ in all_kernels()]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    state, history = run_sft_loop(
+        state, timed_step, batch_iterator(rows, B, 0, builder),
+        LoopConfig(output_dir=train_dir, max_steps=steps, batch_size=B,
+                   logging_steps=1))
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, first)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"profile: one {name} LoRA training step: "
+        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        base_fingerprint(base), fingerprint))
+    del state, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
+    # per step: K1 once per decoder and tower layer; K2 and K3 once per
+    # decoder layer: the frozen tower takes no adapters and no gradient
+    want = {"flash_fwd": steps * (L + Lt), "flash_bwd_dq": steps * L,
+            "flash_bwd_dkv": steps * L, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, want {want}")
+    if not unchanged:
+        raise AssertionError(f"{label}: the frozen base changed")
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    diffs = step1_diffs(({"loss": losses[0], "grad_norm": norms[0]},
+                         probe.norms), plain_ref)
+    log(f"{label}: step 1 kernel vs plain path: loss {losses[0]:.6f} vs "
+        f"{plain_ref[0]['loss']:.6f}, grad norm {norms[0]:.6f} vs "
+        f"{plain_ref[0]['grad_norm']:.6f}; {_diff_text(diffs)}; the control's "
+        "margins (reading / limit, above 1 fails): " + ", ".join(
+            f"{k} {control[k] / STEP1_LIMITS[k]:.3f}" for k in STEP1_LIMITS))
+    if not _within(diffs):
+        raise AssertionError("step 1 differs between kernel and plain path")
+
+    step_s = statistics.median(times[1:])
+    n_label = history[0]["n_label_tokens"]
+    vit_flops, ran_over = tower_flops(first)
+    flops = lora_train_flops(cfg.text, B, T, vit_flops)
+    log(f"{label}: {name} {n_lora / 1e6:.2f}M adapter params over the "
+        f"frozen base (bf16 adapters and moments where the base is bf16, "
+        f"f32 over a quantized one), {steps} steps of {B}x{T} tokens "
+        f"({int(n_label)} label tokens, {ran_over}); losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in norms]}; base unchanged bit for bit")
+    log(f"{label}: step {1e3 * step_s:.1f} ms (median of steps 2-{steps}; "
+        f"all steps {[round(1e3 * x, 1) for x in times]} ms), "
+        f"{B * T / step_s:.0f} tokens/s, MFU "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.4f} ({flops:.4g} model FLOPs a "
+        f"step: decoder forward, its backward to the activations only and "
+        f"the attention's backward, the tower's forward; no weight-gradient "
+        f"GEMMs for the frozen base; against {PEAK_BF16_FLOPS:.3g}), peak "
+        f"memory {peak_gib:.2f} GiB, launches {launches} on {card}")
+    return launches
+
+
+def q25_plain_apply(params, cfg, b, attn, remat, tower_remat, lora=None,
+                    lora_scale=1.0):
+    """A Qwen2.5-VL training forward over ``attn`` (tower and decoder),
+    ``lora`` a whole-model adapter tree."""
+    from iadr1_tpu_torch.models import qwen25_vl
+
+    h, _ = qwen25_vl.apply(
+        params, cfg, b["input_ids"], b["position_ids"],
+        patches=b["patches"], rot_cos=b["rot_cos"], rot_sin=b["rot_sin"],
+        full_segs=b["full_segs"], window_segs=b["window_segs"],
+        scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+        segment_ids=b["segment_ids"], attention_fn=attn,
+        vision_attention_fn=attn, remat=remat, tower_remat=tower_remat,
+        lora=lora["text"], lora_scale=lora_scale)
+    return h
+
+
+def llava_plain_apply(params, cfg, b, attn, remat, tower_remat, lora=None,
+                      lora_scale=1.0):
+    """A LLaVA-1.5/NeXT training forward over ``attn``, ``lora`` a
+    whole-model adapter tree."""
+    from iadr1_tpu_torch.models import llava
+
+    h, _ = llava.apply(
+        params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+        tile_segments=b["tile_segments"], pack_src=b["pack_src"],
+        pack_weights=b["pack_weights"], newline_mask=b["newline_mask"],
+        scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+        segment_ids=b["segment_ids"], attention_fn=attn,
+        tower_attention_fn=attn, remat=remat, tower_remat=tower_remat,
+        lora=lora["text"], lora_scale=lora_scale)
+    return h
+
+
+def make_q25_lora_sft_rows(cutoff: int, seed: int = 19):
+    """LORA_SFT_ROWS rows of ``cutoff`` for phase 20: as many one-image
+    IAD examples (Q25_IMAGE_HW's sizes in turn, answers of
+    LORA_IMAGE_ANSWER_LEN seeded tokens) and as many text-only ones
+    (answers of LORA_TEXT_ANSWER_LEN), packed by pack_examples one of
+    each to a row, so the images (1024 or 864 patches) fill the recipe's
+    patch budget."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+
+    def answer(lo_hi):
+        return rng.integers(0, ENDOFTEXT, int(rng.integers(
+            lo_hi[0], lo_hi[1] + 1))).tolist() + [IM_END]
+
+    examples = []
+    for i in range(LORA_SFT_ROWS):
+        prompt, flat, grid = _q25_prompt(rng, *Q25_IMAGE_HW[i % 4], 8 + i)
+        ans = answer(LORA_IMAGE_ANSWER_LEN)
+        examples.append({"input_ids": prompt + ans,
+                         "labels": [-100] * len(prompt) + ans,
+                         "extras": {"patches": [flat], "grid_thw": [grid]}})
+        prompt = ([IM_START] + rng.integers(0, ENDOFTEXT, 12).tolist()
+                  + [IM_END, IM_START] + rng.integers(0, ENDOFTEXT, 2).tolist())
+        ans = answer(LORA_TEXT_ANSWER_LEN)
+        examples.append({"input_ids": prompt + ans,
+                         "labels": [-100] * len(prompt) + ans})
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)
+    if len(rows) != LORA_SFT_ROWS or any(len(r["extras"]) != 1
+                                         for r in rows):
+        raise AssertionError("the examples did not pack into rows of one "
+                             "image each")
+    return rows
+
+
+def phase_lora_sft_q25(rows, steps: int, card):
+    """Phase 20: LoRA PA-SFT of Qwen2.5-VL-7B at full width and depth on
+    configs/sft_qwen2_5_vl_7b.yaml (its batch of 8 rows of 4096)."""
+    grids = [g for r in rows for e in r["extras"] for g in e["grid_thw"]]
+    return phase_lora_sft("q25 lora sft", "Qwen2.5-VL-7B", QWEN2_5_VL_7B,
+                          Q25_SFT_RECIPE, rows, steps, card,
+                          LORA_TRAIN_DIR, q25_plain_apply,
+                          lambda first: q25_tower_flops(grids))
+
+
+def phase_qlora_sft_next(rows, steps: int, card):
+    """Phase 22a: QLoRA PA-SFT of LLaVA-NeXT-8B at full depth (32 decoder
+    layers) over an nf4 base, on phase 19's rows and recipe."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+
+    def tower_flops(first):
+        n_tiles = first["tiles"].shape[0]
+        n_images = int(first["tile_segments"].sum())
+        v = LLAVA_NEXT_8B["vision_config"]
+        flops = n_images * 577 * vit_flops_per_patch(
+            hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+            num_layers=v["num_hidden_layers"] - 1, attn_window=577)
+        return flops, (f"4 images in {n_images} of the {n_tiles} tiles, "
+                       "the rest at segment 0")
+
+    return phase_lora_sft(
+        "next qlora sft", "LLaVA-NeXT-8B", LLAVA_NEXT_8B, LLAVA_RECIPE,
+        rows, steps, card, QLORA_TRAIN_DIR, llava_plain_apply, tower_flops,
+        batch_rows=NEXT_SFT_ROWS,
+        overrides=[f"data.cutoff_len={NEXT_SFT_CUTOFF}",
+                   "data.template=llava_next_llama3"], quant="nf4")
+
+
+class LoraGrpoTap:
+    """Phase 21's taps around cli/train_grpo.py's main: each rollout
+    (time, decode steps, GRPO_EARLY_EOS applied as phase 7's RolloutTap
+    does), each update (time, its batch, the memory allocated when it
+    starts), each trainer step (time; CannedTokenizer decodes the
+    completions for the rewards, since random weights write no
+    parseable answer) and each reward call (time); the trainer itself is
+    kept for the probe."""
+
+    def __init__(self):
+        self.undo, self.trainer = [], None
+        self.roll_s, self.roll_steps, self.step_s = [], [], []
+        self.update_s, self.update_batches, self.reward_s = [], [], []
+        self.allocated = []
+
+    def patch(self, owner, name, make):
+        old = getattr(owner, name)
+        setattr(owner, name, make(old))
+        self.undo.append((owner, name, old))
+
+    def close(self):
+        for owner, name, old in reversed(self.undo):
+            setattr(owner, name, old)
+
+    def install(self):
+        from iadr1_tpu_torch.train import grpo as tgrpo
+        from iadr1_tpu_torch.train.rollout import RolloutEngine
+
+        tap = self
+
+        def generate(old):
+            def run(engine, *args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = old(engine, *args, **kw)
+                torch.cuda.synchronize()
+                tap.roll_s.append(time.perf_counter() - t0)
+                tap.roll_steps.append(out["num_decode_steps"])
+                ids, mask = out["completion_ids"], out["completion_mask"]
+                s = engine.sampling
+                for row, keep in GRPO_EARLY_EOS:
+                    if row < ids.shape[0] and int(mask[row].sum()) > keep:
+                        ids[row, keep - 1] = s.eos_token_id
+                        ids[row, keep:] = s.pad_token_id
+                        mask[row, keep:] = 0
+                return out
+            return run
+
+        def step(old):
+            def run(trainer, examples):
+                if tap.trainer is None:
+                    tap.trainer = trainer
+                    trainer.tokenizer = CannedTokenizer()
+                    inner = trainer.update_step
+
+                    def update(state, ref, batch):
+                        tap.allocated.append(torch.cuda.memory_allocated())
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = inner(state, ref, batch)
+                        torch.cuda.synchronize()
+                        tap.update_s.append(time.perf_counter() - t0)
+                        tap.update_batches.append(batch)
+                        return res
+
+                    trainer.update_step = update
+                    funcs = []
+                    for fn in trainer.reward_funcs:
+                        def timed(*a, _fn=fn, **kw):
+                            t0 = time.perf_counter()
+                            out = _fn(*a, **kw)
+                            tap.reward_s.append(time.perf_counter() - t0)
+                            return out
+                        timed.__name__ = fn.__name__
+                        funcs.append(timed)
+                    trainer.reward_funcs = funcs
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = old(trainer, examples)
+                torch.cuda.synchronize()
+                tap.step_s.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        self.patch(RolloutEngine, "generate", generate)
+        self.patch(tgrpo.GRPOTrainer, "step", step)
+
+
+def phase_lora_grpo(card):
+    """Phase 21: LoRA SC-GRPO with reference elision on Qwen2.5-VL-7B at
+    full width and depth, through cli/train_grpo.py's main as a user runs
+    it: a seeded bf16 base written by save_pretrained with a WordLevel
+    tokenizer, seeded 448x448 images and RL rows, the grpo section of
+    configs/grpo_qwen2_5_vl_7b.yaml with the finetuning section of
+    configs/grpo_llava_next_34b.yaml (LoRA rank 16, alpha 32), the base in
+    bf16, LORA_GRPO_STEPS steps.  One copy of the base must be resident
+    (the reference is the base), each step's launches must be those the
+    path implies, the lse-cotangent probe must hold on the last update's
+    batch, and export_run, called as run_pipeline calls it (the base read
+    in f32), must merge the adapters into the base: with the checkpoint's
+    B redrawn at LORA_EXPORT_B_STD, each checked leaf of the export, read
+    back, less the base must equal scale * A @ B within bf16's rounding of
+    the product, relative to the delta's own size.  Returns the launch
+    counts."""
+    import gc
+    import shutil
+
+    import yaml
+
+    from iadr1_tpu_torch.cli import train_grpo
+    from iadr1_tpu_torch.cli.pipeline import export_run
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models.params_export import save_pretrained
+    from iadr1_tpu_torch.models.quant import quantized_bytes
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.adapters import TuningConfig, count_params
+    from iadr1_tpu_torch.train.grpo import GRPOTrainer
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+
+    label, hf = "q25 lora grpo", QWEN2_5_VL_7B
+    root = LORA_GRPO_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    base_dir, out_dir = os.path.join(root, "base"), os.path.join(root, "run")
+    export_dir = os.path.join(root, "export")
+    bundle = bundle_from_hf_config(hf)
+    cfg = bundle.cfg
+    t0 = time.perf_counter()
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    base_bytes = quantized_bytes(params)[0]
+    # the bf16 base and its f32 merged export lie on disk together
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 3 * base_bytes + GIB:
+        raise AssertionError(f"phase 21 needs {3 * base_bytes / 1e9:.1f} GB "
+                             f"on disk, {free / 1e9:.1f} GB free")
+    save_pretrained(bundle, params, base_dir)
+    del params
+    torch.cuda.empty_cache()
+    with open(os.path.join(base_dir, "config.json"), "w") as f:
+        json.dump(hf, f)
+    write_chain_tokenizer(base_dir, cfg.text.vocab_size)
+    data = make_chain_data(os.path.join(root, "data"))
+    log(f"{label}: a seeded bf16 base of {base_bytes / 1e9:.2f} GB written "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    with open(Q25_GRPO_RECIPE) as f:
+        recipe = yaml.safe_load(f)
+    with open(LLAVA_GRPO_RECIPE) as f:
+        lora_recipe = yaml.safe_load(f)
+    job = {
+        "model": {"model_name_or_path": base_dir, "dtype": "bfloat16",
+                  "attention": "auto"},
+        "data": dict(recipe["data"], dataset_name=data["rl"],
+                     image_path=os.path.dirname(data["rl"])),
+        "grpo": recipe["grpo"], "finetuning": lora_recipe["finetuning"],
+        "optim": recipe["optim"],
+        "train": dict(recipe["train"], output_dir=out_dir,
+                      max_steps=LORA_GRPO_STEPS, save_steps=0),
+    }
+    job_path = os.path.join(root, "grpo.yaml")
+    with open(job_path, "w") as f:
+        yaml.safe_dump(job, f)
+    G = job["grpo"]["num_generations"]
+    n = int(job["train"]["batch_size"])
+
+    kernels = [k for k, _ in all_kernels()]
+    tap = LoraGrpoTap()
+    tap.install()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = train_grpo.main(["--config", job_path, "--device", DEVICE])
+    finally:
+        tap.close()
+    main_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rc != 0:
+        raise AssertionError(f"{label}: main returned {rc}")
+    trainer = tap.trainer
+    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
+    steps = LORA_GRPO_STEPS
+    # K1: the rollout's prefill, the reference's forward and the policy's
+    # (tower and the three decoder calls of a layer); K2 and K3: the
+    # policy's three decoder calls a layer (the frozen tower takes no
+    # gradient); K4: a decoder layer a decode step
+    want = {"flash_fwd": steps * (3 * (L + Lt) + 4 * L),
+            "flash_bwd_dq": steps * 3 * L, "flash_bwd_dkv": steps * 3 * L,
+            "decode_attention": L * sum(tap.roll_steps)}
+    if launches != want or len(tap.roll_steps) != steps:
+        raise AssertionError(f"{label}: launches {launches} over decode "
+                             f"steps {tap.roll_steps}, want {want}")
+    # one copy of the base: the reference slot holds the very tensors the
+    # policy reads, and what is allocated when an update starts is that
+    # copy, the adapters, their moments and the batch, never a second base
+    lora_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(trainer.state.params))
+    ref_bytes = quantized_bytes(trainer.ref_params)[0]
+    if not trainer._lora_mode or ref_bytes != base_bytes:
+        raise AssertionError(f"{label}: the reference holds {ref_bytes} "
+                             f"bytes, the base {base_bytes}")
+    if max(tap.allocated) > base_bytes + 3 * lora_bytes + 4 * 2 ** 30:
+        raise AssertionError(f"{label}: {max(tap.allocated) / 2 ** 30:.2f} "
+                             "GiB allocated at an update: a second base?")
+    history = trainer.metrics_history
+    for i, m in enumerate(history):
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{label} step {i + 1}: non-finite {bad}")
+    if not abs(history[0]["kl"]) < GRPO_KL_STEP1_MAX:
+        raise AssertionError(f"kl at step 1 is {history[0]['kl']}")
+
+    # the lse cotangent's part of dq and dk at each merged attention call
+    # of one more update on the last batch, kernels against the plain
+    # versions on each call's own inputs
+    attn_lse, tower_attn = lse_attn(LseProbeFlash), train_attn(KernelFlash)
+    embeds = qwen_embeds(q25_twin_tower)
+
+    def shared_pred(params, batch, group_size, remat=True, lora=None,
+                    lora_scale=1.0):
+        from iadr1_tpu_torch.models.shared_prompt import (
+            shared_prompt_pred_hidden,
+        )
+
+        e = embeds(params, cfg, batch, tower_attn, bool(remat))
+        return shared_prompt_pred_hidden(
+            params["text"], cfg.text, batch, group_size,
+            attention_fn=attn_lse, remat=remat, prompt_embeds=e,
+            lora=lora.get("text") if lora else None, lora_scale=lora_scale)
+
+    opt, _ = make_optimizer(OptimizerConfig(learning_rate=0.0))
+    ft = job["finetuning"]
+    probe_trainer = GRPOTrainer(
+        dataclasses.replace(bundle, shared_pred_fn=shared_pred),
+        CannedTokenizer(), opt, trainer.cfg, [],
+        create_train_state(_tree_map(lambda t: None if t is None else
+                                     t.detach().clone(),
+                                     trainer.state.params), opt),
+        None, base_params=trainer.ref_params,
+        tuning_cfg=TuningConfig(finetuning_type="lora",
+                                lora_rank=ft["lora_rank"],
+                                lora_alpha=ft["lora_alpha"]),
+        device=DEVICE)
+    LseProbeFlash.sums = {}
+    probe_trainer.update_step(probe_trainer.state, trainer.ref_params,
+                              tap.update_batches[-1])
+    lse = lse_probe_summary(label, f"step {steps + 1} (the last batch)")
+    check_lse_probe(lse)
+    n_lora = count_params(trainer.state.params)
+    del probe_trainer, trainer
+    tap.trainer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the export: the adapters merged into the base
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    redraw_lora_b(os.path.join(ckpt_dir, f"{steps}.safetensors"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    export_run(base_dir, ckpt_dir, export_dir, finetuning=ft, device=DEVICE)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    export_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    export_gb = _file_gb(os.path.join(export_dir, "model.safetensors"))
+    export = check_lora_export(
+        base_dir, export_dir, os.path.join(ckpt_dir, f"{steps}.safetensors"),
+        ft["lora_alpha"] / ft["lora_rank"],
+        ((0, "self_attn.q_proj", "attn.q"),
+         (L - 1, "mlp.down_proj", "mlp.down")),
+        "model.language_model.layers", "params.text.layers")
+    if export["worst"] > LORA_EXPORT_DELTA_LIMIT or export["changed"] < 0.5:
+        raise AssertionError(f"{label}: export off: {export}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    R = len(job["grpo"]["reward_funcs"])
+    log(f"{label}: Qwen2.5-VL-7B {n_lora / 1e6:.2f}M LoRA params (rank "
+        f"{ft['lora_rank']}, alpha {ft['lora_alpha']}) over one bf16 base "
+        f"copy of {base_bytes / 2 ** 30:.2f} GiB that is also the reference "
+        f"(allocated at an update: {max(tap.allocated) / 2 ** 30:.2f} GiB), "
+        f"{steps} steps of {n} prompt x G={G} through cli/train_grpo.py main "
+        f"in {main_s:.1f} s; loss "
+        f"{[float(format(m['loss'], '.3e')) for m in history]}, kl "
+        f"{[float(format(m['kl'], '.3e')) for m in history]}, grad norm "
+        f"{[round(m['grad_norm'], 5) for m in history]}, reward "
+        f"{[round(m['reward'], 4) for m in history]}, decode steps "
+        f"{tap.roll_steps}, launches {launches}")
+    late = slice(1, None) if steps > 1 else slice(None)
+    med = lambda xs: statistics.median(list(xs)[late])
+    log(f"{label}: step {1e3 * med(tap.step_s):.1f} ms (all steps "
+        f"{[round(1e3 * x, 1) for x in tap.step_s]} ms): rollout "
+        f"{1e3 * med(tap.roll_s):.1f} ms ({1e3 * med(s / k for s, k in zip(tap.roll_s, tap.roll_steps)):.3f} "
+        f"ms a decode step with its prefill), rewards "
+        f"{1e3 * med(sum(tap.reward_s[i * R:(i + 1) * R]) for i in range(steps)):.2f} "
+        f"ms on the host, update {1e3 * med(tap.update_s):.1f} ms; "
+        f"{n * G / med(tap.step_s):.3f} rollouts/s, peak memory "
+        f"{peak_gib:.2f} GiB; export {export_gb:.2f} GB in {export_s:.1f} s "
+        f"({export_gb / export_s:.3f} GB/s, f32 base read and merge "
+        f"included, peak {export_peak_gib:.2f} GiB), merged - base vs scale*A@B: worst {export['worst']:.3e} "
+        f"of the delta (limit {LORA_EXPORT_DELTA_LIMIT:.3e}; a skipped merge "
+        f"reads 1), delta rms {export['delta_rms']:.3e}, "
+        f"{export['changed']:.4f} of the checked elements changed, on {card}")
+    return launches
+
+
+def redraw_lora_b(path: str, seed: int = 0) -> None:
+    """Overwrite the B factors of a LoRA checkpoint's parameters (keys
+    ``params....kernel.b``) with a seeded draw of LORA_EXPORT_B_STD, in
+    each factor's dtype, keeping every other tensor and the metadata."""
+    from safetensors import safe_open
+
+    from iadr1_tpu_torch.models.params_io import save_safetensors
+
+    gen = torch.Generator().manual_seed(seed)
+    with safe_open(path, "pt") as f:
+        meta = f.metadata()
+        tensors = {k: f.get_tensor(k) for k in f.keys()}
+    for k, t in tensors.items():
+        if k.startswith("params.") and k.endswith(".kernel.b"):
+            tensors[k] = (torch.randn(t.shape, generator=gen)
+                          * LORA_EXPORT_B_STD).to(t.dtype)
+    save_safetensors(path, tensors, meta)
+
+
+def check_lora_export(base_path: str, export_path: str, ckpt_path: str,
+                      scale: float, leaves, hf_prefix: str,
+                      ckpt_prefix: str) -> dict:
+    """Reads back ``leaves`` ((layer, HF module, parameter path), ...) of
+    a merged export and holds export - base to scale * A @ B, the factors
+    read from the run's checkpoint and multiplied in f32: ``worst`` is the
+    larger, over the leaves, of the error's norm over the delta's and its
+    largest element over the delta's largest (bf16 adapters round their
+    product once, 2^-9 relative; a skipped merge reads 1); ``changed`` is
+    the share of the checked elements where the export differs from the
+    base."""
+    from safetensors import safe_open
+
+    worst, changed, n, sq = 0.0, 0, 0, 0.0
+    with safe_open(os.path.join(base_path, "model.safetensors"), "pt",
+                   device=DEVICE) as fb, safe_open(
+            os.path.join(export_path, "model.safetensors"), "pt",
+            device=DEVICE) as fe, safe_open(ckpt_path, "pt",
+                                            device=DEVICE) as fc:
+        for layer, hf_name, path in leaves:
+            key = f"{hf_prefix}.{layer}.{hf_name}.weight"
+            w = fb.get_tensor(key).float().T
+            got = fe.get_tensor(key).float().T
+            a = fc.get_tensor(f"{ckpt_prefix}.{path}.kernel.a")[layer]
+            b = fc.get_tensor(f"{ckpt_prefix}.{path}.kernel.b")[layer]
+            delta = scale * (a.float() @ b.float())
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"export {key} is not finite")
+            err = got - w - delta
+            worst = max(worst,
+                        float(err.norm() / delta.norm()),
+                        float(err.abs().max() / delta.abs().max()))
+            changed += int((got != w).sum())
+            n += got.numel()
+            sq += float(delta.square().sum())
+    return {"worst": worst, "changed": changed / n,
+            "delta_rms": math.sqrt(sq / n)}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -4187,11 +5050,15 @@ def main() -> int:
                     help="new tokens of the serving phase's generate")
     ap.add_argument("--train-steps", type=int, default=4,
                     help="PA-SFT steps of phases 6, 12, 14 and 19 (at "
-                         "least 2)")
+                         "least 2; phases 20 and 22 take LORA_SFT_STEPS)")
     ap.add_argument("--grpo-steps", type=int, default=2,
                     help="SC-GRPO steps of phase 7 (at least 1; phases 15 "
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers to run (3-22; "
+                         "4, 5, 8 and 9 run together), for a partial run "
+                         "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
                     help="also time K1-K3 at the SigLIP tower with q, k, v "
                          "and dO padded to 80 in the wrapper, beside the "
@@ -4235,44 +5102,83 @@ def main() -> int:
     next_encoded, next_feature_lens = make_next_requests(next_bundle)
     next_rows = make_next_sft_rows(next_bundle, NEXT_SFT_CUTOFF)
     v15_encoded = make_v15_requests(bundle_from_hf_config(LLAVA_15_7B))
-    measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
-                             grpo_examples)
-    for name, results in phase_kernels_llava(
-            llava_encoded, llava_rows, args.max_new_tokens,
-            args.pad_compare).items():
-        measured[name] += results
-    for name, results in phase_kernels_q25(
-            q25_encoded, q25_rows, q25_grpo_examples,
-            args.max_new_tokens).items():
-        measured[name] += results
-    for name, results in phase_kernels_llava_families(
-            next_encoded, v15_encoded, next_rows, ov_grpo_examples,
-            args.max_new_tokens).items():
-        measured[name] += results
-    serve, gen, batch = phase_main(encoded, args.max_new_tokens, card)
-    phase_profile(gen, batch)
-    evaluated = phase_eval(gen, card)
-    chat = phase_chat(gen, card)
-    del gen, batch
-    torch.cuda.empty_cache()
-    train = phase_train(train_rows, args.train_steps, card)
-    grpo = phase_grpo(grpo_examples, args.grpo_steps, card,
-                      grpo_case_qwen2_vl())
-    chain = phase_chain(card)
-    llava_serve = phase_llava_serve(llava_encoded, args.max_new_tokens, card)
-    llava_sft = phase_llava_sft(llava_rows, args.train_steps, card)
-    q25_serve = phase_q25_serve(q25_encoded, args.max_new_tokens, card)
-    q25_sft = phase_q25_sft(q25_rows, args.train_steps, card)
+    lora_rows = make_q25_lora_sft_rows(Q25_SFT_CUTOFF)
+    phases = (set(range(1, 23)) if args.phases is None
+              else {int(x) for x in args.phases.split(",")})
+    by_path, measured = {}, None
+    t0 = time.perf_counter()
+    if 3 in phases:
+        measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
+                                 grpo_examples)
+        for name, results in phase_kernels_llava(
+                llava_encoded, llava_rows, args.max_new_tokens,
+                args.pad_compare).items():
+            measured[name] += results
+        for name, results in phase_kernels_q25(
+                q25_encoded, q25_rows, q25_grpo_examples,
+                args.max_new_tokens, lora_rows).items():
+            measured[name] += results
+        for name, results in phase_kernels_llava_families(
+                next_encoded, v15_encoded, next_rows, ov_grpo_examples,
+                args.max_new_tokens).items():
+            measured[name] += results
+        log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
+    if phases & {4, 5, 8, 9}:
+        t0 = time.perf_counter()
+        by_path["serve"], gen, batch = phase_main(
+            encoded, args.max_new_tokens, card)
+        phase_profile(gen, batch)
+        by_path["eval"] = phase_eval(gen, card)
+        by_path["chat"] = phase_chat(gen, card)
+        del gen, batch
+        torch.cuda.empty_cache()
+        log(f"phases 4, 5, 8, 9 (serve, eval, chat): "
+            f"{time.perf_counter() - t0:.1f} s")
     q25_steps = min(args.grpo_steps, Q25_GRPO_STEPS)
-    q25_grpo = phase_grpo(q25_grpo_examples, q25_steps, card,
-                          grpo_case_q25(q25_steps))
     ov_steps = min(args.grpo_steps, OV_GRPO_STEPS)
-    llava_grpo = phase_grpo(ov_grpo_examples, ov_steps, card,
-                            grpo_case_ov(ov_steps))
-    llava16_serve = phase_next_serve(next_encoded, next_feature_lens,
-                                     args.max_new_tokens, card)
-    llava15_serve = phase_v15_serve(v15_encoded, args.max_new_tokens, card)
-    llava16_sft = phase_next_sft(next_rows, args.train_steps, card)
+    for n, path, run in (
+        (6, "train", lambda: phase_train(train_rows, args.train_steps, card)),
+        (7, "grpo", lambda: phase_grpo(grpo_examples, args.grpo_steps, card,
+                                       grpo_case_qwen2_vl())),
+        (10, "chain", lambda: phase_chain(card)),
+        (11, "llava_serve", lambda: phase_llava_serve(
+            llava_encoded, args.max_new_tokens, card)),
+        (12, "llava_sft", lambda: phase_llava_sft(
+            llava_rows, args.train_steps, card)),
+        (13, "q25_serve", lambda: phase_q25_serve(
+            q25_encoded, args.max_new_tokens, card)),
+        (14, "q25_sft", lambda: phase_q25_sft(
+            q25_rows, args.train_steps, card)),
+        (15, "q25_grpo", lambda: phase_grpo(
+            q25_grpo_examples, q25_steps, card, grpo_case_q25(q25_steps))),
+        (16, "llava_grpo", lambda: phase_grpo(
+            ov_grpo_examples, ov_steps, card, grpo_case_ov(ov_steps))),
+        (17, "llava16_serve", lambda: phase_next_serve(
+            next_encoded, next_feature_lens, args.max_new_tokens, card)),
+        (18, "llava15_serve", lambda: phase_v15_serve(
+            v15_encoded, args.max_new_tokens, card)),
+        (19, "llava16_sft", lambda: phase_next_sft(
+            next_rows, args.train_steps, card)),
+        (20, "q25_lora_sft", lambda: phase_lora_sft_q25(
+            lora_rows, LORA_SFT_STEPS, card)),
+        (21, "q25_lora_grpo", lambda: phase_lora_grpo(card)),
+        (22, "llava16_qlora_sft", lambda: phase_qlora_sft_next(
+            next_rows, LORA_SFT_STEPS, card)),
+        (22, "q25_int8_serve", lambda: phase_quant_serve(
+            q25_encoded, args.max_new_tokens, card, "int8")),
+        (22, "q25_nf4_serve", lambda: phase_quant_serve(
+            q25_encoded, NF4_NEW_TOKENS, card, "nf4")),
+    ):
+        if n in phases:
+            t0 = time.perf_counter()
+            by_path[path] = run()
+            torch.cuda.empty_cache()
+            log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
+    if not set(range(3, 23)) <= phases:
+        # a partial run's launch counts cover only the chosen phases
+        log(f"partial run, phases {sorted(phases)} only: no kernel line")
+        print(gpu_line())
+        return 0
 
     line = []
     for k, replaces in kernels:
@@ -4280,21 +5186,8 @@ def main() -> int:
         entry = {"name": k.name, "route": "cuda",
                  "source": f"iadr1_tpu_torch/csrc/{k.source}",
                  "replaces": replaces,
-                 "launches_by_path": {"serve": serve[k.name],
-                                      "eval": evaluated[k.name],
-                                      "chat": chat[k.name],
-                                      "train": train[k.name],
-                                      "grpo": grpo[k.name],
-                                      "chain": chain[k.name],
-                                      "llava_serve": llava_serve[k.name],
-                                      "llava_sft": llava_sft[k.name],
-                                      "q25_serve": q25_serve[k.name],
-                                      "q25_sft": q25_sft[k.name],
-                                      "q25_grpo": q25_grpo[k.name],
-                                      "llava_grpo": llava_grpo[k.name],
-                                      "llava16_serve": llava16_serve[k.name],
-                                      "llava15_serve": llava15_serve[k.name],
-                                      "llava16_sft": llava16_sft[k.name]}}
+                 "launches_by_path": {path: counts[k.name]
+                                      for path, counts in by_path.items()}}
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry.update({key: main_case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -42,7 +42,8 @@ def main(argv=None):
     parser.add_argument("--max-samples", type=int, default=None)
     parser.add_argument("--quant", choices=["none", "int8", "int4", "nf4"],
                         default="none",
-                        help="weight-only quantization (not ported yet)")
+                        help="weight-only quantization (models/quant.py): "
+                        "int8 per-channel, int4/nf4 packed blockwise")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' runs the plain "
                         "PyTorch path")
@@ -63,15 +64,15 @@ def main(argv=None):
     )
     from iadr1_tpu_torch.eval.mcq import extract_option_answer_pretrain
     from iadr1_tpu_torch.models.params_io import load_safetensors_path
+    from iadr1_tpu_torch.models.quant import quantize_tree
     from iadr1_tpu_torch.models.registry import bundle_from_pretrained
 
     device = resolve_device(args.device)
-    if args.quant != "none":
-        raise NotImplementedError(
-            f"--quant {args.quant} is not ported yet (ROADMAP A.12)")
     bundle = bundle_from_pretrained(args.model_path, attention=args.attention)
     params = bundle.convert_hf(load_safetensors_path(args.model_path),
                                dtype=torch.bfloat16, device=device)
+    if args.quant != "none":
+        params = quantize_tree(params, fmt=args.quant)
     tokenizer = AutoTokenizer.from_pretrained(args.model_path)
     template = get_template(args.template or bundle.template)
 

@@ -1,5 +1,5 @@
 """The IAD-R1 recipe in ONE command: PA-SFT -> SC-GRPO -> benchmark eval
-(counterpart of iadr1_tpu/cli/pipeline.py, full-parameter).
+(counterpart of iadr1_tpu/cli/pipeline.py).
 
 The checkpoint hand-off between stages and the template consistency
 between train and eval are one config:
@@ -18,8 +18,9 @@ artifacts (all under ``output_dir``):
 
 ``stages`` selects a subset (default all three); a later stage picks up an
 earlier stage's export from disk, so ``stages: [eval]`` re-runs eval alone
-against an existing ``grpo_export``.  LoRA and quantized runs wait for
-ROADMAP A.12.
+against an existing ``grpo_export``.  A LoRA GRPO stage exports its
+adapters merged into the base (over the base quantized as training
+quantized it, for a QLoRA run).
 """
 
 from __future__ import annotations
@@ -82,26 +83,72 @@ def _bench_name(spec: BenchmarkSpec) -> str:
 
 def export_run(base_model_path: str, checkpoint_dir: str, out_dir: str,
                finetuning: dict | None = None, step: int | None = None,
-               quant: str = "none", device=None) -> str:
+               quant: str = "none", quant_block: int = 64,
+               device=None) -> str:
     """Run checkpoint -> HF-format dir the next stage can load: the
     parameters of ``step`` (default: the newest) read onto ``device``
     (default: the card) and written under the base checkpoint's config
-    and tokenizer.  LoRA merging and quantized bases wait for ROADMAP
-    A.12."""
+    and tokenizer.
+
+    ``finetuning`` (the GRPO CLI's section) with a LoRA type: the
+    checkpoint holds the adapters alone; they are merged into the base
+    read from ``base_model_path`` in f32, as the JAX export reads it, one
+    layer at a time and in place, so the card holds the f32 base and one
+    layer's transients, never a second copy of the adapted kernels.  ``quant`` must be the training run's
+    ``model.quant``: the adapters trained against the quantized base, so
+    the base is quantized the same way before the merge, and what the
+    adapters did not touch is dequantized to bf16 (peft's
+    merge_and_unload on a bnb base).  PiSSA runs are refused, as in JAX:
+    the base checkpoint alone cannot rebuild their residual base."""
+    import torch
+
     from iadr1_tpu_torch.core.device import resolve_device
     from iadr1_tpu_torch.models.params_export import save_pretrained
+    from iadr1_tpu_torch.models.params_io import load_safetensors_path
     from iadr1_tpu_torch.models.registry import bundle_from_pretrained
     from iadr1_tpu_torch.train.checkpoint import CheckpointManager
 
-    if quant != "none" or (finetuning or {}).get(
-            "finetuning_type", "full") != "full":
-        raise NotImplementedError(
-            "exporting LoRA or quantized runs is not ported yet "
-            "(ROADMAP A.12)")
+    lora = (finetuning or {}).get("finetuning_type", "full") == "lora"
+    if quant != "none" and not lora:
+        raise ValueError(
+            "quantized export requires a LoRA finetuning section "
+            "(a quantized base cannot have taken full updates)")
+    if lora and finetuning.get("pissa_init"):
+        raise ValueError(
+            "pipeline export of pissa_init runs is unsupported: PiSSA "
+            "rewrites the base weights at adapter init, so the base "
+            "checkpoint alone cannot reconstruct the merged model")
     device = resolve_device(device)
     bundle = bundle_from_pretrained(base_model_path)
-    params = CheckpointManager(checkpoint_dir).restore_params(step, device)
-    save_pretrained(bundle, params, out_dir, source_dir=base_model_path)
+    ckpt = CheckpointManager(checkpoint_dir)
+    if not lora:
+        params = ckpt.restore_params(step, device)
+        save_pretrained(bundle, params, out_dir, source_dir=base_model_path)
+        return out_dir
+
+    from iadr1_tpu_torch.cli.train_grpo import (
+        GRPOJobConfig,
+        prepare_base,
+        tuning_config,
+    )
+    from iadr1_tpu_torch.core.config import dataclass_from_dict
+    from iadr1_tpu_torch.models.quant import dequantize_tree
+    from iadr1_tpu_torch.train.adapters import merge_lora
+
+    job = dataclass_from_dict(GRPOJobConfig, {
+        "model": {"quant": quant, "quant_block": quant_block},
+        "finetuning": finetuning})
+    params = bundle.convert_hf(load_safetensors_path(base_model_path),
+                               dtype=torch.float32, device=device)
+    params = prepare_base(params, job)
+    lora_params = ckpt.restore_params(step, device)
+    out = merge_lora(params, lora_params, tuning_config(job), inplace=True)
+    del params, lora_params
+    if quant != "none":
+        # kernels no adapter touched may still be quant dicts; the HF
+        # checkpoint needs dense kernels everywhere
+        out = dequantize_tree(out, torch.bfloat16)
+    save_pretrained(bundle, out, out_dir, source_dir=base_model_path)
     return out_dir
 
 
@@ -159,6 +206,7 @@ def run_pipeline(cfg: PipelineConfig, device=None) -> dict:
                    os.path.join(grpo_dir, "checkpoints"), grpo_export,
                    finetuning=stage_cfg.get("finetuning"),
                    quant=stage_cfg["model"].get("quant", "none"),
+                   quant_block=stage_cfg["model"].get("quant_block", 64),
                    device=device)
         artifacts["grpo"] = grpo_dir
         artifacts["grpo_export"] = grpo_export

@@ -22,7 +22,10 @@ def main(argv=None):
     parser.add_argument("--patch-budget", type=int, default=4096)
     parser.add_argument("--attention", default="auto")
     parser.add_argument("--quant", choices=["none", "int8"], default="none",
-                        help="int8 weight-only quantization (not ported yet)")
+                        help="int8: weight-only quantization of the linear "
+                        "kernels (models/quant.py); halves their resident "
+                        "bytes, while each call dequantizes its kernel in "
+                        "full, so a decode step is slower than bf16's")
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' runs the plain "
                         "PyTorch path")
@@ -35,16 +38,19 @@ def main(argv=None):
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.models.params_io import load_safetensors_path
+    from iadr1_tpu_torch.models.quant import quantize_tree, quantized_bytes
     from iadr1_tpu_torch.models.registry import bundle_from_pretrained
     from iadr1_tpu_torch.serve.api import ChatServer
 
     device = resolve_device(args.device)
-    if args.quant != "none":
-        raise NotImplementedError(
-            f"--quant {args.quant} is not ported yet (ROADMAP A.12)")
     bundle = bundle_from_pretrained(args.model_path, attention=args.attention)
     params = bundle.convert_hf(load_safetensors_path(args.model_path),
                                dtype=torch.bfloat16, device=device)
+    if args.quant == "int8":
+        params = quantize_tree(params)
+        now, bf16 = quantized_bytes(params)
+        print(f"int8 weight-only quant: {now / 1e6:.1f} MB "
+              f"(bf16 would be {bf16 / 1e6:.1f} MB)")
     tokenizer = AutoTokenizer.from_pretrained(args.model_path)
     template = get_template(args.template or bundle.template)
     generator = VLMGenerator(

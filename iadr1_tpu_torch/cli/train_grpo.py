@@ -1,16 +1,19 @@
 """SC-GRPO launcher (counterpart of iadr1_tpu/cli/train_grpo.py): a json
 dataset of {image, problem, solution} rows, the 0-shot/1-shot IAD prompt
 templates, a reward-function list (default accuracy + format), G-way
-rollouts and the SC-GRPO update, full-parameter; runs on the card unless
-given ``--device cpu``.
+rollouts and the SC-GRPO update, full-parameter or LoRA (``finetuning``
+section: LoRA, DoRA, rsLoRA, PiSSA) over a bf16 or quantized base
+(``model.quant``: int8, int4, nf4, or gptq / awq for a prequantized
+checkpoint); runs on the card unless given ``--device cpu``.
 
 Usage:
     python -m iadr1_tpu_torch.cli.train_grpo --config grpo.yaml \
         grpo.num_generations=4 train.max_steps=100 [--device cpu]
 
 ``require_ported`` names the ROADMAP item each option the port cannot run
-yet waits for: a mesh of more than one device (A.11), LoRA and quantized
-bases (A.12).
+yet waits for: a mesh of more than one device (A.11).  A LoRA run
+checkpoints its adapters and their moments only; the base is the KL
+reference (reference elision: one copy of the base weights).
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ class GRPOModelSection:
     dtype: str = "float32"
     ref_dtype: str = "bfloat16"       # the frozen reference copy's precision
     seed: int = 0
-    # a quantized base under LoRA (ROADMAP A.12)
-    quant: str = "none"               # none | int8 | int4 | nf4
+    # a quantized base under LoRA
+    quant: str = "none"               # none | int8 | int4 | nf4 | gptq | awq
     quant_block: int = 64             # blockwise scale granularity (int4/nf4)
 
 
@@ -73,8 +76,8 @@ class GRPOSection:
 
 @dataclasses.dataclass
 class GRPOTuningSection:
-    # "lora": factored adapters over a frozen bf16 base that is also the KL
-    # reference (ROADMAP A.12)
+    # "lora": factored adapters over a frozen base that is also the KL
+    # reference
     finetuning_type: str = "full"     # full | lora
     lora_rank: int = 8
     lora_alpha: float = 16.0
@@ -101,9 +104,59 @@ def require_ported(job: GRPOJobConfig) -> None:
         raise NotImplementedError(
             f"a mesh of more than one device ({job.mesh}) is not ported yet "
             "(ROADMAP A.11)")
-    if job.finetuning.finetuning_type != "full" or job.model.quant != "none":
-        raise NotImplementedError(
-            "LoRA and quantized bases are not ported yet (ROADMAP A.12)")
+
+
+def prepare_base(params, job: GRPOJobConfig):
+    """The base as training reads it: quantized per ``model.quant`` (a
+    gptq / awq checkpoint already is), with the JAX CLI's refusals: a
+    quantized base only under LoRA, never with PiSSA, and gptq / awq only
+    for a checkpoint that holds packed weights."""
+    from iadr1_tpu_torch.models.quant import (
+        QUANT_FORMATS,
+        is_quantized,
+        quantize_tree,
+    )
+    from iadr1_tpu_torch.train.adapters import _map_with_path
+
+    quant = job.model.quant
+    if quant == "none":
+        return params
+    if job.finetuning.finetuning_type != "lora":
+        raise ValueError(
+            "model.quant requires finetuning.finetuning_type=lora "
+            "(integer base weights cannot take optimizer updates)")
+    if job.finetuning.pissa_init:
+        raise ValueError(
+            "model.quant is incompatible with finetuning.pissa_init: PiSSA "
+            "needs a full-precision SVD of the base kernels, but the "
+            "quantized base holds packed quant dicts; disable one of the two")
+    if quant in ("gptq", "awq"):
+        found = []
+        _map_with_path(lambda p, x: found.append(is_quantized(x)), params)
+        if not any(found):
+            raise ValueError(
+                f"model.quant={quant!r} but the checkpoint has no packed "
+                "qweight tensors; point model_name_or_path at a GPTQ/AWQ "
+                "export or use int4/nf4/int8 to quantize a bf16 checkpoint")
+        return params
+    if quant not in QUANT_FORMATS:
+        raise ValueError(f"unknown model.quant {quant!r}")
+    return quantize_tree(params, fmt=quant, block_size=job.model.quant_block)
+
+
+def tuning_config(job: GRPOJobConfig):
+    """The ``finetuning`` section as a TuningConfig (LoRA runs), or None."""
+    from iadr1_tpu_torch.train.adapters import TuningConfig
+
+    ft = job.finetuning
+    if ft.finetuning_type == "full":
+        return None
+    if ft.finetuning_type != "lora":
+        raise ValueError(f"unknown finetuning_type {ft.finetuning_type!r}")
+    return TuningConfig(
+        finetuning_type="lora", lora_rank=ft.lora_rank,
+        lora_alpha=ft.lora_alpha, use_dora=ft.use_dora,
+        use_rslora=ft.use_rslora, pissa_init=ft.pissa_init)
 
 
 def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,
@@ -215,6 +268,7 @@ def main(argv=None):
         bundle_from_pretrained,
     )
     from iadr1_tpu_torch.rewards import get_reward_funcs
+    from iadr1_tpu_torch.train.adapters import init_lora_params, pissa_init
     from iadr1_tpu_torch.train.checkpoint import CheckpointManager
     from iadr1_tpu_torch.train.grpo import GRPOConfig, GRPOTrainer
     from iadr1_tpu_torch.train.loop import JsonlLogger, LoopConfig
@@ -273,19 +327,37 @@ def main(argv=None):
                                  grpo_cfg.max_prompt_length,
                                  num_generations=grpo_cfg.num_generations)
         if bundle.multimodal else None)
-    # the frozen reference: a copy in ref_dtype, never the policy's own
-    # tensors (the policy is updated in place)
-    ref_dtype = getattr(torch, cfg.model.ref_dtype)
-    ref_params = unflatten({name: p.detach().to(ref_dtype, copy=True)
-                            for name, p in named_leaves(params)})
-    trainer = GRPOTrainer(
-        bundle, tokenizer, optimizer, grpo_cfg,
-        get_reward_funcs(cfg.grpo.reward_funcs),
-        create_train_state(params, optimizer), ref_params,
-        sampling_overrides=sampling_overrides, schedule=schedule,
-        template=template, prompt_collator=collator, device=device,
-        seed=loop_cfg.seed)
-    del params, ref_params
+    params = prepare_base(params, cfg)
+    tuning_cfg = tuning_config(cfg)
+    common = dict(sampling_overrides=sampling_overrides, schedule=schedule,
+                  template=template, prompt_collator=collator, device=device,
+                  seed=loop_cfg.seed)
+    reward_funcs = get_reward_funcs(cfg.grpo.reward_funcs)
+    if tuning_cfg is not None:
+        # LoRA with reference elision: the state holds the adapters alone
+        # and the frozen base is the KL reference (one copy of it)
+        if tuning_cfg.pissa_init:
+            lora, params = pissa_init(params, tuning_cfg)
+        else:
+            gen = torch.Generator(device=device).manual_seed(
+                cfg.model.seed + 1)
+            lora = init_lora_params(gen, params, tuning_cfg)
+        trainer = GRPOTrainer(
+            bundle, tokenizer, optimizer, grpo_cfg, reward_funcs,
+            create_train_state(lora, optimizer), None, base_params=params,
+            tuning_cfg=tuning_cfg, **common)
+        del lora
+    else:
+        # the frozen reference: a copy in ref_dtype, never the policy's own
+        # tensors (the policy is updated in place)
+        ref_dtype = getattr(torch, cfg.model.ref_dtype)
+        ref_params = unflatten({name: p.detach().to(ref_dtype, copy=True)
+                                for name, p in named_leaves(params)})
+        trainer = GRPOTrainer(
+            bundle, tokenizer, optimizer, grpo_cfg, reward_funcs,
+            create_train_state(params, optimizer), ref_params, **common)
+        del ref_params
+    del params
 
     logger = JsonlLogger(loop_cfg.output_dir, loop_cfg.max_steps)
     ckpt = CheckpointManager(

@@ -10,6 +10,8 @@ from typing import Sequence
 
 import torch
 
+from iadr1_tpu_torch.models.quant import dequantize_kernel
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                device) -> torch.Tensor:
@@ -38,11 +40,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * scale.float()).to(dtype)
 
 
-def dense(x: torch.Tensor, kernel: torch.Tensor,
+def dense(x: torch.Tensor, kernel,
           bias: torch.Tensor | None = None) -> torch.Tensor:
     """x @ kernel ([in, out]) in x's dtype.  A bf16 GEMM accumulates in
     f32 inside cuBLAS and rounds once to bf16, as the JAX einsum with
-    ``preferred_element_type=f32`` followed by a cast does."""
+    ``preferred_element_type=f32`` followed by a cast does.
+
+    ``kernel`` may be a weight-only quant dict (``models/quant.py``): it
+    is dequantized to x's dtype first, in plain PyTorch, as the JAX dense
+    does outside any Pallas kernel."""
+    if isinstance(kernel, dict):
+        kernel = dequantize_kernel(kernel, x.dtype)
     out = torch.matmul(x, kernel.to(x.dtype))
     if bias is not None:
         out = out + bias.to(out.dtype)

@@ -148,10 +148,12 @@ def apply(params: dict, cfg: LlavaConfig,
           attention_fn: Callable | None = None,
           decode_attention_fn: Callable | None = None,
           tower_attention_fn: Callable | None = None,
-          remat=False, tower_remat=None, **video):
+          remat=False, tower_remat=None, lora: dict | None = None,
+          lora_scale: float = 1.0, **video):
     """Full forward -> (hidden [B, T, hid], cache).  ``remat`` is the
     decoder's mode; ``tower_remat`` the tower's, following ``remat`` when
-    None, as in the JAX apply."""
+    None, as in the JAX apply.  ``lora`` is the decoder's adapter tree
+    (the "text" subtree of a whole-model one); the tower takes none."""
     embeds = compute_embeds(
         params, cfg, input_ids, tiles=tiles, tile_segments=tile_segments,
         pack_src=pack_src, pack_weights=pack_weights,
@@ -163,7 +165,8 @@ def apply(params: dict, cfg: LlavaConfig,
         params["text"], cfg.text, inputs_embeds=embeds,
         position_ids=position_ids, segment_ids=segment_ids, cache=cache,
         cache_mode=cache_mode, precision=precision, attention_fn=attention_fn,
-        decode_attention_fn=decode_attention_fn, remat=remat)
+        decode_attention_fn=decode_attention_fn, remat=remat, lora=lora,
+        lora_scale=lora_scale)
 
 
 def logits(params, cfg: LlavaConfig, hidden,

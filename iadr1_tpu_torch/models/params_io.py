@@ -3,8 +3,11 @@ iadr1_tpu/models/params_io.py).
 
 Parameters keep the JAX package's layout: layers stacked on axis 0, dense
 kernels [in, out] (HF's [out, in] transposed).  ``params_from_jax`` carries
-a JAX parameter pytree over as it is, which is how the tests make both
-packages compute with the same weights.  GPTQ/AWQ import waits (ROADMAP).
+a JAX parameter pytree over as it is (quant dicts and LoRA trees too),
+which is how the tests make both packages compute with the same weights.
+GPTQ/AWQ checkpoints load through ``load_safetensors_path``: their packed
+linears are rewritten exactly into the asymmetric-uint4 quant dicts of
+``models/quant.py``.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from iadr1_tpu_torch.core.device import resolve_device
 def load_safetensors_path(path: str) -> dict[str, torch.Tensor]:
     """One .safetensors file, or a (sharded) checkpoint directory, as a
     flat name -> CPU tensor dict (bf16 included, which numpy cannot
-    hold)."""
+    hold).  GPTQ/AWQ linears come back as quant dicts under
+    ``<name>.weight`` (``convert_prequantized_state``)."""
     from safetensors.torch import load_file
 
     if os.path.isfile(path):
-        return load_file(path)
+        return _maybe_prequantized(load_file(path))
     index = os.path.join(path, "model.safetensors.index.json")
     if os.path.exists(index):
         with open(index) as f:
@@ -38,6 +42,12 @@ def load_safetensors_path(path: str) -> dict[str, torch.Tensor]:
     state: dict[str, torch.Tensor] = {}
     for f in files:
         state.update(load_file(os.path.join(path, f)))
+    return _maybe_prequantized(state)
+
+
+def _maybe_prequantized(state: dict) -> dict:
+    if any(k.endswith(".qweight") for k in state):
+        return convert_prequantized_state(state)
     return state
 
 
@@ -83,16 +93,23 @@ def _tensor(a, transpose: bool, dtype, device) -> torch.Tensor:
 
 
 def _stack_layers(state: Mapping, template: str, num_layers: int,
-                  transpose: bool = False, *, dtype, device) -> torch.Tensor:
-    return torch.stack([
-        _tensor(state[template.format(i=i)], transpose, dtype, device)
-        for i in range(num_layers)
-    ])
+                  transpose: bool = False, *, dtype, device):
+    entries = [state[template.format(i=i)] for i in range(num_layers)]
+    if isinstance(entries[0], dict):
+        # imported GPTQ/AWQ linears: already the [in, out] quant-dict
+        # layout, stacked field by field as they are
+        return {k: torch.stack([_as_tensor(e[k]) for e in entries]
+                               ).to(device) for k in entries[0]}
+    return torch.stack([_tensor(a, transpose, dtype, device)
+                        for a in entries])
 
 
 def _get(state: Mapping, name: str, transpose: bool = False, *, dtype,
-         device) -> torch.Tensor:
-    return _tensor(state[name], transpose, dtype, device)
+         device):
+    a = state[name]
+    if isinstance(a, dict):         # an imported GPTQ/AWQ linear
+        return {k: _as_tensor(v).to(device) for k, v in a.items()}
+    return _tensor(a, transpose, dtype, device)
 
 
 def convert_qwen2(state: Mapping, cfg, prefix: str = "model.",
@@ -140,15 +157,127 @@ def convert_qwen2(state: Mapping, cfg, prefix: str = "model.",
 def params_from_jax(tree, dtype=None, device=None):
     """A JAX parameter pytree (nested dicts of arrays, as numpy arrays or
     anything ``np.asarray`` takes) -> the same nested dict of tensors on
-    ``device``.  Floating leaves are cast to ``dtype`` when given."""
+    ``device``.  Floating leaves are cast to ``dtype`` when given, except
+    inside quant dicts, whose integer codes and f32 scales (and zeros)
+    come over as they are; None leaves (a LoRA tree's) stay None."""
+    from iadr1_tpu_torch.models.quant import is_quantized
+
     device = resolve_device(device)
 
-    def convert(x):
+    def convert(x, cast=True):
+        if x is None:
+            return None
         if isinstance(x, dict):
-            return {k: convert(v) for k, v in x.items()}
-        t = torch.as_tensor(np.array(x))
-        if dtype is not None and t.is_floating_point():
+            cast = cast and not is_quantized(x)
+            return {k: convert(v, cast) for k, v in x.items()}
+        a = np.array(x)
+        if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: same bits
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.as_tensor(a)
+        if cast and dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
 
     return convert(tree)
+
+
+# ---------------------------------------------------------------------------
+# pre-quantized checkpoint import (GPTQ / AWQ), in numpy as the JAX import
+# ---------------------------------------------------------------------------
+# The packed tensors are rewritten exactly (no requantization) into the
+# asymmetric-uint4 blockwise quant dict {q4, zeros, scales}.  AWQ packs 8
+# uint4 values per int32 in the interleaved column order [0, 2, 4, 6, 1,
+# 3, 5, 7]; GPTQ packs 8 consecutive rows per int32, low nibble first.
+_AWQ_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _numpy(a) -> np.ndarray:
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _unpack_rows_le(packed: np.ndarray) -> np.ndarray:
+    """GPTQ qweight int32 [in/8, out] -> uint8 [in, out] (the low nibble
+    is the word's first row)."""
+    shifts = (4 * np.arange(8)).astype(np.uint32)
+    vals = (packed[:, None, :].astype(np.uint32)
+            >> shifts[None, :, None]) & 0xF
+    return vals.reshape(-1, packed.shape[-1]).astype(np.uint8)
+
+
+def _unpack_cols_awq(packed: np.ndarray) -> np.ndarray:
+    """AWQ qweight/qzeros int32 [..., out/8] -> uint8 [..., out]
+    (interleaved nibble order)."""
+    shifts = (4 * np.arange(8)).astype(np.uint32)
+    vals = (packed[..., :, None].astype(np.uint32) >> shifts) & 0xF
+    out = np.empty_like(vals)
+    out[..., _AWQ_ORDER] = vals
+    return out.reshape(*packed.shape[:-1], -1).astype(np.uint8)
+
+
+def _pack_uint4_pairs(q: np.ndarray) -> np.ndarray:
+    """uint8 [in, out] (values 0..15) -> uint8 [in/2, out], even rows in
+    the low nibble (``quant._unpack_nibbles``'s layout)."""
+    if q.shape[0] % 2:
+        raise ValueError(f"odd in_dim {q.shape[0]} cannot nibble-pack")
+    return (q[0::2] | (q[1::2] << 4)).astype(np.uint8)
+
+
+def _quant_dict(q4, zeros, scales) -> dict:
+    return {"q4": torch.from_numpy(q4), "zeros": torch.from_numpy(zeros),
+            "scales": torch.from_numpy(np.ascontiguousarray(scales))}
+
+
+def gptq_layer_to_quant(qweight, qzeros, scales, g_idx=None) -> dict:
+    """AutoGPTQ 4-bit tensors -> an asymmetric quant dict of tensors.
+
+    qweight int32 [in/8, out]; qzeros int32 [nb, out/8] storing zero - 1
+    (AutoGPTQ's convention: the dequant subtracts qzeros + 1); scales
+    f16 [nb, out].  desc_act checkpoints (a permuted ``g_idx``) are
+    refused: the stacked kernels need uniform blocks of rows."""
+    qweight, qzeros = _numpy(qweight), _numpy(qzeros)
+    scales = _numpy(scales).astype(np.float32)
+    q = _unpack_rows_le(qweight)                       # [in, out]
+    in_dim, nb = q.shape[0], scales.shape[0]
+    if g_idx is not None:
+        expect = np.arange(in_dim) // (in_dim // nb)
+        if not np.array_equal(_numpy(g_idx), expect):
+            raise NotImplementedError(
+                "GPTQ desc_act=True (permuted g_idx) is unsupported; "
+                "re-export the checkpoint with desc_act=False")
+    shifts = (4 * np.arange(8)).astype(np.uint32)
+    z = (qzeros[:, :, None].astype(np.uint32) >> shifts) & 0xF
+    zeros = z.reshape(nb, -1).astype(np.float32) + 1.0  # the GPTQ + 1
+    return _quant_dict(_pack_uint4_pairs(q), zeros, scales)
+
+
+def awq_layer_to_quant(qweight, qzeros, scales) -> dict:
+    """AWQ GEMM 4-bit tensors -> an asymmetric quant dict of tensors.
+
+    qweight int32 [in, out/8], qzeros int32 [nb, out/8], scales f16
+    [nb, out]; columns interleaved by ``_AWQ_ORDER``."""
+    q = _unpack_cols_awq(_numpy(qweight))              # [in, out]
+    zeros = _unpack_cols_awq(_numpy(qzeros)).astype(np.float32)
+    return _quant_dict(_pack_uint4_pairs(q), zeros,
+                       _numpy(scales).astype(np.float32))
+
+
+def convert_prequantized_state(state: dict) -> dict:
+    """Every packed GPTQ/AWQ linear of a flat HF state dict rewritten into
+    a quant dict under ``<name>.weight``, so the family converters take it
+    as they take a dense weight.  The format is read per tensor: GPTQ
+    packs along in (qweight's columns equal the scales'), AWQ along out."""
+    out = dict(state)
+    for key in [k for k in state if k.endswith(".qweight")]:
+        base = key[: -len("qweight")]
+        qweight, qzeros = state[key], state[base + "qzeros"]
+        scales = state[base + "scales"]
+        if qweight.shape[-1] == scales.shape[-1]:
+            qd = gptq_layer_to_quant(qweight, qzeros, scales,
+                                     g_idx=state.get(base + "g_idx"))
+        else:
+            qd = awq_layer_to_quant(qweight, qzeros, scales)
+        out[base + "weight"] = qd
+        for suffix in ("qweight", "qzeros", "scales", "g_idx"):
+            out.pop(base + suffix, None)
+    return out

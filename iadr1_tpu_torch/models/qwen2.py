@@ -2,8 +2,11 @@
 
 Parameters are a nested dict of tensors in the JAX package's layout:
 layers stacked on axis 0, dense kernels [in, out].  The forward is a plain
-function over that dict.  LoRA/DoRA, prefix-LM masks, MoE layers and
-RoPE scaling are not ported yet (ROADMAP).
+function over that dict.  Any dense kernel may be a weight-only quant
+dict (``models/quant.py``), and ``apply(..., lora=...)`` adds factored
+LoRA / DoRA adapters (``lora_dense``) without ever forming the merged
+weight.  Prefix-LM masks, MoE layers and RoPE scaling are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from iadr1_tpu_torch.models.common import (
     rope_cos_sin,
     xla_attention,
 )
+from iadr1_tpu_torch.models.quant import dequantize_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,16 +102,17 @@ def unstack_layers(tree, num_layers: int) -> list:
     """Every layer of a layer-stacked tree, as views from one ``unbind``
     per leaf: the backward then stacks each leaf's gradient once, where
     per-layer indexing would add a zero-padded full-size gradient per
-    layer."""
+    layer.  Quant dicts and LoRA factors split field by field; the None
+    leaves of a LoRA tree stay None."""
     def split(t):
         if isinstance(t, dict):
             return {k: split(v) for k, v in t.items()}
-        return t.unbind(0)
+        return None if t is None else t.unbind(0)
 
     def pick(t, i):
         if isinstance(t, dict):
             return {k: pick(v, i) for k, v in t.items()}
-        return t[i]
+        return None if t is None else t[i]
 
     views = split(tree)
     return [pick(views, i) for i in range(num_layers)]
@@ -136,32 +141,85 @@ def init_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype,
     }
 
 
-def _qkv(cfg, x, a, cos, sin):
-    """Normed hidden -> roped q, k and v [B, T, heads, D]."""
+def lora_dense(x, kernel, bias, ab, scale: float):
+    """``dense`` plus a factored LoRA delta: y += scale * (x @ A) @ B (the
+    JAX ``_lora_dense``).  The merged [in, out] weight is never formed, so
+    the backward's cotangents stay activation-shaped.
+
+    DoRA (``ab["m"]`` present) rescales the output column by column by
+    m / ||W + scale * A @ B||_col, the norms computed factored
+    (||W_j||^2 + 2s (W^T A B)_jj + s^2 (B^T A^T A B)_jj) from an [out, r]
+    and an [r, r] product, in f32.  The norm is detached, as peft and the
+    JAX decoder detach it: gradients reach m, A and B through the
+    numerator only.  The bias is added last."""
+    y = dense(x, kernel)
+    if ab is not None:
+        xa = torch.matmul(x, ab["a"].to(x.dtype))
+        y = y + scale * torch.matmul(xa, ab["b"].to(x.dtype))
+        if "m" in ab:
+            y = y * (ab["m"].float() / _dora_norm(kernel, ab, scale)
+                     ).to(y.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+@torch.no_grad()
+def _dora_norm(kernel, ab, scale: float) -> torch.Tensor:
+    """||W + scale * A @ B|| per output column [out], f32, factored."""
+    k32 = (dequantize_kernel(kernel) if isinstance(kernel, dict)
+           else kernel.float())
+    a32, b32 = ab["a"].float(), ab["b"].float()
+    wnorm2 = (k32 * k32).sum(dim=0)
+    cross = ((k32.T @ a32) * b32.T).sum(dim=1)
+    bb = ((a32.T @ a32 @ b32) * b32).sum(dim=0)
+    return torch.sqrt(wnorm2 + 2.0 * scale * cross + scale * scale * bb
+                      + 1e-12)
+
+
+def _ab(ll, *path):
+    """The adapter at ``path`` of a layer's LoRA tree, or None."""
+    for key in path:
+        if ll is None:
+            return None
+        ll = ll.get(key)
+    return ll
+
+
+def _qkv(cfg, x, a, cos, sin, ll=None, scale: float = 1.0):
+    """Normed hidden -> roped q, k and v [B, T, heads, D]; ``ll`` is the
+    layer's LoRA tree (or None) and ``scale`` its scale."""
     B, T, _ = x.shape
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    q = dense(x, a["q"]["kernel"], a["q"].get("bias")).view(B, T, H, D)
-    k = dense(x, a["k"]["kernel"], a["k"].get("bias")).view(B, T, Hkv, D)
-    v = dense(x, a["v"]["kernel"], a["v"].get("bias")).view(B, T, Hkv, D)
+
+    def proj(name, heads):
+        return lora_dense(x, a[name]["kernel"], a[name].get("bias"),
+                          _ab(ll, "attn", name, "kernel"),
+                          scale).view(B, T, heads, D)
+
+    q, k, v = proj("q", H), proj("k", Hkv), proj("v", Hkv)
     q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
 
-def _post_attention(cfg, h, out, lp):
+def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
     """Output projection, residual, then the MLP block."""
     B, T, _ = h.shape
-    h = h + dense(out.reshape(B, T, -1), lp["attn"]["o"]["kernel"])
+
+    def proj(x, group, name):
+        return lora_dense(x, lp[group][name]["kernel"], None,
+                          _ab(ll, group, name, "kernel"), scale)
+
+    h = h + proj(out.reshape(B, T, -1), "attn", "o")
     x = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
-    m = lp["mlp"]
-    gate = dense(x, m["gate"]["kernel"])
-    up = dense(x, m["up"]["kernel"])
-    return h + dense(F.silu(gate) * up, m["down"]["kernel"])
+    gate, up = proj(x, "mlp", "gate"), proj(x, "mlp", "up")
+    return h + proj(F.silu(gate) * up, "mlp", "down")
 
 
 def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
-           attend_fresh):
+           attend_fresh, ll=None, scale: float = 1.0):
     x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-    q, k, v = _qkv(cfg, x, lp["attn"], cos, sin)
+    q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     if layer_cache is not None:
         T = h.shape[1]
         ck, cv = layer_cache                        # [B, Hkv, S, D] views
@@ -170,10 +228,11 @@ def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
         cv[:, :, write_idx:write_idx + T] = v.transpose(1, 2).to(cv.dtype)
         if not attend_fresh:
             k, v = ck, cv                           # cache layout
-    return _post_attention(cfg, h, attn(q, k, v), lp)
+    return _post_attention(cfg, h, attn(q, k, v), lp, ll, scale)
 
 
-def _remat_layer(cfg, h, lp, cos, sin, attn, remat):
+def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
+                 scale: float = 1.0):
     """One training layer under a remat mode (no cache).
 
     "full" checkpoints the whole layer, so the backward re-runs the
@@ -187,16 +246,17 @@ def _remat_layer(cfg, h, lp, cos, sin, attn, remat):
     norm in front of them, not the three projections."""
     if remat == "full":
         return ckpt(lambda h: _layer(cfg, h, lp, cos, sin, None, None, attn,
-                                     False), h)
+                                     False, ll, scale), h)
     eps = cfg.rms_norm_eps
     if remat == "save_qkv":
         x = ckpt(lambda h: rms_norm(h, lp["input_norm"], eps), h)
-        q, k, v = _qkv(cfg, x, lp["attn"], cos, sin)
+        q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     else:
         q, k, v = ckpt(lambda h: _qkv(cfg, rms_norm(h, lp["input_norm"], eps),
-                                      lp["attn"], cos, sin), h)
+                                      lp["attn"], cos, sin, ll, scale), h)
     out = attn(q, k, v)
-    return ckpt(lambda h, out: _post_attention(cfg, h, out, lp), h, out)
+    return ckpt(lambda h, out: _post_attention(cfg, h, out, lp, ll, scale),
+                h, out)
 
 
 def apply(
@@ -213,6 +273,8 @@ def apply(
     attention_fn: Callable | None = None,
     decode_attention_fn: Callable | None = None,
     remat=False,
+    lora: dict | None = None,
+    lora_scale: float = 1.0,
 ):
     """Run the decoder; returns (hidden [B, T, hid], cache).
 
@@ -227,6 +289,10 @@ def apply(
 
     ``remat`` (training, no cache): False, True / "save_flash",
     "save_qkv" or "full", as in the JAX decoder; see ``_remat_layer``.
+
+    ``lora``: an adapter tree parallel to ``params`` (``train/adapters.py
+    init_lora_params``; its "layers" subtree is read), applied factored
+    with ``lora_scale`` on every path, cached decoding included.
     """
     if remat and cache is not None:
         raise ValueError("remat is for training; it takes no cache")
@@ -288,15 +354,19 @@ def apply(
     else:
         attn = fresh_attention()
 
-    layers = unstack_layers(params["layers"], cfg.num_hidden_layers)
-    for i, lp in enumerate(layers):
+    L = cfg.num_hidden_layers
+    layers = unstack_layers(params["layers"], L)
+    layer_loras = (unstack_layers(lora.get("layers", lora), L)
+                   if lora is not None else [None] * L)
+    for i, (lp, ll) in enumerate(zip(layers, layer_loras)):
         if remat:
-            h = _remat_layer(cfg, h, lp, cos, sin, attn, remat)
+            h = _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll,
+                             lora_scale)
             continue
         layer_cache = ((cache["k"][i], cache["v"][i]) if cache is not None
                        else None)
         h = _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
-                   attend_fresh)
+                   attend_fresh, ll, lora_scale)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if cache is not None:
         cache["write_idx"] = write_idx + T

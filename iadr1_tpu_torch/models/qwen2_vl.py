@@ -243,10 +243,13 @@ def apply(
     vision_attention_fn: Callable | None = None,
     remat=False,
     tower_remat=None,
+    lora: dict | None = None,
+    lora_scale: float = 1.0,
 ):
     """Full VLM forward -> (hidden [B, T, hid], cache).  ``remat`` is the
     decoder's mode; ``tower_remat`` the tower's, following ``remat`` when
-    None, as in the JAX apply."""
+    None, as in the JAX apply.  ``lora`` is the decoder's adapter tree
+    (the "text" subtree of a whole-model one); the tower takes none."""
     embeds = common.embed_lookup(params["text"]["embed"]["weight"],
                                  input_ids).to(precision.compute_dtype)
     if patches is not None:
@@ -260,7 +263,8 @@ def apply(
         params["text"], cfg.text, inputs_embeds=embeds,
         position_ids=position_ids, segment_ids=segment_ids, cache=cache,
         cache_mode=cache_mode, precision=precision, attention_fn=attention_fn,
-        decode_attention_fn=decode_attention_fn, remat=remat,
+        decode_attention_fn=decode_attention_fn, remat=remat, lora=lora,
+        lora_scale=lora_scale,
     )
 
 

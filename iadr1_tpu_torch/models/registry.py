@@ -4,12 +4,17 @@ LLaVA-OneVision, and LLaVA-1.5 / LLaVA-NeXT (images).
 
 A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
-cache_mode=..., remat=False)``, ``hidden_fn(params, batch, remat=True)``,
+cache_mode=..., remat=False, lora=None, lora_scale=1.0)``,
+``hidden_fn(params, batch, remat=True, lora=..., lora_scale=...)``,
 ``head_kernel_fn(params)``, ``logits_fn(params, hidden)``,
-``shared_pred_fn(params, batch, group_size, remat=True)`` (GRPO's
-shared-prompt scoring), ``init_params(seed, dtype, device)``,
+``shared_pred_fn(params, batch, group_size, remat=True, lora=None,
+lora_scale=1.0)`` (GRPO's shared-prompt scoring),
+``init_params(seed, dtype, device)``,
 ``convert_hf(state, dtype, device)`` and, for the multimodal families,
-the host-side ``vision_arrays`` and ``preprocess_image``.
+the host-side ``vision_arrays`` and ``preprocess_image``.  ``lora`` is an
+adapter tree parallel to the parameters (``train/adapters.py``); the VLM
+bundles hand its "text" subtree to the decoder, and their towers take no
+adapters.
 """
 
 from __future__ import annotations
@@ -77,6 +82,11 @@ class ModelBundle:
 def _generator(seed: int, device) -> tuple[torch.Generator, torch.device]:
     device = resolve_device(device)
     return torch.Generator(device=device).manual_seed(seed), device
+
+
+def _text_lora(lora):
+    """A VLM adapter tree's decoder part (the JAX bundles' lora.get("text"))."""
+    return lora.get("text") if lora else None
 
 
 # transformers.LlamaConfig's defaults: what a published LLaMA text config
@@ -174,7 +184,8 @@ def _vlm_shared_pred(module, cfg, precision: Precision, attention: str,
     tower_attn = default_attention(attention)
     attn_lse = default_attention_with_lse(attention)
 
-    def shared_pred(params, batch, group_size, remat=True):
+    def shared_pred(params, batch, group_size, remat=True, lora=None,
+                    lora_scale=1.0):
         embeds = module.compute_embeds(
             params, cfg, batch["prompt_ids"],
             **{k: batch[k] for k in batch_keys if k in batch},
@@ -183,7 +194,8 @@ def _vlm_shared_pred(module, cfg, precision: Precision, attention: str,
         return shared_prompt_pred_hidden(
             params["text"], cfg.text, batch, group_size,
             attention_fn=attn_lse, precision=precision, remat=remat,
-            prompt_embeds=embeds)
+            prompt_embeds=embeds, lora=_text_lora(lora),
+            lora_scale=lora_scale)
 
     return shared_pred
 
@@ -259,13 +271,15 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
 
-    def apply(params, batch, cache=None, cache_mode="extend", remat=False):
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              lora=None, lora_scale=1.0):
         return qwen2.apply(
             params, cfg, batch["input_ids"],
             position_ids=batch["position_ids"],
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
-            decode_attention_fn=decode_attn, remat=remat,
+            decode_attention_fn=decode_attn, remat=remat, lora=lora,
+            lora_scale=lora_scale,
         )
 
     def init_params(seed=0, dtype=None, device=None):
@@ -275,10 +289,12 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
 
     attn_lse = default_attention_with_lse(attention)
 
-    def shared_pred(params, batch, group_size, remat=True):
+    def shared_pred(params, batch, group_size, remat=True, lora=None,
+                    lora_scale=1.0):
         return shared_prompt_pred_hidden(
             params, cfg, batch, group_size, attention_fn=attn_lse,
-            precision=precision, remat=remat)
+            precision=precision, remat=remat, lora=lora,
+            lora_scale=lora_scale)
 
     return ModelBundle(
         family="qwen2", cfg=cfg, multimodal=False,
@@ -319,7 +335,7 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
     decode_attn = default_decode_attention(attention)
 
     def apply(params, batch, cache=None, cache_mode="extend", remat=False,
-              tower_remat=None):
+              tower_remat=None, lora=None, lora_scale=1.0):
         return qwen2_vl.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
             patches=batch.get("patches"),
@@ -330,7 +346,8 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, vision_attention_fn=attn,
-            remat=remat, tower_remat=tower_remat,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale,
         )
 
     def vision_arrays(input_ids, patches_list, grids, patch_budget):
@@ -366,7 +383,8 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
 
     attn_lse = default_attention_with_lse(attention)
 
-    def shared_pred(params, batch, group_size, remat=True):
+    def shared_pred(params, batch, group_size, remat=True, lora=None,
+                    lora_scale=1.0):
         """The tower and the feature scatter run once per UNIQUE prompt;
         the completions attend the shared prompt K/V.  The tower follows
         ``remat`` as a plain checkpoint of each block, as in JAX."""
@@ -382,7 +400,8 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
                 embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
         return shared_prompt_pred_hidden(
             params["text"], tcfg, batch, group_size, attention_fn=attn_lse,
-            precision=precision, remat=remat, prompt_embeds=embeds)
+            precision=precision, remat=remat, prompt_embeds=embeds,
+            lora=_text_lora(lora), lora_scale=lora_scale)
 
     return ModelBundle(
         family="qwen2_vl", cfg=cfg, multimodal=True,
@@ -432,7 +451,7 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
     decode_attn = default_decode_attention(attention)
 
     def apply(params, batch, cache=None, cache_mode="extend", remat=False,
-              tower_remat=None):
+              tower_remat=None, lora=None, lora_scale=1.0):
         return qwen25_vl.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
             patches=batch.get("patches"),
@@ -444,7 +463,8 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, vision_attention_fn=attn,
-            remat=remat, tower_remat=tower_remat,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale,
         )
 
     def vision_arrays(input_ids, patches_list, grids, patch_budget):
@@ -495,7 +515,8 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
 
     attn_lse = default_attention_with_lse(attention)
 
-    def shared_pred(params, batch, group_size, remat=True):
+    def shared_pred(params, batch, group_size, remat=True, lora=None,
+                    lora_scale=1.0):
         """The tower and the feature scatter run once per UNIQUE prompt;
         the completions attend the shared prompt K/V."""
         embeds = common.embed_lookup(
@@ -510,7 +531,8 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
                 embeds, feats, batch["scatter_rows"], batch["scatter_cols"])
         return shared_prompt_pred_hidden(
             params["text"], tcfg, batch, group_size, attention_fn=attn_lse,
-            precision=precision, remat=remat, prompt_embeds=embeds)
+            precision=precision, remat=remat, prompt_embeds=embeds,
+            lora=_text_lora(lora), lora_scale=lora_scale)
 
     return ModelBundle(
         family="qwen2_5_vl", cfg=cfg, multimodal=True,
@@ -577,16 +599,18 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
     g = vcfg.grid
+    stats = _image_stats(hf_config)
 
     def apply(params, batch, cache=None, cache_mode="extend", remat=False,
-              tower_remat=None):
+              tower_remat=None, lora=None, lora_scale=1.0):
         return llava_onevision.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
             **{k: batch.get(k) for k in LLAVA_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, tower_attention_fn=attn,
-            remat=remat, tower_remat=tower_remat,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale,
         )
 
     def preprocess_image(pil, min_pixels=None, max_pixels=None):
@@ -594,7 +618,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
         height, width), packed feature count); the pixel bounds are the
         Qwen2-VL family's and are not read."""
         tiles, grid = anyres.onevision_tiles(pil, cfg.image_grid_pinpoints,
-                                             vcfg.image_size)
+                                             vcfg.image_size, *stats)
         patches = anyres.patchify_tiles(tiles, vcfg.patch_size)
         seqlen = anyres.onevision_feature_len((pil.height, pil.width), grid,
                                               g, cfg.max_tiles)
@@ -686,16 +710,18 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
     g = vcfg.grid
+    stats = _image_stats(hf_config)
 
     def apply(params, batch, cache=None, cache_mode="extend", remat=False,
-              tower_remat=None):
+              tower_remat=None, lora=None, lora_scale=1.0):
         return llava.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
             **{k: batch.get(k) for k in LLAVA_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, tower_attention_fn=attn,
-            remat=remat, tower_remat=tower_remat,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale,
         )
 
     def preprocess_image(pil, min_pixels=None, max_pixels=None):
@@ -705,11 +731,12 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
         the Qwen2-VL family's and are not read."""
         if anyres_mode:
             tiles, grid = anyres.llava_next_tiles(
-                pil, cfg.image_grid_pinpoints, vcfg.image_size)
+                pil, cfg.image_grid_pinpoints, vcfg.image_size, *stats)
             seqlen = anyres.onevision_feature_len(
                 (pil.height, pil.width), grid, g, max_tiles=None)
         else:
-            tiles = anyres.clip_resize_center_crop(pil, vcfg.image_size)[None]
+            tiles = anyres.clip_resize_center_crop(pil, vcfg.image_size,
+                                                   *stats)[None]
             grid, seqlen = (1, 1), g * g
         patches = anyres.patchify_tiles(tiles, vcfg.patch_size)
         return patches, (grid[0], grid[1], pil.height, pil.width), seqlen
@@ -817,6 +844,29 @@ def bundle_from_hf_config(hf_config: dict, **kw) -> ModelBundle:
 
 
 def bundle_from_pretrained(path: str, **kw) -> ModelBundle:
-    """Resolve a bundle from a local HF checkpoint directory."""
+    """Resolve a bundle from a local HF checkpoint directory.  The image
+    statistics of its ``preprocessor_config.json`` (``image_mean``,
+    ``image_std``), where it has them, go into the config the LLaVA
+    families' preprocessing reads (ROADMAP C.R11: the JAX package
+    normalises with OpenAI-CLIP's whatever the checkpoint says)."""
     with open(os.path.join(path, "config.json")) as f:
-        return bundle_from_hf_config(json.load(f), **kw)
+        hf_config = json.load(f)
+    proc = os.path.join(path, "preprocessor_config.json")
+    if os.path.exists(proc):
+        with open(proc) as f:
+            stats = json.load(f)
+        hf_config.update({k: stats[k] for k in ("image_mean", "image_std")
+                          if k in stats})
+    return bundle_from_hf_config(hf_config, **kw)
+
+
+def _image_stats(hf_config: dict):
+    """(mean, std) f32 [3] for the anyres and center-crop preprocessing:
+    the checkpoint's own where ``bundle_from_pretrained`` found them, else
+    OpenAI-CLIP's (HF's LLaVA processors' defaults)."""
+    from iadr1_tpu_torch.vision import anyres
+
+    return (np.asarray(hf_config.get("image_mean", anyres.DEFAULT_MEAN),
+                       np.float32),
+            np.asarray(hf_config.get("image_std", anyres.DEFAULT_STD),
+                       np.float32))

@@ -17,8 +17,9 @@ Function does (kernels/flash_attention.py), and so does autograd of the
 dense oracle here.
 
 All three attention calls go through one ``attention_fn`` with the
-signature of ``models/attention.py``'s lse dispatch.  LoRA factors are not
-ported yet (ROADMAP A.12).
+signature of ``models/attention.py``'s lse dispatch.  ``lora`` adds
+factored adapters (``qwen2.lora_dense``) to both sides, as in the dense
+decoder.
 """
 
 from __future__ import annotations
@@ -108,6 +109,8 @@ def shared_prompt_hidden(
     precision: Precision = DEFAULT_PRECISION,
     remat=True,
     prompt_embeds: torch.Tensor | None = None,   # [n, P, hid] (VLM scatter)
+    lora: dict | None = None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (prompt_hidden [n, P, hid], comp_hidden [n*G, N, hid]), final-normed.
 
@@ -149,19 +152,22 @@ def shared_prompt_hidden(
     # prompt (the prompt lies wholly in the past: no causal term)
     mask_cp = make_attention_mask(c_seg, p_seg_rep, None, None, causal=False)
 
-    def layer(hp, hc, lp):
+    def layer(hp, hc, lp, ll):
         a = lp["attn"]
 
         def project(h, rope):
             return _heads_first(*_qkv(
-                cfg, rms_norm(h, lp["input_norm"], eps), a, *rope))
+                cfg, rms_norm(h, lp["input_norm"], eps), a, *rope, ll,
+                lora_scale))
 
         def finish_prompt(h, out):
-            return _post_attention(cfg, h, out.transpose(1, 2), lp)
+            return _post_attention(cfg, h, out.transpose(1, 2), lp, ll,
+                                   lora_scale)
 
         def finish_completion(h, o1, lse1, o2, lse2):
             out = merge_attention(o1, lse1, o2, lse2)
-            return _post_attention(cfg, h, out.transpose(1, 2), lp)
+            return _post_attention(cfg, h, out.transpose(1, 2), lp, ll,
+                                   lora_scale)
 
         inner = remat and remat != "full"
         run = ckpt if inner else (lambda fn, *args: fn(*args))
@@ -180,12 +186,16 @@ def shared_prompt_hidden(
         return (run(finish_prompt, hp, op),
                 run(finish_completion, hc, o1, lse1, o2, lse2))
 
-    for lp in qwen2.unstack_layers(params["layers"], cfg.num_hidden_layers):
+    L = cfg.num_hidden_layers
+    layer_loras = (qwen2.unstack_layers(lora.get("layers", lora), L)
+                   if lora is not None else [None] * L)
+    for lp, ll in zip(qwen2.unstack_layers(params["layers"], L), layer_loras):
         if remat == "full":
-            # lp binds this layer: the replay runs after the loop
-            hp, hc = ckpt(lambda hp, hc, lp=lp: layer(hp, hc, lp), hp, hc)
+            # lp and ll bind this layer: the replay runs after the loop
+            hp, hc = ckpt(lambda hp, hc, lp=lp, ll=ll: layer(hp, hc, lp, ll),
+                          hp, hc)
         else:
-            hp, hc = layer(hp, hc, lp)
+            hp, hc = layer(hp, hc, lp, ll)
     return (rms_norm(hp, params["final_norm"], eps),
             rms_norm(hc, params["final_norm"], eps))
 
@@ -193,7 +203,8 @@ def shared_prompt_hidden(
 def shared_prompt_pred_hidden(
     params, cfg, batch, group_size: int, *, attention_fn: Callable,
     precision: Precision = DEFAULT_PRECISION, remat=True,
-    prompt_embeds: torch.Tensor | None = None,
+    prompt_embeds: torch.Tensor | None = None, lora: dict | None = None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
     """Hidden states that PREDICT the completion tokens: [n*G, N, hid].
 
@@ -214,6 +225,7 @@ def shared_prompt_pred_hidden(
         comp_positions=batch["completion_positions"],
         group_size=group_size, attention_fn=attention_fn,
         precision=precision, remat=remat, prompt_embeds=prompt_embeds,
+        lora=lora, lora_scale=lora_scale,
     )
     n, P, hid = hp.shape
     # the last VALID prompt token (P-1 under left padding; right-padded

@@ -1,5 +1,5 @@
 """SC-GRPO: structured-control group-relative policy optimization (the
-port's own copy of iadr1_tpu/train/grpo.py, full-parameter mode).
+port's own copy of iadr1_tpu/train/grpo.py).
 
 Per step: roll out G completions per prompt with the in-program
 RolloutEngine (each prompt prefilled once, its KV cache fanned out G
@@ -12,8 +12,13 @@ the batch.
 
 Prompts repeat G times *consecutively*, so the group normalization is
 right for any number of prompts per step.  Generation, scoring and update
-share one device and one copy of the policy parameters.  LoRA mode with
-reference elision waits for ROADMAP A.12.
+share one device and one copy of the policy parameters.
+
+LoRA mode with reference elision (``base_params`` and a LoRA
+``tuning_cfg``): the state holds the adapter tree alone, the frozen base
+rides the reference slot, the policy is base + factored adapters and the
+KL reference is the bare base, so one copy of the base weights serves
+rollout, policy and reference.
 """
 
 from __future__ import annotations
@@ -131,9 +136,10 @@ def completion_logps(score_fn, params, batch,
 
 
 def bundle_score_fn(bundle, remat=True):
-    """The default score_fn of a registry ModelBundle."""
-    def score(params, batch):
-        return (bundle.hidden_fn(params, batch, remat=remat),
+    """The default score_fn of a registry ModelBundle (extra keywords,
+    ``lora=``, pass through to its ``hidden_fn``)."""
+    def score(params, batch, **kw):
+        return (bundle.hidden_fn(params, batch, remat=remat, **kw),
                 bundle.head_kernel_fn(params))
 
     return score
@@ -275,6 +281,12 @@ class GRPOTrainer:
     ``pad_token_id``.  ``state`` holds the policy (f32 by default) and
     ``ref_params`` the frozen reference, both on ``device``.
 
+    LoRA mode: ``base_params`` (the frozen base, bf16 or quantized) and a
+    LoRA ``tuning_cfg``; ``state.params`` is then the adapter tree
+    (``train/adapters.py init_lora_params``) and ``ref_params`` is not
+    read (pass None): the base is the reference.  The reference refresh
+    does nothing there.
+
     Sampling: the rollout of trainer step k (counted from 0) draws from a
     generator seeded by (``seed``, k) alone, so a run resumed at step k
     (``fast_forward_rng(k)``) draws what an uninterrupted run would."""
@@ -285,10 +297,10 @@ class GRPOTrainer:
                  template=None, prompt_collator: Callable | None = None,
                  base_params=None, tuning_cfg=None, device=None,
                  seed: int = 0):
-        if base_params is not None or tuning_cfg is not None:
-            raise NotImplementedError(
-                "LoRA mode with reference elision is not ported yet "
-                "(ROADMAP A.12); pass full parameters and ref_params")
+        self._lora_mode = base_params is not None
+        if self._lora_mode and (tuning_cfg is None
+                                or tuning_cfg.finetuning_type != "lora"):
+            raise ValueError("base_params requires a LoRA TuningConfig")
         if bundle.family in GRPO_NOT_YET_PORTED:
             raise NotImplementedError(
                 f"SC-GRPO for the {bundle.family} family is not ported yet "
@@ -298,7 +310,8 @@ class GRPOTrainer:
         self.cfg = cfg
         self.reward_funcs = list(reward_funcs)
         self.state = state
-        self.ref_params = ref_params
+        # LoRA mode: the frozen base rides the reference slot
+        self.ref_params = base_params if self._lora_mode else ref_params
         self.template = template
         # optional VLM collator: (examples, G) -> rollout batch with the
         # vision arrays and M-RoPE positions (cli/train_grpo.py)
@@ -312,26 +325,49 @@ class GRPOTrainer:
             pad_token_id=_pad_id(tokenizer),
             **(sampling_overrides or {}),
         )
+        scale = tuning_cfg.lora_scale if self._lora_mode else 1.0
         self.engine = RolloutEngine(
             bundle, sampling,
             max_len=cfg.max_prompt_length + cfg.max_completion_length,
-            device=self.device)
+            device=self.device, lora_scale=scale)
         remat = True if cfg.remat == "save_flash" else cfg.remat
-        logps_fn = None
         self._shared = (cfg.shared_prompt_scoring
                         and bundle.shared_pred_fn is not None)
-        if self._shared:
-            G = cfg.num_generations
+        G = cfg.num_generations
 
-            def logps_fn(params, batch):
-                pred = bundle.shared_pred_fn(params, batch, G, remat=remat)
-                return chunked_token_logps(
-                    pred, bundle.head_kernel_fn(params),
-                    batch["completion_ids"], cfg.logp_chunk_size)
+        def shared_logps(params, batch, **lora_kw):
+            pred = bundle.shared_pred_fn(params, batch, G, remat=remat,
+                                         **lora_kw)
+            return chunked_token_logps(
+                pred, bundle.head_kernel_fn(params),
+                batch["completion_ids"], cfg.logp_chunk_size)
 
+        logps_fn = shared_logps if self._shared else None
+        ref_logps_fn = None
         score_fn = bundle_score_fn(bundle, remat=remat)
+        if self._lora_mode:
+            # the policy: the base (closed over) plus the adapters the
+            # state holds; the reference: the base alone
+            base = base_params
+            ref_score_fn = score_fn
+
+            def score_fn(lora, batch):
+                return ref_score_fn(base, batch, lora=lora, lora_scale=scale)
+
+            if self._shared:
+                def logps_fn(lora, batch):
+                    return shared_logps(base, batch, lora=lora,
+                                        lora_scale=scale)
+
+                ref_logps_fn = shared_logps
+            else:
+                def ref_logps_fn(base, batch):
+                    return completion_logps(ref_score_fn, base, batch,
+                                            cfg.logp_chunk_size)
+
         self.update_step = make_grpo_update_step(
-            score_fn, optimizer, cfg, schedule, logps_fn=logps_fn)
+            score_fn, optimizer, cfg, schedule, logps_fn=logps_fn,
+            ref_logps_fn=ref_logps_fn)
         self.logps_eval = make_grpo_logps_eval(score_fn, cfg,
                                                logps_fn=logps_fn)
         self._rollouts = 0          # rollouts drawn: the sampling stream's k
@@ -342,8 +378,9 @@ class GRPOTrainer:
     @torch.no_grad()
     def maybe_sync_ref(self) -> bool:
         """ref <- (1 - alpha) * ref + alpha * policy every
-        ``ref_model_sync_steps`` optimizer steps, when ``sync_ref_model``."""
-        if not self.cfg.sync_ref_model:
+        ``ref_model_sync_steps`` optimizer steps, when ``sync_ref_model``;
+        never in LoRA mode, where the frozen base is the reference."""
+        if not self.cfg.sync_ref_model or self._lora_mode:
             return False
         step = int(self.state.step)
         if step == 0 or step % self.cfg.ref_model_sync_steps != 0:
@@ -440,13 +477,18 @@ class GRPOTrainer:
         else:
             rollout_batch = batch = self._collate_prompts(examples)
         # the policy's matmul weights cast to the compute dtype once per
-        # step, not once per layer per decode step; the tokens are the same
-        policy = cast_dense_params(self.state.params,
-                                   self.bundle.precision.compute_dtype)
+        # step, not once per layer per decode step; the tokens are the same.
+        # In LoRA mode only the adapters are: the base is read as it is.
+        dtype = self.bundle.precision.compute_dtype
+        if self._lora_mode:
+            policy = self.ref_params
+            lora_kw = {"lora": cast_dense_params(self.state.params, dtype)}
+        else:
+            policy, lora_kw = cast_dense_params(self.state.params, dtype), {}
         rollout = self.engine.generate(
             policy, batch_to_device(rollout_batch, self.device),
-            self._next_generator(), group_size=G)
-        del policy
+            self._next_generator(), group_size=G, **lora_kw)
+        del policy, lora_kw
         completion_ids = rollout["completion_ids"].cpu().numpy()
         completion_mask = rollout["completion_mask"].cpu().numpy()
         prompt_ids = rollout["prompt_ids"].cpu().numpy()

@@ -6,7 +6,9 @@ Prompts are left-padded into a [B, P] block and prefilled in one pass
 Sequences freeze at EOS: the emitted token becomes pad and the cache
 segment mask stops growing.  The loop stops once every row is done (the
 JAX engine's default ``early_stop``; the tokens are the same either way).
-Mixture sampling and LoRA serving are not ported yet (ROADMAP A.14, A.12).
+``generate(..., lora=...)`` samples from a base plus factored adapters
+(LoRA SC-GRPO) without merging them.  Mixture sampling is not ported yet
+(ROADMAP A.14).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from iadr1_tpu_torch.core.device import resolve_device
 from iadr1_tpu_torch.models import qwen2
+from iadr1_tpu_torch.models.quant import is_quantized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +70,26 @@ def cast_dense_params(params: dict, dtype) -> dict:
     reads 2-byte weights instead of casting every 4-byte one.  Everything
     the model reads in f32 (norm scales, the embedding table, which a tied
     LM head reads in the logits dtype, and an untied ``lm_head``) keeps its
-    dtype."""
+    dtype, and so does a quant dict (``dense`` dequantizes it to the
+    activations' dtype itself).  A LoRA tree casts the same way: its
+    factors sit under "kernel" keys, and its None leaves stay None."""
+    def keep(node):
+        if isinstance(node, dict):
+            return {k: keep(v) for k, v in node.items()}
+        return None if node is None else node.detach()
+
+    def cast(node):
+        if node is None or is_quantized(node):
+            return keep(node)
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return node.detach().to(dtype)
+
     def walk(node, name):
-        if not isinstance(node, dict):
-            return node.detach()
+        if not isinstance(node, dict) or is_quantized(node):
+            return keep(node)
         if "kernel" in node and name != "lm_head":      # a dense layer
-            return {k: v.detach().to(dtype) for k, v in node.items()}
+            return {k: cast(v) for k, v in node.items()}
         return {k: walk(v, k) for k, v in node.items()}
 
     return walk(params, "")
@@ -82,24 +99,30 @@ class RolloutEngine:
     """Batched ``generate`` over a model bundle with a KV cache."""
 
     def __init__(self, bundle, sampling: SamplingConfig, max_len: int,
-                 cache_dtype=torch.bfloat16, device=None):
+                 cache_dtype=torch.bfloat16, device=None,
+                 lora_scale: float = 1.0):
         self.bundle = bundle
         self.sampling = sampling
         self.max_len = max_len
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
+        self.lora_scale = lora_scale
 
     @torch.no_grad()
     def generate(self, params, batch: dict, generator=None,
-                 group_size: int = 1) -> dict:
+                 group_size: int = 1, lora=None) -> dict:
         """batch: left-padded prompt tensors on the engine's device
         ("input_ids", "attention_mask" [B, P]; "position_ids" [3, B, P] and
         "mrope_deltas" [B] for M-RoPE; the vision arrays).  ``group_size``
         G > 1 prefills each prompt once and fans its KV cache out G ways.
         Returns {"completion_ids" [B*G, N], "completion_mask",
         "prompt_ids", "prompt_mask"}, prompts repeated G times
-        consecutively, and "num_decode_steps" (the decode steps run)."""
+        consecutively, and "num_decode_steps" (the decode steps run).
+        ``lora``: an adapter tree applied factored on top of ``params``
+        (with the engine's ``lora_scale``), prefill and decode alike."""
         sampling, bundle = self.sampling, self.bundle
+        lora_kw = ({"lora": lora, "lora_scale": self.lora_scale}
+                   if lora is not None else {})
         tcfg = getattr(bundle.cfg, "text", bundle.cfg)
         input_ids = batch["input_ids"]
         attn_mask = batch["attention_mask"]
@@ -121,7 +144,7 @@ class RolloutEngine:
         hidden, cache = bundle.apply(
             params, {**batch, "position_ids": position_ids,
                      "segment_ids": segs},
-            cache=cache, cache_mode="prefill")
+            cache=cache, cache_mode="prefill", **lora_kw)
         last_logits = bundle.logits_fn(params, hidden[:, -1:, :])[:, 0]
 
         if group_size > 1:
@@ -155,7 +178,7 @@ class RolloutEngine:
             hidden, cache = bundle.apply(
                 params, {"input_ids": token_in[:, None], "position_ids": pos,
                          "segment_ids": seg},
-                cache=cache, cache_mode="decode")
+                cache=cache, cache_mode="decode", **lora_kw)
             next_token = sample_token(bundle.logits_fn(params, hidden)[:, 0],
                                       sampling, generator)
             tokens[t] = torch.where(done, pad, token)

@@ -16,10 +16,11 @@ import torch
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict, depth first in insertion order."""
+    """The tensors of a nested dict, depth first in insertion order; None
+    leaves (those of a LoRA tree, ``train/adapters.py``) are empty."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def named_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -27,7 +28,7 @@ def named_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
     if isinstance(tree, dict):
         return [item for k, v in tree.items()
                 for item in named_leaves(v, f"{prefix}{k}.")]
-    return [(prefix[:-1], tree)]
+    return [] if tree is None else [(prefix[:-1], tree)]
 
 
 def unflatten(named: dict) -> dict:

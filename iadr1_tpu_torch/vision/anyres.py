@@ -25,9 +25,11 @@ import math
 
 import numpy as np
 
-# OpenAI-CLIP statistics, HF LlavaOnevisionImageProcessor's defaults; the
+# OpenAI-CLIP statistics, HF LlavaOnevisionImageProcessor's defaults.  The
 # JAX package normalises with these whatever a checkpoint's
-# preprocessor_config.json says, and the port keeps that for parity
+# preprocessor_config.json says (ROADMAP C.R11); the port's bundles pass a
+# checkpoint's own statistics where it states them
+# (``registry.bundle_from_pretrained``), and these otherwise
 DEFAULT_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 DEFAULT_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 

@@ -189,13 +189,32 @@ def _distinct_chars(completions, **kw):
 
 def test_grpo_resume_is_bitwise_equal_to_an_uninterrupted_run(
         checkpoint_dir, tmp_path, monkeypatch):
+    _check_grpo_resume(checkpoint_dir, tmp_path, monkeypatch, {})
+
+
+def test_lora_grpo_resume_is_bitwise_equal_to_an_uninterrupted_run(
+        checkpoint_dir, tmp_path, monkeypatch):
+    """LoRA mode (DoRA, rank 4): the checkpoint holds the adapters and
+    their moments alone, and a resumed run is the uninterrupted one."""
+    b = _check_grpo_resume(checkpoint_dir, tmp_path, monkeypatch, {
+        "finetuning": {"finetuning_type": "lora", "lora_rank": 4,
+                       "use_dora": True}})
+    names = [k for k in b if k not in ("step", "opt_count")]
+    assert names and all(k.rsplit(".", 1)[-1] in "abm" for k in names)
+    assert any(k.startswith("nu.text.layers.mlp.up.kernel.") for k in names)
+
+
+def _check_grpo_resume(checkpoint_dir, tmp_path, monkeypatch, extra):
+    """3 GRPO CLI steps, against 2 then a resumed third: the final
+    checkpoints bitwise equal, the logged metrics equal; returns the
+    final checkpoint's tensors."""
     from iadr1_tpu_torch.rewards import REWARD_REGISTRY
 
     monkeypatch.setitem(REWARD_REGISTRY, "distinct_chars", _distinct_chars)
     data_path, img_dir = build_iad_rl_dataset(tmp_path)
 
     def cfg(out_dir, max_steps, resume=False, save_steps=2):
-        return {
+        return {**extra, 
             "model": {"model_name_or_path": checkpoint_dir,
                       "ref_dtype": "float32"},
             "data": {"dataset_name": data_path, "image_path": img_dir,
@@ -227,6 +246,7 @@ def test_grpo_resume_is_bitwise_equal_to_an_uninterrupted_run(
                     "completion_length"):
             assert got[key] == ref[key], (got["current_steps"], key)
     assert all(r["grad_norm"] > 0 for r in want)     # the policy moved
+    return b
 
 
 # ---------------------------------------------------------------------------

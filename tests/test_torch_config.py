@@ -136,13 +136,17 @@ def test_options_the_port_cannot_run_yet_raise_at_use():
     with pytest.raises(NotImplementedError, match="A.11"):
         train_grpo.require_ported(job)                  # fsdp 16 x tp 4
     job.mesh = {"dp": 1, "fsdp": -1, "tp": 1}
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train_grpo.require_ported(job)                  # LoRA
+    train_grpo.require_ported(job)          # LoRA: ported (A.12)
+    tuning = train_grpo.tuning_config(job)
+    assert (tuning.lora_rank, tuning.lora_alpha) == (16, 32.0)
     job.finetuning.finetuning_type = "full"
     train_grpo.require_ported(job)
+    assert train_grpo.tuning_config(job) is None
     job.model.quant = "nf4"
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train_grpo.require_ported(job)
+    train_grpo.require_ported(job)
+    # a quantized base trains only under LoRA, as in the JAX CLI
+    with pytest.raises(ValueError, match="requires finetuning"):
+        train_grpo.prepare_base({}, job)
     train_grpo.require_ported(config.load_config(
         train_grpo.GRPOJobConfig, by_name["grpo_qwen2_5_vl_7b.yaml"]))
 

@@ -763,3 +763,55 @@ def test_full_precision_forward_raises_under_auto_and_runs_under_xla(card):
     assert h.dtype == torch.float32 and torch.isfinite(h).all()
     assert torch.isfinite(h1).all()
     assert (k1.KERNEL.launches, k4.KERNEL.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the quantized dense and the factored LoRA dense (plain PyTorch on the
+# card, no hand kernel: the JAX package runs them outside Pallas) in bf16
+# against their f32 versions on the CPU; bf16 activations round to 2^-8
+# relative a few times over, so 3e-2 of the reference's largest value
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want):
+    return float((got.float().cpu() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "nf4"])
+def test_quantized_dense_on_the_card(card, fmt):
+    from iadr1_tpu_torch.models import quant
+    from iadr1_tpu_torch.models.common import dense
+
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn((512, 384), generator=gen) * 0.05
+    x = torch.randn((4, 64, 512), generator=gen)
+    qk = quant.quantize_kernel(w, fmt)
+    on_card = quant.quantize_kernel(w.to(card), fmt)
+    for k in qk:                  # the card quantizes bit for bit alike
+        assert torch.equal(on_card[k].cpu(), qk[k]), k
+    got = dense(x.to(card, torch.bfloat16), on_card)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, dense(x, qk)) < 3e-2
+
+
+@pytest.mark.parametrize("dora", [False, True], ids=["lora", "dora"])
+def test_lora_dense_on_the_card(card, dora):
+    from iadr1_tpu_torch.models import quant
+    from iadr1_tpu_torch.models.qwen2 import lora_dense
+
+    gen = torch.Generator().manual_seed(1)
+    w = torch.randn((256, 192), generator=gen) * 0.05
+    ab = {"a": torch.randn((256, 8), generator=gen) * 0.05,
+          "b": torch.randn((8, 192), generator=gen) * 0.05}
+    if dora:
+        ab["m"] = torch.rand((192,), generator=gen) + 0.5
+    x = torch.randn((2, 32, 256), generator=gen)
+    bias = torch.randn((192,), generator=gen) * 0.1
+    qk = quant.quantize_kernel(w, "nf4")
+    want = lora_dense(x, qk, bias, ab, 2.0)
+    got = lora_dense(x.to(card, torch.bfloat16),
+                     {k: v.to(card) for k, v in qk.items()},
+                     bias.to(card, torch.bfloat16),
+                     {k: v.to(card, torch.bfloat16) for k, v in ab.items()},
+                     2.0)
+    assert _rel(got, want) < 3e-2

@@ -335,11 +335,26 @@ def test_infer_cli_writes_the_jax_answers_and_csv(num_shot, checkpoint,
 
 
 @pytest.mark.parametrize("quant", ["int8", "int4", "nf4"])
-def test_infer_cli_quant_waits_for_its_roadmap_item(quant, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        infer_main(["--model-path", str(tmp_path), "--test-data", "t.json",
-                    "--output-dir", str(tmp_path), "--device", "cpu",
-                    "--quant", quant])
+def test_infer_cli_quant_waits_for_its_roadmap_item(quant, checkpoint,
+                                                    f32_compute, tmp_path):
+    """Named for the refusal it checked until ROADMAP A.12 was ported.
+    ``--quant``: the port's CLI quantizes the
+    bf16 weights bit for bit as the JAX CLI does, and writes the JAX
+    CLI's answers and CSV (both bundles computing in f32)."""
+    test_data, image_dir = build_benchmark_json(tmp_path, n=2)
+    args = ["--model-path", checkpoint, "--test-data", test_data,
+            "--image-dir", image_dir, "--quant", quant] + CLI_ARGS
+    out = {side: str(tmp_path / side) for side in ("port", "jax")}
+    assert infer_main(args + ["--output-dir", out["port"],
+                              "--device", "cpu"]) == 0
+    assert jax_infer_main(args + ["--output-dir", out["jax"],
+                                  "--attention", "xla"]) == 0
+    name = "answers_0_shot"
+    answers = [json.load(open(os.path.join(out[s], name + ".json")))
+               for s in ("port", "jax")]
+    assert answers[0] == answers[1] and len(answers[0]) == 2
+    assert filecmp.cmp(*(os.path.join(out[s], name + "_accuracy.csv")
+                         for s in ("port", "jax")), shallow=False)
 
 
 @pytest.fixture(scope="module")

@@ -476,8 +476,12 @@ def test_mu_iterations_take_two_updates_per_rollout():
 
 
 def test_lora_mode_names_its_roadmap_item():
+    """Named for the refusal it checked until ROADMAP A.12 was ported.
+    LoRA mode is ported (tests/test_torch_adapters.py holds it to JAX);
+    a base without a LoRA TuningConfig is refused, as
+    the JAX trainer refuses it."""
     cfg = tgrpo.GRPOConfig(max_prompt_length=8, max_completion_length=2)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="LoRA TuningConfig"):
         _trainer(cfg, [], base_params={})
 
 

@@ -954,10 +954,12 @@ def test_trainer_step_with_its_own_engine(tiny):
 
 def test_grpo_cli_runs_the_llava_next_recipe(next_tiny, tmp_path,
                                              monkeypatch):
-    """cli/train_grpo.py on configs/grpo_llava_next_34b.yaml with the
-    full-parameter mode on one device (its LoRA and 16 x 4 mesh wait for
-    ROADMAP A.12 and A.11, and say so), paths and sizes overridden: the
-    recipe's llava_next_yi template encodes the prompts, and a step runs."""
+    """cli/train_grpo.py on configs/grpo_llava_next_34b.yaml on one device
+    (its 16 x 4 mesh waits for ROADMAP A.11, and says so), in the recipe's
+    own LoRA mode with reference elision (rank 16, alpha 32), paths and
+    sizes overridden: the recipe's llava_next_yi template encodes the
+    prompts, a step runs, and the checkpoint holds the adapters and their
+    moments alone."""
     from helpers import build_iad_rl_dataset
     from iadr1_tpu_torch.cli import train_grpo
 
@@ -967,8 +969,6 @@ def test_grpo_cli_runs_the_llava_next_recipe(next_tiny, tmp_path,
             f"model.model_name_or_path={next_tiny['path']}"]
     with pytest.raises(NotImplementedError, match="A.11"):
         train_grpo.main(base)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train_grpo.main(base + ["mesh.fsdp=1", "mesh.tp=1"])
     seen = []
     inner = train_grpo.encode_rl_examples
 
@@ -980,7 +980,7 @@ def test_grpo_cli_runs_the_llava_next_recipe(next_tiny, tmp_path,
     data, img_dir = build_iad_rl_dataset(tmp_path)
     out = tmp_path / "out"
     assert train_grpo.main(base + [
-        "mesh.fsdp=1", "mesh.tp=1", "finetuning.finetuning_type=full",
+        "mesh.fsdp=1", "mesh.tp=1",
         "model.dtype=float32", f"data.dataset_name={data}",
         f"data.image_path={img_dir}", "data.patch_budget=256",
         "grpo.num_generations=2", "grpo.max_prompt_length=200",
@@ -990,3 +990,13 @@ def test_grpo_cli_runs_the_llava_next_recipe(next_tiny, tmp_path,
     with open(out / "trainer_log.jsonl") as f:
         records = [json.loads(line) for line in f]
     assert len(records) == 1 and np.isfinite(records[0]["loss"])
+    from safetensors import safe_open
+
+    with safe_open(str(out / "checkpoints" / "1.safetensors"), "pt") as f:
+        names = [k for k in f.keys() if "." in k]
+    assert names and all(k.endswith((".a", ".b")) for k in names), names
+    assert any(k.startswith("mu.text.layers.attn.q.kernel.") for k in names)
+    a = [k for k in names if k.startswith("params.")][0]
+    with safe_open(str(out / "checkpoints" / "1.safetensors"), "pt") as f:
+        assert f.get_tensor(a).shape[-1] == 16 or f.get_tensor(
+            a).shape[-2] == 16

@@ -272,6 +272,53 @@ def test_preprocess_and_vision_arrays_equal_jax(tiny):
         tb.vision_arrays(ids, patches, grids, 4 * 16)
 
 
+def test_checkpoint_image_statistics_are_read(tiny, tmp_path):
+    """ROADMAP C.R11: a checkpoint whose preprocessor_config.json states
+    other image statistics (a locally built LlavaOnevisionImageProcessor
+    with SigLIP's 0.5 / 0.5, saved beside the config, no download): the
+    port's tiles equal that processor's ``pixel_values``; the JAX package
+    still normalises with OpenAI-CLIP's constants (pinned)."""
+    import shutil
+
+    from transformers import LlavaOnevisionImageProcessor
+
+    from iadr1_tpu.models.registry import (
+        bundle_from_pretrained as jax_from_pretrained,
+    )
+    from iadr1_tpu.vision import anyres as jax_anyres
+    from iadr1_tpu_torch.vision import anyres
+
+    shutil.copy(os.path.join(tiny["path"], "config.json"), tmp_path)
+    proc = LlavaOnevisionImageProcessor(
+        image_mean=[0.5] * 3, image_std=[0.5] * 3,
+        size={"height": TILE, "width": TILE},
+        crop_size={"height": TILE, "width": TILE},
+        image_grid_pinpoints=PINPOINTS)
+    proc.save_pretrained(str(tmp_path))
+    tb = bundle_from_pretrained(str(tmp_path))
+    jb = jax_from_pretrained(str(tmp_path))
+    for i, (h, w) in enumerate(IMAGES):
+        img = _image(h, w, 10 + i)
+        want = proc(images=img, return_tensors="np")["pixel_values"][0]
+        got = tb.preprocess_image(img)[0]
+        np.testing.assert_array_equal(
+            got, anyres.patchify_tiles(want[:got.shape[0]], 14))
+        # the JAX bundle: OpenAI-CLIP's statistics whatever the file says
+        jax_tiles = jb.preprocess_image(img)[0]
+        clip, _ = jax_anyres.onevision_tiles(img, [tuple(p) for p in
+                                                   PINPOINTS], TILE)
+        np.testing.assert_array_equal(jax_tiles,
+                                      anyres.patchify_tiles(clip, 14))
+        assert not np.allclose(jax_tiles, got)
+    np.testing.assert_array_equal(jax_anyres.DEFAULT_MEAN,
+                                  anyres.DEFAULT_MEAN)
+    np.testing.assert_array_equal(jax_anyres.DEFAULT_STD, anyres.DEFAULT_STD)
+    # without the file, the port keeps OpenAI-CLIP's, as before
+    np.testing.assert_array_equal(
+        bundle_from_pretrained(tiny["path"]).preprocess_image(img)[0],
+        jax_tiles)
+
+
 def test_llava_expansion_counts_each_placeholder_once():
     """C.R6: the llava style expands ``<image>`` into n ``<image>`` tokens
     (the run does not feed the loop); the JAX function raises."""

@@ -8,8 +8,8 @@ moves) checks the hand-offs and the artifacts; the JAX test's length (120
 SFT and 8 GRPO steps; ~30 s alone, minutes beside other test workers) is
 marked slow and checks what needs learning: the SFT loss falls and the
 warm-started policy earns the recipe's rewards.  Also: an eval-only re-run
-picks up the exports on disk, and LoRA or quantized exports name their
-ROADMAP item."""
+picks up the exports on disk, and the exports JAX refuses (a quantized
+base without LoRA, PiSSA) are refused."""
 
 import csv
 import json
@@ -213,9 +213,16 @@ def test_an_eval_only_rerun_reads_the_grpo_export(run, monkeypatch):
     assert seen == [os.path.join(out, "grpo_export")] * 2
 
 
-@pytest.mark.parametrize("kw", [{"finetuning": {"finetuning_type": "lora"}},
-                                {"quant": "nf4"}])
+@pytest.mark.parametrize("kw", [
+    {"finetuning": {"finetuning_type": "lora", "pissa_init": True}},
+    {"quant": "nf4"}])
 def test_lora_and_quantized_exports_name_their_roadmap_item(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.12"):
+    """Named for the refusal it checked until ROADMAP A.12 was ported.
+    LoRA and QLoRA exports are ported (their parity with
+    JAX's merge is tests/test_torch_adapters.py's).  What the JAX export
+    refuses, the port refuses before it reads anything: a quantized base
+    without LoRA, and a PiSSA run."""
+    match = "pissa_init" if "finetuning" in kw else "requires a LoRA"
+    with pytest.raises(ValueError, match=match):
         pipeline.export_run(str(tmp_path), str(tmp_path), str(tmp_path),
                             device="cpu", **kw)

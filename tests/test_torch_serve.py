@@ -293,7 +293,33 @@ def test_batched_chat_server_coalesces_concurrent_requests():
             for i, r in results.items()} == {i: f"ok:q{i}" for i in range(4)}
 
 
-def test_serve_cli_quant_waits_for_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        serve_main(["--model-path", str(tmp_path), "--device", "cpu",
-                    "--quant", "int8"])
+def test_serve_cli_quant_waits_for_its_roadmap_item(tmp_path, monkeypatch,
+                                                    capsys):
+    """Named for the refusal it checked until ROADMAP A.12 was ported.
+    ``--quant int8``: the server's generator
+    holds the JAX CLI's int8 quant dicts (bit for bit) and the CLI
+    reports the JAX CLI's byte counts."""
+    import jax.numpy as jnp
+
+    from iadr1_tpu.models.quant import quantize_tree, quantized_bytes
+
+    path = build_tiny_vlm_checkpoint(str(tmp_path / "ckpt"))
+    seen = {}
+
+    def no_serve(self):
+        seen["params"] = self.generator.params
+        self.shutdown()                 # ends the batcher's worker
+
+    monkeypatch.setattr(ChatServer, "serve_forever", no_serve)
+    assert serve_main(["--model-path", path, "--device", "cpu",
+                       "--quant", "int8", "--port", "0"]) == 0
+
+    want = quantize_tree(jax_bundle(path).convert_hf(
+        load_safetensors_path(path), dtype=jnp.bfloat16))
+    got = seen["params"]["text"]["layers"]["mlp"]["up"]["kernel"]
+    ref = want["text"]["layers"]["mlp"]["up"]["kernel"]
+    for k in ("qvalues", "scales"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+    now, bf16 = quantized_bytes(want)
+    assert (f"int8 weight-only quant: {now / 1e6:.1f} MB (bf16 would be "
+            f"{bf16 / 1e6:.1f} MB)") in capsys.readouterr().out
