@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (iadr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--max-new-tokens N] [--train-steps N]
-                          [--grpo-steps N] [--phases 20,21,22]
+                          [--grpo-steps N] [--phases 23,24,25,26]
 
 Phases, a line each at least, then the kernel JSON line, the card line and the
 result line:
@@ -141,7 +141,9 @@ result line:
    one image each; K1, K2 and K3 must run 32 + 36 times each a step, step
    1 must agree with a step through the plain versions, a control with dq
    zeroed must not, and the loss must fall;
-15. Qwen2.5-VL SC-GRPO (after 14): the same model takes 2 steps of
+15. Qwen2.5-VL SC-GRPO (after 14): the same model, its decoder cut to 8
+   of 36 layers (phase 25 runs the same Qwen2.5-3B decoder at full
+   depth), takes 2 steps of
    GRPOTrainer.step on configs/grpo_qwen2_5_vl_7b.yaml's settings (G=4,
    P=4096, N=512, patch budget 8192, beta 0.04, temperature 0.9, top-p
    0.9, top-k 50, accuracy + format, a bf16 reference, lr 2e-7) on two
@@ -189,7 +191,8 @@ result line:
    through cli/train_grpo.py's main (a seeded bf16 base written with a
    WordLevel tokenizer, the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
    and the finetuning section of configs/grpo_llava_next_34b.yaml: rank
-   16, alpha 32), 2 steps: one base copy resident (the reference is the
+   16, alpha 32), 2 steps of 128 completion tokens (the recipe's 512 cut
+   for the smoke's time): one base copy resident (the reference is the
    base), each step's launches, the lse-cotangent probe on the last
    update's batch; then export_run merges the adapters and the export,
    read back, must equal base + scale * A @ B within bf16 rounding;
@@ -199,19 +202,59 @@ result line:
    Qwen2.5-VL-7B serving phase 13's requests over int8 weights (the infer
    CLI's --quant int8), checked as phase 13, with its quantized_bytes
    ratio; (c) one nf4 generate of the same model.
+23. InternVL serving (after 22): InternVL-2.5-4B at full width and depth
+   (OpenGVLab/InternVL2_5-4B's config: the InternViT-300M tower, 24
+   layers, D = 64, 1025 tokens a tile; pixel shuffle; the Qwen2.5-3B
+   decoder, 36 layers, GQA 8; 3.714 B parameters, bf16, seeded) serves 4
+   already-tokenized intern_vl requests (images of 448x448, 336x560,
+   448x448 and 600x800: 1 + 7 + 1 + 13 = 22 tiles in a budget of 24, the
+   other 2 at segment 0; P=4096) through VLMGenerator._collate and
+   RolloutEngine.generate, as phase 11 checks its generate (K1 24 + 36
+   times, K4 36 times a step);
+24. InternVL PA-SFT (after 23): the same model, f32 parameters drawn on
+   the card, takes 3 steps on configs/sft_qwen2_5_vl_7b.yaml's settings
+   with the intern_vl template, its batch cut from 8 rows to 2 of 4096
+   and its patch budget grown to 16 tiles (one 336x560 image of 7 tiles a
+   row), as phase 12 checks its steps (K1, K2 and K3 24 + 36 times each a
+   step);
+25. InternVL SC-GRPO (after 24): the same model takes 2 steps of
+   GRPOTrainer.step on the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
+   (G=4, P=4096, N=512, a bf16 reference) on a 448x448 and a 336x560
+   prompt, as phase 15 checks its steps (the per-call lse-cotangent probe
+   and its half-weight control included); the update batch must hold
+   tiles and tile_segments (C.R9) and the tower's launches are counted;
+26. videos (after 25): (a) Qwen2-VL-2B PA-SFT at full width (f32), 3
+   steps on configs/sft_qwen2_5_vl_7b.yaml's settings (the tower's remat
+   save_acts) on 2 rows of 4096, each with one video of 8 frames of
+   336x448 (4 temporal patches of 768, one tower segment each) through
+   VLMBatchBuilder, as phase 14 checks its steps; (b)
+   LLaVA-NeXT-Video-7B (llava-hf/LLaVA-NeXT-Video-7B-hf's config, bf16)
+   and (c) Video-LLaVA-7B (LanguageBind/Video-LLaVA-7B-hf's config, both
+   224-px towers whole, the decoder cut to 4 of 32 layers) each take a
+   greedy rollout of 2 video prompts of 8 frames collated by
+   cli/train_grpo.py's prompt collator and run by RolloutEngine: K1 once
+   per layer of the image tower, the video tower and the decoder, K4 once
+   per decoder layer a step, the prefill logits against the twin path's.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
 (GQA 4) and Vicuna-7B (GQA 1) prefills, K1-K3 at the 8B-cut SFT decoder
 and at LLaVA-OneVision's SC-GRPO update, and K4 at GQA 4, GQA 1 and over
-OneVision's fan-out.
+OneVision's fan-out; and at phases 23-26's shapes: K1 at the InternViT
+tower (T = 1025, D = 64) over serving's 24 tiles and K1-K3 over the SFT
+budget's 16, both with padding tiles at segment 0; K1 at the InternVL
+prefill, K1-K3 at its SFT decoder and its SC-GRPO update (cross, self and
+prompt calls, GQA 8, D = 128), K4 over its serving cache; K1 over the
+video frames of CLIP-L/336 (T = 577) and LanguageBind (T = 257), and K1-K3
+over Qwen2-VL's video stream (one segment a temporal patch, D = 80).
 
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
 q25_sft, q25_grpo, llava_grpo, llava16_serve, llava15_serve,
 llava16_sft, q25_lora_sft, q25_lora_grpo, llava16_qlora_sft,
-q25_int8_serve, q25_nf4_serve).  ``--phases 20,21,22`` runs a subset and
-prints no kernel line.
+q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
+internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout).
+``--phases 23,24,25,26`` runs a subset and prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -353,6 +396,65 @@ LLAVA_15_7B = dict(
     image_token_index=32000, pad_token_id=32001, projector_hidden_act="gelu",
     vision_feature_layer=-2, vision_feature_select_strategy="default",
 )
+# OpenGVLab/InternVL2_5-4B's published config, in the
+# InternVLForConditionalGeneration layout the port reads: the
+# InternViT-300M-448px-V2_5 tower (24 layers, 16 heads, D = 64, 448-px
+# tiles of 1024 patches + CLS, no QK norm, layer_norm), pixel shuffle at
+# 0.5, the Qwen2.5-3B-Instruct decoder (36 layers, 16 heads over 2 KV
+# heads: GQA 8, D = 128; an untied head over 151674 ids: the model card's
+# 3.7 B parameters), at most 12 tiles an image plus the thumbnail
+INTERNVL_25_4B = dict(
+    architectures=["InternVLForConditionalGeneration"], model_type="internvl",
+    text_config=dict(
+        model_type="qwen2", vocab_size=151674, hidden_size=2048,
+        intermediate_size=11008, num_hidden_layers=36, num_attention_heads=16,
+        num_key_value_heads=2, rms_norm_eps=1e-6, rope_theta=1000000.0,
+        tie_word_embeddings=False, max_position_embeddings=32768),
+    vision_config=dict(
+        model_type="internvl_vision", hidden_size=1024, intermediate_size=4096,
+        num_hidden_layers=24, num_attention_heads=16, image_size=[448, 448],
+        patch_size=[14, 14], layer_norm_eps=1e-6, attention_bias=True,
+        use_qk_norm=False, norm_type="layer_norm"),
+    image_token_id=151667, downsample_ratio=0.5, max_tiles=12,
+    vision_feature_layer=-1, vision_feature_select_strategy="default",
+    projector_hidden_act="gelu",
+)
+# llava-hf/LLaVA-NeXT-Video-7B-hf's published config: the Vicuna-7B
+# decoder (a sparse LLaMA text config: 32 layers, 32 heads over 32, D =
+# 128, vocab 32064), the CLIP ViT-L/14-336 tower (23 of 24 layers run),
+# anyres images over NeXT's 5 pinpoints, video frames average-pooled at
+# stride 2 (24 x 24 -> 144 features a frame)
+LLAVA_NEXT_VIDEO_7B = dict(
+    architectures=["LlavaNextVideoForConditionalGeneration"],
+    model_type="llava_next_video",
+    text_config=dict(model_type="llama", vocab_size=32064,
+                     max_position_embeddings=4096, rms_norm_eps=1e-5),
+    vision_config=dict(
+        model_type="clip_vision_model", hidden_size=1024,
+        intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+        image_size=336, patch_size=14, projection_dim=768),
+    image_token_index=32001, video_token_index=32000,
+    vision_feature_layer=-2, vision_feature_select_strategy="default",
+    spatial_pool_mode="average", spatial_pool_stride=2,
+    image_grid_pinpoints=[[336, 672], [672, 336], [672, 672], [1008, 336],
+                          [336, 1008]],
+)
+# LanguageBind/Video-LLaVA-7B-hf's published config: the Vicuna-7B decoder
+# and two LanguageBind CLIP ViT-L/14 towers at 224 px (an image tower and a
+# video tower; 16 x 16 patches + CLS, 23 of 24 layers run, a frame keeps
+# its CLS: 257 features)
+VIDEO_LLAVA_7B = dict(
+    architectures=["VideoLlavaForConditionalGeneration"],
+    model_type="video_llava",
+    text_config=dict(model_type="llama", vocab_size=32064,
+                     max_position_embeddings=4096, rms_norm_eps=1e-5),
+    vision_config=dict(
+        model_type="clip_vision_model", hidden_size=1024,
+        intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+        image_size=224, patch_size=14, projection_dim=768),
+    image_token_index=32000, video_token_index=32001,
+    vision_feature_layer=-2, vision_feature_select_strategy="default",
+)
 IM_START, IM_END, ENDOFTEXT = 151644, 151645, 151643
 VISION_START, IMAGE_PAD, VISION_END = 151652, 151655, 151653
 # one image per request, two sizes (pixels, multiples of 28): 1024 + 960
@@ -462,6 +564,51 @@ QLORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "chip_smoke_qlora_sft")
 # the nf4 generate of phase 22c: new tokens
 NF4_NEW_TOKENS = 16
+# InternVL-2.5-4B (phases 23-25): InternVL's <img> and </img> around each
+# image's run of <IMG_CONTEXT> tokens.  Serving (phase 23): two 448 x 448
+# images (1 tile, 256 features each), a 336 x 560 one (a (3, 2) grid and
+# the thumbnail: 7 tiles, 1792 features) and a 600 x 800 one ((4, 3) + 1:
+# 13 tiles, 3328 features): 22 tiles in a budget of 24, P=4096
+INTERNVL_IMG_START, INTERNVL_IMG_END, INTERNVL_IMAGE = 151665, 151666, 151667
+INTERNVL_IMAGE_HW = [(448, 448), (336, 560), (448, 448), (600, 800)]
+INTERNVL_PROMPT_LEN, INTERNVL_PATCH_BUDGET = 4096, 24 * 1024
+# PA-SFT (phase 24): configs/sft_qwen2_5_vl_7b.yaml's settings with the
+# intern_vl template, f32 parameters (~59 GB with gradients and moments),
+# so the batch is cut from 8 rows to 2 of 4096, one 336 x 560 image (7
+# tiles) an example, an example a row; the recipe's patch budget (8 tiles)
+# grows to 16 tiles to hold the batch's two images, 2 tiles at segment 0
+INTERNVL_SFT_ROWS, INTERNVL_SFT_IMAGE_HW = 2, (336, 560)
+INTERNVL_SFT_ANSWER_LEN, INTERNVL_SFT_BUDGET = (1800, 2000), 16 * 1024
+INTERNVL_SFT_STEPS = 3
+INTERNVL_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "build", "chip_smoke_internvl_sft")
+# SC-GRPO (phase 25): the grpo section of configs/grpo_qwen2_5_vl_7b.yaml,
+# a 448 x 448 and a 336 x 560 prompt (1 + 7 tiles); the patch budget sizes
+# the G-repeated collation, so the G = 1 collation holds the 8 tiles
+INTERNVL_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
+INTERNVL_GRPO_PATCH_BUDGET = 4 * 8 * 1024
+INTERNVL_GRPO_STEPS = 2
+# phase 15 runs Qwen2.5-VL-3B's decoder cut to 8 of its 36 layers: phase 25
+# runs the same Qwen2.5-3B decoder at full depth
+Q25_GRPO_LAYERS = 8
+# phase 21's completions (the recipe's 512), cut for the smoke's time
+LORA_GRPO_COMPLETION_LEN = 128
+# videos (phase 26).  (a) Qwen2-VL-2B PA-SFT on
+# configs/sft_qwen2_5_vl_7b.yaml's settings (qwen2_vl template, the tower's
+# remat save_acts), 2 rows of 4096 with one video of 8 frames of 336 x 448
+# each (t = 4 temporal patches of 24 x 32: 3072 patches, 768 tokens)
+VIDEO_FRAMES, VIDEO_FRAME_HW = 8, (336, 448)
+VIDEO_SFT_ROWS, VIDEO_SFT_ANSWER_LEN = 2, (2600, 2900)
+VIDEO_SFT_BUDGET = 8192               # the recipe's data.patch_budget
+VIDEO_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "chip_smoke_video_sft")
+VIDEO_PAD = 151656
+# (b) LLaVA-NeXT-Video-7B and (c) Video-LLaVA (the decoder cut to 4 of 32
+# layers): greedy rollouts of 2 video prompts of 8 frames through the GRPO
+# prompt collator and RolloutEngine; the frame budget holds the 16 frames
+VIDEO_ROLLOUT_TOKENS, VLLAVA_LAYERS = 32, 4
+LNV_PROMPT_LEN, VLLAVA_PROMPT_LEN = 2048, 3072
+
 # the plain versions run one batch row, and within a row one slice of KV
 # heads (with their query heads), at a time where the [B, H, T, S] f32
 # scores would pass this: the LLaVA-OneVision decoder's 4 x 14 x 8192^2
@@ -1103,6 +1250,137 @@ def make_next_sft_rows(bundle, cutoff: int, seed: int = 18):
                                          for r in rows):
         raise AssertionError("the examples did not pack into 2 rows of 2")
     return rows
+
+
+def _internvl_prompt(rng, n_img, extra):
+    """An intern_vl user turn as token ids (the template's chatml, the
+    Qwen2.5 tokenizer having no BOS): <img> + <IMG_CONTEXT> x n_img +
+    </img> inside the user message, then seeded text."""
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    return ([IM_START] + text(3) + [IM_END] + text(1) + [IM_START] + text(2)
+            + [INTERNVL_IMG_START] + [INTERNVL_IMAGE] * n_img
+            + [INTERNVL_IMG_END] + text(extra) + [IM_END] + text(1)
+            + [IM_START] + text(2))
+
+
+def make_internvl_requests(bundle, seed: int = 19):
+    """Four intern_vl requests for InternVL-2.5-4B as token ids, a seeded
+    image of INTERNVL_IMAGE_HW each through the bundle's tiling (1, 7, 1
+    and 13 tiles)."""
+    rng = np.random.default_rng(seed)
+    encoded = []
+    for i, (h, w) in enumerate(INTERNVL_IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        encoded.append((_internvl_prompt(rng, n_img, 20 + 7 * i), [patches],
+                        [grid]))
+    tiles = [p[0].shape[0] for _, p, _ in encoded]
+    if tiles != [1, 7, 1, 13]:
+        raise AssertionError(f"the requests' images are {tiles} tiles")
+    return encoded
+
+
+def make_internvl_sft_rows(bundle, cutoff: int, seed: int = 20):
+    """INTERNVL_SFT_ROWS synthetic IAD SFT examples in the intern_vl form,
+    a seeded 336 x 560 image each (7 tiles, 1792 features), the prompt
+    masked and a labeled answer of 1800-2000 seeded tokens ending in
+    <|im_end|>, packed by pack_examples into rows of ``cutoff``: one
+    example a row."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i in range(INTERNVL_SFT_ROWS):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, *INTERNVL_SFT_IMAGE_HW))
+        prompt = _internvl_prompt(rng, n_img, 8 + 4 * i)
+        answer = rng.integers(0, ENDOFTEXT, int(rng.integers(
+            INTERNVL_SFT_ANSWER_LEN[0], INTERNVL_SFT_ANSWER_LEN[1] + 1))
+        ).tolist() + [IM_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [patches],
+                                    "grid_thw": [grid]}})
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)
+    if len(rows) != INTERNVL_SFT_ROWS or any(len(r["extras"]) != 1
+                                             for r in rows):
+        raise AssertionError("the examples did not pack into 2 rows of one")
+    return rows
+
+
+def make_internvl_grpo_examples(bundle, seed: int = 21):
+    """Two intern_vl prompts (INTERNVL_GRPO_IMAGE_HW: 1 and 7 tiles) with
+    a ``solution`` in the reward grammar: one normal, one anomalous."""
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i, (h, w) in enumerate(INTERNVL_GRPO_IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        examples.append({"prompt_ids": _internvl_prompt(rng, n_img,
+                                                        40 + 25 * i),
+                         "patches": [patches], "grid_thw": [grid],
+                         "solution": GRPO_SOLUTIONS[i]})
+    return examples
+
+
+def _seeded_frames(rng, n, h, w):
+    return [_seeded_image(rng, h, w) for _ in range(n)]
+
+
+def make_video_sft_rows(cutoff: int, seed: int = 22):
+    """VIDEO_SFT_ROWS synthetic SFT examples for Qwen2-VL, one video of 8
+    seeded 336 x 448 frames each through the port's
+    qwen2vl_preprocess_video (t = 4, 3072 patches, 768 video tokens
+    between <|vision_start|> and <|vision_end|>), the prompt masked and a
+    labeled answer of 2600-2900 seeded tokens, packed into rows of
+    ``cutoff``: one example a row."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+    from iadr1_tpu_torch.vision.preprocess import qwen2vl_preprocess_video
+
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    examples = []
+    for i in range(VIDEO_SFT_ROWS):
+        flat, grid = qwen2vl_preprocess_video(
+            _seeded_frames(rng, VIDEO_FRAMES, *VIDEO_FRAME_HW))
+        n_vid = int(np.prod(grid)) // 4
+        prompt = ([IM_START] + text(3) + [IM_END] + text(1) + [IM_START]
+                  + text(2) + [VISION_START] + [VIDEO_PAD] * n_vid
+                  + [VISION_END] + text(8 + 4 * i) + [IM_END] + text(1)
+                  + [IM_START] + text(2))
+        answer = text(int(rng.integers(VIDEO_SFT_ANSWER_LEN[0],
+                                       VIDEO_SFT_ANSWER_LEN[1] + 1)))
+        answer += [IM_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [flat], "grid_thw": [grid]}})
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)
+    if len(rows) != VIDEO_SFT_ROWS or any(len(r["extras"]) != 1
+                                          for r in rows):
+        raise AssertionError("the video examples did not pack one a row")
+    return rows
+
+
+def make_video_examples(bundle, seed: int):
+    """Two vicuna-form video prompts (BOS, seeded text, the video's run of
+    video tokens, seeded text), 8 seeded 336 x 448 frames each through the
+    bundle's preprocess_video, as the GRPO prompt collator takes them."""
+    rng = np.random.default_rng(seed)
+    vid = bundle.cfg.video_token_id
+    examples = []
+    for i in range(2):
+        patches, _, n_vid = bundle.preprocess_video(
+            _seeded_frames(rng, VIDEO_FRAMES, *VIDEO_FRAME_HW))
+        ids = ([VICUNA_BOS] + rng.integers(3, 32000, 40).tolist()
+               + [vid] * n_vid + rng.integers(3, 32000, 20 + 7 * i).tolist())
+        examples.append({"prompt_ids": ids, "video_patches": [patches],
+                         "solution": GRPO_SOLUTIONS[i]})
+    return examples
 
 
 # ---------------------------------------------------------------------------
@@ -1877,6 +2155,118 @@ def phase_kernels_llava_families(next_encoded, v15_encoded, next_rows,
             ("ov grpo fan-out", (n * G, 14, 2, P + N, 64, P + N, fan, 118))):
         dec.append(decode_case(*args, timed=True))
         dec[-1]["shape"] = f"{label}: {dec[-1]['shape']}"
+    fwd += [f for _, _, f in bwd]
+    log_kernel_results(fwd, dec, bwd)
+    return {"flash_fwd": fwd,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
+            "decode_attention": dec}
+
+
+def _labelled(results, label):
+    for r in results:
+        r["shape"] = f"{label}: {r['shape']}"
+    return results
+
+
+def phase_kernels_internvl_video(intern_encoded, intern_rows, intern_grpo,
+                                 video_rows, video_budget, max_new_tokens):
+    """Phase 3 at the shapes of phases 23-26: K1 at the InternViT tower
+    (16 heads, D = 64, non-causal, each tile its own 1025 tokens) over
+    serving's budget of 24 tiles (22 of them images', 2 at segment 0) and
+    K1-K3 over the SFT batch's 16 (14 images'); K1 at the Qwen2.5-3B
+    prefill (P = 4096, GQA 8, D = 128), K1-K3 at its SFT decoder (2 rows
+    of 4096) and at its SC-GRPO update (the completions' cross attention to
+    the shared prompt and their self attention, both with dlse != 0, and
+    the unique prompts), K4 over the serving cache; K1 over the video
+    frames of CLIP-L/336 (16 frames of 577) and of LanguageBind's 224 px
+    tower (16 frames of 257), and K1-K3 over Qwen2-VL's video stream (each
+    temporal patch of 768 its own segment, D = 80).  Returns the results
+    by kernel."""
+    cuda = dict(device="cuda", dtype=torch.int32)
+    fwd, bwd, dec = [], [], []
+    n_serve = sum(p[0].shape[0] for _, p, _ in intern_encoded)
+    serve_seg = torch.zeros((INTERNVL_PATCH_BUDGET // 1024, 1025), **cuda)
+    serve_seg[:n_serve] = 1
+    fwd.append(_labelled([flash_case(serve_seg.shape[0], 16, 16, 1025, 1025,
+                                     64, False, serve_seg, serve_seg, 121,
+                                     timed=True)], "internvit serve")[0])
+    n_sft = sum(e["patches"][0].shape[0] for r in intern_rows
+                for e in r["extras"])
+    sft_seg = torch.zeros((INTERNVL_SFT_BUDGET // 1024, 1025), **cuda)
+    sft_seg[:n_sft] = 1
+    shape = (sft_seg.shape[0], 16, 16, 1025, 1025, 64, False, sft_seg,
+             sft_seg)
+    results = _labelled((*bwd_case(*shape, 122, timed=True),
+                         flash_case(*shape, 123, timed=True)),
+                        "internvit sft")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    pre = _left_segments(intern_encoded, INTERNVL_PROMPT_LEN)
+    fwd.append(_labelled([flash_case(
+        BATCH, 16, 2, INTERNVL_PROMPT_LEN, INTERNVL_PROMPT_LEN, 128, True,
+        pre, pre, 124, timed=True)], "internvl prefill")[0])
+    train_seg = torch.as_tensor(
+        np.stack([r["segment_ids"] for r in intern_rows]), **cuda)
+    T = train_seg.shape[1]
+    train = (train_seg.shape[0], 16, 2, T, T, 128, True, train_seg,
+             train_seg)
+    results = _labelled((*bwd_case(*train, 125, timed=True),
+                         flash_case(*train, 126, timed=True)),
+                        "internvl sft decoder")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    # the SC-GRPO update: the unique prompts, left-padded, repeated over
+    # the group for the cross attention; completions with seeded ends
+    G, P, N = 4, 4096, 512
+    n = len(intern_grpo)
+    p_seg = torch.zeros((n, P), **cuda)
+    for b, ex in enumerate(intern_grpo):
+        p_seg[b, P - len(ex["prompt_ids"]):] = 1
+    p_rep = p_seg.repeat_interleave(G, dim=0)
+    g = torch.Generator().manual_seed(127)
+    stops = torch.randint(2, N, (n * G,), generator=g)
+    stops[0], stops[1] = N, 1
+    c_seg = (torch.arange(N)[None, :] < stops[:, None]).to(**cuda)
+    for i, (label, shape, dlse) in enumerate((
+            ("internvl grpo cross", (n * G, 16, 2, N, P, 128, False, c_seg,
+                                     p_rep), True),
+            ("internvl grpo self", (n * G, 16, 2, N, N, 128, True, c_seg,
+                                    c_seg), True),
+            ("internvl grpo prompt", (n, 16, 2, P, P, 128, True, p_seg,
+                                      p_seg), False))):
+        results = _labelled((*bwd_case(*shape, 128 + i, timed=True,
+                                       with_dlse=dlse),
+                             flash_case(*shape, 131 + i, timed=True)), label)
+        bwd.append(results[:3])
+        fwd.append(results[3])
+    S = INTERNVL_PROMPT_LEN + max_new_tokens
+    cache_seg = torch.ones((BATCH, S), **cuda)
+    cache_seg[:, :INTERNVL_PROMPT_LEN] = pre
+    dec.append(decode_case(BATCH, 16, 2, S, 128, S, cache_seg, 134,
+                           timed=True))
+    dec[-1]["shape"] = f"internvl decode: {dec[-1]['shape']}"
+    # video frames through the CLIP towers, each frame its own sequence
+    for i, (label, T) in enumerate((("llava-next-video frames", 577),
+                                    ("video-llava frames", 257))):
+        seg = torch.ones((2 * VIDEO_FRAMES, T), **cuda)
+        fwd.append(_labelled([flash_case(2 * VIDEO_FRAMES, 16, 16, T, T, 64,
+                                         False, seg, seg, 135 + i,
+                                         timed=True)], label)[0])
+    # Qwen2-VL's tower over the video batch's patch stream: one segment a
+    # temporal patch, the budget's padding at segment 0
+    from iadr1_tpu_torch.vision.preprocess import vision_segment_ids
+
+    grids = [gr for r in video_rows for e in r["extras"]
+             for gr in e["grid_thw"]]
+    vseg = torch.as_tensor(vision_segment_ids(grids, pad_to=video_budget),
+                           **cuda)[None]
+    shape = (1, 16, 16, video_budget, video_budget, 80, False, vseg, vseg)
+    results = _labelled((*bwd_case(*shape, 137, timed=True),
+                         flash_case(*shape, 138, timed=True)),
+                        "qwen2-vl video tower")
+    bwd.append(results[:3])
+    fwd.append(results[3])
     fwd += [f for _, _, f in bwd]
     log_kernel_results(fwd, dec, bwd)
     return {"flash_fwd": fwd,
@@ -3722,7 +4112,8 @@ def tower_depth(cfg) -> int:
 
 def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
                     max_new_tokens, card, twin_apply, describe,
-                    eos_pad=(IM_END, ENDOFTEXT), quant=None):
+                    eos_pad=(IM_END, ENDOFTEXT), quant=None,
+                    n_params_range=None):
     """Phases 11 and 13: a VLM at full width (bf16 weights drawn on the
     card from a seed) serves 4 already-tokenized image requests through
     VLMGenerator._collate and RolloutEngine.generate, greedy.  K1 must run
@@ -3733,8 +4124,9 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     ``describe(batch)`` checks the collated vision arrays and says what
     they hold; ``eos_pad`` the tokenizer's end and padding ids; ``quant``
     a weight-only format the bf16 weights are quantized to on the card
-    first, as the infer CLI's ``--quant`` does.  Returns the launch
-    counts."""
+    first, as the infer CLI's ``--quant`` does; ``n_params_range`` the
+    (low, high) the parameter count must fall in (a published count).
+    Returns the launch counts."""
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.kernels import all_kernels
@@ -3751,6 +4143,10 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{label}: {name} {n_params / 1e9:.3f}B params (bf16, seeded) "
         f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    if n_params_range and not (n_params_range[0] < n_params
+                               < n_params_range[1]):
+        raise AssertionError(f"{name} has {n_params / 1e9:.3f}B params, "
+                             f"not in {n_params_range}")
     if quant is not None:
         from iadr1_tpu_torch.models.quant import (
             quantize_tree,
@@ -4298,6 +4694,287 @@ def phase_next_sft(rows, steps: int, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 23-25: InternVL-2.5-4B
+# ---------------------------------------------------------------------------
+
+
+def internvl_plain_apply(params, cfg, b, attn, remat=False, tower_remat=None,
+                         cache=None):
+    """An InternVL forward over ``attn`` (tower and decoder)."""
+    from iadr1_tpu_torch.models import internvl
+
+    h, _ = internvl.apply(
+        params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+        tile_segments=b["tile_segments"], scatter_rows=b["scatter_rows"],
+        scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+        cache=cache, cache_mode="prefill" if cache is not None else "extend",
+        attention_fn=attn, tower_attention_fn=attn, remat=remat,
+        tower_remat=tower_remat)
+    return h
+
+
+def phase_internvl_serve(encoded, max_new_tokens, card):
+    """Phase 23: InternVL-2.5-4B at full width and depth serves 4 intern_vl
+    requests (22 tiles in a budget of 24, 2 at segment 0); its parameter
+    count must be the model card's 3.7 B (3.714 B with the untied head;
+    a tied one would make it 3.404 B); returns the launch counts."""
+    def twin_apply(params, cfg, b, cache, attn):
+        return internvl_plain_apply(params, cfg, b, attn, cache=cache)
+
+    def describe(batch):
+        n_tiles = int(batch["tile_segments"].sum())
+        if batch["tiles"].shape[0] != 24 or n_tiles != 22:
+            raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
+                                 f"{n_tiles} of them images'")
+        return (f"22 tiles of 1025 tokens in a budget of 24, "
+                f"{int((batch['scatter_rows'] < BATCH).sum())} features")
+
+    return phase_vlm_serve("internvl serve", "InternVL-2.5-4B",
+                           INTERNVL_25_4B, encoded, INTERNVL_PROMPT_LEN,
+                           INTERNVL_PATCH_BUDGET, max_new_tokens, card,
+                           twin_apply, describe,
+                           n_params_range=(3.65e9, 3.75e9))
+
+
+def internvit_flops(n_tiles: int) -> float:
+    """The InternViT tower's forward FLOPs over ``n_tiles`` tiles."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+
+    v = INTERNVL_25_4B["vision_config"]
+    return n_tiles * 1025 * vit_flops_per_patch(
+        hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+        num_layers=v["num_hidden_layers"], attn_window=1025)
+
+
+def phase_internvl_sft(rows, steps: int, card):
+    """Phase 24: InternVL-2.5-4B PA-SFT at full width and depth on
+    configs/sft_qwen2_5_vl_7b.yaml's settings with the intern_vl template,
+    the batch cut to INTERNVL_SFT_ROWS rows and the patch budget grown to
+    INTERNVL_SFT_BUDGET; returns the launch counts."""
+    def plain_apply(params, cfg, b, attn, remat, tower_remat):
+        return internvl_plain_apply(params, cfg, b, attn, remat, tower_remat)
+
+    def tower_flops(first):
+        # model FLOPs count the tiles that hold images, not the padding
+        n_tiles = first["tiles"].shape[0]
+        n_images = int(first["tile_segments"].sum())
+        return internvit_flops(n_images), (
+            f"{len(rows)} images in {n_images} of the {n_tiles} tiles, the "
+            "rest at segment 0")
+
+    return phase_vlm_sft(
+        "internvl sft", "InternVL-2.5-4B", INTERNVL_25_4B, Q25_SFT_RECIPE,
+        rows, steps, card, INTERNVL_TRAIN_DIR, plain_apply, tower_flops,
+        batch_rows=INTERNVL_SFT_ROWS,
+        overrides=["data.template=intern_vl",
+                   f"data.patch_budget={INTERNVL_SFT_BUDGET}"])
+
+
+def grpo_case_internvl(steps: int) -> types.SimpleNamespace:
+    """Phase 25's setting: InternVL-2.5-4B on the grpo section of
+    configs/grpo_qwen2_5_vl_7b.yaml (phase 15's), the patch budget sized
+    for 1025-token tiles (INTERNVL_GRPO_PATCH_BUDGET); the update batch
+    must carry the tiles and their segments (C.R9)."""
+    from iadr1_tpu_torch.models import internvl
+
+    def embeds(params, cfg, batch, attn, remat):
+        return internvl.compute_embeds(
+            params, cfg, batch["prompt_ids"], tiles=batch["tiles"],
+            tile_segments=batch["tile_segments"],
+            scatter_rows=batch["scatter_rows"],
+            scatter_cols=batch["scatter_cols"], tower_attention_fn=attn,
+            tower_remat=remat)
+
+    case = grpo_case_q25(steps, "internvl grpo", "InternVL-2.5-4B",
+                         INTERNVL_25_4B)
+    case.data = dataclasses.replace(case.data,
+                                    patch_budget=INTERNVL_GRPO_PATCH_BUDGET)
+    case.embeds = embeds
+    case.vision_keys = ("tiles", "tile_segments")
+    return case
+
+
+# ---------------------------------------------------------------------------
+# phase 26: videos
+# ---------------------------------------------------------------------------
+
+
+def phase_video_sft(rows, steps: int, card):
+    """Phase 26a: Qwen2-VL-2B PA-SFT at full width and depth on
+    configs/sft_qwen2_5_vl_7b.yaml's settings (the qwen2_vl template, the
+    tower's remat save_acts so its attention stays outside the
+    checkpoints), 2 rows of one 8-frame video each through VLMBatchBuilder;
+    returns the launch counts."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+    from iadr1_tpu_torch.models import qwen2_vl
+
+    def plain_apply(params, cfg, b, attn, remat, tower_remat):
+        h, _ = qwen2_vl.apply(
+            params, cfg, b["input_ids"], b["position_ids"],
+            patches=b["patches"], rot_cos=b["rot_cos"], rot_sin=b["rot_sin"],
+            vision_segments=b["vision_segments"],
+            scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+            segment_ids=b["segment_ids"], attention_fn=attn,
+            vision_attention_fn=attn, remat=remat, tower_remat=tower_remat)
+        return h
+
+    def tower_flops(first):
+        segs = first["vision_segments"]
+        n = int((segs != 0).sum())
+        per = int(np.bincount(segs[segs != 0]).max())
+        v = QWEN2_VL_2B["vision_config"]
+        return n * vit_flops_per_patch(
+            hidden=v["embed_dim"], intermediate=4 * v["embed_dim"],
+            num_layers=v["depth"], attn_window=per), (
+            f"{len(rows)} videos of {VIDEO_FRAMES} frames, {n} patches, "
+            f"{int(segs.max())} temporal patches of {per}")
+
+    if not all((r["input_ids"] == VIDEO_PAD).any() for r in rows):
+        raise AssertionError("a row holds no video")
+    return phase_vlm_sft(
+        "q2vl video sft", "Qwen2-VL-2B", QWEN2_VL_2B, Q25_SFT_RECIPE, rows,
+        steps, card, VIDEO_TRAIN_DIR, plain_apply, tower_flops,
+        batch_rows=VIDEO_SFT_ROWS,
+        overrides=["data.template=qwen2_vl", "model.tower_remat=save_acts"])
+
+
+def phase_video_rollout(label, name, hf, examples, prompt_len, card):
+    """Phases 26b and 26c: a LLaVA video family at full width (bf16
+    weights drawn on the card from a seed) takes a greedy rollout of
+    ``examples`` (video prompts) collated by cli/train_grpo.py's prompt
+    collator (G = 1) and run by RolloutEngine: K1 once per layer of the
+    image tower (over the budget's zero tiles, all at segment 0), of the
+    video tower (over the frames) and of the decoder, K4 once per decoder
+    layer a decode step, no plain twin called; the kernel path's prefill
+    logits must agree with the twin path's.  Returns the launch counts."""
+    from iadr1_tpu_torch.cli.train_grpo import (
+        GRPODataSection,
+        make_vlm_prompt_collator,
+    )
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.kernels import decode_attention as decode_mod
+    from iadr1_tpu_torch.kernels import flash_attention as flash_mod
+    from iadr1_tpu_torch.models import qwen2
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
+    from iadr1_tpu_torch.train.sft import batch_to_device
+
+    bundle = bundle_from_hf_config(hf)
+    cfg = bundle.cfg
+    g = cfg.vision.grid
+    n_frames = sum(p.shape[0] for ex in examples
+                   for p in ex["video_patches"])
+    budget = n_frames * g * g
+    t0 = time.perf_counter()
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{label}: {name} {n_params / 1e9:.3f}B params (bf16, seeded) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    # the video checkpoints' tokenizers hold <image> and <video> at 32000
+    # and 32001, and pad with <unk> (0), which the collator replaces by EOS
+    tok = types.SimpleNamespace(eos_token_id=VICUNA_EOS, pad_token_id=0)
+    collate = make_vlm_prompt_collator(
+        bundle, tok, None, GRPODataSection(patch_budget=budget), prompt_len,
+        num_generations=1)
+    t0 = time.perf_counter()
+    batch = batch_to_device(collate(examples, 1), DEVICE)
+    collate_ms = 1e3 * (time.perf_counter() - t0)
+    B = len(examples)
+    if (int(batch["video_tile_segments"].sum()) != n_frames
+            or int(batch["tile_segments"].sum()) != 0):
+        raise AssertionError("the frame stream is not the videos' frames")
+    n_feats = int((batch["video_scatter_rows"] < B).sum())
+
+    def prefill(attn=None):
+        from iadr1_tpu_torch.models import llava
+
+        cache = qwen2.init_cache(cfg.text, B, prompt_len, torch.bfloat16,
+                                 DEVICE)
+        b = {**batch, "segment_ids": batch["attention_mask"].to(torch.int32),
+             "position_ids": llava_positions(batch["attention_mask"])}
+        with torch.no_grad():
+            if attn is None:
+                h, _ = bundle.apply(params, b, cache=cache,
+                                    cache_mode="prefill")
+            else:
+                h, _ = llava.apply(
+                    params, cfg, b["input_ids"], b["position_ids"],
+                    **{k: b[k] for k in (
+                        "tiles", "tile_segments", "pack_src", "pack_weights",
+                        "newline_mask", "scatter_rows", "scatter_cols",
+                        "video_tiles", "video_tile_segments",
+                        "video_scatter_rows", "video_scatter_cols")
+                       if k in b},
+                    segment_ids=b["segment_ids"], cache=cache,
+                    cache_mode="prefill", attention_fn=attn,
+                    tower_attention_fn=attn)
+            return bundle.logits_fn(params, h[:, -1:])[:, 0]
+
+    kernel_logits, twin_logits = prefill(), prefill(twin_attn)
+    torch.cuda.synchronize()
+    if not torch.isfinite(kernel_logits).all():
+        raise AssertionError("prefill logits are not finite")
+    rel = float((kernel_logits - twin_logits).norm() / twin_logits.norm())
+    log(f"{label}: prefill logits kernel vs twin path: rel L2 {rel:.3e} "
+        f"(limit {LOGITS_REL_L2}), argmax agree "
+        f"{int((kernel_logits.argmax(-1) == twin_logits.argmax(-1)).sum())}"
+        f"/{B}")
+    if not rel <= LOGITS_REL_L2:
+        raise AssertionError(f"prefill logits differ: rel L2 {rel:.3e}")
+    del kernel_logits, twin_logits
+
+    engine = RolloutEngine(
+        bundle, SamplingConfig(max_new_tokens=VIDEO_ROLLOUT_TOKENS,
+                               temperature=0.0, eos_token_id=VICUNA_EOS,
+                               pad_token_id=0),
+        max_len=prompt_len + VIDEO_ROLLOUT_TOKENS, device=DEVICE)
+    kernels = [k for k, _ in all_kernels()]
+    tap = ChainTap(kernels)
+    for module, fn_name in ((flash_mod, "flash_attention_ref"),
+                            (flash_mod, "flash_attention_bwd_ref"),
+                            (decode_mod, "decode_attention_ref")):
+        tap.twin(module, fn_name)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = engine.generate(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        tap.close()
+    total_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    steps = out["num_decode_steps"]
+    L, Lt = cfg.text.num_hidden_layers, cfg.tower_layers
+    want = {"flash_fwd": 2 * Lt + L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attention": L * steps}
+    if launches != want or steps < 1:
+        raise AssertionError(f"{label}: launches {launches} over {steps} "
+                             f"decode steps, want {want}")
+    if any(tap.twin_calls.values()):
+        raise AssertionError(f"{label}: plain twins called on the card: "
+                             f"{tap.twin_calls}")
+    ids = out["completion_ids"]
+    if not ((ids >= 0) & (ids < cfg.text.vocab_size)).all():
+        raise AssertionError("completion ids out of the vocabulary")
+    log(f"{label}: {name} greedy rollout of {B} video prompts of "
+        f"{VIDEO_FRAMES} frames ({n_feats} video features: frames of "
+        f"{g * g + 1} tokens through the "
+        f"{'video tower' if cfg.separate_video_tower else 'shared tower'}, "
+        f"{n_feats // n_frames} features each; P={prompt_len}) in "
+        f"{total_s:.3f} s, {steps} decode steps, "
+        f"collation {collate_ms:.1f} ms (host), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+        f"{launches} on {card}")
+    del params, batch, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 20-22: adapters and quantized bases
 # ---------------------------------------------------------------------------
 
@@ -4757,7 +5434,8 @@ def phase_lora_grpo(card):
     full width and depth, through cli/train_grpo.py's main as a user runs
     it: a seeded bf16 base written by save_pretrained with a WordLevel
     tokenizer, seeded 448x448 images and RL rows, the grpo section of
-    configs/grpo_qwen2_5_vl_7b.yaml with the finetuning section of
+    configs/grpo_qwen2_5_vl_7b.yaml (its completions cut to
+    LORA_GRPO_COMPLETION_LEN) with the finetuning section of
     configs/grpo_llava_next_34b.yaml (LoRA rank 16, alpha 32), the base in
     bf16, LORA_GRPO_STEPS steps.  One copy of the base must be resident
     (the reference is the base), each step's launches must be those the
@@ -4819,7 +5497,9 @@ def phase_lora_grpo(card):
                   "attention": "auto"},
         "data": dict(recipe["data"], dataset_name=data["rl"],
                      image_path=os.path.dirname(data["rl"])),
-        "grpo": recipe["grpo"], "finetuning": lora_recipe["finetuning"],
+        "grpo": dict(recipe["grpo"],
+                     max_completion_length=LORA_GRPO_COMPLETION_LEN),
+        "finetuning": lora_recipe["finetuning"],
         "optim": recipe["optim"],
         "train": dict(recipe["train"], output_dir=out_dir,
                       max_steps=LORA_GRPO_STEPS, save_steps=0),
@@ -5056,7 +5736,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-22; "
+                    help="comma-separated phase numbers to run (3-26; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -5103,7 +5783,18 @@ def main() -> int:
     next_rows = make_next_sft_rows(next_bundle, NEXT_SFT_CUTOFF)
     v15_encoded = make_v15_requests(bundle_from_hf_config(LLAVA_15_7B))
     lora_rows = make_q25_lora_sft_rows(Q25_SFT_CUTOFF)
-    phases = (set(range(1, 23)) if args.phases is None
+    intern = bundle_from_hf_config(INTERNVL_25_4B)    # host side only
+    intern_encoded = make_internvl_requests(intern)
+    intern_rows = make_internvl_sft_rows(intern, Q25_SFT_CUTOFF)
+    intern_grpo = make_internvl_grpo_examples(intern)
+    video_rows = make_video_sft_rows(Q25_SFT_CUTOFF)
+    lnv_examples = make_video_examples(
+        bundle_from_hf_config(LLAVA_NEXT_VIDEO_7B), seed=23)
+    vllava_hf = dict(VIDEO_LLAVA_7B, text_config=dict(
+        VIDEO_LLAVA_7B["text_config"], num_hidden_layers=VLLAVA_LAYERS))
+    vllava_examples = make_video_examples(bundle_from_hf_config(vllava_hf),
+                                          seed=24)
+    phases = (set(range(1, 27)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
@@ -5122,6 +5813,10 @@ def main() -> int:
                 next_encoded, v15_encoded, next_rows, ov_grpo_examples,
                 args.max_new_tokens).items():
             measured[name] += results
+        for name, results in phase_kernels_internvl_video(
+                intern_encoded, intern_rows, intern_grpo, video_rows,
+                VIDEO_SFT_BUDGET, args.max_new_tokens).items():
+            measured[name] += results
         log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     if phases & {4, 5, 8, 9}:
         t0 = time.perf_counter()
@@ -5136,6 +5831,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
     q25_steps = min(args.grpo_steps, Q25_GRPO_STEPS)
     ov_steps = min(args.grpo_steps, OV_GRPO_STEPS)
+    intern_steps = min(args.grpo_steps, INTERNVL_GRPO_STEPS)
+    q25_cut = dict(QWEN2_5_VL_3B, num_hidden_layers=Q25_GRPO_LAYERS)
     for n, path, run in (
         (6, "train", lambda: phase_train(train_rows, args.train_steps, card)),
         (7, "grpo", lambda: phase_grpo(grpo_examples, args.grpo_steps, card,
@@ -5150,7 +5847,9 @@ def main() -> int:
         (14, "q25_sft", lambda: phase_q25_sft(
             q25_rows, args.train_steps, card)),
         (15, "q25_grpo", lambda: phase_grpo(
-            q25_grpo_examples, q25_steps, card, grpo_case_q25(q25_steps))),
+            q25_grpo_examples, q25_steps, card, grpo_case_q25(
+                q25_steps, name=f"Qwen2.5-VL-3B cut to {Q25_GRPO_LAYERS} "
+                "decoder layers", hf=q25_cut))),
         (16, "llava_grpo", lambda: phase_grpo(
             ov_grpo_examples, ov_steps, card, grpo_case_ov(ov_steps))),
         (17, "llava16_serve", lambda: phase_next_serve(
@@ -5168,13 +5867,29 @@ def main() -> int:
             q25_encoded, args.max_new_tokens, card, "int8")),
         (22, "q25_nf4_serve", lambda: phase_quant_serve(
             q25_encoded, NF4_NEW_TOKENS, card, "nf4")),
+        (23, "internvl_serve", lambda: phase_internvl_serve(
+            intern_encoded, args.max_new_tokens, card)),
+        (24, "internvl_sft", lambda: phase_internvl_sft(
+            intern_rows, INTERNVL_SFT_STEPS, card)),
+        (25, "internvl_grpo", lambda: phase_grpo(
+            intern_grpo, intern_steps, card,
+            grpo_case_internvl(intern_steps))),
+        (26, "q2vl_video_sft", lambda: phase_video_sft(
+            video_rows, INTERNVL_SFT_STEPS, card)),
+        (26, "lnv_video_rollout", lambda: phase_video_rollout(
+            "lnv video rollout", "LLaVA-NeXT-Video-7B", LLAVA_NEXT_VIDEO_7B,
+            lnv_examples, LNV_PROMPT_LEN, card)),
+        (26, "vllava_video_rollout", lambda: phase_video_rollout(
+            "video-llava rollout", f"Video-LLaVA-7B cut to {VLLAVA_LAYERS} "
+            "decoder layers", vllava_hf, vllava_examples, VLLAVA_PROMPT_LEN,
+            card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
             by_path[path] = run()
             torch.cuda.empty_cache()
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 23)) <= phases:
+    if not set(range(3, 27)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

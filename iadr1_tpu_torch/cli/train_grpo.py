@@ -26,7 +26,8 @@ import os
 import numpy as np
 
 from iadr1_tpu_torch.cli.train_sft import add_device_argument, mesh_devices
-from iadr1_tpu_torch.vision.mrope import get_mrope_positions
+from iadr1_tpu_torch.data.collator import NO_FRAME_STACKS
+from iadr1_tpu_torch.vision.mrope import bundle_mrope_positions
 
 
 @dataclasses.dataclass
@@ -165,11 +166,13 @@ def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,
     the M-RoPE grids.
 
     Each example carries pre-encoded ``prompt_ids`` plus preprocessed
-    ``patches`` and ``grid_thw``; prompts repeat G times consecutively.
-    ``cfg.patch_budget`` sizes the G = num_generations (update) collation;
-    the G = 1 rollout collation scales it down by the group factor, so the
-    prefix-cached prefill's tower does not run over a patch stream padded
-    G times too long."""
+    ``patches`` and ``grid_thw`` (a Qwen family's videos among them, with
+    an optional ``second_per_grid_ts`` per video for Qwen2.5-VL) and, for
+    the LLaVA video families, ``video_patches`` (frame stacks); prompts
+    repeat G times consecutively.  ``cfg.patch_budget`` sizes the G =
+    num_generations (update) collation; the G = 1 rollout collation scales
+    it down by the group factor, so the prefix-cached prefill's tower does
+    not run over a patch stream padded G times too long."""
     pad = tokenizer.pad_token_id or tokenizer.eos_token_id
     img_id = getattr(bundle.cfg, "image_token_id", None)
     tcfg = getattr(bundle.cfg, "text", bundle.cfg)
@@ -181,11 +184,10 @@ def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,
         B = len(rows)
         input_ids = np.full((B, P), pad, np.int64)
         mask = np.zeros((B, P), np.int64)
-        patches_list, grids = [], []
+        patches_list, grids, videos, spg = [], [], [], []
         for i, ex in enumerate(rows):
-            if ex.get("video_patches"):
-                raise NotImplementedError(
-                    "video prompts are not ported yet (ROADMAP A.13)")
+            if ex.get("video_patches") and bundle.preprocess_video is None:
+                raise ValueError(NO_FRAME_STACKS.format(bundle.family))
             ids = ex["prompt_ids"][-P:]
             if len(ex["prompt_ids"]) > P and img_id is not None and (
                 img_id in ex["prompt_ids"]
@@ -200,15 +202,17 @@ def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,
             mask[i, P - len(ids):] = 1
             patches_list.extend(ex.get("patches", []))
             grids.extend(ex.get("grid_thw", []))
+            videos.extend(ex.get("video_patches", []))
+            spg.extend(ex.get("second_per_grid_ts", []))
         batch = {"input_ids": input_ids, "attention_mask": mask}
         if tcfg.mrope_section is not None:
-            grid_thw = np.asarray(grids, np.int64).reshape(-1, 3)
-            batch["position_ids"], batch["mrope_deltas"] = get_mrope_positions(
-                input_ids, grid_thw if len(grids) else None,
-                bundle.cfg.image_token_id, bundle.cfg.vision_start_token_id,
-                attention_mask=mask)
-        batch.update(bundle.vision_arrays(input_ids, patches_list, grids,
-                                          budget))
+            batch["position_ids"], batch["mrope_deltas"] = (
+                bundle_mrope_positions(bundle.cfg, input_ids, grids,
+                                       attention_mask=mask,
+                                       second_per_grid_ts=spg or None))
+        batch.update(bundle.vision_arrays(
+            input_ids, patches_list, grids, budget,
+            **({"videos": videos} if videos else {})))
         return batch
 
     return collate

@@ -1,12 +1,14 @@
-"""Image-placeholder expansion (the port's own copy of the qwen2_vl, llava
-and plain styles of iadr1_tpu/data/mm.py ``expand_image_tokens``).
+"""Image- and video-placeholder expansion (the port's own copy of the
+qwen2_vl, llava, intern_vl and plain styles of iadr1_tpu/data/mm.py
+``expand_image_tokens``, and of ``expand_video_tokens``).
 
 Each placeholder is expanded into a run of a temporary character, which
-becomes the image token only once the message is whole, as LLaMA-Factory's
-LLaVA plugins do through ``{{image}}``.  The JAX function writes the image
-token itself, so where that token is ``<image>`` (the llava_next_qwen
-template) it reads its own output as further placeholders and raises
-(ROADMAP C.R6); here an ``<image>`` of the text counts once.
+becomes the image (video) token only once the message is whole, as
+LLaMA-Factory's LLaVA plugins do through ``{{image}}``.  The JAX functions
+write the token itself, so where that token is the placeholder (``<image>``
+of the llava_next_qwen template, ``<video>`` of the LLaVA video families)
+they read their own output as further placeholders and raise (ROADMAP
+C.R6); here a placeholder of the text counts once.
 """
 
 from __future__ import annotations
@@ -14,34 +16,57 @@ from __future__ import annotations
 from typing import Sequence
 
 IMAGE_PLACEHOLDER = "<image>"
-# one image token, until the message is whole (a private-use code point)
+VIDEO_PLACEHOLDER = "<video>"
+# one image (video) token, until the message is whole (a private-use code
+# point)
 _IMAGE_RUN = "\ue000"
-MM_STYLES = ("qwen2_vl", "llava", "plain")
+MM_STYLES = ("qwen2_vl", "llava", "intern_vl", "plain")
 
 
 def expand_image_tokens(messages: Sequence[dict], image_seqlens: Sequence[int],
                         mm_style: str, image_token: str) -> list[dict]:
     """Replace each ``<image>`` with the family's expanded token run:
     ``<|vision_start|>`` + image_token x N + ``<|vision_end|>`` for
-    qwen2_vl, image_token x N for llava and plain.  ``image_seqlens[i]`` is
-    the feature count of the i-th image in reading order."""
+    qwen2_vl, ``<img>`` + image_token x N + ``</img>`` for intern_vl,
+    image_token x N for llava and plain.  ``image_seqlens[i]`` is the
+    feature count of the i-th image in reading order."""
     if mm_style not in MM_STYLES:
         raise NotImplementedError(
             f"mm style {mm_style!r} is not ported yet (ROADMAP A.13)")
+    return _expand(messages, image_seqlens, mm_style, image_token,
+                   IMAGE_PLACEHOLDER, "images")
+
+
+def expand_video_tokens(messages: Sequence[dict], video_seqlens: Sequence[int],
+                        mm_style: str,
+                        video_token: str = "<|video_pad|>") -> list[dict]:
+    """Replace each ``<video>`` with the family's expanded token run:
+    ``<|vision_start|>`` + video_token x N + ``<|vision_end|>`` for
+    qwen2_vl, video_token x N otherwise.  ``video_seqlens[i]`` is the
+    feature count of the i-th video in reading order."""
+    return _expand(messages, video_seqlens,
+                   "qwen2_vl" if mm_style == "qwen2_vl" else "plain",
+                   video_token, VIDEO_PLACEHOLDER, "videos")
+
+
+def _expand(messages, seqlens, mm_style: str, token: str, placeholder: str,
+            what: str) -> list[dict]:
     out, idx = [], 0
     for message in messages:
         content = message["content"]
-        while IMAGE_PLACEHOLDER in content:
-            if idx >= len(image_seqlens):
-                raise ValueError("more image placeholders than provided images")
-            run = _IMAGE_RUN * image_seqlens[idx]
+        while placeholder in content:
+            if idx >= len(seqlens):
+                raise ValueError(f"more {placeholder} placeholders than "
+                                 f"provided {what}")
+            run = _IMAGE_RUN * seqlens[idx]
             if mm_style == "qwen2_vl":
                 run = f"<|vision_start|>{run}<|vision_end|>"
-            content = content.replace(IMAGE_PLACEHOLDER, run, 1)
+            elif mm_style == "intern_vl":
+                run = f"<img>{run}</img>"
+            content = content.replace(placeholder, run, 1)
             idx += 1
-        out.append({**message,
-                    "content": content.replace(_IMAGE_RUN, image_token)})
-    if idx != len(image_seqlens):
+        out.append({**message, "content": content.replace(_IMAGE_RUN, token)})
+    if idx != len(seqlens):
         raise ValueError(
-            f"{len(image_seqlens)} images provided but {idx} placeholders found")
+            f"{len(seqlens)} {what} provided but {idx} placeholders found")
     return out

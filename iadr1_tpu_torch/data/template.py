@@ -1,9 +1,11 @@
 """Chat templates for prompt and training encoding (the port's own copy of
 the pieces of iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` and
 ``encode_multiturn`` that the ported families' templates need: the chatml
-``qwen2_vl``, ``qwen2_5_vl``, ``llava_next_qwen`` and ``llava_next_yi``,
-the vicuna-style ``llava`` and ``llava_next``, and ``llava_next_llama3``;
-the other templates wait for ROADMAP A.13).
+``qwen2_vl``, ``qwen2_5_vl``, ``llava_next_qwen``, ``llava_next_yi``,
+``llava_next_video_yi`` and ``intern_vl``, the vicuna-style ``llava``,
+``llava_next``, ``llava_next_video`` and ``video_llava``, the Mistral-style
+``llava_next_video_mistral``, and ``llava_next_llama3``; the other
+templates wait for ROADMAP A.13).
 
 A template is a few slots, each a tuple of chunks: strings with a
 ``{content}`` placeholder, and the sentinels ``EOS`` and ``BOS`` for the
@@ -30,6 +32,9 @@ class ChatTemplate:
     stop_words: tuple = ()
     image_token: str = "<image>"
     mm_style: str = "plain"
+    # the system text goes in front of the first user message's content,
+    # inside the user slot, instead of a slot of its own
+    system_in_user: bool = False
 
     def _message_chunks(self, role: str, content: str, first: bool,
                         system: str | None) -> list:
@@ -41,8 +46,14 @@ class ChatTemplate:
             chunks += list(self.prefix)
             sys = system if system is not None else self.default_system
             if sys:
-                chunks += [c.replace("{content}", sys) if isinstance(c, str)
-                           else c for c in self.system]
+                block = [c.replace("{content}", sys) if isinstance(c, str)
+                         else c for c in self.system]
+                if self.system_in_user:
+                    if role == "user":
+                        content = "".join(c for c in block
+                                          if isinstance(c, str)) + content
+                else:
+                    chunks += block
         if role not in ("user", "assistant"):
             raise ValueError(f"unsupported role {role!r}")
         slot = self.user if role == "user" else self.assistant
@@ -134,6 +145,15 @@ _LLAMA3 = dict(
     prefix=(BOS,),
     stop_words=("<|eot_id|>", "<|eom_id|>"),
 )
+# Mistral instruct (LLaVA-NeXT-Video-Mistral): the system text inside the
+# first user message
+_MISTRAL = dict(
+    user=("[INST] {content}[/INST]",),
+    assistant=(" {content}", EOS),
+    system=("{content}\n\n",),
+    prefix=(BOS,),
+    system_in_user=True,
+)
 # the LLaVA families: each image a run of <image> tokens
 _LLAVA = dict(image_token="<image>", mm_style="llava")
 
@@ -155,6 +175,19 @@ TEMPLATES = {
     "llava_next_llama3": ChatTemplate(name="llava_next_llama3", **_LLAMA3,
                                       **_LLAVA),
     "llava_next_yi": ChatTemplate(name="llava_next_yi", **_CHATML, **_LLAVA),
+    # the video families
+    "llava_next_video": ChatTemplate(name="llava_next_video", **_VICUNA,
+                                     **_LLAVA),
+    "llava_next_video_mistral": ChatTemplate(
+        name="llava_next_video_mistral", **_MISTRAL, **_LLAVA),
+    "llava_next_video_yi": ChatTemplate(name="llava_next_video_yi",
+                                        **_CHATML, **_LLAVA),
+    "video_llava": ChatTemplate(name="video_llava", **_VICUNA, **_LLAVA),
+    # InternVL-2.5: chatml after the tokenizer's BOS, each image
+    # <img> + <IMG_CONTEXT> x N + </img>
+    "intern_vl": ChatTemplate(name="intern_vl", prefix=(BOS,),
+                              image_token="<IMG_CONTEXT>",
+                              mm_style="intern_vl", **_CHATML),
 }
 
 

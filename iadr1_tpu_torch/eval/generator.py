@@ -23,7 +23,7 @@ import torch
 from iadr1_tpu_torch.core.device import resolve_device
 from iadr1_tpu_torch.data.mm import expand_image_tokens
 from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
-from iadr1_tpu_torch.vision.mrope import get_mrope_positions
+from iadr1_tpu_torch.vision.mrope import bundle_mrope_positions
 
 
 @dataclasses.dataclass
@@ -117,11 +117,9 @@ class VLMGenerator:
         arrays = {"input_ids": input_ids, "attention_mask": mask}
         cfg = self.bundle.cfg
         if getattr(cfg, "text", cfg).mrope_section is not None:
-            grid_thw = np.asarray(grids, np.int64).reshape(-1, 3)
-            arrays["position_ids"], arrays["mrope_deltas"] = get_mrope_positions(
-                input_ids, grid_thw if len(grids) else None,
-                cfg.image_token_id, cfg.vision_start_token_id,
-                attention_mask=mask)
+            arrays["position_ids"], arrays["mrope_deltas"] = (
+                bundle_mrope_positions(cfg, input_ids, grids,
+                                       attention_mask=mask))
         if self.bundle.multimodal:
             arrays.update(self.bundle.vision_arrays(
                 input_ids, patches_list, grids, self.cfg.patch_budget))

@@ -1,16 +1,20 @@
-"""LLaVA-1.5 and LLaVA-NeXT (1.6), image inputs: the CLIP tower, a
-two-layer projector and a llama-style decoder (the Qwen2 module with
-``attention_bias=False``), counterpart of iadr1_tpu/models/llava.py.
+"""LLaVA-1.5, LLaVA-NeXT (1.6), LLaVA-NeXT-Video and Video-LLaVA: the
+CLIP tower(s), a two-layer projector and a llama-style decoder (the Qwen2
+module with ``attention_bias=False``), counterpart of
+iadr1_tpu/models/llava.py.
 
 HF ``LlavaForConditionalGeneration`` semantics (one 336 x 336 tile per
 image, 576 features: ``vision_feature_layer`` -2, strategy "default" drops
-CLS) and ``LlavaNextForConditionalGeneration`` (anyres tiles, the unpadded
+CLS), ``LlavaNextForConditionalGeneration`` (anyres tiles, the unpadded
 spatial grid and a newline vector after each row, packed as LLaVA-OneVision
-packs them but never downscaled).  These are the reference's LLaVA-1.5-7B/13B
-and LLaVA-1.6-8B/34B families.  Positions are 1-D (no M-RoPE).
-
-The video families (LLaVA-NeXT-Video, Video-LLaVA: ``video_tiles``,
-frame pooling, a second tower) wait for ROADMAP A.13.
+packs them but never downscaled), ``LlavaNextVideoForConditionalGeneration``
+(anyres images, and video frames through the same tower, each frame's
+feature grid average-pooled at stride 2 before the projector) and
+``VideoLlavaForConditionalGeneration`` (separate image and video towers;
+a frame keeps its CLS feature).  These are the reference's
+LLaVA-1.5-7B/13B and LLaVA-1.6-8B/34B families and the video plugins'.
+Positions are 1-D (no M-RoPE).  Frames are the tower's batch like tiles,
+``video_tile_segments`` masking the zero frames that pad the frame stream.
 """
 
 from __future__ import annotations
@@ -28,8 +32,6 @@ from iadr1_tpu_torch.models.common import dense
 from iadr1_tpu_torch.models.params_io import _get
 from iadr1_tpu_torch.models.qwen2_vl import merge_image_features
 
-VIDEO_NOT_PORTED = "LLaVA video inputs are not ported yet (ROADMAP A.13)"
-
 
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
@@ -41,6 +43,15 @@ class LlavaConfig:
     # LLaVA-NeXT only
     anyres: bool = False
     image_grid_pinpoints: tuple = ()
+    # the video families
+    video_token_id: int | None = None
+    # LLaVA-NeXT-Video: each frame's feature grid average-pooled at this
+    # stride before the projector (LlavaNextVideoPooler); 0: no pooling
+    video_pool_stride: int = 0
+    # Video-LLaVA: frames keep the CLS feature and run the separate
+    # ``video_tower``
+    video_keep_cls: bool = False
+    separate_video_tower: bool = False
 
     @property
     def tower_layers(self) -> int:
@@ -65,23 +76,28 @@ def init_params(gen, cfg: LlavaConfig, dtype, device) -> dict:
     }
     if cfg.anyres:
         params["image_newline"] = zeros(hid)
+    if cfg.separate_video_tower:
+        params["video_tower"] = clip_vit.init_params(gen, cfg.vision, dtype,
+                                                     device)
     return params
 
 
 def convert_hf(state, cfg: LlavaConfig, dtype=torch.float32,
                device=None) -> dict:
-    """HF LLaVA / LLaVA-NeXT state dict (name -> array), in either key
-    layout (``model.language_model.*`` of newer transformers, or
-    ``language_model.model.*``) -> parameter dict."""
+    """HF LLaVA / LLaVA-NeXT / LLaVA-NeXT-Video / Video-LLaVA state dict
+    (name -> array), in either key layout (``model.language_model.*`` of
+    newer transformers, or ``language_model.model.*``) -> parameter dict.
+    Video-LLaVA names its towers ``image_tower`` and ``video_tower``."""
     from iadr1_tpu_torch.models.params_io import convert_qwen2
 
     device = resolve_device(device)
-    if any(k.startswith("model.language_model.") for k in state):
-        lm, vt = "model.language_model.", "model.vision_tower.vision_model."
-        proj, newline = "model.multi_modal_projector.", "model.image_newline"
-    else:
-        lm, vt = "language_model.model.", "vision_tower.vision_model."
-        proj, newline = "multi_modal_projector.", "image_newline"
+    tower = "image_tower" if cfg.separate_video_tower else "vision_tower"
+    top = ("model." if any(k.startswith("model.language_model.")
+                           for k in state) else "")
+    lm = "model.language_model." if top else "language_model.model."
+    vt, video = (f"{top}{tower}.vision_model.",
+                 f"{top}video_tower.vision_model.")
+    proj, newline = f"{top}multi_modal_projector.", f"{top}image_newline"
     kw = dict(dtype=dtype, device=device)
 
     def linear(name):
@@ -95,6 +111,9 @@ def convert_hf(state, cfg: LlavaConfig, dtype=torch.float32,
     }
     if cfg.anyres:
         params["image_newline"] = _get(state, newline, **kw)
+    if cfg.separate_video_tower:
+        params["video_tower"] = clip_vit.convert_hf(state, cfg.vision,
+                                                    prefix=video, **kw)
     return params
 
 
@@ -105,36 +124,72 @@ def project(params, feats):
     return dense(F.gelu(h), p["fc2"]["kernel"], p["fc2"]["bias"])
 
 
+def pool_video_features(feats: torch.Tensor, stride: int) -> torch.Tensor:
+    """Each frame's spatial average pool (kernel = stride, floor) over a
+    [F, g*g, E] feature grid, before the projector (HF
+    LlavaNextVideoPooler).  A window's features are summed in reading
+    order, then divided by their count: at the published 24 x 24 grid and
+    stride 2 that is the JAX package's sum bit for bit."""
+    n_frames, n, E = feats.shape
+    g = int(round(n ** 0.5))
+    g2 = g // stride
+    x = feats.reshape(n_frames, g, g, E)[:, :g2 * stride, :g2 * stride]
+    x = x.reshape(n_frames, g2, stride, g2, stride, E)
+    total = x[:, :, 0, :, 0]
+    for i in range(stride):
+        for j in range(stride):
+            if i or j:
+                total = total + x[:, :, i, :, j]
+    return (total / (stride * stride)).reshape(n_frames, g2 * g2, E)
+
+
 def compute_embeds(params, cfg: LlavaConfig, input_ids, *, tiles=None,
                    tile_segments=None, pack_src=None, pack_weights=None,
                    newline_mask=None, scatter_rows=None, scatter_cols=None,
+                   video_tiles=None, video_tile_segments=None,
+                   video_scatter_rows=None, video_scatter_cols=None,
                    precision: Precision = DEFAULT_PRECISION,
                    tower_attention_fn: Callable | None = None,
-                   tower_remat=False, **video):
+                   tower_remat=False):
     """Token embeddings with the image features scattered onto the image
     tokens (features of padding target the dropped row B): one tile per
     image (1.5), or the anyres plan's weighted gather with the newline
-    rows (NeXT)."""
-    if any(v is not None for v in video.values()):
-        raise NotImplementedError(VIDEO_NOT_PORTED)
+    rows (NeXT); then each video's frames through the tower (Video-LLaVA:
+    its video tower, CLS kept), pooled (NeXT-Video), projected and
+    scattered onto the video tokens."""
     embeds = common.embed_lookup(params["text"]["embed"]["weight"],
                                  input_ids).to(precision.compute_dtype)
-    if tiles is None:
-        return embeds
-    feats = clip_vit.apply(
-        params["vision"], cfg.vision, tiles, precision=precision,
-        remat=tower_remat, num_layers=cfg.tower_layers,
-        keep_cls=cfg.vision_feature_select_strategy == "full",
-        attention_fn=tower_attention_fn, tile_segments=tile_segments)
-    feats = project(params, feats)
-    flat = feats.reshape(-1, feats.shape[-1])
-    if cfg.anyres:
-        gathered = (flat[pack_src.long()]
-                    * pack_weights[..., None].to(flat.dtype)).sum(1)
-        newline = params["image_newline"].to(gathered.dtype)
-        flat = torch.where(newline_mask.bool()[:, None], newline[None, :],
-                           gathered)
-    return merge_image_features(embeds, flat, scatter_rows, scatter_cols)
+    tower_kw = dict(precision=precision, remat=tower_remat,
+                    num_layers=cfg.tower_layers,
+                    attention_fn=tower_attention_fn)
+    full = cfg.vision_feature_select_strategy == "full"
+    if tiles is not None:
+        feats = clip_vit.apply(params["vision"], cfg.vision, tiles,
+                               keep_cls=full, tile_segments=tile_segments,
+                               **tower_kw)
+        feats = project(params, feats)
+        flat = feats.reshape(-1, feats.shape[-1])
+        if cfg.anyres:
+            gathered = (flat[pack_src.long()]
+                        * pack_weights[..., None].to(flat.dtype)).sum(1)
+            newline = params["image_newline"].to(gathered.dtype)
+            flat = torch.where(newline_mask.bool()[:, None],
+                               newline[None, :], gathered)
+        embeds = merge_image_features(embeds, flat, scatter_rows,
+                                      scatter_cols)
+    if video_tiles is not None:
+        vfeats = clip_vit.apply(params.get("video_tower", params["vision"]),
+                                cfg.vision, video_tiles,
+                                keep_cls=cfg.video_keep_cls or full,
+                                tile_segments=video_tile_segments,
+                                **tower_kw)
+        if cfg.video_pool_stride > 1:
+            vfeats = pool_video_features(vfeats, cfg.video_pool_stride)
+        vfeats = project(params, vfeats)
+        embeds = merge_image_features(
+            embeds, vfeats.reshape(-1, vfeats.shape[-1]),
+            video_scatter_rows, video_scatter_cols)
+    return embeds
 
 
 def apply(params: dict, cfg: LlavaConfig,
@@ -142,14 +197,16 @@ def apply(params: dict, cfg: LlavaConfig,
           position_ids: torch.Tensor,          # [B, T]
           *, tiles=None, tile_segments=None, pack_src=None,
           pack_weights=None, newline_mask=None, scatter_rows=None,
-          scatter_cols=None, segment_ids=None, cache: dict | None = None,
+          scatter_cols=None, video_tiles=None, video_tile_segments=None,
+          video_scatter_rows=None, video_scatter_cols=None,
+          segment_ids=None, cache: dict | None = None,
           cache_mode: str = "extend",
           precision: Precision = DEFAULT_PRECISION,
           attention_fn: Callable | None = None,
           decode_attention_fn: Callable | None = None,
           tower_attention_fn: Callable | None = None,
           remat=False, tower_remat=None, lora: dict | None = None,
-          lora_scale: float = 1.0, **video):
+          lora_scale: float = 1.0):
     """Full forward -> (hidden [B, T, hid], cache).  ``remat`` is the
     decoder's mode; ``tower_remat`` the tower's, following ``remat`` when
     None, as in the JAX apply.  ``lora`` is the decoder's adapter tree
@@ -158,9 +215,12 @@ def apply(params: dict, cfg: LlavaConfig,
         params, cfg, input_ids, tiles=tiles, tile_segments=tile_segments,
         pack_src=pack_src, pack_weights=pack_weights,
         newline_mask=newline_mask, scatter_rows=scatter_rows,
-        scatter_cols=scatter_cols, precision=precision,
+        scatter_cols=scatter_cols, video_tiles=video_tiles,
+        video_tile_segments=video_tile_segments,
+        video_scatter_rows=video_scatter_rows,
+        video_scatter_cols=video_scatter_cols, precision=precision,
         tower_attention_fn=tower_attention_fn,
-        tower_remat=remat if tower_remat is None else tower_remat, **video)
+        tower_remat=remat if tower_remat is None else tower_remat)
     return qwen2.apply(
         params["text"], cfg.text, inputs_embeds=embeds,
         position_ids=position_ids, segment_ids=segment_ids, cache=cache,

@@ -46,6 +46,9 @@ class Qwen25VLVisionConfig:
     fullatt_block_indexes: tuple[int, ...] = (7, 15, 23, 31)
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
+    # a video's temporal M-RoPE step per second (vision/mrope.py); 2 in the
+    # published configs and transformers' default
+    tokens_per_second: float = 2
 
     @property
     def head_dim(self) -> int:

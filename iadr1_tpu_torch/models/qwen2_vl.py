@@ -59,6 +59,7 @@ class Qwen2VLConfig:
     vision: Qwen2VLVisionConfig
     image_token_id: int = 151655
     vision_start_token_id: int = 151652
+    video_token_id: int = 151656
 
 
 def layer_norm(x, scale, bias, eps=1e-6):

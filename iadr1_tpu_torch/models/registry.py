@@ -1,6 +1,7 @@
 """Model bundles (counterpart of iadr1_tpu/models/registry.py) for the
-families ported so far: Qwen2 (text), Qwen2-VL, Qwen2.5-VL,
-LLaVA-OneVision, and LLaVA-1.5 / LLaVA-NeXT (images).
+families ported so far: Qwen2 (text), Qwen2-VL and Qwen2.5-VL (images and
+videos), LLaVA-OneVision, LLaVA-1.5 / LLaVA-NeXT (images), LLaVA-NeXT-Video
+and Video-LLaVA (images and videos), and InternVL.
 
 A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
@@ -11,7 +12,8 @@ cache_mode=..., remat=False, lora=None, lora_scale=1.0)``,
 lora_scale=1.0)`` (GRPO's shared-prompt scoring),
 ``init_params(seed, dtype, device)``,
 ``convert_hf(state, dtype, device)`` and, for the multimodal families,
-the host-side ``vision_arrays`` and ``preprocess_image``.  ``lora`` is an
+the host-side ``vision_arrays`` and ``preprocess_image`` (and, for the
+LLaVA video families, ``preprocess_video``).  ``lora`` is an
 adapter tree parallel to the parameters (``train/adapters.py``); the VLM
 bundles hand its "text" subtree to the decoder, and their towers take no
 adapters.
@@ -32,6 +34,7 @@ from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import (
     clip_vit,
     common,
+    internvl,
     llava,
     llava_onevision,
     qwen2,
@@ -62,6 +65,10 @@ class ModelBundle:
     preprocess_image: Callable | None = None
     template: str = "chatml"
     precision: Precision = DEFAULT_PRECISION
+    # (frames: [PIL]) -> (frame patches, meta, feature count); the LLaVA
+    # video families only (the Qwen families take a video's patches and
+    # (t, h, w) grid through the image stream, as in JAX)
+    preprocess_video: Callable | None = None
     # shared-prompt GRPO scoring (models/shared_prompt.py): (params, batch,
     # group_size, remat=True) -> the hidden states [n*G, N, hid] that
     # predict the completion tokens; None for a family with no such path
@@ -152,7 +159,8 @@ def _scatter_indices(input_ids: np.ndarray, image_token_id: int,
     order index of each feature, Qwen2.5-VL's window order).  Video tokens
     are matched too only when the image tokens alone fall short of
     ``n_expected`` features (some checkpoints reuse ordinary token ids as
-    the video token); videos themselves wait for ROADMAP A.13."""
+    the video token); a video's patches ride the image stream, so its
+    features follow it in reading order."""
     B = input_ids.shape[0]
     match = input_ids == image_token_id
     if (video_token_id is not None and video_token_id != image_token_id
@@ -330,6 +338,7 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
         text=tcfg, vision=vcfg,
         image_token_id=hf_config.get("image_token_id", 151655),
         vision_start_token_id=hf_config.get("vision_start_token_id", 151652),
+        video_token_id=hf_config.get("video_token_id", 151656),
     )
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
@@ -366,8 +375,9 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
         cos = np.concatenate([cos, np.ones((pad, cos.shape[1]), np.float32)])
         sin = np.concatenate([sin, np.zeros((pad, sin.shape[1]), np.float32)])
         merge_unit = vcfg.spatial_merge_size ** 2
-        srows, scols = _scatter_indices(input_ids, cfg.image_token_id,
-                                        patch_budget // merge_unit)
+        srows, scols = _scatter_indices(
+            input_ids, cfg.image_token_id, patch_budget // merge_unit,
+            video_token_id=cfg.video_token_id, n_expected=n // merge_unit)
         return {
             "patches": flat.astype(np.float32), "rot_cos": cos,
             "rot_sin": sin,
@@ -439,6 +449,7 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
         window_size=vis_hf.get("window_size", 112),
         fullatt_block_indexes=tuple(
             vis_hf.get("fullatt_block_indexes", (7, 15, 23, 31))),
+        tokens_per_second=vis_hf.get("tokens_per_second", 2),
     )
     cfg = qwen25_vl.Qwen25VLConfig(
         text=tcfg, vision=vcfg,
@@ -550,9 +561,13 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
 
 
 # the collated arrays the LLaVA families' compute_embeds read (the pack
-# plans are the anyres modes')
-LLAVA_BATCH_KEYS = ("tiles", "tile_segments", "pack_src", "pack_weights",
-                    "newline_mask", "scatter_rows", "scatter_cols")
+# plans are the anyres modes', the video arrays the video families')
+ONEVISION_BATCH_KEYS = ("tiles", "tile_segments", "pack_src",
+                        "pack_weights", "newline_mask", "scatter_rows",
+                        "scatter_cols")
+LLAVA_BATCH_KEYS = ONEVISION_BATCH_KEYS + (
+    "video_tiles", "video_tile_segments", "video_scatter_rows",
+    "video_scatter_cols")
 
 # the JAX bundle's fallback grid pinpoints, used when a config names none
 # (six entries up to 1152; not HF LlavaOnevisionConfig's 36-entry default,
@@ -605,7 +620,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
               tower_remat=None, lora=None, lora_scale=1.0):
         return llava_onevision.apply(
             params, cfg, batch["input_ids"], batch["position_ids"],
-            **{k: batch.get(k) for k in LLAVA_BATCH_KEYS},
+            **{k: batch.get(k) for k in ONEVISION_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
             decode_attention_fn=decode_attn, tower_attention_fn=attn,
@@ -651,7 +666,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
         preprocess_image=preprocess_image,
         template="llava_next_qwen",
         shared_pred_fn=_vlm_shared_pred(llava_onevision, cfg, precision,
-                                        attention, LLAVA_BATCH_KEYS),
+                                        attention, ONEVISION_BATCH_KEYS),
         precision=precision,
     )
 
@@ -665,25 +680,39 @@ LLAVA_NEXT_DEFAULT_PINPOINTS = ((336, 672), (672, 336), (672, 672),
 def make_llava_bundle(hf_config: dict, attention: str = "auto",
                       precision: Precision = DEFAULT_PRECISION
                       ) -> ModelBundle:
-    """LLaVA-1.5 and LLaVA-NeXT (image inputs): the CLIP tower (its first
-    ``tower_layers`` layers) over one center-cropped tile per image (1.5)
-    or anyres tiles packed as LLaVA-OneVision packs them without the
-    anyres_max downscale (NeXT), the projector, a llama-style decoder
-    with 1-D positions.  The tower's attention is the decoder's dispatch,
-    K1 on the card (D = 64 at CLIP-L's width), each tile its own sequence
-    and the zero tiles that pad the stream masked out (``tile_segments``).
-    The video families and Pixtral wait for ROADMAP A.13."""
+    """LLaVA-1.5, LLaVA-NeXT, LLaVA-NeXT-Video and Video-LLaVA: the CLIP
+    tower (its first ``tower_layers`` layers) over one center-cropped tile
+    per image (1.5, Video-LLaVA) or anyres tiles packed as LLaVA-OneVision
+    packs them without the anyres_max downscale (NeXT, NeXT-Video), the
+    projector, a llama-style decoder with 1-D positions; the video
+    families' frames, each center-cropped to one tile, through the same
+    tower (NeXT-Video, pooled at ``spatial_pool_stride``) or Video-LLaVA's
+    video tower.  The tower's attention is the decoder's dispatch, K1 on
+    the card (D = 64 at CLIP-L's width), each tile or frame its own
+    sequence and the zero tiles that pad a stream masked out
+    (``tile_segments``, ``video_tile_segments``).  Pixtral waits for
+    ROADMAP A.13."""
     from iadr1_tpu_torch.vision import anyres
 
     archs = list(hf_config.get("architectures") or [])
+    mt = hf_config.get("model_type")
     vis_hf = hf_config.get("vision_config") or {}
     # HF ships Pixtral as LlavaForConditionalGeneration with a pixtral
     # vision_config: another tower and decoder
     if vis_hf.get("model_type") == "pixtral":
         raise NotImplementedError(
             "Pixtral is not ported yet (ROADMAP A.13)")
-    anyres_mode = ("LlavaNextForConditionalGeneration" in archs
-                   or hf_config.get("model_type") == "llava_next")
+    lnv_mode = ("LlavaNextVideoForConditionalGeneration" in archs
+                or mt == "llava_next_video")
+    videollava_mode = ("VideoLlavaForConditionalGeneration" in archs
+                       or mt == "video_llava")
+    anyres_mode = lnv_mode or ("LlavaNextForConditionalGeneration" in archs
+                               or mt == "llava_next")
+    if lnv_mode and hf_config.get("spatial_pool_mode",
+                                  "average") != "average":
+        raise ValueError("only spatial_pool_mode='average' is supported "
+                         "(every released LLaVA-NeXT-Video checkpoint "
+                         "uses it)")
     text_hf = hf_config.get("text_config") or {"model_type": "llama"}
     tcfg = _qwen2_text_cfg(text_hf, attention_bias=False)
     vcfg = clip_vit.ClipVisionConfig(
@@ -695,6 +724,7 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
         patch_size=vis_hf.get("patch_size", 14),
         layer_norm_eps=vis_hf.get("layer_norm_eps", 1e-5),
     )
+    video_mode = lnv_mode or videollava_mode
     cfg = llava.LlavaConfig(
         text=tcfg, vision=vcfg,
         image_token_id=hf_config.get("image_token_index",
@@ -706,11 +736,22 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
         image_grid_pinpoints=tuple(
             tuple(p) for p in hf_config.get("image_grid_pinpoints") or ()
         ) or LLAVA_NEXT_DEFAULT_PINPOINTS,
+        video_token_id=(hf_config.get("video_token_index",
+                                      hf_config.get("video_token_id"))
+                        if video_mode else None),
+        video_pool_stride=(hf_config.get("spatial_pool_stride", 2)
+                           if lnv_mode else 0),
+        video_keep_cls=videollava_mode,
+        separate_video_tower=videollava_mode,
     )
     attn = default_attention(attention)
     decode_attn = default_decode_attention(attention)
     g = vcfg.grid
     stats = _image_stats(hf_config)
+    if cfg.video_pool_stride > 1:
+        feats_per_frame = (g // cfg.video_pool_stride) ** 2
+    else:
+        feats_per_frame = g * g + (1 if cfg.video_keep_cls else 0)
 
     def apply(params, batch, cache=None, cache_mode="extend", remat=False,
               tower_remat=None, lora=None, lora_scale=1.0):
@@ -741,13 +782,47 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
         patches = anyres.patchify_tiles(tiles, vcfg.patch_size)
         return patches, (grid[0], grid[1], pil.height, pil.width), seqlen
 
-    def vision_arrays(input_ids, patches_list, grids, patch_budget):
-        """Host precompute for one batch (numpy): the tile stream padded
-        with zero tiles to ``patch_budget // g**2`` tiles, each tile's
-        segment id (``_tile_segments``), and the scatter indices of the
-        image tokens in reading order; NeXT's are ``_anyres_arrays``, with
-        the anyres pack plans.  For 1.5 the tile stream's features map one
-        to one onto the image tokens."""
+    def preprocess_video(frames):
+        """Sampled PIL frames -> (patches [n_frames, g*g, patch_dim],
+        ("video", n_frames), feature count): each frame center-cropped to
+        one tile; a frame gives (g / stride)^2 features (NeXT-Video), g*g
+        + 1 (Video-LLaVA, CLS kept) or g*g."""
+        arr = np.stack([anyres.clip_resize_center_crop(f, vcfg.image_size,
+                                                       *stats)
+                        for f in frames])
+        patches = anyres.patchify_tiles(arr, vcfg.patch_size)
+        return patches, ("video", len(frames)), feats_per_frame * len(frames)
+
+    def video_arrays(input_ids, videos, patch_budget):
+        """The frame stream of ``videos`` ([n_frames, g*g, patch_dim]
+        each) padded with zero frames to ``patch_budget // g**2`` frames,
+        each frame's segment id, and the scatter indices of the video
+        tokens in reading order, ``feats_per_frame`` a frame."""
+        B = input_ids.shape[0]
+        frame_budget = max(patch_budget // (g * g), 1)
+        frames = np.zeros((frame_budget, g * g, vcfg.patch_dim), np.float32)
+        n_frames = 0
+        for v in videos or ():
+            n = v.shape[0]
+            if n_frames + n > frame_budget:
+                raise ValueError(f"the frame stream exceeds the budget of "
+                                 f"{frame_budget} frames")
+            frames[n_frames:n_frames + n] = v
+            n_frames += n
+        rows_idx, cols_idx = np.nonzero(input_ids == cfg.video_token_id)
+        if len(rows_idx) != n_frames * feats_per_frame:
+            raise ValueError(f"{len(rows_idx)} video tokens for "
+                             f"{n_frames * feats_per_frame} video features")
+        n_feats = frame_budget * feats_per_frame
+        vrows = np.full(n_feats, B, np.int64)
+        vcols = np.zeros(n_feats, np.int64)
+        vrows[:len(rows_idx)], vcols[:len(cols_idx)] = rows_idx, cols_idx
+        return {"video_tiles": frames,
+                "video_tile_segments": _tile_segments(frame_budget,
+                                                      n_frames),
+                "video_scatter_rows": vrows, "video_scatter_cols": vcols}
+
+    def image_arrays(input_ids, patches_list, grids, patch_budget):
         if anyres_mode:
             return _anyres_arrays(input_ids, patches_list, grids,
                                   patch_budget, g, vcfg.patch_dim,
@@ -773,12 +848,34 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
                 "tile_segments": _tile_segments(tile_budget, n_tiles),
                 "scatter_rows": srows, "scatter_cols": scols}
 
+    def vision_arrays(input_ids, patches_list, grids, patch_budget,
+                      videos=None):
+        """Host precompute for one batch (numpy): the tile stream padded
+        with zero tiles to ``patch_budget // g**2`` tiles, each tile's
+        segment id (``_tile_segments``), and the scatter indices of the
+        image tokens in reading order; NeXT's are ``_anyres_arrays``, with
+        the anyres pack plans.  For 1.5 the tile stream's features map one
+        to one onto the image tokens.  The video families add the frame
+        stream of ``videos`` (``video_arrays``), sized by the same
+        budget."""
+        out = image_arrays(input_ids, patches_list, grids, patch_budget)
+        if video_mode:
+            out.update(video_arrays(input_ids, videos, patch_budget))
+        elif videos:
+            raise ValueError(f"family {family} takes no videos")
+        return out
+
     def init_params(seed=0, dtype=None, device=None):
         gen, device = _generator(seed, device)
         return llava.init_params(gen, cfg, dtype or precision.param_dtype,
                                  device)
 
-    family = "llava_next" if anyres_mode else "llava"
+    if lnv_mode:
+        family = "llava_next_video"
+    elif videollava_mode:
+        family = "video_llava"
+    else:
+        family = "llava_next" if anyres_mode else "llava"
     return ModelBundle(
         family=family, cfg=cfg, multimodal=True,
         init_params=init_params,
@@ -788,9 +885,126 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
         logits_fn=lambda params, h: llava.logits(params, cfg, h, precision),
         vision_arrays=vision_arrays,
         preprocess_image=preprocess_image,
+        preprocess_video=preprocess_video if video_mode else None,
         template=family,
         shared_pred_fn=_vlm_shared_pred(llava, cfg, precision, attention,
                                         LLAVA_BATCH_KEYS),
+        precision=precision,
+    )
+
+
+# the collated arrays InternVL's compute_embeds reads
+INTERNVL_BATCH_KEYS = ("tiles", "tile_segments", "scatter_rows",
+                       "scatter_cols")
+
+
+def _first(v):
+    """A config size that may be written as a pair (HF InternVL's)."""
+    return v[0] if isinstance(v, (list, tuple)) else v
+
+
+def make_internvl_bundle(hf_config: dict, attention: str = "auto",
+                         precision: Precision = DEFAULT_PRECISION
+                         ) -> ModelBundle:
+    """InternVL: the InternViT tower over aspect-optimal tiles (plus a
+    thumbnail), pixel shuffle and the MLP projector, the Qwen2 decoder
+    with 1-D positions.  The tower's attention is the decoder's dispatch,
+    K1 on the card (D = 64 at InternViT-300M's width, 1025 tokens a tile),
+    each tile its own sequence and the zero tiles that pad the stream
+    masked out (``tile_segments``)."""
+    text_hf, vis_hf = hf_config["text_config"], hf_config["vision_config"]
+    tcfg = _qwen2_text_cfg(text_hf)
+    vcfg = internvl.InternVLVisionConfig(
+        hidden_size=vis_hf.get("hidden_size", 1024),
+        intermediate_size=vis_hf.get("intermediate_size", 4096),
+        num_hidden_layers=vis_hf.get("num_hidden_layers", 24),
+        num_attention_heads=vis_hf.get("num_attention_heads", 16),
+        image_size=_first(vis_hf.get("image_size", 448)),
+        patch_size=_first(vis_hf.get("patch_size", 14)),
+        layer_norm_eps=vis_hf.get("layer_norm_eps", 1e-6),
+        attention_bias=vis_hf.get("attention_bias", True),
+        use_qk_norm=vis_hf.get("use_qk_norm", False),
+        norm_type=vis_hf.get("norm_type", "layer_norm"),
+    )
+    cfg = internvl.InternVLConfig(
+        text=tcfg, vision=vcfg,
+        image_token_id=hf_config.get("image_token_id", 151667),
+        downsample_ratio=hf_config.get("downsample_ratio", 0.5),
+        max_tiles=hf_config.get("max_tiles", 12),
+    )
+    attn = default_attention(attention)
+    decode_attn = default_decode_attention(attention)
+    g, fpt = vcfg.grid, cfg.features_per_tile
+    mean, std = _image_stats(hf_config)
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None, lora=None, lora_scale=1.0):
+        return internvl.apply(
+            params, cfg, batch["input_ids"], batch["position_ids"],
+            **{k: batch.get(k) for k in INTERNVL_BATCH_KEYS},
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=precision, attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale,
+        )
+
+    def preprocess_image(pil, min_pixels=None, max_pixels=None):
+        """PIL image -> (patches [n_tiles, g*g, patch_dim], (n_tiles,),
+        feature count); the pixel bounds are the Qwen2-VL family's and are
+        not read."""
+        from iadr1_tpu_torch.vision.anyres import patchify_tiles
+
+        tiles, n = internvl.internvl_tiles(pil, vcfg.image_size,
+                                           cfg.min_tiles, cfg.max_tiles,
+                                           mean=mean, std=std)
+        return patchify_tiles(tiles, vcfg.patch_size), (n,), n * fpt
+
+    def vision_arrays(input_ids, patches_list, grids, patch_budget):
+        """Host precompute for one batch (numpy): the tile stream padded
+        with zero tiles to ``patch_budget // g**2`` tiles, each tile's
+        segment id (``_tile_segments``), and the scatter indices of the
+        image tokens in reading order, ``features_per_tile`` a tile."""
+        B = input_ids.shape[0]
+        tile_budget = patch_budget // (g * g)
+        tiles = np.zeros((tile_budget, g * g, vcfg.patch_dim), np.float32)
+        n_tiles = 0
+        for p in patches_list:
+            n = p.shape[0]
+            if n_tiles + n > tile_budget:
+                raise ValueError(f"tile stream exceeds the budget of "
+                                 f"{tile_budget} tiles")
+            tiles[n_tiles:n_tiles + n] = p
+            n_tiles += n
+        rows_idx, cols_idx = np.nonzero(input_ids == cfg.image_token_id)
+        if len(rows_idx) != n_tiles * fpt:
+            raise ValueError(f"{len(rows_idx)} image tokens for "
+                             f"{n_tiles * fpt} image features")
+        srows = np.full(tile_budget * fpt, B, np.int64)
+        scols = np.zeros(tile_budget * fpt, np.int64)
+        srows[:len(rows_idx)], scols[:len(cols_idx)] = rows_idx, cols_idx
+        return {"tiles": tiles,
+                "tile_segments": _tile_segments(tile_budget, n_tiles),
+                "scatter_rows": srows, "scatter_cols": scols}
+
+    def init_params(seed=0, dtype=None, device=None):
+        gen, device = _generator(seed, device)
+        return internvl.init_params(gen, cfg, dtype or precision.param_dtype,
+                                    device)
+
+    return ModelBundle(
+        family="internvl", cfg=cfg, multimodal=True,
+        init_params=init_params,
+        convert_hf=lambda state, dtype=None, device=None: internvl.convert_hf(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
+        apply=apply,
+        logits_fn=lambda params, h: internvl.logits(params, cfg, h,
+                                                    precision),
+        vision_arrays=vision_arrays,
+        preprocess_image=preprocess_image,
+        template="intern_vl",
+        shared_pred_fn=_vlm_shared_pred(internvl, cfg, precision, attention,
+                                        INTERNVL_BATCH_KEYS),
         precision=precision,
     )
 
@@ -808,6 +1022,12 @@ FAMILY_BUILDERS = {
     "LlavaNextForConditionalGeneration": make_llava_bundle,
     "llava": make_llava_bundle,
     "llava_next": make_llava_bundle,
+    "LlavaNextVideoForConditionalGeneration": make_llava_bundle,
+    "VideoLlavaForConditionalGeneration": make_llava_bundle,
+    "llava_next_video": make_llava_bundle,
+    "video_llava": make_llava_bundle,
+    "InternVLForConditionalGeneration": make_internvl_bundle,
+    "internvl": make_internvl_bundle,
 }
 
 # ported families whose SC-GRPO path waits for a later slice (none now)
@@ -817,12 +1037,6 @@ GRPO_NOT_YET_PORTED: dict[str, str] = {}
 NOT_YET_PORTED = {
     "Qwen2MoeForCausalLM": "ROADMAP A.13",
     "qwen2_moe": "ROADMAP A.13",
-    "LlavaNextVideoForConditionalGeneration": "ROADMAP A.13",
-    "VideoLlavaForConditionalGeneration": "ROADMAP A.13",
-    "llava_next_video": "ROADMAP A.13",
-    "video_llava": "ROADMAP A.13",
-    "InternVLForConditionalGeneration": "ROADMAP A.13",
-    "internvl": "ROADMAP A.13",
     "PaliGemmaForConditionalGeneration": "ROADMAP A.13",
     "paligemma": "ROADMAP A.13",
     "pixtral": "ROADMAP A.13",
@@ -847,8 +1061,9 @@ def bundle_from_pretrained(path: str, **kw) -> ModelBundle:
     """Resolve a bundle from a local HF checkpoint directory.  The image
     statistics of its ``preprocessor_config.json`` (``image_mean``,
     ``image_std``), where it has them, go into the config the LLaVA
-    families' preprocessing reads (ROADMAP C.R11: the JAX package
-    normalises with OpenAI-CLIP's whatever the checkpoint says)."""
+    families' and InternVL's preprocessing reads (ROADMAP C.R11 and
+    C.R13: the JAX package normalises with OpenAI-CLIP's whatever the
+    checkpoint says; InternVL-2.5's is ImageNet's)."""
     with open(os.path.join(path, "config.json")) as f:
         hf_config = json.load(f)
     proc = os.path.join(path, "preprocessor_config.json")
@@ -861,9 +1076,10 @@ def bundle_from_pretrained(path: str, **kw) -> ModelBundle:
 
 
 def _image_stats(hf_config: dict):
-    """(mean, std) f32 [3] for the anyres and center-crop preprocessing:
-    the checkpoint's own where ``bundle_from_pretrained`` found them, else
-    OpenAI-CLIP's (HF's LLaVA processors' defaults)."""
+    """(mean, std) f32 [3] for the anyres, center-crop and InternVL tile
+    preprocessing: the checkpoint's own where ``bundle_from_pretrained``
+    found them, else OpenAI-CLIP's (HF's LLaVA processors' defaults, and
+    the JAX InternVL bundle's)."""
     from iadr1_tpu_torch.vision import anyres
 
     return (np.asarray(hf_config.get("image_mean", anyres.DEFAULT_MEAN),

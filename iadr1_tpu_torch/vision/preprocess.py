@@ -1,5 +1,5 @@
-"""Qwen2-VL image preprocessing as numpy functions (the port's own copy of
-iadr1_tpu/vision/preprocess.py, reduced to what the serving path needs).
+"""Qwen2-VL image and video preprocessing as numpy functions (the port's
+own copy of iadr1_tpu/vision/preprocess.py).
 
 ``PIL`` is imported only where an image is resized: ``patchify_image``
 takes an already-sized array, so a caller without ``PIL`` can feed the
@@ -147,10 +147,66 @@ def vision_rotary_tables(grid_thw, head_dim: int, merge_size: int = 2,
 
 
 def vision_segment_ids(grid_thw, pad_to: int | None = None) -> np.ndarray:
-    """1-based per-image segment ids over the concatenated patch stream."""
-    segs = [np.full(t * h * w, i + 1, np.int32)
-            for i, (t, h, w) in enumerate(grid_thw)]
+    """1-based segment ids over the concatenated patch stream, one per
+    temporal patch of each grid: an image (t = 1) is one segment, and each
+    of a video's t temporal patches attends only to itself, as HF's towers
+    cut ``cu_seqlens`` (the JAX package gives a whole video one segment:
+    ROADMAP C.R15)."""
+    segs, n = [], 0
+    for t, h, w in grid_thw:
+        t, hw = int(t), int(h) * int(w)
+        segs.append(np.repeat(np.arange(n + 1, n + t + 1, dtype=np.int32),
+                              hw))
+        n += t
     out = np.concatenate(segs) if segs else np.zeros(0, np.int32)
     if pad_to is not None and len(out) < pad_to:
         out = np.concatenate([out, np.zeros(pad_to - len(out), np.int32)])
     return out
+
+
+def sample_frame_indices(total_frames: int, duration_sec: float,
+                         video_fps: float = 2.0,
+                         video_maxlen: int = 64) -> np.ndarray:
+    """Frame indices for video sampling: floor(duration * fps) frames,
+    capped by the frame count and ``video_maxlen``, at least 2 and even
+    (the temporal patch pairs frames), spread evenly with linspace."""
+    n = min(total_frames, video_maxlen, duration_sec * video_fps)
+    n = max(2, math.floor(n))
+    n -= n % 2
+    return np.linspace(0, total_frames - 1, n).astype(np.int32)
+
+
+def qwen2vl_preprocess_video(frames, patch_size: int = 14,
+                             merge_size: int = 2,
+                             temporal_patch_size: int = 2,
+                             min_pixels: int = 56 * 56,
+                             max_pixels: int = 14 * 14 * 4 * 1280):
+    """Sampled PIL frames -> (flatten_patches, grid_thw) with grid_t =
+    n_frames / temporal_patch_size.  Every frame is resized to the first
+    frame's smart-resized size, so the temporal stack is rectangular; an
+    odd last frame is repeated (HF Qwen2VLImageProcessor's videos)."""
+    from PIL import Image
+
+    frames = list(frames)
+    if len(frames) % temporal_patch_size:
+        frames = frames + [frames[-1]]
+    first = _qwen_clamp_image(_area_cap_resize(frames[0], max_pixels))
+    h, w = smart_resize(first.height, first.width, patch_size * merge_size,
+                        min_pixels, max_pixels)
+    stack = np.stack([
+        ((np.asarray(f.resize((w, h), resample=Image.Resampling.BICUBIC)
+                     .convert("RGB"), np.float32) / 255.0
+          - OPENAI_CLIP_MEAN) / OPENAI_CLIP_STD).transpose(2, 0, 1)
+        for f in frames])                                 # [T, 3, h, w]
+    channel = stack.shape[1]
+    grid_t = stack.shape[0] // temporal_patch_size
+    grid_h, grid_w = h // patch_size, w // patch_size
+    patches = stack.reshape(
+        grid_t, temporal_patch_size, channel,
+        grid_h // merge_size, merge_size, patch_size,
+        grid_w // merge_size, merge_size, patch_size)
+    patches = patches.transpose(0, 3, 6, 4, 7, 2, 1, 5, 8)
+    flat = patches.reshape(
+        grid_t * grid_h * grid_w,
+        channel * temporal_patch_size * patch_size * patch_size)
+    return flat, (grid_t, grid_h, grid_w)

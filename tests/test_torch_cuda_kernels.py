@@ -815,3 +815,111 @@ def test_lora_dense_on_the_card(card, dora):
                      {k: v.to(card, torch.bfloat16) for k, v in ab.items()},
                      2.0)
     assert _rel(got, want) < 3e-2
+
+
+def test_flash_kernels_at_the_internvit_tower(card):
+    """K1-K3 at InternVL's InternViT tower: 24 tiles, each its own
+    sequence of 1025 tokens (1024 patches + CLS: sixteen 64-row blocks and
+    one row), 16 heads, D = 64, non-causal; the last tile pads the budget
+    at segment 0 (out 0, lse +inf, no gradient); the backward also takes
+    a non-zero lse cotangent."""
+    B, H, T, D = 24, 16, 1025, 64
+    gen = torch.Generator(device=card).manual_seed(1025)
+    q, k, v, do = (_rand(gen, (B, H, T, D), card) for _ in range(4))
+    seg = torch.ones((B, T), dtype=torch.int32, device=card)
+    seg[-1] = 0
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = k1.flash_attention(*leaves, segment_ids=seg, causal=False)
+    ref_out, ref_lse = k1.flash_attention_ref(q, k, v, seg, seg, causal=False,
+                                              scale=D ** -0.5)
+    torch.cuda.synchronize()
+    live = (seg != 0)[:, None, :].expand(B, H, T)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(out[live].float(), ref_out[live].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+    assert (out[~live] == 0).all()
+    dlse = torch.randn(lse.shape, generator=gen, device=card) * live
+    got = torch.autograd.grad(
+        (out.float() * do.float()).sum()
+        + torch.where(live, lse * dlse, 0.0).sum(), leaves)
+    want = k1.flash_attention_bwd_ref(q, k, v, seg, seg, out.detach(),
+                                      lse.detach(), do, dlse, causal=False,
+                                      scale=D ** -0.5)
+    torch.cuda.synchronize()
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), label
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=label)
+        assert (g[-1] == 0).all(), label
+
+
+def test_video_frame_rollout_tokens_equal_the_plain_path(card, monkeypatch):
+    """A LLaVA-NeXT-Video rollout on the card (a small config at the
+    kernels' head dims: tower D = 64, decoder D = 128), two video prompts
+    of 3 frames through the GRPO prompt collator, greedy: the tokens of
+    the kernel path (K1 over the frames and the prefill, K4 a decode step)
+    equal those of the plain versions on the same weights."""
+    import types
+
+    from iadr1_tpu_torch.cli.train_grpo import (
+        GRPODataSection,
+        make_vlm_prompt_collator,
+    )
+    from iadr1_tpu_torch.models import attention
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
+    from iadr1_tpu_torch.train.sft import batch_to_device
+
+    hf = dict(architectures=["LlavaNextVideoForConditionalGeneration"],
+              text_config=dict(model_type="llama", vocab_size=64,
+                               hidden_size=256, intermediate_size=512,
+                               num_hidden_layers=2, num_attention_heads=2,
+                               num_key_value_heads=2),
+              vision_config=dict(hidden_size=128, intermediate_size=256,
+                                 num_hidden_layers=3, num_attention_heads=2,
+                                 image_size=56, patch_size=14),
+              image_token_index=5, video_token_index=6,
+              spatial_pool_stride=2)
+    bundle = bundle_from_hf_config(hf)
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    for leaf in (params["text"]["embed"]["weight"],
+                 params["text"]["lm_head"]["kernel"]):
+        leaf.add_(torch.randn(leaf.shape, generator=gen, device=card,
+                              dtype=leaf.dtype))
+    g = torch.Generator().manual_seed(1)
+    examples = []
+    for i in range(2):
+        frames = torch.rand((3, 16, 588), generator=g).numpy()
+        ids = ([1] + torch.randint(7, 64, (3 + i,), generator=g).tolist()
+               + [6] * 12 + torch.randint(7, 64, (4,), generator=g).tolist())
+        examples.append({"prompt_ids": ids, "video_patches": [frames]})
+    tok = types.SimpleNamespace(eos_token_id=2, pad_token_id=0)
+    batch = batch_to_device(make_vlm_prompt_collator(
+        bundle, tok, None, GRPODataSection(patch_budget=6 * 16), 32, 1)(
+            examples, 1), card)
+    engine = RolloutEngine(bundle, SamplingConfig(
+        max_new_tokens=6, temperature=0.0, eos_token_id=-1, pad_token_id=0),
+        max_len=38, device=card)
+    launches = k1.KERNEL.launches
+    got = engine.generate(params, batch)["completion_ids"]
+    assert k1.KERNEL.launches > launches
+
+    def plain_flash(q, k, v, *, segment_ids=None, kv_segment_ids=None,
+                    causal=True, scale=None):
+        segs = k1._default_segments(q, k, segment_ids, kv_segment_ids)
+        return k1.flash_attention_ref(q, k, v, *segs, causal=causal,
+                                      scale=q.shape[-1] ** -0.5)
+
+    def plain_decode(q, k, v, seg, length):
+        return k4.decode_attention_ref(q, k, v, seg, length,
+                                       scale=q.shape[-1] ** -0.5)
+
+    monkeypatch.setattr(attention, "flash_attention", plain_flash)
+    monkeypatch.setattr(attention, "decode_attention", plain_decode)
+    launches = (k1.KERNEL.launches, k4.KERNEL.launches)
+    want = engine.generate(params, batch)["completion_ids"]
+    assert (k1.KERNEL.launches, k4.KERNEL.launches) == launches
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -348,8 +348,9 @@ def test_trainer_step_matches_jax_on_a_recorded_rollout(family, shared):
 def test_vlm_collator_matches_jax_and_scales_the_patch_budget():
     """Both collations (G = 1 for the rollout, G for the dense update)
     equal the JAX collator's arrays; the G = 1 patch stream is
-    patch_budget // num_generations long; video prompts and prompts that
-    would be cut through their image tokens are refused."""
+    patch_budget // num_generations long; video frame stacks (which
+    Qwen2-VL takes through its patch stream) and prompts that would be cut
+    through their image tokens are refused."""
     G, P = 2, 24
     jb = jax_bundle(VLM, attention="xla", precision=JAX_FULL)
     tb = bundle_from_hf_config(VLM, precision=FULL_PRECISION)
@@ -366,7 +367,7 @@ def test_vlm_collator_matches_jax_and_scales_the_patch_budget():
                                           err_msg=key)
         assert got["patches"].shape[0] == n_patches
         assert got["input_ids"].shape == (2 * g, P)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="grid_thw"):
         tcollate([dict(examples[0], video_patches=[np.zeros((4, 4))])], 1)
     long = dict(examples[0], prompt_ids=examples[0]["prompt_ids"] + [9] * P)
     with pytest.raises(ValueError, match="max_prompt_length"):

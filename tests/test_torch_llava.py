@@ -71,7 +71,7 @@ from iadr1_tpu_torch.data.mm import expand_image_tokens
 from iadr1_tpu_torch.data.packing import pack_examples
 from iadr1_tpu_torch.data.template import get_template
 from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
-from iadr1_tpu_torch.models import clip_vit, llava
+from iadr1_tpu_torch.models import clip_vit
 from iadr1_tpu_torch.models.attention import default_attention
 from iadr1_tpu_torch.models.params_io import (
     load_safetensors_path,
@@ -219,13 +219,24 @@ def test_registry_resolves_the_family(tiny, key):
     "LlavaNextVideoForConditionalGeneration",
     "VideoLlavaForConditionalGeneration", "pixtral"])
 def test_video_and_pixtral_families_name_their_item(next_tiny, arch):
+    """Pixtral still names its ROADMAP item; the video families are ported
+    (tests/test_torch_video.py) and build with their family and
+    template."""
     hf = dict(next_tiny["hf"], architectures=[arch],
               model_type=arch if arch != "pixtral" else "llava")
     if arch == "pixtral":
         hf["architectures"] = ["LlavaForConditionalGeneration"]
         hf["vision_config"] = dict(hf["vision_config"], model_type="pixtral")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        bundle_from_hf_config(hf)
+        with pytest.raises(NotImplementedError, match="A.13"):
+            bundle_from_hf_config(hf)
+        return
+    family = {"LlavaNextVideoForConditionalGeneration": "llava_next_video",
+              "VideoLlavaForConditionalGeneration": "video_llava"}[arch]
+    bundle = bundle_from_hf_config(dict(hf, video_token_index=8))
+    assert bundle.family == bundle.template == family
+    assert bundle.preprocess_video is not None
+    assert bundle.cfg.separate_video_tower == (family == "video_llava")
+    assert arch not in NOT_YET_PORTED
 
 
 def test_llama_text_config_takes_llama_defaults():
@@ -304,16 +315,18 @@ def test_export_is_refused_as_in_jax(tiny):
 
 
 def test_video_inputs_name_their_item(next_tiny):
-    tb, tp = next_tiny["tb"], next_tiny["tparams"]
+    """LLaVA-NeXT (an image family) refuses video frames, in the collator
+    and in its vision arrays; the video families take them
+    (tests/test_torch_video.py)."""
+    tb = next_tiny["tb"]
     ids = np.zeros((1, 4), np.int64)
     row = {"input_ids": ids[0], "labels": ids[0], "segment_ids": ids[0],
            "position_ids": ids[0],
-           "extras": [{"videos": [np.zeros((1, 16, 588))]}]}
-    with pytest.raises(NotImplementedError, match="A.13"):
+           "extras": [{"video_patches": [np.zeros((1, 16, 588))]}]}
+    with pytest.raises(ValueError, match="video frame stacks"):
         VLMBatchBuilder(tb, patch_budget=64)([row])
-    with pytest.raises(NotImplementedError, match="A.13"):
-        llava.compute_embeds(tp, tb.cfg, torch.as_tensor(ids),
-                             video_tiles=torch.zeros((1, 16, 588)))
+    with pytest.raises(ValueError, match="takes no videos"):
+        tb.vision_arrays(ids, [], [], 64, videos=[np.zeros((1, 16, 588))])
 
 
 # ---------------------------------------------------------------------------

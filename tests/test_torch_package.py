@@ -63,6 +63,10 @@ FAMILY_MODULES = ["vision.anyres", "models.siglip", "models.llava_onevision",
 # adapters and quantization
 ADAPTER_MODULES = ["models.quant", "train.adapters", "models.params_io",
                    "models.qwen2", "train.optimizers", "train.rollout"]
+# InternVL and the video inputs
+INTERNVL_VIDEO_MODULES = ["models.internvl", "models.registry", "data.mm",
+                          "data.collator", "vision.preprocess",
+                          "vision.mrope", "models.qwen2_vl"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -73,7 +77,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     names = proc.stdout.split()
     assert len(names) >= 40                        # every module was reached
     missing = [m for m in (GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
-                           + FAMILY_MODULES + ADAPTER_MODULES)
+                           + FAMILY_MODULES + ADAPTER_MODULES
+                           + INTERNVL_VIDEO_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 

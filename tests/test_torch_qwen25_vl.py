@@ -387,11 +387,14 @@ def test_scatter_indices_equal_jax():
 
 
 def test_a_video_prompt_names_its_roadmap_item(tiny):
+    """A video's frame stack is refused with the way in: Qwen2.5-VL takes
+    a video's patches and (t, h, w) grid through its patch stream
+    (tests/test_torch_video.py)."""
     builder = VLMBatchBuilder(tiny["tb"], patch_budget=64)
     row = {"input_ids": np.ones(8, np.int64), "labels": np.ones(8, np.int64),
            "segment_ids": np.ones(8, np.int64),
            "extras": [{"video_patches": [np.zeros((4, 4))]}]}
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="grid_thw"):
         builder([row])
 
 
