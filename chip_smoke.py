@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (iadr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--max-new-tokens N] [--train-steps N]
-                          [--grpo-steps N] [--phases 23,24,25,26]
+                          [--grpo-steps N] [--phases 3,27,28]
 
 Phases, a line each at least, then the kernel JSON line, the card line and the
 result line:
@@ -187,8 +187,10 @@ result line:
    decoder layer (the frozen tower takes no gradient), step 1's loss and
    adapter gradients against the plain versions and a dq-zeroed control,
    a falling loss and a base unchanged bit for bit;
-21. LoRA SC-GRPO with reference elision (after 20): the same model
-   through cli/train_grpo.py's main (a seeded bf16 base written with a
+21. LoRA SC-GRPO with reference elision (after 20): the same model, its
+   decoder cut to 8 of 28 layers for the smoke's time (phase 20 runs it at
+   full depth), through cli/train_grpo.py's main (a seeded bf16 base
+   written with a
    WordLevel tokenizer, the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
    and the finetuning section of configs/grpo_llava_next_34b.yaml: rank
    16, alpha 32), 2 steps of 128 completion tokens (the recipe's 512 cut
@@ -201,7 +203,8 @@ result line:
    by layer, on phase 19's rows and settings, checked as phase 20; (b)
    Qwen2.5-VL-7B serving phase 13's requests over int8 weights (the infer
    CLI's --quant int8), checked as phase 13, with its quantized_bytes
-   ratio; (c) one nf4 generate of the same model.
+   ratio; (c) one nf4 generate of the same model, its decoder cut to 8
+   of 28 layers for the smoke's time.
 23. InternVL serving (after 22): InternVL-2.5-4B at full width and depth
    (OpenGVLab/InternVL2_5-4B's config: the InternViT-300M tower, 24
    layers, D = 64, 1025 tokens a tile; pixel shuffle; the Qwen2.5-3B
@@ -217,7 +220,8 @@ result line:
    and its patch budget grown to 16 tiles (one 336x560 image of 7 tiles a
    row), as phase 12 checks its steps (K1, K2 and K3 24 + 36 times each a
    step);
-25. InternVL SC-GRPO (after 24): the same model takes 2 steps of
+25. InternVL SC-GRPO (after 24): the same model, its decoder cut to 12
+   of 36 layers for the smoke's time, takes 2 steps of
    GRPOTrainer.step on the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
    (G=4, P=4096, N=512, a bf16 reference) on a 448x448 and a 336x560
    prompt, as phase 15 checks its steps (the per-call lse-cotangent probe
@@ -235,6 +239,35 @@ result line:
    cli/train_grpo.py's prompt collator and run by RolloutEngine: K1 once
    per layer of the image tower, the video tower and the decoder, K4 once
    per decoder layer a step, the prefill logits against the twin path's.
+27. PaliGemma-3B (after 26; google/paligemma-3b-pt-448's config: the
+   Gemma-2B decoder, 18 layers of 8 heads over 1, D = 256, a prefix LM;
+   SigLIP-So400m at 448 px, 27 layers, 1024 patches; 2.92 B parameters,
+   seeded): (a) serves 4 paligemma requests (each image's 1024 tokens
+   ahead of BOS; P=2048, 4 tiles in a budget of 6) as phase 11 checks its
+   generate, K1 27 times a generate (the tower), the decoder's prefill 18
+   dense prefix-LM calls and no K1, K4 18 times a decode step at D = 256;
+   (b) takes 3 PA-SFT steps on configs/sft_qwen2_5_vl_7b.yaml with the
+   paligemma template (f32 parameters, rows cut from 8 to 2 of 4096) as
+   phase 12 checks its steps, K1-K3 27 times each a step and 18 dense
+   calls; (c) takes 2 SC-GRPO steps on the grpo section of
+   configs/grpo_qwen2_5_vl_7b.yaml (G=4, P=4096, N=512, f32 policy, bf16
+   reference): the dense update over the G-repeated batch (no shared path
+   in either package), which must carry the tiles (C.R9), step 1 held to
+   the plain path on the recorded rollout with a dq-zeroed control, K1 81
+   and K2/K3 27 a step, 54 dense calls;
+28. Pixtral-12B (after 27; mistral-community/pixtral-12b's config: the
+   Mistral-NeMo decoder, 40 layers of 32 heads over 8, D = 128;
+   Pixtral-ViT, 24 layers of 16 heads, D = 64; 12.68 B parameters, bf16,
+   seeded): (a) serves 4 pixtral requests (512x512, 336x560 twice,
+   1024x768: 5566 patches in one stream of 6144, P=4096) as phase 11
+   checks its generate, K1 24 + 40 times a generate, K4 40 times a step;
+   (b) LoRA PA-SFT over the bf16 base as phase 20 (rows cut from 8 to 4
+   of 4096, the pixtral template); (c) LoRA SC-GRPO with reference
+   elision (configs/grpo_llava_next_34b.yaml's finetuning over the grpo
+   section of configs/grpo_qwen2_5_vl_7b.yaml, N cut to 128 and P to
+   2048): the dense update, one base copy, K1 192 and K2/K3 40 a step
+   (the frozen tower takes no gradient), step 1 against the plain path
+   with a dq-zeroed control.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -246,15 +279,24 @@ budget's 16, both with padding tiles at segment 0; K1 at the InternVL
 prefill, K1-K3 at its SFT decoder and its SC-GRPO update (cross, self and
 prompt calls, GQA 8, D = 128), K4 over its serving cache; K1 over the
 video frames of CLIP-L/336 (T = 577) and LanguageBind (T = 257), and K1-K3
-over Qwen2-VL's video stream (one segment a temporal patch, D = 80).
+over Qwen2-VL's video stream (one segment a temporal patch, D = 80); and
+at phases 27-28's: K4 at head dim 256, group 8, over PaliGemma's serving
+cache and its SC-GRPO fan-out; K1 over the SigLIP-448 tower's serving
+budget and K1-K3 over its SFT budget (tiles of 1024, D = 72, padding
+tiles at segment 0); K1-K3 over Pixtral's packed patch stream (one row of
+6144, D = 64, one segment an image); K1 at the Mistral-NeMo prefill,
+K1-K3 at its LoRA SFT rows and its dense SC-GRPO update rows, K4 over its
+serving cache.
 
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
 q25_sft, q25_grpo, llava_grpo, llava16_serve, llava15_serve,
 llava16_sft, q25_lora_sft, q25_lora_grpo, llava16_qlora_sft,
 q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
-internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout).
-``--phases 23,24,25,26`` runs a subset and prints no kernel line.
+internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
+paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
+pixtral_lora_sft, pixtral_lora_grpo).  ``--phases 3,27,28`` runs a subset
+and prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -562,8 +604,9 @@ LORA_EXPORT_DELTA_LIMIT = 2 ** -7
 # on phase 19's rows and settings
 QLORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "chip_smoke_qlora_sft")
-# the nf4 generate of phase 22c: new tokens
-NF4_NEW_TOKENS = 16
+# the nf4 generate of phase 22c: new tokens, and its decoder cut to 8 of
+# 28 layers for the smoke's time (22b serves the int8 7B whole)
+NF4_NEW_TOKENS, NF4_LAYERS = 16, 8
 # InternVL-2.5-4B (phases 23-25): InternVL's <img> and </img> around each
 # image's run of <IMG_CONTEXT> tokens.  Serving (phase 23): two 448 x 448
 # images (1 tile, 256 features each), a 336 x 560 one (a (3, 2) grid and
@@ -591,8 +634,14 @@ INTERNVL_GRPO_STEPS = 2
 # phase 15 runs Qwen2.5-VL-3B's decoder cut to 8 of its 36 layers: phase 25
 # runs the same Qwen2.5-3B decoder at full depth
 Q25_GRPO_LAYERS = 8
-# phase 21's completions (the recipe's 512), cut for the smoke's time
-LORA_GRPO_COMPLETION_LEN = 128
+# phase 21's completions (the recipe's 512) and its decoder (8 of 28
+# layers; phase 20 runs the 7B at full depth), cut for the smoke's time
+LORA_GRPO_COMPLETION_LEN, LORA_GRPO_LAYERS = 128, 8
+# phase 25's decoder (12 of 36 layers; phase 24 trains the 4B at full
+# depth), cut for the smoke's time.  Its completions stay the recipe's 512:
+# cut to 128 at full depth, the dlse-dropped control fails its limits by
+# 12% only (q/k vectors 1.117 of the limit), against 145% at 512
+INTERNVL_GRPO_LAYERS = 12
 # videos (phase 26).  (a) Qwen2-VL-2B PA-SFT on
 # configs/sft_qwen2_5_vl_7b.yaml's settings (qwen2_vl template, the tower's
 # remat save_acts), 2 rows of 4096 with one video of 8 frames of 336 x 448
@@ -608,6 +657,89 @@ VIDEO_PAD = 151656
 # prompt collator and RolloutEngine; the frame budget holds the 16 frames
 VIDEO_ROLLOUT_TOKENS, VLLAVA_LAYERS = 32, 4
 LNV_PROMPT_LEN, VLLAVA_PROMPT_LEN = 2048, 3072
+
+# google/paligemma-3b-pt-448's published config (2.92 B parameters): the
+# Gemma-2B decoder (a sparse gemma text config: 18 layers, 8 heads over 1,
+# D = 2048 / 8 = 256, rope_theta 1e4, tied head over 257216 ids) and the
+# SigLIP-So400m tower at 448 px (27 layers, 16 heads of 72, 32 x 32 = 1024
+# patches of 14)
+PALIGEMMA_3B_448 = dict(
+    architectures=["PaliGemmaForConditionalGeneration"],
+    model_type="paligemma", bos_token_id=2, eos_token_id=1, pad_token_id=0,
+    hidden_size=2048, image_token_index=257152, projection_dim=2048,
+    text_config=dict(
+        model_type="gemma", hidden_size=2048, intermediate_size=16384,
+        num_attention_heads=8, num_hidden_layers=18, num_key_value_heads=1,
+        num_image_tokens=1024, vocab_size=257216),
+    vision_config=dict(
+        model_type="siglip_vision_model", hidden_size=1152, image_size=448,
+        intermediate_size=4304, num_attention_heads=16, num_hidden_layers=27,
+        num_image_tokens=1024, patch_size=14, projection_dim=2048,
+        projector_hidden_act="gelu_fast", vision_use_head=False),
+)
+# mistral-community/pixtral-12b's published config (12.68 B parameters):
+# the Mistral-NeMo decoder (its sparse mistral text config leaves out the
+# 32 heads, MistralConfig's default: 40 layers, 32 heads over 8, head_dim
+# 128, rope_theta 1e9, untied head over 131072 ids) and Pixtral-ViT (its
+# sparse vision config: 24 layers, 1024 wide, 16 heads of 64, patches of
+# 16, images up to 1024 px)
+PIXTRAL_12B = dict(
+    architectures=["LlavaForConditionalGeneration"], model_type="llava",
+    image_token_index=10, projector_hidden_act="gelu",
+    vision_feature_layer=-1, vision_feature_select_strategy="full",
+    text_config=dict(
+        model_type="mistral", hidden_size=5120, head_dim=128,
+        intermediate_size=14336, max_position_embeddings=1024000,
+        num_hidden_layers=40, num_key_value_heads=8, rms_norm_eps=1e-5,
+        rope_theta=1000000000.0, sliding_window=None, vocab_size=131072),
+    vision_config=dict(
+        model_type="pixtral", head_dim=64, hidden_act="silu",
+        image_size=1024, patch_size=16, rope_theta=10000.0,
+        tie_word_embeddings=False),
+)
+# PaliGemma's token ids (Gemma's tokenizer): BOS, EOS, padding, the image
+# token, <start_of_turn> and <end_of_turn>
+PG_BOS, PG_EOS, PG_PAD, PG_IMAGE = 2, 1, 0, 257152
+PG_TURN, PG_TURN_END = 106, 107
+# phase 27: PaliGemma-3B at full depth.  (a) serving: 4 paligemma-form
+# requests (each 1024 image tokens ahead of BOS and a Gemma user turn),
+# P=2048, a budget of 6 tiles (2 at segment 0); (b) PA-SFT on
+# configs/sft_qwen2_5_vl_7b.yaml with the paligemma template, f32
+# parameters (47 GB of state), the batch cut from 8 rows to 2 of 4096, one
+# image an example; (c) SC-GRPO on the grpo section of
+# configs/grpo_qwen2_5_vl_7b.yaml (G=4, P=4096, N=512; its patch budget of
+# 8192 holds the dense update's 2 x 4 tiles), two one-image prompts
+PG_IMAGE_HW = [(448, 448), (336, 560), (448, 448), (600, 800)]
+PG_PROMPT_LEN, PG_PATCH_BUDGET = 2048, 6 * 1024
+PG_SFT_ROWS, PG_SFT_STEPS, PG_SFT_ANSWER_LEN = 2, 3, (2800, 2950)
+PG_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_paligemma_sft")
+PG_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
+PG_GRPO_STEPS = 2
+# Pixtral's token ids (its Tekken tokenizer): BOS, EOS, <pad>, [INST],
+# [/INST], [IMG], [IMG_BREAK], [IMG_END]
+PX_BOS, PX_EOS, PX_PAD, PX_INST, PX_INST_END = 1, 2, 11, 3, 4
+PX_IMAGE, PX_BREAK, PX_END = 10, 12, 13
+# phase 28: Pixtral-12B at full depth.  (a) serving: 4 pixtral-form
+# requests of 512x512 (32 x 32 patches), 336x560 (21 x 35) twice and
+# 1024x768 (64 x 48): 5566 patches in one stream of 6144, P=4096; (b)
+# LoRA PA-SFT over a bf16 base on configs/sft_qwen2_5_vl_7b.yaml with the
+# pixtral template, TuningConfig's defaults, the batch cut from 8 rows to
+# 4 of 4096 (the 25.4 GB base and 8 rows' saved activations would pass
+# the card's 80 GB), one 336x560 image an example; (c) LoRA SC-GRPO with
+# reference elision: configs/grpo_llava_next_34b.yaml's finetuning (rank
+# 16, alpha 32) over the grpo section of configs/grpo_qwen2_5_vl_7b.yaml,
+# N cut from 512 to 128 for the smoke's time and P from 4096 to 2048 (8
+# rows of P + N and the base: the policy's saved activations at 4224
+# would leave under 10 GB of the card), a 512x512 and a 336x560 prompt
+PX_IMAGE_HW = [(512, 512), (336, 560), (336, 560), (1024, 768)]
+PX_PROMPT_LEN, PX_PATCH_BUDGET = 4096, 6144
+PX_SFT_ROWS, PX_SFT_STEPS, PX_SFT_ANSWER_LEN = 4, 2, (3000, 3200)
+PX_SFT_IMAGE_HW = (336, 560)
+PX_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_pixtral_lora_sft")
+PX_GRPO_IMAGE_HW = [(512, 512), (336, 560)]
+PX_GRPO_STEPS, PX_GRPO_PROMPT_LEN, PX_GRPO_COMPLETION_LEN = 2, 2048, 128
 
 # the plain versions run one batch row, and within a row one slice of KV
 # heads (with their query heads), at a time where the [B, H, T, S] f32
@@ -912,7 +1044,8 @@ class CannedTokenizer:
     (sum of the call's ids + i) mod 8, so the rows of a group read four
     consecutive entries and never score alike."""
 
-    eos_token_id, pad_token_id = IM_END, ENDOFTEXT
+    def __init__(self, eos_token_id=IM_END, pad_token_id=ENDOFTEXT):
+        self.eos_token_id, self.pad_token_id = eos_token_id, pad_token_id
 
     def batch_decode(self, seqs, skip_special_tokens=True):
         base = sum(int(np.sum(s)) for s in seqs)
@@ -1379,6 +1512,140 @@ def make_video_examples(bundle, seed: int):
         ids = ([VICUNA_BOS] + rng.integers(3, 32000, 40).tolist()
                + [vid] * n_vid + rng.integers(3, 32000, 20 + 7 * i).tolist())
         examples.append({"prompt_ids": ids, "video_patches": [patches],
+                         "solution": GRPO_SOLUTIONS[i]})
+    return examples
+
+
+def _paligemma_prompt(rng, n_img, extra):
+    """A paligemma prompt as token ids: the image run ahead of BOS, then a
+    Gemma user turn of seeded text and the model turn's opening."""
+    def text(n):
+        return rng.integers(1000, 256000, n).tolist()
+
+    return ([PG_IMAGE] * n_img + [PG_BOS, PG_TURN] + text(2) + text(extra)
+            + [PG_TURN_END] + text(1) + [PG_TURN] + text(2))
+
+
+def make_paligemma_requests(bundle, seed: int = 25):
+    """Four paligemma requests for PaliGemma-3B as token ids, a seeded
+    image of PG_IMAGE_HW each, resized to one 448 x 448 tile."""
+    rng = np.random.default_rng(seed)
+    encoded = []
+    for i, (h, w) in enumerate(PG_IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        encoded.append((_paligemma_prompt(rng, n_img, 20 + 9 * i), [patches],
+                        [grid]))
+    if any(p[0].shape != (1, 1024, 588) for _, p, _ in encoded):
+        raise AssertionError("a request's image is not one tile of 1024")
+    return encoded
+
+
+def make_paligemma_sft_rows(bundle, cutoff: int, seed: int = 26):
+    """PG_SFT_ROWS synthetic IAD SFT examples in the paligemma form, a
+    seeded 336 x 560 image each (its 1024 tokens prepended), the prompt
+    masked and a labeled answer of PG_SFT_ANSWER_LEN seeded tokens ending
+    in <end_of_turn>, packed into rows of ``cutoff``: one example a row."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i in range(PG_SFT_ROWS):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, 336, 560))
+        prompt = _paligemma_prompt(rng, n_img, 8 + 4 * i)
+        answer = rng.integers(1000, 256000, int(rng.integers(
+            PG_SFT_ANSWER_LEN[0], PG_SFT_ANSWER_LEN[1] + 1))).tolist()
+        answer += [PG_TURN_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [patches],
+                                    "grid_thw": [grid]}})
+    rows = pack_examples(examples, cutoff, PG_PAD)
+    if len(rows) != PG_SFT_ROWS or any(len(r["extras"]) != 1 for r in rows):
+        raise AssertionError("the examples did not pack one to a row")
+    return rows
+
+
+def make_paligemma_grpo_examples(bundle, seed: int = 27):
+    """Two paligemma prompts (one tile each) with a ``solution`` in the
+    reward grammar: one normal, one anomalous."""
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i, (h, w) in enumerate(PG_GRPO_IMAGE_HW):
+        patches, grid, n_img = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        examples.append({"prompt_ids": _paligemma_prompt(rng, n_img,
+                                                         40 + 25 * i),
+                         "patches": [patches], "grid_thw": [grid],
+                         "solution": GRPO_SOLUTIONS[i]})
+    return examples
+
+
+def _pixtral_prompt(rng, grid, extra):
+    """A pixtral prompt as token ids: BOS, [INST], seeded text, the image
+    as rows of [IMG] each ending [IMG_BREAK] (the last [IMG_END]), seeded
+    text, [/INST]."""
+    def text(n):
+        return rng.integers(1000, 131072, n).tolist()
+
+    rows, cols = grid
+    run = ([PX_IMAGE] * cols + [PX_BREAK]) * rows
+    run[-1] = PX_END
+    return [PX_BOS, PX_INST] + text(6) + run + text(extra) + [PX_INST_END]
+
+
+def make_pixtral_requests(bundle, seed: int = 28):
+    """Four pixtral requests for Pixtral-12B as token ids, a seeded image
+    of PX_IMAGE_HW each (1024, 735, 735 and 3072 patches)."""
+    rng = np.random.default_rng(seed)
+    encoded = []
+    for i, (h, w) in enumerate(PX_IMAGE_HW):
+        patches, grid, seqlen = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        encoded.append((_pixtral_prompt(rng, seqlen, 20 + 9 * i), [patches],
+                        [grid]))
+    n = [p[0].shape[0] for _, p, _ in encoded]
+    if n != [1024, 735, 735, 3072]:
+        raise AssertionError(f"the requests' images are {n} patches")
+    return encoded
+
+
+def make_pixtral_sft_rows(bundle, cutoff: int, seed: int = 29):
+    """PX_SFT_ROWS synthetic IAD SFT examples in the pixtral form, a seeded
+    336 x 560 image each (735 patches, 756 tokens with the breaks), the
+    prompt masked and a labeled answer ending in EOS, one example a row."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i in range(PX_SFT_ROWS):
+        patches, grid, seqlen = bundle.preprocess_image(
+            _seeded_image(rng, *PX_SFT_IMAGE_HW))
+        prompt = _pixtral_prompt(rng, seqlen, 8 + 4 * i)
+        answer = rng.integers(1000, 131072, int(rng.integers(
+            PX_SFT_ANSWER_LEN[0], PX_SFT_ANSWER_LEN[1] + 1))).tolist()
+        answer += [PX_EOS]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer,
+                         "extras": {"patches": [patches],
+                                    "grid_thw": [grid]}})
+    rows = pack_examples(examples, cutoff, PX_PAD)
+    if len(rows) != PX_SFT_ROWS or any(len(r["extras"]) != 1 for r in rows):
+        raise AssertionError("the examples did not pack one to a row")
+    return rows
+
+
+def make_pixtral_grpo_examples(bundle, seed: int = 30):
+    """Two pixtral prompts (1024 and 735 patches) with a ``solution``."""
+    rng = np.random.default_rng(seed)
+    examples = []
+    for i, (h, w) in enumerate(PX_GRPO_IMAGE_HW):
+        patches, grid, seqlen = bundle.preprocess_image(
+            _seeded_image(rng, h, w))
+        examples.append({"prompt_ids": _pixtral_prompt(rng, seqlen,
+                                                       40 + 25 * i),
+                         "patches": [patches], "grid_thw": [grid],
                          "solution": GRPO_SOLUTIONS[i]})
     return examples
 
@@ -2267,6 +2534,116 @@ def phase_kernels_internvl_video(intern_encoded, intern_rows, intern_grpo,
                         "qwen2-vl video tower")
     bwd.append(results[:3])
     fwd.append(results[3])
+    fwd += [f for _, _, f in bwd]
+    log_kernel_results(fwd, dec, bwd)
+    return {"flash_fwd": fwd,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
+            "decode_attention": dec}
+
+
+def phase_kernels_paligemma_pixtral(pg_encoded, pg_grpo, px_encoded,
+                                    px_rows, px_grpo, max_new_tokens):
+    """Phase 3 at the shapes of phases 27-28: K4 at head dim 256, group 8
+    (8 heads over 1) over PaliGemma-3B's serving cache and its SC-GRPO
+    fan-out; K1-K3 at the SigLIP-448 tower (16 heads, D = 72, each tile
+    its own 1024 tokens) over the SFT batch's budget of 8 tiles (2 of
+    them images') and K1 over serving's 6 (4 images'); K1-K3 over
+    Pixtral's packed patch stream (one row of 6144, D = 64, one segment an
+    image, the tail at 0); K1 at the Mistral-NeMo prefill (P = 4096, 32
+    heads over 8, D = 128), K1-K3 at its LoRA SFT rows (4 of 4096) and at
+    the dense SC-GRPO update's rows (8 of P + N = 2176, causal, left
+    padding and completions that end early); K4 over Pixtral's serving
+    cache.  PaliGemma's decoder takes no K1-K3: its prefill, training and
+    scoring attention is prefix-LM, dense.  Returns the results by
+    kernel."""
+    cuda = dict(device="cuda", dtype=torch.int32)
+    fwd, bwd, dec = [], [], []
+    # PaliGemma: K4 at D = 256 over the serving cache and the fan-out
+    pre = _left_segments(pg_encoded, PG_PROMPT_LEN)
+    S = PG_PROMPT_LEN + max_new_tokens
+    cache_seg = torch.ones((BATCH, S), **cuda)
+    cache_seg[:, :PG_PROMPT_LEN] = pre
+    dec.append(decode_case(BATCH, 8, 1, S, 256, S, cache_seg, 141,
+                           timed=True))
+    dec[-1]["shape"] = f"paligemma decode: {dec[-1]['shape']}"
+    G, P, N = 4, 4096, 512
+    n = len(pg_grpo)
+    p_seg = torch.zeros((n, P), **cuda)
+    for b, ex in enumerate(pg_grpo):
+        p_seg[b, P - len(ex["prompt_ids"]):] = 1
+    fan = torch.cat([p_seg.repeat_interleave(G, dim=0),
+                     torch.ones((n * G, N), **cuda)], dim=1)
+    dec.append(decode_case(n * G, 8, 1, P + N, 256, P + N, fan, 142,
+                           timed=True))
+    dec[-1]["shape"] = f"paligemma grpo fan-out: {dec[-1]['shape']}"
+    # the SigLIP-448 tower: serving's 6 tiles (4 live), SFT's 8 (2 live)
+    for i, (label, budget, live, train) in enumerate((
+            ("siglip-448 serve", PG_PATCH_BUDGET // 1024, len(pg_encoded),
+             False),
+            ("siglip-448 sft", 8192 // 1024, PG_SFT_ROWS, True))):
+        seg = torch.zeros((budget, 1024), **cuda)
+        seg[:live] = 1
+        shape = (budget, 16, 16, 1024, 1024, 72, False, seg, seg)
+        if train:
+            results = _labelled((*bwd_case(*shape, 143, timed=True),
+                                 flash_case(*shape, 144, timed=True)), label)
+            bwd.append(results[:3])
+            fwd.append(results[3])
+        else:
+            fwd.append(_labelled([flash_case(*shape, 145, timed=True)],
+                                 label)[0])
+    # Pixtral's tower: the serving batch's packed stream
+    seg = torch.zeros((1, PX_PATCH_BUDGET), **cuda)
+    off = 0
+    for i, (_, patches, _) in enumerate(px_encoded):
+        m = patches[0].shape[0]
+        seg[0, off:off + m] = i + 1
+        off += m
+    shape = (1, 16, 16, PX_PATCH_BUDGET, PX_PATCH_BUDGET, 64, False, seg,
+             seg)
+    results = _labelled((*bwd_case(*shape, 146, timed=True),
+                         flash_case(*shape, 147, timed=True)),
+                        "pixtral patch stream")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    # Mistral-NeMo: the prefill, the LoRA SFT rows, the dense update rows
+    pre = _left_segments(px_encoded, PX_PROMPT_LEN)
+    fwd.append(_labelled([flash_case(
+        BATCH, 32, 8, PX_PROMPT_LEN, PX_PROMPT_LEN, 128, True, pre, pre, 148,
+        timed=True)], "pixtral prefill")[0])
+    train_seg = torch.as_tensor(
+        np.stack([r["segment_ids"] for r in px_rows]), **cuda)
+    T = train_seg.shape[1]
+    shape = (train_seg.shape[0], 32, 8, T, T, 128, True, train_seg,
+             train_seg)
+    results = _labelled((*bwd_case(*shape, 149, timed=True),
+                         flash_case(*shape, 150, timed=True)),
+                        "pixtral sft decoder")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    P, N = PX_GRPO_PROMPT_LEN, PX_GRPO_COMPLETION_LEN
+    n = len(px_grpo)
+    p_seg = torch.zeros((n, P), **cuda)
+    for b, ex in enumerate(px_grpo):
+        p_seg[b, P - len(ex["prompt_ids"]):] = 1
+    g = torch.Generator().manual_seed(151)
+    stops = torch.randint(2, N, (n * G,), generator=g)
+    stops[0], stops[1] = N, 1
+    c_seg = (torch.arange(N)[None, :] < stops[:, None]).to(**cuda)
+    full = torch.cat([p_seg.repeat_interleave(G, dim=0), c_seg], dim=1)
+    shape = (n * G, 32, 8, P + N, P + N, 128, True, full, full)
+    results = _labelled((*bwd_case(*shape, 152, timed=True),
+                         flash_case(*shape, 153, timed=True)),
+                        "pixtral dense grpo update")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    S = PX_PROMPT_LEN + max_new_tokens
+    cache_seg = torch.ones((BATCH, S), **cuda)
+    cache_seg[:, :PX_PROMPT_LEN] = pre
+    dec.append(decode_case(BATCH, 32, 8, S, 128, S, cache_seg, 154,
+                           timed=True))
+    dec[-1]["shape"] = f"pixtral decode: {dec[-1]['shape']}"
     fwd += [f for _, _, f in bwd]
     log_kernel_results(fwd, dec, bwd)
     return {"flash_fwd": fwd,
@@ -3214,13 +3591,13 @@ class RolloutTap:
         self.engine, self.replay = engine, replay
         self.seconds, self.steps, self.tokens = [], [], []
 
-    def generate(self, params, batch, generator=None, group_size=1):
+    def generate(self, params, batch, generator=None, group_size=1, **kw):
         if self.replay is not None:
             return dict(self.replay)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = self.engine.generate(params, batch, generator,
-                                   group_size=group_size)
+                                   group_size=group_size, **kw)
         torch.cuda.synchronize()
         self.seconds.append(time.perf_counter() - t0)
         self.steps.append(out["num_decode_steps"])
@@ -3252,13 +3629,19 @@ def grpo_step1_diffs(got, ref) -> dict:
     reads a backward that turns them without changing their length (the
     v projection's never reads delta)."""
     (m, norms, grads), (m0, norms0, grads0) = got, ref
+
+    def distance(n):
+        # a layer whose gradient is 0 (a LoRA A at step 1, where B = 0)
+        # must stay at 0: its distance is taken absolutely
+        d = (grads[n] - grads0[n]).flatten(1).norm(dim=1)
+        g0 = grads0[n].flatten(1).norm(dim=1)
+        return float(torch.where(g0 > 0, d / g0.clamp(min=1e-30), d).max())
+
     return {"loss": abs(m["loss"] - m0["loss"]),
             "kl": abs(m["kl"] - m0["kl"]),
             **_grad_diffs((m, norms), (m0, norms0)),
-            "q/k grad vectors": max(
-                float(((grads[n] - grads0[n]).flatten(1).norm(dim=1)
-                       / grads0[n].flatten(1).norm(dim=1)).max())
-                for n in grads0 if n[-1] in "qk")}
+            "q/k grad vectors": max(distance(n) for n in grads0
+                                    if n.split(".")[0][-1] in "qk")}
 
 
 def qwen_embeds(tower):
@@ -3373,7 +3756,11 @@ def grpo_case_ov(steps: int) -> types.SimpleNamespace:
 def phase_grpo(examples, steps: int, card, case):
     """SC-GRPO steps through GRPOTrainer.step in the setting ``case``
     (``grpo_case_*``), assembled as cli/train_grpo.py assembles them;
-    returns the launch counts."""
+    returns the launch counts.  A family with no shared-prompt path
+    (PaliGemma, Pixtral) takes the dense update over the G-repeated batch,
+    whose plain path is ``case.plain_apply``; ``case.lora`` (a
+    TuningConfig) runs LoRA with reference elision over a bf16 base;
+    ``case.decoder_flash`` False: a prefix-LM decoder (dense, no K1-K3)."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
@@ -3384,6 +3771,7 @@ def phase_grpo(examples, steps: int, card, case):
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
     from iadr1_tpu_torch.models.shared_prompt import shared_prompt_pred_hidden
     from iadr1_tpu_torch.rewards import get_reward_funcs
+    from iadr1_tpu_torch.train.adapters import count_params, init_lora_params
     from iadr1_tpu_torch.train.grpo import UPDATE_RANGES, GRPOTrainer
     from iadr1_tpu_torch.train.optimizers import make_optimizer
     from iadr1_tpu_torch.train.rollout import cast_dense_params
@@ -3395,7 +3783,10 @@ def phase_grpo(examples, steps: int, card, case):
     G, P, N = (gcfg.num_generations, gcfg.max_prompt_length,
                gcfg.max_completion_length)
     n = len(examples)
-    tokenizer = CannedTokenizer()
+    dense = bundle.shared_pred_fn is None
+    lora = getattr(case, "lora", None)
+    decoder_flash = getattr(case, "decoder_flash", True)
+    tokenizer = getattr(case, "tokenizer", None) or CannedTokenizer()
     collator = make_vlm_prompt_collator(bundle, tokenizer, None, case.data,
                                         P, num_generations=G)
     reward_s = []
@@ -3413,8 +3804,18 @@ def phase_grpo(examples, steps: int, card, case):
 
     def plain_bundle(flash):
         """The bundle with its shared-prompt scoring over a flash Function
-        of the plain versions (the tower and the three decoder calls)."""
+        of the plain versions (the tower and the three decoder calls), or
+        with its dense forward over it (``case.plain_apply``)."""
         tower_attn, attn_lse = train_attn(flash), lse_attn(flash)
+        if dense:
+            def apply(params, batch, cache=None, cache_mode="extend",
+                      remat=False, tower_remat=None, lora=None,
+                      lora_scale=1.0):
+                return case.plain_apply(params, cfg, batch, tower_attn,
+                                        remat, tower_remat, lora=lora,
+                                        lora_scale=lora_scale), None
+
+            return dataclasses.replace(bundle, apply=apply)
 
         def shared_pred(params, batch, group_size, remat=True):
             embeds = case.embeds(params, cfg, batch, tower_attn, bool(remat))
@@ -3424,17 +3825,33 @@ def phase_grpo(examples, steps: int, card, case):
 
         return dataclasses.replace(bundle, shared_pred_fn=shared_pred)
 
+    base = None
+    if lora is not None:
+        # one bf16 base, drawn once: the policy is base + adapters, the
+        # reference the base itself
+        base = bundle.init_params(seed=0, dtype=torch.bfloat16,
+                                  device=DEVICE)
+
     def fresh(used_bundle, replay=None):
-        params = bundle.init_params(seed=0, dtype=torch.float32,
-                                    device=DEVICE)
-        ref = _tree_map(lambda p: p.detach().to(case.ref_dtype), params)
         opt, sched = make_optimizer(case.opt_cfg)
-        probe = GradProbe(opt, params, keep_grads=True)
-        trainer = GRPOTrainer(
-            used_bundle, tokenizer, probe, gcfg, rewards,
-            create_train_state(params, probe), ref,
-            sampling_overrides=case.sampling_overrides, schedule=sched,
-            prompt_collator=collator, device=DEVICE, seed=0)
+        kw = dict(sampling_overrides=case.sampling_overrides, schedule=sched,
+                  prompt_collator=collator, device=DEVICE, seed=0)
+        if lora is not None:
+            adapters = init_lora_params(
+                torch.Generator(device=DEVICE).manual_seed(1), base, lora)
+            probe = LoraGradProbe(opt, adapters, keep_grads=True)
+            trainer = GRPOTrainer(
+                used_bundle, tokenizer, probe, gcfg, rewards,
+                create_train_state(adapters, probe), None, base_params=base,
+                tuning_cfg=lora, **kw)
+        else:
+            params = bundle.init_params(seed=0, dtype=torch.float32,
+                                        device=DEVICE)
+            ref = _tree_map(lambda p: p.detach().to(case.ref_dtype), params)
+            probe = GradProbe(opt, params, keep_grads=True)
+            trainer = GRPOTrainer(
+                used_bundle, tokenizer, probe, gcfg, rewards,
+                create_train_state(params, probe), ref, **kw)
         trainer.engine = RolloutTap(trainer.engine, replay)
         return trainer, probe
 
@@ -3445,7 +3862,12 @@ def phase_grpo(examples, steps: int, card, case):
     # --- the kernel path: the steps, their counts and their times ----------
     trainer, probe = fresh(bundle)
     tap = trainer.engine
-    n_params = sum(p.numel() for p in _leaves(trainer.state.params))
+    n_params = count_params(trainer.state.params)
+    n_base = count_params(base) if lora is not None else n_params
+    if getattr(case, "n_params_range", None) and not (
+            case.n_params_range[0] < n_base < case.n_params_range[1]):
+        raise AssertionError(f"{case.name} has {n_base / 1e9:.3f}B params, "
+                             f"not in {case.n_params_range}")
     update_s, update_batches = [], []
     inner_update = trainer.update_step
 
@@ -3468,45 +3890,74 @@ def phase_grpo(examples, steps: int, card, case):
     if "position_ids" not in prefill_batch:     # 1-D, as the engine's
         prefill_batch["position_ids"] = llava_positions(
             prefill_batch["attention_mask"])
-    policy = cast_dense_params(trainer.state.params, torch.bfloat16)
+    if lora is not None:
+        policy, lora_kw = base, {
+            "lora": cast_dense_params(trainer.state.params, torch.bfloat16),
+            "lora_scale": lora.lora_scale}
+    else:
+        policy = cast_dense_params(trainer.state.params, torch.bfloat16)
+        lora_kw = {}
     for _ in range(2):                       # the second one is warm
         cache = qwen2.init_cache(cfg.text, n, P, torch.bfloat16, DEVICE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
             bundle.apply(policy, prefill_batch, cache=cache,
-                         cache_mode="prefill")
+                         cache_mode="prefill", **lora_kw)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
-    del policy, cache
+    del policy, cache, lora_kw
     release()
 
     L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
+    Lf = L if decoder_flash else 0
     replays = case.tower_replays
     kernels = [k for k, _ in all_kernels()]
     step_s, per_step, total = [], [], {k.name: 0 for k in kernels}
+    dense_calls = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         for k in kernels:
             k.launches = 0
+        prefix_lm = PrefixLmTap()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.step(examples)
-        torch.cuda.synchronize()
+        try:
+            trainer.step(examples)
+            torch.cuda.synchronize()
+        finally:
+            prefix_lm.close()
         step_s.append(time.perf_counter() - t0)
         launches = {k.name: k.launches for k in kernels}
-        # K1: the rollout's prefill, the reference forward, and the policy
-        # forward, whose tower blocks run again in the backward where they
-        # are plain checkpoints; the three decoder calls of a layer keep
-        # their residuals.  K2 and K3: once per attention call of the
-        # policy.
-        want = {"flash_fwd": ((L + Lt) + (3 * L + Lt)
-                              + (3 * L + (1 + replays) * Lt)),
-                "flash_bwd_dq": 3 * L + Lt, "flash_bwd_dkv": 3 * L + Lt,
-                "decode_attention": L * tap.steps[i]}
+        if dense:
+            # K1: the rollout's prefill, the reference forward and the
+            # policy forward, each over the tower and the decoder (a
+            # prefix-LM decoder takes one dense call a layer instead).
+            # K2 and K3: the policy's backward, the tower's layers too
+            # unless it is frozen (LoRA).
+            bwd = Lf + (0 if lora is not None else Lt)
+            want = {"flash_fwd": 3 * (Lf + Lt) + replays * Lt,
+                    "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+                    "decode_attention": L * tap.steps[i]}
+        else:
+            # K1: the rollout's prefill, the reference forward, and the
+            # policy forward, whose tower blocks run again in the backward
+            # where they are plain checkpoints; the three decoder calls of
+            # a layer keep their residuals.  K2 and K3: once per attention
+            # call of the policy.
+            want = {"flash_fwd": ((L + Lt) + (3 * L + Lt)
+                                  + (3 * L + (1 + replays) * Lt)),
+                    "flash_bwd_dq": 3 * L + Lt, "flash_bwd_dkv": 3 * L + Lt,
+                    "decode_attention": L * tap.steps[i]}
         if launches != want or tap.steps[i] < 1:
             raise AssertionError(f"{label} step {i + 1} launches "
                                  f"{launches}, want {want}")
+        # the prefix-LM decoder: the rollout's prefill, the reference's
+        # forward and the policy's, a dense call a layer each
+        dense_calls.append(prefix_lm.calls)
+        if prefix_lm.calls != 3 * (L - Lf):
+            raise AssertionError(f"{label} step {i + 1}: {prefix_lm.calls} "
+                                 "dense prefix-LM calls")
         per_step.append(launches)
         for name, count in launches.items():
             total[name] += count
@@ -3626,9 +4077,16 @@ def phase_grpo(examples, steps: int, card, case):
                     for i in range(steps))
     update_ms, step_ms = med(1e3 * s for s in update_s), med(
         1e3 * s for s in step_s)
-    log(f"{label}: {case.name} {n_params / 1e9:.3f}B f32 policy + "
-        f"{str(case.ref_dtype)[6:]} reference, {steps} steps of {n} prompts "
-        f"x G={G} (P={P}, N={N}, "
+    if lora is not None:
+        what = (f"{n_base / 1e9:.3f}B bf16 base (the reference) + "
+                f"{n_params / 1e6:.2f}M LoRA adapters (rank "
+                f"{lora.lora_rank}, alpha {lora.lora_alpha})")
+    else:
+        what = (f"{n_params / 1e9:.3f}B f32 policy + "
+                f"{str(case.ref_dtype)[6:]} reference")
+    log(f"{label}: {case.name} {what}, "
+        f"{'dense' if dense else 'shared-prompt'} update, {steps} steps of "
+        f"{n} prompts x G={G} (P={P}, N={N}, "
         f"{n_patches} patches), lr {case.opt_cfg.learning_rate} "
         f"{case.opt_cfg.schedule}; loss "
         f"{[float(format(m['loss'], '.3e')) for m in history]}, kl "
@@ -3644,7 +4102,8 @@ def phase_grpo(examples, steps: int, card, case):
         f"{decode_ms:.3f} ms/step at B={n * G}, {tokens_s:.1f} generated "
         f"tokens/s), rewards {reward_ms:.2f} ms on the host, update "
         f"{update_ms:.1f} ms, peak memory {peak_gib:.2f} GiB, launches per "
-        f"step {per_step[-1]} on {card}")
+        f"step {per_step[-1]}, dense prefix-LM calls per step {dense_calls} "
+        f"on {card}")
     return total
 
 
@@ -4113,7 +4572,7 @@ def tower_depth(cfg) -> int:
 def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
                     max_new_tokens, card, twin_apply, describe,
                     eos_pad=(IM_END, ENDOFTEXT), quant=None,
-                    n_params_range=None):
+                    n_params_range=None, decoder_flash=True):
     """Phases 11 and 13: a VLM at full width (bf16 weights drawn on the
     card from a seed) serves 4 already-tokenized image requests through
     VLMGenerator._collate and RolloutEngine.generate, greedy.  K1 must run
@@ -4125,8 +4584,10 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     they hold; ``eos_pad`` the tokenizer's end and padding ids; ``quant``
     a weight-only format the bf16 weights are quantized to on the card
     first, as the infer CLI's ``--quant`` does; ``n_params_range`` the
-    (low, high) the parameter count must fall in (a published count).
-    Returns the launch counts."""
+    (low, high) the parameter count must fall in (a published count);
+    ``decoder_flash`` False: a prefix-LM decoder (PaliGemma), whose
+    prefill is one dense call a layer and no K1.  Returns the launch
+    counts."""
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
     from iadr1_tpu_torch.kernels import all_kernels
@@ -4212,6 +4673,7 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
         tap.twin(module, fn_name)
     for k in kernels:
         k.launches = 0
+    dense = PrefixLmTap()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4220,6 +4682,7 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
         torch.cuda.synchronize()
     finally:
         tap.close()
+        dense.close()
     total_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {k.name: k.launches for k in kernels}
@@ -4230,11 +4693,15 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     if not ((ids >= 0) & (ids < cfg.text.vocab_size)).all():
         raise AssertionError("completion ids out of the vocabulary")
     L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
-    want = {"flash_fwd": Lt + L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "decode_attention": L * steps}
+    want = {"flash_fwd": Lt + (L if decoder_flash else 0), "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "decode_attention": L * steps}
     if launches != want or steps < 1:
         raise AssertionError(f"{label}: launches {launches} over {steps} "
                              f"decode steps, want {want}")
+    # the prefix-LM prefill: one dense call a decoder layer
+    if dense.calls != (0 if decoder_flash else L):
+        raise AssertionError(f"{label}: {dense.calls} dense prefix-LM "
+                             "calls")
     if any(tap.twin_calls.values()):
         raise AssertionError(f"{label}: plain twins called on the card: "
                              f"{tap.twin_calls}")
@@ -4242,8 +4709,8 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
     decode_ms = (1e3 * total_s - prefill_ms) / steps
     log(f"{label}: generate {BATCH} requests ({holds}, prompt {prompt_len}, "
         f"patch budget {patch_budget}), {steps} decode steps, {n_tokens} "
-        f"tokens in {total_s:.3f} s; launches {launches}; twin calls "
-        f"{tap.twin_calls}")
+        f"tokens in {total_s:.3f} s; launches {launches}; dense prefix-LM "
+        f"calls {dense.calls}; twin calls {tap.twin_calls}")
     log(f"{label}: collation {collate_ms:.2f} ms (host), prefill "
         f"{prefill_ms:.2f} ms (tower + decoder), decode {decode_ms:.3f} "
         f"ms/step, {n_tokens / total_s:.1f} generated tokens/s, "
@@ -4321,11 +4788,12 @@ def phase_q25_serve(encoded, max_new_tokens, card):
                            card, twin_apply, describe)
 
 
-def phase_quant_serve(encoded, max_new_tokens, card, quant):
-    """Phase 22b and 22c: Qwen2.5-VL-7B at full width and depth serves
-    phase 13's 4 requests over weights quantized to ``quant`` (int8: the
-    infer and serve CLIs' ``--quant int8``; nf4: a generate to show it
-    runs); returns the launch counts."""
+def phase_quant_serve(encoded, max_new_tokens, card, quant, layers=None):
+    """Phase 22b and 22c: Qwen2.5-VL-7B at full width (and depth, unless
+    ``layers`` cuts its decoder) serves phase 13's 4 requests over weights
+    quantized to ``quant`` (int8: the infer and serve CLIs' ``--quant
+    int8``; nf4: a generate to show it runs); returns the launch
+    counts."""
     from iadr1_tpu_torch.models import qwen25_vl
 
     def twin_apply(params, cfg, b, cache, attn):
@@ -4342,14 +4810,18 @@ def phase_quant_serve(encoded, max_new_tokens, card, quant):
         n = int((batch["full_segs"] != 0).sum())
         return f"{n} patches in {int(batch['window_segs'].max())} windows"
 
-    return phase_vlm_serve(f"q25 {quant} serve", "Qwen2.5-VL-7B",
-                           QWEN2_5_VL_7B, encoded, PROMPT_LEN, PATCH_BUDGET,
-                           max_new_tokens, card, twin_apply, describe,
-                           quant=quant)
+    hf, name = QWEN2_5_VL_7B, "Qwen2.5-VL-7B"
+    if layers is not None:
+        hf = dict(hf, num_hidden_layers=layers)
+        name += f" cut to {layers} decoder layers"
+    return phase_vlm_serve(f"q25 {quant} serve", name, hf, encoded,
+                           PROMPT_LEN, PATCH_BUDGET, max_new_tokens, card,
+                           twin_apply, describe, quant=quant)
 
 
 def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
-                  plain_apply, tower_flops, batch_rows=None, overrides=()):
+                  plain_apply, tower_flops, batch_rows=None, overrides=(),
+                  decoder_flash=True):
     """Phases 12 and 14: PA-SFT steps of a VLM at full width on a recipe's
     settings (``recipe`` through the port's config loader), assembled as
     cli/train_sft.py assembles them, f32 parameters drawn on the card;
@@ -4359,7 +4831,9 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     remat, tower_remat)`` -> hidden), a control with dq zeroed must not,
     and the loss must fall.  ``tower_flops(batch)`` -> (the tower's
     forward FLOPs, what it ran over); ``overrides`` change the recipe's
-    keys as a command line would.  Returns the launch counts."""
+    keys as a command line would; ``decoder_flash`` False: a prefix-LM
+    decoder (PaliGemma), one dense call a layer a step and no K1-K3.
+    Returns the launch counts."""
     import gc
 
     from iadr1_tpu_torch.cli.train_sft import SFTJobConfig, _remat
@@ -4455,10 +4929,14 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
-    state, history = run_sft_loop(
-        state, timed_step, batch_iterator(rows, B, 0, builder),
-        LoopConfig(output_dir=train_dir, max_steps=steps, batch_size=B,
-                   logging_steps=1))
+    dense = PrefixLmTap()
+    try:
+        state, history = run_sft_loop(
+            state, timed_step, batch_iterator(rows, B, 0, builder),
+            LoopConfig(output_dir=train_dir, max_steps=steps, batch_size=B,
+                       logging_steps=1))
+    finally:
+        dense.close()
     launches = {k.name: k.launches for k in kernels}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -4479,11 +4957,15 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
     # per step: each of K1, K2 and K3 once per decoder layer and tower
     # layer (the recipes' remat modes keep every attention call outside
-    # the checkpoints)
-    want = {"flash_fwd": steps * (L + Lt), "flash_bwd_dq": steps * (L + Lt),
-            "flash_bwd_dkv": steps * (L + Lt), "decode_attention": 0}
+    # the checkpoints); a prefix-LM decoder's layers take one dense call
+    # each a step instead (its backward replays it inside a checkpoint)
+    Lf = L if decoder_flash else 0
+    want = {"flash_fwd": steps * (Lf + Lt), "flash_bwd_dq": steps * (Lf + Lt),
+            "flash_bwd_dkv": steps * (Lf + Lt), "decode_attention": 0}
     if launches != want:
         raise AssertionError(f"{label} launches {launches}, want {want}")
+    if dense.calls != steps * (L - Lf):
+        raise AssertionError(f"{label}: {dense.calls} dense prefix-LM calls")
     losses = [h["loss"] for h in history]
     norms = [h["grad_norm"] for h in history]
     if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
@@ -4520,7 +5002,7 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
         f"{B * T / step_s:.0f} tokens/s, {n_label / step_s:.0f} label "
         f"tokens/s, MFU {meter.mfu:.4f} (decoder + tower model FLOPs, x3, "
         f"against {PEAK_BF16_FLOPS:.3g}), peak memory {peak_gib:.2f} GiB, "
-        f"launches {launches} on {card}")
+        f"launches {launches}, dense prefix-LM calls {dense.calls} on {card}")
     return launches
 
 
@@ -4772,9 +5254,10 @@ def phase_internvl_sft(rows, steps: int, card):
 
 def grpo_case_internvl(steps: int) -> types.SimpleNamespace:
     """Phase 25's setting: InternVL-2.5-4B on the grpo section of
-    configs/grpo_qwen2_5_vl_7b.yaml (phase 15's), the patch budget sized
-    for 1025-token tiles (INTERNVL_GRPO_PATCH_BUDGET); the update batch
-    must carry the tiles and their segments (C.R9)."""
+    configs/grpo_qwen2_5_vl_7b.yaml (phase 15's), its decoder cut to
+    INTERNVL_GRPO_LAYERS, the patch budget sized for 1025-token tiles
+    (INTERNVL_GRPO_PATCH_BUDGET); the update batch must carry the tiles
+    and their segments (C.R9)."""
     from iadr1_tpu_torch.models import internvl
 
     def embeds(params, cfg, batch, attn, remat):
@@ -4785,8 +5268,10 @@ def grpo_case_internvl(steps: int) -> types.SimpleNamespace:
             scatter_cols=batch["scatter_cols"], tower_attention_fn=attn,
             tower_remat=remat)
 
-    case = grpo_case_q25(steps, "internvl grpo", "InternVL-2.5-4B",
-                         INTERNVL_25_4B)
+    hf = dict(INTERNVL_25_4B, text_config=dict(
+        INTERNVL_25_4B["text_config"], num_hidden_layers=INTERNVL_GRPO_LAYERS))
+    case = grpo_case_q25(steps, "internvl grpo", "InternVL-2.5-4B cut to "
+                         f"{INTERNVL_GRPO_LAYERS} decoder layers", hf)
     case.data = dataclasses.replace(case.data,
                                     patch_budget=INTERNVL_GRPO_PATCH_BUDGET)
     case.embeds = embeds
@@ -5462,7 +5947,8 @@ def phase_lora_grpo(card):
     from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
     from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
 
-    label, hf = "q25 lora grpo", QWEN2_5_VL_7B
+    label = "q25 lora grpo"
+    hf = dict(QWEN2_5_VL_7B, num_hidden_layers=LORA_GRPO_LAYERS)
     root = LORA_GRPO_DIR
     shutil.rmtree(root, ignore_errors=True)
     base_dir, out_dir = os.path.join(root, "base"), os.path.join(root, "run")
@@ -5623,7 +6109,8 @@ def phase_lora_grpo(card):
     shutil.rmtree(root, ignore_errors=True)
 
     R = len(job["grpo"]["reward_funcs"])
-    log(f"{label}: Qwen2.5-VL-7B {n_lora / 1e6:.2f}M LoRA params (rank "
+    log(f"{label}: Qwen2.5-VL-7B cut to {LORA_GRPO_LAYERS} decoder layers "
+        f"{n_lora / 1e6:.2f}M LoRA params (rank "
         f"{ft['lora_rank']}, alpha {ft['lora_alpha']}) over one bf16 base "
         f"copy of {base_bytes / 2 ** 30:.2f} GiB that is also the reference "
         f"(allocated at an update: {max(tap.allocated) / 2 ** 30:.2f} GiB), "
@@ -5724,6 +6211,235 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phases 27 and 28: PaliGemma-3B and Pixtral-12B
+# ---------------------------------------------------------------------------
+
+
+class PrefixLmTap:
+    """Counts the decoder's dense prefix-LM attention calls (PaliGemma's
+    prefill, training and scoring; ``qwen2.prefix_lm_attention``, wrapped
+    while the tap is open): one a decoder layer a forward."""
+
+    def __init__(self):
+        from iadr1_tpu_torch.models import qwen2
+
+        self.module, self.inner, self.calls = qwen2, \
+            qwen2.prefix_lm_attention, 0
+
+        def wrapped(mask, remat=False):
+            attn = self.inner(mask, remat)
+
+            def counted(q, k, v):
+                self.calls += 1
+                return attn(q, k, v)
+            return counted
+
+        qwen2.prefix_lm_attention = wrapped
+
+    def close(self):
+        self.module.prefix_lm_attention = self.inner
+
+
+def paligemma_plain_apply(params, cfg, b, attn, remat=False,
+                          tower_remat=None, cache=None, lora=None,
+                          lora_scale=1.0):
+    """A PaliGemma forward with its tower over ``attn`` (the decoder's
+    prefix-LM attention is dense on either path)."""
+    from iadr1_tpu_torch.models import paligemma
+
+    h, _ = paligemma.apply(
+        params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+        tile_segments=b["tile_segments"], scatter_rows=b["scatter_rows"],
+        scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+        cache=cache, cache_mode="prefill" if cache is not None else "extend",
+        tower_attention_fn=attn, remat=remat, tower_remat=tower_remat,
+        lora=None if lora is None else lora["text"], lora_scale=lora_scale)
+    return h
+
+
+def pixtral_plain_apply(params, cfg, b, attn, remat=False, tower_remat=None,
+                        cache=None, lora=None, lora_scale=1.0):
+    """A Pixtral forward over ``attn`` (tower and decoder), ``lora`` a
+    whole-model adapter tree."""
+    from iadr1_tpu_torch.models import pixtral
+
+    h, _ = pixtral.apply(
+        params, cfg, b["input_ids"], b["position_ids"],
+        patch_stream=b["patch_stream"], patch_pos_ids=b["patch_pos_ids"],
+        patch_segments=b["patch_segments"], scatter_rows=b["scatter_rows"],
+        scatter_cols=b["scatter_cols"], segment_ids=b["segment_ids"],
+        cache=cache, cache_mode="prefill" if cache is not None else "extend",
+        attention_fn=attn, tower_attention_fn=attn, remat=remat,
+        tower_remat=tower_remat,
+        lora=None if lora is None else lora["text"], lora_scale=lora_scale)
+    return h
+
+
+def siglip_448_flops(n_tiles: int) -> float:
+    """The SigLIP-448 tower's forward FLOPs over ``n_tiles`` tiles."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+
+    v = PALIGEMMA_3B_448["vision_config"]
+    return n_tiles * 1024 * vit_flops_per_patch(
+        hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+        num_layers=v["num_hidden_layers"], attn_window=1024)
+
+
+def phase_paligemma_serve(encoded, max_new_tokens, card):
+    """Phase 27a: PaliGemma-3B at full width and depth serves 4 paligemma
+    requests (4 tiles in a budget of 6); K1 27 times a generate (the
+    tower), the decoder's prefill 18 dense prefix-LM calls, K4 18 times a
+    decode step at D = 256; returns the launch counts."""
+    def twin_apply(params, cfg, b, cache, attn):
+        return paligemma_plain_apply(params, cfg, b, attn, cache=cache)
+
+    def describe(batch):
+        n_tiles = int(batch["tile_segments"].sum())
+        if batch["tiles"].shape[0] != 6 or n_tiles != 4:
+            raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}, "
+                                 f"{n_tiles} of them images'")
+        first = batch["input_ids"][:, -1].new_tensor(
+            [len(ids) for ids, _, _ in encoded])
+        runs = (batch["input_ids"] == PG_IMAGE).sum(dim=1)
+        if not (runs == 1024).all() or int(first.max()) > PG_PROMPT_LEN:
+            raise AssertionError(f"image runs {runs.tolist()}")
+        return "4 tiles of 1024 tokens in a budget of 6, runs ahead of BOS"
+
+    return phase_vlm_serve("paligemma serve", "PaliGemma-3B",
+                           PALIGEMMA_3B_448, encoded, PG_PROMPT_LEN,
+                           PG_PATCH_BUDGET, max_new_tokens, card, twin_apply,
+                           describe, eos_pad=(PG_EOS, PG_PAD),
+                           n_params_range=(2.90e9, 2.95e9),
+                           decoder_flash=False)
+
+
+def phase_paligemma_sft(rows, steps: int, card):
+    """Phase 27b: PaliGemma-3B PA-SFT at full width and depth on
+    configs/sft_qwen2_5_vl_7b.yaml's settings with the paligemma template,
+    f32 parameters, the batch cut to PG_SFT_ROWS; K1, K2 and K3 27 times
+    each a step (the tower), the decoder's 18 layers dense prefix-LM;
+    returns the launch counts."""
+    def plain_apply(params, cfg, b, attn, remat, tower_remat):
+        return paligemma_plain_apply(params, cfg, b, attn, remat,
+                                     tower_remat)
+
+    def tower_flops(first):
+        n_tiles = first["tiles"].shape[0]
+        n_images = int(first["tile_segments"].sum())
+        return siglip_448_flops(n_images), (
+            f"{n_images} images in {n_images} of the {n_tiles} tiles, the "
+            "rest at segment 0")
+
+    return phase_vlm_sft(
+        "paligemma sft", "PaliGemma-3B", PALIGEMMA_3B_448, Q25_SFT_RECIPE,
+        rows, steps, card, PG_TRAIN_DIR, plain_apply, tower_flops,
+        batch_rows=PG_SFT_ROWS, overrides=["data.template=paligemma"],
+        decoder_flash=False)
+
+
+def grpo_case_paligemma(steps: int) -> types.SimpleNamespace:
+    """Phase 27c's setting: PaliGemma-3B on the grpo section of
+    configs/grpo_qwen2_5_vl_7b.yaml (its patch budget of 8192 holds the 8
+    tiles of the dense update); no shared path in either package, so the
+    update is the dense one over the G-repeated batch; the step-1 control
+    zeroes dq (the dense update has no lse cotangent to drop)."""
+    case = grpo_case_q25(steps, "paligemma grpo", "PaliGemma-3B",
+                         PALIGEMMA_3B_448)
+    case.plain_apply = paligemma_plain_apply
+    case.vision_keys = ("tiles", "tile_segments")
+    case.controls, case.lse_check = GRPO_CONTROLS[1:], False
+    case.decoder_flash = False
+    case.tokenizer = CannedTokenizer(PG_EOS, PG_PAD)
+    case.n_params_range = (2.90e9, 2.95e9)
+    return case
+
+
+def phase_pixtral_serve(encoded, max_new_tokens, card):
+    """Phase 28a: Pixtral-12B at full width and depth serves 4 pixtral
+    requests (5566 patches in one stream of 6144); K1 24 + 40 times a
+    generate, K4 40 times a decode step; returns the launch counts."""
+    def twin_apply(params, cfg, b, cache, attn):
+        return pixtral_plain_apply(params, cfg, b, attn, cache=cache)
+
+    def describe(batch):
+        segs = batch["patch_segments"]
+        n = int((segs != 0).sum())
+        if n != 5566 or int(segs.max()) != 4 or segs.shape[0] != 6144:
+            raise AssertionError(f"{n} patches in {int(segs.max())} images")
+        return (f"{n} patches of 4 images in one stream of "
+                f"{segs.shape[0]}, {int((batch['input_ids'] == PX_IMAGE).sum())}"
+                " [IMG] tokens")
+
+    return phase_vlm_serve("pixtral serve", "Pixtral-12B", PIXTRAL_12B,
+                           encoded, PX_PROMPT_LEN, PX_PATCH_BUDGET,
+                           max_new_tokens, card, twin_apply, describe,
+                           eos_pad=(PX_EOS, PX_PAD),
+                           n_params_range=(12.6e9, 12.75e9))
+
+
+def phase_pixtral_lora_sft(rows, steps: int, card):
+    """Phase 28b: LoRA PA-SFT of Pixtral-12B at full depth over a bf16
+    base on configs/sft_qwen2_5_vl_7b.yaml with the pixtral template, the
+    batch cut to PX_SFT_ROWS; returns the launch counts."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+
+    def tower_flops(first):
+        n = int((first["patch_segments"] != 0).sum())
+        v = pixtral_vision_widths()
+        return n * vit_flops_per_patch(
+            hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+            num_layers=v["num_hidden_layers"], attn_window=735), (
+            f"{n} patches of {int(first['patch_segments'].max())} images in "
+            f"a stream of {first['patch_segments'].shape[0]}")
+
+    return phase_lora_sft(
+        "pixtral lora sft", "Pixtral-12B", PIXTRAL_12B, Q25_SFT_RECIPE, rows,
+        steps, card, PX_TRAIN_DIR, pixtral_plain_apply, tower_flops,
+        batch_rows=PX_SFT_ROWS, overrides=["data.template=pixtral"])
+
+
+def pixtral_vision_widths() -> dict:
+    """Pixtral-ViT's widths as the bundle reads them (the published
+    vision config is sparse)."""
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    v = bundle_from_hf_config(PIXTRAL_12B).cfg.vision
+    return dict(hidden_size=v.hidden_size,
+                intermediate_size=v.intermediate_size,
+                num_hidden_layers=v.num_hidden_layers)
+
+
+def grpo_case_pixtral(steps: int) -> types.SimpleNamespace:
+    """Phase 28c's setting: LoRA SC-GRPO of Pixtral-12B with reference
+    elision: configs/grpo_llava_next_34b.yaml's finetuning (rank 16,
+    alpha 32) over the grpo section of configs/grpo_qwen2_5_vl_7b.yaml,
+    its completions and prompts cut (PX_GRPO_COMPLETION_LEN,
+    PX_GRPO_PROMPT_LEN), a bf16 base; the dense update (no shared path in
+    either package), K2 and K3 in the decoder only (the frozen tower
+    takes no gradient)."""
+    import yaml
+
+    from iadr1_tpu_torch.train.adapters import TuningConfig
+
+    case = grpo_case_q25(steps, "pixtral lora grpo", "Pixtral-12B",
+                         PIXTRAL_12B)
+    case.gcfg = dataclasses.replace(
+        case.gcfg, max_prompt_length=PX_GRPO_PROMPT_LEN,
+        max_completion_length=PX_GRPO_COMPLETION_LEN)
+    with open(LLAVA_GRPO_RECIPE) as f:
+        ft = yaml.safe_load(f)["finetuning"]
+    case.lora = TuningConfig(finetuning_type=ft["finetuning_type"],
+                             lora_rank=ft["lora_rank"],
+                             lora_alpha=ft["lora_alpha"])
+    case.plain_apply = pixtral_plain_apply
+    case.vision_keys = ("patch_stream", "patch_pos_ids", "patch_segments")
+    case.controls, case.lse_check = GRPO_CONTROLS[1:], False
+    case.tokenizer = CannedTokenizer(PX_EOS, PX_PAD)
+    case.n_params_range = (12.6e9, 12.75e9)
+    return case
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-new-tokens", type=int, default=128,
@@ -5736,7 +6452,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-26; "
+                    help="comma-separated phase numbers to run (3-28; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -5794,7 +6510,15 @@ def main() -> int:
         VIDEO_LLAVA_7B["text_config"], num_hidden_layers=VLLAVA_LAYERS))
     vllava_examples = make_video_examples(bundle_from_hf_config(vllava_hf),
                                           seed=24)
-    phases = (set(range(1, 27)) if args.phases is None
+    pg = bundle_from_hf_config(PALIGEMMA_3B_448)      # host side only
+    pg_encoded = make_paligemma_requests(pg)
+    pg_rows = make_paligemma_sft_rows(pg, Q25_SFT_CUTOFF)
+    pg_grpo = make_paligemma_grpo_examples(pg)
+    px = bundle_from_hf_config(PIXTRAL_12B)           # host side only
+    px_encoded = make_pixtral_requests(px)
+    px_rows = make_pixtral_sft_rows(px, Q25_SFT_CUTOFF)
+    px_grpo = make_pixtral_grpo_examples(px)
+    phases = (set(range(1, 29)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
@@ -5817,6 +6541,10 @@ def main() -> int:
                 intern_encoded, intern_rows, intern_grpo, video_rows,
                 VIDEO_SFT_BUDGET, args.max_new_tokens).items():
             measured[name] += results
+        for name, results in phase_kernels_paligemma_pixtral(
+                pg_encoded, pg_grpo, px_encoded, px_rows, px_grpo,
+                args.max_new_tokens).items():
+            measured[name] += results
         log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     if phases & {4, 5, 8, 9}:
         t0 = time.perf_counter()
@@ -5832,6 +6560,8 @@ def main() -> int:
     q25_steps = min(args.grpo_steps, Q25_GRPO_STEPS)
     ov_steps = min(args.grpo_steps, OV_GRPO_STEPS)
     intern_steps = min(args.grpo_steps, INTERNVL_GRPO_STEPS)
+    pg_steps = min(args.grpo_steps, PG_GRPO_STEPS)
+    px_steps = min(args.grpo_steps, PX_GRPO_STEPS)
     q25_cut = dict(QWEN2_5_VL_3B, num_hidden_layers=Q25_GRPO_LAYERS)
     for n, path, run in (
         (6, "train", lambda: phase_train(train_rows, args.train_steps, card)),
@@ -5866,7 +6596,7 @@ def main() -> int:
         (22, "q25_int8_serve", lambda: phase_quant_serve(
             q25_encoded, args.max_new_tokens, card, "int8")),
         (22, "q25_nf4_serve", lambda: phase_quant_serve(
-            q25_encoded, NF4_NEW_TOKENS, card, "nf4")),
+            q25_encoded, NF4_NEW_TOKENS, card, "nf4", NF4_LAYERS)),
         (23, "internvl_serve", lambda: phase_internvl_serve(
             intern_encoded, args.max_new_tokens, card)),
         (24, "internvl_sft", lambda: phase_internvl_sft(
@@ -5883,13 +6613,25 @@ def main() -> int:
             "video-llava rollout", f"Video-LLaVA-7B cut to {VLLAVA_LAYERS} "
             "decoder layers", vllava_hf, vllava_examples, VLLAVA_PROMPT_LEN,
             card)),
+        (27, "paligemma_serve", lambda: phase_paligemma_serve(
+            pg_encoded, args.max_new_tokens, card)),
+        (27, "paligemma_sft", lambda: phase_paligemma_sft(
+            pg_rows, PG_SFT_STEPS, card)),
+        (27, "paligemma_grpo", lambda: phase_grpo(
+            pg_grpo, pg_steps, card, grpo_case_paligemma(pg_steps))),
+        (28, "pixtral_serve", lambda: phase_pixtral_serve(
+            px_encoded, args.max_new_tokens, card)),
+        (28, "pixtral_lora_sft", lambda: phase_pixtral_lora_sft(
+            px_rows, PX_SFT_STEPS, card)),
+        (28, "pixtral_lora_grpo", lambda: phase_grpo(
+            px_grpo, px_steps, card, grpo_case_pixtral(px_steps))),
     ):
         if n in phases:
             t0 = time.perf_counter()
             by_path[path] = run()
             torch.cuda.empty_cache()
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 27)) <= phases:
+    if not set(range(3, 29)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

@@ -170,18 +170,27 @@ def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,
     an optional ``second_per_grid_ts`` per video for Qwen2.5-VL) and, for
     the LLaVA video families, ``video_patches`` (frame stacks); prompts
     repeat G times consecutively.  ``cfg.patch_budget`` sizes the G =
-    num_generations (update) collation; the G = 1 rollout collation scales
-    it down by the group factor, so the prefix-cached prefill's tower does
-    not run over a patch stream padded G times too long."""
+    num_generations (update) collation, which holds every prompt's images
+    G times over; the G = 1 rollout collation scales it down by the group
+    factor, so the prefix-cached prefill's tower does not run over a patch
+    stream padded G times too long.  The first collation at each G prints
+    its budget."""
     pad = tokenizer.pad_token_id or tokenizer.eos_token_id
     img_id = getattr(bundle.cfg, "image_token_id", None)
     tcfg = getattr(bundle.cfg, "text", bundle.cfg)
+    printed = set()
 
     def collate(examples, G):
         P = max_prompt_length
         budget = max(cfg.patch_budget * G // max(num_generations, 1), 8)
         rows = [ex for ex in examples for _ in range(G)]
         B = len(rows)
+        if G not in printed:
+            # the dense update's batch repeats each prompt's images G times
+            printed.add(G)
+            n_images = sum(len(ex.get("patches", ())) for ex in rows)
+            print(f"vision budget: {budget} patches for {B} rows "
+                  f"({n_images} images, G={G})")
         input_ids = np.full((B, P), pad, np.int64)
         mask = np.zeros((B, P), np.int64)
         patches_list, grids, videos, spg = [], [], [], []
@@ -221,8 +230,12 @@ def make_vlm_prompt_collator(bundle, tokenizer, template, cfg: GRPODataSection,
 def encode_rl_examples(rows, cfg: GRPODataSection, bundle, tokenizer,
                        template) -> list[dict]:
     """RL rows -> conversations -> {"prompt_ids", "solution"} (+ the
-    images' ``patches`` and ``grid_thw`` for a VLM)."""
-    from iadr1_tpu_torch.data.mm import expand_image_tokens
+    images' ``patches`` and ``grid_thw`` for a VLM; PaliGemma's image runs
+    prepended to the prompt's ids)."""
+    from iadr1_tpu_torch.data.mm import (
+        expand_image_tokens,
+        prepend_image_tokens,
+    )
     from iadr1_tpu_torch.train.prompts import make_conversation
 
     examples = []
@@ -249,6 +262,10 @@ def encode_rl_examples(rows, cfg: GRPODataSection, bundle, tokenizer,
             ex.update(patches=patches, grid_thw=grids)
         ex["prompt_ids"] = template.encode_prompt(
             tokenizer, messages, system=conv["system"])
+        if bundle.multimodal and conv["images"] and (
+                template.mm_style == "paligemma"):
+            ex["prompt_ids"], _ = prepend_image_tokens(
+                ex["prompt_ids"], None, seqlens, bundle.cfg.image_token_id)
         examples.append(ex)
     return examples
 

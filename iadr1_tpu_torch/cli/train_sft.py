@@ -8,8 +8,10 @@ Usage:
 
 ``require_ported`` names the ROADMAP item each option the port cannot run
 yet waits for: a mesh of more than one device (A.11), rope scaling and
-LongLoRA (A.13), ``do_predict`` (A.15); the PaliGemma branch of
-``prepare_rows`` raises naming A.13.
+LongLoRA (A.13), ``do_predict`` (A.15).  ``prepare_rows`` prepends
+PaliGemma's image runs to the encoded ids, and raises where they leave the
+text no room under ``cutoff_len`` (the JAX package clamps the text's
+budget at 8 tokens, and packing drops the over-long row: ROADMAP C.R4).
 """
 
 from __future__ import annotations
@@ -120,7 +122,10 @@ def prepare_rows(cfg: DataSection, tokenizer, template, bundle,
     concatenated, every token (plus EOS) is labeled, no template or
     masking."""
     from iadr1_tpu_torch.data.aligner import align_rows
-    from iadr1_tpu_torch.data.mm import expand_image_tokens
+    from iadr1_tpu_torch.data.mm import (
+        expand_image_tokens,
+        prepend_image_tokens,
+    )
     from iadr1_tpu_torch.data.packing import pack_examples
     from iadr1_tpu_torch.data.registry import (
         DatasetAttr,
@@ -172,10 +177,6 @@ def prepare_rows(cfg: DataSection, tokenizer, template, bundle,
         messages = rec["messages"]
         extras = {}
         if bundle.multimodal and rec["images"]:
-            if template.mm_style == "paligemma":
-                raise NotImplementedError(
-                    "PaliGemma's prepended image tokens are not ported yet "
-                    "(ROADMAP A.13)")
             from PIL import Image
 
             patches, grids, seqlens = [], [], []
@@ -195,9 +196,22 @@ def prepare_rows(cfg: DataSection, tokenizer, template, bundle,
                 {**m, "content": m["content"].replace("<image>", "")}
                 for m in messages
             ]
+        cut = cfg.cutoff_len - 1
+        prefix = extras and template.mm_style == "paligemma"
+        if prefix:
+            # the image runs go ahead of the encoded ids: the text gets
+            # what they leave, and a row they leave no room in raises
+            cut -= sum(seqlens)
+            if cut < 1:
+                raise ValueError(
+                    f"{sum(seqlens)} image tokens leave the text no room "
+                    f"under cutoff_len={cfg.cutoff_len}; raise cutoff_len")
         input_ids, labels = encode_supervised_example(
             messages, template, tokenizer,
-            system=rec.get("system"), cutoff_len=cfg.cutoff_len - 1)
+            system=rec.get("system"), cutoff_len=cut)
+        if prefix:
+            input_ids, labels = prepend_image_tokens(
+                input_ids, labels, seqlens, bundle.cfg.image_token_id)
         ex = {"input_ids": input_ids, "labels": labels}
         if extras:
             ex["extras"] = extras

@@ -4,8 +4,9 @@ the pieces of iadr1_tpu/data/template.py ``ChatTemplate.encode_prompt`` and
 ``qwen2_vl``, ``qwen2_5_vl``, ``llava_next_qwen``, ``llava_next_yi``,
 ``llava_next_video_yi`` and ``intern_vl``, the vicuna-style ``llava``,
 ``llava_next``, ``llava_next_video`` and ``video_llava``, the Mistral-style
-``llava_next_video_mistral``, and ``llava_next_llama3``; the other
-templates wait for ROADMAP A.13).
+``llava_next_video_mistral`` and ``pixtral``, ``llava_next_llama3``, and
+the Gemma-style ``paligemma``; the other templates wait for ROADMAP
+A.13).
 
 A template is a few slots, each a tuple of chunks: strings with a
 ``{content}`` placeholder, and the sentinels ``EOS`` and ``BOS`` for the
@@ -188,6 +189,20 @@ TEMPLATES = {
     "intern_vl": ChatTemplate(name="intern_vl", prefix=(BOS,),
                               image_token="<IMG_CONTEXT>",
                               mm_style="intern_vl", **_CHATML),
+    # PaliGemma: Gemma's turns after BOS; the image runs are prepended to
+    # the encoded ids (data/mm.py prepend_image_tokens), ahead of BOS
+    "paligemma": ChatTemplate(
+        name="paligemma",
+        user=("<start_of_turn>user\n{content}<end_of_turn>\n"
+              "<start_of_turn>model\n",),
+        assistant=("{content}<end_of_turn>\n",), prefix=(BOS,),
+        image_token="<image>", mm_style="paligemma"),
+    # Pixtral: Mistral's [INST] turns without the spaces, the system text
+    # inside the first user message; each image rows of [IMG]
+    "pixtral": ChatTemplate(
+        name="pixtral", user=("[INST]{content}[/INST]",),
+        system=("{content}\n\n",), prefix=(BOS,), system_in_user=True,
+        image_token="[IMG]", mm_style="pixtral"),
 }
 
 

@@ -10,7 +10,10 @@ Two departures from the JAX generator, both where it goes wrong: a leading
 rejects the role), and a prompt that holds image tokens and exceeds
 ``max_prompt_length`` raises instead of losing its left end (a cut inside
 or before an image run scatters the image features onto the wrong
-tokens).  A text-only prompt is still cut from the left.
+tokens).  A text-only prompt is still cut from the left.  PaliGemma's
+image runs go ahead of the encoded ids (``prepend_image_tokens``); such a
+prompt holds image tokens, so it is never cut either (the JAX generator
+cuts it from the left, the image run first: ROADMAP C.R3).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from iadr1_tpu_torch.core.device import resolve_device
-from iadr1_tpu_torch.data.mm import expand_image_tokens
+from iadr1_tpu_torch.data.mm import expand_image_tokens, prepend_image_tokens
 from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
 from iadr1_tpu_torch.vision.mrope import bundle_mrope_positions
 
@@ -94,6 +97,9 @@ class VLMGenerator:
             messages = [{**m, "content": m["content"].replace("<image>", "")}
                         for m in messages]
         ids = self.template.encode_prompt(self.tokenizer, messages, system)
+        if seqlens and self.template.mm_style == "paligemma":
+            ids, _ = prepend_image_tokens(ids, None, seqlens,
+                                          self.bundle.cfg.image_token_id)
         P = self.cfg.max_prompt_length
         if len(ids) > P and getattr(self.bundle.cfg, "image_token_id",
                                     None) in ids:

@@ -32,12 +32,15 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in f32, cast back to the input dtype (HF semantics)."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm in f32, cast back to the input dtype (HF semantics).
+    ``offset`` gives Gemma's norms: the scale is (offset + w), multiplied
+    in f32 before the cast (GemmaRMSNorm's (1 + w), zero-initialised)."""
     dtype = x.dtype
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
-    return (x * scale.float()).to(dtype)
+    return (x * (scale.float() + offset)).to(dtype)
 
 
 def dense(x: torch.Tensor, kernel,

@@ -5,8 +5,8 @@ layers stacked on axis 0, dense kernels [in, out].  The forward is a plain
 function over that dict.  Any dense kernel may be a weight-only quant
 dict (``models/quant.py``), and ``apply(..., lora=...)`` adds factored
 LoRA / DoRA adapters (``lora_dense``) without ever forming the merged
-weight.  Prefix-LM masks, MoE layers and RoPE scaling are not ported yet
-(ROADMAP).
+weight.  The Gemma knobs (PaliGemma's decoder) and the prefix-LM mask
+are here too; MoE layers and RoPE scaling are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -47,6 +47,13 @@ class Qwen2Config:
     tie_word_embeddings: bool = False
     attention_bias: bool = True
     mrope_section: tuple[int, ...] | None = None
+    # Gemma's knobs (PaliGemma's decoder, HF modeling_gemma): norms scale
+    # by (offset + w) with zero-initialised weights, the MLP's gate takes
+    # gelu_pytorch_tanh, and the input embeddings are scaled by
+    # sqrt(hidden) inside the decoder
+    rms_norm_offset: float = 0.0
+    hidden_act: str = "silu"
+    scale_embeds: bool = False
 
     @property
     def head_dim_(self) -> int:
@@ -67,12 +74,14 @@ def init_params(gen: torch.Generator, cfg: Qwen2Config, dtype, device) -> dict:
     def full(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
+    # Gemma's norms add their offset, so their weights start at zero
+    norm_fill = 0.0 if cfg.rms_norm_offset else 1.0
     params = {
         "embed": {"weight": common.embed_init(gen, cfg.vocab_size, hid,
                                               dtype, device)},
         "layers": {
-            "input_norm": full((L, hid), 1.0),
-            "post_attn_norm": full((L, hid), 1.0),
+            "input_norm": full((L, hid), norm_fill),
+            "post_attn_norm": full((L, hid), norm_fill),
             "attn": {
                 "q": {"kernel": stack(hid, H * D)},
                 "k": {"kernel": stack(hid, Hkv * D)},
@@ -85,7 +94,7 @@ def init_params(gen: torch.Generator, cfg: Qwen2Config, dtype, device) -> dict:
                 "down": {"kernel": stack(mlp, hid)},
             },
         },
-        "final_norm": full((hid,), 1.0),
+        "final_norm": full((hid,), norm_fill),
     }
     if cfg.attention_bias:
         attn = params["layers"]["attn"]
@@ -202,6 +211,26 @@ def _qkv(cfg, x, a, cos, sin, ll=None, scale: float = 1.0):
     return q, k, v
 
 
+_ACTIVATIONS = {
+    "silu": F.silu,
+    # HF ACT2FN["gelu_pytorch_tanh"] (Gemma's MLPs)
+    "gelu_pytorch_tanh": functools.partial(F.gelu, approximate="tanh"),
+    "gelu": F.gelu,
+}
+
+
+def mlp_activation(cfg):
+    try:
+        return _ACTIVATIONS[cfg.hidden_act]
+    except KeyError:
+        raise ValueError(f"unsupported hidden_act {cfg.hidden_act!r}") from None
+
+
+def norm(cfg, x, scale):
+    """The decoder's RMSNorm, with Gemma's offset where the config has it."""
+    return rms_norm(x, scale, cfg.rms_norm_eps, cfg.rms_norm_offset)
+
+
 def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
     """Output projection, residual, then the MLP block."""
     B, T, _ = h.shape
@@ -211,14 +240,14 @@ def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
                           _ab(ll, group, name, "kernel"), scale)
 
     h = h + proj(out.reshape(B, T, -1), "attn", "o")
-    x = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
+    x = norm(cfg, h, lp["post_attn_norm"])
     gate, up = proj(x, "mlp", "gate"), proj(x, "mlp", "up")
-    return h + proj(F.silu(gate) * up, "mlp", "down")
+    return h + proj(mlp_activation(cfg)(gate) * up, "mlp", "down")
 
 
 def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
            attend_fresh, ll=None, scale: float = 1.0):
-    x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+    x = norm(cfg, h, lp["input_norm"])
     q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     if layer_cache is not None:
         T = h.shape[1]
@@ -247,16 +276,45 @@ def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
     if remat == "full":
         return ckpt(lambda h: _layer(cfg, h, lp, cos, sin, None, None, attn,
                                      False, ll, scale), h)
-    eps = cfg.rms_norm_eps
     if remat == "save_qkv":
-        x = ckpt(lambda h: rms_norm(h, lp["input_norm"], eps), h)
+        x = ckpt(lambda h: norm(cfg, h, lp["input_norm"]), h)
         q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     else:
-        q, k, v = ckpt(lambda h: _qkv(cfg, rms_norm(h, lp["input_norm"], eps),
+        q, k, v = ckpt(lambda h: _qkv(cfg, norm(cfg, h, lp["input_norm"]),
                                       lp["attn"], cos, sin, ll, scale), h)
     out = attn(q, k, v)
     return ckpt(lambda h, out: _post_attention(cfg, h, out, lp, ll, scale),
                 h, out)
+
+
+def _or_bidirectional(mask, q_segments, kv_segments, kv_bidir):
+    """Unmask the [q, kv] pairs whose key slot carries a prefix-LM flag
+    (same segment, not padding) on top of a [B, 1, T, S] causal mask (the
+    JAX ``_or_bidirectional``)."""
+    seg = ((q_segments[:, :, None] == kv_segments[:, None, :])
+           & (kv_segments[:, None, :] != 0))
+    return mask | (seg[:, None] & (kv_bidir[:, None, None, :] != 0))
+
+
+def prefix_lm_attention(mask, remat=False):
+    """PaliGemma's prefix-LM attention: the dense masked attention
+    (``xla_attention``) over the [B, 1, T, S] mask, where the JAX decoder
+    also runs its dense XLA attention (the flash kernels take segments and
+    causality, not an arbitrary mask).  It runs one batch row at a time,
+    so its f32 scores are one row's; in training under a remat mode each
+    row sits in its own checkpoint, and the backward recomputes one row's
+    scores at a time.  Chosen by the mask, never by a failure."""
+    def attn(q, k, v):
+        rows = []
+        for b in range(q.shape[0]):
+            args = (q[b:b + 1], k[b:b + 1], v[b:b + 1], mask[b:b + 1])
+            if remat and torch.is_grad_enabled():
+                rows.append(ckpt(xla_attention, *args))
+            else:
+                rows.append(xla_attention(*args))
+        return torch.cat(rows)
+
+    return attn
 
 
 def apply(
@@ -267,6 +325,7 @@ def apply(
     inputs_embeds: torch.Tensor | None = None,
     position_ids: torch.Tensor,
     segment_ids: torch.Tensor | None = None,
+    bidirectional_mask: torch.Tensor | None = None,
     cache: dict | None = None,
     cache_mode: str = "extend",
     precision: Precision = DEFAULT_PRECISION,
@@ -293,6 +352,14 @@ def apply(
     ``lora``: an adapter tree parallel to ``params`` (``train/adapters.py
     init_lora_params``; its "layers" subtree is read), applied factored
     with ``lora_scale`` on every path, cached decoding included.
+
+    ``bidirectional_mask`` [B, T]: prefix-LM flags of the fresh block
+    (PaliGemma): every query may also attend a flagged key of its segment
+    that lies ahead of it.  With no cache, in "prefill" and in "extend"
+    (whose flags go into a fresh [B, S] row over the cache's slots at the
+    block's place) such a mask runs ``prefix_lm_attention``; "decode"
+    ignores it (a new token attends the valid cache prefix causally, which
+    is exact) and keeps K4.
     """
     if remat and cache is not None:
         raise ValueError("remat is for training; it takes no cache")
@@ -301,6 +368,11 @@ def apply(
     if inputs_embeds is None:
         inputs_embeds = common.embed_lookup(params["embed"]["weight"], input_ids)
     h = inputs_embeds.to(precision.compute_dtype)
+    if cfg.scale_embeds:
+        # Gemma scales the embeddings by sqrt(hidden) inside the decoder,
+        # after any VLM feature merge; the factor is rounded to the compute
+        # dtype first, as the JAX decoder's jnp.asarray(.., h.dtype)
+        h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype)
     B, T, _ = h.shape
     device = h.device
 
@@ -320,6 +392,9 @@ def apply(
     def fresh_attention():
         mask = make_attention_mask(segment_ids, segment_ids, q_index, q_index,
                                    causal=True)
+        if bidirectional_mask is not None:
+            return prefix_lm_attention(_or_bidirectional(
+                mask, segment_ids, segment_ids, bidirectional_mask), remat)
         if attention_fn is None:
             return lambda q, k, v: xla_attention(q, k, v, mask)
         return functools.partial(attention_fn, mask=mask,
@@ -348,9 +423,16 @@ def apply(
             mask = make_attention_mask(segment_ids, kv_segments,
                                        q_index + write_idx, kv_index,
                                        causal=True)
-            attn = lambda q, ck, cv: xla_attention(
+            dense = lambda q, k, v: xla_attention(q, k, v, mask)
+            if bidirectional_mask is not None:
+                kv_bidir = torch.zeros((B, S), dtype=torch.int32,
+                                       device=device)
+                kv_bidir[:, write_idx:write_idx + T] = bidirectional_mask
+                dense = prefix_lm_attention(_or_bidirectional(
+                    mask, segment_ids, kv_segments, kv_bidir))
+            attn = lambda q, ck, cv: dense(
                 q, ck.transpose(1, 2).to(q.dtype),
-                cv.transpose(1, 2).to(q.dtype), mask)
+                cv.transpose(1, 2).to(q.dtype))
     else:
         attn = fresh_attention()
 
@@ -367,7 +449,7 @@ def apply(
                        else None)
         h = _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
                    attend_fresh, ll, lora_scale)
-    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    h = norm(cfg, h, params["final_norm"])
     if cache is not None:
         cache["write_idx"] = write_idx + T
     return h, cache

@@ -1,7 +1,7 @@
 """Model bundles (counterpart of iadr1_tpu/models/registry.py) for the
 families ported so far: Qwen2 (text), Qwen2-VL and Qwen2.5-VL (images and
 videos), LLaVA-OneVision, LLaVA-1.5 / LLaVA-NeXT (images), LLaVA-NeXT-Video
-and Video-LLaVA (images and videos), and InternVL.
+and Video-LLaVA (images and videos), InternVL, PaliGemma and Pixtral.
 
 A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
@@ -9,7 +9,9 @@ cache_mode=..., remat=False, lora=None, lora_scale=1.0)``,
 ``hidden_fn(params, batch, remat=True, lora=..., lora_scale=...)``,
 ``head_kernel_fn(params)``, ``logits_fn(params, hidden)``,
 ``shared_pred_fn(params, batch, group_size, remat=True, lora=None,
-lora_scale=1.0)`` (GRPO's shared-prompt scoring),
+lora_scale=1.0)`` (GRPO's shared-prompt scoring; None for PaliGemma and
+Pixtral, which have none in JAX either: their SC-GRPO update is the dense
+one),
 ``init_params(seed, dtype, device)``,
 ``convert_hf(state, dtype, device)`` and, for the multimodal families,
 the host-side ``vision_arrays`` and ``preprocess_image`` (and, for the
@@ -37,6 +39,8 @@ from iadr1_tpu_torch.models import (
     internvl,
     llava,
     llava_onevision,
+    paligemma,
+    pixtral,
     qwen2,
     qwen2_vl,
     qwen25_vl,
@@ -107,10 +111,21 @@ LLAMA_TEXT_DEFAULTS = dict(
     rope_theta=10000.0, tie_word_embeddings=False)
 
 
+# transformers.MistralConfig's defaults, for the same reason: Pixtral-12B's
+# published text_config leaves out num_attention_heads (32), and a sparse
+# one without rope_theta means 1e4.  The JAX package reads the heads as a
+# required key and fills rope_theta with 1e6 (ROADMAP C.R17).
+MISTRAL_TEXT_DEFAULTS = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=False)
+TEXT_DEFAULTS = {"llama": LLAMA_TEXT_DEFAULTS,
+                 "mistral": MISTRAL_TEXT_DEFAULTS}
+
+
 def _qwen2_text_cfg(hf: dict, attention_bias: bool = True
                     ) -> qwen2.Qwen2Config:
-    if hf.get("model_type") == "llama":
-        hf = {**LLAMA_TEXT_DEFAULTS, **hf}
+    hf = {**TEXT_DEFAULTS.get(hf.get("model_type"), {}), **hf}
     rs = hf.get("rope_scaling") or {}
     if rs.get("rope_type", rs.get("type")) not in (None, "mrope", "default"):
         raise NotImplementedError(
@@ -690,8 +705,8 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
     video tower.  The tower's attention is the decoder's dispatch, K1 on
     the card (D = 64 at CLIP-L's width), each tile or frame its own
     sequence and the zero tiles that pad a stream masked out
-    (``tile_segments``, ``video_tile_segments``).  Pixtral waits for
-    ROADMAP A.13."""
+    (``tile_segments``, ``video_tile_segments``).  A pixtral
+    ``vision_config`` makes it Pixtral (``make_pixtral_bundle``)."""
     from iadr1_tpu_torch.vision import anyres
 
     archs = list(hf_config.get("architectures") or [])
@@ -700,8 +715,7 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
     # HF ships Pixtral as LlavaForConditionalGeneration with a pixtral
     # vision_config: another tower and decoder
     if vis_hf.get("model_type") == "pixtral":
-        raise NotImplementedError(
-            "Pixtral is not ported yet (ROADMAP A.13)")
+        return make_pixtral_bundle(hf_config, attention, precision)
     lnv_mode = ("LlavaNextVideoForConditionalGeneration" in archs
                 or mt == "llava_next_video")
     videollava_mode = ("VideoLlavaForConditionalGeneration" in archs
@@ -1009,6 +1023,253 @@ def make_internvl_bundle(hf_config: dict, attention: str = "auto",
     )
 
 
+# the collated arrays PaliGemma's and Pixtral's compute_embeds read
+PALIGEMMA_BATCH_KEYS = ("tiles", "tile_segments", "scatter_rows",
+                        "scatter_cols")
+PIXTRAL_BATCH_KEYS = ("patch_stream", "patch_pos_ids", "patch_segments",
+                      "scatter_rows", "scatter_cols")
+
+
+def make_paligemma_bundle(hf_config: dict, attention: str = "auto",
+                          precision: Precision = DEFAULT_PRECISION
+                          ) -> ModelBundle:
+    """PaliGemma: the SigLIP tower over one square tile per image, the
+    linear projector, the Gemma decoder (the Qwen2 module with
+    ``rms_norm_offset``, ``gelu_pytorch_tanh`` and ``scale_embeds``) as a
+    prefix LM with 1-indexed positions.  The tower's attention is the
+    dispatch, K1 on the card (D = 72 at so400m's width, (image_size /
+    14)^2 tokens a tile), with the budget's padding tiles at segment 0.
+    The decoder's prefill, training and scoring attention is prefix-LM,
+    hence dense (``qwen2.prefix_lm_attention``), as in the JAX bundle;
+    its single-token decode is K4 (D = 256, 8 heads over 1 at Gemma-2B's
+    width).  No shared-prompt scoring (none in JAX)."""
+    text_hf, vis_hf = hf_config["text_config"], hf_config["vision_config"]
+    tcfg = dataclasses.replace(
+        _qwen2_text_cfg({**text_hf,
+                         "rope_theta": text_hf.get("rope_theta", 10000.0),
+                         "tie_word_embeddings": text_hf.get(
+                             "tie_word_embeddings", True)}),
+        attention_bias=bool(text_hf.get("attention_bias", False)),
+        rms_norm_offset=1.0,
+        hidden_act=(text_hf.get("hidden_act",
+                                text_hf.get("hidden_activation"))
+                    or "gelu_pytorch_tanh"),
+        scale_embeds=True)
+    vcfg = siglip.SiglipVisionConfig(
+        hidden_size=vis_hf.get("hidden_size", 1152),
+        intermediate_size=vis_hf.get("intermediate_size", 4304),
+        num_hidden_layers=vis_hf.get("num_hidden_layers", 27),
+        num_attention_heads=vis_hf.get("num_attention_heads", 16),
+        image_size=vis_hf.get("image_size", 224),
+        patch_size=vis_hf.get("patch_size", 14),
+        layer_norm_eps=vis_hf.get("layer_norm_eps", 1e-6),
+    )
+    cfg = paligemma.PaliGemmaConfig(
+        text=tcfg, vision=vcfg,
+        image_token_id=hf_config.get("image_token_index",
+                                     hf_config.get("image_token_id", 257152)),
+        projection_dim=vis_hf.get("projection_dim",
+                                  hf_config.get("projection_dim")))
+    tower_attn = default_attention(attention)
+    decode_attn = default_decode_attention(attention)
+    g = vcfg.grid
+    mean = np.asarray(hf_config.get("image_mean", (0.5, 0.5, 0.5)),
+                      np.float32)
+    std = np.asarray(hf_config.get("image_std", (0.5, 0.5, 0.5)), np.float32)
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None, lora=None, lora_scale=1.0):
+        return paligemma.apply(
+            params, cfg, batch["input_ids"], batch["position_ids"],
+            **{k: batch.get(k) for k in PALIGEMMA_BATCH_KEYS},
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=precision,
+            decode_attention_fn=decode_attn, tower_attention_fn=tower_attn,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale)
+
+    def preprocess_image(pil, min_pixels=None, max_pixels=None):
+        """PIL image -> (patches [1, g*g, patch_dim], (1, 1, height,
+        width), g*g): SiglipImageProcessor's plain bicubic resize to the
+        square input, mean and std 0.5 (the checkpoint's where
+        ``bundle_from_pretrained`` found them); the pixel bounds are the
+        Qwen2-VL family's and are not read."""
+        from iadr1_tpu_torch.vision import anyres
+
+        arr = anyres.resize_normalize(
+            pil, (vcfg.image_size, vcfg.image_size), mean, std)
+        patches = anyres.patchify_tiles(arr[None], vcfg.patch_size)
+        return patches, (1, 1, pil.height, pil.width), g * g
+
+    def vision_arrays(input_ids, patches_list, grids, patch_budget):
+        """Host precompute for one batch (numpy): one tile per image,
+        padded with zero tiles to ``patch_budget // g**2`` tiles (at least
+        one), each tile's segment id (``_tile_segments``), and the scatter
+        indices of the image tokens in reading order, one feature a token
+        (the prepended runs)."""
+        B = input_ids.shape[0]
+        tile_budget = max(patch_budget // (g * g), 1)
+        n_tiles = len(patches_list)
+        if n_tiles > tile_budget:
+            raise ValueError(f"{n_tiles} images exceed the budget of "
+                             f"{tile_budget} tiles")
+        tiles = np.zeros((tile_budget, g * g, vcfg.patch_dim), np.float32)
+        for i, p in enumerate(patches_list):
+            tiles[i] = p[0]
+        rows_idx, cols_idx = np.nonzero(input_ids == cfg.image_token_id)
+        if len(rows_idx) != n_tiles * g * g:
+            raise ValueError(f"{len(rows_idx)} image tokens for "
+                             f"{n_tiles * g * g} image features")
+        srows = np.full(tile_budget * g * g, B, np.int64)
+        scols = np.zeros(tile_budget * g * g, np.int64)
+        srows[:len(rows_idx)], scols[:len(cols_idx)] = rows_idx, cols_idx
+        return {"tiles": tiles,
+                "tile_segments": _tile_segments(tile_budget, n_tiles),
+                "scatter_rows": srows, "scatter_cols": scols}
+
+    def init_params(seed=0, dtype=None, device=None):
+        gen, device = _generator(seed, device)
+        return paligemma.init_params(gen, cfg, dtype or precision.param_dtype,
+                                     device)
+
+    return ModelBundle(
+        family="paligemma", cfg=cfg, multimodal=True,
+        init_params=init_params,
+        convert_hf=lambda state, dtype=None, device=None:
+            paligemma.convert_hf(state, cfg,
+                                 dtype=dtype or precision.param_dtype,
+                                 device=device),
+        apply=apply,
+        logits_fn=lambda params, h: paligemma.logits(params, cfg, h,
+                                                     precision),
+        vision_arrays=vision_arrays,
+        preprocess_image=preprocess_image,
+        template="paligemma",
+        precision=precision,
+    )
+
+
+def pixtral_resize_hw(height: int, width: int, longest_edge: int,
+                      patch_size: int) -> tuple[int, int]:
+    """transformers' PixtralImageProcessor size: an image longer than
+    ``longest_edge`` is scaled to fit, each side FLOORED, then each side
+    rounded up to whole patches.  The JAX bundle rounds the scaled sides
+    up (``math.ceil``, ROADMAP C.R2), which can add a row or column of
+    patches."""
+    ratio = max(height / longest_edge, width / longest_edge)
+    if ratio > 1:
+        height = int(np.floor(height / ratio))
+        width = int(np.floor(width / ratio))
+    return (-(-height // patch_size) * patch_size,
+            -(-width // patch_size) * patch_size)
+
+
+def make_pixtral_bundle(hf_config: dict, attention: str = "auto",
+                        precision: Precision = DEFAULT_PRECISION
+                        ) -> ModelBundle:
+    """Pixtral: the 2-D-RoPE tower over one packed patch stream (each
+    image its own segment, the budget's padding at 0), the LLaVA
+    projector, the Mistral decoder with 1-D positions.  HF ships it as
+    ``LlavaForConditionalGeneration`` with a pixtral ``vision_config``
+    (``make_llava_bundle`` routes here).  Each tower layer is one
+    non-causal, segment-masked K1 call over the stream (D = 64 at
+    Pixtral-ViT's width); the decoder runs K1-K4.  No shared-prompt
+    scoring (none in JAX)."""
+    text_hf, vis_hf = hf_config["text_config"], hf_config["vision_config"]
+    tcfg = _qwen2_text_cfg(text_hf, attention_bias=False)
+    vcfg = pixtral.PixtralVisionConfig(
+        hidden_size=vis_hf.get("hidden_size", 1024),
+        intermediate_size=vis_hf.get("intermediate_size", 4096),
+        num_hidden_layers=vis_hf.get("num_hidden_layers", 24),
+        num_attention_heads=vis_hf.get("num_attention_heads", 16),
+        image_size=vis_hf.get("image_size", 1024),
+        patch_size=vis_hf.get("patch_size", 16),
+        rope_theta=vis_hf.get("rope_theta", 10000.0),
+    )
+    cfg = pixtral.PixtralConfig(
+        text=tcfg, vision=vcfg,
+        image_token_id=hf_config.get("image_token_index",
+                                     hf_config.get("image_token_id", 10)))
+    attn = default_attention(attention)
+    decode_attn = default_decode_attention(attention)
+    ps, max_side = vcfg.patch_size, vcfg.max_side
+    mean, std = _image_stats(hf_config)
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None, lora=None, lora_scale=1.0):
+        return pixtral.apply(
+            params, cfg, batch["input_ids"], batch["position_ids"],
+            **{k: batch.get(k) for k in PIXTRAL_BATCH_KEYS},
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=precision, attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
+            lora_scale=lora_scale)
+
+    def preprocess_image(pil, min_pixels=None, max_pixels=None):
+        """PIL image -> (patches [rows * cols, patch_dim], (rows, cols),
+        (rows, cols)): ``pixtral_resize_hw``, a bicubic resize, OpenAI-CLIP
+        statistics (the checkpoint's where ``bundle_from_pretrained`` found
+        them).  The feature count is the grid: the pixtral expansion is
+        rows of [IMG] with [IMG_BREAK] / [IMG_END], not a flat run."""
+        from iadr1_tpu_torch.vision import anyres
+
+        h, w = pixtral_resize_hw(pil.height, pil.width, vcfg.image_size, ps)
+        arr = anyres.resize_normalize(pil, (h, w), mean, std)
+        patches = anyres.patchify_tiles(arr[None], ps)[0]
+        return patches, (h // ps, w // ps), (h // ps, w // ps)
+
+    def vision_arrays(input_ids, patches_list, grids, patch_budget):
+        """Host precompute for one batch (numpy): every image's patches in
+        one stream of ``patch_budget`` rows, each patch's meshgrid id
+        (row * max_side + col) and its image's segment id (1, 2, ...; 0
+        for the padding), and the scatter indices of the [IMG] tokens in
+        reading order, one patch a token."""
+        B = input_ids.shape[0]
+        stream = np.zeros((patch_budget, vcfg.patch_dim), np.float32)
+        pos = np.zeros(patch_budget, np.int64)
+        segs = np.zeros(patch_budget, np.int32)
+        off = 0
+        for i, (p, (gh, gw)) in enumerate(zip(patches_list, grids)):
+            n = p.shape[0]
+            if off + n > patch_budget:
+                raise ValueError(f"the patch stream exceeds its budget of "
+                                 f"{patch_budget}")
+            stream[off:off + n] = p
+            pos[off:off + n] = (np.arange(gh)[:, None] * max_side
+                                + np.arange(gw)).ravel()
+            segs[off:off + n] = i + 1
+            off += n
+        rows_idx, cols_idx = np.nonzero(input_ids == cfg.image_token_id)
+        if len(rows_idx) != off:
+            raise ValueError(f"{len(rows_idx)} image tokens for {off} "
+                             "image features")
+        srows = np.full(patch_budget, B, np.int64)
+        scols = np.zeros(patch_budget, np.int64)
+        srows[:off], scols[:off] = rows_idx, cols_idx
+        return {"patch_stream": stream, "patch_pos_ids": pos,
+                "patch_segments": segs, "scatter_rows": srows,
+                "scatter_cols": scols}
+
+    def init_params(seed=0, dtype=None, device=None):
+        gen, device = _generator(seed, device)
+        return pixtral.init_params(gen, cfg, dtype or precision.param_dtype,
+                                   device)
+
+    return ModelBundle(
+        family="pixtral", cfg=cfg, multimodal=True,
+        init_params=init_params,
+        convert_hf=lambda state, dtype=None, device=None: pixtral.convert_hf(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
+        apply=apply,
+        logits_fn=lambda params, h: pixtral.logits(params, cfg, h, precision),
+        vision_arrays=vision_arrays,
+        preprocess_image=preprocess_image,
+        template="pixtral",
+        precision=precision,
+    )
+
+
 FAMILY_BUILDERS = {
     "Qwen2ForCausalLM": make_qwen2_bundle,
     "qwen2": make_qwen2_bundle,
@@ -1028,6 +1289,9 @@ FAMILY_BUILDERS = {
     "video_llava": make_llava_bundle,
     "InternVLForConditionalGeneration": make_internvl_bundle,
     "internvl": make_internvl_bundle,
+    "PaliGemmaForConditionalGeneration": make_paligemma_bundle,
+    "paligemma": make_paligemma_bundle,
+    "pixtral": make_pixtral_bundle,
 }
 
 # ported families whose SC-GRPO path waits for a later slice (none now)
@@ -1037,9 +1301,6 @@ GRPO_NOT_YET_PORTED: dict[str, str] = {}
 NOT_YET_PORTED = {
     "Qwen2MoeForCausalLM": "ROADMAP A.13",
     "qwen2_moe": "ROADMAP A.13",
-    "PaliGemmaForConditionalGeneration": "ROADMAP A.13",
-    "paligemma": "ROADMAP A.13",
-    "pixtral": "ROADMAP A.13",
 }
 
 
@@ -1076,8 +1337,8 @@ def bundle_from_pretrained(path: str, **kw) -> ModelBundle:
 
 
 def _image_stats(hf_config: dict):
-    """(mean, std) f32 [3] for the anyres, center-crop and InternVL tile
-    preprocessing: the checkpoint's own where ``bundle_from_pretrained``
+    """(mean, std) f32 [3] for the anyres, center-crop, InternVL tile and
+    Pixtral preprocessing: the checkpoint's own where ``bundle_from_pretrained``
     found them, else OpenAI-CLIP's (HF's LLaVA processors' defaults, and
     the JAX InternVL bundle's)."""
     from iadr1_tpu_torch.vision import anyres

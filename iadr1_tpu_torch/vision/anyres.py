@@ -120,6 +120,20 @@ def clip_resize_center_crop(image, size: int = 336, mean=DEFAULT_MEAN,
     return arr.transpose(2, 0, 1)
 
 
+def resize_normalize(image, size_hw, mean, std) -> np.ndarray:
+    """A plain bicubic resize of the RGB image to ``size_hw`` (height,
+    width), rescaled to [0, 1] and normalised -> [3, h, w] f32 (the JAX
+    package's ``data/mm_plugins.py`` ``_to_array`` then ``_normalize``:
+    SigLIP's and Pixtral's processors)."""
+    from PIL import Image
+
+    image = image.convert("RGB").resize((size_hw[1], size_hw[0]),
+                                        resample=Image.Resampling.BICUBIC)
+    arr = np.asarray(image, np.float32) / 255.0
+    arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return arr.transpose(2, 0, 1)
+
+
 def patchify_tiles(tiles: np.ndarray, patch_size: int) -> np.ndarray:
     """[n, C, H, W] -> [n, (H // ps) * (W // ps), C * ps * ps] in the patch
     embedding convolution's order (channel, then row, then column).  Rows

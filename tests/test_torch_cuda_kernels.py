@@ -923,3 +923,92 @@ def test_video_frame_rollout_tokens_equal_the_plain_path(card, monkeypatch):
     want = engine.generate(params, batch)["completion_ids"]
     assert (k1.KERNEL.launches, k4.KERNEL.launches) == launches
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 200, 520])
+def test_decode_kernel_at_head_dim_256_group_8(card, length):
+    """K4 at its largest head dim and group together (PaliGemma's Gemma-2B
+    decode: 8 heads over 1, D = 256, about 78 KB of shared memory a
+    block): the chunk edges, whole dead chunks, and slots past ``length``
+    filled with NaN (never read)."""
+    B, H, Hkv, S, D = 3, 8, 1, 520, 256
+    gen = torch.Generator(device=card).manual_seed(length + 256)
+    q = _rand(gen, (B, H, D), card)
+    k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    seg[0, :130] = 0
+    seg[1, 64:128] = 0
+    seg[2, 3:5] = 0
+    k[:, :, length:] = float("nan")
+    v[:, :, length:] = float("nan")
+    before = k4.KERNEL.launches
+    out = k4.decode_attention(q, k, v, seg, length)
+    assert k4.KERNEL.launches == before + 1
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,S", [(4, 2176), (8, 4608)],
+                         ids=["paligemma-serve", "paligemma-grpo-fan-out"])
+def test_decode_kernel_at_the_paligemma_decoder(card, B, S):
+    """K4 at PaliGemma-3B's serving cache (P + N = 2048 + 128) and over its
+    SC-GRPO fan-out (8 rows of 4096 + 512), D = 256, group 8, left padding
+    and a dead span."""
+    H, Hkv, D, length = 8, 1, 256, S - 37
+    gen = torch.Generator(device=card).manual_seed(S + B)
+    q = _rand(gen, (B, H, D), card)
+    k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    seg[:, :100] = 0
+    seg[1, 500:700] = 0
+    v[:, :, length:] = float("nan")
+    out = k4.decode_attention(q, k, v, seg, length)
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_kernels_at_the_siglip_448_tower(card):
+    """K1-K3 at PaliGemma-448's SigLIP tower: each tile its own sequence
+    of 1024 patches (sixteen whole 64-row blocks), 16 heads, D = 72
+    (staged at 80), non-causal; the last two tiles pad the budget at
+    segment 0 (out 0, no gradient)."""
+    B, H, T, D = 6, 16, 1024, 72
+    gen = torch.Generator(device=card).manual_seed(448)
+    q, k, v, do = (_rand(gen, (B, H, T, D), card) for _ in range(4))
+    seg = torch.zeros((B, T), dtype=torch.int32, device=card)
+    seg[:4] = 1
+    valid = _check_flash(q, k, v, do, seg, causal=False)
+    assert valid[:4].all() and not valid[4:].any()
+
+
+def test_flash_kernels_over_the_pixtral_patch_stream(card):
+    """K1-K3 at Pixtral's tower: one row holding the batch's packed patch
+    stream (images of 1024, 735, 735 and 3072 patches, one segment each,
+    the budget's tail at 0), 16 heads, D = 64, non-causal: segments that
+    end inside a 64-row block, a block-diagonal mask far from the
+    diagonal's tiles."""
+    H, D, sizes, budget = 16, 64, (1024, 735, 735, 3072), 6144
+    gen = torch.Generator(device=card).manual_seed(5566)
+    q, k, v, do = (_rand(gen, (1, H, budget, D), card) for _ in range(4))
+    seg = torch.zeros((1, budget), dtype=torch.int32, device=card)
+    off = 0
+    for i, n in enumerate(sizes):
+        seg[0, off:off + n] = i + 1
+        off += n
+    valid = _check_flash(q, k, v, do, seg, causal=False)
+    assert valid[0, :, :off].all() and not valid[0, :, off:].any()
+
+
+def test_flash_kernels_at_the_pixtral_decoder(card):
+    """K1-K3 at Mistral-NeMo's decoder attention (Pixtral-12B: 32 heads
+    over 8, head_dim 128): left-padded rows, causal, T = 1100 (a last
+    block of 12 rows)."""
+    B, H, Hkv, T, D = 2, 32, 8, 1100, 128
+    gen = torch.Generator(device=card).manual_seed(12)
+    q, do = _rand(gen, (B, H, T, D), card), _rand(gen, (B, H, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    _check_flash(q, k, v, do, _bwd_segments("leftpad", B, T, gen, card),
+                 causal=True)

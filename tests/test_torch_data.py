@@ -317,13 +317,23 @@ def test_prepare_rows_from_the_registry_matches_jax(name, tok, vlm_hf,
 
 
 def test_the_paligemma_branch_names_its_roadmap_item(tok, vlm_hf, tmp_path):
+    """The PaliGemma branch is ported (tests/test_torch_paligemma.py): with
+    the paligemma mm style the placeholders are stripped and each image's
+    run goes ahead of the encoded ids, rows equal to JAX's."""
     data_path, img_dir = build_iad_sft_dataset(tmp_path)
-    template = dataclasses.replace(get_template("qwen2_vl"),
-                                   mm_style="paligemma")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        train_sft.prepare_rows(train_sft.DataSection(
-            dataset=data_path, image_dir=img_dir, **IMAGE_KW), tok, template,
-            bundle_from_hf_config(vlm_hf))
+    data = dict(dataset=data_path, image_dir=img_dir, cutoff_len=256,
+                **IMAGE_KW)
+    got = train_sft.prepare_rows(
+        train_sft.DataSection(**data), tok,
+        dataclasses.replace(get_template("qwen2_vl"), mm_style="paligemma"),
+        bundle_from_hf_config(vlm_hf))
+    want = jax_sft.prepare_rows(
+        jax_sft.DataSection(**data), tok,
+        dataclasses.replace(jax_template("qwen2_vl"), mm_style="paligemma"),
+        jax_bundle(vlm_hf, attention="xla"))
+    _rows_equal(got, want)
+    image = tok.convert_tokens_to_ids("<|image_pad|>")
+    assert all(int(r["input_ids"][0]) == image for r in got)
 
 
 # ---------------------------------------------------------------------------

@@ -219,16 +219,17 @@ def test_registry_resolves_the_family(tiny, key):
     "LlavaNextVideoForConditionalGeneration",
     "VideoLlavaForConditionalGeneration", "pixtral"])
 def test_video_and_pixtral_families_name_their_item(next_tiny, arch):
-    """Pixtral still names its ROADMAP item; the video families are ported
-    (tests/test_torch_video.py) and build with their family and
-    template."""
+    """The video families (tests/test_torch_video.py) and Pixtral (a
+    LLaVA config with a pixtral vision_config, tests/test_torch_pixtral.py)
+    are ported and build with their family and template."""
     hf = dict(next_tiny["hf"], architectures=[arch],
               model_type=arch if arch != "pixtral" else "llava")
     if arch == "pixtral":
         hf["architectures"] = ["LlavaForConditionalGeneration"]
         hf["vision_config"] = dict(hf["vision_config"], model_type="pixtral")
-        with pytest.raises(NotImplementedError, match="A.13"):
-            bundle_from_hf_config(hf)
+        bundle = bundle_from_hf_config(hf)
+        assert bundle.family == bundle.template == "pixtral"
+        assert arch not in NOT_YET_PORTED
         return
     family = {"LlavaNextVideoForConditionalGeneration": "llava_next_video",
               "VideoLlavaForConditionalGeneration": "video_llava"}[arch]
@@ -861,14 +862,15 @@ def check_shared_pred(jb, tb, case):
     np.testing.assert_allclose(got[m], want[m], atol=LOGITS_ATOL, rtol=0)
 
 
-def check_update(jb, tb, case, shared):
-    """C.R9 repaired: the port's update batch carries the image arrays;
-    one update on it matches JAX's update step (dense attention) fed the
-    same batch: every metric, and every parameter after it."""
+def check_update(jb, tb, case, shared, vision_key="tiles"):
+    """C.R9 repaired: the port's update batch carries the image arrays
+    (``vision_key`` among them); one update on it matches JAX's update
+    step (dense attention) fed the same batch: every metric, and every
+    parameter after it."""
     metrics, batch, tt = port_update(tb, case, shared)
     vision = set(case["tcollate"](case["examples"], 1)) - set(
         tgrpo.PROMPT_KEYS)
-    assert "tiles" in vision and vision <= set(batch)
+    assert vision_key in vision and vision <= set(batch)
     assert "position_ids" not in case["tcollate"](case["examples"], 1)
     G = GRPO_KW["num_generations"]
     cfg = jgrpo.GRPOConfig(**GRPO_KW, shared_prompt_scoring=shared,

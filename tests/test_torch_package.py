@@ -67,6 +67,10 @@ ADAPTER_MODULES = ["models.quant", "train.adapters", "models.params_io",
 INTERNVL_VIDEO_MODULES = ["models.internvl", "models.registry", "data.mm",
                           "data.collator", "vision.preprocess",
                           "vision.mrope", "models.qwen2_vl"]
+# PaliGemma and Pixtral
+PALIGEMMA_PIXTRAL_MODULES = ["models.paligemma", "models.pixtral",
+                             "cli.train_sft", "cli.train_grpo",
+                             "eval.generator"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -78,7 +82,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert len(names) >= 40                        # every module was reached
     missing = [m for m in (GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
                            + FAMILY_MODULES + ADAPTER_MODULES
-                           + INTERNVL_VIDEO_MODULES)
+                           + INTERNVL_VIDEO_MODULES
+                           + PALIGEMMA_PIXTRAL_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
