@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (iadr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--max-new-tokens N] [--train-steps N]
-                          [--grpo-steps N] [--phases 3,27,28]
+                          [--grpo-steps N] [--phases 3,29,30,31]
 
 Phases, a line each at least, then the kernel JSON line, the card line and the
 result line:
@@ -84,9 +84,9 @@ result line:
    with one batch's launches;
 10. chain (after 7): the IAD-R1 recipe through one call of the port's
    run_pipeline at full Qwen2-VL-2B width, its entry points as a user
-   calls them: a base checkpoint (the published config cut to 12 decoder
-   layers and 12 tower blocks, so that the run writes 36 GB to disk and
-   not 75, seeded bf16 weights written by save_pretrained, a WordLevel
+   calls them: a base checkpoint (the published config cut to 4 decoder
+   layers and 4 tower blocks, so that the run writes about 18 GB to disk
+   and not 75, seeded bf16 weights written by save_pretrained, a WordLevel
    tokenizer over the
    head's 151936 ids with Qwen's specials at their published ids), seeded
    448x448 images, 8 IAD SFT rows, 4 RL rows and phase 8's benchmark;
@@ -112,8 +112,9 @@ result line:
    26 + 24 times a generate and K4 24 times a decode step, no plain twin
    may be called, and the kernel path's prefill logits must agree with
    the twin path's;
-12. LLaVA-OneVision PA-SFT (after 11): the same model, f32 parameters
-   drawn on the card, takes the training steps through
+12. LLaVA-OneVision PA-SFT (after 11): the same model, its decoder cut
+   to 12 of 24 layers, f32 parameters drawn on the card, takes the
+   training steps through
    make_chunked_sft_step and run_sft_loop on
    configs/sft_llava_onevision_0_5b.yaml's settings, read by the port's
    config loader (4 rows of 8192, remat save_qkv, tower remat save_acts,
@@ -132,8 +133,9 @@ result line:
    32 + 28 times a generate and K4 28 times a decode step, no plain twin
    may be called, and the kernel path's prefill logits must agree with
    the twin path's;
-14. Qwen2.5-VL PA-SFT (after 13): Qwen2.5-VL-3B at full width and depth
-   (36 decoder layers, GQA 8, tied head; f32 parameters drawn on the card)
+14. Qwen2.5-VL PA-SFT (after 13): Qwen2.5-VL-3B at full width (its
+   decoder cut to 18 of 36 layers, GQA 8, tied head; the tower whole; f32
+   parameters drawn on the card)
    takes the training steps on configs/sft_qwen2_5_vl_7b.yaml's settings
    through the port's config loader (rows of 4096, patch budget 8192,
    remat save_qkv, CE chunk 4096 in bf16, AdamW lr 1e-5 cosine, weight
@@ -155,7 +157,8 @@ result line:
    must fail that limit), and print each step-level control's margin to
    its limits.
 16. LLaVA-OneVision SC-GRPO (after 15): LLaVA-OneVision-0.5B at full
-   width and depth takes 2 steps of GRPOTrainer.step on the grpo section
+   width (its decoder cut to 12 of 24 layers, the tower whole) takes 2
+   steps of GRPOTrainer.step on the grpo section
    of configs/grpo_qwen2_5_vl_7b.yaml (the patch budget sized for tiles
    of 729) on a 448x448 and a 336x560 one-image prompt, 1-D positions,
    as phase 7 checks its steps; the update batch must hold tiles,
@@ -202,8 +205,8 @@ result line:
    depth (32 decoder layers) over an nf4 base quantized on the card layer
    by layer, on phase 19's rows and settings, checked as phase 20; (b)
    Qwen2.5-VL-7B serving phase 13's requests over int8 weights (the infer
-   CLI's --quant int8), checked as phase 13, with its quantized_bytes
-   ratio; (c) one nf4 generate of the same model, its decoder cut to 8
+   CLI's --quant int8), 64 new tokens, checked as phase 13, with its
+   quantized_bytes ratio; (c) one nf4 generate of the same model, its decoder cut to 8
    of 28 layers for the smoke's time.
 23. InternVL serving (after 22): InternVL-2.5-4B at full width and depth
    (OpenGVLab/InternVL2_5-4B's config: the InternViT-300M tower, 24
@@ -214,12 +217,12 @@ result line:
    other 2 at segment 0; P=4096) through VLMGenerator._collate and
    RolloutEngine.generate, as phase 11 checks its generate (K1 24 + 36
    times, K4 36 times a step);
-24. InternVL PA-SFT (after 23): the same model, f32 parameters drawn on
-   the card, takes 3 steps on configs/sft_qwen2_5_vl_7b.yaml's settings
-   with the intern_vl template, its batch cut from 8 rows to 2 of 4096
-   and its patch budget grown to 16 tiles (one 336x560 image of 7 tiles a
-   row), as phase 12 checks its steps (K1, K2 and K3 24 + 36 times each a
-   step);
+24. InternVL PA-SFT (after 23): the same model, its decoder cut to 18 of
+   36 layers, f32 parameters drawn on the card, takes 3 steps on
+   configs/sft_qwen2_5_vl_7b.yaml's settings with the intern_vl template,
+   its batch cut from 8 rows to 2 of 4096 and its patch budget grown to
+   16 tiles (one 336x560 image of 7 tiles a row), as phase 12 checks its
+   steps (K1, K2 and K3 24 + 18 times each a step);
 25. InternVL SC-GRPO (after 24): the same model, its decoder cut to 12
    of 36 layers for the smoke's time, takes 2 steps of
    GRPOTrainer.step on the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
@@ -227,7 +230,8 @@ result line:
    prompt, as phase 15 checks its steps (the per-call lse-cotangent probe
    and its half-weight control included); the update batch must hold
    tiles and tile_segments (C.R9) and the tower's launches are counted;
-26. videos (after 25): (a) Qwen2-VL-2B PA-SFT at full width (f32), 3
+26. videos (after 25): (a) Qwen2-VL-2B PA-SFT at full width (f32, the
+   decoder cut to 14 of 28 layers), 3
    steps on configs/sft_qwen2_5_vl_7b.yaml's settings (the tower's remat
    save_acts) on 2 rows of 4096, each with one video of 8 frames of
    336x448 (4 temporal patches of 768, one tower segment each) through
@@ -250,11 +254,12 @@ result line:
    paligemma template (f32 parameters, rows cut from 8 to 2 of 4096) as
    phase 12 checks its steps, K1-K3 27 times each a step and 18 dense
    calls; (c) takes 2 SC-GRPO steps on the grpo section of
-   configs/grpo_qwen2_5_vl_7b.yaml (G=4, P=4096, N=512, f32 policy, bf16
-   reference): the dense update over the G-repeated batch (no shared path
-   in either package), which must carry the tiles (C.R9), step 1 held to
-   the plain path on the recorded rollout with a dq-zeroed control, K1 81
-   and K2/K3 27 a step, 54 dense calls;
+   configs/grpo_qwen2_5_vl_7b.yaml (G=4, P=4096, N cut from 512 to 128,
+   the decoder from 18 to 9 layers, f32 policy, bf16 reference): the
+   dense update over the G-repeated batch (no shared path in either
+   package), which must carry the tiles (C.R9), step 1 held to the plain
+   path on the recorded rollout with a dq-zeroed control, K1 81 and K2/K3
+   27 a step (the tower's), 27 dense calls (3 a decoder layer);
 28. Pixtral-12B (after 27; mistral-community/pixtral-12b's config: the
    Mistral-NeMo decoder, 40 layers of 32 heads over 8, D = 128;
    Pixtral-ViT, 24 layers of 16 heads, D = 64; 12.68 B parameters, bf16,
@@ -265,9 +270,33 @@ result line:
    of 4096, the pixtral template); (c) LoRA SC-GRPO with reference
    elision (configs/grpo_llava_next_34b.yaml's finetuning over the grpo
    section of configs/grpo_qwen2_5_vl_7b.yaml, N cut to 128 and P to
-   2048): the dense update, one base copy, K1 192 and K2/K3 40 a step
-   (the frozen tower takes no gradient), step 1 against the plain path
-   with a dq-zeroed control.
+   2048, the decoder cut to 20 of 40 layers): the dense update, one base
+   copy, K1 and K2/K3 a step by the layers, step 1 against the plain
+   path with a dq-zeroed control.
+29. Qwen1.5-MoE-A2.7B (24 layers of 16 heads over 16, D = 128, 60
+   experts of 1408, top 4, a shared expert of 5632; 14.3 B parameters,
+   seeded): (a) serves 4 chatml text requests (P=1024, 128 new tokens,
+   greedy) through RolloutEngine.generate, K1 24 a generate and K4 24 a
+   step, the prefill's and the first decode step's logits against the
+   plain path's with the kernel path's experts (the unpinned reading
+   logged beside); (b) PA-SFT in full parameters (f32, AdamW) with the
+   router's aux loss, the decoder cut to 4 of 24 layers (2.9 B), 3 steps
+   of 2 x 4096 packed text rows, step 1 (loss, aux, grad norm, q/k/v and
+   router grad norms) against the plain path, a control with the routing
+   weights detached; (c) SC-GRPO of the same cut (f32 policy, bf16
+   reference, G=4, P=1024, N=128, 2 text prompts, 2 steps), the dense
+   update, a dq-zeroed control.
+30. context extension: LoRA PA-SFT of LLaVA-NeXT-8B at full depth (bf16
+   base, LoRA's defaults) on one row of 16384 (8 one-image examples),
+   model.rope_scaling linear with model_max_length 16384 (factor 2 over
+   8192, written into text_config) and model.shift_attn: two K1 calls a
+   decoder layer on LongLoRA's grouped views, K2 and K3 as many; step 1
+   against the plain path, a dq-zeroed control.
+31. Mixture-of-Depths: convert_to_mod over Qwen2-VL-2B's decoder as a
+   Qwen2 text model (28 layers, f32, routers drawn from a seed), capacity
+   0.125 on 2 rows of 4096, 3 AdamW steps: K1-K3 once a layer a step on
+   the 512 gathered rows; step 1 against the plain path with the kernel
+   path's rows, a dq-zeroed control.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -286,7 +315,10 @@ budget and K1-K3 over its SFT budget (tiles of 1024, D = 72, padding
 tiles at segment 0); K1-K3 over Pixtral's packed patch stream (one row of
 6144, D = 64, one segment an image); K1 at the Mistral-NeMo prefill,
 K1-K3 at its LoRA SFT rows and its dense SC-GRPO update rows, K4 over its
-serving cache.
+serving cache; and at phases 29-31's: K1 at Qwen1.5-MoE's prefill (16
+heads over 16), K4 over its serving cache and its SC-GRPO fan-out, K1-K3
+at LongLoRA's grouped views of phase 30's row (each head half, the
+rolled one with its wrapped segments) and at MoD's gathered rows.
 
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
@@ -295,8 +327,9 @@ llava16_sft, q25_lora_sft, q25_lora_grpo, llava16_qlora_sft,
 q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
 internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
 paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
-pixtral_lora_sft, pixtral_lora_grpo).  ``--phases 3,27,28`` runs a subset
-and prints no kernel line.
+pixtral_lora_sft, pixtral_lora_grpo, moe_serve, moe_sft, moe_grpo,
+longlora_sft, mod_train).  ``--phases 3,29,30,31`` runs a subset and
+prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -554,6 +587,9 @@ Q25_GRPO_STEPS = 2
 OV_GRPO_PATCH_BUDGET = 4 * 8 * 729
 OV_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
 OV_GRPO_STEPS = 2
+# phase 16's decoder cut to 12 of 24 layers (the smoke's time; its
+# completions stay 512, which its dlse control reads)
+OV_GRPO_LAYERS = 12
 # LLaVA-NeXT-8B serving (phase 17): the llava_next_llama3 form, two 448 x
 # 448 images (5 tiles, 2928 features) and two 336 x 560 (3 tiles, 1560
 # features), P=4096, a patch budget of 16 tiles
@@ -607,6 +643,10 @@ QLORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the nf4 generate of phase 22c: new tokens, and its decoder cut to 8 of
 # 28 layers for the smoke's time (22b serves the int8 7B whole)
 NF4_NEW_TOKENS, NF4_LAYERS = 16, 8
+# phase 22b's int8 serving: 64 new tokens (128 before; the smoke's time)
+INT8_NEW_TOKENS = 64
+# phases 12 and 26a: the decoders cut to half depth (the smoke's time)
+OV_SFT_LAYERS, VIDEO_SFT_LAYERS = 12, 14
 # InternVL-2.5-4B (phases 23-25): InternVL's <img> and </img> around each
 # image's run of <IMG_CONTEXT> tokens.  Serving (phase 23): two 448 x 448
 # images (1 tile, 256 features each), a 336 x 560 one (a (3, 2) grid and
@@ -623,6 +663,8 @@ INTERNVL_PROMPT_LEN, INTERNVL_PATCH_BUDGET = 4096, 24 * 1024
 INTERNVL_SFT_ROWS, INTERNVL_SFT_IMAGE_HW = 2, (336, 560)
 INTERNVL_SFT_ANSWER_LEN, INTERNVL_SFT_BUDGET = (1800, 2000), 16 * 1024
 INTERNVL_SFT_STEPS = 3
+# phases 14 and 24: the 36-layer decoders cut to 18 (the smoke's time)
+SFT_DECODER_LAYERS = 18
 INTERNVL_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "build", "chip_smoke_internvl_sft")
 # SC-GRPO (phase 25): the grpo section of configs/grpo_qwen2_5_vl_7b.yaml,
@@ -715,7 +757,9 @@ PG_SFT_ROWS, PG_SFT_STEPS, PG_SFT_ANSWER_LEN = 2, 3, (2800, 2950)
 PG_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke_paligemma_sft")
 PG_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
-PG_GRPO_STEPS = 2
+PG_GRPO_STEPS, PG_GRPO_COMPLETION_LEN = 2, 128
+# phase 27c's decoder cut to 9 of 18 layers (the smoke's time)
+PG_GRPO_LAYERS = 9
 # Pixtral's token ids (its Tekken tokenizer): BOS, EOS, <pad>, [INST],
 # [/INST], [IMG], [IMG_BREAK], [IMG_END]
 PX_BOS, PX_EOS, PX_PAD, PX_INST, PX_INST_END = 1, 2, 11, 3, 4
@@ -740,6 +784,8 @@ PX_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke_pixtral_lora_sft")
 PX_GRPO_IMAGE_HW = [(512, 512), (336, 560)]
 PX_GRPO_STEPS, PX_GRPO_PROMPT_LEN, PX_GRPO_COMPLETION_LEN = 2, 2048, 128
+# phase 28c's decoder cut to 20 of 40 layers (the smoke's time)
+PX_GRPO_LAYERS = 20
 
 # the plain versions run one batch row, and within a row one slice of KV
 # heads (with their query heads), at a time where the [B, H, T, S] f32
@@ -1357,17 +1403,18 @@ def make_v15_requests(bundle, seed: int = 17):
     return encoded
 
 
-def make_next_sft_rows(bundle, cutoff: int, seed: int = 18):
-    """NEXT_SFT_ROWS * 2 synthetic IAD SFT examples in the
+def make_next_sft_rows(bundle, cutoff: int, seed: int = 18,
+                       n_rows: int = NEXT_SFT_ROWS, per_row: int = 2):
+    """``n_rows * per_row`` synthetic IAD SFT examples in the
     llava_next_llama3 form, a seeded 336 x 560 image each (3 tiles, 1560
     features), the prompt masked and a labeled answer of 300-400 seeded
-    tokens ending in EOT, packed by pack_examples into rows of ``cutoff``:
-    two examples a row."""
+    tokens ending in EOT, packed by pack_examples into ``n_rows`` rows of
+    ``cutoff``: ``per_row`` examples a row."""
     from iadr1_tpu_torch.data.packing import pack_examples
 
     rng = np.random.default_rng(seed)
     examples = []
-    for i in range(2 * NEXT_SFT_ROWS):
+    for i in range(n_rows * per_row):
         patches, grid, n_img = bundle.preprocess_image(
             _seeded_image(rng, *NEXT_SFT_IMAGE_HW))
         prompt = _llama3_prompt(rng, [NEXT_IMAGE] * n_img, 8 + 4 * i)
@@ -1379,9 +1426,10 @@ def make_next_sft_rows(bundle, cutoff: int, seed: int = 18):
                          "extras": {"patches": [patches],
                                     "grid_thw": [grid]}})
     rows = pack_examples(examples, cutoff, LLAMA3_END)
-    if len(rows) != NEXT_SFT_ROWS or any(len(r["extras"]) != 2
-                                         for r in rows):
-        raise AssertionError("the examples did not pack into 2 rows of 2")
+    if len(rows) != n_rows or any(len(r["extras"]) != per_row
+                                  for r in rows):
+        raise AssertionError(f"the examples did not pack into {n_rows} "
+                             f"rows of {per_row}")
     return rows
 
 
@@ -2567,7 +2615,7 @@ def phase_kernels_paligemma_pixtral(pg_encoded, pg_grpo, px_encoded,
     dec.append(decode_case(BATCH, 8, 1, S, 256, S, cache_seg, 141,
                            timed=True))
     dec[-1]["shape"] = f"paligemma decode: {dec[-1]['shape']}"
-    G, P, N = 4, 4096, 512
+    G, P, N = 4, 4096, PG_GRPO_COMPLETION_LEN
     n = len(pg_grpo)
     p_seg = torch.zeros((n, P), **cuda)
     for b, ex in enumerate(pg_grpo):
@@ -3183,20 +3231,27 @@ def train_attn(flash):
 class GradProbe:
     """The optimizer, wrapped: on its first call it keeps the per-layer
     gradient norms of the attention's q, k and v projections in the
-    decoder and the tower (the step hands its gradients only to the
-    optimizer) and, with ``keep_grads``, those gradients themselves."""
+    decoder and the tower (a text model has none), and of a MoE decoder's
+    router (the step hands its gradients only to the optimizer) and, with
+    ``keep_grads``, those gradients themselves."""
 
     def __init__(self, optimizer, params, keep_grads=False):
         from iadr1_tpu_torch.train.state import tree_leaves
 
         leaves = tree_leaves(params)
-        attn = params["text"]["layers"]["attn"]
-        targets = [attn[n]["kernel"] for n in "qkv"]
-        if "blocks" in params["vision"]:       # Qwen2-VL: one qkv kernel
-            targets.append(params["vision"]["blocks"]["attn"]["qkv"]["kernel"])
-        else:                                  # SigLIP: q, k, v apart
-            tower = params["vision"]["layers"]["attn"]
-            targets += [tower[n]["kernel"] for n in "qkv"]
+        layers = params.get("text", params)["layers"]
+        targets = [layers["attn"][n]["kernel"] for n in "qkv"]
+        self.names = ["decoder q", "decoder k", "decoder v"]
+        vision = params.get("vision", {})     # a text model has none
+        if "blocks" in vision:                 # Qwen2-VL: one qkv kernel
+            targets.append(vision["blocks"]["attn"]["qkv"]["kernel"])
+            self.names.append("tower qkv")
+        elif "layers" in vision:               # SigLIP: q, k, v apart
+            targets += [vision["layers"]["attn"][n]["kernel"] for n in "qkv"]
+            self.names += ["tower q", "tower k", "tower v"]
+        if "router" in layers["mlp"]:          # Qwen2-MoE
+            targets.append(layers["mlp"]["router"]["kernel"])
+            self.names.append("router")
         self.index = [next(i for i, p in enumerate(leaves) if p is t)
                       for t in targets]
         self.optimizer, self.norms = optimizer, None
@@ -3207,12 +3262,14 @@ class GradProbe:
 
     def apply(self, params, grads, state, grad_norm=None):
         if self.norms is None:
-            dq, dk, dv, *tower = (grads[i].detach() for i in self.index)
-            parts = dict(zip(("decoder q", "decoder k", "decoder v"),
-                             (dq, dk, dv)))
-            parts.update(zip(("tower q", "tower k", "tower v"),
-                             tower if len(tower) == 3
-                             else tower[0].chunk(3, dim=-1)))
+            parts = {}
+            for name, i in zip(self.names, self.index):
+                g = grads[i].detach()
+                if name == "tower qkv":
+                    parts.update(zip(("tower q", "tower k", "tower v"),
+                                     g.chunk(3, dim=-1)))
+                else:
+                    parts[name] = g
             self.norms = {n: g.float().flatten(1).norm(dim=1)
                           for n, g in parts.items()}
             if self.keep_grads:
@@ -3728,8 +3785,9 @@ def grpo_case_q25(steps: int, label="q25 grpo", name="Qwen2.5-VL-3B",
 def grpo_case_ov(steps: int) -> types.SimpleNamespace:
     """Phase 16's setting: LLaVA-OneVision-0.5B on the grpo section of
     configs/grpo_qwen2_5_vl_7b.yaml (phase 15's), the patch budget sized
-    for OneVision's tiles of 729 (OV_GRPO_PATCH_BUDGET); the update batch
-    must carry the anyres arrays (C.R9)."""
+    for OneVision's tiles of 729 (OV_GRPO_PATCH_BUDGET), the decoder cut
+    to OV_GRPO_LAYERS layers; the update batch must carry the anyres
+    arrays (C.R9)."""
     from iadr1_tpu_torch.models import llava_onevision
 
     def embeds(params, cfg, batch, attn, remat):
@@ -3742,8 +3800,10 @@ def grpo_case_ov(steps: int) -> types.SimpleNamespace:
             tile_segments=batch["tile_segments"], tower_attention_fn=attn,
             tower_remat=remat)
 
-    case = grpo_case_q25(steps, "ov grpo", "LLaVA-OneVision-0.5B",
-                         LLAVA_OV_05B)
+    cut = dict(LLAVA_OV_05B, text_config=dict(
+        LLAVA_OV_05B["text_config"], num_hidden_layers=OV_GRPO_LAYERS))
+    case = grpo_case_q25(steps, "ov grpo", f"LLaVA-OneVision-0.5B cut to "
+                         f"{OV_GRPO_LAYERS} decoder layers", cut)
     case.data = dataclasses.replace(case.data,
                                     patch_budget=OV_GRPO_PATCH_BUDGET)
     case.embeds = embeds
@@ -3787,8 +3847,11 @@ def phase_grpo(examples, steps: int, card, case):
     lora = getattr(case, "lora", None)
     decoder_flash = getattr(case, "decoder_flash", True)
     tokenizer = getattr(case, "tokenizer", None) or CannedTokenizer()
-    collator = make_vlm_prompt_collator(bundle, tokenizer, None, case.data,
-                                        P, num_generations=G)
+    # a text model (Qwen2-MoE) takes the trainer's own prompt collation
+    collator = (make_vlm_prompt_collator(bundle, tokenizer, None, case.data,
+                                         P, num_generations=G)
+                if bundle.multimodal else None)
+    tcfg = getattr(cfg, "text", cfg)
     reward_s = []
 
     def timed(fn):
@@ -3884,7 +3947,9 @@ def phase_grpo(examples, steps: int, card, case):
 
     # the rollout's prefill alone (tower + decoder over the n prompts),
     # from the bf16 copy of the policy the trainer rolls out from
-    prefill_batch = batch_to_device(collator(examples, 1), DEVICE)
+    prefill_batch = batch_to_device(
+        collator(examples, 1) if collator is not None
+        else trainer._collate_prompts(examples), DEVICE)
     prefill_batch["segment_ids"] = prefill_batch["attention_mask"].to(
         torch.int32)
     if "position_ids" not in prefill_batch:     # 1-D, as the engine's
@@ -3898,7 +3963,7 @@ def phase_grpo(examples, steps: int, card, case):
         policy = cast_dense_params(trainer.state.params, torch.bfloat16)
         lora_kw = {}
     for _ in range(2):                       # the second one is warm
-        cache = qwen2.init_cache(cfg.text, n, P, torch.bfloat16, DEVICE)
+        cache = qwen2.init_cache(tcfg, n, P, torch.bfloat16, DEVICE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -3909,7 +3974,7 @@ def phase_grpo(examples, steps: int, card, case):
     del policy, cache, lora_kw
     release()
 
-    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
+    L, Lt = tcfg.num_hidden_layers, tower_depth(cfg)
     Lf = L if decoder_flash else 0
     replays = case.tower_replays
     kernels = [k for k, _ in all_kernels()]
@@ -4040,7 +4105,8 @@ def phase_grpo(examples, steps: int, card, case):
     del runs
     diffs = grpo_step1_diffs(first, plain)
     log(f"{label}: step 1 kernel vs plain path on the recorded rollout: "
-        f"update batch holds {', '.join(case.vision_keys)}; loss "
+        f"update batch holds {', '.join(case.vision_keys) or 'text only'}; "
+        f"loss "
         f"{first[0]['loss']:.3e} vs {plain[0]['loss']:.3e}, kl "
         f"{first[0]['kl']:.3e} vs {plain[0]['kl']:.3e}, grad norm "
         f"{first[0]['grad_norm']:.6f} vs {plain[0]['grad_norm']:.6f}; "
@@ -4068,7 +4134,7 @@ def phase_grpo(examples, steps: int, card, case):
     R = len(rewards)
     # patches: [n, patch_dim] (Qwen) or tiles [n, g*g, patch_dim] (LLaVA)
     n_patches = sum(p.shape[0] * (p.shape[1] if p.ndim == 3 else 1)
-                    for ex in examples for p in ex["patches"])
+                    for ex in examples for p in ex.get("patches", ()))
     rollout_ms = med(1e3 * s for s in roll_s)
     decode_ms = med((1e3 * s - prefill_ms) / k
                     for s, k in zip(roll_s, roll_steps))
@@ -4124,12 +4190,13 @@ CHAIN_SFT_ROWS, CHAIN_RL_ROWS = 8, 4
 # (the infer CLI's P and patch budget, batch 4, 32 new tokens)
 CHAIN_SFT_STEPS, CHAIN_GRPO_STEPS, CHAIN_NEW_TOKENS = 2, 2, 32
 CHAIN_G, CHAIN_P, CHAIN_N = 4, 1024, 64
-# the chain's model: the published widths, its depth cut to 12 of the 28
-# decoder layers and 12 of the 32 tower blocks.  A run writes, per
-# parameter, the bf16 base, two f32 TrainStates (parameters + two AdamW
-# moments) and two f32 exports, 34 bytes: 75 GB at full depth, 36 GB at
-# this one, so the whole smoke writes under CHAIN_WRITE_LIMIT to its disk
-CHAIN_TEXT_LAYERS, CHAIN_TOWER_DEPTH = 12, 12
+# the chain's model: the published widths, its depth cut to 4 of the 28
+# decoder layers and 4 of the 32 tower blocks (12 and 12 before; cut
+# for the smoke's time).  A run writes, per parameter, the bf16 base,
+# two f32 TrainStates (parameters + two AdamW moments) and two f32
+# exports, 34 bytes: 75 GB at full depth, about 18 GB at this one, under
+# CHAIN_WRITE_LIMIT
+CHAIN_TEXT_LAYERS, CHAIN_TOWER_DEPTH = 4, 4
 CHAIN_WRITE_BYTES_PER_PARAM = 2 + 2 * (12 + 4)
 GIB = 2 ** 30
 CHAIN_WRITE_LIMIT = 40 * GIB
@@ -4564,7 +4631,9 @@ def llava_positions(mask):
 def tower_depth(cfg) -> int:
     """The tower layers that run (one K1 call each): LLaVA-1.5/NeXT run
     the first ``tower_layers`` of CLIP's."""
-    v = cfg.vision
+    v = getattr(cfg, "vision", None)
+    if v is None:                          # a text model
+        return 0
     return (getattr(cfg, "tower_layers", None) or getattr(v, "depth", None)
             or v.num_hidden_layers)
 
@@ -5007,7 +5076,8 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
 
 
 def phase_llava_sft(rows, steps: int, card):
-    """Phase 12: LLaVA-OneVision-0.5B PA-SFT on
+    """Phase 12: LLaVA-OneVision-0.5B PA-SFT (the decoder cut to
+    OV_SFT_LAYERS layers, the tower whole) on
     configs/sft_llava_onevision_0_5b.yaml; returns the launch counts."""
     from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
     from iadr1_tpu_torch.models import llava_onevision
@@ -5033,7 +5103,10 @@ def phase_llava_sft(rows, steps: int, card):
             num_layers=v["num_hidden_layers"], attn_window=729)
         return flops, f"4 images in {n_images} of the {n_tiles} tiles"
 
-    return phase_vlm_sft("llava sft", "LLaVA-OneVision-0.5B", LLAVA_OV_05B,
+    cut = dict(LLAVA_OV_05B, text_config=dict(
+        LLAVA_OV_05B["text_config"], num_hidden_layers=OV_SFT_LAYERS))
+    return phase_vlm_sft("llava sft", f"LLaVA-OneVision-0.5B cut to "
+                         f"{OV_SFT_LAYERS} decoder layers", cut,
                          LLAVA_RECIPE, rows, steps, card, LLAVA_TRAIN_DIR,
                          plain_apply, tower_flops)
 
@@ -5065,7 +5138,8 @@ def q25_tower_flops(grids):
 
 
 def phase_q25_sft(rows, steps: int, card):
-    """Phase 14: Qwen2.5-VL-3B PA-SFT at full width and depth on
+    """Phase 14: Qwen2.5-VL-3B PA-SFT at full width, the decoder cut to
+    SFT_DECODER_LAYERS layers (the tower whole), on
     configs/sft_qwen2_5_vl_7b.yaml, the batch cut to Q25_SFT_ROWS rows;
     returns the launch counts."""
     from iadr1_tpu_torch.models import qwen25_vl
@@ -5081,7 +5155,9 @@ def phase_q25_sft(rows, steps: int, card):
         return h
 
     grids = [g for r in rows for e in r["extras"] for g in e["grid_thw"]]
-    return phase_vlm_sft("q25 sft", "Qwen2.5-VL-3B", QWEN2_5_VL_3B,
+    cut = dict(QWEN2_5_VL_3B, num_hidden_layers=SFT_DECODER_LAYERS)
+    return phase_vlm_sft("q25 sft", f"Qwen2.5-VL-3B cut to "
+                         f"{SFT_DECODER_LAYERS} decoder layers", cut,
                          Q25_SFT_RECIPE, rows, steps, card, Q25_TRAIN_DIR,
                          plain_apply, lambda first: q25_tower_flops(grids),
                          batch_rows=Q25_SFT_ROWS)
@@ -5229,7 +5305,8 @@ def internvit_flops(n_tiles: int) -> float:
 
 
 def phase_internvl_sft(rows, steps: int, card):
-    """Phase 24: InternVL-2.5-4B PA-SFT at full width and depth on
+    """Phase 24: InternVL-2.5-4B PA-SFT at full width (the decoder cut to
+    SFT_DECODER_LAYERS layers, the tower whole) on
     configs/sft_qwen2_5_vl_7b.yaml's settings with the intern_vl template,
     the batch cut to INTERNVL_SFT_ROWS rows and the patch budget grown to
     INTERNVL_SFT_BUDGET; returns the launch counts."""
@@ -5244,8 +5321,11 @@ def phase_internvl_sft(rows, steps: int, card):
             f"{len(rows)} images in {n_images} of the {n_tiles} tiles, the "
             "rest at segment 0")
 
+    cut = dict(INTERNVL_25_4B, text_config=dict(
+        INTERNVL_25_4B["text_config"], num_hidden_layers=SFT_DECODER_LAYERS))
     return phase_vlm_sft(
-        "internvl sft", "InternVL-2.5-4B", INTERNVL_25_4B, Q25_SFT_RECIPE,
+        "internvl sft", f"InternVL-2.5-4B cut to {SFT_DECODER_LAYERS} "
+        "decoder layers", cut, Q25_SFT_RECIPE,
         rows, steps, card, INTERNVL_TRAIN_DIR, plain_apply, tower_flops,
         batch_rows=INTERNVL_SFT_ROWS,
         overrides=["data.template=intern_vl",
@@ -5285,7 +5365,8 @@ def grpo_case_internvl(steps: int) -> types.SimpleNamespace:
 
 
 def phase_video_sft(rows, steps: int, card):
-    """Phase 26a: Qwen2-VL-2B PA-SFT at full width and depth on
+    """Phase 26a: Qwen2-VL-2B PA-SFT at full width (the decoder cut to
+    VIDEO_SFT_LAYERS layers, the tower whole) on
     configs/sft_qwen2_5_vl_7b.yaml's settings (the qwen2_vl template, the
     tower's remat save_acts so its attention stays outside the
     checkpoints), 2 rows of one 8-frame video each through VLMBatchBuilder;
@@ -5316,8 +5397,11 @@ def phase_video_sft(rows, steps: int, card):
 
     if not all((r["input_ids"] == VIDEO_PAD).any() for r in rows):
         raise AssertionError("a row holds no video")
+    cut = dict(QWEN2_VL_2B, text_config=dict(
+        QWEN2_VL_2B["text_config"], num_hidden_layers=VIDEO_SFT_LAYERS))
     return phase_vlm_sft(
-        "q2vl video sft", "Qwen2-VL-2B", QWEN2_VL_2B, Q25_SFT_RECIPE, rows,
+        "q2vl video sft", f"Qwen2-VL-2B cut to {VIDEO_SFT_LAYERS} decoder "
+        "layers", cut, Q25_SFT_RECIPE, rows,
         steps, card, VIDEO_TRAIN_DIR, plain_apply, tower_flops,
         batch_rows=VIDEO_SFT_ROWS,
         overrides=["data.template=qwen2_vl", "model.tower_remat=save_acts"])
@@ -5530,7 +5614,7 @@ def lora_train_flops(t, B, T, vit_flops):
 
 def phase_lora_sft(label, name, hf, recipe, rows, steps, card, train_dir,
                    plain_apply, tower_flops, batch_rows=None, overrides=(),
-                   quant=None):
+                   quant=None, decoder_calls=1):
     """Phases 20 and 22a: LoRA (TuningConfig's defaults: rank 8, alpha 16,
     the seven targets) PA-SFT of a VLM at full width and depth over a
     frozen bf16 base drawn on the card from a seed, quantized on the card
@@ -5541,11 +5625,18 @@ def phase_lora_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     reaches the frozen tower); step 1's loss, grad norm and the decoder's
     per-layer q/k/v adapter grad norms must agree with a step through the
     plain versions and a dq-zeroed control must not; the loss must fall
-    and the base must be unchanged bit for bit.  Returns the launch
+    and the base must be unchanged bit for bit.  The recipe's context
+    extension (``model.rope_scaling``, ``model.shift_attn``) applies as
+    in cli/train_sft.py; ``decoder_calls`` is the K1 calls a decoder
+    layer makes (2 under LongLoRA, one a head half).  Returns the launch
     counts."""
     import gc
 
-    from iadr1_tpu_torch.cli.train_sft import SFTJobConfig, _remat
+    from iadr1_tpu_torch.cli.train_sft import (
+        SFTJobConfig,
+        _remat,
+        context_extension,
+    )
     from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
     from iadr1_tpu_torch.data.collator import VLMBatchBuilder
     from iadr1_tpu_torch.kernels import all_kernels
@@ -5566,7 +5657,8 @@ def phase_lora_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     from iadr1_tpu_torch.train.state import create_train_state
 
     job = load_config(SFTJobConfig, recipe, list(overrides))
-    bundle = bundle_from_hf_config(hf, attention=job.model.attention)
+    hf, attention = context_extension(job.model, hf)
+    bundle = bundle_from_hf_config(hf, attention=attention)
     cfg = bundle.cfg
     recipe_rows = int(job.train["batch_size"])
     B, T = batch_rows or recipe_rows, job.data.cutoff_len
@@ -5678,9 +5770,10 @@ def phase_lora_sft(label, name, hf, recipe, rows, steps, card, train_dir,
     gc.collect()
     torch.cuda.empty_cache()
 
-    L, Lt = cfg.text.num_hidden_layers, tower_depth(cfg)
-    # per step: K1 once per decoder and tower layer; K2 and K3 once per
-    # decoder layer: the frozen tower takes no adapters and no gradient
+    L = cfg.text.num_hidden_layers * decoder_calls
+    Lt = tower_depth(cfg)
+    # per step: K1 once per decoder call and tower layer; K2 and K3 once
+    # per decoder call: the frozen tower takes no adapters and no gradient
     want = {"flash_fwd": steps * (L + Lt), "flash_bwd_dq": steps * L,
             "flash_bwd_dkv": steps * L, "decode_attention": 0}
     if launches != want:
@@ -6343,15 +6436,23 @@ def grpo_case_paligemma(steps: int) -> types.SimpleNamespace:
     configs/grpo_qwen2_5_vl_7b.yaml (its patch budget of 8192 holds the 8
     tiles of the dense update); no shared path in either package, so the
     update is the dense one over the G-repeated batch; the step-1 control
-    zeroes dq (the dense update has no lse cotangent to drop)."""
-    case = grpo_case_q25(steps, "paligemma grpo", "PaliGemma-3B",
-                         PALIGEMMA_3B_448)
+    zeroes dq (the dense update has no lse cotangent to drop).  N cut
+    from the recipe's 512 to PG_GRPO_COMPLETION_LEN (the smoke's time;
+    phases 25 and 28c run 128 too), and the decoder to
+    PG_GRPO_LAYERS layers."""
+    cut = dict(PALIGEMMA_3B_448, text_config=dict(
+        PALIGEMMA_3B_448["text_config"], num_hidden_layers=PG_GRPO_LAYERS))
+    case = grpo_case_q25(steps, "paligemma grpo",
+                         f"PaliGemma-3B cut to {PG_GRPO_LAYERS} decoder "
+                         "layers", cut)
+    case.gcfg = dataclasses.replace(
+        case.gcfg, max_completion_length=PG_GRPO_COMPLETION_LEN)
     case.plain_apply = paligemma_plain_apply
     case.vision_keys = ("tiles", "tile_segments")
     case.controls, case.lse_check = GRPO_CONTROLS[1:], False
     case.decoder_flash = False
     case.tokenizer = CannedTokenizer(PG_EOS, PG_PAD)
-    case.n_params_range = (2.90e9, 2.95e9)
+    case.n_params_range = (1.90e9, 1.97e9)
     return case
 
 
@@ -6417,13 +6518,16 @@ def grpo_case_pixtral(steps: int) -> types.SimpleNamespace:
     its completions and prompts cut (PX_GRPO_COMPLETION_LEN,
     PX_GRPO_PROMPT_LEN), a bf16 base; the dense update (no shared path in
     either package), K2 and K3 in the decoder only (the frozen tower
-    takes no gradient)."""
+    takes no gradient); the decoder cut to PX_GRPO_LAYERS layers."""
     import yaml
 
     from iadr1_tpu_torch.train.adapters import TuningConfig
 
-    case = grpo_case_q25(steps, "pixtral lora grpo", "Pixtral-12B",
-                         PIXTRAL_12B)
+    cut = dict(PIXTRAL_12B, text_config=dict(
+        PIXTRAL_12B["text_config"], num_hidden_layers=PX_GRPO_LAYERS))
+    case = grpo_case_q25(steps, "pixtral lora grpo",
+                         f"Pixtral-12B cut to {PX_GRPO_LAYERS} decoder "
+                         "layers", cut)
     case.gcfg = dataclasses.replace(
         case.gcfg, max_prompt_length=PX_GRPO_PROMPT_LEN,
         max_completion_length=PX_GRPO_COMPLETION_LEN)
@@ -6436,8 +6540,842 @@ def grpo_case_pixtral(steps: int) -> types.SimpleNamespace:
     case.vision_keys = ("patch_stream", "patch_pos_ids", "patch_segments")
     case.controls, case.lse_check = GRPO_CONTROLS[1:], False
     case.tokenizer = CannedTokenizer(PX_EOS, PX_PAD)
-    case.n_params_range = (12.6e9, 12.75e9)
+    case.n_params_range = (7.0e9, 7.4e9)
     return case
+
+
+# ---------------------------------------------------------------------------
+# phases 29-31: Qwen1.5-MoE-A2.7B, context extension, Mixture-of-Depths
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen1.5-MoE-A2.7B's published config: 24 layers of 16 heads over
+# 16 (D = 128), 60 experts of width 1408, top 4 (not renormalised), a
+# shared expert of 5632 behind a sigmoid gate, qkv biases, an untied head
+# over 151936 ids, rope_theta 1e6; 14.3 B parameters
+QWEN15_MOE_A27B = dict(
+    architectures=["Qwen2MoeForCausalLM"], model_type="qwen2_moe",
+    vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16,
+    max_position_embeddings=8192, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, num_experts=60, num_experts_per_tok=4,
+    moe_intermediate_size=1408, shared_expert_intermediate_size=5632,
+    norm_topk_prob=False, router_aux_loss_coef=0.001, decoder_sparse_step=1,
+    mlp_only_layers=[], use_sliding_window=False, bos_token_id=151643,
+    eos_token_id=151643)
+MOE_PROMPT_LENS = (1024, 937, 768, 1003)      # 4 chatml text requests
+MOE_N_PARAMS_RANGE = (14.2e9, 14.4e9)
+# phases 29b-c: the decoder cut to 4 of 24 layers (2.9 B parameters, 46 GB
+# of f32 state with AdamW; the whole model's would be 229 GB: A.11)
+MOE_TRAIN_LAYERS, MOE_SFT_ROWS, MOE_SFT_CUTOFF, MOE_SFT_STEPS = 4, 2, 4096, 3
+MOE_GRPO_STEPS, MOE_GRPO_PROMPT_LEN, MOE_GRPO_COMPLETION_LEN = 2, 1024, 128
+MOE_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_moe_sft")
+# the step-1 check's extra reading: the router's aux loss, relatively
+MOE_AUX_REL = STEP1_LOSS_REL
+# phase 30: LoRA PA-SFT of LLaVA-NeXT-8B's decoder at full depth over a
+# bf16 base, rows of 16384 (model_max_length) over LLaMA-3's 8192
+# positions: rope_scaling linear, factor 2, and LongLoRA's shift_attn
+LONGLORA_CUTOFF, LONGLORA_ROWS, LONGLORA_PER_ROW, LONGLORA_STEPS = (
+    16384, 1, 8, 2)
+LONGLORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "build", "chip_smoke_longlora")
+# phase 31: convert_to_mod over Qwen2-VL-2B's decoder as a qwen2 text
+# model, f32, capacity 0.125 (k = 512 of 4096)
+MOD_CAPACITY, MOD_ROWS, MOD_CUTOFF, MOD_STEPS = 0.125, 2, 4096, 3
+MOD_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_mod")
+
+
+def qwen2_vl_text_hf() -> dict:
+    """Qwen2-VL-2B's decoder as a Qwen2 text config (1-D RoPE)."""
+    text = {k: v for k, v in QWEN2_VL_2B["text_config"].items()
+            if k != "rope_scaling"}
+    return dict(text, architectures=["Qwen2ForCausalLM"], model_type="qwen2")
+
+
+def make_moe_requests(seed: int = 31):
+    """Four chatml text requests as token ids (MOE_PROMPT_LENS long)."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    out = []
+    for n in MOE_PROMPT_LENS:
+        head = [IM_START] + text(3) + [IM_END] + text(1) + [IM_START] + text(2)
+        tail = [IM_END] + text(1) + [IM_START] + text(2)
+        out.append(head + text(n - len(head) - len(tail)) + tail)
+    return out
+
+
+def make_text_sft_rows(n_rows: int, cutoff: int, seed: int):
+    """Synthetic chatml text SFT examples (a prompt of 60-200 seeded
+    tokens, masked, and a labeled answer of 600-1500 ending in
+    <|im_end|>), packed by pack_examples into ``n_rows`` rows of
+    ``cutoff``; the examples that do not fit are dropped."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    examples, total = [], 0
+    while total < n_rows * cutoff:
+        prompt = ([IM_START] + text(3) + [IM_END] + text(1) + [IM_START]
+                  + text(int(rng.integers(60, 200))) + [IM_END] + text(1)
+                  + [IM_START] + text(2))
+        answer = text(int(rng.integers(600, 1500))) + [IM_END]
+        examples.append({"input_ids": prompt + answer,
+                         "labels": [-100] * len(prompt) + answer})
+        total += len(prompt) + len(answer)
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)[:n_rows]
+    if len(rows) != n_rows or any(r["segment_ids"].max() < 2 for r in rows):
+        raise AssertionError(f"the examples did not pack into {n_rows} "
+                             "rows of several")
+    return rows
+
+
+def make_moe_grpo_examples(seed: int = 33):
+    """Two chatml text prompts with a ``solution`` each."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, ENDOFTEXT, n).tolist()
+
+    return [{"prompt_ids": ([IM_START] + text(3) + [IM_END] + text(1)
+                            + [IM_START] + text(300 + 200 * i) + [IM_END]
+                            + text(1) + [IM_START] + text(2)),
+             "solution": GRPO_SOLUTIONS[i]} for i in range(2)]
+
+
+def _left_text_segments(prompts, P):
+    seg = torch.zeros((len(prompts), P), device="cuda", dtype=torch.int32)
+    for b, ids in enumerate(prompts):
+        seg[b, P - len(ids):] = 1
+    return seg
+
+
+class RoutingTape:
+    """The discrete routing choices of one pass (the MoE dispatch's
+    experts a token, ``qwen2_moe.route``; MoD's rows a layer,
+    ``mod.top_rows``), recorded in order and replayed in another pass:
+    a kernel-path-against-plain-path check then reads the attention's
+    rounding, not the expert or row choices that a rounding difference
+    tips.  ``limit`` calls are recorded (one forward's); a replay takes
+    them in turn, from the first again at each forward."""
+
+    def __init__(self, limit: int):
+        self.limit, self.choices, self.at = limit, [], 0
+
+    def _next(self):
+        choice = self.choices[self.at % len(self.choices)]
+        self.at += 1
+        return choice
+
+    def _swap(self, module, name, fn):
+        real = getattr(module, name)
+
+        class Swap:
+            def __enter__(self_):
+                setattr(module, name, fn(real))
+
+            def __exit__(self_, *exc):
+                setattr(module, name, real)
+
+        return Swap()
+
+    def moe(self, replay: bool):
+        from iadr1_tpu_torch.models import qwen2_moe
+
+        def make(real):
+            def route(cfg, xf, kernel):
+                probs, weights, selected = real(cfg, xf, kernel)
+                if not replay:
+                    if len(self.choices) < self.limit:
+                        self.choices.append(selected)
+                    return probs, weights, selected
+                selected = self._next()
+                weights = probs.gather(1, selected)
+                if cfg.norm_topk_prob:
+                    weights = weights / weights.sum(-1, keepdim=True)
+                return probs, weights, selected
+            return route
+
+        return self._swap(qwen2_moe, "route", make)
+
+    def mod(self, replay: bool):
+        from iadr1_tpu_torch.models import mod
+
+        def make(real):
+            def top_rows(scores, k):
+                if replay:
+                    return self._next()
+                rows = real(scores, k)
+                if len(self.choices) < self.limit:
+                    self.choices.append(rows)
+                return rows
+            return top_rows
+
+        return self._swap(mod, "top_rows", make)
+
+
+def phase_kernels_moe_context(moe_requests, moe_grpo, longlora_rows,
+                              mod_rows, max_new_tokens):
+    """Phase 3 at the shapes of phases 29-31: K1 at Qwen1.5-MoE's prefill
+    (16 heads over 16, D = 128, P = 1024, left padding); K4 over its
+    serving cache and its SC-GRPO fan-out; K1-K3 at LongLoRA's grouped
+    views of phase 30's row (16 heads over 4 a head half, g = 4096, D =
+    128): the first half in place, the second rolled by g / 2 with its
+    segment ids, the last group wrapping into the first; K1-K3 at MoD's
+    gathered rows (k = 512 of phase 31's 4096, 12 heads over 2).  Returns
+    the results by kernel."""
+    cuda = dict(device="cuda", dtype=torch.int32)
+    fwd, bwd, dec = [], [], []
+    P = MOE_PROMPT_LENS[0]
+    pre = _left_text_segments(moe_requests, P)
+    fwd.append(_labelled([flash_case(BATCH, 16, 16, P, P, 128, True, pre,
+                                     pre, 161, timed=True)],
+                         "qwen1.5-moe prefill")[0])
+    S = P + max_new_tokens
+    cache_seg = torch.ones((BATCH, S), **cuda)
+    cache_seg[:, :P] = pre
+    dec.append(decode_case(BATCH, 16, 16, S, 128, S, cache_seg, 162,
+                           timed=True))
+    dec[-1]["shape"] = f"qwen1.5-moe decode: {dec[-1]['shape']}"
+    G, P, N = 4, MOE_GRPO_PROMPT_LEN, MOE_GRPO_COMPLETION_LEN
+    p_seg = _left_text_segments([ex["prompt_ids"] for ex in moe_grpo], P)
+    fan = torch.cat([p_seg.repeat_interleave(G, dim=0),
+                     torch.ones((len(moe_grpo) * G, N), **cuda)], dim=1)
+    dec.append(decode_case(len(moe_grpo) * G, 16, 16, P + N, 128, P + N,
+                           fan, 163, timed=True))
+    dec[-1]["shape"] = f"qwen1.5-moe grpo fan-out: {dec[-1]['shape']}"
+    # LongLoRA: the two head halves' grouped views of the 16384 row
+    segs = torch.as_tensor(longlora_rows[0]["segment_ids"], **cuda)[None]
+    T = segs.shape[1]
+    g = T // 4
+    for label, s in (("longlora half 1", segs),
+                     ("longlora half 2 (rolled)",
+                      torch.roll(segs, -(g // 2), dims=1))):
+        grouped = s.reshape(T // g, g)
+        shape = (T // g, 16, 4, g, g, 128, True, grouped, grouped)
+        results = _labelled((*bwd_case(*shape, 164, timed=True),
+                             flash_case(*shape, 165, timed=True)), label)
+        bwd.append(results[:3])
+        fwd.append(results[3])
+    # MoD: k = capacity * T rows a layer, picked by a seeded score, sorted
+    segs = torch.as_tensor(np.stack([r["segment_ids"] for r in mod_rows]),
+                           **cuda)
+    T = segs.shape[1]
+    k = int(T * MOD_CAPACITY)
+    gen = torch.Generator(device="cuda").manual_seed(166)
+    scores = torch.rand(segs.shape, generator=gen, device="cuda")
+    scores = torch.where(segs > 0, scores, -1.0)
+    picked = scores.sort(dim=1, descending=True, stable=True).indices[
+        :, :k].sort(dim=1).values
+    gathered = segs.gather(1, picked)
+    shape = (len(mod_rows), 12, 2, k, k, 128, True, gathered, gathered)
+    results = _labelled((*bwd_case(*shape, 167, timed=True),
+                         flash_case(*shape, 168, timed=True)),
+                        "mod gathered rows")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    fwd += [f for _, _, f in bwd]
+    log_kernel_results(fwd, dec, bwd)
+    return {"flash_fwd": fwd,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
+            "decode_attention": dec}
+
+
+def twin_decode_attn(q, k_cache, v_cache, kv_segments, length):
+    """The decode-attention signature over K4's plain version."""
+    from iadr1_tpu_torch.kernels.decode_attention import decode_attention_ref
+
+    B, T, H, D = q.shape
+    out = decode_attention_ref(q.reshape(B, H, D), k_cache.to(q.dtype),
+                               v_cache.to(q.dtype), kv_segments, length,
+                               scale=D ** -0.5)
+    return out.reshape(B, T, H, D)
+
+
+def phase_moe_serve(requests, max_new_tokens, card):
+    """Phase 29a: Qwen1.5-MoE-A2.7B at full width and depth (bf16, drawn
+    on the card from a seed) serves 4 chatml text requests through
+    RolloutEngine.generate, greedy: K1 once per layer a generate, K4 once
+    per layer a decode step, no plain twin called; the prefill's last
+    logits and the first decode step's, against the same steps over the
+    plain versions on the same weights.  Returns the launch counts."""
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.kernels import decode_attention as decode_mod
+    from iadr1_tpu_torch.kernels import flash_attention as flash_mod
+    from iadr1_tpu_torch.models import qwen2_moe
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
+
+    bundle = bundle_from_hf_config(QWEN15_MOE_A27B)
+    cfg = bundle.cfg
+    t0 = time.perf_counter()
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"moe serve: Qwen1.5-MoE-A2.7B {n_params / 1e9:.3f}B params (bf16, "
+        f"seeded; {cfg.num_experts} experts, top {cfg.num_experts_per_tok},"
+        f" a shared expert) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not MOE_N_PARAMS_RANGE[0] < n_params < MOE_N_PARAMS_RANGE[1]:
+        raise AssertionError(f"{n_params / 1e9:.3f}B params, not in "
+                             f"{MOE_N_PARAMS_RANGE}")
+    P, B = max(len(r) for r in requests), len(requests)
+    ids = torch.full((B, P), ENDOFTEXT, dtype=torch.int64)
+    mask = torch.zeros((B, P), dtype=torch.int64)
+    for b, r in enumerate(requests):
+        ids[b, P - len(r):] = torch.as_tensor(r)
+        mask[b, P - len(r):] = 1
+    batch = {"input_ids": ids.to(DEVICE), "attention_mask": mask.to(DEVICE)}
+    pos = llava_positions(batch["attention_mask"])
+    segs = batch["attention_mask"].to(torch.int32)
+
+    def two_steps(kernels):
+        """The prefill's last logits, then one decode step's from the
+        kernel path's greedy token; ``kernels`` False: the plain versions."""
+        cache = qwen2_moe.init_cache(cfg, B, P + 1, torch.bfloat16, DEVICE)
+        kw = ({} if kernels else {"attention_fn": twin_attn,
+                                  "decode_attention_fn": twin_decode_attn})
+        with torch.no_grad():
+            if kernels:
+                h, _ = bundle.apply(params, {"input_ids": batch["input_ids"],
+                                             "position_ids": pos,
+                                             "segment_ids": segs},
+                                    cache=cache, cache_mode="prefill")
+            else:
+                h, _ = qwen2_moe.apply(params, cfg, batch["input_ids"],
+                                       position_ids=pos, segment_ids=segs,
+                                       cache=cache, cache_mode="prefill",
+                                       **kw)
+            first = bundle.logits_fn(params, h[:, -1:])[:, 0]
+            step = {"input_ids": tokens[:, None], "position_ids":
+                    pos[:, -1:] + 1, "segment_ids": torch.ones_like(
+                        segs[:, :1])}
+            if kernels:
+                h, _ = bundle.apply(params, step, cache=cache,
+                                    cache_mode="decode")
+            else:
+                h, _ = qwen2_moe.apply(params, cfg, step["input_ids"],
+                                       position_ids=step["position_ids"],
+                                       segment_ids=step["segment_ids"],
+                                       cache=cache, cache_mode="decode", **kw)
+            return first, bundle.logits_fn(params, h)[:, 0]
+
+    tokens = torch.zeros(B, dtype=torch.int64, device=DEVICE)
+    first, _ = two_steps(True)
+    tokens = first.argmax(-1)
+    # the plain path takes the kernel path's experts (RoutingTape); the
+    # unpinned plain path's logits are logged beside
+    tape = RoutingTape(2 * cfg.num_hidden_layers)
+    with tape.moe(replay=False):
+        got = two_steps(True)
+    with tape.moe(replay=True):
+        want = two_steps(False)
+    free = two_steps(False)
+    torch.cuda.synchronize()
+    for what, a, b, c in zip(("prefill", "first decode step"), got, want,
+                             free):
+        log(f"moe serve: {what} logits kernel vs plain path with its own "
+            f"routing: rel L2 "
+            f"{float((a - c).float().norm() / c.float().norm()):.3e}")
+        if a.shape != (B, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"{what} logits {tuple(a.shape)}, finite "
+                                 f"{bool(torch.isfinite(a).all())}")
+        rel = float((a - b).float().norm() / b.float().norm())
+        agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+        log(f"moe serve: {what} logits kernel vs plain path (the kernel "
+            f"path's experts): rel L2 {rel:.3e} (limit {LOGITS_REL_L2}), "
+            f"argmax agree {agree}/{B}")
+        if not rel <= LOGITS_REL_L2:
+            raise AssertionError(f"{what} logits differ: rel L2 {rel:.3e}")
+    del got, want, free, first
+
+    engine = RolloutEngine(bundle, SamplingConfig(
+        max_new_tokens=max_new_tokens, temperature=0.0,
+        eos_token_id=IM_END, pad_token_id=ENDOFTEXT),
+        max_len=P + max_new_tokens, device=DEVICE)
+    prefill_s = []
+    for _ in range(2):                        # the second one is warm
+        cache = qwen2_moe.init_cache(cfg, B, P, torch.bfloat16, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            bundle.apply(params, {"input_ids": batch["input_ids"],
+                                  "position_ids": pos, "segment_ids": segs},
+                         cache=cache, cache_mode="prefill")
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    del cache
+    prefill_ms = 1e3 * prefill_s[-1]
+    kernels = [k for k, _ in all_kernels()]
+    tap = ChainTap(kernels)
+    for module, fn_name in ((flash_mod, "flash_attention_ref"),
+                            (flash_mod, "flash_attention_bwd_ref"),
+                            (decode_mod, "decode_attention_ref")):
+        tap.twin(module, fn_name)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = engine.generate(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        tap.close()
+    total_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k.name: k.launches for k in kernels}
+    steps = result["num_decode_steps"]
+    out = result["completion_ids"]
+    if out.shape != (B, max_new_tokens) or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"completion {tuple(out.shape)}")
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attention": L * steps}
+    if launches != want or steps < 1:
+        raise AssertionError(f"moe serve: launches {launches} over {steps} "
+                             f"decode steps, want {want}")
+    if any(tap.twin_calls.values()):
+        raise AssertionError(f"moe serve: plain twins called on the card: "
+                             f"{tap.twin_calls}")
+    n_tokens = int(result["completion_mask"].sum())
+    decode_ms = (1e3 * total_s - prefill_ms) / steps
+    log(f"moe serve: generate {B} requests (prompts {list(MOE_PROMPT_LENS)}"
+        f", P={P}), {steps} decode steps, {n_tokens} tokens in "
+        f"{total_s:.3f} s; launches {launches}; twin calls "
+        f"{tap.twin_calls}; the dispatch syncs with the host once a layer "
+        f"({L} a prefill, {L} a decode step)")
+    log(f"moe serve: prefill {prefill_ms:.2f} ms (cold "
+        f"{1e3 * prefill_s[0]:.2f}), decode {decode_ms:.3f} ms/step, "
+        f"{n_tokens / total_s:.1f} generated tokens/s, {B / total_s:.3f} "
+        f"items/s, peak memory {peak_gib:.2f} GiB on {card}")
+    del params, engine, result
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_hf() -> dict:
+    return dict(QWEN15_MOE_A27B, num_hidden_layers=MOE_TRAIN_LAYERS)
+
+
+def moe_plain_apply(params, cfg, b, attn, remat, tower_remat=None, lora=None,
+                    lora_scale=1.0, return_aux=False):
+    """A Qwen2-MoE training forward over ``attn``."""
+    from iadr1_tpu_torch.models import qwen2_moe
+
+    out = qwen2_moe.apply(params, cfg, b["input_ids"],
+                          position_ids=b["position_ids"],
+                          segment_ids=b["segment_ids"], attention_fn=attn,
+                          remat=remat, lora=lora, lora_scale=lora_scale,
+                          return_aux=return_aux)
+    return (out[0], out[2]) if return_aux else out[0]
+
+
+def detached_routing():
+    """The MoE step-1 control: the dispatch's routing weights detached, so
+    the router's gradient reaches it through the aux loss only."""
+    from iadr1_tpu_torch.models import qwen2_moe
+
+    real = qwen2_moe.route
+
+    def route(cfg, xf, kernel):
+        probs, weights, selected = real(cfg, xf, kernel)
+        return probs, weights.detach(), selected
+
+    class Undo:
+        def __enter__(self):
+            qwen2_moe.route = route
+
+        def __exit__(self, *exc):
+            qwen2_moe.route = real
+
+    return Undo()
+
+
+def moe_flops_per_token(cfg, T: int) -> float:
+    """Forward model FLOPs a token over the ACTIVE parameters: the
+    attention, the K routed experts, the shared expert, the router and
+    the head (transformer_flops_per_token at an MLP as wide as the
+    active ones)."""
+    from iadr1_tpu_torch.core.metrics import transformer_flops_per_token
+
+    active = (cfg.num_experts_per_tok * cfg.moe_intermediate_size
+              + cfg.shared_expert_intermediate_size)
+    return (transformer_flops_per_token(
+        hidden=cfg.hidden_size, intermediate=active,
+        num_layers=cfg.num_hidden_layers, vocab=cfg.vocab_size, seq_len=T,
+        num_heads=cfg.num_attention_heads,
+        num_kv_heads=cfg.num_key_value_heads)
+        + 2 * cfg.num_hidden_layers * cfg.hidden_size * cfg.num_experts)
+
+
+def phase_moe_sft(rows, steps: int, card):
+    """Phase 29b: full-parameter PA-SFT of Qwen1.5-MoE-A2.7B's config cut
+    to MOE_TRAIN_LAYERS decoder layers (f32 parameters, bf16 compute,
+    AdamW, remat on) with the router's aux loss (router_aux_loss_coef), as
+    cli/train_sft.py assembles it.  K1-K3 once per layer a step; step 1's
+    loss, aux, grad norm and the per-layer q/k/v and router grad norms
+    against a step over the plain versions, and a control with the
+    routing weights detached must fail them.  Returns the launch
+    counts."""
+    import gc
+
+    from iadr1_tpu_torch.data.collator import text_batch
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.loop import (
+        LoopConfig,
+        batch_iterator,
+        run_sft_loop,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.sft import STEP_RANGES, make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    bundle = bundle_from_hf_config(moe_train_hf())
+    cfg = bundle.cfg
+    coef = cfg.router_aux_loss_coef
+    opt_cfg = OptimizerConfig(learning_rate=LEARNING_RATE, schedule="cosine",
+                              warmup_ratio=0.1, total_steps=steps,
+                              max_grad_norm=1.0)
+    B, T = MOE_SFT_ROWS, MOE_SFT_CUTOFF
+    first = next(batch_iterator(rows, B, 0, text_batch))
+
+    def fresh(hidden_fn):
+        params = bundle.init_params(seed=0, dtype=torch.float32,
+                                    device=DEVICE)
+        opt, sched = make_optimizer(opt_cfg)
+        probe = GradProbe(opt, params)
+        step = make_chunked_sft_step(hidden_fn, bundle.head_kernel_fn, probe,
+                                     sched, chunk_size=CE_CHUNK,
+                                     aux_loss_coef=coef)
+        return create_train_state(params, probe), step, probe
+
+    def first_step(flash):
+        attn = train_attn(flash)
+        state, plain_step, probe = fresh(lambda p, b: moe_plain_apply(
+            p, cfg, b, attn, True, return_aux=True))
+        _, m = plain_step(state, first)
+        res = {k: float(v) for k, v in m.items()}, probe.norms
+        del state, plain_step, probe, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def diffs_of(got, ref):
+        d = step1_diffs(got, ref)
+        d["aux"] = abs(got[0]["aux_loss"] - ref[0]["aux_loss"]) / abs(
+            ref[0]["aux_loss"])
+        return d
+
+    limits = dict(STEP1_LIMITS, aux=MOE_AUX_REL)
+    plain_ref = first_step(TwinFlash)
+    with detached_routing():
+        control = diffs_of(first_step(TwinFlash), plain_ref)
+    log(f"moe sft: step 1 control (plain path, routing weights detached) "
+        f"vs plain path: {_diff_text(control, limits)}")
+    if _within(control, limits):
+        raise AssertionError("the step-1 limits do not catch detached "
+                             "routing weights")
+
+    def hidden_fn(params, b):
+        h, _, aux = bundle.apply(params, b, remat=True, return_aux=True)
+        return h, aux
+
+    state, step, probe = fresh(hidden_fn)
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    kernels = [k for k, _ in all_kernels()]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    state, history = run_sft_loop(
+        state, timed_step, batch_iterator(rows, B, 0, text_batch),
+        LoopConfig(output_dir=MOE_TRAIN_DIR, max_steps=steps, batch_size=B,
+                   logging_steps=1))
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, first)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("profile: one Qwen1.5-MoE training step: "
+        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+            "flash_bwd_dkv": steps * L, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"moe sft launches {launches}, want {want}")
+    losses = [h["loss"] for h in history]
+    auxes = [h["aux_loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(losses) != steps or not all(map(math.isfinite,
+                                           losses + auxes + norms)):
+        raise AssertionError(f"losses {losses}, aux {auxes}, norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    diffs = diffs_of(({"loss": losses[0], "aux_loss": auxes[0],
+                       "grad_norm": norms[0]}, probe.norms), plain_ref)
+    log(f"moe sft: step 1 kernel vs plain path: loss {losses[0]:.6f} vs "
+        f"{plain_ref[0]['loss']:.6f}, aux {auxes[0]:.6f} vs "
+        f"{plain_ref[0]['aux_loss']:.6f}, grad norm {norms[0]:.6f} vs "
+        f"{plain_ref[0]['grad_norm']:.6f}; {_diff_text(diffs, limits)}; "
+        "the control's margins (reading / limit, above 1 fails): "
+        + ", ".join(f"{k} {control[k] / limits[k]:.3f}" for k in limits))
+    if not _within(diffs, limits):
+        raise AssertionError("step 1 differs between kernel and plain path")
+    step_s = statistics.median(times[1:])
+    flops = 3 * B * T * moe_flops_per_token(cfg, T)
+    log(f"moe sft: Qwen1.5-MoE-A2.7B cut to {L} of 24 layers, "
+        f"{n_params / 1e9:.3f}B f32 params, {steps} steps of {B}x{T} tokens "
+        f"({int(history[0]['n_label_tokens'])} label tokens), aux coef "
+        f"{coef}; losses {[round(x, 4) for x in losses]}; aux "
+        f"{[round(x, 4) for x in auxes]}; grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"moe sft: step {1e3 * step_s:.1f} ms (median of steps 2-{steps}; "
+        f"all steps {[round(1e3 * x, 1) for x in times]} ms), "
+        f"{B * T / step_s:.0f} tokens/s, MFU "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.4f} (active-parameter model "
+        f"FLOPs x3, against {PEAK_BF16_FLOPS:.3g}), peak memory "
+        f"{peak_gib:.2f} GiB, launches {launches} on {card}")
+    return launches
+
+
+def grpo_case_moe(steps: int) -> types.SimpleNamespace:
+    """Phase 29c's setting: SC-GRPO of the cut Qwen1.5-MoE (f32 policy,
+    bf16 reference) on the grpo section of configs/grpo_qwen2_5_vl_7b.yaml
+    with P and N cut (MOE_GRPO_PROMPT_LEN, MOE_GRPO_COMPLETION_LEN), 2
+    text prompts; the dense update (no shared path in either package, and
+    no aux loss in the GRPO loss, as in JAX), a dq-zeroed control."""
+    case = grpo_case_q25(steps, "moe grpo",
+                         f"Qwen1.5-MoE-A2.7B cut to {MOE_TRAIN_LAYERS} "
+                         "decoder layers", moe_train_hf())
+    case.gcfg = dataclasses.replace(
+        case.gcfg, max_prompt_length=MOE_GRPO_PROMPT_LEN,
+        max_completion_length=MOE_GRPO_COMPLETION_LEN)
+    case.plain_apply = moe_plain_apply
+    case.vision_keys = ()
+    case.controls, case.lse_check = GRPO_CONTROLS[1:], False
+    case.n_params_range = (2.85e9, 2.95e9)
+    return case
+
+
+def longlora_llava_plain_apply(params, cfg, b, attn, remat, tower_remat,
+                               lora=None, lora_scale=1.0):
+    """Phase 30's plain path: the LLaVA-NeXT forward with LongLoRA's
+    shift-short attention over ``attn`` in the decoder, ``attn`` itself
+    in the tower."""
+    from iadr1_tpu_torch.models import llava
+    from iadr1_tpu_torch.models.attention import make_longlora_attention
+
+    h, _ = llava.apply(
+        params, cfg, b["input_ids"], b["position_ids"], tiles=b["tiles"],
+        tile_segments=b["tile_segments"], pack_src=b["pack_src"],
+        pack_weights=b["pack_weights"], newline_mask=b["newline_mask"],
+        scatter_rows=b["scatter_rows"], scatter_cols=b["scatter_cols"],
+        segment_ids=b["segment_ids"],
+        attention_fn=make_longlora_attention(attn), tower_attention_fn=attn,
+        remat=remat, tower_remat=tower_remat, lora=lora["text"],
+        lora_scale=lora_scale)
+    return h
+
+
+def phase_longlora_sft(rows, steps: int, card):
+    """Phase 30: context extension.  LoRA PA-SFT of LLaVA-NeXT-8B at full
+    depth (32 decoder layers, bf16 base, LoRA's defaults) on phase 19's
+    recipe and examples in one row of 16384, with ``model.rope_scaling:
+    linear`` and ``model.model_max_length`` 16384 over the decoder's 8192
+    positions (factor 2, written into text_config: C.R18) and
+    ``model.shift_attn``: each decoder layer two K1 calls on LongLoRA's
+    grouped views (K2 and K3 in the backward), the CLIP tower's K1 calls
+    plain; step 1 against the plain path."""
+    from iadr1_tpu_torch.core.metrics import vit_flops_per_patch
+    from iadr1_tpu_torch.models.registry import (
+        bundle_from_hf_config,
+        configure_rope_scaling,
+    )
+
+    text = bundle_from_hf_config(configure_rope_scaling(
+        LLAVA_NEXT_8B, "linear", LONGLORA_CUTOFF)).cfg.text
+    log(f"longlora sft: the decoder's RoPE after configure_rope_scaling: "
+        f"{text.rope_scaling}, max_position_embeddings "
+        f"{text.max_position_embeddings}")
+    if (text.rope_scaling is None or text.rope_scaling.factor != 2.0
+            or text.max_position_embeddings != LONGLORA_CUTOFF):
+        raise AssertionError("the scaling did not reach the decoder")
+
+    def tower_flops(first):
+        n_tiles = first["tiles"].shape[0]
+        n_images = int(first["tile_segments"].sum())
+        v = LLAVA_NEXT_8B["vision_config"]
+        flops = n_images * 577 * vit_flops_per_patch(
+            hidden=v["hidden_size"], intermediate=v["intermediate_size"],
+            num_layers=v["num_hidden_layers"] - 1, attn_window=577)
+        return flops, (f"{LONGLORA_PER_ROW} images in {n_images} of the "
+                       f"{n_tiles} tiles")
+
+    return phase_lora_sft(
+        "longlora sft", "LLaVA-NeXT-8B", LLAVA_NEXT_8B, LLAVA_RECIPE, rows,
+        steps, card, LONGLORA_TRAIN_DIR, longlora_llava_plain_apply,
+        tower_flops, batch_rows=LONGLORA_ROWS,
+        overrides=[f"data.cutoff_len={LONGLORA_CUTOFF}",
+                   "data.template=llava_next_llama3",
+                   "model.rope_scaling=linear",
+                   f"model.model_max_length={LONGLORA_CUTOFF}",
+                   "model.shift_attn=true"], decoder_calls=2)
+
+
+def phase_mod_train(rows, steps: int, card):
+    """Phase 31: Mixture-of-Depths.  ``convert_to_mod`` over Qwen2-VL-2B's
+    decoder as a Qwen2 text model (28 layers, f32 parameters, bf16
+    compute), its routers then drawn from the seed (zero routers tie every
+    score), ``apply_mod`` at capacity MOD_CAPACITY as the SFT step's
+    hidden_fn, AdamW: K1-K3 once per layer a step on the gathered rows;
+    step 1 against the plain path, which takes the kernel path's rows
+    (RoutingTape), and a dq-zeroed control.  Returns the launch counts."""
+    import gc
+
+    from iadr1_tpu_torch.data.collator import text_batch
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models.attention import default_attention
+    from iadr1_tpu_torch.models.mod import apply_mod, convert_to_mod
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.loop import (
+        LoopConfig,
+        batch_iterator,
+        run_sft_loop,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.sft import make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    bundle = bundle_from_hf_config(qwen2_vl_text_hf())
+    cfg = bundle.cfg
+    opt_cfg = OptimizerConfig(learning_rate=LEARNING_RATE, schedule="cosine",
+                              warmup_ratio=0.1, total_steps=steps,
+                              max_grad_norm=1.0)
+    B, T = MOD_ROWS, MOD_CUTOFF
+    first = next(batch_iterator(rows, B, 0, text_batch))
+
+    def hidden(attn):
+        return lambda p, b: apply_mod(
+            p, cfg, b["input_ids"], position_ids=b["position_ids"],
+            segment_ids=b["segment_ids"], capacity=MOD_CAPACITY,
+            attention_fn=attn, remat=True)
+
+    def fresh(hidden_fn):
+        params = convert_to_mod(bundle.init_params(
+            seed=0, dtype=torch.float32, device=DEVICE), cfg)
+        router = params["layers"]["mod_router"]["kernel"]
+        router.normal_(0.0, cfg.hidden_size ** -0.5,
+                       generator=torch.Generator(device=DEVICE).manual_seed(3))
+        opt, sched = make_optimizer(opt_cfg)
+        probe = GradProbe(opt, params)
+        step = make_chunked_sft_step(hidden_fn, bundle.head_kernel_fn, probe,
+                                     sched, chunk_size=CE_CHUNK)
+        return create_train_state(params, probe), step, probe
+
+    def first_step(flash):
+        state, plain_step, probe = fresh(hidden(train_attn(flash)))
+        _, m = plain_step(state, first)
+        res = {k: float(v) for k, v in m.items()}, probe.norms
+        del state, plain_step, probe, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    tape = RoutingTape(cfg.num_hidden_layers)
+    state, step, probe = fresh(hidden(default_attention("flash")))
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    kernels = [k for k, _ in all_kernels()]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    with tape.mod(replay=False):
+        state, history = run_sft_loop(
+            state, timed_step, batch_iterator(rows, B, 0, text_batch),
+            LoopConfig(output_dir=MOD_TRAIN_DIR, max_steps=steps,
+                       batch_size=B, logging_steps=1))
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tape.mod(replay=True):
+        plain_ref = first_step(TwinFlash)
+        control = step1_diffs(first_step(ZeroDqFlash), plain_ref)
+    log(f"mod train: step 1 control (plain path with dq zeroed) vs plain "
+        f"path: {_diff_text(control)}")
+    if _within(control):
+        raise AssertionError("the step-1 limits do not catch a zeroed dq")
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+            "flash_bwd_dkv": steps * L, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"mod train launches {launches}, want {want}")
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    diffs = step1_diffs(({"loss": losses[0], "grad_norm": norms[0]},
+                         probe.norms), plain_ref)
+    log(f"mod train: step 1 kernel vs plain path (the kernel path's rows): "
+        f"loss {losses[0]:.6f} vs "
+        f"{plain_ref[0]['loss']:.6f}, grad norm {norms[0]:.6f} vs "
+        f"{plain_ref[0]['grad_norm']:.6f}; {_diff_text(diffs)}; the "
+        "control's margins (reading / limit, above 1 fails): " + ", ".join(
+            f"{k} {control[k] / STEP1_LIMITS[k]:.3f}" for k in STEP1_LIMITS))
+    if not _within(diffs):
+        raise AssertionError("step 1 differs between kernel and plain path")
+    step_s = statistics.median(times[1:])
+    k = int(T * MOD_CAPACITY)
+    log(f"mod train: Qwen2-VL-2B's decoder with MoD routers, "
+        f"{n_params / 1e9:.3f}B f32 params, capacity {MOD_CAPACITY} (k = "
+        f"{k} of {T} a layer), {steps} steps of {B}x{T} tokens; losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"mod train: step {1e3 * step_s:.1f} ms (median of steps "
+        f"2-{steps}; all steps {[round(1e3 * x, 1) for x in times]} ms), "
+        f"{B * T / step_s:.0f} tokens/s, peak memory {peak_gib:.2f} GiB, "
+        f"launches {launches} on {card}")
+    return launches
 
 
 def main() -> int:
@@ -6452,7 +7390,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-28; "
+                    help="comma-separated phase numbers to run (3-31; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -6518,7 +7456,14 @@ def main() -> int:
     px_encoded = make_pixtral_requests(px)
     px_rows = make_pixtral_sft_rows(px, Q25_SFT_CUTOFF)
     px_grpo = make_pixtral_grpo_examples(px)
-    phases = (set(range(1, 29)) if args.phases is None
+    moe_requests = make_moe_requests()
+    moe_rows = make_text_sft_rows(MOE_SFT_ROWS, MOE_SFT_CUTOFF, seed=32)
+    moe_grpo = make_moe_grpo_examples()
+    longlora_rows = make_next_sft_rows(next_bundle, LONGLORA_CUTOFF, seed=35,
+                                       n_rows=LONGLORA_ROWS,
+                                       per_row=LONGLORA_PER_ROW)
+    mod_rows = make_text_sft_rows(MOD_ROWS, MOD_CUTOFF, seed=34)
+    phases = (set(range(1, 32)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
@@ -6545,6 +7490,10 @@ def main() -> int:
                 pg_encoded, pg_grpo, px_encoded, px_rows, px_grpo,
                 args.max_new_tokens).items():
             measured[name] += results
+        for name, results in phase_kernels_moe_context(
+                moe_requests, moe_grpo, longlora_rows, mod_rows,
+                args.max_new_tokens).items():
+            measured[name] += results
         log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     if phases & {4, 5, 8, 9}:
         t0 = time.perf_counter()
@@ -6562,6 +7511,7 @@ def main() -> int:
     intern_steps = min(args.grpo_steps, INTERNVL_GRPO_STEPS)
     pg_steps = min(args.grpo_steps, PG_GRPO_STEPS)
     px_steps = min(args.grpo_steps, PX_GRPO_STEPS)
+    moe_steps = min(args.grpo_steps, MOE_GRPO_STEPS)
     q25_cut = dict(QWEN2_5_VL_3B, num_hidden_layers=Q25_GRPO_LAYERS)
     for n, path, run in (
         (6, "train", lambda: phase_train(train_rows, args.train_steps, card)),
@@ -6594,7 +7544,8 @@ def main() -> int:
         (22, "llava16_qlora_sft", lambda: phase_qlora_sft_next(
             next_rows, LORA_SFT_STEPS, card)),
         (22, "q25_int8_serve", lambda: phase_quant_serve(
-            q25_encoded, args.max_new_tokens, card, "int8")),
+            q25_encoded, min(args.max_new_tokens, INT8_NEW_TOKENS), card,
+            "int8")),
         (22, "q25_nf4_serve", lambda: phase_quant_serve(
             q25_encoded, NF4_NEW_TOKENS, card, "nf4", NF4_LAYERS)),
         (23, "internvl_serve", lambda: phase_internvl_serve(
@@ -6625,13 +7576,23 @@ def main() -> int:
             px_rows, PX_SFT_STEPS, card)),
         (28, "pixtral_lora_grpo", lambda: phase_grpo(
             px_grpo, px_steps, card, grpo_case_pixtral(px_steps))),
+        (29, "moe_serve", lambda: phase_moe_serve(
+            moe_requests, args.max_new_tokens, card)),
+        (29, "moe_sft", lambda: phase_moe_sft(
+            moe_rows, MOE_SFT_STEPS, card)),
+        (29, "moe_grpo", lambda: phase_grpo(
+            moe_grpo, moe_steps, card, grpo_case_moe(moe_steps))),
+        (30, "longlora_sft", lambda: phase_longlora_sft(
+            longlora_rows, LONGLORA_STEPS, card)),
+        (31, "mod_train", lambda: phase_mod_train(
+            mod_rows, MOD_STEPS, card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
             by_path[path] = run()
             torch.cuda.empty_cache()
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 29)) <= phases:
+    if not set(range(3, 32)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

@@ -7,11 +7,16 @@ Usage:
         train.max_steps=20 optim.learning_rate=1e-4 [--device cpu]
 
 ``require_ported`` names the ROADMAP item each option the port cannot run
-yet waits for: a mesh of more than one device (A.11), rope scaling and
-LongLoRA (A.13), ``do_predict`` (A.15).  ``prepare_rows`` prepends
-PaliGemma's image runs to the encoded ids, and raises where they leave the
-text no room under ``cutoff_len`` (the JAX package clamps the text's
-budget at 8 tokens, and packing drops the over-long row: ROADMAP C.R4).
+yet waits for: a mesh of more than one device (A.11), ``do_predict``
+(A.15).  Context extension runs as in JAX: ``model.rope_scaling`` with
+``model.model_max_length`` rewrites the config (into its ``text_config``
+where it has one, ROADMAP C.R18), ``model.shift_attn`` trains with
+LongLoRA's shift-short attention over ``model.attention``.  A Qwen2-MoE
+model adds its router's load-balancing loss (``router_aux_loss_coef``).
+``prepare_rows`` prepends PaliGemma's image runs to the encoded ids, and
+raises where they leave the text no room under ``cutoff_len`` (the JAX
+package clamps the text's budget at 8 tokens, and packing drops the
+over-long row: ROADMAP C.R4).
 """
 
 from __future__ import annotations
@@ -99,12 +104,26 @@ def require_ported(job: SFTJobConfig) -> None:
         raise NotImplementedError(
             f"a mesh of more than one device ({job.mesh}) is not ported yet "
             "(ROADMAP A.11)")
-    if job.model.rope_scaling or job.model.shift_attn:
-        raise NotImplementedError(
-            "rope scaling and LongLoRA are not ported yet (ROADMAP A.13)")
     if job.predict.do_predict:
         raise NotImplementedError(
             "do_predict is not ported yet (ROADMAP A.15)")
+
+
+def context_extension(model: ModelSection, hf_config: dict):
+    """(the HF config, the attention kind) after the model section's
+    context extension: ``rope_scaling`` rewrites the config
+    (``configure_rope_scaling``), ``shift_attn`` trains with LongLoRA's
+    shift-short attention over the selected kind."""
+    if model.rope_scaling:
+        from iadr1_tpu_torch.models.registry import configure_rope_scaling
+
+        hf_config = configure_rope_scaling(hf_config, model.rope_scaling,
+                                           model.model_max_length)
+    attention = model.attention
+    if model.shift_attn and not attention.startswith("longlora"):
+        attention = ("longlora" if attention == "auto"
+                     else f"longlora_{attention}")
+    return hf_config, attention
 
 
 def load_tokenizer(path: str):
@@ -274,7 +293,8 @@ def main(argv=None):
         with open(os.path.join(cfg.model.model_name_or_path,
                                "config.json")) as f:
             hf_cfg_dict = json.load(f)
-    bundle = bundle_from_hf_config(hf_cfg_dict, attention=cfg.model.attention)
+    hf_cfg_dict, attention = context_extension(cfg.model, hf_cfg_dict)
+    bundle = bundle_from_hf_config(hf_cfg_dict, attention=attention)
     if cfg.model.hf_config:
         params = bundle.init_params(seed=cfg.model.seed, dtype=dtype,
                                     device=device)
@@ -314,13 +334,21 @@ def main(argv=None):
                 f"{bundle.family} family has no vision-tower remat knob")
         tower_kw["tower_remat"] = _remat(cfg.model.tower_remat)
 
+    # a MoE bundle adds the router's load-balancing loss
+    aux_coef = (bundle.cfg.router_aux_loss_coef
+                if bundle.family == "qwen2_moe" else 0.0)
+
     def hidden_fn(params, batch):
+        if aux_coef:
+            h, _, aux = bundle.apply(params, batch, remat=remat_mode,
+                                     return_aux=True)
+            return h, aux
         return bundle.hidden_fn(params, batch, remat=remat_mode, **tower_kw)
 
     # chunked CE: never materializes [B, T, V] logits
     step = make_chunked_sft_step(
         hidden_fn, bundle.head_kernel_fn, optimizer, schedule,
-        chunk_size=cfg.data.ce_chunk,
+        chunk_size=cfg.data.ce_chunk, aux_loss_coef=aux_coef,
         logits_dtype=getattr(torch, cfg.data.ce_logits_dtype))
 
     ckpt = CheckpointManager(

@@ -6,6 +6,7 @@ Counterpart of iadr1_tpu/models/common.py.  Kernels keep the JAX layout
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -66,10 +67,49 @@ def rope_inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def rope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float):
-    """Unscaled 1-D RoPE tables: [..., T] -> cos/sin [..., T, head_dim] f32
-    in the rotate-half layout [f0..f_{d/2-1}, f0..f_{d/2-1}]."""
-    inv = rope_inv_freq(head_dim, theta, position_ids.device)
+def scaled_rope_inv_freq(head_dim: int, theta: float, scaling, device,
+                         seq_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Context-extension inverse frequencies (the JAX
+    ``scaled_rope_inv_freq``, transformers' ``ROPE_INIT_FUNCTIONS``):
+    linear divides every frequency by the factor; dynamic NTK grows the
+    base with the running length ``seq_len`` (a 0-d tensor, never below
+    the original maximum); llama3 scales each frequency by its wavelength
+    between the low and high bands.  ``scaling`` None: unscaled."""
+    inv = rope_inv_freq(head_dim, theta, device)
+    if scaling is None:
+        return inv
+    factor = scaling.factor
+    if scaling.type == "linear":
+        return inv / factor
+    if scaling.type == "dynamic":
+        orig = float(scaling.original_max_position_embeddings)
+        eff = (torch.tensor(orig, device=device) if seq_len is None
+               else seq_len.float().clamp(min=orig))
+        base = theta * ((factor * eff / orig) - (factor - 1.0)) ** (
+            head_dim / (head_dim - 2))
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+        return 1.0 / (base ** exps)
+    if scaling.type == "llama3":
+        orig = scaling.original_max_position_embeddings
+        low, high = scaling.low_freq_factor, scaling.high_freq_factor
+        wavelen = 2.0 * math.pi / inv
+        smooth = (orig / wavelen - low) / (high - low)
+        mid = (1.0 - smooth) * inv / factor + smooth * inv
+        return torch.where(wavelen > orig / low, inv / factor,
+                           torch.where(wavelen < orig / high, inv, mid))
+    raise ValueError(f"unknown rope scaling type {scaling.type!r}")
+
+
+def rope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float,
+                 scaling=None):
+    """1-D RoPE tables: [..., T] -> cos/sin [..., T, head_dim] f32 in the
+    rotate-half layout [f0..f_{d/2-1}, f0..f_{d/2-1}].  ``scaling`` (a
+    ``qwen2.RopeScaling``) extends the context; dynamic NTK reads the
+    running length as the largest position + 1, on the device."""
+    seq_len = position_ids.max() + 1 if scaling is not None else None
+    inv = scaled_rope_inv_freq(head_dim, theta, scaling, position_ids.device,
+                               seq_len)
     freqs = position_ids.float()[..., None] * inv
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos(), emb.sin()

@@ -5,8 +5,9 @@ layers stacked on axis 0, dense kernels [in, out].  The forward is a plain
 function over that dict.  Any dense kernel may be a weight-only quant
 dict (``models/quant.py``), and ``apply(..., lora=...)`` adds factored
 LoRA / DoRA adapters (``lora_dense``) without ever forming the merged
-weight.  The Gemma knobs (PaliGemma's decoder) and the prefix-LM mask
-are here too; MoE layers and RoPE scaling are not ported yet (ROADMAP).
+weight.  The Gemma knobs (PaliGemma's decoder), the prefix-LM mask,
+RoPE scaling and the MLP hook that the sparse-MoE decoder
+(``models/qwen2_moe.py``) plugs into are here too.
 """
 
 from __future__ import annotations
@@ -34,6 +35,18 @@ from iadr1_tpu_torch.models.quant import dequantize_kernel
 
 
 @dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """Context-extension RoPE scaling (transformers' ``rope_scaling``
+    dict; types linear, dynamic and llama3): the tables of
+    ``common.scaled_rope_inv_freq``."""
+    type: str = "linear"
+    factor: float = 1.0
+    original_max_position_embeddings: int = 32768
+    low_freq_factor: float = 1.0      # llama3 only
+    high_freq_factor: float = 4.0     # llama3 only
+
+
+@dataclasses.dataclass(frozen=True)
 class Qwen2Config:
     vocab_size: int = 151936
     hidden_size: int = 1536
@@ -44,9 +57,11 @@ class Qwen2Config:
     head_dim: int | None = None
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1000000.0
+    max_position_embeddings: int = 32768
     tie_word_embeddings: bool = False
     attention_bias: bool = True
     mrope_section: tuple[int, ...] | None = None
+    rope_scaling: RopeScaling | None = None       # 1-D RoPE only
     # Gemma's knobs (PaliGemma's decoder, HF modeling_gemma): norms scale
     # by (offset + w) with zero-initialised weights, the MLP's gate takes
     # gelu_pytorch_tanh, and the input embeddings are scaled by
@@ -231,22 +246,38 @@ def norm(cfg, x, scale):
     return rms_norm(x, scale, cfg.rms_norm_eps, cfg.rms_norm_offset)
 
 
-def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
-    """Output projection, residual, then the MLP block."""
+def dense_mlp(cfg, x, mp, ml, scale: float = 1.0):
+    """The dense gated MLP over a layer's ``mp`` = params["mlp"] (and its
+    LoRA subtree ``ml``); returns (out, None): no auxiliary output."""
+    def proj(x, name):
+        return lora_dense(x, mp[name]["kernel"], None,
+                          _ab(ml, name, "kernel"), scale)
+
+    return proj(mlp_activation(cfg)(proj(x, "gate")) * proj(x, "up"),
+                "down"), None
+
+
+def _attn_out_mlp(cfg, h, out, lp, ll, scale: float, mlp):
+    """Output projection, residual, then the MLP block ``mlp(x, params,
+    lora, scale) -> (out, aux)`` (``dense_mlp`` for None); returns (h,
+    aux)."""
     B, T, _ = h.shape
-
-    def proj(x, group, name):
-        return lora_dense(x, lp[group][name]["kernel"], None,
-                          _ab(ll, group, name, "kernel"), scale)
-
-    h = h + proj(out.reshape(B, T, -1), "attn", "o")
+    h = h + lora_dense(out.reshape(B, T, -1), lp["attn"]["o"]["kernel"],
+                       None, _ab(ll, "attn", "o", "kernel"), scale)
     x = norm(cfg, h, lp["post_attn_norm"])
-    gate, up = proj(x, "mlp", "gate"), proj(x, "mlp", "up")
-    return h + proj(mlp_activation(cfg)(gate) * up, "mlp", "down")
+    y, aux = (mlp or functools.partial(dense_mlp, cfg))(
+        x, lp["mlp"], _ab(ll, "mlp"), scale)
+    return h + y, aux
+
+
+def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
+    """Output projection, residual, then the dense MLP block."""
+    return _attn_out_mlp(cfg, h, out, lp, ll, scale, None)[0]
 
 
 def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
-           attend_fresh, ll=None, scale: float = 1.0):
+           attend_fresh, ll=None, scale: float = 1.0, mlp=None):
+    """One decoder layer; returns (h, the MLP hook's aux or None)."""
     x = norm(cfg, h, lp["input_norm"])
     q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     if layer_cache is not None:
@@ -257,12 +288,13 @@ def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
         cv[:, :, write_idx:write_idx + T] = v.transpose(1, 2).to(cv.dtype)
         if not attend_fresh:
             k, v = ck, cv                           # cache layout
-    return _post_attention(cfg, h, attn(q, k, v), lp, ll, scale)
+    return _attn_out_mlp(cfg, h, attn(q, k, v), lp, ll, scale, mlp)
 
 
 def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
-                 scale: float = 1.0):
-    """One training layer under a remat mode (no cache).
+                 scale: float = 1.0, mlp=None):
+    """One training layer under a remat mode (no cache); returns (h, aux)
+    as ``_layer``.
 
     "full" checkpoints the whole layer, so the backward re-runs the
     attention forward.  True / "save_flash" and "save_qkv" keep the
@@ -275,7 +307,7 @@ def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
     norm in front of them, not the three projections."""
     if remat == "full":
         return ckpt(lambda h: _layer(cfg, h, lp, cos, sin, None, None, attn,
-                                     False, ll, scale), h)
+                                     False, ll, scale, mlp), h)
     if remat == "save_qkv":
         x = ckpt(lambda h: norm(cfg, h, lp["input_norm"]), h)
         q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
@@ -283,8 +315,8 @@ def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
         q, k, v = ckpt(lambda h: _qkv(cfg, norm(cfg, h, lp["input_norm"]),
                                       lp["attn"], cos, sin, ll, scale), h)
     out = attn(q, k, v)
-    return ckpt(lambda h, out: _post_attention(cfg, h, out, lp, ll, scale),
-                h, out)
+    return ckpt(lambda h, out: _attn_out_mlp(cfg, h, out, lp, ll, scale,
+                                             mlp), h, out)
 
 
 def _or_bidirectional(mask, q_segments, kv_segments, kv_bidir):
@@ -334,8 +366,11 @@ def apply(
     remat=False,
     lora: dict | None = None,
     lora_scale: float = 1.0,
+    mlp_fn: Callable | None = None,
+    return_aux: bool = False,
 ):
-    """Run the decoder; returns (hidden [B, T, hid], cache).
+    """Run the decoder; returns (hidden [B, T, hid], cache), or (hidden,
+    cache, aux) with ``return_aux``.
 
     ``position_ids`` is [B, T], or [3, B, T] for M-RoPE.  ``segment_ids``
     [B, T] are packing segments (0 = padding).  Causality is by sequence /
@@ -360,7 +395,21 @@ def apply(
     block's place) such a mask runs ``prefix_lm_attention``; "decode"
     ignores it (a new token attends the valid cache prefix causally, which
     is exact) and keeps K4.
+
+    ``mlp_fn(cfg, x, mlp_params, mlp_lora, scale, segment_ids) -> (out,
+    aux)`` replaces every layer's dense MLP (the JAX ``layer_fn`` hook,
+    taken at the MLP: the sparse-MoE block), in every cache mode and remat
+    mode; ``aux`` is the sum of its per-layer aux over the layers (None
+    for the dense MLP).
+
+    RoPE scaling (``cfg.rope_scaling``) applies to 1-D RoPE.  A
+    training-only attention (LongLoRA's, ``models/attention.py``) refuses
+    a cache.
     """
+    if cache is not None and getattr(attention_fn, "training_only", False):
+        raise ValueError("LongLoRA's shift-short attention is for training "
+                         "only: a cached prefill or decode takes the plain "
+                         "attention")
     if remat and cache is not None:
         raise ValueError("remat is for training; it takes no cache")
     if remat not in (False, True, "save_flash", "save_qkv", "full"):
@@ -382,7 +431,8 @@ def apply(
         cos, sin = mrope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta,
                                  cfg.mrope_section)
     else:
-        cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
+        cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta,
+                                cfg.rope_scaling)
 
     if segment_ids is None:
         segment_ids = torch.ones((B, T), dtype=torch.int32, device=device)
@@ -440,18 +490,25 @@ def apply(
     layers = unstack_layers(params["layers"], L)
     layer_loras = (unstack_layers(lora.get("layers", lora), L)
                    if lora is not None else [None] * L)
+    mlp = (functools.partial(mlp_fn, cfg, segment_ids=segment_ids)
+           if mlp_fn is not None else None)
+    aux_total = None
     for i, (lp, ll) in enumerate(zip(layers, layer_loras)):
         if remat:
-            h = _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll,
-                             lora_scale)
-            continue
-        layer_cache = ((cache["k"][i], cache["v"][i]) if cache is not None
-                       else None)
-        h = _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
-                   attend_fresh, ll, lora_scale)
+            h, aux = _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll,
+                                  lora_scale, mlp)
+        else:
+            layer_cache = ((cache["k"][i], cache["v"][i])
+                           if cache is not None else None)
+            h, aux = _layer(cfg, h, lp, cos, sin, layer_cache, write_idx,
+                            attn, attend_fresh, ll, lora_scale, mlp)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
     h = norm(cfg, h, params["final_norm"])
     if cache is not None:
         cache["write_idx"] = write_idx + T
+    if return_aux:
+        return h, cache, aux_total
     return h, cache
 
 

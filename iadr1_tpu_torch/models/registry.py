@@ -1,7 +1,8 @@
-"""Model bundles (counterpart of iadr1_tpu/models/registry.py) for the
-families ported so far: Qwen2 (text), Qwen2-VL and Qwen2.5-VL (images and
-videos), LLaVA-OneVision, LLaVA-1.5 / LLaVA-NeXT (images), LLaVA-NeXT-Video
-and Video-LLaVA (images and videos), InternVL, PaliGemma and Pixtral.
+"""Model bundles (counterpart of iadr1_tpu/models/registry.py) for every
+family of the JAX package: Qwen2 and Qwen2-MoE (text), Qwen2-VL and
+Qwen2.5-VL (images and videos), LLaVA-OneVision, LLaVA-1.5 / LLaVA-NeXT
+(images), LLaVA-NeXT-Video and Video-LLaVA (images and videos), InternVL,
+PaliGemma and Pixtral.
 
 A bundle carries the config and the functions the rollout engine, the
 generator and the SFT step call: ``apply(params, batch, cache=None,
@@ -50,6 +51,7 @@ from iadr1_tpu_torch.models.attention import (
     default_attention,
     default_attention_with_lse,
     default_decode_attention,
+    tower_attention,
 )
 from iadr1_tpu_torch.models.shared_prompt import shared_prompt_pred_hidden
 
@@ -123,13 +125,84 @@ TEXT_DEFAULTS = {"llama": LLAMA_TEXT_DEFAULTS,
                  "mistral": MISTRAL_TEXT_DEFAULTS}
 
 
+def _parse_rope_scaling(hf: dict) -> qwen2.RopeScaling | None:
+    """A text config's ``rope_scaling`` as the decoder's RopeScaling (None
+    for none, "default" and M-RoPE, whose sections are read apart).
+    Dynamic NTK keys its base to ``max_position_embeddings``, as
+    transformers' ``_compute_dynamic_ntk_parameters`` does, whatever the
+    dict's ``original_max_position_embeddings`` says."""
+    rs = hf.get("rope_scaling")
+    if not rs:
+        return None
+    rtype = rs.get("rope_type", rs.get("type"))
+    if rtype in (None, "mrope", "default"):
+        return None
+    if rtype not in ("linear", "dynamic", "llama3"):
+        raise NotImplementedError(f"rope scaling type {rtype!r} is not "
+                                  "supported (linear, dynamic, llama3)")
+    if rtype == "dynamic":
+        orig = int(hf.get("max_position_embeddings", 32768))
+    else:
+        orig = int(rs.get("original_max_position_embeddings",
+                          hf.get("max_position_embeddings", 32768)))
+    return qwen2.RopeScaling(
+        type=rtype, factor=float(rs.get("factor", 1.0)),
+        original_max_position_embeddings=orig,
+        low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
+        high_freq_factor=float(rs.get("high_freq_factor", 4.0)))
+
+
+def _is_mrope(text_hf: dict) -> bool:
+    rs = text_hf.get("rope_scaling") or {}
+    return ("mrope_section" in rs
+            or rs.get("rope_type", rs.get("type")) == "mrope")
+
+
+def configure_rope_scaling(hf_config: dict, rope_scaling: str,
+                           model_max_length: int | None) -> dict:
+    """A copy of an HF config dict set up for context extension (the
+    reference's configure_rope, model_utils/rope.py:34-71): the factor is
+    ceil(model_max_length / max_position_embeddings) when extending, 1.0
+    when not, and 2.0 with no length given.  The scaling and the new
+    maximum go into ``text_config`` where the config has one, since every
+    family with a nested text config reads its decoder from there (the JAX
+    package writes them at the top level, where a VLM decoder never reads
+    them: ROADMAP C.R18).  An M-RoPE decoder (Qwen2-VL, Qwen2.5-VL) raises:
+    its ``rope_scaling`` holds the M-RoPE sections, which a scaling dict
+    would replace."""
+    import math
+
+    out = dict(hf_config)
+    nested = isinstance(out.get("text_config"), dict)
+    text = dict(out["text_config"]) if nested else out
+    if _is_mrope(text):
+        raise ValueError(
+            "rope scaling over an M-RoPE decoder would replace its "
+            "mrope_section (ROADMAP C.R18); M-RoPE takes no scaling")
+    current_max = text.get("max_position_embeddings", 32768)
+    rs: dict = {"rope_type": rope_scaling}
+    if model_max_length:
+        if model_max_length > current_max:
+            rs["factor"] = float(math.ceil(model_max_length / current_max))
+            text["max_position_embeddings"] = model_max_length
+        else:
+            rs["factor"] = 1.0
+    else:
+        rs["factor"] = 2.0
+    if rope_scaling in ("dynamic", "llama3"):
+        rs["original_max_position_embeddings"] = current_max
+    if rope_scaling == "llama3" and model_max_length:
+        rs["low_freq_factor"], rs["high_freq_factor"] = 1.0, 4.0
+    text["rope_scaling"] = rs
+    if nested:
+        out["text_config"] = text
+    return out
+
+
 def _qwen2_text_cfg(hf: dict, attention_bias: bool = True
                     ) -> qwen2.Qwen2Config:
     hf = {**TEXT_DEFAULTS.get(hf.get("model_type"), {}), **hf}
     rs = hf.get("rope_scaling") or {}
-    if rs.get("rope_type", rs.get("type")) not in (None, "mrope", "default"):
-        raise NotImplementedError(
-            "RoPE scaling is not ported yet (ROADMAP A.13)")
     return qwen2.Qwen2Config(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
@@ -141,10 +214,12 @@ def _qwen2_text_cfg(hf: dict, attention_bias: bool = True
         head_dim=hf.get("head_dim"),
         rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
         rope_theta=hf.get("rope_theta", 1000000.0),
+        max_position_embeddings=hf.get("max_position_embeddings", 32768),
         tie_word_embeddings=hf.get("tie_word_embeddings", False),
         attention_bias=attention_bias,
         mrope_section=(tuple(rs["mrope_section"]) if "mrope_section" in rs
                        else None),
+        rope_scaling=_parse_rope_scaling(hf),
     )
 
 
@@ -328,6 +403,47 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
         logits_fn=lambda params, h: qwen2.logits(params, cfg, h, precision),
         template="chatml",
         shared_pred_fn=shared_pred, precision=precision,
+    )
+
+
+def make_qwen2_moe_bundle(hf_config: dict, attention: str = "auto",
+                          precision: Precision = DEFAULT_PRECISION
+                          ) -> ModelBundle:
+    """Qwen2-MoE (Qwen1.5-MoE-A2.7B): the sparse-MoE decoder
+    (``models/qwen2_moe.py``).  ``apply(..., return_aux=True)`` also
+    returns the router's load-balancing loss, which the SFT step adds
+    (``router_aux_loss_coef``).  No shared-prompt scoring, as in JAX: its
+    SC-GRPO update is the dense one."""
+    from iadr1_tpu_torch.models import qwen2_moe
+
+    cfg = qwen2_moe.config_from_hf(hf_config)
+    attn = default_attention(attention)
+    decode_attn = default_decode_attention(attention)
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              lora=None, lora_scale=1.0, return_aux=False):
+        return qwen2_moe.apply(
+            params, cfg, batch["input_ids"],
+            position_ids=batch["position_ids"],
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=precision, attention_fn=attn,
+            decode_attention_fn=decode_attn, remat=remat, lora=lora,
+            lora_scale=lora_scale, return_aux=return_aux)
+
+    def init_params(seed=0, dtype=None, device=None):
+        gen, device = _generator(seed, device)
+        return qwen2_moe.init_params(gen, cfg, dtype or precision.param_dtype,
+                                     device)
+
+    return ModelBundle(
+        family="qwen2_moe", cfg=cfg, multimodal=False,
+        init_params=init_params,
+        convert_hf=lambda state, dtype=None, device=None: qwen2_moe.convert_hf(
+            state, cfg, dtype=dtype or precision.param_dtype, device=device),
+        apply=apply,
+        logits_fn=lambda params, h: qwen2_moe.logits(params, cfg, h,
+                                                     precision),
+        template="chatml", precision=precision,
     )
 
 
@@ -627,6 +743,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
                                           "anyres_max_9"),
     )
     attn = default_attention(attention)
+    tower_attn = tower_attention(attention)
     decode_attn = default_decode_attention(attention)
     g = vcfg.grid
     stats = _image_stats(hf_config)
@@ -638,7 +755,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
             **{k: batch.get(k) for k in ONEVISION_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
-            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=tower_attn,
             remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
             lora_scale=lora_scale,
         )
@@ -759,6 +876,7 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
         separate_video_tower=videollava_mode,
     )
     attn = default_attention(attention)
+    tower_attn = tower_attention(attention)
     decode_attn = default_decode_attention(attention)
     g = vcfg.grid
     stats = _image_stats(hf_config)
@@ -774,7 +892,7 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
             **{k: batch.get(k) for k in LLAVA_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
-            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=tower_attn,
             remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
             lora_scale=lora_scale,
         )
@@ -947,6 +1065,7 @@ def make_internvl_bundle(hf_config: dict, attention: str = "auto",
         max_tiles=hf_config.get("max_tiles", 12),
     )
     attn = default_attention(attention)
+    tower_attn = tower_attention(attention)
     decode_attn = default_decode_attention(attention)
     g, fpt = vcfg.grid, cfg.features_per_tile
     mean, std = _image_stats(hf_config)
@@ -958,7 +1077,7 @@ def make_internvl_bundle(hf_config: dict, attention: str = "auto",
             **{k: batch.get(k) for k in INTERNVL_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
-            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=tower_attn,
             remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
             lora_scale=lora_scale,
         )
@@ -1070,7 +1189,7 @@ def make_paligemma_bundle(hf_config: dict, attention: str = "auto",
                                      hf_config.get("image_token_id", 257152)),
         projection_dim=vis_hf.get("projection_dim",
                                   hf_config.get("projection_dim")))
-    tower_attn = default_attention(attention)
+    tower_attn = tower_attention(attention)
     decode_attn = default_decode_attention(attention)
     g = vcfg.grid
     mean = np.asarray(hf_config.get("image_mean", (0.5, 0.5, 0.5)),
@@ -1191,6 +1310,7 @@ def make_pixtral_bundle(hf_config: dict, attention: str = "auto",
         image_token_id=hf_config.get("image_token_index",
                                      hf_config.get("image_token_id", 10)))
     attn = default_attention(attention)
+    tower_attn = tower_attention(attention)
     decode_attn = default_decode_attention(attention)
     ps, max_side = vcfg.patch_size, vcfg.max_side
     mean, std = _image_stats(hf_config)
@@ -1202,7 +1322,7 @@ def make_pixtral_bundle(hf_config: dict, attention: str = "auto",
             **{k: batch.get(k) for k in PIXTRAL_BATCH_KEYS},
             segment_ids=batch.get("segment_ids"), cache=cache,
             cache_mode=cache_mode, precision=precision, attention_fn=attn,
-            decode_attention_fn=decode_attn, tower_attention_fn=attn,
+            decode_attention_fn=decode_attn, tower_attention_fn=tower_attn,
             remat=remat, tower_remat=tower_remat, lora=_text_lora(lora),
             lora_scale=lora_scale)
 
@@ -1273,6 +1393,8 @@ def make_pixtral_bundle(hf_config: dict, attention: str = "auto",
 FAMILY_BUILDERS = {
     "Qwen2ForCausalLM": make_qwen2_bundle,
     "qwen2": make_qwen2_bundle,
+    "Qwen2MoeForCausalLM": make_qwen2_moe_bundle,
+    "qwen2_moe": make_qwen2_moe_bundle,
     "Qwen2VLForConditionalGeneration": make_qwen2_vl_bundle,
     "qwen2_vl": make_qwen2_vl_bundle,
     "Qwen2_5_VLForConditionalGeneration": make_qwen25_vl_bundle,
@@ -1297,11 +1419,8 @@ FAMILY_BUILDERS = {
 # ported families whose SC-GRPO path waits for a later slice (none now)
 GRPO_NOT_YET_PORTED: dict[str, str] = {}
 
-# families of the JAX package that wait for a later slice
-NOT_YET_PORTED = {
-    "Qwen2MoeForCausalLM": "ROADMAP A.13",
-    "qwen2_moe": "ROADMAP A.13",
-}
+# families of the JAX package that wait for a later slice (none now)
+NOT_YET_PORTED: dict[str, str] = {}
 
 
 def bundle_from_hf_config(hf_config: dict, **kw) -> ModelBundle:

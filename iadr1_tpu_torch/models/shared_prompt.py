@@ -86,7 +86,8 @@ def _rope_tables(cfg, positions, B, T):
             positions = positions.expand(3, B, T)
         return common.mrope_cos_sin(positions, D, cfg.rope_theta,
                                     cfg.mrope_section)
-    return common.rope_cos_sin(positions, D, cfg.rope_theta)
+    return common.rope_cos_sin(positions, D, cfg.rope_theta,
+                               cfg.rope_scaling)
 
 
 def _heads_first(*tensors):

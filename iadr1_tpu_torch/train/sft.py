@@ -117,19 +117,25 @@ def make_chunked_sft_step(
     at the step before the update).  The state is updated in place.  The
     forward, backward and optimizer phases are named ranges
     (``STEP_RANGES``) for a profiler; they cost nothing measurable when
-    none runs."""
-    if aux_loss_coef:
-        raise NotImplementedError(
-            "the MoE router aux loss is not ported yet (ROADMAP A.13)")
+    none runs.
+
+    ``aux_loss_coef`` > 0: ``hidden_fn`` returns (hidden, aux), the MoE
+    router's load-balancing loss, and the step minimises CE + coef * aux;
+    the metrics' "loss" is that sum and "aux_loss" the aux, as in JAX."""
 
     def step(state, batch):
         leaves = tree_leaves(state.params)
         batch = batch_to_device(batch, leaves[0].device)
         with record_function(STEP_RANGES[0]):
             hidden = hidden_fn(state.params, batch)
+            if aux_loss_coef:
+                hidden, aux = hidden
             loss, metrics = chunked_sft_loss(
                 hidden, head_kernel_fn(state.params), batch["labels"],
                 chunk_size, logits_dtype=logits_dtype)
+            if aux_loss_coef:
+                loss = loss + aux_loss_coef * aux
+                metrics = {**metrics, "aux_loss": aux, "loss": loss}
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with record_function(STEP_RANGES[1]):
             grads = [torch.zeros_like(p) if g is None else g

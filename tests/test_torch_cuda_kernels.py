@@ -1012,3 +1012,78 @@ def test_flash_kernels_at_the_pixtral_decoder(card):
     k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
     _check_flash(q, k, v, do, _bwd_segments("leftpad", B, T, gen, card),
                  causal=True)
+
+
+def test_flash_kernels_at_the_qwen15_moe_decoder(card):
+    """K1-K3 at Qwen1.5-MoE-A2.7B's attention (16 heads over 16, head_dim
+    128, no GQA): left-padded rows, causal, T = 1100."""
+    B, H, T, D = 2, 16, 1100, 128
+    gen = torch.Generator(device=card).manual_seed(15)
+    q, k, v, do = (_rand(gen, (B, H, T, D), card) for _ in range(4))
+    _check_flash(q, k, v, do, _bwd_segments("leftpad", B, T, gen, card),
+                 causal=True)
+
+
+@pytest.mark.parametrize("B,S", [(4, 1152), (8, 1152)],
+                         ids=["serve", "grpo_fanout"])
+def test_decode_kernel_at_the_qwen15_moe_decoder(card, B, S):
+    """K4 at group 1, D = 128 over Qwen1.5-MoE's serving cache (P = 1024 +
+    128) and its SC-GRPO fan-out, left padding in every row."""
+    H = Hkv = 16
+    D, length = 128, S - 5
+    gen = torch.Generator(device=card).manual_seed(B + S)
+    q = _rand(gen, (B, H, D), card)
+    k, v = _rand(gen, (B, Hkv, S, D), card), _rand(gen, (B, Hkv, S, D), card)
+    seg = torch.ones((B, S), dtype=torch.int32, device=card)
+    for b in range(B):
+        seg[b, :40 * b] = 0
+    out = k4.decode_attention(q, k, v, seg, length)
+    ref = k4.decode_attention_ref(q, k, v, seg, length, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_longlora_runs_k1_to_k3_on_the_grouped_views(card):
+    """LongLoRA's shift-short attention over the flash Function (32 heads
+    over 8, D = 128, T = 2048 in groups of 512: each half 16 heads over 4
+    on [4, 512] views, the rolled half's last group wrapping into the
+    first) against the same over the dense attention, from the same bf16
+    inputs; out and the gradients within 2e-2 plus 1e-2 of the largest."""
+    from iadr1_tpu_torch.models import attention as tattn
+
+    B, T, H, Hkv, D = 1, 2048, 32, 8, 128
+    gen = torch.Generator(device=card).manual_seed(2048)
+    q, do = _rand(gen, (B, T, H, D), card), _rand(gen, (B, T, H, D), card)
+    k, v = _rand(gen, (B, T, Hkv, D), card), _rand(gen, (B, T, Hkv, D), card)
+    seg = torch.ones((B, T), dtype=torch.int32, device=card)
+    seg[0, 1500:] = 2                               # two packed examples
+
+    def run(inner):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = tattn.make_longlora_attention(inner)(
+            *leaves, q_segments=seg, kv_segments=seg, causal=True)
+        return [out] + list(torch.autograd.grad(out, leaves, do))
+
+    got, want = run(tattn.flash_attn), run(tattn.xla_attn)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=1e-2 * float(w.float().abs().max()) + 1e-6, msg=name)
+
+
+def test_flash_kernels_at_mod_gathered_rows(card):
+    """K1-K3 at Mixture-of-Depths' gathered rows of Qwen2-VL-2B's decoder
+    (12 heads over 2, D = 128): k = 512 rows picked from packed rows of
+    4096, so each row holds the sorted runs of its segments, padding
+    picked last at segment 0."""
+    B, H, Hkv, T, D = 2, 12, 2, 512, 128
+    gen = torch.Generator(device=card).manual_seed(512)
+    q, do = _rand(gen, (B, H, T, D), card), _rand(gen, (B, H, T, D), card)
+    k, v = _rand(gen, (B, Hkv, T, D), card), _rand(gen, (B, Hkv, T, D), card)
+    seg = torch.ones((B, T), dtype=torch.int32, device=card)
+    seg[0, 200:] = 2
+    seg[0, 350:] = 3
+    seg[1, 480:] = 0
+    _check_flash(q, k, v, do, seg, causal=True)
