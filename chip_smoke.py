@@ -84,8 +84,8 @@ result line:
    with one batch's launches;
 10. chain (after 7): the IAD-R1 recipe through one call of the port's
    run_pipeline at full Qwen2-VL-2B width, its entry points as a user
-   calls them: a base checkpoint (the published config cut to 4 decoder
-   layers and 4 tower blocks, so that the run writes about 18 GB to disk
+   calls them: a base checkpoint (the published config cut to 2 decoder
+   layers and 2 tower blocks, so that the run writes about 15 GB to disk
    and not 75, seeded bf16 weights written by save_pretrained, a WordLevel
    tokenizer over the
    head's 151936 ids with Qwen's specials at their published ids), seeded
@@ -113,7 +113,7 @@ result line:
    may be called, and the kernel path's prefill logits must agree with
    the twin path's;
 12. LLaVA-OneVision PA-SFT (after 11): the same model, its decoder cut
-   to 12 of 24 layers, f32 parameters drawn on the card, takes the
+   to 6 of 24 layers, f32 parameters drawn on the card, takes the
    training steps through
    make_chunked_sft_step and run_sft_loop on
    configs/sft_llava_onevision_0_5b.yaml's settings, read by the port's
@@ -134,7 +134,7 @@ result line:
    may be called, and the kernel path's prefill logits must agree with
    the twin path's;
 14. Qwen2.5-VL PA-SFT (after 13): Qwen2.5-VL-3B at full width (its
-   decoder cut to 18 of 36 layers, GQA 8, tied head; the tower whole; f32
+   decoder cut to 9 of 36 layers, GQA 8, tied head; the tower whole; f32
    parameters drawn on the card)
    takes the training steps on configs/sft_qwen2_5_vl_7b.yaml's settings
    through the port's config loader (rows of 4096, patch budget 8192,
@@ -143,7 +143,7 @@ result line:
    one image each; K1, K2 and K3 must run 32 + 36 times each a step, step
    1 must agree with a step through the plain versions, a control with dq
    zeroed must not, and the loss must fall;
-15. Qwen2.5-VL SC-GRPO (after 14): the same model, its decoder cut to 8
+15. Qwen2.5-VL SC-GRPO (after 14): the same model, its decoder cut to 4
    of 36 layers (phase 25 runs the same Qwen2.5-3B decoder at full
    depth), takes 2 steps of
    GRPOTrainer.step on configs/grpo_qwen2_5_vl_7b.yaml's settings (G=4,
@@ -165,18 +165,20 @@ result line:
    tile_segments, pack_src, pack_weights and newline_mask; the step's
    readings against the plain path with p and ds unrounded are printed
    beside;
-17. LLaVA-NeXT serving (after 16): LLaVA-NeXT-8B at full width and depth
+17. LLaVA-NeXT serving (after 16): LLaVA-NeXT-8B at full width (decoder
+   cut to 16 of 32 layers)
    (llava-hf/llama3-llava-next-8b-hf's config: the LLaMA-3-8B decoder at
    GQA 4, the CLIP-L/336 tower of which 23 layers run, bf16 weights drawn
    on the card) serves 4 llava_next_llama3 requests (two 448x448 images
    of 5 tiles, two 336x560 of 3; P=4096, a patch budget of 16 tiles), as
    phase 11 checks its generate (K1 23 + 32 times, K4 32 times a step);
-18. LLaVA-1.5 serving (after 17): LLaVA-1.5-7B at full width and depth
+18. LLaVA-1.5 serving (after 17): LLaVA-1.5-7B at full width (decoder
+   cut to 16 of 32 layers)
    (llava-hf/llava-1.5-7b-hf's config, whose sparse text_config is read
    with LlamaConfig's defaults: Vicuna-7B, GQA 1) serves 4 vicuna-form
    requests of one center-cropped tile each (P=1024), likewise;
 19. LLaVA-NeXT PA-SFT (after 18): the same published config with the
-   decoder cut to 8 of 32 layers, f32 parameters drawn on the card, takes
+   decoder cut to 4 of 32 layers, f32 parameters drawn on the card, takes
    the training steps on configs/sft_llava_onevision_0_5b.yaml's settings
    with rows cut to 2 x 4096 and the llava_next_llama3 template (4
    examples of one 336x560 image each; 12 image tiles in the recipe's
@@ -205,7 +207,7 @@ result line:
    depth (32 decoder layers) over an nf4 base quantized on the card layer
    by layer, on phase 19's rows and settings, checked as phase 20; (b)
    Qwen2.5-VL-7B serving phase 13's requests over int8 weights (the infer
-   CLI's --quant int8), 64 new tokens, checked as phase 13, with its
+   CLI's --quant int8), 32 new tokens, checked as phase 13, with its
    quantized_bytes ratio; (c) one nf4 generate of the same model, its decoder cut to 8
    of 28 layers for the smoke's time.
 23. InternVL serving (after 22): InternVL-2.5-4B at full width and depth
@@ -217,7 +219,7 @@ result line:
    other 2 at segment 0; P=4096) through VLMGenerator._collate and
    RolloutEngine.generate, as phase 11 checks its generate (K1 24 + 36
    times, K4 36 times a step);
-24. InternVL PA-SFT (after 23): the same model, its decoder cut to 18 of
+24. InternVL PA-SFT (after 23): the same model, its decoder cut to 9 of
    36 layers, f32 parameters drawn on the card, takes 3 steps on
    configs/sft_qwen2_5_vl_7b.yaml's settings with the intern_vl template,
    its batch cut from 8 rows to 2 of 4096 and its patch budget grown to
@@ -231,7 +233,7 @@ result line:
    and its half-weight control included); the update batch must hold
    tiles and tile_segments (C.R9) and the tower's launches are counted;
 26. videos (after 25): (a) Qwen2-VL-2B PA-SFT at full width (f32, the
-   decoder cut to 14 of 28 layers), 3
+   decoder cut to 7 of 28 layers), 3
    steps on configs/sft_qwen2_5_vl_7b.yaml's settings (the tower's remat
    save_acts) on 2 rows of 4096, each with one video of 8 frames of
    336x448 (4 temporal patches of 768, one tower segment each) through
@@ -255,7 +257,7 @@ result line:
    phase 12 checks its steps, K1-K3 27 times each a step and 18 dense
    calls; (c) takes 2 SC-GRPO steps on the grpo section of
    configs/grpo_qwen2_5_vl_7b.yaml (G=4, P=4096, N cut from 512 to 128,
-   the decoder from 18 to 9 layers, f32 policy, bf16 reference): the
+   the decoder from 18 to 4 layers, f32 policy, bf16 reference): the
    dense update over the G-repeated batch (no shared path in either
    package), which must carry the tiles (C.R9), step 1 held to the plain
    path on the recorded rollout with a dq-zeroed control, K1 81 and K2/K3
@@ -270,7 +272,7 @@ result line:
    of 4096, the pixtral template); (c) LoRA SC-GRPO with reference
    elision (configs/grpo_llava_next_34b.yaml's finetuning over the grpo
    section of configs/grpo_qwen2_5_vl_7b.yaml, N cut to 128 and P to
-   2048, the decoder cut to 20 of 40 layers): the dense update, one base
+   2048, the decoder cut to 8 of 40 layers): the dense update, one base
    copy, K1 and K2/K3 a step by the layers, step 1 against the plain
    path with a dq-zeroed control.
 29. Qwen1.5-MoE-A2.7B (24 layers of 16 heads over 16, D = 128, 60
@@ -297,6 +299,23 @@ result line:
    0.125 on 2 rows of 4096, 3 AdamW steps: K1-K3 once a layer a step on
    the 512 gathered rows; step 1 against the plain path with the kernel
    path's rows, a dq-zeroed control.
+32. the preference stages: each through cli/train_pref.py's main from
+   a config file (Qwen2-VL-2B from model.hf_config and a seed, f32
+   policy, bf16 reference, the qwen2_vl template, cutoff_len 1024,
+   batch 2, a WordLevel tokenizer written under build/): (a) DPO with
+   its sigmoid loss and SimPO (reference-free) on ranking pairs of about
+   1024 tokens a row, 28 layers; (b) KTO, BCO, RM and PRM on feedback,
+   ranking and stepwise rows, the decoder cut to 14 layers; (c) PPO (28
+   layers, completions of 128, 4 epochs of minibatches of 1), RLOO (G=4)
+   and online DPO on one-text prompts with the default rewards (the
+   completions decoded as CannedTokenizer does), RLOO and online DPO at
+   14 layers.  2 steps a stage: each step's K1-K4 launches against the
+   count the stage's path implies; step 1 against the same step through
+   the plain versions from the same state and batch (the on-policy
+   stages on the kernel path's first rollout), loss, grad norm and
+   per-layer q/k/v grad norms, and a dq-zeroed control that must fail;
+   step ms, tokens/s, peak memory, the rollout/update split.  The
+   checkpoints are checked for their trees and not written.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -318,7 +337,9 @@ K1-K3 at its LoRA SFT rows and its dense SC-GRPO update rows, K4 over its
 serving cache; and at phases 29-31's: K1 at Qwen1.5-MoE's prefill (16
 heads over 16), K4 over its serving cache and its SC-GRPO fan-out, K1-K3
 at LongLoRA's grouped views of phase 30's row (each head half, the
-rolled one with its wrapped segments) and at MoD's gathered rows.
+rolled one with its wrapped segments) and at MoD's gathered rows; and at
+phase 32's: K1-K3 at DPO's 4 ragged rows of 1024 and at PPO's minibatch
+row of 1024 + 128, K4 over PPO's rollout cache and RLOO's fan-out.
 
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
@@ -328,8 +349,8 @@ q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
 internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
 paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
 pixtral_lora_sft, pixtral_lora_grpo, moe_serve, moe_sft, moe_grpo,
-longlora_sft, mod_train).  ``--phases 3,29,30,31`` runs a subset and
-prints no kernel line.
+longlora_sft, mod_train, pref).  ``--phases 3,29,30,31`` runs a subset
+and prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
 CLIs use import on this machine; no phase depends on it.
@@ -600,16 +621,20 @@ NEXT_IMAGE = 128256
 # LLaVA-1.5-7B serving (phase 18): the vicuna form, one center-cropped
 # tile of 576 features a request, P=1024, a patch budget of 4 tiles
 V15_PROMPT_LEN, V15_PATCH_BUDGET = 1024, 4 * 576
+# phases 17 and 18: the decoders cut to 16 of 32 layers (the smoke's
+# time); phase 30 runs NeXT-8B's decoder at full depth
+LLAVA_SERVE_LAYERS = 16
 VICUNA_BOS, VICUNA_EOS, VICUNA_PAD, V15_IMAGE = 1, 2, 32001, 32000
 # LLaVA-NeXT PA-SFT (phase 19): the published config with the decoder cut
-# to 8 of its 32 layers (the whole 8B would need ~134 GB of f32
+# to 4 of its 32 layers (the smoke's time; the whole 8B would need ~134 GB
+# of f32
 # parameters, gradients and moments), on
 # configs/sft_llava_onevision_0_5b.yaml's settings (the family's mm style:
 # save_qkv, tower save_acts, bf16 CE chunks of 4096, AdamW with a bf16
 # first moment) with the rows cut to 2 x 4096 and the llava_next_llama3
 # template; 4 examples of one 336 x 560 image (3 tiles) each, two a row;
 # the recipe's patch budget, 16384 patches = 28 tiles of 576
-NEXT_SFT_LAYERS, NEXT_SFT_ROWS, NEXT_SFT_CUTOFF = 8, 2, 4096
+NEXT_SFT_LAYERS, NEXT_SFT_ROWS, NEXT_SFT_CUTOFF = 4, 2, 4096
 NEXT_SFT_IMAGE_HW, NEXT_SFT_ANSWER_LEN = (336, 560), (300, 400)
 NEXT_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "build", "chip_smoke_next_sft")
@@ -643,10 +668,11 @@ QLORA_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the nf4 generate of phase 22c: new tokens, and its decoder cut to 8 of
 # 28 layers for the smoke's time (22b serves the int8 7B whole)
 NF4_NEW_TOKENS, NF4_LAYERS = 16, 8
-# phase 22b's int8 serving: 64 new tokens (128 before; the smoke's time)
-INT8_NEW_TOKENS = 64
-# phases 12 and 26a: the decoders cut to half depth (the smoke's time)
-OV_SFT_LAYERS, VIDEO_SFT_LAYERS = 12, 14
+# phase 22b's int8 serving: 32 new tokens (the smoke's time)
+INT8_NEW_TOKENS = 32
+# phases 12 and 26a: the decoders cut to a quarter of their depth (the
+# smoke's time)
+OV_SFT_LAYERS, VIDEO_SFT_LAYERS = 6, 7
 # InternVL-2.5-4B (phases 23-25): InternVL's <img> and </img> around each
 # image's run of <IMG_CONTEXT> tokens.  Serving (phase 23): two 448 x 448
 # images (1 tile, 256 features each), a 336 x 560 one (a (3, 2) grid and
@@ -663,8 +689,8 @@ INTERNVL_PROMPT_LEN, INTERNVL_PATCH_BUDGET = 4096, 24 * 1024
 INTERNVL_SFT_ROWS, INTERNVL_SFT_IMAGE_HW = 2, (336, 560)
 INTERNVL_SFT_ANSWER_LEN, INTERNVL_SFT_BUDGET = (1800, 2000), 16 * 1024
 INTERNVL_SFT_STEPS = 3
-# phases 14 and 24: the 36-layer decoders cut to 18 (the smoke's time)
-SFT_DECODER_LAYERS = 18
+# phases 14 and 24: the 36-layer decoders cut to 9 (the smoke's time)
+SFT_DECODER_LAYERS = 9
 INTERNVL_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "build", "chip_smoke_internvl_sft")
 # SC-GRPO (phase 25): the grpo section of configs/grpo_qwen2_5_vl_7b.yaml,
@@ -673,9 +699,9 @@ INTERNVL_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 INTERNVL_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
 INTERNVL_GRPO_PATCH_BUDGET = 4 * 8 * 1024
 INTERNVL_GRPO_STEPS = 2
-# phase 15 runs Qwen2.5-VL-3B's decoder cut to 8 of its 36 layers: phase 25
-# runs the same Qwen2.5-3B decoder at full depth
-Q25_GRPO_LAYERS = 8
+# phase 15 runs Qwen2.5-VL-3B's decoder cut to 4 of its 36 layers (the
+# smoke's time): phase 25 runs the same Qwen2.5-3B decoder deeper
+Q25_GRPO_LAYERS = 4
 # phase 21's completions (the recipe's 512) and its decoder (8 of 28
 # layers; phase 20 runs the 7B at full depth), cut for the smoke's time
 LORA_GRPO_COMPLETION_LEN, LORA_GRPO_LAYERS = 128, 8
@@ -758,8 +784,8 @@ PG_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke_paligemma_sft")
 PG_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
 PG_GRPO_STEPS, PG_GRPO_COMPLETION_LEN = 2, 128
-# phase 27c's decoder cut to 9 of 18 layers (the smoke's time)
-PG_GRPO_LAYERS = 9
+# phase 27c's decoder cut to 4 of 18 layers (the smoke's time)
+PG_GRPO_LAYERS = 4
 # Pixtral's token ids (its Tekken tokenizer): BOS, EOS, <pad>, [INST],
 # [/INST], [IMG], [IMG_BREAK], [IMG_END]
 PX_BOS, PX_EOS, PX_PAD, PX_INST, PX_INST_END = 1, 2, 11, 3, 4
@@ -784,8 +810,8 @@ PX_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke_pixtral_lora_sft")
 PX_GRPO_IMAGE_HW = [(512, 512), (336, 560)]
 PX_GRPO_STEPS, PX_GRPO_PROMPT_LEN, PX_GRPO_COMPLETION_LEN = 2, 2048, 128
-# phase 28c's decoder cut to 20 of 40 layers (the smoke's time)
-PX_GRPO_LAYERS = 20
+# phase 28c's decoder cut to 8 of 40 layers (the smoke's time)
+PX_GRPO_LAYERS = 8
 
 # the plain versions run one batch row, and within a row one slice of KV
 # heads (with their query heads), at a time where the [B, H, T, S] f32
@@ -4190,13 +4216,13 @@ CHAIN_SFT_ROWS, CHAIN_RL_ROWS = 8, 4
 # (the infer CLI's P and patch budget, batch 4, 32 new tokens)
 CHAIN_SFT_STEPS, CHAIN_GRPO_STEPS, CHAIN_NEW_TOKENS = 2, 2, 32
 CHAIN_G, CHAIN_P, CHAIN_N = 4, 1024, 64
-# the chain's model: the published widths, its depth cut to 4 of the 28
-# decoder layers and 4 of the 32 tower blocks (12 and 12 before; cut
-# for the smoke's time).  A run writes, per parameter, the bf16 base,
-# two f32 TrainStates (parameters + two AdamW moments) and two f32
-# exports, 34 bytes: 75 GB at full depth, about 18 GB at this one, under
+# the chain's model: the published widths, its depth cut to 2 of the 28
+# decoder layers and 2 of the 32 tower blocks (cut for the smoke's
+# time).  A run writes, per parameter, the bf16 base, two f32
+# TrainStates (parameters + two AdamW moments) and two f32 exports, 34
+# bytes: 75 GB at full depth, about 15 GB at this one, under
 # CHAIN_WRITE_LIMIT
-CHAIN_TEXT_LAYERS, CHAIN_TOWER_DEPTH = 4, 4
+CHAIN_TEXT_LAYERS, CHAIN_TOWER_DEPTH = 2, 2
 CHAIN_WRITE_BYTES_PER_PARAM = 2 + 2 * (12 + 4)
 GIB = 2 ** 30
 CHAIN_WRITE_LIMIT = 40 * GIB
@@ -5178,10 +5204,16 @@ def llava_twin_apply(params, cfg, b, cache, attn):
     return h
 
 
+def llava_serve_cut(hf: dict) -> dict:
+    """A LLaVA config with its decoder cut to LLAVA_SERVE_LAYERS."""
+    return dict(hf, text_config=dict(hf["text_config"],
+                                     num_hidden_layers=LLAVA_SERVE_LAYERS))
+
+
 def phase_next_serve(encoded, feature_lens, max_new_tokens, card):
-    """Phase 17: LLaVA-NeXT-8B at full width and depth serves 4 image
-    requests (16 anyres tiles, the patch budget's 16); returns the launch
-    counts."""
+    """Phase 17: LLaVA-NeXT-8B at full width, its decoder cut to
+    LLAVA_SERVE_LAYERS, serves 4 image requests (16 anyres tiles, the
+    patch budget's 16); returns the launch counts."""
     def describe(batch):
         n_tiles = int(batch["tile_segments"].sum())
         if batch["tiles"].shape[0] != 16 or n_tiles != 16:
@@ -5189,22 +5221,27 @@ def phase_next_serve(encoded, feature_lens, max_new_tokens, card):
                                  f"{n_tiles} of them images'")
         return f"16 tiles, image features {feature_lens}"
 
-    return phase_vlm_serve("llava16 serve", "LLaVA-NeXT-8B", LLAVA_NEXT_8B,
+    return phase_vlm_serve("llava16 serve", f"LLaVA-NeXT-8B cut to "
+                           f"{LLAVA_SERVE_LAYERS} decoder layers",
+                           llava_serve_cut(LLAVA_NEXT_8B),
                            encoded, NEXT_PROMPT_LEN, NEXT_PATCH_BUDGET,
                            max_new_tokens, card, llava_twin_apply, describe,
                            eos_pad=(LLAMA3_EOT, LLAMA3_END))
 
 
 def phase_v15_serve(encoded, max_new_tokens, card):
-    """Phase 18: LLaVA-1.5-7B at full width and depth serves 4 image
-    requests (one center-cropped tile each); returns the launch counts."""
+    """Phase 18: LLaVA-1.5-7B at full width, its decoder cut to
+    LLAVA_SERVE_LAYERS, serves 4 image requests (one center-cropped tile
+    each); returns the launch counts."""
     def describe(batch):
         n_tiles = int(batch["tile_segments"].sum())
         if batch["tiles"].shape[0] != 4 or n_tiles != 4:
             raise AssertionError(f"tiles {tuple(batch['tiles'].shape)}")
         return "4 tiles of 576 features"
 
-    return phase_vlm_serve("llava15 serve", "LLaVA-1.5-7B", LLAVA_15_7B,
+    return phase_vlm_serve("llava15 serve", f"LLaVA-1.5-7B cut to "
+                           f"{LLAVA_SERVE_LAYERS} decoder layers",
+                           llava_serve_cut(LLAVA_15_7B),
                            encoded, V15_PROMPT_LEN, V15_PATCH_BUDGET,
                            max_new_tokens, card, llava_twin_apply, describe,
                            eos_pad=(VICUNA_EOS, VICUNA_PAD))
@@ -6452,7 +6489,7 @@ def grpo_case_paligemma(steps: int) -> types.SimpleNamespace:
     case.controls, case.lse_check = GRPO_CONTROLS[1:], False
     case.decoder_flash = False
     case.tokenizer = CannedTokenizer(PG_EOS, PG_PAD)
-    case.n_params_range = (1.90e9, 1.97e9)
+    case.n_params_range = (1.35e9, 1.42e9)
     return case
 
 
@@ -6540,7 +6577,7 @@ def grpo_case_pixtral(steps: int) -> types.SimpleNamespace:
     case.vision_keys = ("patch_stream", "patch_pos_ids", "patch_segments")
     case.controls, case.lse_check = GRPO_CONTROLS[1:], False
     case.tokenizer = CannedTokenizer(PX_EOS, PX_PAD)
-    case.n_params_range = (7.0e9, 7.4e9)
+    case.n_params_range = (3.90e9, 4.02e9)
     return case
 
 
@@ -7378,6 +7415,518 @@ def phase_mod_train(rows, steps: int, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the preference stages through cli/train_pref.py
+# ---------------------------------------------------------------------------
+
+# the launcher's setting: Qwen2-VL-2B from model.hf_config and a seed (f32
+# policy, the bf16 reference of pref.ref_dtype), the qwen2_vl template,
+# data.cutoff_len 1024, train.batch_size 2, 2 steps a stage
+PREF_CUTOFF, PREF_BATCH, PREF_STEPS, PREF_LEARNING_RATE = 1024, 2, 2, 1e-6
+PREF_ROWS = 4                         # examples in each dataset
+# 32c: completions cut from PPOConfig's 512 to 128 (the smoke's time)
+PREF_COMPLETION_LEN, PREF_RLOO_G = 128, 4
+# stages run at a cut depth for the smoke's time (32a and ppo run all 28
+# decoder layers)
+PREF_CUT_LAYERS = 14
+PREF_CUT_STAGES = ("kto", "bco", "rm", "prm", "rloo", "online_dpo")
+PREF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_pref")
+# (stage label, stage, pref overrides, phase) in run order
+PREF_STAGES = (
+    ("dpo", "dpo", {}, "32a"),
+    ("simpo", "dpo", {"loss_type": "simpo"}, "32a"),
+    ("kto", "kto", {}, "32b"),
+    ("bco", "bco", {}, "32b"),
+    ("rm", "rm", {}, "32b"),
+    ("prm", "prm", {}, "32b"),
+    ("ppo", "ppo", {}, "32c"),
+    ("rloo", "rloo", {"num_generations": PREF_RLOO_G,
+                      "max_completion_length": PREF_COMPLETION_LEN}, "32c"),
+    ("online_dpo", "online_dpo",
+     {"max_completion_length": PREF_COMPLETION_LEN}, "32c"),
+)
+# phase 3's kernel cases at these shapes: the ranking rows' lengths as
+# the launcher encodes them (prompt, template and response; the pair's
+# longer row cut at 1024), and a rollout prompt's length
+PREF_DPO_ROW_LENS, PREF_PPO_PROMPT_LEN = (960, 1010, 1024, 1024), 420
+# step 1 of each stage (PPO's first minibatch update), kernel path vs
+# plain path from the same state and batch (the on-policy stages on the
+# kernel path's own first rollout): the loss (relatively; RLOO's, which
+# starts at beta * kl = 0, absolutely), the grad norm of the first
+# optimizer step and the worst per-layer q/k/v projection grad norm.  The
+# limits sit about 3x above the largest sound readings on an H100
+# (PERF.md: loss 3.7e-3 RM's, grad norm 3.4e-3 and q/k/v 1.28e-2 PPO's);
+# the dq-zeroed control must fail them (it reads 1 on q/k/v)
+PREF_STEP1_LIMITS = {"loss": 1e-2, "grad norm": 1e-2,
+                     "qkv grad norms": 4e-2}
+PREF_RLOO_LOSS_ABS = 1e-4
+
+
+def make_pref_data(root: str, seed: int = 36) -> dict:
+    """The launcher's datasets, written under ``root``: ranking pairs (a
+    prompt of 300-340 seeded words, responses of 560-700, so that a pair's
+    rows fill most of 1024 and the cutoff cuts some), feedback
+    conversations (300 + 600 words, alternating labels), stepwise PRM rows
+    (a prompt of 200 words, 4 steps of 170) and one-text prompts (300-500
+    words, a solution each)."""
+    rng = np.random.default_rng(seed)
+
+    def words(n):
+        return " ".join(f"w{i}" for i in rng.integers(1, ENDOFTEXT, n))
+
+    def between(lo, hi):
+        return words(int(rng.integers(lo, hi + 1)))
+
+    user = lambda text: {"role": "user", "content": text}
+    data = {
+        "ranking": [{"messages": [user(between(300, 340))],
+                     "chosen": between(560, 640),
+                     "rejected": between(620, 700)}
+                    for _ in range(PREF_ROWS)],
+        "feedback": [{"messages": [user(between(280, 320)),
+                                   {"role": "assistant",
+                                    "content": between(580, 620)}],
+                      "label": bool(i % 2)} for i in range(PREF_ROWS)],
+        "prm": [{"prompt": words(200),
+                 "completions": [words(170) for _ in range(4)],
+                 "labels": [True, bool(i % 2), True, False]}
+                for i in range(PREF_ROWS)],
+        "prompts": [{"messages": [user(between(300, 500))],
+                     "solution": GRPO_SOLUTIONS[i % 2]}
+                    for i in range(PREF_ROWS)],
+    }
+    paths = {}
+    for name, rows in data.items():
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(rows, f)
+    return paths
+
+
+PREF_DATA = {"dpo": "ranking", "rm": "ranking", "kto": "feedback",
+             "bco": "feedback", "prm": "prm", "ppo": "prompts",
+             "rloo": "prompts", "online_dpo": "prompts"}
+
+
+class PrefProbe(GradProbe):
+    """GradProbe for a launcher that makes its own optimizer: bound to the
+    parameters when the launcher makes its state (the model's own, under
+    a head's tree); keeps the first optimizer step's grad norm too."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.norms = optimizer, None
+        self.keep_grads, self.grads, self.grad_norm = False, None, None
+
+    def bind(self, params):
+        GradProbe.__init__(self, self.optimizer, params.get("model", params))
+
+    def apply(self, params, grads, state, grad_norm=None):
+        if self.grad_norm is None:
+            from iadr1_tpu_torch.train.optimizers import global_norm
+
+            self.grad_norm = float(grad_norm if grad_norm is not None
+                                   else global_norm(grads))
+        return GradProbe.apply(self, params, grads, state, grad_norm)
+
+
+class PrefTap:
+    """Taps around one call of cli/train_pref.py's ``main`` (phase 32).
+
+    Always: the optimizer the launcher makes is wrapped in a PrefProbe;
+    each logged step's metrics are kept unrounded with the seconds since
+    the last log and the kernels' launches in between (every counter is
+    0 when the tap opens, and the launcher logs every step); the
+    first PPO minibatch update's metrics are kept (a PPO step's logged
+    loss averages ppo_epochs x minibatches updates, and every update
+    after the first starts from parameters that step 1's rounding moved:
+    AdamW's first step moves every parameter by about the learning rate
+    whatever its gradient's size); the checkpoint saves record the tree
+    they were given and write nothing
+    (a chip call may write 45 GiB: 26 GB a save at this width; phase 10
+    measures checkpoint I/O); each rollout is timed, its decode steps
+    and completion tokens kept, the first one cloned.
+    The launcher's tokenizer is loaded once for the phase (each load
+    parses the 151936-entry vocabulary) and decodes completions as
+    CannedTokenizer does, so that the default rewards differ between
+    rollouts (only the rollout stages decode).  ``flash``: the bundle's
+    attention is that flash Function over the plain versions (train_attn,
+    lse_attn), the plain path of the step-1 check.  ``replay``: each
+    rollout returns that recorded one."""
+
+    tokenizers: dict = {}
+
+    def __init__(self, kernels, flash=None, replay=None):
+        from transformers import AutoTokenizer
+
+        from iadr1_tpu_torch.models import registry
+        from iadr1_tpu_torch.train import checkpoint, loop, optimizers, ppo
+        from iadr1_tpu_torch.train import rollout
+        from iadr1_tpu_torch.train import state as state_mod
+
+        self.kernels = kernels
+        self.records, self.saved, self.rollouts = [], [], []
+        self.first_rollout, self.probe, self.first_update = None, None, None
+        self._undo = []
+        tap = self
+
+        def make_optimizer(fn):
+            def run(cfg):
+                opt, sched = fn(cfg)
+                tap.probe = PrefProbe(opt)
+                return tap.probe, sched
+            return run
+
+        def create_train_state(fn):
+            def run(params, optimizer):
+                if isinstance(optimizer, PrefProbe):
+                    optimizer.bind(params)
+                return fn(params, optimizer)
+            return run
+
+        class Logger(loop.JsonlLogger):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                torch.cuda.synchronize()
+                tap._last = time.perf_counter()
+
+            def log(self, step, metrics):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                counts = {k.name: k.launches for k in tap.kernels}
+                before = (tap.records[-1]["counts"] if tap.records
+                          else {k: 0 for k in counts})
+                tap.records.append({
+                    "step": step, "metrics": dict(metrics),
+                    "s": now - tap._last, "counts": counts,
+                    "launches": {k: counts[k] - before[k] for k in counts}})
+                tap._last = now
+                super().log(step, metrics)
+
+        def save(fn):
+            def run(manager, step, state, metadata=None):
+                tap.saved.append((step, sorted(state.params)))
+                return True
+            return run
+
+        def generate(fn):
+            def run(engine, params, batch, generator=None, group_size=1,
+                    **kw):
+                if replay is not None:
+                    return {k: v.clone() if torch.is_tensor(v) else v
+                            for k, v in replay.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(engine, params, batch, generator,
+                         group_size=group_size, **kw)
+                torch.cuda.synchronize()
+                tap.rollouts.append({
+                    "s": time.perf_counter() - t0,
+                    "decode_steps": int(out["num_decode_steps"]),
+                    "rows": int(out["completion_ids"].shape[0]),
+                    "tokens": int(out["completion_mask"].sum())})
+                if tap.first_rollout is None:
+                    tap.first_rollout = {
+                        k: v.clone() if torch.is_tensor(v) else v
+                        for k, v in out.items()}
+                return out
+            return run
+
+        def make_ppo_update_step(fn):
+            def run(*args, **kw):
+                step = fn(*args, **kw)
+
+                def first(state, ref_params, batch):
+                    state, metrics = step(state, ref_params, batch)
+                    if tap.first_update is None:
+                        tap.first_update = {k: float(v)
+                                            for k, v in metrics.items()}
+                    return state, metrics
+                return first
+            return run
+
+        def from_pretrained(fn):
+            def run(path, *args, **kw):
+                if path not in PrefTap.tokenizers:
+                    tok = fn(path, *args, **kw)
+                    tok.batch_decode = CannedTokenizer(
+                        tok.eos_token_id, tok.pad_token_id).batch_decode
+                    PrefTap.tokenizers[path] = tok
+                return PrefTap.tokenizers[path]
+            return run
+
+        self._patch(optimizers, "make_optimizer", make_optimizer)
+        self._patch(state_mod, "create_train_state", create_train_state)
+        self._patch(loop, "JsonlLogger", lambda _: Logger)
+        self._patch(checkpoint.CheckpointManager, "save", save)
+        self._patch(rollout.RolloutEngine, "generate", generate)
+        self._patch(ppo, "make_ppo_update_step", make_ppo_update_step)
+        self._patch(AutoTokenizer, "from_pretrained", from_pretrained)
+        if flash is not None:
+            self._patch(registry, "default_attention",
+                        lambda _: lambda kind="auto": train_attn(flash))
+            self._patch(registry, "default_attention_with_lse",
+                        lambda _: lambda kind="auto": lse_attn(flash))
+        for k in kernels:
+            k.launches = 0
+
+    def step1(self) -> dict:
+        """What the step-1 check reads: the first PPO update's metrics,
+        else step 1's."""
+        return self.first_update or self.records[0]["metrics"]
+
+    def _patch(self, owner, name, make):
+        old = owner.__dict__[name] if isinstance(owner, type) else getattr(
+            owner, name)
+        setattr(owner, name, make(getattr(owner, name)))
+        self._undo.append((owner, name, old))
+
+    def close(self):
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+        self._undo.clear()
+
+
+def pref_launches(stage, L, decode_steps) -> dict:
+    """The launches one step of ``stage`` implies at L decoder layers
+    (text rows: no tower), as phases 6-7 count them.  K1 runs once a
+    layer a forward (its residuals survive remat), K2 and K3 once a layer
+    a backward; the reference and every forward without a graph are K1
+    only."""
+    fwd_bwd = {"dpo": (2, 1), "simpo": (1, 1), "kto": (4, 1), "bco": (2, 1),
+               "rm": (1, 1), "prm": (1, 1),
+               # the rollout's prefill, the experience pass (policy and
+               # reference), then ppo_epochs x 2 minibatch updates
+               "ppo": (1 + 2 + 8, 8),
+               # the prefill; the shared-prompt update's three attention
+               # calls a layer (prompt, completions' self and cross), for
+               # the reference and the policy
+               "rloo": (1 + 3 + 3, 3),
+               # the prefill, then the DPO step's reference and policy
+               "online_dpo": (1 + 2, 1)}[stage]
+    return {"flash_fwd": fwd_bwd[0] * L, "flash_bwd_dq": fwd_bwd[1] * L,
+            "flash_bwd_dkv": fwd_bwd[1] * L,
+            "decode_attention": L * decode_steps}
+
+
+def pref_step1_diffs(stage, got, ref) -> dict:
+    (m, probe), (m0, probe0) = got, ref
+    diffs = _grad_diffs(({"grad_norm": probe.grad_norm}, probe.norms),
+                        ({"grad_norm": probe0.grad_norm}, probe0.norms))
+    d = abs(m["loss"] - m0["loss"])
+    diffs["loss"] = d if stage == "rloo" else d / abs(m0["loss"])
+    return diffs
+
+
+def pref_limits(stage) -> dict:
+    if stage == "rloo":
+        return dict(PREF_STEP1_LIMITS, loss=PREF_RLOO_LOSS_ABS)
+    return PREF_STEP1_LIMITS
+
+
+def phase_kernels_pref():
+    """Phase 3 at phase 32's shapes (Qwen2-VL-2B's decoder, 12 heads over
+    2, D = 128): K1-K3 at DPO's 4 rows of 1024 (2 pairs, right-padded to
+    their lengths; the rows' ragged ends as the launcher pads them), at
+    PPO's minibatch row of P + N = 1024 + 128 (a left-padded prompt, a
+    completion that ends early); K4 over PPO's cache (2 prompts) and
+    RLOO's fan-out (2 prompts x 4).  Returns the results by kernel."""
+    cuda = dict(device="cuda", dtype=torch.int32)
+    fwd, bwd, dec = [], [], []
+    T = PREF_CUTOFF
+    rows = torch.zeros((2 * PREF_BATCH, T), **cuda)
+    for i, n in enumerate(PREF_DPO_ROW_LENS):
+        rows[i, :n] = 1
+    shape = (2 * PREF_BATCH, 12, 2, T, T, 128, True, rows, rows)
+    results = _labelled((*bwd_case(*shape, 171, timed=True),
+                         flash_case(*shape, 172, timed=True)), "dpo rows")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    P, N = PREF_CUTOFF, PREF_COMPLETION_LEN
+    row = torch.zeros((1, P + N), **cuda)
+    row[0, P - PREF_PPO_PROMPT_LEN:P + N - 40] = 1
+    shape = (1, 12, 2, P + N, P + N, 128, True, row, row)
+    results = _labelled((*bwd_case(*shape, 173, timed=True),
+                         flash_case(*shape, 174, timed=True)),
+                        "ppo minibatch row")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    for label, B, seed in (("ppo rollout", PREF_BATCH, 175),
+                           ("rloo fan-out", PREF_BATCH * PREF_RLOO_G, 176)):
+        seg = torch.ones((B, P + N), **cuda)
+        seg[:, :P - PREF_PPO_PROMPT_LEN] = 0
+        dec.append(decode_case(B, 12, 2, P + N, 128, P + N, seg, seed,
+                               timed=True))
+        dec[-1]["shape"] = f"{label}: {dec[-1]['shape']}"
+    fwd += [f for _, _, f in bwd]
+    log_kernel_results(fwd, dec, bwd)
+    return {"flash_fwd": fwd,
+            "flash_bwd_dq": [dq for dq, _, _ in bwd],
+            "flash_bwd_dkv": [dkv for _, dkv, _ in bwd],
+            "decode_attention": dec}
+
+
+def phase_pref(card) -> dict:
+    """Phase 32: each preference stage through cli/train_pref.py's
+    ``main`` from a config file (Qwen2-VL-2B from model.hf_config and a
+    seed, write_chain_tokenizer's tokenizer): its steps on the kernels
+    with their launches checked a step, step 1 against the plain path and
+    a dq-zeroed control, the readings.  Returns the launch counts summed
+    over the stages' kernel runs."""
+    import gc
+    import shutil
+
+    from iadr1_tpu_torch.cli import train_pref
+    from iadr1_tpu_torch.kernels import all_kernels
+
+    kernels = [k for k, _ in all_kernels()]
+    shutil.rmtree(PREF_DIR, ignore_errors=True)
+    os.makedirs(PREF_DIR)
+    t0 = time.perf_counter()
+    tok_dir = os.path.join(PREF_DIR, "tokenizer")
+    write_chain_tokenizer(tok_dir, QWEN2_VL_2B["text_config"]["vocab_size"])
+    os.makedirs(os.path.join(PREF_DIR, "data"))
+    data = make_pref_data(os.path.join(PREF_DIR, "data"))
+    log(f"pref: tokenizer and datasets written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    total = {k.name: 0 for k in kernels}
+
+    def config(label, stage, over, steps, layers):
+        hf = dict(QWEN2_VL_2B, text_config=dict(
+            QWEN2_VL_2B["text_config"], num_hidden_layers=layers))
+        cfg = {"stage": stage,
+               "model": {"model_name_or_path": tok_dir, "hf_config": hf,
+                         "seed": 0, "dtype": "float32"},
+               "data": {"dataset_name": data[PREF_DATA[stage]],
+                        "template": "qwen2_vl", "cutoff_len": PREF_CUTOFF},
+               "pref": {"ref_dtype": "bfloat16", **over},
+               # one schedule for the kernel run and the one-step plain
+               # runs (PPO's step takes 8 optimizer steps)
+               "optim": {"learning_rate": PREF_LEARNING_RATE,
+                         "warmup_ratio": 0.0, "total_steps": 100},
+               "train": {"output_dir": os.path.join(PREF_DIR, label),
+                         "max_steps": steps, "batch_size": PREF_BATCH,
+                         "logging_steps": 1, "save_steps": 0, "seed": 0}}
+        if stage == "ppo":
+            cfg["ppo"] = {"max_completion_length": PREF_COMPLETION_LEN,
+                          "ppo_epochs": 4, "mini_batch_size": 1}
+        path = os.path.join(PREF_DIR, f"{label}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path
+
+    def run(path, **tap_kw):
+        tap = PrefTap(kernels, **tap_kw)
+        try:
+            code = train_pref.main(["--config", path, "--device", DEVICE])
+        finally:
+            tap.close()
+            gc.collect()
+            torch.cuda.empty_cache()
+        if code != 0:
+            raise AssertionError(f"train_pref exited with {code}")
+        return tap
+
+    for label, stage, over, phase in PREF_STAGES:
+        t_stage = time.perf_counter()
+        L = (PREF_CUT_LAYERS if label in PREF_CUT_STAGES
+             else QWEN2_VL_2B["text_config"]["num_hidden_layers"])
+        rollout = stage in ("ppo", "rloo", "online_dpo")
+        torch.cuda.reset_peak_memory_stats()
+        tap = run(config(label, stage, over, PREF_STEPS, L))
+        peak_gib = torch.cuda.max_memory_allocated() / GIB
+        recs = tap.records
+        if [r["step"] for r in recs] != list(range(1, PREF_STEPS + 1)):
+            raise AssertionError(f"pref {label}: logged steps "
+                                 f"{[r['step'] for r in recs]}")
+        for r in recs:
+            if not all(map(math.isfinite, r["metrics"].values())):
+                raise AssertionError(f"pref {label}: step {r['step']} "
+                                     f"metrics {r['metrics']}")
+        # the launches of each step against the path's count
+        for i, r in enumerate(recs):
+            steps = tap.rollouts[i]["decode_steps"] if rollout else 0
+            want = pref_launches(label, L, steps)
+            if r["launches"] != want:
+                raise AssertionError(f"pref {label} step {r['step']}: "
+                                     f"launches {r['launches']}, want {want}")
+            for k, v in r["launches"].items():
+                total[k] += v
+        heads = {"ppo": ["model", "vhead"], "rm": ["model", "value_head"],
+                 "prm": ["model", "prm_head"]}
+        want_keys = heads.get(stage, ["text", "vision"])
+        if tap.saved != [(PREF_STEPS, want_keys)]:
+            raise AssertionError(f"pref {label}: checkpoint saves "
+                                 f"{tap.saved}, want "
+                                 f"{[(PREF_STEPS, want_keys)]}")
+        kernel = (tap.step1(), tap.probe)
+        rollouts, replay = tap.rollouts, tap.first_rollout
+        del tap
+        # the plain path and its control: step 1 from the same state and
+        # batch (and the kernel path's first rollout)
+        t_plain = time.perf_counter()
+        plain_tap = run(config(f"{label}_plain", stage, over, 1, L),
+                        flash=TwinFlash, replay=replay)
+        if any(plain_tap.records[0]["launches"].values()):
+            raise AssertionError(f"pref {label}: the plain path launched "
+                                 f"{plain_tap.records[0]['launches']}")
+        plain_ref = (plain_tap.step1(), plain_tap.probe)
+        control_tap = run(config(f"{label}_control", stage, over, 1, L),
+                          flash=ZeroDqFlash, replay=replay)
+        control = pref_step1_diffs(
+            label, (control_tap.step1(), control_tap.probe), plain_ref)
+        del plain_tap, control_tap, replay
+        plain_s = time.perf_counter() - t_plain
+        limits = pref_limits(label)
+        diffs = pref_step1_diffs(label, kernel, plain_ref)
+        def text_of(d):
+            return ", ".join(
+                f"{k} {'abs' if label == 'rloo' and k == 'loss' else 'rel'}"
+                f" {v:.3e} (limit {limits[k]})" for k, v in d.items())
+
+        what = ("the first minibatch update" if stage == "ppo"
+                else "step 1")
+        log(f"pref {label} ({phase}): {what} kernel vs plain path: loss "
+            f"{kernel[0]['loss']:.6f} vs {plain_ref[0]['loss']:.6f}, grad "
+            f"norm {kernel[1].grad_norm:.6f} vs {plain_ref[1].grad_norm:.6f}"
+            f"; {text_of(diffs)}; the control (dq zeroed): "
+            f"{text_of(control)}, margins (reading / limit, above 1 "
+            "fails): " + ", ".join(f"{k} {control[k] / limits[k]:.3f}"
+                                   for k in limits))
+        if _within(control, limits):
+            raise AssertionError(f"pref {label}: the step-1 limits do not "
+                                 "catch a zeroed dq")
+        if not _within(diffs, limits):
+            raise AssertionError(f"pref {label}: step 1 differs between "
+                                 "kernel and plain path")
+        step_s = recs[-1]["s"]
+        text = (f"pref {label} ({phase}): Qwen2-VL-2B, {L} decoder layers, "
+                f"f32 policy, bf16 reference; losses "
+                f"{[round(r['metrics']['loss'], 6) for r in recs]}; step "
+                f"{1e3 * step_s:.1f} ms (step {PREF_STEPS}; all steps "
+                f"{[round(1e3 * r['s'], 1) for r in recs]} ms, from the "
+                f"launcher's logs), peak memory {peak_gib:.2f} GiB")
+        if rollout:
+            last = rollouts[-1]
+            text += (f"; rollout {1e3 * last['s']:.1f} ms ({last['rows']} "
+                     f"rows, {last['decode_steps']} decode steps, "
+                     f"{1e3 * last['s'] / max(last['decode_steps'], 1):.3f}"
+                     f" ms/step, {last['tokens']} tokens), the rest of the "
+                     f"step (rewards, scoring, updates) "
+                     f"{1e3 * (step_s - last['s']):.1f} ms, "
+                     f"{last['rows'] / step_s:.2f} rollouts/s")
+        else:
+            rows = PREF_BATCH * {"dpo": 2, "rm": 2, "kto": 2}.get(stage, 1)
+            text += (f"; {rows} rows of {PREF_CUTOFF} a step"
+                     + (" (the KL rows among them)" if stage == "kto"
+                        else "")
+                     + f", {rows * PREF_CUTOFF / step_s:.0f} tokens/s")
+        log(text + f"; launches a step {recs[-1]['launches']} on {card}")
+        log(f"phase {phase} ({label}): {time.perf_counter() - t_stage:.1f} "
+            f"s (the plain path and its control {plain_s:.1f} s)")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-new-tokens", type=int, default=128,
@@ -7390,7 +7939,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-31; "
+                    help="comma-separated phase numbers to run (3-32; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -7463,7 +8012,7 @@ def main() -> int:
                                        n_rows=LONGLORA_ROWS,
                                        per_row=LONGLORA_PER_ROW)
     mod_rows = make_text_sft_rows(MOD_ROWS, MOD_CUTOFF, seed=34)
-    phases = (set(range(1, 32)) if args.phases is None
+    phases = (set(range(1, 33)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
@@ -7493,6 +8042,8 @@ def main() -> int:
         for name, results in phase_kernels_moe_context(
                 moe_requests, moe_grpo, longlora_rows, mod_rows,
                 args.max_new_tokens).items():
+            measured[name] += results
+        for name, results in phase_kernels_pref().items():
             measured[name] += results
         log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     if phases & {4, 5, 8, 9}:
@@ -7586,13 +8137,14 @@ def main() -> int:
             longlora_rows, LONGLORA_STEPS, card)),
         (31, "mod_train", lambda: phase_mod_train(
             mod_rows, MOD_STEPS, card)),
+        (32, "pref", lambda: phase_pref(card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
             by_path[path] = run()
             torch.cuda.empty_cache()
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 32)) <= phases:
+    if not set(range(3, 33)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

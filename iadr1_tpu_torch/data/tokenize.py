@@ -1,6 +1,5 @@
 """Supervised example encoding: per-turn prompt masking + length budgeting
-(the port's own copy of iadr1_tpu/data/tokenize.py; the pairwise encoding
-waits for ROADMAP A.14).
+(the port's own copy of iadr1_tpu/data/tokenize.py).
 
 Labels are IGNORE_INDEX over every prompt span, responses keep their ids,
 and source/target are truncated jointly under the cutoff budget.
@@ -81,3 +80,42 @@ def encode_supervised_example(
             labels += source_label + target_label
 
     return input_ids, labels
+
+
+def encode_pairwise_example(
+    prompt_messages: Sequence[dict],
+    chosen: str,
+    rejected: str,
+    template,
+    tokenizer,
+    system: str | None = None,
+    cutoff_len: int = 4096,
+) -> tuple[tuple[list[int], list[int]], tuple[list[int], list[int]]]:
+    """((chosen_ids, chosen_labels), (rejected_ids, rejected_labels)) for a
+    ranking example, as the pairwise processor of LLaMA-Factory builds
+    them: the prompt turns are encoded once and cut once, against the
+    longer response (``infer_seqlen(len(prompt), max(len(chosen),
+    len(rejected)), cutoff_len)``), and both responses get the same target
+    budget, so that both rows score their responses under one prompt.
+    Only the final responses are labeled.
+
+    The JAX package encodes each side as a conversation of its own, so
+    where the cutoff binds its two rows keep prompts of different lengths
+    (ROADMAP C.R22); where it does not, and the prompt is one user turn,
+    the rows are the same."""
+    sides = []
+    for response in (chosen, rejected):
+        pairs = template.encode_multiturn(
+            tokenizer, list(prompt_messages)
+            + [{"role": "assistant", "content": response}], system)
+        prompt = [t for src, tgt in pairs[:-1] for t in src + tgt]
+        sides.append((prompt + pairs[-1][0], pairs[-1][1]))
+    prompt_ids = sides[0][0]
+    src_len, tgt_len = infer_seqlen(
+        len(prompt_ids), max(len(sides[0][1]), len(sides[1][1])), cutoff_len)
+    prompt_ids = prompt_ids[:src_len]
+    out = []
+    for _, target in sides:
+        target = target[:tgt_len]
+        out.append((prompt_ids + target, [IGNORE_INDEX] * src_len + target))
+    return tuple(out)

@@ -272,6 +272,52 @@ def _pad_id(tokenizer) -> int:
     return tokenizer.pad_token_id or tokenizer.eos_token_id
 
 
+def sampling_generator(seed: int, k: int, device) -> torch.Generator:
+    """The generator of rollout ``k`` (from 0) of a run seeded ``seed``:
+    seeded by the two alone, so a resumed run draws what an uninterrupted
+    one would."""
+    state = int(np.random.SeedSequence([seed, k]).generate_state(
+        1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(state & (2 ** 63 - 1))
+
+
+def collate_text_prompts(bundle, examples: Sequence[dict], P: int,
+                         pad: int) -> dict:
+    """Pre-encoded ``prompt_ids`` left-padded to ``P`` (numpy): input_ids
+    and attention_mask [B, P], and for an M-RoPE model the text position
+    grid [3, B, P] with its mrope_deltas.  A prompt longer than P keeps
+    its last P ids, unless it holds image tokens, which raises."""
+    img_id = getattr(bundle.cfg, "image_token_id", None)
+    ids_list = []
+    for ex in examples:
+        ids = ex["prompt_ids"][-P:]
+        if len(ex["prompt_ids"]) > P and img_id is not None and (
+            img_id in ex["prompt_ids"]
+        ):
+            # slicing through an image-token run would desynchronize the
+            # feature scatter indices: fail loudly instead
+            raise ValueError(
+                f"prompt ({len(ex['prompt_ids'])} tokens) with image "
+                f"tokens exceeds max_prompt_length={P}; raise "
+                "max_prompt_length or lower max_pixels")
+        ids_list.append(ids)
+    B = len(ids_list)
+    input_ids = np.full((B, P), pad, np.int64)
+    mask = np.zeros((B, P), np.int64)
+    for i, ids in enumerate(ids_list):
+        input_ids[i, P - len(ids):] = ids
+        mask[i, P - len(ids):] = 1
+    batch = {"input_ids": input_ids, "attention_mask": mask}
+    tcfg = getattr(bundle.cfg, "text", bundle.cfg)
+    if getattr(tcfg, "mrope_section", None) is not None:
+        # text-only prompts on an M-RoPE model: the three axes share the
+        # text position stream
+        pos = np.clip(np.cumsum(mask, axis=1) - 1, 0, None)
+        batch["position_ids"] = np.broadcast_to(pos, (3, B, P)).copy()
+        batch["mrope_deltas"] = pos[:, -1] + 1 - P
+    return batch
+
+
 class GRPOTrainer:
     """Host loop: collate prompts -> rollout -> rewards -> update.
 
@@ -397,11 +443,10 @@ class GRPOTrainer:
         self._rollouts += n_steps
 
     def _next_generator(self) -> torch.Generator:
-        seed = int(np.random.SeedSequence(
-            [self.seed, self._rollouts]).generate_state(1, np.uint64)[0])
+        generator = sampling_generator(self.seed, self._rollouts,
+                                       self.device)
         self._rollouts += 1
-        return torch.Generator(device=self.device).manual_seed(
-            seed & (2 ** 63 - 1))
+        return generator
 
     # --- the update ---------------------------------------------------------
 
@@ -428,37 +473,9 @@ class GRPOTrainer:
         """Left-pad tokenized prompts to max_prompt_length, one row per
         UNIQUE prompt (the engine fans the prefilled KV cache out G ways);
         numpy arrays."""
-        P = self.cfg.max_prompt_length
-        pad = _pad_id(self.tokenizer)
-        img_id = getattr(self.bundle.cfg, "image_token_id", None)
-        ids_list = []
-        for ex in examples:
-            ids = ex["prompt_ids"][-P:]
-            if len(ex["prompt_ids"]) > P and img_id is not None and (
-                img_id in ex["prompt_ids"]
-            ):
-                # slicing through an image-token run would desynchronize
-                # the feature scatter indices: fail loudly instead
-                raise ValueError(
-                    f"prompt ({len(ex['prompt_ids'])} tokens) with image "
-                    f"tokens exceeds max_prompt_length={P}; raise "
-                    "max_prompt_length or lower max_pixels")
-            ids_list.append(ids)
-        B = len(ids_list)
-        input_ids = np.full((B, P), pad, np.int64)
-        mask = np.zeros((B, P), np.int64)
-        for i, ids in enumerate(ids_list):
-            input_ids[i, P - len(ids):] = ids
-            mask[i, P - len(ids):] = 1
-        batch = {"input_ids": input_ids, "attention_mask": mask}
-        tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
-        if getattr(tcfg, "mrope_section", None) is not None:
-            # text-only prompts on an M-RoPE model: the three axes share
-            # the text position stream
-            pos = np.clip(np.cumsum(mask, axis=1) - 1, 0, None)
-            batch["position_ids"] = np.broadcast_to(pos, (3, B, P)).copy()
-            batch["mrope_deltas"] = pos[:, -1] + 1 - P
-        return batch
+        return collate_text_prompts(self.bundle, examples,
+                                    self.cfg.max_prompt_length,
+                                    _pad_id(self.tokenizer))
 
     # --- one GRPO step ------------------------------------------------------
 
@@ -578,10 +595,15 @@ class GRPOTrainer:
                     "completion_positions": comp_pos, **common}
         full_mask = np.concatenate([prompt_mask, completion_mask], axis=1)
         if "position_ids" in batch:    # M-RoPE: prompt grids + delta positions
-            deltas = np.asarray(batch["mrope_deltas"])           # [B]
+            prompt_pos = np.asarray(batch["position_ids"])
+            deltas = np.asarray(batch["mrope_deltas"])
+            if deltas.shape[0] != B:
+                # the unique-prompt batch of text prompts: one grid per
+                # rollout (the JAX trainer raises here, ROADMAP C.R24)
+                prompt_pos = np.repeat(prompt_pos, G, axis=1)
+                deltas = np.repeat(deltas, G)
             comp_pos = np.broadcast_to(P + deltas[:, None] + steps, (3, B, N))
-            positions = np.concatenate(
-                [np.asarray(batch["position_ids"]), comp_pos], axis=-1)
+            positions = np.concatenate([prompt_pos, comp_pos], axis=-1)
         else:
             positions = np.clip(np.cumsum(full_mask, axis=1) - 1, 0, None)
         return {"input_ids": np.concatenate([prompt_ids, completion_ids],

@@ -145,12 +145,12 @@ def global_norm(tensors) -> torch.Tensor:
 
 def make_optimizer(cfg: OptimizerConfig):
     """(optimizer, schedule) for the AdamW path; the other optimizers and
-    LoRA+ wait for ROADMAP A.14."""
+    LoRA+ wait for ROADMAP A.14b."""
     if cfg.optimizer != "adamw" or cfg.loraplus_lr_ratio:
         raise NotImplementedError(
             f"optimizer {cfg.optimizer!r}"
             + (" with LoRA+" if cfg.loraplus_lr_ratio else "")
-            + " is not ported yet (ROADMAP A.14); the port has AdamW")
+            + " is not ported yet (ROADMAP A.14b); the port has AdamW")
     schedule = make_schedule(cfg)
     mu_dtype = getattr(torch, cfg.mu_dtype) if cfg.mu_dtype else None
     return AdamW(schedule, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay,

@@ -8,7 +8,7 @@ segment mask stops growing.  The loop stops once every row is done (the
 JAX engine's default ``early_stop``; the tokens are the same either way).
 ``generate(..., lora=...)`` samples from a base plus factored adapters
 (LoRA SC-GRPO) without merging them.  Mixture sampling is not ported yet
-(ROADMAP A.14).
+(ROADMAP A.14b).
 """
 
 from __future__ import annotations

@@ -1087,3 +1087,108 @@ def test_flash_kernels_at_mod_gathered_rows(card):
     seg[0, 350:] = 3
     seg[1, 480:] = 0
     _check_flash(q, k, v, do, seg, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# preference updates: a DPO step and a PPO minibatch update through K1-K3
+# against the same steps over the dense attention (the plain path), from
+# the same f32 parameters and batch in bf16 compute; each attention call
+# rounds at other places (2^-8 relative), so metrics within 2e-2 relative
+# ---------------------------------------------------------------------------
+
+
+PREF_HF = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=2,
+               num_key_value_heads=1, tie_word_embeddings=True)
+
+
+def _pref_steps(card, make_step, batch, tree_of):
+    """Step 1 of ``make_step(score_fn, optimizer)`` over the kernels and
+    over the dense attention: (metrics, metrics), and the kernels'
+    launches during the first."""
+    from iadr1_tpu_torch.models.registry import make_qwen2_bundle
+    from iadr1_tpu_torch.train.grpo import bundle_score_fn
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    out = []
+    for attention in ("flash", "xla"):
+        bundle = make_qwen2_bundle(PREF_HF, attention=attention)
+        params = bundle.init_params(seed=0, device=card)
+        opt, _ = make_optimizer(OptimizerConfig(learning_rate=1e-4,
+                                                total_steps=4))
+        state = create_train_state(tree_of(params), opt)
+        ref = bundle.init_params(seed=0, dtype=torch.bfloat16, device=card)
+        before = k1.KERNEL.launches
+        _, m = make_step(bundle_score_fn(bundle), opt)(state, ref, batch)
+        torch.cuda.synchronize()
+        out.append(({k: float(v) for k, v in m.items()},
+                    k1.KERNEL.launches - before))
+    return out
+
+
+def _check_pref_metrics(got, want, keys):
+    for key in keys:
+        assert abs(got[key] - want[key]) <= 2e-2 * abs(want[key]) + 1e-4, (
+            key, got[key], want[key])
+
+
+def test_dpo_step_on_the_kernels_matches_the_plain_path(card):
+    """2 pairs of 200-token rows (ragged, right-padded): the sigmoid loss
+    with a bf16 reference; K1 runs once a layer for the reference and once
+    for the policy."""
+    from iadr1_tpu_torch.train.preference import DPOConfig, make_dpo_step
+
+    gen = torch.Generator(device=card).manual_seed(15)
+    T = 200
+    ids = torch.randint(3, 512, (4, T), generator=gen, device=card)
+    labels = ids.clone()
+    segs = torch.ones((4, T), dtype=torch.int32, device=card)
+    for i in range(4):
+        labels[i, :60] = -100
+        labels[i, T - 13 * i:] = -100
+        segs[i, T - 13 * i:] = 0
+    batch = {"input_ids": ids, "labels": labels, "segment_ids": segs,
+             "position_ids": torch.arange(T, device=card).expand(4, T)}
+    (got, launches), (want, dense) = _pref_steps(
+        card, lambda score, opt: make_dpo_step(score, opt, DPOConfig()),
+        batch, lambda p: p)
+    assert launches == 2 * PREF_HF["num_hidden_layers"] and dense == 0
+    _check_pref_metrics(got, want, ("loss", "grad_norm", "rewards/chosen",
+                                    "rewards/rejected"))
+
+
+def test_ppo_update_on_the_kernels_matches_the_plain_path(card):
+    """One PPO minibatch row of P + N = 96 + 64 (a left-padded prompt, an
+    early EOS), clipped surrogate and value loss."""
+    from iadr1_tpu_torch.train.ppo import (
+        PPOConfig,
+        make_ppo_state_params,
+        make_ppo_update_step,
+    )
+
+    gen = torch.Generator(device=card).manual_seed(16)
+    P, N = 96, 64
+    ids = torch.randint(3, 512, (1, P + N), generator=gen, device=card)
+    segs = torch.ones((1, P + N), dtype=torch.int32, device=card)
+    segs[0, :20] = 0
+    mask = torch.ones((1, N), dtype=torch.int32, device=card)
+    mask[0, 40:] = 0
+    segs[0, P:] = mask[0]
+
+    def noise(scale):
+        return torch.randn((1, N), generator=gen, device=card) * scale
+
+    batch = {"input_ids": ids, "segment_ids": segs,
+             "position_ids": (segs.cumsum(1) - 1).clamp(min=0),
+             "completion_ids": ids[:, P:], "completion_mask": mask,
+             "prompt_len": P, "old_logps": noise(0.1) - 6.0,
+             "old_values": noise(0.5), "advantages": noise(1.0),
+             "returns": noise(1.0)}
+    (got, launches), (want, _) = _pref_steps(
+        card, lambda score, opt: make_ppo_update_step(score, opt,
+                                                      PPOConfig()),
+        batch, lambda p: make_ppo_state_params(p, PREF_HF["hidden_size"]))
+    assert launches == PREF_HF["num_hidden_layers"]
+    _check_pref_metrics(got, want, ("loss", "pg_loss", "vf_loss",
+                                    "grad_norm"))

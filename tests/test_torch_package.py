@@ -71,6 +71,9 @@ INTERNVL_VIDEO_MODULES = ["models.internvl", "models.registry", "data.mm",
 PALIGEMMA_PIXTRAL_MODULES = ["models.paligemma", "models.pixtral",
                              "cli.train_sft", "cli.train_grpo",
                              "eval.generator"]
+# the preference stages
+PREF_MODULES = ["train.preference", "train.ppo", "train.online_rl",
+                "cli.train_pref", "data.tokenize", "train"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -83,7 +86,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     missing = [m for m in (GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
                            + FAMILY_MODULES + ADAPTER_MODULES
                            + INTERNVL_VIDEO_MODULES
-                           + PALIGEMMA_PIXTRAL_MODULES)
+                           + PALIGEMMA_PIXTRAL_MODULES + PREF_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
