@@ -316,6 +316,24 @@ result line:
    per-layer q/k/v grad norms, and a dq-zeroed control that must fail;
    step ms, tokens/s, peak memory, the rollout/update split.  The
    checkpoints are checked for their trees and not written.
+33. the rest of the trainers and the optimizers: (a) XPO (28 layers; a
+   policy and a reference rollout a step, one update over the 4 rows),
+   (b) Nash-MD (14 layers; the policy's rollout and the geometric
+   mixture's, two KV caches at each step; the mixture's first sampled
+   distribution held to the plain path, a control attending the prompts'
+   padding must fail) and (c) GKD (14 layers; a teacher of seed 1
+   written in HF layout, read in f32; step 1 on-policy, step 2 the
+   dataset's completions) through cli/train_pref.py as phase 32 runs its
+   stages; (d) one PA-SFT step of Qwen2-VL-2B (4 of 28 decoder layers,
+   the tower whole, phase 6's rows) with each optimizer make_optimizer
+   builds (AdamW, GaLore, APOLLO, BAdam, Adam-mini, Muon, Adafactor,
+   Lion, SGD) and LoRA+ over LoRA's defaults: step and optimizer ms
+   (GaLore's projections apart), peak memory, the optimizer state's bytes, and
+   two leaves' updates held to the same update on the CPU from the same
+   gradients; each optimizer's control, the CPU's update with one piece
+   of its arithmetic changed (Adam's bias correction dropped, one
+   Newton-Schulz step fewer, Adafactor unfactored, Lion unsigned, SGD
+   unclipped), must fail.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -339,7 +357,9 @@ heads over 16), K4 over its serving cache and its SC-GRPO fan-out, K1-K3
 at LongLoRA's grouped views of phase 30's row (each head half, the
 rolled one with its wrapped segments) and at MoD's gathered rows; and at
 phase 32's: K1-K3 at DPO's 4 ragged rows of 1024 and at PPO's minibatch
-row of 1024 + 128, K4 over PPO's rollout cache and RLOO's fan-out.
+row of 1024 + 128, K4 over PPO's rollout cache and RLOO's fan-out; and at
+phase 33's: K1-K3 at XPO's 4 update rows of 1024 + 128 (left-padded
+prompts, completions ending early).
 
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
@@ -349,7 +369,8 @@ q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
 internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
 paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
 pixtral_lora_sft, pixtral_lora_grpo, moe_serve, moe_sft, moe_grpo,
-longlora_sft, mod_train, pref).  ``--phases 3,29,30,31`` runs a subset
+longlora_sft, mod_train, pref, pref33, optimizers).  ``--phases
+3,29,30,31`` runs a subset
 and prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
@@ -367,6 +388,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -901,12 +923,18 @@ for name in sys.argv[1:]:
 """
 
 
-def importable(names) -> str:
+def importable(names):
     """Which of ``names`` import on this machine, tried in a child process
-    so that what they load stays out of this one."""
-    out = subprocess.run([sys.executable, "-c", IMPORT_PROBE, *names],
-                         capture_output=True, text=True, timeout=300)
-    return ", ".join(out.stdout.split("\n")[:-1]) or out.stderr[-200:]
+    so that what they load stays out of this one: started here, read by
+    the function returned (the report line)."""
+    child = subprocess.Popen([sys.executable, "-c", IMPORT_PROBE, *names],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+
+    def read() -> str:
+        out, err = child.communicate(timeout=300)
+        return ", ".join(out.split("\n")[:-1]) or err[-200:]
+    return read
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -2848,7 +2876,7 @@ def phase_main(encoded, max_new_tokens, card):
     return launches, gen, batch
 
 
-def phase_profile(gen, batch, steps: int = 8) -> None:
+def phase_profile(label, gen, batch, steps: int = 8) -> None:
     """Where a generate's time goes: a short generate (prefill + ``steps``
     decode steps) under torch.profiler; device busy time is the sum of the
     kernels' own device time on the one stream."""
@@ -2868,8 +2896,8 @@ def phase_profile(gen, batch, steps: int = 8) -> None:
         engine.generate(gen.params, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"profile: prefill + {steps} decode steps: "
-        + device_time_summary(prof, wall_ms))
+    log_profile(f"profile: {label}: prefill + {steps} decode steps: ", prof,
+                wall_ms)
 
 
 def time_prefill(gen, batch) -> float:
@@ -3197,6 +3225,63 @@ def device_time_summary(prof, wall_ms: float, top_n: int = 6,
                 f"x{e.count}" for e in top))
 
 
+# the summaries of log_profile's children not yet logged: (pid, pipe)
+_PROFILES: list = []
+PROFILE_WAIT_S = 120
+
+
+def log_profile(prefix: str, prof, wall_ms: float, **kw) -> None:
+    """Logs ``prefix + device_time_summary(prof, wall_ms, **kw)`` later:
+    the summary is computed in a forked child (the profiler's events
+    turned into Python objects and averaged: up to ten seconds a training
+    step on the host, while this process goes on to the next work) and
+    logged by ``read_profiles``.  The child touches no CUDA; it writes
+    the line down a pipe and exits."""
+    import gc
+
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        # no collection frees a CUDA tensor here; a child that hangs ends
+        gc.disable()
+        signal.alarm(2 * PROFILE_WAIT_S)
+        try:
+            text = prefix + device_time_summary(prof, wall_ms, **kw)
+        except BaseException as e:       # the line says what went wrong
+            text = f"{prefix}not measured ({type(e).__name__}: {e})"
+        with os.fdopen(w, "w") as f:
+            f.write(text)
+        os._exit(0)
+    os.close(w)
+    _PROFILES.append((pid, r, prefix))
+
+
+def read_profiles(wait: bool) -> None:
+    """Logs the summaries of log_profile's children that have finished,
+    or (``wait``) of all of them, each given PROFILE_WAIT_S seconds at
+    most before it is stopped and its line logged as not measured."""
+    import select
+
+    for pid, r, prefix in list(_PROFILES):
+        done, _ = os.waitpid(pid, os.WNOHANG)
+        if not done and not wait:
+            continue
+        ready = done or select.select([r], [], [], PROFILE_WAIT_S)[0]
+        if ready:
+            with os.fdopen(r) as f:
+                text = f.read() or f"{prefix}not measured (no summary)"
+        else:
+            os.close(r)
+            os.kill(pid, signal.SIGKILL)
+            text = (f"{prefix}not measured (the summary took over "
+                    f"{PROFILE_WAIT_S} s)")
+        if not done:
+            os.waitpid(pid, 0)
+        _PROFILES.remove((pid, r, prefix))
+        log(text)
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the training path
 # ---------------------------------------------------------------------------
@@ -3283,8 +3368,8 @@ class GradProbe:
         self.optimizer, self.norms = optimizer, None
         self.keep_grads, self.grads = keep_grads, None
 
-    def init(self, params):
-        return self.optimizer.init(params)
+    def init(self, params, paths=None):
+        return self.optimizer.init(params, paths)
 
     def apply(self, params, grads, state, grad_norm=None):
         if self.norms is None:
@@ -3445,8 +3530,8 @@ def phase_train(rows, steps: int, card):
         state, _ = step(state, first)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log("profile: one training step: "
-        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    log_profile("profile: one training step: ", prof, wall_ms, top_n=10,
+                ranges=STEP_RANGES)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4084,9 +4169,9 @@ def phase_grpo(examples, steps: int, card, case):
                                         update_batches[-1])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"profile: one {case.name} GRPO update (reference forward, policy "
-        "forward and backward, AdamW): "
-        + device_time_summary(prof, wall_ms, top_n=10, ranges=UPDATE_RANGES))
+    log_profile(f"profile: one {case.name} GRPO update (reference forward, "
+                "policy forward and backward, AdamW): ", prof, wall_ms,
+                top_n=10, ranges=UPDATE_RANGES)
     recorded = tap.replay_of_first
     del trainer, probe, tap, inner_update, prof, update_batches
     release()
@@ -4228,11 +4313,29 @@ GIB = 2 ** 30
 CHAIN_WRITE_LIMIT = 40 * GIB
 
 
+TOKENIZER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_tokenizers")
+_TOKENIZERS_WRITTEN: set = set()
+
+
 def write_chain_tokenizer(path: str, vocab_size: int) -> None:
     """A tokenizer AutoTokenizer loads, with no vocabulary in the
     repository: one WordLevel entry per id of the head ("w<id>"), Qwen's
     specials at their published ids, so every id the head can draw
-    decodes and the config's token ids stay the published ones."""
+    decodes and the config's token ids stay the published ones.  Built
+    once a run for each vocabulary size (phases 10, 32 and 33 share
+    151936's) and copied to ``path``."""
+    import shutil
+
+    source = os.path.join(TOKENIZER_DIR, str(vocab_size))
+    if vocab_size not in _TOKENIZERS_WRITTEN:
+        shutil.rmtree(source, ignore_errors=True)
+        _build_chain_tokenizer(source, vocab_size)
+        _TOKENIZERS_WRITTEN.add(vocab_size)
+    shutil.copytree(source, path, dirs_exist_ok=True)
+
+
+def _build_chain_tokenizer(path: str, vocab_size: int) -> None:
     from tokenizers import Tokenizer, models, pre_tokenizers
     from transformers import PreTrainedTokenizerFast
 
@@ -4811,7 +4914,7 @@ def phase_vlm_serve(label, name, hf, encoded, prompt_len, patch_budget,
         f"ms/step, {n_tokens / total_s:.1f} generated tokens/s, "
         f"{BATCH / total_s:.3f} items/s, peak memory {peak_gib:.2f} GiB on "
         f"{card}")
-    phase_profile(gen, batch)
+    phase_profile(label, gen, batch)
     del gen, batch, params
     torch.cuda.empty_cache()
     return launches
@@ -5043,8 +5146,8 @@ def phase_vlm_sft(label, name, hf, recipe, rows, steps, card, train_dir,
         state, _ = step(state, first)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"profile: one {name} training step: "
-        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    log_profile(f"profile: one {name} training step: ", prof, wall_ms,
+                top_n=10, ranges=STEP_RANGES)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5799,8 +5902,8 @@ def phase_lora_sft(label, name, hf, recipe, rows, steps, card, train_dir,
         state, _ = step(state, first)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"profile: one {name} LoRA training step: "
-        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    log_profile(f"profile: one {name} LoRA training step: ", prof, wall_ms,
+                top_n=10, ranges=STEP_RANGES)
     unchanged = all(torch.equal(a, b) for a, b in zip(
         base_fingerprint(base), fingerprint))
     del state, base
@@ -7157,8 +7260,8 @@ def phase_moe_sft(rows, steps: int, card):
         state, _ = step(state, first)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log("profile: one Qwen1.5-MoE training step: "
-        + device_time_summary(prof, wall_ms, top_n=10, ranges=STEP_RANGES))
+    log_profile("profile: one Qwen1.5-MoE training step: ", prof, wall_ms,
+                top_n=10, ranges=STEP_RANGES)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -7506,7 +7609,8 @@ def make_pref_data(root: str, seed: int = 36) -> dict:
 
 PREF_DATA = {"dpo": "ranking", "rm": "ranking", "kto": "feedback",
              "bco": "feedback", "prm": "prm", "ppo": "prompts",
-             "rloo": "prompts", "online_dpo": "prompts"}
+             "rloo": "prompts", "online_dpo": "prompts", "xpo": "prompts",
+             "nash_md": "prompts", "gkd": "feedback"}
 
 
 class PrefProbe(GradProbe):
@@ -7531,32 +7635,39 @@ class PrefProbe(GradProbe):
 
 
 class PrefTap:
-    """Taps around one call of cli/train_pref.py's ``main`` (phase 32).
+    """Taps around one call of cli/train_pref.py's ``main`` (phases 32 and
+    33).
 
     Always: the optimizer the launcher makes is wrapped in a PrefProbe;
     each logged step's metrics are kept unrounded with the seconds since
-    the last log and the kernels' launches in between (every counter is
-    0 when the tap opens, and the launcher logs every step); the
-    first PPO minibatch update's metrics are kept (a PPO step's logged
-    loss averages ppo_epochs x minibatches updates, and every update
-    after the first starts from parameters that step 1's rounding moved:
-    AdamW's first step moves every parameter by about the learning rate
-    whatever its gradient's size); the checkpoint saves record the tree
-    they were given and write nothing
-    (a chip call may write 45 GiB: 26 GB a save at this width; phase 10
-    measures checkpoint I/O); each rollout is timed, its decode steps
-    and completion tokens kept, the first one cloned.
-    The launcher's tokenizer is loaded once for the phase (each load
-    parses the 151936-entry vocabulary) and decodes completions as
-    CannedTokenizer does, so that the default rewards differ between
-    rollouts (only the rollout stages decode).  ``flash``: the bundle's
-    attention is that flash Function over the plain versions (train_attn,
-    lse_attn), the plain path of the step-1 check.  ``replay``: each
-    rollout returns that recorded one."""
+    the last log, the kernels' launches in between (every counter is 0
+    when the tap opens, and the launcher logs every step) and the
+    rollouts the step ran; the first PPO minibatch update's metrics are
+    kept (a PPO step's logged loss averages ppo_epochs x minibatches
+    updates, and every update after the first starts from parameters
+    that step 1's rounding moved: AdamW's first step moves every
+    parameter by about the learning rate whatever its gradient's size);
+    the checkpoint saves record the tree they were given and write
+    nothing (a chip call may write 45 GiB: 26 GB a save at this width;
+    phase 10 measures checkpoint I/O); each rollout (``RolloutEngine.
+    _generate``, a mixture's too) is timed, its decode steps, completion
+    tokens and models (2 for a mixture: two caches) kept, the first
+    step's cloned.  The launcher's tokenizer is loaded once for the
+    phase (each load parses the 151936-entry vocabulary) and decodes
+    completions as CannedTokenizer does, so that the default rewards
+    differ between rollouts (only the rollout stages decode).
+    ``flash``: the bundle's attention is that flash Function over the
+    plain versions (train_attn, lse_attn), the plain path of the step-1
+    check.  ``replay``: the rollouts return those recorded ones, in turn.
+    ``mixture_hf``: at the first mixture rollout, the geometric mixture's
+    first sampled distribution (the prefill's last position) is kept
+    from the run and recomputed on the plain path (a bundle of that
+    config over TwinFlash), and on the plain path with the prompts'
+    left padding attended (the control)."""
 
     tokenizers: dict = {}
 
-    def __init__(self, kernels, flash=None, replay=None):
+    def __init__(self, kernels, flash=None, replay=None, mixture_hf=None):
         from transformers import AutoTokenizer
 
         from iadr1_tpu_torch.models import registry
@@ -7566,8 +7677,12 @@ class PrefTap:
 
         self.kernels = kernels
         self.records, self.saved, self.rollouts = [], [], []
-        self.first_rollout, self.probe, self.first_update = None, None, None
+        self.first_rollouts, self.probe, self.first_update = [], None, None
+        self.mixture = {}
+        self._logged = 0
+        mix = rollout.mix_log_probs
         self._undo = []
+        replay = list(replay) if replay is not None else None
         tap = self
 
         def make_optimizer(fn):
@@ -7599,7 +7714,9 @@ class PrefTap:
                 tap.records.append({
                     "step": step, "metrics": dict(metrics),
                     "s": now - tap._last, "counts": counts,
-                    "launches": {k: counts[k] - before[k] for k in counts}})
+                    "launches": {k: counts[k] - before[k] for k in counts},
+                    "rollouts": tap.rollouts[tap._logged:]})
+                tap._logged = len(tap.rollouts)
                 tap._last = now
                 super().log(step, metrics)
 
@@ -7609,26 +7726,40 @@ class PrefTap:
                 return True
             return run
 
+        def clone(out):
+            return {k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in out.items()}
+
         def generate(fn):
-            def run(engine, params, batch, generator=None, group_size=1,
-                    **kw):
+            def run(engine, params, batch, generator, group_size, lora,
+                    mixture=None):
                 if replay is not None:
-                    return {k: v.clone() if torch.is_tensor(v) else v
-                            for k, v in replay.items()}
+                    return clone(replay.pop(0))
+                if mixture is not None and mixture_hf is not None and (
+                        not tap.mixture):
+                    tap.mixture["plain"], tap.mixture["control"] = (
+                        plain_mixture(engine, params, batch, mixture,
+                                      mixture_hf, mix))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = fn(engine, params, batch, generator,
-                         group_size=group_size, **kw)
+                out = fn(engine, params, batch, generator, group_size, lora,
+                         mixture)
                 torch.cuda.synchronize()
                 tap.rollouts.append({
                     "s": time.perf_counter() - t0,
                     "decode_steps": int(out["num_decode_steps"]),
                     "rows": int(out["completion_ids"].shape[0]),
-                    "tokens": int(out["completion_mask"].sum())})
-                if tap.first_rollout is None:
-                    tap.first_rollout = {
-                        k: v.clone() if torch.is_tensor(v) else v
-                        for k, v in out.items()}
+                    "tokens": int(out["completion_mask"].sum()),
+                    "models": 1 if mixture is None else 2})
+                if not tap.records:
+                    tap.first_rollouts.append(clone(out))
+                return out
+            return run
+
+        def mix_log_probs(fn):
+            def run(*args, **kw):
+                out = fn(*args, **kw)
+                tap.mixture.setdefault("kernel", out.detach().clone())
                 return out
             return run
 
@@ -7659,7 +7790,8 @@ class PrefTap:
         self._patch(state_mod, "create_train_state", create_train_state)
         self._patch(loop, "JsonlLogger", lambda _: Logger)
         self._patch(checkpoint.CheckpointManager, "save", save)
-        self._patch(rollout.RolloutEngine, "generate", generate)
+        self._patch(rollout.RolloutEngine, "_generate", generate)
+        self._patch(rollout, "mix_log_probs", mix_log_probs)
         self._patch(ppo, "make_ppo_update_step", make_ppo_update_step)
         self._patch(AutoTokenizer, "from_pretrained", from_pretrained)
         if flash is not None:
@@ -7687,26 +7819,59 @@ class PrefTap:
         self._undo.clear()
 
 
-def pref_launches(stage, L, decode_steps) -> dict:
+@torch.no_grad()
+def plain_mixture(engine, params, batch, mixture, hf, mix_log_probs):
+    """The geometric mixture's first sampled distribution [B, V] (log
+    probabilities at the prefill's last position) on the plain path: the
+    engine's prefill through a bundle of ``hf`` over TwinFlash, for both
+    models; and the control, the same with every prompt position attended
+    (the left padding included)."""
+    from iadr1_tpu_torch.models import registry
+    from iadr1_tpu_torch.train.rollout import RolloutEngine
+
+    default = registry.default_attention
+    registry.default_attention = lambda kind="auto": train_attn(TwinFlash)
+    try:
+        plain_engine = RolloutEngine(registry.bundle_from_hf_config(hf),
+                                     engine.sampling, engine.max_len,
+                                     engine.cache_dtype, engine.device)
+    finally:
+        registry.default_attention = default
+    mix_params, coef = mixture
+    out = []
+    for b in (batch, {**batch, "attention_mask": torch.ones_like(
+            batch["attention_mask"])}):
+        logits = [plain_engine.prefill(p, b)[0] for p in (params, mix_params)]
+        out.append(mix_log_probs(*logits, coef))
+    return out
+
+
+def pref_launches(stage, L, rollouts) -> dict:
     """The launches one step of ``stage`` implies at L decoder layers
-    (text rows: no tower), as phases 6-7 count them.  K1 runs once a
-    layer a forward (its residuals survive remat), K2 and K3 once a layer
-    a backward; the reference and every forward without a graph are K1
-    only."""
+    (text rows: no tower) given the step's rollouts, as phases 6-7 count
+    them.  K1 runs once a layer a forward (its residuals survive remat),
+    K2 and K3 once a layer a backward; the reference and every forward
+    without a graph are K1 only.  A rollout prefills once a model (a
+    mixture's two) and runs K4 once a layer a model a decode step."""
     fwd_bwd = {"dpo": (2, 1), "simpo": (1, 1), "kto": (4, 1), "bco": (2, 1),
                "rm": (1, 1), "prm": (1, 1),
-               # the rollout's prefill, the experience pass (policy and
-               # reference), then ppo_epochs x 2 minibatch updates
-               "ppo": (1 + 2 + 8, 8),
-               # the prefill; the shared-prompt update's three attention
-               # calls a layer (prompt, completions' self and cross), for
-               # the reference and the policy
-               "rloo": (1 + 3 + 3, 3),
-               # the prefill, then the DPO step's reference and policy
-               "online_dpo": (1 + 2, 1)}[stage]
-    return {"flash_fwd": fwd_bwd[0] * L, "flash_bwd_dq": fwd_bwd[1] * L,
+               # the experience pass (policy and reference), then
+               # ppo_epochs x 2 minibatch updates
+               "ppo": (2 + 8, 8),
+               # the shared-prompt update's three attention calls a layer
+               # (prompt, completions' self and cross), for the reference
+               # and the policy
+               "rloo": (3 + 3, 3),
+               # the reference (or teacher) and the policy: online DPO,
+               # XPO, Nash-MD, GKD
+               "online_dpo": (2, 1), "xpo": (2, 1), "nash_md": (2, 1),
+               "gkd": (2, 1)}[stage]
+    prefills = sum(r["models"] for r in rollouts)
+    return {"flash_fwd": (fwd_bwd[0] + prefills) * L,
+            "flash_bwd_dq": fwd_bwd[1] * L,
             "flash_bwd_dkv": fwd_bwd[1] * L,
-            "decode_attention": L * decode_steps}
+            "decode_attention": L * sum(r["decode_steps"] * r["models"]
+                                        for r in rollouts)}
 
 
 def pref_step1_diffs(stage, got, ref) -> dict:
@@ -7725,12 +7890,16 @@ def pref_limits(stage) -> dict:
 
 
 def phase_kernels_pref():
-    """Phase 3 at phase 32's shapes (Qwen2-VL-2B's decoder, 12 heads over
-    2, D = 128): K1-K3 at DPO's 4 rows of 1024 (2 pairs, right-padded to
-    their lengths; the rows' ragged ends as the launcher pads them), at
-    PPO's minibatch row of P + N = 1024 + 128 (a left-padded prompt, a
-    completion that ends early); K4 over PPO's cache (2 prompts) and
-    RLOO's fan-out (2 prompts x 4).  Returns the results by kernel."""
+    """Phase 3 at phases 32's and 33's shapes (Qwen2-VL-2B's decoder, 12
+    heads over 2, D = 128): K1-K3 at DPO's 4 rows of 1024 (2 pairs,
+    right-padded to their lengths; the rows' ragged ends as the launcher
+    pads them), at PPO's minibatch row of P + N = 1024 + 128 (a
+    left-padded prompt, a completion that ends early) and at XPO's update
+    rows (4 of P + 64, the policy's and the reference's completions to 2
+    prompts, each left-padded and ending early); K4 over PPO's cache (2
+    prompts), RLOO's fan-out (2 prompts x 4) and phase 33's rollout cache
+    (2 prompts, P + 64; the mixture decodes two of them).  Returns the
+    results by kernel."""
     cuda = dict(device="cuda", dtype=torch.int32)
     fwd, bwd, dec = [], [], []
     T = PREF_CUTOFF
@@ -7751,13 +7920,31 @@ def phase_kernels_pref():
                         "ppo minibatch row")
     bwd.append(results[:3])
     fwd.append(results[3])
-    for label, B, seed in (("ppo rollout", PREF_BATCH, 175),
-                           ("rloo fan-out", PREF_BATCH * PREF_RLOO_G, 176)):
-        seg = torch.ones((B, P + N), **cuda)
+    N33 = PREF33_COMPLETION_LEN
+    t33 = time.perf_counter()
+    xpo = torch.zeros((2 * PREF_BATCH, P + N33), **cuda)
+    for i, (prompt, completion) in enumerate(XPO_ROW_LENS):
+        xpo[i, P - prompt:P + completion] = 1
+    shape = (2 * PREF_BATCH, 12, 2, P + N33, P + N33, 128, True, xpo, xpo)
+    results = _labelled((*bwd_case(*shape, 177, timed=True),
+                         flash_case(*shape, 178, timed=True)),
+                        "xpo update rows")
+    bwd.append(results[:3])
+    fwd.append(results[3])
+    t33 = time.perf_counter() - t33
+    for label, B, S, seed in (
+            ("ppo rollout", PREF_BATCH, P + N, 175),
+            ("rloo fan-out", PREF_BATCH * PREF_RLOO_G, P + N, 176),
+            ("xpo, nash_md and gkd rollouts", PREF_BATCH, P + N33, 179)):
+        t_case = time.perf_counter()
+        seg = torch.ones((B, S), **cuda)
         seg[:, :P - PREF_PPO_PROMPT_LEN] = 0
-        dec.append(decode_case(B, 12, 2, P + N, 128, P + N, seg, seed,
-                               timed=True))
+        dec.append(decode_case(B, 12, 2, S, 128, S, seg, seed, timed=True))
         dec[-1]["shape"] = f"{label}: {dec[-1]['shape']}"
+        if S == P + N33:
+            t33 += time.perf_counter() - t_case
+    log(f"kernels: the cases at phase 33's shapes (XPO's update rows, the "
+        f"paired rollouts' K4 cache) took {t33:.1f} s")
     fwd += [f for _, _, f in bwd]
     log_kernel_results(fwd, dec, bwd)
     return {"flash_fwd": fwd,
@@ -7766,165 +7953,613 @@ def phase_kernels_pref():
             "decode_attention": dec}
 
 
+_PREF_ASSETS: list = []
+
+
+def pref_assets() -> tuple:
+    """(tokenizer dir, {dataset: path}) of phases 32 and 33: the tokenizer
+    (write_chain_tokenizer's) and the datasets, written once a run."""
+    import shutil
+
+    if not _PREF_ASSETS:
+        shutil.rmtree(PREF_DIR, ignore_errors=True)
+        os.makedirs(PREF_DIR)
+        t0 = time.perf_counter()
+        tok_dir = os.path.join(PREF_DIR, "tokenizer")
+        write_chain_tokenizer(tok_dir,
+                              QWEN2_VL_2B["text_config"]["vocab_size"])
+        os.makedirs(os.path.join(PREF_DIR, "data"))
+        data = make_pref_data(os.path.join(PREF_DIR, "data"))
+        log(f"pref: tokenizer and datasets written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _PREF_ASSETS.extend([tok_dir, data])
+    return tuple(_PREF_ASSETS)
+
+
+def pref_hf(layers: int) -> dict:
+    return dict(QWEN2_VL_2B, text_config=dict(
+        QWEN2_VL_2B["text_config"], num_hidden_layers=layers))
+
+
+def pref_config(label, stage, over, steps, layers, train=None) -> str:
+    """A launcher config file for ``stage`` (Qwen2-VL-2B at ``layers``
+    decoder layers from model.hf_config and seed 0, an f32 policy, the
+    bf16 reference); returns its path."""
+    tok_dir, data = pref_assets()
+    cfg = {"stage": stage,
+           "model": {"model_name_or_path": tok_dir, "hf_config": pref_hf(
+               layers), "seed": 0, "dtype": "float32"},
+           "data": {"dataset_name": data[PREF_DATA[stage]],
+                    "template": "qwen2_vl", "cutoff_len": PREF_CUTOFF},
+           "pref": {"ref_dtype": "bfloat16", **over},
+           # one schedule for the kernel run and the one-step plain runs
+           # (PPO's step takes 8 optimizer steps)
+           "optim": {"learning_rate": PREF_LEARNING_RATE,
+                     "warmup_ratio": 0.0, "total_steps": 100},
+           "train": {"output_dir": os.path.join(PREF_DIR, label),
+                     "max_steps": steps, "batch_size": PREF_BATCH,
+                     "logging_steps": 1, "save_steps": 0, "seed": 0,
+                     **(train or {})}}
+    if stage == "ppo":
+        cfg["ppo"] = {"max_completion_length": PREF_COMPLETION_LEN,
+                      "ppo_epochs": 4, "mini_batch_size": 1}
+    path = os.path.join(PREF_DIR, f"{label}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_pref(path, kernels, **tap_kw) -> PrefTap:
+    """One call of the launcher's ``main`` under a PrefTap."""
+    import gc
+
+    from iadr1_tpu_torch.cli import train_pref
+
+    tap = PrefTap(kernels, **tap_kw)
+    try:
+        code = train_pref.main(["--config", path, "--device", DEVICE])
+    finally:
+        tap.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if code != 0:
+        raise AssertionError(f"train_pref exited with {code}")
+    return tap
+
+
+def pref_stage(label, stage, over, phase, L, kernels, total, card,
+               train=None, mixture_hf=None) -> PrefTap:
+    """One stage through the launcher: its steps on the kernels with their
+    launches checked a step, step 1 against the plain path (on the kernel
+    path's own first rollouts) and a dq-zeroed control, the readings.
+    Adds its launches to ``total``; returns the kernel run's tap."""
+    t_stage = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tap = run_pref(pref_config(label, stage, over, PREF_STEPS, L, train),
+                   kernels, mixture_hf=mixture_hf)
+    peak_gib = torch.cuda.max_memory_allocated() / GIB
+    recs = tap.records
+    if [r["step"] for r in recs] != list(range(1, PREF_STEPS + 1)):
+        raise AssertionError(f"pref {label}: logged steps "
+                             f"{[r['step'] for r in recs]}")
+    for r in recs:
+        if not all(map(math.isfinite, r["metrics"].values())):
+            raise AssertionError(f"pref {label}: step {r['step']} "
+                                 f"metrics {r['metrics']}")
+    # the launches of each step against the path's count
+    for r in recs:
+        want = pref_launches(label, L, r["rollouts"])
+        if r["launches"] != want:
+            raise AssertionError(f"pref {label} step {r['step']}: "
+                                 f"launches {r['launches']}, want {want}")
+        for k, v in r["launches"].items():
+            total[k] += v
+    heads = {"ppo": ["model", "vhead"], "rm": ["model", "value_head"],
+             "prm": ["model", "prm_head"]}
+    want_keys = heads.get(stage, ["text", "vision"])
+    if tap.saved != [(PREF_STEPS, want_keys)]:
+        raise AssertionError(f"pref {label}: checkpoint saves {tap.saved}, "
+                             f"want {[(PREF_STEPS, want_keys)]}")
+    kernel = (tap.step1(), tap.probe)
+    # the plain path and its control: step 1 from the same state and
+    # batch (and the kernel path's first rollouts)
+    t_plain = time.perf_counter()
+    plain_tap = run_pref(pref_config(f"{label}_plain", stage, over, 1, L,
+                                     train), kernels, flash=TwinFlash,
+                         replay=tap.first_rollouts)
+    if any(plain_tap.records[0]["launches"].values()):
+        raise AssertionError(f"pref {label}: the plain path launched "
+                             f"{plain_tap.records[0]['launches']}")
+    plain_ref = (plain_tap.step1(), plain_tap.probe)
+    control_tap = run_pref(pref_config(f"{label}_control", stage, over, 1,
+                                       L, train), kernels, flash=ZeroDqFlash,
+                           replay=tap.first_rollouts)
+    control = pref_step1_diffs(
+        label, (control_tap.step1(), control_tap.probe), plain_ref)
+    del plain_tap, control_tap
+    tap.first_rollouts = []
+    plain_s = time.perf_counter() - t_plain
+    limits = pref_limits(label)
+    diffs = pref_step1_diffs(label, kernel, plain_ref)
+
+    def text_of(d):
+        return ", ".join(
+            f"{k} {'abs' if label == 'rloo' and k == 'loss' else 'rel'}"
+            f" {v:.3e} (limit {limits[k]})" for k, v in d.items())
+
+    what = "the first minibatch update" if stage == "ppo" else "step 1"
+    log(f"pref {label} ({phase}): {what} kernel vs plain path: loss "
+        f"{kernel[0]['loss']:.6f} vs {plain_ref[0]['loss']:.6f}, grad "
+        f"norm {kernel[1].grad_norm:.6f} vs {plain_ref[1].grad_norm:.6f}"
+        f"; {text_of(diffs)}; the control (dq zeroed): "
+        f"{text_of(control)}, margins (reading / limit, above 1 "
+        "fails): " + ", ".join(f"{k} {control[k] / limits[k]:.3f}"
+                               for k in limits))
+    if _within(control, limits):
+        raise AssertionError(f"pref {label}: the step-1 limits do not "
+                             "catch a zeroed dq")
+    if not _within(diffs, limits):
+        raise AssertionError(f"pref {label}: step 1 differs between "
+                             "kernel and plain path")
+    step_s = recs[-1]["s"]
+    other = ("an f32 teacher of seed 1" if stage == "gkd"
+             else "bf16 reference")
+    text = (f"pref {label} ({phase}): Qwen2-VL-2B, {L} decoder layers, "
+            f"f32 policy, {other}; losses "
+            f"{[round(r['metrics']['loss'], 6) for r in recs]}; step "
+            f"{1e3 * step_s:.1f} ms (step {PREF_STEPS}; all steps "
+            f"{[round(1e3 * r['s'], 1) for r in recs]} ms, from the "
+            f"launcher's logs), peak memory {peak_gib:.2f} GiB")
+    last = [r for r in recs if r["rollouts"]]
+    if last:
+        rec = last[-1]
+        roll_s = sum(r["s"] for r in rec["rollouts"])
+        parts = "; ".join(
+            f"{1e3 * r['s']:.1f} ms ({r['rows']} rows, {r['models']} "
+            f"model{'s' if r['models'] > 1 else ''}, {r['decode_steps']} "
+            f"decode steps, {1e3 * r['s'] / max(r['decode_steps'], 1):.3f}"
+            f" ms/step, {r['tokens']} tokens)" for r in rec["rollouts"])
+        text += (f"; step {rec['step']}'s rollouts {parts}, the rest of "
+                 f"that step (rewards, scoring, updates) "
+                 f"{1e3 * (rec['s'] - roll_s):.1f} ms, "
+                 f"{sum(r['rows'] for r in rec['rollouts']) / rec['s']:.2f}"
+                 " rollouts/s")
+    else:
+        rows = PREF_BATCH * {"dpo": 2, "rm": 2, "kto": 2}.get(stage, 1)
+        text += (f"; {rows} rows of {PREF_CUTOFF} a step"
+                 + (" (the KL rows among them)" if stage == "kto" else "")
+                 + f", {rows * PREF_CUTOFF / step_s:.0f} tokens/s")
+    log(text + f"; launches a step {recs[-1]['launches']} on {card}")
+    log(f"phase {phase} ({label}): {time.perf_counter() - t_stage:.1f} s "
+        f"(the plain path and its control {plain_s:.1f} s)")
+    return tap
+
+
 def phase_pref(card) -> dict:
     """Phase 32: each preference stage through cli/train_pref.py's
     ``main`` from a config file (Qwen2-VL-2B from model.hf_config and a
-    seed, write_chain_tokenizer's tokenizer): its steps on the kernels
-    with their launches checked a step, step 1 against the plain path and
-    a dq-zeroed control, the readings.  Returns the launch counts summed
-    over the stages' kernel runs."""
-    import gc
-    import shutil
-
-    from iadr1_tpu_torch.cli import train_pref
+    seed, write_chain_tokenizer's tokenizer): ``pref_stage`` for each.
+    Returns the launch counts summed over the stages' kernel runs."""
     from iadr1_tpu_torch.kernels import all_kernels
 
     kernels = [k for k, _ in all_kernels()]
-    shutil.rmtree(PREF_DIR, ignore_errors=True)
-    os.makedirs(PREF_DIR)
-    t0 = time.perf_counter()
-    tok_dir = os.path.join(PREF_DIR, "tokenizer")
-    write_chain_tokenizer(tok_dir, QWEN2_VL_2B["text_config"]["vocab_size"])
-    os.makedirs(os.path.join(PREF_DIR, "data"))
-    data = make_pref_data(os.path.join(PREF_DIR, "data"))
-    log(f"pref: tokenizer and datasets written in "
-        f"{time.perf_counter() - t0:.1f} s")
+    pref_assets()
     total = {k.name: 0 for k in kernels}
-
-    def config(label, stage, over, steps, layers):
-        hf = dict(QWEN2_VL_2B, text_config=dict(
-            QWEN2_VL_2B["text_config"], num_hidden_layers=layers))
-        cfg = {"stage": stage,
-               "model": {"model_name_or_path": tok_dir, "hf_config": hf,
-                         "seed": 0, "dtype": "float32"},
-               "data": {"dataset_name": data[PREF_DATA[stage]],
-                        "template": "qwen2_vl", "cutoff_len": PREF_CUTOFF},
-               "pref": {"ref_dtype": "bfloat16", **over},
-               # one schedule for the kernel run and the one-step plain
-               # runs (PPO's step takes 8 optimizer steps)
-               "optim": {"learning_rate": PREF_LEARNING_RATE,
-                         "warmup_ratio": 0.0, "total_steps": 100},
-               "train": {"output_dir": os.path.join(PREF_DIR, label),
-                         "max_steps": steps, "batch_size": PREF_BATCH,
-                         "logging_steps": 1, "save_steps": 0, "seed": 0}}
-        if stage == "ppo":
-            cfg["ppo"] = {"max_completion_length": PREF_COMPLETION_LEN,
-                          "ppo_epochs": 4, "mini_batch_size": 1}
-        path = os.path.join(PREF_DIR, f"{label}.json")
-        with open(path, "w") as f:
-            json.dump(cfg, f)
-        return path
-
-    def run(path, **tap_kw):
-        tap = PrefTap(kernels, **tap_kw)
-        try:
-            code = train_pref.main(["--config", path, "--device", DEVICE])
-        finally:
-            tap.close()
-            gc.collect()
-            torch.cuda.empty_cache()
-        if code != 0:
-            raise AssertionError(f"train_pref exited with {code}")
-        return tap
-
     for label, stage, over, phase in PREF_STAGES:
-        t_stage = time.perf_counter()
         L = (PREF_CUT_LAYERS if label in PREF_CUT_STAGES
              else QWEN2_VL_2B["text_config"]["num_hidden_layers"])
-        rollout = stage in ("ppo", "rloo", "online_dpo")
-        torch.cuda.reset_peak_memory_stats()
-        tap = run(config(label, stage, over, PREF_STEPS, L))
-        peak_gib = torch.cuda.max_memory_allocated() / GIB
-        recs = tap.records
-        if [r["step"] for r in recs] != list(range(1, PREF_STEPS + 1)):
-            raise AssertionError(f"pref {label}: logged steps "
-                                 f"{[r['step'] for r in recs]}")
-        for r in recs:
-            if not all(map(math.isfinite, r["metrics"].values())):
-                raise AssertionError(f"pref {label}: step {r['step']} "
-                                     f"metrics {r['metrics']}")
-        # the launches of each step against the path's count
-        for i, r in enumerate(recs):
-            steps = tap.rollouts[i]["decode_steps"] if rollout else 0
-            want = pref_launches(label, L, steps)
-            if r["launches"] != want:
-                raise AssertionError(f"pref {label} step {r['step']}: "
-                                     f"launches {r['launches']}, want {want}")
-            for k, v in r["launches"].items():
-                total[k] += v
-        heads = {"ppo": ["model", "vhead"], "rm": ["model", "value_head"],
-                 "prm": ["model", "prm_head"]}
-        want_keys = heads.get(stage, ["text", "vision"])
-        if tap.saved != [(PREF_STEPS, want_keys)]:
-            raise AssertionError(f"pref {label}: checkpoint saves "
-                                 f"{tap.saved}, want "
-                                 f"{[(PREF_STEPS, want_keys)]}")
-        kernel = (tap.step1(), tap.probe)
-        rollouts, replay = tap.rollouts, tap.first_rollout
-        del tap
-        # the plain path and its control: step 1 from the same state and
-        # batch (and the kernel path's first rollout)
-        t_plain = time.perf_counter()
-        plain_tap = run(config(f"{label}_plain", stage, over, 1, L),
-                        flash=TwinFlash, replay=replay)
-        if any(plain_tap.records[0]["launches"].values()):
-            raise AssertionError(f"pref {label}: the plain path launched "
-                                 f"{plain_tap.records[0]['launches']}")
-        plain_ref = (plain_tap.step1(), plain_tap.probe)
-        control_tap = run(config(f"{label}_control", stage, over, 1, L),
-                          flash=ZeroDqFlash, replay=replay)
-        control = pref_step1_diffs(
-            label, (control_tap.step1(), control_tap.probe), plain_ref)
-        del plain_tap, control_tap, replay
-        plain_s = time.perf_counter() - t_plain
-        limits = pref_limits(label)
-        diffs = pref_step1_diffs(label, kernel, plain_ref)
-        def text_of(d):
-            return ", ".join(
-                f"{k} {'abs' if label == 'rloo' and k == 'loss' else 'rel'}"
-                f" {v:.3e} (limit {limits[k]})" for k, v in d.items())
-
-        what = ("the first minibatch update" if stage == "ppo"
-                else "step 1")
-        log(f"pref {label} ({phase}): {what} kernel vs plain path: loss "
-            f"{kernel[0]['loss']:.6f} vs {plain_ref[0]['loss']:.6f}, grad "
-            f"norm {kernel[1].grad_norm:.6f} vs {plain_ref[1].grad_norm:.6f}"
-            f"; {text_of(diffs)}; the control (dq zeroed): "
-            f"{text_of(control)}, margins (reading / limit, above 1 "
-            "fails): " + ", ".join(f"{k} {control[k] / limits[k]:.3f}"
-                                   for k in limits))
-        if _within(control, limits):
-            raise AssertionError(f"pref {label}: the step-1 limits do not "
-                                 "catch a zeroed dq")
-        if not _within(diffs, limits):
-            raise AssertionError(f"pref {label}: step 1 differs between "
-                                 "kernel and plain path")
-        step_s = recs[-1]["s"]
-        text = (f"pref {label} ({phase}): Qwen2-VL-2B, {L} decoder layers, "
-                f"f32 policy, bf16 reference; losses "
-                f"{[round(r['metrics']['loss'], 6) for r in recs]}; step "
-                f"{1e3 * step_s:.1f} ms (step {PREF_STEPS}; all steps "
-                f"{[round(1e3 * r['s'], 1) for r in recs]} ms, from the "
-                f"launcher's logs), peak memory {peak_gib:.2f} GiB")
-        if rollout:
-            last = rollouts[-1]
-            text += (f"; rollout {1e3 * last['s']:.1f} ms ({last['rows']} "
-                     f"rows, {last['decode_steps']} decode steps, "
-                     f"{1e3 * last['s'] / max(last['decode_steps'], 1):.3f}"
-                     f" ms/step, {last['tokens']} tokens), the rest of the "
-                     f"step (rewards, scoring, updates) "
-                     f"{1e3 * (step_s - last['s']):.1f} ms, "
-                     f"{last['rows'] / step_s:.2f} rollouts/s")
-        else:
-            rows = PREF_BATCH * {"dpo": 2, "rm": 2, "kto": 2}.get(stage, 1)
-            text += (f"; {rows} rows of {PREF_CUTOFF} a step"
-                     + (" (the KL rows among them)" if stage == "kto"
-                        else "")
-                     + f", {rows * PREF_CUTOFF / step_s:.0f} tokens/s")
-        log(text + f"; launches a step {recs[-1]['launches']} on {card}")
-        log(f"phase {phase} ({label}): {time.perf_counter() - t_stage:.1f} "
-            f"s (the plain path and its control {plain_s:.1f} s)")
+        pref_stage(label, stage, over, phase, L, kernels, total, card)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 33: XPO, Nash-MD and GKD through cli/train_pref.py; the optimizers
+# ---------------------------------------------------------------------------
+
+# phase 32's setting and data, the completions cut to 64 (the smoke's
+# time); the teacher of 33c is a Qwen2-VL-2B-config
+# checkpoint from seed 1 at the student's depth, written in HF layout (bf16)
+# and read in the student's dtype (f32).  train.seed 8 with gkd_lmbda 0.5:
+# the host draws 0.327 then 0.987, so step 1 rolls out on-policy and step
+# 2 takes the dataset completions
+PREF33_COMPLETION_LEN = 64
+PREF33_STAGES = (
+    ("xpo", "xpo", {"max_completion_length": PREF33_COMPLETION_LEN}, "33a",
+     None),
+    ("nash_md", "nash_md", {"max_completion_length": PREF33_COMPLETION_LEN,
+                            "mixture_coef": 0.5}, "33b", None),
+    ("gkd", "gkd", {"max_completion_length": PREF33_COMPLETION_LEN,
+                    "gkd_lmbda": 0.5}, "33c", {"seed": 8}),
+)
+# 33b and 33c at a cut depth for the smoke's time (33a runs all 28 layers)
+PREF33_CUT_LAYERS = 14
+PREF33_CUT = ("nash_md", "gkd")
+# XPO's update rows as phase 3 times them: (prompt, completion) lengths of
+# the policy's two rows, then the reference's (left-padded prompts of the
+# 300-500-word range, completions ending before N = 64)
+XPO_ROW_LENS = ((420, 45), (500, 64), (420, 30), (500, 55))
+# the mixture's first sampled distribution, kernel path against the plain
+# path: the total variation distance between the two [B, V] distributions
+MIXTURE_TV_LIMIT = 1e-2
+# 33d: one SFT step of each optimizer on Qwen2-VL-2B with its decoder cut
+# to 4 of 28 layers (the tower whole), phase 6's rows; the check's leaves
+OPT_LAYERS = 4
+OPT_NAMES = ("loraplus", "adamw", "galore", "apollo", "badam", "adam_mini",
+             "muon", "adafactor", "lion", "sgd")
+OPT_LEAVES = ("text/layers/attn/k/kernel", "text/embed/weight")
+OPT_LORA_LEAVES = ("text/layers/attn/k/kernel/a",
+                   "text/layers/attn/k/kernel/b")
+# Adafactor's update of the embedding reads every row (its factored
+# moments and block RMS), and the CPU's over all 151936 rows took 9.1 s:
+# it is checked on the tower merger's 5120 x 5120 kernel, factored too
+OPT_ADAFACTOR_LEAVES = ("text/layers/attn/k/kernel",
+                        "vision/merger/fc1/kernel")
+# the update of each checked leaf on the card against the CPU's from the
+# same gradients: ||card - cpu|| / ||cpu||.  The limits sit about 4x above
+# the largest sound readings on an H100 (PERF.md: Adafactor's 2.68e-5;
+# Muon's Newton-Schulz 2.07e-4); each optimizer's control, the CPU's
+# update with one piece of its arithmetic changed, must fail them
+OPT_UPDATE_LIMIT = 1e-4
+OPT_UPDATE_LIMITS = {"muon": 1e-3}
+OPT_CONTROLS = {
+    **dict.fromkeys(("loraplus", "adamw", "galore", "apollo", "badam",
+                     "adam_mini"), "Adam's bias correction dropped"),
+    "muon": "the bias correction dropped and one Newton-Schulz step fewer",
+    "adafactor": "the second moment unfactored",
+    "lion": "the sign dropped",
+    "sgd": "the gradient clipping dropped",
+}
+
+
+def write_teacher(path: str, layers: int, seed: int = 1) -> float:
+    """GKD's teacher: Qwen2-VL-2B's config at ``layers`` decoder layers,
+    bf16 weights from ``seed``, written in HF layout (config.json and
+    model.safetensors); returns the seconds it took."""
+    from iadr1_tpu_torch.models import params_export
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    t0 = time.perf_counter()
+    os.makedirs(path, exist_ok=True)
+    hf = pref_hf(layers)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    bundle = bundle_from_hf_config(hf)
+    params = bundle.init_params(seed=seed, dtype=torch.bfloat16,
+                                device=DEVICE)
+    params_export.save_pretrained(bundle, params, path)
+    del params
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def phase_pref33(card) -> dict:
+    """Phase 33a-c: XPO, Nash-MD and GKD through cli/train_pref.py's
+    ``main`` as phase 32 runs its stages (``pref_stage``); 33b also holds
+    the mixture's first sampled distribution to the plain path.  Returns
+    the launch counts summed over the stages' kernel runs."""
+    import shutil
+
+    from iadr1_tpu_torch.kernels import all_kernels
+
+    kernels = [k for k, _ in all_kernels()]
+    pref_assets()
+    total = {k.name: 0 for k in kernels}
+    full = QWEN2_VL_2B["text_config"]["num_hidden_layers"]
+    teacher = os.path.join(PREF_DIR, "teacher")
+    for label, stage, over, phase, train in PREF33_STAGES:
+        L = PREF33_CUT_LAYERS if label in PREF33_CUT else full
+        if stage == "gkd":
+            secs = write_teacher(teacher, L)
+            log(f"pref gkd (33c): the teacher (seed 1, {L} decoder layers, "
+                f"bf16 in HF layout) written in {secs:.1f} s")
+            over = dict(over, teacher_model_name_or_path=teacher)
+        tap = pref_stage(label, stage, over, phase, L, kernels, total, card,
+                         train=train,
+                         mixture_hf=pref_hf(L) if stage == "nash_md" else None)
+        if stage == "nash_md":
+            check_mixture(tap.mixture, card)
+        if stage == "gkd":
+            branches = [r["metrics"]["on_policy"] for r in tap.records]
+            if branches != [1.0, 0.0]:
+                raise AssertionError(f"gkd: on_policy {branches}, want "
+                                     "[1.0, 0.0]")
+            shutil.rmtree(teacher)
+        del tap
+    return total
+
+
+def check_mixture(mixture: dict, card) -> None:
+    """33b: the first sampled distribution of the geometric mixture on the
+    kernels against the plain path, and the control's."""
+    if set(mixture) != {"kernel", "plain", "control"}:
+        raise AssertionError(f"nash_md: mixture readings {sorted(mixture)}")
+
+    def tv(a, b):
+        return float(0.5 * (a.float().exp() - b.float().exp()).abs().sum(
+            -1).max())
+
+    got = tv(mixture["kernel"], mixture["plain"])
+    control = tv(mixture["control"], mixture["plain"])
+    top = mixture["plain"].float().max(-1).values.exp()
+    log(f"pref nash_md (33b): the mixture's first sampled distribution "
+        f"(B={mixture['plain'].shape[0]}, V={mixture['plain'].shape[1]}), "
+        f"kernel vs plain path: total variation {got:.3e}, max |d log p| "
+        f"{float((mixture['kernel'] - mixture['plain']).abs().max()):.3e} "
+        f"(limit {MIXTURE_TV_LIMIT} on the first); the control (the left "
+        f"padding attended) {control:.3e}; top probability "
+        f"{[round(float(x), 6) for x in top]} on {card}")
+    if control <= MIXTURE_TV_LIMIT:
+        raise AssertionError("nash_md: the mixture's limit does not catch "
+                             "attended padding")
+    if got > MIXTURE_TV_LIMIT:
+        raise AssertionError("nash_md: the mixture's first distribution "
+                             "differs between kernel and plain path")
+
+
+class OptTap:
+    """The optimizer, wrapped for 33d: its ``apply`` timed on its own (the
+    device synchronised around it), and the checked leaves' gradients,
+    values before and after (the embedding's ``rows`` alone where its
+    update is row-local) and the gradients' global norm kept on the host;
+    ``tap_s`` is the time those copies took."""
+
+    def __init__(self, optimizer, leaves, rows=None):
+        self.optimizer, self.leaves, self.rows = optimizer, leaves, rows
+        self.seconds, self.seen, self.tap_s = None, None, 0.0
+
+    def init(self, params, paths=None):
+        self.paths = paths
+        return self.optimizer.init(params, paths)
+
+    def _host(self, tensors, idx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for i in idx:
+            t = tensors[i].detach()
+            if self.rows is not None and self.paths[i] == "text/embed/weight":
+                t = t[self.rows.to(t.device)]
+            out.append(t.to("cpu", torch.float32, copy=True))
+        self.tap_s += time.perf_counter() - t0
+        return out
+
+    def apply(self, params, grads, state, grad_norm=None):
+        from iadr1_tpu_torch.train.optimizers import global_norm
+
+        idx = [self.paths.index(p) for p in self.leaves]
+        if grad_norm is None:
+            grad_norm = global_norm(grads)
+        self.seen = {"grad_norm": float(grad_norm),
+                     "grads": self._host(grads, idx),
+                     "before": self._host(params, idx)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.optimizer.apply(params, grads, state, grad_norm)
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - t0
+        self.seen["after"] = self._host(params, idx)
+        return out
+
+
+def cpu_update(name, opt_cfg, seen, leaves, card_opt, control=False):
+    """The update of the checked leaves computed on the CPU by the same
+    optimizer from the gradients the card saw (the rows the card kept);
+    ``control``: with OPT_CONTROLS[name]'s change to the arithmetic."""
+    from iadr1_tpu_torch.train import custom_optim, optimizers
+
+    opt, _ = optimizers.make_optimizer(opt_cfg)
+    undo = []
+    if control:
+        if name not in ("adafactor", "lion", "sgd"):
+            for mod in (optimizers, custom_optim):
+                undo.append((mod, mod.bias_correction))
+                mod.bias_correction = lambda b, count: 1.0
+        if name == "muon":
+            opt.ns_steps -= 1
+        elif name == "adafactor":
+            opt.min_dim = math.inf
+        elif name == "lion":
+            direction = opt.direction
+
+            def unsigned(i, g, p, state, count):
+                mu = state["mu"][i].clone()
+                direction(i, g, p, state, count)       # Lion's moment
+                return (1.0 - opt.b1) * g + opt.b1 * mu
+            opt.direction = unsigned
+        elif name == "sgd":
+            opt.max_grad_norm = None
+    params = [b.clone() for b in seen["before"]]
+    try:
+        state = opt.init(params, list(leaves))
+        if name == "apollo":                 # the card's leaf indices
+            opt.index = {k: card_opt.index[card_opt.paths.index(p)]
+                         for k, p in enumerate(leaves)
+                         if card_opt.paths.index(p) in card_opt.index}
+        opt.apply(params, seen["grads"], state,
+                  torch.tensor(seen["grad_norm"]))
+    finally:
+        for mod, fn in undo:
+            mod.bias_correction = fn
+    return [p - b for p, b in zip(params, seen["before"])]
+
+
+def _opt_state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size()
+               for v in state.values() if isinstance(v, list)
+               for t in v if t is not None)
+
+
+def phase_optimizers(rows, card) -> dict:
+    """Phase 33d: one PA-SFT step of Qwen2-VL-2B (decoder at OPT_LAYERS of
+    28 layers, the tower whole; phase 6's rows) with each optimizer
+    ``make_optimizer`` builds, LoRA+ over LoRA's defaults: the step ms,
+    the optimizer's own ms (GaLore's SVD apart), the peak memory and the
+    bytes of optimizer state; each optimizer's update of two leaves held
+    to the same update computed on the CPU from the same gradients, and
+    its control (OPT_CONTROLS) must fail.  Returns the launch counts."""
+    import gc
+
+    from iadr1_tpu_torch.data.collator import VLMBatchBuilder
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train import custom_optim
+    from iadr1_tpu_torch.train.adapters import init_lora_params
+    from iadr1_tpu_torch.train.loop import batch_iterator
+    from iadr1_tpu_torch.train.optimizers import (
+        OptimizerConfig,
+        make_optimizer,
+    )
+    from iadr1_tpu_torch.train.sft import make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+
+    kernels = [k for k, _ in all_kernels()]
+    total = {k.name: 0 for k in kernels}
+    L, T = OPT_LAYERS, QWEN2_VL_2B["vision_config"]["depth"]
+    t_setup = time.perf_counter()
+    hf = pref_hf(OPT_LAYERS)
+    bundle = bundle_from_hf_config(hf)
+    batch = next(batch_iterator(rows, TRAIN_ROWS, 0,
+                                VLMBatchBuilder(bundle, PATCH_BUDGET)))
+    # the embedding rows the CPU check reads: the batch's tokens and 256
+    # rows no token reaches
+    embed_rows = torch.as_tensor(np.union1d(np.unique(np.asarray(
+        batch["input_ids"])), np.arange(256)))
+    base = bundle.init_params(seed=0, dtype=torch.float32, device=DEVICE)
+    n_params = sum(p.numel() for p in tree_leaves(base))
+    # GaLore's projections (custom_optim._svd_proj: the top singular
+    # vectors by the f64 Gram matrix's eigh), timed apart
+    proj_s = []
+    svd_proj = custom_optim._svd_proj
+
+    def timed_proj(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = svd_proj(*args)
+        torch.cuda.synchronize()
+        proj_s.append(time.perf_counter() - t0)
+        return out
+
+    results = {}
+    torch.cuda.synchronize()
+    setup_s, walls = time.perf_counter() - t_setup, {}
+    for name in OPT_NAMES:
+        t_opt = time.perf_counter()
+        lora = name == "loraplus"
+        opt_cfg = OptimizerConfig(
+            learning_rate=LEARNING_RATE, schedule="constant",
+            warmup_steps=0, total_steps=10, max_grad_norm=1.0,
+            **({"loraplus_lr_ratio": 16.0} if lora
+               else {"optimizer": name}))
+        inner, sched = make_optimizer(opt_cfg)
+        leaves = (OPT_LORA_LEAVES if lora else OPT_ADAFACTOR_LEAVES
+                  if name == "adafactor" else OPT_LEAVES)
+        # the embedding's update is row-local
+        opt = OptTap(inner, leaves, embed_rows)
+        params = _clone_tree(base)
+        if lora:
+            from iadr1_tpu_torch.train.adapters import TuningConfig
+
+            tcfg = TuningConfig(finetuning_type="lora")
+            adapters = init_lora_params(
+                torch.Generator(device=DEVICE).manual_seed(3), params, tcfg)
+            frozen = params
+            state = create_train_state(adapters, opt)
+            hidden = lambda p, b: bundle.hidden_fn(  # noqa: E731
+                frozen, b, remat=True, lora=p, lora_scale=tcfg.lora_scale)
+            head = lambda _: bundle.head_kernel_fn(frozen)  # noqa: E731
+        else:
+            state = create_train_state(params, opt)
+            hidden = lambda p, b: bundle.hidden_fn(  # noqa: E731
+                p, b, remat=True)
+            head = bundle.head_kernel_fn
+        step = make_chunked_sft_step(hidden, head, opt, sched,
+                                     chunk_size=CE_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        custom_optim._svd_proj = timed_proj
+        proj_s.clear()
+        try:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0 - opt.tap_s
+        finally:
+            custom_optim._svd_proj = svd_proj
+        peak = torch.cuda.max_memory_allocated() / GIB
+        launches = {k.name: k.launches for k in kernels}
+        for k, v in launches.items():
+            total[k] += v
+        # a full step: K1 once a decoder layer and twice a tower block
+        # (the tower's remat runs it again), K2 and K3 once each; LoRA's
+        # frozen tower takes no backward
+        tower = 0 if lora else T
+        want = {"flash_fwd": L + T + tower, "flash_bwd_dq": L + tower,
+                "flash_bwd_dkv": L + tower, "decode_attention": 0}
+        if launches != want:
+            raise AssertionError(f"optimizer {name}: launches {launches}, "
+                                 f"want {want}")
+        state_bytes = _opt_state_bytes(state.opt_state)
+        loss = float(metrics["loss"])
+        got = [a - b for a, b in zip(opt.seen["after"], opt.seen["before"])]
+        t_cpu = time.perf_counter()
+        diffs, controls = [[float((g - w).norm() / w.norm().clamp(min=1e-30))
+                            for g, w in zip(got, cpu_update(
+                                name, opt_cfg, opt.seen, leaves, inner,
+                                control))]
+                           for control in (False, True)]
+        cpu_s = time.perf_counter() - t_cpu
+        limit = OPT_UPDATE_LIMITS.get(name, OPT_UPDATE_LIMIT)
+        results[name] = dict(step_ms=1e3 * step_s, opt_ms=1e3 * opt.seconds,
+                             proj_ms=1e3 * sum(proj_s), projs=len(proj_s),
+                             peak_gib=peak, state_bytes=state_bytes,
+                             loss=loss, diffs=diffs, controls=controls)
+        log(f"optimizers (33d): {name}: step {1e3 * step_s:.1f} ms, the "
+            f"optimizer {1e3 * opt.seconds:.1f} ms"
+            + (f" (its {len(proj_s)} projections {1e3 * sum(proj_s):.1f}"
+               " ms)" if proj_s else "")
+            + f", peak {peak:.2f} GiB, optimizer state "
+            f"{state_bytes / 1e9:.3f} GB, loss {loss:.6f}, grad norm "
+            f"{opt.seen['grad_norm']:.6f}; update vs the CPU's (||card - "
+            f"cpu|| / ||cpu||, limit {limit}) "
+            + ", ".join(f"{p} {d:.3e}" for p, d in zip(leaves, diffs))
+            + f"; the control ({OPT_CONTROLS[name]}) "
+            + ", ".join(f"{c:.3e}" for c in controls)
+            + f"; the CPU's updates {cpu_s:.1f} s")
+        # the cached blocks stay for the next optimizer: its peak reads
+        # allocated memory, not reserved
+        del state, step, params, opt, inner, metrics
+        gc.collect()
+        walls[name] = time.perf_counter() - t_opt
+        if not all(math.isfinite(x) for x in diffs) or max(diffs) > limit:
+            raise AssertionError(f"optimizer {name}: the card's update "
+                                 f"differs from the CPU's: {diffs}")
+        if max(controls) <= limit:
+            raise AssertionError(f"optimizer {name}: the limit does not "
+                                 f"catch {OPT_CONTROLS[name]}: {controls}")
+    adamw = results["adamw"]
+    log(f"optimizers (33d): Qwen2-VL-2B at {OPT_LAYERS} decoder layers and "
+        f"the whole tower, {n_params / 1e9:.3f}B f32 params, one step of "
+        f"{TRAIN_ROWS} x {CUTOFF_LEN}; against AdamW (step "
+        f"{adamw['step_ms']:.1f} ms, state {adamw['state_bytes'] / 1e9:.3f}"
+        " GB): " + "; ".join(
+            f"{n} step x{r['step_ms'] / adamw['step_ms']:.2f}, state "
+            f"x{r['state_bytes'] / adamw['state_bytes']:.3f}"
+            for n, r in results.items() if n != "adamw") + f" on {card}")
+    log(f"optimizers (33d): wall s: the model and batch {setup_s:.1f}, each "
+        "optimizer's step with its CPU check " + ", ".join(
+            f"{n} {w:.1f}" for n, w in walls.items()))
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
 
 
 def main() -> int:
@@ -7939,7 +8574,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-32; "
+                    help="comma-separated phase numbers to run (3-33; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -7955,7 +8590,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from iadr1_tpu_torch.kernels import all_kernels
-    from iadr1_tpu_torch.kernels._build import build_all
+    from iadr1_tpu_torch.kernels._build import finish_build, start_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7963,12 +8598,13 @@ def main() -> int:
     card = gpu_line()
     log(f"device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.device_count()} visible")
-    log("imports: " + importable(("tokenizers", "safetensors", "PIL",
-                                  "pandas", "yaml", "transformers")))
+    # the import probe and the kernels' build run beside the host's
+    # making of every phase's requests and rows
+    t_build = time.perf_counter()
+    imports = importable(("tokenizers", "safetensors", "PIL", "pandas",
+                          "yaml", "transformers"))
     kernels = all_kernels()
-    secs = build_all([k.source for k, _ in kernels])
-    log(f"build: {len(kernels)} kernels from iadr1_tpu_torch/csrc for "
-        f"sm_90a in {secs:.1f} s")
+    building = start_build([k.source for k, _ in kernels])
     encoded = make_requests()
     train_rows = make_sft_rows()
     grpo_examples = make_grpo_examples()
@@ -8012,45 +8648,52 @@ def main() -> int:
                                        n_rows=LONGLORA_ROWS,
                                        per_row=LONGLORA_PER_ROW)
     mod_rows = make_text_sft_rows(MOD_ROWS, MOD_CUTOFF, seed=34)
-    phases = (set(range(1, 33)) if args.phases is None
+    data_s = time.perf_counter() - t_build
+    finish_build(building)
+    log(f"build: {len(kernels)} kernels from iadr1_tpu_torch/csrc for "
+        f"sm_90a in {time.perf_counter() - t_build:.1f} s, beside the "
+        f"requests and rows of every phase ({data_s:.1f} s)")
+    log("imports: " + imports())
+    phases = (set(range(1, 34)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
     if 3 in phases:
         measured = phase_kernels(encoded, args.max_new_tokens, train_rows,
                                  grpo_examples)
-        for name, results in phase_kernels_llava(
-                llava_encoded, llava_rows, args.max_new_tokens,
-                args.pad_compare).items():
-            measured[name] += results
-        for name, results in phase_kernels_q25(
-                q25_encoded, q25_rows, q25_grpo_examples,
-                args.max_new_tokens, lora_rows).items():
-            measured[name] += results
-        for name, results in phase_kernels_llava_families(
-                next_encoded, v15_encoded, next_rows, ov_grpo_examples,
-                args.max_new_tokens).items():
-            measured[name] += results
-        for name, results in phase_kernels_internvl_video(
-                intern_encoded, intern_rows, intern_grpo, video_rows,
-                VIDEO_SFT_BUDGET, args.max_new_tokens).items():
-            measured[name] += results
-        for name, results in phase_kernels_paligemma_pixtral(
-                pg_encoded, pg_grpo, px_encoded, px_rows, px_grpo,
-                args.max_new_tokens).items():
-            measured[name] += results
-        for name, results in phase_kernels_moe_context(
-                moe_requests, moe_grpo, longlora_rows, mod_rows,
-                args.max_new_tokens).items():
-            measured[name] += results
-        for name, results in phase_kernels_pref().items():
-            measured[name] += results
-        log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
+        group_s = {"qwen2_vl": time.perf_counter() - t0}
+        for group, cases in (
+                ("llava", lambda: phase_kernels_llava(
+                    llava_encoded, llava_rows, args.max_new_tokens,
+                    args.pad_compare)),
+                ("q25", lambda: phase_kernels_q25(
+                    q25_encoded, q25_rows, q25_grpo_examples,
+                    args.max_new_tokens, lora_rows)),
+                ("llava families", lambda: phase_kernels_llava_families(
+                    next_encoded, v15_encoded, next_rows, ov_grpo_examples,
+                    args.max_new_tokens)),
+                ("internvl and video", lambda: phase_kernels_internvl_video(
+                    intern_encoded, intern_rows, intern_grpo, video_rows,
+                    VIDEO_SFT_BUDGET, args.max_new_tokens)),
+                ("paligemma and pixtral",
+                 lambda: phase_kernels_paligemma_pixtral(
+                     pg_encoded, pg_grpo, px_encoded, px_rows, px_grpo,
+                     args.max_new_tokens)),
+                ("moe and context", lambda: phase_kernels_moe_context(
+                    moe_requests, moe_grpo, longlora_rows, mod_rows,
+                    args.max_new_tokens)),
+                ("pref", phase_kernels_pref)):
+            t_group = time.perf_counter()
+            for name, results in cases().items():
+                measured[name] += results
+            group_s[group] = time.perf_counter() - t_group
+        log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s ("
+            + ", ".join(f"{g} {s:.1f}" for g, s in group_s.items()) + ")")
     if phases & {4, 5, 8, 9}:
         t0 = time.perf_counter()
         by_path["serve"], gen, batch = phase_main(
             encoded, args.max_new_tokens, card)
-        phase_profile(gen, batch)
+        phase_profile("serve", gen, batch)
         by_path["eval"] = phase_eval(gen, card)
         by_path["chat"] = phase_chat(gen, card)
         del gen, batch
@@ -8138,13 +8781,17 @@ def main() -> int:
         (31, "mod_train", lambda: phase_mod_train(
             mod_rows, MOD_STEPS, card)),
         (32, "pref", lambda: phase_pref(card)),
+        (33, "pref33", lambda: phase_pref33(card)),
+        (33, "optimizers", lambda: phase_optimizers(train_rows, card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
             by_path[path] = run()
             torch.cuda.empty_cache()
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 33)) <= phases:
+            read_profiles(wait=False)
+    read_profiles(wait=True)
+    if not set(range(3, 34)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

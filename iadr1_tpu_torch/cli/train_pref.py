@@ -1,17 +1,21 @@
 """Preference-stage launcher (counterpart of iadr1_tpu/cli/train_pref.py):
 DPO (sigmoid/hinge/ipo/orpo/simpo/cpo), KTO, BCO, the pairwise reward
-model (rm), the process reward model (prm), PPO, RLOO and online DPO, over
-ranking, feedback, stepwise or prompt datasets; runs on the card unless
-given ``--device cpu``.
+model (rm), the process reward model (prm), PPO, RLOO, online DPO, XPO,
+Nash-MD and GKD, over ranking, feedback, stepwise, prompt or conversation
+datasets; runs on the card unless given ``--device cpu``.
 
 * dpo / rm rows: {"messages": [...prompt turns...], "chosen": "...",
   "rejected": "..."} (chosen/rejected may be {"role", "content"} dicts)
 * kto / bco rows: {"messages": [...full conversation...], "label": bool}
 * prm rows: {"prompt": str | messages, "completions": [str, ...],
   "labels": [bool, ...]}
-* ppo / rloo / online_dpo rows: {"messages": [...prompt turns...],
-  "solution": "..."}: prompts only; the completions come from the
-  in-program rollout and are scored by ``pref.reward_funcs``
+* ppo / rloo / online_dpo / xpo / nash_md rows: {"messages":
+  [...prompt turns...], "solution": "..."}: prompts only; the completions
+  come from the in-program rollout and are scored by ``pref.reward_funcs``
+* gkd rows: {"messages": [...]}: a final assistant turn is the dataset
+  completion; the teacher is ``pref.teacher_model_name_or_path``, a local
+  HF checkpoint that shares the student's vocabulary, read in the
+  student's dtype
 
 Usage:
     python -m iadr1_tpu_torch.cli.train_pref --config dpo.yaml \
@@ -21,9 +25,8 @@ Two departures from the JAX launcher, both where its code departs from
 its own documentation: a ranking pair shares one cut of its prompt
 (``encode_pairwise_example``, ROADMAP C.R22), and KTO's KL rows pair the
 prompt of row i with the completion of row i - 1 of the sampled batch
-(C.R23).  ``require_ported`` names what the port cannot run yet: xpo,
-nash_md and gkd (ROADMAP A.14b) and a mesh of more than one device
-(A.11).
+(C.R23).  ``require_ported`` names what the port cannot run yet: a mesh
+of more than one device (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -40,9 +43,7 @@ from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX, infer_seqlen
 
 STAGES = ("dpo", "kto", "rm", "ppo", "rloo", "online_dpo", "xpo",
           "nash_md", "bco", "prm", "gkd")
-# stages of the JAX launcher the port does not run yet
-NOT_YET_PORTED = ("xpo", "nash_md", "gkd")
-ROLLOUT_STAGES = ("rloo", "online_dpo")
+ROLLOUT_STAGES = ("rloo", "online_dpo", "xpo", "nash_md")
 
 
 @dataclasses.dataclass
@@ -57,13 +58,13 @@ class PrefSection:
     max_completion_length: int = 128
     kl_coef: float = 0.05             # rloo KL (through the k3 beta)
     missing_eos_penalty: float = 0.0  # online_dpo; 0 disables
-    xpo_alpha: float = 1e-5           # xpo (A.14b)
-    mixture_coef: float = 0.5         # nash_md (A.14b)
+    xpo_alpha: float = 1e-5           # xpo's exploration coefficient
+    mixture_coef: float = 0.5         # nash_md's mixture opponent weight
     step_separator: str = "\n\n"      # prm step separator
-    gkd_beta: float = 0.5             # gkd (A.14b)
-    gkd_lmbda: float = 0.5
+    gkd_beta: float = 0.5             # gkd's JSD interpolant
+    gkd_lmbda: float = 0.5            # gkd's on-policy share
     gkd_temperature: float = 0.9
-    teacher_model_name_or_path: str = ""
+    teacher_model_name_or_path: str = ""   # gkd's teacher checkpoint
     desirable_weight: float = 1.0     # kto
     undesirable_weight: float = 1.0   # kto
     ref_dtype: str = "bfloat16"
@@ -95,9 +96,6 @@ def require_ported(job: PrefJobConfig) -> None:
     (an unknown stage is a ValueError, as in JAX)."""
     if job.stage not in STAGES:
         raise ValueError(f"unknown stage {job.stage!r}; one of {STAGES}")
-    if job.stage in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"stage {job.stage!r} is not ported yet (ROADMAP A.14b)")
     if mesh_devices(job.mesh) > 1:
         raise NotImplementedError(
             f"a mesh of more than one device ({job.mesh}) is not ported yet "
@@ -168,6 +166,24 @@ def prompt_examples(raw, template, tokenizer) -> list[dict]:
         ex["prompt_ids"] = template.encode_prompt(
             tokenizer, messages, system=row.get("system"))
         examples.append(ex)
+    return examples
+
+
+def gkd_examples(raw, template, tokenizer) -> list[dict]:
+    """GKD's rows: the prompt (every turn before a final assistant turn)
+    and that turn's text as the dataset completion ("" without one)."""
+    examples = []
+    for row in raw:
+        messages = _messages(row)
+        completion = ""
+        if messages and messages[-1].get("role") == "assistant":
+            completion = messages[-1]["content"]
+            messages = messages[:-1]
+        examples.append({
+            "prompt_ids": template.encode_prompt(
+                tokenizer, messages, system=row.get("system")),
+            "completion_ids": tokenizer.encode(completion,
+                                               add_special_tokens=False)})
     return examples
 
 
@@ -285,6 +301,8 @@ def main(argv=None):
 
     cfg = load_config(PrefJobConfig, args.config, args.overrides)
     require_ported(cfg)
+    if cfg.stage == "gkd" and not cfg.pref.teacher_model_name_or_path:
+        raise ValueError("stage=gkd needs pref.teacher_model_name_or_path")
     device = resolve_device(args.device)
     loop_cfg = dataclass_from_dict(LoopConfig, cfg.train)
     opt_cfg = dataclass_from_dict(OptimizerConfig, cfg.optim)
@@ -361,6 +379,24 @@ def main(argv=None):
             trainer = RLOOTrainer(
                 bundle, tokenizer, optimizer, gcfg, funcs,
                 create_train_state(params, optimizer), ref_params, **common)
+        elif cfg.stage in ("xpo", "nash_md"):
+            from iadr1_tpu_torch.train import online_rl
+
+            ref_params = reference()
+            if cfg.stage == "xpo":
+                cls, stage_cfg = online_rl.XPOTrainer, online_rl.XPOConfig(
+                    beta=cfg.pref.beta, alpha=cfg.pref.xpo_alpha)
+            else:
+                cls, stage_cfg = (online_rl.NashMDTrainer,
+                                  online_rl.NashMDConfig(
+                                      beta=cfg.pref.beta,
+                                      mixture_coef=cfg.pref.mixture_coef))
+            trainer = cls(
+                bundle, tokenizer, optimizer, stage_cfg, funcs,
+                create_train_state(params, optimizer), ref_params,
+                max_prompt_length=T,
+                max_completion_length=cfg.pref.max_completion_length,
+                **common)
         else:
             from iadr1_tpu_torch.train.online_rl import OnlineDPOTrainer
             from iadr1_tpu_torch.train.preference import DPOConfig
@@ -377,6 +413,24 @@ def main(argv=None):
                 missing_eos_penalty=cfg.pref.missing_eos_penalty or None,
                 **common)
         del ref_params
+        n = len(examples)
+    elif cfg.stage == "gkd":
+        from iadr1_tpu_torch.train.gkd import GKDConfig, GKDTrainer
+
+        teacher_path = cfg.pref.teacher_model_name_or_path
+        teacher_bundle = bundle_from_pretrained(teacher_path,
+                                                attention=attention)
+        teacher_params = teacher_bundle.convert_hf(
+            load_safetensors_path(teacher_path), dtype=dtype, device=device)
+        examples = gkd_examples(raw, template, tokenizer)
+        trainer = GKDTrainer(
+            bundle, teacher_bundle, tokenizer, optimizer, GKDConfig(
+                beta=cfg.pref.gkd_beta, temperature=cfg.pref.gkd_temperature,
+                lmbda=cfg.pref.gkd_lmbda, max_prompt_length=T,
+                max_completion_length=cfg.pref.max_completion_length),
+            create_train_state(params, optimizer), teacher_params,
+            schedule=schedule, seed=loop_cfg.seed, device=device)
+        del teacher_params
         n = len(examples)
     else:
         from iadr1_tpu_torch.train import preference as pref

@@ -5,7 +5,8 @@ Each source under ``iadr1_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 with ``ctypes``.  Libraries go to ``build/kernels/`` at the repository root
 (listed in ``.gitignore``) and are rebuilt when their source, or any shared
 header ``csrc/*.cuh``, is newer.
-``build_all`` starts one ``nvcc`` per source, all at once.  Nothing is
+``start_build`` starts one ``nvcc`` per stale source, all at once, and
+``finish_build`` waits for them (``build_all`` does both).  Nothing is
 built or loaded when this module is imported.
 """
 
@@ -45,11 +46,11 @@ def _stale(source: str) -> bool:
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
-def build_all(sources) -> float:
-    """Compile every stale source, one ``nvcc`` each, all started at once;
-    returns the wall seconds.  The compiler's output (``-Xptxas -v``:
-    registers, shared memory, spills) is kept in ``<stem>.log``."""
-    t0 = time.perf_counter()
+def start_build(sources) -> list:
+    """Start compiling every stale source, one ``nvcc`` each, all at once;
+    returns what ``finish_build`` waits for.  The compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept in
+    ``<stem>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
     for source in dict.fromkeys(sources):     # one nvcc per distinct source
@@ -62,6 +63,11 @@ def build_all(sources) -> float:
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
                 stdout=log, stderr=subprocess.STDOUT)
         started.append((source, proc, tmp, lib))
+    return started
+
+
+def finish_build(started) -> None:
+    """Wait for ``start_build``'s compilers; raises if one failed."""
     failures = []
     for source, proc, tmp, lib in started:
         if proc.wait() != 0:
@@ -71,6 +77,12 @@ def build_all(sources) -> float:
             os.replace(tmp, lib)
     if failures:
         raise RuntimeError("\n".join(failures))
+
+
+def build_all(sources) -> float:
+    """Compile every stale source; returns the wall seconds."""
+    t0 = time.perf_counter()
+    finish_build(start_build(sources))
     return time.perf_counter() - t0
 
 

@@ -1,9 +1,10 @@
 """Training stages of the port: PA-SFT, SC-GRPO and the preference stages
-(DPO and its losses, KTO, BCO, RM, PRM, PPO, RLOO, online DPO).
+(DPO and its losses, KTO, BCO, RM, PRM, PPO, RLOO, online DPO, XPO,
+Nash-MD, GKD).
 
 The exports are those of the JAX package's ``iadr1_tpu.train`` that the
-port has; XPO, Nash-MD, GKD and ``IterativeSFTTrainer`` wait for ROADMAP
-A.14b.
+port has; ``make_sft_step`` (the unchunked step) and
+``IterativeSFTTrainer`` wait for ROADMAP A.14c.
 """
 
 from iadr1_tpu_torch.train.state import TrainState, create_train_state
@@ -11,10 +12,15 @@ from iadr1_tpu_torch.train.optimizers import make_optimizer, OptimizerConfig
 from iadr1_tpu_torch.train.sft import sft_loss
 from iadr1_tpu_torch.train.grpo import GRPOConfig, GRPOTrainer
 from iadr1_tpu_torch.train.online_rl import (
+    NashMDConfig,
+    NashMDTrainer,
     OnlineDPOTrainer,
     RLOOTrainer,
+    XPOConfig,
+    XPOTrainer,
     rloo_advantages,
 )
+from iadr1_tpu_torch.train.gkd import GKDConfig, GKDTrainer
 from iadr1_tpu_torch.train.preference import (
     BCOConfig,
     DPOConfig,

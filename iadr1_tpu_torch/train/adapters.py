@@ -123,8 +123,9 @@ class MaskedOptimizer:
                              f"{len(self.mask)}")
         return [x for x, m in zip(leaves, self.mask) if m]
 
-    def init(self, params):
-        return self.inner.init(self._pick(params))
+    def init(self, params, paths=None):
+        return self.inner.init(self._pick(params),
+                               None if paths is None else self._pick(paths))
 
     @torch.no_grad()
     def apply(self, params, grads, state, grad_norm=None) -> None:

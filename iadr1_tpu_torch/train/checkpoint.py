@@ -2,9 +2,10 @@
 iadr1_tpu/train/checkpoint.py, whose checkpoints are orbax's).
 
 The checkpoint of step s is ``{directory}/{s}.safetensors``: the
-TrainState's parameters (``params.<path>``), both AdamW moments
-(``mu.<path>``, ``nu.<path>``, named by their parameter's path), the step
-and the optimizer's count, which set the schedule and the bias correction,
+TrainState's parameters (``params.<path>``), the optimizer's per-leaf
+tensors (AdamW's moments ``mu.<path>`` and ``nu.<path>``; each list of the
+state under its key, named by its parameter's path), the step and the
+optimizer's count, which set the schedule and the bias correction,
 so a run resumed from it takes the steps an uninterrupted run would, bit
 for bit.  ``meta_{s}.json`` holds the caller's metadata beside it.
 
@@ -27,6 +28,14 @@ from iadr1_tpu_torch.models.params_io import save_safetensors
 from iadr1_tpu_torch.train.state import TrainState, named_leaves, unflatten
 
 _NAME = re.compile(r"^(\d+)\.safetensors$")
+
+
+def _opt_leaves(opt: dict, named):
+    """(key, (path, param), tensor) of each per-leaf tensor of an optimizer
+    state: every list under its key, None entries skipped."""
+    return [(key, item, t) for key, val in opt.items()
+            if isinstance(val, list)
+            for item, t in zip(named, val) if t is not None]
 
 
 class CheckpointManager:
@@ -65,9 +74,8 @@ class CheckpointManager:
         named = named_leaves(state.params)
         tensors = {f"params.{name}": p for name, p in named}
         opt = state.opt_state
-        for key in ("mu", "nu"):
-            tensors.update({f"{key}.{name}": t
-                            for (name, _), t in zip(named, opt[key])})
+        for key, (name, _), t in _opt_leaves(opt, named):
+            tensors[f"{key}.{name}"] = t
         tensors["step"] = torch.tensor(int(state.step), dtype=torch.int64)
         tensors["opt_count"] = torch.tensor(int(opt["count"]),
                                             dtype=torch.int64)
@@ -118,9 +126,8 @@ class CheckpointManager:
                 fill(f"params.{name}", p)
             opt = state_like.opt_state
             if opt is not None:
-                for key in ("mu", "nu"):
-                    for (name, _), t in zip(named, opt[key]):
-                        fill(f"{key}.{name}", t)
+                for key, (name, _), t in _opt_leaves(opt, named):
+                    fill(f"{key}.{name}", t)
                 opt["count"] = int(f.get_tensor("opt_count"))
             return state_like._replace(step=int(f.get_tensor("step")))
 

@@ -1,6 +1,5 @@
-"""On-policy trainers beyond SC-GRPO: RLOO and online DPO (the port's own
-copy of the first half of iadr1_tpu/train/online_rl.py; XPO and Nash-MD
-wait for ROADMAP A.14b).
+"""On-policy trainers beyond SC-GRPO: RLOO, online DPO, XPO and Nash-MD
+(the port's own copy of iadr1_tpu/train/online_rl.py).
 
 Both reuse the SC-GRPO machinery: the in-program RolloutEngine, host-side
 structured rewards and chunked sequence logps.
@@ -15,13 +14,29 @@ structured rewards and chunked sequence logps.
   ranked by the summed structured rewards (ties to the first sample), and
   the DPO loss on the on-policy chosen/rejected pair against the frozen
   reference.
+* XPO (TRL's xpo_trainer): one completion from the policy and one from
+  the reference a prompt, the higher score chosen (ties to the policy);
+  DPO on the pair's log-ratios plus alpha times the policy's logps on the
+  reference's completion (the exploration term).
+* Nash-MD (TRL's nash_md_trainer): the policy's completion against one
+  from the geometric mixture of policy and reference
+  (``RolloutEngine.generate_mixture``), judged by the rewards (p = 1, 0,
+  or 1/2 on a tie); loss beta * sum(stopgrad(log ratio) * logp)
+  - (p - 1/2) * sum(logp).
+
+The XPO and Nash-MD update steps are plain functions as the DPO step is
+(``train/preference.py``): the reference is scored under
+``torch.no_grad()`` before the policy's forward.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.device import resolve_device
@@ -29,10 +44,17 @@ from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.train.grpo import (
     GRPOTrainer,
     bundle_score_fn,
+    chunked_token_logps,
     collate_text_prompts,
     sampling_generator,
 )
-from iadr1_tpu_torch.train.preference import DPOConfig, make_dpo_step
+from iadr1_tpu_torch.train.preference import (
+    PREF_RANGES,
+    DPOConfig,
+    _on_params_device,
+    apply_update,
+    make_dpo_step,
+)
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
     SamplingConfig,
@@ -40,8 +62,10 @@ from iadr1_tpu_torch.train.rollout import (
 )
 from iadr1_tpu_torch.train.sft import batch_to_device
 
-# profiler range name of an online DPO step's rollout
+# profiler range names of an online DPO step's rollout and of the XPO and
+# Nash-MD steps' rollouts
 ONLINE_DPO_ROLLOUT = "online_dpo_rollout"
+PAIRED_ROLLOUT = "paired_rollout"
 
 
 def rloo_advantages(rewards: np.ndarray, k: int,
@@ -146,34 +170,20 @@ class OnlineDPOTrainer:
                 policy, batch_to_device(rollout_batch, self.device),
                 generator, group_size=2)
             del policy
-        completion_ids = rollout["completion_ids"].cpu().numpy()   # [2n, N]
-        completion_mask = rollout["completion_mask"].cpu().numpy()
-        prompt_ids = rollout["prompt_ids"].cpu().numpy()
-        prompt_mask = rollout["prompt_mask"].cpu().numpy()
-        del rollout
-        texts = self.tokenizer.batch_decode(
-            [ids[m.astype(bool)]
-             for ids, m in zip(completion_ids, completion_mask)],
-            skip_special_tokens=True)
-        completions = [[{"role": "assistant", "content": t}] for t in texts]
-        reward_kwargs = {
-            k: [ex.get(k) for ex in examples for _ in range(2)]
-            for k in {k for ex in examples for k in ex if k != "prompt_ids"}
-        }
-        scores = np.zeros(2 * n)
-        for fn in self.reward_funcs:
-            scores += np.asarray(
-                fn(completions=completions,
-                   current_step=int(self.state.step), **reward_kwargs),
-                np.float64)
+        rollout = {k: rollout[k].cpu().numpy() for k in (
+            "prompt_ids", "prompt_mask", "completion_ids", "completion_mask")}
+        completion_ids = rollout["completion_ids"]              # [2n, N]
+        completion_mask = rollout["completion_mask"]
+        scores = self._score(rollout, examples, reps=2)
         if self.missing_eos_penalty is not None:
             no_eos = completion_mask.sum(axis=1) >= completion_ids.shape[1]
             scores = scores - no_eos * self.missing_eos_penalty
 
         order = online_dpo_order(scores)
-        update_batch = self._update_batch(
-            prompt_ids[order], prompt_mask[order], completion_ids[order],
-            completion_mask[order])
+        update_batch = completion_batch(
+            self.bundle, *(rollout[k][order] for k in (
+                "prompt_ids", "prompt_mask", "completion_ids",
+                "completion_mask")))
         self.state, metrics = self.update_step(
             self.state, self.ref_params, update_batch)
         pair = scores.reshape(n, 2)
@@ -186,20 +196,259 @@ class OnlineDPOTrainer:
         self.metrics_history.append(out)
         return out
 
-    def _update_batch(self, prompt_ids, prompt_mask, comp_ids,
-                      comp_mask) -> dict:
-        """The DPO batch of the ordered rows (numpy): prompt + completion,
-        the completion labeled, positions counted over the real tokens
-        (broadcast to the three M-RoPE axes where the model has them)."""
-        full_ids = np.concatenate([prompt_ids, comp_ids], axis=1)
-        full_mask = np.concatenate([prompt_mask, comp_mask], axis=1)
-        labeled = np.concatenate([np.zeros_like(prompt_mask), comp_mask],
-                                 axis=1).astype(bool)
-        labels = np.where(labeled, full_ids, IGNORE_INDEX)
-        positions = np.clip(np.cumsum(full_mask, axis=1) - 1, 0, None)
-        tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
-        if getattr(tcfg, "mrope_section", None) is not None:
-            positions = np.broadcast_to(
-                positions, (3,) + positions.shape).copy()
-        return {"input_ids": full_ids, "labels": labels,
-                "segment_ids": full_mask, "position_ids": positions}
+    def _score(self, rollout, examples, reps: int = 1) -> np.ndarray:
+        """The summed rewards of the rollout's completions (numpy), each
+        example's columns repeated ``reps`` times consecutively."""
+        texts = self.tokenizer.batch_decode(
+            [ids[m.astype(bool)] for ids, m in zip(
+                rollout["completion_ids"], rollout["completion_mask"])],
+            skip_special_tokens=True)
+        completions = [[{"role": "assistant", "content": t}] for t in texts]
+        kwargs = {k: [ex.get(k) for ex in examples for _ in range(reps)]
+                  for k in {k for ex in examples for k in ex
+                            if k != "prompt_ids"}}
+        scores = np.zeros(len(completions))
+        for fn in self.reward_funcs:
+            scores += np.asarray(
+                fn(completions=completions,
+                   current_step=int(self.state.step), **kwargs), np.float64)
+        return scores
+
+
+def completion_batch(bundle, prompt_ids, prompt_mask, comp_ids,
+                     comp_mask) -> dict:
+    """The update batch of prompt + completion rows (numpy): the
+    completion labeled, positions counted over the real tokens (broadcast
+    to the three M-RoPE axes where the model has them)."""
+    full_ids = np.concatenate([prompt_ids, comp_ids], axis=1)
+    full_mask = np.concatenate([prompt_mask, comp_mask], axis=1)
+    labeled = np.concatenate([np.zeros_like(prompt_mask), comp_mask],
+                             axis=1).astype(bool)
+    labels = np.where(labeled, full_ids, IGNORE_INDEX)
+    positions = np.clip(np.cumsum(full_mask, axis=1) - 1, 0, None)
+    tcfg = getattr(bundle.cfg, "text", bundle.cfg)
+    if getattr(tcfg, "mrope_section", None) is not None:
+        positions = np.broadcast_to(positions, (3,) + positions.shape).copy()
+    return {"input_ids": full_ids, "labels": labels,
+            "segment_ids": full_mask, "position_ids": positions}
+
+
+# ---------------------------------------------------------------------------
+# XPO and Nash-MD
+# ---------------------------------------------------------------------------
+
+
+def _completion_token_logps(score_fn, params, batch, chunk_size):
+    """(token logps [B, T-1], mask) on the labeled (completion) positions,
+    the logps 0 elsewhere."""
+    hidden, kernel = score_fn(params, batch)
+    targets = batch["labels"][:, 1:]
+    mask = (targets != IGNORE_INDEX).float()
+    safe = torch.where(targets != IGNORE_INDEX, targets, 0)
+    tok = chunked_token_logps(hidden[:, :-1], kernel, safe, chunk_size)
+    return tok * mask, mask
+
+
+@dataclasses.dataclass(frozen=True)
+class XPOConfig:
+    beta: float = 0.1
+    alpha: float = 1e-5            # the exploration coefficient
+    loss_type: str = "sigmoid"     # sigmoid | ipo
+    logp_chunk_size: int = 1024
+
+
+def make_xpo_update_step(score_fn, optimizer, cfg: XPOConfig,
+                         schedule=None):
+    """``step(state, ref_params, batch) -> (state, metrics)``.
+
+    batch rows: the first n the policy's completions, the last n the
+    reference's (prompt + completion, the completion labeled);
+    ``chosen_mask`` [n] bool, True where the policy's completion won.
+    Loss (TRL's xpo_trainer): DPO on the (chosen, rejected) log-ratios
+    plus alpha * the policy's logps on the reference's completions."""
+    if cfg.loss_type not in ("sigmoid", "ipo"):
+        raise ValueError(f"invalid XPO loss type {cfg.loss_type!r}")
+
+    def seq_logps(params, batch):
+        tok, _ = _completion_token_logps(score_fn, params, batch,
+                                         cfg.logp_chunk_size)
+        return tok.sum(dim=1)
+
+    def step(state, ref_params, batch):
+        batch = _on_params_device(state, batch)
+        cm = batch["chosen_mask"].bool()
+        with record_function(PREF_RANGES[0]), torch.no_grad():
+            ref_sum = seq_logps(ref_params, batch)
+        with record_function(PREF_RANGES[1]):
+            pol_sum = seq_logps(state.params, batch)
+            n = pol_sum.shape[0] // 2
+            pol_m, pol_r = pol_sum[:n], pol_sum[n:]
+            ref_m, ref_r = ref_sum[:n], ref_sum[n:]
+            chosen = torch.where(cm, pol_m - ref_m, pol_r - ref_r)
+            rejected = torch.where(cm, pol_r - ref_r, pol_m - ref_m)
+            logits = chosen - rejected
+            if cfg.loss_type == "sigmoid":
+                dpo = -F.logsigmoid(cfg.beta * logits)
+            else:
+                dpo = (logits - 1.0 / (2.0 * cfg.beta)) ** 2
+            xpo = cfg.alpha * pol_r
+            loss = (dpo + xpo).mean()
+            metrics = {"loss": loss, "loss/dpo": dpo.mean(),
+                       "loss/xpo": xpo.mean(),
+                       "rewards/chosen": (cfg.beta * chosen).mean(),
+                       "rewards/rejected": (cfg.beta * rejected).mean()}
+        return apply_update(state, optimizer, loss, metrics, schedule)
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class NashMDConfig:
+    beta: float = 0.1              # the KL coefficient
+    mixture_coef: float = 0.5      # the mixture opponent's weight
+    logp_chunk_size: int = 1024
+
+
+def make_nash_md_update_step(score_fn, optimizer, cfg: NashMDConfig,
+                             schedule=None):
+    """``step(state, ref_params, batch) -> (state, metrics)``.
+
+    batch: the policy's completions (labeled) and ``probability`` [B],
+    P(the policy's completion beats the mixture's).  Loss (TRL's
+    nash_md_trainer): beta * the REINFORCE KL - (p - 1/2) * sum logps."""
+
+    def step(state, ref_params, batch):
+        batch = _on_params_device(state, batch)
+        prob = batch["probability"].float()
+        with record_function(PREF_RANGES[0]), torch.no_grad():
+            ref_tok, _ = _completion_token_logps(
+                score_fn, ref_params, batch, cfg.logp_chunk_size)
+        with record_function(PREF_RANGES[1]):
+            pol_tok, _ = _completion_token_logps(
+                score_fn, state.params, batch, cfg.logp_chunk_size)
+            log_ratio = (pol_tok - ref_tok).detach()
+            score = (prob - 0.5) * pol_tok.sum(dim=1)
+            kl_loss = (log_ratio * pol_tok).sum(dim=1)
+            loss = (cfg.beta * kl_loss - score).mean()
+            metrics = {"loss": loss,
+                       "objective/kl": log_ratio.sum(dim=1).mean(),
+                       "objective/score": score.mean(),
+                       "objective/probability": prob.mean()}
+        return apply_update(state, optimizer, loss, metrics, schedule)
+
+    return step
+
+
+class _PairedOnlineTrainer(OnlineDPOTrainer):
+    """XPO's and Nash-MD's host plumbing, over online DPO's (the prompt
+    collation, the rewards' scores): the rollouts, each from its own
+    generator stream, and the update rows."""
+
+    def _rollout(self, batch, model=None, mixture_coef=None) -> dict:
+        """The completions (numpy) of the policy, from its dense layers
+        cast to the compute dtype, or of ``model`` as it is stored; with
+        ``mixture_coef``, of the geometric mixture of the policy and
+        ``model``.  Each rollout draws from its own generator stream."""
+        with record_function(PAIRED_ROLLOUT):
+            generator = sampling_generator(self.seed, self._rollouts,
+                                           self.device)
+            self._rollouts += 1
+            batch = batch_to_device(batch, self.device)
+            if model is not None and mixture_coef is None:
+                out = self.engine.generate(model, batch, generator)
+            else:
+                policy = cast_dense_params(
+                    self.state.params, self.bundle.precision.compute_dtype)
+                out = (self.engine.generate(policy, batch, generator)
+                       if model is None else self.engine.generate_mixture(
+                           policy, model, mixture_coef, batch, generator))
+                del policy
+        return {k: out[k].cpu().numpy() for k in (
+            "prompt_ids", "prompt_mask", "completion_ids", "completion_mask")}
+
+    def _rows(self, *rollouts) -> dict:
+        """The update batch of the rollouts' rows, one after another."""
+        return completion_batch(self.bundle, *(
+            np.concatenate([r[k] for r in rollouts]) for k in (
+                "prompt_ids", "prompt_mask", "completion_ids",
+                "completion_mask")))
+
+
+class XPOTrainer(_PairedOnlineTrainer):
+    """TRL's XPOTrainer: a completion from the policy and one from the
+    frozen reference a prompt; the rewards pick the winner (a tie goes to
+    the policy); the DPO + exploration update (make_xpo_update_step).  The
+    reference rolls out from its own copy, as it is stored."""
+
+    def __init__(self, bundle, tokenizer, optimizer, cfg: XPOConfig,
+                 reward_funcs, state, ref_params,
+                 max_prompt_length: int = 512,
+                 max_completion_length: int = 128,
+                 sampling_overrides: dict | None = None, schedule=None,
+                 device=None, seed: int = 0):
+        super().__init__(bundle, tokenizer, optimizer,
+                         DPOConfig(beta=cfg.beta), reward_funcs, state,
+                         ref_params, max_prompt_length, max_completion_length,
+                         sampling_overrides, schedule, device=device,
+                         seed=seed)
+        self.cfg = cfg
+        self.update_step = make_xpo_update_step(bundle_score_fn(bundle),
+                                                optimizer, cfg, schedule)
+
+    def step(self, examples: Sequence[dict]) -> dict:
+        batch = self._collate_prompts(examples)
+        model_data = self._rollout(batch)
+        ref_data = self._rollout(batch, self.ref_params)
+        scores_m = self._score(model_data, examples)
+        scores_r = self._score(ref_data, examples)
+        update_batch = self._rows(model_data, ref_data)
+        update_batch["chosen_mask"] = scores_m >= scores_r
+        self.state, metrics = self.update_step(self.state, self.ref_params,
+                                               update_batch)
+        out = {k: float(v) for k, v in metrics.items()}
+        out["objective/model_scores"] = float(scores_m.mean())
+        out["objective/ref_scores"] = float(scores_r.mean())
+        self.metrics_history.append(out)
+        return out
+
+
+class NashMDTrainer(_PairedOnlineTrainer):
+    """TRL's NashMDTrainer: the opponent's completion is sampled from the
+    geometric mixture of the policy and the reference
+    (``RolloutEngine.generate_mixture``, each with its own KV cache); the
+    rewards judge the pair (probability the policy wins: 1, 0, 1/2 on a
+    tie)."""
+
+    def __init__(self, bundle, tokenizer, optimizer, cfg: NashMDConfig,
+                 reward_funcs, state, ref_params,
+                 max_prompt_length: int = 512,
+                 max_completion_length: int = 128,
+                 sampling_overrides: dict | None = None, schedule=None,
+                 device=None, seed: int = 0):
+        super().__init__(bundle, tokenizer, optimizer,
+                         DPOConfig(beta=cfg.beta), reward_funcs, state,
+                         ref_params, max_prompt_length, max_completion_length,
+                         sampling_overrides, schedule, device=device,
+                         seed=seed)
+        self.cfg = cfg
+        self.update_step = make_nash_md_update_step(
+            bundle_score_fn(bundle), optimizer, cfg, schedule)
+
+    def step(self, examples: Sequence[dict]) -> dict:
+        batch = self._collate_prompts(examples)
+        model_data = self._rollout(batch)
+        mixture_data = self._rollout(batch, self.ref_params,
+                                     self.cfg.mixture_coef)
+        scores_m = self._score(model_data, examples)
+        scores_x = self._score(mixture_data, examples)
+        update_batch = self._rows(model_data)
+        update_batch["probability"] = np.where(
+            scores_m > scores_x, 1.0,
+            np.where(scores_m < scores_x, 0.0, 0.5)).astype(np.float32)
+        self.state, metrics = self.update_step(self.state, self.ref_params,
+                                               update_batch)
+        out = {k: float(v) for k, v in metrics.items()}
+        out["objective/model_scores"] = float(scores_m.mean())
+        out["objective/mixture_scores"] = float(scores_x.mean())
+        self.metrics_history.append(out)
+        return out

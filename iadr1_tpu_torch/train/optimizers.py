@@ -1,5 +1,6 @@
 """Optimizer and LR schedules (the port's own copy of
-iadr1_tpu/train/optimizers.py, AdamW path).
+iadr1_tpu/train/optimizers.py).  AdamW is here; every other optimizer
+``make_optimizer`` builds is in ``train/custom_optim.py``.
 
 The arithmetic is optax's, step for step: ``clip_by_global_norm`` first
 (updates scaled by ``max_norm / norm`` only when ``norm >= max_norm``),
@@ -35,8 +36,24 @@ class OptimizerConfig:
     # second moment stays f32)
     mu_dtype: str | None = None
     max_grad_norm: float = 1.0
+    # adamw | adafactor | sgd | lion | galore | apollo | badam | adam_mini
+    # | muon
     optimizer: str = "adamw"
-    loraplus_lr_ratio: float = 0.0
+    # the custom optimizers' knobs (LLaMA-Factory's finetuning_args names
+    # and defaults)
+    galore_rank: int = 16
+    galore_update_interval: int = 200
+    galore_scale: float = 0.25
+    apollo_rank: int = 16
+    apollo_update_interval: int = 200
+    apollo_scale: float = 1.0
+    apollo_scale_type: str = "channel"   # channel | tensor (APOLLO-mini)
+    badam_switch_interval: int = 50
+    badam_switch_mode: str = "ascending"
+    badam_num_layers: int = 0            # 0: the decoder's depth
+    adam_mini_head_dim: int = 0          # 0: a value per neuron for q/k too
+    loraplus_lr_ratio: float = 0.0       # > 0 enables LoRA+
+    loraplus_lr_embedding: float = 1e-6
 
 
 def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
@@ -76,6 +93,11 @@ def _linear(init: float, end: float, steps: int, count) -> float:
     return (init - end) * (1 - count / steps) + end
 
 
+def bias_correction(b: float, count) -> float:
+    """1 - b**count in f32, as optax computes it."""
+    return float(1 - torch.tensor(b, dtype=torch.float32) ** count)
+
+
 # elements of one leaf AdamW updates at a time (256 MB in f32): a 3B
 # model's stacked MLP kernels are 3 GB a leaf, and a whole-leaf update's
 # temporaries would take several times that beside 60 GB of parameters,
@@ -85,8 +107,9 @@ UPDATE_SLICE = 1 << 26
 
 class AdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...)),
-    in place.  ``init(params)`` -> state; ``apply(params, grads, state)``
-    updates ``params`` and ``state`` in place."""
+    in place.  ``init(params, paths)`` -> state (AdamW reads no paths);
+    ``apply(params, grads, state)`` updates ``params`` and ``state`` in
+    place."""
 
     def __init__(self, schedule, b1, b2, eps, weight_decay, mu_dtype,
                  max_grad_norm):
@@ -96,7 +119,8 @@ class AdamW:
         self.mu_dtype = mu_dtype
         self.max_grad_norm = max_grad_norm
 
-    def init(self, params: list[torch.Tensor]) -> dict:
+    def init(self, params: list[torch.Tensor],
+             paths: list[str] | None = None) -> dict:
         return {
             "count": 0,
             "mu": [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
@@ -112,9 +136,8 @@ class AdamW:
                 and bool(grad_norm >= self.max_grad_norm))
         count = state["count"] + 1
         lr = self.schedule(state["count"])
-        # bias corrections in f32, as optax computes them
-        bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** count)
-        bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** count)
+        bc1 = bias_correction(self.b1, count)
+        bc2 = bias_correction(self.b2, count)
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
             # as in optax, b1 * mu is taken in mu's dtype (b1 rounded to
             # it too) before the f32 sum
@@ -144,14 +167,53 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def make_optimizer(cfg: OptimizerConfig):
-    """(optimizer, schedule) for the AdamW path; the other optimizers and
-    LoRA+ wait for ROADMAP A.14b."""
-    if cfg.optimizer != "adamw" or cfg.loraplus_lr_ratio:
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r}"
-            + (" with LoRA+" if cfg.loraplus_lr_ratio else "")
-            + " is not ported yet (ROADMAP A.14b); the port has AdamW")
+    """(optimizer, schedule), each optimizer chained as the JAX package
+    chains it: clipping by the global norm first; for galore, apollo,
+    badam and adam_mini the scaler, weight decay, then the learning rate;
+    LoRA+ whenever ``loraplus_lr_ratio`` > 0."""
+    from iadr1_tpu_torch.train import custom_optim as co
+
     schedule = make_schedule(cfg)
+    clip = cfg.max_grad_norm if cfg.max_grad_norm and (
+        cfg.max_grad_norm > 0) else None
+    adam = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps)
+    if cfg.loraplus_lr_ratio and cfg.loraplus_lr_ratio > 0:
+        return co.LoraPlus(schedule, lr_ratio=cfg.loraplus_lr_ratio,
+                           lr_embedding=cfg.loraplus_lr_embedding,
+                           weight_decay=cfg.weight_decay, max_grad_norm=clip,
+                           **adam), schedule
+    chained = dict(weight_decay=cfg.weight_decay, max_grad_norm=clip)
+    if cfg.optimizer == "galore":
+        return co.GaLore(schedule, rank=cfg.galore_rank,
+                         update_proj_gap=cfg.galore_update_interval,
+                         scale=cfg.galore_scale, **adam, **chained), schedule
+    if cfg.optimizer == "apollo":
+        return co.Apollo(schedule, rank=cfg.apollo_rank,
+                         update_proj_gap=cfg.apollo_update_interval,
+                         scale=cfg.apollo_scale,
+                         scale_type=cfg.apollo_scale_type, **adam,
+                         **chained), schedule
+    if cfg.optimizer == "badam":
+        return co.BAdam(schedule, num_layers=cfg.badam_num_layers or None,
+                        switch_interval=cfg.badam_switch_interval,
+                        switch_mode=cfg.badam_switch_mode, **adam,
+                        **chained), schedule
+    if cfg.optimizer == "adam_mini":
+        return co.AdamMini(schedule, head_dim=cfg.adam_mini_head_dim or None,
+                           **adam, **chained), schedule
+    if cfg.optimizer == "muon":
+        return co.Muon(schedule, weight_decay=cfg.weight_decay,
+                       adam_b1=cfg.b1, adam_b2=cfg.b2,
+                       max_grad_norm=clip), schedule
+    if cfg.optimizer == "adafactor":
+        return co.Adafactor(schedule, max_grad_norm=clip), schedule
+    if cfg.optimizer == "lion":
+        return co.Lion(schedule, weight_decay=cfg.weight_decay,
+                       max_grad_norm=clip), schedule
+    if cfg.optimizer == "sgd":
+        return co.SGD(schedule, max_grad_norm=clip), schedule
+    if cfg.optimizer != "adamw":
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     mu_dtype = getattr(torch, cfg.mu_dtype) if cfg.mu_dtype else None
     return AdamW(schedule, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay,
                  mu_dtype, cfg.max_grad_norm), schedule

@@ -7,8 +7,10 @@ Sequences freeze at EOS: the emitted token becomes pad and the cache
 segment mask stops growing.  The loop stops once every row is done (the
 JAX engine's default ``early_stop``; the tokens are the same either way).
 ``generate(..., lora=...)`` samples from a base plus factored adapters
-(LoRA SC-GRPO) without merging them.  Mixture sampling is not ported yet
-(ROADMAP A.14b).
+(LoRA SC-GRPO) without merging them.  ``generate_mixture`` samples from
+the geometric mixture of two models (Nash-MD's opponent): each keeps its
+own KV cache, and each step's logits are (1 - c) log_softmax(policy) +
+c log_softmax(mixture) before temperature, top-k and top-p.
 """
 
 from __future__ import annotations
@@ -120,9 +122,56 @@ class RolloutEngine:
         consecutively, and "num_decode_steps" (the decode steps run).
         ``lora``: an adapter tree applied factored on top of ``params``
         (with the engine's ``lora_scale``), prefill and decode alike."""
+        return self._generate(params, batch, generator, group_size, lora)
+
+    @torch.no_grad()
+    def generate_mixture(self, params, mixture_params, mixture_coef: float,
+                         batch: dict, generator=None) -> dict:
+        """Samples from the geometric mixture of ``params`` and
+        ``mixture_params`` with weight ``mixture_coef`` on the second
+        (TRL's GeometricMixtureWrapper): both prefill the batch, each into
+        its own KV cache, and decode the same tokens.  Returns what
+        ``generate`` returns."""
+        return self._generate(params, batch, generator, 1, None,
+                              (mixture_params, float(mixture_coef)))
+
+    def _positions(self, batch):
+        """(position_ids, deltas) of a left-padded prompt batch: the next
+        position of row b is P + deltas[b]."""
+        tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
+        if tcfg.mrope_section is not None:
+            return batch["position_ids"], batch["mrope_deltas"]
+        P = batch["input_ids"].shape[1]
+        position_ids = (batch["attention_mask"].cumsum(dim=1) - 1).clamp(
+            min=0)
+        return position_ids, position_ids[:, -1] + 1 - P
+
+    def _lora_kw(self, lora) -> dict:
+        return ({"lora": lora, "lora_scale": self.lora_scale}
+                if lora is not None else {})
+
+    @torch.no_grad()
+    def prefill(self, params, batch: dict, lora=None):
+        """(logits at the last prompt position [B, V], the KV cache): the
+        prompts (and their vision arrays) prefilled into a fresh cache."""
+        tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
+        cache = qwen2.init_cache(tcfg, batch["input_ids"].shape[0],
+                                 self.max_len, self.cache_dtype, self.device)
+        position_ids, _ = self._positions(batch)
+        hidden, cache = self.bundle.apply(
+            params, {**batch, "position_ids": position_ids,
+                     "segment_ids": batch["attention_mask"].to(torch.int32)},
+            cache=cache, cache_mode="prefill", **self._lora_kw(lora))
+        return (self.bundle.logits_fn(params, hidden[:, -1:, :])[:, 0],
+                cache)
+
+    def _generate(self, params, batch, generator, group_size, lora,
+                  mixture=None) -> dict:
         sampling, bundle = self.sampling, self.bundle
-        lora_kw = ({"lora": lora, "lora_scale": self.lora_scale}
-                   if lora is not None else {})
+        if mixture is not None and group_size > 1:
+            raise ValueError("mixture sampling does not support "
+                             "group_size > 1")
+        lora_kw = self._lora_kw(lora)
         tcfg = getattr(bundle.cfg, "text", bundle.cfg)
         input_ids = batch["input_ids"]
         attn_mask = batch["attention_mask"]
@@ -131,21 +180,12 @@ class RolloutEngine:
             raise ValueError(f"prompt {P} + {sampling.max_new_tokens} new "
                              f"tokens exceed max_len {self.max_len}")
         mrope = tcfg.mrope_section is not None
-        cache = qwen2.init_cache(tcfg, B, self.max_len, self.cache_dtype,
-                                 self.device)
-
-        segs = attn_mask.to(torch.int32)
-        if mrope:
-            position_ids = batch["position_ids"]
-            deltas = batch["mrope_deltas"]
-        else:
-            position_ids = (attn_mask.cumsum(dim=1) - 1).clamp(min=0)
-            deltas = position_ids[:, -1] + 1 - P
-        hidden, cache = bundle.apply(
-            params, {**batch, "position_ids": position_ids,
-                     "segment_ids": segs},
-            cache=cache, cache_mode="prefill", **lora_kw)
-        last_logits = bundle.logits_fn(params, hidden[:, -1:, :])[:, 0]
+        _, deltas = self._positions(batch)
+        last_logits, cache = self.prefill(params, batch, lora)
+        if mixture is not None:
+            mix_params, coef = mixture
+            mix_logits, mix_cache = self.prefill(mix_params, batch)
+            last_logits = mix_log_probs(last_logits, mix_logits, coef)
 
         if group_size > 1:
             G = group_size
@@ -175,12 +215,20 @@ class RolloutEngine:
             if mrope:
                 pos = pos[None].expand(3, B, 1)
             seg = (~done).to(torch.int32)[:, None]
+            step_batch = {"input_ids": token_in[:, None],
+                          "position_ids": pos, "segment_ids": seg}
             hidden, cache = bundle.apply(
-                params, {"input_ids": token_in[:, None], "position_ids": pos,
-                         "segment_ids": seg},
-                cache=cache, cache_mode="decode", **lora_kw)
-            next_token = sample_token(bundle.logits_fn(params, hidden)[:, 0],
-                                      sampling, generator)
+                params, step_batch, cache=cache, cache_mode="decode",
+                **lora_kw)
+            logits = bundle.logits_fn(params, hidden)[:, 0]
+            if mixture is not None:
+                mix_hidden, mix_cache = bundle.apply(
+                    mix_params, step_batch, cache=mix_cache,
+                    cache_mode="decode")
+                logits = mix_log_probs(
+                    logits, bundle.logits_fn(mix_params, mix_hidden)[:, 0],
+                    coef)
+            next_token = sample_token(logits, sampling, generator)
             tokens[t] = torch.where(done, pad, token)
             done = done | (token == eos)
             token = torch.where(done, pad, next_token)
@@ -200,3 +248,10 @@ class RolloutEngine:
             "prompt_mask": attn_mask.to(torch.int32),
             "num_decode_steps": steps,
         }
+
+
+def mix_log_probs(logits, mix_logits, coef: float) -> torch.Tensor:
+    """The geometric mixture's logits over [B, V]: (1 - coef) *
+    log_softmax(logits) + coef * log_softmax(mix_logits), in f32."""
+    return ((1.0 - coef) * torch.log_softmax(logits.float(), dim=-1)
+            + coef * torch.log_softmax(mix_logits.float(), dim=-1))

@@ -23,12 +23,20 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [] if tree is None else [tree]
 
 
-def named_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+def named_leaves(tree, prefix: str = "",
+                 sep: str = ".") -> list[tuple[str, torch.Tensor]]:
     """(dotted path, tensor) of every leaf, in ``tree_leaves`` order."""
     if isinstance(tree, dict):
         return [item for k, v in tree.items()
-                for item in named_leaves(v, f"{prefix}{k}.")]
-    return [] if tree is None else [(prefix[:-1], tree)]
+                for item in named_leaves(v, f"{prefix}{k}{sep}", sep)]
+    return [] if tree is None else [(prefix[:-len(sep)], tree)]
+
+
+def leaf_paths(tree) -> list[str]:
+    """Every leaf's path in the JAX package's form ("text/layers/attn/q/
+    kernel"), in ``tree_leaves`` order: what the optimizers that choose by
+    path read."""
+    return [name for name, _ in named_leaves(tree, sep="/")]
 
 
 def unflatten(named: dict) -> dict:
@@ -56,9 +64,12 @@ class TrainState(NamedTuple):
 
 def create_train_state(params: dict, optimizer) -> TrainState:
     """Marks every floating parameter as requiring grad and initialises
-    the optimizer's moments beside it."""
+    the optimizer's moments beside it; every optimizer's ``init(leaves,
+    paths)`` is given the leaves' paths (``leaf_paths``), which those that
+    choose by path read."""
     leaves = tree_leaves(params)
     for p in leaves:
         if p.is_floating_point():
             p.requires_grad_(True)
-    return TrainState(step=0, params=params, opt_state=optimizer.init(leaves))
+    opt_state = optimizer.init(leaves, leaf_paths(params))
+    return TrainState(step=0, params=params, opt_state=opt_state)

@@ -44,6 +44,7 @@ from iadr1_tpu_torch.train import adapters as tad
 from iadr1_tpu_torch.train import optimizers as topt
 from iadr1_tpu_torch.train.sft import make_chunked_sft_step
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TEXT = dict(
     vocab_size=128, hidden_size=64, intermediate_size=128,

@@ -12,6 +12,7 @@ import pytest
 
 from iadr1_tpu.vision import anyres as jax_anyres
 from iadr1_tpu_torch.vision import anyres
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 SIZES = [(448, 448), (336, 560), (100, 900), (2000, 300), (384, 384),
          (1500, 1600), (50, 60), (3000, 3000)]

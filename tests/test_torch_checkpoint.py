@@ -25,6 +25,7 @@ from iadr1_tpu_torch.models import registry
 from iadr1_tpu_torch.train.checkpoint import CheckpointManager
 from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from iadr1_tpu_torch.cli import train_grpo, train_sft
 from iadr1_tpu_torch.core import config
 from iadr1_tpu_torch.core.metrics import ThroughputMeter
 from iadr1_tpu_torch.train import loop, optimizers
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))

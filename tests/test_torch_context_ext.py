@@ -44,6 +44,7 @@ from iadr1_tpu_torch.models import qwen2 as tq
 from iadr1_tpu_torch.models import registry
 from iadr1_tpu_torch.models.params_io import params_from_jax
 from tests.helpers import build_iad_sft_dataset, tiny_qwen_tokenizer
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TEXT = dict(vocab_size=512, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

@@ -21,6 +21,7 @@ import torch
 
 from iadr1_tpu_torch.kernels import decode_attention as k4
 from iadr1_tpu_torch.kernels import flash_attention as k1
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 pytestmark = pytest.mark.cuda
 
@@ -1102,10 +1103,11 @@ PREF_HF = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                num_key_value_heads=1, tie_word_embeddings=True)
 
 
-def _pref_steps(card, make_step, batch, tree_of):
+def _pref_steps(card, make_step, batch, tree_of, ref_seed=0):
     """Step 1 of ``make_step(score_fn, optimizer)`` over the kernels and
     over the dense attention: (metrics, metrics), and the kernels'
-    launches during the first."""
+    launches during the first.  The reference (a teacher for GKD) is the
+    bf16 parameters of ``ref_seed``."""
     from iadr1_tpu_torch.models.registry import make_qwen2_bundle
     from iadr1_tpu_torch.train.grpo import bundle_score_fn
     from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
@@ -1118,7 +1120,8 @@ def _pref_steps(card, make_step, batch, tree_of):
         opt, _ = make_optimizer(OptimizerConfig(learning_rate=1e-4,
                                                 total_steps=4))
         state = create_train_state(tree_of(params), opt)
-        ref = bundle.init_params(seed=0, dtype=torch.bfloat16, device=card)
+        ref = bundle.init_params(seed=ref_seed, dtype=torch.bfloat16,
+                                 device=card)
         before = k1.KERNEL.launches
         _, m = make_step(bundle_score_fn(bundle), opt)(state, ref, batch)
         torch.cuda.synchronize()
@@ -1192,3 +1195,96 @@ def test_ppo_update_on_the_kernels_matches_the_plain_path(card):
     assert launches == PREF_HF["num_hidden_layers"]
     _check_pref_metrics(got, want, ("loss", "pg_loss", "vf_loss",
                                     "grad_norm"))
+
+
+def _ragged_rows(card, seed, n, P, N):
+    """n rows of P + N: a left-padded prompt and a completion that ends
+    early, the completion labeled."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    ids = torch.randint(3, 512, (n, P + N), generator=gen, device=card)
+    segs = torch.ones((n, P + N), dtype=torch.int32, device=card)
+    for i in range(n):
+        segs[i, :10 + 15 * i] = 0
+        segs[i, P + N - 9 * (i + 1):] = 0
+    labels = torch.where(segs.bool(), ids, -100)
+    labels[:, :P] = -100
+    return {"input_ids": ids, "labels": labels, "segment_ids": segs,
+            "position_ids": (segs.cumsum(1) - 1).clamp(min=0)}
+
+
+def test_xpo_step_on_the_kernels_matches_the_plain_path(card):
+    """XPO's update rows (the policy's 2 completions, then the
+    reference's), sigmoid loss, a bf16 reference: K1 once a layer for the
+    reference and once for the policy."""
+    from iadr1_tpu_torch.train.online_rl import XPOConfig, make_xpo_update_step
+
+    batch = _ragged_rows(card, 17, 4, 96, 64)
+    batch["chosen_mask"] = torch.tensor([True, False], device=card)
+    (got, launches), (want, dense) = _pref_steps(
+        card, lambda score, opt: make_xpo_update_step(
+            score, opt, XPOConfig(alpha=0.05)), batch, lambda p: p)
+    assert launches == 2 * PREF_HF["num_hidden_layers"] and dense == 0
+    _check_pref_metrics(got, want, ("loss", "loss/dpo", "loss/xpo",
+                                    "grad_norm"))
+
+
+def test_gkd_step_on_the_kernels_matches_the_plain_path(card):
+    """GKD's chunked JSD against a teacher of another seed: K1 once a
+    layer for the teacher and once for the student."""
+    from iadr1_tpu_torch.train.gkd import GKDConfig, make_gkd_step
+
+    batch = _ragged_rows(card, 18, 2, 96, 64)
+    (got, launches), (want, dense) = _pref_steps(
+        card, lambda score, opt: make_gkd_step(
+            score, score, opt, GKDConfig(logit_chunk_size=100)), batch,
+        lambda p: p, ref_seed=1)
+    assert launches == 2 * PREF_HF["num_hidden_layers"] and dense == 0
+    _check_pref_metrics(got, want, ("loss", "n_label_tokens", "grad_norm"))
+
+
+def test_mixture_decode_step_on_the_kernels_matches_the_plain_path(
+        card, monkeypatch):
+    """generate_mixture over the kernels (K1 for both prefills, K4 over
+    both caches each decode step) against the dense attention: the mixed
+    log-probabilities of the prefill and of the first decode step, both
+    paths fed the same tokens (the sampler replaced by fixed ones: in
+    bf16 a greedy choice between near-equal logits may differ)."""
+    from iadr1_tpu_torch.models.registry import make_qwen2_bundle
+    from iadr1_tpu_torch.train import rollout
+
+    gen = torch.Generator(device=card).manual_seed(19)
+    P = 48
+    ids = torch.randint(3, 512, (2, P), generator=gen, device=card)
+    mask = torch.ones((2, P), dtype=torch.int64, device=card)
+    mask[1, :17] = 0
+    batch = {"input_ids": ids, "attention_mask": mask}
+    seen = {}
+    mix = rollout.mix_log_probs
+
+    def record(*args):
+        out = mix(*args)
+        seen.setdefault(attention, []).append(out.float())
+        return out
+
+    monkeypatch.setattr(rollout, "mix_log_probs", record)
+    monkeypatch.setattr(rollout, "sample_token", lambda logits, *a: (
+        torch.tensor([5, 7], device=logits.device)))
+    L = PREF_HF["num_hidden_layers"]
+    for attention in ("flash", "xla"):
+        bundle = make_qwen2_bundle(PREF_HF, attention=attention)
+        policy = bundle.init_params(seed=0, dtype=torch.bfloat16, device=card)
+        ref = bundle.init_params(seed=1, dtype=torch.bfloat16, device=card)
+        engine = rollout.RolloutEngine(
+            bundle, rollout.SamplingConfig(max_new_tokens=2, temperature=0.0,
+                                           eos_token_id=1, pad_token_id=0),
+            max_len=P + 2, device=card)
+        before = (k1.KERNEL.launches, k4.KERNEL.launches)
+        out = engine.generate_mixture(policy, ref, 0.5, batch)
+        torch.cuda.synchronize()
+        if attention == "flash":
+            assert (k1.KERNEL.launches - before[0],
+                    k4.KERNEL.launches - before[1]) == (
+                2 * L, 2 * L * out["num_decode_steps"])
+    assert len(seen["flash"]) == len(seen["xla"]) == 3
+    for got, want in zip(seen["flash"][:2], seen["xla"][:2]):
+        assert (got - want).abs().max() < 5e-2

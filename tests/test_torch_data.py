@@ -25,6 +25,7 @@ from iadr1_tpu_torch.cli import train_sft
 from iadr1_tpu_torch.data import aligner, cache, registry, tokenize
 from iadr1_tpu_torch.data.template import get_template
 from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 QWEN2 = dict(architectures=["Qwen2ForCausalLM"], vocab_size=600,
              hidden_size=32, intermediate_size=64, num_hidden_layers=1,

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from iadr1_tpu.kernels.decode_attention import decode_attention as jax_decode
 from iadr1_tpu_torch.kernels.decode_attention import decode_attention
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _inputs(B, Hkv, G, S, D, seed):

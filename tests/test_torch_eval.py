@@ -34,6 +34,7 @@ from iadr1_tpu_torch.data.template import get_template
 from iadr1_tpu_torch.eval import harness, mcq, summary
 from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
 from iadr1_tpu_torch.models import registry
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 # ---------------------------------------------------------------------------
 # MCQ parsing and answer extraction

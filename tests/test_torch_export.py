@@ -31,6 +31,7 @@ from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
 from iadr1_tpu_torch.train.state import create_train_state
 from iadr1_tpu_torch.vision.mrope import get_mrope_positions
 from iadr1_tpu_torch.vision.preprocess import patchify_image
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-4
 TEXT = dict(vocab_size=128, hidden_size=64, intermediate_size=128,

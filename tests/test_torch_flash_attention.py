@@ -22,6 +22,7 @@ from iadr1_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 BLOCKS = BlockSizes(*([64] * 6))
 TOL = dict(atol=2e-5, rtol=2e-5)

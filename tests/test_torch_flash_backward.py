@@ -24,6 +24,7 @@ from iadr1_tpu_torch.kernels.flash_attention import (
     flash_attention_ref,
 )
 from test_torch_flash_attention import _segments
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 BLOCKS = BlockSizes(*([64] * 6))
 TOL = dict(atol=5e-5, rtol=5e-5)

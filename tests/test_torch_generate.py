@@ -27,6 +27,7 @@ from iadr1_tpu_torch.data.template import get_template
 from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
 from iadr1_tpu_torch.models.registry import bundle_from_pretrained
 from iadr1_tpu_torch.train.rollout import SamplingConfig, sample_token
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 GEN = dict(max_prompt_length=96, max_new_tokens=10, batch_size=2,
            patch_budget=128, min_pixels=56 * 56, max_pixels=28 * 28 * 64)

@@ -51,6 +51,7 @@ from iadr1_tpu_torch.train.rollout import (
     cast_dense_params,
 )
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TEXT = dict(vocab_size=600, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

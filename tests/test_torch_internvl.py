@@ -87,6 +87,7 @@ from test_torch_llava import (
     check_update,
     record_grpo_case,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TILE = 56                          # a tiny "448": 4 x 4 patches of 14 px
 FPT = 4                            # features a tile after the shuffle

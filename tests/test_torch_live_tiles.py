@@ -26,6 +26,7 @@ from iadr1_tpu_torch.kernels.flash_attention import (
     live_tiles,
 )
 from iadr1_tpu_torch.vision.preprocess import vision_segment_ids
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _expand(live, T, S, tile_q, tile_k):

@@ -93,6 +93,7 @@ from iadr1_tpu_torch.train.sft import (
 )
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
 from iadr1_tpu_torch.vision import anyres
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TOWER_ATOL, LOGITS_ATOL = 2e-5, 1e-4
 TILE = 56                    # a tiny "336": 4 x 4 patches of 14 px

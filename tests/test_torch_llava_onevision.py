@@ -73,6 +73,7 @@ from iadr1_tpu_torch.train.sft import (
     make_chunked_sft_step,
 )
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 2e-5
 TILE = 56                    # a tiny "384": 4 x 4 patches of 14 px

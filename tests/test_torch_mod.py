@@ -25,6 +25,7 @@ from iadr1_tpu_torch.models import mod as tmod
 from iadr1_tpu_torch.models import qwen2 as tq
 from iadr1_tpu_torch.models.attention import default_attention
 from iadr1_tpu_torch.models.params_io import params_from_jax
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 KW = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

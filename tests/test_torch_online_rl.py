@@ -43,6 +43,7 @@ from test_torch_preference import (
     assert_params_close,
     optimizers,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 EXAMPLES = [{"prompt_ids": [5, 6, 7, 8, 9, 10], "solution": "a"},
             {"prompt_ids": [11, 12, 13], "solution": "b"}]

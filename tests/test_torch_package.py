@@ -1,5 +1,5 @@
 """Package rules of the PyTorch port: it imports neither JAX, nor the JAX
-package, nor pandas; its entry points refuse to fall back to the CPU
+package, nor optax, nor pandas; its entry points refuse to fall back to the CPU
 silently, and its kernel wrappers take the twin only for CPU tensors."""
 
 import subprocess
@@ -9,11 +9,12 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 IMPORT_ALL_BLOCKED = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "iadr1_tpu", "pandas")
+    BLOCKED = ("jax", "jaxlib", "iadr1_tpu", "optax", "pandas")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -74,10 +75,12 @@ PALIGEMMA_PIXTRAL_MODULES = ["models.paligemma", "models.pixtral",
 # the preference stages
 PREF_MODULES = ["train.preference", "train.ppo", "train.online_rl",
                 "cli.train_pref", "data.tokenize", "train"]
+# GKD and the optimizers beyond AdamW
+A14B_MODULES = ["train.gkd", "train.custom_optim"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
-    """... nor pandas (the card's machine has none)."""
+    """... nor optax, nor pandas (the card's machine has neither)."""
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL_BLOCKED],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -86,7 +89,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     missing = [m for m in (GRPO_MODULES + FRONT_END_MODULES + CHAIN_MODULES
                            + FAMILY_MODULES + ADAPTER_MODULES
                            + INTERNVL_VIDEO_MODULES
-                           + PALIGEMMA_PIXTRAL_MODULES + PREF_MODULES)
+                           + PALIGEMMA_PIXTRAL_MODULES + PREF_MODULES
+                           + A14B_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 

@@ -86,6 +86,7 @@ from test_torch_llava import (
     check_update,
     record_grpo_case,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 SIZE, G2 = 42, 9                   # input px; patches (= features) a tile
 VISION = dict(hidden_size=144, intermediate_size=64, num_hidden_layers=2,

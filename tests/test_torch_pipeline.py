@@ -25,6 +25,7 @@ from helpers import (
     build_tiny_vlm_checkpoint,
 )
 from iadr1_tpu_torch.cli import pipeline
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _distinct_chars(completions, **kw):

@@ -84,6 +84,7 @@ from test_torch_llava import (
     port_update,
     record_grpo_case,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 PS, EDGE = 16, 64                  # patch size, the longest edge
 VISION = dict(model_type="pixtral", hidden_size=128, intermediate_size=64,

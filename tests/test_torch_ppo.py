@@ -33,6 +33,7 @@ from test_torch_preference import (
     assert_params_close,
     optimizers,
 )
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from iadr1_tpu_torch.train import optimizers as topt
 from iadr1_tpu_torch.train import preference as tpref
 from iadr1_tpu_torch.train.grpo import bundle_score_fn
 from iadr1_tpu_torch.train.state import create_train_state
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 QWEN2 = dict(vocab_size=600, hidden_size=64, intermediate_size=128,
              num_hidden_layers=2, num_attention_heads=4,

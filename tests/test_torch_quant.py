@@ -33,6 +33,7 @@ from iadr1_tpu_torch.models import quant as tq
 from iadr1_tpu_torch.models.params_io import params_from_jax
 from iadr1_tpu_torch.models.registry import make_qwen2_bundle
 from iadr1_tpu_torch.train import adapters as tad
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TINY = dict(
     vocab_size=600, hidden_size=64, intermediate_size=128,

@@ -25,6 +25,7 @@ from iadr1_tpu_torch.models.attention import (
     default_decode_attention,
 )
 from iadr1_tpu_torch.models.params_io import params_from_jax
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-4
 

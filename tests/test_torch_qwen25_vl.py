@@ -86,6 +86,7 @@ from iadr1_tpu_torch.train.sft import (
 )
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
 from iadr1_tpu_torch.vision.mrope import get_mrope_positions
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TOWER_ATOL, LOGITS_ATOL = 2e-5, 1e-4
 # (height, width) in pixels: merged grids 2 x 2 (one whole window), 4 x 3

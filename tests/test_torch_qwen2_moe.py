@@ -57,6 +57,7 @@ from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
 from iadr1_tpu_torch.train.sft import make_chunked_sft_step
 from iadr1_tpu_torch.train.state import create_train_state
 from tests.helpers import build_iad_sft_dataset, build_tiny_moe_checkpoint
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TINY = dict(
     vocab_size=128, hidden_size=64, intermediate_size=96,

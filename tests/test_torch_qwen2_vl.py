@@ -35,6 +35,7 @@ from iadr1_tpu_torch.models.params_io import (
 from iadr1_tpu_torch.models.registry import bundle_from_hf_config
 from iadr1_tpu_torch.vision.mrope import get_mrope_positions
 from iadr1_tpu_torch.vision.preprocess import patchify_image
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-4
 IMAGES = [(56, 84), (84, 112)]         # pixels: 24 and 48 patches

@@ -11,6 +11,7 @@ from iadr1_tpu.train import prompts as jprompts
 from iadr1_tpu_torch import rewards as tr
 from iadr1_tpu_torch.rewards import description as tdesc
 from iadr1_tpu_torch.train import prompts as tprompts
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def conv(s):

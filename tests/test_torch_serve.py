@@ -33,6 +33,7 @@ from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
 from iadr1_tpu_torch.models.registry import bundle_from_pretrained
 from iadr1_tpu_torch.serve.api import ChatServer, parse_openai_messages
 from iadr1_tpu_torch.serve.batcher import RequestBatcher
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 GEN = dict(max_prompt_length=64, max_new_tokens=6, batch_size=1,
            patch_budget=64, max_pixels=56 * 56 * 2)

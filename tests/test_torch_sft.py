@@ -48,6 +48,7 @@ from iadr1_tpu_torch.train.sft import (
 )
 from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
 from iadr1_tpu_torch.vision.preprocess import patchify_image
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TEXT = dict(vocab_size=512, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
@@ -330,8 +331,19 @@ def test_adamw_updates_a_leaf_a_slice_at_a_time(monkeypatch, mu_dtype):
 
 
 def test_other_optimizers_wait_for_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        topt.make_optimizer(topt.OptimizerConfig(optimizer="lion"))
+    """Their item (ROADMAP A.14b) is done: make_optimizer builds every
+    optimizer the JAX package builds, LoRA+ too, and raises ValueError
+    for an unknown name (tests/test_torch_custom_optim.py holds each to
+    JAX's updates)."""
+    for name in ("adamw", "adafactor", "lion", "sgd", "galore", "apollo",
+                 "badam", "adam_mini", "muon"):
+        opt, schedule = topt.make_optimizer(topt.OptimizerConfig(
+            optimizer=name))
+        assert callable(opt.apply) and callable(schedule)
+    opt, _ = topt.make_optimizer(topt.OptimizerConfig(loraplus_lr_ratio=16))
+    assert type(opt).__name__ == "LoraPlus"
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        topt.make_optimizer(topt.OptimizerConfig(optimizer="lamb"))
 
 
 def test_run_sft_loop_logs_falling_loss(tmp_path, vlm):

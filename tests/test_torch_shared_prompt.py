@@ -42,6 +42,7 @@ from iadr1_tpu_torch.train.grpo import (
 from iadr1_tpu_torch.train.sft import batch_to_device
 from iadr1_tpu_torch.train.state import tree_leaves
 from iadr1_tpu_torch.vision.mrope import get_mrope_positions
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TEXT = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
             num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,

@@ -7,9 +7,10 @@ compute and an f32 reference on both sides): every logged metric of both
 steps within rtol 1e-4 (the logs round to 6 decimals).  ``kto``'s target
 rows equal JAX's, and its KL rows are the mismatched pairs its docstring
 describes where JAX's are whole other rows (C.R23, pinned on both
-sides).  Every other ported stage runs to a finite log and a checkpoint;
-the stages and the mesh the port does not run raise naming their
-ROADMAP items.
+sides).  Every other stage runs to a finite log and a checkpoint; gkd's
+dataset branch (``gkd_lmbda`` 0) logs what the JAX launcher logs, with a
+teacher written from another seed; a mesh raises naming its ROADMAP
+item.
 """
 
 import functools
@@ -34,6 +35,7 @@ from iadr1_tpu_torch.models import registry
 from iadr1_tpu_torch.models.params_io import params_from_jax
 from iadr1_tpu_torch.train import preference as port_preference
 from iadr1_tpu_torch.train.checkpoint import CheckpointManager
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 # the JAX launcher takes the JAX tests' 8-device CPU mesh; the port one device
 JAX_MESH = {"dp": 1, "fsdp": 4, "tp": 2}
@@ -42,6 +44,24 @@ JAX_MESH = {"dp": 1, "fsdp": 4, "tp": 2}
 @pytest.fixture(scope="module")
 def checkpoint_dir(tmp_path_factory):
     return build_tiny_vlm_checkpoint(str(tmp_path_factory.mktemp("ckpt")))
+
+
+@pytest.fixture(scope="module")
+def teacher_dir(checkpoint_dir, tmp_path_factory):
+    """GKD's teacher: the tiny checkpoint's config (so its vocabulary)
+    with weights drawn from another seed, written by save_pretrained."""
+    from transformers import (
+        AutoTokenizer,
+        Qwen2VLConfig,
+        Qwen2VLForConditionalGeneration,
+    )
+
+    path = str(tmp_path_factory.mktemp("teacher"))
+    torch.manual_seed(1)
+    Qwen2VLForConditionalGeneration(Qwen2VLConfig.from_pretrained(
+        checkpoint_dir)).save_pretrained(path)
+    AutoTokenizer.from_pretrained(checkpoint_dir).save_pretrained(path)
+    return path
 
 
 @pytest.fixture
@@ -123,6 +143,19 @@ def _log(out_dir):
         return [json.loads(line) for line in f]
 
 
+def _compare_logs(port, want_log, stage, extra=("grad_norm",)):
+    assert len(port) == len(want_log) == 2
+    for got, want in zip(port, want_log):
+        # the port's steps log grad_norm besides
+        assert set(got) == set(want) | set(extra)
+        for key in want:
+            if key in ("elapsed_time", "remaining_time"):
+                continue
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                       atol=2e-6, err_msg=f"{stage} {key}")
+    assert port[1]["loss"] != port[0]["loss"]
+
+
 @pytest.mark.parametrize("stage", ["dpo", "rm", "bco"])
 def test_logged_metrics_match_the_jax_cli(stage, checkpoint_dir, f32_compute,
                                           monkeypatch, tmp_path):
@@ -138,17 +171,21 @@ def test_logged_metrics_match_the_jax_cli(stage, checkpoint_dir, f32_compute,
     logs = {side: run(_config(stage, checkpoint_dir, data, tmp_path / side),
                       tmp_path / f"{side}.json")
             for side, run in (("port", run_port), ("jax", run_jax))}
-    port, want_log = logs["port"], logs["jax"]
-    assert len(port) == len(want_log) == 2
-    for got, want in zip(port, want_log):
-        # the port's steps log grad_norm besides
-        assert set(got) == set(want) | {"grad_norm"}
-        for key in want:
-            if key in ("elapsed_time", "remaining_time"):
-                continue
-            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
-                                       atol=2e-6, err_msg=f"{stage} {key}")
-    assert port[1]["loss"] != port[0]["loss"]
+    _compare_logs(logs["port"], logs["jax"], stage)
+
+
+def test_gkd_dataset_branch_logs_what_the_jax_cli_logs(
+        checkpoint_dir, teacher_dir, f32_compute, tmp_path):
+    """gkd at lmbda 0 (every step takes the dataset completion) with the
+    teacher of another seed: both launchers' logs of both steps."""
+    data = _write(tmp_path, "data.json", feedback_rows())
+    over = {"pref": {"gkd_lmbda": 0.0, "max_completion_length": 16,
+                     "teacher_model_name_or_path": teacher_dir}}
+    logs = {side: run(_config("gkd", checkpoint_dir, data, tmp_path / side,
+                              **over), tmp_path / f"{side}.json")
+            for side, run in (("port", run_port), ("jax", run_jax))}
+    _compare_logs(logs["port"], logs["jax"], "gkd")
+    assert logs["port"][0]["on_policy"] == 0.0
 
 
 def _capture_batch(monkeypatch, module, side, seen):
@@ -248,10 +285,34 @@ def test_rm_checkpoint_holds_the_value_head(checkpoint_dir, tmp_path):
 
 
 @pytest.mark.parametrize("stage", ["xpo", "nash_md", "gkd"])
-def test_the_a14b_stages_raise(stage, tmp_path):
+def test_the_a14b_stages_raise(stage, checkpoint_dir, teacher_dir,
+                               tmp_path):
+    """The stages of ROADMAP A.14b run: xpo and nash_md on prompt rows,
+    gkd on conversations with a teacher (lmbda 1/2 under seed 0: a
+    dataset step, then an on-policy one), each to a finite log and a
+    checkpoint of the model's tree."""
+    rows = feedback_rows if stage == "gkd" else prompt_rows
+    data = _write(tmp_path, "data.json", rows())
+    pref = {"max_completion_length": 8}
+    if stage == "gkd":
+        pref.update(teacher_model_name_or_path=teacher_dir, gkd_lmbda=0.5)
+    cfg = _config(stage, checkpoint_dir, data, tmp_path / "run", pref=pref,
+                  train={"seed": 0})
+    log = run_port(cfg, tmp_path / "cfg.json")
+    assert [r["current_steps"] for r in log] == [1, 2]
+    for record in log:
+        assert all(np.isfinite(v) for v in record.values()), record
+    if stage == "gkd":
+        assert [r["on_policy"] for r in log] == [0.0, 1.0]
+    saved = CheckpointManager(str(tmp_path / "run" / "checkpoints"))
+    assert saved.latest_step() == 2
+    assert sorted(saved.restore_params(2)) == ["text", "vision"]
+
+
+def test_gkd_without_a_teacher_raises(tmp_path):
     path = tmp_path / "cfg.json"
-    path.write_text(json.dumps({"stage": stage}))
-    with pytest.raises(NotImplementedError, match=r"A\.14b"):
+    path.write_text(json.dumps({"stage": "gkd"}))
+    with pytest.raises(ValueError, match="teacher_model_name_or_path"):
         train_pref.main(["--config", str(path), "--device", "cpu"])
 
 

@@ -64,6 +64,7 @@ from iadr1_tpu_torch.models.registry import (
 )
 from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
 from iadr1_tpu_torch.vision import mrope, preprocess as vp
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 TILE = 56
 G = TILE // 14                         # 4 x 4 patches a frame
