@@ -143,7 +143,7 @@ result line:
    one image each; K1, K2 and K3 must run 32 + 36 times each a step, step
    1 must agree with a step through the plain versions, a control with dq
    zeroed must not, and the loss must fall;
-15. Qwen2.5-VL SC-GRPO (after 14): the same model, its decoder cut to 4
+15. Qwen2.5-VL SC-GRPO (after 14): the same model, its decoder cut to 8
    of 36 layers (phase 25 runs the same Qwen2.5-3B decoder at full
    depth), takes 2 steps of
    GRPOTrainer.step on configs/grpo_qwen2_5_vl_7b.yaml's settings (G=4,
@@ -157,7 +157,7 @@ result line:
    must fail that limit), and print each step-level control's margin to
    its limits.
 16. LLaVA-OneVision SC-GRPO (after 15): LLaVA-OneVision-0.5B at full
-   width (its decoder cut to 12 of 24 layers, the tower whole) takes 2
+   width and depth (24 decoder layers, the tower whole) takes 2
    steps of GRPOTrainer.step on the grpo section
    of configs/grpo_qwen2_5_vl_7b.yaml (the patch budget sized for tiles
    of 729) on a 448x448 and a 336x560 one-image prompt, 1-D positions,
@@ -334,6 +334,23 @@ result line:
    of its arithmetic changed (Adam's bias correction dropped, one
    Newton-Schulz step fewer, Adafactor unfactored, Lion unsigned, SGD
    unclipped), must fail.
+34. the SFT leftovers and the native packing plane: (a) the native plane
+   (csrc/dataplane.cpp, built by the host's c++ beside nvcc) packs 2 rows
+   of 4096 text examples, which keep the packed rows' invariants and equal
+   the Python twin's rows, and the knapsack of 100 k seeded lengths and
+   the packing of 1000 seeded examples are timed native against the twin
+   (host ms); then Qwen2-VL-2B's decoder as a Qwen2 text model at full
+   width and depth (phase 31's model, f32, drawn once; every step from a
+   clone of that state, on those rows): (b) a make_chunked_sft_step with
+   fused_ce=True against one with fused_ce=False (loss, grad norm, the
+   updates of the head and layer 0's q, k and v kernels), two controls
+   that change the fused CE's arithmetic (1 / n_tokens dropped; the label
+   mask dropped) must fail; (c) make_sft_step over the full
+   [2, 4096, 151936] f32 logits against the chunked step; (d)
+   IterativeSFTTrainer, two steps from texts (the chain tokenizer) and one
+   from input_ids with a masked prompt, its first step against
+   make_chunked_sft_step on the same padded batch.  K1-K3 once a layer a
+   step, counted; each step's ms and peak memory.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -359,7 +376,8 @@ rolled one with its wrapped segments) and at MoD's gathered rows; and at
 phase 32's: K1-K3 at DPO's 4 ragged rows of 1024 and at PPO's minibatch
 row of 1024 + 128, K4 over PPO's rollout cache and RLOO's fan-out; and at
 phase 33's: K1-K3 at XPO's 4 update rows of 1024 + 128 (left-padded
-prompts, completions ending early).
+prompts, completions ending early); and at phase 34's: K1-K3 over its 2
+packed rows of 4096 (12 heads over 2, D = 128).
 
 The kernels JSON line counts each kernel's launches by path (serve,
 eval, chat, train, grpo, chain, llava_serve, llava_sft, q25_serve,
@@ -369,8 +387,8 @@ q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
 internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
 paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
 pixtral_lora_sft, pixtral_lora_grpo, moe_serve, moe_sft, moe_grpo,
-longlora_sft, mod_train, pref, pref33, optimizers).  ``--phases
-3,29,30,31`` runs a subset
+longlora_sft, mod_train, pref, pref33, optimizers, sft_extras).
+``--phases 3,29,30,31`` runs a subset
 and prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
@@ -630,9 +648,9 @@ Q25_GRPO_STEPS = 2
 OV_GRPO_PATCH_BUDGET = 4 * 8 * 729
 OV_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
 OV_GRPO_STEPS = 2
-# phase 16's decoder cut to 12 of 24 layers (the smoke's time; its
-# completions stay 512, which its dlse control reads)
-OV_GRPO_LAYERS = 12
+# phase 16's decoder at its full 24 layers (cut to 12 for the smoke's time
+# before; its completions stay 512, which its dlse control reads)
+OV_GRPO_LAYERS = 24
 # LLaVA-NeXT-8B serving (phase 17): the llava_next_llama3 form, two 448 x
 # 448 images (5 tiles, 2928 features) and two 336 x 560 (3 tiles, 1560
 # features), P=4096, a patch budget of 16 tiles
@@ -721,9 +739,10 @@ INTERNVL_TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 INTERNVL_GRPO_IMAGE_HW = [(448, 448), (336, 560)]
 INTERNVL_GRPO_PATCH_BUDGET = 4 * 8 * 1024
 INTERNVL_GRPO_STEPS = 2
-# phase 15 runs Qwen2.5-VL-3B's decoder cut to 4 of its 36 layers (the
-# smoke's time): phase 25 runs the same Qwen2.5-3B decoder deeper
-Q25_GRPO_LAYERS = 4
+# phase 15 runs Qwen2.5-VL-3B's decoder cut to 8 of its 36 layers (the
+# smoke's time; at 4 its dlse-dropped control failed its limits by 1.36x
+# only): phase 25 runs the same Qwen2.5-3B decoder deeper
+Q25_GRPO_LAYERS = 8
 # phase 21's completions (the recipe's 512) and its decoder (8 of 28
 # layers; phase 20 runs the 7B at full depth), cut for the smoke's time
 LORA_GRPO_COMPLETION_LEN, LORA_GRPO_LAYERS = 128, 8
@@ -3896,8 +3915,8 @@ def grpo_case_q25(steps: int, label="q25 grpo", name="Qwen2.5-VL-3B",
 def grpo_case_ov(steps: int) -> types.SimpleNamespace:
     """Phase 16's setting: LLaVA-OneVision-0.5B on the grpo section of
     configs/grpo_qwen2_5_vl_7b.yaml (phase 15's), the patch budget sized
-    for OneVision's tiles of 729 (OV_GRPO_PATCH_BUDGET), the decoder cut
-    to OV_GRPO_LAYERS layers; the update batch must carry the anyres
+    for OneVision's tiles of 729 (OV_GRPO_PATCH_BUDGET), the decoder at
+    OV_GRPO_LAYERS layers; the update batch must carry the anyres
     arrays (C.R9)."""
     from iadr1_tpu_torch.models import llava_onevision
 
@@ -3913,7 +3932,7 @@ def grpo_case_ov(steps: int) -> types.SimpleNamespace:
 
     cut = dict(LLAVA_OV_05B, text_config=dict(
         LLAVA_OV_05B["text_config"], num_hidden_layers=OV_GRPO_LAYERS))
-    case = grpo_case_q25(steps, "ov grpo", f"LLaVA-OneVision-0.5B cut to "
+    case = grpo_case_q25(steps, "ov grpo", f"LLaVA-OneVision-0.5B at "
                          f"{OV_GRPO_LAYERS} decoder layers", cut)
     case.data = dataclasses.replace(case.data,
                                     patch_budget=OV_GRPO_PATCH_BUDGET)
@@ -6749,12 +6768,23 @@ def make_moe_requests(seed: int = 31):
 
 
 def make_text_sft_rows(n_rows: int, cutoff: int, seed: int):
-    """Synthetic chatml text SFT examples (a prompt of 60-200 seeded
-    tokens, masked, and a labeled answer of 600-1500 ending in
-    <|im_end|>), packed by pack_examples into ``n_rows`` rows of
+    """Synthetic chatml text SFT examples (``make_text_sft_examples``),
+    packed by pack_examples (the native plane) into ``n_rows`` rows of
     ``cutoff``; the examples that do not fit are dropped."""
     from iadr1_tpu_torch.data.packing import pack_examples
 
+    examples = make_text_sft_examples(n_rows, cutoff, seed)
+    rows = pack_examples(examples, cutoff, ENDOFTEXT)[:n_rows]
+    if len(rows) != n_rows or any(r["segment_ids"].max() < 2 for r in rows):
+        raise AssertionError(f"the examples did not pack into {n_rows} "
+                             "rows of several")
+    return rows
+
+
+def make_text_sft_examples(n_rows: int, cutoff: int, seed: int):
+    """Synthetic chatml text SFT examples, ``n_rows * cutoff`` tokens in
+    all: a prompt of 60-200 seeded tokens, masked, and a labeled answer of
+    600-1500 ending in <|im_end|>."""
     rng = np.random.default_rng(seed)
 
     def text(n):
@@ -6769,11 +6799,7 @@ def make_text_sft_rows(n_rows: int, cutoff: int, seed: int):
         examples.append({"input_ids": prompt + answer,
                          "labels": [-100] * len(prompt) + answer})
         total += len(prompt) + len(answer)
-    rows = pack_examples(examples, cutoff, ENDOFTEXT)[:n_rows]
-    if len(rows) != n_rows or any(r["segment_ids"].max() < 2 for r in rows):
-        raise AssertionError(f"the examples did not pack into {n_rows} "
-                             "rows of several")
-    return rows
+    return examples
 
 
 def make_moe_grpo_examples(seed: int = 33):
@@ -8556,6 +8582,386 @@ def phase_optimizers(rows, card) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the SFT leftovers and the native packing plane
+# ---------------------------------------------------------------------------
+
+# Qwen2-VL-2B's decoder as a Qwen2 text model at full width and depth
+# (phase 31's model: f32 parameters, bf16 compute), 2 rows of 4096 packed
+# text examples, every step from one state cloned.  The optimizer is SGD
+# at learning rate 1, clipped at global norm 1: an update linear in the
+# gradient (AdamW's first step is lr * sign(g) nearly, which reads the
+# gradients' signs only), large enough that new - old keeps its f32 digits
+SFT34_ROWS, SFT34_CUTOFF = 2, 4096
+SFT34_OPT = dict(optimizer="sgd", learning_rate=1.0, schedule="constant",
+                 warmup_steps=0, max_grad_norm=1.0)
+SFT34_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_sft34")
+# 34a: the knapsack timed over a seeded corpus of example lengths, and the
+# whole packing over a seeded corpus of token examples
+PACK_CORPUS, PACK_LENGTHS, PACK_TOKEN_EXAMPLES = 100_000, (16, 4096), 1000
+# 34b-d: relative differences of the loss, the grad norm and, the largest
+# over the watched leaves (the head, which is the tied embedding, and
+# layer 0's q, k and v kernels), of a leaf's update (new - old)
+# (about 3x the largest sound reading on the card: the fused step read 0,
+# 7.904e-04 and 1.167e-02, JAX's design rounding dlogits to bf16)
+SFT34_LIMITS = {"loss": 1e-4, "grad norm": 2.5e-3, "update": 3.5e-2}
+SFT34_WATCHED = ("head", "layer 0 q", "layer 0 k", "layer 0 v")
+# 34d: IterativeSFTTrainer's rows: texts of seeded words of the chain
+# tokenizer (one id a word), the first row cut at max_length
+ITER_MAX_LENGTH = 2048
+ITER_TEXT_WORDS = ((2300, 1500), (1900, 2048))
+ITER_PROMPT_LEN, ITER_ANSWER_LEN = 400, 1200
+
+
+def check_packed_rows(rows, cutoff, pad_id) -> None:
+    """The invariants of packed rows (tests/test_native_dataplane.py's):
+    padding carries the pad id and IGNORE_INDEX labels, segments run 1, 2,
+    ... from the row's start, each segment's positions count from 0."""
+    for r in rows:
+        segs, real = r["segment_ids"], r["segment_ids"] != 0
+        n = int(real.sum())
+        if (len(segs) != cutoff or real[n:].any()
+                or (r["labels"][~real] != -100).any()
+                or (r["input_ids"][~real] != pad_id).any()):
+            raise AssertionError("a packed row's padding is not padding")
+        for s in range(1, int(segs.max()) + 1):
+            span = np.nonzero(segs == s)[0]
+            if (len(span) == 0 or (np.diff(span) != 1).any()
+                    or (r["position_ids"][span]
+                        != np.arange(len(span))).any()):
+                raise AssertionError(f"segment {s} of a packed row is not "
+                                     "one run counted from 0")
+
+
+def _rows_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        all(np.array_equal(ra[k], rb[k]) for k in (
+            "input_ids", "labels", "segment_ids", "position_ids"))
+        for ra, rb in zip(a, b))
+
+
+def phase_packing(build_s: float) -> None:
+    """34a: the native plane (built beside nvcc, ``build_s`` seconds)
+    packs phase 34's rows, which keep the packed rows' invariants and
+    equal its Python twin's; the knapsack over PACK_CORPUS seeded lengths
+    and the whole packing of PACK_TOKEN_EXAMPLES seeded examples, native
+    against the twin, in host ms."""
+    from iadr1_tpu_torch.data import native
+    from iadr1_tpu_torch.data.packing import greedy_knapsack, pack_examples
+
+    examples = make_text_sft_examples(SFT34_ROWS, SFT34_CUTOFF, seed=37)
+    t0 = time.perf_counter()
+    rows = pack_examples(examples, SFT34_CUTOFF, ENDOFTEXT)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    twin = pack_examples(examples, SFT34_CUTOFF, ENDOFTEXT, use_native=False)
+    twin_ms = 1e3 * (time.perf_counter() - t0)
+    check_packed_rows(rows, SFT34_CUTOFF, ENDOFTEXT)
+    if not _rows_equal(rows, twin):
+        raise AssertionError("the native rows differ from the Python twin's")
+    lib = native.load()
+    rng = np.random.default_rng(38)
+    lengths = rng.integers(PACK_LENGTHS[0], PACK_LENGTHS[1] + 1,
+                           PACK_CORPUS).astype(np.int64)
+    indices = np.zeros(PACK_CORPUS, np.int64)
+    sizes = np.zeros(PACK_CORPUS, np.int64)
+    t0 = time.perf_counter()
+    n_bins = lib.greedy_knapsack(native.as_i64(lengths), PACK_CORPUS,
+                                 PACK_LENGTHS[1], native.as_i64(indices),
+                                 native.as_i64(sizes))
+    knap_native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    bins = greedy_knapsack(lengths.tolist(), PACK_LENGTHS[1])
+    knap_twin_ms = 1e3 * (time.perf_counter() - t0)
+    starts = np.concatenate([[0], np.cumsum(sizes[:n_bins])])
+    native_bins = [lengths[indices[a:b]].tolist()
+                   for a, b in zip(starts[:-1], starts[1:])]
+    if native_bins != bins:
+        raise AssertionError("the native knapsack's bins differ from the "
+                             "twin's")
+    corpus = [{"input_ids": ids, "labels": ids} for ids in (
+        rng.integers(0, ENDOFTEXT, int(n)).tolist() for n in rng.integers(
+            PACK_LENGTHS[0], PACK_LENGTHS[1] + 1, PACK_TOKEN_EXAMPLES))]
+    t0 = time.perf_counter()
+    packed = pack_examples(corpus, PACK_LENGTHS[1], ENDOFTEXT)
+    corpus_native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    packed_twin = pack_examples(corpus, PACK_LENGTHS[1], ENDOFTEXT,
+                                use_native=False)
+    corpus_twin_ms = 1e3 * (time.perf_counter() - t0)
+    if not _rows_equal(packed, packed_twin):
+        raise AssertionError("the corpus's native rows differ from the "
+                             "twin's")
+    log(f"sft34 packing: the native plane built in {build_s:.2f} s (c++ "
+        f"-O3, beside nvcc); phase 34's {len(examples)} examples into "
+        f"{len(rows)} rows of {SFT34_CUTOFF} (segments "
+        f"{[int(r['segment_ids'].max()) for r in rows]}), equal to the "
+        f"Python twin's, the invariants held; host ms (this machine's "
+        f"CPU, not the card): those rows native {native_ms:.2f}, twin "
+        f"{twin_ms:.2f}; the knapsack of {PACK_CORPUS} lengths in "
+        f"{PACK_LENGTHS[0]}-{PACK_LENGTHS[1]} into {n_bins} bins native "
+        f"{knap_native_ms:.1f}, twin {knap_twin_ms:.1f}; the packing of "
+        f"{PACK_TOKEN_EXAMPLES} such examples "
+        f"({sum(len(c['input_ids']) for c in corpus)} tokens) into "
+        f"{len(packed)} rows native {corpus_native_ms:.1f}, twin "
+        f"{corpus_twin_ms:.1f}")
+
+
+def phase_kernels_sft_extras(rows):
+    """Phase 3 at phase 34's shape: K1-K3 over its two packed rows of 4096
+    (12 heads over 2, D = 128, causal, one segment an example)."""
+    segs = torch.as_tensor(np.stack([r["segment_ids"] for r in rows]),
+                           device="cuda", dtype=torch.int32)
+    T = segs.shape[1]
+    shape = (len(rows), 12, 2, T, T, 128, True, segs, segs)
+    results = _labelled((*bwd_case(*shape, 179, timed=True),
+                         flash_case(*shape, 180, timed=True)),
+                        "sft34 packed rows")
+    bwd = [results[:3]]
+    fwd = [results[3], results[2]]
+    log_kernel_results(fwd, [], bwd)
+    return {"flash_fwd": fwd, "flash_bwd_dq": [results[0]],
+            "flash_bwd_dkv": [results[1]], "decode_attention": []}
+
+
+def _sft34_watched(params) -> dict:
+    attn = params["layers"]["attn"]
+    return {"head": params["embed"]["weight"],
+            **{f"layer 0 {n}": attn[n]["kernel"][0] for n in "qkv"}}
+
+
+def _sft34_diffs(got, ref, limits=SFT34_LIMITS) -> dict:
+    (m, upd), (m0, upd0) = got, ref
+    out = {"loss": abs(m["loss"] - m0["loss"]) / abs(m0["loss"]),
+           "grad norm": abs(m["grad_norm"] - m0["grad_norm"])
+           / m0["grad_norm"]}
+    if "update" in limits:
+        out["update"] = max(float((upd[n] - upd0[n]).norm()
+                                  / upd0[n].norm()) for n in upd0)
+    return out
+
+
+def phase_sft_extras(rows, build_s: float, card):
+    """Phase 34: the SFT leftovers on the card.  34a the native plane
+    (``phase_packing``); then Qwen2-VL-2B's decoder as a Qwen2 text model
+    (28 layers, f32 parameters drawn once, bf16 compute), each step from a
+    clone of that one state on the same batch of 2 packed rows of 4096:
+    34b make_chunked_sft_step with fused_ce=True against fused_ce=False
+    (loss, grad norm, the watched leaves' updates; the chunked step runs
+    again, warm, for its time and its reading against itself), with two
+    controls that change the fused CE's arithmetic (its 1 / n_tokens
+    dropped; its label mask dropped, the loss kept) that must fail; 34c
+    make_sft_step over
+    the [2, 4096, 151936] f32 logits against the chunked step; 34d
+    IterativeSFTTrainer, two steps from texts (the chain tokenizer) and one
+    from input_ids with a masked prompt, its first step against
+    make_chunked_sft_step on the same padded batch.  K1-K3 once a layer a
+    step, counted.  Returns the launch counts."""
+    import gc
+
+    from transformers import AutoTokenizer
+
+    from iadr1_tpu_torch.data.collator import text_batch
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train import IterativeSFTTrainer, make_sft_step
+    from iadr1_tpu_torch.train import sft
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    kernels = [k for k, _ in all_kernels()]
+    for k in kernels:
+        k.launches = 0
+    phase_packing(build_s)
+    hf = qwen2_vl_text_hf()
+    bundle = bundle_from_hf_config(hf)
+    L = bundle.cfg.num_hidden_layers
+    opt_cfg = OptimizerConfig(**SFT34_OPT)
+    batch = text_batch(rows)
+    base = bundle.init_params(seed=0, dtype=torch.float32, device=DEVICE)
+    n_params = sum(p.numel() for p in _leaves(base))
+    before = {n: t.detach().clone() for n, t in _sft34_watched(base).items()}
+    timings, n_steps = {}, [0]
+
+    def fresh():
+        opt, sched = make_optimizer(opt_cfg)
+        return create_train_state(_clone_tree(base), opt), opt, sched
+
+    def run(label, make_step, batch=batch):
+        """One step from a clone of the state: (metrics, the watched
+        leaves' updates); its ms and peak memory kept under ``label``."""
+        state, opt, sched = fresh()
+        step = make_step(opt, sched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        timings[label] = (1e3 * (time.perf_counter() - t0),
+                          torch.cuda.max_memory_allocated() / GIB)
+        n_steps[0] += 1
+        m = {k: float(v) for k, v in m.items()}
+        upd = {n: (t.detach() - before[n]) for n, t in
+               _sft34_watched(state.params).items()}
+        del state
+        return m, upd
+
+    def chunked(fused, **kw):
+        return lambda opt, sched: sft.make_chunked_sft_step(
+            bundle.hidden_fn, bundle.head_kernel_fn, opt, sched,
+            chunk_size=CE_CHUNK, fused_ce=fused, **kw)
+
+    # 34b: the fused CE against the chunked CE, then the controls; the
+    # chunked step runs again after the fused one, warm, for its time and
+    # for the reading of one step against itself
+    ref = run("chunked", chunked(False))
+    fused = run("fused", chunked(True))
+    again = _sft34_diffs(run("chunked, again", chunked(False)), ref)
+    diffs = _sft34_diffs(fused, ref)
+    fused_ce = sft._fused_ce
+
+    def unscaled(hidden, kernel, labels, chunk, dtype, want):
+        loss, correct, n, dh, dk = fused_ce(hidden, kernel, labels, chunk,
+                                            dtype, want)
+        scale = n.clamp(min=1)
+        return loss, correct, n, dh * scale, dk * scale
+
+    def unmasked(hidden, kernel, labels, chunk, dtype, want):
+        loss, correct, n, _, _ = fused_ce(hidden, kernel, labels, chunk,
+                                          dtype, False)
+        every = torch.where(labels == -100, 0, labels)
+        _, _, n_all, dh, dk = fused_ce(hidden, kernel, every, chunk, dtype,
+                                       want)
+        scale = n_all / n.clamp(min=1)       # back to 1 / n_tokens
+        return loss, correct, n, dh * scale, dk * scale
+
+    controls = {}
+    for name, fn in (("1 / n_tokens dropped", unscaled),
+                     ("label mask dropped", unmasked)):
+        sft._fused_ce = fn
+        try:
+            controls[name] = _sft34_diffs(run(f"control: {name}",
+                                              chunked(True)), ref)
+        finally:
+            sft._fused_ce = fused_ce
+    margins = "; ".join(
+        f"{name}: " + ", ".join(f"{k} {v / SFT34_LIMITS[k]:.3f}"
+                                for k, v in c.items())
+        for name, c in controls.items())
+    log(f"sft34 fused ce: fused vs chunked step: loss {fused[0]['loss']:.6f} "
+        f"vs {ref[0]['loss']:.6f}, grad norm {fused[0]['grad_norm']:.6f} vs "
+        f"{ref[0]['grad_norm']:.6f}; {_diff_text(diffs, SFT34_LIMITS)}; "
+        f"the chunked step again: {_diff_text(again, SFT34_LIMITS)}; the "
+        "controls' margins (reading / limit, above 1 fails): " + margins)
+    if not (_within(diffs, SFT34_LIMITS) and _within(again, SFT34_LIMITS)):
+        raise AssertionError("the fused CE's step differs from the chunked "
+                             "CE's")
+    for name, c in controls.items():
+        if _within(c, SFT34_LIMITS):
+            raise AssertionError(f"the limits do not catch the fused CE "
+                                 f"with its {name}")
+    del fused
+    # 34c: the unchunked step over the full logits
+    full = run("unchunked", lambda opt, sched: make_sft_step(
+        bundle.forward, opt, sched))
+    full_limits = {k: SFT34_LIMITS[k] for k in ("loss", "grad norm")}
+    full_diffs = _sft34_diffs(full, ref, full_limits)
+    log(f"sft34 make_sft_step: unchunked vs chunked step: loss "
+        f"{full[0]['loss']:.6f} vs {ref[0]['loss']:.6f}, grad norm "
+        f"{full[0]['grad_norm']:.6f} vs {ref[0]['grad_norm']:.6f}; "
+        f"{_diff_text(full_diffs, full_limits)} (the update, not held: "
+        f"{_sft34_diffs(full, ref)['update']:.3e})")
+    if not _within(full_diffs, full_limits):
+        raise AssertionError("make_sft_step differs from the chunked step")
+    del full, ref
+    # 34d: IterativeSFTTrainer
+    tok_dir = os.path.join(SFT34_DIR, "tokenizer")
+    write_chain_tokenizer(tok_dir, hf["vocab_size"])
+    tok = AutoTokenizer.from_pretrained(tok_dir)
+    rng = np.random.default_rng(39)
+
+    def words(n):
+        return " ".join(f"w{i}" for i in rng.integers(1, ENDOFTEXT, n))
+
+    texts = [[words(n) for n in lens] for lens in ITER_TEXT_WORDS]
+    prompt = rng.integers(1, ENDOFTEXT, ITER_PROMPT_LEN).tolist()
+    answer = rng.integers(1, ENDOFTEXT, ITER_ANSWER_LEN).tolist()
+    ids = [prompt + answer, answer]
+    labels = [[-100] * len(prompt) + answer, answer]
+    # trl's padded batch of the first texts, built here as the JAX trainer
+    # builds it
+    enc = [tok.encode(t, add_special_tokens=False)[:ITER_MAX_LENGTH]
+           for t in texts[0]]
+    T = max(len(x) for x in enc)
+    padded = {"input_ids": np.full((2, T), tok.pad_token_id, np.int32),
+              "labels": np.full((2, T), -100, np.int32),
+              "segment_ids": np.zeros((2, T), np.int32),
+              "position_ids": np.broadcast_to(np.arange(T, dtype=np.int32),
+                                              (2, T)).copy()}
+    for i, x in enumerate(enc):
+        padded["input_ids"][i, :len(x)] = x
+        padded["labels"][i, :len(x)] = x
+        padded["segment_ids"][i, :len(x)] = 1
+    direct = run("iterative: make_chunked_sft_step", chunked(False),
+                 batch=padded)
+    state, opt, sched = fresh()
+    trainer = IterativeSFTTrainer(bundle, tok, opt, sched, state=state,
+                                  max_length=ITER_MAX_LENGTH,
+                                  ce_chunk=CE_CHUNK)
+    del state
+    history = []
+    for i, kw in enumerate((dict(texts=texts[0]), dict(texts=texts[1]),
+                            dict(input_ids=ids, labels=labels))):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history.append(trainer.step(**kw))
+        torch.cuda.synchronize()
+        timings[f"iterative step {i + 1}"] = (
+            1e3 * (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / GIB)
+        n_steps[0] += 1
+    del trainer
+    iter_diffs = _sft34_diffs((history[0], None), (direct[0], None),
+                              full_limits)
+    log(f"sft34 iterative trainer: losses "
+        f"{[round(h['loss'], 4) for h in history]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in history]}, label tokens "
+        f"{[int(h['n_label_tokens']) for h in history]}; step 1 vs "
+        f"make_chunked_sft_step on the same padded batch: "
+        f"{_diff_text(iter_diffs, full_limits)}")
+    if not _within(iter_diffs, full_limits):
+        raise AssertionError("IterativeSFTTrainer's step differs from "
+                             "make_chunked_sft_step's")
+    want_labels = [int((padded["labels"][:, 1:] != -100).sum()), None,
+                   2 * ITER_ANSWER_LEN - 1]
+    if (history[0]["n_label_tokens"] != want_labels[0]
+            or history[2]["n_label_tokens"] != want_labels[2]
+            or not all(math.isfinite(h[k]) for h in history
+                       for k in ("loss", "grad_norm"))):
+        raise AssertionError(f"the trainer's steps: {history}")
+    del base, before, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k.name: k.launches for k in kernels}
+    steps = n_steps[0]
+    want = {"flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+            "flash_bwd_dkv": steps * L, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"sft34 launches {launches}, want {want}")
+    log(f"sft34: Qwen2-VL-2B's decoder as Qwen2, {n_params / 1e9:.3f}B f32 "
+        f"params, {steps} steps of {SFT34_ROWS}x{SFT34_CUTOFF} tokens (the "
+        f"trainer's of 2x{ITER_MAX_LENGTH}), each from a clone of one "
+        "state; step ms and peak GiB: " + ", ".join(
+            f"{k} {ms:.1f} ({gib:.2f})" for k, (ms, gib) in timings.items())
+        + f"; launches {launches} on {card}")
+    return launches
+
+
 def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
@@ -8574,7 +8980,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-33; "
+                    help="comma-separated phase numbers to run (3-34; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -8589,6 +8995,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from iadr1_tpu_torch.data import native
     from iadr1_tpu_torch.kernels import all_kernels
     from iadr1_tpu_torch.kernels._build import finish_build, start_build
 
@@ -8604,7 +9011,10 @@ def main() -> int:
     imports = importable(("tokenizers", "safetensors", "PIL", "pandas",
                           "yaml", "transformers"))
     kernels = all_kernels()
+    native_build = native.start_build()
     building = start_build([k.source for k, _ in kernels])
+    native.finish_build(native_build)
+    native_s = time.perf_counter() - t_build
     encoded = make_requests()
     train_rows = make_sft_rows()
     grpo_examples = make_grpo_examples()
@@ -8648,13 +9058,15 @@ def main() -> int:
                                        n_rows=LONGLORA_ROWS,
                                        per_row=LONGLORA_PER_ROW)
     mod_rows = make_text_sft_rows(MOD_ROWS, MOD_CUTOFF, seed=34)
+    sft34_rows = make_text_sft_rows(SFT34_ROWS, SFT34_CUTOFF, seed=37)
     data_s = time.perf_counter() - t_build
     finish_build(building)
     log(f"build: {len(kernels)} kernels from iadr1_tpu_torch/csrc for "
-        f"sm_90a in {time.perf_counter() - t_build:.1f} s, beside the "
-        f"requests and rows of every phase ({data_s:.1f} s)")
+        f"sm_90a in {time.perf_counter() - t_build:.1f} s, the native "
+        f"packing plane in {native_s:.2f} s, beside the requests and rows "
+        f"of every phase ({data_s:.1f} s)")
     log("imports: " + imports())
-    phases = (set(range(1, 34)) if args.phases is None
+    phases = (set(range(1, 35)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
@@ -8682,7 +9094,9 @@ def main() -> int:
                 ("moe and context", lambda: phase_kernels_moe_context(
                     moe_requests, moe_grpo, longlora_rows, mod_rows,
                     args.max_new_tokens)),
-                ("pref", phase_kernels_pref)):
+                ("pref", phase_kernels_pref),
+                ("sft extras", lambda: phase_kernels_sft_extras(
+                    sft34_rows))):
             t_group = time.perf_counter()
             for name, results in cases().items():
                 measured[name] += results
@@ -8783,6 +9197,8 @@ def main() -> int:
         (32, "pref", lambda: phase_pref(card)),
         (33, "pref33", lambda: phase_pref33(card)),
         (33, "optimizers", lambda: phase_optimizers(train_rows, card)),
+        (34, "sft_extras", lambda: phase_sft_extras(sft34_rows, native_s,
+                                                    card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
@@ -8791,7 +9207,7 @@ def main() -> int:
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
             read_profiles(wait=False)
     read_profiles(wait=True)
-    if not set(range(3, 34)) <= phases:
+    if not set(range(3, 35)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

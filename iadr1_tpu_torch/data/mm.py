@@ -55,8 +55,7 @@ def expand_image_tokens(messages: Sequence[dict], image_seqlens: Sequence[int],
     one in ``[IMG_END]``.  ``image_seqlens[i]`` is the feature count of the
     i-th image in reading order, for pixtral its (rows, cols) grid."""
     if mm_style not in MM_STYLES:
-        raise NotImplementedError(
-            f"mm style {mm_style!r} is not ported yet (ROADMAP A.13)")
+        raise ValueError(f"unknown mm style {mm_style!r}")
     return _expand(messages, image_seqlens, mm_style, image_token,
                    IMAGE_PLACEHOLDER, "images")
 

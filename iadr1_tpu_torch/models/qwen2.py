@@ -521,7 +521,11 @@ def head_kernel(params: dict, cfg: Qwen2Config) -> torch.Tensor:
 
 def logits(params: dict, cfg: Qwen2Config, hidden: torch.Tensor,
            precision: Precision = DEFAULT_PRECISION) -> torch.Tensor:
-    """LM head in ``precision.logits_dtype``: the inputs are upcast, so a
-    bf16 model's logits carry the full f32 sum, as in the JAX head."""
+    """LM head in ``precision.logits_dtype``: the kernel is cast to the
+    hidden dtype first (the JAX einsum's operand cast), then both inputs
+    are upcast, so a bf16 model's logits carry the full f32 sum of the
+    bf16 products, as in the JAX head and the chunked CE's
+    (``train/sft.py`` ``chunk_logits``)."""
     dt = precision.logits_dtype
-    return torch.matmul(hidden.to(dt), head_kernel(params, cfg).to(dt))
+    return torch.matmul(hidden.to(dt),
+                        head_kernel(params, cfg).to(hidden.dtype).to(dt))

@@ -91,6 +91,12 @@ class ModelBundle:
         tcfg = getattr(self.cfg, "text", self.cfg)
         return qwen2.head_kernel(params.get("text", params), tcfg)
 
+    # the unchunked training path (train/sft.py make_sft_step): the logits
+    # [B, T, V] of the batch
+    def forward(self, params, batch, remat=True, **kw):
+        return self.logits_fn(params, self.hidden_fn(params, batch,
+                                                      remat=remat, **kw))
+
 
 def _generator(seed: int, device) -> tuple[torch.Generator, torch.device]:
     device = resolve_device(device)
@@ -1215,8 +1221,8 @@ def make_paligemma_bundle(hf_config: dict, attention: str = "auto",
         Qwen2-VL family's and are not read."""
         from iadr1_tpu_torch.vision import anyres
 
-        arr = anyres.resize_normalize(
-            pil, (vcfg.image_size, vcfg.image_size), mean, std)
+        arr = anyres.normalize(anyres.to_array(
+            pil, (vcfg.image_size, vcfg.image_size)), mean, std)
         patches = anyres.patchify_tiles(arr[None], vcfg.patch_size)
         return patches, (1, 1, pil.height, pil.width), g * g
 
@@ -1335,7 +1341,7 @@ def make_pixtral_bundle(hf_config: dict, attention: str = "auto",
         from iadr1_tpu_torch.vision import anyres
 
         h, w = pixtral_resize_hw(pil.height, pil.width, vcfg.image_size, ps)
-        arr = anyres.resize_normalize(pil, (h, w), mean, std)
+        arr = anyres.normalize(anyres.to_array(pil, (h, w)), mean, std)
         patches = anyres.patchify_tiles(arr[None], ps)[0]
         return patches, (h // ps, w // ps), (h // ps, w // ps)
 

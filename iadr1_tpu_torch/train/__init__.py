@@ -2,14 +2,12 @@
 (DPO and its losses, KTO, BCO, RM, PRM, PPO, RLOO, online DPO, XPO,
 Nash-MD, GKD).
 
-The exports are those of the JAX package's ``iadr1_tpu.train`` that the
-port has; ``make_sft_step`` (the unchunked step) and
-``IterativeSFTTrainer`` wait for ROADMAP A.14c.
+The exports are those of the JAX package's ``iadr1_tpu.train``.
 """
 
 from iadr1_tpu_torch.train.state import TrainState, create_train_state
 from iadr1_tpu_torch.train.optimizers import make_optimizer, OptimizerConfig
-from iadr1_tpu_torch.train.sft import sft_loss
+from iadr1_tpu_torch.train.sft import sft_loss, make_sft_step
 from iadr1_tpu_torch.train.grpo import GRPOConfig, GRPOTrainer
 from iadr1_tpu_torch.train.online_rl import (
     NashMDConfig,
@@ -31,3 +29,4 @@ from iadr1_tpu_torch.train.preference import (
     make_prm_step,
     make_rm_step,
 )
+from iadr1_tpu_torch.train.sft import IterativeSFTTrainer

@@ -120,18 +120,25 @@ def clip_resize_center_crop(image, size: int = 336, mean=DEFAULT_MEAN,
     return arr.transpose(2, 0, 1)
 
 
-def resize_normalize(image, size_hw, mean, std) -> np.ndarray:
-    """A plain bicubic resize of the RGB image to ``size_hw`` (height,
-    width), rescaled to [0, 1] and normalised -> [3, h, w] f32 (the JAX
-    package's ``data/mm_plugins.py`` ``_to_array`` then ``_normalize``:
-    SigLIP's and Pixtral's processors)."""
+def to_array(image, size_hw=None, resample: str = "bicubic") -> np.ndarray:
+    """The RGB image, resized first to ``size_hw`` (height, width) when
+    given, as f32 [3, h, w] in [0, 1]."""
     from PIL import Image
 
-    image = image.convert("RGB").resize((size_hw[1], size_hw[0]),
-                                        resample=Image.Resampling.BICUBIC)
-    arr = np.asarray(image, np.float32) / 255.0
-    arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
-    return arr.transpose(2, 0, 1)
+    image = image.convert("RGB")
+    if size_hw is not None:
+        res = {"bicubic": Image.Resampling.BICUBIC,
+               "bilinear": Image.Resampling.BILINEAR}[resample]
+        image = image.resize((size_hw[1], size_hw[0]), resample=res)
+    return (np.asarray(image, np.float32) / 255.0).transpose(2, 0, 1)
+
+
+def normalize(arr: np.ndarray, mean=DEFAULT_MEAN, std=DEFAULT_STD
+              ) -> np.ndarray:
+    """(arr - mean) / std per channel of a [3, h, w] array."""
+    mean = np.asarray(mean, np.float32)[:, None, None]
+    std = np.asarray(std, np.float32)[:, None, None]
+    return (arr - mean) / std
 
 
 def patchify_tiles(tiles: np.ndarray, patch_size: int) -> np.ndarray:

@@ -285,7 +285,7 @@ def test_rm_checkpoint_holds_the_value_head(checkpoint_dir, tmp_path):
 
 
 @pytest.mark.parametrize("stage", ["xpo", "nash_md", "gkd"])
-def test_the_a14b_stages_raise(stage, checkpoint_dir, teacher_dir,
+def test_the_a14b_stages_run(stage, checkpoint_dir, teacher_dir,
                                tmp_path):
     """The stages of ROADMAP A.14b run: xpo and nash_md on prompt rows,
     gkd on conversations with a teacher (lmbda 1/2 under seed 0: a
