@@ -387,7 +387,7 @@ q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
 internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
 paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
 pixtral_lora_sft, pixtral_lora_grpo, moe_serve, moe_sft, moe_grpo,
-longlora_sft, mod_train, pref, pref33, optimizers, sft_extras).
+longlora_sft, mod_train, pref, pref33, optimizers, sft_extras, mesh).
 ``--phases 3,29,30,31`` runs a subset
 and prints no kernel line.
 
@@ -401,6 +401,7 @@ fails.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -985,10 +986,14 @@ def device_times(fns, iters: int = 10) -> dict:
         fn()
     torch.cuda.synchronize()
     calls = iters * len(fns)
-    # a window that recorded no device time is taken again, twice at most
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    # the window records the device's activity alone: the host operators'
+    # events, which nothing here reads, were most of key_averages' parse
+    # (ROADMAP B.3).  A window that recorded no device time is taken
+    # again, twice at most, the second time with the host's too
+    for attempt in range(3):
+        activities = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if attempt else [])
+        with profile(activities=activities) as prof:
             for _ in range(iters):
                 for fn in fns:
                     fn()
@@ -8968,6 +8973,617 @@ def _clone_tree(tree):
     return tree.detach().clone()
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_mesh")
+# (a) the kernels' sharding rule on the card, each mesh's shards run one
+# after another: K1 and K2 + K3 (dlse != 0) at phase 6's decoder heads
+# (12 over 2, D = 128) on 4 rows of 1024 in two packed segments that end
+# early, and K4 over 8 fanned-out rows of a 1600-slot cache; (2, 1, 1)
+# takes 3 rows, which dp does not divide
+MESH_RULE_MESHES = ((2, 2, 2), (1, 4, 2), (2, 1, 1))
+MESH_RULE_SHAPE = dict(H=12, Hkv=2, T=1024, D=128)
+MESH_RULE_ROWS = {(2, 1, 1): 3}
+MESH_RULE_B = 4
+MESH_DECODE = dict(B=8, H=12, Hkv=2, S=1600, D=128, length=1100)
+# (c) and (d): cli/train_sft.py and cli/train_grpo.py under a one-rank
+# NCCL group set up as torchrun sets it, against the same runs with no
+# group (one process, plain tensors); SC-GRPO's completions cut to 64
+MESH_SFT_STEPS, MESH_GRPO_N = 2, 64
+# the group's step metrics against the one-process run's: the same
+# arithmetic on the same rank (the DTensors' local shards are the whole
+# leaves, the global norm one all-reduce over one rank), bitwise in every
+# run so far
+MESH_METRIC_REL = 1e-6
+
+
+def rule_inputs(B, seed):
+    """q, k, v, segments, dO and dlse at MESH_RULE_SHAPE with B rows."""
+    s = MESH_RULE_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dev = dict(device=DEVICE, dtype=torch.bfloat16)
+    T = s["T"]
+    q = torch.randn((B, s["H"], T, s["D"]), generator=gen, **dev)
+    k = torch.randn((B, s["Hkv"], T, s["D"]), generator=gen, **dev)
+    v = torch.randn((B, s["Hkv"], T, s["D"]), generator=gen, **dev)
+    do = torch.randn((B, s["H"], T, s["D"]), generator=gen, **dev)
+    dlse = torch.randn((B, s["H"], T), generator=gen, device=DEVICE)
+    seg = torch.ones((B, T), dtype=torch.int32, device=DEVICE)
+    seg[:, T // 2:] = 2
+    for b in range(B):
+        seg[b, T - 37 * (b + 1):] = 0
+    return q, k, v, seg, do, dlse
+
+
+def flash_call(q, k, v, seg, do, dlse):
+    """K1, then K2 + K3 through the flash Function with both cotangents:
+    (out, lse, dq, dk, dv)."""
+    from iadr1_tpu_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (t.detach().contiguous().requires_grad_(True)
+               for t in (q, k, v))
+    out, lse = flash_attention(q, k, v, segment_ids=seg.contiguous(),
+                               kv_segment_ids=seg.contiguous(), causal=True)
+    dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v),
+                                     (do.contiguous(), dlse.contiguous()))
+    return out.detach(), lse.detach(), dq, dk, dv
+
+
+def sharded_flash(slices, q, k, v, seg, do, dlse):
+    """``flash_call`` shard by shard ((batch rows, heads, KV heads) each),
+    the results put back in place."""
+    out, dq = torch.empty_like(q), torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b, h, hk in slices:
+        res = flash_call(q[b, h], k[b, hk], v[b, hk], seg[b], do[b, h],
+                         dlse[b, h])
+        for dst, part, heads in zip((out, lse, dq, dk, dv), res,
+                                    (h, h, h, hk, hk)):
+            dst[b, heads] = part
+    return out, lse, dq, dk, dv
+
+
+def decode_inputs(seed):
+    s = MESH_DECODE
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dev = dict(device=DEVICE, dtype=torch.bfloat16)
+    q = torch.randn((s["B"], s["H"], s["D"]), generator=gen, **dev)
+    k = torch.randn((s["B"], s["Hkv"], s["S"], s["D"]), generator=gen, **dev)
+    v = torch.randn((s["B"], s["Hkv"], s["S"], s["D"]), generator=gen, **dev)
+    seg = torch.ones((s["B"], s["S"]), dtype=torch.int32, device=DEVICE)
+    for b in range(s["B"]):
+        seg[b, :13 * b] = 0                      # left padding
+    return q, k, v, seg
+
+
+def phase_mesh_rule() -> None:
+    """Phase 35a and 35b: K1-K4 under ``mesh_batch_heads`` for the
+    virtual meshes of MESH_RULE_MESHES, each mesh's shards (the unsharded
+    kernel on fewer rows or heads) run one after another on the card,
+    bitwise equal to the unsharded launch and within phase 3's limits of
+    the plain versions; the control, tp splitting the query heads but not
+    the KV heads, must break the bitwise check."""
+    from iadr1_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_ref,
+    )
+    from iadr1_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        mesh_batch_heads,
+        shard_slices,
+    )
+
+    names = ("out", "lse", "dq", "dk", "dv")
+    for shape in MESH_RULE_MESHES:
+        sizes = dict(zip(("dp", "fsdp", "tp"), shape))
+        B = MESH_RULE_ROWS.get(shape, MESH_RULE_B)
+        q, k, v, seg, do, dlse = rule_inputs(B, seed=41)
+        H, Hkv = q.shape[1], k.shape[1]
+        whole = flash_call(q, k, v, seg, do, dlse)
+        slices = shard_slices(sizes, B, H, Hkv)
+        shards = sharded_flash(slices, q, k, v, seg, do, dlse)
+        unequal = [n for n, a, b in zip(names, shards, whole)
+                   if not torch.equal(a, b)]
+        if unequal:
+            raise AssertionError(f"mesh rule {shape}: {unequal} of the "
+                                 "shards differ from the unsharded launch")
+        scale = q.shape[-1] ** -0.5
+        ref_out, ref_lse = plain(flash_attention_ref, q, k, v, seg, seg,
+                                 causal=True, scale=scale)
+        refs = plain(flash_attention_bwd_ref, q, k, v, seg, seg, ref_out,
+                     ref_lse, do, dlse, causal=True, scale=scale)
+        live = (seg != 0)[:, None, :, None]
+        errs = [check_close("rule out", whole[0], ref_out, **OUT_TOL),
+                max_err(torch.where(live[..., 0], whole[1], 0.0),
+                        torch.where(live[..., 0], ref_lse, 0.0))]
+        if errs[1] > LSE_ATOL:
+            raise AssertionError(f"mesh rule {shape}: lse {errs[1]:.3e}")
+        for name, got, ref in zip(names[2:], whole[2:], refs):
+            errs.append(check_close(
+                f"rule {name}", got, ref, atol=BWD_ATOL_FRAC * float(
+                    ref.float().abs().max()), rtol=BWD_RTOL))
+
+        dq_, dk_, dv_, dseg = decode_inputs(seed=42)
+        length = MESH_DECODE["length"]
+        dec = decode_attention(dq_, dk_, dv_, dseg, length)
+        dec_shards = torch.empty_like(dec)
+        dslices = shard_slices(sizes, *dq_.shape[:2], dk_.shape[1])
+        for b, h, hk in dslices:
+            dec_shards[b, h] = decode_attention(
+                dq_[b, h].contiguous(), dk_[b, hk].contiguous(),
+                dv_[b, hk].contiguous(), dseg[b].contiguous(), length)
+        if not torch.equal(dec_shards, dec):
+            raise AssertionError(f"mesh rule {shape}: K4's shards differ "
+                                 "from the unsharded launch")
+        errs.append(check_close("rule decode", dec, decode_attention_ref(
+            dq_, dk_, dv_, dseg, length, scale=dq_.shape[-1] ** -0.5),
+            **OUT_TOL))
+        rule = mesh_batch_heads(sizes, B, H, Hkv)
+        log(f"mesh rule {shape}: B={B} H={H} Hkv={Hkv} -> batch axes "
+            f"{rule[0]}, head axis {rule[1]}: {len(slices)} K1-K3 shards "
+            f"({[(b.stop - b.start, h.stop - h.start) for b, h, _ in slices]}"
+            f" rows x heads) and {len(dslices)} K4 shards, each bitwise "
+            f"equal to the unsharded launch; against the plain versions "
+            f"out {errs[0]:.3e}, lse {errs[1]:.3e}, dq {errs[2]:.3e}, dk "
+            f"{errs[3]:.3e}, dv {errs[4]:.3e}, K4 {errs[5]:.3e}")
+
+    # the control: tp = 2 on the query heads alone breaks the GQA group
+    B = MESH_RULE_B
+    q, k, v, seg, do, dlse = rule_inputs(B, seed=41)
+    H, Hkv = q.shape[1], k.shape[1]
+    whole = flash_call(q, k, v, seg, do, dlse)
+    broken = [(slice(0, B), slice(0, H // 2), slice(0, Hkv)),
+              (slice(0, B), slice(H // 2, H), slice(0, Hkv))]
+    shards = sharded_flash(broken, q, k, v, seg, do, dlse)
+    differ = [n for n, a, b in zip(names, shards, whole)
+              if not torch.equal(a, b)]
+    if not differ:
+        raise AssertionError("mesh rule control: splitting H but not Hkv "
+                             "passed the bitwise check")
+    log(f"mesh rule control (tp splitting the 12 query heads but not the "
+        f"2 KV heads): {differ} differ from the unsharded launch, as they "
+        f"must; out max err {max_err(shards[0], whole[0]):.3e}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class MeshTap:
+    """Patches for one CLI run of phase 35: the rows or examples handed
+    in (no dataset is tokenized), the canned tokenizer, each step's
+    metrics and the train state recorded, each rollout's tokens and time
+    recorded, and the checkpoint written or not."""
+
+    def __init__(self, rows=None, examples=None, save=True,
+                 keep_state=False):
+        from iadr1_tpu_torch.cli import train_grpo, train_sft
+        from iadr1_tpu_torch.train import grpo, sft, state
+        from iadr1_tpu_torch.train.checkpoint import CheckpointManager
+        from iadr1_tpu_torch.train.rollout import RolloutEngine
+        import transformers
+
+        self.metrics, self.states, self.rollouts = [], [], []
+        self.step_s, self._undo = [], []
+
+        def patch(obj, name, value):
+            self._undo.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, value)
+
+        patch(train_sft, "prepare_rows", lambda *a, **k: rows)
+        patch(train_sft, "load_tokenizer", lambda path: None)
+        patch(train_grpo, "encode_rl_examples", lambda *a, **k: examples)
+        patch(transformers.AutoTokenizer, "from_pretrained",
+              staticmethod(lambda *a, **k: CannedTokenizer()))
+        make_step, create, trainer_step, generate = (
+            sft.make_chunked_sft_step, state.create_train_state,
+            grpo.GRPOTrainer.step, RolloutEngine.generate)
+
+        def make_chunked_sft_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def recorded(st, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, batch)
+                self.metrics.append({k: float(v) for k, v in m.items()})
+                self.step_s.append(time.perf_counter() - t0)
+                return st, m
+            return recorded
+
+        def create_train_state(params, optimizer):
+            st = create(params, optimizer)
+            if keep_state:
+                self.states.append(st)
+            return st
+
+        def step(trainer, examples):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = trainer_step(trainer, examples)
+            self.metrics.append(dict(out))
+            self.step_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_generate(engine, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(engine, *a, **kw)
+            torch.cuda.synchronize()
+            self.rollouts.append((out["completion_ids"].cpu(),
+                                  time.perf_counter() - t0,
+                                  out["num_decode_steps"]))
+            return out
+
+        patch(sft, "make_chunked_sft_step", make_chunked_sft_step)
+        patch(state, "create_train_state", create_train_state)
+        patch(grpo.GRPOTrainer, "step", step)
+        patch(RolloutEngine, "generate", timed_generate)
+        if not save:
+            patch(CheckpointManager, "save",
+                  lambda self, step, state, metadata=None: False)
+
+    def close(self):
+        for obj, name, value in reversed(self._undo):
+            setattr(obj, name, value)
+
+
+def mesh_cli(module, cfg, name, **tap_kw) -> MeshTap:
+    """One call of a training CLI's ``main`` on ``cfg`` under a MeshTap."""
+    import gc
+    import importlib
+
+    path = os.path.join(MESH_DIR, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    main = importlib.import_module(f"iadr1_tpu_torch.cli.{module}").main
+    tap = MeshTap(**tap_kw)
+    try:
+        code = main(["--config", path, "--device", DEVICE])
+    finally:
+        tap.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if code != 0:
+        raise AssertionError(f"{module} exited with {code}")
+    return tap
+
+
+def mesh_sft_cfg(name) -> dict:
+    """cli/train_sft.py on Qwen2-VL-2B from model.hf_config and seed 0,
+    f32, phase 6's setting (its rows handed in by the tap)."""
+    return {"model": {"model_name_or_path": MESH_DIR,
+                      "hf_config": QWEN2_VL_2B, "seed": 0,
+                      "dtype": "float32", "remat": "true"},
+            "data": {"dataset": "phase 6 rows", "cutoff_len": CUTOFF_LEN,
+                     "patch_budget": PATCH_BUDGET, "ce_chunk": CE_CHUNK},
+            "optim": {"learning_rate": LEARNING_RATE, "schedule": "cosine",
+                      "warmup_ratio": 0.1, "total_steps": MESH_SFT_STEPS,
+                      "max_grad_norm": 1.0},
+            "train": {"output_dir": os.path.join(MESH_DIR, name),
+                      "max_steps": MESH_SFT_STEPS, "batch_size": TRAIN_ROWS,
+                      "logging_steps": 1, "save_steps": 0, "seed": 0}}
+
+
+def mesh_grpo_cfg(name) -> dict:
+    """cli/train_grpo.py's defaults on Qwen2-VL-2B from model.hf_config and
+    seed 0 (f32 policy, bf16 reference), phase 7's prompts handed in by
+    the tap, completions of MESH_GRPO_N, one step."""
+    data = os.path.join(MESH_DIR, "rl.json")
+    with open(data, "w") as f:
+        json.dump([{"image": "x.png", "problem": "p", "solution": s}
+                   for s in GRPO_SOLUTIONS[:GRPO_PROMPTS]], f)
+    return {"model": {"model_name_or_path": MESH_DIR,
+                      "hf_config": QWEN2_VL_2B, "seed": 0,
+                      "dtype": "float32"},
+            "data": {"dataset_name": data, "image_path": MESH_DIR,
+                     "patch_budget": GRPO_PATCH_BUDGET},
+            "grpo": {"max_completion_length": MESH_GRPO_N},
+            "optim": {"learning_rate": GRPO_LEARNING_RATE,
+                      "total_steps": 100},
+            "train": {"output_dir": os.path.join(MESH_DIR, name),
+                      "max_steps": 1, "batch_size": GRPO_PROMPTS,
+                      "logging_steps": 1, "save_steps": 0, "seed": 0}}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mesh_decode(examples, mesh) -> dict:
+    """Phase 35d's comparison of the rollout's two designs on a group:
+    Qwen2-VL-2B's bf16 policy from seed 0 decodes phase 7's prompts (G =
+    4, N = MESH_GRPO_N) as a plain copy (what SC-GRPO's rollout takes on
+    a mesh: the parameters gathered whole) and as DTensors over the tp
+    submesh of ``mesh`` (every op through DTensor's dispatch, the KV cache
+    whole on each rank), from the same generator.  Returns the tokens'
+    equality and each design's ms a decode step (prefill included)."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from iadr1_tpu_torch.cli.train_grpo import (
+        GRPODataSection,
+        make_vlm_prompt_collator,
+    )
+    from iadr1_tpu_torch.core.mesh import logical_to_mesh_axes, tp_submesh
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.grpo import sampling_generator
+    from iadr1_tpu_torch.train.rollout import RolloutEngine, SamplingConfig
+    from iadr1_tpu_torch.train.sft import batch_to_device
+
+    bundle = bundle_from_hf_config(QWEN2_VL_2B)
+    G, P = 4, 1024
+    collate = make_vlm_prompt_collator(
+        bundle, CannedTokenizer(), None,
+        GRPODataSection(patch_budget=GRPO_PATCH_BUDGET), P,
+        num_generations=G)
+    batch = batch_to_device(collate(examples, 1), DEVICE)
+    engine = RolloutEngine(
+        bundle, SamplingConfig(max_new_tokens=MESH_GRPO_N, eos_token_id=-1,
+                               pad_token_id=ENDOFTEXT),
+        max_len=P + MESH_GRPO_N, device=DEVICE)
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    tp = tp_submesh(mesh)
+
+    def place(t, logical):
+        axes = logical_to_mesh_axes(logical, mesh_axes=("tp",))
+        return distribute_tensor(t, tp, list(axes), src_data_rank=None)
+
+    def tree(node, logical):
+        if isinstance(node, dict):
+            return {k: tree(v, logical[k]) for k, v in node.items()}
+        return place(node, logical)
+
+    dparams = tree(params, bundle.logical_axes())
+    out = {}
+    for name, p, scope in (
+            ("plain", params, contextlib.nullcontext),
+            ("dtensor", dparams, implicit_replication),
+            ("plain again", params, contextlib.nullcontext)):
+        with scope():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.generate(p, batch, sampling_generator(0, 0, DEVICE),
+                                  group_size=G)
+            torch.cuda.synchronize()
+        steps = res["num_decode_steps"]
+        out[name] = (res["completion_ids"].cpu(),
+                     1e3 * (time.perf_counter() - t0) / max(steps, 1), steps)
+    del params, dparams
+    return out
+
+
+def phase_mesh(rows, grpo_examples, card) -> dict:
+    """Phase 35: (a, b) the kernels' sharding rule (``phase_mesh_rule``);
+    (c) PA-SFT through cli/train_sft.py's main under a one-rank NCCL group
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT as torchrun
+    sets them): Qwen2-VL-2B at full width and depth, f32, 2 steps on
+    phase 6's rows; the train state's leaves and moments are DTensors,
+    every attention call goes through K1-K3, the step metrics equal the
+    same CLI's run with no group, and the checkpoint reads back bitwise;
+    the kernel wrappers' DTensor path on the card (a one-rank mesh) equals
+    the plain-tensor call; (d) one SC-GRPO step through cli/train_grpo.py
+    on the same group (N = 64): the completions equal the one-process
+    run's token for token, decode ms a step beside it.  Returns the
+    launches of (c) and (d)'s group runs."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from iadr1_tpu_torch.core.mesh import (
+        MeshConfig,
+        build_mesh,
+        full,
+        set_kernel_mesh,
+    )
+    from iadr1_tpu_torch.kernels import all_kernels
+    from iadr1_tpu_torch.kernels import decode_attention as dec_mod
+    from iadr1_tpu_torch.kernels import flash_attention as fa_mod
+    from iadr1_tpu_torch.train.state import named_leaves
+
+    t0 = time.perf_counter()
+    phase_mesh_rule()
+    log(f"phase 35a-b (mesh rule): {time.perf_counter() - t0:.1f} s")
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    kernels = [k for k, _ in all_kernels()]
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    # the one-process runs first: no group, plain tensors, no checkpoint
+    t1 = time.perf_counter()
+    one_sft = mesh_cli("train_sft", mesh_sft_cfg("sft_one"), "sft_one",
+                       rows=rows, save=False)
+    one_grpo = mesh_cli("train_grpo", mesh_grpo_cfg("grpo_one"), "grpo_one",
+                        examples=grpo_examples, save=False)
+    one_s = time.perf_counter() - t1
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        for k in kernels:
+            k.launches = 0
+        t2 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        mesh_sft = mesh_cli("train_sft", mesh_sft_cfg("sft_mesh"),
+                            "sft_mesh", rows=rows, keep_state=True)
+        sft_s = time.perf_counter() - t2
+        sft_peak = torch.cuda.max_memory_allocated() / GIB
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        if not dist.is_initialized() or dist.get_backend() != backend:
+            raise AssertionError(f"the SFT CLI did not set up the {backend}"
+                                 " group")
+        sft_launches = counts()
+
+        # (c) the state: DTensor leaves and moments
+        state = mesh_sft.states[0]
+        named = named_leaves(state.params)
+        moments = state.opt_state["mu"] + state.opt_state["nu"]
+        if not all(isinstance(t, DTensor) for _, t in named) or not all(
+                isinstance(t, DTensor) for t in moments):
+            raise AssertionError("the group run's state holds plain tensors")
+        n_leaves = len(named)
+        L_dec = QWEN2_VL_2B["text_config"]["num_hidden_layers"]
+        L_tower = QWEN2_VL_2B["vision_config"]["depth"]
+        steps = MESH_SFT_STEPS
+        want = {"flash_fwd": steps * (L_dec + 2 * L_tower),
+                "flash_bwd_dq": steps * (L_dec + L_tower),
+                "flash_bwd_dkv": steps * (L_dec + L_tower),
+                "decode_attention": 0}
+        if sft_launches != want:
+            raise AssertionError(f"mesh sft launches {sft_launches}, want "
+                                 f"{want}")
+        worst = {}
+        for got, ref in zip(mesh_sft.metrics, one_sft.metrics, strict=True):
+            for key in ("loss", "grad_norm", "accuracy"):
+                worst[key] = max(worst.get(key, 0.0),
+                                 _rel(got[key], ref[key]))
+        if max(worst.values()) > MESH_METRIC_REL:
+            raise AssertionError(f"mesh sft metrics against one process: "
+                                 f"{worst}")
+        losses = [m["loss"] for m in mesh_sft.metrics]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"mesh sft: the loss did not fall {losses}")
+
+        # the checkpoint, read back against the state
+        from safetensors import safe_open
+
+        t4 = time.perf_counter()
+        path = os.path.join(MESH_DIR, "sft_mesh", "checkpoints",
+                            f"{steps}.safetensors")
+        size_gb = os.path.getsize(path) / 1e9
+        expect = {f"params.{n}": t for n, t in named}
+        for key in ("mu", "nu"):
+            expect.update({f"{key}.{n}": t for (n, _), t in zip(
+                named, state.opt_state[key])})
+        with safe_open(path, framework="pt", device=DEVICE) as f:
+            keys = set(f.keys())
+            if keys != set(expect) | {"step", "opt_count"}:
+                raise AssertionError("mesh sft checkpoint keys differ")
+            for key, t in expect.items():
+                if not torch.equal(f.get_tensor(key), full(t.detach())):
+                    raise AssertionError(f"mesh sft checkpoint {key} differs"
+                                         " from the state")
+        read_s = time.perf_counter() - t4
+        sft_ms = [round(1e3 * x, 1) for x in mesh_sft.step_s]
+        one_ms = [round(1e3 * x, 1) for x in one_sft.step_s]
+        del state, named, moments, expect, mesh_sft
+        shutil.rmtree(os.path.join(MESH_DIR, "sft_mesh"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t3 = time.perf_counter()
+        mesh_grpo = mesh_cli("train_grpo", mesh_grpo_cfg("grpo_mesh"),
+                             "grpo_mesh", examples=grpo_examples, save=False)
+        grpo_s = time.perf_counter() - t3
+        launches = counts()
+        grpo_launches = {k: launches[k] - sft_launches[k] for k in launches}
+
+        # the wrappers' DTensor path on the card: a one-rank mesh
+        mesh = build_mesh(MeshConfig(1, 1, 1))
+        rep = [Replicate()] * mesh.ndim
+        q, k, v, seg, do, dlse = rule_inputs(MESH_RULE_B, seed=43)
+        calls = (fa_mod.MESH_CALLS.calls, dec_mod.MESH_CALLS.calls)
+        dts = [DTensor.from_local(t, mesh, rep, run_check=False)
+               .requires_grad_(i < 3) for i, t in enumerate((q, k, v))]
+        dseg = DTensor.from_local(seg, mesh, rep, run_check=False)
+        out, lse = fa_mod.flash_attention(*dts, segment_ids=dseg,
+                                          kv_segment_ids=dseg, causal=True)
+        grads = torch.autograd.grad((out, lse), dts, (
+            DTensor.from_local(do, mesh, rep, run_check=False),
+            DTensor.from_local(dlse, mesh, rep, run_check=False)))
+        got = (out, lse, *grads)
+        ref = flash_call(q, k, v, seg, do, dlse)
+        dq_, dk_, dv_, dcs = decode_inputs(seed=44)
+        dd = dec_mod.decode_attention(*(
+            DTensor.from_local(t, mesh, rep, run_check=False)
+            for t in (dq_, dk_, dv_, dcs)), MESH_DECODE["length"])
+        if not all(torch.equal(a.to_local(), b) for a, b in zip(got, ref)) \
+                or not torch.equal(dd.to_local(), dec_mod.decode_attention(
+                    dq_, dk_, dv_, dcs, MESH_DECODE["length"])):
+            raise AssertionError("the wrappers' DTensor path differs from "
+                                 "the plain-tensor call")
+        wrapped = (fa_mod.MESH_CALLS.calls - calls[0],
+                   dec_mod.MESH_CALLS.calls - calls[1])
+        if wrapped != (1, 1):
+            raise AssertionError(f"the wrappers counted {wrapped} DTensor "
+                                 "calls, want (1, 1)")
+        t5 = time.perf_counter()
+        decode = mesh_decode(grpo_examples, mesh)
+        decode_s = time.perf_counter() - t5
+        tokens = [v[0] for v in decode.values()]
+        if not all(torch.equal(t, tokens[0]) for t in tokens):
+            raise AssertionError("mesh decode: the DTensor rollout's tokens "
+                                 "differ from the plain copy's")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+        set_kernel_mesh(None)
+
+    # (d) SC-GRPO: the group's completions are the one-process run's
+    (mesh_tokens, mesh_roll_s, mesh_steps), = mesh_grpo.rollouts
+    (one_tokens, one_roll_s, one_steps), = one_grpo.rollouts
+    if not torch.equal(mesh_tokens, one_tokens):
+        raise AssertionError("mesh grpo: the group's completions differ "
+                             "from the one-process run's")
+    gworst = {key: _rel(mesh_grpo.metrics[0][key], one_grpo.metrics[0][key])
+              for key in ("loss", "kl", "grad_norm", "reward")}
+    if max(gworst.values()) > MESH_METRIC_REL:
+        raise AssertionError(f"mesh grpo metrics against one process: "
+                             f"{gworst}")
+    if not all(grpo_launches.values()):
+        raise AssertionError(f"mesh grpo launches {grpo_launches}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+
+    log(f"mesh sft (35c): Qwen2-VL-2B f32 through cli/train_sft.py's main "
+        f"under a one-rank NCCL group, {steps} steps of phase 6's rows; "
+        f"{n_leaves} leaves and both moments DTensors; losses "
+        f"{[round(x, 6) for x in losses]}; against the run with no group, "
+        f"the largest relative difference of loss, grad norm and accuracy "
+        f"{max(worst.values()):.3e} (limit {MESH_METRIC_REL}); the "
+        f"checkpoint ({size_gb:.1f} GB) read back bitwise in {read_s:.1f} s; "
+        f"the group run {sft_s:.1f} s with its checkpoint, peak memory "
+        f"{sft_peak:.2f} GiB, steps {sft_ms} ms against the one-process "
+        f"run's {one_ms} (which ran first, on a cold host); the DTensor wrappers on a one-rank mesh "
+        f"bitwise equal to the plain-tensor calls (K1-K3, K4); launches "
+        f"{sft_launches} on {card}")
+    log(f"mesh decode (35d): Qwen2-VL-2B bf16, phase 7's prompts, G=4, "
+        f"{decode['plain'][2]} decode steps, the same tokens both ways: "
+        f"the plain copy {decode['plain'][1]:.3f} ms/step (again "
+        f"{decode['plain again'][1]:.3f}), DTensors over the one-rank tp "
+        f"submesh {decode['dtensor'][1]:.3f} ms/step (prefill included; "
+        f"{decode_s:.1f} s in all) on {card}")
+    log(f"mesh grpo (35d): one step through cli/train_grpo.py's main on "
+        f"the group (N={MESH_GRPO_N}, {mesh_tokens.shape[0]} rows): "
+        f"completions equal to the one-process run's, metrics within "
+        f"{max(gworst.values()):.3e}; the rollout on the gathered bf16 copy "
+        f"{1e3 * mesh_roll_s:.1f} ms for {mesh_steps} decode steps "
+        f"({1e3 * mesh_roll_s / max(mesh_steps, 1):.3f} ms/step, prefill "
+        f"included), the one-process run's {1e3 * one_roll_s:.1f} ms for "
+        f"{one_steps} ({1e3 * one_roll_s / max(one_steps, 1):.3f} ms/step); "
+        f"the group's step {1e3 * mesh_grpo.step_s[0]:.1f} ms, the "
+        f"one-process run's {1e3 * one_grpo.step_s[0]:.1f} ms; the group "
+        f"run {grpo_s:.1f} s, the one-process runs {one_s:.1f} s; launches "
+        f"{grpo_launches} on {card}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-new-tokens", type=int, default=128,
@@ -8980,7 +9596,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-34; "
+                    help="comma-separated phase numbers to run (3-35; "
                          "4, 5, 8 and 9 run together), for a partial run "
                          "that prints no kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
@@ -9066,7 +9682,7 @@ def main() -> int:
         f"packing plane in {native_s:.2f} s, beside the requests and rows "
         f"of every phase ({data_s:.1f} s)")
     log("imports: " + imports())
-    phases = (set(range(1, 35)) if args.phases is None
+    phases = (set(range(1, 36)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     by_path, measured = {}, None
     t0 = time.perf_counter()
@@ -9199,6 +9815,7 @@ def main() -> int:
         (33, "optimizers", lambda: phase_optimizers(train_rows, card)),
         (34, "sft_extras", lambda: phase_sft_extras(sft34_rows, native_s,
                                                     card)),
+        (35, "mesh", lambda: phase_mesh(train_rows, grpo_examples, card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
@@ -9207,7 +9824,7 @@ def main() -> int:
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
             read_profiles(wait=False)
     read_profiles(wait=True)
-    if not set(range(3, 35)) <= phases:
+    if not set(range(3, 36)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

@@ -293,7 +293,16 @@ def main(argv=None):
 
     from iadr1_tpu_torch.core.config import load_config
     from iadr1_tpu_torch.core.device import resolve_device
+    from iadr1_tpu_torch.core.distributed import (
+        maybe_initialize_distributed,
+        topology,
+    )
 
+    maybe_initialize_distributed(args.device)
+    if topology().process_count > 1:
+        raise NotImplementedError(
+            "the one-call chain on more than one process is not ported "
+            "(ROADMAP A.11b): its eval stage would run on every rank")
     cfg = load_config(PipelineConfig, args.config, args.overrides)
     resolve_device(args.device)
     run_pipeline(cfg, device=args.device)

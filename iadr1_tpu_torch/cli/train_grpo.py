@@ -10,10 +10,12 @@ Usage:
     python -m iadr1_tpu_torch.cli.train_grpo --config grpo.yaml \
         grpo.num_generations=4 train.max_steps=100 [--device cpu]
 
-``require_ported`` names the ROADMAP item each option the port cannot run
-yet waits for: a mesh of more than one device (A.11).  A LoRA run
-checkpoints its adapters and their moments only; the base is the KL
-reference (reference elision: one copy of the base weights).
+A LoRA run checkpoints its adapters and their moments only; the base is
+the KL reference (reference elision: one copy of the base weights).  On a
+mesh (``torchrun --nproc_per_node N -m iadr1_tpu_torch.cli.train_grpo``
+with a ``mesh:`` section) the policy and the reference are sharded over dp
+and fsdp and each rank rolls out its share of every step's prompts; tp >
+1, LoRA and a quantized base raise naming ROADMAP A.11b.
 """
 
 from __future__ import annotations
@@ -25,7 +27,12 @@ import os
 
 import numpy as np
 
-from iadr1_tpu_torch.cli.train_sft import add_device_argument, mesh_devices
+from iadr1_tpu_torch.cli.train_sft import (
+    add_device_argument,
+    mesh_devices,
+    mesh_refusals,
+    shard_for_mesh,
+)
 from iadr1_tpu_torch.data.collator import NO_FRAME_STACKS
 from iadr1_tpu_torch.vision.mrope import bundle_mrope_positions
 
@@ -100,11 +107,19 @@ class GRPOJobConfig:
 
 
 def require_ported(job: GRPOJobConfig) -> None:
-    """Raise for an option the port cannot run yet, naming its item."""
-    if mesh_devices(job.mesh) > 1:
+    """Raise for what the port cannot carry onto the job's mesh, naming
+    ROADMAP A.11b: tp > 1 (a tensor-parallel rollout), and LoRA or a
+    quantized base on a mesh of more than one device."""
+    if int((job.mesh or {}).get("tp", 1)) > 1:
         raise NotImplementedError(
-            f"a mesh of more than one device ({job.mesh}) is not ported yet "
-            "(ROADMAP A.11)")
+            f"SC-GRPO on tp > 1 ({job.mesh}) is not ported: the rollout "
+            "decodes on a gathered copy (ROADMAP A.11b)")
+    if mesh_devices(job.mesh) > 1 and (
+            job.finetuning.finetuning_type == "lora"
+            or job.model.quant != "none"):
+        raise NotImplementedError(
+            f"LoRA and quantized bases on a mesh ({job.mesh}) are not "
+            "ported (ROADMAP A.11b)")
 
 
 def prepare_base(params, job: GRPOJobConfig):
@@ -282,6 +297,8 @@ def main(argv=None):
 
     from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
     from iadr1_tpu_torch.core.device import resolve_device
+    from iadr1_tpu_torch.core.distributed import maybe_initialize_distributed
+    from iadr1_tpu_torch.core.mesh import build_mesh, mesh_config
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.models.params_io import load_safetensors_path
     from iadr1_tpu_torch.models.registry import (
@@ -300,9 +317,12 @@ def main(argv=None):
         unflatten,
     )
 
+    # a multi-process launch: wire the ranks together before any device use
+    maybe_initialize_distributed(args.device)
     cfg = load_config(GRPOJobConfig, args.config, args.overrides)
     require_ported(cfg)
     device = resolve_device(args.device)
+    mesh = build_mesh(mesh_config(cfg.mesh))
     loop_cfg = dataclass_from_dict(LoopConfig, cfg.train)
     opt_cfg = dataclass_from_dict(OptimizerConfig, cfg.optim)
     grpo_cfg = GRPOConfig(
@@ -350,6 +370,9 @@ def main(argv=None):
         if bundle.multimodal else None)
     params = prepare_base(params, cfg)
     tuning_cfg = tuning_config(cfg)
+    mesh_refusals(bundle, mesh, lora=tuning_cfg is not None,
+                  quant=cfg.model.quant != "none")
+    params = shard_for_mesh(bundle, params, mesh)
     common = dict(sampling_overrides=sampling_overrides, schedule=schedule,
                   template=template, prompt_collator=collator, device=device,
                   seed=loop_cfg.seed)

@@ -25,8 +25,11 @@ Two departures from the JAX launcher, both where its code departs from
 its own documentation: a ranking pair shares one cut of its prompt
 (``encode_pairwise_example``, ROADMAP C.R22), and KTO's KL rows pair the
 prompt of row i with the completion of row i - 1 of the sampled batch
-(C.R23).  ``require_ported`` names what the port cannot run yet: a mesh
-of more than one device (ROADMAP A.11).
+(C.R23).  On a mesh (``torchrun --nproc_per_node N -m
+iadr1_tpu_torch.cli.train_pref`` with a ``mesh:`` section) DPO runs with
+the policy and the reference sharded and each rank scoring its share of
+every step's pairs; ``require_ported`` refuses every other stage on a
+mesh, naming ROADMAP A.11b.
 """
 
 from __future__ import annotations
@@ -38,7 +41,12 @@ import os
 
 import numpy as np
 
-from iadr1_tpu_torch.cli.train_sft import add_device_argument, mesh_devices
+from iadr1_tpu_torch.cli.train_sft import (
+    add_device_argument,
+    mesh_devices,
+    mesh_refusals,
+    shard_for_mesh,
+)
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX, infer_seqlen
 
 STAGES = ("dpo", "kto", "rm", "ppo", "rloo", "online_dpo", "xpo",
@@ -97,9 +105,18 @@ def require_ported(job: PrefJobConfig) -> None:
     if job.stage not in STAGES:
         raise ValueError(f"unknown stage {job.stage!r}; one of {STAGES}")
     if mesh_devices(job.mesh) > 1:
+        require_mesh_stage(job.stage)
+
+
+# the stages that run on a mesh
+MESH_STAGES = ("dpo",)
+
+
+def require_mesh_stage(stage: str) -> None:
+    if stage not in MESH_STAGES:
         raise NotImplementedError(
-            f"a mesh of more than one device ({job.mesh}) is not ported yet "
-            "(ROADMAP A.11)")
+            f"stage {stage!r} on a mesh is not ported (ROADMAP A.11b); "
+            f"on a mesh: {MESH_STAGES}")
 
 
 def _content(x) -> str:
@@ -283,6 +300,11 @@ def main(argv=None):
 
     from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
     from iadr1_tpu_torch.core.device import resolve_device
+    from iadr1_tpu_torch.core.distributed import (
+        host_batch_slice,
+        maybe_initialize_distributed,
+    )
+    from iadr1_tpu_torch.core.mesh import build_mesh, mesh_config
     from iadr1_tpu_torch.data.template import get_template
     from iadr1_tpu_torch.models.params_io import load_safetensors_path
     from iadr1_tpu_torch.models.registry import (
@@ -299,11 +321,16 @@ def main(argv=None):
         unflatten,
     )
 
+    # a multi-process launch: wire the ranks together before any device use
+    maybe_initialize_distributed(args.device)
     cfg = load_config(PrefJobConfig, args.config, args.overrides)
     require_ported(cfg)
     if cfg.stage == "gkd" and not cfg.pref.teacher_model_name_or_path:
         raise ValueError("stage=gkd needs pref.teacher_model_name_or_path")
     device = resolve_device(args.device)
+    mesh = build_mesh(mesh_config(cfg.mesh))
+    if mesh is not None:
+        require_mesh_stage(cfg.stage)
     loop_cfg = dataclass_from_dict(LoopConfig, cfg.train)
     opt_cfg = dataclass_from_dict(OptimizerConfig, cfg.optim)
     if not opt_cfg.total_steps:
@@ -334,6 +361,8 @@ def main(argv=None):
         raw = raw[: cfg.data.max_samples]
     T = cfg.data.cutoff_len
     optimizer, schedule = make_optimizer(opt_cfg)
+    mesh_refusals(bundle, mesh, attention=attention)
+    params = shard_for_mesh(bundle, params, mesh)
 
     def reference():
         # a frozen copy in ref_dtype, never the policy's own tensors (the
@@ -502,6 +531,8 @@ def main(argv=None):
                                float(metrics["reward_var"]),
                                float(metrics["reward_count"]))
             else:
+                if mesh is not None:    # this rank's share of the pairs
+                    idx = idx[host_batch_slice(len(idx), mesh)]
                 state, metrics = step(state, ref_params, collate(idx))
             if step_idx % max(loop_cfg.logging_steps, 1) == 0:
                 logger.log(step_idx, {k: float(v) for k, v in metrics.items()})

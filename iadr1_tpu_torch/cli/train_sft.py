@@ -7,8 +7,13 @@ Usage:
         train.max_steps=20 optim.learning_rate=1e-4 [--device cpu]
 
 ``require_ported`` names the ROADMAP item each option the port cannot run
-yet waits for: a mesh of more than one device (A.11), ``do_predict``
-(A.15).  Context extension runs as in JAX: ``model.rope_scaling`` with
+yet waits for: ``do_predict`` (A.15).  On a mesh (``torchrun
+--nproc_per_node N -m iadr1_tpu_torch.cli.train_sft --config ...`` with a
+``mesh:`` section, ``core/mesh.py``) the parameters and moments are
+sharded by the family's logical axes, each rank collates its dp x fsdp
+share of every step's rows, and rank 0 logs and writes; what a mesh
+cannot carry yet raises naming A.11b (``mesh_refusals``).  Context
+extension runs as in JAX: ``model.rope_scaling`` with
 ``model.model_max_length`` rewrites the config (into its ``text_config``
 where it has one, ROADMAP C.R18), ``model.shift_attn`` trains with
 LongLoRA's shift-short attention over ``model.attention``.  A Qwen2-MoE
@@ -100,13 +105,60 @@ def mesh_devices(mesh: dict) -> int:
 
 def require_ported(job: SFTJobConfig) -> None:
     """Raise for an option the port cannot run yet, naming its item."""
-    if mesh_devices(dataclasses.asdict(job.mesh)) > 1:
-        raise NotImplementedError(
-            f"a mesh of more than one device ({job.mesh}) is not ported yet "
-            "(ROADMAP A.11)")
     if job.predict.do_predict:
         raise NotImplementedError(
             "do_predict is not ported yet (ROADMAP A.15)")
+
+
+# the families whose forward runs on DTensors under tp > 1, each held to
+# the one-process run (tests/test_torch_distributed.py)
+TP_FAMILIES = ("qwen2", "qwen2_vl")
+
+
+def mesh_refusals(bundle, mesh, lora: bool = False, quant: bool = False,
+                  attention: str = "auto") -> None:
+    """Raise, naming ROADMAP A.11b, for what the port cannot carry onto
+    ``mesh`` (None: no mesh, nothing to refuse): the MoE's expert axis on
+    tp > 1, tp > 1 for the families and attentions not held under it,
+    and LoRA or a quantized base on any mesh.  Nothing runs replicated in
+    their place."""
+    if mesh is None:
+        return
+    from iadr1_tpu_torch.core.mesh import mesh_shape
+
+    tp = mesh_shape(mesh)["tp"]
+    if bundle.family == "qwen2_moe" and tp > 1:
+        raise NotImplementedError(
+            "the MoE's expert axis on tp > 1 is not ported (ROADMAP "
+            "A.11b): its dropless dispatch needs an all-to-all design")
+    if tp > 1 and (bundle.family not in TP_FAMILIES
+                   or attention.startswith("longlora")):
+        raise NotImplementedError(
+            f"tp > 1 for {bundle.family} with {attention!r} attention is "
+            f"not ported (ROADMAP A.11b); tp runs {TP_FAMILIES}")
+    if lora or quant:
+        raise NotImplementedError(
+            "LoRA and quantized bases on a mesh are not ported (ROADMAP "
+            "A.11b)")
+
+
+def shard_for_mesh(bundle, params, mesh):
+    """The parameters as DTensors placed by the family's logical axes on
+    ``mesh``; as they are without one."""
+    if mesh is None:
+        return params
+    from iadr1_tpu_torch.core.mesh import shard_pytree
+
+    return shard_pytree(params, bundle.logical_axes(), mesh)
+
+
+def rank_collate(collate, mesh):
+    """``collate`` over this rank's dp x fsdp share of a step's rows."""
+    if mesh is None:
+        return collate
+    from iadr1_tpu_torch.core.distributed import host_batch_slice
+
+    return lambda rows: collate(rows[host_batch_slice(len(rows), mesh)])
 
 
 def context_extension(model: ModelSection, hf_config: dict):
@@ -260,6 +312,8 @@ def main(argv=None):
 
     from iadr1_tpu_torch.core.config import dataclass_from_dict, load_config
     from iadr1_tpu_torch.core.device import resolve_device
+    from iadr1_tpu_torch.core.distributed import maybe_initialize_distributed
+    from iadr1_tpu_torch.core.mesh import build_mesh, mesh_config
     from iadr1_tpu_torch.core.metrics import (
         H100_PEAK_BF16_FLOPS,
         ThroughputMeter,
@@ -280,9 +334,12 @@ def main(argv=None):
     from iadr1_tpu_torch.train.sft import make_chunked_sft_step
     from iadr1_tpu_torch.train.state import create_train_state
 
+    # a multi-process launch: wire the ranks together before any device use
+    maybe_initialize_distributed(args.device)
     cfg = load_config(SFTJobConfig, args.config, args.overrides)
     require_ported(cfg)
     device = resolve_device(args.device)
+    mesh = build_mesh(mesh_config(cfg.mesh))
     loop_cfg = dataclass_from_dict(LoopConfig, cfg.train)
     opt_cfg = dataclass_from_dict(OptimizerConfig, cfg.optim)
 
@@ -320,6 +377,8 @@ def main(argv=None):
             print(f"tokenized dataset saved to {cfg.data.tokenized_path}")
     print(f"packed {len(rows)} rows of length {cfg.data.cutoff_len}")
 
+    mesh_refusals(bundle, mesh, attention=attention)
+    params = shard_for_mesh(bundle, params, mesh)
     if not opt_cfg.total_steps:
         opt_cfg = dataclasses.replace(opt_cfg, total_steps=loop_cfg.max_steps)
     optimizer, schedule = make_optimizer(opt_cfg)
@@ -371,7 +430,7 @@ def main(argv=None):
         # the tower is skipped and M-RoPE broadcasts the 1-D positions
         collate = text_batch
     batches = batch_iterator(rows, loop_cfg.batch_size, loop_cfg.seed,
-                             collate, skip=start_step)
+                             rank_collate(collate, mesh), skip=start_step)
 
     tcfg = getattr(bundle.cfg, "text", bundle.cfg)
     meter = ThroughputMeter(

@@ -4,7 +4,10 @@ Counterpart of iadr1_tpu/kernels/decode_attention.py ``decode_attention``.
 For CUDA tensors ``decode_attention`` launches the hand-written kernel
 ``csrc/decode_attention.cu`` (split-K over 64-slot chunks of the cache,
 then a merge pass; no slot at or past ``length`` is read); for CPU
-tensors it runs the plain PyTorch twin ``decode_attention_ref``.
+tensors it runs the plain PyTorch twin ``decode_attention_ref``.  For
+DTensors it applies the flash kernels' sharding rule (the JAX wrapper's
+shard_map): batch over dp and fsdp, KV heads over tp, ``length``
+replicated, and the kernel on each rank's local shard.
 
 A cache slot is valid when its index < ``length`` and its segment id != 0
 (``length`` is one host integer for the batch: prompts are left-padded and
@@ -18,6 +21,12 @@ import ctypes
 import torch
 
 from iadr1_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
+from iadr1_tpu_torch.kernels.flash_attention import (
+    MeshCalls,
+    as_mesh_local,
+    from_mesh_local,
+    rule_placements,
+)
 
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
@@ -81,6 +90,20 @@ def _check_cuda(q, k, v, seg, length):
         raise ValueError(f"length {length} outside [0, {S}]")
 
 
+MESH_CALLS = MeshCalls()
+
+
+def _decode_on_mesh(q, k, v, kv_segment_ids, length, scale):
+    mesh = q.device_mesh
+    heads, segs = rule_placements(mesh, q.shape[0], q.shape[1], k.shape[1])
+    ql, kl, vl = (as_mesh_local(t, mesh, heads) for t in (q, k, v))
+    seg = as_mesh_local(kv_segment_ids, mesh, segs)
+    MESH_CALLS.record(ql, kl, vl)
+    out = decode_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                           seg, length, scale=scale)
+    return from_mesh_local(out, mesh, heads, q.shape)
+
+
 def decode_attention(q, k, v, kv_segment_ids, length: int, *,
                      scale: float | None = None):
     """q [B,H,D] one query per sequence; k/v [B,Hkv,S,D]; kv_segment_ids
@@ -90,6 +113,10 @@ def decode_attention(q, k, v, kv_segment_ids, length: int, *,
     length = int(length)
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _decode_on_mesh(q, k, v, kv_segment_ids, length, scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_segment_ids, length,
                                     scale=scale)

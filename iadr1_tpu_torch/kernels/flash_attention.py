@@ -6,7 +6,10 @@ Counterpart of iadr1_tpu/kernels/flash_attention.py
 tensors ``flash_attention`` launches the hand-written kernels
 ``csrc/flash_fwd.cu`` (forward) and ``csrc/flash_bwd.cu`` (backward); for
 CPU tensors it runs the plain PyTorch versions ``flash_attention_ref`` and
-``flash_attention_bwd_ref``, which compute the same functions.  Unlike the
+``flash_attention_bwd_ref``, which compute the same functions.  For
+DTensors (a mesh) it applies the sharding rule (``mesh_batch_heads``, the
+JAX ``_mesh_batch_heads`` and ``_flash_mesh``) and runs the Function on
+each rank's local shard.  Unlike the
 JAX VJP, the backward takes the cotangent of ``lse`` too, so a caller that
 differentiates through lse (GRPO's ``_merge_attention``) gets the right
 gradients.
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from iadr1_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
@@ -347,6 +351,125 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+# ---------------------------------------------------------------------------
+# the sharding rule (the JAX kernels' shard_map wrapping)
+# ---------------------------------------------------------------------------
+#
+# Attention is pointwise in (batch row, KV-head group), so a shard's call
+# is the unsharded kernel on a smaller B or H, with no collectives.  Batch
+# takes dp and fsdp greedily; heads take tp only when both H and Hkv divide
+# (the GQA group must stay whole on a shard).  An axis that does not divide
+# stays replicated.  The autograd Function sits inside the rule: it sees
+# local tensors only, and its backward (the dlse path included) runs on
+# the same shards.
+
+
+class MeshCalls:
+    """Calls of a kernel wrapper on DTensors, with the local shapes its
+    kernel (or plain version) was given: each distinct (q, k, v) triple,
+    in the order first seen."""
+
+    def __init__(self):
+        self.calls = 0
+        self.local_shapes: list[list[tuple]] = []
+
+    def record(self, *tensors) -> None:
+        self.calls += 1
+        shapes = [tuple(t.shape) for t in tensors]
+        if shapes not in self.local_shapes:
+            self.local_shapes.append(shapes)
+
+
+MESH_CALLS = MeshCalls()
+
+
+def mesh_batch_heads(mesh, B: int, H: int, Hkv: int):
+    """(batch_axes, head_axis): the mesh axes that divide this call's dims
+    (``mesh`` a DeviceMesh or {axis: size}).  Batch takes dp and fsdp
+    greedily; heads take tp when BOTH H and Hkv divide."""
+    from iadr1_tpu_torch.core.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
+    batch, prod = [], 1
+    for a in ("dp", "fsdp"):
+        n = shape.get(a, 1)
+        if n > 1 and B % (prod * n) == 0:
+            batch.append(a)
+            prod *= n
+    tp = shape.get("tp", 1)
+    head = "tp" if (tp > 1 and H % tp == 0 and Hkv % tp == 0) else None
+    return (tuple(batch) or None), head
+
+
+def rule_placements(mesh, B: int, H: int, Hkv: int, head_dim: int = 1):
+    """(the placements of q/k/v, those of the [B, ...] segment ids) on
+    ``mesh`` by ``mesh_batch_heads``: Shard(0) on its batch axes,
+    Shard(``head_dim``) on its head axis, Replicate elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    batch, head = mesh_batch_heads(mesh, B, H, Hkv)
+    batch = batch or ()
+    heads = [Shard(0) if a in batch else Shard(head_dim) if a == head
+             else Replicate() for a in mesh.mesh_dim_names]
+    segs = [Shard(0) if a in batch else Replicate()
+            for a in mesh.mesh_dim_names]
+    return heads, segs
+
+
+def shard_slices(mesh, B: int, H: int, Hkv: int):
+    """[(batch rows, query heads, KV heads)] slices of every distinct
+    shard the rule makes on ``mesh`` ({axis: size} will do), in mesh
+    order: what each device's kernel call covers."""
+    from iadr1_tpu_torch.core.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
+    batch, head = mesh_batch_heads(shape, B, H, Hkv)
+    nb = int(np.prod([shape[a] for a in batch or ()]))
+    nh = shape["tp"] if head else 1
+    return [(slice(i * B // nb, (i + 1) * B // nb),
+             slice(j * H // nh, (j + 1) * H // nh),
+             slice(j * Hkv // nh, (j + 1) * Hkv // nh))
+            for i in range(nb) for j in range(nh)]
+
+
+def as_mesh_local(t, mesh, placements):
+    """A DTensor (or a plain tensor, read as replicated on ``mesh``)
+    redistributed to ``placements``, as its local shard; differentiable."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, placements).to_local()
+
+
+def from_mesh_local(t, mesh, placements, shape):
+    """A rank's local result -> the DTensor of global ``shape`` (contiguous)
+    placed by ``placements``; differentiable."""
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _flash_on_mesh(q, k, v, segment_ids, kv_segment_ids, causal, scale):
+    mesh = q.device_mesh
+    B, H = q.shape[0], q.shape[1]
+    heads, segs = rule_placements(mesh, B, H, k.shape[1])
+    ql, kl, vl = (as_mesh_local(t, mesh, heads) for t in (q, k, v))
+    q_seg, kv_seg = _default_segments(ql, kl, *(
+        None if s is None else as_mesh_local(s, mesh, segs)
+        for s in (segment_ids, kv_segment_ids)))
+    MESH_CALLS.record(ql, kl, vl)
+    out, lse = flash_attention(ql.contiguous(), kl.contiguous(),
+                               vl.contiguous(), segment_ids=q_seg,
+                               kv_segment_ids=kv_seg, causal=causal,
+                               scale=scale)
+    return (from_mesh_local(out, mesh, heads, q.shape),
+            from_mesh_local(lse, mesh, heads, q.shape[:3]))
+
+
 def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
                     causal: bool = True, scale: float | None = None):
     """q [B,H,T,D], k/v [B,Hkv,S,D] -> (out [B,H,T,D], lse [B,H,T] f32),
@@ -355,9 +478,16 @@ def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
     ``segment_ids`` [B,T] / ``kv_segment_ids`` [B,S] (0 = padding) default
     to all ones; ``kv_segment_ids`` defaults to ``segment_ids`` when S == T.
     CUDA tensors launch the kernels (bf16, D in 64/72/80/128) or raise; CPU
-    tensors take the plain versions."""
+    tensors take the plain versions.  DTensors go through the sharding
+    rule: each rank runs the same on its local shard, and the outputs are
+    DTensors placed as the rule placed q."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _flash_on_mesh(q, k, v, segment_ids, kv_segment_ids, causal,
+                              float(scale))
     q_seg, kv_seg = _default_segments(q, k, segment_ids, kv_segment_ids)
     if q.device.type == "cuda":
         _check_cuda(q, k, v, q_seg, kv_seg)

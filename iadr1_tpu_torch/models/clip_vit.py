@@ -182,3 +182,38 @@ def apply(params: dict, cfg: ClipVisionConfig,
     h = siglip.run_layers(layers[:num_layers], h, attn, H, D, eps, remat,
                           act=quick_gelu)
     return h if keep_cls else h[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: ClipVisionConfig) -> dict:
+    """The tower's logical-axis tuples (the JAX ``logical_axes``)."""
+    def norm():
+        return {"scale": (None, "norm"), "bias": (None, "norm")}
+
+    def proj(out):
+        return {"kernel": (None, "embed", out), "bias": (None, out)}
+
+    return {
+        "class_embed": ("norm",),
+        "patch_embed": {"kernel": ("patch", "embed")},
+        "pos_embed": (None, "embed"),
+        "pre_norm": {"scale": ("norm",), "bias": ("norm",)},
+        "layers": {
+            "norm1": norm(),
+            "norm2": norm(),
+            "attn": {
+                "q": proj("heads"), "k": proj("heads"), "v": proj("heads"),
+                "o": {"kernel": (None, "heads", "embed"),
+                      "bias": (None, "norm")},
+            },
+            "mlp": {
+                "fc1": proj("mlp"),
+                "fc2": {"kernel": (None, "mlp", "embed"),
+                        "bias": (None, "norm")},
+            },
+        },
+        "post_norm": {"scale": ("norm",), "bias": ("norm",)},
+    }

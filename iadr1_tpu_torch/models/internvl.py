@@ -497,3 +497,60 @@ def internvl_tiles(image, tile_size: int = 448, min_tiles: int = 1,
         tiles.append(np.asarray(thumb, np.float32) / 255.0)
     out = (np.stack(tiles) - mean) / std
     return out.transpose(0, 3, 1, 2), len(tiles)
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def vision_logical_axes(cfg: InternVLVisionConfig) -> dict:
+    """The tower's logical-axis tuples (the JAX ``vision_logical_axes``)."""
+    def norm():
+        out = {"scale": (None, "norm")}
+        if cfg.norm_type == "layer_norm":
+            out["bias"] = (None, "norm")
+        return out
+
+    axes = {
+        "cls_token": ("norm",),
+        "patch_embed": {"kernel": ("patch", "embed"), "bias": ("norm",)},
+        "pos_embed": (None, "embed"),
+        "layers": {
+            "norm1": norm(),
+            "norm2": norm(),
+            "lambda1": (None, "norm"),
+            "lambda2": (None, "norm"),
+            "attn": {
+                "q": {"kernel": (None, "embed", "heads")},
+                "k": {"kernel": (None, "embed", "heads")},
+                "v": {"kernel": (None, "embed", "heads")},
+                "o": {"kernel": (None, "heads", "embed"),
+                      "bias": (None, "norm")},
+            },
+            "mlp": {
+                "fc1": {"kernel": (None, "embed", "mlp"),
+                        "bias": (None, "mlp")},
+                "fc2": {"kernel": (None, "mlp", "embed"),
+                        "bias": (None, "norm")},
+            },
+        },
+    }
+    if cfg.attention_bias:
+        for name in ("q", "k", "v"):
+            axes["layers"]["attn"][name]["bias"] = (None, "heads")
+    if cfg.use_qk_norm:
+        axes["layers"]["attn"]["q_norm"] = (None, "norm")
+        axes["layers"]["attn"]["k_norm"] = (None, "norm")
+    return axes
+
+
+def logical_axes(cfg: InternVLConfig) -> dict:
+    return {
+        "text": qwen2.logical_axes(cfg.text),
+        "vision": vision_logical_axes(cfg.vision),
+        "projector": {
+            "norm": {"scale": ("norm",), "bias": ("norm",)},
+            "fc1": {"kernel": ("embed", "mlp"), "bias": ("mlp",)},
+            "fc2": {"kernel": ("mlp", "embed"), "bias": ("norm",)},
+        },
+    }

@@ -232,3 +232,23 @@ def apply(params: dict, cfg: LlavaConfig,
 def logits(params, cfg: LlavaConfig, hidden,
            precision: Precision = DEFAULT_PRECISION):
     return qwen2.logits(params["text"], cfg.text, hidden, precision)
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: LlavaConfig) -> dict:
+    axes = {
+        "text": qwen2.logical_axes(cfg.text),
+        "vision": clip_vit.logical_axes(cfg.vision),
+        "projector": {
+            "fc1": {"kernel": ("embed", "mlp"), "bias": ("mlp",)},
+            "fc2": {"kernel": ("mlp", "embed"), "bias": ("norm",)},
+        },
+    }
+    if cfg.anyres:
+        axes["image_newline"] = ("norm",)
+    if cfg.separate_video_tower:
+        axes["video_tower"] = clip_vit.logical_axes(cfg.vision)
+    return axes

@@ -163,3 +163,19 @@ def apply(params: dict, cfg: LlavaOnevisionConfig,
 def logits(params, cfg: LlavaOnevisionConfig, hidden,
            precision: Precision = DEFAULT_PRECISION):
     return qwen2.logits(params["text"], cfg.text, hidden, precision)
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: LlavaOnevisionConfig) -> dict:
+    return {
+        "text": qwen2.logical_axes(cfg.text),
+        "vision": siglip.logical_axes(cfg.vision),
+        "projector": {
+            "fc1": {"kernel": ("embed", "mlp"), "bias": ("mlp",)},
+            "fc2": {"kernel": ("mlp", "embed"), "bias": ("norm",)},
+        },
+        "image_newline": ("norm",),
+    }

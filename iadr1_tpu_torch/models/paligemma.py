@@ -146,3 +146,15 @@ def apply(params: dict, cfg: PaliGemmaConfig,
 def logits(params, cfg: PaliGemmaConfig, hidden,
            precision: Precision = DEFAULT_PRECISION):
     return qwen2.logits(params["text"], cfg.text, hidden, precision)
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: PaliGemmaConfig) -> dict:
+    return {
+        "text": qwen2.logical_axes(cfg.text),
+        "vision": siglip.logical_axes(cfg.vision),
+        "projector": {"kernel": ("embed", "mlp"), "bias": ("norm",)},
+    }

@@ -110,13 +110,26 @@ def export_params(bundle, params: dict) -> dict:
 
 def save_pretrained(bundle, params: dict, out_dir: str,
                     source_dir: str | None = None) -> None:
-    """Write model.safetensors (+ config/tokenizer copied from source)."""
+    """Write model.safetensors (+ config/tokenizer copied from source).
+    On a mesh every rank calls it with its DTensor parameters: they are
+    gathered whole, and rank 0 writes what a single process writes."""
+    from iadr1_tpu_torch.core.distributed import barrier, is_primary
+    from iadr1_tpu_torch.core.mesh import full
     from iadr1_tpu_torch.models.params_io import save_safetensors
 
-    os.makedirs(out_dir, exist_ok=True)
-    save_safetensors(os.path.join(out_dir, "model.safetensors"),
-                     export_params(bundle, params), {"format": "pt"})
-    if source_dir:
+    def gather(node):
+        if isinstance(node, dict):
+            return {k: gather(v) for k, v in node.items()}
+        return None if node is None else full(node.detach())
+
+    params = gather(params)
+    write = is_primary()
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
+        save_safetensors(os.path.join(out_dir, "model.safetensors"),
+                         export_params(bundle, params), {"format": "pt"})
+    barrier()
+    if source_dir and write:
         for name in SOURCE_FILES:
             src = os.path.join(source_dir, name)
             if os.path.exists(src):

@@ -12,6 +12,7 @@ linears are rewritten exactly into the asymmetric-uint4 quant dicts of
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Mapping
@@ -57,12 +58,20 @@ _ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16",
 
 
 def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
-                     metadata: Mapping[str, str] | None = None) -> None:
+                     metadata: Mapping[str, str] | None = None,
+                     write: bool = True) -> None:
     """Write ``tensors`` (views on any device) as one .safetensors file,
     one tensor at a time: each is made contiguous where it lies, copied
     to the host once and written, so host memory holds one tensor, not
     the file.  Tensors that share storage are written apart.  The file
-    appears whole or not at all (written aside, then renamed)."""
+    appears whole or not at all (written aside, then renamed).
+
+    A DTensor is gathered whole before its copy, which every rank of its
+    mesh must take part in: on a mesh every rank calls this with the same
+    tensors and only the one with ``write`` writes.  The file is the one
+    a single process writes, byte for byte."""
+    from iadr1_tpu_torch.core.mesh import full
+
     header: dict = {"__metadata__": dict(metadata)} if metadata else {}
     offset = 0
     for name, t in tensors.items():
@@ -73,13 +82,16 @@ def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
+    with (open(tmp, "wb") if write else contextlib.nullcontext()) as f:
+        if write:
+            f.write(len(blob).to_bytes(8, "little"))
+            f.write(blob)
         for t in tensors.values():
-            host = t.detach().contiguous().cpu()
-            f.write(host.reshape(-1).view(torch.uint8).numpy().data)
-    os.replace(tmp, path)
+            host = full(t.detach()).contiguous().cpu()
+            if write:
+                f.write(host.reshape(-1).view(torch.uint8).numpy().data)
+    if write:
+        os.replace(tmp, path)
 
 
 def _as_tensor(a) -> torch.Tensor:

@@ -335,3 +335,41 @@ def apply(params: dict, cfg: PixtralConfig,
 def logits(params, cfg: PixtralConfig, hidden,
            precision: Precision = DEFAULT_PRECISION):
     return qwen2.logits(params["text"], cfg.text, hidden, precision)
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def tower_logical_axes(cfg: PixtralVisionConfig) -> dict:
+    """The tower's logical-axis tuples (the JAX ``tower_logical_axes``)."""
+    return {
+        "patch_embed": {"kernel": ("patch", "embed")},
+        "ln_pre": ("norm",),
+        "layers": {
+            "attention_norm": (None, "norm"),
+            "ffn_norm": (None, "norm"),
+            "attn": {
+                "q": {"kernel": (None, "embed", "heads")},
+                "k": {"kernel": (None, "embed", "heads")},
+                "v": {"kernel": (None, "embed", "heads")},
+                "o": {"kernel": (None, "heads", "embed")},
+            },
+            "mlp": {
+                "gate": {"kernel": (None, "embed", "mlp")},
+                "up": {"kernel": (None, "embed", "mlp")},
+                "down": {"kernel": (None, "mlp", "embed")},
+            },
+        },
+    }
+
+
+def logical_axes(cfg: PixtralConfig) -> dict:
+    return {
+        "text": qwen2.logical_axes(cfg.text),
+        "vision": tower_logical_axes(cfg.vision),
+        "projector": {
+            "fc1": {"kernel": ("embed", "mlp"), "bias": ("mlp",)},
+            "fc2": {"kernel": ("mlp", "embed"), "bias": ("norm",)},
+        },
+    }

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from iadr1_tpu_torch.core.mesh import compute_view, full
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common
 from iadr1_tpu_torch.models.common import (
@@ -277,15 +278,21 @@ def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
 
 def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
            attend_fresh, ll=None, scale: float = 1.0, mlp=None):
-    """One decoder layer; returns (h, the MLP hook's aux or None)."""
+    """One decoder layer; returns (h, the MLP hook's aux or None).  On a
+    mesh ``lp`` is the layer's shards, gathered here (``compute_view``)."""
+    lp = compute_view(lp)
     x = norm(cfg, h, lp["input_norm"])
     q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     if layer_cache is not None:
         T = h.shape[1]
         ck, cv = layer_cache                        # [B, Hkv, S, D] views
-        # in place: the new K/V land in the caller's cache tensors
-        ck[:, :, write_idx:write_idx + T] = k.transpose(1, 2).to(ck.dtype)
-        cv[:, :, write_idx:write_idx + T] = v.transpose(1, 2).to(cv.dtype)
+        # in place: the new K/V land in the caller's cache tensors (whole
+        # on each rank when they are DTensors: the decode wrapper reads a
+        # rank's heads from it)
+        ck[:, :, write_idx:write_idx + T] = full(k).transpose(1, 2).to(
+            ck.dtype)
+        cv[:, :, write_idx:write_idx + T] = full(v).transpose(1, 2).to(
+            cv.dtype)
         if not attend_fresh:
             k, v = ck, cv                           # cache layout
     return _attn_out_mlp(cfg, h, attn(q, k, v), lp, ll, scale, mlp)
@@ -304,19 +311,26 @@ def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
     The pieces before and after it are checkpointed apart.  "save_qkv"
     (the JAX FLASH_QKV_REMAT_POLICY, which also saves "act_qkv") keeps the
     q/k/v projections' outputs too, so the backward recomputes only the
-    norm in front of them, not the three projections."""
+    norm in front of them, not the three projections.
+
+    On a mesh ``lp`` is the layer's shards: each checkpointed piece
+    gathers what it reads (``compute_view``) inside its checkpoint, so a
+    layer's whole weights live only while it runs, forward and replay
+    (FSDP's per-layer gather); "save_qkv" keeps the q/k/v projections'
+    gathered weights for their backward."""
     if remat == "full":
         return ckpt(lambda h: _layer(cfg, h, lp, cos, sin, None, None, attn,
                                      False, ll, scale, mlp), h)
     if remat == "save_qkv":
-        x = ckpt(lambda h: norm(cfg, h, lp["input_norm"]), h)
-        q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
+        x = ckpt(lambda h: norm(cfg, h, compute_view(lp["input_norm"])), h)
+        q, k, v = _qkv(cfg, x, compute_view(lp["attn"]), cos, sin, ll, scale)
     else:
-        q, k, v = ckpt(lambda h: _qkv(cfg, norm(cfg, h, lp["input_norm"]),
-                                      lp["attn"], cos, sin, ll, scale), h)
+        q, k, v = ckpt(lambda h: _qkv(
+            cfg, norm(cfg, h, compute_view(lp["input_norm"])),
+            compute_view(lp["attn"]), cos, sin, ll, scale), h)
     out = attn(q, k, v)
-    return ckpt(lambda h, out: _attn_out_mlp(cfg, h, out, lp, ll, scale,
-                                             mlp), h, out)
+    return ckpt(lambda h, out: _attn_out_mlp(cfg, h, out, compute_view(lp),
+                                             ll, scale, mlp), h, out)
 
 
 def _or_bidirectional(mask, q_segments, kv_segments, kv_bidir):
@@ -529,3 +543,38 @@ def logits(params: dict, cfg: Qwen2Config, hidden: torch.Tensor,
     dt = precision.logits_dtype
     return torch.matmul(hidden.to(dt),
                         head_kernel(params, cfg).to(hidden.dtype).to(dt))
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: Qwen2Config) -> dict:
+    """Logical-axis tuples parallel to ``init_params`` (the JAX
+    ``logical_axes``); stacked layer leaves carry a leading None (the
+    layer axis is never sharded)."""
+    axes = {
+        "embed": {"weight": ("vocab", "embed")},
+        "layers": {
+            "input_norm": (None, "norm"),
+            "post_attn_norm": (None, "norm"),
+            "attn": {
+                "q": {"kernel": (None, "embed", "heads")},
+                "k": {"kernel": (None, "embed", "heads")},
+                "v": {"kernel": (None, "embed", "heads")},
+                "o": {"kernel": (None, "heads", "embed")},
+            },
+            "mlp": {
+                "gate": {"kernel": (None, "embed", "mlp")},
+                "up": {"kernel": (None, "embed", "mlp")},
+                "down": {"kernel": (None, "mlp", "embed")},
+            },
+        },
+        "final_norm": ("norm",),
+    }
+    if cfg.attention_bias:
+        for name in ("q", "k", "v"):
+            axes["layers"]["attn"][name]["bias"] = (None, "heads")
+    if not cfg.tie_word_embeddings:
+        axes["lm_head"] = {"kernel": ("embed", "vocab")}
+    return axes

@@ -415,3 +415,42 @@ def apply(
 
 def logits(params, cfg: Qwen25VLConfig, hidden, precision=DEFAULT_PRECISION):
     return qwen2.logits(params["text"], cfg.text, hidden, precision)
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def vision_logical_axes(cfg: Qwen25VLVisionConfig) -> dict:
+    """The tower's logical-axis tuples (the JAX ``vision_logical_axes``)."""
+    return {
+        "patch_embed": {"kernel": ("patch", "embed")},
+        "blocks": {
+            "norm1": (None, "norm"),
+            "norm2": (None, "norm"),
+            "attn": {
+                "qkv": {"kernel": (None, "embed", "qkv"),
+                        "bias": (None, "qkv")},
+                "proj": {"kernel": (None, "heads", "embed"),
+                         "bias": (None, "norm")},
+            },
+            "mlp": {
+                "gate": {"kernel": (None, "embed", "mlp"),
+                         "bias": (None, "mlp")},
+                "up": {"kernel": (None, "embed", "mlp"),
+                       "bias": (None, "mlp")},
+                "down": {"kernel": (None, "mlp", "embed"),
+                         "bias": (None, "norm")},
+            },
+        },
+        "merger": {
+            "ln_q": ("norm",),
+            "fc1": {"kernel": ("embed", "mlp"), "bias": ("mlp",)},
+            "fc2": {"kernel": ("mlp", "embed"), "bias": ("norm",)},
+        },
+    }
+
+
+def logical_axes(cfg: Qwen25VLConfig) -> dict:
+    return {"text": qwen2.logical_axes(cfg.text),
+            "vision": vision_logical_axes(cfg.vision)}

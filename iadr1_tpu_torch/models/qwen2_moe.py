@@ -34,6 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import (
+    batch_ranks,
+    batch_share,
+    batch_total,
+    full,
+)
 from iadr1_tpu_torch.models import qwen2
 from iadr1_tpu_torch.models.common import dense
 from iadr1_tpu_torch.models.params_io import _get, _stack_layers
@@ -231,8 +237,8 @@ def load_balancing_loss(cfg: Qwen2MoeConfig, stats: torch.Tensor,
     the share of the valid (token, layer) routings to e (summed over the K
     slots) and P_e the mean router probability of e, both over every
     layer's valid tokens together (ROADMAP C.R20)."""
-    n = (float(n_tokens) if segment_ids is None
-         else (segment_ids > 0).sum().float())
+    n = batch_total(float(n_tokens) if segment_ids is None
+                    else (segment_ids > 0).sum().float())
     denom = cfg.num_hidden_layers * torch.clamp(torch.as_tensor(
         n, device=stats.device), min=1.0)
     return cfg.num_experts * ((stats[0] / denom) * (stats[1] / denom)).sum()
@@ -248,11 +254,39 @@ def apply(params, cfg: Qwen2MoeConfig, input_ids=None, *, return_aux=False,
     if not return_aux:
         return out
     h, cache, stats = out
-    aux = load_balancing_loss(cfg, stats, kw.get("segment_ids"),
-                              h.shape[0] * h.shape[1])
-    return h, cache, aux
+    # on a mesh the statistics are the batch ranks' together, and each
+    # rank's aux is its share of the loss they give
+    aux = load_balancing_loss(cfg, batch_share(full(stats)),
+                              kw.get("segment_ids"), h.shape[0] * h.shape[1])
+    return h, cache, aux / batch_ranks()
 
 
 head_kernel = qwen2.head_kernel
 logits = qwen2.logits
 init_cache = qwen2.init_cache
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: Qwen2MoeConfig) -> dict:
+    """Logical-axis tuples parallel to ``init_params`` (the JAX
+    ``logical_axes``): the expert axis takes tp, which the port refuses
+    above 1 (ROADMAP A.11b)."""
+    axes = qwen2.logical_axes(cfg)
+    axes["layers"]["mlp"] = {
+        "router": {"kernel": (None, "embed", None)},
+        "experts": {
+            "gate": {"kernel": (None, "expert", "embed", None)},
+            "up": {"kernel": (None, "expert", "embed", None)},
+            "down": {"kernel": (None, "expert", None, "embed")},
+        },
+        "shared": {
+            "gate": {"kernel": (None, "embed", "mlp")},
+            "up": {"kernel": (None, "embed", "mlp")},
+            "down": {"kernel": (None, "mlp", "embed")},
+        },
+        "shared_gate": {"kernel": (None, "embed", None)},
+    }
+    return axes

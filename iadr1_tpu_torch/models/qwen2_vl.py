@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import run_replicated
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import dense, rotate_half
@@ -213,7 +214,14 @@ def apply_vision(
 def merge_image_features(inputs_embeds, image_features, scatter_rows,
                          scatter_cols):
     """Scatter image features into the token stream at image-token slots;
-    padded features target the sentinel row B, which is dropped."""
+    padded features target the sentinel row B, which is dropped.  Under
+    tp (DTensors) the scatter runs on the replicated local copies."""
+    return run_replicated(_merge_image_features, inputs_embeds,
+                          image_features, scatter_rows, scatter_cols)
+
+
+def _merge_image_features(inputs_embeds, image_features, scatter_rows,
+                          scatter_cols):
     B, T, Hd = inputs_embeds.shape
     padded = torch.zeros((B + 1, T, Hd), dtype=inputs_embeds.dtype,
                          device=inputs_embeds.device)
@@ -337,3 +345,40 @@ def convert_hf(state, cfg: Qwen2VLConfig, dtype=torch.float32,
         "vision": convert_vision(state, cfg.vision, prefix=vis_prefix,
                                  dtype=dtype, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def vision_logical_axes(cfg: Qwen2VLVisionConfig) -> dict:
+    """The tower's logical-axis tuples (the JAX ``vision_logical_axes``)."""
+    return {
+        "patch_embed": {"kernel": ("patch", "embed")},
+        "blocks": {
+            "norm1": {"scale": (None, "norm"), "bias": (None, "norm")},
+            "norm2": {"scale": (None, "norm"), "bias": (None, "norm")},
+            "attn": {
+                "qkv": {"kernel": (None, "embed", "qkv"),
+                        "bias": (None, "qkv")},
+                "proj": {"kernel": (None, "heads", "embed"),
+                         "bias": (None, "norm")},
+            },
+            "mlp": {
+                "fc1": {"kernel": (None, "embed", "mlp"),
+                        "bias": (None, "mlp")},
+                "fc2": {"kernel": (None, "mlp", "embed"),
+                        "bias": (None, "norm")},
+            },
+        },
+        "merger": {
+            "ln_q": {"scale": ("norm",), "bias": ("norm",)},
+            "fc1": {"kernel": ("embed", "mlp"), "bias": ("mlp",)},
+            "fc2": {"kernel": ("mlp", "embed"), "bias": ("norm",)},
+        },
+    }
+
+
+def logical_axes(cfg: Qwen2VLConfig) -> dict:
+    return {"text": qwen2.logical_axes(cfg.text),
+            "vision": vision_logical_axes(cfg.vision)}

@@ -79,6 +79,9 @@ class ModelBundle:
     # group_size, remat=True) -> the hidden states [n*G, N, hid] that
     # predict the completion tokens; None for a family with no such path
     shared_pred_fn: Callable | None = None
+    # () -> the logical-axis tree parallel to the parameters
+    # (core/mesh.py shard_pytree places them by it)
+    logical_axes: Callable | None = None
 
     # the training path: final hidden states and the LM-head kernel for
     # the chunked CE loss (train/sft.py); extra kwargs (tower_remat=) pass
@@ -401,6 +404,7 @@ def make_qwen2_bundle(hf_config: dict, attention: str = "auto",
             lora_scale=lora_scale)
 
     return ModelBundle(
+        logical_axes=lambda: qwen2.logical_axes(cfg),
         family="qwen2", cfg=cfg, multimodal=False,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: convert_qwen2(
@@ -442,6 +446,7 @@ def make_qwen2_moe_bundle(hf_config: dict, attention: str = "auto",
                                      device)
 
     return ModelBundle(
+        logical_axes=lambda: qwen2_moe.logical_axes(cfg),
         family="qwen2_moe", cfg=cfg, multimodal=False,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: qwen2_moe.convert_hf(
@@ -551,6 +556,7 @@ def make_qwen2_vl_bundle(hf_config: dict, attention: str = "auto",
             lora=_text_lora(lora), lora_scale=lora_scale)
 
     return ModelBundle(
+        logical_axes=lambda: qwen2_vl.logical_axes(cfg),
         family="qwen2_vl", cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: qwen2_vl.convert_hf(
@@ -683,6 +689,7 @@ def make_qwen25_vl_bundle(hf_config: dict, attention: str = "auto",
             lora=_text_lora(lora), lora_scale=lora_scale)
 
     return ModelBundle(
+        logical_axes=lambda: qwen25_vl.logical_axes(cfg),
         family="qwen2_5_vl", cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: qwen25_vl.convert_hf(
@@ -791,6 +798,7 @@ def make_llava_onevision_bundle(hf_config: dict, attention: str = "auto",
             gen, cfg, dtype or precision.param_dtype, device)
 
     return ModelBundle(
+        logical_axes=lambda: llava_onevision.logical_axes(cfg),
         family="llava_onevision", cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None:
@@ -1015,6 +1023,7 @@ def make_llava_bundle(hf_config: dict, attention: str = "auto",
     else:
         family = "llava_next" if anyres_mode else "llava"
     return ModelBundle(
+        logical_axes=lambda: llava.logical_axes(cfg),
         family=family, cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: llava.convert_hf(
@@ -1132,6 +1141,7 @@ def make_internvl_bundle(hf_config: dict, attention: str = "auto",
                                     device)
 
     return ModelBundle(
+        logical_axes=lambda: internvl.logical_axes(cfg),
         family="internvl", cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: internvl.convert_hf(
@@ -1258,6 +1268,7 @@ def make_paligemma_bundle(hf_config: dict, attention: str = "auto",
                                      device)
 
     return ModelBundle(
+        logical_axes=lambda: paligemma.logical_axes(cfg),
         family="paligemma", cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None:
@@ -1383,6 +1394,7 @@ def make_pixtral_bundle(hf_config: dict, attention: str = "auto",
                                    device)
 
     return ModelBundle(
+        logical_axes=lambda: pixtral.logical_axes(cfg),
         family="pixtral", cfg=cfg, multimodal=True,
         init_params=init_params,
         convert_hf=lambda state, dtype=None, device=None: pixtral.convert_hf(

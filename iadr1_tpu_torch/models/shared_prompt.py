@@ -28,6 +28,7 @@ from typing import Callable
 
 import torch
 
+from iadr1_tpu_torch.core.mesh import compute_view
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import make_attention_mask, rms_norm
@@ -154,21 +155,22 @@ def shared_prompt_hidden(
     mask_cp = make_attention_mask(c_seg, p_seg_rep, None, None, causal=False)
 
     def layer(hp, hc, lp, ll):
-        a = lp["attn"]
-
+        # on a mesh ``lp`` is the layer's shards: each piece gathers them
+        # inside its checkpoint (``compute_view``, as ``qwen2``'s layers)
         def project(h, rope):
+            lv = compute_view(lp)
             return _heads_first(*_qkv(
-                cfg, rms_norm(h, lp["input_norm"], eps), a, *rope, ll,
-                lora_scale))
+                cfg, rms_norm(h, lv["input_norm"], eps), lv["attn"], *rope,
+                ll, lora_scale))
 
         def finish_prompt(h, out):
-            return _post_attention(cfg, h, out.transpose(1, 2), lp, ll,
-                                   lora_scale)
+            return _post_attention(cfg, h, out.transpose(1, 2),
+                                   compute_view(lp), ll, lora_scale)
 
         def finish_completion(h, o1, lse1, o2, lse2):
             out = merge_attention(o1, lse1, o2, lse2)
-            return _post_attention(cfg, h, out.transpose(1, 2), lp, ll,
-                                   lora_scale)
+            return _post_attention(cfg, h, out.transpose(1, 2),
+                                   compute_view(lp), ll, lora_scale)
 
         inner = remat and remat != "full"
         run = ckpt if inner else (lambda fn, *args: fn(*args))

@@ -265,3 +265,36 @@ def apply(params: dict, cfg: SiglipVisionConfig,
         n = params["post_norm"]
         h = layer_norm(h, n["scale"], n["bias"], eps)
     return h
+
+
+# ---------------------------------------------------------------------------
+# logical axes (core/mesh.py maps them to the mesh)
+# ---------------------------------------------------------------------------
+
+def logical_axes(cfg: SiglipVisionConfig) -> dict:
+    """The tower's logical-axis tuples (the JAX ``logical_axes``)."""
+    def norm():
+        return {"scale": (None, "norm"), "bias": (None, "norm")}
+
+    def proj(out):
+        return {"kernel": (None, "embed", out), "bias": (None, out)}
+
+    return {
+        "patch_embed": {"kernel": ("patch", "embed"), "bias": ("norm",)},
+        "pos_embed": (None, "embed"),
+        "layers": {
+            "norm1": norm(),
+            "norm2": norm(),
+            "attn": {
+                "q": proj("heads"), "k": proj("heads"), "v": proj("heads"),
+                "o": {"kernel": (None, "heads", "embed"),
+                      "bias": (None, "norm")},
+            },
+            "mlp": {
+                "fc1": proj("mlp"),
+                "fc2": {"kernel": (None, "mlp", "embed"),
+                        "bias": (None, "norm")},
+            },
+        },
+        "post_norm": {"scale": ("norm",), "bias": ("norm",)},
+    }

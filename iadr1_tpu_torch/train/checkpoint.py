@@ -14,6 +14,11 @@ once and written before the next (``params_io.save_safetensors``), and
 the file appears whole or not at all; ``wait`` has nothing to join.
 Orbax checkpoints and these do not read each other: weights cross between
 the two packages through the HF export (``models/params_export.py``).
+
+On a mesh every rank calls ``save``: each DTensor is gathered whole and
+rank 0 writes the file a single process would write, byte for byte.
+``restore`` reads the whole tensors on every rank and keeps each leaf's
+own shard, so a checkpoint restores onto any mesh, or onto none.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import re
 
 import torch
 
+from iadr1_tpu_torch.core.distributed import barrier, is_primary
+from iadr1_tpu_torch.core.mesh import is_dtensor, local
 from iadr1_tpu_torch.models.params_io import save_safetensors
 from iadr1_tpu_torch.train.state import TrainState, named_leaves, unflatten
 
@@ -79,18 +86,22 @@ class CheckpointManager:
         tensors["step"] = torch.tensor(int(state.step), dtype=torch.int64)
         tensors["opt_count"] = torch.tensor(int(opt["count"]),
                                             dtype=torch.int64)
-        save_safetensors(self.path(step), tensors, {"format": "pt"})
-        if metadata:
-            with open(os.path.join(self.directory, f"meta_{step}.json"),
-                      "w") as f:
-                json.dump(metadata, f)
-        old_steps = self.all_steps()[:-self.max_to_keep] if (
-            self.max_to_keep) else []
-        for old in old_steps:
-            os.remove(self.path(old))
-            meta = os.path.join(self.directory, f"meta_{old}.json")
-            if os.path.exists(meta):
-                os.remove(meta)
+        primary = is_primary()
+        save_safetensors(self.path(step), tensors, {"format": "pt"},
+                         write=primary)
+        if primary:
+            if metadata:
+                with open(os.path.join(self.directory, f"meta_{step}.json"),
+                          "w") as f:
+                    json.dump(metadata, f)
+            old_steps = self.all_steps()[:-self.max_to_keep] if (
+                self.max_to_keep) else []
+            for old in old_steps:
+                os.remove(self.path(old))
+                meta = os.path.join(self.directory, f"meta_{old}.json")
+                if os.path.exists(meta):
+                    os.remove(meta)
+        barrier()
         return True
 
     def _step_path(self, step: int | None) -> str:
@@ -119,7 +130,13 @@ class CheckpointManager:
                         f"checkpoint tensor {key} is {src.dtype} "
                         f"{tuple(src.shape)}, the state's {dst.dtype} "
                         f"{tuple(dst.shape)}")
-                dst.copy_(src)
+                if is_dtensor(dst):
+                    from torch.distributed.tensor import distribute_tensor
+
+                    src = distribute_tensor(
+                        src.to(local(dst).device), dst.device_mesh,
+                        dst.placements, src_data_rank=None).to_local()
+                local(dst).copy_(src)
 
             named = named_leaves(state_like.params)
             for name, p in named:

@@ -14,6 +14,12 @@ Prompts repeat G times *consecutively*, so the group normalization is
 right for any number of prompts per step.  Generation, scoring and update
 share one device and one copy of the policy parameters.
 
+On a mesh (``core/mesh.py``) each batch rank takes its share of the
+step's prompts (whole groups), rolls them out on a gathered copy of the
+policy with the sampler drawing for the global batch (``train/rollout.py``),
+scores them and updates; the update's normalizers are global, and the
+metrics cover every rank's rows.  tp > 1 is refused (ROADMAP A.11b).
+
 LoRA mode with reference elision (``base_params`` and a LoRA
 ``tuning_cfg``): the state holds the adapter tree alone, the frozen base
 rides the reference slot, the policy is base + factored adapters and the
@@ -32,6 +38,17 @@ import torch
 from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.distributed import host_batch_slice
+from iadr1_tpu_torch.core.mesh import (
+    batch_mean,
+    batch_total,
+    compute_view,
+    gather_batch_rows,
+    kernel_mesh,
+    local,
+    mesh_scope,
+    mesh_shape,
+)
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.models.registry import GRPO_NOT_YET_PORTED
 from iadr1_tpu_torch.train.optimizers import global_norm
@@ -40,7 +57,12 @@ from iadr1_tpu_torch.train.rollout import (
     SamplingConfig,
     cast_dense_params,
 )
-from iadr1_tpu_torch.train.sft import batch_to_device, chunk_logits
+from iadr1_tpu_torch.train.sft import (
+    batch_to_device,
+    chunk_logits,
+    mesh_metrics,
+    pick_logits,
+)
 from iadr1_tpu_torch.train.state import tree_leaves
 
 # profiler range names of an update's phases (the backward's kernels are
@@ -94,7 +116,7 @@ class GRPOConfig:
 def _chunk_logps(hc, kernel, tc, logits_dtype):
     logits = chunk_logits(hc, kernel, logits_dtype)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(1, tc[:, None])[:, 0]
+    picked = pick_logits(logits, tc)
     return (picked - lse).float()
 
 
@@ -184,51 +206,55 @@ def make_grpo_update_step(score_fn, optimizer, cfg: GRPOConfig,
         leaves = tree_leaves(state.params)
         batch = _update_batch_to_device(batch, leaves[0].device)
         mask = batch["completion_mask"].float()
-        # the frozen reference first: its activations are gone before the
-        # policy's forward keeps its own
-        with record_function(UPDATE_RANGES[0]), torch.no_grad():
-            ref_logps = ref_logps_fn(ref_params, batch)
-        with record_function(UPDATE_RANGES[1]):
-            logps = logps_fn(state.params, batch)
-            diff = ref_logps - logps
-            kl = torch.exp(diff) - diff - 1.0          # the k3 estimator
-            adv = batch["advantages"].float()[:, None]
-            # off-policy passes (mu > 1) score against the generation-time
-            # logps in the batch; on-policy the ratio is 1 and the
-            # clipping inert
-            old_logps = batch.get("old_logps")
-            if old_logps is None:
-                old_logps = logps.detach()
-            coef1 = torch.exp(logps - old_logps)
-            coef2 = torch.clamp(coef1, 1.0 - eps_low, 1.0 + eps_high)
-            per_token = -(torch.minimum(coef1 * adv, coef2 * adv)
-                          - cfg.beta * kl)
-            denom = mask.sum(dim=1).clamp(min=1.0)
-            total = mask.sum().clamp(min=1.0)
-            if cfg.loss_type == "grpo":
-                loss = ((per_token * mask).sum(dim=1) / denom).mean()
-            elif cfg.loss_type == "bnpo":
-                loss = (per_token * mask).sum() / total
-            else:
-                loss = (per_token * mask).sum() / (
-                    mask.shape[0] * cfg.max_completion_length)
-            with torch.no_grad():
-                metrics = {
-                    "loss": loss.detach(),
-                    "kl": ((kl * mask).sum(dim=1) / denom).mean(),
-                    "clip_ratio": (((coef1 - coef2).abs() > 1e-9).float()
-                                   * mask).sum() / total,
-                }
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with mesh_scope():
+            # the frozen reference first: its activations are gone before
+            # the policy's forward keeps its own
+            with record_function(UPDATE_RANGES[0]), torch.no_grad():
+                ref_logps = ref_logps_fn(compute_view(ref_params), batch)
+            with record_function(UPDATE_RANGES[1]):
+                logps = logps_fn(compute_view(state.params), batch)
+                diff = ref_logps - logps
+                kl = torch.exp(diff) - diff - 1.0          # the k3 estimator
+                adv = batch["advantages"].float()[:, None]
+                # off-policy passes (mu > 1) score against the
+                # generation-time logps in the batch; on-policy the ratio
+                # is 1 and the clipping inert
+                old_logps = batch.get("old_logps")
+                if old_logps is None:
+                    old_logps = logps.detach()
+                coef1 = torch.exp(logps - old_logps)
+                coef2 = torch.clamp(coef1, 1.0 - eps_low, 1.0 + eps_high)
+                per_token = -(torch.minimum(coef1 * adv, coef2 * adv)
+                              - cfg.beta * kl)
+                denom = mask.sum(dim=1).clamp(min=1.0)
+                total = batch_total(mask.sum()).clamp(min=1.0)
+                if cfg.loss_type == "grpo":
+                    loss = batch_mean((per_token * mask).sum(dim=1) / denom)
+                elif cfg.loss_type == "bnpo":
+                    loss = (per_token * mask).sum() / total
+                else:
+                    loss = (per_token * mask).sum() / (
+                        batch_total(mask.shape[0])
+                        * cfg.max_completion_length)
+                with torch.no_grad():
+                    metrics = {
+                        "loss": loss.detach(),
+                        "kl": batch_mean((kl * mask).sum(dim=1) / denom),
+                        "clip_ratio": (((coef1 - coef2).abs() > 1e-9).float()
+                                       * mask).sum() / total,
+                    }
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with record_function(UPDATE_RANGES[2]):
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
+            metrics = mesh_metrics(metrics)
             metrics["grad_norm"] = global_norm(grads)
             if schedule is not None:
                 metrics["learning_rate"] = torch.tensor(schedule(state.step))
             new_state = state.apply_gradients(grads, optimizer,
                                               metrics["grad_norm"])
-        metrics["completion_length"] = mask.sum(dim=1).mean()
+        metrics["completion_length"] = batch_total(
+            batch_mean(mask.sum(dim=1)))
         return new_state, metrics
 
     return step
@@ -245,7 +271,9 @@ def make_grpo_logps_eval(score_fn, cfg: GRPOConfig, logps_fn=None):
     @torch.no_grad()
     def run(params, batch):
         device = tree_leaves(params)[0].device
-        return logps_fn(params, _update_batch_to_device(batch, device))
+        with mesh_scope():
+            return local(logps_fn(compute_view(params),
+                                  _update_batch_to_device(batch, device)))
 
     return run
 
@@ -351,6 +379,13 @@ class GRPOTrainer:
             raise NotImplementedError(
                 f"SC-GRPO for the {bundle.family} family is not ported yet "
                 f"({GRPO_NOT_YET_PORTED[bundle.family]})")
+        mesh = kernel_mesh()
+        if mesh is not None and (mesh_shape(mesh)["tp"] > 1
+                                 or self._lora_mode):
+            raise NotImplementedError(
+                "SC-GRPO on a mesh runs over dp and fsdp with full "
+                "fine-tuning; tp > 1 (a tensor-parallel rollout) and LoRA "
+                "are not ported (ROADMAP A.11b)")
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.cfg = cfg
@@ -434,6 +469,7 @@ class GRPOTrainer:
         alpha = self.cfg.ref_model_mixup_alpha
         for r, p in zip(tree_leaves(self.ref_params),
                         tree_leaves(self.state.params)):
+            r, p = local(r), local(p)       # the same placements on a mesh
             r.copy_(((1.0 - alpha) * r.float() + alpha * p.float()).to(r.dtype))
         return True
 
@@ -481,8 +517,11 @@ class GRPOTrainer:
 
     def step(self, examples: Sequence[dict]) -> dict:
         """examples: [{"prompt_ids": [...], "solution": str, ...extras}]
-        -> the step's metrics (floats)."""
+        -> the step's metrics (floats).  On a mesh every rank passes the
+        step's whole list and takes its share of it; the metrics cover
+        the whole list."""
         G = self.cfg.num_generations
+        examples = list(examples)[host_batch_slice(len(examples))]
         if self.prompt_collator is not None:
             # the unique-prompt batch for the prefix-cached rollout (the
             # tower runs once per prompt).  Shared-prompt scoring reuses it
@@ -529,6 +568,7 @@ class GRPOTrainer:
                      **reward_kwargs)
             rewards_per_func[:, i] = np.asarray(out, np.float64)
         rewards = rewards_per_func.sum(axis=1)
+        # whole groups lie on each rank, so the group statistics are local
         advantages = self.compute_advantages(rewards)
 
         # truncation rate: completions that hit max_completion_length
@@ -552,6 +592,10 @@ class GRPOTrainer:
             batch, prompt_ids, prompt_mask, completion_ids, completion_mask,
             advantages)
         self.state, metrics = self._run_updates(update_batch)
+        # the metrics read every rank's rows
+        rewards_per_func = self._gather_rows(rewards_per_func)
+        rewards = rewards_per_func.sum(axis=1)
+        trunc_frac = float(self._gather_rows(truncated).mean())
         out = {k: float(v) for k, v in metrics.items()}
         out["completion_truncated_frac"] = trunc_frac
         out["ref_synced"] = float(self.maybe_sync_ref())
@@ -563,6 +607,13 @@ class GRPOTrainer:
                 rewards_per_func[:, i].mean())
         self.metrics_history.append(out)
         return out
+
+    def _gather_rows(self, rows: np.ndarray) -> np.ndarray:
+        """The batch ranks' rows of a host array, in the global order."""
+        if kernel_mesh() is None:
+            return rows
+        t = torch.as_tensor(rows.astype(np.float64), device=self.device)
+        return gather_batch_rows(t).cpu().numpy()
 
     def _update_batch(self, batch, prompt_ids, prompt_mask, completion_ids,
                       completion_mask, advantages) -> dict:

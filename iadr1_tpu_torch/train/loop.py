@@ -36,16 +36,23 @@ class LoopConfig:
 
 
 class JsonlLogger:
-    """trainer_log.jsonl-compatible progress log (+ stdout)."""
+    """trainer_log.jsonl-compatible progress log (+ stdout); on a mesh
+    only rank 0 writes and prints."""
 
     def __init__(self, output_dir: str, total_steps: int):
-        os.makedirs(output_dir, exist_ok=True)
+        from iadr1_tpu_torch.core.distributed import is_primary
+
         self.path = os.path.join(output_dir, "trainer_log.jsonl")
         self.total = total_steps
         self.start = time.time()
-        self._f = open(self.path, "a")
+        self._f = None
+        if is_primary():
+            os.makedirs(output_dir, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def log(self, step: int, metrics: dict):
+        if self._f is None:
+            return
         elapsed = time.time() - self.start
         rate = elapsed / max(step, 1)
         record = {
@@ -62,7 +69,8 @@ class JsonlLogger:
             f"{k}={record[k]}" for k in metrics))
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def batch_iterator(rows: Sequence[dict], batch_size: int, seed: int,

@@ -8,7 +8,10 @@ then Adam (eps outside the square root, bias correction by
 ``1 - b**count``), decoupled weight decay, and the learning rate read at
 ``schedule(count)`` before the count is incremented.  Parameters and
 moments are updated in place, leaf by leaf, which keeps the transient
-memory to one leaf instead of a parameter-sized copy of updates.
+memory to one leaf instead of a parameter-sized copy of updates.  On a
+mesh AdamW updates each rank's local shards (its moments are DTensors
+placed as their parameters) and ``global_norm`` reduces over the whole
+mesh.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+
+from iadr1_tpu_torch.core.mesh import is_dtensor, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +115,9 @@ class AdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...)),
     in place.  ``init(params, paths)`` -> state (AdamW reads no paths);
     ``apply(params, grads, state)`` updates ``params`` and ``state`` in
-    place."""
+    place; on DTensors, each rank's shards (``shard_local``)."""
+
+    shard_local = True
 
     def __init__(self, schedule, b1, b2, eps, weight_decay, mu_dtype,
                  max_grad_norm):
@@ -143,10 +151,11 @@ class AdamW:
             # it too) before the f32 sum
             b1_mu = float(torch.tensor(self.b1, dtype=mu.dtype))
             # views: the slices' copies land in the leaves themselves
-            flat = [p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1)]
+            flat = [local(p).view(-1), local(g).reshape(-1),
+                    local(mu).view(-1), local(nu).view(-1)]
             # a slice of the leaf at a time: the update's f32 temporaries
             # stay within a few slices, however large the leaf
-            for i in range(0, p.numel(), UPDATE_SLICE):
+            for i in range(0, flat[0].numel(), UPDATE_SLICE):
                 p_, g_, mu_, nu_ = (t[i:i + UPDATE_SLICE] for t in flat)
                 g_ = g_.float()
                 if clip:
@@ -162,8 +171,26 @@ class AdamW:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32 (optax)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """sqrt of the sum of squares of every element, in f32 (optax).  Over
+    DTensors the sum is over the whole mesh, each element once: a shard
+    counts on the ranks at coordinate 0 of the axes it is replicated on,
+    and one all-reduce over every rank gives all of them the same norm
+    (the clipping decision must agree)."""
+    tensors = list(tensors)
+    if not any(is_dtensor(t) for t in tensors):
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    total = sum(local(t).float().square().sum() for t in tensors
+                if not is_dtensor(t) or _counted_here(t))
+    total = torch.as_tensor(total, dtype=torch.float32,
+                            device=local(tensors[0]).device).clone()
+    dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def _counted_here(t) -> bool:
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, t.placements)
+               if not p.is_shard())
 
 
 def make_optimizer(cfg: OptimizerConfig):

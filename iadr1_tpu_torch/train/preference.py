@@ -35,12 +35,19 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from iadr1_tpu_torch.core.mesh import (
+    batch_mean,
+    compute_view,
+    full,
+    mesh_scope,
+)
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.train.grpo import (
     _update_batch_to_device,
     chunked_token_logps,
 )
 from iadr1_tpu_torch.train.optimizers import global_norm
+from iadr1_tpu_torch.train.sft import mesh_metrics
 from iadr1_tpu_torch.train.state import tree_leaves
 
 # profiler range names of a preference step's phases
@@ -64,13 +71,15 @@ def sequence_logps(hidden, head_kernel, labels, chunk_size: int = 1024):
 
 def apply_update(state, optimizer, loss, metrics, schedule):
     """Gradients of ``loss`` over the state's parameters, their norm
-    (added to the metrics, which are detached) and the in-place update."""
+    (added to the metrics, which are detached; on a mesh summed over the
+    batch ranks' shares) and the in-place update."""
     leaves = tree_leaves(state.params)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with mesh_scope():
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     with record_function(PREF_RANGES[2]):
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = mesh_metrics(metrics)
         metrics["grad_norm"] = global_norm(grads)
         if schedule is not None:
             metrics["learning_rate"] = torch.tensor(schedule(state.step))
@@ -156,35 +165,42 @@ def make_dpo_step(score_fn, optimizer, cfg: DPOConfig, schedule=None):
         hidden, kernel = score_fn(params, batch)
         seq, n = sequence_logps(hidden, kernel, batch["labels"],
                                 cfg.logp_chunk_size)
+        # under tp the row sums are DTensors: the loss takes them whole
+        seq, n = full(seq), full(n)
         return (seq / n if cfg.average_logps else seq), seq, n
 
     def step(state, ref_params, batch):
         batch = _on_params_device(state, batch)
         B = batch["input_ids"].shape[0] // 2
         ref_c = ref_r = None
-        if cfg.use_ref_model:
-            with record_function(PREF_RANGES[0]), torch.no_grad():
-                ref_logps, _, _ = seq_logps(ref_params, batch)
-            ref_c, ref_r = ref_logps[:B], ref_logps[B:]
-        with record_function(PREF_RANGES[1]):
-            logps, seq_sum, n = seq_logps(state.params, batch)
-            pol_c, pol_r = logps[:B], logps[B:]
-            losses = preference_loss(cfg, pol_c, pol_r, ref_c, ref_r)
-            if cfg.ftx > 1e-6:
-                # the chosen side's SFT loss mixed in
-                losses = losses + cfg.ftx * (-(seq_sum[:B] / n[:B]))
-            loss = losses.mean()
-            with torch.no_grad():
-                chosen = cfg.beta * (pol_c - (0.0 if ref_c is None else ref_c))
-                rejected = cfg.beta * (pol_r - (0.0 if ref_r is None
-                                                else ref_r))
-                metrics = {
-                    "loss": loss,
-                    "rewards/chosen": chosen.mean(),
-                    "rewards/rejected": rejected.mean(),
-                    "rewards/accuracies": (chosen > rejected).float().mean(),
-                    "rewards/margins": (chosen - rejected).mean(),
-                }
+        with mesh_scope():
+            if cfg.use_ref_model:
+                with record_function(PREF_RANGES[0]), torch.no_grad():
+                    ref_logps, _, _ = seq_logps(compute_view(ref_params),
+                                                batch)
+                ref_c, ref_r = ref_logps[:B], ref_logps[B:]
+            with record_function(PREF_RANGES[1]):
+                logps, seq_sum, n = seq_logps(compute_view(state.params),
+                                              batch)
+                pol_c, pol_r = logps[:B], logps[B:]
+                losses = preference_loss(cfg, pol_c, pol_r, ref_c, ref_r)
+                if cfg.ftx > 1e-6:
+                    # the chosen side's SFT loss mixed in
+                    losses = losses + cfg.ftx * (-(seq_sum[:B] / n[:B]))
+                loss = batch_mean(losses)
+                with torch.no_grad():
+                    chosen = cfg.beta * (pol_c - (0.0 if ref_c is None
+                                                  else ref_c))
+                    rejected = cfg.beta * (pol_r - (0.0 if ref_r is None
+                                                    else ref_r))
+                    metrics = {
+                        "loss": loss,
+                        "rewards/chosen": batch_mean(chosen),
+                        "rewards/rejected": batch_mean(rejected),
+                        "rewards/accuracies": batch_mean(
+                            (chosen > rejected).float()),
+                        "rewards/margins": batch_mean(chosen - rejected),
+                    }
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step

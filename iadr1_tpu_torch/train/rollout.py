@@ -11,6 +11,13 @@ JAX engine's default ``early_stop``; the tokens are the same either way).
 the geometric mixture of two models (Nash-MD's opponent): each keeps its
 own KV cache, and each step's logits are (1 - c) log_softmax(policy) +
 c log_softmax(mixture) before temperature, top-k and top-p.
+
+On a mesh (``core/mesh.py``) each batch rank decodes its own rows on a
+plain copy of the parameters gathered whole (``cast_dense_params``), the
+sampler draws for the global batch (each rank's top-k candidates are
+gathered, every rank draws the same tokens from the same generator and
+keeps its rows), so the tokens do not depend on the mesh, and the loop
+stops only when every rank's rows are done.
 """
 
 from __future__ import annotations
@@ -21,6 +28,12 @@ import warnings
 import torch
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import (
+    all_done,
+    batch_coordinate,
+    full,
+    gather_batch_rows,
+)
 from iadr1_tpu_torch.models import qwen2
 from iadr1_tpu_torch.models.quant import is_quantized
 
@@ -46,13 +59,20 @@ class SamplingConfig:
 def sample_token(logits: torch.Tensor, cfg: SamplingConfig,
                  generator: torch.Generator | None = None) -> torch.Tensor:
     """One sampling step over [B, V] logits -> [B] int64 token ids:
-    greedy at temperature 0, else temperature, exact top-k, then top-p."""
+    greedy at temperature 0, else temperature, exact top-k, then top-p.
+    On a mesh ``logits`` are this rank's rows: the draw is made over the
+    batch ranks' rows together, as one process draws them."""
     if cfg.temperature == 0.0:
         return logits.argmax(dim=-1)
     logits = logits.float() / cfg.temperature
     V = logits.shape[-1]
     k = min(cfg.top_k if cfg.top_k > 0 else V, V)
     top_logits, top_idx = logits.topk(k, dim=-1)           # sorted, desc
+    rank, ranks = batch_coordinate()
+    if ranks > 1:
+        B = top_logits.shape[0]
+        rows = slice(rank * B, (rank + 1) * B)
+        top_logits = gather_batch_rows(top_logits)
     if cfg.top_p < 1.0:
         probs = top_logits.softmax(dim=-1)
         cum = probs.cumsum(dim=-1)
@@ -61,6 +81,8 @@ def sample_token(logits: torch.Tensor, cfg: SamplingConfig,
         top_logits = top_logits.masked_fill(~keep, float("-inf"))
     choice = torch.multinomial(top_logits.softmax(dim=-1), 1,
                                generator=generator)
+    if ranks > 1:
+        choice = choice[rows]
     return top_idx.gather(-1, choice)[:, 0]
 
 
@@ -74,18 +96,20 @@ def cast_dense_params(params: dict, dtype) -> dict:
     LM head reads in the logits dtype, and an untied ``lm_head``) keeps its
     dtype, and so does a quant dict (``dense`` dequantizes it to the
     activations' dtype itself).  A LoRA tree casts the same way: its
-    factors sit under "kernel" keys, and its None leaves stay None."""
+    factors sit under "kernel" keys, and its None leaves stay None.
+    DTensor leaves (a mesh) are gathered whole, one at a time, into the
+    plain copy."""
     def keep(node):
         if isinstance(node, dict):
             return {k: keep(v) for k, v in node.items()}
-        return None if node is None else node.detach()
+        return None if node is None else full(node.detach())
 
     def cast(node):
         if node is None or is_quantized(node):
             return keep(node)
         if isinstance(node, dict):
             return {k: cast(v) for k, v in node.items()}
-        return node.detach().to(dtype)
+        return full(node.detach()).to(dtype)
 
     def walk(node, name):
         if not isinstance(node, dict) or is_quantized(node):
@@ -162,7 +186,7 @@ class RolloutEngine:
             params, {**batch, "position_ids": position_ids,
                      "segment_ids": batch["attention_mask"].to(torch.int32)},
             cache=cache, cache_mode="prefill", **self._lora_kw(lora))
-        return (self.bundle.logits_fn(params, hidden[:, -1:, :])[:, 0],
+        return (full(self.bundle.logits_fn(params, hidden[:, -1:, :])[:, 0]),
                 cache)
 
     def _generate(self, params, batch, generator, group_size, lora,
@@ -206,7 +230,7 @@ class RolloutEngine:
         tokens = torch.full((N, B), pad, dtype=torch.int64, device=self.device)
         steps = 0
         for t in range(N):
-            if bool(done.all()):        # every row has emitted EOS
+            if all_done(done):          # every row has emitted EOS
                 break
             steps += 1
             token_in = torch.where(done, pad, token)
@@ -220,7 +244,7 @@ class RolloutEngine:
             hidden, cache = bundle.apply(
                 params, step_batch, cache=cache, cache_mode="decode",
                 **lora_kw)
-            logits = bundle.logits_fn(params, hidden)[:, 0]
+            logits = full(bundle.logits_fn(params, hidden)[:, 0])
             if mixture is not None:
                 mix_hidden, mix_cache = bundle.apply(
                     mix_params, step_batch, cache=mix_cache,

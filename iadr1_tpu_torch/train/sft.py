@@ -8,6 +8,10 @@ the head product is a plain ``torch.matmul``, as JAX left it to XLA.
 ``make_fused_chunked_ce`` forms the head's gradients inside the forward
 loop instead; ``make_sft_step`` is the unchunked step over full logits and
 ``IterativeSFTTrainer`` trl's step-at-a-time trainer.
+
+On a mesh (``core/mesh.py``) each rank feeds its own rows, the token
+count that averages the loss is the global one (``batch_total``), and
+the step sums the ranks' shares of the loss and metrics.
 """
 
 from __future__ import annotations
@@ -19,6 +23,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from iadr1_tpu_torch.core.mesh import (
+    batch_total,
+    compute_view,
+    full,
+    is_dtensor,
+    kernel_mesh,
+    mesh_scope,
+)
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.train.optimizers import global_norm as optax_global_norm
@@ -40,7 +52,7 @@ def sft_loss(logits: torch.Tensor, labels: torch.Tensor):
     safe = torch.where(mask, targets, 0)
     logp = torch.log_softmax(logits, dim=-1)
     token_logp = logp.gather(-1, safe[..., None])[..., 0]
-    n_tokens = mask.sum().clamp(min=1)
+    n_tokens = batch_total(mask.sum()).clamp(min=1)
     loss = -torch.where(mask, token_logp, 0.0).sum() / n_tokens
     acc = (mask & (logits.argmax(-1) == targets)).sum() / n_tokens
     return loss, {"loss": loss, "accuracy": acc, "n_label_tokens": mask.sum()}
@@ -56,11 +68,21 @@ def chunk_logits(hc, kernel, logits_dtype):
                         kernel.to(hc.dtype).to(logits_dtype))
 
 
+def pick_logits(logits, targets):
+    """logits[i, targets[i]] of [N, V] logits.  Over vocabulary-sharded
+    DTensor logits (tp) it is a masked sum, which DTensor reduces over the
+    shards; the one nonzero term makes it exact."""
+    if is_dtensor(logits):
+        onehot = torch.nn.functional.one_hot(targets, logits.shape[-1])
+        return (logits * onehot.to(logits.dtype)).sum(-1)
+    return logits.gather(1, targets[:, None])[:, 0]
+
+
 def _chunk_ce(hc, kernel, tc, mc, logits_dtype):
     """One chunk: (sum of token losses, correct count)."""
     logits = chunk_logits(hc, kernel, logits_dtype)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(1, tc[:, None])[:, 0]
+    picked = pick_logits(logits, tc)
     # per-token losses and their sum in f32 whatever the logits dtype
     token_loss = torch.where(mc, lse.float() - picked.float(), 0.0)
     correct = (mc & (logits.argmax(-1) == tc)).sum()
@@ -93,7 +115,7 @@ def chunked_sft_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
         ls, cs = ckpt(chunk, h[c], head_kernel, safe[c], mask_p[c])
         loss_sum = loss_sum + ls
         correct = correct + cs
-    n_tokens = mask.sum().clamp(min=1)
+    n_tokens = batch_total(mask.sum()).clamp(min=1)
     loss = loss_sum / n_tokens
     return loss, {"loss": loss, "accuracy": correct / n_tokens,
                   "n_label_tokens": mask.sum()}
@@ -199,21 +221,29 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def mesh_metrics(metrics: dict) -> dict:
+    """A step's metrics, detached and whole (a DTensor over the tp
+    submesh gathered); on a mesh each is the sum of the batch ranks'
+    shares."""
+    return {k: batch_total(full(v.detach())) for k, v in metrics.items()}
+
+
 def _make_step(loss_fn, optimizer, schedule):
     """``step(state, batch)`` over ``loss_fn(params, batch) -> (loss,
     metrics)``: the gradients of every leaf, their global norm, the update
-    in place."""
+    in place.  On a mesh ``batch`` is this rank's rows."""
 
     def step(state, batch):
         leaves = tree_leaves(state.params)
         batch = batch_to_device(batch, leaves[0].device)
-        with record_function(STEP_RANGES[0]):
-            loss, metrics = loss_fn(state.params, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with mesh_scope():
+            with record_function(STEP_RANGES[0]):
+                loss, metrics = loss_fn(compute_view(state.params), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with record_function(STEP_RANGES[1]):
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = mesh_metrics(metrics)
             metrics["grad_norm"] = optax_global_norm(grads)
             if schedule is not None:
                 metrics["learning_rate"] = torch.tensor(schedule(state.step))
@@ -248,6 +278,10 @@ def make_chunked_sft_step(
     the metrics' "loss" is that sum and "aux_loss" the aux, as in JAX.
     ``fused_ce`` takes the loss from ``make_fused_chunked_ce`` (the head's
     gradients made in the forward loop, no chunk recomputed)."""
+    if fused_ce and kernel_mesh() is not None:
+        raise NotImplementedError(
+            "the fused CE on a mesh is not ported (ROADMAP A.11b): its "
+            "autograd Function would meet DTensors")
     ce = (make_fused_chunked_ce(chunk_size, logits_dtype) if fused_ce
           else functools.partial(chunked_sft_loss, chunk_size=chunk_size,
                                  logits_dtype=logits_dtype))

@@ -20,6 +20,7 @@ from iadr1_tpu.train import loop as jax_loop
 from iadr1_tpu.train import optimizers as jax_opt
 from iadr1_tpu_torch.cli import train_grpo, train_sft
 from iadr1_tpu_torch.core import config
+from iadr1_tpu_torch.core.mesh import build_mesh, mesh_config
 from iadr1_tpu_torch.core.metrics import ThroughputMeter
 from iadr1_tpu_torch.train import loop, optimizers
 import torch_threads  # noqa: F401  (one intra-op thread)
@@ -134,7 +135,7 @@ def test_options_the_port_cannot_run_yet_raise_at_use():
     by_name = {os.path.basename(p): p for p in CONFIGS}
     job = config.load_config(train_grpo.GRPOJobConfig,
                              by_name["grpo_llava_next_34b.yaml"])
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.11b"):
         train_grpo.require_ported(job)                  # fsdp 16 x tp 4
     job.mesh = {"dp": 1, "fsdp": -1, "tp": 1}
     train_grpo.require_ported(job)          # LoRA: ported (A.12)
@@ -153,8 +154,10 @@ def test_options_the_port_cannot_run_yet_raise_at_use():
 
     sft = config.load_config(train_sft.SFTJobConfig,
                              by_name["sft_qwen2_5_vl_72b.yaml"])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        train_sft.require_ported(sft)
+    train_sft.require_ported(sft)       # fsdp 16 x tp 4: ported (A.11)
+    # ... on 64 processes: in one, building its mesh says how to launch it
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 64"):
+        build_mesh(mesh_config(sft.mesh))
     sft = config.load_config(train_sft.SFTJobConfig,
                              by_name["sft_qwen2_5_vl_7b.yaml"])
     train_sft.require_ported(sft)                       # fsdp -1: one card

@@ -80,6 +80,10 @@ A14B_MODULES = ["train.gkd", "train.custom_optim"]
 # the SFT leftovers, the native packing plane and the data side
 A14C_A13_MODULES = ["train.sft", "data.native", "data.packing",
                     "data.tools", "data.template", "data.mm_plugins"]
+# the mesh and the distributed bootstrap
+A11_MODULES = ["core.mesh", "core.distributed", "core.device",
+               "train.state", "kernels.flash_attention",
+               "kernels.decode_attention"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -93,7 +97,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                            + FAMILY_MODULES + ADAPTER_MODULES
                            + INTERNVL_VIDEO_MODULES
                            + PALIGEMMA_PIXTRAL_MODULES + PREF_MODULES
-                           + A14B_MODULES + A14C_A13_MODULES)
+                           + A14B_MODULES + A14C_A13_MODULES
+                           + A11_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 

@@ -9,8 +9,8 @@ rows equal JAX's, and its KL rows are the mismatched pairs its docstring
 describes where JAX's are whole other rows (C.R23, pinned on both
 sides).  Every other stage runs to a finite log and a checkpoint; gkd's
 dataset branch (``gkd_lmbda`` 0) logs what the JAX launcher logs, with a
-teacher written from another seed; a mesh raises naming its ROADMAP
-item.
+teacher written from another seed; a mesh asks for a multi-process
+launch, and on a mesh every stage but DPO raises naming ROADMAP A.11b.
 """
 
 import functools
@@ -317,9 +317,14 @@ def test_gkd_without_a_teacher_raises(tmp_path):
 
 
 def test_a_mesh_and_an_unknown_stage_raise(tmp_path):
+    """DPO runs on a mesh (tests/test_torch_distributed.py), launched one
+    process a device; every other stage on a mesh names A.11b."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"stage": "dpo", "mesh": {"fsdp": 2}}))
-    with pytest.raises(NotImplementedError, match=r"A\.11"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        train_pref.main(["--config", str(path), "--device", "cpu"])
+    path.write_text(json.dumps({"stage": "kto", "mesh": {"fsdp": 2}}))
+    with pytest.raises(NotImplementedError, match=r"A\.11b"):
         train_pref.main(["--config", str(path), "--device", "cpu"])
     path.write_text(json.dumps({"stage": "sft"}))
     with pytest.raises(ValueError, match="unknown stage"):

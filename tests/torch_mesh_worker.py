@@ -1,0 +1,290 @@
+"""One rank of a multi-process Gloo run of the port (pytest does not
+collect this file: tests/test_torch_distributed.py starts it once a rank).
+
+    python tests/torch_mesh_worker.py CASE WORLD RANK INIT_FILE OUT_DIR ARGS
+
+``ARGS`` is a JSON object.  The process joins the group through
+``file://INIT_FILE`` (no port to race for), runs the case on the CPU and
+writes what the test reads into ``OUT_DIR`` (``rank{RANK}.json`` and the
+files the case names).  It imports nothing of JAX.
+"""
+
+import functools
+import json
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                os.pardir))
+torch.set_num_threads(1)
+
+
+def _f32_compute():
+    """The registry's bundles compute in f32, as the JAX side is run."""
+    from iadr1_tpu_torch.core.precision import FULL_PRECISION
+    from iadr1_tpu_torch.models import registry
+
+    for name in ("bundle_from_hf_config", "bundle_from_pretrained"):
+        setattr(registry, name, functools.partial(getattr(registry, name),
+                                                  precision=FULL_PRECISION))
+
+
+def _kernel_shapes() -> dict:
+    from iadr1_tpu_torch.kernels import decode_attention, flash_attention
+
+    return {"flash_calls": flash_attention.MESH_CALLS.calls,
+            "flash_shapes": flash_attention.MESH_CALLS.local_shapes,
+            "decode_calls": decode_attention.MESH_CALLS.calls,
+            "decode_shapes": decode_attention.MESH_CALLS.local_shapes}
+
+
+def record_tokens(patch=setattr) -> list:
+    """Record every rollout's completion ids (this rank's rows) into the
+    returned list; ``patch`` is ``setattr`` or a test's
+    ``monkeypatch.setattr``."""
+    from iadr1_tpu_torch.train.rollout import RolloutEngine
+
+    seen, inner = [], RolloutEngine.generate
+
+    def generate(self, *args, **kw):
+        out = inner(self, *args, **kw)
+        seen.append(out["completion_ids"].cpu())
+        return out
+
+    patch(RolloutEngine, "generate", generate)
+    return seen
+
+
+def length_reward(patch=setattr) -> None:
+    """Every GRPO run's reward list becomes one reward that varies with
+    the completion's length, so that the advantages are not all 0."""
+    import iadr1_tpu_torch.rewards as rewards
+
+    def length_reward(completions, **kw):
+        return [float(len(c[0]["content"]) % 5) for c in completions]
+
+    patch(rewards, "get_reward_funcs", lambda names: [length_reward])
+
+
+def count_layer_gathers() -> list:
+    """Count the decoder's gathers of one layer's shards (``compute_view``
+    called by models/qwen2.py on DTensors); returns the one-item count."""
+    from iadr1_tpu_torch.core.mesh import is_dtensor
+    from iadr1_tpu_torch.models import qwen2
+    from iadr1_tpu_torch.train.state import tree_leaves
+
+    count, inner = [0], qwen2.compute_view
+
+    def counted(tree):
+        leaves = tree_leaves(tree) if isinstance(tree, dict) else [tree]
+        count[0] += any(is_dtensor(t) and t.device_mesh.ndim == 3
+                        for t in leaves)
+        return inner(tree)
+
+    qwen2.compute_view = counted
+    return count
+
+
+def case_cli(args) -> dict:
+    """One of the training CLIs' ``main`` on a config with a mesh."""
+    import importlib
+
+    if args.get("f32"):
+        _f32_compute()
+    tokens = record_tokens() if args.get("record_tokens") else None
+    if args.get("length_reward"):
+        length_reward()
+    gathers = count_layer_gathers()
+    main = importlib.import_module(
+        f"iadr1_tpu_torch.cli.{args['cli']}").main
+    try:
+        rc = main(["--config", args["config"], "--device", "cpu"]
+                  + args.get("overrides", []))
+    except NotImplementedError as e:
+        return {"refused": str(e)}
+    from iadr1_tpu_torch.core.mesh import kernel_mesh, mesh_shape
+
+    out = {"rc": rc, "mesh": mesh_shape(kernel_mesh()), **_kernel_shapes(),
+           "layer_gathers": gathers[0]}
+    if tokens is not None:
+        out["tokens"] = [t.tolist() for t in tokens]
+    return out
+
+
+def _mesh(shape):
+    from iadr1_tpu_torch.core.mesh import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(*shape))
+
+
+def case_kernels(args) -> dict:
+    """K1-K3 (dlse != 0) and K4 twins behind the sharding rule on
+    DTensors replicated over the mesh, gathered back whole: every rank
+    writes its results for the test to hold to the unsharded calls."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from iadr1_tpu_torch.kernels.decode_attention import decode_attention
+    from iadr1_tpu_torch.kernels.flash_attention import flash_attention
+
+    mesh = _mesh(args["mesh"])
+    inputs = torch.load(args["inputs"])
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(t, grad=False):
+        d = DTensor.from_local(t.clone(), mesh, rep, run_check=False)
+        return d.requires_grad_(grad)
+
+    q, k, v = (dt(inputs[n], True) for n in ("q", "k", "v"))
+    out, lse = flash_attention(q, k, v, segment_ids=dt(inputs["seg"]),
+                               kv_segment_ids=dt(inputs["seg"]),
+                               causal=True)
+    torch.autograd.backward([out, lse], [dt(inputs["do"]),
+                                         dt(inputs["dlse"])])
+    dec = decode_attention(dt(inputs["dq"]), dt(inputs["ck"]),
+                           dt(inputs["cv"]), dt(inputs["cseg"]),
+                           inputs["length"])
+    result = {name: t.full_tensor().detach() for name, t in (
+        ("out", out), ("lse", lse), ("dq", q.grad), ("dk", k.grad),
+        ("dv", v.grad), ("decode", dec))}
+    torch.save(result, os.path.join(args["out"], f"kernels{dist.get_rank()}.pt"))
+    return _kernel_shapes()
+
+
+def case_optimizer(args) -> dict:
+    """One update of each optimizer of ``args["optims"]`` on a small tree
+    sharded by its logical axes: the parameters after it, gathered, from
+    rank 0 ({name: [leaves]})."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from iadr1_tpu_torch.core.mesh import shard_pytree
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+
+    mesh = _mesh(args["mesh"])
+    inputs = torch.load(args["inputs"])
+    updated, sharded = {}, True
+    for name, optim in args["optims"].items():
+        params = shard_pytree(inputs["params"], inputs["axes"], mesh)
+        opt, _ = make_optimizer(OptimizerConfig(**optim))
+        state = create_train_state(params, opt)
+        leaves = tree_leaves(state.params)
+        grads = [distribute_tensor(g, p.device_mesh, p.placements,
+                                   src_data_rank=None)
+                 for g, p in zip(inputs["grads"], leaves)]
+        state.apply_gradients(grads, opt)
+        updated[name] = [p.full_tensor().detach().clone() for p in leaves]
+        sharded &= all(type(p).__name__ == "DTensor" for p in leaves)
+    if dist.get_rank() == 0:
+        torch.save(updated, os.path.join(args["out"], "params.pt"))
+    return {"dtensor": sharded}
+
+
+def case_checkpoint(args) -> dict:
+    """A state sharded by its logical axes saved through CheckpointManager
+    (rank 0 writes), then restored onto the same mesh; a tiny Qwen2's
+    sharded parameters exported by ``save_pretrained``."""
+    from iadr1_tpu_torch.core.mesh import shard_pytree
+    from iadr1_tpu_torch.train.checkpoint import CheckpointManager
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+
+    mesh = _mesh(args["mesh"])
+    inputs = torch.load(args["inputs"])
+    opt, _ = make_optimizer(OptimizerConfig(total_steps=4))
+    state = create_train_state(
+        shard_pytree(inputs["params"], inputs["axes"], mesh), opt)
+    for t, m in zip(state.opt_state["mu"], inputs["mu"]):
+        t.to_local().copy_(torch.distributed.tensor.distribute_tensor(
+            m, t.device_mesh, t.placements, src_data_rank=None).to_local())
+    state.opt_state["count"] = 3
+    state = state._replace(step=3)
+    mgr = CheckpointManager(args["dir"])
+    mgr.save(3, state)
+    fresh = create_train_state(
+        shard_pytree(zeros_like_tree(inputs["params"]), inputs["axes"],
+                     mesh), opt)
+    fresh = mgr.restore(fresh)
+    same = all(torch.equal(a.full_tensor(), b.full_tensor()) for a, b in zip(
+        tree_leaves(fresh.params) + fresh.opt_state["mu"],
+        tree_leaves(state.params) + state.opt_state["mu"]))
+    from iadr1_tpu_torch.models.params_export import save_pretrained
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    bundle = bundle_from_hf_config(args["hf"])
+    params = bundle.init_params(seed=0, dtype=torch.float32, device="cpu")
+    save_pretrained(bundle, shard_pytree(params, bundle.logical_axes(), mesh),
+                    args["export"])
+    return {"restored": same, "step": fresh.step,
+            "count": fresh.opt_state["count"]}
+
+
+def case_batch(args) -> dict:
+    """The global batch's placements on the mesh: each rank's local shapes
+    from ``shard_batch`` and ``make_global_batch``, its rows by
+    ``host_batch_slice``, and a parameter tree's placements."""
+    import numpy as np
+
+    from iadr1_tpu_torch.core.distributed import (
+        host_batch_slice,
+        make_global_batch,
+    )
+    from iadr1_tpu_torch.core.mesh import (
+        kernel_mesh,
+        kernel_mesh_scope,
+        pytree_shardings,
+        shard_batch,
+    )
+
+    mesh = _mesh(args["mesh"])
+    B, T = 4, 6
+    batch = {"input_ids": np.arange(B * T).reshape(B, T),
+             "position_ids": np.zeros((3, B, T), np.int64),
+             "patches": np.ones((5, 3), np.float32)}
+    sharded = shard_batch(mesh, batch)
+    rows = host_batch_slice(B, mesh)
+    glob = make_global_batch({"input_ids": batch["input_ids"][rows]}, mesh)
+    with kernel_mesh_scope(None):
+        unarmed = kernel_mesh() is None
+    placements = pytree_shardings({"w": ("embed", "mlp"), "n": ("norm",)},
+                                  mesh)
+    return {"local": {k: list(v.to_local().shape) for k, v in sharded.items()},
+            "first_id": int(sharded["input_ids"].to_local()[0, 0]),
+            "rows": [rows.start, rows.stop],
+            "global": list(glob["input_ids"].shape),
+            "global_equal": bool(torch.equal(
+                glob["input_ids"].full_tensor(),
+                torch.as_tensor(batch["input_ids"]))),
+            "unarmed": unarmed, "armed": kernel_mesh() is mesh,
+            "placements": {k: [str(p) for p in v]
+                           for k, v in placements.items()}}
+
+
+def zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: zeros_like_tree(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+
+CASES = {"cli": case_cli, "kernels": case_kernels, "batch": case_batch,
+         "optimizer": case_optimizer, "checkpoint": case_checkpoint}
+
+
+def main():
+    case, world, rank, init_file, out_dir, args = sys.argv[1:7]
+    args = dict(json.loads(args), out=out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=int(rank), world_size=int(world))
+    try:
+        result = CASES[case](args)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
