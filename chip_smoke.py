@@ -351,6 +351,26 @@ result line:
    from input_ids with a masked prompt, its first step against
    make_chunked_sft_step on the same padded batch.  K1-K3 once a layer a
    step, counted; each step's ms and peak memory.
+35. the mesh: the kernels' sharding rule on the card, and cli/train_sft.py
+   and cli/train_grpo.py under a one-rank NCCL group against the runs
+   with no group.
+36. the tools: (a) on phase 4's generator: eval/mmlu.py over 2 subjects
+   of 4 items (1-shot, max_length 1024, batches of 4; K1 28 a batch, no
+   K4), its f32 choice logits and letters against the plain path, a
+   control one position early must fail; the bundle embedding backend
+   over 10 texts in chunks of 8 x 128 (unit norms, repeated texts equal,
+   against the plain path, a control of other texts' vectors must fail);
+   cli/chat.py's chat_loop over 3 greedy turns of 32 new tokens (a text
+   turn, /image on a seeded 448 x 448 image, /clear); the web board's
+   /api/chat, / and /api/progress; a generate under core/profiling.py's
+   device_trace (the trace names K1, K4 and the annotated region; the
+   spans carry JAX's keys); eval/commercial.py over 2 items with an
+   injected transport; (b) on phase 10's SFT export before the phase
+   removes it: cli/chat.py's main over 2 scripted greedy turns, its
+   replies against its generator's; the board's Runner launches
+   cli/train_sft.py on the card (1 step, do_predict on 2 rows of 32 new
+   tokens, the scores and the loss plot where jieba/nltk and matplotlib
+   import), /api/progress polled to return code 0, its files checked.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -387,12 +407,14 @@ q25_int8_serve, q25_nf4_serve, internvl_serve, internvl_sft,
 internvl_grpo, q2vl_video_sft, lnv_video_rollout, vllava_video_rollout,
 paligemma_serve, paligemma_sft, paligemma_grpo, pixtral_serve,
 pixtral_lora_sft, pixtral_lora_grpo, moe_serve, moe_sft, moe_grpo,
-longlora_sft, mod_train, pref, pref33, optimizers, sft_extras, mesh).
+longlora_sft, mod_train, pref, pref33, optimizers, sft_extras, mesh,
+tools; the board's child process's launches are not counted).
 ``--phases 3,29,30,31`` runs a subset
 and prints no kernel line.
 
 Before the phases, one line says which of the host libraries the port's
-CLIs use import on this machine; no phase depends on it.
+CLIs use import on this machine (jieba, nltk, matplotlib, wandb and
+requests among them); only phase 36b's host checks depend on it.
 
 Exits non-zero, printing no result, without a CUDA card or when any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -4544,9 +4566,11 @@ def chain_stage_launches(stage, cfg) -> dict:
     return zero                                          # the exports
 
 
-def phase_chain(card) -> dict:
+def phase_chain(card, tools=None) -> dict:
     """Phase 10: the IAD-R1 chain at full Qwen2-VL-2B width through one
-    call of the port's run_pipeline; returns the launch counts."""
+    call of the port's run_pipeline; returns the launch counts.  ``tools``
+    (phase 36b) is called with the chain's directory, its SFT export and
+    its data after the checks, before the directory is removed."""
     import shutil
     import tempfile
 
@@ -4765,6 +4789,8 @@ def phase_chain(card) -> dict:
             f"the export read back onto the card in {load_s:.2f} s, the "
             f"checkpoint's parameters restored in {restore_s:.2f} s "
             f"({params_gb:.2f} GB each)")
+        if tools is not None:
+            tools(root, sft_export, data, card)
     finally:
         tap.close()
         shutil.rmtree(root, ignore_errors=True)
@@ -9584,6 +9610,701 @@ def phase_mesh(rows, grpo_examples, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the tools (chat, the web board, MMLU, the embedding backend,
+# profiling, the commercial client, do_predict and the loss plot)
+# ---------------------------------------------------------------------------
+
+# which optional host packages import here: filled from the import probe
+HOST_PACKAGES: dict = {}
+# phase 36 runs in two parts: 36a on phase 4's generator, 36b on phase 10's
+# SFT export; their seconds and launches add up to the tools path
+TOOLS = {"s": 0.0, "launches": {}, "parts": []}
+TOOLS_NEW_TOKENS, TOOLS_PATCH_BUDGET, TOOLS_IMAGE_HW = 32, 1024, (448, 448)
+TRACE_NEW_TOKENS = 8
+MMLU_SUBJECTS = {"surface_inspection": "STEM", "assembly_inspection": "Other"}
+MMLU_MAX_LENGTH, MMLU_BATCH, MMLU_SHOTS = 1024, 4, 1
+# the bundle embedding backend: 10 texts in chunks of 8 (the second holds
+# 2 texts and 6 padding rows with no valid key); rows 1 and 2 repeat row 0
+EMBED_TEXTS = [
+    "a deep scratch along the upper edge of the plate",
+    "a deep scratch along the upper edge of the plate",
+    "a deep scratch along the upper edge of the plate",
+    "no defect: the surface texture is regular everywhere",
+    "a dent near the lower left corner, about two millimetres wide",
+    "",
+    "stain",
+    "a missing screw in the second row of the assembly",
+    "two parallel cracks that run from the hole to the rim of the part",
+    "the weld seam is broken in the middle",
+]
+EMBED_MAX_LEN, EMBED_BATCH = 128, 8
+# kernel vs plain: the relative L2 distance of the stacked unit vectors
+EMBED_REL_L2 = 2e-2
+# 36b: the board's training run of the SFT CLI in a child process on the
+# card (1 step of 2 rows packed from 4 of phase 10's examples, then
+# do_predict on 2 of them)
+WEBUI_STEPS, WEBUI_EXAMPLES, WEBUI_PREDICT_ROWS = 1, 4, 2
+WEBUI_TIMEOUT_S = 300
+BOARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_tools_board")
+# the board's run in flight between phase 10 and the end of the phases
+BOARD_RUN: dict = {}
+
+
+def host_packages(report: str) -> dict:
+    """{name: imports} from the import probe's report line."""
+    out = {}
+    for item in report.split(", "):
+        name, _, verdict = item.partition(" ")
+        if name:
+            out[name] = verdict == "yes"
+    return out
+
+
+def _tool_kernels():
+    from iadr1_tpu_torch.kernels import all_kernels
+
+    return [k for k, _ in all_kernels()]
+
+
+def _launches(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def _add_tools(launches: dict, seconds: float, part: str) -> None:
+    for name, n in launches.items():
+        TOOLS["launches"][name] = TOOLS["launches"].get(name, 0) + n
+    TOOLS["s"] += seconds
+    TOOLS["parts"].append(f"{part} {seconds:.1f} s")
+
+
+def twin_bundle(bundle):
+    """A Qwen2-VL bundle whose attention (tower and decoder) is the K1
+    twin: the plain path over the same parameters."""
+    from iadr1_tpu_torch.models import qwen2_vl
+
+    cfg = bundle.cfg
+
+    def apply(params, batch, cache=None, cache_mode="extend", remat=False,
+              tower_remat=None, lora=None, lora_scale=1.0):
+        return qwen2_vl.apply(
+            params, cfg, batch["input_ids"], batch["position_ids"],
+            patches=batch.get("patches"), rot_cos=batch.get("rot_cos"),
+            rot_sin=batch.get("rot_sin"),
+            vision_segments=batch.get("vision_segments"),
+            scatter_rows=batch.get("scatter_rows"),
+            scatter_cols=batch.get("scatter_cols"),
+            segment_ids=batch.get("segment_ids"), cache=cache,
+            cache_mode=cache_mode, precision=bundle.precision,
+            attention_fn=twin_attn, vision_attention_fn=twin_attn,
+            remat=remat)
+
+    return dataclasses.replace(bundle, apply=apply)
+
+
+def write_mmlu_task(root: str, seed: int = 36) -> str:
+    """Two subjects of 4 test items and 1 train item each, with their
+    mapping.json, in eval/mmlu.py's layout."""
+    rng = np.random.default_rng(seed)
+    words = ("scratch dent crack stain hole seam plate screw edge corner "
+             "surface texture rim weld bolt").split()
+
+    def text(n):
+        return " ".join(rng.choice(words, n))
+
+    os.makedirs(root, exist_ok=True)
+    mapping = {}
+    for subject, category in MMLU_SUBJECTS.items():
+        items = [{"question": f"Which defect does the {text(30)} show?",
+                  **{c: text(6) for c in "ABCD"},
+                  "answer": "ABCD"[int(rng.integers(4))]}
+                 for _ in range(5)]
+        with open(os.path.join(root, f"{subject}.json"), "w") as f:
+            json.dump({"train": items[:1], "test": items[1:]}, f)
+        mapping[subject] = {"name": subject.replace("_", " "),
+                            "category": category}
+    with open(os.path.join(root, "mapping.json"), "w") as f:
+        json.dump(mapping, f)
+    return root
+
+
+def choice_logits_at(bundle, params, choice_ids, batch, back: int):
+    """The f32 choice logits ``back`` positions before each row's last
+    prompt position (0: eval/mmlu.py's own position)."""
+    with torch.no_grad():
+        hidden = bundle.hidden_fn(params, batch, remat=False)
+    idx = (batch["segment_ids"].sum(dim=1) - 1 - back).clamp(min=0)
+    last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+    kernel = bundle.head_kernel_fn(params)
+    return last.float() @ kernel[:, torch.as_tensor(
+        choice_ids, device=kernel.device)].float()
+
+
+def rel_l2(a, b) -> float:
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).norm() / b.norm())
+
+
+def tools_mmlu(gen, root, kernels) -> dict:
+    """36a: the MMLU evaluator over the serving weights, on the kernels
+    and again on the plain path; returns the kernel run's launches.  The
+    stand-in tokenizer encodes each character as its code point, so the
+    choice letters are 4 distinct ids."""
+    from iadr1_tpu_torch.eval.mmlu import MMLUEvaluator
+
+    cfg = gen.bundle.cfg
+    task = write_mmlu_task(os.path.join(root, "mmlu_task"))
+    tok = StandInTokenizer([""])
+    ev = MMLUEvaluator(gen.bundle, gen.params, tok, max_length=MMLU_MAX_LENGTH,
+                       batch_size=MMLU_BATCH, device=DEVICE)
+    batches, kernel_logits, per_batch = [], [], []
+    logits_fn = ev._logits
+
+    def recorded(params, batch):
+        before = _launches(kernels)
+        out = logits_fn(params, batch)
+        torch.cuda.synchronize()
+        per_batch.append({k: n - before[k]
+                          for k, n in _launches(kernels).items()})
+        batches.append(batch)
+        kernel_logits.append(out)
+        return out
+
+    ev._logits = recorded
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    scores = ev.eval_task(task, n_shot=MMLU_SHOTS, seed=42,
+                          save_dir=os.path.join(root, "mmlu_out"))
+    torch.cuda.synchronize()
+    mmlu_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    with open(os.path.join(root, "mmlu_out", "results.json")) as f:
+        saved = json.load(f)
+    letters = "".join(p for subject in MMLU_SUBJECTS
+                      for p in saved["results"][subject].values())
+
+    twin = twin_bundle(gen.bundle)
+    twin_ev = MMLUEvaluator(twin, gen.params, tok, max_length=MMLU_MAX_LENGTH,
+                            batch_size=MMLU_BATCH, device=DEVICE)
+    twin_logits = [twin_ev._logits(gen.params, b) for b in batches]
+    # the control: the columns of the next four letters (E-H) in place of
+    # A-D; beside it, the logits one position early
+    other_ids = [tok.encode(c)[-1] for c in "EFGH"]
+    columns = [choice_logits_at(twin, gen.params, other_ids, b, back=0)
+               for b in batches]
+    early = [choice_logits_at(twin, gen.params, ev.choice_ids, b, back=1)
+             for b in batches]
+    if _launches(kernels) != launches:
+        raise AssertionError("mmlu: the plain path launched a kernel")
+    got, want = torch.cat(kernel_logits), torch.cat(twin_logits)
+    rel, control = rel_l2(got, want), rel_l2(torch.cat(columns), want)
+    early_rel = rel_l2(torch.cat(early), want)
+    twin_letters = "".join("ABCD"[i] for i in want.argmax(dim=1).tolist())
+    top2 = want.topk(2, dim=1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    n_items = 4 * len(MMLU_SUBJECTS)
+    if (got.dtype != torch.float32 or got.shape != (n_items, 4)
+            or not torch.isfinite(got).all()):
+        raise AssertionError(f"mmlu: choice logits {got.dtype} "
+                             f"{tuple(got.shape)}")
+    if set(scores) != {"Average", *MMLU_SUBJECTS.values()} or (
+            len(letters) != n_items or not set(letters) <= set("ABCD")):
+        raise AssertionError(f"mmlu: scores {scores}, letters {letters!r}")
+    if letters != twin_letters:
+        raise AssertionError(f"mmlu: letters {letters!r} on the kernels, "
+                             f"{twin_letters!r} on the plain path")
+    if not rel <= LOGITS_REL_L2 or not control > LOGITS_REL_L2:
+        raise AssertionError(
+            f"mmlu: choice logits kernel vs plain rel L2 {rel:.3e}, the "
+            f"control (letters E-H) {control:.3e}, limit {LOGITS_REL_L2}")
+    want_batch = {"flash_fwd": cfg.text.num_hidden_layers, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0, "decode_attention": 0}
+    if per_batch != [want_batch] * (n_items // MMLU_BATCH):
+        raise AssertionError(f"mmlu: launches per batch {per_batch}, want "
+                             f"{want_batch}")
+    log(f"tools mmlu (36a): {n_items} items of {len(MMLU_SUBJECTS)} subjects, "
+        f"{MMLU_SHOTS}-shot, max_length {MMLU_MAX_LENGTH}, batches of "
+        f"{MMLU_BATCH}: letters {letters} (the plain path's {twin_letters}, "
+        f"smallest top-2 margin {margin:.3e}), scores {scores}; f32 choice "
+        f"logits kernel vs plain rel L2 {rel:.3e} (limit {LOGITS_REL_L2}; "
+        f"the control, letters E-H's columns, {control:.3e}; the logits one "
+        f"position early read {early_rel:.3e}); {mmlu_s:.2f} s; launches "
+        f"per batch {per_batch[0]}")
+    return launches
+
+
+def tools_embeddings(gen, kernels) -> dict:
+    """36a: the bundle embedding backend on the kernels against the plain
+    path; returns the kernel run's launches."""
+    from iadr1_tpu_torch.rewards import description
+
+    tok = StandInTokenizer([""])
+    kw = dict(max_len=EMBED_MAX_LEN, batch_size=EMBED_BATCH, device=DEVICE)
+    embed = description.make_bundle_embedding_backend(
+        gen.bundle, gen.params, tok, **kw)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    vecs = torch.tensor(embed(EMBED_TEXTS), dtype=torch.float64)
+    embed_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    twin = torch.tensor(description.make_bundle_embedding_backend(
+        twin_bundle(gen.bundle), gen.params, tok, **kw)(EMBED_TEXTS),
+        dtype=torch.float64)
+    if _launches(kernels) != launches:
+        raise AssertionError("embeddings: the plain path launched a kernel")
+    n = len(EMBED_TEXTS)
+    # the control: each text's vector against the plain path's of the next
+    # distinct text
+    other = [3, 3, 3, 4, 5, 6, 7, 8, 9, 0]
+    rel, control = rel_l2(vecs, twin), rel_l2(vecs, twin[other])
+    norms = vecs.norm(dim=1)
+    if vecs.shape != (n, gen.bundle.cfg.text.hidden_size) or not bool(
+            torch.isfinite(vecs).all()):
+        raise AssertionError(f"embeddings: {tuple(vecs.shape)}")
+    if float((norms - 1).abs().max()) > 5e-3:
+        raise AssertionError(f"embeddings: norms {norms.tolist()}")
+    if not (torch.equal(vecs[0], vecs[1]) and torch.equal(vecs[0], vecs[2])):
+        raise AssertionError("embeddings: a repeated text gave another "
+                             "vector")
+    if not rel <= EMBED_REL_L2 or not control > EMBED_REL_L2:
+        raise AssertionError(f"embeddings: kernel vs plain rel L2 {rel:.3e}, "
+                             f"the control {control:.3e}, limit "
+                             f"{EMBED_REL_L2}")
+    chunks = -(-n // EMBED_BATCH)
+    want = {"flash_fwd": chunks * gen.bundle.cfg.text.num_hidden_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"embeddings: launches {launches}, want {want}")
+    description.register_embedding_backend(embed)
+    try:
+        same = description.description_score(EMBED_TEXTS[0], EMBED_TEXTS[0])
+        diff = description.description_score(EMBED_TEXTS[0], EMBED_TEXTS[6])
+    finally:
+        description.register_embedding_backend(None)
+    if abs(same - 1.0) > 5e-3 or not 0.0 <= diff < same:
+        raise AssertionError(f"embeddings: description scores {same}, {diff}")
+    log(f"tools embeddings (36a): {n} texts (3 repeated, 1 empty) in "
+        f"{chunks} chunks of {EMBED_BATCH} x {EMBED_MAX_LEN} in {embed_s:.2f} "
+        f"s; norms within {float((norms - 1).abs().max()):.1e} of 1, "
+        f"repeated texts bitwise equal; kernel vs plain rel L2 {rel:.3e} "
+        f"(limit {EMBED_REL_L2}; the control, other texts' vectors, "
+        f"{control:.3e}); description_score through the backend {same:.4f} "
+        f"(same text), {diff:.4f} (other); launches {launches}")
+    return launches
+
+
+def write_tools_image(path: str, seed: int = 36) -> str:
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    Image.fromarray(rng.integers(0, 256, (*TOOLS_IMAGE_HW, 3),
+                                 np.uint8)).save(path)
+    return path
+
+
+def tools_chat(gen, root, kernels, card) -> dict:
+    """36a: chat_loop, the web board's chat route, profiling and the
+    commercial client over the serving weights; returns the launches of
+    the loop, the route and the traced generate."""
+    import copy
+    import urllib.request
+
+    from iadr1_tpu_torch.cli.chat import chat_loop
+    from iadr1_tpu_torch.core import profiling
+    from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
+    from iadr1_tpu_torch.webui.app import PAGE, create_server
+
+    cfg = gen.bundle.cfg
+    tok = StandInTokenizer(CHAT_RESPONSES)
+    chat_gen = VLMGenerator(
+        gen.bundle, gen.params, tok, gen.template,
+        GeneratorConfig(max_prompt_length=PROMPT_LEN,
+                        max_new_tokens=TOOLS_NEW_TOKENS, temperature=0.0,
+                        batch_size=1, patch_budget=TOOLS_PATCH_BUDGET),
+        device=DEVICE)
+    tap = GenerateTap(chat_gen.engine, kernels)
+    image = write_tools_image(os.path.join(root, "query.png"))
+    requests, written = [], []
+    generate = chat_gen.generate
+
+    def recorded(reqs):
+        requests.append(copy.deepcopy(reqs))
+        return generate(reqs)
+
+    chat_gen.generate = recorded
+    script = iter(["Are there any defects on the part?", f"/image {image}",
+                   "Where is the defect?", "/clear",
+                   "Describe the surface.", "/exit"])
+    for k in kernels:
+        k.launches = 0
+    n_encoded = len(tok.encoded)
+    t0 = time.perf_counter()
+    chat_loop(chat_gen, lambda prompt: next(script), written.append)
+    chat_s = time.perf_counter() - t0
+    chat_launches = _launches(kernels)
+    pads = [text.count("<|image_pad|>") for text in tok.encoded[n_encoded:]]
+    n_img = (TOOLS_IMAGE_HW[0] // 28) * (TOOLS_IMAGE_HW[1] // 28)
+    shapes = [(len(r[0]["messages"]), len(r[0]["images"])) for r in requests]
+    if shapes != [(1, 0), (3, 1), (1, 0)] or pads != [0, n_img, 0]:
+        raise AssertionError(f"chat: turns (messages, images) {shapes}, "
+                             f"image tokens {pads}")
+    if requests[1][0]["messages"][2]["content"] != "<image>Where is the defect?":
+        raise AssertionError(f"chat: the image turn {requests[1]}")
+    if len(tap.calls) != 3 or written[-1] != f"assistant> {CHAT_RESPONSES[2]}":
+        raise AssertionError(f"chat: {len(tap.calls)} generates, {written}")
+    for i, call in enumerate(tap.calls):
+        check_batch_launches(f"chat turn {i + 1}", call, cfg)
+
+    # the web board with a chat_fn over the same generator
+    server = create_server(chat_fn=lambda message: chat_gen.generate(
+        [{"messages": [{"role": "user", "content": message}]}])[0], port=0)
+    port = server.start_background()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        req = urllib.request.Request(
+            base + "/api/chat", data=json.dumps(
+                {"message": "Any defects?"}).encode(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            reply = json.loads(resp.read())
+        board_ms = 1e3 * (time.perf_counter() - t0)
+        with urllib.request.urlopen(base + "/", timeout=30) as resp:
+            page = resp.read().decode()
+        with urllib.request.urlopen(base + "/api/progress",
+                                    timeout=30) as resp:
+            progress = json.loads(resp.read())
+    finally:
+        server.shutdown()
+    if (reply.get("response") not in CHAT_RESPONSES or page != PAGE
+            or progress != {"state": "idle", "returncode": None,
+                            "n_records": 0}):
+        raise AssertionError(f"board: {reply}, {progress}")
+    check_batch_launches("board chat", tap.calls[-1], cfg)
+
+    # one short generate (TRACE_NEW_TOKENS) under the device trace, inside
+    # an annotated region and two wall-time spans
+    trace_gen = VLMGenerator(
+        gen.bundle, gen.params, tok, gen.template,
+        dataclasses.replace(chat_gen.cfg, max_new_tokens=TRACE_NEW_TOKENS),
+        device=DEVICE)
+    trace_tap = GenerateTap(trace_gen.engine, kernels)
+    profiling.drain_profiling_metrics()
+    traced = profiling.profiling_decorator(VLMGenerator.generate)
+    trace_dir = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    with profiling.device_trace(trace_dir):
+        with profiling.annotate("tools_chat_turn"), \
+                profiling.profiling_context("tools/chat turn"):
+            traced(trace_gen, [{"messages": [
+                {"role": "user", "content": "Any defects?"}]}])
+    trace_s = time.perf_counter() - t0
+    spans = profiling.drain_profiling_metrics()
+    path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    size_mb = os.path.getsize(path) / 1e6
+    with open(path) as f:
+        names = {e.get("name") or "" for e in json.load(f)["traceEvents"]}
+    wanted = ("tools_chat_turn",) + (("flash_fwd_kernel",
+                                      "decode_chunk_kernel")
+                                     if DEVICE == "cuda" else ())
+    found = {want: any(want in n for n in names) for want in wanted}
+    if not all(found.values()) or sorted(spans) != [
+            "profiling/Time taken: VLMGenerator.generate",
+            "profiling/Time taken: tools/chat turn"]:
+        raise AssertionError(f"profiling: trace names {found}, spans {spans}")
+    check_batch_launches("traced chat", trace_tap.calls[-1], cfg)
+    launches = _launches(kernels)
+    log(f"tools chat (36a): chat_loop on the serving weights (batch 1, "
+        f"{TOOLS_NEW_TOKENS} new tokens, greedy, patch budget "
+        f"{TOOLS_PATCH_BUDGET}; replies decoded by the stand-in tokenizer): "
+        f"3 turns with (messages, images) {shapes}, image tokens {pads} "
+        f"(the tower runs over the patch budget every turn, in both "
+        f"packages' generators), decode steps "
+        f"{[c['steps'] for c in tap.calls[:3]]}, "
+        f"{[round(1e3 * c['s'], 1) for c in tap.calls[:3]]} ms a turn, "
+        f"{chat_s:.2f} s in all, launches {chat_launches}")
+    log(f"tools board (36a): POST /api/chat answered in {board_ms:.1f} ms "
+        f"({tap.calls[3]['steps']} decode steps), GET / and /api/progress "
+        f"answered; profiling: a traced generate of "
+        f"{trace_tap.calls[-1]['steps']} decode steps in {trace_s:.2f} s "
+        f"(trace {size_mb:.1f} MB names {sorted(found)}), spans "
+        f"{ {k: round(1e3 * v, 1) for k, v in spans.items()} } ms on {card}")
+    return launches
+
+
+def tools_commercial(root) -> None:
+    """36a: the commercial client over 2 benchmark items with an injected
+    transport (host code: no request leaves the machine)."""
+    from PIL import Image
+
+    from iadr1_tpu_torch.eval.commercial import APIConfig, run_commercial_eval
+
+    bench = os.path.join(root, "commercial", "test_SynthAD_format.json")
+    os.makedirs(os.path.dirname(bench), exist_ok=True)
+    make_eval_benchmark(bench)
+    with open(bench) as f:
+        items = list(json.load(f))[:2]
+    rng = np.random.default_rng(37)
+    for rel in items:
+        p = os.path.join(root, "commercial", rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3),
+                                     np.uint8)).save(p)
+    payloads = []
+
+    def transport(payload, headers):
+        payloads.append(payload)
+        return {"choices": [{"message": {"content": "Answer: B."}}]}
+
+    t0 = time.perf_counter()
+    path = run_commercial_eval(bench, os.path.join(root, "commercial"),
+                               APIConfig(), os.path.join(root, "api"),
+                               transport=transport, max_items=2)
+    api_s = time.perf_counter() - t0
+    with open(path) as f:
+        answers = json.load(f)
+    csv_path = path.replace(".json", "_accuracy.csv")
+    if ([a["gpt_answer"] for a in answers] != ["B", "B"]
+            or len(payloads) != 2 or not os.path.exists(csv_path)):
+        raise AssertionError(f"commercial: {answers}, {len(payloads)} calls")
+    log(f"tools commercial (36a): run_commercial_eval over 2 items with an "
+        f"injected transport: 2 payloads, answers "
+        f"{[a['gpt_answer'] for a in answers]}, the answers JSON and "
+        f"{os.path.basename(csv_path)} written in {api_s:.2f} s")
+
+
+def phase_tools_serving(gen, card) -> None:
+    """Phase 36a: MMLU, the bundle embedding backend, chat_loop, the web
+    board's chat route, profiling and the commercial client, on phase 4's
+    full-width generator."""
+    import shutil
+    import tempfile
+
+    kernels = _tool_kernels()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir=build)
+    t0 = time.perf_counter()
+    total = {}
+    try:
+        for launches in (tools_mmlu(gen, root, kernels),
+                         tools_embeddings(gen, kernels),
+                         tools_chat(gen, root, kernels, card)):
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+        tools_commercial(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _add_tools(total, time.perf_counter() - t0, "36a")
+
+
+def phase_tools_chain(root: str, sft_export: str, data: dict, card) -> None:
+    """Phase 36b, on phase 10's SFT export before the phase removes it:
+    the web board's Runner launches a training run of the SFT CLI on the
+    card, with do_predict and (where matplotlib imports) the loss plot, on
+    a hard-linked copy of the export and the chain's data; the child runs
+    beside the next phases (its imports of torch and transformers take
+    most of its time) and ``finish_board_run`` checks it at the end.  In
+    the meantime cli/chat.py's main runs here on a script of 2 turns."""
+    import atexit
+    import builtins
+    import copy
+    import shutil
+    import urllib.request
+
+    from iadr1_tpu_torch.cli import chat
+    from iadr1_tpu_torch.eval import generator as generator_mod
+    from iadr1_tpu_torch.webui.app import create_server
+
+    kernels = _tool_kernels()
+    t0 = time.perf_counter()
+    # --- the board's training run, launched first ------------------------
+    shutil.rmtree(BOARD_DIR, ignore_errors=True)
+    export = os.path.join(BOARD_DIR, "sft_export")
+    data_dir = os.path.join(BOARD_DIR, "data")
+    shutil.copytree(sft_export, export, copy_function=os.link)
+    shutil.copytree(os.path.dirname(data["sft"]), data_dir,
+                    copy_function=os.link)
+    scores = HOST_PACKAGES.get("jieba", False) and HOST_PACKAGES.get(
+        "nltk", False)
+    plot = HOST_PACKAGES.get("matplotlib", False)
+    out = os.path.join(BOARD_DIR, "run")
+    dataset = os.path.join(data_dir, os.path.basename(data["sft"]))
+    form = {"stage": "sft", "model_name_or_path": export,
+            "dataset": dataset, "template": "qwen2_vl",
+            "cutoff_len": CUTOFF_LEN, "learning_rate": LEARNING_RATE,
+            "max_steps": WEBUI_STEPS, "batch_size": TRAIN_ROWS,
+            "logging_steps": 1, "output_dir": out,
+            "extra": {"data.image_dir": data_dir,
+                      "data.patch_budget": PATCH_BUDGET,
+                      "data.ce_chunk": CE_CHUNK, "data.min_pixels": 3136,
+                      "data.max_pixels": 480000,
+                      "data.max_samples": WEBUI_EXAMPLES,
+                      "train.keep_checkpoints": 1, "train.plot_loss": plot,
+                      "predict.do_predict": True,
+                      "predict.max_samples": WEBUI_PREDICT_ROWS,
+                      "predict.max_new_tokens": TOOLS_NEW_TOKENS,
+                      "predict.batch_size": WEBUI_PREDICT_ROWS}}
+    if DEVICE == "cpu":                  # a rehearsal on the CPU
+        form["device"] = "cpu"
+    torch.cuda.empty_cache()
+    server = create_server(port=0)
+    base = f"http://127.0.0.1:{server.start_background()}"
+    atexit.register(stop_board_run)      # the child never outlives the run
+    BOARD_RUN.update(server=server, base=base, out=out, scores=scores,
+                     plot=plot, launched=time.time(),
+                     info=server.runner.launch(
+                         form, extra_args=[] if scores
+                         else ["--no-predict-scores"]))
+    with urllib.request.urlopen(base + "/api/progress", timeout=30) as resp:
+        BOARD_RUN["first_state"] = json.loads(resp.read())["state"]
+
+    # --- cli/chat.py main, greedy, on the export -------------------------
+    turns, script = [], iter(["w12 w345 w6789 w10", "w901 w23 w4567", "/exit"])
+    through = generator_mod.VLMGenerator.generate
+
+    def recorded(self, requests):
+        out = through(self, requests)
+        turns.append((self, copy.deepcopy(requests), out))
+        return out
+
+    real_input = builtins.input
+    builtins.input = lambda prompt="": next(script)
+    generator_mod.VLMGenerator.generate = recorded
+    for k in kernels:
+        k.launches = 0
+    try:
+        t_chat = time.perf_counter()
+        rc = chat.main(["--model-path", sft_export, "--temperature", "0",
+                        "--max-new-tokens", str(TOOLS_NEW_TOKENS // 2),
+                        "--max-prompt-length", "256",
+                        "--patch-budget", str(TOOLS_PATCH_BUDGET)]
+                       + (["--device", "cpu"] if DEVICE == "cpu" else []))
+        torch.cuda.synchronize()
+        chat_s = time.perf_counter() - t_chat
+    finally:
+        builtins.input = real_input
+        generator_mod.VLMGenerator.generate = through
+    launches = _launches(kernels)
+    cfg = turns[0][0].bundle.cfg if turns else None
+    if rc != 0 or len(turns) != 2:
+        raise AssertionError(f"chat main: rc {rc}, {len(turns)} turns")
+    again = [gen.generate(requests) for gen, requests, _ in turns]
+    if again != [out for _, _, out in turns]:
+        raise AssertionError(f"chat main: replies {[o for *_, o in turns]}, "
+                             f"its generator's {again}")
+    if (len(turns[1][1][0]["messages"]) != 3
+            or turns[1][1][0]["messages"][1]["content"] != turns[0][2][0]):
+        raise AssertionError(f"chat main: the second turn {turns[1][1]}")
+    depth = cfg.vision.depth + cfg.text.num_hidden_layers
+    if (launches["flash_fwd"] != 2 * depth or launches["flash_bwd_dq"]
+            or launches["flash_bwd_dkv"] or not launches["decode_attention"]
+            or launches["decode_attention"] % cfg.text.num_hidden_layers):
+        raise AssertionError(f"chat main: launches {launches}")
+    log(f"tools chat main (36b): cli/chat.py's main on the SFT export "
+        f"({cfg.text.num_hidden_layers} + {cfg.vision.depth} layers, bf16, "
+        f"greedy, {TOOLS_NEW_TOKENS // 2} new tokens) over 2 scripted "
+        f"turns in {chat_s:.2f} s, its load included, beside the board's "
+        f"child starting; replies {[o[0][:40] for *_, o in turns]} equal "
+        f"to its generator's for the same conversation; launches "
+        f"{launches}")
+    _add_tools(launches, time.perf_counter() - t0, "36b")
+
+
+def stop_board_run() -> None:
+    """Abort phase 36b's child if it still runs and stop the board."""
+    if BOARD_RUN.get("server") is not None:
+        BOARD_RUN["server"].runner.abort()
+        BOARD_RUN["server"].shutdown()
+        BOARD_RUN["server"] = None
+
+
+def finish_board_run(card) -> None:
+    """Phase 36b's end: poll /api/progress until the board's child has
+    finished, then check what it wrote (the trainer log, the predictions,
+    and the scores and the plot where their packages import)."""
+    import shutil
+    import urllib.request
+
+    t0 = time.perf_counter()
+    base, out = BOARD_RUN["base"], BOARD_RUN["out"]
+    scores, plot = BOARD_RUN["scores"], BOARD_RUN["plot"]
+    polls, progress = 0, {}
+    try:
+        deadline = time.perf_counter() + WEBUI_TIMEOUT_S
+        while time.perf_counter() < deadline:
+            with urllib.request.urlopen(base + "/api/progress",
+                                        timeout=30) as resp:
+                progress = json.loads(resp.read())
+            polls += 1
+            if progress["state"] == "finished":
+                break
+            time.sleep(0.25)
+    finally:
+        stop_board_run()
+    wait_s = time.perf_counter() - t0
+    with open(os.path.join(out, "webui_stdout.log")) as f:
+        child_log = f.read()
+    if (BOARD_RUN["first_state"] != "running"
+            or progress.get("state") != "finished"
+            or progress.get("returncode") != 0):
+        raise AssertionError(
+            f"board run: {BOARD_RUN['first_state']} after the launch, "
+            f"{progress} at the end; the child's log ends "
+            f"{child_log[-3000:]}")
+    since = {name: os.path.getmtime(os.path.join(out, name))
+             - BOARD_RUN["launched"] for name in (
+                 "trainer_log.jsonl", "generated_predictions.jsonl")}
+    with open(os.path.join(out, "trainer_log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(out, "generated_predictions.jsonl")) as f:
+        preds = [json.loads(line) for line in f]
+    files = set(os.listdir(out))
+    if (len(records) != WEBUI_STEPS or not math.isfinite(records[0]["loss"])
+            or progress["n_records"] != WEBUI_STEPS):
+        raise AssertionError(f"board run: trainer log {records}")
+    if len(preds) != WEBUI_PREDICT_ROWS or any(
+            set(p) != {"prompt", "label", "predict"} for p in preds):
+        raise AssertionError(f"board run: predictions {preds}")
+    if ("predict_results.json" in files) != scores or (
+            "training_loss.png" in files) != plot:
+        raise AssertionError(f"board run: files {sorted(files)} with "
+                             f"jieba/nltk {scores}, matplotlib {plot}")
+    results = {}
+    if scores:
+        with open(os.path.join(out, "predict_results.json")) as f:
+            results = json.load(f)
+    shutil.rmtree(BOARD_DIR, ignore_errors=True)
+    info = BOARD_RUN["info"]
+    log(f"tools board run (36b): Runner.launch ran "
+        f"{' '.join(info['command'][1:3])} on the card ({WEBUI_STEPS} step "
+        f"of {TRAIN_ROWS} x {CUTOFF_LEN} packed from {WEBUI_EXAMPLES} of the "
+        f"chain's examples, from the SFT export, then do_predict on "
+        f"{WEBUI_PREDICT_ROWS} rows, {TOOLS_NEW_TOKENS} new tokens) beside "
+        f"the phases after 10: its step's record written "
+        f"{since['trainer_log.jsonl']:.1f} s after the launch (the child's "
+        f"own clock {records[0]['elapsed_time']} s after its logger "
+        f"started), its predictions {since['generated_predictions.jsonl']:.1f}"
+        f" s after; /api/progress said running after the launch and "
+        f"finished with return code 0 at the end ({polls} polls, "
+        f"{wait_s:.2f} s of waiting); loss {records[0]['loss']:.4f}; wrote "
+        f"{sorted(files)}; the child said: " + " | ".join(
+            line[:160] for line in child_log.splitlines()
+            if line.startswith(("packed", "[step", "predictions saved",
+                                "similarity"))))
+    log("tools host packages (36b): on the card "
+        + ("the similarity scores " + json.dumps(results) if scores else
+           "the generation half of run_predict only (jieba/nltk absent: "
+           "predict_results.json is held by the CPU tests)")
+        + ("; the loss plot" if plot else "; no loss plot (matplotlib "
+           "absent: plot_loss is held by the CPU tests)")
+        + "; wandb reporting is held by the CPU tests (a fake wandb)")
+    _add_tools({k.name: 0 for k in _tool_kernels()}, wait_s,
+               "36b board wait")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-new-tokens", type=int, default=128,
@@ -9596,9 +10317,10 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-35; "
-                         "4, 5, 8 and 9 run together), for a partial run "
-                         "that prints no kernel line; default: all")
+                    help="comma-separated phase numbers to run (3-36; "
+                         "4, 5, 8 and 9 run together, and 36 brings 4 "
+                         "and 10), for a partial run that prints no "
+                         "kernel line; default: all")
     ap.add_argument("--pad-compare", action="store_true",
                     help="also time K1-K3 at the SigLIP tower with q, k, v "
                          "and dO padded to 80 in the wrapper, beside the "
@@ -9625,7 +10347,8 @@ def main() -> int:
     # making of every phase's requests and rows
     t_build = time.perf_counter()
     imports = importable(("tokenizers", "safetensors", "PIL", "pandas",
-                          "yaml", "transformers"))
+                          "yaml", "transformers", "jieba", "nltk",
+                          "matplotlib", "wandb", "requests"))
     kernels = all_kernels()
     native_build = native.start_build()
     building = start_build([k.source for k, _ in kernels])
@@ -9681,9 +10404,13 @@ def main() -> int:
         f"sm_90a in {time.perf_counter() - t_build:.1f} s, the native "
         f"packing plane in {native_s:.2f} s, beside the requests and rows "
         f"of every phase ({data_s:.1f} s)")
-    log("imports: " + imports())
-    phases = (set(range(1, 36)) if args.phases is None
+    report = imports()
+    HOST_PACKAGES.update(host_packages(report))
+    log("imports: " + report)
+    phases = (set(range(1, 37)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
+    if 36 in phases:                 # 36a runs on phase 4's generator, 36b
+        phases |= {4, 10}            # on phase 10's SFT export
     by_path, measured = {}, None
     t0 = time.perf_counter()
     if 3 in phases:
@@ -9726,6 +10453,8 @@ def main() -> int:
         phase_profile("serve", gen, batch)
         by_path["eval"] = phase_eval(gen, card)
         by_path["chat"] = phase_chat(gen, card)
+        if 36 in phases:
+            phase_tools_serving(gen, card)
         del gen, batch
         torch.cuda.empty_cache()
         log(f"phases 4, 5, 8, 9 (serve, eval, chat): "
@@ -9741,7 +10470,8 @@ def main() -> int:
         (6, "train", lambda: phase_train(train_rows, args.train_steps, card)),
         (7, "grpo", lambda: phase_grpo(grpo_examples, args.grpo_steps, card,
                                        grpo_case_qwen2_vl())),
-        (10, "chain", lambda: phase_chain(card)),
+        (10, "chain", lambda: phase_chain(
+            card, phase_tools_chain if 36 in phases else None)),
         (11, "llava_serve", lambda: phase_llava_serve(
             llava_encoded, args.max_new_tokens, card)),
         (12, "llava_sft", lambda: phase_llava_sft(
@@ -9823,8 +10553,14 @@ def main() -> int:
             torch.cuda.empty_cache()
             log(f"phase {n} ({path}): {time.perf_counter() - t0:.1f} s")
             read_profiles(wait=False)
+    if BOARD_RUN:
+        finish_board_run(card)
     read_profiles(wait=True)
-    if not set(range(3, 36)) <= phases:
+    if 36 in phases:
+        by_path["tools"] = dict(TOOLS["launches"])
+        log(f"phase 36 (tools): {TOOLS['s']:.1f} s ("
+            + ", ".join(TOOLS["parts"]) + ")")
+    if not set(range(3, 37)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())

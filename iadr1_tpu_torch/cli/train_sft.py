@@ -6,8 +6,10 @@ Usage:
     python -m iadr1_tpu_torch.cli.train_sft --config sft.yaml \
         train.max_steps=20 optim.learning_rate=1e-4 [--device cpu]
 
-``require_ported`` names the ROADMAP item each option the port cannot run
-yet waits for: ``do_predict`` (A.15).  On a mesh (``torchrun
+``predict.do_predict`` generates on the dataset's prompts after training
+(``run_predict``: generated_predictions.jsonl, then the ROUGE/BLEU scores
+in predict_results.json, which need ``jieba`` and ``nltk``;
+``--no-predict-scores`` skips the scores).  On a mesh (``torchrun
 --nproc_per_node N -m iadr1_tpu_torch.cli.train_sft --config ...`` with a
 ``mesh:`` section, ``core/mesh.py``) the parameters and moments are
 sharded by the family's logical axes, each rank collates its dp x fsdp
@@ -104,10 +106,9 @@ def mesh_devices(mesh: dict) -> int:
 
 
 def require_ported(job: SFTJobConfig) -> None:
-    """Raise for an option the port cannot run yet, naming its item."""
-    if job.predict.do_predict:
-        raise NotImplementedError(
-            "do_predict is not ported yet (ROADMAP A.15)")
+    """Raise for an option the port cannot run yet, naming its item: none
+    of the SFT job's is left (what a mesh cannot carry is refused by
+    ``mesh_refusals``)."""
 
 
 # the families whose forward runs on DTensors under tp > 1, each held to
@@ -176,6 +177,93 @@ def context_extension(model: ModelSection, hf_config: dict):
         attention = ("longlora" if attention == "auto"
                      else f"longlora_{attention}")
     return hf_config, attention
+
+
+def predict_generate(bundle, params, tokenizer, template,
+                     data_cfg: DataSection, pred_cfg: PredictSection,
+                     output_dir: str, device=None):
+    """Generate on the dataset prompts and write generated_predictions.jsonl
+    ({"prompt", "label", "predict"} per row -- the reference's
+    save_predictions schema, train/sft/trainer.py:137-171); returns (path,
+    predictions, labels)."""
+    from iadr1_tpu_torch.data.aligner import align_rows
+    from iadr1_tpu_torch.data.registry import (
+        DatasetAttr,
+        load_dataset_registry,
+        load_json_dataset,
+    )
+    from iadr1_tpu_torch.eval.generator import GeneratorConfig, VLMGenerator
+
+    if data_cfg.dataset.endswith((".json", ".jsonl")):
+        attr = DatasetAttr(
+            name="inline", file_name=data_cfg.dataset, formatting="sharegpt",
+            messages="messages", images="images",
+            role_tag="role", content_tag="content",
+            user_tag="user", assistant_tag="assistant",
+        )
+    else:
+        attr = load_dataset_registry(data_cfg.dataset_info)[data_cfg.dataset]
+    records = align_rows(load_json_dataset(attr), attr, data_cfg.image_dir)
+    if pred_cfg.max_samples:
+        records = records[: pred_cfg.max_samples]
+
+    gen = VLMGenerator(
+        bundle, params, tokenizer, template,
+        GeneratorConfig(
+            max_prompt_length=data_cfg.cutoff_len,
+            max_new_tokens=pred_cfg.max_new_tokens,
+            temperature=pred_cfg.temperature,
+            batch_size=pred_cfg.batch_size,
+            min_pixels=data_cfg.min_pixels, max_pixels=data_cfg.max_pixels,
+        ),
+        device=device,
+    )
+    requests, prompts, labels = [], [], []
+    for rec in records:
+        msgs = rec["messages"]
+        label = msgs[-1]["content"] if msgs[-1]["role"] == "assistant" else ""
+        prompt_msgs = msgs[:-1] if label else msgs
+        requests.append({"messages": prompt_msgs, "images": rec["images"]})
+        prompts.append(
+            template.render_conversation(prompt_msgs,
+                                         add_generation_prompt=True))
+        labels.append(label)
+    preds = gen.generate(requests)
+    path = os.path.join(output_dir, "generated_predictions.jsonl")
+    os.makedirs(output_dir, exist_ok=True)
+    with open(path, "w") as f:
+        for prompt, label, predict in zip(prompts, labels, preds):
+            f.write(json.dumps(
+                {"prompt": prompt, "label": label, "predict": predict},
+                ensure_ascii=False) + "\n")
+    print(f"predictions saved to {path}")
+    return path, preds, labels
+
+
+def predict_scores(preds, labels, output_dir: str) -> dict:
+    """predict_results.json: the ROUGE/BLEU similarity scores (the
+    reference's ComputeSimilarity metrics logged by
+    CustomSeq2SeqTrainer.predict) under ``predict_<metric>`` keys."""
+    from iadr1_tpu_torch.train.metrics_text import similarity_scores
+
+    scores = similarity_scores(preds, labels)
+    with open(os.path.join(output_dir, "predict_results.json"), "w") as f:
+        json.dump({f"predict_{k}": v for k, v in scores.items()}, f, indent=1)
+    print("similarity: "
+          + ", ".join(f"{k}={v:.2f}" for k, v in scores.items()))
+    return scores
+
+
+def run_predict(bundle, params, tokenizer, template, data_cfg: DataSection,
+                pred_cfg: PredictSection, output_dir: str,
+                device=None) -> str:
+    """``predict_generate`` then ``predict_scores``; returns the
+    predictions' path."""
+    path, preds, labels = predict_generate(bundle, params, tokenizer,
+                                           template, data_cfg, pred_cfg,
+                                           output_dir, device=device)
+    predict_scores(preds, labels, output_dir)
+    return path
 
 
 def load_tokenizer(path: str):
@@ -305,6 +393,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", required=True)
     add_device_argument(parser)
+    parser.add_argument("--predict-scores", default=True,
+                        action=argparse.BooleanOptionalAction,
+                        help="with predict.do_predict: also write the "
+                        "ROUGE/BLEU scores (needs jieba and nltk); "
+                        "--no-predict-scores writes the predictions only")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
@@ -446,6 +539,23 @@ def main(argv=None):
     state, history = run_sft_loop(state, step, batches, loop_cfg, ckpt,
                                   meter, start_step=start_step)
     print(json.dumps({"final": history[-1] if history else {}}))
+    if cfg.predict.do_predict:
+        from iadr1_tpu_torch.core.distributed import is_primary
+        from iadr1_tpu_torch.core.mesh import full, kernel_mesh_scope
+        from iadr1_tpu_torch.train.state import named_leaves, unflatten
+
+        params = state.params
+        if mesh is not None:
+            # every rank gathers the whole parameters; rank 0 generates
+            # alone, off the mesh (the engine's collectives span the batch
+            # ranks)
+            params = unflatten({name: full(leaf)
+                                for name, leaf in named_leaves(params)})
+        if is_primary():
+            predict = run_predict if args.predict_scores else predict_generate
+            with kernel_mesh_scope(None):
+                predict(bundle, params, tokenizer, template, cfg.data,
+                        cfg.predict, loop_cfg.output_dir, device=device)
     return 0
 
 

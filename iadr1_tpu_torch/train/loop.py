@@ -1,9 +1,10 @@
-"""SFT training loop: data -> step -> logging -> checkpoints (the port's
-own copy of iadr1_tpu/train/loop.py).
+"""SFT training loop: data -> step -> logging -> reporters -> checkpoints
+-> loss plot (the port's own copy of iadr1_tpu/train/loop.py).
 
-The wandb/tensorboard reporters and the loss plot (ROADMAP A.15) are not
-ported yet: the config takes their keys, and a run that asks for them
-raises.
+``report_to`` names the reporters (train/reporters.py) that get every
+logged step's metrics; ``plot_loss`` renders training_loss.png from the
+run's trainer_log.jsonl after the last checkpoint.  On a mesh only rank 0
+logs, reports and plots.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import time
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
+
+from iadr1_tpu_torch.train.reporters import make_reporters, plot_loss
 
 
 @dataclasses.dataclass
@@ -151,10 +154,11 @@ def run_sft_loop(state, step_fn, batches: Iterable[dict], cfg: LoopConfig,
         raise ValueError(
             "the loop config asks for checkpoints (save_steps or resume) "
             "but no checkpoint manager was given")
-    if cfg.report_to or cfg.plot_loss:
-        raise NotImplementedError(
-            "reporters and the loss plot are not ported yet (ROADMAP A.15)")
+    from iadr1_tpu_torch.core.distributed import is_primary
+
+    primary = is_primary()
     logger = JsonlLogger(cfg.output_dir, cfg.max_steps)
+    reporter = make_reporters(cfg.report_to if primary else [])
     history = []
     prefetch = prefetch_iterator(batches, cfg.prefetch) if cfg.prefetch else None
     it = prefetch or iter(batches)
@@ -177,6 +181,7 @@ def run_sft_loop(state, step_fn, batches: Iterable[dict], cfg: LoopConfig,
                     out["tokens_per_sec_per_chip"] = meter.tokens_per_sec
                     out["mfu"] = meter.mfu
                 logger.log(step, out)
+                reporter.log(step, out)
                 history.append(out)
             if (checkpoint_manager is not None and cfg.save_steps
                     and step % cfg.save_steps == 0):
@@ -188,4 +193,7 @@ def run_sft_loop(state, step_fn, batches: Iterable[dict], cfg: LoopConfig,
         if prefetch is not None:
             prefetch.close()
         logger.close()
+    reporter.finish()
+    if cfg.plot_loss and primary:
+        plot_loss(cfg.output_dir)
     return state, history

@@ -21,6 +21,7 @@ where the JAX package has the step at that mesh, to the JAX CLI run on
   token for token, and the logs and parameters match it (JAX's rollouts
   draw other random numbers, so its tokens differ by design);
 * DPO through cli/train_pref.py at fsdp = 2 and at tp = 2;
+* do_predict after the SFT CLI at fsdp = 2: the one-process files;
 * one update of every optimizer at fsdp = 2, (2, 2, 1) and (1, 2, 2);
 * a global batch's placements and each rank's rows at (1, 2, 2);
 * a checkpoint saved on 2 ranks, byte for byte the one-process file, and
@@ -288,6 +289,34 @@ def test_sft_cli_on_a_mesh_matches_one_process_and_jax(
         shapes = {tuple(map(tuple, s)) for s in r["flash_shapes"]}
         assert ((2, 2, 128, 16), (2, 1, 128, 16), (2, 1, 128, 16)) in shapes
         assert all(q[1] == 2 for q, _, _ in shapes)
+
+
+def test_do_predict_on_a_mesh_writes_the_one_process_files(
+        vlm_checkpoint, f32_port, tmp_path):
+    """``predict.do_predict`` at fsdp = 2 (learning rate 0): every rank
+    gathers the parameters, rank 0 generates off the mesh; its
+    generated_predictions.jsonl and predict_results.json are the
+    one-process run's byte for byte."""
+    data, img_dir = build_iad_sft_dataset(tmp_path)
+
+    def cfg(out_dir):
+        c = _sft_cfg(vlm_checkpoint, data, img_dir, out_dir)
+        c["optim"]["learning_rate"] = 0.0
+        c["train"]["max_steps"] = 1
+        c["predict"] = {"do_predict": True, "max_samples": 3,
+                        "max_new_tokens": 6, "batch_size": 2}
+        return c
+
+    _port_on_mesh("train_sft", {"dp": 1, "fsdp": 2, "tp": 1},
+                  cfg(tmp_path / "mesh"), tmp_path, "mesh")
+    _port_one_process("train_sft", cfg(tmp_path / "one"),
+                      tmp_path / "one.json")
+    for name in ("generated_predictions.jsonl", "predict_results.json"):
+        got, want = (open(tmp_path / side / name, "rb").read()
+                     for side in ("mesh", "one"))
+        assert got == want, name
+    assert len(want) and len(open(tmp_path / "one" / (
+        "generated_predictions.jsonl")).readlines()) == 3
 
 
 def test_moe_sft_with_its_router_loss_at_fsdp2_matches_one_process(

@@ -1,5 +1,6 @@
 """Package rules of the PyTorch port: it imports neither JAX, nor the JAX
-package, nor optax, nor pandas; its entry points refuse to fall back to the CPU
+package, nor optax, nor pandas, and none of the optional host packages
+(jieba, nltk, matplotlib, wandb, requests) at import; its entry points refuse to fall back to the CPU
 silently, and its kernel wrappers take the twin only for CPU tensors."""
 
 import subprocess
@@ -14,7 +15,8 @@ import torch_threads  # noqa: F401  (one intra-op thread)
 IMPORT_ALL_BLOCKED = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "iadr1_tpu", "optax", "pandas")
+    BLOCKED = ("jax", "jaxlib", "iadr1_tpu", "optax", "pandas", "jieba",
+               "nltk", "matplotlib", "wandb", "requests")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -84,10 +86,16 @@ A14C_A13_MODULES = ["train.sft", "data.native", "data.packing",
 A11_MODULES = ["core.mesh", "core.distributed", "core.device",
                "train.state", "kernels.flash_attention",
                "kernels.decode_attention"]
+# the last modules: chat, the web board, MMLU and the commercial client,
+# profiling, the reporters and the similarity metrics
+A15_MODULES = ["cli.chat", "core.profiling", "eval.commercial", "eval.mmlu",
+               "train.metrics_text", "train.reporters", "webui",
+               "webui.app", "webui.runner"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
-    """... nor optax, nor pandas (the card's machine has neither)."""
+    """... nor optax, nor pandas (the card's machine has neither), nor
+    jieba, nltk, matplotlib, wandb or requests (imported where used)."""
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL_BLOCKED],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -98,7 +106,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                            + INTERNVL_VIDEO_MODULES
                            + PALIGEMMA_PIXTRAL_MODULES + PREF_MODULES
                            + A14B_MODULES + A14C_A13_MODULES
-                           + A11_MODULES)
+                           + A11_MODULES + A15_MODULES)
                if f"iadr1_tpu_torch.{m}" not in names]
     assert not missing, missing
 
@@ -258,3 +266,23 @@ def test_a_library_is_rebuilt_when_its_source_or_a_shared_header_is_newer(
     age(header, 100)
     age(src, 300)                                 # the source changed
     assert _build._stale("k.cu")
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The module lists of the two packages differ only by the port's own
+    files (the device resolution, the CUDA sources' build helper, the
+    native plane's loader) and JAX's ``native/``, which the port builds from
+    ``csrc/dataplane.cpp`` into ``data/native.py``."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+
+    def modules(pkg):
+        base = root / pkg
+        return {str(p.relative_to(base)) for p in base.rglob("*.py")}
+
+    jax_only = modules("iadr1_tpu") - modules("iadr1_tpu_torch")
+    port_only = modules("iadr1_tpu_torch") - modules("iadr1_tpu")
+    assert jax_only == {"native/__init__.py"}, jax_only
+    assert port_only == {"core/device.py", "data/native.py",
+                         "kernels/_build.py"}, port_only
