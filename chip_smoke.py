@@ -371,6 +371,24 @@ result line:
    cli/train_sft.py on the card (1 step, do_predict on 2 rows of 32 new
    tokens, the scores and the loss plot where jieba/nltk and matplotlib
    import), /api/progress polled to return code 0, its files checked.
+37. tensor parallelism, the repo's two tp = 4 recipes (LLaVA-NeXT-34B
+   SC-GRPO, Qwen2.5-VL-72B SFT): (a) K1-K3 at the Yi-34B and Qwen2.5-72B
+   decoders' tp shards (14 / 2 and 16 / 2 heads of 128, one packed row
+   of 4096, the lse cotangent given), CLIP-L/336's (4 heads of 64 over 5
+   tiles of 577) and the Qwen2.5-VL tower's (4 heads of 80 over 8192
+   patches in windows of 64), and K4 at both decoders' decode shards (8
+   rows, 4608 slots): every rank's launch bitwise equal to its slice of
+   the unsharded launch, each shard shape held to its plain version and
+   timed (its rows in the kernel line); the control gives each rank the
+   next rank's KV heads; (b) the tensor-parallel rollout
+   (train/rollout.py tp_local_params, core/tensor_parallel.py) at tp = 4
+   on LLaVA-NeXT-34B cut to 4 layers at full width, B = 8, its four ranks
+   one after another on the card with the rank-ordered sum as the
+   all-reduce: the first step's logits against the unsharded rollout's,
+   the greedy tokens' agreement; the control drops one rank's partial
+   sums; (c) one LoRA SC-GRPO step (the 34B recipe's finetuning) through
+   cli/train_grpo.py under a one-rank NCCL group, bitwise the no-group
+   step; the control reads the adapters before the step.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -996,37 +1014,54 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def _record_window(fns, iters: int, host: bool):
+    """A torch.profiler window over ``iters`` passes through ``fns``: the
+    device's activity alone, or the host's too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities) as prof:
+        for _ in range(iters):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _kernel_times(prof, calls: int) -> dict:
+    """{kernel name: its device ms a call} of a window, read from the
+    profiler's own kernel records: ``key_averages`` builds an event object
+    and a parent tree for every record first, which was most of phase 3's
+    host time (ROADMAP B.3), and a kernel's self time is its duration."""
+    from torch.autograd import DeviceType
+
+    times = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.duration_ns() <= 0):
+            continue
+        times[e.name()] = times.get(e.name(), 0.0) + (
+            e.duration_ns() / 1e6 / calls)
+    return times
+
+
 def device_times(fns, iters: int = 10) -> dict:
     """Device time of one call, by kernel name: the kernels' own time
     under torch.profiler over ``iters`` passes through ``fns`` (each on
     inputs of its own, so a pass over more than the 50 MB L2 finds each
     input cold), per call.  Host time between launches is not counted."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     calls = iters * len(fns)
     # the window records the device's activity alone: the host operators'
-    # events, which nothing here reads, were most of key_averages' parse
-    # (ROADMAP B.3).  A window that recorded no device time is taken
-    # again, twice at most, the second time with the host's too
+    # records, which nothing here reads, would only lengthen the read.  A
+    # window that recorded no device time is taken again, twice at most,
+    # the second time with the host's too
     for attempt in range(3):
-        activities = [ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if attempt else [])
-        with profile(activities=activities) as prof:
-            for _ in range(iters):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        times = {}
-        for e in prof.key_averages():
-            if (e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0
-                    and not getattr(e, "is_user_annotation", False)):
-                times[e.key] = times.get(e.key, 0.0) + (
-                    e.self_device_time_total / 1e3 / calls)
+        times = _kernel_times(_record_window(fns, iters, host=attempt == 2),
+                              calls)
         if times:
             return times
         log("profile: a window recorded no device time; taken again")
@@ -9185,10 +9220,11 @@ def free_port() -> int:
 
 
 class MeshTap:
-    """Patches for one CLI run of phase 35: the rows or examples handed
-    in (no dataset is tokenized), the canned tokenizer, each step's
-    metrics and the train state recorded, each rollout's tokens and time
-    recorded, and the checkpoint written or not."""
+    """Patches for one CLI run of phases 35 and 37: the rows or examples
+    handed in (no dataset is tokenized), the canned tokenizer, each step's
+    metrics and the train state (with its starting parameters) recorded,
+    each rollout's tokens and time recorded, and the checkpoint written or
+    not."""
 
     def __init__(self, rows=None, examples=None, save=True,
                  keep_state=False):
@@ -9199,7 +9235,7 @@ class MeshTap:
         import transformers
 
         self.metrics, self.states, self.rollouts = [], [], []
-        self.step_s, self._undo = [], []
+        self.step_s, self._undo, self.initial = [], [], []
 
         def patch(obj, name, value):
             self._undo.append((obj, name, getattr(obj, name)))
@@ -9229,7 +9265,13 @@ class MeshTap:
         def create_train_state(params, optimizer):
             st = create(params, optimizer)
             if keep_state:
+                from iadr1_tpu_torch.core.mesh import full
+                from iadr1_tpu_torch.train.state import named_leaves
+
                 self.states.append(st)
+                # the parameters as they start (whole), before any step
+                self.initial.append({n: full(t).detach().clone()
+                                     for n, t in named_leaves(st.params)})
             return st
 
         def step(trainer, examples):
@@ -9607,6 +9649,407 @@ def phase_mesh(rows, grpo_examples, card) -> dict:
         f"one-process run's {1e3 * one_grpo.step_s[0]:.1f} ms; the group "
         f"run {grpo_s:.1f} s, the one-process runs {one_s:.1f} s; launches "
         f"{grpo_launches} on {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 37: tensor parallelism (the repo's two tp = 4 recipes)
+# ---------------------------------------------------------------------------
+
+# llava-hf/llava-v1.6-34b-hf's published widths (configs/
+# grpo_llava_next_34b.yaml's model): Yi-34B, 60 layers of 56 heads over 8
+# (D = 128), MLP 20480, 64064 ids, an untied head; CLIP-L/336
+LLAVA_NEXT_34B = dict(
+    architectures=["LlavaNextForConditionalGeneration"],
+    model_type="llava_next",
+    text_config=dict(
+        model_type="llama", vocab_size=64064, hidden_size=7168,
+        intermediate_size=20480, num_hidden_layers=60,
+        num_attention_heads=56, num_key_value_heads=8, rms_norm_eps=1e-5,
+        rope_theta=5000000.0, tie_word_embeddings=False,
+        max_position_embeddings=4096),
+    vision_config=dict(LLAVA_NEXT_8B["vision_config"]),
+    image_token_index=64000, vision_feature_layer=-2,
+    vision_feature_select_strategy="default",
+    image_grid_pinpoints=LLAVA_NEXT_8B["image_grid_pinpoints"],
+)
+TP = 4
+# (a) the attention calls of the two tp = 4 recipes, whole and as tp
+# shards (each rank's: H / 4 query heads over Hkv / 4 KV heads): the
+# decoders on one packed row of 4096 (the 72B SFT recipe's cutoff, 16
+# rows over fsdp 16) in two segments, causal, the lse cotangent given;
+# CLIP-L/336 over one image's 5 anyres tiles of 577; the Qwen2.5-VL tower
+# over the recipe's patch budget of 8192 in windows of 64 patches (its
+# windowed blocks), non-causal.  (label, B, H, Hkv, T, D, causal, window)
+TP_FLASH = (("Yi-34B decoder", 1, 56, 8, 4096, 128, True, None),
+            ("Qwen2.5-72B decoder", 1, 64, 8, 4096, 128, True, None),
+            ("CLIP-L-336 tower", 5, 16, 16, 577, 64, False, None),
+            ("Qwen2.5-VL tower", 1, 16, 16, 8192, 80, False, 64))
+# K4 at the two decoders' decode shards: the rollout's B = 8 rows over a
+# cache of the recipe's 4096 + 512 slots, 4000 of them live
+TP_DECODE = (("Yi-34B", 8, 56, 8, 4608, 128, 4000),
+             ("Qwen2.5-72B", 8, 64, 8, 4608, 128, 4000))
+# (b) the tensor-parallel rollout: LLaVA-NeXT-34B cut to TP_LAYERS decoder
+# layers at full width, bf16 from seed 0, B = 8 text prompts of
+# TP_PROMPT_LEN, TP_NEW_TOKENS greedy steps; the ranks' first-step logits
+# against the unsharded rollout's, relative L2: the row-parallel products
+# add four bf16 partials (each rounded, 2^-8 relative) where the unsharded
+# product rounds once, at each of 2 * TP_LAYERS reduces, and the residual
+# stream carries those through the later layers (PERF.md has the
+# prediction and the reading).  A control that drops one rank's partial
+# sum must exceed it.
+TP_LAYERS, TP_PROMPT_LEN, TP_NEW_TOKENS, TP_ROWS = 4, 512, 16, 8
+TP_LOGITS_REL_L2 = 5e-2
+# (c) LoRA SC-GRPO through cli/train_grpo.py under a one-rank NCCL group
+# against the same CLI with no group: Qwen2-VL-2B cut to TP_LORA_LAYERS
+# decoder layers, its bf16 base and configs/grpo_llava_next_34b.yaml's
+# finetuning section (LoRA rank 16, alpha 32), phase 7's prompts, one step
+# of completions cut to TP_LORA_N
+TP_LORA_LAYERS, TP_LORA_N = 8, 32
+TP_SHARD_CASES: dict = {}            # (a)'s timed cases, for the kernel line
+
+
+def tp_rule_inputs(B, H, Hkv, T, D, causal, window, seed):
+    """q, k, v, segments, dO and dlse of a TP_FLASH case: a causal row in
+    two packed segments, the last 37 positions padding; a non-causal one
+    in windows of ``window`` (or one segment a row)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dev = dict(device=DEVICE, dtype=torch.bfloat16)
+    q = torch.randn((B, H, T, D), generator=gen, **dev)
+    k = torch.randn((B, Hkv, T, D), generator=gen, **dev)
+    v = torch.randn((B, Hkv, T, D), generator=gen, **dev)
+    do = torch.randn((B, H, T, D), generator=gen, **dev)
+    pos = torch.arange(T, device=DEVICE)
+    if causal:
+        seg = (1 + (pos >= T // 2)).to(torch.int32).expand(B, T).clone()
+        seg[:, T - 37:] = 0
+        dlse = torch.randn((B, H, T), generator=gen, device=DEVICE)
+    else:
+        seg = (1 + pos // (window or T)).to(torch.int32).expand(B, T)
+        seg = seg.contiguous()
+        dlse = torch.zeros((B, H, T), device=DEVICE)
+    return q, k, v, seg, do, dlse
+
+
+def phase_tp_shards() -> None:
+    """Phase 37a: K1-K3 at TP_FLASH and K4 at TP_DECODE, whole and as the
+    four tp ranks' shards (``shard_slices`` at tp = 4), each shard's
+    launch bitwise equal to its slice of the unsharded launch; each shard
+    shape timed against its plain version and SDPA (phase 3's cases, into
+    the kernel line).  The control gives each rank of the Yi-34B decoder
+    the next rank's KV heads and must break the bitwise check."""
+    from iadr1_tpu_torch.kernels.decode_attention import decode_attention
+    from iadr1_tpu_torch.kernels.flash_attention import shard_slices
+
+    names = ("out", "lse", "dq", "dk", "dv")
+    sizes = {"dp": 1, "fsdp": 1, "tp": TP}
+    fwd, bwd, dec, lines = [], [], [], []
+    for i, (label, B, H, Hkv, T, D, causal, window) in enumerate(TP_FLASH):
+        q, k, v, seg, do, dlse = tp_rule_inputs(B, H, Hkv, T, D, causal,
+                                                window, seed=370 + i)
+        whole = flash_call(q, k, v, seg, do, dlse)
+        slices = shard_slices(sizes, B, H, Hkv)
+        shards = sharded_flash(slices, q, k, v, seg, do, dlse)
+        unequal = [n for n, a, b in zip(names, shards, whole)
+                   if not torch.equal(a, b)]
+        if unequal or len(slices) != TP:
+            raise AssertionError(f"tp shards of {label}: {unequal} differ "
+                                 f"from the unsharded launch")
+        del whole, shards, q, k, v, do, dlse
+        h, hkv = H // TP, Hkv // TP
+        shape = (B, h, hkv, T, T, D, causal, seg, seg)
+        results = _labelled((*bwd_case(*shape, 380 + i, timed=True,
+                                       with_dlse=causal),
+                             flash_case(*shape, 390 + i, timed=True)),
+                            f"tp shard, {label}")
+        bwd.append(results[:3])
+        fwd.append(results[3])
+        lines.append(f"{label} {H}/{Hkv} -> {h}/{hkv} x {TP}")
+    for i, (label, B, H, Hkv, S, D, length) in enumerate(TP_DECODE):
+        gen = torch.Generator(device=DEVICE).manual_seed(400 + i)
+        dev = dict(device=DEVICE, dtype=torch.bfloat16)
+        q = torch.randn((B, H, D), generator=gen, **dev)
+        k = torch.randn((B, Hkv, S, D), generator=gen, **dev)
+        v = torch.randn((B, Hkv, S, D), generator=gen, **dev)
+        seg = torch.ones((B, S), dtype=torch.int32, device=DEVICE)
+        for b in range(B):
+            seg[b, :29 * b] = 0                     # left padding
+        whole = decode_attention(q, k, v, seg, length)
+        for b, hs, ks in shard_slices(sizes, B, H, Hkv):
+            part = decode_attention(q[b, hs].contiguous(),
+                                    k[b, ks].contiguous(),
+                                    v[b, ks].contiguous(), seg[b], length)
+            if not torch.equal(part, whole[b, hs]):
+                raise AssertionError(f"tp shards of the {label} decode "
+                                     "differ from the unsharded launch")
+        del q, k, v, whole
+        dec.append(_labelled([decode_case(B, H // TP, Hkv // TP, S, D,
+                                          length, seg, 410 + i, True)],
+                             f"tp shard, {label} decode")[0])
+        lines.append(f"{label} decode {H}/{Hkv} -> {H // TP}/{Hkv // TP}")
+    log_kernel_results(fwd, dec, bwd)
+    TP_SHARD_CASES.update({
+        "flash_fwd": fwd + [r[2] for r in bwd],
+        "flash_bwd_dq": [r[0] for r in bwd],
+        "flash_bwd_dkv": [r[1] for r in bwd], "decode_attention": dec})
+
+    # the control: each rank given the next rank's KV heads for its own
+    # query heads
+    label, B, H, Hkv, T, D, causal, window = TP_FLASH[0]
+    q, k, v, seg, do, dlse = tp_rule_inputs(B, H, Hkv, T, D, causal, window,
+                                            seed=370)
+    whole = flash_call(q, k, v, seg, do, dlse)
+    h, hkv = H // TP, Hkv // TP
+    broken = [(slice(0, B), slice(r * h, (r + 1) * h),
+               slice((r + 1) % TP * hkv, ((r + 1) % TP + 1) * hkv))
+              for r in range(TP)]
+    shards = sharded_flash(broken, q, k, v, seg, do, dlse)
+    differ = [n for n, a, b in zip(names, shards, whole)
+              if not torch.equal(a, b)]
+    if not differ:
+        raise AssertionError("tp shards control: each rank on the next "
+                             "rank's KV heads passed the bitwise check")
+    log(f"tp shards (37a): {'; '.join(lines)}: every rank's K1-K3 (dlse "
+        f"given on the decoders) and K4 launch bitwise equal to its slice "
+        f"of the unsharded launch, each held to its plain version above; "
+        f"the control (each rank's {h} query heads on the next rank's "
+        f"{hkv} KV heads) breaks it: {differ} differ, out max err "
+        f"{max_err(shards[0], whole[0]):.3e}")
+
+
+def tp_rollout_bundle():
+    """LLaVA-NeXT-34B cut to TP_LAYERS decoder layers, its bf16 parameters
+    from seed 0 on the card, and TP_ROWS text prompts (left-padded, a
+    seeded length each)."""
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    hf = dict(LLAVA_NEXT_34B, text_config=dict(
+        LLAVA_NEXT_34B["text_config"], num_hidden_layers=TP_LAYERS))
+    bundle = bundle_from_hf_config(hf)
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    rng = np.random.default_rng(37)
+    P = TP_PROMPT_LEN
+    ids = np.full((TP_ROWS, P), 0, np.int64)
+    mask = np.zeros((TP_ROWS, P), np.int64)
+    for b in range(TP_ROWS):
+        n = P - 17 * b
+        ids[b, P - n:] = rng.integers(3, 64000, n)
+        mask[b, P - n:] = 1
+    batch = {"input_ids": torch.as_tensor(ids, device=DEVICE),
+             "attention_mask": torch.as_tensor(mask, device=DEVICE)}
+    return bundle, params, batch
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_tp_rollout(card) -> None:
+    """Phase 37b: the tensor-parallel rollout at tp = 4, its four ranks
+    run one after another on the card (``run_sequential_ranks``, the
+    all-reduce the rank-ordered sum), each on its ``tp_local_params`` copy
+    of LLaVA-NeXT-34B's bf16 decoder (14 of 56 query heads, 2 of 8 KV
+    heads, a quarter of the MLP and of the vocabulary), against the
+    unsharded rollout: the first step's logits within TP_LOGITS_REL_L2,
+    every rank the same tokens, the greedy tokens' agreement reported; the
+    control drops rank 3's partial sums and must exceed the limit."""
+    from iadr1_tpu_torch.core.tensor_parallel import run_sequential_ranks
+    from iadr1_tpu_torch.train.rollout import (
+        RolloutEngine,
+        SamplingConfig,
+        tp_local_params,
+    )
+
+    bundle, params, batch = tp_rollout_bundle()
+    tcfg = bundle.cfg.text
+    sampling = SamplingConfig(max_new_tokens=TP_NEW_TOKENS, temperature=0.0,
+                              eos_token_id=2, pad_token_id=0)
+    engine = RolloutEngine(bundle, sampling,
+                           max_len=TP_PROMPT_LEN + TP_NEW_TOKENS,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_logits, _ = engine.prefill(params, batch)
+    want = engine.generate(params, batch)["completion_ids"]
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    axes = bundle.logical_axes()
+    locals_ = [tp_local_params(params, axes, tcfg, r, TP, torch.bfloat16)
+               for r in range(TP)]
+    local_gb = [sum(t.numel() * t.element_size() for t in
+                    _tensors(loc["text"])) / 1e9 for loc in locals_]
+    whole_gb = sum(t.numel() * t.element_size()
+                   for t in _tensors(params["text"])) / 1e9
+
+    def rank(group):
+        logits, cache = engine.prefill(locals_[group.rank], batch)
+        ids = engine.generate(locals_[group.rank], batch,
+                              tp=group)["completion_ids"]
+        return logits, ids, tuple(cache["k"].shape)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ranks = run_sequential_ranks(rank, TP)
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t1
+    errs = [_rel_l2(logits, want_logits) for logits, _, _ in ranks]
+    if max(errs) > TP_LOGITS_REL_L2 or not all(
+            torch.isfinite(lg).all() for lg, _, _ in ranks):
+        raise AssertionError(f"tp rollout: first-step logits {errs} against "
+                             f"the unsharded (limit {TP_LOGITS_REL_L2})")
+    tokens = [ids for _, ids, _ in ranks]
+    if not all(torch.equal(t, tokens[0]) for t in tokens):
+        raise AssertionError("tp rollout: the ranks drew other tokens")
+    cache = ranks[0][2]
+    if cache[2] != tcfg.num_key_value_heads // TP:
+        raise AssertionError(f"tp rollout: a rank's cache {cache}")
+    agree = float((tokens[0] == want).float().mean())
+    first = float((tokens[0][:, 0] == want[:, 0]).float().mean())
+    dropped = run_sequential_ranks(
+        lambda g: engine.prefill(locals_[g.rank], batch)[0], TP,
+        reduce=lambda parts: sum(parts[:-1]))
+    control = _rel_l2(dropped[0], want_logits)
+    if not control > TP_LOGITS_REL_L2:
+        raise AssertionError(f"tp rollout control (rank {TP - 1}'s partial "
+                             f"sums dropped): {control:.3e} passed")
+    log(f"tp rollout (37b): LLaVA-NeXT-34B cut to {TP_LAYERS} decoder layers "
+        f"(Yi-34B width, bf16, {whole_gb:.2f} GB of decoder), {TP_ROWS} "
+        f"prompts of {TP_PROMPT_LEN}, {TP_NEW_TOKENS} greedy steps: {TP} "
+        f"ranks one after another, each on {max(local_gb):.2f} GB of "
+        f"decoder, its cache {cache} (2 of the 8 KV heads); first-step "
+        f"logits against the unsharded rollout's, relative L2 "
+        f"{max(errs):.3e} (limit {TP_LOGITS_REL_L2}); every rank the same "
+        f"tokens, agreeing with the unsharded greedy tokens at "
+        f"{agree:.4f} of positions ({first:.4f} of the first tokens); "
+        f"the control (rank {TP - 1}'s partial sums dropped) {control:.3e}; "
+        f"the unsharded prefill and rollout {whole_s:.1f} s, the four "
+        f"ranks' {tp_s:.1f} s on {card}")
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [] if tree is None else [tree]
+
+
+def tp_lora_cfg(name) -> dict:
+    """mesh_grpo_cfg's run with Qwen2-VL-2B cut to TP_LORA_LAYERS layers,
+    its bf16 base, the 34B recipe's finetuning section and learning rate
+    (no warmup), N = TP_LORA_N."""
+    import yaml
+
+    cfg = mesh_grpo_cfg(name)
+    with open(LLAVA_GRPO_RECIPE) as f:
+        recipe = yaml.safe_load(f)
+    cfg["finetuning"] = recipe["finetuning"]
+    # the recipe's learning rate, no warmup: the one step moves B off 0
+    cfg["optim"].update(learning_rate=recipe["optim"]["learning_rate"],
+                        warmup_ratio=0.0)
+    hf = dict(QWEN2_VL_2B, text_config=dict(
+        QWEN2_VL_2B["text_config"], num_hidden_layers=TP_LORA_LAYERS))
+    cfg["model"].update(hf_config=hf, dtype="bfloat16")
+    cfg["grpo"]["max_completion_length"] = TP_LORA_N
+    return cfg
+
+
+def phase_tp_lora(grpo_examples, card) -> None:
+    """Phase 37c: one LoRA SC-GRPO step through cli/train_grpo.py's main
+    under a one-rank NCCL group (the mesh path: the base sharded by its
+    logical axes, the adapters and their moments by lora_logical_axes,
+    the base's compute view in the update) against the same CLI with no
+    group: the completions, the step's metrics and the adapters after it
+    bitwise equal; the base unchanged; the control, the group's adapters
+    before the step against the one-process adapters after it, must
+    differ."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from iadr1_tpu_torch.core.mesh import full, set_kernel_mesh
+    from iadr1_tpu_torch.train.state import named_leaves
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    one = mesh_cli("train_grpo", tp_lora_cfg("lora_one"), "lora_one",
+                   examples=grpo_examples, save=False, keep_state=True)
+    one_s = time.perf_counter() - t0
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        t1 = time.perf_counter()
+        group = mesh_cli("train_grpo", tp_lora_cfg("lora_mesh"), "lora_mesh",
+                         examples=grpo_examples, save=False, keep_state=True)
+        group_s = time.perf_counter() - t1
+        if not dist.is_initialized():
+            raise AssertionError("the LoRA GRPO run set up no group")
+        state = group.states[0]
+        named = named_leaves(state.params)
+        if not all(isinstance(t, DTensor) for _, t in named):
+            raise AssertionError("the group's adapters are plain tensors")
+        got = {n: full(t).detach() for n, t in named}
+        before = group.initial[0]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+        set_kernel_mesh(None)
+    want = {n: t.detach() for n, t in named_leaves(one.states[0].params)}
+    (mesh_tokens, mesh_roll_s, steps), = group.rollouts
+    (one_tokens, _, _), = one.rollouts
+    if not torch.equal(mesh_tokens, one_tokens):
+        raise AssertionError("tp lora grpo: the group's completions differ")
+    keys = ("loss", "kl", "grad_norm", "reward", "completion_length")
+    unequal = [k for k in keys if group.metrics[0][k] != one.metrics[0][k]]
+    if unequal or got.keys() != want.keys() or not all(
+            torch.equal(got[n], want[n]) for n in want):
+        raise AssertionError(f"tp lora grpo: metrics {unequal} or adapters "
+                             "differ from the one-process step's")
+    moved = [n for n in want if not torch.equal(before[n], want[n])]
+    if not moved:
+        raise AssertionError("tp lora grpo control: the adapters before the "
+                             "step equal the one-process adapters after it")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    log(f"tp lora grpo (37c): Qwen2-VL-2B cut to {TP_LORA_LAYERS} decoder "
+        f"layers, its bf16 base, LoRA rank 16 alpha 32 "
+        f"(configs/grpo_llava_next_34b.yaml), one step of {steps} decode "
+        f"steps ({mesh_tokens.shape[0]} rows) through cli/train_grpo.py's "
+        f"main under a one-rank NCCL group: {len(named)} adapter leaves "
+        f"DTensors; completions, loss {group.metrics[0]['loss']:.6g}, kl, "
+        f"grad norm {group.metrics[0]['grad_norm']:.6g}, reward and the "
+        f"adapters after the step bitwise the no-group step's; the control "
+        f"(the adapters before the step) differs in {len(moved)} of "
+        f"{len(want)} leaves; rollout {1e3 * mesh_roll_s:.1f} ms, the "
+        f"group run {group_s:.1f} s, the one-process run {one_s:.1f} s on "
+        f"{card}")
+
+
+def phase_tp(grpo_examples, card) -> dict:
+    """Phase 37: (a) the tp shards of K1-K4 (``phase_tp_shards``); (b)
+    the tensor-parallel rollout (``phase_tp_rollout``); (c) LoRA SC-GRPO
+    on a one-rank group (``phase_tp_lora``).  Returns the launches of (b)
+    and (c), counted from 0."""
+    from iadr1_tpu_torch.kernels import all_kernels
+
+    t0 = time.perf_counter()
+    phase_tp_shards()
+    log(f"phase 37a (tp shards): {time.perf_counter() - t0:.1f} s")
+    kernels = [k for k, _ in all_kernels()]
+    for k in kernels:
+        k.launches = 0
+    t1 = time.perf_counter()
+    phase_tp_rollout(card)
+    t2 = time.perf_counter()
+    phase_tp_lora(grpo_examples, card)
+    launches = {k.name: k.launches for k in kernels}
+    log(f"phase 37b (tp rollout) {t2 - t1:.1f} s, 37c (tp lora grpo) "
+        f"{time.perf_counter() - t2:.1f} s; launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"tp launches {launches}")
     return launches
 
 
@@ -10317,7 +10760,7 @@ def main() -> int:
                          "and 16 take at most 2), each a rollout of "
                          "the recipe's 512 tokens")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phase numbers to run (3-36; "
+                    help="comma-separated phase numbers to run (3-37; "
                          "4, 5, 8 and 9 run together, and 36 brings 4 "
                          "and 10), for a partial run that prints no "
                          "kernel line; default: all")
@@ -10407,7 +10850,7 @@ def main() -> int:
     report = imports()
     HOST_PACKAGES.update(host_packages(report))
     log("imports: " + report)
-    phases = (set(range(1, 37)) if args.phases is None
+    phases = (set(range(1, 38)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
     if 36 in phases:                 # 36a runs on phase 4's generator, 36b
         phases |= {4, 10}            # on phase 10's SFT export
@@ -10546,6 +10989,7 @@ def main() -> int:
         (34, "sft_extras", lambda: phase_sft_extras(sft34_rows, native_s,
                                                     card)),
         (35, "mesh", lambda: phase_mesh(train_rows, grpo_examples, card)),
+        (37, "tp", lambda: phase_tp(grpo_examples, card)),
     ):
         if n in phases:
             t0 = time.perf_counter()
@@ -10560,12 +11004,14 @@ def main() -> int:
         by_path["tools"] = dict(TOOLS["launches"])
         log(f"phase 36 (tools): {TOOLS['s']:.1f} s ("
             + ", ".join(TOOLS["parts"]) + ")")
-    if not set(range(3, 37)) <= phases:
+    if not set(range(3, 38)) <= phases:
         # a partial run's launch counts cover only the chosen phases
         log(f"partial run, phases {sorted(phases)} only: no kernel line")
         print(gpu_line())
         return 0
 
+    for name, cases in TP_SHARD_CASES.items():       # phase 37a's shards
+        measured[name] += cases
     line = []
     for k, replaces in kernels:
         main_case, *others = measured[k.name]

@@ -13,9 +13,12 @@ Usage:
 A LoRA run checkpoints its adapters and their moments only; the base is
 the KL reference (reference elision: one copy of the base weights).  On a
 mesh (``torchrun --nproc_per_node N -m iadr1_tpu_torch.cli.train_grpo``
-with a ``mesh:`` section) the policy and the reference are sharded over dp
-and fsdp and each rank rolls out its share of every step's prompts; tp >
-1, LoRA and a quantized base raise naming ROADMAP A.11b.
+with a ``mesh:`` section) the policy and the reference (in LoRA mode the
+base and the adapters; a quantized base replicates) are sharded by the
+family's logical axes, each rank loads only its own shards, each rolls
+out its share of every step's prompts, at tp > 1 with a tensor-parallel
+decode (``train/rollout.py``), and PiSSA's initialization raises naming
+ROADMAP A.11b.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 
 from iadr1_tpu_torch.cli.train_sft import (
     add_device_argument,
+    load_checkpoint,
     mesh_devices,
     mesh_refusals,
     shard_for_mesh,
@@ -108,18 +112,25 @@ class GRPOJobConfig:
 
 def require_ported(job: GRPOJobConfig) -> None:
     """Raise for what the port cannot carry onto the job's mesh, naming
-    ROADMAP A.11b: tp > 1 (a tensor-parallel rollout), and LoRA or a
-    quantized base on a mesh of more than one device."""
-    if int((job.mesh or {}).get("tp", 1)) > 1:
+    ROADMAP A.11b: PiSSA's initialization on a mesh (its host SVD of
+    every kernel would meet the shards).  tp > 1 (a tensor-parallel
+    rollout), LoRA and quantized bases run on a mesh."""
+    if mesh_devices(job.mesh) > 1 and job.finetuning.pissa_init:
         raise NotImplementedError(
-            f"SC-GRPO on tp > 1 ({job.mesh}) is not ported: the rollout "
-            "decodes on a gathered copy (ROADMAP A.11b)")
-    if mesh_devices(job.mesh) > 1 and (
-            job.finetuning.finetuning_type == "lora"
-            or job.model.quant != "none"):
-        raise NotImplementedError(
-            f"LoRA and quantized bases on a mesh ({job.mesh}) are not "
-            "ported (ROADMAP A.11b)")
+            f"PiSSA's initialization on a mesh ({job.mesh}) is not ported "
+            "(ROADMAP A.11b)")
+
+
+def shard_adapters(bundle, lora, mesh):
+    """An adapter tree (whole on every rank) placed by
+    ``lora_logical_axes`` on ``mesh``; as it is without one."""
+    if mesh is None:
+        return lora
+    from iadr1_tpu_torch.core.mesh import shard_pytree
+    from iadr1_tpu_torch.train.adapters import lora_logical_axes
+
+    return shard_pytree(lora, lora_logical_axes(lora, bundle.logical_axes()),
+                        mesh)
 
 
 def prepare_base(params, job: GRPOJobConfig):
@@ -300,7 +311,6 @@ def main(argv=None):
     from iadr1_tpu_torch.core.distributed import maybe_initialize_distributed
     from iadr1_tpu_torch.core.mesh import build_mesh, mesh_config
     from iadr1_tpu_torch.data.template import get_template
-    from iadr1_tpu_torch.models.params_io import load_safetensors_path
     from iadr1_tpu_torch.models.registry import (
         bundle_from_hf_config,
         bundle_from_pretrained,
@@ -341,14 +351,18 @@ def main(argv=None):
     if cfg.model.hf_config:
         bundle = bundle_from_hf_config(cfg.model.hf_config,
                                        attention=cfg.model.attention)
-        params = bundle.init_params(seed=cfg.model.seed, dtype=dtype,
-                                    device=device)
     else:
         bundle = bundle_from_pretrained(cfg.model.model_name_or_path,
                                         attention=cfg.model.attention)
-        params = bundle.convert_hf(
-            load_safetensors_path(cfg.model.model_name_or_path), dtype=dtype,
-            device=device)
+    mesh_refusals(bundle, mesh)
+    if cfg.model.hf_config:
+        params = bundle.init_params(seed=cfg.model.seed, dtype=dtype,
+                                    device=device)
+    else:
+        # a quantized base replicates: each rank loads it whole
+        params = load_checkpoint(
+            bundle, cfg.model.model_name_or_path, dtype, device,
+            mesh if cfg.model.quant == "none" else None)
     tokenizer = AutoTokenizer.from_pretrained(cfg.model.model_name_or_path)
     template = get_template(cfg.data.template)
 
@@ -370,9 +384,11 @@ def main(argv=None):
         if bundle.multimodal else None)
     params = prepare_base(params, cfg)
     tuning_cfg = tuning_config(cfg)
-    mesh_refusals(bundle, mesh, lora=tuning_cfg is not None,
-                  quant=cfg.model.quant != "none")
-    params = shard_for_mesh(bundle, params, mesh)
+    if cfg.model.quant == "none":
+        # as the JAX CLI places it: sharded by the family's logical axes; a
+        # quantized base replicates (every rank holds it whole, as plain
+        # tensors: its point is that the replica is small)
+        params = shard_for_mesh(bundle, params, mesh)
     common = dict(sampling_overrides=sampling_overrides, schedule=schedule,
                   template=template, prompt_collator=collator, device=device,
                   seed=loop_cfg.seed)
@@ -386,6 +402,7 @@ def main(argv=None):
             gen = torch.Generator(device=device).manual_seed(
                 cfg.model.seed + 1)
             lora = init_lora_params(gen, params, tuning_cfg)
+        lora = shard_adapters(bundle, lora, mesh)
         trainer = GRPOTrainer(
             bundle, tokenizer, optimizer, grpo_cfg, reward_funcs,
             create_train_state(lora, optimizer), None, base_params=params,

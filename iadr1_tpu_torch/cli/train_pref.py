@@ -43,6 +43,7 @@ import numpy as np
 
 from iadr1_tpu_torch.cli.train_sft import (
     add_device_argument,
+    load_checkpoint,
     mesh_devices,
     mesh_refusals,
     shard_for_mesh,
@@ -342,14 +343,16 @@ def main(argv=None):
     if model_cfg.get("hf_config"):
         bundle = bundle_from_hf_config(model_cfg["hf_config"],
                                        attention=attention)
-        params = bundle.init_params(seed=model_cfg.get("seed", 0),
-                                    dtype=dtype, device=device)
     else:
         bundle = bundle_from_pretrained(model_cfg["model_name_or_path"],
                                         attention=attention)
-        params = bundle.convert_hf(
-            load_safetensors_path(model_cfg["model_name_or_path"]),
-            dtype=dtype, device=device)
+    mesh_refusals(bundle, mesh)
+    if model_cfg.get("hf_config"):
+        params = bundle.init_params(seed=model_cfg.get("seed", 0),
+                                    dtype=dtype, device=device)
+    else:
+        params = load_checkpoint(bundle, model_cfg["model_name_or_path"],
+                                 dtype, device, mesh)
     tokenizer = AutoTokenizer.from_pretrained(model_cfg["model_name_or_path"])
     template = get_template(cfg.data.template)
     pad_id = tokenizer.pad_token_id or tokenizer.eos_token_id
@@ -361,7 +364,6 @@ def main(argv=None):
         raw = raw[: cfg.data.max_samples]
     T = cfg.data.cutoff_len
     optimizer, schedule = make_optimizer(opt_cfg)
-    mesh_refusals(bundle, mesh, attention=attention)
     params = shard_for_mesh(bundle, params, mesh)
 
     def reference():

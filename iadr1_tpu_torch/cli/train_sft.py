@@ -13,8 +13,9 @@ in predict_results.json, which need ``jieba`` and ``nltk``;
 --nproc_per_node N -m iadr1_tpu_torch.cli.train_sft --config ...`` with a
 ``mesh:`` section, ``core/mesh.py``) the parameters and moments are
 sharded by the family's logical axes, each rank collates its dp x fsdp
-share of every step's rows, and rank 0 logs and writes; what a mesh
-cannot carry yet raises naming A.11b (``mesh_refusals``).  Context
+share of every step's rows, and rank 0 logs and writes; each rank loads
+only its own shards of the checkpoint (``load_checkpoint``), and what a
+mesh cannot carry yet raises naming A.11b (``mesh_refusals``).  Context
 extension runs as in JAX: ``model.rope_scaling`` with
 ``model.model_max_length`` rewrites the config (into its ``text_config``
 where it has one, ROADMAP C.R18), ``model.shift_attn`` trains with
@@ -111,46 +112,51 @@ def require_ported(job: SFTJobConfig) -> None:
     ``mesh_refusals``)."""
 
 
-# the families whose forward runs on DTensors under tp > 1, each held to
-# the one-process run (tests/test_torch_distributed.py)
-TP_FAMILIES = ("qwen2", "qwen2_vl")
-
-
-def mesh_refusals(bundle, mesh, lora: bool = False, quant: bool = False,
-                  attention: str = "auto") -> None:
+def mesh_refusals(bundle, mesh) -> None:
     """Raise, naming ROADMAP A.11b, for what the port cannot carry onto
     ``mesh`` (None: no mesh, nothing to refuse): the MoE's expert axis on
-    tp > 1, tp > 1 for the families and attentions not held under it,
-    and LoRA or a quantized base on any mesh.  Nothing runs replicated in
-    their place."""
+    tp > 1.  Every other family runs on DTensors at any tp, LongLoRA's
+    attention too (each held to the one-process run by
+    tests/test_torch_tensor_parallel*.py).  Nothing runs replicated in its
+    place."""
     if mesh is None:
         return
     from iadr1_tpu_torch.core.mesh import mesh_shape
 
-    tp = mesh_shape(mesh)["tp"]
-    if bundle.family == "qwen2_moe" and tp > 1:
+    if bundle.family == "qwen2_moe" and mesh_shape(mesh)["tp"] > 1:
         raise NotImplementedError(
             "the MoE's expert axis on tp > 1 is not ported (ROADMAP "
             "A.11b): its dropless dispatch needs an all-to-all design")
-    if tp > 1 and (bundle.family not in TP_FAMILIES
-                   or attention.startswith("longlora")):
-        raise NotImplementedError(
-            f"tp > 1 for {bundle.family} with {attention!r} attention is "
-            f"not ported (ROADMAP A.11b); tp runs {TP_FAMILIES}")
-    if lora or quant:
-        raise NotImplementedError(
-            "LoRA and quantized bases on a mesh are not ported (ROADMAP "
-            "A.11b)")
 
 
 def shard_for_mesh(bundle, params, mesh):
     """The parameters as DTensors placed by the family's logical axes on
-    ``mesh``; as they are without one."""
-    if mesh is None:
-        return params
-    from iadr1_tpu_torch.core.mesh import shard_pytree
+    ``mesh``; as they are without one, or when they are sharded already
+    (``load_checkpoint``)."""
+    from iadr1_tpu_torch.core.mesh import is_dtensor, shard_pytree
+    from iadr1_tpu_torch.train.state import tree_leaves
 
+    if mesh is None or any(is_dtensor(t) for t in tree_leaves(params)):
+        return params
     return shard_pytree(params, bundle.logical_axes(), mesh)
+
+
+def load_checkpoint(bundle, path: str, dtype, device, mesh=None):
+    """A checkpoint's parameters: converted whole onto ``device`` without
+    a mesh; on one, the sharded load (``models/params_io.py
+    load_sharded``): one leaf at a time converted on the host from the
+    memory-mapped files, each rank putting only its own shards on its
+    card."""
+    from iadr1_tpu_torch.models.params_io import (
+        load_safetensors_path,
+        load_sharded,
+    )
+
+    if mesh is None:
+        return bundle.convert_hf(load_safetensors_path(path), dtype=dtype,
+                                 device=device)
+    return load_sharded(bundle.convert_hf, path, bundle.logical_axes(), mesh,
+                        dtype, device)
 
 
 def rank_collate(collate, mesh):
@@ -415,7 +421,6 @@ def main(argv=None):
     from iadr1_tpu_torch.data.cache import load_tokenized, save_tokenized
     from iadr1_tpu_torch.data.collator import VLMBatchBuilder, text_batch
     from iadr1_tpu_torch.data.template import get_template
-    from iadr1_tpu_torch.models.params_io import load_safetensors_path
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
     from iadr1_tpu_torch.train.checkpoint import CheckpointManager
     from iadr1_tpu_torch.train.loop import (
@@ -445,13 +450,13 @@ def main(argv=None):
             hf_cfg_dict = json.load(f)
     hf_cfg_dict, attention = context_extension(cfg.model, hf_cfg_dict)
     bundle = bundle_from_hf_config(hf_cfg_dict, attention=attention)
+    mesh_refusals(bundle, mesh)
     if cfg.model.hf_config:
-        params = bundle.init_params(seed=cfg.model.seed, dtype=dtype,
-                                    device=device)
+        params = shard_for_mesh(bundle, bundle.init_params(
+            seed=cfg.model.seed, dtype=dtype, device=device), mesh)
     else:
-        params = bundle.convert_hf(
-            load_safetensors_path(cfg.model.model_name_or_path), dtype=dtype,
-            device=device)
+        params = load_checkpoint(bundle, cfg.model.model_name_or_path, dtype,
+                                 device, mesh)
 
     tokenizer = load_tokenizer(cfg.model.model_name_or_path)
     template = get_template(cfg.data.template)
@@ -470,8 +475,6 @@ def main(argv=None):
             print(f"tokenized dataset saved to {cfg.data.tokenized_path}")
     print(f"packed {len(rows)} rows of length {cfg.data.cutoff_len}")
 
-    mesh_refusals(bundle, mesh, attention=attention)
-    params = shard_for_mesh(bundle, params, mesh)
     if not opt_cfg.total_steps:
         opt_cfg = dataclasses.replace(opt_cfg, total_steps=loop_cfg.max_steps)
     optimizer, schedule = make_optimizer(opt_cfg)

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from iadr1_tpu_torch.core.tensor_parallel import tp_group
 from iadr1_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 from iadr1_tpu_torch.kernels.flash_attention import (
     MeshCalls,
@@ -117,6 +118,8 @@ def decode_attention(q, k, v, kv_segment_ids, length: int, *,
 
     if isinstance(q, DTensor):
         return _decode_on_mesh(q, k, v, kv_segment_ids, length, scale)
+    if tp_group() is not None:          # a tp rank's own heads
+        MESH_CALLS.record(q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_segment_ids, length,
                                     scale=scale)

@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from iadr1_tpu_torch.core.tensor_parallel import tp_group
 from iadr1_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 
 # 72 (SigLIP) is staged at a width of 80 inside the kernels
@@ -365,8 +366,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 class MeshCalls:
-    """Calls of a kernel wrapper on DTensors, with the local shapes its
-    kernel (or plain version) was given: each distinct (q, k, v) triple,
+    """Calls of a kernel wrapper on DTensors or under a tensor-parallel
+    scope (``core/tensor_parallel.py``), with the local shapes its kernel
+    (or plain version) was given: each distinct (q, k, v) triple,
     in the order first seen."""
 
     def __init__(self):
@@ -488,6 +490,8 @@ def flash_attention(q, k, v, *, segment_ids=None, kv_segment_ids=None,
     if isinstance(q, DTensor):
         return _flash_on_mesh(q, k, v, segment_ids, kv_segment_ids, causal,
                               float(scale))
+    if tp_group() is not None:          # a tp rank's own heads
+        MESH_CALLS.record(q, k, v)
     q_seg, kv_seg = _default_segments(q, k, segment_ids, kv_segment_ids)
     if q.device.type == "cuda":
         _check_cuda(q, k, v, q_seg, kv_seg)

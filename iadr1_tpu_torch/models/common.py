@@ -11,6 +11,7 @@ from typing import Sequence
 
 import torch
 
+from iadr1_tpu_torch.core.tensor_parallel import tp_group
 from iadr1_tpu_torch.models.quant import dequantize_kernel
 
 
@@ -30,7 +31,18 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    """The rows of ``ids``.  Under a tensor-parallel scope
+    (``core/tensor_parallel.py``) ``table`` is this rank's slice of the
+    vocabulary: the ids it holds are looked up, every other row is 0, and
+    the all-reduce adds the ranks' rows (exactly one rank holds each)."""
+    group = tp_group()
+    if group is None:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - group.rank * rows
+    held = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)] * held[..., None].to(table.dtype)
+    return group.all_reduce(out)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,

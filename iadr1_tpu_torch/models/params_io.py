@@ -32,16 +32,8 @@ def load_safetensors_path(path: str) -> dict[str, torch.Tensor]:
 
     if os.path.isfile(path):
         return _maybe_prequantized(load_file(path))
-    index = os.path.join(path, "model.safetensors.index.json")
-    if os.path.exists(index):
-        with open(index) as f:
-            files = sorted(set(json.load(f)["weight_map"].values()))
-    else:
-        files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no safetensors found under {path}")
     state: dict[str, torch.Tensor] = {}
-    for f in files:
+    for f in _safetensors_files(path):
         state.update(load_file(os.path.join(path, f)))
     return _maybe_prequantized(state)
 
@@ -52,9 +44,186 @@ def _maybe_prequantized(state: dict) -> dict:
     return state
 
 
-# safetensors' names of the dtypes the port writes
+# ---------------------------------------------------------------------------
+# the sharded load: a family's converter run on deferred tensors
+# ---------------------------------------------------------------------------
+
+
+class DeferredTensor(torch.Tensor):
+    """A tensor on the meta device that remembers how its values are made:
+    every op on it runs on the meta device (the shapes) and records the
+    op, so a family's converter run on a state of deferred tensors returns
+    a tree of deferred leaves at no cost, and ``materialize`` makes one
+    leaf at a time on the host.  Any device an op names is the meta device
+    while recording and the host when replayed."""
+
+    @staticmethod
+    def __new__(cls, meta: torch.Tensor, make):
+        t = torch.Tensor._make_subclass(cls, meta)
+        t._meta, t._make = meta, make
+        return t
+
+    def materialize(self) -> torch.Tensor:
+        """The values, made on the host."""
+        with torch._C.DisableTorchFunctionSubclass():
+            return self._make()
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_map
+
+        kwargs = kwargs or {}
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*_on_device(func, tree_map(_meta_of, args), "meta"),
+                       **_on_device(func, tree_map(_meta_of, kwargs),
+                                    "meta"))
+
+        def make():
+            return func(*_on_device(func, tree_map(_values_of, args), "cpu"),
+                        **_on_device(func, tree_map(_values_of, kwargs),
+                                     "cpu"))
+
+        if isinstance(out, torch.Tensor):
+            return cls(out, make)
+        if isinstance(out, (tuple, list)) and out and all(
+                isinstance(o, torch.Tensor) for o in out):
+            return type(out)(cls(o, lambda i=i: make()[i])
+                             for i, o in enumerate(out))
+        return out          # a shape, a dtype, a count
+
+
+def _meta_of(x):
+    return x._meta if isinstance(x, DeferredTensor) else x
+
+
+def _values_of(x):
+    return x._make() if isinstance(x, DeferredTensor) else x
+
+
+def _on_device(func, args, device):
+    """``args`` (a tuple or a kwargs dict) with every device replaced by
+    ``device``; a string counts as a device only as ``Tensor.to``'s."""
+    def swap(x, key=None):
+        if isinstance(x, torch.device) or key == "device" or (
+                func is torch.Tensor.to and isinstance(x, str)):
+            return torch.device(device) if x is not None else x
+        return x
+
+    if isinstance(args, dict):
+        return {k: swap(v, k) for k, v in args.items()}
+    return tuple(swap(a) for a in args)
+
+
+class DeferredState(Mapping):
+    """A checkpoint's tensors as ``DeferredTensor``s read from its
+    memory-mapped safetensors files on demand (a file, or a directory
+    with or without an index)."""
+
+    def __init__(self, path: str):
+        from safetensors import safe_open
+
+        files = ([path] if os.path.isfile(path)
+                 else [os.path.join(path, f) for f in _safetensors_files(path)])
+        self._handles, self._where = [], {}
+        for f in files:
+            handle = safe_open(f, framework="pt", device="cpu")
+            self._handles.append(handle)
+            for name in handle.keys():
+                self._where[name] = handle
+        if any(k.endswith(".qweight") for k in self._where):
+            raise NotImplementedError(
+                "the sharded load of a GPTQ/AWQ checkpoint is not ported "
+                "(ROADMAP A.11b): a quantized base replicates")
+
+    def __getitem__(self, name: str) -> DeferredTensor:
+        handle = self._where[name]
+        piece = handle.get_slice(name)
+        meta = torch.empty(piece.get_shape(), device="meta",
+                           dtype=_TORCH_DTYPES[piece.get_dtype()])
+        return DeferredTensor(meta, lambda: handle.get_tensor(name))
+
+    def __iter__(self):
+        return iter(self._where)
+
+    def __len__(self):
+        return len(self._where)
+
+
+def _safetensors_files(path: str) -> list[str]:
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            return sorted(set(json.load(f)["weight_map"].values()))
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no safetensors found under {path}")
+    return files
+
+
+def _shard_range(n: int, parts: int, index: int) -> tuple[int, int]:
+    """(start, length) of part ``index`` of ``n`` split as a DTensor's
+    ``Shard`` splits it (``torch.chunk``: parts of ceil(n / parts))."""
+    size = -(-n // parts)
+    start = min(index * size, n)
+    return start, min(size, n - start)
+
+
+def load_sharded(convert, path: str, logical_axes, mesh, dtype,
+                 device=None, stats: dict | None = None):
+    """A checkpoint loaded straight onto ``mesh``: the family's converter
+    ``convert(state, dtype=, device=)`` runs on a ``DeferredState``, then
+    one leaf at a time is converted on the host from the memory-mapped
+    files and this rank puts only its own shard of it (placed by its
+    logical axes, as ``core/mesh.py shard_pytree`` places a whole tree) on
+    its card, as a DTensor (``DTensor.from_local``).  No rank holds a
+    whole leaf on its card, nor a whole tree on the host.
+
+    ``stats`` (a dict), when given, receives the largest converted leaf
+    on the host and the largest shard put on the card, in bytes."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from iadr1_tpu_torch.core.mesh import logical_to_mesh_axes
+
+    device = resolve_device(device)
+    tree = convert(DeferredState(path), dtype=dtype, device=device)
+    coord = mesh.get_coordinate()
+    stats = {} if stats is None else stats
+    stats.setdefault("host_leaf_bytes", 0)
+    stats.setdefault("device_shard_bytes", 0)
+
+    def place(leaf, axes):
+        host = (leaf.materialize() if isinstance(leaf, DeferredTensor)
+                else leaf.detach().cpu())
+        placements = logical_to_mesh_axes(axes, None, mesh.mesh_dim_names)
+        local = host
+        for size, c, p in zip(mesh.shape, coord, placements):
+            if isinstance(p, Shard):
+                start, length = _shard_range(host.shape[p.dim], size, c)
+                local = local.narrow(p.dim, start, length)
+        local = local.to(device, copy=True).contiguous()
+        stats["host_leaf_bytes"] = max(stats["host_leaf_bytes"],
+                                       host.numel() * host.element_size())
+        stats["device_shard_bytes"] = max(
+            stats["device_shard_bytes"], local.numel() * local.element_size())
+        del host
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=leaf.shape,
+                                  stride=torch.empty(leaf.shape,
+                                                     device="meta").stride())
+
+    def walk(node, axes):
+        if isinstance(node, dict):
+            return {k: walk(v, axes[k]) for k, v in node.items()}
+        return None if node is None else place(node, axes)
+
+    return walk(tree, logical_axes)
+
+
+# safetensors' names of the dtypes the port writes# safetensors' names of the dtypes the port writes
 _ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16",
               torch.float16: "F16", torch.int64: "I64", torch.int32: "I32"}
+_TORCH_DTYPES = {**{v: k for k, v in _ST_DTYPES.items()},
+                 "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
 
 
 def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor],

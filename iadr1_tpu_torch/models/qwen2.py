@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from iadr1_tpu_torch.core.mesh import compute_view, full
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
+from iadr1_tpu_torch.core.tensor_parallel import tp_group, tp_sum
 from iadr1_tpu_torch.models import common
 from iadr1_tpu_torch.models.common import (
     apply_rope,
@@ -151,12 +152,14 @@ def ckpt(fn, *args):
 
 
 def init_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype,
-               device) -> dict:
+               device, kv_heads: int | None = None) -> dict:
     """Static KV cache, layout [L, B, Hkv, S, D]; ``write_idx`` (a host
     int, shared by the batch: prompts are left-padded) is the next slot.
-    ``apply`` writes into it in place."""
+    ``apply`` writes into it in place.  ``kv_heads``: a tp rank's own KV
+    heads (``train/rollout.py tp_local_params``), the config's count by
+    default."""
     L = cfg.num_hidden_layers
-    Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
+    Hkv, D = kv_heads or cfg.num_key_value_heads, cfg.head_dim_
     return {
         "k": torch.zeros((L, batch, Hkv, max_len, D), dtype=dtype, device=device),
         "v": torch.zeros((L, batch, Hkv, max_len, D), dtype=dtype, device=device),
@@ -215,14 +218,15 @@ def _qkv(cfg, x, a, cos, sin, ll=None, scale: float = 1.0):
     """Normed hidden -> roped q, k and v [B, T, heads, D]; ``ll`` is the
     layer's LoRA tree (or None) and ``scale`` its scale."""
     B, T, _ = x.shape
-    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    D = cfg.head_dim_
 
-    def proj(name, heads):
-        return lora_dense(x, a[name]["kernel"], a[name].get("bias"),
-                          _ab(ll, "attn", name, "kernel"),
-                          scale).view(B, T, heads, D)
+    def proj(name):
+        # the heads this call holds: every head, or a tp rank's own
+        y = lora_dense(x, a[name]["kernel"], a[name].get("bias"),
+                       _ab(ll, "attn", name, "kernel"), scale)
+        return y.view(B, T, y.shape[-1] // D, D)
 
-    q, k, v = proj("q", H), proj("k", Hkv), proj("v", Hkv)
+    q, k, v = proj("q"), proj("k"), proj("v")
     q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
@@ -261,14 +265,17 @@ def dense_mlp(cfg, x, mp, ml, scale: float = 1.0):
 def _attn_out_mlp(cfg, h, out, lp, ll, scale: float, mlp):
     """Output projection, residual, then the MLP block ``mlp(x, params,
     lora, scale) -> (out, aux)`` (``dense_mlp`` for None); returns (h,
-    aux)."""
+    aux).  Under a tensor-parallel scope the two row-parallel products
+    (o and the MLP's down) are partial sums, each completed by one
+    all-reduce (``tp_sum``)."""
     B, T, _ = h.shape
-    h = h + lora_dense(out.reshape(B, T, -1), lp["attn"]["o"]["kernel"],
-                       None, _ab(ll, "attn", "o", "kernel"), scale)
+    h = h + tp_sum(lora_dense(out.reshape(B, T, -1),
+                              lp["attn"]["o"]["kernel"], None,
+                              _ab(ll, "attn", "o", "kernel"), scale))
     x = norm(cfg, h, lp["post_attn_norm"])
     y, aux = (mlp or functools.partial(dense_mlp, cfg))(
         x, lp["mlp"], _ab(ll, "mlp"), scale)
-    return h + y, aux
+    return h + tp_sum(y), aux
 
 
 def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
@@ -279,8 +286,9 @@ def _post_attention(cfg, h, out, lp, ll=None, scale: float = 1.0):
 def _layer(cfg, h, lp, cos, sin, layer_cache, write_idx, attn,
            attend_fresh, ll=None, scale: float = 1.0, mlp=None):
     """One decoder layer; returns (h, the MLP hook's aux or None).  On a
-    mesh ``lp`` is the layer's shards, gathered here (``compute_view``)."""
-    lp = compute_view(lp)
+    mesh ``lp`` and its adapters ``ll`` are the layer's shards, gathered
+    here (``compute_view``)."""
+    lp, ll = compute_view(lp), compute_view(ll)
     x = norm(cfg, h, lp["input_norm"])
     q, k, v = _qkv(cfg, x, lp["attn"], cos, sin, ll, scale)
     if layer_cache is not None:
@@ -313,24 +321,25 @@ def _remat_layer(cfg, h, lp, cos, sin, attn, remat, ll=None,
     q/k/v projections' outputs too, so the backward recomputes only the
     norm in front of them, not the three projections.
 
-    On a mesh ``lp`` is the layer's shards: each checkpointed piece
-    gathers what it reads (``compute_view``) inside its checkpoint, so a
-    layer's whole weights live only while it runs, forward and replay
-    (FSDP's per-layer gather); "save_qkv" keeps the q/k/v projections'
-    gathered weights for their backward."""
+    On a mesh ``lp`` (and its adapters ``ll``) is the layer's shards: each
+    checkpointed piece gathers what it reads (``compute_view``) inside its
+    checkpoint, so a layer's whole weights live only while it runs,
+    forward and replay (FSDP's per-layer gather); "save_qkv" keeps the
+    q/k/v projections' gathered weights for their backward."""
     if remat == "full":
         return ckpt(lambda h: _layer(cfg, h, lp, cos, sin, None, None, attn,
                                      False, ll, scale, mlp), h)
     if remat == "save_qkv":
         x = ckpt(lambda h: norm(cfg, h, compute_view(lp["input_norm"])), h)
-        q, k, v = _qkv(cfg, x, compute_view(lp["attn"]), cos, sin, ll, scale)
+        q, k, v = _qkv(cfg, x, compute_view(lp["attn"]), cos, sin,
+                       compute_view(ll), scale)
     else:
         q, k, v = ckpt(lambda h: _qkv(
             cfg, norm(cfg, h, compute_view(lp["input_norm"])),
-            compute_view(lp["attn"]), cos, sin, ll, scale), h)
+            compute_view(lp["attn"]), cos, sin, compute_view(ll), scale), h)
     out = attn(q, k, v)
-    return ckpt(lambda h, out: _attn_out_mlp(cfg, h, out, compute_view(lp),
-                                             ll, scale, mlp), h, out)
+    return ckpt(lambda h, out: _attn_out_mlp(
+        cfg, h, out, compute_view(lp), compute_view(ll), scale, mlp), h, out)
 
 
 def _or_bidirectional(mask, q_segments, kv_segments, kv_bidir):
@@ -541,8 +550,11 @@ def logits(params: dict, cfg: Qwen2Config, hidden: torch.Tensor,
     bf16 products, as in the JAX head and the chunked CE's
     (``train/sft.py`` ``chunk_logits``)."""
     dt = precision.logits_dtype
-    return torch.matmul(hidden.to(dt),
-                        head_kernel(params, cfg).to(hidden.dtype).to(dt))
+    out = torch.matmul(hidden.to(dt),
+                       head_kernel(params, cfg).to(hidden.dtype).to(dt))
+    group = tp_group()
+    # a tp rank's head is its vocabulary slice: the ranks' columns joined
+    return out if group is None else group.all_gather(out, dim=-1)
 
 
 # ---------------------------------------------------------------------------

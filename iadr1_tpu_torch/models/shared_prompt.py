@@ -24,11 +24,12 @@ decoder.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
-from iadr1_tpu_torch.core.mesh import compute_view
+from iadr1_tpu_torch.core.mesh import compute_view, run_replicated
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import make_attention_mask, rms_norm
@@ -155,22 +156,25 @@ def shared_prompt_hidden(
     mask_cp = make_attention_mask(c_seg, p_seg_rep, None, None, causal=False)
 
     def layer(hp, hc, lp, ll):
-        # on a mesh ``lp`` is the layer's shards: each piece gathers them
-        # inside its checkpoint (``compute_view``, as ``qwen2``'s layers)
+        # on a mesh ``lp`` and ``ll`` are the layer's shards: each piece
+        # gathers them inside its checkpoint (``compute_view``, as
+        # ``qwen2``'s layers)
         def project(h, rope):
             lv = compute_view(lp)
             return _heads_first(*_qkv(
                 cfg, rms_norm(h, lv["input_norm"], eps), lv["attn"], *rope,
-                ll, lora_scale))
+                compute_view(ll), lora_scale))
 
         def finish_prompt(h, out):
             return _post_attention(cfg, h, out.transpose(1, 2),
-                                   compute_view(lp), ll, lora_scale)
+                                   compute_view(lp), compute_view(ll),
+                                   lora_scale)
 
         def finish_completion(h, o1, lse1, o2, lse2):
             out = merge_attention(o1, lse1, o2, lse2)
             return _post_attention(cfg, h, out.transpose(1, 2),
-                                   compute_view(lp), ll, lora_scale)
+                                   compute_view(lp), compute_view(ll),
+                                   lora_scale)
 
         inner = remat and remat != "full"
         run = ckpt if inner else (lambda fn, *args: fn(*args))
@@ -230,11 +234,18 @@ def shared_prompt_pred_hidden(
         precision=precision, remat=remat, prompt_embeds=prompt_embeds,
         lora=lora, lora_scale=lora_scale,
     )
+    # under tp (DTensors) the row pick runs on the replicated local copies
+    return run_replicated(functools.partial(
+        _predicting_rows, group_size=group_size),
+        hp, hc, batch["prompt_segments"])
+
+
+def _predicting_rows(hp, hc, prompt_segments, group_size: int):
     n, P, hid = hp.shape
     # the last VALID prompt token (P-1 under left padding; right-padded
     # inputs work too).  The largest valid index is unique, so no tie can
     # pick another; a row with no valid token reads P-1, as in JAX.
-    valid = batch["prompt_segments"] != 0
+    valid = prompt_segments != 0
     idx = torch.where(valid, torch.arange(P, device=hp.device), -1).amax(1)
     last = torch.where(idx >= 0, idx, P - 1)
     hp_last = hp.gather(1, last[:, None, None].expand(n, 1, hid))

@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from iadr1_tpu_torch.core.mesh import full
 from iadr1_tpu_torch.models.quant import (
     dequantize_kernel,
     is_quantized,
@@ -189,7 +190,9 @@ def init_lora_params(gen: torch.Generator, params: Any,
     get stacked factors.  The factors take the base leaf's dtype (a bf16
     base gets bf16 adapters, as in JAX) and device; over a quant dict
     (QLoRA) the shape is the logical one and the dtype the scales' (f32).
-    DoRA's magnitude starts at the base's column norms."""
+    DoRA's magnitude starts at the base's column norms.  Over a sharded
+    base (DTensors) the factors are whole on every rank, drawn as one
+    process draws them; ``lora_logical_axes`` then places them."""
 
     def make(p, leaf):
         if leaf is None or not p.endswith("kernel"):
@@ -211,11 +214,30 @@ def init_lora_params(gen: torch.Generator, params: Any,
         out = {"a": a, "b": b}
         if cfg.use_dora:
             w = dequantize_kernel(leaf) if is_quantized(leaf) else leaf
-            out["m"] = torch.sqrt(w.float().square().sum(dim=-2)
-                                  + 1e-12).to(dtype)
+            # a sharded base's norms come back whole, as the factors are
+            out["m"] = full(torch.sqrt(w.detach().float().square().sum(
+                dim=-2) + 1e-12).to(dtype))
         return out
 
     return _map_with_path(make, params)
+
+
+def lora_logical_axes(lora: Any, base_axes: Any) -> Any:
+    """The logical axes of an adapter tree, parallel to it, from its
+    base's (``bundle.logical_axes()``): over a kernel of axes (*lead, in,
+    out), "a" [*lead, in, r] takes (*lead, in, None), "b" [*lead, r, out]
+    (*lead, None, out) and DoRA's "m" [*lead, out] (*lead, out), so that on
+    a mesh each factor splits as the product it joins (the rank axis is
+    never split); None leaves stay None."""
+    if lora is None:
+        return None
+    if "a" in lora:
+        *lead, in_ax, out_ax = base_axes
+        axes = {"a": (*lead, in_ax, None), "b": (*lead, None, out_ax)}
+        if "m" in lora:
+            axes["m"] = (*lead, out_ax)
+        return axes
+    return {k: lora_logical_axes(v, base_axes[k]) for k, v in lora.items()}
 
 
 def _randomized_svd(w, r: int, niter: int = 4, seed: int = 0,
@@ -353,6 +375,25 @@ def _adapters_by_path(lora, path: str = "") -> dict:
 
 def count_params(tree) -> int:
     return sum(t.numel() for t in tree_leaves(tree))
+
+
+def lora_training_fns(bundle, base_params, cfg: TuningConfig, **kw):
+    """(hidden_fn, head_kernel_fn) of the factored LoRA route for the
+    chunked-CE step (``train/sft.py make_chunked_sft_step``) over the
+    frozen base: both take the adapter tree, which the train state holds
+    alone.  On a mesh the base is read through its compute view (gathered
+    over dp and fsdp; its decoder's layers one at a time), as the state's
+    own parameters are; ``kw`` (``remat=``) passes to ``hidden_fn``."""
+    from iadr1_tpu_torch.core.mesh import compute_view
+
+    def hidden_fn(lora, batch):
+        return bundle.hidden_fn(compute_view(base_params), batch, lora=lora,
+                                lora_scale=cfg.lora_scale, **kw)
+
+    def head_kernel_fn(lora):
+        return bundle.head_kernel_fn(compute_view(base_params))
+
+    return hidden_fn, head_kernel_fn
 
 
 def make_lora_forward(forward_fn, base_params, cfg: TuningConfig):

@@ -15,16 +15,20 @@ right for any number of prompts per step.  Generation, scoring and update
 share one device and one copy of the policy parameters.
 
 On a mesh (``core/mesh.py``) each batch rank takes its share of the
-step's prompts (whole groups), rolls them out on a gathered copy of the
-policy with the sampler drawing for the global batch (``train/rollout.py``),
-scores them and updates; the update's normalizers are global, and the
-metrics cover every rank's rows.  tp > 1 is refused (ROADMAP A.11b).
+step's prompts (whole groups), rolls them out with the sampler drawing for
+the global batch (``train/rollout.py``): on a copy of the policy gathered
+whole at tp = 1, on its tp slice gathered over dp and fsdp at tp > 1
+(``tp_local_params``, a tensor-parallel decode with explicit
+collectives); it scores them and updates on the sharded state; the
+update's normalizers are global, and the metrics cover every rank's rows.
 
 LoRA mode with reference elision (``base_params`` and a LoRA
 ``tuning_cfg``): the state holds the adapter tree alone, the frozen base
 rides the reference slot, the policy is base + factored adapters and the
 KL reference is the bare base, so one copy of the base weights serves
-rollout, policy and reference.
+rollout, policy and reference, on a mesh too (the base sharded by its
+logical axes, or a quantized base replicated; the adapters and their
+moments sharded by ``train/adapters.py lora_logical_axes``).
 """
 
 from __future__ import annotations
@@ -49,13 +53,16 @@ from iadr1_tpu_torch.core.mesh import (
     mesh_scope,
     mesh_shape,
 )
+from iadr1_tpu_torch.core.tensor_parallel import MeshTP
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.models.registry import GRPO_NOT_YET_PORTED
+from iadr1_tpu_torch.train.adapters import lora_logical_axes
 from iadr1_tpu_torch.train.optimizers import global_norm
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
     SamplingConfig,
     cast_dense_params,
+    tp_local_params,
 )
 from iadr1_tpu_torch.train.sft import (
     batch_to_device,
@@ -380,12 +387,9 @@ class GRPOTrainer:
                 f"SC-GRPO for the {bundle.family} family is not ported yet "
                 f"({GRPO_NOT_YET_PORTED[bundle.family]})")
         mesh = kernel_mesh()
-        if mesh is not None and (mesh_shape(mesh)["tp"] > 1
-                                 or self._lora_mode):
-            raise NotImplementedError(
-                "SC-GRPO on a mesh runs over dp and fsdp with full "
-                "fine-tuning; tp > 1 (a tensor-parallel rollout) and LoRA "
-                "are not ported (ROADMAP A.11b)")
+        # tp > 1: the rollout decodes tensor-parallel (``tp_local_params``)
+        self._tp = (MeshTP(mesh) if mesh is not None
+                    and mesh_shape(mesh)["tp"] > 1 else None)
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.cfg = cfg
@@ -427,17 +431,19 @@ class GRPOTrainer:
         ref_logps_fn = None
         score_fn = bundle_score_fn(bundle, remat=remat)
         if self._lora_mode:
-            # the policy: the base (closed over) plus the adapters the
-            # state holds; the reference: the base alone
+            # the policy: the base (closed over; on a mesh its compute
+            # view) plus the adapters the state holds; the reference: the
+            # base alone
             base = base_params
             ref_score_fn = score_fn
 
             def score_fn(lora, batch):
-                return ref_score_fn(base, batch, lora=lora, lora_scale=scale)
+                return ref_score_fn(compute_view(base), batch, lora=lora,
+                                    lora_scale=scale)
 
             if self._shared:
                 def logps_fn(lora, batch):
-                    return shared_logps(base, batch, lora=lora,
+                    return shared_logps(compute_view(base), batch, lora=lora,
                                         lora_scale=scale)
 
                 ref_logps_fn = shared_logps
@@ -532,19 +538,13 @@ class GRPOTrainer:
                      else self.prompt_collator(examples, G))
         else:
             rollout_batch = batch = self._collate_prompts(examples)
-        # the policy's matmul weights cast to the compute dtype once per
-        # step, not once per layer per decode step; the tokens are the same.
-        # In LoRA mode only the adapters are: the base is read as it is.
-        dtype = self.bundle.precision.compute_dtype
-        if self._lora_mode:
-            policy = self.ref_params
-            lora_kw = {"lora": cast_dense_params(self.state.params, dtype)}
-        else:
-            policy, lora_kw = cast_dense_params(self.state.params, dtype), {}
+        policy, kw = self._rollout_params()
+        if self._tp is not None:
+            kw["tp"] = self._tp
         rollout = self.engine.generate(
             policy, batch_to_device(rollout_batch, self.device),
-            self._next_generator(), group_size=G, **lora_kw)
-        del policy, lora_kw
+            self._next_generator(), group_size=G, **kw)
+        del policy, kw
         completion_ids = rollout["completion_ids"].cpu().numpy()
         completion_mask = rollout["completion_mask"].cpu().numpy()
         prompt_ids = rollout["prompt_ids"].cpu().numpy()
@@ -607,6 +607,35 @@ class GRPOTrainer:
                 rewards_per_func[:, i].mean())
         self.metrics_history.append(out)
         return out
+
+    def _rollout_params(self):
+        """(the rollout's parameters, its ``lora=`` keyword): the policy's
+        matmul weights cast to the compute dtype once per step, not once
+        per layer per decode step (the tokens are the same).  In LoRA mode
+        the adapters are, and the base is read as it is off a mesh.  On a
+        mesh each is this rank's rollout copy: gathered whole at tp = 1,
+        its tp slice at tp > 1."""
+        dtype = self.bundle.precision.compute_dtype
+        base, lora = ((self.ref_params, self.state.params) if self._lora_mode
+                      else (self.state.params, None))
+        if self._tp is not None:
+            tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
+            axes = self.bundle.logical_axes()
+
+            def copy(tree, tree_axes):
+                return tp_local_params(tree, tree_axes, tcfg, self._tp.rank,
+                                       self._tp.size, dtype)
+
+            policy = copy(base, axes)
+            if lora is None:
+                return policy, {}
+            return policy, {"lora": copy(lora, lora_logical_axes(lora,
+                                                                 axes))}
+        if lora is None:
+            return cast_dense_params(base, dtype), {}
+        if kernel_mesh() is not None:
+            base = cast_dense_params(base, dtype)
+        return base, {"lora": cast_dense_params(lora, dtype)}
 
     def _gather_rows(self, rows: np.ndarray) -> np.ndarray:
         """The batch ranks' rows of a host array, in the global order."""

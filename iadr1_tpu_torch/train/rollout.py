@@ -13,15 +13,27 @@ own KV cache, and each step's logits are (1 - c) log_softmax(policy) +
 c log_softmax(mixture) before temperature, top-k and top-p.
 
 On a mesh (``core/mesh.py``) each batch rank decodes its own rows on a
-plain copy of the parameters gathered whole (``cast_dense_params``), the
-sampler draws for the global batch (each rank's top-k candidates are
-gathered, every rank draws the same tokens from the same generator and
-keeps its rows), so the tokens do not depend on the mesh, and the loop
-stops only when every rank's rows are done.
+plain copy of the parameters, the sampler draws for the global batch
+(each rank's top-k candidates are gathered, every rank draws the same
+tokens from the same generator and keeps its rows), so the tokens do not
+depend on the mesh, and the loop stops only when every rank's rows are
+done.  With tp = 1 the copy is gathered whole (``cast_dense_params``).
+With tp > 1 it is gathered over dp and fsdp only (``tp_local_params``):
+each rank keeps its tp slice of the decoder as plain local tensors and
+decodes with explicit collectives (``core/tensor_parallel.py``, the
+Megatron layout: an all-reduce after o and after down, a masked lookup
+and an all-reduce for the vocabulary-sharded embedding, an all-gather of
+the last position's vocabulary-sharded logits before the sampler), its KV
+cache holding only its own KV heads.  Every tp rank then draws the same
+tokens from the same generator.  The vision tower is gathered whole and
+runs on every rank: it is under 1 GB in the tp recipes (CLIP-L-336 for
+LLaVA-NeXT-34B, the Qwen2.5-VL tower for 72B), as ``compute_view`` also
+gathers the towers whole for training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
@@ -33,9 +45,12 @@ from iadr1_tpu_torch.core.mesh import (
     batch_coordinate,
     full,
     gather_batch_rows,
+    is_dtensor,
+    logical_to_spec,
 )
+from iadr1_tpu_torch.core.tensor_parallel import tp_group, tp_scope
 from iadr1_tpu_torch.models import qwen2
-from iadr1_tpu_torch.models.quant import is_quantized
+from iadr1_tpu_torch.models.quant import is_quantized, quantized_shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +136,121 @@ def cast_dense_params(params: dict, dtype) -> dict:
     return walk(params, "")
 
 
+# the decoder leaves whose tp dim is the KV heads' (q's is the heads')
+_KV_LEAVES = ("attn/k/", "attn/v/")
+
+
+def tp_local_params(params: dict, axes: dict, text_cfg, rank: int,
+                    size: int, dtype) -> dict:
+    """tp rank ``rank``'s rollout copy of ``params`` (DTensors on a mesh,
+    or plain tensors: a replicated quantized base, one process's whole
+    tree), as plain tensors: the text decoder's leaves keep the slice of
+    their tp dim (the dim whose logical axis ``axes`` maps to tp; a DTensor
+    gathered over dp and fsdp only), every other leaf (the towers, the
+    projector) whole.  Dense kernels and biases are cast to ``dtype`` as
+    ``cast_dense_params`` casts them.  ``axes`` is the logical-axis tree
+    parallel to ``params`` (``bundle.logical_axes()``, or
+    ``train/adapters.py lora_logical_axes`` for an adapter tree).
+
+    A quant dict is sliced field by field: along out for a
+    column-parallel kernel, along in (its packed rows and block scales)
+    for a row-parallel one.  When the KV heads do not divide by tp each
+    rank keeps the KV heads its query heads read (replicated, as the
+    flash rule replicates them in training).  A split the layout cannot
+    make raises naming ROADMAP A.11b: query heads, a vocabulary, an MLP
+    width or a quant block that does not divide by tp, and DoRA (its
+    column norms of a row-parallel kernel would need a reduce of their
+    own)."""
+    H, Hkv = text_cfg.num_attention_heads, text_cfg.num_key_value_heads
+    D = text_cfg.head_dim_
+    if H % size:
+        raise NotImplementedError(
+            f"a tp rollout needs the {H} query heads to divide by tp={size} "
+            "(ROADMAP A.11b)")
+    kv_heads = None
+    if Hkv % size:
+        local_q, group = H // size, H // Hkv
+        wanted = [(rank * local_q + j) // group for j in range(local_q)]
+        kept = sorted(set(wanted))
+        # each kept KV head serves the same number of local query heads:
+        # keep them once; else one KV head per query head (group 1)
+        kv_heads = kept if len({wanted.count(h) for h in kept}) == 1 \
+            else wanted
+
+    def fail(what):
+        raise NotImplementedError(
+            f"a tp rollout cannot split {what} over tp={size} "
+            "(ROADMAP A.11b)")
+
+    def chunk(t, dim, what):
+        if t.shape[dim] % size:
+            fail(f"{what} {tuple(t.shape)} along dim {dim}")
+        n = t.shape[dim] // size
+        return t.narrow(dim, rank * n, n)
+
+    def select_kv(t):
+        lead = t.shape[:-1]
+        return t.reshape(*lead, Hkv, D)[..., kv_heads, :].reshape(*lead, -1)
+
+    def keep_tp(t, dim):
+        """A leaf's slice of its tp dim (``dim``, None: whole)."""
+        if is_dtensor(t):
+            if dim is None:
+                return full(t)
+            from torch.distributed.tensor import Replicate
+
+            mesh = t.device_mesh
+            placements = [p if name == "tp" else Replicate()
+                          for name, p in zip(mesh.mesh_dim_names,
+                                             t.placements)]
+            return t.redistribute(mesh, placements).to_local()
+        return t if dim is None else chunk(t, dim, "a leaf")
+
+    def leaf(t, ax, path, in_text, cast):
+        if t is None:
+            return None
+        spec = logical_to_spec(ax) if in_text else ()
+        dims = [d for d, entry in enumerate(spec) if entry == "tp"]
+        dim = dims[0] - len(spec) if dims else None       # from the end
+        kv = kv_heads is not None and dim == -1 and any(
+            k in path for k in _KV_LEAVES) and not path.endswith("/a")
+        if kv and is_quantized(t):
+            t = {k: select_kv(v) for k, v in t.items()}
+        elif kv:
+            t = select_kv(full(t.detach()))
+        elif is_quantized(t):
+            t = {k: (v if dim is None or (k == "scales" and v.shape[dim] == 1)
+                     else chunk(v, dim, f"the quant field {k}"))
+                 for k, v in t.items()}
+        else:
+            t = keep_tp(t.detach(), dim)
+        if is_quantized(t):
+            return t
+        return (t.to(dtype) if cast else t).contiguous()
+
+    def walk(node, ax, path, in_text, cast):
+        if node is None:
+            return None
+        if isinstance(node, dict) and not is_quantized(node):
+            if "m" in node and "a" in node:
+                fail("DoRA's magnitudes")
+            dense_node = "kernel" in node and not path.endswith("lm_head")
+            return {k: walk(v, ax[k], f"{path}/{k}" if path else k,
+                            in_text or (k == "text" and not path),
+                            cast or dense_node) for k, v in node.items()}
+        return leaf(node, ax, path, in_text, cast)
+
+    text_model = "text" not in params
+    return walk(params, axes, "", text_model, False)
+
+
+def local_kv_heads(params: dict, text_cfg) -> int:
+    """The KV heads a rollout copy's decoder holds (a tp rank's own)."""
+    k = params.get("text", params)["layers"]["attn"]["k"]["kernel"]
+    out = quantized_shape(k)[-1] if is_quantized(k) else k.shape[-1]
+    return out // text_cfg.head_dim_
+
+
 class RolloutEngine:
     """Batched ``generate`` over a model bundle with a KV cache."""
 
@@ -136,7 +266,7 @@ class RolloutEngine:
 
     @torch.no_grad()
     def generate(self, params, batch: dict, generator=None,
-                 group_size: int = 1, lora=None) -> dict:
+                 group_size: int = 1, lora=None, tp=None) -> dict:
         """batch: left-padded prompt tensors on the engine's device
         ("input_ids", "attention_mask" [B, P]; "position_ids" [3, B, P] and
         "mrope_deltas" [B] for M-RoPE; the vision arrays).  ``group_size``
@@ -145,8 +275,12 @@ class RolloutEngine:
         "prompt_ids", "prompt_mask"}, prompts repeated G times
         consecutively, and "num_decode_steps" (the decode steps run).
         ``lora``: an adapter tree applied factored on top of ``params``
-        (with the engine's ``lora_scale``), prefill and decode alike."""
-        return self._generate(params, batch, generator, group_size, lora)
+        (with the engine's ``lora_scale``), prefill and decode alike.
+        ``tp``: a tensor-parallel group (``core/tensor_parallel.py``);
+        ``params`` and ``lora`` are then its rank's ``tp_local_params``
+        copies, and the decoder runs under ``tp_scope(tp)``."""
+        with (tp_scope(tp) if tp is not None else contextlib.nullcontext()):
+            return self._generate(params, batch, generator, group_size, lora)
 
     @torch.no_grad()
     def generate_mixture(self, params, mixture_params, mixture_coef: float,
@@ -179,8 +313,11 @@ class RolloutEngine:
         """(logits at the last prompt position [B, V], the KV cache): the
         prompts (and their vision arrays) prefilled into a fresh cache."""
         tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
+        kv_heads = (local_kv_heads(params, tcfg) if tp_group() is not None
+                    else None)
         cache = qwen2.init_cache(tcfg, batch["input_ids"].shape[0],
-                                 self.max_len, self.cache_dtype, self.device)
+                                 self.max_len, self.cache_dtype, self.device,
+                                 kv_heads=kv_heads)
         position_ids, _ = self._positions(batch)
         hidden, cache = self.bundle.apply(
             params, {**batch, "position_ids": position_ids,

@@ -132,15 +132,23 @@ def test_unknown_keys_and_bad_overrides_raise_as_in_jax():
 
 
 def test_options_the_port_cannot_run_yet_raise_at_use():
+    """The two tp = 4 recipes pass: the 34B LoRA SC-GRPO job on its fsdp
+    16 x tp 4 mesh (``require_ported``) and the 72B SFT family on its own
+    (``mesh_refusals``); what stays refused on a mesh (PiSSA's
+    initialization, the MoE's expert axis on tp) names ROADMAP A.11b."""
+    from types import SimpleNamespace
+
     by_name = {os.path.basename(p): p for p in CONFIGS}
     job = config.load_config(train_grpo.GRPOJobConfig,
                              by_name["grpo_llava_next_34b.yaml"])
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        train_grpo.require_ported(job)                  # fsdp 16 x tp 4
-    job.mesh = {"dp": 1, "fsdp": -1, "tp": 1}
-    train_grpo.require_ported(job)          # LoRA: ported (A.12)
+    assert job.mesh == {"dp": 1, "fsdp": 16, "tp": 4}
+    train_grpo.require_ported(job)      # fsdp 16 x tp 4, LoRA: ported
     tuning = train_grpo.tuning_config(job)
     assert (tuning.lora_rank, tuning.lora_alpha) == (16, 32.0)
+    job.finetuning.pissa_init = True
+    with pytest.raises(NotImplementedError, match="A.11b"):
+        train_grpo.require_ported(job)
+    job.finetuning.pissa_init = False
     job.finetuning.finetuning_type = "full"
     train_grpo.require_ported(job)
     assert train_grpo.tuning_config(job) is None
@@ -154,7 +162,14 @@ def test_options_the_port_cannot_run_yet_raise_at_use():
 
     sft = config.load_config(train_sft.SFTJobConfig,
                              by_name["sft_qwen2_5_vl_72b.yaml"])
-    train_sft.require_ported(sft)       # fsdp 16 x tp 4: ported (A.11)
+    train_sft.require_ported(sft)
+    recipe_mesh = dataclasses.asdict(sft.mesh)
+    assert recipe_mesh == {"dp": 1, "fsdp": 16, "tp": 4}
+    for family in ("qwen2_5_vl", "llava_next"):     # the two recipes'
+        train_sft.mesh_refusals(SimpleNamespace(family=family), recipe_mesh)
+    with pytest.raises(NotImplementedError, match="A.11b"):
+        train_sft.mesh_refusals(SimpleNamespace(family="qwen2_moe"),
+                                recipe_mesh)
     # ... on 64 processes: in one, building its mesh says how to launch it
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 64"):
         build_mesh(mesh_config(sft.mesh))

@@ -971,7 +971,9 @@ def test_trainer_step_with_its_own_engine(tiny):
 def test_grpo_cli_runs_the_llava_next_recipe(next_tiny, tmp_path,
                                              monkeypatch):
     """cli/train_grpo.py on configs/grpo_llava_next_34b.yaml on one device
-    (its 16 x 4 mesh waits for ROADMAP A.11, and says so), in the recipe's
+    (its 16 x 4 mesh runs on 64 processes, and one process says how to
+    launch it; tests/test_torch_tensor_parallel.py runs it on a small
+    mesh), in the recipe's
     own LoRA mode with reference elision (rank 16, alpha 32), paths and
     sizes overridden: the recipe's llava_next_yi template encodes the
     prompts, a step runs, and the checkpoint holds the adapters and their
@@ -983,7 +985,7 @@ def test_grpo_cli_runs_the_llava_next_recipe(next_tiny, tmp_path,
                           "grpo_llava_next_34b.yaml")
     base = ["--config", recipe, "--device", "cpu",
             f"model.model_name_or_path={next_tiny['path']}"]
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 64"):
         train_grpo.main(base)
     seen = []
     inner = train_grpo.encode_rl_examples

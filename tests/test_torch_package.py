@@ -271,8 +271,10 @@ def test_a_library_is_rebuilt_when_its_source_or_a_shared_header_is_newer(
 def test_every_jax_module_has_a_counterpart():
     """The module lists of the two packages differ only by the port's own
     files (the device resolution, the CUDA sources' build helper, the
-    native plane's loader) and JAX's ``native/``, which the port builds from
-    ``csrc/dataplane.cpp`` into ``data/native.py``."""
+    native plane's loader, the rollout's explicit tensor-parallel
+    collectives, which XLA's partitioner makes for JAX) and JAX's
+    ``native/``, which the port builds from ``csrc/dataplane.cpp`` into
+    ``data/native.py``."""
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parent.parent
@@ -284,5 +286,5 @@ def test_every_jax_module_has_a_counterpart():
     jax_only = modules("iadr1_tpu") - modules("iadr1_tpu_torch")
     port_only = modules("iadr1_tpu_torch") - modules("iadr1_tpu")
     assert jax_only == {"native/__init__.py"}, jax_only
-    assert port_only == {"core/device.py", "data/native.py",
-                         "kernels/_build.py"}, port_only
+    assert port_only == {"core/device.py", "core/tensor_parallel.py",
+                         "data/native.py", "kernels/_build.py"}, port_only

@@ -88,6 +88,35 @@ def count_layer_gathers() -> list:
     return count
 
 
+def record_base() -> dict:
+    """Snapshot (whole) the frozen base a LoRA GRPOTrainer is given, and
+    compare it at the end: {"check": () -> whether it is bitwise unchanged
+    on this rank}."""
+    from iadr1_tpu_torch.core.mesh import full
+    from iadr1_tpu_torch.train.grpo import GRPOTrainer
+    from iadr1_tpu_torch.train.state import tree_leaves
+
+    seen, inner = {}, GRPOTrainer.__init__
+
+    def init(self, *a, **kw):
+        inner(self, *a, **kw)
+        seen["trainer"] = self
+        seen["before"] = [full(t).clone() for t in tree_leaves(
+            self.ref_params)]
+
+    def check():
+        after = [full(t) for t in tree_leaves(seen["trainer"].ref_params)]
+        return len(after) > 0 and all(
+            torch.equal(a, b) for a, b in zip(after, seen["before"]))
+
+    def sharded():
+        return [type(t).__name__ == "DTensor"
+                for t in tree_leaves(seen["trainer"].ref_params)]
+
+    GRPOTrainer.__init__ = init
+    return {"check": check, "sharded": sharded}
+
+
 def case_cli(args) -> dict:
     """One of the training CLIs' ``main`` on a config with a mesh."""
     import importlib
@@ -97,6 +126,7 @@ def case_cli(args) -> dict:
     tokens = record_tokens() if args.get("record_tokens") else None
     if args.get("length_reward"):
         length_reward()
+    base = record_base() if args.get("record_base") else None
     gathers = count_layer_gathers()
     main = importlib.import_module(
         f"iadr1_tpu_torch.cli.{args['cli']}").main
@@ -111,6 +141,9 @@ def case_cli(args) -> dict:
            "layer_gathers": gathers[0]}
     if tokens is not None:
         out["tokens"] = [t.tolist() for t in tokens]
+    if base is not None:
+        out["base_unchanged"] = base["check"]()
+        out["base_sharded"] = base["sharded"]()
     return out
 
 
@@ -262,6 +295,133 @@ def case_batch(args) -> dict:
                            for k, v in placements.items()}}
 
 
+def case_lora_sft(args) -> dict:
+    """LoRA SFT through the library on a mesh: the checkpoint loaded
+    sharded, the adapters drawn whole and placed by their logical axes,
+    ``args["steps"]`` chunked-CE steps on this rank's rows of a fixed text
+    batch; the metrics, the adapters after (gathered, from rank 0) and
+    whether the base is bitwise unchanged."""
+    import numpy as np
+
+    from iadr1_tpu_torch.cli.train_sft import load_checkpoint
+    from iadr1_tpu_torch.core.distributed import host_batch_slice
+    from iadr1_tpu_torch.core.mesh import full
+    from iadr1_tpu_torch.models.registry import bundle_from_pretrained
+    from iadr1_tpu_torch.train.state import named_leaves
+
+    _f32_compute()
+    mesh = _mesh(args["mesh"])
+    bundle = bundle_from_pretrained(args["ckpt"])
+    base = load_checkpoint(bundle, args["ckpt"], torch.float32, "cpu", mesh)
+    before = [full(t).clone() for _, t in named_leaves(base)]
+    state, step, batches = lora_sft_setup(bundle, base, args, mesh)
+    rows = host_batch_slice(len(batches[0]["input_ids"]), mesh)
+    metrics = []
+    for batch in batches:
+        state, m = step(state, {k: np.asarray(v)[rows]
+                                for k, v in batch.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    lora = {name: full(t).detach() for name, t in named_leaves(state.params)}
+    if dist.get_rank() == 0:
+        torch.save(lora, os.path.join(args["out"], "lora.pt"))
+    same = all(torch.equal(full(t), b) for (_, t), b in
+               zip(named_leaves(base), before))
+    return {"metrics": metrics, "base_unchanged": same,
+            "sharded": all(type(t).__name__ == "DTensor"
+                           for _, t in named_leaves(state.params))}
+
+
+def lora_sft_setup(bundle, base, args, mesh=None):
+    """(state, step, batches) of ``case_lora_sft`` (the test's one-process
+    run calls it too): LoRA rank 4 (alpha 8) on every decoder projection,
+    AdamW, and ``args["steps"]`` batches of 4 packed text rows drawn from
+    a seed."""
+    import numpy as np
+
+    from iadr1_tpu_torch.cli.train_grpo import shard_adapters
+    from iadr1_tpu_torch.train.adapters import (
+        TuningConfig,
+        init_lora_params,
+        lora_training_fns,
+    )
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.sft import make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    tuning = TuningConfig(finetuning_type="lora", lora_rank=4,
+                          lora_alpha=8.0, use_dora=args.get("dora", False))
+    lora = init_lora_params(torch.Generator().manual_seed(1), base, tuning)
+    # B = 0 would leave the first step's loss the base's: start elsewhere
+    for leaf in _adapter_bs(lora):
+        leaf.add_(0.01)
+    lora = shard_adapters(bundle, lora, mesh)
+    opt, schedule = make_optimizer(OptimizerConfig(
+        learning_rate=1e-2, warmup_ratio=0.0, total_steps=4))
+    hidden_fn, head_fn = lora_training_fns(bundle, base, tuning, remat=True)
+    step = make_chunked_sft_step(hidden_fn, head_fn, opt, schedule,
+                                 chunk_size=64)
+    rng = np.random.default_rng(3)
+    vocab = getattr(bundle.cfg, "text", bundle.cfg).vocab_size
+    B, T = 4, 32
+    batches = []
+    for _ in range(args["steps"]):
+        ids = rng.integers(3, vocab, (B, T))
+        seg = np.ones((B, T), np.int32)
+        seg[1, 20:] = 2
+        seg[3, 25:] = 0
+        labels = np.where(seg > 0, ids, -100)
+        pos = np.where(seg == 2, np.arange(T) - 20, np.arange(T))
+        batches.append({"input_ids": ids, "labels": labels,
+                        "segment_ids": seg, "position_ids": pos})
+    return create_train_state(lora, opt), step, batches
+
+
+def _adapter_bs(tree):
+    if isinstance(tree, dict):
+        if "b" in tree and "a" in tree:
+            return [tree["b"]]
+        return [b for v in tree.values() for b in _adapter_bs(v)]
+    return []
+
+
+def case_load(args) -> dict:
+    """The sharded load of a checkpoint onto the mesh, held to
+    ``shard_pytree`` of the whole converted tree; each rank's local
+    shapes and the sizes ``load_sharded`` measured."""
+    from iadr1_tpu_torch.core.mesh import shard_pytree
+    from iadr1_tpu_torch.models.params_io import (
+        load_safetensors_path,
+        load_sharded,
+    )
+    from iadr1_tpu_torch.models.registry import bundle_from_pretrained
+    from iadr1_tpu_torch.train.state import named_leaves
+
+    mesh = _mesh(args["mesh"])
+    bundle = bundle_from_pretrained(args["ckpt"])
+    stats = {}
+    got = load_sharded(bundle.convert_hf, args["ckpt"],
+                       bundle.logical_axes(), mesh, torch.bfloat16, "cpu",
+                       stats)
+    whole = bundle.convert_hf(load_safetensors_path(args["ckpt"]),
+                              dtype=torch.bfloat16, device="cpu")
+    want = shard_pytree(whole, bundle.logical_axes(), mesh)
+    pairs = list(zip(named_leaves(got), named_leaves(want)))
+    return {
+        "names_equal": all(a[0] == b[0] for a, b in pairs),
+        "mismatched": [a[0] for a, b in pairs if not (
+            torch.equal(a[1].to_local(), b[1].to_local())
+            and a[1].placements == b[1].placements
+            and a[1].shape == b[1].shape)],
+        "local": {a[0]: list(a[1].to_local().shape) for a, _ in pairs},
+        "stats": stats,
+        "whole_leaf_bytes": max(t.numel() * t.element_size()
+                                for _, t in named_leaves(whole)),
+        "largest_shard_bytes": max(
+            t.to_local().numel() * t.to_local().element_size()
+            for _, t in named_leaves(want)),
+    }
+
+
 def zeros_like_tree(tree):
     if isinstance(tree, dict):
         return {k: zeros_like_tree(v) for k, v in tree.items()}
@@ -270,7 +430,8 @@ def zeros_like_tree(tree):
 
 
 CASES = {"cli": case_cli, "kernels": case_kernels, "batch": case_batch,
-         "optimizer": case_optimizer, "checkpoint": case_checkpoint}
+         "optimizer": case_optimizer, "checkpoint": case_checkpoint,
+         "lora_sft": case_lora_sft, "load": case_load}
 
 
 def main():
