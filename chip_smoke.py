@@ -16,10 +16,12 @@ result line:
    training path's shapes (plus partial-tile, T != S, dlse != 0 and
    unsorted-segment cases; K1's out and lse that feed them are held
    against the twin there too, and timed at the decoder's training
-   shape), with their device times (torch.profiler, kernels only; K4 also
-   cold over 28 caches and as one host call), the plain version's and
-   the matching PyTorch call's (F.scaled_dot_product_attention, forward
-   or backward) as a yardstick, and the kernels' shares of live tiles;
+   shape), with their device times (torch.profiler, kernels only) and
+   the kernels' shares of live tiles; at each kernel's first case (the
+   kernel line's) also the yardsticks: the plain version's time and the
+   matching PyTorch call's (F.scaled_dot_product_attention, forward or
+   backward), K4's also cold over 28 caches and as one host call (every
+   other case holds the kernel to its plain version untimed);
    K1 and K2 also on the edges of their dead-tile skipping (unsorted ids,
    all-padding rows, left padding, stacked query rows that run from one
    head into the next at GQA 6); and all four at the SC-GRPO step's shapes
@@ -353,7 +355,11 @@ result line:
    step, counted; each step's ms and peak memory.
 35. the mesh: the kernels' sharding rule on the card, and cli/train_sft.py
    and cli/train_grpo.py under a one-rank NCCL group against the runs
-   with no group.
+   with no group; (e) KTO, PPO, Nash-MD and GKD through cli/train_pref.py
+   and the fused-CE step through cli/train_sft.py on that group, one step
+   each (Qwen2-VL-2B's widths, the decoder cut to 4 layers), bitwise the
+   runs with no group, DTensor states, heads and teacher, and K1-K4's
+   launches as predicted.
 36. the tools: (a) on phase 4's generator: eval/mmlu.py over 2 subjects
    of 4 items (1-shot, max_length 1024, batches of 4; K1 28 a batch, no
    K4), its f32 choice logits and letters against the plain path, a
@@ -1878,7 +1884,12 @@ def key_tile_shares(q_seg, kv_seg, causal, group) -> dict:
             "full_tile_share": float(full.float().mean())}
 
 
-def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
+def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
+               yardsticks=False, library=False):
+    """K1 against its twin on the same bf16 inputs; when ``timed`` its
+    device time and bound, where ``yardsticks`` (each kernel's first case
+    in phase 3, the kernel line's) the twin's and SDPA's times, and where
+    ``library`` (a row that ROADMAP's D.2-D.5 hold against SDPA) SDPA's."""
     from iadr1_tpu_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_ref,
@@ -1907,19 +1918,21 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
     nbytes = (2 * D * (H * q_rows + 2 * Hkv * k_rows) + 2 * out.numel()
               + 4 * lse.numel() + 4 * (q_seg.numel() + kv_seg.numel()))
     bound_flops, bound_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    mask = pairs[:, None]
-    kr = k.repeat_interleave(H // Hkv, dim=1)
-    vr = v.repeat_interleave(H // Hkv, dim=1)
+    if yardsticks:
+        res["plain_ms"] = device_ms([lambda: plain(
+            flash_attention_ref, q, k, v, q_seg, kv_seg, causal=causal,
+            scale=scale)], iters=3)
+    if yardsticks or library:
+        mask = pairs[:, None]
+        kr = k.repeat_interleave(H // Hkv, dim=1)
+        vr = v.repeat_interleave(H // Hkv, dim=1)
+        res["library_ms"] = device_ms([lambda: torch.nn.functional
+                                       .scaled_dot_product_attention(
+                                           q, kr, vr, attn_mask=mask)])
     res.update(
         ms=device_ms([lambda: flash_attention(q, k, v, segment_ids=q_seg,
                                               kv_segment_ids=kv_seg,
                                               causal=causal)]),
-        plain_ms=device_ms([lambda: plain(
-            flash_attention_ref, q, k, v, q_seg, kv_seg, causal=causal,
-            scale=scale)], iters=3),
-        library_ms=device_ms([lambda: torch.nn.functional
-                              .scaled_dot_product_attention(q, kr, vr,
-                                                            attn_mask=mask)]),
         bound_ms=1e3 * max(bound_flops, bound_bytes),
         bound_by="operations" if bound_flops >= bound_bytes else "bytes",
         gflop=flops / 1e9,
@@ -1928,10 +1941,13 @@ def flash_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed):
 
 
 def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
-             with_dlse=False):
+             with_dlse=False, yardsticks=False, library=False):
     """K2 and K3 against flash_attention_bwd_ref on the same bf16 inputs
     (out and lse from K1, which is held against its twin there first);
-    returns a result for K2, K3 and K1."""
+    returns a result for K2, K3 and K1.  The plain backward's and SDPA's
+    backward times are taken only where ``yardsticks`` (each kernel's
+    first case in phase 3, which the kernel line reports), SDPA's alone
+    where ``library`` (a row that ROADMAP's D.2-D.5 hold against SDPA)."""
     from iadr1_tpu_torch.kernels.flash_attention import (
         _delta,
         flash_attention,
@@ -1993,19 +2009,22 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
     # live key rows, the segment ids whole
     reads = (2 * D * (2 * H * q_rows + 2 * Hkv * k_rows) + 4 * 2 * H * q_rows
              + 4 * (q_seg.numel() + kv_seg.numel()))
-    plain_ms = device_ms([lambda: plain(
-        flash_attention_bwd_ref, q, k, v, q_seg, kv_seg, out, lse, do, dlse,
-        **kw)], iters=3)
-    # the yardstick: SDPA's backward (dq, dk, dv together) on a saved
-    # forward, with a boolean mask and K/V repeated for GQA
-    mask = live[:, None]
-    leaves = [t.detach().requires_grad_(True) for t in (
-        q, k.repeat_interleave(H // Hkv, dim=1),
-        v.repeat_interleave(H // Hkv, dim=1))]
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, attn_mask=mask)
-    library_ms = device_ms([lambda: torch.autograd.grad(
-        sdpa_out, leaves, do, retain_graph=True)])
+    yards = {}
+    if yardsticks:
+        yards["plain_ms"] = device_ms([lambda: plain(
+            flash_attention_bwd_ref, q, k, v, q_seg, kv_seg, out, lse, do,
+            dlse, **kw)], iters=3)
+    if yardsticks or library:
+        # SDPA's backward (dq, dk, dv together) on a saved forward, with
+        # a boolean mask and K/V repeated for GQA
+        mask = live[:, None]
+        leaves = [t.detach().requires_grad_(True) for t in (
+            q, k.repeat_interleave(H // Hkv, dim=1),
+            v.repeat_interleave(H // Hkv, dim=1))]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask)
+        yards["library_ms"] = device_ms([lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True)])
     for res, fn, n_products, out_numel in (
             (res_dq, flash_bwd_dq, 3, dq.numel()),
             (res_dkv, flash_bwd_dkv, 4, dk.numel() + dv.numel())):
@@ -2016,7 +2035,7 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
         times = device_times([lambda: fn(*args, **kw)])
         res.update(
             ms=sum(times.values()), split=split_text(times),
-            plain_ms=plain_ms, library_ms=library_ms,
+            **yards,
             bound_ms=1e3 * max(bound_flops, bound_bytes),
             bound_by="operations" if bound_flops >= bound_bytes else "bytes",
             gflop=flops / 1e9)
@@ -2027,7 +2046,13 @@ def bwd_case(B, H, Hkv, T, S, D, causal, q_seg, kv_seg, seed, timed,
 DECODE_LAYERS = 28
 
 
-def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
+def decode_case(B, H, Hkv, S, D, length, seg, seed, timed,
+                yardsticks=False, library=False):
+    """K4 against its twin; when ``timed`` its warm device time and bound,
+    where ``yardsticks`` (phase 3's first case, the kernel line's) the
+    twin's and SDPA's times, both cold over DECODE_LAYERS caches, and one
+    host call of each, and where ``library`` (a row that ROADMAP's D.5
+    holds against SDPA) SDPA's warm time."""
     from iadr1_tpu_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
@@ -2052,26 +2077,31 @@ def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
               + 4 * B * length)
     flops = 4.0 * (H // Hkv) * Hkv * D * valid
     bound_flops, bound_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    k4 = lambda: decode_attention(q, k, v, seg, length)
+    split = device_times([k4])
+    res.update(
+        ms=sum(split.values()), split=split_text(split),
+        bound_ms=1e3 * max(bound_flops, bound_bytes),
+        bound_by="operations" if bound_flops >= bound_bytes else "bytes",
+    )
+    if not (yardsticks or library):
+        return res
     mask = ((torch.arange(S, device="cuda")[None, :] < length)
             & (seg != 0))[:, None, None, :]
     q4 = q[:, :, None, :]
     kr = k.repeat_interleave(H // Hkv, dim=1)
     vr = v.repeat_interleave(H // Hkv, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    k4 = lambda: decode_attention(q, k, v, seg, length)
     lib = lambda: sdpa(q4, kr, vr, attn_mask=mask)
-    split = device_times([k4])
+    res["library_ms"] = device_ms([lib])
+    if not yardsticks:
+        return res
     res.update(
-        ms=sum(split.values()), split=split_text(split),
         plain_ms=device_ms([lambda: decode_attention_ref(
             q, k, v, seg, length, scale=scale)]),
-        library_ms=device_ms([lib]),
         # one call as the host sees it (CUDA events around the Python
         # call, launch overhead included)
-        call_ms=time_ms(k4), library_call_ms=time_ms(lib),
-        bound_ms=1e3 * max(bound_flops, bound_bytes),
-        bound_by="operations" if bound_flops >= bound_bytes else "bytes",
-    )
+        call_ms=time_ms(k4), library_call_ms=time_ms(lib))
     # cold: passes over DECODE_LAYERS distinct caches, as a decode step
     # makes (more than the 50 MB L2 holds at the serving shape)
     del kr, vr
@@ -2091,6 +2121,15 @@ def decode_case(B, H, Hkv, S, D, length, seg, seed, timed):
     return res
 
 
+def _yard_text(r: dict, twin: str, library: str) -> str:
+    """The yardsticks' times of a timed case, where it took them."""
+    if "library_ms" not in r:
+        return "yardsticks not timed"
+    if "plain_ms" not in r:
+        return f"{twin} not timed, {library} {r['library_ms']:.4f}"
+    return f"{twin} {r['plain_ms']:.4f}, {library} {r['library_ms']:.4f}"
+
+
 def log_kernel_results(fwd, dec, bwd) -> None:
     """A line for each case of phase 3: K1's results ``fwd``, K4's ``dec``
     and (K2, K3, K1) triples ``bwd``."""
@@ -2100,24 +2139,24 @@ def log_kernel_results(fwd, dec, bwd) -> None:
             + (f", live tiles {r['live_tile_share']:.3f} (unmasked "
                f"{r['full_tile_share']:.3f})" if "live_tile_share" in r
                else "")
-            + (f"; {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
-               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-               f"{r['bound_by']}, {r['gflop']:.2f} GFLOP)" if "ms" in r
-               else "")
+            + (f"; {r['ms']:.4f} ms ({_yard_text(r, 'twin', 'sdpa')}, "
+               f"bound {r['bound_ms']:.4f} {r['bound_by']}, "
+               f"{r['gflop']:.2f} GFLOP)" if "ms" in r else "")
             + (f"; padded to 80 in the wrapper {r['wrapper_pad_ms']:.4f} "
                f"ms, max_abs_err {r['wrapper_pad_err']:.3e}"
                if "wrapper_pad_ms" in r else ""))
     for r in dec:
         log(f"kernels: decode_attention {r['shape']}: max_abs_err "
             f"{r['max_abs_err']:.3e}"
-            + (f"; warm {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, sdpa "
-               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-               f"{r['bound_by']}); cold over {DECODE_LAYERS} caches "
+            + (f"; warm {r['ms']:.4f} ms ({_yard_text(r, 'twin', 'sdpa')}, "
+               f"bound {r['bound_ms']:.4f} {r['bound_by']})"
+               if "ms" in r else "")
+            + (f"; cold over {DECODE_LAYERS} caches "
                f"({r['cold_caches_mb']:.0f} MB) {r['ms_cold']:.4f} ms "
                f"(sdpa {r['library_ms_cold']:.4f}); one call with its "
                f"launch {r['call_ms']:.4f} ms (sdpa "
-               f"{r['library_call_ms']:.4f}); kernels {r['split']}"
-               if "ms" in r else ""))
+               f"{r['library_call_ms']:.4f})" if "ms_cold" in r else "")
+            + (f"; kernels {r['split']}" if "ms" in r else ""))
     for rdq, rdkv, _ in bwd:
         for name, r in (("flash_bwd_dq", rdq), ("flash_bwd_dkv", rdkv)):
             log(f"kernels: {name} {r['shape']}: max_abs_err "
@@ -2126,8 +2165,8 @@ def log_kernel_results(fwd, dec, bwd) -> None:
                    if "live_tile_share" in r else "")
                 + (f" (unmasked {r['full_tile_share']:.3f})"
                    if "full_tile_share" in r else "")
-                + (f"; {r['ms']:.4f} ms (plain bwd {r['plain_ms']:.4f}, "
-                   f"sdpa bwd {r['library_ms']:.4f}, bound "
+                + (f"; {r['ms']:.4f} ms "
+                   f"({_yard_text(r, 'plain bwd', 'sdpa bwd')}, bound "
                    f"{r['bound_ms']:.4f} {r['bound_by']}, "
                    f"{r['gflop']:.2f} GFLOP; kernels {r['split']})"
                    if "ms" in r else "")
@@ -2152,7 +2191,7 @@ def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
     dec_seg[:, :PROMPT_LEN] = left
 
     tower = flash_case(1, 16, 16, PATCH_BUDGET, PATCH_BUDGET, 80, False,
-                       tower_seg, tower_seg, 1, timed=True)
+                       tower_seg, tower_seg, 1, timed=True, yardsticks=True)
     prefill = flash_case(BATCH, 12, 2, PROMPT_LEN, PROMPT_LEN, 128, True,
                          left, left, 2, timed=True)
     g = torch.Generator().manual_seed(3)
@@ -2170,7 +2209,7 @@ def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
         flash_case(2, 6, 1, 77, 77, 64, True, packed, packed, 6, timed=False),
     ]
     dec = decode_case(BATCH, 12, 2, S_dec, 128, S_dec, dec_seg, 7,
-                      timed=True)
+                      timed=True, yardsticks=True)
     dead = dec_seg.clone()                  # dead slots inside the prefix
     dead[1, 1000:1013] = 0
     dead[2, 1030:1036] = 0
@@ -2213,7 +2252,7 @@ def phase_kernels(encoded, max_new_tokens, train_rows, grpo_examples):
     allpad[1, 150:] = 2
     bwd = [
         bwd_case(1, 16, 16, PATCH_BUDGET, PATCH_BUDGET, 80, False,
-                 tower_train, tower_train, 11, timed=True),
+                 tower_train, tower_train, 11, timed=True, yardsticks=True),
         bwd_case(TRAIN_ROWS, 12, 2, CUTOFF_LEN, CUTOFF_LEN, 128, True,
                  dec_train, dec_train, 12, timed=True),
         # partial tiles with packed segments and padding, GQA 2, D=80
@@ -2540,7 +2579,7 @@ def phase_kernels_llava_families(next_encoded, v15_encoded, next_rows,
     fwd, bwd, dec = [], [], []
     for i, (label, seg) in enumerate(towers):
         shape = (seg.shape[0], 16, 16, 577, 577, 64, False, seg, seg)
-        results = (*bwd_case(*shape, 101 + i, timed=True),
+        results = (*bwd_case(*shape, 101 + i, timed=True, library=True),
                    flash_case(*shape, 103 + i, timed=True))
         for r in results:
             r["shape"] = f"{label}: {r['shape']}"
@@ -2584,8 +2623,10 @@ def phase_kernels_llava_families(next_encoded, v15_encoded, next_rows,
              True),
             ("ov grpo prompt", (n, 14, 2, P, P, 64, True, p_seg, p_seg),
              False))):
-        results = (*bwd_case(*shape, 110 + i, timed=True, with_dlse=dlse),
-                   flash_case(*shape, 113 + i, timed=True))
+        # SDPA at the cross and self calls (ROADMAP D.2-D.4)
+        results = (*bwd_case(*shape, 110 + i, timed=True, with_dlse=dlse,
+                             library=i < 2),
+                   flash_case(*shape, 113 + i, timed=True, library=i == 0))
         for r in results:
             r["shape"] = f"{label}: {r['shape']}"
         bwd.append(results[:3])
@@ -2647,7 +2688,7 @@ def phase_kernels_internvl_video(intern_encoded, intern_rows, intern_grpo,
     sft_seg[:n_sft] = 1
     shape = (sft_seg.shape[0], 16, 16, 1025, 1025, 64, False, sft_seg,
              sft_seg)
-    results = _labelled((*bwd_case(*shape, 122, timed=True),
+    results = _labelled((*bwd_case(*shape, 122, timed=True, library=True),
                          flash_case(*shape, 123, timed=True)),
                         "internvit sft")
     bwd.append(results[:3])
@@ -2662,7 +2703,7 @@ def phase_kernels_internvl_video(intern_encoded, intern_rows, intern_grpo,
     train = (train_seg.shape[0], 16, 2, T, T, 128, True, train_seg,
              train_seg)
     results = _labelled((*bwd_case(*train, 125, timed=True),
-                         flash_case(*train, 126, timed=True)),
+                         flash_case(*train, 126, timed=True, library=True)),
                         "internvl sft decoder")
     bwd.append(results[:3])
     fwd.append(results[3])
@@ -2801,7 +2842,7 @@ def phase_kernels_paligemma_pixtral(pg_encoded, pg_grpo, px_encoded,
     shape = (train_seg.shape[0], 32, 8, T, T, 128, True, train_seg,
              train_seg)
     results = _labelled((*bwd_case(*shape, 149, timed=True),
-                         flash_case(*shape, 150, timed=True)),
+                         flash_case(*shape, 150, timed=True, library=True)),
                         "pixtral sft decoder")
     bwd.append(results[:3])
     fwd.append(results[3])
@@ -6967,13 +7008,13 @@ def phase_kernels_moe_context(moe_requests, moe_grpo, longlora_rows,
     P = MOE_PROMPT_LENS[0]
     pre = _left_text_segments(moe_requests, P)
     fwd.append(_labelled([flash_case(BATCH, 16, 16, P, P, 128, True, pre,
-                                     pre, 161, timed=True)],
+                                     pre, 161, timed=True, library=True)],
                          "qwen1.5-moe prefill")[0])
     S = P + max_new_tokens
     cache_seg = torch.ones((BATCH, S), **cuda)
     cache_seg[:, :P] = pre
     dec.append(decode_case(BATCH, 16, 16, S, 128, S, cache_seg, 162,
-                           timed=True))
+                           timed=True, library=True))
     dec[-1]["shape"] = f"qwen1.5-moe decode: {dec[-1]['shape']}"
     G, P, N = 4, MOE_GRPO_PROMPT_LEN, MOE_GRPO_COMPLETION_LEN
     p_seg = _left_text_segments([ex["prompt_ids"] for ex in moe_grpo], P)
@@ -7007,7 +7048,7 @@ def phase_kernels_moe_context(moe_requests, moe_grpo, longlora_rows,
         :, :k].sort(dim=1).values
     gathered = segs.gather(1, picked)
     shape = (len(mod_rows), 12, 2, k, k, 128, True, gathered, gathered)
-    results = _labelled((*bwd_case(*shape, 167, timed=True),
+    results = _labelled((*bwd_case(*shape, 167, timed=True, library=True),
                          flash_case(*shape, 168, timed=True)),
                         "mod gathered rows")
     bwd.append(results[:3])
@@ -7726,6 +7767,15 @@ class PrefProbe(GradProbe):
         return GradProbe.apply(self, params, grads, state, grad_norm)
 
 
+def all_dtensors(tree) -> bool:
+    """Whether every leaf of ``tree`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from iadr1_tpu_torch.train.state import tree_leaves
+
+    return all(isinstance(t, DTensor) for t in tree_leaves(tree))
+
+
 class PrefTap:
     """Taps around one call of cli/train_pref.py's ``main`` (phases 32 and
     33).
@@ -7759,16 +7809,20 @@ class PrefTap:
 
     tokenizers: dict = {}
 
-    def __init__(self, kernels, flash=None, replay=None, mixture_hf=None):
+    def __init__(self, kernels, flash=None, replay=None, mixture_hf=None,
+                 probe=True):
         from transformers import AutoTokenizer
 
         from iadr1_tpu_torch.models import registry
-        from iadr1_tpu_torch.train import checkpoint, loop, optimizers, ppo
-        from iadr1_tpu_torch.train import rollout
+        from iadr1_tpu_torch.train import checkpoint, gkd, loop, optimizers
+        from iadr1_tpu_torch.train import ppo, rollout
         from iadr1_tpu_torch.train import state as state_mod
 
         self.kernels = kernels
         self.records, self.saved, self.rollouts = [], [], []
+        # whether every leaf of each state made, and of a GKD teacher, is
+        # a DTensor
+        self.leaf_kinds = {"state": [], "teacher": []}
         self.first_rollouts, self.probe, self.first_update = [], None, None
         self.mixture = {}
         self._logged = 0
@@ -7780,6 +7834,8 @@ class PrefTap:
         def make_optimizer(fn):
             def run(cfg):
                 opt, sched = fn(cfg)
+                if not probe:
+                    return opt, sched
                 tap.probe = PrefProbe(opt)
                 return tap.probe, sched
             return run
@@ -7788,7 +7844,15 @@ class PrefTap:
             def run(params, optimizer):
                 if isinstance(optimizer, PrefProbe):
                     optimizer.bind(params)
+                tap.leaf_kinds["state"].append(all_dtensors(params))
                 return fn(params, optimizer)
+            return run
+
+        def gkd_init(fn):
+            def run(trainer, *args, **kw):
+                fn(trainer, *args, **kw)
+                tap.leaf_kinds["teacher"].append(
+                    all_dtensors(trainer.teacher_params))
             return run
 
         class Logger(loop.JsonlLogger):
@@ -7885,6 +7949,7 @@ class PrefTap:
         self._patch(rollout.RolloutEngine, "_generate", generate)
         self._patch(rollout, "mix_log_probs", mix_log_probs)
         self._patch(ppo, "make_ppo_update_step", make_ppo_update_step)
+        self._patch(gkd.GKDTrainer, "__init__", gkd_init)
         self._patch(AutoTokenizer, "from_pretrained", from_pretrained)
         if flash is not None:
             self._patch(registry, "default_attention",
@@ -7938,14 +8003,16 @@ def plain_mixture(engine, params, batch, mixture, hf, mix_log_probs):
     return out
 
 
-def pref_launches(stage, L, rollouts) -> dict:
+def pref_launches(stage, L, rollouts, fwd_bwd=None) -> dict:
     """The launches one step of ``stage`` implies at L decoder layers
     (text rows: no tower) given the step's rollouts, as phases 6-7 count
     them.  K1 runs once a layer a forward (its residuals survive remat),
     K2 and K3 once a layer a backward; the reference and every forward
     without a graph are K1 only.  A rollout prefills once a model (a
-    mixture's two) and runs K4 once a layer a model a decode step."""
-    fwd_bwd = {"dpo": (2, 1), "simpo": (1, 1), "kto": (4, 1), "bco": (2, 1),
+    mixture's two) and runs K4 once a layer a model a decode step.
+    ``fwd_bwd``: the step's forwards and backwards, where its setting
+    differs from phase 32's (PPO's epochs and minibatches)."""
+    fwd_bwd = fwd_bwd or {"dpo": (2, 1), "simpo": (1, 1), "kto": (4, 1), "bco": (2, 1),
                "rm": (1, 1), "prm": (1, 1),
                # the experience pass (policy and reference), then
                # ppo_epochs x 2 minibatch updates
@@ -7999,8 +8066,9 @@ def phase_kernels_pref():
     for i, n in enumerate(PREF_DPO_ROW_LENS):
         rows[i, :n] = 1
     shape = (2 * PREF_BATCH, 12, 2, T, T, 128, True, rows, rows)
-    results = _labelled((*bwd_case(*shape, 171, timed=True),
-                         flash_case(*shape, 172, timed=True)), "dpo rows")
+    results = _labelled((*bwd_case(*shape, 171, timed=True, library=True),
+                         flash_case(*shape, 172, timed=True, library=True)),
+                        "dpo rows")
     bwd.append(results[:3])
     fwd.append(results[3])
     P, N = PREF_CUTOFF, PREF_COMPLETION_LEN
@@ -8889,18 +8957,18 @@ def phase_sft_extras(rows, build_s: float, card):
     diffs = _sft34_diffs(fused, ref)
     fused_ce = sft._fused_ce
 
-    def unscaled(hidden, kernel, labels, chunk, dtype, want):
+    def unscaled(hidden, kernel, labels, chunk, dtype, want, vocab=None):
         loss, correct, n, dh, dk = fused_ce(hidden, kernel, labels, chunk,
-                                            dtype, want)
+                                            dtype, want, vocab)
         scale = n.clamp(min=1)
         return loss, correct, n, dh * scale, dk * scale
 
-    def unmasked(hidden, kernel, labels, chunk, dtype, want):
+    def unmasked(hidden, kernel, labels, chunk, dtype, want, vocab=None):
         loss, correct, n, _, _ = fused_ce(hidden, kernel, labels, chunk,
-                                          dtype, False)
+                                          dtype, False, vocab)
         every = torch.where(labels == -100, 0, labels)
         _, _, n_all, dh, dk = fused_ce(hidden, kernel, every, chunk, dtype,
-                                       want)
+                                       want, vocab)
         scale = n_all / n.clamp(min=1)       # back to 1 / n_tokens
         return loss, correct, n, dh * scale, dk * scale
 
@@ -9223,11 +9291,11 @@ class MeshTap:
     """Patches for one CLI run of phases 35 and 37: the rows or examples
     handed in (no dataset is tokenized), the canned tokenizer, each step's
     metrics and the train state (with its starting parameters) recorded,
-    each rollout's tokens and time recorded, and the checkpoint written or
-    not."""
+    each rollout's tokens and time recorded, the checkpoint written or
+    not, and the SFT step made with the fused CE or not."""
 
     def __init__(self, rows=None, examples=None, save=True,
-                 keep_state=False):
+                 keep_state=False, fused_ce=False):
         from iadr1_tpu_torch.cli import train_grpo, train_sft
         from iadr1_tpu_torch.train import grpo, sft, state
         from iadr1_tpu_torch.train.checkpoint import CheckpointManager
@@ -9251,7 +9319,8 @@ class MeshTap:
             grpo.GRPOTrainer.step, RolloutEngine.generate)
 
         def make_chunked_sft_step(*a, **kw):
-            step = make_step(*a, **kw)
+            step = make_step(*a, **(dict(kw, fused_ce=True) if fused_ce
+                                    else kw))
 
             def recorded(st, batch):
                 torch.cuda.synchronize()
@@ -9430,6 +9499,273 @@ def mesh_decode(examples, mesh) -> dict:
     return out
 
 
+# (e) the preference launcher's and the fused CE's mesh paths on the same
+# group: KTO (its KL rows collated over the whole batch), PPO (the value
+# head, 2 minibatches of 1, the whitening), Nash-MD (two rollout copies,
+# the mixture) and GKD (a sharded teacher, on-policy) through
+# cli/train_pref.py on phase 32's datasets and settings, and the fused-CE
+# step through cli/train_sft.py on 2 text rows of 2048, one step each at
+# Qwen2-VL-2B's widths, the decoder cut to 4 of its 28 layers and the
+# tower, which no text row reads, to 1 of its 32 blocks (the smoke's
+# time); completions of 32 new tokens
+MESH_PREF_LAYERS, MESH_PREF_N = 4, 32
+MESH_FUSED_ROWS, MESH_FUSED_CUTOFF = 2, 2048
+# the fused CE's vocabulary-sharded loop (tp > 1) at Qwen2-VL-2B's head,
+# the tp ranks one after another on the card, against one rank's loop
+# on the same rows: the loss's relative difference and d_hidden's and
+# d_W's largest differences over their largest magnitudes (the reduction
+# order differs: a max and a sum where one rank takes the logsumexp
+# whole); the correct and label counts exactly.  The limits are about 3x
+# the card's readings (loss 0, d_hidden 2.701e-06, d_W 6.627e-08; the
+# loss's a few f32 ulps); the control that drops the last rank's sums
+# read 1.430e-02, 2.006e-02 and 6.973e-04
+MESH_FUSED_TP = 2
+MESH_FUSED_VOCAB_LIMITS = {"loss": 1e-6, "d_hidden": 8e-6, "d_W": 2e-7}
+# (stage, pref overrides, ppo section, the step's forwards and backwards
+# beside its rollouts as pref_launches counts them)
+MESH_PREF_STAGES = (
+    ("kto", {}, None, (4, 1)),
+    # the experience pass (policy, reference), then 2 minibatch updates
+    ("ppo", {}, {"max_completion_length": MESH_PREF_N, "ppo_epochs": 1,
+                 "mini_batch_size": 1}, (2 + 2, 2)),
+    ("nash_md", {"max_completion_length": MESH_PREF_N}, None, (2, 1)),
+    ("gkd", {"max_completion_length": MESH_PREF_N, "gkd_lmbda": 1.0}, None,
+     (2, 1)),
+)
+
+
+def mesh_pref_hf() -> dict:
+    return dict(QWEN2_VL_2B,
+                text_config=dict(QWEN2_VL_2B["text_config"],
+                                 num_hidden_layers=MESH_PREF_LAYERS),
+                vision_config=dict(QWEN2_VL_2B["vision_config"], depth=1))
+
+
+def mesh_pref_teacher() -> str:
+    """GKD's teacher: mesh_pref_hf's model from seed 1 in bf16, written
+    once under MESH_DIR as an HF checkpoint (read in the student's f32)."""
+    from iadr1_tpu_torch.models.params_export import save_pretrained
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    path = os.path.join(MESH_DIR, "teacher")
+    if not os.path.exists(os.path.join(path, "model.safetensors")):
+        bundle = bundle_from_hf_config(mesh_pref_hf())
+        save_pretrained(bundle, bundle.init_params(
+            seed=1, dtype=torch.bfloat16, device=DEVICE), path)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(mesh_pref_hf(), f)
+    return path
+
+
+def mesh_pref_cfg(name, stage, pref, ppo) -> str:
+    """Phase 32's launcher config for ``stage`` (its tokenizer, datasets,
+    batch and cutoff) at mesh_pref_hf, one step; returns its path."""
+    tok_dir, data = pref_assets()
+    pref = dict(pref, ref_dtype="bfloat16")
+    if stage == "gkd":
+        pref["teacher_model_name_or_path"] = mesh_pref_teacher()
+    cfg = {"stage": stage,
+           "model": {"model_name_or_path": tok_dir,
+                     "hf_config": mesh_pref_hf(), "seed": 0,
+                     "dtype": "float32"},
+           "data": {"dataset_name": data[PREF_DATA[stage]],
+                    "template": "qwen2_vl", "cutoff_len": PREF_CUTOFF},
+           "pref": pref, "ppo": ppo or {},
+           "optim": {"learning_rate": PREF_LEARNING_RATE,
+                     "warmup_ratio": 0.0, "total_steps": 100},
+           "train": {"output_dir": os.path.join(MESH_DIR, name),
+                     "max_steps": 1, "batch_size": PREF_BATCH,
+                     "logging_steps": 1, "save_steps": 0, "seed": 0}}
+    path = os.path.join(MESH_DIR, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def mesh_fused_cfg(name) -> dict:
+    """cli/train_sft.py at mesh_pref_hf from seed 0, f32, phase 6's
+    optimizer with no warm-up (its one step moves the parameters), one
+    step (the rows handed in by the tap)."""
+    return {"model": {"model_name_or_path": MESH_DIR,
+                      "hf_config": mesh_pref_hf(), "seed": 0,
+                      "dtype": "float32", "remat": "true"},
+            "data": {"dataset": "text rows", "cutoff_len": MESH_FUSED_CUTOFF,
+                     "ce_chunk": CE_CHUNK},
+            "optim": {"learning_rate": LEARNING_RATE, "schedule": "cosine",
+                      "warmup_ratio": 0.0, "total_steps": 10,
+                      "max_grad_norm": 1.0},
+            "train": {"output_dir": os.path.join(MESH_DIR, name),
+                      "max_steps": 1, "batch_size": MESH_FUSED_ROWS,
+                      "logging_steps": 1, "save_steps": 0, "seed": 0}}
+
+
+def mesh_pref_runs(kernels, side: str) -> dict:
+    """Phase 35e's five runs, each one step from a fresh launch (on the
+    group when one is set up): {label: {"metrics", "tokens" (each
+    rollout's completions), "launches", "want" (the launches the step's
+    path implies), "kinds" (whether the state's leaves, its heads among
+    them, and the teacher are DTensors), "s"}}."""
+    from iadr1_tpu_torch.data.packing import pack_examples
+
+    out = {}
+    for stage, pref, ppo, fwd_bwd in MESH_PREF_STAGES:
+        path = mesh_pref_cfg(f"{stage}_{side}", stage, pref, ppo)
+        t0 = time.perf_counter()
+        tap = run_pref(path, kernels, probe=False)
+        rec, = tap.records
+        out[stage] = {
+            "metrics": rec["metrics"], "launches": rec["launches"],
+            "tokens": [r["completion_ids"].cpu() for r in
+                       tap.first_rollouts],
+            "want": pref_launches(stage, MESH_PREF_LAYERS, rec["rollouts"],
+                                  fwd_bwd),
+            "kinds": tap.leaf_kinds, "s": time.perf_counter() - t0}
+        del tap
+    rows = pack_examples(
+        make_text_sft_examples(MESH_FUSED_ROWS, MESH_FUSED_CUTOFF, seed=38),
+        MESH_FUSED_CUTOFF, ENDOFTEXT, use_native=False)[:MESH_FUSED_ROWS]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    tap = mesh_cli("train_sft", mesh_fused_cfg(f"fused_{side}"),
+                   f"fused_{side}", rows=rows, save=False, keep_state=True,
+                   fused_ce=True)
+    L = MESH_PREF_LAYERS
+    out["fused_ce"] = {
+        "metrics": tap.metrics[0], "tokens": [],
+        "launches": {k.name: k.launches for k in kernels},
+        "want": {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                 "decode_attention": 0},
+        "kinds": {"state": [all_dtensors(st.params) for st in tap.states],
+                  "teacher": []},
+        "s": time.perf_counter() - t0}
+    del tap
+    return out
+
+
+def check_mesh_pref(group: dict, one: dict, card) -> dict:
+    """Phase 35e's checks of the group runs against the runs with no
+    group: every metric and completion bitwise, every state (heads
+    included) and the teacher DTensors, the launches as predicted.
+    Returns the group runs' launches summed."""
+    total = {}
+    for label, g in group.items():
+        o = one[label]
+        if g["metrics"] != o["metrics"]:
+            worst = {k: _rel(g["metrics"][k], o["metrics"][k])
+                     for k in o["metrics"]}
+            raise AssertionError(f"mesh {label} (35e): the group's metrics "
+                                 f"differ from the run with no group: "
+                                 f"{worst}")
+        if len(g["tokens"]) != len(o["tokens"]) or not all(
+                torch.equal(a, b) for a, b in zip(g["tokens"], o["tokens"])):
+            raise AssertionError(f"mesh {label} (35e): the group's "
+                                 "completions differ")
+        want_kinds = {"state": [True],
+                      "teacher": [True] if label == "gkd" else []}
+        if g["kinds"] != want_kinds or o["kinds"]["state"] != [False]:
+            raise AssertionError(f"mesh {label} (35e): DTensor leaves "
+                                 f"{g['kinds']} on the group, "
+                                 f"{o['kinds']} without, want "
+                                 f"{want_kinds} and plain")
+        if g["launches"] != g["want"]:
+            raise AssertionError(f"mesh {label} (35e): launches "
+                                 f"{g['launches']}, want {g['want']}")
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    log("mesh pref (35e): Qwen2-VL-2B's widths, the decoder cut to "
+        f"{MESH_PREF_LAYERS} layers, through cli/train_pref.py (KTO, PPO, "
+        f"Nash-MD and GKD at N={MESH_PREF_N}) and cli/train_sft.py "
+        "with the fused CE, one step each under the one-rank NCCL group: metrics "
+        "and completions bitwise the runs with no group; the states' "
+        "leaves, the value head and the teacher DTensors; launches as "
+        "predicted: " + "; ".join(
+            f"{label} {g['launches']} in {g['s']:.1f} s (no group "
+            f"{one[label]['s']:.1f} s)" for label, g in group.items())
+        + f" on {card}")
+    return total
+
+
+def check_fused_vocab(card) -> None:
+    """Phase 35e's check of the fused CE's vocabulary-sharded branch
+    (``train/sft.py`` ``_fused_ce`` with ``vocab``): Qwen2-VL-2B's head
+    (1536 x 151936, f32, seed 0) split over MESH_FUSED_TP ranks that run
+    one after another (``run_sequential_ranks``: the max, sum and min
+    all-reduces in rank order), on MESH_FUSED_ROWS rows of
+    MESH_FUSED_CUTOFF (a prefix of each ignored, every other label the
+    argmax that predicts it, so the correct count reads the sharded
+    argmax), against one rank's loop over the whole head; a control
+    whose sums drop the last rank's part fails the limits."""
+    from iadr1_tpu_torch.core.tensor_parallel import (
+        rank_ordered_sum,
+        run_sequential_ranks,
+    )
+    from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
+    from iadr1_tpu_torch.train.sft import _fused_ce
+
+    t0 = time.perf_counter()
+    text = QWEN2_VL_2B["text_config"]
+    H, V = text["hidden_size"], text["vocab_size"]
+    B, T = MESH_FUSED_ROWS, MESH_FUSED_CUTOFF
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    hidden = torch.randn((B, T, H), generator=gen, device=DEVICE)
+    kernel = 0.02 * torch.randn((H, V), generator=gen, device=DEVICE)
+    labels = torch.randint(0, V, (B, T), generator=gen, device=DEVICE)
+    with torch.no_grad():
+        top = torch.matmul(hidden[:, :-1], kernel).argmax(-1)
+    labels[:, 1::2] = top[:, ::2]
+    labels[:, :T // 8] = IGNORE_INDEX
+    del top
+    per = -(-V // MESH_FUSED_TP)
+
+    def rank(group):
+        lo = group.rank * per
+        return _fused_ce(hidden, kernel[:, lo:lo + per], labels, CE_CHUNK,
+                         torch.float32, True, (group, lo, V))
+
+    def diffs(ranks):
+        d_hidden = rank_ordered_sum([r[3].float() for r in ranks])
+        d_w = torch.cat([r[4] for r in ranks], dim=1)
+        return {"loss": max(_rel(float(r[0]), float(want[0]))
+                            for r in ranks),
+                "d_hidden": float((d_hidden - want[3]).abs().max()
+                                  / want[3].abs().max()),
+                "d_W": float((d_w - want[4]).abs().max()
+                             / want[4].abs().max())}
+
+    with torch.no_grad():
+        want = _fused_ce(hidden, kernel, labels, CE_CHUNK, torch.float32,
+                         True)
+        ranks = run_sequential_ranks(rank, MESH_FUSED_TP)
+        got = diffs(ranks)
+        counts = [(int(r[1]), int(r[2])) for r in ranks]
+        del ranks
+        control = diffs(run_sequential_ranks(
+            rank, MESH_FUSED_TP,
+            reduce=lambda parts: rank_ordered_sum(parts[:-1])))
+    torch.cuda.synchronize()
+    if any(c != (int(want[1]), int(want[2])) for c in counts):
+        raise AssertionError(f"fused CE over tp (35e): correct and label "
+                             f"counts {counts}, one rank's "
+                             f"{(int(want[1]), int(want[2]))}")
+    over = {k: v for k, v in got.items() if not v <= MESH_FUSED_VOCAB_LIMITS[k]}
+    if over:
+        raise AssertionError(f"fused CE over tp (35e): {over} over "
+                             f"{MESH_FUSED_VOCAB_LIMITS}")
+    if all(v <= MESH_FUSED_VOCAB_LIMITS[k] for k, v in control.items()):
+        raise AssertionError(f"fused CE over tp (35e): the control (the "
+                             f"last rank's sums dropped) {control} passed")
+    log(f"fused CE over tp (35e): Qwen2-VL-2B's head ({H} x {V}, f32) over "
+        f"{MESH_FUSED_TP} ranks one after another, {B} rows of {T}: "
+        f"correct {int(want[1])} of {int(want[2])} labels as one rank; "
+        f"against one rank " + ", ".join(
+            f"{k} {v:.3e} (limit {MESH_FUSED_VOCAB_LIMITS[k]:.0e})"
+            for k, v in got.items())
+        + "; control (the last rank's sums dropped) " + ", ".join(
+            f"{k} {v:.3e}" for k, v in control.items())
+        + f"; {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def phase_mesh(rows, grpo_examples, card) -> dict:
     """Phase 35: (a, b) the kernels' sharding rule (``phase_mesh_rule``);
     (c) PA-SFT through cli/train_sft.py's main under a one-rank NCCL group
@@ -9441,8 +9777,10 @@ def phase_mesh(rows, grpo_examples, card) -> dict:
     the kernel wrappers' DTensor path on the card (a one-rank mesh) equals
     the plain-tensor call; (d) one SC-GRPO step through cli/train_grpo.py
     on the same group (N = 64): the completions equal the one-process
-    run's token for token, decode ms a step beside it.  Returns the
-    launches of (c) and (d)'s group runs."""
+    run's token for token, decode ms a step beside it; (e) KTO, PPO,
+    Nash-MD, GKD and the fused-CE step on the same group
+    (``mesh_pref_runs``, ``check_mesh_pref``).  Returns the launches of
+    (c), (d) and (e)'s group runs."""
     import gc
     import shutil
 
@@ -9478,6 +9816,9 @@ def phase_mesh(rows, grpo_examples, card) -> dict:
     one_grpo = mesh_cli("train_grpo", mesh_grpo_cfg("grpo_one"), "grpo_one",
                         examples=grpo_examples, save=False)
     one_s = time.perf_counter() - t1
+    t6 = time.perf_counter()
+    one_pref = mesh_pref_runs(kernels, "one")
+    one_pref_s = time.perf_counter() - t6
 
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
@@ -9597,6 +9938,11 @@ def phase_mesh(rows, grpo_examples, card) -> dict:
         if not all(torch.equal(t, tokens[0]) for t in tokens):
             raise AssertionError("mesh decode: the DTensor rollout's tokens "
                                  "differ from the plain copy's")
+        # (e): the taps zero the counters, so 35c-d's are kept aside
+        launches = counts()
+        t7 = time.perf_counter()
+        group_pref = mesh_pref_runs(kernels, "mesh")
+        pref_s = time.perf_counter() - t7
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -9617,6 +9963,14 @@ def phase_mesh(rows, grpo_examples, card) -> dict:
                              f"{gworst}")
     if not all(grpo_launches.values()):
         raise AssertionError(f"mesh grpo launches {grpo_launches}")
+    pref_launches_ = check_mesh_pref(group_pref, one_pref, card)
+    launches = {k: v + pref_launches_.get(k, 0) for k, v in launches.items()}
+    t8 = time.perf_counter()
+    check_fused_vocab(card)
+    vocab_s = time.perf_counter() - t8
+    log(f"phase 35e (mesh pref): {pref_s + one_pref_s + vocab_s:.1f} s (the "
+        f"group runs {pref_s:.1f} s, the runs with no group "
+        f"{one_pref_s:.1f} s, the fused CE over tp {vocab_s:.1f} s)")
     shutil.rmtree(MESH_DIR, ignore_errors=True)
 
     log(f"mesh sft (35c): Qwen2-VL-2B f32 through cli/train_sft.py's main "
@@ -9759,7 +10113,8 @@ def phase_tp_shards() -> None:
         h, hkv = H // TP, Hkv // TP
         shape = (B, h, hkv, T, T, D, causal, seg, seg)
         results = _labelled((*bwd_case(*shape, 380 + i, timed=True,
-                                       with_dlse=causal),
+                                       with_dlse=causal,
+                                       library=label == "CLIP-L-336 tower"),
                              flash_case(*shape, 390 + i, timed=True)),
                             f"tp shard, {label}")
         bwd.append(results[:3])

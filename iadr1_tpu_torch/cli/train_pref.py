@@ -25,11 +25,19 @@ Two departures from the JAX launcher, both where its code departs from
 its own documentation: a ranking pair shares one cut of its prompt
 (``encode_pairwise_example``, ROADMAP C.R22), and KTO's KL rows pair the
 prompt of row i with the completion of row i - 1 of the sampled batch
-(C.R23).  On a mesh (``torchrun --nproc_per_node N -m
-iadr1_tpu_torch.cli.train_pref`` with a ``mesh:`` section) DPO runs with
-the policy and the reference sharded and each rank scoring its share of
-every step's pairs; ``require_ported`` refuses every other stage on a
-mesh, naming ROADMAP A.11b.
+(C.R23).
+
+Every stage runs on a ``(dp, fsdp, tp)`` mesh (``torchrun --nproc_per_node
+N -m iadr1_tpu_torch.cli.train_pref`` with a ``mesh:`` section): the
+policy, the reference and GKD's teacher are sharded by their families'
+logical axes (each rank loads its own shards), and the heads added to the
+model (RM's and PPO's value heads, PRM's head) are replicated.  Every rank
+draws the same step's rows.  DPO and RM collate this rank's share of the
+pairs; KTO, BCO and PRM collate the whole batch (KTO's KL rows pair
+neighbours of it) and keep their share; the rollout stages and GKD hand
+the whole list to the trainer, which takes its share by whole prompts and
+rolls out on the mesh (``train/rollout.py``).  Each loss and metric is the
+whole batch's, on every rank.
 """
 
 from __future__ import annotations
@@ -44,7 +52,6 @@ import numpy as np
 from iadr1_tpu_torch.cli.train_sft import (
     add_device_argument,
     load_checkpoint,
-    mesh_devices,
     mesh_refusals,
     shard_for_mesh,
 )
@@ -101,23 +108,33 @@ class PrefJobConfig:
 
 
 def require_ported(job: PrefJobConfig) -> None:
-    """Raise for a stage or option the port cannot run, naming its item
-    (an unknown stage is a ValueError, as in JAX)."""
+    """Raise for a stage the launcher does not know (a ValueError, as in
+    JAX); every stage runs on one card and on a mesh."""
     if job.stage not in STAGES:
         raise ValueError(f"unknown stage {job.stage!r}; one of {STAGES}")
-    if mesh_devices(job.mesh) > 1:
-        require_mesh_stage(job.stage)
 
 
-# the stages that run on a mesh
-MESH_STAGES = ("dpo",)
+def place_replicated(tree, mesh):
+    """A head added to the sharded model (RM's and PPO's value heads,
+    PRM's head) placed on every rank of ``mesh``, so that the optimizer,
+    ``compute_view`` and the checkpoint see one kind of leaf; as it is
+    without a mesh."""
+    if mesh is None:
+        return tree
+    from iadr1_tpu_torch.core.mesh import replicated_axes, shard_pytree
+
+    return shard_pytree(tree, replicated_axes(tree), mesh)
 
 
-def require_mesh_stage(stage: str) -> None:
-    if stage not in MESH_STAGES:
-        raise NotImplementedError(
-            f"stage {stage!r} on a mesh is not ported (ROADMAP A.11b); "
-            f"on a mesh: {MESH_STAGES}")
+def rank_rows(batch: dict, mesh) -> dict:
+    """This rank's dp x fsdp share of a collated batch's rows (every
+    array's leading dim); the batch as it is without a mesh."""
+    if mesh is None:
+        return batch
+    from iadr1_tpu_torch.core.distributed import host_batch_slice
+
+    rows = host_batch_slice(len(batch["input_ids"]), mesh)
+    return {k: v[rows] for k, v in batch.items()}
 
 
 def _content(x) -> str:
@@ -307,7 +324,6 @@ def main(argv=None):
     )
     from iadr1_tpu_torch.core.mesh import build_mesh, mesh_config
     from iadr1_tpu_torch.data.template import get_template
-    from iadr1_tpu_torch.models.params_io import load_safetensors_path
     from iadr1_tpu_torch.models.registry import (
         bundle_from_hf_config,
         bundle_from_pretrained,
@@ -330,8 +346,6 @@ def main(argv=None):
         raise ValueError("stage=gkd needs pref.teacher_model_name_or_path")
     device = resolve_device(args.device)
     mesh = build_mesh(mesh_config(cfg.mesh))
-    if mesh is not None:
-        require_mesh_stage(cfg.stage)
     loop_cfg = dataclass_from_dict(LoopConfig, cfg.train)
     opt_cfg = dataclass_from_dict(OptimizerConfig, cfg.optim)
     if not opt_cfg.total_steps:
@@ -391,8 +405,10 @@ def main(argv=None):
             )
 
             ref_params = reference()
-            state = create_train_state(make_ppo_state_params(
-                params, hidden_size, head_generator()), optimizer)
+            ppo_params = make_ppo_state_params(params, hidden_size,
+                                               head_generator())
+            ppo_params["vhead"] = place_replicated(ppo_params["vhead"], mesh)
+            state = create_train_state(ppo_params, optimizer)
             extra = {k for ex in examples for k in ex if k != "prompt_ids"}
             trainer = PPOTrainer(
                 bundle, tokenizer, optimizer,
@@ -451,8 +467,9 @@ def main(argv=None):
         teacher_path = cfg.pref.teacher_model_name_or_path
         teacher_bundle = bundle_from_pretrained(teacher_path,
                                                 attention=attention)
-        teacher_params = teacher_bundle.convert_hf(
-            load_safetensors_path(teacher_path), dtype=dtype, device=device)
+        # on a mesh each rank loads its own shards of the teacher
+        teacher_params = load_checkpoint(teacher_bundle, teacher_path, dtype,
+                                         device, mesh)
         examples = gkd_examples(raw, template, tokenizer)
         trainer = GKDTrainer(
             bundle, teacher_bundle, tokenizer, optimizer, GKDConfig(
@@ -473,15 +490,16 @@ def main(argv=None):
         if cfg.stage == "rm":
             state = create_train_state({
                 "model": params,
-                "value_head": pref.init_value_head(
-                    head_generator(), hidden_size, dtype)}, optimizer)
+                "value_head": place_replicated(pref.init_value_head(
+                    head_generator(), hidden_size, dtype), mesh)}, optimizer)
             step = pref.make_rm_step(
                 lambda p, b: bundle.hidden_fn(p, b), optimizer, schedule)
         elif cfg.stage == "prm":
             state = create_train_state({
                 "model": params,
-                "prm_head": pref.init_prm_head(
-                    head_generator(), hidden_size, dtype=dtype)}, optimizer)
+                "prm_head": place_replicated(pref.init_prm_head(
+                    head_generator(), hidden_size, dtype=dtype), mesh)},
+                optimizer)
             step = pref.make_prm_step(
                 lambda p, b: bundle.hidden_fn(p, b), optimizer, schedule)
         elif cfg.stage == "bco":
@@ -521,21 +539,31 @@ def main(argv=None):
         for step_idx in range(1, loop_cfg.max_steps + 1):
             idx = rng.choice(n, size=min(bs, n), replace=False)
             if trainer is not None:
+                # every rank hands over the whole list and takes its share
                 metrics = trainer.step([examples[i] for i in idx])
                 state = trainer.state
-            elif cfg.stage in ("rm", "prm"):
-                state, metrics = step(state, collate(idx))
-            elif cfg.stage == "bco":
-                # BCO's reward shift: one host sync a step, as in JAX
-                state, metrics = step(state, ref_params, collate(idx),
-                                      running.mean)
-                running.update(float(metrics["reward_mean"]),
-                               float(metrics["reward_var"]),
-                               float(metrics["reward_count"]))
-            else:
+            elif cfg.stage in ("dpo", "rm"):
                 if mesh is not None:    # this rank's share of the pairs
                     idx = idx[host_batch_slice(len(idx), mesh)]
-                state, metrics = step(state, ref_params, collate(idx))
+                batch = collate(idx)
+                state, metrics = (step(state, batch) if cfg.stage == "rm"
+                                  else step(state, ref_params, batch))
+            else:
+                # the rows collated over the whole sampled batch (KTO's KL
+                # rows pair neighbours of it), then this rank's share
+                batch = rank_rows(collate(idx), mesh)
+                if cfg.stage == "prm":
+                    state, metrics = step(state, batch)
+                elif cfg.stage == "bco":
+                    # BCO's reward shift: one host sync a step, as in JAX;
+                    # the metrics are the whole batch's on every rank
+                    state, metrics = step(state, ref_params, batch,
+                                          running.mean)
+                    running.update(float(metrics["reward_mean"]),
+                                   float(metrics["reward_var"]),
+                                   float(metrics["reward_count"]))
+                else:
+                    state, metrics = step(state, ref_params, batch)
             if step_idx % max(loop_cfg.logging_steps, 1) == 0:
                 logger.log(step_idx, {k: float(v) for k, v in metrics.items()})
             if loop_cfg.save_steps and step_idx % loop_cfg.save_steps == 0:

@@ -497,6 +497,32 @@ def batch_ranks() -> int:
     return batch_coordinate()[1]
 
 
+def rank_share(x):
+    """A value every batch rank holds whole (a global statistic) as this
+    rank's share of the sum the step's metrics take over the batch ranks
+    (``train/sft.py mesh_metrics``); ``x`` itself with one batch rank."""
+    n = batch_ranks()
+    return x if n == 1 else x / n
+
+
+def global_mean(x):
+    """The mean of every element of ``x`` over the batch ranks' rows, no
+    gradient, the same on every rank; ``x.mean()`` without a mesh."""
+    if batch_ranks() == 1:
+        return x.mean()
+    return batch_total(x.detach().sum()) / batch_total(
+        torch.tensor(float(x.numel()), device=local(x).device))
+
+
+def replicated_axes(tree):
+    """The logical-axis tree that replicates every leaf of ``tree``: a
+    head added to a sharded model (``shard_pytree`` of the tree under it
+    places each leaf on every rank, as JAX's ``create_sharded_state``
+    places an unannotated leaf)."""
+    if isinstance(tree, dict):
+        return {k: replicated_axes(v) for k, v in tree.items()}
+    return None if tree is None else (None,) * tree.dim()
+
 
 def batch_mean(x):
     """The mean over dim 0 of ``x`` as this rank's share: its rows' sum
@@ -518,6 +544,17 @@ def all_done(done: torch.Tensor) -> bool:
     dist.all_reduce(flag, op=dist.ReduceOp.MIN,
                     group=batch_group(kernel_mesh()))
     return bool(flag)
+
+
+def gather_host_rows(rows: np.ndarray) -> np.ndarray:
+    """The batch ranks' rows of a host array (as float64) concatenated in
+    rank order, the global batch's order; ``rows`` itself with one batch
+    rank."""
+    if batch_ranks() == 1:
+        return rows
+    t = torch.as_tensor(np.asarray(rows).astype(np.float64),
+                        device=mesh_device())
+    return gather_batch_rows(t).cpu().numpy()
 
 
 def gather_batch_rows(x: torch.Tensor) -> torch.Tensor:

@@ -66,9 +66,12 @@ class MeshTP:
         self.rank = mesh.get_local_rank("tp")
         self.size = mesh.size(mesh.mesh_dim_names.index("tp"))
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced over the tp ranks by ``op`` ("sum", "max" or
+        "min"), in place where ``x`` is contiguous."""
         x = x.contiguous()
-        dist.all_reduce(x, group=self.group)
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op.upper()),
+                        group=self.group)
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -143,8 +146,8 @@ class _Turns:
 
 class SequentialRank:
     """One rank of ``run_sequential_ranks``: ``all_reduce`` combines the
-    ranks' parts with the run's ``reduce``, ``all_gather`` concatenates
-    them in rank order."""
+    ranks' parts with the run's ``reduce`` (or their elementwise max or
+    min), ``all_gather`` concatenates them in rank order."""
 
     def __init__(self, rank: int, turns: _Turns):
         self.rank, self.size, self._turns = rank, turns.size, turns
@@ -154,8 +157,11 @@ class SequentialRank:
         self._made += 1
         return self._turns.exchange(self.rank, self._made, x, combine)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return self._exchange(x, self._turns.reduce)
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        combine = {"sum": self._turns.reduce,
+                   "max": lambda parts: torch.stack(parts).amax(0),
+                   "min": lambda parts: torch.stack(parts).amin(0)}[op]
+        return self._exchange(x, combine)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return self._exchange(x, lambda parts: torch.cat(parts, dim=dim))

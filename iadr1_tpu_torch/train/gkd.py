@@ -12,6 +12,12 @@ The JSD never forms two [B, T, V] logits tensors: as the chunked CE loss
 chunk of tokens at a time under a checkpoint, so that peak memory is two
 [chunk, V] blocks.  The teacher's forward runs under ``torch.no_grad()``
 before the student's.
+
+On a mesh (``core/mesh.py``) the teacher is sharded as the student is;
+every rank draws the same on-policy choice, takes its share of the step's
+examples, rolls out (on-policy) on its copy of the student
+(``train/rollout.py rollout_copy``) and averages the JSD over the whole
+batch's completion tokens.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.distributed import host_batch_slice
+from iadr1_tpu_torch.core.mesh import batch_total, compute_view, mesh_scope
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.train.grpo import (
@@ -37,7 +45,8 @@ from iadr1_tpu_torch.train.preference import _on_params_device, apply_update
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
     SamplingConfig,
-    cast_dense_params,
+    mesh_tp,
+    rollout_copy,
 )
 from iadr1_tpu_torch.train.sft import batch_to_device
 
@@ -89,7 +98,9 @@ def chunked_jsd_loss(student_hidden, teacher_hidden, student_kernel,
                      teacher_kernel, labels, *, beta: float,
                      temperature: float, chunk_size: int):
     """(masked mean JSD, label count) between the student's and the
-    teacher's next-token distributions, a chunk of tokens at a time.
+    teacher's next-token distributions, a chunk of tokens at a time; on a
+    mesh the mean is over the whole batch's labels (this rank's share of
+    it) and the count this rank's.
 
     hidden [B, T, H]; labels [B, T] with IGNORE_INDEX outside the
     completion tokens (next-token alignment: hidden[t] predicts
@@ -105,7 +116,7 @@ def chunked_jsd_loss(student_hidden, teacher_hidden, student_kernel,
                              student_kernel, teacher_kernel, mask[c], beta,
                              temperature)
     count = mask.sum()
-    return total / count.clamp(min=1.0), count
+    return total / batch_total(count).clamp(min=1.0), count
 
 
 def make_gkd_step(score_fn, teacher_score_fn, optimizer, cfg: GKDConfig,
@@ -119,14 +130,17 @@ def make_gkd_step(score_fn, teacher_score_fn, optimizer, cfg: GKDConfig,
 
     def step(state, teacher_params, batch):
         batch = _on_params_device(state, batch)
-        with record_function(GKD_RANGES[1]), torch.no_grad():
-            t_hidden, t_kernel = teacher_score_fn(teacher_params, batch)
-        with record_function(GKD_RANGES[2]):
-            s_hidden, s_kernel = score_fn(state.params, batch)
-            loss, n = chunked_jsd_loss(
-                s_hidden, t_hidden, s_kernel, t_kernel, batch["labels"],
-                beta=cfg.beta, temperature=cfg.temperature,
-                chunk_size=cfg.logit_chunk_size)
+        with mesh_scope():
+            with record_function(GKD_RANGES[1]), torch.no_grad():
+                t_hidden, t_kernel = teacher_score_fn(
+                    compute_view(teacher_params), batch)
+            with record_function(GKD_RANGES[2]):
+                s_hidden, s_kernel = score_fn(compute_view(state.params),
+                                              batch)
+                loss, n = chunked_jsd_loss(
+                    s_hidden, t_hidden, s_kernel, t_kernel, batch["labels"],
+                    beta=cfg.beta, temperature=cfg.temperature,
+                    chunk_size=cfg.logit_chunk_size)
         return apply_update(state, optimizer, loss,
                             {"loss": loss, "n_label_tokens": n}, schedule)
 
@@ -165,26 +179,33 @@ class GKDTrainer:
             bundle_score_fn(bundle), bundle_score_fn(teacher_bundle),
             optimizer, cfg, schedule)
         self._host_rng = np.random.default_rng(seed)
+        # tp > 1: the rollout decodes tensor-parallel
+        self._tp = mesh_tp()
         self._rollouts = 0
         self.metrics_history: list[dict] = []
 
     def step(self, examples: Sequence[dict]) -> dict:
-        """examples: [{"prompt_ids": [...], "completion_ids": [...]}]."""
+        """examples: [{"prompt_ids": [...], "completion_ids": [...]}].
+        On a mesh every rank passes the whole list (and so draws the same
+        on-policy choice) and takes its share of it."""
         cfg = self.cfg
         pad = self.tokenizer.pad_token_id or self.tokenizer.eos_token_id
+        on_policy = float(self._host_rng.random()) <= cfg.lmbda
+        examples = list(examples)[host_batch_slice(len(examples))]
         prompt = collate_text_prompts(self.bundle, examples,
                                       cfg.max_prompt_length, pad)
         prompt_ids, prompt_mask = prompt["input_ids"], prompt["attention_mask"]
-        on_policy = float(self._host_rng.random()) <= cfg.lmbda
         if on_policy:
             with record_function(GKD_RANGES[0]):
-                policy = cast_dense_params(
-                    self.state.params, self.bundle.precision.compute_dtype)
+                policy = rollout_copy(self.bundle, self.state.params,
+                                      self._tp)
                 generator = sampling_generator(self.seed, self._rollouts,
                                                self.device)
                 self._rollouts += 1
+                kw = {} if self._tp is None else {"tp": self._tp}
                 rollout = self.engine.generate(
-                    policy, batch_to_device(prompt, self.device), generator)
+                    policy, batch_to_device(prompt, self.device), generator,
+                    **kw)
                 del policy
             comp_ids = rollout["completion_ids"].cpu().numpy()
             comp_mask = rollout["completion_mask"].cpu().numpy()

@@ -47,13 +47,11 @@ from iadr1_tpu_torch.core.mesh import (
     batch_mean,
     batch_total,
     compute_view,
-    gather_batch_rows,
+    gather_host_rows,
     kernel_mesh,
     local,
     mesh_scope,
-    mesh_shape,
 )
-from iadr1_tpu_torch.core.tensor_parallel import MeshTP
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.models.registry import GRPO_NOT_YET_PORTED
 from iadr1_tpu_torch.train.adapters import lora_logical_axes
@@ -62,6 +60,8 @@ from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
     SamplingConfig,
     cast_dense_params,
+    mesh_tp,
+    rollout_copy,
     tp_local_params,
 )
 from iadr1_tpu_torch.train.sft import (
@@ -386,10 +386,8 @@ class GRPOTrainer:
             raise NotImplementedError(
                 f"SC-GRPO for the {bundle.family} family is not ported yet "
                 f"({GRPO_NOT_YET_PORTED[bundle.family]})")
-        mesh = kernel_mesh()
         # tp > 1: the rollout decodes tensor-parallel (``tp_local_params``)
-        self._tp = (MeshTP(mesh) if mesh is not None
-                    and mesh_shape(mesh)["tp"] > 1 else None)
+        self._tp = mesh_tp()
         self.bundle = bundle
         self.tokenizer = tokenizer
         self.cfg = cfg
@@ -593,9 +591,9 @@ class GRPOTrainer:
             advantages)
         self.state, metrics = self._run_updates(update_batch)
         # the metrics read every rank's rows
-        rewards_per_func = self._gather_rows(rewards_per_func)
+        rewards_per_func = gather_host_rows(rewards_per_func)
         rewards = rewards_per_func.sum(axis=1)
-        trunc_frac = float(self._gather_rows(truncated).mean())
+        trunc_frac = float(gather_host_rows(truncated).mean())
         out = {k: float(v) for k, v in metrics.items()}
         out["completion_truncated_frac"] = trunc_frac
         out["ref_synced"] = float(self.maybe_sync_ref())
@@ -615,34 +613,20 @@ class GRPOTrainer:
         the adapters are, and the base is read as it is off a mesh.  On a
         mesh each is this rank's rollout copy: gathered whole at tp = 1,
         its tp slice at tp > 1."""
+        if not self._lora_mode:
+            return rollout_copy(self.bundle, self.state.params, self._tp), {}
         dtype = self.bundle.precision.compute_dtype
-        base, lora = ((self.ref_params, self.state.params) if self._lora_mode
-                      else (self.state.params, None))
+        base, lora = self.ref_params, self.state.params
         if self._tp is not None:
             tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
             axes = self.bundle.logical_axes()
-
-            def copy(tree, tree_axes):
-                return tp_local_params(tree, tree_axes, tcfg, self._tp.rank,
-                                       self._tp.size, dtype)
-
-            policy = copy(base, axes)
-            if lora is None:
-                return policy, {}
-            return policy, {"lora": copy(lora, lora_logical_axes(lora,
-                                                                 axes))}
-        if lora is None:
-            return cast_dense_params(base, dtype), {}
+            return rollout_copy(self.bundle, base, self._tp), {
+                "lora": tp_local_params(lora, lora_logical_axes(lora, axes),
+                                        tcfg, self._tp.rank, self._tp.size,
+                                        dtype)}
         if kernel_mesh() is not None:
             base = cast_dense_params(base, dtype)
         return base, {"lora": cast_dense_params(lora, dtype)}
-
-    def _gather_rows(self, rows: np.ndarray) -> np.ndarray:
-        """The batch ranks' rows of a host array, in the global order."""
-        if kernel_mesh() is None:
-            return rows
-        t = torch.as_tensor(rows.astype(np.float64), device=self.device)
-        return gather_batch_rows(t).cpu().numpy()
 
     def _update_batch(self, batch, prompt_ids, prompt_mask, completion_ids,
                       completion_mask, advantages) -> dict:

@@ -27,6 +27,14 @@ structured rewards and chunked sequence logps.
 The XPO and Nash-MD update steps are plain functions as the DPO step is
 (``train/preference.py``): the reference is scored under
 ``torch.no_grad()`` before the policy's forward.
+
+On a mesh (``core/mesh.py``) every trainer takes its share of the step's
+prompts by whole prompts (``host_batch_slice``; RLOO's groups come with
+them, as GRPO's do), rolls them out on this rank's copy of the policy and
+the reference (``train/rollout.py rollout_copy``: gathered whole at tp =
+1, the tp slice at tp > 1), pairs and scores them per prompt, and updates
+the sharded state with the whole batch's means; the logged statistics
+gather every rank's rows (``gather_host_rows``).
 """
 
 from __future__ import annotations
@@ -40,6 +48,15 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.distributed import host_batch_slice
+from iadr1_tpu_torch.core.mesh import (
+    batch_mean,
+    compute_view,
+    full,
+    gather_host_rows,
+    kernel_mesh,
+    mesh_scope,
+)
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.train.grpo import (
     GRPOTrainer,
@@ -58,9 +75,11 @@ from iadr1_tpu_torch.train.preference import (
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
     SamplingConfig,
-    cast_dense_params,
+    mesh_tp,
+    rollout_copy,
 )
 from iadr1_tpu_torch.train.sft import batch_to_device
+from iadr1_tpu_torch.train.state import tree_leaves
 
 # profiler range names of an online DPO step's rollout and of the XPO and
 # Nash-MD steps' rollouts
@@ -92,8 +111,12 @@ class RLOOTrainer(GRPOTrainer):
         self.normalize_advantages = normalize_advantages
 
     def compute_advantages(self, rewards: np.ndarray) -> np.ndarray:
-        return rloo_advantages(rewards, self.cfg.num_generations,
-                               self.normalize_advantages)
+        if not self.normalize_advantages:     # per group: whole groups here
+            return rloo_advantages(rewards, self.cfg.num_generations)
+        # whitened over the whole batch: every rank's rewards, then its rows
+        adv = rloo_advantages(gather_host_rows(rewards),
+                              self.cfg.num_generations, True)
+        return adv[host_batch_slice(len(adv))]
 
 
 def online_dpo_order(scores: np.ndarray) -> np.ndarray:
@@ -148,6 +171,8 @@ class OnlineDPOTrainer:
             device=self.device)
         self.update_step = make_dpo_step(bundle_score_fn(bundle), optimizer,
                                          cfg, schedule)
+        # tp > 1: the rollouts decode tensor-parallel
+        self._tp = mesh_tp()
         self._rollouts = 0
         self.metrics_history: list[dict] = []
 
@@ -156,19 +181,28 @@ class OnlineDPOTrainer:
             self.bundle, examples, self.max_prompt_length,
             self.tokenizer.pad_token_id or self.tokenizer.eos_token_id)
 
+    def _share(self, examples: Sequence[dict]) -> list:
+        """This rank's share of the step's examples (all of them off a
+        mesh)."""
+        return list(examples)[host_batch_slice(len(examples))]
+
+    def _tp_kw(self) -> dict:
+        return {} if self._tp is None else {"tp": self._tp}
+
     def step(self, examples: Sequence[dict]) -> dict:
-        """examples: [{"prompt_ids": [...], "solution": str, ...extras}]."""
-        n = len(examples)
+        """examples: [{"prompt_ids": [...], "solution": str, ...extras}].
+        On a mesh every rank passes the whole list and takes its share;
+        the metrics cover the whole list."""
+        examples = self._share(examples)
         rollout_batch = self._collate_prompts(examples)
         with record_function(ONLINE_DPO_ROLLOUT):
-            policy = cast_dense_params(self.state.params,
-                                       self.bundle.precision.compute_dtype)
+            policy = rollout_copy(self.bundle, self.state.params, self._tp)
             generator = sampling_generator(self.seed, self._rollouts,
                                            self.device)
             self._rollouts += 1
             rollout = self.engine.generate(
                 policy, batch_to_device(rollout_batch, self.device),
-                generator, group_size=2)
+                generator, group_size=2, **self._tp_kw())
             del policy
         rollout = {k: rollout[k].cpu().numpy() for k in (
             "prompt_ids", "prompt_mask", "completion_ids", "completion_mask")}
@@ -186,13 +220,13 @@ class OnlineDPOTrainer:
                 "completion_mask")))
         self.state, metrics = self.update_step(
             self.state, self.ref_params, update_batch)
-        pair = scores.reshape(n, 2)
+        pair = gather_host_rows(scores).reshape(-1, 2)
         out = {k: float(v) for k, v in metrics.items()}
-        out["objective/scores"] = float(scores.mean())
+        out["objective/scores"] = float(pair.mean())
         out["objective/scores_margin"] = float(
             (pair.max(axis=1) - pair.min(axis=1)).mean())
-        out["completion_length"] = float(
-            completion_mask[order].sum(axis=1).mean())
+        out["completion_length"] = float(gather_host_rows(
+            completion_mask[order].sum(axis=1)).mean())
         self.metrics_history.append(out)
         return out
 
@@ -245,7 +279,8 @@ def _completion_token_logps(score_fn, params, batch, chunk_size):
     targets = batch["labels"][:, 1:]
     mask = (targets != IGNORE_INDEX).float()
     safe = torch.where(targets != IGNORE_INDEX, targets, 0)
-    tok = chunked_token_logps(hidden[:, :-1], kernel, safe, chunk_size)
+    # under tp the logps are DTensors: the losses take them whole
+    tok = full(chunked_token_logps(hidden[:, :-1], kernel, safe, chunk_size))
     return tok * mask, mask
 
 
@@ -277,26 +312,28 @@ def make_xpo_update_step(score_fn, optimizer, cfg: XPOConfig,
     def step(state, ref_params, batch):
         batch = _on_params_device(state, batch)
         cm = batch["chosen_mask"].bool()
-        with record_function(PREF_RANGES[0]), torch.no_grad():
-            ref_sum = seq_logps(ref_params, batch)
-        with record_function(PREF_RANGES[1]):
-            pol_sum = seq_logps(state.params, batch)
-            n = pol_sum.shape[0] // 2
-            pol_m, pol_r = pol_sum[:n], pol_sum[n:]
-            ref_m, ref_r = ref_sum[:n], ref_sum[n:]
-            chosen = torch.where(cm, pol_m - ref_m, pol_r - ref_r)
-            rejected = torch.where(cm, pol_r - ref_r, pol_m - ref_m)
-            logits = chosen - rejected
-            if cfg.loss_type == "sigmoid":
-                dpo = -F.logsigmoid(cfg.beta * logits)
-            else:
-                dpo = (logits - 1.0 / (2.0 * cfg.beta)) ** 2
-            xpo = cfg.alpha * pol_r
-            loss = (dpo + xpo).mean()
-            metrics = {"loss": loss, "loss/dpo": dpo.mean(),
-                       "loss/xpo": xpo.mean(),
-                       "rewards/chosen": (cfg.beta * chosen).mean(),
-                       "rewards/rejected": (cfg.beta * rejected).mean()}
+        with mesh_scope():
+            with record_function(PREF_RANGES[0]), torch.no_grad():
+                ref_sum = seq_logps(compute_view(ref_params), batch)
+            with record_function(PREF_RANGES[1]):
+                pol_sum = seq_logps(compute_view(state.params), batch)
+                n = pol_sum.shape[0] // 2
+                pol_m, pol_r = pol_sum[:n], pol_sum[n:]
+                ref_m, ref_r = ref_sum[:n], ref_sum[n:]
+                chosen = torch.where(cm, pol_m - ref_m, pol_r - ref_r)
+                rejected = torch.where(cm, pol_r - ref_r, pol_m - ref_m)
+                logits = chosen - rejected
+                if cfg.loss_type == "sigmoid":
+                    dpo = -F.logsigmoid(cfg.beta * logits)
+                else:
+                    dpo = (logits - 1.0 / (2.0 * cfg.beta)) ** 2
+                xpo = cfg.alpha * pol_r
+                loss = batch_mean(dpo + xpo)
+                metrics = {"loss": loss, "loss/dpo": batch_mean(dpo),
+                           "loss/xpo": batch_mean(xpo),
+                           "rewards/chosen": batch_mean(cfg.beta * chosen),
+                           "rewards/rejected": batch_mean(
+                               cfg.beta * rejected)}
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step
@@ -320,20 +357,23 @@ def make_nash_md_update_step(score_fn, optimizer, cfg: NashMDConfig,
     def step(state, ref_params, batch):
         batch = _on_params_device(state, batch)
         prob = batch["probability"].float()
-        with record_function(PREF_RANGES[0]), torch.no_grad():
-            ref_tok, _ = _completion_token_logps(
-                score_fn, ref_params, batch, cfg.logp_chunk_size)
-        with record_function(PREF_RANGES[1]):
-            pol_tok, _ = _completion_token_logps(
-                score_fn, state.params, batch, cfg.logp_chunk_size)
-            log_ratio = (pol_tok - ref_tok).detach()
-            score = (prob - 0.5) * pol_tok.sum(dim=1)
-            kl_loss = (log_ratio * pol_tok).sum(dim=1)
-            loss = (cfg.beta * kl_loss - score).mean()
-            metrics = {"loss": loss,
-                       "objective/kl": log_ratio.sum(dim=1).mean(),
-                       "objective/score": score.mean(),
-                       "objective/probability": prob.mean()}
+        with mesh_scope():
+            with record_function(PREF_RANGES[0]), torch.no_grad():
+                ref_tok, _ = _completion_token_logps(
+                    score_fn, compute_view(ref_params), batch,
+                    cfg.logp_chunk_size)
+            with record_function(PREF_RANGES[1]):
+                pol_tok, _ = _completion_token_logps(
+                    score_fn, compute_view(state.params), batch,
+                    cfg.logp_chunk_size)
+                log_ratio = (pol_tok - ref_tok).detach()
+                score = (prob - 0.5) * pol_tok.sum(dim=1)
+                kl_loss = (log_ratio * pol_tok).sum(dim=1)
+                loss = batch_mean(cfg.beta * kl_loss - score)
+                metrics = {"loss": loss,
+                           "objective/kl": batch_mean(log_ratio.sum(dim=1)),
+                           "objective/score": batch_mean(score),
+                           "objective/probability": batch_mean(prob)}
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step
@@ -348,23 +388,38 @@ class _PairedOnlineTrainer(OnlineDPOTrainer):
         """The completions (numpy) of the policy, from its dense layers
         cast to the compute dtype, or of ``model`` as it is stored; with
         ``mixture_coef``, of the geometric mixture of the policy and
-        ``model``.  Each rollout draws from its own generator stream."""
+        ``model``.  Each rollout draws from its own generator stream.  On
+        a mesh each is this rank's copy (``rollout_copy``)."""
         with record_function(PAIRED_ROLLOUT):
             generator = sampling_generator(self.seed, self._rollouts,
                                            self.device)
             self._rollouts += 1
             batch = batch_to_device(batch, self.device)
+            if model is not None:
+                model = self._stored_copy(model)
             if model is not None and mixture_coef is None:
-                out = self.engine.generate(model, batch, generator)
+                out = self.engine.generate(model, batch, generator,
+                                           **self._tp_kw())
             else:
-                policy = cast_dense_params(
-                    self.state.params, self.bundle.precision.compute_dtype)
-                out = (self.engine.generate(policy, batch, generator)
+                policy = rollout_copy(self.bundle, self.state.params,
+                                      self._tp)
+                out = (self.engine.generate(policy, batch, generator,
+                                            **self._tp_kw())
                        if model is None else self.engine.generate_mixture(
-                           policy, model, mixture_coef, batch, generator))
+                           policy, model, mixture_coef, batch, generator,
+                           **self._tp_kw()))
                 del policy
+            del model
         return {k: out[k].cpu().numpy() for k in (
             "prompt_ids", "prompt_mask", "completion_ids", "completion_mask")}
+
+    def _stored_copy(self, model):
+        """A model rolled out as it is stored: itself off a mesh, else this
+        rank's copy in its own dtype."""
+        if kernel_mesh() is None:
+            return model
+        dtype = next(t for t in tree_leaves(model)).dtype
+        return rollout_copy(self.bundle, model, self._tp, dtype)
 
     def _rows(self, *rollouts) -> dict:
         """The update batch of the rollouts' rows, one after another."""
@@ -396,6 +451,7 @@ class XPOTrainer(_PairedOnlineTrainer):
                                                 optimizer, cfg, schedule)
 
     def step(self, examples: Sequence[dict]) -> dict:
+        examples = self._share(examples)
         batch = self._collate_prompts(examples)
         model_data = self._rollout(batch)
         ref_data = self._rollout(batch, self.ref_params)
@@ -406,8 +462,9 @@ class XPOTrainer(_PairedOnlineTrainer):
         self.state, metrics = self.update_step(self.state, self.ref_params,
                                                update_batch)
         out = {k: float(v) for k, v in metrics.items()}
-        out["objective/model_scores"] = float(scores_m.mean())
-        out["objective/ref_scores"] = float(scores_r.mean())
+        out["objective/model_scores"] = float(gather_host_rows(
+            scores_m).mean())
+        out["objective/ref_scores"] = float(gather_host_rows(scores_r).mean())
         self.metrics_history.append(out)
         return out
 
@@ -435,6 +492,7 @@ class NashMDTrainer(_PairedOnlineTrainer):
             bundle_score_fn(bundle), optimizer, cfg, schedule)
 
     def step(self, examples: Sequence[dict]) -> dict:
+        examples = self._share(examples)
         batch = self._collate_prompts(examples)
         model_data = self._rollout(batch)
         mixture_data = self._rollout(batch, self.ref_params,
@@ -448,7 +506,9 @@ class NashMDTrainer(_PairedOnlineTrainer):
         self.state, metrics = self.update_step(self.state, self.ref_params,
                                                update_batch)
         out = {k: float(v) for k, v in metrics.items()}
-        out["objective/model_scores"] = float(scores_m.mean())
-        out["objective/mixture_scores"] = float(scores_x.mean())
+        out["objective/model_scores"] = float(gather_host_rows(
+            scores_m).mean())
+        out["objective/mixture_scores"] = float(gather_host_rows(
+            scores_x).mean())
         self.metrics_history.append(out)
         return out

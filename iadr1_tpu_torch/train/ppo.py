@@ -17,6 +17,17 @@ the same experience.  The value head rides the parameter tree
 forward.  The rollout runs on the port's ``RolloutEngine`` (K1 prefill,
 K4 decode on the card) from a compute-dtype copy of the policy's dense
 weights, as the GRPO trainer's does.
+
+On a mesh (``core/mesh.py``) each batch rank rolls out and scores its
+share of the step's prompts (``train/rollout.py rollout_copy``: the
+policy gathered whole at tp = 1, its tp slice at tp > 1); the host
+arrays are then gathered in the global order, so that the score
+normalization, the reward and advantage whitening and the KL controller
+read the whole batch, the same on every rank.  The minibatch order is
+drawn over the whole batch and each minibatch's rows are split among the
+batch ranks; a minibatch they do not divide runs whole on every rank,
+each taking 1 / ranks of its loss (the JAX step runs every minibatch
+replicated).
 """
 
 from __future__ import annotations
@@ -29,6 +40,15 @@ import torch
 from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.distributed import host_batch_slice
+from iadr1_tpu_torch.core.mesh import (
+    batch_ranks,
+    batch_total,
+    compute_view,
+    full,
+    gather_host_rows,
+    mesh_scope,
+)
 from iadr1_tpu_torch.train.grpo import (
     _update_batch_to_device,
     bundle_score_fn,
@@ -40,7 +60,8 @@ from iadr1_tpu_torch.train.preference import apply_update, init_value_head
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
     SamplingConfig,
-    cast_dense_params,
+    mesh_tp,
+    rollout_copy,
 )
 from iadr1_tpu_torch.train.sft import batch_to_device
 from iadr1_tpu_torch.train.state import tree_leaves
@@ -168,21 +189,27 @@ def make_experience_fn(score_fn, cfg: PPOConfig, ref_score_fn=None):
     if ref_score_fn is None:
         ref_score_fn = score_fn
 
+    def logps_values(score, params, vhead, batch):
+        P, N = batch["prompt_len"], batch["completion_ids"].shape[1]
+        hidden, kernel = score(params, batch)
+        pred = _pred_slice(hidden, P, N)
+        logps = chunked_token_logps(pred, kernel, batch["completion_ids"],
+                                    cfg.logp_chunk_size)
+        # under tp both are DTensors: taken whole
+        return full(logps), (None if vhead is None
+                             else full(_values(pred, vhead)))
+
     @torch.no_grad()
     def experience(params, ref_params, batch):
         batch = _update_batch_to_device(
             batch, tree_leaves(params)[0].device)
-        P, N = batch["prompt_len"], batch["completion_ids"].shape[1]
-        hidden, kernel = score_fn(params["model"], batch)
-        pred = _pred_slice(hidden, P, N)
-        logps = chunked_token_logps(pred, kernel, batch["completion_ids"],
-                                    cfg.logp_chunk_size)
-        values = _values(pred, params["vhead"])
-        del hidden, pred
-        ref_hidden, ref_kernel = ref_score_fn(ref_params, batch)
-        ref_logps = chunked_token_logps(
-            _pred_slice(ref_hidden, P, N), ref_kernel,
-            batch["completion_ids"], cfg.logp_chunk_size)
+        with mesh_scope():
+            logps, values = logps_values(
+                score_fn, compute_view(params["model"]),
+                compute_view(params["vhead"]), batch)
+            ref_logps, _ = logps_values(ref_score_fn,
+                                        compute_view(ref_params), None,
+                                        batch)
         return logps, ref_logps, values
 
     return experience
@@ -199,16 +226,18 @@ def make_ppo_update_step(score_fn, optimizer, cfg: PPOConfig, schedule=None):
         batch = _update_batch_to_device(
             batch, tree_leaves(state.params)[0].device)
         mask = batch["completion_mask"].float()
-        denom = mask.sum().clamp(min=1.0)
-        params = state.params
-        with record_function(PPO_RANGES[2]):
-            hidden, kernel = score_fn(params["model"], batch)
+        # the whole minibatch's token count (on a mesh: summed over the
+        # batch ranks, so each rank's sums are its shares)
+        denom = batch_total(mask.sum()).clamp(min=1.0)
+        with mesh_scope(), record_function(PPO_RANGES[2]):
+            hidden, kernel = score_fn(compute_view(state.params["model"]),
+                                      batch)
             P, N = batch["prompt_len"], batch["completion_ids"].shape[1]
             pred = _pred_slice(hidden, P, N)
-            logps = chunked_token_logps(pred, kernel,
-                                        batch["completion_ids"],
-                                        cfg.logp_chunk_size)
-            vpred = _values(pred, params["vhead"])
+            logps = full(chunked_token_logps(pred, kernel,
+                                             batch["completion_ids"],
+                                             cfg.logp_chunk_size))
+            vpred = full(_values(pred, compute_view(state.params["vhead"])))
 
             # TRL's PPOTrainer.loss
             adv = batch["advantages"].float()
@@ -282,6 +311,8 @@ class PPOTrainer:
                                  cfg.kl_horizon)
             if cfg.adaptive_kl else FixedKLController(cfg.init_kl_coef))
         self.running = RunningMoments()
+        # tp > 1: the rollout decodes tensor-parallel
+        self._tp = mesh_tp()
         self._rollouts = 0
         self.metrics_history: list[dict] = []
 
@@ -291,27 +322,46 @@ class PPOTrainer:
             self.tokenizer.pad_token_id or self.tokenizer.eos_token_id)
 
     def step(self, examples: Sequence[dict]) -> dict:
+        """examples: [{"prompt_ids": [...], ...extras}] -> the step's
+        metrics.  On a mesh every rank passes the whole list and rolls out
+        its share; the metrics cover the whole list."""
         cfg = self.cfg
-        batch = self._collate_prompts(examples)
+        prompts = self._collate_prompts(examples)        # the whole batch
+        B = len(examples)
+        rows = host_batch_slice(B)
+        mine = _take_rows(prompts, np.arange(B)[rows], B)
         with record_function(PPO_RANGES[0]):
-            policy = cast_dense_params(self.state.params["model"],
-                                       self.bundle.precision.compute_dtype)
+            policy = rollout_copy(self.bundle, self.state.params["model"],
+                                  self._tp)
             generator = sampling_generator(self.seed, self._rollouts,
                                            self.device)
             self._rollouts += 1
+            kw = {} if self._tp is None else {"tp": self._tp}
             rollout = self.engine.generate(
-                policy, batch_to_device(batch, self.device), generator)
+                policy, batch_to_device(mine, self.device), generator, **kw)
             del policy
         completion_ids = rollout["completion_ids"].cpu().numpy()
         completion_mask = rollout["completion_mask"].cpu().numpy()
-        prompt_ids = rollout["prompt_ids"].cpu().numpy()
-        prompt_mask = rollout["prompt_mask"].cpu().numpy()
         del rollout
         texts = self.tokenizer.batch_decode(
             [ids[m.astype(bool)]
              for ids, m in zip(completion_ids, completion_mask)],
             skip_special_tokens=True)
-        scores = np.asarray(self.reward_fn(texts, examples), np.float64)
+        scores = np.asarray(self.reward_fn(texts, list(examples)[rows]),
+                            np.float64)
+        # this rank's experience, then every host array in the global order
+        with record_function(PPO_RANGES[1]):
+            exp = self.experience_fn(
+                self.state.params, self.ref_params,
+                _base_batch(mine, completion_ids, completion_mask))
+        old_logps, ref_logps, old_values = (
+            gather_host_rows(x.cpu().numpy().astype(np.float64))
+            for x in exp)
+        del exp
+        scores = gather_host_rows(scores)
+        completion_ids = gather_host_rows(completion_ids).astype(np.int64)
+        completion_mask = gather_host_rows(completion_mask).astype(np.int32)
+        base_batch = _base_batch(prompts, completion_ids, completion_mask)
 
         # score scaling / normalization (TRL's use_score_scaling/norm)
         if cfg.score_norm:
@@ -320,28 +370,6 @@ class PPOTrainer:
                                                         1e-8)
         if cfg.score_clip and cfg.score_clip > 0:
             scores = np.clip(scores, -cfg.score_clip, cfg.score_clip)
-
-        full_ids = np.concatenate([prompt_ids, completion_ids], axis=1)
-        full_mask = np.concatenate([prompt_mask, completion_mask], axis=1)
-        B, P = prompt_ids.shape
-        N = completion_ids.shape[1]
-        if "position_ids" in batch:   # M-RoPE: prompt grids + delta positions
-            comp_pos = (P + batch["mrope_deltas"][:, None]
-                        + np.arange(N)[None, :])
-            positions = np.concatenate(
-                [batch["position_ids"], np.broadcast_to(comp_pos, (3, B, N))],
-                axis=-1)
-        else:
-            positions = np.clip(np.cumsum(full_mask, axis=1) - 1, 0, None)
-        base_batch = {"input_ids": full_ids, "segment_ids": full_mask,
-                      "position_ids": positions,
-                      "completion_ids": completion_ids,
-                      "completion_mask": completion_mask, "prompt_len": P}
-        with record_function(PPO_RANGES[1]):
-            old_logps, ref_logps, old_values = (
-                x.cpu().numpy().astype(np.float64) for x in
-                self.experience_fn(self.state.params, self.ref_params,
-                                   base_batch))
 
         # KL-shaped per-token rewards (TRL's compute_rewards, "kl")
         kl = (old_logps - ref_logps) * completion_mask
@@ -358,20 +386,16 @@ class PPOTrainer:
         # ppo_epochs x shuffled minibatches over the same experience
         mb = max(min(cfg.mini_batch_size, B), 1)
         n_mb = B // mb
+        ranks = batch_ranks()
         agg: dict[str, list[float]] = {}
         order_rng = np.random.default_rng(int(self.state.step))
         for _ in range(cfg.ppo_epochs):
             perm = order_rng.permutation(B)
             for j in range(n_mb):
                 sel = np.sort(perm[j * mb:(j + 1) * mb])
-                mb_batch = {}
-                for k, v in base_batch.items():
-                    if k == "position_ids" and v.ndim == 3:   # [3, B, T]
-                        mb_batch[k] = v[:, sel]
-                    elif isinstance(v, np.ndarray) and v.shape[0] == B:
-                        mb_batch[k] = v[sel]
-                    else:
-                        mb_batch[k] = v
+                if len(sel) % ranks == 0:      # this rank's share of it
+                    sel = sel[host_batch_slice(len(sel))]
+                mb_batch = _take_rows(base_batch, sel, B)
                 mb_batch["old_logps"] = old_logps[sel].astype(np.float32)
                 mb_batch["old_values"] = old_values[sel].astype(np.float32)
                 mb_batch["advantages"] = advantages[sel]
@@ -395,6 +419,44 @@ class PPOTrainer:
         })
         self.metrics_history.append(out)
         return out
+
+
+def _take_rows(batch: dict, sel: np.ndarray, B: int) -> dict:
+    """The rows ``sel`` of every [B, ...] array of ``batch`` (of an
+    M-RoPE position grid [3, B, T], along its dim 1); other entries as
+    they are."""
+    out = {}
+    for k, v in batch.items():
+        if k == "position_ids" and np.ndim(v) == 3:
+            out[k] = v[:, sel]
+        elif isinstance(v, np.ndarray) and v.shape[0] == B:
+            out[k] = v[sel]
+        else:
+            out[k] = v
+    return out
+
+
+def _base_batch(prompts: dict, completion_ids, completion_mask) -> dict:
+    """The experience and update batch of collated prompts and their
+    completions: the rows, their segments and positions (M-RoPE: the
+    prompt grids, then the completion at P + delta)."""
+    prompt_ids = prompts["input_ids"]
+    prompt_mask = prompts["attention_mask"].astype(np.int32)
+    full_ids = np.concatenate([prompt_ids, completion_ids], axis=1)
+    full_mask = np.concatenate([prompt_mask, completion_mask], axis=1)
+    B, P = prompt_ids.shape
+    N = completion_ids.shape[1]
+    if "position_ids" in prompts:   # M-RoPE: prompt grids + delta positions
+        comp_pos = (P + prompts["mrope_deltas"][:, None]
+                    + np.arange(N)[None, :])
+        positions = np.concatenate(
+            [prompts["position_ids"], np.broadcast_to(comp_pos, (3, B, N))],
+            axis=-1)
+    else:
+        positions = np.clip(np.cumsum(full_mask, axis=1) - 1, 0, None)
+    return {"input_ids": full_ids, "segment_ids": full_mask,
+            "position_ids": positions, "completion_ids": completion_ids,
+            "completion_mask": completion_mask, "prompt_len": P}
 
 
 def make_ppo_state_params(model_params, hidden_size: int,

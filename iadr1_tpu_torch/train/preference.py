@@ -37,9 +37,12 @@ from torch.profiler import record_function
 
 from iadr1_tpu_torch.core.mesh import (
     batch_mean,
+    batch_total,
     compute_view,
     full,
+    global_mean,
     mesh_scope,
+    rank_share,
 )
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.train.grpo import (
@@ -233,43 +236,57 @@ def make_kto_step(score_fn, optimizer, cfg: KTOConfig, schedule=None):
     the mismatched KL rows (the same keys prefixed ``kl_``) and ``tags``
     [B] (1 = desirable).  The KL baseline, the batch-mean policy/reference
     gap on the KL rows clipped at 0, takes no gradient (as in JAX and
-    TRL), so the policy scores the KL rows without a graph."""
-
-    def seq_logps(params, batch):
-        hidden, kernel = score_fn(params, batch)
-        return sequence_logps(hidden, kernel, batch["labels"],
-                              cfg.logp_chunk_size)[0]
+    TRL), so the policy scores the KL rows without a graph.  On a mesh
+    ``batch`` is this rank's rows and the baseline the whole batch's
+    mean."""
 
     def step(state, ref_params, batch):
         batch = _on_params_device(state, batch)
         target, kl_rows = _sub_batch(batch, ""), _sub_batch(batch, "kl_")
         tags = batch["tags"].float()
-        with record_function(PREF_RANGES[0]), torch.no_grad():
-            ref = seq_logps(ref_params, target)
-            ref_kl = seq_logps(ref_params, kl_rows)
-            pol_kl = seq_logps(state.params, kl_rows)
-            kl = (pol_kl - ref_kl).mean().clamp(min=0.0)
-        with record_function(PREF_RANGES[1]):
-            pol = seq_logps(state.params, target)
-            ratio = pol - ref
-            chosen_losses = 1.0 - torch.sigmoid(cfg.beta * (ratio - kl))
-            rejected_losses = 1.0 - torch.sigmoid(cfg.beta * (kl - ratio))
-            losses = (cfg.desirable_weight * tags * chosen_losses
-                      + cfg.undesirable_weight * (1.0 - tags)
-                      * rejected_losses)
-            loss = losses.mean()
-            with torch.no_grad():
-                rewards = cfg.beta * ratio
-                n_des = tags.sum().clamp(min=1.0)
-                n_und = (1 - tags).sum().clamp(min=1.0)
-                metrics = {
-                    "loss": loss, "kl": kl,
-                    "rewards/chosen": (rewards * tags).sum() / n_des,
-                    "rewards/rejected": (rewards * (1 - tags)).sum() / n_und,
-                }
+        with mesh_scope():
+            with record_function(PREF_RANGES[0]), torch.no_grad():
+                ref_view = compute_view(ref_params)
+                ref = _row_logps(score_fn, ref_view, target, cfg)
+                ref_kl = _row_logps(score_fn, ref_view, kl_rows, cfg)
+                del ref_view
+                pol_kl = _row_logps(score_fn, compute_view(state.params),
+                                    kl_rows, cfg)
+                # the whole batch's mean, the same on every rank
+                kl = global_mean(pol_kl - ref_kl).clamp(min=0.0)
+            with record_function(PREF_RANGES[1]):
+                pol = _row_logps(score_fn, compute_view(state.params),
+                                 target, cfg)
+                ratio = pol - ref
+                chosen_losses = 1.0 - torch.sigmoid(cfg.beta * (ratio - kl))
+                rejected_losses = 1.0 - torch.sigmoid(cfg.beta * (kl - ratio))
+                losses = (cfg.desirable_weight * tags * chosen_losses
+                          + cfg.undesirable_weight * (1.0 - tags)
+                          * rejected_losses)
+                loss = batch_mean(losses)
+                with torch.no_grad():
+                    metrics = {"loss": loss, "kl": rank_share(kl),
+                               **_tagged_rewards(cfg.beta * ratio, tags)}
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step
+
+
+def _row_logps(score_fn, params, batch, cfg):
+    """The summed logps [B] of each row's labeled tokens, whole (under tp
+    the row sums are DTensors, which the losses take whole)."""
+    hidden, kernel = score_fn(params, batch)
+    return full(sequence_logps(hidden, kernel, batch["labels"],
+                               cfg.logp_chunk_size)[0])
+
+
+def _tagged_rewards(rewards, tags) -> dict:
+    """The mean reward of the desirable and of the undesirable rows, over
+    the whole batch's counts (each rank's share on a mesh)."""
+    n_des = batch_total(tags.sum()).clamp(min=1.0)
+    n_und = batch_total((1 - tags).sum()).clamp(min=1.0)
+    return {"rewards/chosen": (rewards * tags).sum() / n_des,
+            "rewards/rejected": (rewards * (1 - tags)).sum() / n_und}
 
 
 # ---------------------------------------------------------------------------
@@ -320,37 +337,35 @@ def make_bco_step(score_fn, optimizer, cfg: BCOConfig, schedule=None):
     ``RunningMoments`` from the metrics' reward_mean, reward_var (the
     population variance) and reward_count."""
 
-    def seq_logps(params, batch):
-        hidden, kernel = score_fn(params, batch)
-        return sequence_logps(hidden, kernel, batch["labels"],
-                              cfg.logp_chunk_size)[0]
-
     def step(state, ref_params, batch, delta):
         batch = _on_params_device(state, batch)
         tags = batch["tags"].float()
         delta = torch.as_tensor(delta, dtype=torch.float32,
                                 device=tags.device)
-        with record_function(PREF_RANGES[0]), torch.no_grad():
-            ref = seq_logps(ref_params, batch)
-        with record_function(PREF_RANGES[1]):
-            pol = seq_logps(state.params, batch)
-            rewards = cfg.beta * (pol - ref)
-            chosen_losses = -F.logsigmoid(rewards - delta)
-            rejected_losses = -F.logsigmoid(-(rewards - delta))
-            loss = (tags * chosen_losses
-                    + (1.0 - tags) * rejected_losses).mean()
-            with torch.no_grad():
-                r = rewards.detach()
-                n_des = tags.sum().clamp(min=1.0)
-                n_und = (1 - tags).sum().clamp(min=1.0)
-                metrics = {
-                    "loss": loss, "delta": delta,
-                    "rewards/chosen": (r * tags).sum() / n_des,
-                    "rewards/rejected": (r * (1 - tags)).sum() / n_und,
-                    "reward_mean": r.mean(),
-                    "reward_var": r.var(unbiased=False),
-                    "reward_count": torch.tensor(float(r.shape[0])),
-                }
+        with mesh_scope():
+            with record_function(PREF_RANGES[0]), torch.no_grad():
+                ref = _row_logps(score_fn, compute_view(ref_params), batch,
+                                 cfg)
+            with record_function(PREF_RANGES[1]):
+                pol = _row_logps(score_fn, compute_view(state.params), batch,
+                                 cfg)
+                rewards = cfg.beta * (pol - ref)
+                chosen_losses = -F.logsigmoid(rewards - delta)
+                rejected_losses = -F.logsigmoid(-(rewards - delta))
+                loss = batch_mean(tags * chosen_losses
+                                  + (1.0 - tags) * rejected_losses)
+                with torch.no_grad():
+                    r = rewards.detach()
+                    # the moments of the whole batch's rewards, each
+                    # rank's share of them
+                    metrics = {
+                        "loss": loss, "delta": rank_share(delta),
+                        **_tagged_rewards(r, tags),
+                        "reward_mean": batch_mean(r),
+                        "reward_var": batch_mean((r - global_mean(r)) ** 2),
+                        "reward_count": torch.tensor(float(r.shape[0]),
+                                                     device=r.device),
+                    }
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step
@@ -403,19 +418,19 @@ def make_prm_step(hidden_fn, optimizer, schedule=None):
         labels = batch["labels"]
         mask = labels != IGNORE_INDEX
         safe = torch.where(mask, labels, 0)
-        params = state.params
-        with record_function(PREF_RANGES[1]):
-            hidden = hidden_fn(params["model"], batch)
-            head = params["prm_head"]
-            logits = hidden.float() @ head["kernel"] + head["bias"]
+        with mesh_scope(), record_function(PREF_RANGES[1]):
+            hidden = hidden_fn(compute_view(state.params["model"]), batch)
+            head = compute_view(state.params["prm_head"])
+            logits = full(hidden.float() @ head["kernel"] + head["bias"])
             logp = torch.log_softmax(logits, dim=-1)
             tok = logp.gather(-1, safe[..., None].long())[..., 0]
-            n = mask.sum().clamp(min=1)
+            # the whole batch's label count
+            n = batch_total(mask.sum()).clamp(min=1)
             loss = -(torch.where(mask, tok, 0.0).sum() / n)
             with torch.no_grad():
                 acc = (mask & (logits.argmax(-1) == safe)).sum() / n
                 metrics = {"loss": loss, "accuracy": acc,
-                           "n_label_tokens": n}
+                           "n_label_tokens": rank_share(n)}
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step
@@ -438,29 +453,28 @@ def make_rm_step(hidden_fn, optimizer, schedule=None):
     """``step(state, batch) -> (state, metrics)``.
 
     state.params = {"model": <bundle params>, "value_head": {...}};
-    batch rows: chosen first half, rejected second half.  The score is the
-    value at each row's last real token and the loss
-    -logsigmoid(chosen - rejected)."""
+    batch rows: chosen first half, rejected second half (on a mesh this
+    rank's pairs, laid out so).  The score is the value at each row's last
+    real token and the loss -logsigmoid(chosen - rejected)."""
 
     def step(state, batch):
         batch = _on_params_device(state, batch)
         B = batch["input_ids"].shape[0] // 2
-        params = state.params
-        with record_function(PREF_RANGES[1]):
-            hidden = hidden_fn(params["model"], batch)
-            vh = params["value_head"]
-            values = (hidden.float() @ vh["kernel"].float())[..., 0] \
-                + vh["bias"][0]
+        with mesh_scope(), record_function(PREF_RANGES[1]):
+            hidden = hidden_fn(compute_view(state.params["model"]), batch)
+            vh = compute_view(state.params["value_head"])
+            values = full((hidden.float() @ vh["kernel"].float())[..., 0]
+                          + vh["bias"][0])
             mask = batch["segment_ids"] != 0
             last = (mask.sum(dim=1) - 1).clamp(min=0)
             scores = values.gather(1, last[:, None].long())[:, 0]
             chosen, rejected = scores[:B], scores[B:]
-            loss = -F.logsigmoid(chosen - rejected).mean()
+            loss = batch_mean(-F.logsigmoid(chosen - rejected))
             with torch.no_grad():
                 metrics = {"loss": loss,
-                           "accuracy": (chosen > rejected).float().mean(),
-                           "chosen_score": chosen.mean(),
-                           "rejected_score": rejected.mean()}
+                           "accuracy": batch_mean((chosen > rejected).float()),
+                           "chosen_score": batch_mean(chosen),
+                           "rejected_score": batch_mean(rejected)}
         return apply_update(state, optimizer, loss, metrics, schedule)
 
     return step

@@ -46,9 +46,11 @@ from iadr1_tpu_torch.core.mesh import (
     full,
     gather_batch_rows,
     is_dtensor,
+    kernel_mesh,
     logical_to_spec,
+    mesh_shape,
 )
-from iadr1_tpu_torch.core.tensor_parallel import tp_group, tp_scope
+from iadr1_tpu_torch.core.tensor_parallel import MeshTP, tp_group, tp_scope
 from iadr1_tpu_torch.models import qwen2
 from iadr1_tpu_torch.models.quant import is_quantized, quantized_shape
 
@@ -244,6 +246,29 @@ def tp_local_params(params: dict, axes: dict, text_cfg, rank: int,
     return walk(params, axes, "", text_model, False)
 
 
+def mesh_tp():
+    """The tp group a rollout on the ambient mesh decodes over
+    (``MeshTP``) when tp > 1; None without a mesh or at tp = 1."""
+    mesh = kernel_mesh()
+    if mesh is None or mesh_shape(mesh)["tp"] == 1:
+        return None
+    return MeshTP(mesh)
+
+
+def rollout_copy(bundle, params: dict, tp=None, dtype=None) -> dict:
+    """This rank's rollout copy of a model tree (the policy, a reference,
+    a teacher): its tp slice as plain tensors under a tp group
+    (``tp_local_params``), else ``cast_dense_params`` (gathered whole on a
+    mesh).  Dense kernels and biases are cast to ``dtype``, the bundle's
+    compute dtype by default; a tree's own dtype keeps it as stored."""
+    dtype = bundle.precision.compute_dtype if dtype is None else dtype
+    if tp is None:
+        return cast_dense_params(params, dtype)
+    return tp_local_params(params, bundle.logical_axes(),
+                           getattr(bundle.cfg, "text", bundle.cfg), tp.rank,
+                           tp.size, dtype)
+
+
 def local_kv_heads(params: dict, text_cfg) -> int:
     """The KV heads a rollout copy's decoder holds (a tp rank's own)."""
     k = params.get("text", params)["layers"]["attn"]["k"]["kernel"]
@@ -284,14 +309,16 @@ class RolloutEngine:
 
     @torch.no_grad()
     def generate_mixture(self, params, mixture_params, mixture_coef: float,
-                         batch: dict, generator=None) -> dict:
+                         batch: dict, generator=None, tp=None) -> dict:
         """Samples from the geometric mixture of ``params`` and
         ``mixture_params`` with weight ``mixture_coef`` on the second
         (TRL's GeometricMixtureWrapper): both prefill the batch, each into
         its own KV cache, and decode the same tokens.  Returns what
-        ``generate`` returns."""
-        return self._generate(params, batch, generator, 1, None,
-                              (mixture_params, float(mixture_coef)))
+        ``generate`` returns.  ``tp``: as ``generate``'s, both trees its
+        rank's copies."""
+        with (tp_scope(tp) if tp is not None else contextlib.nullcontext()):
+            return self._generate(params, batch, generator, 1, None,
+                                  (mixture_params, float(mixture_coef)))
 
     def _positions(self, batch):
         """(position_ids, deltas) of a left-padded prompt batch: the next

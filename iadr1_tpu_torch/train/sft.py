@@ -28,9 +28,10 @@ from iadr1_tpu_torch.core.mesh import (
     compute_view,
     full,
     is_dtensor,
-    kernel_mesh,
+    local,
     mesh_scope,
 )
+from iadr1_tpu_torch.core.tensor_parallel import MeshTP
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.train.optimizers import global_norm as optax_global_norm
@@ -122,10 +123,21 @@ def chunked_sft_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
 
 
 def _fused_ce(hidden, kernel, labels, chunk_size, logits_dtype,
-              want_grads: bool):
+              want_grads: bool, vocab=None):
     """The fused CE's loop: (loss, correct count, n_tokens, d_hidden,
     d_kernel); the gradients are those of the loss itself (cotangent 1),
-    None unless ``want_grads``."""
+    None unless ``want_grads``.  On a mesh the loss averages over the
+    whole batch's label tokens (``batch_total``) and the correct count is
+    this rank's.
+
+    ``vocab`` = (group, offset, V): ``kernel`` is this tp rank's columns
+    ``offset:`` of a V-wide head, ``hidden`` the rank's whole rows, and
+    ``group.all_reduce(x, op)`` reduces over the tp ranks (a
+    ``core/tensor_parallel.py`` ``MeshTP`` or sequential rank).  Each
+    chunk's logsumexp, target logit and argmax are then reduced over the
+    group (a max and a sum, a sum, a min over the argmax's candidates),
+    d_kernel is the rank's columns of the gradient, and d_hidden this
+    rank's part of it, which the ranks' sum completes."""
     B, T, H = hidden.shape
     h = hidden[:, :-1].reshape(-1, H)
     t = labels[:, 1:].reshape(-1).long()
@@ -137,7 +149,7 @@ def _fused_ce(hidden, kernel, labels, chunk_size, logits_dtype,
     tp = torch.nn.functional.pad(safe, (0, pad))
     mp = torch.nn.functional.pad(mask, (0, pad))
     kt = kernel.to(hp.dtype)
-    n_tokens = mask.sum().clamp(min=1)
+    n_tokens = batch_total(mask.sum()).clamp(min=1)
     inv_n = 1.0 / n_tokens.float()
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     correct = torch.zeros((), dtype=torch.int64, device=hidden.device)
@@ -148,10 +160,33 @@ def _fused_ce(hidden, kernel, labels, chunk_size, logits_dtype,
     for c0 in range(0, hp.shape[0], chunk_size):
         hc, tc, mc = (x[c0:c0 + chunk_size] for x in (hp, tp, mp))
         logits = chunk_logits(hc, kernel, logits_dtype)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(1, tc[:, None])[:, 0]
+        rows = torch.arange(hc.shape[0], device=hc.device)
+        if vocab is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(1, tc[:, None])[:, 0]
+            argmax = logits.argmax(-1)
+            own, col = None, tc
+        else:
+            group, offset, V = vocab
+            top, arg = logits.max(-1)
+            top = top.float()
+            # the collectives reduce in place: each is given a copy
+            m = group.all_reduce(top.clone(), "max")
+            s = group.all_reduce(
+                torch.exp(logits.float() - m[:, None]).sum(-1), "sum")
+            lse = (m + torch.log(s)).to(logits.dtype)
+            col = tc - offset
+            own = (col >= 0) & (col < logits.shape[1])
+            col = torch.where(own, col, 0)
+            # the one owner's logit, reduced in f32 (exact)
+            picked = group.all_reduce(
+                torch.where(own, logits[rows, col], 0.0).float(), "sum")
+            picked = picked.to(logits.dtype)
+            # torch's argmax: the first column of the row's maximum
+            argmax = group.all_reduce(
+                torch.where(top == m, arg + offset, V), "min")
         loss_sum = loss_sum + torch.where(mc, lse - picked, 0.0).sum()
-        correct = correct + (mc & (logits.argmax(-1) == tc)).sum()
+        correct = correct + (mc & (argmax == tc)).sum()
         if not want_grads:
             continue
         # dlogits = (softmax - onehot) * mask / n_tokens, formed in f32 and
@@ -159,7 +194,7 @@ def _fused_ce(hidden, kernel, labels, chunk_size, logits_dtype,
         # f32 (JAX's preferred_element_type)
         mcf = mc.float() * inv_n
         dlog = torch.exp(logits.float() - lse.float()[:, None]) * mcf[:, None]
-        dlog[torch.arange(hc.shape[0], device=hc.device), tc] -= mcf
+        dlog[rows, col] -= mcf if own is None else mcf * own
         dlog = dlog.to(hc.dtype).float()
         dh.append(torch.matmul(dlog, kt.float().T).to(hidden.dtype))
         dk.addmm_(hc.float().T, dlog)
@@ -175,15 +210,17 @@ class _FusedChunkedCE(torch.autograd.Function):
     """(hidden, kernel, labels) -> (loss, the loss again for the metrics,
     accuracy, n_label_tokens).  The forward keeps the gradients its loop
     made; the backward only scales them by the sum of the two loss
-    cotangents (the JAX custom VJP's ``fused_bwd``)."""
+    cotangents (the JAX custom VJP's ``fused_bwd``).  Plain tensors only:
+    ``make_fused_chunked_ce`` hands it a tp rank's pieces."""
 
     @staticmethod
-    def forward(ctx, hidden, kernel, labels, chunk_size, logits_dtype):
+    def forward(ctx, hidden, kernel, labels, chunk_size, logits_dtype,
+                vocab):
         want = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
         loss, correct, n_label, dh, dk = _fused_ce(
-            hidden, kernel, labels, chunk_size, logits_dtype, want)
+            hidden, kernel, labels, chunk_size, logits_dtype, want, vocab)
         ctx.save_for_backward(dh, dk)
-        acc = correct / n_label.clamp(min=1)
+        acc = correct / batch_total(n_label).clamp(min=1)
         ctx.mark_non_differentiable(acc, n_label)
         return loss, loss.clone(), acc, n_label
 
@@ -192,7 +229,7 @@ class _FusedChunkedCE(torch.autograd.Function):
         dh, dk = ctx.saved_tensors
         g = (g_loss + g_metric).float()
         return ((dh.float() * g).to(dh.dtype), (dk.float() * g).to(dk.dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 def make_fused_chunked_ce(chunk_size: int, logits_dtype=torch.float32):
@@ -205,11 +242,38 @@ def make_fused_chunked_ce(chunk_size: int, logits_dtype=torch.float32):
     f32, carried through the loop).  No chunk is recomputed in the
     backward, which only scales the saved gradients by the incoming
     cotangent; the loss leaves twice (``loss`` and ``metrics["loss"]``)
-    and the scale is the sum of both cotangents."""
+    and the scale is the sum of both cotangents.
+
+    On a mesh at tp = 1 ``compute_view`` hands it plain tensors: this
+    rank's rows and the whole head.  At tp > 1 the head is a DTensor
+    sharded over the vocabulary: the loop runs on the rank's plain pieces
+    (its rows whole, its columns of the head, a [H, V / tp] d_W) and
+    reduces each chunk's statistics over tp (``_fused_ce``), so the head
+    is never gathered; d_W comes back as the head leaf's own shard and
+    d_hidden as a partial sum over tp, which DTensor completes."""
 
     def fused(hidden, kernel, labels):
+        vocab = None
+        if is_dtensor(kernel):
+            from torch.distributed.tensor import Partial, Replicate, Shard
+
+            mesh = kernel.device_mesh
+            # a head the vocabulary shards: the rank's columns, and its
+            # part of d_hidden; a replicated one: whole on every rank
+            part = Replicate()
+            if kernel.placements[0] == Shard(1):
+                V = kernel.shape[1]
+                per = -(-V // mesh.size())
+                group = MeshTP(mesh)
+                vocab = (group, group.rank * per, V)
+                part = Partial()
+            if is_dtensor(hidden):
+                hidden = hidden.redistribute(mesh, [Replicate()]).to_local(
+                    grad_placements=[part])
+            kernel = kernel.to_local()
+            labels = local(labels)
         loss, metric_loss, acc, n_label = _FusedChunkedCE.apply(
-            hidden, kernel, labels, chunk_size, logits_dtype)
+            hidden, kernel, labels, chunk_size, logits_dtype, vocab)
         return loss, {"loss": metric_loss, "accuracy": acc,
                       "n_label_tokens": n_label}
 
@@ -277,11 +341,8 @@ def make_chunked_sft_step(
     router's load-balancing loss, and the step minimises CE + coef * aux;
     the metrics' "loss" is that sum and "aux_loss" the aux, as in JAX.
     ``fused_ce`` takes the loss from ``make_fused_chunked_ce`` (the head's
-    gradients made in the forward loop, no chunk recomputed)."""
-    if fused_ce and kernel_mesh() is not None:
-        raise NotImplementedError(
-            "the fused CE on a mesh is not ported (ROADMAP A.11b): its "
-            "autograd Function would meet DTensors")
+    gradients made in the forward loop, no chunk recomputed; on a mesh
+    too, ``make_fused_chunked_ce``)."""
     ce = (make_fused_chunked_ce(chunk_size, logits_dtype) if fused_ce
           else functools.partial(chunked_sft_loss, chunk_size=chunk_size,
                                  logits_dtype=logits_dtype))

@@ -1,8 +1,9 @@
 """What the mesh tests share (pytest does not collect this file):
 starting one Gloo process a rank (tests/torch_mesh_worker.py), the
-one-process port run and the JAX CLI run of the same config, and the
-comparisons of their logs and parameters.  ``f32_port`` is a fixture: a
-test module imports it by name.
+one-process port run and the JAX CLI run of the same config, the
+comparisons of their logs and parameters, and the check of a preference
+rollout stage on a mesh (``check_rollout_stage``).  ``f32_port`` is a
+fixture: a test module imports it by name.
 """
 
 import functools
@@ -141,3 +142,128 @@ def _assert_params_close(a, b):
     assert a.keys() == b.keys()
     worst = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
     assert worst <= PARAM_ATOL, worst
+
+
+# ---------------------------------------------------------------------------
+# the preference launcher's rollout stages on a mesh
+# (tests/test_torch_pref_mesh_rollout.py, tests/test_torch_pref_mesh_nash_gkd.py)
+# ---------------------------------------------------------------------------
+
+FSDP2 = {"dp": 1, "fsdp": 2, "tp": 1}
+TP2 = {"dp": 1, "fsdp": 1, "tp": 2}
+# the logger's own fields, which no step computes
+LOGGER_KEYS = {"current_steps", "total_steps", "percentage", "elapsed_time",
+               "remaining_time"}
+
+
+def prompt_rows():
+    return [{"messages": [{"role": "user",
+                           "content": f"Are there defects in sample {i}?"}],
+             "solution": "<answer>No</answer>"} for i in range(8)]
+
+
+def conversation_rows():
+    return [{"messages": [{"role": "user", "content": f"Check sample {i}."},
+                          {"role": "assistant",
+                           "content": "<answer>No</answer>" + " ok" * i}]}
+            for i in range(8)]
+
+
+# stage: (rows, the pref section, the ppo section), in the order whose
+# index alternates the fast tier's mesh (even fsdp 2, odd tp 2)
+ROLLOUT_STAGES = {
+    "ppo": (prompt_rows, {}, {"max_prompt_length": 32,
+                              "max_completion_length": 8,
+                              "mini_batch_size": 2, "ppo_epochs": 2}),
+    "rloo": (prompt_rows, {"num_generations": 2, "max_completion_length": 8},
+             {}),
+    "online_dpo": (prompt_rows, {"max_completion_length": 8,
+                                 "missing_eos_penalty": 0.1}, {}),
+    "xpo": (prompt_rows, {"max_completion_length": 8}, {}),
+    "nash_md": (prompt_rows, {"max_completion_length": 8}, {}),
+    "gkd": (conversation_rows, {"max_completion_length": 8,
+                                "gkd_lmbda": 0.5}, {}),
+}
+
+
+def rollout_cases(stages):
+    """(stage, mesh, ppo overrides) parameters of ``stages``: each at fsdp
+    2 or tp 2 in the fast tier by its index in ROLLOUT_STAGES, at the
+    other under ``slow``."""
+    order = list(ROLLOUT_STAGES)
+    cases = []
+    for stage in stages:
+        fast, other = ((FSDP2, TP2) if order.index(stage) % 2 == 0
+                       else (TP2, FSDP2))
+        for mesh, marks in ((fast, ()), (other, (pytest.mark.slow,))):
+            name = "fsdp2" if mesh is FSDP2 else "tp2"
+            cases.append(pytest.param(stage, mesh, {}, marks=marks,
+                                      id=f"{stage}-{name}"))
+    return cases
+
+
+def _batch_rank_tokens(ranks, mesh):
+    """Every rollout's rows in the global order: each batch slice's rows
+    (its first tp rank's; the others' must equal them), in rank order."""
+    tp = mesh["tp"]
+    slices = [ranks[i:i + tp] for i in range(0, len(ranks), tp)]
+    for group in slices:
+        assert all(r["tokens"] == group[0]["tokens"] for r in group)
+    n = len(slices[0][0]["tokens"])
+    return [[row for group in slices for row in group[0]["tokens"][k]]
+            for k in range(n)]
+
+
+def check_rollout_stage(stage, mesh, ppo, ckpt, teacher, monkeypatch,
+                        tmp_path):
+    """``stage`` through cli/train_pref.py on ``mesh`` (2 Gloo processes)
+    against the one-process run: every rollout's completions token for
+    token, every logged metric within LOSS_RTOL, the parameters after 2
+    steps within PARAM_ATOL, the state (heads included) and GKD's teacher
+    DTensors.  Both sides reward a completion by its length and keep the
+    rollouts' KV cache in f32 (``torch_mesh_worker.f32_cache``)."""
+    import torch_mesh_worker
+
+    rows, pref, ppo_cfg = ROLLOUT_STAGES[stage]
+    data = tmp_path / "data.json"
+    data.write_text(json.dumps(rows()))
+    pref = dict(pref, beta=0.1, ref_dtype="float32")
+    if stage == "gkd":
+        pref["teacher_model_name_or_path"] = teacher
+
+    def cfg(side):
+        return {"stage": stage,
+                "model": {"model_name_or_path": ckpt},
+                "data": {"dataset_name": str(data), "template": "qwen2_vl",
+                         "cutoff_len": 64},
+                "pref": pref, "ppo": {**ppo_cfg, **ppo},
+                "optim": {"learning_rate": 1e-3, "warmup_ratio": 0.0,
+                          "eps": 1e-4},
+                "train": {"output_dir": str(tmp_path / side), "max_steps": 2,
+                          "batch_size": 4, "logging_steps": 1,
+                          "save_steps": 0, "seed": 0}}
+
+    ranks, got = _port_on_mesh("train_pref", mesh, cfg("mesh"), tmp_path,
+                               "mesh", record_tokens=True,
+                               length_reward=True, f32_cache=True)
+    tokens = torch_mesh_worker.record_tokens(monkeypatch.setattr)
+    torch_mesh_worker.length_reward(monkeypatch.setattr)
+    torch_mesh_worker.f32_cache(monkeypatch.setattr)
+    one = _port_one_process("train_pref", cfg("one"), tmp_path / "one.json")
+    assert _batch_rank_tokens(ranks, mesh) == [t.tolist() for t in tokens]
+    assert len(tokens) >= (1 if stage == "gkd" else 2)
+    keys = sorted(set(one[0]) - LOGGER_KEYS)
+    assert set(got[0]) - LOGGER_KEYS == set(keys)
+    _assert_logs_close(got, one, keys, LOSS_RTOL)
+    assert got[-1]["loss"] != got[0]["loss"]
+    _assert_params_close(_final_params(tmp_path / "mesh"),
+                         _final_params(tmp_path / "one"))
+    for r in ranks:
+        assert r["mesh"] == mesh
+        # the policy's state (with PPO's value head) and GKD's teacher
+        # are DTensors
+        assert r["leaf_kinds"]["state"] == [True]
+        assert r["leaf_kinds"]["teacher"] == ([True] if stage == "gkd"
+                                              else [])
+    if stage == "gkd":
+        assert [r["on_policy"] for r in got] == [0.0, 1.0]

@@ -42,20 +42,35 @@ def _kernel_shapes() -> dict:
 
 
 def record_tokens(patch=setattr) -> list:
-    """Record every rollout's completion ids (this rank's rows) into the
-    returned list; ``patch`` is ``setattr`` or a test's
-    ``monkeypatch.setattr``."""
+    """Record every rollout's completion ids (this rank's rows; a
+    mixture's rollout too) into the returned list; ``patch`` is
+    ``setattr`` or a test's ``monkeypatch.setattr``."""
     from iadr1_tpu_torch.train.rollout import RolloutEngine
 
-    seen, inner = [], RolloutEngine.generate
+    seen, inner = [], RolloutEngine._generate
 
     def generate(self, *args, **kw):
         out = inner(self, *args, **kw)
         seen.append(out["completion_ids"].cpu())
         return out
 
-    patch(RolloutEngine, "generate", generate)
+    patch(RolloutEngine, "_generate", generate)
     return seen
+
+
+def f32_cache(patch=setattr) -> None:
+    """Every RolloutEngine keeps its KV cache in f32: a tp decode's
+    row-parallel sums round otherwise than one process's, and a bf16 cache
+    turns that 1e-7 into a 2^-8 difference wherever a value crosses a
+    rounding boundary, enough to move a draw over the whole vocabulary."""
+    from iadr1_tpu_torch.train.rollout import RolloutEngine
+
+    inner = RolloutEngine.__init__
+
+    def init(self, *a, **kw):
+        inner(self, *a, **dict(kw, cache_dtype=torch.float32))
+
+    patch(RolloutEngine, "__init__", init)
 
 
 def length_reward(patch=setattr) -> None:
@@ -117,15 +132,112 @@ def record_base() -> dict:
     return {"check": check, "sharded": sharded}
 
 
+def given_heads(path: str, patch=setattr) -> None:
+    """The preference launcher's added heads (RM's value head, PRM's head)
+    read from ``path`` (``torch.save`` of {"value_head": ..., "prm_head":
+    ...}, the JAX launcher's draws) instead of drawn from the port's
+    generator."""
+    from iadr1_tpu_torch.train import preference
+
+    heads = torch.load(path)
+    patch(preference, "init_value_head",
+          lambda *a, **k: {n: t.clone() for n, t in heads["value_head"].items()})
+    patch(preference, "init_prm_head",
+          lambda *a, **k: {n: t.clone() for n, t in heads["prm_head"].items()})
+
+
+def jax_kl_pairing(patch=setattr) -> None:
+    """KTO's KL row i made the JAX launcher's way (ROADMAP C.R23): the
+    prompt of row i - 1 with its own completion, the whole target row
+    i - 1, instead of the prompt of row i with the completion of row
+    i - 1."""
+    from iadr1_tpu_torch.cli import train_pref
+
+    inner = train_pref.kl_rows
+
+    def kl_rows(prompts, completions, cutoff_len):
+        return inner([prompts[i - 1] for i in range(len(prompts))],
+                     completions, cutoff_len)
+
+    patch(train_pref, "kl_rows", kl_rows)
+
+
+def record_kto_batches(patch=setattr) -> list:
+    """Every batch a KTO step is given (numpy), in order."""
+    import numpy as np
+
+    from iadr1_tpu_torch.train import preference
+
+    seen, make = [], preference.make_kto_step
+
+    def wrapped(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, ref, batch):
+            seen.append({k: np.asarray(v) for k, v in batch.items()})
+            return step(state, ref, batch)
+        return run
+
+    patch(preference, "make_kto_step", wrapped)
+    return seen
+
+
+def record_leaf_kinds(patch=setattr) -> dict:
+    """Whether every leaf of each train state the run creates, and of a
+    GKD teacher, is a DTensor: {"state": [bool, ...], "teacher": [...]}."""
+    from torch.distributed.tensor import DTensor
+
+    from iadr1_tpu_torch.train import gkd, state
+    from iadr1_tpu_torch.train.state import tree_leaves
+
+    kinds = {"state": [], "teacher": []}
+    create, init = state.create_train_state, gkd.GKDTrainer.__init__
+
+    def all_dtensors(tree):
+        return all(isinstance(t, DTensor) for t in tree_leaves(tree))
+
+    def created(params, optimizer):
+        kinds["state"].append(all_dtensors(params))
+        return create(params, optimizer)
+
+    def gkd_init(self, *a, **kw):
+        init(self, *a, **kw)
+        kinds["teacher"].append(all_dtensors(self.teacher_params))
+
+    patch(state, "create_train_state", created)
+    patch(gkd.GKDTrainer, "__init__", gkd_init)
+    return kinds
+
+
+def fused_ce(patch=setattr) -> None:
+    """Every SFT step the run makes uses the fused chunked CE
+    (``train/sft.py`` ``make_fused_chunked_ce``)."""
+    from iadr1_tpu_torch.train import sft
+
+    make = sft.make_chunked_sft_step
+    patch(sft, "make_chunked_sft_step",
+          lambda *a, **kw: make(*a, **dict(kw, fused_ce=True)))
+
+
 def case_cli(args) -> dict:
     """One of the training CLIs' ``main`` on a config with a mesh."""
     import importlib
 
     if args.get("f32"):
         _f32_compute()
+    if args.get("heads"):
+        given_heads(args["heads"])
+    if args.get("jax_kl_pairing"):
+        jax_kl_pairing()
+    kto_batches = record_kto_batches() if args.get("record_kto") else None
+    kinds = record_leaf_kinds()
     tokens = record_tokens() if args.get("record_tokens") else None
     if args.get("length_reward"):
         length_reward()
+    if args.get("f32_cache"):
+        f32_cache()
+    if args.get("fused_ce"):
+        fused_ce()
     base = record_base() if args.get("record_base") else None
     gathers = count_layer_gathers()
     main = importlib.import_module(
@@ -138,13 +250,36 @@ def case_cli(args) -> dict:
     from iadr1_tpu_torch.core.mesh import kernel_mesh, mesh_shape
 
     out = {"rc": rc, "mesh": mesh_shape(kernel_mesh()), **_kernel_shapes(),
-           "layer_gathers": gathers[0]}
+           "layer_gathers": gathers[0], "leaf_kinds": kinds}
     if tokens is not None:
         out["tokens"] = [t.tolist() for t in tokens]
     if base is not None:
         out["base_unchanged"] = base["check"]()
         out["base_sharded"] = base["sharded"]()
+    if kto_batches is not None:
+        out["kto_batches"] = [{k: v.tolist() for k, v in b.items()}
+                              for b in kto_batches]
     return out
+
+
+def case_fused_ce(args) -> dict:
+    """The fused CE's loop (``train/sft.py`` ``_fused_ce``) on this tp
+    rank's columns of the head, its statistics reduced over the mesh's tp
+    group (``MeshTP``): the loss, correct and label counts, d_hidden part
+    and d_W columns written for the test to hold to one rank's loop."""
+    from iadr1_tpu_torch.core.tensor_parallel import MeshTP
+    from iadr1_tpu_torch.train.sft import _fused_ce
+
+    group = MeshTP(_mesh(args["mesh"]))
+    hidden, kernel, labels = torch.load(args["inputs"])
+    V = kernel.shape[1]
+    per = -(-V // group.size)
+    lo = group.rank * per
+    out = _fused_ce(hidden, kernel[:, lo:lo + per], labels, args["chunk"],
+                    torch.float32, True, (group, lo, V))
+    torch.save(out, os.path.join(args["out"],
+                                 f"fused_ce{dist.get_rank()}.pt"))
+    return {}
 
 
 def _mesh(shape):
@@ -431,7 +566,8 @@ def zeros_like_tree(tree):
 
 CASES = {"cli": case_cli, "kernels": case_kernels, "batch": case_batch,
          "optimizer": case_optimizer, "checkpoint": case_checkpoint,
-         "lora_sft": case_lora_sft, "load": case_load}
+         "lora_sft": case_lora_sft, "load": case_load,
+         "fused_ce": case_fused_ce}
 
 
 def main():
