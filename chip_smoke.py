@@ -394,7 +394,13 @@ result line:
    the greedy tokens' agreement; the control drops one rank's partial
    sums; (c) one LoRA SC-GRPO step (the 34B recipe's finetuning) through
    cli/train_grpo.py under a one-rank NCCL group, bitwise the no-group
-   step; the control reads the adapters before the step.
+   step; the control reads the adapters before the step.  (a) also holds
+   Qwen1.5-MoE-A2.7B's tp = 4 shards (K1-K3 at 4 heads over 4, K4 over
+   1152 slots) and Qwen2.5-VL-7B's uneven tp = 8 shards (K1 and K4 at 4
+   or 3 query heads over the KV heads they read); (d) the MoE at tp = 4
+   (Qwen1.5-MoE-A2.7B cut to 4 layers, 15 experts a rank) and (e)
+   uneven heads with DoRA at tp = 8 (Qwen2.5-VL-7B cut to 4 layers, DoRA
+   rank 8), each as (b) with 4 prompts of 1024 and 16 greedy steps.
 
 Phase 3 also holds K1-K3 at the CLIP tower (T = 577) over the serving
 tiles and over the SFT budget with padding tiles, K1 at the LLaMA-3-8B
@@ -9147,7 +9153,7 @@ def rule_inputs(B, seed):
     return q, k, v, seg, do, dlse
 
 
-def flash_call(q, k, v, seg, do, dlse):
+def flash_call(q, k, v, seg, do, dlse, causal=True):
     """K1, then K2 + K3 through the flash Function with both cotangents:
     (out, lse, dq, dk, dv)."""
     from iadr1_tpu_torch.kernels.flash_attention import flash_attention
@@ -9155,13 +9161,13 @@ def flash_call(q, k, v, seg, do, dlse):
     q, k, v = (t.detach().contiguous().requires_grad_(True)
                for t in (q, k, v))
     out, lse = flash_attention(q, k, v, segment_ids=seg.contiguous(),
-                               kv_segment_ids=seg.contiguous(), causal=True)
+                               kv_segment_ids=seg.contiguous(), causal=causal)
     dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v),
                                      (do.contiguous(), dlse.contiguous()))
     return out.detach(), lse.detach(), dq, dk, dv
 
 
-def sharded_flash(slices, q, k, v, seg, do, dlse):
+def sharded_flash(slices, q, k, v, seg, do, dlse, causal=True):
     """``flash_call`` shard by shard ((batch rows, heads, KV heads) each),
     the results put back in place."""
     out, dq = torch.empty_like(q), torch.empty_like(q)
@@ -9169,7 +9175,7 @@ def sharded_flash(slices, q, k, v, seg, do, dlse):
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     for b, h, hk in slices:
         res = flash_call(q[b, h], k[b, hk], v[b, hk], seg[b], do[b, h],
-                         dlse[b, h])
+                         dlse[b, h], causal)
         for dst, part, heads in zip((out, lse, dq, dk, dv), res,
                                     (h, h, h, hk, hk)):
             dst[b, heads] = part
@@ -10038,11 +10044,22 @@ TP = 4
 TP_FLASH = (("Yi-34B decoder", 1, 56, 8, 4096, 128, True, None),
             ("Qwen2.5-72B decoder", 1, 64, 8, 4096, 128, True, None),
             ("CLIP-L-336 tower", 5, 16, 16, 577, 64, False, None),
-            ("Qwen2.5-VL tower", 1, 16, 16, 8192, 80, False, 64))
-# K4 at the two decoders' decode shards: the rollout's B = 8 rows over a
-# cache of the recipe's 4096 + 512 slots, 4000 of them live
+            ("Qwen2.5-VL tower", 1, 16, 16, 8192, 80, False, 64),
+            # Qwen1.5-MoE-A2.7B's decoder at tp = 4 (its experts too, 37d)
+            ("Qwen1.5-MoE-A2.7B decoder", 1, 16, 16, 4096, 128, True, None))
+# K4 at the decoders' decode shards: the rollout's B = 8 rows over a cache
+# of the recipe's 4096 + 512 slots, 4000 of them live; the MoE's over
+# phase 29's 1024 + 128
 TP_DECODE = (("Yi-34B", 8, 56, 8, 4608, 128, 4000),
-             ("Qwen2.5-72B", 8, 64, 8, 4608, 128, 4000))
+             ("Qwen2.5-72B", 8, 64, 8, 4608, 128, 4000),
+             ("Qwen1.5-MoE-A2.7B", 8, 16, 16, 1152, 128, 1100))
+# the uneven shards: Qwen2.5-VL-7B's decoder (28 heads over 4, D = 128)
+# at tp = 8, the rollout's split (``train/rollout.py tp_head_share``: 4,
+# 4, 4, 4, 3, 3, 3, 3 query heads, each rank the KV heads they read); K1
+# on one row of 4096 (the prefill's kernel there) and K4 as TP_DECODE's
+TP_UNEVEN = ("Qwen2.5-VL-7B", 28, 4, 8, 128, 4096, (8, 4608, 4000))
+# the shards whose PERF.md rows give SDPA's time beside the kernel's
+TP_SHARDS_WITH_SDPA = ("Qwen1.5-MoE-A2.7B decoder", "Qwen1.5-MoE-A2.7B")
 # (b) the tensor-parallel rollout: LLaVA-NeXT-34B cut to TP_LAYERS decoder
 # layers at full width, bf16 from seed 0, B = 8 text prompts of
 # TP_PROMPT_LEN, TP_NEW_TOKENS greedy steps; the ranks' first-step logits
@@ -10101,9 +10118,10 @@ def phase_tp_shards() -> None:
     for i, (label, B, H, Hkv, T, D, causal, window) in enumerate(TP_FLASH):
         q, k, v, seg, do, dlse = tp_rule_inputs(B, H, Hkv, T, D, causal,
                                                 window, seed=370 + i)
-        whole = flash_call(q, k, v, seg, do, dlse)
+        # each case's own mask: the towers' are non-causal
+        whole = flash_call(q, k, v, seg, do, dlse, causal)
         slices = shard_slices(sizes, B, H, Hkv)
-        shards = sharded_flash(slices, q, k, v, seg, do, dlse)
+        shards = sharded_flash(slices, q, k, v, seg, do, dlse, causal)
         unequal = [n for n, a, b in zip(names, shards, whole)
                    if not torch.equal(a, b)]
         if unequal or len(slices) != TP:
@@ -10112,10 +10130,13 @@ def phase_tp_shards() -> None:
         del whole, shards, q, k, v, do, dlse
         h, hkv = H // TP, Hkv // TP
         shape = (B, h, hkv, T, T, D, causal, seg, seg)
+        new = label in TP_SHARDS_WITH_SDPA      # this PR's rows want SDPA
         results = _labelled((*bwd_case(*shape, 380 + i, timed=True,
                                        with_dlse=causal,
-                                       library=label == "CLIP-L-336 tower"),
-                             flash_case(*shape, 390 + i, timed=True)),
+                                       library=label == "CLIP-L-336 tower"
+                                       or new),
+                             flash_case(*shape, 390 + i, timed=True,
+                                        library=new)),
                             f"tp shard, {label}")
         bwd.append(results[:3])
         fwd.append(results[3])
@@ -10138,10 +10159,16 @@ def phase_tp_shards() -> None:
                 raise AssertionError(f"tp shards of the {label} decode "
                                      "differ from the unsharded launch")
         del q, k, v, whole
-        dec.append(_labelled([decode_case(B, H // TP, Hkv // TP, S, D,
-                                          length, seg, 410 + i, True)],
-                             f"tp shard, {label} decode")[0])
+        dec.append(_labelled([decode_case(
+            B, H // TP, Hkv // TP, S, D, length, seg, 410 + i, True,
+            library=label in TP_SHARDS_WITH_SDPA)],
+            f"tp shard, {label} decode")[0])
         lines.append(f"{label} decode {H}/{Hkv} -> {H // TP}/{Hkv // TP}")
+    uneven, uneven_dec = tp_uneven_shards()
+    fwd += uneven
+    dec += uneven_dec
+    lines.append(f"{TP_UNEVEN[0]} {TP_UNEVEN[1]}/{TP_UNEVEN[2]} over "
+                 f"{TP_UNEVEN[3]} ranks (4 or 3 query heads a rank)")
     log_kernel_results(fwd, dec, bwd)
     TP_SHARD_CASES.update({
         "flash_fwd": fwd + [r[2] for r in bwd],
@@ -10170,6 +10197,62 @@ def phase_tp_shards() -> None:
         f"the control (each rank's {h} query heads on the next rank's "
         f"{hkv} KV heads) breaks it: {differ} differ, out max err "
         f"{max_err(shards[0], whole[0]):.3e}")
+
+
+def tp_uneven_shards():
+    """37a's uneven shards (TP_UNEVEN): each rank's K1 (out, lse) and K4
+    launch on its query heads and the KV heads they read, bitwise equal
+    to its heads of the unsharded launch; a 4-head and a 3-head shard
+    each held to the plain version and timed.  Returns the timed K1 and
+    K4 results."""
+    from iadr1_tpu_torch.kernels.decode_attention import decode_attention
+    from iadr1_tpu_torch.kernels.flash_attention import flash_attention
+    from iadr1_tpu_torch.train.rollout import tp_head_share
+
+    label, H, Hkv, tp, D, T, (B, S, length) = TP_UNEVEN
+    q, k, v, seg, _, _ = tp_rule_inputs(1, H, Hkv, T, D, True, None,
+                                        seed=420)
+    out, lse = flash_attention(q, k, v, segment_ids=seg,
+                               kv_segment_ids=seg, causal=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(421)
+    dev = dict(device=DEVICE, dtype=torch.bfloat16)
+    dq = torch.randn((B, H, D), generator=gen, **dev)
+    ck = torch.randn((B, Hkv, S, D), generator=gen, **dev)
+    cv = torch.randn((B, Hkv, S, D), generator=gen, **dev)
+    cseg = torch.ones((B, S), dtype=torch.int32, device=DEVICE)
+    for b in range(B):
+        cseg[b, :29 * b] = 0                        # left padding
+    dec = decode_attention(dq, ck, cv, cseg, length)
+    groups = {}
+    for r in range(tp):
+        first, count, kv = tp_head_share(H, Hkv, tp, r)
+        heads = slice(first, first + count)
+        kv = list(range(r * Hkv // tp, (r + 1) * Hkv // tp)) \
+            if kv is None else kv
+        o, l = flash_attention(q[:, heads].contiguous(),
+                               k[:, kv].contiguous(), v[:, kv].contiguous(),
+                               segment_ids=seg, kv_segment_ids=seg,
+                               causal=True)
+        d = decode_attention(dq[:, heads].contiguous(), ck[:, kv].contiguous(),
+                             cv[:, kv].contiguous(), cseg, length)
+        if not (torch.equal(o, out[:, heads]) and torch.equal(l, lse[:, heads])
+                and torch.equal(d, dec[:, heads])):
+            raise AssertionError(f"tp shards of {label}: rank {r}'s {count} "
+                                 f"heads over KV heads {kv} differ from the "
+                                 "unsharded launch")
+        groups.setdefault(count, len(kv))
+    del q, k, v, out, lse, dq, ck, cv, dec
+    fwd, decs = [], []
+    for count, n_kv in sorted(groups.items(), reverse=True):
+        shape = (1, count, n_kv, T, T, D, True, seg, seg)
+        fwd.append(_labelled([flash_case(*shape, 422 + count, timed=True,
+                                         library=True)],
+                             f"tp shard, {label} decoder, {count} heads")[0])
+        decs.append(_labelled([decode_case(B, count, n_kv, S, D, length,
+                                           cseg, 430 + count, True,
+                                           library=True)],
+                              f"tp shard, {label} decode, {count} heads")[0])
+    return fwd, decs
 
 
 def tp_rollout_bundle():
@@ -10201,85 +10284,31 @@ def _rel_l2(a, b) -> float:
 
 
 def phase_tp_rollout(card) -> None:
-    """Phase 37b: the tensor-parallel rollout at tp = 4, its four ranks
-    run one after another on the card (``run_sequential_ranks``, the
-    all-reduce the rank-ordered sum), each on its ``tp_local_params`` copy
-    of LLaVA-NeXT-34B's bf16 decoder (14 of 56 query heads, 2 of 8 KV
-    heads, a quarter of the MLP and of the vocabulary), against the
-    unsharded rollout: the first step's logits within TP_LOGITS_REL_L2,
-    every rank the same tokens, the greedy tokens' agreement reported; the
-    control drops rank 3's partial sums and must exceed the limit."""
-    from iadr1_tpu_torch.core.tensor_parallel import run_sequential_ranks
-    from iadr1_tpu_torch.train.rollout import (
-        RolloutEngine,
-        SamplingConfig,
-        tp_local_params,
-    )
-
+    """Phase 37b: the tensor-parallel rollout at tp = 4 on LLaVA-NeXT-34B's
+    bf16 decoder (``tp_rollout_check``: each rank 14 of 56 query heads, 2
+    of 8 KV heads, a quarter of the MLP and of the vocabulary), against
+    the unsharded rollout; the greedy tokens' agreement reported."""
     bundle, params, batch = tp_rollout_bundle()
     tcfg = bundle.cfg.text
-    sampling = SamplingConfig(max_new_tokens=TP_NEW_TOKENS, temperature=0.0,
-                              eos_token_id=2, pad_token_id=0)
-    engine = RolloutEngine(bundle, sampling,
-                           max_len=TP_PROMPT_LEN + TP_NEW_TOKENS,
-                           device=DEVICE)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want_logits, _ = engine.prefill(params, batch)
-    want = engine.generate(params, batch)["completion_ids"]
-    torch.cuda.synchronize()
-    whole_s = time.perf_counter() - t0
-    axes = bundle.logical_axes()
-    locals_ = [tp_local_params(params, axes, tcfg, r, TP, torch.bfloat16)
-               for r in range(TP)]
-    local_gb = [sum(t.numel() * t.element_size() for t in
-                    _tensors(loc["text"])) / 1e9 for loc in locals_]
     whole_gb = sum(t.numel() * t.element_size()
                    for t in _tensors(params["text"])) / 1e9
-
-    def rank(group):
-        logits, cache = engine.prefill(locals_[group.rank], batch)
-        ids = engine.generate(locals_[group.rank], batch,
-                              tp=group)["completion_ids"]
-        return logits, ids, tuple(cache["k"].shape)
-
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ranks = run_sequential_ranks(rank, TP)
-    torch.cuda.synchronize()
-    tp_s = time.perf_counter() - t1
-    errs = [_rel_l2(logits, want_logits) for logits, _, _ in ranks]
-    if max(errs) > TP_LOGITS_REL_L2 or not all(
-            torch.isfinite(lg).all() for lg, _, _ in ranks):
-        raise AssertionError(f"tp rollout: first-step logits {errs} against "
-                             f"the unsharded (limit {TP_LOGITS_REL_L2})")
-    tokens = [ids for _, ids, _ in ranks]
-    if not all(torch.equal(t, tokens[0]) for t in tokens):
-        raise AssertionError("tp rollout: the ranks drew other tokens")
-    cache = ranks[0][2]
-    if cache[2] != tcfg.num_key_value_heads // TP:
-        raise AssertionError(f"tp rollout: a rank's cache {cache}")
-    agree = float((tokens[0] == want).float().mean())
-    first = float((tokens[0][:, 0] == want[:, 0]).float().mean())
-    dropped = run_sequential_ranks(
-        lambda g: engine.prefill(locals_[g.rank], batch)[0], TP,
-        reduce=lambda parts: sum(parts[:-1]))
-    control = _rel_l2(dropped[0], want_logits)
-    if not control > TP_LOGITS_REL_L2:
-        raise AssertionError(f"tp rollout control (rank {TP - 1}'s partial "
-                             f"sums dropped): {control:.3e} passed")
+    res = tp_rollout_check(bundle, params, batch, TP)
+    kv = [s["kv_heads"] for s in res["shapes"]]
+    if kv != [tcfg.num_key_value_heads // TP] * TP:
+        raise AssertionError(f"tp rollout: a rank's KV heads {kv}")
     log(f"tp rollout (37b): LLaVA-NeXT-34B cut to {TP_LAYERS} decoder layers "
         f"(Yi-34B width, bf16, {whole_gb:.2f} GB of decoder), {TP_ROWS} "
         f"prompts of {TP_PROMPT_LEN}, {TP_NEW_TOKENS} greedy steps: {TP} "
-        f"ranks one after another, each on {max(local_gb):.2f} GB of "
-        f"decoder, its cache {cache} (2 of the 8 KV heads); first-step "
-        f"logits against the unsharded rollout's, relative L2 "
-        f"{max(errs):.3e} (limit {TP_LOGITS_REL_L2}); every rank the same "
-        f"tokens, agreeing with the unsharded greedy tokens at "
-        f"{agree:.4f} of positions ({first:.4f} of the first tokens); "
-        f"the control (rank {TP - 1}'s partial sums dropped) {control:.3e}; "
-        f"the unsharded prefill and rollout {whole_s:.1f} s, the four "
-        f"ranks' {tp_s:.1f} s on {card}")
+        f"ranks one after another, each on "
+        f"{max(s['gb'] for s in res['shapes']):.2f} GB of decoder, its "
+        f"cache holding {kv[0]} of the 8 KV heads; first-step logits "
+        f"against the unsharded rollout's, relative L2 {res['rel_l2']:.3e} "
+        f"(limit {TP_LOGITS_REL_L2}); every rank the same tokens, agreeing "
+        f"with the unsharded greedy tokens at {res['agree']:.4f} of "
+        f"positions ({res['first']:.4f} of the first tokens); the control "
+        f"(rank {TP - 1}'s partial sums dropped) {res['control']:.3e}; the "
+        f"unsharded prefill and rollout {res['whole_s']:.1f} s, the four "
+        f"ranks' {res['tp_s']:.1f} s on {card}")
 
 
 def _tensors(tree):
@@ -10381,6 +10410,243 @@ def phase_tp_lora(grpo_examples, card) -> None:
         f"{len(want)} leaves; rollout {1e3 * mesh_roll_s:.1f} ms, the "
         f"group run {group_s:.1f} s, the one-process run {one_s:.1f} s on "
         f"{card}")
+
+
+# (d) the MoE at tp = 4 (Qwen1.5-MoE-A2.7B's published widths, 15 of the
+# 60 experts a rank) and (e) uneven heads with DoRA at tp = 8
+# (Qwen2.5-VL-7B, 28 heads over 8 ranks, DoRA rank 8 over its bf16 base),
+# each as sequential ranks against the unsharded rollout, as (b); both
+# decoders cut to TP_EXTRA_LAYERS layers (the smoke's time); 4 text
+# prompts of TP_EXTRA_PROMPT_LEN, TP_NEW_TOKENS greedy steps
+TP_EXTRA_LAYERS, TP_EXTRA_PROMPT_LEN, TP_EXTRA_ROWS = 4, 1024, 4
+TP_MOE, TP_DORA = 4, 8
+TP_DORA_RANK = 8
+# 37d's limit: the MoE's index_add sums each token's expert outputs in an
+# order CUDA's atomics pick, so a rollout's top-4 routing can differ from
+# run to run and the readings spread (1.595e-02 and 2.534e-02 in two runs
+# of the same tree); about 3x the larger, its control reads 1.003
+TP_MOE_LOGITS_REL_L2 = 7.5e-2
+
+
+def tp_text_batch(vocab, mrope):
+    """TP_EXTRA_ROWS left-padded text prompts of TP_EXTRA_PROMPT_LEN (the
+    first whole, each next 17 tokens shorter), ids from a seed; M-RoPE's
+    positions and deltas for a Qwen2.5-VL decoder."""
+    rng = np.random.default_rng(38)
+    P, B = TP_EXTRA_PROMPT_LEN, TP_EXTRA_ROWS
+    ids = np.zeros((B, P), np.int64)
+    mask = np.zeros((B, P), np.int64)
+    for b in range(B):
+        n = P - 17 * b
+        ids[b, P - n:] = rng.integers(3, vocab - 1000, n)
+        mask[b, P - n:] = 1
+    batch = {"input_ids": torch.as_tensor(ids, device=DEVICE),
+             "attention_mask": torch.as_tensor(mask, device=DEVICE)}
+    if mrope:
+        pos = (batch["attention_mask"].cumsum(1) - 1).clamp(min=0)
+        batch["position_ids"] = pos[None].expand(3, B, P).contiguous()
+        batch["mrope_deltas"] = pos[:, -1] + 1 - P
+    return batch
+
+
+def tp_rollout_check(bundle, params, batch, tp, lora=None, scale=1.0,
+                     limit=TP_LOGITS_REL_L2) -> dict:
+    """The tensor-parallel rollout as ``tp`` ranks one after another on
+    the card (``run_sequential_ranks``, the rank-ordered sum as the
+    all-reduce), each rank's copy made inside its turn
+    (``tp_local_params``; ``tp_local_lora`` for the adapters, whose DoRA
+    norms reduce over the ranks), against the unsharded rollout on the
+    same parameters: the first step's logits within ``limit`` (relative
+    L2), every rank the same greedy tokens; the control drops the last
+    rank's partial sums and must exceed the limit.  Returns the readings and
+    each rank's copy's shapes (``shapes(copy)``)."""
+    from iadr1_tpu_torch.core.tensor_parallel import run_sequential_ranks
+    from iadr1_tpu_torch.train.rollout import (
+        RolloutEngine,
+        SamplingConfig,
+        tp_local_lora,
+        tp_local_params,
+    )
+
+    tcfg = getattr(bundle.cfg, "text", bundle.cfg)
+    P = batch["input_ids"].shape[1]
+    sampling = SamplingConfig(max_new_tokens=TP_NEW_TOKENS, temperature=0.0,
+                              eos_token_id=2, pad_token_id=0)
+    engine = RolloutEngine(bundle, sampling, max_len=P + TP_NEW_TOKENS,
+                           device=DEVICE, lora_scale=scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_logits, _ = engine.prefill(params, batch, lora=lora)
+    want = engine.generate(params, batch, lora=lora)["completion_ids"]
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    axes = bundle.logical_axes()
+
+    def copies(group):
+        base = tp_local_params(params, axes, tcfg, group.rank, group.size,
+                               torch.bfloat16)
+        return base, (None if lora is None else tp_local_lora(
+            lora, params, base, axes, tcfg, group, torch.bfloat16, scale))
+
+    def rank(group):
+        base, adapters = copies(group)
+        logits, cache = engine.prefill(base, batch, lora=adapters)
+        ids = engine.generate(base, batch, lora=adapters,
+                              tp=group)["completion_ids"]
+        text = base.get("text", base)
+        layers = text["layers"]
+        return logits, ids, {
+            "q_heads": (layers["attn"]["q"]["kernel"].shape[-1]
+                        // tcfg.head_dim_),
+            "kv_heads": cache["k"].shape[2],
+            "experts": (layers["mlp"]["experts"]["gate"]["kernel"].shape[1]
+                        if "experts" in layers["mlp"] else None),
+            "gb": sum(t.numel() * t.element_size()
+                      for t in _tensors(text)) / 1e9}
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ranks = run_sequential_ranks(rank, tp)
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t1
+    errs = [_rel_l2(logits, want_logits) for logits, _, _ in ranks]
+    if max(errs) > limit or not all(
+            torch.isfinite(lg).all() for lg, _, _ in ranks):
+        raise AssertionError(f"tp rollout: first-step logits {errs} against "
+                             f"the unsharded (limit {limit})")
+    tokens = [ids for _, ids, _ in ranks]
+    if not all(torch.equal(t, tokens[0]) for t in tokens):
+        raise AssertionError("tp rollout: the ranks drew other tokens")
+
+    def prefill(group):
+        base, adapters = copies(group)
+        return engine.prefill(base, batch, lora=adapters)[0]
+
+    dropped = run_sequential_ranks(prefill, tp,
+                                   reduce=lambda parts: sum(parts[:-1]))
+    control = _rel_l2(dropped[0], want_logits)
+    if not control > limit:
+        raise AssertionError(f"tp rollout control (rank {tp - 1}'s partial "
+                             f"sums dropped): {control:.3e} passed")
+    return {"rel_l2": max(errs), "control": control,
+            "agree": float((tokens[0] == want).float().mean()),
+            "first": float((tokens[0][:, 0] == want[:, 0]).float().mean()),
+            "whole_s": whole_s, "tp_s": tp_s,
+            "shapes": [r[2] for r in ranks]}
+
+
+def _count_from_zero():
+    from iadr1_tpu_torch.kernels import all_kernels
+
+    kernels = [k for k, _ in all_kernels()]
+    for k in kernels:
+        k.launches = 0
+    return kernels
+
+
+def _rollout_launches(kernels, label) -> dict:
+    launches = {k.name: k.launches for k in kernels}
+    if not (launches["flash_fwd"] and launches["decode_attention"]):
+        raise AssertionError(f"{label} launches {launches}")
+    return launches
+
+
+def phase_tp_moe(card) -> dict:
+    """Phase 37d: the MoE at tp = 4, Qwen1.5-MoE-A2.7B at its published
+    widths (cut to TP_EXTRA_LAYERS layers), bf16 from seed 0: each rank
+    its 15 of the 60 experts (``moe_block``: its own experts' pairs and
+    the shared expert's row-parallel partial, one all-reduce a layer),
+    ``tp_rollout_check``.  Returns the launches of the sharded and
+    unsharded rollouts, counted from 0."""
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+
+    t0 = time.perf_counter()
+    bundle = bundle_from_hf_config(dict(QWEN15_MOE_A27B,
+                                        num_hidden_layers=TP_EXTRA_LAYERS))
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    batch = tp_text_batch(QWEN15_MOE_A27B["vocab_size"], False)
+    kernels = _count_from_zero()
+    res = tp_rollout_check(bundle, params, batch, TP_MOE,
+                           limit=TP_MOE_LOGITS_REL_L2)
+    launches = _rollout_launches(kernels, "tp moe (37d)")
+    experts = [s["experts"] for s in res["shapes"]]
+    if experts != [QWEN15_MOE_A27B["num_experts"] // TP_MOE] * TP_MOE:
+        raise AssertionError(f"tp moe (37d): experts a rank {experts}")
+    del params
+    log(f"tp moe (37d): Qwen1.5-MoE-A2.7B cut to {TP_EXTRA_LAYERS} layers "
+        f"(bf16), {TP_EXTRA_ROWS} prompts of {TP_EXTRA_PROMPT_LEN}, "
+        f"{TP_NEW_TOKENS} greedy steps, tp = {TP_MOE} as ranks one after "
+        f"another, experts a rank {experts}, query / KV heads a rank "
+        f"{res['shapes'][0]['q_heads']} / {res['shapes'][0]['kv_heads']}: "
+        f"first-step logits against the unsharded rollout's, relative L2 "
+        f"{res['rel_l2']:.3e} (limit {TP_MOE_LOGITS_REL_L2}); every rank the "
+        f"same tokens, agreeing with the unsharded greedy tokens at "
+        f"{res['agree']:.4f} of positions ({res['first']:.4f} of the first "
+        f"tokens); the control (rank {TP_MOE - 1}'s partial sums dropped) "
+        f"{res['control']:.3e}; the unsharded prefill and rollout "
+        f"{res['whole_s']:.1f} s, the ranks' {res['tp_s']:.1f} s; launches "
+        f"{launches}; {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
+def phase_tp_dora(card) -> dict:
+    """Phase 37e: uneven heads and DoRA at tp = 8, Qwen2.5-VL-7B at its
+    published widths (the decoder cut to TP_EXTRA_LAYERS layers), its
+    bf16 base from seed 0 with DoRA adapters of rank TP_DORA_RANK on the
+    seven projections (B and the magnitudes moved off their initial
+    values from a seed, so that the direction and its column norms
+    matter): 28 query heads as 4, 4, 4, 4, 3, 3, 3, 3, each rank the KV
+    heads they read, the column norms of a row-parallel kernel reduced
+    over the ranks (``tp_local_lora``), ``tp_rollout_check``.  Returns the
+    launches, counted from 0."""
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.adapters import TuningConfig, init_lora_params
+
+    t0 = time.perf_counter()
+    bundle = bundle_from_hf_config(dict(QWEN2_5_VL_7B,
+                                        num_hidden_layers=TP_EXTRA_LAYERS))
+    params = bundle.init_params(seed=0, dtype=torch.bfloat16, device=DEVICE)
+    tuning = TuningConfig(finetuning_type="lora", lora_rank=TP_DORA_RANK,
+                          lora_alpha=2.0 * TP_DORA_RANK, use_dora=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(39)
+    lora = init_lora_params(gen, params, tuning)
+
+    def move(tree):
+        if isinstance(tree, dict):
+            if "m" in tree:
+                tree["b"].normal_(0.0, 0.02, generator=gen)
+                tree["m"].mul_(1.0 + 0.05 * torch.rand(
+                    tree["m"].shape, generator=gen, device=DEVICE).to(
+                        tree["m"].dtype))
+                return
+            for v in tree.values():
+                move(v)
+
+    move(lora)
+    batch = tp_text_batch(QWEN2_5_VL_7B["vocab_size"], True)
+    kernels = _count_from_zero()
+    res = tp_rollout_check(bundle, params, batch, TP_DORA, lora=lora,
+                           scale=tuning.lora_scale)
+    launches = _rollout_launches(kernels, "tp dora (37e)")
+    heads = [s["q_heads"] for s in res["shapes"]]
+    if heads != [4] * 4 + [3] * 4:
+        raise AssertionError(f"tp dora (37e): query heads a rank {heads}")
+    del params, lora
+    log(f"tp dora (37e): Qwen2.5-VL-7B cut to {TP_EXTRA_LAYERS} decoder "
+        f"layers (bf16 base), DoRA rank {TP_DORA_RANK} on q, k, v, o, gate, "
+        f"up, down, {TP_EXTRA_ROWS} prompts of {TP_EXTRA_PROMPT_LEN}, "
+        f"{TP_NEW_TOKENS} greedy steps, tp = {TP_DORA} as ranks one after "
+        f"another, query heads a rank {heads}, KV heads "
+        f"{[s['kv_heads'] for s in res['shapes']]}: first-step logits "
+        f"against the unsharded rollout's with the same adapters, relative "
+        f"L2 {res['rel_l2']:.3e} (limit {TP_LOGITS_REL_L2}); every rank the "
+        f"same tokens, agreeing with the unsharded greedy tokens at "
+        f"{res['agree']:.4f} of positions ({res['first']:.4f} of the first "
+        f"tokens); the control (rank {TP_DORA - 1}'s partial sums dropped) "
+        f"{res['control']:.3e}; the unsharded prefill and rollout "
+        f"{res['whole_s']:.1f} s, the ranks' {res['tp_s']:.1f} s; launches "
+        f"{launches}; {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
 
 
 def phase_tp(grpo_examples, card) -> dict:
@@ -11345,6 +11611,8 @@ def main() -> int:
                                                     card)),
         (35, "mesh", lambda: phase_mesh(train_rows, grpo_examples, card)),
         (37, "tp", lambda: phase_tp(grpo_examples, card)),
+        (37, "tp_moe", lambda: phase_tp_moe(card)),
+        (37, "tp_dora", lambda: phase_tp_dora(card)),
     ):
         if n in phases:
             t0 = time.perf_counter()

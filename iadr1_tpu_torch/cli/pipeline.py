@@ -18,7 +18,17 @@ artifacts (all under ``output_dir``):
 
 ``stages`` selects a subset (default all three); a later stage picks up an
 earlier stage's export from disk, so ``stages: [eval]`` re-runs eval alone
-against an existing ``grpo_export``.  A LoRA GRPO stage exports its
+against an existing ``grpo_export``.
+
+On more than one process (``torchrun --nproc_per_node N -m
+iadr1_tpu_torch.cli.pipeline --config ...``) every rank runs the chain:
+each training stage on the job's mesh (its section's ``mesh``; fsdp fills
+the ranks by default), as its CLI runs under torchrun.  Rank 0 alone
+writes what one process would write besides the stages' own files (each
+stage's config, the exports, the eval's answers and CSVs, the summary and
+the manifest), and the others wait for it at a barrier: the next stage
+reads the export through the sharded load, and the eval runs on rank 0
+off the mesh (the infer CLI is one process).  A LoRA GRPO stage exports its
 adapters merged into the base (over the base quantized as training
 quantized it, for a QLoRA run).
 """
@@ -153,8 +163,12 @@ def export_run(base_model_path: str, checkpoint_dir: str, out_dir: str,
 
 
 def _stage(main, stage_cfg: dict, cfg_path: str, device, name: str) -> None:
-    with open(cfg_path, "w") as f:
-        json.dump(stage_cfg, f, indent=1)
+    from iadr1_tpu_torch.core.distributed import barrier, is_primary
+
+    if is_primary():
+        with open(cfg_path, "w") as f:
+            json.dump(stage_cfg, f, indent=1)
+    barrier()
     argv = ["--config", cfg_path]
     if device is not None:
         argv += ["--device", str(device)]
@@ -166,6 +180,8 @@ def _stage(main, stage_cfg: dict, cfg_path: str, device, name: str) -> None:
 def run_pipeline(cfg: PipelineConfig, device=None) -> dict:
     """Execute the selected stages on ``device`` (default: the card);
     returns artifact paths."""
+    from iadr1_tpu_torch.core.distributed import barrier, is_primary
+
     out = cfg.output_dir
     os.makedirs(out, exist_ok=True)
     sft_dir = os.path.join(out, "sft")
@@ -184,9 +200,11 @@ def run_pipeline(cfg: PipelineConfig, device=None) -> dict:
         stage_cfg.setdefault("train", {})["output_dir"] = sft_dir
         _stage(sft_main, stage_cfg, os.path.join(out, "sft_config.json"),
                device, "sft")
-        export_run(stage_cfg["model"]["model_name_or_path"],
-                   os.path.join(sft_dir, "checkpoints"), sft_export,
-                   device=device)
+        if is_primary():
+            export_run(stage_cfg["model"]["model_name_or_path"],
+                       os.path.join(sft_dir, "checkpoints"), sft_export,
+                       device=device)
+        barrier()
         artifacts["sft"] = sft_dir
         artifacts["sft_export"] = sft_export
 
@@ -202,86 +220,113 @@ def run_pipeline(cfg: PipelineConfig, device=None) -> dict:
         stage_cfg.setdefault("train", {})["output_dir"] = grpo_dir
         _stage(grpo_main, stage_cfg, os.path.join(out, "grpo_config.json"),
                device, "grpo")
-        export_run(stage_cfg["model"]["model_name_or_path"],
-                   os.path.join(grpo_dir, "checkpoints"), grpo_export,
-                   finetuning=stage_cfg.get("finetuning"),
-                   quant=stage_cfg["model"].get("quant", "none"),
-                   quant_block=stage_cfg["model"].get("quant_block", 64),
-                   device=device)
+        if is_primary():
+            export_run(stage_cfg["model"]["model_name_or_path"],
+                       os.path.join(grpo_dir, "checkpoints"), grpo_export,
+                       finetuning=stage_cfg.get("finetuning"),
+                       quant=stage_cfg["model"].get("quant", "none"),
+                       quant_block=stage_cfg["model"].get("quant_block", 64),
+                       device=device)
+        barrier()
         artifacts["grpo"] = grpo_dir
         artifacts["grpo_export"] = grpo_export
 
     if "eval" in cfg.stages:
-        from iadr1_tpu_torch.cli.infer import main as infer_main
-        from iadr1_tpu_torch.eval.summary import summarize_answers
+        from iadr1_tpu_torch.core.mesh import kernel_mesh_scope
 
-        # only exports this invocation produced (or, for a pure
-        # ``stages: [eval]`` re-run, any export on disk): a [sft, eval]
-        # run must not pick up a stale grpo_export of an earlier run
-        eval_only = list(cfg.stages) == ["eval"]
-        candidates = []
-        if "grpo" in cfg.stages or eval_only:
-            candidates.append(grpo_export)
-        if "sft" in cfg.stages or eval_only:
-            candidates.append(sft_export)
-        candidates.append(cfg.model_name_or_path)
-        model_path = next(
-            (d for d in candidates if d and os.path.isdir(d)), None)
-        if model_path is None:
-            raise RuntimeError("eval stage: no model export found and no "
-                               "model_name_or_path configured")
-        ev = cfg.eval
-        shot = ev.num_shot
-        all_answers: list[dict] = []
-        per_bench = {}
-        for spec_dict in ev.benchmarks:
-            spec = BenchmarkSpec(**spec_dict)
-            name = _bench_name(spec)
-            bench_out = os.path.join(results_dir, name)
-            argv = [
-                "--model-path", model_path,
-                "--test-data", spec.test_data,
-                "--image-dir", spec.image_dir,
-                "--output-dir", bench_out,
-                "--num-shot", str(shot),
-                "--batch-size", str(ev.batch_size),
-                "--max-prompt-length", str(ev.max_prompt_length),
-                "--max-new-tokens", str(ev.max_new_tokens),
-                "--patch-budget", str(ev.patch_budget),
-                "--max-pixels", str(ev.max_pixels),
-                "--attention", ev.attention,
-                "--normal-flag", spec.normal_flag,
-                "--mode", ev.mode,
-            ]
-            if ev.template:
-                argv += ["--template", ev.template]
-            if spec.max_samples:
-                argv += ["--max-samples", str(spec.max_samples)]
-            if device is not None:
-                argv += ["--device", str(device)]
-            rc = infer_main(argv)
-            if rc:
-                raise RuntimeError(f"eval stage failed on {name} (rc={rc})")
-            answers_path = os.path.join(bench_out,
-                                        f"answers_{shot}_shot.json")
-            with open(answers_path) as f:
-                all_answers.extend(json.load(f))
-            per_bench[name] = answers_path
-
-        # one row per dataset + Average, question types as columns (record
-        # ``image`` keys carry the dataset as their first component)
-        summary = summarize_answers(all_answers)
-        summary_csv = os.path.join(results_dir, f"summary_{shot}_shot.csv")
-        summary.to_csv(summary_csv)
-        artifacts["results"] = per_bench
-        artifacts["summary_csv"] = summary_csv
-        print(summary.to_string(2))
+        if is_primary():
+            # off the training stages' mesh: rank 0 alone generates
+            with kernel_mesh_scope(None):
+                _eval_stage(cfg, out, results_dir, device)
+        artifacts.update(_eval_paths(cfg, results_dir))
+    barrier()
 
     manifest = os.path.join(out, "pipeline_manifest.json")
-    with open(manifest, "w") as f:
-        json.dump(artifacts, f, indent=1)
+    if is_primary():
+        with open(manifest, "w") as f:
+            json.dump(artifacts, f, indent=1)
     artifacts["manifest"] = manifest
     return artifacts
+
+
+def _eval_paths(cfg: PipelineConfig, results_dir: str) -> dict:
+    """The eval stage's artifacts: each benchmark's answers file and the
+    summary CSV."""
+    shot = cfg.eval.num_shot
+    return {"results": {
+        _bench_name(BenchmarkSpec(**spec)): os.path.join(
+            results_dir, _bench_name(BenchmarkSpec(**spec)),
+            f"answers_{shot}_shot.json")
+        for spec in cfg.eval.benchmarks},
+        "summary_csv": os.path.join(results_dir, f"summary_{shot}_shot.csv")}
+
+
+def _eval_stage(cfg: PipelineConfig, out: str, results_dir: str,
+                device) -> None:
+    """Every benchmark through the infer CLI on the newest export, then
+    the summary CSV (the files ``_eval_paths`` names)."""
+    from iadr1_tpu_torch.cli.infer import main as infer_main
+    from iadr1_tpu_torch.eval.summary import summarize_answers
+
+    sft_export = os.path.join(out, "sft_export")
+    grpo_export = os.path.join(out, "grpo_export")
+    # only exports this invocation produced (or, for a pure
+    # ``stages: [eval]`` re-run, any export on disk): a [sft, eval]
+    # run must not pick up a stale grpo_export of an earlier run
+    eval_only = list(cfg.stages) == ["eval"]
+    candidates = []
+    if "grpo" in cfg.stages or eval_only:
+        candidates.append(grpo_export)
+    if "sft" in cfg.stages or eval_only:
+        candidates.append(sft_export)
+    candidates.append(cfg.model_name_or_path)
+    model_path = next(
+        (d for d in candidates if d and os.path.isdir(d)), None)
+    if model_path is None:
+        raise RuntimeError("eval stage: no model export found and no "
+                           "model_name_or_path configured")
+    ev = cfg.eval
+    shot = ev.num_shot
+    all_answers: list[dict] = []
+    for spec_dict in ev.benchmarks:
+        spec = BenchmarkSpec(**spec_dict)
+        name = _bench_name(spec)
+        bench_out = os.path.join(results_dir, name)
+        argv = [
+            "--model-path", model_path,
+            "--test-data", spec.test_data,
+            "--image-dir", spec.image_dir,
+            "--output-dir", bench_out,
+            "--num-shot", str(shot),
+            "--batch-size", str(ev.batch_size),
+            "--max-prompt-length", str(ev.max_prompt_length),
+            "--max-new-tokens", str(ev.max_new_tokens),
+            "--patch-budget", str(ev.patch_budget),
+            "--max-pixels", str(ev.max_pixels),
+            "--attention", ev.attention,
+            "--normal-flag", spec.normal_flag,
+            "--mode", ev.mode,
+        ]
+        if ev.template:
+            argv += ["--template", ev.template]
+        if spec.max_samples:
+            argv += ["--max-samples", str(spec.max_samples)]
+        if device is not None:
+            argv += ["--device", str(device)]
+        rc = infer_main(argv)
+        if rc:
+            raise RuntimeError(f"eval stage failed on {name} (rc={rc})")
+        answers_path = os.path.join(bench_out,
+                                    f"answers_{shot}_shot.json")
+        with open(answers_path) as f:
+            all_answers.extend(json.load(f))
+
+    # one row per dataset + Average, question types as columns (record
+    # ``image`` keys carry the dataset as their first component)
+    summary = summarize_answers(all_answers)
+    summary_csv = os.path.join(results_dir, f"summary_{shot}_shot.csv")
+    summary.to_csv(summary_csv)
+    print(summary.to_string(2))
 
 
 def main(argv=None):
@@ -293,16 +338,9 @@ def main(argv=None):
 
     from iadr1_tpu_torch.core.config import load_config
     from iadr1_tpu_torch.core.device import resolve_device
-    from iadr1_tpu_torch.core.distributed import (
-        maybe_initialize_distributed,
-        topology,
-    )
+    from iadr1_tpu_torch.core.distributed import maybe_initialize_distributed
 
     maybe_initialize_distributed(args.device)
-    if topology().process_count > 1:
-        raise NotImplementedError(
-            "the one-call chain on more than one process is not ported "
-            "(ROADMAP A.11b): its eval stage would run on every rank")
     cfg = load_config(PipelineConfig, args.config, args.overrides)
     resolve_device(args.device)
     run_pipeline(cfg, device=args.device)

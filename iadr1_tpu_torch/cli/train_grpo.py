@@ -17,8 +17,9 @@ with a ``mesh:`` section) the policy and the reference (in LoRA mode the
 base and the adapters; a quantized base replicates) are sharded by the
 family's logical axes, each rank loads only its own shards, each rolls
 out its share of every step's prompts, at tp > 1 with a tensor-parallel
-decode (``train/rollout.py``), and PiSSA's initialization raises naming
-ROADMAP A.11b.
+decode (``train/rollout.py``), and PiSSA's initialization factors each
+kernel on rank 0 and broadcasts the adapters and the residual
+(``train/adapters.py pissa_init``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ import numpy as np
 from iadr1_tpu_torch.cli.train_sft import (
     add_device_argument,
     load_checkpoint,
-    mesh_devices,
-    mesh_refusals,
     shard_for_mesh,
 )
 from iadr1_tpu_torch.data.collator import NO_FRAME_STACKS
@@ -111,14 +110,9 @@ class GRPOJobConfig:
 
 
 def require_ported(job: GRPOJobConfig) -> None:
-    """Raise for what the port cannot carry onto the job's mesh, naming
-    ROADMAP A.11b: PiSSA's initialization on a mesh (its host SVD of
-    every kernel would meet the shards).  tp > 1 (a tensor-parallel
-    rollout), LoRA and quantized bases run on a mesh."""
-    if mesh_devices(job.mesh) > 1 and job.finetuning.pissa_init:
-        raise NotImplementedError(
-            f"PiSSA's initialization on a mesh ({job.mesh}) is not ported "
-            "(ROADMAP A.11b)")
+    """Raise for an option the port cannot run yet, naming its item: none
+    of the GRPO job's is left, on one card or on a mesh (tp > 1 with a
+    tensor-parallel rollout, LoRA, DoRA, PiSSA, quantized bases)."""
 
 
 def shard_adapters(bundle, lora, mesh):
@@ -354,7 +348,6 @@ def main(argv=None):
     else:
         bundle = bundle_from_pretrained(cfg.model.model_name_or_path,
                                         attention=cfg.model.attention)
-    mesh_refusals(bundle, mesh)
     if cfg.model.hf_config:
         params = bundle.init_params(seed=cfg.model.seed, dtype=dtype,
                                     device=device)

@@ -52,7 +52,6 @@ import numpy as np
 from iadr1_tpu_torch.cli.train_sft import (
     add_device_argument,
     load_checkpoint,
-    mesh_refusals,
     shard_for_mesh,
 )
 from iadr1_tpu_torch.data.tokenize import IGNORE_INDEX, infer_seqlen
@@ -360,7 +359,6 @@ def main(argv=None):
     else:
         bundle = bundle_from_pretrained(model_cfg["model_name_or_path"],
                                         attention=attention)
-    mesh_refusals(bundle, mesh)
     if model_cfg.get("hf_config"):
         params = bundle.init_params(seed=model_cfg.get("seed", 0),
                                     dtype=dtype, device=device)

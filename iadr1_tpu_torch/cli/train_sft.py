@@ -14,8 +14,9 @@ in predict_results.json, which need ``jieba`` and ``nltk``;
 ``mesh:`` section, ``core/mesh.py``) the parameters and moments are
 sharded by the family's logical axes, each rank collates its dp x fsdp
 share of every step's rows, and rank 0 logs and writes; each rank loads
-only its own shards of the checkpoint (``load_checkpoint``), and what a
-mesh cannot carry yet raises naming A.11b (``mesh_refusals``).  Context
+only its own shards of the checkpoint (``load_checkpoint``); every
+family runs at any (dp, fsdp, tp), the MoE with its experts split over
+tp (``models/qwen2_moe.py``).  Context
 extension runs as in JAX: ``model.rope_scaling`` with
 ``model.model_max_length`` rewrites the config (into its ``text_config``
 where it has one, ROADMAP C.R18), ``model.shift_attn`` trains with
@@ -108,25 +109,7 @@ def mesh_devices(mesh: dict) -> int:
 
 def require_ported(job: SFTJobConfig) -> None:
     """Raise for an option the port cannot run yet, naming its item: none
-    of the SFT job's is left (what a mesh cannot carry is refused by
-    ``mesh_refusals``)."""
-
-
-def mesh_refusals(bundle, mesh) -> None:
-    """Raise, naming ROADMAP A.11b, for what the port cannot carry onto
-    ``mesh`` (None: no mesh, nothing to refuse): the MoE's expert axis on
-    tp > 1.  Every other family runs on DTensors at any tp, LongLoRA's
-    attention too (each held to the one-process run by
-    tests/test_torch_tensor_parallel*.py).  Nothing runs replicated in its
-    place."""
-    if mesh is None:
-        return
-    from iadr1_tpu_torch.core.mesh import mesh_shape
-
-    if bundle.family == "qwen2_moe" and mesh_shape(mesh)["tp"] > 1:
-        raise NotImplementedError(
-            "the MoE's expert axis on tp > 1 is not ported (ROADMAP "
-            "A.11b): its dropless dispatch needs an all-to-all design")
+    of the SFT job's is left, on one card or on a mesh."""
 
 
 def shard_for_mesh(bundle, params, mesh):
@@ -450,7 +433,6 @@ def main(argv=None):
             hf_cfg_dict = json.load(f)
     hf_cfg_dict, attention = context_extension(cfg.model, hf_cfg_dict)
     bundle = bundle_from_hf_config(hf_cfg_dict, attention=attention)
-    mesh_refusals(bundle, mesh)
     if cfg.model.hf_config:
         params = shard_for_mesh(bundle, bundle.init_params(
             seed=cfg.model.seed, dtype=dtype, device=device), mesh)

@@ -6,7 +6,8 @@ One mesh with three named axes, as in the JAX package:
 * ``dp``   -- data parallelism (batch split, parameters replicated)
 * ``fsdp`` -- the ZeRO-3 analogue: batch split AND parameters and
   optimizer moments sharded
-* ``tp``   -- tensor parallelism (heads, MLP and vocabulary split)
+* ``tp``   -- tensor parallelism (heads, MLP, vocabulary and the MoE's
+  experts split)
 
 Parameters carry logical axis names (``("embed", "mlp")``), and the rule
 table maps them to mesh axes; ``shard_pytree`` makes every leaf a
@@ -88,8 +89,8 @@ DEFAULT_RULES: dict[str, str | None] = {
     "head_dim": None,
     "patch": None,
     "norm": None,
-    # the MoE expert axis rides tp in JAX; the port refuses tp > 1 for the
-    # MoE (ROADMAP A.11b)
+    # the MoE's experts split over tp, each rank its contiguous share
+    # (models/qwen2_moe.py moe_block)
     "expert": "tp",
 }
 

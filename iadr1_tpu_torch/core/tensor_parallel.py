@@ -4,7 +4,9 @@ Megatron layout; training runs on DTensors instead, ``core/mesh.py``).
 Each tp rank holds its slice of the decoder as plain tensors
 (``train/rollout.py tp_local_params``): the column-parallel products
 (q, k, v, gate, up) give the rank's heads and MLP columns, the
-row-parallel ones (o, down) a partial sum that one all-reduce completes,
+row-parallel ones (o, down; the MoE's own experts and its shared
+expert, ``models/qwen2_moe.py``) a partial sum that one all-reduce
+completes,
 the vocabulary-sharded embedding a masked lookup that one all-reduce
 completes, and the vocabulary-sharded LM head its logits columns, which an
 all-gather joins before the sampler.  The decoder reads the group from
@@ -48,6 +50,59 @@ def tp_scope(group):
         yield group
     finally:
         _SCOPE.group = prev
+
+
+def split_range(n: int, size: int, rank: int) -> tuple[int, int]:
+    """(first unit, count) of rank ``rank``'s share of ``n`` whole units
+    over ``size`` ranks: contiguous, the first ``n % size`` ranks one
+    more (60 experts over 8: 8, 8, 8, 8, 7, 7, 7, 7)."""
+    base, extra = divmod(n, size)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the backward sums the ranks' cotangents: a
+    replicated input read by each rank's own part of a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The ranks' partial sums added (one all-reduce) forward; identity
+    backward, since every rank reads the sum alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (the same on every rank of ``group``, a process group) as the
+    input of a partial sum: its gradient summed over the ranks (Megatron's
+    f).  ``x`` itself when ``group`` is None."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial sums of ``x`` added over ``group``, with an
+    identity backward (Megatron's g).  ``x`` itself when ``group`` is
+    None."""
+    return x if group is None else _ReduceFromTP.apply(x, group)
 
 
 def tp_sum(x: torch.Tensor) -> torch.Tensor:

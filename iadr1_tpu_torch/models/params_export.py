@@ -112,14 +112,20 @@ def save_pretrained(bundle, params: dict, out_dir: str,
                     source_dir: str | None = None) -> None:
     """Write model.safetensors (+ config/tokenizer copied from source).
     On a mesh every rank calls it with its DTensor parameters: they are
-    gathered whole, and rank 0 writes what a single process writes."""
+    gathered whole, rank 0 writes what a single process writes, and the
+    ranks wait for it.  Plain parameters are one process's call (rank 0's
+    alone in a multi-process chain, ``cli/pipeline.py``, which waits)."""
     from iadr1_tpu_torch.core.distributed import barrier, is_primary
-    from iadr1_tpu_torch.core.mesh import full
+    from iadr1_tpu_torch.core.mesh import full, is_dtensor
     from iadr1_tpu_torch.models.params_io import save_safetensors
+
+    sharded = []
 
     def gather(node):
         if isinstance(node, dict):
             return {k: gather(v) for k, v in node.items()}
+        if node is not None and is_dtensor(node):
+            sharded.append(True)
         return None if node is None else full(node.detach())
 
     params = gather(params)
@@ -128,7 +134,8 @@ def save_pretrained(bundle, params: dict, out_dir: str,
         os.makedirs(out_dir, exist_ok=True)
         save_safetensors(os.path.join(out_dir, "model.safetensors"),
                          export_params(bundle, params), {"format": "pt"})
-    barrier()
+    if sharded:
+        barrier()
     if source_dir and write:
         for name in SOURCE_FILES:
             src = os.path.join(source_dir, name)

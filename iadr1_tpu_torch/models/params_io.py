@@ -131,9 +131,10 @@ class DeferredState(Mapping):
             for name in handle.keys():
                 self._where[name] = handle
         if any(k.endswith(".qweight") for k in self._where):
-            raise NotImplementedError(
-                "the sharded load of a GPTQ/AWQ checkpoint is not ported "
-                "(ROADMAP A.11b): a quantized base replicates")
+            raise ValueError(
+                "a GPTQ/AWQ checkpoint is a quantized base, which replicates "
+                "over the mesh (as in the JAX CLI): load it whole on each "
+                "rank, not sharded")
 
     def __getitem__(self, name: str) -> DeferredTensor:
         handle = self._where[name]

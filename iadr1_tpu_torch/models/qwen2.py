@@ -193,16 +193,35 @@ def lora_dense(x, kernel, bias, ab, scale: float):
 
 
 @torch.no_grad()
-def _dora_norm(kernel, ab, scale: float) -> torch.Tensor:
-    """||W + scale * A @ B|| per output column [out], f32, factored."""
+def dora_norm_sums(kernel, ab, scale: float) -> torch.Tensor:
+    """The three sums over the rows that ||W + scale * A @ B||^2 per
+    output column is made of, [3, out] f32: ||W_j||^2, (W^T A B)_jj and
+    (B^T A^T A B)_jj.  Additive over row shards: a tp rank's rows give its
+    partial sums."""
     k32 = (dequantize_kernel(kernel) if isinstance(kernel, dict)
            else kernel.float())
     a32, b32 = ab["a"].float(), ab["b"].float()
-    wnorm2 = (k32 * k32).sum(dim=0)
-    cross = ((k32.T @ a32) * b32.T).sum(dim=1)
-    bb = ((a32.T @ a32 @ b32) * b32).sum(dim=0)
-    return torch.sqrt(wnorm2 + 2.0 * scale * cross + scale * scale * bb
-                      + 1e-12)
+    return torch.stack([(k32 * k32).sum(dim=-2),
+                        ((k32.transpose(-1, -2) @ a32)
+                         * b32.transpose(-1, -2)).sum(dim=-1),
+                        ((a32.transpose(-1, -2) @ a32 @ b32) * b32).sum(
+                            dim=-2)])
+
+
+def dora_norm_from_sums(sums: torch.Tensor, scale: float) -> torch.Tensor:
+    """||W + scale * A @ B|| per output column from ``dora_norm_sums``."""
+    return torch.sqrt(sums[0] + 2.0 * scale * sums[1]
+                      + scale * scale * sums[2] + 1e-12)
+
+
+@torch.no_grad()
+def _dora_norm(kernel, ab, scale: float) -> torch.Tensor:
+    """||W + scale * A @ B|| per output column [out], f32, factored; a
+    rollout copy's fixed norms where it has them (``train/rollout.py
+    tp_local_lora``)."""
+    if "norm" in ab:
+        return ab["norm"]
+    return dora_norm_from_sums(dora_norm_sums(kernel, ab, scale), scale)
 
 
 def _ab(ll, *path):
@@ -553,8 +572,16 @@ def logits(params: dict, cfg: Qwen2Config, hidden: torch.Tensor,
     out = torch.matmul(hidden.to(dt),
                        head_kernel(params, cfg).to(hidden.dtype).to(dt))
     group = tp_group()
-    # a tp rank's head is its vocabulary slice: the ranks' columns joined
-    return out if group is None else group.all_gather(out, dim=-1)
+    if group is None:
+        return out
+    # a tp rank's head is its vocabulary share, padded to ceil(V / tp)
+    # columns (``train/rollout.py tp_local_params``): the ranks' columns
+    # joined, the padding trimmed
+    out = group.all_gather(out, dim=-1)
+    V = cfg.vocab_size
+    if out.shape[-1] > V and out.shape[-1] == group.size * -(-V // group.size):
+        out = out[..., :V]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@ too).  The per-expert row counts come to the host once a layer
 (``.tolist()``), a sync with the device.  JAX's ``capacity_factor`` (a
 static-shape dispatch that drops the pairs past an expert's capacity,
 ROADMAP C.R19) stays in the config so that configs load alike, and is
-ignored here.
+ignored here.  Under tp each rank runs its own contiguous share of the
+experts, and one all-reduce a layer completes the output (``moe_block``).
 
 The router's load-balancing loss is transformers' ``load_balancing_loss_func``
 (ROADMAP C.R20): the routing statistics pooled over the layers' tokens
@@ -39,6 +40,13 @@ from iadr1_tpu_torch.core.mesh import (
     batch_share,
     batch_total,
     full,
+    is_dtensor,
+)
+from iadr1_tpu_torch.core.tensor_parallel import (
+    copy_to_tp,
+    reduce_from_tp,
+    split_range,
+    tp_group,
 )
 from iadr1_tpu_torch.models import qwen2
 from iadr1_tpu_torch.models.common import dense
@@ -179,54 +187,133 @@ def route(cfg: Qwen2MoeConfig, xf: torch.Tensor, router_kernel):
     return probs, weights, selected
 
 
+def local_experts(cfg: Qwen2MoeConfig, kernel) -> tuple[int, int]:
+    """(first expert, count) that a rank's expert kernel [E_r, ...] holds:
+    a DTensor's tp shard (training), a tp rank's slice of the rollout copy
+    (``core.tensor_parallel.split_range``), or every expert."""
+    if is_dtensor(kernel):
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        shape, offset = compute_local_shape_and_global_offset(
+            kernel.shape, kernel.device_mesh, kernel.placements)
+        return offset[0], shape[0]
+    group = tp_group()
+    if group is None:
+        return 0, cfg.num_experts
+    first, count = split_range(cfg.num_experts, group.size, group.rank)
+    if kernel.shape[0] != count:
+        raise ValueError(f"tp rank {group.rank} holds {kernel.shape[0]} "
+                         f"experts, its share of {cfg.num_experts} is {count}")
+    return first, count
+
+
 def moe_block(cfg: Qwen2MoeConfig, x: torch.Tensor, mp: dict, ml=None,
               scale: float = 1.0, *, segment_ids=None, with_aux=False):
     """The sparse MLP over [B, T, H] (``qwen2.apply``'s MLP hook); returns
     (out, aux): aux the layer's routing statistics [2, E] over the tokens
     of segment > 0 (the routings to each expert over the K slots, and the
-    sum of its router probability), or None without ``with_aux``."""
+    sum of its router probability), or None without ``with_aux``.
+
+    Under tp every rank holds the same tokens and its own contiguous share
+    of the experts: it routes every token (the router is replicated), runs
+    the GEMM chain for its own experts' (token, slot) pairs only and adds
+    the shared expert's row-parallel partial, so one all-reduce a layer
+    completes the output.  In the tp rollout (plain slices) that reduce is
+    the decoder's ``tp_sum``; in training (DTensors over the tp submesh)
+    it is made here, forward only (Megatron's g), and the replicated
+    inputs of the partial sum take their cotangents summed (f)."""
     B, T, H = x.shape
-    xf = x.reshape(-1, H)
     E, K = cfg.num_experts, cfg.num_experts_per_tok
-    probs, weights, selected = route(cfg, xf, mp["router"]["kernel"])
+    ex = mp["experts"]
+    first, n_own = local_experts(cfg, ex["gate"]["kernel"])
+    group = None
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        tp_mesh, xd = x.device_mesh, x.reshape(-1, H)
+        group = tp_mesh.get_group()
+        # whole on every tp rank (DTensor may carry it sharded or partial)
+        xf = xd.redistribute(tp_mesh, [Replicate()]).to_local()
+        router = mp["router"]["kernel"].to_local()
+        ex = {n: {"kernel": ex[n]["kernel"].to_local()}
+              for n in ("gate", "up", "down")}
+    else:
+        xf = x.reshape(-1, H)
+        router = mp["router"]["kernel"]
+    probs, weights, selected = route(cfg, xf, router)
 
     # dropless dispatch: the (token, slot) pairs sorted by expert (stable,
-    # so each expert's rows keep token order), one GEMM chain an expert
+    # so each expert's rows keep token order), one GEMM chain an expert of
+    # this rank's; one host read of its experts' counts (and of the pairs
+    # ahead of them)
     flat = selected.reshape(-1)
     order = flat.argsort(stable=True)
-    tokens = order // K
-    counts = torch.bincount(flat, minlength=E).tolist()   # syncs the host
-    rows = xf[tokens]
-    ex = mp["experts"]
+    per_expert = torch.bincount(flat, minlength=E)
+    if (first, n_own) == (0, E):
+        start, counts = 0, per_expert.tolist()          # syncs the host
+    else:
+        start, *counts = torch.cat([per_expert[:first].sum()[None],
+                                    per_expert[first:first + n_own]]).tolist()
+    own = order[start:start + sum(counts)]
+    tokens = own // K
+    xe = copy_to_tp(xf, group)
+    rows = xe[tokens]
     gate, up, down = (ex[n]["kernel"].unbind(0) for n in ("gate", "up",
                                                           "down"))
-    outs, start = [], 0
+    outs, at = [], 0
     for e, n in enumerate(counts):
         if n:
-            xe = rows[start:start + n]
-            outs.append(dense(F.silu(dense(xe, gate[e])) * dense(xe, up[e]),
+            xr = rows[at:at + n]
+            outs.append(dense(F.silu(dense(xr, gate[e])) * dense(xr, up[e]),
                               down[e]))
-            start += n
+            at += n
     # each pair's output times its routing weight in the activations'
     # dtype, summed per token in expert order (transformers' index_add_)
-    w = weights.reshape(-1)[order].to(x.dtype)
-    out = torch.zeros_like(xf).index_add(0, tokens,
-                                         torch.cat(outs) * w[:, None])
+    out = torch.zeros_like(xf)
+    if outs:
+        w = copy_to_tp(weights, group).reshape(-1)[own].to(x.dtype)
+        out = out.index_add(0, tokens, torch.cat(outs) * w[:, None])
 
     def shared(xs, name):
         return lora_dense(xs, mp["shared"][name]["kernel"], None,
                           _ab(ml, "shared", name, "kernel"), scale)
 
-    sh = shared(F.silu(shared(xf, "gate")) * shared(xf, "up"), "down")
-    sg = torch.sigmoid(dense(xf, mp["shared_gate"]["kernel"]).float())
-    out = (out + sg.to(sh.dtype) * sh).reshape(B, T, H)
+    if group is None:
+        sh = shared(F.silu(shared(xf, "gate")) * shared(xf, "up"), "down")
+        sg = torch.sigmoid(dense(xf, mp["shared_gate"]["kernel"]).float())
+        out = (out + sg.to(sh.dtype) * sh).reshape(B, T, H)
+    else:
+        out = _shared_and_reduce(out, xd, shared, mp, group, tp_mesh)
+        out = out.reshape(B, T, H)
     if not with_aux:
         return out, None
-    m = (torch.ones(B * T, device=x.device) if segment_ids is None
+    m = (torch.ones(B * T, device=xf.device) if segment_ids is None
          else (segment_ids.reshape(-1) > 0).float())
     routed = F.one_hot(selected, E).float().sum(1)           # [S, E]
     return out, torch.stack([(routed * m[:, None]).sum(0),
                              (probs * m[:, None]).sum(0)])
+
+
+def _shared_and_reduce(out, xd, shared, mp, group, tp_mesh):
+    """Training under tp: the shared expert on the DTensors (its adapters
+    and DoRA as every dense layer runs them), its row-parallel partial
+    added to this rank's experts' ``out`` before the one all-reduce; the
+    result replicated over ``tp_mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    sh = shared(F.silu(shared(xd, "gate")) * shared(xd, "up"), "down")
+    sg = torch.sigmoid(dense(xd, mp["shared_gate"]["kernel"]).float())
+    sg = sg.redistribute(tp_mesh, [Replicate()]).to_local()
+    if sh.placements[0].is_partial():
+        part = sh.to_local(grad_placements=[Replicate()])
+        out = reduce_from_tp(out + copy_to_tp(sg, group).to(part.dtype)
+                             * part, group)
+    else:       # DTensor reduced (or laid out) the shared expert itself
+        full_sh = sh.redistribute(tp_mesh, [Replicate()]).to_local()
+        out = reduce_from_tp(out, group) + sg.to(full_sh.dtype) * full_sh
+    return DTensor.from_local(out, tp_mesh, [Replicate()], run_check=False)
 
 
 def load_balancing_loss(cfg: Qwen2MoeConfig, stats: torch.Tensor,
@@ -258,7 +345,16 @@ def apply(params, cfg: Qwen2MoeConfig, input_ids=None, *, return_aux=False,
     # rank's aux is its share of the loss they give
     aux = load_balancing_loss(cfg, batch_share(full(stats)),
                               kw.get("segment_ids"), h.shape[0] * h.shape[1])
-    return h, cache, aux / batch_ranks()
+    aux = aux / batch_ranks()
+    if is_dtensor(h):
+        # the statistics are plain (every tp rank's alike): the aux meets
+        # the DTensor loss as a replicated DTensor, so that its cotangent
+        # comes back plain
+        from torch.distributed.tensor import DTensor, Replicate
+
+        aux = DTensor.from_local(aux, h.device_mesh, [Replicate()],
+                                 run_check=False)
+    return h, cache, aux
 
 
 head_kernel = qwen2.head_kernel
@@ -272,8 +368,8 @@ init_cache = qwen2.init_cache
 
 def logical_axes(cfg: Qwen2MoeConfig) -> dict:
     """Logical-axis tuples parallel to ``init_params`` (the JAX
-    ``logical_axes``): the expert axis takes tp, which the port refuses
-    above 1 (ROADMAP A.11b)."""
+    ``logical_axes``): the expert axis takes tp (``moe_block``: each tp
+    rank its contiguous share of the experts)."""
     axes = qwen2.logical_axes(cfg)
     axes["layers"]["mlp"] = {
         "router": {"kernel": (None, "embed", None)},

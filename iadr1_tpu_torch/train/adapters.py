@@ -23,8 +23,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from iadr1_tpu_torch.core.mesh import full
+from iadr1_tpu_torch.core.mesh import full, is_dtensor
 from iadr1_tpu_torch.models.quant import (
     dequantize_kernel,
     is_quantized,
@@ -265,7 +266,14 @@ def pissa_init(params: Any, cfg: TuningConfig, niter: int = 4):
     scale) V_r^T, and the base becomes the residual W - scale * A @ B, so
     the adapter starts exactly at the principal component.  The SVD runs
     on the host in float64, seeded per kernel from its path's ``hash`` as
-    in JAX (so both packages draw alike within one process)."""
+    in JAX (so both packages draw alike within one process).
+
+    On a mesh (DTensor leaves) each target kernel is gathered whole, one
+    at a time, and rank 0 alone computes its factors and residual and
+    broadcasts them, so every rank holds bitwise the same (a path's
+    ``hash`` differs between processes); the residual is placed as its
+    kernel was, and the adapters come back whole, for the caller to place
+    by ``lora_logical_axes``."""
     if cfg.use_dora:
         raise ValueError("pissa_init + use_dora is unsupported (as in peft)")
     scale = cfg.lora_scale
@@ -284,28 +292,58 @@ def pissa_init(params: Any, cfg: TuningConfig, niter: int = 4):
         return torch.from_numpy(np.ascontiguousarray(x)).to(
             dtype=like.dtype, device=like.device)
 
-    def make(p, leaf):
-        if (leaf is None or is_quantized(leaf) or not p.endswith("kernel")
-                or _target_name(p) not in cfg.lora_target):
-            return None
+    def compute(p, leaf):
         w = leaf.detach().float().cpu().numpy()
         if leaf.dim() == 2:
             outs = [factor(w, abs(hash(p)) % (2 ** 31))]
-        elif leaf.dim() == 3:
+        else:
             outs = [factor(w[i], (abs(hash(p)) + i) % (2 ** 31))
                     for i in range(leaf.shape[0])]
-        else:
-            return None
         a, b, res = (np.stack([o[j] for o in outs]) for j in range(3))
         if leaf.dim() == 2:
             a, b, res = a[0], b[0], res[0]
-        residual_by_path[p] = back(res, leaf)
-        return {"a": back(a, leaf), "b": back(b, leaf)}
+        return back(a, leaf), back(b, leaf), back(res, leaf)
+
+    def make(p, leaf):
+        if (leaf is None or is_quantized(leaf) or not p.endswith("kernel")
+                or _target_name(p) not in cfg.lora_target
+                or leaf.dim() not in (2, 3)):
+            return None
+        if not is_dtensor(leaf):
+            a, b, res = compute(p, leaf)
+            residual_by_path[p] = res
+            return {"a": a, "b": b}
+        whole = full(leaf.detach())
+        *lead, n_in, n_out = whole.shape
+        r = min(cfg.lora_rank, n_in, n_out)
+        if dist.get_rank() == 0:
+            a, b, res = compute(p, whole)
+        else:
+            a = whole.new_empty((*lead, n_in, r))
+            b = whole.new_empty((*lead, r, n_out))
+            res = torch.empty_like(whole)
+        for t in (a, b, res):
+            dist.broadcast(t, src=0)
+        del whole
+        residual_by_path[p] = place_like(res, leaf)
+        return {"a": a, "b": b}
 
     lora = _map_with_path(make, params)
     residual = _map_with_path(lambda p, leaf: residual_by_path.get(p, leaf),
                               params)
     return lora, residual
+
+
+def place_like(whole: torch.Tensor, like):
+    """``whole`` (the same on every rank) as a DTensor placed as ``like``:
+    each rank keeps a copy of its own shard."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    d = distribute_tensor(whole, like.device_mesh, like.placements,
+                          src_data_rank=None)
+    return DTensor.from_local(d.to_local().clone(), like.device_mesh,
+                              d.placements, run_check=False, shape=d.shape,
+                              stride=d.stride())
 
 
 def merge_lora(params: Any, lora: Any, cfg: TuningConfig,

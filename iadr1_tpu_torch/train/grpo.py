@@ -54,7 +54,6 @@ from iadr1_tpu_torch.core.mesh import (
 )
 from iadr1_tpu_torch.models.qwen2 import ckpt
 from iadr1_tpu_torch.models.registry import GRPO_NOT_YET_PORTED
-from iadr1_tpu_torch.train.adapters import lora_logical_axes
 from iadr1_tpu_torch.train.optimizers import global_norm
 from iadr1_tpu_torch.train.rollout import (
     RolloutEngine,
@@ -62,7 +61,7 @@ from iadr1_tpu_torch.train.rollout import (
     cast_dense_params,
     mesh_tp,
     rollout_copy,
-    tp_local_params,
+    tp_local_lora,
 )
 from iadr1_tpu_torch.train.sft import (
     batch_to_device,
@@ -619,11 +618,10 @@ class GRPOTrainer:
         base, lora = self.ref_params, self.state.params
         if self._tp is not None:
             tcfg = getattr(self.bundle.cfg, "text", self.bundle.cfg)
-            axes = self.bundle.logical_axes()
-            return rollout_copy(self.bundle, base, self._tp), {
-                "lora": tp_local_params(lora, lora_logical_axes(lora, axes),
-                                        tcfg, self._tp.rank, self._tp.size,
-                                        dtype)}
+            copy = rollout_copy(self.bundle, base, self._tp)
+            return copy, {"lora": tp_local_lora(
+                lora, base, copy, self.bundle.logical_axes(), tcfg,
+                self._tp, dtype, self.engine.lora_scale)}
         if kernel_mesh() is not None:
             base = cast_dense_params(base, dtype)
         return base, {"lora": cast_dense_params(lora, dtype)}

@@ -24,7 +24,10 @@ decodes with explicit collectives (``core/tensor_parallel.py``, the
 Megatron layout: an all-reduce after o and after down, a masked lookup
 and an all-reduce for the vocabulary-sharded embedding, an all-gather of
 the last position's vocabulary-sharded logits before the sampler), its KV
-cache holding only its own KV heads.  Every tp rank then draws the same
+cache holding only its own KV heads; where tp does not divide the heads,
+an MLP, a quant dict's blocks or the vocabulary, the first ranks take one
+more, the MoE's experts split the same way, and DoRA's column norms are
+fixed once a copy (``tp_local_lora``).  Every tp rank then draws the same
 tokens from the same generator.  The vision tower is gathered whole and
 runs on every rank: it is under 1 GB in the tp recipes (CLIP-L-336 for
 LLaVA-NeXT-34B, the Qwen2.5-VL tower for 72B), as ``compute_view`` also
@@ -50,9 +53,15 @@ from iadr1_tpu_torch.core.mesh import (
     logical_to_spec,
     mesh_shape,
 )
-from iadr1_tpu_torch.core.tensor_parallel import MeshTP, tp_group, tp_scope
+from iadr1_tpu_torch.core.tensor_parallel import (
+    MeshTP,
+    split_range,
+    tp_group,
+    tp_scope,
+)
 from iadr1_tpu_torch.models import qwen2
 from iadr1_tpu_torch.models.quant import is_quantized, quantized_shape
+from iadr1_tpu_torch.train.adapters import lora_logical_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,71 +151,140 @@ def cast_dense_params(params: dict, dtype) -> dict:
 _KV_LEAVES = ("attn/k/", "attn/v/")
 
 
+def _mlp_units(tree, path: str = "", out=None) -> dict:
+    """{the path of a dict holding an MLP's "down": the rows of one unit of
+    its MLP split}: a quantized down kernel's block rows (a rank takes
+    whole blocks, and its gate and up columns follow them), 1 otherwise."""
+    out = {} if out is None else out
+    if not isinstance(tree, dict) or is_quantized(tree):
+        return out
+    down = tree.get("down")
+    if isinstance(down, dict) and is_quantized(down.get("kernel")):
+        qk = down["kernel"]
+        # int8's scales are per column: no blocks along the rows
+        out[path] = (1 if "qvalues" in qk else
+                     quantized_shape(qk)[-2] // qk["scales"].shape[-2])
+    for k, v in tree.items():
+        _mlp_units(v, f"{path}/{k}" if path else k, out)
+    return out
+
+
+def tp_head_share(H: int, Hkv: int, size: int, rank: int):
+    """(first query head, count, KV heads or None) of tp rank ``rank``:
+    whole query heads by ``split_range``; None where the KV heads divide
+    by tp (each rank its Hkv / tp), else the KV heads this rank's query
+    heads read, each once where they serve equally many of them, else one
+    a query head (GQA group 1)."""
+    q_first, q_count = split_range(H, size, rank)
+    if Hkv % size == 0:
+        return q_first, q_count, None
+    group = H // Hkv
+    wanted = [(q_first + j) // group for j in range(q_count)]
+    kept = sorted(set(wanted))
+    return q_first, q_count, (kept if len({wanted.count(h) for h in kept})
+                              == 1 else wanted)
+
+
 def tp_local_params(params: dict, axes: dict, text_cfg, rank: int,
-                    size: int, dtype) -> dict:
+                    size: int, dtype, base: dict | None = None) -> dict:
     """tp rank ``rank``'s rollout copy of ``params`` (DTensors on a mesh,
     or plain tensors: a replicated quantized base, one process's whole
-    tree), as plain tensors: the text decoder's leaves keep the slice of
-    their tp dim (the dim whose logical axis ``axes`` maps to tp; a DTensor
-    gathered over dp and fsdp only), every other leaf (the towers, the
-    projector) whole.  Dense kernels and biases are cast to ``dtype`` as
-    ``cast_dense_params`` casts them.  ``axes`` is the logical-axis tree
-    parallel to ``params`` (``bundle.logical_axes()``, or
-    ``train/adapters.py lora_logical_axes`` for an adapter tree).
+    tree), as plain tensors: the text decoder's leaves keep their share of
+    their tp dim (the dim whose logical axis ``axes`` maps to tp), every
+    other leaf (the towers, the projector) whole.  Dense kernels and
+    biases are cast to ``dtype`` as ``cast_dense_params`` casts them.
+    ``axes`` is the logical-axis tree parallel to ``params``
+    (``bundle.logical_axes()``, or ``train/adapters.py lora_logical_axes``
+    for an adapter tree, whose ``base`` then fixes the MLP's split).
 
-    A quant dict is sliced field by field: along out for a
-    column-parallel kernel, along in (its packed rows and block scales)
-    for a row-parallel one.  When the KV heads do not divide by tp each
-    rank keeps the KV heads its query heads read (replicated, as the
-    flash rule replicates them in training).  A split the layout cannot
-    make raises naming ROADMAP A.11b: query heads, a vocabulary, an MLP
-    width or a quant block that does not divide by tp, and DoRA (its
-    column norms of a row-parallel kernel would need a reduce of their
-    own)."""
+    The shares (``core.tensor_parallel.split_range``: contiguous, the
+    first ranks one more where tp does not divide): whole query heads; an
+    MLP's columns and rows, in whole quant blocks of its down kernel where
+    that is quantized in blocks; the MoE's experts.  Each rank keeps the
+    KV heads its query heads read (replicated where the KV heads do not
+    divide, as the flash rule replicates them in training).  A vocabulary
+    takes shares of ceil(V / tp) rows (the last ones shorter), each padded
+    with zero rows to that length: the embedding's masked lookup then
+    reads rank r's rows from r * ceil(V / tp), and ``qwen2.logits`` trims
+    the gathered padding.  A quant dict is sliced field by field: along
+    out for a column-parallel kernel, along in (its packed rows and block
+    scales) for a row-parallel one.  A DTensor whose split is not its own
+    shard is gathered whole, one leaf at a time, then sliced.  DoRA's
+    magnitudes slice as their columns; ``tp_local_lora`` adds the column
+    norms they divide by."""
     H, Hkv = text_cfg.num_attention_heads, text_cfg.num_key_value_heads
     D = text_cfg.head_dim_
-    if H % size:
-        raise NotImplementedError(
-            f"a tp rollout needs the {H} query heads to divide by tp={size} "
-            "(ROADMAP A.11b)")
-    kv_heads = None
-    if Hkv % size:
-        local_q, group = H // size, H // Hkv
-        wanted = [(rank * local_q + j) // group for j in range(local_q)]
-        kept = sorted(set(wanted))
-        # each kept KV head serves the same number of local query heads:
-        # keep them once; else one KV head per query head (group 1)
-        kv_heads = kept if len({wanted.count(h) for h in kept}) == 1 \
-            else wanted
-
-    def fail(what):
-        raise NotImplementedError(
-            f"a tp rollout cannot split {what} over tp={size} "
-            "(ROADMAP A.11b)")
-
-    def chunk(t, dim, what):
-        if t.shape[dim] % size:
-            fail(f"{what} {tuple(t.shape)} along dim {dim}")
-        n = t.shape[dim] // size
-        return t.narrow(dim, rank * n, n)
+    q_first, q_count, kv_heads = tp_head_share(H, Hkv, size, rank)
+    units = _mlp_units(params if base is None else base)
 
     def select_kv(t):
         lead = t.shape[:-1]
         return t.reshape(*lead, Hkv, D)[..., kv_heads, :].reshape(*lead, -1)
 
-    def keep_tp(t, dim):
-        """A leaf's slice of its tp dim (``dim``, None: whole)."""
-        if is_dtensor(t):
-            if dim is None:
-                return full(t)
-            from torch.distributed.tensor import Replicate
+    def share(name, length, path):
+        """(first, count, padded length) of this rank along a tp dim of
+        ``length`` whose logical axis is ``name``."""
+        if name == "vocab":
+            per = -(-length // size)
+            first = min(rank * per, length)
+            return first, min(per, length - first), per
+        if name == "heads":
+            n = Hkv if any(k in path for k in _KV_LEAVES) else H
+            if length != n * D:
+                raise ValueError(f"{path}: a heads dim of {length} is not "
+                                 f"{n} heads of {D}")
+            # the KV heads divide here (else each rank selects its own)
+            first, count = ((q_first, q_count) if n == H
+                            else split_range(Hkv, size, rank))
+            return first * D, count * D, count * D
+        unit = 1
+        if name == "mlp":
+            parent = path.split("/")
+            # the MLP dict: the leaf's path less its projection's name and
+            # its "kernel" (and an adapter factor's name)
+            while parent and parent[-1] not in ("gate", "up", "down"):
+                parent.pop()
+            unit = units.get("/".join(parent[:-1]), 1)
+        if length % unit:
+            raise ValueError(f"{path}: {length} rows are not whole quant "
+                             f"blocks of {unit}")
+        first, count = split_range(length // unit, size, rank)
+        return first * unit, count * unit, count * unit
 
-            mesh = t.device_mesh
-            placements = [p if name == "tp" else Replicate()
-                          for name, p in zip(mesh.mesh_dim_names,
-                                             t.placements)]
-            return t.redistribute(mesh, placements).to_local()
-        return t if dim is None else chunk(t, dim, "a leaf")
+    def narrow(t, dim, first, count, total, field=""):
+        """``t``'s [first, first + count) of ``total`` along ``dim``, for a
+        quant field in its own units (packed rows, block scales)."""
+        n = t.shape[dim]
+        if n == total:
+            return t.narrow(dim, first, count)
+        if n == 1 and field in ("scales", "zeros"):
+            return t                     # int8's per-column scales
+        step = total // n
+        if total % n or first % step or count % step:
+            raise ValueError(f"the quant field {field} {tuple(t.shape)} "
+                             f"cannot give rows [{first}, {first + count}) "
+                             f"of {total}")
+        return t.narrow(dim, first // step, count // step)
+
+    def pad(t, dim, length):
+        if t.shape[dim] == length:
+            return t
+        shape = list(t.shape)
+        shape[dim] = length - t.shape[dim]
+        return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+    def keep_own_shard(t, dim, name):
+        """A DTensor's tp shard, when it is this rank's share; else None."""
+        length = t.shape[dim]
+        if not is_dtensor(t) or not (length % size == 0 or name == "vocab"):
+            return None
+        from torch.distributed.tensor import Replicate
+
+        mesh = t.device_mesh
+        placements = [p if mesh_name == "tp" else Replicate()
+                      for mesh_name, p in zip(mesh.mesh_dim_names,
+                                              t.placements)]
+        return t.redistribute(mesh, placements).to_local()
 
     def leaf(t, ax, path, in_text, cast):
         if t is None:
@@ -220,12 +298,21 @@ def tp_local_params(params: dict, axes: dict, text_cfg, rank: int,
             t = {k: select_kv(v) for k, v in t.items()}
         elif kv:
             t = select_kv(full(t.detach()))
-        elif is_quantized(t):
-            t = {k: (v if dim is None or (k == "scales" and v.shape[dim] == 1)
-                     else chunk(v, dim, f"the quant field {k}"))
-                 for k, v in t.items()}
+        elif dim is None:
+            t = t if is_quantized(t) else full(t.detach())
         else:
-            t = keep_tp(t.detach(), dim)
+            name = ax[dims[0]]
+            length = (quantized_shape(t) if is_quantized(t)
+                      else t.shape)[dim]
+            first, count, padded = share(name, length, path)
+            if is_quantized(t):
+                t = {k: narrow(v, dim, first, count, length, k)
+                     for k, v in t.items()}
+            else:
+                own = keep_own_shard(t.detach(), dim, name)
+                if own is None:
+                    own = narrow(full(t.detach()), dim, first, count, length)
+                t = pad(own, dim, padded)
         if is_quantized(t):
             return t
         return (t.to(dtype) if cast else t).contiguous()
@@ -234,8 +321,6 @@ def tp_local_params(params: dict, axes: dict, text_cfg, rank: int,
         if node is None:
             return None
         if isinstance(node, dict) and not is_quantized(node):
-            if "m" in node and "a" in node:
-                fail("DoRA's magnitudes")
             dense_node = "kernel" in node and not path.endswith("lm_head")
             return {k: walk(v, ax[k], f"{path}/{k}" if path else k,
                             in_text or (k == "text" and not path),
@@ -244,6 +329,40 @@ def tp_local_params(params: dict, axes: dict, text_cfg, rank: int,
 
     text_model = "text" not in params
     return walk(params, axes, "", text_model, False)
+
+
+def tp_local_lora(lora: dict, base: dict, base_copy: dict, axes: dict,
+                  text_cfg, tp, dtype, scale: float) -> dict:
+    """tp rank ``tp.rank``'s rollout copy of an adapter tree
+    (``tp_local_params`` of it, the MLP split fixed by its ``base``), with
+    DoRA's column norms of W + scale * A @ B fixed once for the copy under
+    each adapter's "norm" (``models/qwen2.py lora_dense`` divides by
+    them): they do not change during a rollout.  ``axes`` are the base's
+    logical axes; ``base_copy`` is the rank's copy of the base.  A
+    column-parallel kernel's norms are whole on the rank (its columns are
+    its own); a row-parallel one's three sums over the rows are the
+    ranks' partial sums, added by one all-reduce over ``tp`` a kernel."""
+    copy = tp_local_params(lora, lora_logical_axes(lora, axes), text_cfg,
+                           tp.rank, tp.size, dtype, base=base)
+
+    def walk(node, base, ax, in_text):
+        if node is None or not isinstance(node, dict):
+            return
+        if "a" in node:                 # an adapter: DoRA's has "m"
+            if "m" not in node:
+                return
+            spec = logical_to_spec(ax) if in_text else ()
+            row_parallel = len(spec) >= 2 and spec[-2] == "tp"
+            sums = qwen2.dora_norm_sums(base, node, scale)
+            if row_parallel:
+                sums = tp.all_reduce(sums)
+            node["norm"] = qwen2.dora_norm_from_sums(sums, scale)
+            return
+        for k, v in node.items():
+            walk(v, base[k], ax[k], in_text or k == "text")
+
+    walk(copy, base_copy, axes, "text" not in base_copy)
+    return copy
 
 
 def mesh_tp():

@@ -132,11 +132,13 @@ def test_unknown_keys_and_bad_overrides_raise_as_in_jax():
 
 
 def test_options_the_port_cannot_run_yet_raise_at_use():
-    """The two tp = 4 recipes pass: the 34B LoRA SC-GRPO job on its fsdp
-    16 x tp 4 mesh (``require_ported``) and the 72B SFT family on its own
-    (``mesh_refusals``); what stays refused on a mesh (PiSSA's
-    initialization, the MoE's expert axis on tp) names ROADMAP A.11b."""
-    from types import SimpleNamespace
+    """Named for the refusals it checked until the last mesh refusals were
+    ported.  The two tp = 4 recipes pass: the 34B LoRA SC-GRPO job on its
+    fsdp 16 x tp 4 mesh (``require_ported``), with PiSSA's initialization
+    too, and the 72B SFT job on its own; the MoE's experts take the
+    recipes' tp axis (``models/qwen2_moe.py moe_block``)."""
+    from iadr1_tpu_torch.core.mesh import logical_to_spec
+    from iadr1_tpu_torch.models import qwen2_moe
 
     by_name = {os.path.basename(p): p for p in CONFIGS}
     job = config.load_config(train_grpo.GRPOJobConfig,
@@ -146,8 +148,7 @@ def test_options_the_port_cannot_run_yet_raise_at_use():
     tuning = train_grpo.tuning_config(job)
     assert (tuning.lora_rank, tuning.lora_alpha) == (16, 32.0)
     job.finetuning.pissa_init = True
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        train_grpo.require_ported(job)
+    train_grpo.require_ported(job)      # PiSSA on a mesh: ported
     job.finetuning.pissa_init = False
     job.finetuning.finetuning_type = "full"
     train_grpo.require_ported(job)
@@ -165,11 +166,14 @@ def test_options_the_port_cannot_run_yet_raise_at_use():
     train_sft.require_ported(sft)
     recipe_mesh = dataclasses.asdict(sft.mesh)
     assert recipe_mesh == {"dp": 1, "fsdp": 16, "tp": 4}
-    for family in ("qwen2_5_vl", "llava_next"):     # the two recipes'
-        train_sft.mesh_refusals(SimpleNamespace(family=family), recipe_mesh)
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        train_sft.mesh_refusals(SimpleNamespace(family="qwen2_moe"),
-                                recipe_mesh)
+    # the MoE on the recipes' mesh: its experts over tp, their hidden dim
+    # over fsdp, as JAX's rules place them
+    experts = qwen2_moe.logical_axes(qwen2_moe.Qwen2MoeConfig())[
+        "layers"]["mlp"]["experts"]
+    assert logical_to_spec(experts["gate"]["kernel"]) == (
+        None, "tp", "fsdp", None)
+    assert logical_to_spec(experts["down"]["kernel"]) == (
+        None, "tp", None, "fsdp")
     # ... on 64 processes: in one, building its mesh says how to launch it
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 64"):
         build_mesh(mesh_config(sft.mesh))

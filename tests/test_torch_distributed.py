@@ -25,8 +25,12 @@ where the JAX package has the step at that mesh, to the JAX CLI run on
 * one update of every optimizer at fsdp = 2, (2, 2, 1) and (1, 2, 2);
 * a global batch's placements and each rank's rows at (1, 2, 2);
 * a checkpoint saved on 2 ranks, byte for byte the one-process file, and
-  restored onto the mesh and onto one process; the HF export likewise;
-* the refusals that name ROADMAP A.11b (the MoE's expert axis on tp).
+  restored onto the mesh and onto one process; the HF export likewise.
+
+The file's mesh runs are four spawned jobs of 2 and 4 processes
+(``torch_mesh_runs.MeshJobs``), run one after another from the module's
+start, beside the tests' one-process and JAX references; each case stays
+its own test.  The MoE at tp > 1 is tests/test_torch_mesh_moe_pissa_chain.py's.
 
 Each stated tolerance is about 3x the largest sound reading, which the
 constants below name.
@@ -34,8 +38,8 @@ constants below name.
 
 import functools
 import json
+import os
 
-import numpy as np
 import pytest
 import torch
 
@@ -46,32 +50,108 @@ from helpers import (
     build_tiny_vlm_checkpoint,
 )
 from iadr1_tpu_torch.models import registry
+from iadr1_tpu_torch.train.state import tree_leaves
 import torch_mesh_worker
 from torch_mesh_runs import (  # noqa: F401  (f32_port is a fixture)
     LOSS_RTOL,
+    MeshJobs,
     _assert_logs_close,
     _assert_params_close,
     _final_params,
     _jax_cli,
-    _port_on_mesh,
+    _log,
     _port_one_process,
+    cli_job,
     f32_port,
-    run_ranks,
 )
 import torch_threads  # noqa: F401  (one intra-op thread)
+
+KERNEL_MESHES = {"fsdp2": (1, 2, 1), "tp2": (1, 1, 2)}
+SFT_MESHES = {"fsdp2": {"dp": 1, "fsdp": 2, "tp": 1},
+              "fsdp2_tp2": {"dp": 1, "fsdp": 2, "tp": 2}}
+DPO_MESHES = {"fsdp2": {"dp": 1, "fsdp": 2, "tp": 1},
+              "tp2": {"dp": 1, "fsdp": 1, "tp": 2}}
+FSDP2 = {"dp": 1, "fsdp": 2, "tp": 1}
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    """Every case's inputs, the same for the mesh runs and the tests'
+    references."""
+    root = tmp_path_factory.mktemp("inputs")
+    torch.save(_kernel_inputs(), root / "kernels.pt")
+    params, axes, grads = _opt_tree()
+    torch.save({"params": params, "axes": axes, "grads": grads},
+               root / "optim.pt")
+    gen = torch.Generator().manual_seed(9)
+    torch.save({"params": params, "axes": axes,
+                "mu": [torch.randn(p.shape, generator=gen)
+                       for p in tree_leaves(params)]}, root / "ckpt.pt")
+    (root / "pairs.json").write_text(json.dumps(_pairs()))
+    return {"root": root,
+            "vlm": build_tiny_vlm_checkpoint(str(root / "vlm")),
+            "moe": build_tiny_moe_checkpoint(str(root / "moe")),
+            "sft": build_iad_sft_dataset(root / "sft"),
+            "rl": build_iad_rl_dataset(root / "rl")}
+
+
+@pytest.fixture(scope="module")
+def jobs(inputs, tmp_path_factory):
+    """The file's mesh runs (``MeshJobs``), one after another from the
+    module's start."""
+    root = tmp_path_factory.mktemp("mesh")
+    i = inputs["root"]
+
+    def out(name):
+        return root / f"{name}_out"
+
+    kernels = [{"name": f"kernels_{m}", "case": "kernels",
+                "args": {"mesh": list(KERNEL_MESHES[m]),
+                         "inputs": str(i / "kernels.pt")}}
+               for m in KERNEL_MESHES]
+    optim = {m: {"name": f"optim_{m}", "case": "optimizer",
+                 "args": {"mesh": list(mesh), "inputs": str(i / "optim.pt"),
+                          "optims": {n: _optim_cfg(n) for n in OPTIMIZERS}}}
+             for m, mesh in OPTIMIZER_MESHES.items()}
+
+    def sft(mesh_id):
+        return cli_job(f"sft_{mesh_id}", "train_sft", SFT_MESHES[mesh_id],
+                       _sft_cfg(inputs["vlm"], *inputs["sft"],
+                                out(f"sft_{mesh_id}")), root)
+
+    # one job at a time, in the order the tests read them
+    runs = MeshJobs(root, [
+        (2, [*kernels, sft("fsdp2")]),
+        (4, [sft("fsdp2_tp2")]),
+        (2, [cli_job("do_predict", "train_sft", FSDP2,
+                     _predict_cfg(inputs, out("do_predict")), root),
+             cli_job("moe", "train_sft", FSDP2,
+                     _moe_cfg(inputs, out("moe")), root),
+             cli_job("grpo", "train_grpo", FSDP2,
+                     _grpo_cfg(inputs, out("grpo")), root,
+                     record_tokens=True, length_reward=True),
+             *(cli_job(f"dpo_{m}", "train_pref", DPO_MESHES[m],
+                       _dpo_cfg(inputs, out(f"dpo_{m}")), root)
+               for m in DPO_MESHES),
+             optim["fsdp2"],
+             {"name": "checkpoint", "case": "checkpoint",
+              "args": {"mesh": [1, 2, 1], "inputs": str(i / "ckpt.pt"),
+                       "dir": str(out("checkpoint")), "hf": TINY_QWEN2,
+                       "export": str(out("export"))}}]),
+        (4, [optim["dp2_fsdp2"], optim["fsdp2_tp2"],
+             {"name": "batch", "case": "batch",
+              "args": {"mesh": [1, 2, 2]}}])])
+    runs.outputs = out
+    yield runs
+    runs.close()
+
 
 # ---------------------------------------------------------------------------
 # the kernels' sharding rule
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mesh", [(1, 2, 1), (1, 1, 2)],
-                         ids=["fsdp2", "tp2"])
-def test_the_kernel_twins_behind_the_rule_equal_the_unsharded_calls(
-        mesh, tmp_path):
-    from iadr1_tpu_torch.kernels.decode_attention import decode_attention
-    from iadr1_tpu_torch.kernels.flash_attention import flash_attention
-
+def _kernel_inputs():
     gen = torch.Generator().manual_seed(3)
     B, H, Hkv, T, D, S = 4, 4, 2, 40, 64, 48
 
@@ -83,16 +163,24 @@ def test_the_kernel_twins_behind_the_rule_equal_the_unsharded_calls(
     seg[3, 30:] = 0
     cseg = (torch.arange(S)[None] < torch.tensor([[40], [33], [20], [45]])
             ).to(torch.int32)
-    inputs = {"q": rnd(B, H, T, D), "k": rnd(B, Hkv, T, D),
-              "v": rnd(B, Hkv, T, D), "seg": seg, "do": rnd(B, H, T, D),
-              "dlse": rnd(B, H, T), "dq": rnd(B, H, D),
-              "ck": rnd(B, Hkv, S, D), "cv": rnd(B, Hkv, S, D),
-              "cseg": cseg, "length": 45}
-    torch.save(inputs, tmp_path / "inputs.pt")
-    results = run_ranks("kernels", int(np.prod(mesh)), tmp_path / "ranks",
-                        {"mesh": list(mesh),
-                         "inputs": str(tmp_path / "inputs.pt")})
+    return {"q": rnd(B, H, T, D), "k": rnd(B, Hkv, T, D),
+            "v": rnd(B, Hkv, T, D), "seg": seg, "do": rnd(B, H, T, D),
+            "dlse": rnd(B, H, T), "dq": rnd(B, H, D),
+            "ck": rnd(B, Hkv, S, D), "cv": rnd(B, Hkv, S, D),
+            "cseg": cseg, "length": 45}
 
+
+@pytest.mark.parametrize("mesh_id", list(KERNEL_MESHES))
+def test_the_kernel_twins_behind_the_rule_equal_the_unsharded_calls(
+        mesh_id, jobs):
+    from iadr1_tpu_torch.kernels.decode_attention import decode_attention
+    from iadr1_tpu_torch.kernels.flash_attention import flash_attention
+
+    mesh = KERNEL_MESHES[mesh_id]
+    inputs = _kernel_inputs()
+    seg, cseg = inputs["seg"], inputs["cseg"]
+    B, H, T, D = inputs["q"].shape
+    Hkv, S = inputs["ck"].shape[1:3]
     q, k, v = (inputs[n].clone().requires_grad_() for n in ("q", "k", "v"))
     out, lse = flash_attention(q, k, v, segment_ids=seg, kv_segment_ids=seg,
                                causal=True)
@@ -101,8 +189,10 @@ def test_the_kernel_twins_behind_the_rule_equal_the_unsharded_calls(
             "dv": v.grad,
             "decode": decode_attention(inputs["dq"], inputs["ck"],
                                        inputs["cv"], cseg, 45)}
+    job = f"kernels_{mesh_id}"
+    results = jobs.result(job)
     for rank in range(len(results)):
-        got = torch.load(tmp_path / "ranks" / f"kernels{rank}.pt")
+        got = torch.load(os.path.join(jobs.out(job), f"kernels{rank}.pt"))
         for name, ref in want.items():
             assert torch.equal(got[name], ref.detach()), (rank, name)
     b, h, hkv = B // mesh[1], H // mesh[2], Hkv // mesh[2]
@@ -120,11 +210,6 @@ def test_the_kernel_twins_behind_the_rule_equal_the_unsharded_calls(
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def vlm_checkpoint(tmp_path_factory):
-    return build_tiny_vlm_checkpoint(str(tmp_path_factory.mktemp("vlm")))
-
-
 def _sft_cfg(ckpt, data, img_dir, out_dir):
     return {"model": {"model_name_or_path": ckpt},
             "data": {"dataset": data, "image_dir": img_dir,
@@ -137,24 +222,22 @@ def _sft_cfg(ckpt, data, img_dir, out_dir):
                       "batch_size": 4, "logging_steps": 1, "save_steps": 0}}
 
 
-@pytest.mark.parametrize("mesh", [{"dp": 1, "fsdp": 2, "tp": 1},
-                                  {"dp": 1, "fsdp": 2, "tp": 2}],
-                         ids=["fsdp2", "fsdp2_tp2"])
+@pytest.mark.parametrize("mesh_id", list(SFT_MESHES))
 def test_sft_cli_on_a_mesh_matches_one_process_and_jax(
-        mesh, vlm_checkpoint, f32_port, monkeypatch, tmp_path):
-    data, img_dir = build_iad_sft_dataset(tmp_path)
-    cfg = functools.partial(_sft_cfg, vlm_checkpoint, data, img_dir)
-    ranks, got = _port_on_mesh("train_sft", mesh, cfg(tmp_path / "mesh"),
-                               tmp_path, "mesh")
+        mesh_id, inputs, jobs, f32_port, monkeypatch, tmp_path):
+    mesh = SFT_MESHES[mesh_id]
+    cfg = functools.partial(_sft_cfg, inputs["vlm"], *inputs["sft"])
     one = _port_one_process("train_sft", cfg(tmp_path / "one"),
                             tmp_path / "one.json")
     jax_log = _jax_cli(monkeypatch, "train_sft", mesh,
                        cfg(tmp_path / "jax"), tmp_path / "jax.json")
+    ranks = jobs.result(f"sft_{mesh_id}")
+    got = _log(jobs.outputs(f"sft_{mesh_id}"))
     keys = ("loss", "accuracy", "n_label_tokens", "grad_norm")
     _assert_logs_close(got, one, keys, LOSS_RTOL)
     _assert_logs_close(got, jax_log, keys, LOSS_RTOL)
     assert got[-1]["loss"] < got[0]["loss"]
-    _assert_params_close(_final_params(tmp_path / "mesh"),
+    _assert_params_close(_final_params(jobs.outputs(f"sft_{mesh_id}")),
                          _final_params(tmp_path / "one"))
     for r in ranks:
         assert r["mesh"] == mesh
@@ -172,83 +255,76 @@ def test_sft_cli_on_a_mesh_matches_one_process_and_jax(
         assert all(q[1] == 2 for q, _, _ in shapes)
 
 
+def _predict_cfg(inputs, out_dir):
+    c = _sft_cfg(inputs["vlm"], *inputs["sft"], out_dir)
+    c["optim"]["learning_rate"] = 0.0
+    c["train"]["max_steps"] = 1
+    c["predict"] = {"do_predict": True, "max_samples": 3,
+                    "max_new_tokens": 6, "batch_size": 2}
+    return c
+
+
 def test_do_predict_on_a_mesh_writes_the_one_process_files(
-        vlm_checkpoint, f32_port, tmp_path):
+        inputs, jobs, f32_port, tmp_path):
     """``predict.do_predict`` at fsdp = 2 (learning rate 0): every rank
     gathers the parameters, rank 0 generates off the mesh; its
     generated_predictions.jsonl and predict_results.json are the
     one-process run's byte for byte."""
-    data, img_dir = build_iad_sft_dataset(tmp_path)
-
-    def cfg(out_dir):
-        c = _sft_cfg(vlm_checkpoint, data, img_dir, out_dir)
-        c["optim"]["learning_rate"] = 0.0
-        c["train"]["max_steps"] = 1
-        c["predict"] = {"do_predict": True, "max_samples": 3,
-                        "max_new_tokens": 6, "batch_size": 2}
-        return c
-
-    _port_on_mesh("train_sft", {"dp": 1, "fsdp": 2, "tp": 1},
-                  cfg(tmp_path / "mesh"), tmp_path, "mesh")
-    _port_one_process("train_sft", cfg(tmp_path / "one"),
+    _port_one_process("train_sft", _predict_cfg(inputs, tmp_path / "one"),
                       tmp_path / "one.json")
+    jobs.result("do_predict")
     for name in ("generated_predictions.jsonl", "predict_results.json"):
-        got, want = (open(tmp_path / side / name, "rb").read()
-                     for side in ("mesh", "one"))
+        got, want = (open(side / name, "rb").read() for side in (
+            jobs.outputs("do_predict"), tmp_path / "one"))
         assert got == want, name
     assert len(want) and len(open(tmp_path / "one" / (
         "generated_predictions.jsonl")).readlines()) == 3
 
 
+def _moe_cfg(inputs, out_dir):
+    c = _sft_cfg(inputs["moe"], *inputs["sft"], out_dir)
+    c["data"]["template"] = "qwen"
+    return c
+
+
 def test_moe_sft_with_its_router_loss_at_fsdp2_matches_one_process(
-        f32_port, tmp_path):
+        inputs, jobs, f32_port, tmp_path):
     """The router's load-balancing loss is a global statistic: the ranks
     pool their routings before the loss (``core.mesh.batch_share``)."""
-    ckpt = build_tiny_moe_checkpoint(str(tmp_path / "moe"))
-    data, img_dir = build_iad_sft_dataset(tmp_path)
-
-    def cfg(out_dir):
-        c = _sft_cfg(ckpt, data, img_dir, out_dir)
-        c["data"]["template"] = "qwen"
-        return c
-
-    mesh = {"dp": 1, "fsdp": 2, "tp": 1}
-    _, got = _port_on_mesh("train_sft", mesh, cfg(tmp_path / "mesh"),
-                           tmp_path, "mesh")
-    one = _port_one_process("train_sft", cfg(tmp_path / "one"),
+    one = _port_one_process("train_sft", _moe_cfg(inputs, tmp_path / "one"),
                             tmp_path / "one.json")
+    jobs.result("moe")
+    got = _log(jobs.outputs("moe"))
     _assert_logs_close(got, one, ("loss", "aux_loss", "grad_norm"),
                        LOSS_RTOL)
     assert all(r["aux_loss"] > 0 for r in got)
-    _assert_params_close(_final_params(tmp_path / "mesh"),
+    _assert_params_close(_final_params(jobs.outputs("moe")),
                          _final_params(tmp_path / "one"))
 
 
+def _grpo_cfg(inputs, out_dir):
+    data, img_dir = inputs["rl"]
+    return {"model": {"model_name_or_path": inputs["vlm"],
+                      "dtype": "float32"},
+            "data": {"dataset_name": data, "image_path": img_dir,
+                     "patch_budget": 256},
+            "grpo": {"num_generations": 2, "max_prompt_length": 200,
+                     "max_completion_length": 6, "beta": 0.04},
+            "optim": {"learning_rate": 1e-3, "warmup_ratio": 0.0,
+                      "total_steps": 4},
+            "train": {"output_dir": str(out_dir), "max_steps": 2,
+                      "batch_size": 2, "logging_steps": 1,
+                      "save_steps": 0}}
+
+
 def test_grpo_cli_at_fsdp2_draws_the_one_process_tokens(
-        vlm_checkpoint, f32_port, monkeypatch, tmp_path):
-    data, img_dir = build_iad_rl_dataset(tmp_path)
-
-    def cfg(out_dir):
-        return {"model": {"model_name_or_path": vlm_checkpoint,
-                          "dtype": "float32"},
-                "data": {"dataset_name": data, "image_path": img_dir,
-                         "patch_budget": 256},
-                "grpo": {"num_generations": 2, "max_prompt_length": 200,
-                         "max_completion_length": 6, "beta": 0.04},
-                "optim": {"learning_rate": 1e-3, "warmup_ratio": 0.0,
-                          "total_steps": 4},
-                "train": {"output_dir": str(out_dir), "max_steps": 2,
-                          "batch_size": 2, "logging_steps": 1,
-                          "save_steps": 0}}
-
-    mesh = {"dp": 1, "fsdp": 2, "tp": 1}
-    ranks, got = _port_on_mesh("train_grpo", mesh, cfg(tmp_path / "mesh"),
-                               tmp_path, "mesh", record_tokens=True,
-                               length_reward=True)
+        inputs, jobs, f32_port, monkeypatch, tmp_path):
     tokens = torch_mesh_worker.record_tokens(monkeypatch.setattr)
     torch_mesh_worker.length_reward(monkeypatch.setattr)
-    one = _port_one_process("train_grpo", cfg(tmp_path / "one"),
+    one = _port_one_process("train_grpo", _grpo_cfg(inputs, tmp_path / "one"),
                             tmp_path / "one.json")
+    ranks = jobs.result("grpo")
+    got = _log(jobs.outputs("grpo"))
     # rank r decoded rows r of every step's global batch, in order
     per_rank = [r["tokens"] for r in ranks]
     for step, want in enumerate(tokens):
@@ -257,52 +333,54 @@ def test_grpo_cli_at_fsdp2_draws_the_one_process_tokens(
             "completion_length")
     _assert_logs_close(got, one, keys, LOSS_RTOL)
     assert any(r["reward_std"] > 0 for r in got)    # nonzero advantages
-    _assert_params_close(_final_params(tmp_path / "mesh"),
+    _assert_params_close(_final_params(jobs.outputs("grpo")),
                          _final_params(tmp_path / "one"))
 
 
-@pytest.mark.parametrize("mesh", [{"dp": 1, "fsdp": 2, "tp": 1},
-                                  {"dp": 1, "fsdp": 1, "tp": 2}],
-                         ids=["fsdp2", "tp2"])
-def test_dpo_through_the_launcher_on_a_mesh(mesh, vlm_checkpoint, f32_port,
-                                            monkeypatch, tmp_path):
-    rows = [{"messages": [{"role": "user",
+def _pairs():
+    return [{"messages": [{"role": "user",
                            "content": f"Are there defects in sample {i}?"}],
              "chosen": "<think>clear surface</think><answer>No</answer>",
              "rejected": {"role": "assistant",
                           "content": "maybe?" * (i + 1)}}
             for i in range(6)]
-    (tmp_path / "pairs.json").write_text(json.dumps(rows))
 
-    def cfg(out_dir):
-        return {"stage": "dpo",
-                "model": {"model_name_or_path": vlm_checkpoint},
-                "data": {"dataset_name": str(tmp_path / "pairs.json"),
-                         "template": "qwen2_vl", "cutoff_len": 96},
-                "pref": {"beta": 0.1, "ref_dtype": "float32"},
-                "optim": {"learning_rate": 1e-3, "warmup_ratio": 0.0},
-                "train": {"output_dir": str(out_dir), "max_steps": 2,
-                          "batch_size": 2, "logging_steps": 1,
-                          "save_steps": 0}}
 
-    _, got = _port_on_mesh("train_pref", mesh, cfg(tmp_path / "mesh"),
-                           tmp_path, "mesh")
-    one = _port_one_process("train_pref", cfg(tmp_path / "one"),
+def _dpo_cfg(inputs, out_dir):
+    return {"stage": "dpo",
+            "model": {"model_name_or_path": inputs["vlm"]},
+            "data": {"dataset_name": str(inputs["root"] / "pairs.json"),
+                     "template": "qwen2_vl", "cutoff_len": 96},
+            "pref": {"beta": 0.1, "ref_dtype": "float32"},
+            "optim": {"learning_rate": 1e-3, "warmup_ratio": 0.0},
+            "train": {"output_dir": str(out_dir), "max_steps": 2,
+                      "batch_size": 2, "logging_steps": 1,
+                      "save_steps": 0}}
+
+
+@pytest.mark.parametrize("mesh_id", list(DPO_MESHES))
+def test_dpo_through_the_launcher_on_a_mesh(mesh_id, inputs, jobs, f32_port,
+                                            monkeypatch, tmp_path):
+    mesh = DPO_MESHES[mesh_id]
+    one = _port_one_process("train_pref", _dpo_cfg(inputs, tmp_path / "one"),
                             tmp_path / "one.json")
     jax_log = _jax_cli(monkeypatch, "train_pref", mesh,
-                       cfg(tmp_path / "jax"), tmp_path / "jax.json")
+                       _dpo_cfg(inputs, tmp_path / "jax"),
+                       tmp_path / "jax.json")
+    jobs.result(f"dpo_{mesh_id}")
+    got = _log(jobs.outputs(f"dpo_{mesh_id}"))
     keys = ("loss", "rewards/chosen", "rewards/rejected", "rewards/margins",
             "grad_norm")
     _assert_logs_close(got, one, keys, LOSS_RTOL)
     # the JAX step logs no grad norm
     _assert_logs_close(got, jax_log, keys[:-1], LOSS_RTOL)
     assert got[-1]["loss"] < got[0]["loss"]
-    _assert_params_close(_final_params(tmp_path / "mesh"),
+    _assert_params_close(_final_params(jobs.outputs(f"dpo_{mesh_id}")),
                          _final_params(tmp_path / "one"))
 
 
 # ---------------------------------------------------------------------------
-# optimizers, checkpoints, refusals
+# optimizers, checkpoints
 # ---------------------------------------------------------------------------
 
 OPTIMIZERS = ("adamw", "sgd", "lion", "adafactor", "galore", "apollo",
@@ -343,21 +421,15 @@ OPTIMIZER_MESHES = {"fsdp2": (1, 2, 1), "dp2_fsdp2": (2, 2, 1),
 
 
 @pytest.fixture(scope="module")
-def optimizer_runs(tmp_path_factory):
+def optimizer_runs(jobs):
     """Every optimizer's one update on each mesh, one run a mesh."""
     runs = {}
 
     def run(mesh_id):
         if mesh_id not in runs:
-            tmp = tmp_path_factory.mktemp(f"optim_{mesh_id}")
-            params, axes, grads = _opt_tree()
-            torch.save({"params": params, "axes": axes, "grads": grads},
-                       tmp / "inputs.pt")
-            mesh = OPTIMIZER_MESHES[mesh_id]
-            run_ranks("optimizer", int(np.prod(mesh)), tmp / "ranks",
-                      {"mesh": list(mesh), "inputs": str(tmp / "inputs.pt"),
-                       "optims": {n: _optim_cfg(n) for n in OPTIMIZERS}})
-            runs[mesh_id] = torch.load(tmp / "ranks" / "params.pt")
+            jobs.result(f"optim_{mesh_id}")
+            runs[mesh_id] = torch.load(os.path.join(
+                jobs.out(f"optim_{mesh_id}"), "params.pt"))
         return runs[mesh_id]
 
     return run
@@ -383,26 +455,26 @@ def test_each_optimizer_updates_a_sharded_leaf_as_one_process(
         torch.testing.assert_close(g, w, rtol=0, atol=3e-7)
 
 
-def test_a_checkpoint_saved_on_two_ranks_is_the_one_process_file(tmp_path):
+TINY_QWEN2 = dict(architectures=["Qwen2ForCausalLM"], model_type="qwen2",
+                  vocab_size=128, hidden_size=64, intermediate_size=96,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, tie_word_embeddings=False)
+
+
+def test_a_checkpoint_saved_on_two_ranks_is_the_one_process_file(
+        inputs, jobs, tmp_path):
     """... restored onto the mesh and onto one process; the HF export of
     sharded parameters is the one-process export too."""
     from iadr1_tpu_torch.train.checkpoint import CheckpointManager
     from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
-    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+    from iadr1_tpu_torch.train.state import create_train_state
 
-    params, axes, _ = _opt_tree()
-    gen = torch.Generator().manual_seed(9)
-    mu = [torch.randn(p.shape, generator=gen) for p in tree_leaves(params)]
-    torch.save({"params": params, "axes": axes, "mu": mu},
-               tmp_path / "inputs.pt")
-    hf = dict(architectures=["Qwen2ForCausalLM"], model_type="qwen2",
-              vocab_size=128, hidden_size=64, intermediate_size=96,
-              num_hidden_layers=2, num_attention_heads=4,
-              num_key_value_heads=2, tie_word_embeddings=False)
-    ranks = run_ranks("checkpoint", 2, tmp_path / "ranks",
-                      {"mesh": [1, 2, 1], "inputs": str(tmp_path / "inputs.pt"),
-                       "dir": str(tmp_path / "mesh"), "hf": hf,
-                       "export": str(tmp_path / "export_mesh")})
+    params = _opt_tree()[0]
+    mu = torch.load(inputs["root"] / "ckpt.pt")["mu"]
+    hf = TINY_QWEN2
+    ranks = jobs.result("checkpoint")
+    mesh_dir, export_mesh = (jobs.outputs("checkpoint"),
+                             jobs.outputs("export"))
     assert all(r["restored"] and r["step"] == 3 and r["count"] == 3
                for r in ranks)
 
@@ -413,12 +485,12 @@ def test_a_checkpoint_saved_on_two_ranks_is_the_one_process_file(tmp_path):
             t.copy_(m)
     state.opt_state["count"] = 3
     CheckpointManager(str(tmp_path / "one")).save(3, state._replace(step=3))
-    mesh_file = (tmp_path / "mesh" / "3.safetensors").read_bytes()
+    mesh_file = (mesh_dir / "3.safetensors").read_bytes()
     assert mesh_file == (tmp_path / "one" / "3.safetensors").read_bytes()
 
     fresh = create_train_state(
         torch_mesh_worker.zeros_like_tree(_opt_tree()[0]), opt)
-    fresh = CheckpointManager(str(tmp_path / "mesh")).restore(fresh)
+    fresh = CheckpointManager(str(mesh_dir)).restore(fresh)
     for a, b in zip(tree_leaves(fresh.params), tree_leaves(state.params)):
         assert torch.equal(a, b)
     assert fresh.step == 3 and fresh.opt_state["count"] == 3
@@ -429,14 +501,14 @@ def test_a_checkpoint_saved_on_two_ranks_is_the_one_process_file(tmp_path):
     bundle = registry.bundle_from_hf_config(hf)
     save_pretrained(bundle, bundle.init_params(
         seed=0, dtype=torch.float32, device="cpu"), str(tmp_path / "export"))
-    assert ((tmp_path / "export_mesh" / "model.safetensors").read_bytes()
+    assert ((export_mesh / "model.safetensors").read_bytes()
             == (tmp_path / "export" / "model.safetensors").read_bytes())
 
 
-def test_a_global_batch_places_each_rank_s_rows(tmp_path):
+def test_a_global_batch_places_each_rank_s_rows(jobs):
     """(dp, fsdp, tp) = (1, 2, 2): the batch splits over fsdp alone, the
     tp ranks of a slice hold the same rows, the vision plans replicate."""
-    ranks = run_ranks("batch", 4, tmp_path / "ranks", {"mesh": [1, 2, 2]})
+    ranks = jobs.result("batch")
     for rank, r in enumerate(ranks):
         slice_ = rank // 2                    # the fsdp coordinate
         assert r["local"] == {"input_ids": [2, 6], "position_ids": [3, 2, 6],
@@ -447,15 +519,3 @@ def test_a_global_batch_places_each_rank_s_rows(tmp_path):
         assert r["unarmed"] and r["armed"]
         assert r["placements"] == {"w": ["R", "S(0)", "S(1)"],
                                    "n": ["R", "R", "R"]}
-
-
-def test_the_moe_expert_axis_on_tp_is_refused_naming_a11b(tmp_path):
-    ckpt = build_tiny_moe_checkpoint(str(tmp_path / "moe"))
-    data, img_dir = build_iad_sft_dataset(tmp_path)
-    cfg = _sft_cfg(ckpt, data, img_dir, tmp_path / "out")
-    cfg["mesh"] = {"dp": 1, "fsdp": 1, "tp": 2}
-    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    ranks = run_ranks("cli", 2, tmp_path / "ranks",
-                      {"cli": "train_sft", "config": str(tmp_path / "cfg.json")})
-    for r in ranks:
-        assert "A.11b" in r["refused"] and "expert" in r["refused"]

@@ -17,6 +17,9 @@ tests/torch_mesh_runs.py starts them):
   ranks under contention and when one fails.
 
 The sharded load is held in tests/test_torch_tensor_parallel_lora.py.
+The four mesh runs are spawned one after another from the module's start
+(``torch_mesh_runs.MeshJobs``), beside the one-process and JAX
+references; each case stays its own test.
 
 The JAX CLI reads two inputs as the port does: the Qwen2.5-VL tower's
 attention masked by its segments (ROADMAP C.R8) and the LLaVA image runs
@@ -35,10 +38,12 @@ from iadr1_tpu_torch.core.precision import FULL_PRECISION
 from iadr1_tpu_torch.models import registry
 from torch_mesh_runs import (
     LOSS_RTOL,
+    MeshJobs,
     _assert_logs_close,
     _jax_cli,
-    _port_on_mesh,
+    _log,
     _port_one_process,
+    cli_job,
 )
 import torch_threads  # noqa: F401  (one intra-op thread)
 
@@ -70,43 +75,56 @@ FAMILIES = {"qwen2_5_vl": (_qwen25, "qwen2_vl", 128, 64),
 FAMILY_HEADS = {"qwen2_5_vl": ((4, 2), 4), "llava_next": ((8, 2), 2)}
 
 
+def _family_cfg(family, ckpt, data, out_dir):
+    _, template, cutoff, budget = FAMILIES[family]
+    return {"model": {"model_name_or_path": ckpt},
+            "data": {"dataset": data[0], "image_dir": data[1],
+                     "template": template, "cutoff_len": cutoff,
+                     "patch_budget": budget, "min_pixels": 56 * 56,
+                     "max_pixels": 56 * 56 * 4},
+            "optim": {"learning_rate": 1e-4, "warmup_ratio": 0.0,
+                      "total_steps": 4},
+            "train": {"output_dir": str(out_dir), "max_steps": 2,
+                      "batch_size": 4, "logging_steps": 1,
+                      "save_steps": 0}}
+
+
 @pytest.fixture(scope="module")
 def family_runs(tmp_path_factory):
-    """Per family: its tiny checkpoint, dataset, config maker and the
-    one-process port run's log (made once, shared by both meshes)."""
+    """Per family: its config maker, the one-process port run's log (made
+    once, shared by both meshes), its checkpoint, and the mesh runs of
+    every family and mesh (``MeshJobs``, started with the module)."""
+    root = tmp_path_factory.mktemp("families")
+    inputs = {family: (FAMILIES[family][0](str(root / family / "ckpt")),
+                       build_iad_sft_dataset(root / family))
+              for family in FAMILIES}
+    # one job a (family, mesh), in the order the tests read them
+    jobs = MeshJobs(root, [
+        (int(np.prod(list(MESHES[mesh_id].values()))), [cli_job(
+            f"{family}_{mesh_id}", "train_sft", MESHES[mesh_id],
+            _family_cfg(family, *inputs[family],
+                        root / f"{family}_{mesh_id}_out"), root)])
+        for family in FAMILIES for mesh_id in MESHES])
     runs = {}
 
     def get(family):
         if family not in runs:
-            build, template, cutoff, budget = FAMILIES[family]
-            root = tmp_path_factory.mktemp(family)
-            ckpt = build(str(root / "ckpt"))
-            data, img_dir = build_iad_sft_dataset(root)
-
-            def cfg(out_dir):
-                return {"model": {"model_name_or_path": ckpt},
-                        "data": {"dataset": data, "image_dir": img_dir,
-                                 "template": template, "cutoff_len": cutoff,
-                                 "patch_budget": budget,
-                                 "min_pixels": 56 * 56,
-                                 "max_pixels": 56 * 56 * 4},
-                        "optim": {"learning_rate": 1e-4, "warmup_ratio": 0.0,
-                                  "total_steps": 4},
-                        "train": {"output_dir": str(out_dir), "max_steps": 2,
-                                  "batch_size": 4, "logging_steps": 1,
-                                  "save_steps": 0}}
-
+            ckpt, data = inputs[family]
+            cfg = functools.partial(_family_cfg, family, ckpt, data)
             with pytest.MonkeyPatch.context() as mp:
                 for name in ("bundle_from_hf_config",
                              "bundle_from_pretrained"):
                     mp.setattr(registry, name, functools.partial(
                         getattr(registry, name), precision=FULL_PRECISION))
-                one = _port_one_process("train_sft", cfg(root / "one"),
-                                        root / "one.json")
+                one = _port_one_process(
+                    "train_sft", cfg(root / family / "one"),
+                    root / family / "one.json")
             runs[family] = (cfg, one, ckpt)
         return runs[family]
 
-    return get
+    get.jobs, get.root = jobs, root
+    yield get
+    jobs.close()
 
 
 def _jax_reads_as_the_port(monkeypatch, family):
@@ -133,11 +151,11 @@ def test_recipe_family_sft_on_tp_matches_one_process_and_jax(
         family, mesh_id, family_runs, monkeypatch, tmp_path):
     mesh = MESHES[mesh_id]
     cfg, one, ckpt = family_runs(family)
-    ranks, got = _port_on_mesh("train_sft", mesh, cfg(tmp_path / "mesh"),
-                               tmp_path, "mesh")
     _jax_reads_as_the_port(monkeypatch, family)
     jax_log = _jax_cli(monkeypatch, "train_sft", mesh, cfg(tmp_path / "jax"),
                        tmp_path / "jax.json")
+    ranks = family_runs.jobs.result(f"{family}_{mesh_id}")
+    got = _log(family_runs.root / f"{family}_{mesh_id}_out")
     _assert_logs_close(got, one, SFT_KEYS, LOSS_RTOL)
     _assert_logs_close(got, jax_log, SFT_KEYS, LOSS_RTOL)
     assert got[-1]["loss"] != got[0]["loss"]

@@ -16,8 +16,10 @@ one-process port run in f32:
 * LongLoRA's shift-short attention over the Qwen2-VL decoder (the halves
   of the heads rolled apart).
 
-The MoE's expert axis on tp stays refused (tests/test_torch_distributed.py
-``test_the_moe_expert_axis_on_tp_is_refused_naming_a11b``).
+The MoE's experts on tp are tests/test_torch_mesh_moe_pissa_chain.py's.
+The eight mesh runs are one spawned 2-process job
+(``torch_mesh_runs.MeshJobs``), started with the module and running beside
+the one-process references; each case stays its own test.
 """
 
 import functools
@@ -33,9 +35,11 @@ from helpers import (
 from iadr1_tpu_torch.models import registry
 from torch_mesh_runs import (  # noqa: F401  (f32_port is a fixture)
     LOSS_RTOL,
+    MeshJobs,
     _assert_logs_close,
-    _port_on_mesh,
+    _log,
     _port_one_process,
+    cli_job,
     f32_port,
 )
 import torch_threads  # noqa: F401  (one intra-op thread)
@@ -107,29 +111,51 @@ CASES = {
 }
 
 
+TP2 = {"dp": 1, "fsdp": 1, "tp": 2}
+
+
+def _cfg(case, ckpt, template, data, out_dir):
+    _, cutoff, budget, model = CASES[case]
+    return {"model": {"model_name_or_path": ckpt, **model},
+            "data": {"dataset": data[0], "image_dir": data[1],
+                     "template": template, "cutoff_len": cutoff,
+                     "patch_budget": budget, "min_pixels": 56 * 56,
+                     "max_pixels": 56 * 56 * 4},
+            "optim": {"learning_rate": 1e-4, "warmup_ratio": 0.0,
+                      "total_steps": 4},
+            "train": {"output_dir": str(out_dir), "max_steps": 2,
+                      "batch_size": 4, "logging_steps": 1,
+                      "save_steps": 0}}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case's checkpoint, the dataset, and the mesh runs
+    (``MeshJobs``), started at once: {"ckpt": {case: path}, "data": ...,
+    "jobs": MeshJobs}."""
+    root = tmp_path_factory.mktemp("families")
+    data = build_iad_sft_dataset(root / "data")
+    ckpts = {case: CASES[case][0](str(root / case)) for case in CASES}
+    jobs = MeshJobs(root, [(2, [cli_job(
+        case, "train_sft", TP2, _cfg(case, ckpts[case], registry
+                                     .bundle_from_pretrained(ckpts[case])
+                                     .template, data, root / f"{case}_out"),
+        root) for case in CASES])])
+    yield {"ckpt": ckpts, "data": data, "jobs": jobs, "root": root}
+    jobs.close()
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_family_sft_at_tp2_matches_one_process(case, f32_port, tmp_path):
-    build, cutoff, budget, model = CASES[case]
-    ckpt = build(str(tmp_path / "ckpt"))
+def test_family_sft_at_tp2_matches_one_process(case, runs, f32_port,
+                                               tmp_path):
+    cutoff = CASES[case][1]
+    ckpt = runs["ckpt"][case]
     family = registry.bundle_from_pretrained(ckpt)
-    data, img_dir = build_iad_sft_dataset(tmp_path)
-
-    def cfg(out_dir):
-        return {"model": {"model_name_or_path": ckpt, **model},
-                "data": {"dataset": data, "image_dir": img_dir,
-                         "template": family.template, "cutoff_len": cutoff,
-                         "patch_budget": budget, "min_pixels": 56 * 56,
-                         "max_pixels": 56 * 56 * 4},
-                "optim": {"learning_rate": 1e-4, "warmup_ratio": 0.0,
-                          "total_steps": 4},
-                "train": {"output_dir": str(out_dir), "max_steps": 2,
-                          "batch_size": 4, "logging_steps": 1,
-                          "save_steps": 0}}
-
-    ranks, got = _port_on_mesh("train_sft", {"dp": 1, "fsdp": 1, "tp": 2},
-                               cfg(tmp_path / "mesh"), tmp_path, "mesh")
-    one = _port_one_process("train_sft", cfg(tmp_path / "one"),
-                            tmp_path / "one.json")
+    one = _port_one_process("train_sft", _cfg(
+        case, ckpt, family.template, runs["data"], tmp_path / "one"),
+        tmp_path / "one.json")
+    ranks = runs["jobs"].result(case)
+    got = _log(runs["root"] / f"{case}_out")
     _assert_logs_close(got, one, SFT_KEYS, LOSS_RTOL)
     assert got[-1]["loss"] != got[0]["loss"]
     text = getattr(family.cfg, "text", family.cfg)

@@ -29,12 +29,14 @@ LOSS_RTOL, PARAM_ATOL = 1e-5, 5e-6
 
 
 def run_ranks(case: str, world: int, out_dir, args: dict,
-              timeout: int = 240) -> list[dict]:
-    """``world`` worker processes of ``case``; every rank's result."""
+              timeout: int = 240, env: dict | None = None) -> list[dict]:
+    """``world`` worker processes of ``case``; every rank's result.
+    ``env``: variables the workers get besides the test's (a fixed
+    ``PYTHONHASHSEED``, say)."""
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     init = os.path.join(out_dir, "init")
-    env = dict(os.environ, OMP_NUM_THREADS="1", USE_TF="0",
+    env = dict(os.environ, **(env or {}), OMP_NUM_THREADS="1", USE_TF="0",
                PYTHONPATH=os.pathsep.join(
                    [os.path.dirname(WORKER)]
                    + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
@@ -61,6 +63,57 @@ def run_ranks(case: str, world: int, out_dir, args: dict,
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results
+
+
+class MeshJobs:
+    """A test module's mesh runs as a few spawned jobs
+    (``torch_mesh_worker.case_jobs``: a job's cases one after another in
+    one process group), the jobs one after another in a background thread
+    started at once, so that the module's one-process and JAX references
+    run beside them.  ``jobs`` is a list of (world size, cases), each case
+    {"name", "case", "args"}, in the order the module's tests read them;
+    ``result(name)`` waits for that case's job and returns every rank's
+    result."""
+
+    def __init__(self, root, jobs: list, env: dict | None = None,
+                 timeout: int = 600):
+        import concurrent.futures
+
+        self.root = root
+        self._dirs = {job["name"]: os.path.join(str(root),
+                                                 f"job{i}_world{world}")
+                      for i, (world, cases) in enumerate(jobs)
+                      for job in cases}
+        self._pool = concurrent.futures.ThreadPoolExecutor(1)
+        futures = [self._pool.submit(
+            run_ranks, "jobs", world, os.path.join(str(root),
+                                                   f"job{i}_world{world}"),
+            {"jobs": cases}, timeout=timeout, env=env)
+            for i, (world, cases) in enumerate(jobs)]
+        self._futures = {job["name"]: future
+                         for future, (_, cases) in zip(futures, jobs)
+                         for job in cases}
+
+    def result(self, name: str) -> list[dict]:
+        return [r[name] for r in self._futures[name].result()]
+
+    def out(self, name: str) -> str:
+        """The case's own directory (files a case writes there)."""
+        return os.path.join(self._dirs[name], name)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+
+def cli_job(name, module, mesh, cfg, root, **extra) -> dict:
+    """A ``MeshJobs`` case running CLI ``module``'s main on ``mesh`` (its
+    config written under ``root``), in f32 as ``_port_on_mesh`` runs it."""
+    cfg = dict(cfg, mesh=mesh)
+    path = os.path.join(str(root), f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return {"name": name, "case": "cli",
+            "args": {"cli": module, "config": path, "f32": True, **extra}}
 
 
 def _log(out_dir):

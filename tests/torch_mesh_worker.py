@@ -10,6 +10,7 @@ files the case names).  It imports nothing of JAX.
 """
 
 import functools
+import inspect
 import json
 import os
 import sys
@@ -22,14 +23,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 torch.set_num_threads(1)
 
 
-def _f32_compute():
+def _f32_compute(patch=setattr):
     """The registry's bundles compute in f32, as the JAX side is run."""
     from iadr1_tpu_torch.core.precision import FULL_PRECISION
     from iadr1_tpu_torch.models import registry
 
     for name in ("bundle_from_hf_config", "bundle_from_pretrained"):
-        setattr(registry, name, functools.partial(getattr(registry, name),
-                                                  precision=FULL_PRECISION))
+        patch(registry, name, functools.partial(getattr(registry, name),
+                                                precision=FULL_PRECISION))
 
 
 def _kernel_shapes() -> dict:
@@ -84,7 +85,7 @@ def length_reward(patch=setattr) -> None:
     patch(rewards, "get_reward_funcs", lambda names: [length_reward])
 
 
-def count_layer_gathers() -> list:
+def count_layer_gathers(patch=setattr) -> list:
     """Count the decoder's gathers of one layer's shards (``compute_view``
     called by models/qwen2.py on DTensors); returns the one-item count."""
     from iadr1_tpu_torch.core.mesh import is_dtensor
@@ -99,11 +100,11 @@ def count_layer_gathers() -> list:
                         for t in leaves)
         return inner(tree)
 
-    qwen2.compute_view = counted
+    patch(qwen2, "compute_view", counted)
     return count
 
 
-def record_base() -> dict:
+def record_base(patch=setattr) -> dict:
     """Snapshot (whole) the frozen base a LoRA GRPOTrainer is given, and
     compare it at the end: {"check": () -> whether it is bitwise unchanged
     on this rank}."""
@@ -128,8 +129,56 @@ def record_base() -> dict:
         return [type(t).__name__ == "DTensor"
                 for t in tree_leaves(seen["trainer"].ref_params)]
 
-    GRPOTrainer.__init__ = init
+    patch(GRPOTrainer, "__init__", init)
     return {"check": check, "sharded": sharded}
+
+
+def record_pissa(path: str, patch=setattr) -> None:
+    """Save what ``pissa_init`` gives the GRPO CLI, gathered whole, to
+    ``path``: {"lora": {name: tensor}, "residual": {name: tensor}}."""
+    from iadr1_tpu_torch.core.mesh import full
+    from iadr1_tpu_torch.train import adapters
+    from iadr1_tpu_torch.train.state import named_leaves
+
+    inner = adapters.pissa_init
+
+    def pissa_init(params, cfg, **kw):
+        lora, residual = inner(params, cfg, **kw)
+        torch.save({side: {name: full(t).detach().clone()
+                           for name, t in named_leaves(tree)}
+                    for side, tree in (("lora", lora),
+                                       ("residual", residual))}, path)
+        return lora, residual
+
+    patch(adapters, "pissa_init", pissa_init)
+
+
+def record_writes(root: str, patch=setattr) -> dict:
+    """The files this process opens for writing under ``root``, and its
+    calls of the chain's export and eval stage: {"files": [...],
+    "exports": n, "evals": n}."""
+    import builtins
+
+    from iadr1_tpu_torch.cli import pipeline
+
+    seen = {"files": [], "exports": 0, "evals": 0}
+    inner_open = builtins.open
+
+    def opened(file, mode="r", *a, **kw):
+        if any(c in mode for c in "wax") and str(file).startswith(root):
+            seen["files"].append(os.path.relpath(str(file), root))
+        return inner_open(file, mode, *a, **kw)
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            seen[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    patch(builtins, "open", opened)
+    patch(pipeline, "export_run", counted("exports", pipeline.export_run))
+    patch(pipeline, "_eval_stage", counted("evals", pipeline._eval_stage))
+    return seen
 
 
 def given_heads(path: str, patch=setattr) -> None:
@@ -219,37 +268,41 @@ def fused_ce(patch=setattr) -> None:
           lambda *a, **kw: make(*a, **dict(kw, fused_ce=True)))
 
 
-def case_cli(args) -> dict:
+def case_cli(args, patch=setattr) -> dict:
     """One of the training CLIs' ``main`` on a config with a mesh."""
     import importlib
 
     if args.get("f32"):
-        _f32_compute()
+        _f32_compute(patch)
     if args.get("heads"):
-        given_heads(args["heads"])
+        given_heads(args["heads"], patch)
     if args.get("jax_kl_pairing"):
-        jax_kl_pairing()
-    kto_batches = record_kto_batches() if args.get("record_kto") else None
-    kinds = record_leaf_kinds()
-    tokens = record_tokens() if args.get("record_tokens") else None
+        jax_kl_pairing(patch)
+    kto_batches = (record_kto_batches(patch) if args.get("record_kto")
+                   else None)
+    kinds = record_leaf_kinds(patch)
+    tokens = record_tokens(patch) if args.get("record_tokens") else None
     if args.get("length_reward"):
-        length_reward()
+        length_reward(patch)
     if args.get("f32_cache"):
-        f32_cache()
+        f32_cache(patch)
     if args.get("fused_ce"):
-        fused_ce()
-    base = record_base() if args.get("record_base") else None
-    gathers = count_layer_gathers()
+        fused_ce(patch)
+    if args.get("record_pissa"):
+        record_pissa(os.path.join(
+            args["out"], f"pissa{dist.get_rank() if dist.is_initialized() else 0}.pt"),
+            patch)
+    base = record_base(patch) if args.get("record_base") else None
+    gathers = count_layer_gathers(patch)
     main = importlib.import_module(
         f"iadr1_tpu_torch.cli.{args['cli']}").main
-    try:
-        rc = main(["--config", args["config"], "--device", "cpu"]
-                  + args.get("overrides", []))
-    except NotImplementedError as e:
-        return {"refused": str(e)}
+    rc = main(["--config", args["config"], "--device", "cpu"]
+              + args.get("overrides", []))
     from iadr1_tpu_torch.core.mesh import kernel_mesh, mesh_shape
 
-    out = {"rc": rc, "mesh": mesh_shape(kernel_mesh()), **_kernel_shapes(),
+    mesh = kernel_mesh()
+    out = {"rc": rc, "mesh": None if mesh is None else mesh_shape(mesh),
+           **_kernel_shapes(),
            "layer_gathers": gathers[0], "leaf_kinds": kinds}
     if tokens is not None:
         out["tokens"] = [t.tolist() for t in tokens]
@@ -564,23 +617,74 @@ def zeros_like_tree(tree):
 
 
 
-CASES = {"cli": case_cli, "kernels": case_kernels, "batch": case_batch,
+def case_pipeline(args, patch=setattr) -> dict:
+    """The one-call chain's ``main`` on every rank; what this rank wrote
+    under the chain's output directory (``record_writes``)."""
+    from iadr1_tpu_torch.cli import pipeline
+
+    if args.get("length_reward"):
+        length_reward(patch)
+    seen = record_writes(args["root"], patch)
+    rc = pipeline.main(["--config", args["config"], "--device", "cpu"])
+    return {"rc": rc, **seen}
+
+
+def case_jobs(args) -> dict:
+    """Several cases in one process group, one after another, each with
+    its patches undone after it (one spawn for a test file's cases):
+    {job name: the case's result}.  Each job's ``out`` is its own
+    subdirectory."""
+    from iadr1_tpu_torch.kernels import decode_attention, flash_attention
+
+    results = {}
+    for job in args["jobs"]:
+        undo = []
+
+        def patch(obj, name, value, undo=undo):
+            undo.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, value)
+
+        out = os.path.join(args["out"], job["name"])
+        os.makedirs(out, exist_ok=True)
+        for calls in (flash_attention.MESH_CALLS,
+                      decode_attention.MESH_CALLS):
+            calls.__init__()
+        fn = CASES[job["case"]]
+        kw = ({"patch": patch}
+              if "patch" in inspect.signature(fn).parameters else {})
+        try:
+            results[job["name"]] = fn(dict(job["args"], out=out), **kw)
+        finally:
+            for obj, name, value in reversed(undo):
+                setattr(obj, name, value)
+        if dist.is_initialized():
+            dist.barrier()
+    return results
+
+
+CASES = {"cli": case_cli, "pipeline": case_pipeline, "kernels": case_kernels, "batch": case_batch,
          "optimizer": case_optimizer, "checkpoint": case_checkpoint,
          "lora_sft": case_lora_sft, "load": case_load,
          "fused_ce": case_fused_ce}
 
 
 def main():
+    """``ARGS["no_group"]``: one process with no process group (a
+    one-process reference run in a worker's environment)."""
     case, world, rank, init_file, out_dir, args = sys.argv[1:7]
     args = dict(json.loads(args), out=out_dir)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=int(rank), world_size=int(world))
+    group = not args.get("no_group")
+    if group:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=int(rank), world_size=int(world))
     try:
-        result = CASES[case](args)
+        result = (case_jobs(args) if case == "jobs"
+                  else CASES[case](args))
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
     finally:
-        dist.destroy_process_group()
+        if group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
