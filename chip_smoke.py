@@ -1069,10 +1069,12 @@ def device_times(fns, iters: int = 10) -> dict:
     calls = iters * len(fns)
     # the window records the device's activity alone: the host operators'
     # records, which nothing here reads, would only lengthen the read.  A
-    # window that recorded no device time is taken again, twice at most,
-    # the second time with the host's too
-    for attempt in range(3):
-        times = _kernel_times(_record_window(fns, iters, host=attempt == 2),
+    # window that recorded no device time is taken again with the host's
+    # too, four times at most: after phase 35 every device-only window of
+    # phase 37 records nothing, and now and then a host one too (three
+    # empty windows in a row have failed a whole smoke)
+    for attempt in range(5):
+        times = _kernel_times(_record_window(fns, iters, host=attempt > 0),
                               calls)
         if times:
             return times
@@ -8348,7 +8350,8 @@ XPO_ROW_LENS = ((420, 45), (500, 64), (420, 30), (500, 55))
 # path: the total variation distance between the two [B, V] distributions
 MIXTURE_TV_LIMIT = 1e-2
 # 33d: one SFT step of each optimizer on Qwen2-VL-2B with its decoder cut
-# to 4 of 28 layers (the tower whole), phase 6's rows; the check's leaves
+# to 4 of 28 layers (the tower whole), phase 6's rows, on DTensor leaves
+# under a one-rank NCCL group; the check's leaves
 OPT_LAYERS = 4
 OPT_NAMES = ("loraplus", "adamw", "galore", "apollo", "badam", "adam_mini",
              "muon", "adafactor", "lion", "sgd")
@@ -8367,6 +8370,15 @@ OPT_ADAFACTOR_LEAVES = ("text/layers/attn/k/kernel",
 # update with one piece of its arithmetic changed, must fail them
 OPT_UPDATE_LIMIT = 1e-4
 OPT_UPDATE_LIMITS = {"muon": 1e-3}
+# each optimizer's own ms and state GB in this phase on PR 22's tree, which
+# ran it on plain leaves with no group (this script on one H100 80GB HBM3
+# at 700 W), beside which 33d prints its own; ``--opt-plain-leaves`` runs
+# 33d on plain leaves again
+OPT_PLAIN_LEAVES = {"loraplus": (6.2, 0.011), "adamw": (63.7, 8.687),
+                  "galore": (2977.8, 1.966), "apollo": (88.0, 1.953),
+                  "badam": (101.0, 8.687), "adam_mini": (42.3, 4.346),
+                  "muon": (724.5, 5.283), "adafactor": (51.1, 0.006),
+                  "lion": (43.6, 4.343), "sgd": (17.1, 0.000)}
 OPT_CONTROLS = {
     **dict.fromkeys(("loraplus", "adamw", "galore", "apollo", "badam",
                      "adam_mini"), "Adam's bias correction dropped"),
@@ -8478,11 +8490,13 @@ class OptTap:
         return self.optimizer.init(params, paths)
 
     def _host(self, tensors, idx):
+        from iadr1_tpu_torch.core.mesh import full
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = []
         for i in idx:
-            t = tensors[i].detach()
+            t = full(tensors[i].detach())
             if self.rows is not None and self.paths[i] == "text/embed/weight":
                 t = t[self.rows.to(t.device)]
             out.append(t.to("cpu", torch.float32, copy=True))
@@ -8550,33 +8564,200 @@ def cpu_update(name, opt_cfg, seen, leaves, card_opt, control=False):
 
 
 def _opt_state_bytes(state) -> int:
-    return sum(t.numel() * t.element_size()
-               for v in state.values() if isinstance(v, list)
+    """The bytes of the state's tensors this rank holds (a DTensor's local
+    shard)."""
+    from iadr1_tpu_torch.core.mesh import local
+
+    return sum(local(t).nbytes for v in state.values() if isinstance(v, list)
                for t in v if t is not None)
 
 
-def phase_optimizers(rows, card) -> dict:
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL group (torchrun's variables for a world of one) and
+    its (1, 1, 1) mesh, armed as the ambient mesh, the world's and each
+    axis's communicator made by one all-reduce before the first timed
+    step; torn down after."""
+    import torch.distributed as dist
+
+    from iadr1_tpu_torch.core.distributed import maybe_initialize_distributed
+    from iadr1_tpu_torch.core.mesh import (
+        MeshConfig,
+        build_mesh,
+        set_kernel_mesh,
+    )
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        if not maybe_initialize_distributed(DEVICE):
+            raise AssertionError("no one-rank group was set up")
+        mesh = build_mesh(MeshConfig(1, 1, 1))
+        for group in [None] + [mesh.get_group(a) for a in range(mesh.ndim)]:
+            dist.all_reduce(torch.zeros(1, device=DEVICE), group=group)
+        torch.cuda.synchronize()
+        yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+        set_kernel_mesh(None)
+
+
+def opt_step_on_mesh(name, mesh, bundle, base, batch, embed_rows, kernels,
+                     total, depths, timed_proj, proj_s, card):
+    """One optimizer's step of phase 33d on ``mesh`` (the one-rank group's):
+    the model (and LoRA+'s adapters) placed as DTensors, the step timed
+    with its launches counted into ``total``, the update held to the
+    CPU's; returns (its wall s, its readings).  ``mesh`` None: on a copy
+    of the model's plain leaves."""
+    import gc
+
+    from iadr1_tpu_torch.cli.train_grpo import shard_adapters
+    from iadr1_tpu_torch.core.mesh import shard_pytree
+    from iadr1_tpu_torch.train import custom_optim
+    from iadr1_tpu_torch.train.adapters import (
+        TuningConfig,
+        init_lora_params,
+        lora_training_fns,
+    )
+    from iadr1_tpu_torch.train.optimizers import (
+        OptimizerConfig,
+        make_optimizer,
+    )
+    from iadr1_tpu_torch.train.sft import make_chunked_sft_step
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    L, T = depths
+    t_opt = time.perf_counter()
+    lora = name == "loraplus"
+    opt_cfg = OptimizerConfig(
+        learning_rate=LEARNING_RATE, schedule="constant",
+        warmup_steps=0, total_steps=10, max_grad_norm=1.0,
+        **({"loraplus_lr_ratio": 16.0} if lora
+           else {"optimizer": name}))
+    inner, sched = make_optimizer(opt_cfg)
+    leaves = (OPT_LORA_LEAVES if lora else OPT_ADAFACTOR_LEAVES
+              if name == "adafactor" else OPT_LEAVES)
+    # the embedding's update is row-local
+    opt = OptTap(inner, leaves, embed_rows)
+    # the model placed by its logical axes (each leaf's shard copied)
+    params = (_cloned(base) if mesh is None
+              else shard_pytree(base, bundle.logical_axes(), mesh))
+    if lora:
+        tcfg = TuningConfig(finetuning_type="lora")
+        adapters = shard_adapters(bundle, init_lora_params(
+            torch.Generator(device=DEVICE).manual_seed(3), base, tcfg), mesh)
+        state = create_train_state(adapters, opt)
+        hidden, head = lora_training_fns(bundle, params, tcfg, remat=True)
+    else:
+        state = create_train_state(params, opt)
+        hidden = lambda p, b: bundle.hidden_fn(  # noqa: E731
+            p, b, remat=True)
+        head = bundle.head_kernel_fn
+    step = make_chunked_sft_step(hidden, head, opt, sched,
+                                 chunk_size=CE_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    svd_proj, custom_optim._svd_proj = custom_optim._svd_proj, timed_proj
+    proj_s.clear()
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0 - opt.tap_s
+    finally:
+        custom_optim._svd_proj = svd_proj
+    peak = torch.cuda.max_memory_allocated() / GIB
+    launches = {k.name: k.launches for k in kernels}
+    for k, v in launches.items():
+        total[k] += v
+    # a full step: K1 once a decoder layer and twice a tower block
+    # (the tower's remat runs it again), K2 and K3 once each; LoRA's
+    # frozen tower takes no backward
+    tower = 0 if lora else T
+    want = {"flash_fwd": L + T + tower, "flash_bwd_dq": L + tower,
+            "flash_bwd_dkv": L + tower, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"optimizer {name}: launches {launches}, "
+                             f"want {want}")
+    state_bytes = _opt_state_bytes(state.opt_state)
+    loss = float(metrics["loss"])
+    got = [a - b for a, b in zip(opt.seen["after"], opt.seen["before"])]
+    t_cpu = time.perf_counter()
+    diffs, controls = [[float((g - w).norm() / w.norm().clamp(min=1e-30))
+                        for g, w in zip(got, cpu_update(
+                            name, opt_cfg, opt.seen, leaves, inner,
+                            control))]
+                       for control in (False, True)]
+    cpu_s = time.perf_counter() - t_cpu
+    limit = OPT_UPDATE_LIMITS.get(name, OPT_UPDATE_LIMIT)
+    plain_ms, plain_gb = OPT_PLAIN_LEAVES[name]
+    result = dict(step_ms=1e3 * step_s, opt_ms=1e3 * opt.seconds,
+                  proj_ms=1e3 * sum(proj_s), projs=len(proj_s),
+                  peak_gib=peak, state_bytes=state_bytes, loss=loss,
+                  diffs=diffs, controls=controls)
+    log(f"optimizers (33d): {name}: step {1e3 * step_s:.1f} ms, the "
+        f"optimizer {1e3 * opt.seconds:.1f} ms"
+        + (f" (its {len(proj_s)} projections {1e3 * sum(proj_s):.1f}"
+           " ms)" if proj_s else "")
+        + f", peak {peak:.2f} GiB, optimizer state "
+        f"{state_bytes / 1e9:.3f} GB, loss {loss:.6f}, grad norm "
+        f"{opt.seen['grad_norm']:.6f}; update vs the CPU's (||card - "
+        f"cpu|| / ||cpu||, limit {limit}) "
+        + ", ".join(f"{p} {d:.3e}" for p, d in zip(leaves, diffs))
+        + f"; the control ({OPT_CONTROLS[name]}) "
+        + ", ".join(f"{c:.3e}" for c in controls)
+        + f"; the CPU's updates {cpu_s:.1f} s, "
+        + ("on plain leaves" if mesh is None else "on the mesh")
+        + f"; PR 22's tree on plain leaves (OPT_PLAIN_LEAVES): the "
+        f"optimizer {plain_ms:.1f} ms, state {plain_gb:.3f} GB; on {card}")
+    # the cached blocks stay for the next optimizer: its peak reads
+    # allocated memory, not reserved
+    del state, step, params, opt, inner, metrics
+    gc.collect()
+    wall = time.perf_counter() - t_opt
+    if not all(math.isfinite(x) for x in diffs) or max(diffs) > limit:
+        raise AssertionError(f"optimizer {name}: the card's update "
+                             f"differs from the CPU's: {diffs}")
+    if max(controls) <= limit:
+        raise AssertionError(f"optimizer {name}: the limit does not "
+                             f"catch {OPT_CONTROLS[name]}: {controls}")
+    return wall, result
+
+
+def _cloned(tree):
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
+
+
+def phase_optimizers(rows, card, plain_leaves=False) -> dict:
     """Phase 33d: one PA-SFT step of Qwen2-VL-2B (decoder at OPT_LAYERS of
     28 layers, the tower whole; phase 6's rows) with each optimizer
-    ``make_optimizer`` builds, LoRA+ over LoRA's defaults: the step ms,
-    the optimizer's own ms (GaLore's SVD apart), the peak memory and the
-    bytes of optimizer state; each optimizer's update of two leaves held
-    to the same update computed on the CPU from the same gradients, and
-    its control (OPT_CONTROLS) must fail.  Returns the launch counts."""
+    ``make_optimizer`` builds, LoRA+ over LoRA's defaults, on DTensor
+    leaves placed by the model's logical axes under a one-rank NCCL group
+    (``one_rank_group``), as phase 35c places the model: the shard-local
+    updates, their all-reduces and their one-matrix gathers run through
+    NCCL.  It reports the step ms, the optimizer's own ms (GaLore's SVD
+    apart), the peak memory and the bytes of optimizer state beside PR
+    22's on plain leaves (OPT_PLAIN_LEAVES); each optimizer's update of two
+    leaves is held to the same update computed on the CPU from the same
+    gradients, and its control (OPT_CONTROLS) must fail.  Returns the
+    launch counts.  ``plain_leaves``: on plain leaves with no group (the
+    single-card path)."""
     import gc
 
     from iadr1_tpu_torch.data.collator import VLMBatchBuilder
     from iadr1_tpu_torch.kernels import all_kernels
     from iadr1_tpu_torch.models.registry import bundle_from_hf_config
     from iadr1_tpu_torch.train import custom_optim
-    from iadr1_tpu_torch.train.adapters import init_lora_params
     from iadr1_tpu_torch.train.loop import batch_iterator
-    from iadr1_tpu_torch.train.optimizers import (
-        OptimizerConfig,
-        make_optimizer,
-    )
-    from iadr1_tpu_torch.train.sft import make_chunked_sft_step
-    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+    from iadr1_tpu_torch.train.state import tree_leaves
 
     kernels = [k for k, _ in all_kernels()]
     total = {k.name: 0 for k in kernels}
@@ -8608,102 +8789,12 @@ def phase_optimizers(rows, card) -> dict:
     results = {}
     torch.cuda.synchronize()
     setup_s, walls = time.perf_counter() - t_setup, {}
-    for name in OPT_NAMES:
-        t_opt = time.perf_counter()
-        lora = name == "loraplus"
-        opt_cfg = OptimizerConfig(
-            learning_rate=LEARNING_RATE, schedule="constant",
-            warmup_steps=0, total_steps=10, max_grad_norm=1.0,
-            **({"loraplus_lr_ratio": 16.0} if lora
-               else {"optimizer": name}))
-        inner, sched = make_optimizer(opt_cfg)
-        leaves = (OPT_LORA_LEAVES if lora else OPT_ADAFACTOR_LEAVES
-                  if name == "adafactor" else OPT_LEAVES)
-        # the embedding's update is row-local
-        opt = OptTap(inner, leaves, embed_rows)
-        params = _clone_tree(base)
-        if lora:
-            from iadr1_tpu_torch.train.adapters import TuningConfig
-
-            tcfg = TuningConfig(finetuning_type="lora")
-            adapters = init_lora_params(
-                torch.Generator(device=DEVICE).manual_seed(3), params, tcfg)
-            frozen = params
-            state = create_train_state(adapters, opt)
-            hidden = lambda p, b: bundle.hidden_fn(  # noqa: E731
-                frozen, b, remat=True, lora=p, lora_scale=tcfg.lora_scale)
-            head = lambda _: bundle.head_kernel_fn(frozen)  # noqa: E731
-        else:
-            state = create_train_state(params, opt)
-            hidden = lambda p, b: bundle.hidden_fn(  # noqa: E731
-                p, b, remat=True)
-            head = bundle.head_kernel_fn
-        step = make_chunked_sft_step(hidden, head, opt, sched,
-                                     chunk_size=CE_CHUNK)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
-            k.launches = 0
-        custom_optim._svd_proj = timed_proj
-        proj_s.clear()
-        try:
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            step_s = time.perf_counter() - t0 - opt.tap_s
-        finally:
-            custom_optim._svd_proj = svd_proj
-        peak = torch.cuda.max_memory_allocated() / GIB
-        launches = {k.name: k.launches for k in kernels}
-        for k, v in launches.items():
-            total[k] += v
-        # a full step: K1 once a decoder layer and twice a tower block
-        # (the tower's remat runs it again), K2 and K3 once each; LoRA's
-        # frozen tower takes no backward
-        tower = 0 if lora else T
-        want = {"flash_fwd": L + T + tower, "flash_bwd_dq": L + tower,
-                "flash_bwd_dkv": L + tower, "decode_attention": 0}
-        if launches != want:
-            raise AssertionError(f"optimizer {name}: launches {launches}, "
-                                 f"want {want}")
-        state_bytes = _opt_state_bytes(state.opt_state)
-        loss = float(metrics["loss"])
-        got = [a - b for a, b in zip(opt.seen["after"], opt.seen["before"])]
-        t_cpu = time.perf_counter()
-        diffs, controls = [[float((g - w).norm() / w.norm().clamp(min=1e-30))
-                            for g, w in zip(got, cpu_update(
-                                name, opt_cfg, opt.seen, leaves, inner,
-                                control))]
-                           for control in (False, True)]
-        cpu_s = time.perf_counter() - t_cpu
-        limit = OPT_UPDATE_LIMITS.get(name, OPT_UPDATE_LIMIT)
-        results[name] = dict(step_ms=1e3 * step_s, opt_ms=1e3 * opt.seconds,
-                             proj_ms=1e3 * sum(proj_s), projs=len(proj_s),
-                             peak_gib=peak, state_bytes=state_bytes,
-                             loss=loss, diffs=diffs, controls=controls)
-        log(f"optimizers (33d): {name}: step {1e3 * step_s:.1f} ms, the "
-            f"optimizer {1e3 * opt.seconds:.1f} ms"
-            + (f" (its {len(proj_s)} projections {1e3 * sum(proj_s):.1f}"
-               " ms)" if proj_s else "")
-            + f", peak {peak:.2f} GiB, optimizer state "
-            f"{state_bytes / 1e9:.3f} GB, loss {loss:.6f}, grad norm "
-            f"{opt.seen['grad_norm']:.6f}; update vs the CPU's (||card - "
-            f"cpu|| / ||cpu||, limit {limit}) "
-            + ", ".join(f"{p} {d:.3e}" for p, d in zip(leaves, diffs))
-            + f"; the control ({OPT_CONTROLS[name]}) "
-            + ", ".join(f"{c:.3e}" for c in controls)
-            + f"; the CPU's updates {cpu_s:.1f} s")
-        # the cached blocks stay for the next optimizer: its peak reads
-        # allocated memory, not reserved
-        del state, step, params, opt, inner, metrics
-        gc.collect()
-        walls[name] = time.perf_counter() - t_opt
-        if not all(math.isfinite(x) for x in diffs) or max(diffs) > limit:
-            raise AssertionError(f"optimizer {name}: the card's update "
-                                 f"differs from the CPU's: {diffs}")
-        if max(controls) <= limit:
-            raise AssertionError(f"optimizer {name}: the limit does not "
-                                 f"catch {OPT_CONTROLS[name]}: {controls}")
+    with (contextlib.nullcontext() if plain_leaves
+          else one_rank_group()) as mesh:
+        for name in OPT_NAMES:
+            walls[name], results[name] = opt_step_on_mesh(
+                name, mesh, bundle, base, batch, embed_rows, kernels, total,
+                (L, T), timed_proj, proj_s, card)
     adamw = results["adamw"]
     log(f"optimizers (33d): Qwen2-VL-2B at {OPT_LAYERS} decoder layers and "
         f"the whole tower, {n_params / 1e9:.3f}B f32 params, one step of "
@@ -11385,6 +11476,10 @@ def main() -> int:
                          "4, 5, 8 and 9 run together, and 36 brings 4 "
                          "and 10), for a partial run that prints no "
                          "kernel line; default: all")
+    ap.add_argument("--opt-plain-leaves", action="store_true",
+                    help="run phase 33d's optimizers on plain leaves with "
+                         "no process group (the single-card path) instead "
+                         "of on the one-rank mesh")
     ap.add_argument("--pad-compare", action="store_true",
                     help="also time K1-K3 at the SigLIP tower with q, k, v "
                          "and dO padded to 80 in the wrapper, beside the "
@@ -11606,7 +11701,8 @@ def main() -> int:
             mod_rows, MOD_STEPS, card)),
         (32, "pref", lambda: phase_pref(card)),
         (33, "pref33", lambda: phase_pref33(card)),
-        (33, "optimizers", lambda: phase_optimizers(train_rows, card)),
+        (33, "optimizers", lambda: phase_optimizers(
+            train_rows, card, args.opt_plain_leaves)),
         (34, "sft_extras", lambda: phase_sft_extras(sft34_rows, native_s,
                                                     card)),
         (35, "mesh", lambda: phase_mesh(train_rows, grpo_examples, card)),

@@ -14,10 +14,11 @@ table maps them to mesh axes; ``shard_pytree`` makes every leaf a
 ``DTensor`` placed by them.
 
 How a training step runs on the mesh (``compute_view``): each parameter
-is gathered over dp and fsdp, keeping its tp shard: the decoder's
-layer-stacked parameters one layer at a time, inside the layer's remat
-checkpoints (FSDP's per-layer gather), the rest (embeddings, head,
-vision towers) whole at the start of the step.  With tp > 1 the forward
+is gathered over dp and fsdp, keeping its tp shard: the layer-stacked
+parameters of the decoder and of the vision towers one layer (block) at a
+time, inside the layer's remat checkpoints (FSDP's per-layer gather), the
+rest (embeddings, head, the towers' patch embeddings and mergers) whole
+at the start of the step.  With tp > 1 the forward
 runs on DTensors over the tp submesh, whose activations are replicated
 over tp (the tp ranks of one batch slice hold the same rows); with tp =
 1 it runs on plain tensors, as FSDP2 unshards a module's parameters for
@@ -27,6 +28,12 @@ reduced over dp and reduce-scattered over fsdp into the leaves' own
 placements.  So every loss and additive metric a step computes is this
 rank's share: its numerator over its rows divided by the global count
 (``batch_total``), and the step sums the shares over the batch ranks.
+
+The optimizers update each rank's shards in place: their state lies as
+the parameters do, a reduction over a sharded dim is a partial sum and
+an all-reduce over the mesh axes that shard it (``shard_sum``), and the
+updates that need a whole matrix (Muon's Newton-Schulz, GaLore's and
+APOLLO's projections) gather one at a time (``gather_matrix``).
 
 The hand kernels never see a DTensor: their wrappers apply the sharding
 rule (``kernels/flash_attention.py`` ``mesh_batch_heads``) and call the
@@ -346,6 +353,150 @@ def full(t):
     return t.full_tensor() if is_dtensor(t) else t
 
 
+# ---------------------------------------------------------------------------
+# an optimizer's update on the rank's shards
+# ---------------------------------------------------------------------------
+
+
+def placements_along(like, dims):
+    """The placements of a tensor whose dim j lies as dim ``dims[j]`` of
+    the DTensor ``like`` (None: whole on every rank): like's shard of a
+    kept dim moves to its new index, every other mesh axis replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    n = like.dim()
+    kept = [None if d is None else d % n for d in dims]
+    return [Shard(kept.index(p.dim)) if p.is_shard() and p.dim in kept
+            else Replicate() for p in like.placements]
+
+
+def placed_zeros(shape, like, dims, dtype=torch.float32):
+    """Zeros of ``shape`` placed along ``dims`` (``placements_along``): a
+    DTensor on like's mesh, each rank allocating its own shard only; plain
+    zeros when ``like`` is not a DTensor."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+
+    return zeros(tuple(shape), dtype=dtype, device_mesh=like.device_mesh,
+                 placements=placements_along(like, dims))
+
+
+def local_part(whole, like, dims):
+    """This rank's shard of ``whole`` (the same on every rank) placed along
+    ``dims`` (``placements_along``); no collective.  ``whole`` itself
+    when ``like`` is not a DTensor or no mesh axis shards those dims."""
+    if not is_dtensor(like):
+        return whole
+    from torch.distributed.tensor import distribute_tensor
+
+    placements = placements_along(like, dims)
+    if not any(p.is_shard() for p in placements):
+        return whole
+    return distribute_tensor(whole, like.device_mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def shard_sum(x, like, dims):
+    """``x``, a sum this rank took over its shard of ``dims`` of the
+    DTensor ``like``, summed over the mesh axes that shard those dims: the
+    sum over the whole dims, on every rank (in place where it can be).
+    A mesh axis that replicates them adds nothing, so a mean divides by
+    the dims' global size, never by a local count (shards can be uneven).
+    ``x`` itself when ``like`` is not a DTensor."""
+    if not is_dtensor(like):
+        return x
+    n = like.dim()
+    dims = {d % n for d in dims}
+    axes = [a for a, p in enumerate(like.placements)
+            if p.is_shard() and p.dim in dims]
+    if axes:
+        x = x.contiguous()
+        for a in axes:
+            dist.all_reduce(x, group=like.device_mesh.get_group(a))
+    return x
+
+
+def shard_start(like, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` of
+    ``like`` (0 for a plain tensor).  DTensor cuts a dim as ``torch.chunk``
+    does, ceil(size / k) a rank and the last ones fewer, over each mesh
+    axis that shards it in turn."""
+    if not is_dtensor(like):
+        return 0
+    dim = dim % like.dim()
+    coord = like.device_mesh.get_coordinate()
+    size, start = like.shape[dim], 0
+    for a, p in enumerate(like.placements):
+        if p.is_shard() and p.dim == dim:
+            chunk = -(-size // like.device_mesh.size(a))
+            offset = min(coord[a] * chunk, size)
+            size, start = max(0, min(chunk, size - offset)), start + offset
+    return start
+
+
+def matrix_sharded(like) -> bool:
+    """Whether a mesh axis shards either matrix dim (the last two) of
+    ``like``; False for a plain tensor."""
+    n = like.dim()
+    return is_dtensor(like) and any(
+        p.is_shard() and p.dim in (n - 2, n - 1) for p in like.placements)
+
+
+class _Gathers:
+    """The matrices ``gather_matrix`` gathered since the last reset
+    (``__init__``): their count and the largest one's bytes."""
+
+    def __init__(self):
+        self.calls, self.largest = 0, 0
+
+
+MATRIX_GATHERS = _Gathers()
+
+
+def gather_matrix(x, like, index=None, dims=None):
+    """One matrix of ``x`` whole on every rank, where ``x`` is this rank's
+    shard of a tensor placed as the DTensor ``like`` (or along ``dims`` of
+    it, ``placements_along``): its layer ``index`` when it is stacked [L,
+    a, b] (the layer axis is never sharded), or the whole of a 2-D one.  A
+    collective over like's mesh; counted in MATRIX_GATHERS.  ``x[index]``
+    (or ``x``) when ``like`` is not a DTensor.  ``index`` ``...``: all
+    of ``x`` at once, whose matrix dims no mesh axis shards
+    (``matrix_sharded``), with no collective."""
+    if index is Ellipsis:
+        if matrix_sharded(like):
+            raise ValueError(f"gather_matrix: {tuple(like.shape)} "
+                             f"{like.placements} is sharded on its matrices")
+        return x
+    piece = x if index is None else x[index]
+    if not is_dtensor(like):
+        return piece
+    from torch.distributed.tensor import DTensor
+
+    n = like.dim()
+    dims = [None if d is None else d % n
+            for d in (range(n) if dims is None else dims)]
+    if index is not None:
+        layer, dims = dims[0], dims[1:]
+        if layer is not None and any(p.is_shard() and p.dim == layer
+                                     for p in like.placements):
+            raise ValueError(f"gather_matrix: {tuple(like.shape)} "
+                             f"{like.placements} is sharded on its layers")
+    if piece.dim() != 2 or len(dims) != 2:
+        raise ValueError(f"gather_matrix: {tuple(x.shape)} at index {index}"
+                         " is not one matrix")
+    shape = [piece.shape[j] if d is None else like.shape[d]
+             for j, d in enumerate(dims)]
+    whole = DTensor.from_local(
+        piece.contiguous(), like.device_mesh, placements_along(like, dims),
+        run_check=False, shape=torch.Size(shape),
+        stride=(shape[1], 1)).full_tensor()
+    MATRIX_GATHERS.calls += 1
+    MATRIX_GATHERS.largest = max(MATRIX_GATHERS.largest,
+                                 whole.numel() * whole.element_size())
+    return whole
+
+
 def batch_coordinate(mesh=None) -> tuple[int, int]:
     """(this rank's index among the dp x fsdp batch slices, their
     count); (0, 1) without a mesh."""
@@ -410,6 +561,12 @@ def _compute_leaf(t):
 # decoder (models/qwen2.py, models/shared_prompt.py) gathers a layer at a
 # time inside its checkpoints
 DECODER_LAYERS = (("layers",), ("text", "layers"))
+# the vision towers' stacked blocks, left sharded likewise: each tower's
+# block loop gathers a block at a time inside its checkpoints (Qwen2-VL's
+# and Qwen2.5-VL's "blocks"; SigLIP's, CLIP's, InternViT's and Pixtral's
+# "layers"; Video-LLaVA's second CLIP tower)
+TOWER_LAYERS = (("vision", "blocks"), ("vision", "layers"),
+                ("video_tower", "layers"))
 
 
 def compute_view(tree, _path=()):
@@ -417,14 +574,75 @@ def compute_view(tree, _path=()):
     leaf gathered over dp and fsdp, its tp shard kept, as a DTensor over
     the tp submesh when tp > 1 and as a plain tensor otherwise (as FSDP2
     unshards a module's parameters for its forward); differentiable, the
-    gradients reduced back into the leaves' placements.  The decoder's
-    stacked layers (DECODER_LAYERS) stay sharded: the decoder gathers each
-    layer as it runs it.  A tree of plain tensors comes back as it is."""
+    gradients reduced back into the leaves' placements.  The stacked
+    layers of the decoder and of the towers (DECODER_LAYERS,
+    TOWER_LAYERS) stay sharded: each gathers a layer as it runs it.  A
+    tree of plain tensors comes back as it is."""
     if isinstance(tree, dict):
-        if _path in DECODER_LAYERS:
+        if _path in DECODER_LAYERS or _path in TOWER_LAYERS:
             return tree
         return {k: compute_view(v, _path + (k,)) for k, v in tree.items()}
     return None if tree is None else _compute_leaf(tree)
+
+
+def compute_view_of(tree, *keys):
+    """``compute_view`` of the subtrees ``keys`` of ``tree`` alone: what
+    one checkpointed piece of a layer reads."""
+    return compute_view({k: tree[k] for k in keys})
+
+
+class _Regather:
+    """A gathered leaf (or its cast to ``dtype``) that autograd saved for
+    the backward, kept as the leaf's shards: called, it gathers again."""
+
+    def __init__(self, shard, dtype):
+        self.shard, self.dtype = shard, dtype
+
+    def __call__(self):
+        with torch.no_grad():
+            t = _compute_leaf(self.shard)
+            return t if self.dtype is None else t.to(self.dtype)
+
+
+@contextlib.contextmanager
+def view_gathered_again(tree, *keys):
+    """``compute_view_of(tree, *keys)``, for a piece of a layer that runs
+    outside any checkpoint: autograd keeps none of its gathered leaves for
+    the backward.  A leaf saved for it, or its cast (a dense layer's
+    kernel cast to the compute dtype), is kept as the leaf's shards and
+    gathered again when the backward reads it, as FSDP2 reshards after
+    the forward: a layer's whole weights live only while it runs.  A tree
+    of plain tensors: its view, with no hooks."""
+    from torch.autograd.graph import saved_tensors_hooks
+
+    view = compute_view_of(tree, *keys)
+    pieces = [(v, s) for v, s in zip(_leaves(view), _leaves(
+        {k: tree[k] for k in keys})) if is_dtensor(s)]
+    if not pieces or not torch.is_grad_enabled():
+        yield view
+        return
+    nodes = {v.grad_fn: s for v, s in pieces if v.grad_fn is not None}
+
+    def pack(t):
+        fn = t.grad_fn
+        if fn in nodes:
+            return _Regather(nodes[fn], None)
+        if (type(fn).__name__ == "ToCopyBackward0"
+                and fn.next_functions[0][0] in nodes):
+            return _Regather(nodes[fn.next_functions[0][0]], t.dtype)
+        return t
+
+    def unpack(t):
+        return t() if isinstance(t, _Regather) else t
+
+    with saved_tensors_hooks(pack, unpack):
+        yield view
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def mesh_scope():

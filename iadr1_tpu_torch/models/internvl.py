@@ -34,6 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import (
+    compute_view,
+    compute_view_of,
+    view_gathered_again,
+)
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2, siglip
 from iadr1_tpu_torch.models.common import dense
@@ -284,6 +289,10 @@ def _post_attention(lp, h, cfg):
 
 
 def _block(lp, h, attn, cfg):
+    """One block.  On a mesh ``lp`` is the block's shards: each piece
+    gathers what it reads (``compute_view``), inside its checkpoint under
+    a remat mode."""
+    lp = compute_view(lp)
     qkv = _heads(lp, *_project_qkv(lp, _norm(lp["norm1"], h, cfg)), cfg)
     return _post_attention(lp, _attend(lp, h, attn(*qkv)), cfg)
 
@@ -293,11 +302,15 @@ def _block_save_flash(lp, h, attn, cfg):
     checkpoint, so the flash Function's residuals survive and its forward
     runs once; the norm and projections before it and the o-projection and
     MLP after it are checkpointed apart."""
-    qkv = ckpt(lambda h: _heads(lp, *_project_qkv(
-        lp, _norm(lp["norm1"], h, cfg)), cfg), h)
-    out = attn(*qkv)
-    return ckpt(lambda h, out: _post_attention(lp, _attend(lp, h, out), cfg),
-                h, out)
+    def qkv(h):
+        w = compute_view_of(lp, "norm1", "attn")
+        return _heads(w, *_project_qkv(w, _norm(w["norm1"], h, cfg)), cfg)
+
+    def post(h, out):
+        w = compute_view(lp)
+        return _post_attention(w, _attend(w, h, out), cfg)
+
+    return ckpt(post, h, attn(*ckpt(qkv, h)))
 
 
 def _block_save_acts(lp, h, attn, cfg):
@@ -305,19 +318,26 @@ def _block_save_acts(lp, h, attn, cfg):
     "act_qkv", "act_attn" and "act_fc1"): the q/k/v projections, the
     attention output and the pre-gelu fc1 output are kept; the backward
     recomputes the norms, the QK norm and the activation, never the
-    attention forward."""
-    x = ckpt(lambda h: _norm(lp["norm1"], h, cfg), h)
-    q, k, v = _project_qkv(lp, x)
-    if cfg.use_qk_norm:
-        qkv = ckpt(lambda q, k, v: _heads(lp, q, k, v, cfg), q, k, v)
-    else:
-        qkv = _heads(lp, q, k, v, cfg)
-    h = _attend(lp, h, attn(*qkv))
-    x = ckpt(lambda h: _norm(lp["norm2"], h, cfg), h)
-    m = lp["mlp"]
-    f = dense(x, m["fc1"]["kernel"], m["fc1"]["bias"])
-    y = dense(ckpt(F.gelu, f), m["fc2"]["kernel"], m["fc2"]["bias"])
-    return h + y * lp["lambda2"].to(y.dtype)
+    attention forward.  On a mesh the other weights are gathered for the
+    forward and again for the backward (``view_gathered_again``); the QK
+    norms' checkpoint gathers its own."""
+    def qk_norm(q, k, v):
+        norms = compute_view_of(lp["attn"], "q_norm", "k_norm")
+        return _heads({"attn": norms}, q, k, v, cfg)
+
+    x = ckpt(lambda h: _norm(compute_view(lp["norm1"]), h, cfg), h)
+    with view_gathered_again(lp, "attn", "mlp", "lambda1", "lambda2") as w:
+        q, k, v = _project_qkv(w, x)
+        if cfg.use_qk_norm:
+            qkv = ckpt(qk_norm, q, k, v)
+        else:
+            qkv = _heads(w, q, k, v, cfg)
+        h = _attend(w, h, attn(*qkv))
+        x = ckpt(lambda h: _norm(compute_view(lp["norm2"]), h, cfg), h)
+        m = w["mlp"]
+        f = dense(x, m["fc1"]["kernel"], m["fc1"]["bias"])
+        y = dense(ckpt(F.gelu, f), m["fc2"]["kernel"], m["fc2"]["bias"])
+        return h + y * w["lambda2"].to(y.dtype)
 
 
 def apply_vision(params: dict, cfg: InternVLVisionConfig,

@@ -28,6 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import (
+    compute_view,
+    compute_view_of,
+    view_gathered_again,
+)
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, llava, qwen2
 from iadr1_tpu_torch.models.common import apply_rope, dense, rms_norm
@@ -166,6 +171,10 @@ def _post_attention(lp, h, out):
 
 
 def _block(lp, h, cos, sin, attn, H, D):
+    """One layer.  On a mesh ``lp`` is the layer's shards: each piece
+    gathers what it reads (``compute_view``), inside its checkpoint under
+    a remat mode."""
+    lp = compute_view(lp)
     return _post_attention(lp, h, attn(*_qkv(lp, h, cos, sin, H, D)))
 
 
@@ -173,29 +182,42 @@ def _block_save_flash(lp, h, cos, sin, attn, H, D):
     """Remat True: the attention call outside every checkpoint (its
     flash residuals survive, its forward runs once); the pieces before
     and after it checkpointed apart."""
-    q, k, v = ckpt(lambda h: _qkv(lp, h, cos, sin, H, D), h)
+    q, k, v = ckpt(lambda h: _qkv(compute_view_of(
+        lp, "attention_norm", "attn"), h, cos, sin, H, D), h)
     out = attn(q, k, v)
-    return ckpt(lambda h, out: _post_attention(lp, h, out), h, out)
+    return ckpt(lambda h, out: _post_attention(compute_view(lp), h, out), h,
+                out)
 
 
 def _block_save_acts(lp, h, cos, sin, attn, H, D):
     """Remat "save_acts" (the JAX policy that saves "act_qkv", "act_attn"
     and "act_fc1"): the q/k/v projections, the attention output and the
     MLP's gate are kept; the backward recomputes the norms, the rotation,
-    the up projection and the activation, never the attention."""
-    x = ckpt(lambda h: rms_norm(h, lp["attention_norm"], _NORM_EPS), h)
-    a = lp["attn"]
-    B, N, _ = x.shape
-    q, k, v = (dense(x, a[n]["kernel"]).reshape(B, N, H, D) for n in "qkv")
-    q, k = ckpt(apply_rope, q, k, cos, sin)
-    out = attn(q, k, v)
-    h = h + dense(out.reshape(B, N, -1), a["o"]["kernel"])
-    x = ckpt(lambda h: rms_norm(h, lp["ffn_norm"], _NORM_EPS), h)
+    the up projection and the activation, never the attention.  On a mesh
+    the dense layers' weights are gathered for the forward and again for
+    the backward (``view_gathered_again``); the up projection's
+    checkpoint gathers its own."""
     m = lp["mlp"]
-    gate = dense(x, m["gate"]["kernel"])
-    act = ckpt(lambda x, gate: F.silu(gate) * dense(x, m["up"]["kernel"]),
-               x, gate)
-    return h + dense(act, m["down"]["kernel"])
+
+    def up(x, gate):
+        kernel = compute_view(m["up"])["kernel"]
+        return F.silu(gate) * dense(x, kernel)
+
+    x = ckpt(lambda h: rms_norm(h, compute_view(lp["attention_norm"]),
+                                _NORM_EPS), h)
+    dense_layers = {"attn": lp["attn"], "gate": m["gate"], "down": m["down"]}
+    with view_gathered_again(dense_layers, "attn", "gate", "down") as w:
+        a = w["attn"]
+        B, N, _ = x.shape
+        q, k, v = (dense(x, a[n]["kernel"]).reshape(B, N, H, D)
+                   for n in "qkv")
+        q, k = ckpt(apply_rope, q, k, cos, sin)
+        out = attn(q, k, v)
+        h = h + dense(out.reshape(B, N, -1), a["o"]["kernel"])
+        x = ckpt(lambda h: rms_norm(h, compute_view(lp["ffn_norm"]),
+                                    _NORM_EPS), h)
+        gate = dense(x, w["gate"]["kernel"])
+        return h + dense(ckpt(up, x, gate), w["down"]["kernel"])
 
 
 def tower_apply(params: dict, cfg: PixtralVisionConfig,

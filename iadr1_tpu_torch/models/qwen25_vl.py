@@ -23,6 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import (
+    compute_view,
+    compute_view_of,
+    view_gathered_again,
+)
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import dense, rms_norm, rotate_half
@@ -277,6 +282,10 @@ def _post_attention(lp, h, out, eps: float):
 
 
 def _block(lp, h, cos, sin, attn, H: int, D: int, eps: float):
+    """One block.  On a mesh ``lp`` is the block's shards: each piece
+    gathers what it reads (``compute_view``), inside its checkpoint under
+    a remat mode."""
+    lp = compute_view(lp)
     return _post_attention(lp, h, attn(*_qkv(lp, h, cos, sin, H, D, eps)),
                            eps)
 
@@ -287,9 +296,11 @@ def _block_save_flash(lp, h, cos, sin, attn, H: int, D: int, eps: float):
     flash Function's residuals survive and its forward runs once; the norm,
     projection and rotary before it and the o-projection and MLP after it
     are checkpointed apart."""
-    q, k, v = ckpt(lambda h: _qkv(lp, h, cos, sin, H, D, eps), h)
+    q, k, v = ckpt(lambda h: _qkv(compute_view_of(lp, "norm1", "attn"), h,
+                                  cos, sin, H, D, eps), h)
     out = attn(q, k, v)
-    return ckpt(lambda h, out: _post_attention(lp, h, out, eps), h, out)
+    return ckpt(lambda h, out: _post_attention(compute_view(lp), h, out,
+                                               eps), h, out)
 
 
 def _block_save_acts(lp, h, cos, sin, attn, H: int, D: int, eps: float):
@@ -297,18 +308,21 @@ def _block_save_acts(lp, h, cos, sin, attn, H: int, D: int, eps: float):
     "act_qkv", "act_attn" and "act_fc1" besides the flash residuals): the
     qkv projection's output, the attention output and the gate and up
     projections' outputs are kept; the backward recomputes the two norms,
-    the rotary and the SwiGLU product, and never the attention forward."""
-    a, p, m = lp["attn"]["qkv"], lp["attn"]["proj"], lp["mlp"]
-    x = ckpt(lambda h: rms_norm(h, lp["norm1"], eps), h)
-    qkv = dense(x, a["kernel"], a["bias"])
-    q, k, v = ckpt(lambda t: _rope(t, cos, sin, H, D), qkv)
-    out = attn(q, k, v).reshape(h.shape[0], -1)
-    h = h + dense(out, p["kernel"], p["bias"])
-    x = ckpt(lambda h: rms_norm(h, lp["norm2"], eps), h)
-    g = dense(x, m["gate"]["kernel"], m["gate"]["bias"])
-    u = dense(x, m["up"]["kernel"], m["up"]["bias"])
-    return h + dense(ckpt(_swiglu, g, u), m["down"]["kernel"],
-                     m["down"]["bias"])
+    the rotary and the SwiGLU product, and never the attention forward.
+    On a mesh the dense layers' weights are gathered for the forward and
+    again for the backward (``view_gathered_again``)."""
+    x = ckpt(lambda h: rms_norm(h, compute_view(lp["norm1"]), eps), h)
+    with view_gathered_again(lp, "attn", "mlp") as w:
+        a, p, m = w["attn"]["qkv"], w["attn"]["proj"], w["mlp"]
+        qkv = dense(x, a["kernel"], a["bias"])
+        q, k, v = ckpt(lambda t: _rope(t, cos, sin, H, D), qkv)
+        out = attn(q, k, v).reshape(h.shape[0], -1)
+        h = h + dense(out, p["kernel"], p["bias"])
+        x = ckpt(lambda h: rms_norm(h, compute_view(lp["norm2"]), eps), h)
+        g = dense(x, m["gate"]["kernel"], m["gate"]["bias"])
+        u = dense(x, m["up"]["kernel"], m["up"]["bias"])
+        return h + dense(ckpt(_swiglu, g, u), m["down"]["kernel"],
+                         m["down"]["bias"])
 
 
 def apply_vision(

@@ -17,7 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
-from iadr1_tpu_torch.core.mesh import run_replicated
+from iadr1_tpu_torch.core.mesh import (
+    compute_view,
+    run_replicated,
+    view_gathered_again,
+)
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common, qwen2
 from iadr1_tpu_torch.models.common import dense, rotate_half
@@ -137,6 +141,9 @@ def _tower_attention(lp, x, cos, sin, attn, H: int, D: int, dtype):
 
 
 def _tower_block(lp, h, cos, sin, attn, H: int, D: int):
+    """One block.  On a mesh ``lp`` is the block's shards, gathered here
+    (``compute_view``): inside the block's checkpoint under remat."""
+    lp = compute_view(lp)
     x = layer_norm(h, lp["norm1"]["scale"], lp["norm1"]["bias"])
     out = _tower_attention(lp, x, cos, sin, attn, H, D, h.dtype)
     h = h + dense(out, lp["attn"]["proj"]["kernel"], lp["attn"]["proj"]["bias"])
@@ -150,16 +157,22 @@ def _tower_block_save_acts(lp, h, cos, sin, attn, H: int, D: int):
     and the dense layers' inputs (the qkv and fc1 inputs, the attention
     output, the fc1 output and its gelu) are kept; the backward recomputes
     only the two layer norms and the gelu, and never the attention
-    forward."""
-    x = ckpt(lambda h: layer_norm(h, lp["norm1"]["scale"],
-                                  lp["norm1"]["bias"]), h)
-    out = _tower_attention(lp, x, cos, sin, attn, H, D, h.dtype)
-    h = h + dense(out, lp["attn"]["proj"]["kernel"], lp["attn"]["proj"]["bias"])
-    x = ckpt(lambda h: layer_norm(h, lp["norm2"]["scale"],
-                                  lp["norm2"]["bias"]), h)
-    f = dense(x, lp["mlp"]["fc1"]["kernel"], lp["mlp"]["fc1"]["bias"])
-    return h + dense(ckpt(quick_gelu, f), lp["mlp"]["fc2"]["kernel"],
-                     lp["mlp"]["fc2"]["bias"])
+    forward.  On a mesh each norm's checkpoint gathers its weights, and
+    the dense layers' weights are gathered for the forward and again for
+    the backward (``view_gathered_again``)."""
+    def norm(key, h):
+        n = compute_view(lp[key])
+        return layer_norm(h, n["scale"], n["bias"])
+
+    x = ckpt(functools.partial(norm, "norm1"), h)
+    with view_gathered_again(lp, "attn", "mlp") as w:
+        out = _tower_attention(w, x, cos, sin, attn, H, D, h.dtype)
+        h = h + dense(out, w["attn"]["proj"]["kernel"],
+                      w["attn"]["proj"]["bias"])
+        x = ckpt(functools.partial(norm, "norm2"), h)
+        f = dense(x, w["mlp"]["fc1"]["kernel"], w["mlp"]["fc1"]["bias"])
+        return h + dense(ckpt(quick_gelu, f), w["mlp"]["fc2"]["kernel"],
+                         w["mlp"]["fc2"]["bias"])
 
 
 def apply_vision(

@@ -20,6 +20,11 @@ import torch
 import torch.nn.functional as F
 
 from iadr1_tpu_torch.core.device import resolve_device
+from iadr1_tpu_torch.core.mesh import (
+    compute_view,
+    compute_view_of,
+    view_gathered_again,
+)
 from iadr1_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from iadr1_tpu_torch.models import common
 from iadr1_tpu_torch.models.common import dense
@@ -165,6 +170,10 @@ def _post_attention(lp, h, eps: float, act):
 
 
 def _block(lp, h, attn, H: int, D: int, eps: float, act):
+    """One block.  On a mesh ``lp`` is the block's shards: each piece
+    gathers what it reads (``compute_view``), inside its checkpoint under
+    a remat mode."""
+    lp = compute_view(lp)
     x = layer_norm(h, lp["norm1"]["scale"], lp["norm1"]["bias"], eps)
     return _post_attention(lp, _attend(lp, h, *_qkv(lp, x, H, D), attn), eps,
                            act)
@@ -176,13 +185,19 @@ def _block_save_flash(lp, h, attn, H: int, D: int, eps: float, act):
     flash Function's residuals survive and its forward runs once (the
     role of the JAX FLASH_REMAT_POLICY); the norm and projections before
     it and the o-projection and MLP after it are checkpointed apart."""
-    q, k, v = ckpt(lambda h: _qkv(lp, layer_norm(
-        h, lp["norm1"]["scale"], lp["norm1"]["bias"], eps), H, D), h)
-    out = attn(q, k, v)
-    o = lp["attn"]["o"]
-    return ckpt(lambda h, out: _post_attention(
-        lp, h + dense(out.reshape(*h.shape[:2], -1), o["kernel"], o["bias"]),
-        eps, act), h, out)
+    def qkv(h):
+        w = compute_view_of(lp, "norm1", "attn")
+        return _qkv(w, layer_norm(h, w["norm1"]["scale"], w["norm1"]["bias"],
+                                  eps), H, D)
+
+    def post(h, out):
+        w = compute_view(lp)
+        o = w["attn"]["o"]
+        return _post_attention(w, h + dense(out.reshape(*h.shape[:2], -1),
+                                            o["kernel"], o["bias"]), eps, act)
+
+    q, k, v = ckpt(qkv, h)
+    return ckpt(post, h, attn(q, k, v))
 
 
 def _block_save_acts(lp, h, attn, H: int, D: int, eps: float, act):
@@ -190,15 +205,21 @@ def _block_save_acts(lp, h, attn, H: int, D: int, eps: float, act):
     "act_qkv", "act_attn" and "act_fc1" besides the flash residuals): the
     q/k/v projections, the attention output and the pre-gelu fc1 output
     are kept; the backward recomputes only the two layer norms and the
-    activation, and never the attention forward."""
-    x = ckpt(lambda h: layer_norm(h, lp["norm1"]["scale"],
-                                  lp["norm1"]["bias"], eps), h)
-    h = _attend(lp, h, *_qkv(lp, x, H, D), attn)
-    x = ckpt(lambda h: layer_norm(h, lp["norm2"]["scale"],
-                                  lp["norm2"]["bias"], eps), h)
-    m = lp["mlp"]
-    f = dense(x, m["fc1"]["kernel"], m["fc1"]["bias"])
-    return h + dense(ckpt(act, f), m["fc2"]["kernel"], m["fc2"]["bias"])
+    activation, and never the attention forward.  On a mesh the dense
+    layers' weights are gathered for the forward and again for the
+    backward (``view_gathered_again``)."""
+    def norm(key, h):
+        n = compute_view(lp[key])
+        return layer_norm(h, n["scale"], n["bias"], eps)
+
+    x = ckpt(functools.partial(norm, "norm1"), h)
+    with view_gathered_again(lp, "attn", "mlp") as w:
+        h = _attend(w, h, *_qkv(w, x, H, D), attn)
+        x = ckpt(functools.partial(norm, "norm2"), h)
+        m = w["mlp"]
+        f = dense(x, m["fc1"]["kernel"], m["fc1"]["bias"])
+        return h + dense(ckpt(act, f), m["fc2"]["kernel"],
+                         m["fc2"]["bias"])
 
 
 def run_layers(layers: list, h, attn, H: int, D: int, eps: float, remat,

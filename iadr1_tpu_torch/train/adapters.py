@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from iadr1_tpu_torch.core.mesh import full, is_dtensor
+from iadr1_tpu_torch.core.mesh import full, is_dtensor, local
 from iadr1_tpu_torch.models.quant import (
     dequantize_kernel,
     is_quantized,
@@ -134,7 +134,9 @@ class MaskedOptimizer:
         params, grads = self._pick(params), self._pick(grads)
         kept = []
         if self.num_layers is not None and self.keep_from > 0:
-            kept = [(p, p[:self.keep_from].clone()) for p in params
+            # the layer axis is never sharded: a shard holds every layer
+            kept = [(local(p), local(p)[:self.keep_from].clone())
+                    for p in params
                     if p.dim() >= 1 and p.shape[0] == self.num_layers]
         self.inner.apply(params, grads, state, global_norm(grads))
         for p, rows in kept:

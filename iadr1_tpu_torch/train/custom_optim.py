@@ -11,6 +11,21 @@ paths too, in the JAX package's form ("text/layers/attn/q/kernel",
 dict: "count" (the steps taken) and lists parallel to the leaves, None
 where a leaf holds no such tensor, which the checkpoint saves by path.
 
+On a mesh the leaves are DTensors and each rank updates its own shards,
+as AdamW does: a state tensor shaped like its parameter is a DTensor with
+the parameter's placements, a reduced one (Adafactor's factors, Adam-mini's
+block moments, GaLore's and APOLLO's low-rank moments and projections)
+lies along the parameter's dims it keeps and is whole along the others.  A
+reduction over a sharded dim is this rank's partial sum all-reduced over
+the mesh axes that shard it (``core/mesh.py`` ``shard_sum``), divided by
+the dim's global size.  Muon's Newton-Schulz and GaLore's and APOLLO's
+projections read a whole matrix: where a mesh axis shards a leaf's
+matrices they gather one at a time, one layer of a stacked leaf
+(``gather_matrix``), and each rank keeps its own part of the result;
+elsewhere (a plain tensor included) they take a leaf's matrices in one
+batched call.  The update runs on the shards' plain tensors, never on
+DTensor ops, whose dispatch costs several times the host time.
+
 The arithmetic is the JAX package's, step for step: the gradients are
 clipped by their global norm first, then the optimizer's scaler, then
 decoupled weight decay, then the learning rate read at
@@ -34,7 +49,17 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from iadr1_tpu_torch.core.mesh import (
+    gather_matrix,
+    local,
+    local_part,
+    matrix_sharded,
+    placed_zeros,
+    shard_start,
+    shard_sum,
+)
 from iadr1_tpu_torch.train.optimizers import bias_correction, global_norm
 
 
@@ -51,6 +76,25 @@ def seeded_generator(*ints: int, device="cpu") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(state & (2 ** 63 - 1))
 
 
+def _matrices(p) -> list:
+    """The indices for ``gather_matrix`` of ``p``'s matrices: ``...``
+    alone (every matrix at once, a stack batched) where no mesh axis
+    shards them, as on a plain tensor; else each layer of a stacked [L,
+    a, b] leaf, or None for a 2-D one."""
+    if not matrix_sharded(p):
+        return [...]
+    return [None] if p.dim() == 2 else list(range(p.shape[0]))
+
+
+def _batched(fn, x):
+    """``fn`` of a [B, a, b] stack on ``x``, one matrix or a stack."""
+    return fn(x) if x.dim() == 3 else fn(x[None])[0]
+
+
+def _set_matrix(out, index, value) -> None:
+    (out if index is None else out[index]).copy_(value)
+
+
 def _adam_direction(g, m, v, b1, b2, eps, count):
     """Adam's moments updated in place; returns mhat / (sqrt(vhat) + eps)."""
     m.copy_(b1 * m + (1 - b1) * g)
@@ -60,14 +104,28 @@ def _adam_direction(g, m, v, b1, b2, eps, count):
     return mhat / (torch.sqrt(vhat) + eps)
 
 
+class _Shards:
+    """A state's per-leaf list, each tensor read as this rank's shard."""
+
+    def __init__(self, tensors):
+        self.tensors = tensors
+
+    def __getitem__(self, i):
+        t = self.tensors[i]
+        return None if t is None else local(t)
+
+
 class ChainOptimizer:
     """chain(clip_by_global_norm(max_grad_norm), <scaler>,
     add_decayed_weights(weight_decay), scale_by_learning_rate(schedule))
     over a list of leaves, in place.  A subclass is the scaler:
-    ``init_leaves`` fills the state's per-leaf lists, ``direction`` turns
-    one leaf's f32 gradient into its update direction at step ``count``
-    (from 1, optax's incremented count); ``lr_scale`` and ``decays`` set a
-    leaf's learning rate and whether it decays."""
+    ``init_leaves`` fills the state's per-leaf lists from the leaves (on
+    a mesh, DTensors), ``direction(i, g, p, state, count)`` turns one
+    leaf's f32 gradient into its update direction at step ``count`` (from
+    1, optax's incremented count): ``g`` and the state's tensors are this
+    rank's shards, ``p`` the leaf itself (its global shape and placements;
+    ``local(p)`` its values).  ``lr_scale`` and ``decays`` set a leaf's
+    learning rate and whether it decays."""
 
     def __init__(self, schedule, weight_decay: float = 0.0,
                  max_grad_norm: float | None = None):
@@ -113,14 +171,17 @@ class ChainOptimizer:
         count = state["count"]
         lr = self.schedule(count)
         self.begin(count)
+        shards = {k: _Shards(v) if isinstance(v, list) else v
+                  for k, v in state.items()}
         for i, (p, g) in enumerate(zip(params, grads)):
-            g = g.float()
+            g = local(g).float()
             if clip:
                 g = g / grad_norm * self.max_grad_norm
-            update = self.direction(i, g, p, state, count + 1)
+            update = self.direction(i, g, p, shards, count + 1)
+            w = local(p)
             if self.weight_decay and self.decays(i):
-                update = update + self.weight_decay * p
-            p.copy_(p + (-self.lr_scale(i, lr)) * update)
+                update = update + self.weight_decay * w
+            w.copy_(w + (-self.lr_scale(i, lr)) * update)
         state["count"] = count + 1
 
 
@@ -167,10 +228,35 @@ def canonical_signs(vectors: torch.Tensor, dim: int) -> torch.Tensor:
     return (vectors * torch.where(peak < 0, -1.0, 1.0)).contiguous()
 
 
+def _factor_dims(ndim: int, side: str):
+    """The parameter's dim each dim of (proj, low) lies along (None: the
+    rank dim, whole on every rank): proj keeps the projected dim, the
+    low-rank factor the other one.  ``ndim`` 2 gives one matrix's."""
+    batch = list(range(ndim - 2))
+    if side == "right":
+        return batch + [None, -1], batch + [-2, None]
+    return batch + [-2, None], batch + [None, -1]
+
+
 def _down(g, proj, side):
     if side == "right":
         return g @ proj.transpose(-1, -2)
     return proj.transpose(-1, -2) @ g
+
+
+def _low_rank(g, p, low, proj_of) -> None:
+    """``low`` (this rank's shard of the low-rank gradient) from ``g``, by
+    ``_matrices``: each matrix gathered onto every rank (``gather_matrix``)
+    and projected by ``proj_of(index, whole)`` -> (its whole projection,
+    side), this rank keeping its part.  The whole
+    product sums the projected dim in one process's order; partial
+    products summed over the ranks put APOLLO 7.2e-7 from one process
+    after two updates, where a channel's projection cancels."""
+    for index in _matrices(p):
+        whole = gather_matrix(g, p, index)
+        proj, side = proj_of(index, whole)
+        _set_matrix(low, index, local_part(_down(whole, proj, side), p,
+                                           _factor_dims(2, side)[1]))
 
 
 def _up(low, proj, side):
@@ -202,16 +288,17 @@ class GaLore(ChainOptimizer):
     def init_leaves(self, params) -> dict:
         proj, m, v = [], [], []
         for path, p in zip(self.paths, params):
-            f32 = dict(dtype=torch.float32, device=p.device)
             if self.is_target(path, p):
-                proj_shape, low_shape, _ = _project_shapes(p.shape, self.rank)
-                proj.append(torch.zeros(proj_shape, **f32))
-                m.append(torch.zeros(low_shape, **f32))
-                v.append(torch.zeros(low_shape, **f32))
+                proj_shape, low_shape, side = _project_shapes(p.shape,
+                                                              self.rank)
+                proj_dims, low_dims = _factor_dims(p.dim(), side)
+                proj.append(placed_zeros(proj_shape, p, proj_dims))
+                m.append(placed_zeros(low_shape, p, low_dims))
+                v.append(placed_zeros(low_shape, p, low_dims))
             else:
                 proj.append(None)
-                m.append(torch.zeros(p.shape, **f32))
-                v.append(torch.zeros(p.shape, **f32))
+                m.append(torch.zeros_like(p, dtype=torch.float32))
+                v.append(torch.zeros_like(p, dtype=torch.float32))
         return {"proj": proj, "m": m, "v": v}
 
     def direction(self, i, g, p, state, count):
@@ -219,10 +306,22 @@ class GaLore(ChainOptimizer):
         m, v = state["m"][i], state["v"][i]
         if proj is None:
             return _adam_direction(g, m, v, self.b1, self.b2, self.eps, count)
-        _, _, side = _project_shapes(g.shape, self.rank)
-        if (count - 1) % self.gap == 0:
-            proj.copy_(_svd_proj(g, min(self.rank, *g.shape[-2:]), side))
-        low = _down(g, proj, side)
+        _, _, side = _project_shapes(p.shape, self.rank)
+        refresh = (count - 1) % self.gap == 0
+        r = min(self.rank, *p.shape[-2:])
+        proj_dims = _factor_dims(p.dim(), side)[0]
+
+        def proj_of(index, whole):
+            # a refresh: the matrix's singular vectors, this rank keeping
+            # its part; else the kept projection gathered ([r, n] or [m, r])
+            if refresh:
+                out = _svd_proj(whole, r, side)
+                _set_matrix(proj, index, local_part(out, p, proj_dims[-2:]))
+                return out, side
+            return gather_matrix(proj, p, index, proj_dims), side
+
+        low = torch.empty_like(m)
+        _low_rank(g, p, low, proj_of)
         low_dir = _adam_direction(low, m, v, self.b1, self.b2, self.eps,
                                   count)
         return self.scale * _up(low_dir, proj, side)
@@ -272,38 +371,50 @@ class Apollo(ChainOptimizer):
         self.index = {i: k for k, i in enumerate(order)}
         m, v, prev = [], [], []
         for i, p in enumerate(params):
-            f32 = dict(dtype=torch.float32, device=p.device)
-            shape = (_project_shapes(p.shape, self.rank)[1]
-                     if i in self.index else p.shape)
-            m.append(torch.zeros(shape, **f32))
-            v.append(torch.zeros(shape, **f32))
-            prev.append(torch.zeros((), **f32) if i in self.index else None)
+            if i in self.index:
+                _, low_shape, side = _project_shapes(p.shape, self.rank)
+                low_dims = _factor_dims(p.dim(), side)[1]
+                m.append(placed_zeros(low_shape, p, low_dims))
+                v.append(placed_zeros(low_shape, p, low_dims))
+                prev.append(placed_zeros((), p, ()))
+            else:
+                m.append(torch.zeros_like(p, dtype=torch.float32))
+                v.append(torch.zeros_like(p, dtype=torch.float32))
+                prev.append(None)
         return {"m": m, "v": v, "prev_norm": prev}
 
     def direction(self, i, g, p, state, count):
         m, v = state["m"][i], state["v"][i]
         if i not in self.index:
             return _adam_direction(g, m, v, self.b1, self.b2, self.eps, count)
-        proj_shape, _, side = _project_shapes(g.shape, self.rank)
-        r = min(self.rank, *g.shape[-2:])
+        proj_shape, _, side = _project_shapes(p.shape, self.rank)
+        r = min(self.rank, *p.shape[-2:])
+        # every rank draws the same whole projection
         proj = self.projection(self.paths[i], self.index[i],
                                (count - 1) // self.gap, proj_shape, r,
                                g.device)
-        low = _down(g, proj, side)
+        low = torch.empty_like(m)
+        _low_rank(g, p, low, lambda index, _: (
+            proj if index is None else proj[index], side))
         low_dir = _adam_direction(low, m, v, self.b1, self.b2, self.eps,
                                   count)
         # channel = the dim not projected: rows for "right" ([*, m, r]),
-        # columns for "left" ([*, r, n])
+        # columns for "left" ([*, r, n]); the rank dim is whole on every
+        # rank, so a channel's norm is local
         ch = -1 if side == "right" else -2
         if self.scale_type == "channel":
             s = (torch.linalg.vector_norm(low_dir, dim=ch, keepdim=True)
                  / (torch.linalg.vector_norm(low, dim=ch, keepdim=True)
                     + self.eps))
         else:
-            s = (torch.linalg.vector_norm(low_dir)
-                 / (torch.linalg.vector_norm(low) + self.eps))
+            kept = [d for d in _factor_dims(p.dim(), side)[1]
+                    if d is not None]
+            sq = shard_sum(torch.stack([low_dir.square().sum(),
+                                        low.square().sum()]), p, kept)
+            s = torch.sqrt(sq[0]) / (torch.sqrt(sq[1]) + self.eps)
         direction = g * s * self.scale
-        norm = torch.linalg.vector_norm(direction)
+        norm = torch.sqrt(shard_sum(direction.square().sum(), p,
+                                     range(p.dim())))
         prev = state["prev_norm"][i]
         # the norm-growth limiter (APOLLO sec. 3.3)
         limit = torch.where(prev > 0, torch.minimum(
@@ -370,10 +481,9 @@ class BAdam(ChainOptimizer):
         self.stacked = [is_decoder_stack(path) and p.dim() >= 2
                         and p.shape[0] == self.L
                         for path, p in zip(self.paths, params)]
-        return {"m": [torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in params],
-                "v": [torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in params]}
+        f32 = torch.float32
+        return {"m": [torch.zeros_like(p, dtype=f32) for p in params],
+                "v": [torch.zeros_like(p, dtype=f32) for p in params]}
 
     def active_block(self, count: int) -> int:
         """The block that step ``count`` (from 0) updates; L is the extra
@@ -395,6 +505,7 @@ class BAdam(ChainOptimizer):
     def direction(self, i, g, p, state, count):
         m, v = state["m"][i], state["v"][i]
         L = self.L
+        # the mask runs along the layer axis, which is never sharded
         if self.stacked[i]:
             mask = (torch.arange(L, device=g.device) == self.active).float()
             mask = mask.reshape((L,) + (1,) * (g.dim() - 1))
@@ -422,7 +533,10 @@ class AdamMini(ChainOptimizer):
     per row; "attn/q" / "attn/k" kernels one per head with ``head_dim``
     (the fused tower "attn/qkv" included, as in JAX), else one per output
     neuron, as every other matrix; 1-D leaves elementwise.  The first
-    moments stay whole."""
+    moments stay whole.  A block's second moment is stored at each of its
+    elements' positions along the dims it keeps ([*, 1, n] for a head or a
+    neuron, [rows, 1] for a row), and on a mesh lies along those dims as
+    the parameter does."""
 
     def __init__(self, schedule, b1=0.9, b2=0.999, eps=1e-8,
                  head_dim: int | None = None, **kw):
@@ -441,31 +555,58 @@ class AdamMini(ChainOptimizer):
             return "head"
         return "neuron"
 
-    def v_reduce(self, path, g):
+    def v_dims(self, path, shape) -> list:
+        """The parameter's dim each dim of the second moment lies along
+        (None: a reduced dim, of size 1)."""
+        dims = list(range(len(shape)))
+        kind = self.block_of(path, shape)
+        if kind == "row":
+            dims[-1] = None
+        elif kind != "elementwise":
+            dims[-2] = None
+        return dims
+
+    def v_reduce(self, path, g, p):
+        """The block means of g^2 (``g`` this rank's shard of the
+        gradient of ``p``), at each element's position."""
         g2 = g.square()
-        kind = self.block_of(path, g.shape)
+        kind = self.block_of(path, p.shape)
         if kind == "elementwise":
             return g2
         if kind == "row":
-            return g2.mean(dim=-1, keepdim=True)
-        if kind == "head":
-            heads = g.shape[-1] // self.head_dim
-            shaped = g2.reshape(g.shape[:-1] + (heads, self.head_dim))
-            per_head = shaped.mean(dim=(-3, -1))               # [*, heads]
-            return per_head.repeat_interleave(self.head_dim,
-                                              dim=-1).unsqueeze(-2)
-        return g2.mean(dim=-2, keepdim=True)
+            return shard_sum(g2.sum(dim=-1, keepdim=True), p,
+                             (-1,)) / p.shape[-1]
+        col = shard_sum(g2.sum(dim=-2, keepdim=True), p, (-2,))
+        if kind == "neuron":
+            return col / p.shape[-2]
+        # each head's sum over this rank's columns, at its global index
+        # (a head may straddle two ranks' columns), summed over the ranks
+        hd, n = self.head_dim, col.shape[-1]
+        start = shard_start(p, -1)
+        lead = start % hd if n else 0
+        part = F.pad(col, (lead, -(lead + n) % hd)).unflatten(
+            -1, (-1, hd)).sum(dim=-1)
+        first = start // hd
+        per_head = col.new_zeros(col.shape[:-1] + (p.shape[-1] // hd,))
+        per_head[..., first:first + part.shape[-1]] = part
+        per_head = shard_sum(per_head, p, (-1,)) / (p.shape[-2] * hd)
+        return per_head[..., first:first + part.shape[-1]].repeat_interleave(
+            hd, dim=-1)[..., lead:lead + n]
 
     def init_leaves(self, params) -> dict:
-        return {"m": [torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in params],
-                "v": [torch.zeros_like(self.v_reduce(path, p.detach().float()))
-                      for path, p in zip(self.paths, params)]}
+        m, v = [], []
+        for path, p in zip(self.paths, params):
+            dims = self.v_dims(path, p.shape)
+            m.append(torch.zeros_like(p, dtype=torch.float32))
+            v.append(placed_zeros([1 if d is None else p.shape[d]
+                                   for d in dims], p, dims))
+        return {"m": m, "v": v}
 
     def direction(self, i, g, p, state, count):
         m, v = state["m"][i], state["v"][i]
         m.copy_(self.b1 * m + (1 - self.b1) * g)
-        v.copy_(self.b2 * v + (1 - self.b2) * self.v_reduce(self.paths[i], g))
+        v.copy_(self.b2 * v + (1 - self.b2) * self.v_reduce(self.paths[i],
+                                                            g, p))
         mhat = m / bias_correction(self.b1, count)
         vhat = v / bias_correction(self.b2, count)
         return mhat / (torch.sqrt(vhat) + self.eps)
@@ -507,7 +648,10 @@ class Muon(ChainOptimizer):
     """optax.contrib.muon as the JAX package calls it: on the Muon leaves,
     Nesterov momentum (``beta``) orthogonalized by Newton-Schulz, scaled
     by sqrt(max(1, fan_out / fan_in)), with weight decay; on the others,
-    AdamW with Nesterov momentum, optax's eps 1e-8 and no weight decay."""
+    AdamW with Nesterov momentum, optax's eps 1e-8 and no weight decay.
+    On a mesh that shards a leaf's matrices, Newton-Schulz runs a matrix
+    at a time (a layer of a stacked leaf), gathered onto every rank, each
+    keeping its part; else on the leaf's matrices at once."""
 
     def __init__(self, schedule, beta=0.95, weight_decay=0.0, adam_b1=0.9,
                  adam_b2=0.999, eps=1e-8, ns_steps=5, **kw):
@@ -518,11 +662,10 @@ class Muon(ChainOptimizer):
     def init_leaves(self, params) -> dict:
         self.is_muon = [muon_leaf(path, p)
                         for path, p in zip(self.paths, params)]
-        return {"mu": [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for p in params],
-                "nu": [None if m else torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device)
-                    for m, p in zip(self.is_muon, params)]}
+        f32 = torch.float32
+        return {"mu": [torch.zeros_like(p, dtype=f32) for p in params],
+                "nu": [None if m else torch.zeros_like(p, dtype=f32)
+                       for m, p in zip(self.is_muon, params)]}
 
     def decays(self, i):
         return self.is_muon[i]
@@ -534,10 +677,12 @@ class Muon(ChainOptimizer):
             mu.copy_((1 - b) * g + b * mu)
             mu_hat = (b * (mu / bias_correction(b, count + 1))
                       + (1 - b) * (g / bias_correction(b, count)))
-            x = mu_hat if mu_hat.dim() == 3 else mu_hat[None]
-            out = newton_schulz(x, self.ns_steps, self.eps)
-            out = out if mu_hat.dim() == 3 else out[0]
-            fan_in, fan_out = g.shape[-2], g.shape[-1]
+            out = torch.empty_like(mu_hat)
+            for index in _matrices(p):
+                _set_matrix(out, index, local_part(_batched(
+                    lambda x: newton_schulz(x, self.ns_steps, self.eps),
+                    gather_matrix(mu_hat, p, index)), p, (-2, -1)))
+            fan_in, fan_out = p.shape[-2], p.shape[-1]
             return math.sqrt(max(1.0, fan_out / fan_in)) * out
         nu, b1, b2 = state["nu"][i], self.b1, self.b2
         mu.copy_((1 - b1) * g + b1 * mu)
@@ -574,10 +719,9 @@ class LoraPlus(ChainOptimizer):
 
     def init_leaves(self, params) -> dict:
         self.groups = [loraplus_group(path) for path in self.paths]
-        return {"mu": [torch.zeros_like(p, dtype=torch.float32)
-                       for p in params],
-                "nu": [torch.zeros_like(p, dtype=torch.float32)
-                       for p in params]}
+        f32 = torch.float32
+        return {"mu": [torch.zeros_like(p, dtype=f32) for p in params],
+                "nu": [torch.zeros_like(p, dtype=f32) for p in params]}
 
     def lr_scale(self, i, lr):
         group = self.groups[i]
@@ -606,17 +750,16 @@ def _factored_dims(shape, min_dim_size_to_factor: int):
     return int(order[-2]), int(order[-1])
 
 
-def _safe_rms(x: torch.Tensor, min_rms: float) -> torch.Tensor:
-    return torch.sqrt(x.float().square().mean()).clamp(min=min_rms)
-
-
 class Adafactor(ChainOptimizer):
     """optax.adafactor(schedule) with its defaults: a factored second
     moment over the two largest dims when both are at least
     ``min_dim_size_to_factor`` (else elementwise), decay 1 - (t+1)^-0.8,
     eps 1e-30, updates clipped to block RMS 1, times the parameter's RMS
     (at least 1e-3), times the lr, descending; no weight decay.  The
-    moments take the parameter's dtype, as optax's do."""
+    moments take the parameter's dtype, as optax's do; on a mesh the row
+    and column factors lie along the dims they keep.  A factored leaf
+    takes four all-reduces: the two factors' means, the row factor's mean,
+    and the update's and the parameter's RMS together."""
 
     def __init__(self, schedule, min_dim_size_to_factor=128, decay_rate=0.8,
                  eps=1e-30, clipping_threshold=1.0, **kw):
@@ -634,13 +777,10 @@ class Adafactor(ChainOptimizer):
                 v_col.append(None)
                 v.append(torch.zeros_like(p))
             else:
-                d1, d0 = dims
-                v_row.append(torch.zeros(
-                    np.delete(p.shape, d0).tolist(), dtype=p.dtype,
-                    device=p.device))
-                v_col.append(torch.zeros(
-                    np.delete(p.shape, d1).tolist(), dtype=p.dtype,
-                    device=p.device))
+                for out, gone in ((v_row, dims[1]), (v_col, dims[0])):
+                    kept = [d for d in range(p.dim()) if d != gone]
+                    out.append(placed_zeros([p.shape[d] for d in kept], p,
+                                            kept, p.dtype))
                 v.append(None)
         return {"v_row": v_row, "v_col": v_col, "v": v}
 
@@ -648,7 +788,7 @@ class Adafactor(ChainOptimizer):
         t = torch.tensor(float(count), dtype=torch.float32)
         decay = float(1.0 - t ** (-self.decay_rate))
         grad_sqr = g.square() + self.eps
-        dims = _factored_dims(tuple(g.shape), self.min_dim)
+        dims = _factored_dims(tuple(p.shape), self.min_dim)
         if dims is None:
             v = state["v"][i]
             v.copy_(decay * v + (1.0 - decay) * grad_sqr)
@@ -656,19 +796,25 @@ class Adafactor(ChainOptimizer):
         else:
             d1, d0 = dims
             v_row, v_col = state["v_row"][i], state["v_col"][i]
-            v_row.copy_(decay * v_row + (1.0 - decay) * grad_sqr.mean(dim=d0))
-            v_col.copy_(decay * v_col + (1.0 - decay) * grad_sqr.mean(dim=d1))
+            v_row.copy_(decay * v_row + (1.0 - decay) * shard_sum(
+                grad_sqr.sum(dim=d0), p, (d0,)) / p.shape[d0])
+            v_col.copy_(decay * v_col + (1.0 - decay) * shard_sum(
+                grad_sqr.sum(dim=d1), p, (d1,)) / p.shape[d1])
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.float().mean(dim=reduced_d1, keepdim=True)
+            row_col_mean = shard_sum(v_row.float().sum(
+                dim=reduced_d1, keepdim=True), p, (d1,)) / p.shape[d1]
             row_factor = (v_row.float() / row_col_mean) ** -0.5
             col_factor = v_col.float() ** -0.5
             update = (g * row_factor.unsqueeze(d0)
                       * col_factor.unsqueeze(d1))
-        # clip_by_block_rms, then the parameter's scale (the lr comes
-        # after, in ``apply``: the products commute)
-        denom = torch.clamp(torch.sqrt(update.square().mean())
-                            / self.clipping_threshold, min=1.0)
-        return update / denom * _safe_rms(p, 1e-3)
+        # clip_by_block_rms, then the parameter's scale (at least 1e-3;
+        # the lr comes after, in ``apply``: the products commute)
+        sq = shard_sum(torch.stack([update.square().sum(),
+                                    local(p).float().square().sum()]),
+                       p, range(p.dim())) / p.numel()
+        denom = torch.clamp(torch.sqrt(sq[0]) / self.clipping_threshold,
+                            min=1.0)
+        return update / denom * torch.sqrt(sq[1]).clamp(min=1e-3)
 
 
 class Lion(ChainOptimizer):

@@ -115,9 +115,7 @@ class AdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...)),
     in place.  ``init(params, paths)`` -> state (AdamW reads no paths);
     ``apply(params, grads, state)`` updates ``params`` and ``state`` in
-    place; on DTensors, each rank's shards (``shard_local``)."""
-
-    shard_local = True
+    place; on DTensors, each rank's shards."""
 
     def __init__(self, schedule, b1, b2, eps, weight_decay, mu_dtype,
                  max_grad_norm):
@@ -171,20 +169,32 @@ class AdamW:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32 (optax).  Over
-    DTensors the sum is over the whole mesh, each element once: a shard
-    counts on the ranks at coordinate 0 of the axes it is replicated on,
-    and one all-reduce over every rank gives all of them the same norm
-    (the clipping decision must agree)."""
+    """sqrt of the sum of squares of every element, an f32 scalar (optax).
+    The f32 squares are summed in f64 and the root rounded to f32 once, so
+    the norm is the same however the elements are split and ordered: one
+    process's, and a mesh's whatever its shards.  Over DTensors the sum is
+    over the whole mesh, each element once: a shard counts on the ranks at
+    coordinate 0 of the axes it is replicated on, and one all-reduce over
+    every rank gives all of them the same norm (the clipping decision must
+    agree)."""
     tensors = list(tensors)
     if not any(is_dtensor(t) for t in tensors):
-        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
-    total = sum(local(t).float().square().sum() for t in tensors
+        return torch.sqrt(sum(_square_sum(t) for t in tensors)).float()
+    total = sum(_square_sum(local(t)) for t in tensors
                 if not is_dtensor(t) or _counted_here(t))
-    total = torch.as_tensor(total, dtype=torch.float32,
+    total = torch.as_tensor(total, dtype=torch.float64,
                             device=local(tensors[0]).device).clone()
     dist.all_reduce(total)
-    return torch.sqrt(total)
+    return torch.sqrt(total).float()
+
+
+def _square_sum(t) -> torch.Tensor:
+    """The f64 sum of t's f32 squares, a slice at a time (the f64
+    temporaries stay within one slice)."""
+    flat = t.float().reshape(-1)
+    return sum((flat[i:i + UPDATE_SLICE].square().sum(dtype=torch.float64)
+                for i in range(0, flat.numel(), UPDATE_SLICE)),
+               flat.new_zeros((), dtype=torch.float64))
 
 
 def _counted_here(t) -> bool:

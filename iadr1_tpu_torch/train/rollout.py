@@ -30,8 +30,8 @@ more, the MoE's experts split the same way, and DoRA's column norms are
 fixed once a copy (``tp_local_lora``).  Every tp rank then draws the same
 tokens from the same generator.  The vision tower is gathered whole and
 runs on every rank: it is under 1 GB in the tp recipes (CLIP-L-336 for
-LLaVA-NeXT-34B, the Qwen2.5-VL tower for 72B), as ``compute_view`` also
-gathers the towers whole for training.
+LLaVA-NeXT-34B, the Qwen2.5-VL tower for 72B).  Training gathers the
+towers a block at a time instead (``compute_view``).
 """
 
 from __future__ import annotations

@@ -7,12 +7,12 @@ gradients come as a list in that same order.  ``apply_gradients`` updates
 parameters and moments in place (the JAX state is rebuilt functionally;
 in place saves a parameter-sized copy at 2B scale).
 
-On a mesh (``core/mesh.py``) the leaves are DTensors.  An optimizer that
-declares ``shard_local`` (AdamW: elementwise, with a global norm that
-reduces over the mesh) updates each rank's shards in place; every other
-one runs on whole leaves, gathered for the update (its state whole on
-each rank), and each rank keeps its shard of the result, so its update
-is the one of a single process.
+On a mesh (``core/mesh.py``) the leaves are DTensors, and every
+optimizer runs on them as they are: ``init`` places each state tensor
+shaped like a parameter as that parameter (a DTensor with its
+placements), the others along the dims they keep, and ``apply`` updates
+each rank's shards in place (``train/optimizers.py``,
+``train/custom_optim.py``), gathering at most one matrix at a time.
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-
-from iadr1_tpu_torch.core.mesh import full, is_dtensor, local
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
@@ -66,47 +64,20 @@ class TrainState(NamedTuple):
     opt_state: Any
 
     def apply_gradients(self, grads, optimizer, grad_norm=None) -> "TrainState":
-        leaves = tree_leaves(self.params)
-        if gathers_leaves(optimizer, leaves):
-            _apply_gathered(optimizer, leaves, grads, self.opt_state,
-                            grad_norm)
-        else:
-            optimizer.apply(leaves, grads, self.opt_state, grad_norm)
+        optimizer.apply(tree_leaves(self.params), grads, self.opt_state,
+                        grad_norm)
         return self._replace(step=self.step + 1)
-
-
-def gathers_leaves(optimizer, leaves) -> bool:
-    """Whether ``optimizer`` runs on whole leaves: DTensor leaves and no
-    ``shard_local`` declaration."""
-    return (not getattr(optimizer, "shard_local", False)
-            and any(is_dtensor(p) for p in leaves))
-
-
-@torch.no_grad()
-def _apply_gathered(optimizer, leaves, grads, opt_state, grad_norm) -> None:
-    from torch.distributed.tensor import distribute_tensor
-
-    whole = [full(p).detach() for p in leaves]
-    optimizer.apply(whole, [full(g) for g in grads], opt_state,
-                    None if grad_norm is None else full(grad_norm))
-    for p, w in zip(leaves, whole):
-        if is_dtensor(p):
-            local(p).copy_(distribute_tensor(
-                w, p.device_mesh, p.placements, src_data_rank=None
-            ).to_local())
 
 
 def create_train_state(params: dict, optimizer) -> TrainState:
     """Marks every floating parameter as requiring grad and initialises
-    the optimizer's moments beside it; every optimizer's ``init(leaves,
-    paths)`` is given the leaves' paths (``leaf_paths``), which those that
-    choose by path read."""
+    the optimizer's moments beside it, from the leaves as they are (on a
+    mesh, the DTensors); every optimizer's ``init(leaves, paths)`` is
+    given the leaves' paths (``leaf_paths``), which those that choose by
+    path read."""
     leaves = tree_leaves(params)
     for p in leaves:
         if p.is_floating_point():
             p.requires_grad_(True)
-    if gathers_leaves(optimizer, leaves):
-        with torch.no_grad():
-            leaves = [full(p) for p in leaves]
     opt_state = optimizer.init(leaves, leaf_paths(params))
     return TrainState(step=0, params=params, opt_state=opt_state)

@@ -22,10 +22,17 @@ where the JAX package has the step at that mesh, to the JAX CLI run on
   draw other random numbers, so its tokens differ by design);
 * DPO through cli/train_pref.py at fsdp = 2 and at tp = 2;
 * do_predict after the SFT CLI at fsdp = 2: the one-process files;
-* one update of every optimizer at fsdp = 2, (2, 2, 1) and (1, 2, 2);
+* two updates of every optimizer at fsdp = 2, (2, 2, 1) and (1, 2, 2) on
+  the ranks' shards: the parameters those of one process, each rank's
+  optimizer state no larger than JAX's largest per-device state on the
+  same tree and mesh, the state shaped like a parameter placed as it, and
+  no gather larger than one matrix (none for the elementwise ones);
 * a global batch's placements and each rank's rows at (1, 2, 2);
 * a checkpoint saved on 2 ranks, byte for byte the one-process file, and
-  restored onto the mesh and onto one process; the HF export likewise.
+  restored onto the mesh and onto one process; the HF export likewise;
+  every optimizer's state likewise, its next update on the mesh after the
+  restore that of one process;
+* the SFT steps gather the Qwen2-VL tower one block at a time.
 
 The file's mesh runs are four spawned jobs of 2 and 4 processes
 (``torch_mesh_runs.MeshJobs``), run one after another from the module's
@@ -84,7 +91,7 @@ def inputs(tmp_path_factory):
     torch.save({"params": params, "axes": axes, "grads": grads},
                root / "optim.pt")
     gen = torch.Generator().manual_seed(9)
-    torch.save({"params": params, "axes": axes,
+    torch.save({"params": params, "axes": axes, "grads": grads,
                 "mu": [torch.randn(p.shape, generator=gen)
                        for p in tree_leaves(params)]}, root / "ckpt.pt")
     (root / "pairs.json").write_text(json.dumps(_pairs()))
@@ -137,7 +144,8 @@ def jobs(inputs, tmp_path_factory):
              {"name": "checkpoint", "case": "checkpoint",
               "args": {"mesh": [1, 2, 1], "inputs": str(i / "ckpt.pt"),
                        "dir": str(out("checkpoint")), "hf": TINY_QWEN2,
-                       "export": str(out("export"))}}]),
+                       "export": str(out("export")),
+                       "optims": {n: _optim_cfg(n) for n in OPTIMIZERS}}}]),
         (4, [optim["dp2_fsdp2"], optim["fsdp2_tp2"],
              {"name": "batch", "case": "batch",
               "args": {"mesh": [1, 2, 2]}}])])
@@ -253,6 +261,21 @@ def test_sft_cli_on_a_mesh_matches_one_process_and_jax(
         shapes = {tuple(map(tuple, s)) for s in r["flash_shapes"]}
         assert ((2, 2, 128, 16), (2, 1, 128, 16), (2, 1, 128, 16)) in shapes
         assert all(q[1] == 2 for q, _, _ in shapes)
+
+
+@pytest.mark.parametrize("mesh_id", list(SFT_MESHES))
+def test_sft_on_a_mesh_gathers_the_qwen2_vl_tower_a_block_at_a_time(
+        mesh_id, jobs):
+    """The tower's stacked blocks stay sharded through ``compute_view``
+    and each block is gathered inside its checkpoint: its 2 blocks, in
+    the forward and again in the replay, 2 steps; no gather larger than
+    one block's leaves, and no earlier block's weights alive when a block
+    starts."""
+    for r in jobs.result(f"sft_{mesh_id}"):
+        towers = r["tower_gathers"]
+        assert towers["calls"] == 2 * 2 * 2
+        assert 0 < towers["largest"] <= towers["block"]
+        assert towers["held"] == 0
 
 
 def _predict_cfg(inputs, out_dir):
@@ -384,36 +407,52 @@ def test_dpo_through_the_launcher_on_a_mesh(mesh_id, inputs, jobs, f32_port,
 # ---------------------------------------------------------------------------
 
 OPTIMIZERS = ("adamw", "sgd", "lion", "adafactor", "galore", "apollo",
-              "badam", "adam_mini", "muon")
+              "badam", "adam_mini", "muon", "loraplus")
+# the updates that read no whole matrix
+NO_GATHERS = ("adamw", "sgd", "lion", "adafactor", "badam", "adam_mini",
+              "loraplus")
 
 
 def _opt_tree():
     """A small decoder-shaped tree (paths the path-reading optimizers know)
-    with its logical axes, and gradients for it."""
+    with its logical axes, and two updates' gradients for it.  Adafactor
+    factors the embedding and the q and up kernels (both dims at least
+    128); k's 3 heads of 32 (Adam-mini's ``head_dim``) straddle the two tp
+    ranks' 48 columns each."""
     gen = torch.Generator().manual_seed(5)
-    params = {"embed": {"weight": torch.randn(16, 8, generator=gen)},
-              "layers": {"attn": {"q": {"kernel": torch.randn(
-                  2, 8, 12, generator=gen)}},
-                  "mlp": {"up": {"kernel": torch.randn(2, 8, 24,
-                                                       generator=gen)}},
-                  "input_norm": torch.ones(2, 8)},
-              "final_norm": torch.ones(8)}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    params = {"embed": {"weight": rnd(256, 128)},
+              "layers": {"attn": {"q": {"kernel": rnd(2, 128, 256)},
+                                  "k": {"kernel": rnd(2, 128, 96)}},
+                         "mlp": {"up": {"kernel": rnd(2, 128, 512)}},
+                         "input_norm": torch.ones(2, 128)},
+              "final_norm": torch.ones(128)}
     axes = {"embed": {"weight": ("vocab", "embed")},
-            "layers": {"attn": {"q": {"kernel": (None, "embed", "heads")}},
+            "layers": {"attn": {"q": {"kernel": (None, "embed", "heads")},
+                                "k": {"kernel": (None, "embed",
+                                                 "kv_heads")}},
                        "mlp": {"up": {"kernel": (None, "embed", "mlp")}},
                        "input_norm": (None, "norm")},
             "final_norm": ("norm",)}
-    from iadr1_tpu_torch.train.state import tree_leaves
-
-    grads = [torch.randn(p.shape, generator=gen) * 0.1
-             for p in tree_leaves(params)]
+    grads = [[rnd(*p.shape) * 0.1 for p in tree_leaves(params)]
+             for _ in range(2)]
     return params, axes, grads
 
 
+# the largest matrix of the tree: one layer of the MLP kernel, f32
+MATRIX_BYTES = 128 * 512 * 4
+
+
 def _optim_cfg(name):
-    return {"optimizer": name, "learning_rate": 1e-2, "total_steps": 4,
-            "warmup_ratio": 0.0, "galore_rank": 2, "apollo_rank": 2,
-            "badam_num_layers": 2}
+    cfg = {"optimizer": name, "learning_rate": 1e-2, "total_steps": 4,
+           "warmup_ratio": 0.0, "galore_rank": 2, "apollo_rank": 2,
+           "badam_num_layers": 2, "adam_mini_head_dim": 32}
+    if name == "loraplus":
+        cfg.update(optimizer="adamw", loraplus_lr_ratio=16.0)
+    return cfg
 
 
 OPTIMIZER_MESHES = {"fsdp2": (1, 2, 1), "dp2_fsdp2": (2, 2, 1),
@@ -422,14 +461,144 @@ OPTIMIZER_MESHES = {"fsdp2": (1, 2, 1), "dp2_fsdp2": (2, 2, 1),
 
 @pytest.fixture(scope="module")
 def optimizer_runs(jobs):
-    """Every optimizer's one update on each mesh, one run a mesh."""
+    """Every optimizer's two updates on each mesh, one run a mesh: (the
+    parameters after them, each rank's records)."""
     runs = {}
 
     def run(mesh_id):
         if mesh_id not in runs:
-            jobs.result(f"optim_{mesh_id}")
-            runs[mesh_id] = torch.load(os.path.join(
-                jobs.out(f"optim_{mesh_id}"), "params.pt"))
+            ranks = jobs.result(f"optim_{mesh_id}")
+            runs[mesh_id] = (torch.load(os.path.join(
+                jobs.out(f"optim_{mesh_id}"), "params.pt")),
+                [r["optims"] for r in ranks])
+        return runs[mesh_id]
+
+    return run
+
+
+def _one_process_updates(name, grads, checkpoint=None):
+    """The parameters of ``_opt_tree`` after ``grads``' updates on one
+    process; from the state saved under ``checkpoint`` (a directory)
+    when given, restored into a state of zeros."""
+    from iadr1_tpu_torch.train.checkpoint import CheckpointManager
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    opt, _ = make_optimizer(OptimizerConfig(**_optim_cfg(name)))
+    params = _opt_tree()[0]
+    if checkpoint is None:
+        state = create_train_state(params, opt)
+    else:
+        state = CheckpointManager(checkpoint).restore(create_train_state(
+            torch_mesh_worker.zeros_like_tree(params), opt))
+    for g in grads:
+        state = state.apply_gradients(g, opt)
+    return [p.detach() for p in tree_leaves(state.params)]
+
+
+@pytest.mark.parametrize("mesh_id", list(OPTIMIZER_MESHES))
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_each_optimizer_updates_a_sharded_leaf_as_one_process(
+        name, mesh_id, optimizer_runs):
+    """Each side clips by its own ``global_norm``: the ranks' over their
+    shards and the mesh, one process's over the whole leaves, which must
+    agree bitwise (one ulp of the clip factor, APOLLO's channel scales
+    turn into 3.6e-7 after two updates)."""
+    from iadr1_tpu_torch.train.optimizers import global_norm
+
+    grads = _opt_tree()[2]
+    want = _one_process_updates(name, grads)
+    got, ranks = optimizer_runs(mesh_id)
+    for g, w in zip(got[name], want, strict=True):
+        # each rank updates its shards: Adafactor's and Adam-mini's
+        # reductions over a sharded dim sum in another order than one
+        # process's (the others bitwise equal in every run so far)
+        torch.testing.assert_close(g, w, rtol=0, atol=3e-7)
+    for r in ranks:
+        torch.testing.assert_close(
+            torch.tensor(r[name]["grad_norms"]),
+            torch.stack([global_norm(g) for g in grads]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mesh_id", list(OPTIMIZER_MESHES))
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_each_optimizer_keeps_its_state_on_the_shards(name, mesh_id,
+                                                      optimizer_runs):
+    """The state shaped like a parameter is a DTensor placed as it; an
+    update gathers no matrix (the elementwise ones, Adafactor) or one at a
+    time, and only where a mesh axis shards the leaf's matrices: GaLore
+    and APOLLO each target matrix's gradient (6 an update), GaLore its
+    kept projections too after the refresh (6 more at update 2), Muon its
+    6 sharded matrices an update (the unsharded input norms take one
+    batched call).  Adam-mini's head means, k's straddling heads
+    included, reduce a [*, 1, heads] row and gather nothing."""
+    for r in optimizer_runs(mesh_id)[1]:
+        rec = r[name]
+        assert rec["placed"]
+        if name in NO_GATHERS:
+            assert rec["gathers"] == 0
+        else:
+            assert 0 < rec["largest_gather"] <= MATRIX_BYTES
+        want = {"galore": 18, "apollo": 12, "muon": 12}
+        if name in want:
+            assert rec["gathers"] == want[name]
+
+
+def _jax_state_bytes(shape) -> dict:
+    """{optimizer: [the largest per-device bytes of its state after update
+    1, after update 2]} in JAX: ``create_sharded_state`` and a jitted
+    ``apply_gradients`` on the first devices of the conftest's 8, the
+    tree placed by its logical axes."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from iadr1_tpu.core.mesh import MeshConfig, build_mesh, shard_pytree
+    from iadr1_tpu.core.mesh import set_kernel_mesh
+    from iadr1_tpu.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu.train.state import create_sharded_state
+    from iadr1_tpu_torch.train.state import named_leaves, unflatten
+
+    params, axes, grads = _opt_tree()
+    names = [n for n, _ in named_leaves(params)]
+    mesh = build_mesh(MeshConfig(*shape),
+                      devices=jax.devices()[:int(np.prod(shape))])
+    set_kernel_mesh(None)
+
+    def placed(leaves):
+        tree = unflatten({n: jnp.asarray(t.numpy())
+                          for n, t in zip(names, leaves)})
+        return shard_pytree(tree, axes, mesh)
+
+    def per_device(tree):
+        held = {}
+        for leaf in jax.tree.leaves(tree):
+            for shard in getattr(leaf, "addressable_shards", ()):
+                held[shard.device] = held.get(shard.device, 0) + (
+                    shard.data.nbytes)
+        return max(held.values())
+
+    jparams = placed(tree_leaves(params))
+    jgrads = [placed(g) for g in grads]
+    out = {}
+    for name in OPTIMIZERS:
+        opt, _ = make_optimizer(OptimizerConfig(**_optim_cfg(name)))
+        state = create_sharded_state(jparams, opt)
+        step = jax.jit(lambda s, g, opt=opt: s.apply_gradients(g, opt))
+        out[name] = []
+        for g in jgrads:
+            state = step(state, g)
+            out[name].append(per_device(state.opt_state))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_state_bytes():
+    runs = {}
+
+    def run(mesh_id):
+        if mesh_id not in runs:
+            runs[mesh_id] = _jax_state_bytes(OPTIMIZER_MESHES[mesh_id])
         return runs[mesh_id]
 
     return run
@@ -437,22 +606,17 @@ def optimizer_runs(jobs):
 
 @pytest.mark.parametrize("mesh_id", list(OPTIMIZER_MESHES))
 @pytest.mark.parametrize("name", OPTIMIZERS)
-def test_each_optimizer_updates_a_sharded_leaf_as_one_process(
-        name, mesh_id, optimizer_runs):
-    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
-    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
-
-    params, _, grads = _opt_tree()
-    opt, _ = make_optimizer(OptimizerConfig(**_optim_cfg(name)))
-    state = create_train_state(params, opt)
-    state.apply_gradients(grads, opt)
-    got = optimizer_runs(mesh_id)[name]
-    want = [p.detach() for p in tree_leaves(state.params)]
-    for g, w in zip(got, want, strict=True):
-        # AdamW's shards are updated in place, the others on whole leaves:
-        # the same arithmetic, the global norm summed in another order
-        # (bitwise equal in every run so far)
-        torch.testing.assert_close(g, w, rtol=0, atol=3e-7)
+def test_each_optimizer_holds_no_more_state_a_rank_than_jax(
+        name, mesh_id, optimizer_runs, jax_state_bytes):
+    """Each rank's optimizer-state bytes after updates 1 and 2 against
+    JAX's largest per-device bytes on the same tree and mesh (whose
+    propagation shards the state from the first update on; its step
+    counts are device arrays, the port's a Python int)."""
+    want = jax_state_bytes(mesh_id)[name]
+    for r in optimizer_runs(mesh_id)[1]:
+        got = r[name]["state_bytes"]
+        assert len(got) == 2
+        assert all(g <= w for g, w in zip(got, want)), (got, want)
 
 
 TINY_QWEN2 = dict(architectures=["Qwen2ForCausalLM"], model_type="qwen2",
@@ -503,6 +667,33 @@ def test_a_checkpoint_saved_on_two_ranks_is_the_one_process_file(
         seed=0, dtype=torch.float32, device="cpu"), str(tmp_path / "export"))
     assert ((export_mesh / "model.safetensors").read_bytes()
             == (tmp_path / "export" / "model.safetensors").read_bytes())
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_every_optimizer_s_checkpoint_on_two_ranks_is_the_one_process_file(
+        name, jobs, tmp_path):
+    """Its state (``torch_mesh_worker.fill_state``) saved from fsdp = 2 is
+    the one-process file byte for byte; restored onto the mesh it equals
+    what was saved, and the next update there is that of one process
+    restored from the same file."""
+    from iadr1_tpu_torch.train.checkpoint import CheckpointManager
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state
+
+    assert all(r["optims"][name] for r in jobs.result("checkpoint"))
+    params, _, grads = _opt_tree()
+    opt, _ = make_optimizer(OptimizerConfig(**_optim_cfg(name)))
+    state = create_train_state(params, opt)
+    torch_mesh_worker.fill_state(state.opt_state)
+    CheckpointManager(str(tmp_path / name)).save(1, state._replace(step=1))
+    mesh_dir = jobs.outputs("checkpoint") / name
+    assert ((mesh_dir / "1.safetensors").read_bytes()
+            == (tmp_path / name / "1.safetensors").read_bytes())
+    want = _one_process_updates(name, grads[1:], str(mesh_dir))
+    got = torch.load(os.path.join(jobs.out("checkpoint"),
+                                  f"params_{name}.pt"))
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g, w, rtol=0, atol=3e-7)
 
 
 def test_a_global_batch_places_each_rank_s_rows(jobs):

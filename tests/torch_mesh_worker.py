@@ -104,6 +104,98 @@ def count_layer_gathers(patch=setattr) -> list:
     return count
 
 
+# the modules whose block loops gather a tower block at a time
+TOWER_MODULES = ("qwen2_vl", "qwen25_vl", "siglip", "internvl", "pixtral")
+
+
+def _mesh_bytes(tree) -> int:
+    """The global bytes of the leaves of ``tree`` that are DTensors on the
+    (dp, fsdp, tp) mesh (the shards a gather reads whole)."""
+    from iadr1_tpu_torch.core.mesh import is_dtensor
+    from iadr1_tpu_torch.train.state import tree_leaves
+
+    leaves = tree_leaves(tree) if isinstance(tree, dict) else [tree]
+    return sum(t.numel() * t.element_size() for t in leaves
+               if is_dtensor(t) and t.device_mesh.ndim == 3)
+
+
+# the block functions of the tower modules (each module has some of them)
+TOWER_BLOCKS = ("_block", "_block_save_flash", "_block_save_acts",
+                "_tower_block", "_tower_block_save_acts")
+
+
+def count_tower_gathers(patch=setattr) -> dict:
+    """The towers' gathers of their blocks' shards (``compute_view``,
+    ``compute_view_of`` and ``view_gathered_again`` called by the tower
+    modules on mesh DTensors): {"calls", "largest": the most bytes one
+    call gathered, "block": the bytes of one block of the largest tower
+    stack the run's train state holds, "held": the most bytes of the
+    weights that earlier blocks' dense layers read (each kernel as the
+    layer casts it) still alive when a block starts, so kept for the
+    backward}."""
+    import importlib
+    import weakref
+
+    from iadr1_tpu_torch.core.mesh import TOWER_LAYERS, local
+    from iadr1_tpu_torch.train import state
+
+    seen = {"calls": 0, "largest": 0, "block": 0, "held": 0}
+    read, inside = [], []
+
+    def counted(fn):
+        def call(tree, *keys):
+            n = _mesh_bytes({k: tree[k] for k in keys} if keys else tree)
+            if n:
+                seen["calls"] += 1
+                seen["largest"] = max(seen["largest"], n)
+            return fn(tree, *keys)
+        return call
+
+    def recorded(dense):
+        def call(x, kernel, bias=None):
+            if inside and isinstance(kernel, torch.Tensor):
+                kernel = kernel.to(x.dtype)
+                read.append((weakref.ref(kernel), local(kernel).nbytes))
+            return dense(x, kernel, bias)
+        return call
+
+    def block(fn):
+        def call(*args, **kw):
+            read[:] = [(r, n) for r, n in read if r() is not None]
+            seen["held"] = max(seen["held"], sum(n for _, n in read))
+            inside.append(fn)
+            try:
+                return fn(*args, **kw)
+            finally:
+                inside.pop()
+        return call
+
+    for name in TOWER_MODULES:
+        mod = importlib.import_module(f"iadr1_tpu_torch.models.{name}")
+        for fn in ("compute_view", "compute_view_of", "view_gathered_again"):
+            if hasattr(mod, fn):
+                patch(mod, fn, counted(getattr(mod, fn)))
+        patch(mod, "dense", recorded(mod.dense))
+        for fn in TOWER_BLOCKS:
+            if hasattr(mod, fn):
+                patch(mod, fn, block(getattr(mod, fn)))
+    create = state.create_train_state
+
+    def created(params, optimizer):
+        for path in TOWER_LAYERS:
+            node = params
+            for key in path:
+                node = node.get(key) if isinstance(node, dict) else None
+            leaves = state.tree_leaves(node) if node else []
+            if leaves:
+                seen["block"] = max(seen["block"],
+                                    _mesh_bytes(node) // leaves[0].shape[0])
+        return create(params, optimizer)
+
+    patch(state, "create_train_state", created)
+    return seen
+
+
 def record_base(patch=setattr) -> dict:
     """Snapshot (whole) the frozen base a LoRA GRPOTrainer is given, and
     compare it at the end: {"check": () -> whether it is bitwise unchanged
@@ -294,6 +386,7 @@ def case_cli(args, patch=setattr) -> dict:
             patch)
     base = record_base(patch) if args.get("record_base") else None
     gathers = count_layer_gathers(patch)
+    towers = count_tower_gathers(patch)
     main = importlib.import_module(
         f"iadr1_tpu_torch.cli.{args['cli']}").main
     rc = main(["--config", args["config"], "--device", "cpu"]
@@ -303,7 +396,8 @@ def case_cli(args, patch=setattr) -> dict:
     mesh = kernel_mesh()
     out = {"rc": rc, "mesh": None if mesh is None else mesh_shape(mesh),
            **_kernel_shapes(),
-           "layer_gathers": gathers[0], "leaf_kinds": kinds}
+           "layer_gathers": gathers[0], "tower_gathers": towers,
+           "leaf_kinds": kinds}
     if tokens is not None:
         out["tokens"] = [t.tolist() for t in tokens]
     if base is not None:
@@ -374,39 +468,101 @@ def case_kernels(args) -> dict:
     return _kernel_shapes()
 
 
+def opt_state_bytes(state) -> int:
+    """The bytes of an optimizer state this rank holds: every tensor of
+    its per-leaf lists, a DTensor's local shard."""
+    from iadr1_tpu_torch.core.mesh import local
+
+    return sum(local(t).nbytes for v in state.values() if isinstance(v, list)
+               for t in v if t is not None)
+
+
+def state_placed_as_params(state, leaves) -> bool:
+    """Whether every state tensor shaped like its parameter is a DTensor
+    with the parameter's placements."""
+    from torch.distributed.tensor import DTensor
+
+    return all(isinstance(t, DTensor) and t.placements == p.placements
+               for v in state.values() if isinstance(v, list)
+               for t, p in zip(v, leaves)
+               if t is not None and t.shape == p.shape)
+
+
 def case_optimizer(args) -> dict:
-    """One update of each optimizer of ``args["optims"]`` on a small tree
-    sharded by its logical axes: the parameters after it, gathered, from
-    rank 0 ({name: [leaves]})."""
+    """Two updates of each optimizer of ``args["optims"]`` on a small tree
+    sharded by its logical axes: the parameters after them, gathered, from
+    rank 0 ({name: [leaves]}); each rank's optimizer-state bytes after each
+    update, whether the state lies as the parameters, and the matrices the
+    updates gathered (``core/mesh.py`` MATRIX_GATHERS)."""
     from torch.distributed.tensor import distribute_tensor
 
-    from iadr1_tpu_torch.core.mesh import shard_pytree
-    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.core.mesh import MATRIX_GATHERS, shard_pytree
+    from iadr1_tpu_torch.train.optimizers import (
+        OptimizerConfig,
+        global_norm,
+        make_optimizer,
+    )
     from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
 
     mesh = _mesh(args["mesh"])
     inputs = torch.load(args["inputs"])
-    updated, sharded = {}, True
+    updated, sharded, out = {}, True, {}
     for name, optim in args["optims"].items():
         params = shard_pytree(inputs["params"], inputs["axes"], mesh)
         opt, _ = make_optimizer(OptimizerConfig(**optim))
         state = create_train_state(params, opt)
         leaves = tree_leaves(state.params)
-        grads = [distribute_tensor(g, p.device_mesh, p.placements,
-                                   src_data_rank=None)
-                 for g, p in zip(inputs["grads"], leaves)]
-        state.apply_gradients(grads, opt)
+        MATRIX_GATHERS.__init__()
+        state_bytes, norms = [], []
+        for step_grads in inputs["grads"]:
+            grads = [distribute_tensor(g, p.device_mesh, p.placements,
+                                       src_data_rank=None)
+                     for g, p in zip(step_grads, leaves)]
+            norms.append(float(global_norm(grads)))
+            state = state.apply_gradients(grads, opt)
+            state_bytes.append(opt_state_bytes(state.opt_state))
         updated[name] = [p.full_tensor().detach().clone() for p in leaves]
         sharded &= all(type(p).__name__ == "DTensor" for p in leaves)
+        out[name] = {"state_bytes": state_bytes, "grad_norms": norms,
+                     "placed": state_placed_as_params(state.opt_state,
+                                                      leaves),
+                     "gathers": MATRIX_GATHERS.calls,
+                     "largest_gather": MATRIX_GATHERS.largest}
     if dist.get_rank() == 0:
         torch.save(updated, os.path.join(args["out"], "params.pt"))
-    return {"dtensor": sharded}
+    return {"dtensor": sharded, "optims": out}
+
+
+def fill_state(state) -> None:
+    """Every tensor of an optimizer state's per-leaf lists set to values
+    drawn from a seed (in [0.1, 1.1): a second moment's square root is
+    taken), the same whole tensors on every rank and on one process, each
+    rank keeping its shard; the count set to 1."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    for k, key in enumerate(sorted(k for k, v in state.items()
+                                   if isinstance(v, list))):
+        for i, t in enumerate(state[key]):
+            if t is None:
+                continue
+            gen = torch.Generator().manual_seed(1000 * k + i)
+            whole = (torch.rand(t.shape, generator=gen) + 0.1).to(t.dtype)
+            if isinstance(t, DTensor):
+                whole = distribute_tensor(whole, t.device_mesh, t.placements,
+                                          src_data_rank=None).to_local()
+                t = t.to_local()
+            t.copy_(whole)
+    state["count"] = 1
 
 
 def case_checkpoint(args) -> dict:
     """A state sharded by its logical axes saved through CheckpointManager
     (rank 0 writes), then restored onto the same mesh; a tiny Qwen2's
-    sharded parameters exported by ``save_pretrained``."""
+    sharded parameters exported by ``save_pretrained``.  Then each
+    optimizer of ``args["optims"]``: its state filled (``fill_state``),
+    saved at step 1, restored into a fresh mesh state, which takes the
+    second update of ``case_optimizer``'s gradients: its parameters after
+    it, gathered, from rank 0 (``params_{name}.pt``)."""
     from iadr1_tpu_torch.core.mesh import shard_pytree
     from iadr1_tpu_torch.train.checkpoint import CheckpointManager
     from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
@@ -438,8 +594,163 @@ def case_checkpoint(args) -> dict:
     params = bundle.init_params(seed=0, dtype=torch.float32, device="cpu")
     save_pretrained(bundle, shard_pytree(params, bundle.logical_axes(), mesh),
                     args["export"])
+    restored = {}
+    for name, optim in args.get("optims", {}).items():
+        restored[name] = _optimizer_checkpoint(name, optim, inputs, mesh,
+                                               args)
     return {"restored": same, "step": fresh.step,
-            "count": fresh.opt_state["count"]}
+            "count": fresh.opt_state["count"], "optims": restored}
+
+
+def _optimizer_checkpoint(name, optim, inputs, mesh, args) -> bool:
+    """``case_checkpoint``'s round trip of one optimizer's state; whether
+    the restored state equals the saved one, tensor for tensor."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from iadr1_tpu_torch.core.mesh import full, shard_pytree
+    from iadr1_tpu_torch.train.checkpoint import CheckpointManager
+    from iadr1_tpu_torch.train.optimizers import OptimizerConfig, make_optimizer
+    from iadr1_tpu_torch.train.state import create_train_state, tree_leaves
+
+    opt, _ = make_optimizer(OptimizerConfig(**optim))
+    state = create_train_state(
+        shard_pytree(inputs["params"], inputs["axes"], mesh), opt)
+    fill_state(state.opt_state)
+    mgr = CheckpointManager(os.path.join(args["dir"], name))
+    mgr.save(1, state._replace(step=1))
+    fresh = mgr.restore(create_train_state(
+        shard_pytree(zeros_like_tree(inputs["params"]), inputs["axes"],
+                     mesh), opt))
+    same = fresh.opt_state["count"] == 1 and all(
+        torch.equal(full(a), full(b))
+        for key, v in state.opt_state.items() if isinstance(v, list)
+        for a, b in zip(fresh.opt_state[key], v) if b is not None)
+    leaves = tree_leaves(fresh.params)
+    fresh.apply_gradients(
+        [distribute_tensor(g, p.device_mesh, p.placements, src_data_rank=None)
+         for g, p in zip(inputs["grads"][1], leaves)], opt)
+    after = [full(p).detach() for p in leaves]
+    if dist.get_rank() == 0:
+        torch.save(after, os.path.join(args["out"], f"params_{name}.pt"))
+    return same
+
+
+def case_tower_views(args) -> dict:
+    """``compute_view`` of each family's whole parameter tree (tiny HF
+    configs ``args["families"]``, f32 from a seed) sharded on the mesh:
+    {family: {"stacks": the TOWER_LAYERS paths the tree holds, "sharded":
+    whether their leaves come back as the mesh's own DTensors, "gathered":
+    whether every leaf outside them and the decoder's stack
+    (DECODER_LAYERS) comes back a plain tensor (tp = 1)}}."""
+    from iadr1_tpu_torch.core.mesh import (
+        DECODER_LAYERS,
+        TOWER_LAYERS,
+        compute_view,
+        is_dtensor,
+        shard_pytree,
+    )
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.state import named_leaves
+
+    mesh = _mesh(args["mesh"])
+    out = {}
+    for family, hf in args["families"].items():
+        bundle = bundle_from_hf_config(hf)
+        params = shard_pytree(bundle.init_params(
+            seed=0, dtype=torch.float32, device="cpu"), bundle.logical_axes(),
+            mesh)
+        view = dict(named_leaves(compute_view(params), sep="/"))
+        stacks = ["/".join(p) for p in TOWER_LAYERS
+                  if any(n.startswith("/".join(p) + "/") for n in view)]
+        decoder = ["/".join(p) for p in DECODER_LAYERS]
+
+        def under(n, paths):
+            return any(n.startswith(p + "/") for p in paths)
+
+        whole = dict(named_leaves(params, sep="/"))
+        out[family] = {
+            "stacks": stacks,
+            "sharded": all(view[n] is whole[n] for n in view
+                           if under(n, stacks)),
+            "gathered": all(not is_dtensor(view[n]) for n in view
+                            if not under(n, stacks + decoder))}
+    return out
+
+
+def case_tower_remat(args) -> dict:
+    """The towers of tiny Qwen2-VL and LLaVA-OneVision (SigLIP)
+    (``args["families"]``: family -> HF config), f32 parameters from a
+    seed sharded on the mesh, computing in bf16 (the default precision),
+    on inputs from a seed, under each remat mode of ``REMATS``: rank 0
+    saves each one's output and the parameters' gradients gathered
+    ({family: {mode: [output, *grads]}}, ``towers.pt``); every rank
+    returns each run's ``count_tower_gathers`` records."""
+    from iadr1_tpu_torch.core.mesh import (
+        compute_view,
+        full,
+        mesh_scope,
+        shard_pytree,
+    )
+    from iadr1_tpu_torch.models import qwen2_vl, siglip
+    from iadr1_tpu_torch.models.registry import bundle_from_hf_config
+    from iadr1_tpu_torch.train.state import tree_leaves
+
+    mesh = _mesh(args["mesh"])
+    gen = torch.Generator().manual_seed(11)
+    saved, records = {}, {}
+    for family, hf in args["families"].items():
+        bundle = bundle_from_hf_config(hf)
+        cfg, precision = bundle.cfg.vision, bundle.precision
+        params = {"vision": shard_pytree(bundle.init_params(
+            seed=0, dtype=torch.float32, device="cpu"),
+            bundle.logical_axes(), mesh)["vision"]}
+        if family == "qwen2_vl":
+            P = 16
+            inputs = (torch.randn(P, cfg.patch_dim, generator=gen),
+                      torch.randn(P, cfg.head_dim, generator=gen),
+                      torch.randn(P, cfg.head_dim, generator=gen),
+                      torch.tensor([1] * 8 + [2] * 8))
+
+            def tower(view, remat, inputs=inputs, cfg=cfg):
+                return qwen2_vl.apply_vision(view, cfg, *inputs,
+                                             precision=precision,
+                                             remat=remat)
+        else:
+            tiles = torch.randn(2, (cfg.image_size // cfg.patch_size) ** 2,
+                                3 * cfg.patch_size ** 2, generator=gen)
+
+            def tower(view, remat, tiles=tiles, cfg=cfg):
+                return siglip.apply(view, cfg, tiles, precision, remat)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        saved[family], records[family] = {}, {}
+        for remat in REMATS:
+            undo = []
+
+            def patch(obj, name, value):
+                undo.append((obj, name, getattr(obj, name)))
+                setattr(obj, name, value)
+
+            seen = count_tower_gathers(patch)
+            try:
+                with mesh_scope():
+                    out = tower(compute_view(params)["vision"], remat)
+                    grads = torch.autograd.grad(
+                        out.float().square().sum(), leaves)
+            finally:
+                for obj, name, value in reversed(undo):
+                    setattr(obj, name, value)
+            saved[family][str(remat)] = [full(out).detach()] + [
+                g.full_tensor() for g in grads]
+            records[family][str(remat)] = seen
+    if dist.get_rank() == 0:
+        torch.save(saved, os.path.join(args["out"], "towers.pt"))
+    return records
+
+
+# the tower remat modes ``case_tower_remat`` runs
+REMATS = ("save_acts", False)
 
 
 def case_batch(args) -> dict:
@@ -665,7 +976,8 @@ def case_jobs(args) -> dict:
 CASES = {"cli": case_cli, "pipeline": case_pipeline, "kernels": case_kernels, "batch": case_batch,
          "optimizer": case_optimizer, "checkpoint": case_checkpoint,
          "lora_sft": case_lora_sft, "load": case_load,
-         "fused_ce": case_fused_ce}
+         "fused_ce": case_fused_ce, "tower_views": case_tower_views,
+         "tower_remat": case_tower_remat}
 
 
 def main():
